@@ -1,0 +1,528 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
+
+Run from the root of a checkout, on a machine with a CUDA card and nvcc:
+
+    python3 chip_smoke.py
+
+Phases, one line each; any failure exits non-zero:
+
+1. the card's name and power limit (nvidia-smi), then the build of every
+   ``speechsplit_tpu_torch/csrc/*.cu`` kernel with nvcc for sm_90a;
+2. each kernel against its plain PyTorch version on the card, at the
+   shapes the conversion path gives it, with its time, the plain
+   version's time, the least time the card could take (bound) and a
+   cuDNN LSTM as a yardstick;
+3. full-width ``convert_batched``: 4 synthetic pairs x 7 conditions
+   through seeded default-config models, checked finite, against the
+   same call on the plain versions and against the per-utterance
+   ``convert`` (batch 1), and through both kernels (launch counts set
+   to 0 just before and read just after), timed per call;
+4. one ``convert_batched`` call under ``torch.profiler``: device time by
+   op and the card's idle share of the call;
+5. the normal entry point ``cli.convert`` on reference-format ``.ckpt``
+   files and a demo-style metadata pickle, writing 7 mels.
+
+The last two lines are the kernels' JSON record and
+``{"ok": true, "device": {...}}``. Without CUDA, or outside the repo, it
+exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
+import time
+
+T = 192
+SEED = 0
+# H100 SXM published peaks (NVIDIA data sheet): float32 outside the
+# tensor cores, and HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# sums of 192 dependent float32 steps taken in another order than the
+# plain version's matmul: a few ulps a step, compounded
+KERNEL_TOL = 1e-4
+# the whole model in another order end to end (PARITY.md demo bar 5e-4)
+PATH_TOL = 5e-4
+
+
+def log(phase: str, **fields) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
+          flush=True)
+
+
+def fail(message: str) -> None:
+    print(f"chip_smoke: FAILED: {message}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of one call, by CUDA events over ``reps`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+@contextlib.contextmanager
+def strict_float32():
+    """Comparisons in full float32: no TF32 in cuDNN convs or matmuls."""
+    import torch
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("tf32", cudnn_allow_tf32=False, matmul_allow_tf32=False,
+        scope="comparison")
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the model's kernel calls to the plain PyTorch versions."""
+    from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
+
+    saved = (bilstm.bilstm_sequence, multi_bilstm.multi_bilstm_sequence)
+    bilstm.bilstm_sequence = bilstm.bilstm_sequence_reference
+    multi_bilstm.multi_bilstm_sequence = (
+        multi_bilstm.multi_bilstm_sequence_reference
+    )
+    try:
+        yield
+    finally:
+        bilstm.bilstm_sequence, multi_bilstm.multi_bilstm_sequence = saved
+
+
+def lstm_bound(t: int, b: int, hs) -> tuple[float, str]:
+    """Least time for BiLSTM recurrences of widths ``hs`` (one entry per
+    direction) over given xp and W_hh: max(flops/peak, bytes/peak)."""
+    flops = 0.0
+    nbytes = 0.0
+    for h in hs:
+        flops += t * b * (2 * h * 4 * h + 10 * h)  # step product + cell
+        nbytes += 4 * (t * b * 4 * h + 4 * h * h + t * b * h)
+    by_ops = flops / PEAK_F32_FLOPS * 1e3
+    by_bytes = nbytes / PEAK_BYTES * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (
+        by_bytes, "bytes")
+
+
+def cudnn_yardstick(xp_f, xp_b, w_f, w_b):
+    """A bidirectional cuDNN LSTM computing the same (h_f, h_b) from the
+    same xp: input [xp_f | xp_b] through identity/zero input weights."""
+    import torch
+
+    t_len, batch, four_h = xp_f.shape
+    h = four_h // 4
+    lstm = torch.nn.LSTM(2 * four_h, h, bidirectional=True).to(xp_f.device)
+    eye = torch.eye(four_h, device=xp_f.device)
+    zero = torch.zeros_like(eye)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(torch.cat([eye, zero], 1))
+        lstm.weight_ih_l0_reverse.copy_(torch.cat([zero, eye], 1))
+        lstm.weight_hh_l0.copy_(w_f)
+        lstm.weight_hh_l0_reverse.copy_(w_b)
+        for name in ("bias_ih_l0", "bias_hh_l0", "bias_ih_l0_reverse",
+                     "bias_hh_l0_reverse"):
+            getattr(lstm, name).zero_()
+    x = torch.cat([xp_f, xp_b], -1).contiguous()
+    return lstm, x
+
+
+def phase_build() -> float:
+    from speechsplit_tpu_torch.ops import _build
+
+    seconds = _build.build_all()
+    for stem in ("bilstm_infer", "multi_bilstm_infer"):
+        _build.load(stem)
+    log("build", kernels="bilstm_infer,multi_bilstm_infer",
+        seconds=f"{seconds:.2f}", arch="sm_90a")
+    return seconds
+
+
+def check_bilstm(b: int, h: int, reps: int) -> dict:
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + h + b)
+    dev = "cuda"
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    xp_f, xp_b = rand(T, b, 4 * h), rand(T, b, 4 * h)
+    w_f, w_b = rand(4 * h, h, scale=h ** -0.5), rand(4 * h, h, scale=h ** -0.5)
+    got = bilstm.bilstm_sequence(xp_f, xp_b, w_f, w_b)
+    want = bilstm.bilstm_sequence_reference(xp_f, xp_b, w_f, w_b)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    lstm, x = cudnn_yardstick(xp_f, xp_b, w_f, w_b)
+    with torch.no_grad():
+        lib_out = lstm(x)[0]
+        lib_err = float((lib_out - torch.cat(got, -1)).abs().max())
+        library_ms = time_ms(lambda: lstm(x), reps)
+    ms = time_ms(lambda: bilstm.bilstm_sequence(xp_f, xp_b, w_f, w_b), reps)
+    plain_ms = time_ms(
+        lambda: bilstm.bilstm_sequence_reference(xp_f, xp_b, w_f, w_b), 2,
+        warmup=1)
+    bound_ms, bound_by = lstm_bound(T, b, [h, h])
+    row = dict(shape=f"T{T}xB{b}xH{h}", max_abs_err=err, tol=KERNEL_TOL, ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms, library_err=lib_err)
+    log("kernel bilstm_infer", **{k: (f"{v:.6g}" if isinstance(v, float)
+                                      else v) for k, v in row.items()})
+    if not err <= KERNEL_TOL:
+        fail(f"bilstm_infer {row['shape']}: max abs err {err} > {KERNEL_TOL}")
+    return row
+
+
+def check_multi(b: int, hs, reps: int) -> dict:
+    import torch
+
+    from speechsplit_tpu_torch.ops import multi_bilstm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7 * b)
+    dev = "cuda"
+    xps, ws = [], []
+    for h in hs:
+        for _ in range(2):
+            xps.append(torch.randn(T, b, 4 * h, device=dev, generator=gen))
+            ws.append(torch.randn(4 * h, h, device=dev, generator=gen)
+                      * h ** -0.5)
+    n = len(hs)
+    got = multi_bilstm.multi_bilstm_sequence(n, *xps, *ws)
+    want = multi_bilstm.multi_bilstm_sequence_reference(n, *xps, *ws)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    ms = time_ms(lambda: multi_bilstm.multi_bilstm_sequence(n, *xps, *ws),
+                 reps)
+    plain_ms = time_ms(lambda: multi_bilstm.multi_bilstm_sequence_reference(
+        n, *xps, *ws), 2, warmup=1)
+    # yardstick only (no single library call runs n LSTMs of mixed
+    # widths): one cuDNN call per stream, summed
+    cudnn_ms = 0.0
+    for s in range(n):
+        lstm, x = cudnn_yardstick(xps[2 * s], xps[2 * s + 1], ws[2 * s],
+                                  ws[2 * s + 1])
+        with torch.no_grad():
+            cudnn_ms += time_ms(lambda: lstm(x), reps)
+    bound_ms, bound_by = lstm_bound(T, b, [h for h in hs for _ in (0, 1)])
+    row = dict(shape=f"T{T}xB{b}xH{'/'.join(map(str, hs))}",
+               max_abs_err=err, tol=KERNEL_TOL, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None,
+               cudnn_per_stream_sum_ms=cudnn_ms)
+    log("kernel multi_bilstm_infer", **{
+        k: (f"{v:.6g}" if isinstance(v, float) else v)
+        for k, v in row.items()})
+    if not err <= KERNEL_TOL:
+        fail(f"multi_bilstm_infer {row['shape']}: max abs err {err}")
+    return row
+
+
+def check_edges() -> None:
+    """The kernels' other code paths against their plain versions, on
+    short sequences: batch 1 and ragged batch chunks, the batch-tiled
+    h staging (B*H floats beyond the shared-memory budget), widths that
+    are not a multiple of 4 (scalar staging) or of 32, H=1, and mixed
+    multi-stream widths up to the kernel's limit with ragged tiles."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 99)
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    worst = 0.0
+    for t, b, h in ((37, 1, 512), (9, 100, 512), (23, 5, 3), (16, 3, 1),
+                    (12, 6, 100)):
+        xp_f, xp_b = rand(t, b, 4 * h), rand(t, b, 4 * h)
+        w_f, w_b = rand(4 * h, h) * h ** -0.5, rand(4 * h, h) * h ** -0.5
+        got = bilstm.bilstm_sequence(xp_f, xp_b, w_f, w_b)
+        want = bilstm.bilstm_sequence_reference(xp_f, xp_b, w_f, w_b)
+        err = max(float((g - r).abs().max()) for g, r in zip(got, want))
+        if not err <= KERNEL_TOL:
+            fail(f"bilstm_infer T{t}xB{b}xH{h}: max abs err {err}")
+        worst = max(worst, err)
+    for t, b, hs in ((11, 13, (64, 3, 1)), (7, 1, (32, 8, 5, 1))):
+        args = [rand(t, b, 4 * h) for h in hs for _ in (0, 1)]
+        args += [rand(4 * h, h) * h ** -0.5 for h in hs for _ in (0, 1)]
+        got = multi_bilstm.multi_bilstm_sequence(len(hs), *args)
+        want = multi_bilstm.multi_bilstm_sequence_reference(len(hs), *args)
+        err = max(float((g - r).abs().max()) for g, r in zip(got, want))
+        if not err <= KERNEL_TOL:
+            fail(f"multi_bilstm_infer T{t}xB{b}xH{hs}: max abs err {err}")
+        worst = max(worst, err)
+    log("kernel edges", shapes=7, max_abs_err=f"{worst:.3g}", tol=KERNEL_TOL)
+
+
+def phase_kernels(reps: int = 20) -> dict:
+    """Each kernel against its plain version at the main path's shapes.
+    Returns the row of each kernel's most expensive main-path shape."""
+    with strict_float32():
+        check_edges()
+        rows = {
+            "bilstm_infer": [check_bilstm(28, 512, reps),
+                             check_bilstm(4, 256, reps),
+                             check_bilstm(28, 8, reps)],
+            "multi_bilstm_infer": [check_multi(28, (8, 32, 1), reps),
+                                   check_multi(4, (32, 1), reps)],
+        }
+    return {name: r[0] for name, r in rows.items()}
+
+
+def synthetic_pairs(config, n_pairs: int, device, seed: int):
+    import numpy as np
+
+    from speechsplit_tpu_torch.convert import prepare_utterance
+
+    rng = np.random.RandomState(seed)
+    pairs = []
+    for p in range(n_pairs):
+        utts = []
+        for side in ("s", "t"):
+            length = int(rng.randint(120, config.max_len_pad + 1))
+            mel = rng.rand(length, config.dim_freq).astype(np.float32)
+            f0 = np.where(rng.rand(length) < 0.2, 0.0,
+                          rng.rand(length)).astype(np.float32)
+            emb = np.zeros(config.dim_spk_emb, np.float32)
+            emb[rng.randint(config.dim_spk_emb)] = 1.0
+            utts.append(prepare_utterance(config, mel, f0, emb,
+                                          name=f"spk{side}{p}", uid=f"u{p}",
+                                          device=device))
+        pairs.append(tuple(utts))
+    return pairs
+
+
+def phase_convert(n_pairs: int = 4, reps: int = 20):
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.convert import (
+        CONDITIONS,
+        convert,
+        convert_batched,
+    )
+    from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+    from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
+
+    config = SpeechSplitConfig()
+    gen = torch.Generator().manual_seed(SEED)
+    g_model = SpeechSplit(config, generator=gen).to("cuda").eval()
+    p_model = F0Converter(config, generator=gen).to("cuda").eval()
+    pairs = synthetic_pairs(config, n_pairs, "cuda", SEED)
+
+    def run():
+        return convert_batched(g_model, p_model, pairs, CONDITIONS)
+
+    run()  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    bilstm.LAUNCHES = 0
+    multi_bilstm.LAUNCHES = 0
+    result = run()
+    launches = {"bilstm_infer": bilstm.LAUNCHES,
+                "multi_bilstm_infer": multi_bilstm.LAUNCHES}
+    for name, count in launches.items():
+        if count < 1:
+            fail(f"convert_batched did not launch {name}")
+    if len(result) != n_pairs or any(len(r) != 7 for r in result):
+        fail("convert_batched: expected 7 results per pair")
+    for (src, trg), res in zip(pairs, result):
+        for name, mel in res:
+            cut = trg.length if "R" in name.rsplit("_", 1)[1] else src.length
+            if mel.shape != (cut, config.dim_freq):
+                fail(f"{name}: shape {mel.shape}, expected "
+                     f"{(cut, config.dim_freq)}")
+            if not np.isfinite(mel).all():
+                fail(f"{name}: non-finite values")
+
+    with strict_float32():
+        exact = run()
+        with plain_kernels():
+            plain = run()
+        # the per-utterance driver runs the kernels at batch 1
+        single = convert(g_model, p_model, *pairs[0], CONDITIONS)
+    err = max(float(np.abs(a[1] - b[1]).max())
+              for ra, rb in zip(exact, plain) for a, b in zip(ra, rb))
+    if not err <= PATH_TOL:
+        fail(f"convert_batched kernels vs plain: max abs err {err}")
+    err_single = max(float(np.abs(a[1] - b[1]).max())
+                     for a, b in zip(single, exact[0]))
+    if not err_single <= PATH_TOL:
+        fail(f"convert (batch 1) vs convert_batched: max abs err {err_single}")
+
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        run()  # ends in the device->host fetch of the results
+        samples.append((time.perf_counter() - start) * 1e3)
+    q1, ms, q3 = np.percentile(samples, [25, 50, 75])
+    utts = n_pairs * len(CONDITIONS)
+    log("convert_batched", pairs=n_pairs, conditions=len(CONDITIONS),
+        generator_batch=utts, calls=reps, median_ms_per_call=f"{ms:.4f}",
+        q1_ms=f"{q1:.4f}", q3_ms=f"{q3:.4f}",
+        utterances_per_s_at_median=f"{utts / ms * 1e3:.2f}",
+        max_abs_err_vs_plain=f"{err:.3g}", tol=PATH_TOL,
+        max_abs_err_batch1_vs_batched=f"{err_single:.3g}",
+        tf32="off for the comparisons, default for the timing",
+        launches=json.dumps(launches).replace(" ", ""))
+    return launches, g_model, p_model, pairs
+
+
+def phase_profile(g_model, p_model, pairs, top: int = 8) -> None:
+    """Where one convert_batched call spends device time (torch.profiler):
+    the busiest device ops, and the device's busy share of the call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from speechsplit_tpu_torch.convert import CONDITIONS, convert_batched
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        convert_batched(g_model, p_model, pairs, CONDITIONS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+
+    def device_us(event) -> float:
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(event, attr):
+                return float(getattr(event, attr))
+        return 0.0
+
+    # device-side kernel and memcpy records only (CPU ops also carry the
+    # device time of the kernels they launch, which would count twice)
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    if not events:
+        log("profile", device_time="not measured (no device events)")
+        return
+    log("profile", wall_ms=f"{wall_ms:.4f}", device_busy_ms=f"{busy_ms:.4f}",
+        device_idle_share=f"{max(0.0, 1 - busy_ms / wall_ms):.4f}",
+        note="profiler on; wall includes its overhead")
+    for e in sorted(events, key=device_us, reverse=True)[:top]:
+        log("profile op", name=e.key.replace(" ", "_")[:60],
+            calls=e.count, device_ms=f"{device_us(e) / 1e3:.4f}")
+
+
+def phase_cli(g_model, p_model) -> None:
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.cli import convert as cli_convert
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.interop import save_reference_checkpoint
+
+    config = SpeechSplitConfig()
+    rng = np.random.RandomState(SEED + 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        g_path = os.path.join(tmp, "G.ckpt")
+        p_path = os.path.join(tmp, "P.ckpt")
+        save_reference_checkpoint(g_model, g_path)
+        save_reference_checkpoint(p_model, p_path)
+        entries = []
+        for i, length in enumerate((150, 170)):
+            emb = np.zeros((1, config.dim_spk_emb), np.float32)
+            emb[0, 3 + i] = 1.0
+            mel = rng.rand(length, config.dim_freq).astype(np.float32)
+            f0 = rng.rand(length).astype(np.float32)
+            entries.append([f"p{225 + i}", emb, (mel, f0, length, f"{i:03d}")])
+        meta = os.path.join(tmp, "demo.pkl")
+        with open(meta, "wb") as handle:
+            pickle.dump(entries, handle)
+        out_dir = os.path.join(tmp, "out")
+        start = time.perf_counter()
+        cli_convert.main([
+            "--generator_ckpt", g_path, "--f0_ckpt", p_path,
+            "--metadata", meta, "--out_dir", out_dir, "--device", "cuda",
+        ])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        written = sorted(os.listdir(out_dir))
+        if len(written) != 7 or not all(w.endswith(".npy") for w in written):
+            fail(f"cli.convert wrote {written}")
+        for w in written:
+            mel = np.load(os.path.join(out_dir, w))
+            if mel.ndim != 2 or not np.isfinite(mel).all():
+                fail(f"cli.convert: bad mel in {w}")
+    log("cli.convert", files=len(written), seconds=f"{seconds:.2f}")
+
+
+KERNELS = {
+    "bilstm_infer": dict(
+        route="cuda", source="speechsplit_tpu_torch/csrc/bilstm_infer.cu",
+        replaces="speechsplit_tpu/ops/pallas_lstm.py:751"),
+    "multi_bilstm_infer": dict(
+        route="cuda",
+        source="speechsplit_tpu_torch/csrc/multi_bilstm_infer.cu",
+        replaces="speechsplit_tpu/ops/pallas_multilstm.py:149"),
+}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on a GPU")
+    try:
+        import speechsplit_tpu_torch  # noqa: F401
+    except ImportError:
+        fail("run from the root of a checkout that holds "
+             "speechsplit_tpu_torch/")
+    wall = time.perf_counter()
+    print(card_line(), flush=True)
+    phase_build()
+    rows = phase_kernels()
+    launches, g_model, p_model, pairs = phase_convert()
+    phase_profile(g_model, p_model, pairs)
+    phase_cli(g_model, p_model)
+    log("done", seconds=f"{time.perf_counter() - wall:.1f}")
+    kernels = [dict(name=name, **meta, launches=launches[name], **rows[name])
+               for name, meta in KERNELS.items()]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,54 @@
+"""speechsplit_tpu_torch — the PyTorch/CUDA port of speechsplit_tpu.
+
+Runs the SpeechSplit generator and the F0 converter on an NVIDIA Hopper
+card (H100). Module names mirror the JAX package so that each module's
+counterpart is easy to find; the port imports nothing of that package.
+
+Every recurrence on the conversion path runs in a CUDA kernel written
+for ``sm_90a`` (``csrc/``): ``ops.bilstm`` (one BiLSTM layer, both
+directions in one launch) and ``ops.multi_bilstm`` (N independent narrow
+BiLSTMs in one launch). On CPU tensors the same functions run their
+plain PyTorch versions, which is how the tests hold the port to JAX.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from speechsplit_tpu_torch.config import SpeechSplitConfig
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless told otherwise.
+
+    With no device given and no CUDA present this raises instead of
+    quietly running on the CPU.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "speechsplit_tpu_torch runs on a CUDA device and none is "
+            "available; pass device='cpu' to run the plain PyTorch path"
+        )
+    return dev
+
+
+def __getattr__(name):
+    if name in ("SpeechSplit", "F0Converter"):
+        from speechsplit_tpu_torch import models
+
+        return getattr(models, name)
+    raise AttributeError(name)
+
+
+__all__ = [
+    "SpeechSplitConfig",
+    "resolve_device",
+    "SpeechSplit",
+    "F0Converter",
+    "__version__",
+]

@@ -1,0 +1,182 @@
+"""Voice conversion: the 7-condition driver (counterpart of
+speechsplit_tpu/convert.py; reference demo.ipynb cell-0).
+
+The seven conditions swap subsets of {Rhythm, F0, timbre (U)} between a
+source and a target utterance:
+
+  condition   content-path input      rhythm input   speaker emb
+  R           src mel + src F0        TARGET mel     src
+  F           src mel + CONVERTED F0  src mel        src
+  U           src mel + src F0        src mel        TARGET
+  RF/RU/FU/RFU: the corresponding combinations
+
+The converted F0 is the F0 converter's argmax over 257 bins, one-hot
+again, from the source mel under the target's pitch contour.
+"""
+
+from __future__ import annotations
+
+import pickle
+from typing import List, NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from speechsplit_tpu_torch import resolve_device
+from speechsplit_tpu_torch.config import SpeechSplitConfig
+from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+from speechsplit_tpu_torch.ops.masks import pad_time_axis
+from speechsplit_tpu_torch.ops.quantize import quantize_f0_onehot
+
+CONDITIONS = ("R", "F", "U", "RF", "RU", "FU", "RFU")
+
+
+class Utterance(NamedTuple):
+    """One prepared utterance, padded to max_len_pad, on its device."""
+
+    mel: torch.Tensor        # [1, T_pad, 80]
+    f0_onehot: torch.Tensor  # [1, T_pad, 257]
+    length: int
+    spk_emb: torch.Tensor    # [1, 82]
+    name: str = ""
+    uid: str = ""
+
+
+def prepare_utterance(
+    config: SpeechSplitConfig,
+    mel: np.ndarray,
+    f0: np.ndarray,
+    spk_emb: np.ndarray,
+    name: str = "",
+    uid: str = "",
+    device=None,
+) -> Utterance:
+    """Pad mel/F0 and one-hot the contour (demo.ipynb cell-0 prep).
+
+    ``device`` defaults to ``cuda`` (see :func:`resolve_device`).
+    """
+    dev = resolve_device(device)
+    length = len(mel)
+    mel_pad, _ = pad_time_axis(np.asarray(mel, np.float32)[None],
+                               config.max_len_pad)
+    f0_pad = np.pad(np.asarray(f0, np.float64),
+                    (0, config.max_len_pad - length)).astype(np.float32)
+    onehot = quantize_f0_onehot(torch.from_numpy(f0_pad), config.dim_f0 - 1)
+    emb = np.asarray(spk_emb, np.float32).reshape(1, -1)
+    return Utterance(
+        mel=torch.from_numpy(mel_pad).to(dev),
+        f0_onehot=onehot[None].to(dev),
+        length=length,
+        spk_emb=torch.from_numpy(emb).to(dev),
+        name=name,
+        uid=uid,
+    )
+
+
+@torch.inference_mode()
+def _f0_onehot(p_model: F0Converter, mel_src, f0_trg_onehot) -> torch.Tensor:
+    logits = p_model(mel_src, f0_trg_onehot)
+    ids = torch.argmax(logits, dim=-1)
+    return F.one_hot(ids, logits.shape[-1]).float()
+
+
+def convert_f0(p_model: F0Converter, src: Utterance,
+               trg: Utterance) -> torch.Tensor:
+    """Source rhythm + target pitch -> converted one-hot contour."""
+    return _f0_onehot(p_model, src.mel, trg.f0_onehot)
+
+
+def _cut(condition: str, src: Utterance, trg: Utterance) -> int:
+    return trg.length if "R" in condition else src.length
+
+
+def _name(condition: str, src: Utterance, trg: Utterance) -> str:
+    return f"{src.name}_{trg.name}_{src.uid}_{condition}"
+
+
+@torch.inference_mode()
+def convert(
+    g_model: SpeechSplit,
+    p_model: F0Converter,
+    src: Utterance,
+    trg: Utterance,
+    conditions: Sequence[str] = CONDITIONS,
+) -> List[Tuple[str, np.ndarray]]:
+    """Run the conditions one forward each; returns (name, mel [T, 80])
+    pairs, trimmed to the target length when rhythm was converted, else
+    to the source length."""
+    x_f0_org = torch.cat([src.mel, src.f0_onehot], dim=-1)
+    x_f0_con = torch.cat([src.mel, convert_f0(p_model, src, trg)], dim=-1)
+    results = []
+    for condition in conditions:
+        x_f0 = x_f0_con if "F" in condition else x_f0_org
+        x_org = trg.mel if "R" in condition else src.mel
+        emb = trg.spk_emb if "U" in condition else src.spk_emb
+        out = g_model(x_f0, x_org, emb)
+        cut = _cut(condition, src, trg)
+        results.append((_name(condition, src, trg),
+                        out[0, :cut].float().cpu().numpy()))
+    return results
+
+
+@torch.inference_mode()
+def convert_batched(
+    g_model: SpeechSplit,
+    p_model: F0Converter,
+    pairs: Sequence[Tuple[Utterance, Utterance]],
+    conditions: Sequence[str] = CONDITIONS,
+) -> List[List[Tuple[str, np.ndarray]]]:
+    """All conditions of all pairs in two batched forwards: one F0
+    converter call over the P pairs and one generator call over the
+    [C * P] (condition, pair) grid. Returns per-pair lists in
+    :func:`convert`'s format."""
+    mel_src = torch.cat([s.mel for s, _ in pairs], dim=0)
+    mel_trg = torch.cat([t.mel for _, t in pairs], dim=0)
+    f0_src = torch.cat([s.f0_onehot for s, _ in pairs], dim=0)
+    f0_trg = torch.cat([t.f0_onehot for _, t in pairs], dim=0)
+    emb_src = torch.cat([s.spk_emb for s, _ in pairs], dim=0)
+    emb_trg = torch.cat([t.spk_emb for _, t in pairs], dim=0)
+
+    f0_con = _f0_onehot(p_model, mel_src, f0_trg)
+    x_f0_org = torch.cat([mel_src, f0_src], dim=-1)
+    x_f0_con = torch.cat([mel_src, f0_con], dim=-1)
+
+    xs, orgs, embs = [], [], []
+    for condition in conditions:
+        xs.append(x_f0_con if "F" in condition else x_f0_org)
+        orgs.append(mel_trg if "R" in condition else mel_src)
+        embs.append(emb_trg if "U" in condition else emb_src)
+    out = g_model(torch.cat(xs, dim=0), torch.cat(orgs, dim=0),
+                  torch.cat(embs, dim=0))  # [C * P, T, 80]
+
+    cut_max = max(_cut(c, s, t) for c in conditions for s, t in pairs)
+    grid = out[:, :cut_max].float().cpu().numpy()
+    results: List[List[Tuple[str, np.ndarray]]] = [[] for _ in pairs]
+    for ci, condition in enumerate(conditions):
+        for pi, (src, trg) in enumerate(pairs):
+            row = grid[ci * len(pairs) + pi, : _cut(condition, src, trg)]
+            results[pi].append((_name(condition, src, trg), row))
+    return results
+
+
+def load_demo_metadata(path: str) -> list:
+    """Load a demo.pkl-style bundle (entries: [spk_name, spk_emb(1,82),
+    (mel, f0, len, uid)]). Unpickling runs code: load only files this
+    project or the reference wrote."""
+    with open(path, "rb") as handle:
+        return pickle.load(handle)
+
+
+def utterance_from_metadata(config: SpeechSplitConfig, entry: list,
+                            device=None) -> Utterance:
+    mel, f0, length, uid = entry[2]
+    return prepare_utterance(
+        config,
+        np.asarray(mel)[:length],
+        np.asarray(f0)[:length],
+        np.asarray(entry[1]),
+        name=entry[0],
+        uid=uid,
+        device=device,
+    )

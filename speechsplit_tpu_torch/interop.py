@@ -1,0 +1,156 @@
+"""Checkpoint interop for the port.
+
+The port's ``state_dict()`` keys are the reference's torch names
+(reference model.py), so a reference ``.ckpt`` (``660000-G.ckpt``,
+``640000-P.ckpt``) and a ``.ckpt`` exported by the JAX package
+(``speechsplit_tpu.cli.export_ckpt``) both load with
+``load_state_dict(strict=True)`` as they are.
+
+:func:`jax_params_to_state_dict` carries a JAX/flax parameter tree, given
+as numpy arrays, into that state dict; it is the port's own copy of the
+JAX package's ``interop.params_to_torch_state_dict`` mapping (its
+interop.py:60-103 module maps and :180-239 layout rules):
+
+- Linear: flax ``kernel [in, out]``       -> torch ``weight [out, in]``
+- Conv1d: flax ``kernel [k, in, out]``    -> torch ``weight [out, in, k]``
+- GroupNorm: ``scale``/``bias``           -> ``weight``/``bias``
+- LSTM: ``w_ih_l{k}[I, 4H]`` etc.         -> ``weight_ih_l{k}[4H, I]``;
+  both bias vectors are kept.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _module_map_generator() -> Dict[str, tuple]:
+    """torch submodule prefix -> (flax path, kind), Generator_3."""
+    out: Dict[str, tuple] = {}
+    for i in range(3):
+        out[f"encoder_1.convolutions_1.{i}.0.conv"] = (
+            ["encoder_content_pitch", f"conv_mel_{i}"], "conv")
+        out[f"encoder_1.convolutions_1.{i}.1"] = (
+            ["encoder_content_pitch", f"norm_mel_{i}"], "norm")
+        out[f"encoder_1.convolutions_2.{i}.0.conv"] = (
+            ["encoder_content_pitch", f"conv_f0_{i}"], "conv")
+        out[f"encoder_1.convolutions_2.{i}.1"] = (
+            ["encoder_content_pitch", f"norm_f0_{i}"], "norm")
+    out["encoder_1.lstm_1"] = (["encoder_content_pitch", "lstm_content"],
+                               "lstm")
+    out["encoder_1.lstm_2"] = (["encoder_content_pitch", "lstm_pitch"], "lstm")
+    out["encoder_2.convolutions.0.0.conv"] = (["encoder_rhythm", "conv_0"],
+                                              "conv")
+    out["encoder_2.convolutions.0.1"] = (["encoder_rhythm", "norm_0"], "norm")
+    out["encoder_2.lstm"] = (["encoder_rhythm", "lstm"], "lstm")
+    out["decoder.lstm"] = (["decoder", "lstm"], "lstm")
+    out["decoder.linear_projection.linear_layer"] = (
+        ["decoder", "projection"], "linear")
+    return out
+
+
+def _module_map_f0_converter() -> Dict[str, tuple]:
+    """torch submodule prefix -> (flax path, kind), Generator_6."""
+    out: Dict[str, tuple] = {}
+    out["encoder_2.convolutions.0.0.conv"] = (["encoder_rhythm", "conv_0"],
+                                              "conv")
+    out["encoder_2.convolutions.0.1"] = (["encoder_rhythm", "norm_0"], "norm")
+    out["encoder_2.lstm"] = (["encoder_rhythm", "lstm"], "lstm")
+    for i in range(3):
+        out[f"encoder_3.convolutions.{i}.0.conv"] = (
+            ["encoder_f0", f"conv_{i}"], "conv")
+        out[f"encoder_3.convolutions.{i}.1"] = (
+            ["encoder_f0", f"norm_{i}"], "norm")
+    out["encoder_3.lstm"] = (["encoder_f0", "lstm"], "lstm")
+    out["decoder.lstm"] = (["decoder", "lstm"], "lstm")
+    out["decoder.linear_projection.linear_layer"] = (
+        ["decoder", "projection"], "linear")
+    return out
+
+
+_MODULE_MAPS = {
+    "speechsplit": _module_map_generator,
+    "f0_converter": _module_map_f0_converter,
+}
+
+_LSTM_RE = re.compile(r"(w|b)_(ih|hh)_l(\d+)(_reverse)?$")
+
+
+def _node(tree: Mapping[str, Any], path: list[str]) -> Mapping[str, Any]:
+    node: Any = tree
+    for part in path:
+        if part not in node:
+            raise ValueError(f"params missing expected module {'/'.join(path)!r}")
+        node = node[part]
+    return node
+
+
+def _array(value) -> np.ndarray:
+    return np.array(value, dtype=np.float32, copy=True)
+
+
+def jax_params_to_state_dict(
+    params: Mapping[str, Any], model: str = "speechsplit"
+) -> Dict[str, torch.Tensor]:
+    """A flax params tree (numpy leaves) -> the port's state dict.
+
+    ``model`` is ``"speechsplit"`` or ``"f0_converter"``. Subtrees with
+    no reference counterpart (the learned-mode speaker encoder) raise.
+    """
+    params = params.get("params", params)
+    if model not in _MODULE_MAPS:
+        raise ValueError(f"unknown model {model!r}")
+    out: Dict[str, np.ndarray] = {}
+    consumed = set()
+    for prefix, (path, kind) in _MODULE_MAPS[model]().items():
+        node = _node(params, path)
+        consumed.add(tuple(path))
+        if kind == "conv":
+            out[prefix + ".weight"] = _array(node["kernel"]).transpose(2, 1, 0)
+            out[prefix + ".bias"] = _array(node["bias"])
+        elif kind == "norm":
+            out[prefix + ".weight"] = _array(node["scale"])
+            out[prefix + ".bias"] = _array(node["bias"])
+        elif kind == "linear":
+            out[prefix + ".weight"] = _array(node["kernel"]).T
+            out[prefix + ".bias"] = _array(node["bias"])
+        else:
+            for name in node:
+                m = _LSTM_RE.match(name)
+                if not m:
+                    raise ValueError(f"unrecognized LSTM param {name!r} at {path}")
+                kind_c, side, layer, rev = m.groups()
+                suffix = f"l{layer}" + (rev or "")
+                arr = _array(node[name])
+                if kind_c == "w":
+                    out[f"{prefix}.weight_{side}_{suffix}"] = arr.T
+                else:
+                    out[f"{prefix}.bias_{side}_{suffix}"] = arr
+    extra = {
+        f"{top}/{name}"
+        for top, sub in params.items()
+        for name in (sub if isinstance(sub, Mapping) else [None])
+        if (top, name) not in consumed
+    }
+    if extra:
+        raise ValueError(
+            f"params contain subtrees with no reference counterpart: "
+            f"{sorted(extra)}"
+        )
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of a reference-format ``.ckpt`` (``{'model': sd}``
+    as the reference's solver.py:198-202 writes, or a bare state dict)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return ckpt["model"] if "model" in ckpt else ckpt
+
+
+def save_reference_checkpoint(module: torch.nn.Module, path: str) -> None:
+    """Save a model as a reference-loadable ``.ckpt`` (``{'model': sd}``)."""
+    state = {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
+    torch.save({"model": state}, path)

@@ -1,0 +1,138 @@
+"""The bottleneck encoders (counterpart of speechsplit_tpu/models/encoders.py).
+
+Eval only: the random-resampling augmentation belongs to training, a
+later slice of the port. Each encoder has
+``pre`` (the conv stack before its recurrence) and ``codes`` (the
+stride sampling after it); the generators run the recurrences between
+them, every independent one in one ``ops.multi_bilstm`` launch.
+
+Submodule names follow the reference (Encoder_t model.py:46-89,
+Encoder_6 model.py:93-140, Encoder_7 model.py:144-229) so that its
+state-dict keys load unchanged.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from speechsplit_tpu_torch.config import SpeechSplitConfig
+from speechsplit_tpu_torch.models.layers import (
+    LSTM,
+    conv_norm,
+    downsample_codes,
+)
+
+class _DropsLenOrg(nn.Module):
+    """The reference registers a constant ``len_org`` buffer (=
+    max_len_pad, model.py:105,157) in Encoder_6/Encoder_7; it carries no
+    learned state, and is dropped on load so strict loading of a
+    reference checkpoint succeeds."""
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        state_dict.pop(prefix + "len_org", None)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+class RhythmEncoder(nn.Module):
+    """conv(dim_freq -> dim_enc_2, k5) + GroupNorm + ReLU, BiLSTM(dim_neck_2),
+    stride-freq_2 code sampling -> [B, T/freq_2, 2*dim_neck_2]."""
+
+    def __init__(self, config: SpeechSplitConfig, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.convolutions = nn.ModuleList([
+            conv_norm(cfg.dim_freq, cfg.dim_enc_2,
+                      cfg.dim_enc_2 // cfg.chs_grp, generator)
+        ])
+        self.lstm = LSTM(cfg.dim_enc_2, cfg.dim_neck_2, 1, generator,
+                         dtype=dtype)
+
+    def pre(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.convolutions[0](x))
+
+    def codes(self, outputs: torch.Tensor) -> torch.Tensor:
+        return downsample_codes(outputs, self.config.dim_neck_2,
+                                self.config.freq_2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The encoder on its own (``SpeechSplit.rhythm``)."""
+        return self.codes(self.lstm(self.pre(x)))
+
+
+class F0Encoder(_DropsLenOrg):
+    """3 x [conv(dim_f0 -> dim_enc_3, k5) + GroupNorm + ReLU],
+    BiLSTM(dim_neck_3), stride-freq_3 sampling (the per-conv resampling
+    of training is not part of eval)."""
+
+    def __init__(self, config: SpeechSplitConfig, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        groups = cfg.dim_enc_3 // cfg.chs_grp
+        self.convolutions = nn.ModuleList([
+            conv_norm(cfg.dim_f0 if i == 0 else cfg.dim_enc_3, cfg.dim_enc_3,
+                      groups, generator)
+            for i in range(3)
+        ])
+        self.lstm = LSTM(cfg.dim_enc_3, cfg.dim_neck_3, 1, generator,
+                         dtype=dtype)
+
+    def pre(self, x: torch.Tensor) -> torch.Tensor:
+        for conv in self.convolutions:
+            x = F.relu(conv(x))
+        return x
+
+    def codes(self, outputs: torch.Tensor) -> torch.Tensor:
+        return downsample_codes(outputs, self.config.dim_neck_3,
+                                self.config.freq_3)
+
+
+class ContentPitchEncoder(_DropsLenOrg):
+    """Two conv stacks (mel -> dim_enc, one-hot F0 -> dim_enc_3); content
+    through a 2-layer BiLSTM(dim_neck), pitch through a 1-layer
+    BiLSTM(dim_neck_3). Input [B, T, dim_freq + dim_f0]; returns
+    ``(codes_content [B, T/freq, 2*dim_neck],
+       codes_pitch [B, T/freq_3, 2*dim_neck_3])``."""
+
+    def __init__(self, config: SpeechSplitConfig, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.convolutions_1 = nn.ModuleList([
+            conv_norm(cfg.dim_freq if i == 0 else cfg.dim_enc, cfg.dim_enc,
+                      cfg.dim_enc // cfg.chs_grp, generator)
+            for i in range(3)
+        ])
+        self.convolutions_2 = nn.ModuleList([
+            conv_norm(cfg.dim_f0 if i == 0 else cfg.dim_enc_3, cfg.dim_enc_3,
+                      cfg.dim_enc_3 // cfg.chs_grp, generator)
+            for i in range(3)
+        ])
+        self.lstm_1 = LSTM(cfg.dim_enc, cfg.dim_neck, 2, generator,
+                           dtype=dtype)
+        self.lstm_2 = LSTM(cfg.dim_enc_3, cfg.dim_neck_3, 1, generator,
+                           dtype=dtype)
+
+    def pre(self, x_f0: torch.Tensor):
+        """Conv stacks; returns the (content, pitch) streams."""
+        cfg = self.config
+        x = x_f0[:, :, : cfg.dim_freq]
+        f0 = x_f0[:, :, cfg.dim_freq :]
+        for conv_mel, conv_f0 in zip(self.convolutions_1,
+                                     self.convolutions_2):
+            x = F.relu(conv_mel(x))
+            f0 = F.relu(conv_f0(f0))
+        return x, f0
+
+    def codes(self, content: torch.Tensor, pitch: torch.Tensor):
+        cfg = self.config
+        return (
+            downsample_codes(content, cfg.dim_neck, cfg.freq),
+            downsample_codes(pitch, cfg.dim_neck_3, cfg.freq_3),
+        )

@@ -1,0 +1,147 @@
+"""Top-level models (counterpart of speechsplit_tpu/models/generator.py).
+
+Reference: Generator_3 model.py:283-320 (19,437,800 params at defaults)
+and Generator_6 model.py:324-351 (3,485,849 params). Submodules carry
+the reference's names (``encoder_1``/``encoder_2``/``encoder_3``/
+``decoder``), so ``state_dict()`` keys are the reference's.
+
+The forward always takes the streams structure of the JAX generator's
+fused path (generator.py:124-149, :210-227): conv stacks, then every
+independent encoder recurrence in one ``ops.multi_bilstm`` launch, then
+content layer 1 through ``ops.bilstm``, then code sampling. The JAX
+package picks that structure per backend and batch; the port runs it
+everywhere, so the CPU tests and the card run the same code.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from speechsplit_tpu_torch.config import SpeechSplitConfig, resolve_dtype
+from speechsplit_tpu_torch.models.decoders import F0Decoder, MelDecoder
+from speechsplit_tpu_torch.models.encoders import (
+    ContentPitchEncoder,
+    F0Encoder,
+    RhythmEncoder,
+)
+from speechsplit_tpu_torch.models.layers import combine_bidir, upsample_codes
+from speechsplit_tpu_torch.ops import multi_bilstm
+
+TRAINING_SLICE = (
+    "training (random_resample and the train step) is the next slice of "
+    "the port; see ROADMAP.md"
+)
+
+
+def _model_dtype(config: SpeechSplitConfig) -> torch.dtype:
+    dtype = resolve_dtype(config.compute_dtype)
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            "the port runs compute_dtype=float32 only; bfloat16 compute is "
+            "queued in ROADMAP.md"
+        )
+    return dtype
+
+
+def _generator(generator):
+    return generator if generator is not None else torch.Generator()
+
+
+class SpeechSplit(nn.Module):
+    """Triple-information-bottleneck generator, eval forward.
+
+    Inputs (``[B, T, .]``): ``x_f0`` mel ++ one-hot F0 [B, T, 80+257],
+    ``x_org`` un-augmented mel [B, T, 80], ``c_trg`` speaker embedding
+    [B, 82]. Returns the converted mel [B, T, 80]. T must be a multiple
+    of every ``freq`` so the code streams line up.
+    """
+
+    def __init__(self, config: SpeechSplitConfig,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if config.spk_emb_mode != "onehot":
+            raise NotImplementedError(
+                "spk_emb_mode='learned' (SpeakerEncoder) is queued in "
+                "ROADMAP.md"
+            )
+        gen = _generator(generator)
+        dtype = _model_dtype(config)
+        self.config = config
+        self.encoder_1 = ContentPitchEncoder(config, gen, dtype)
+        self.encoder_2 = RhythmEncoder(config, gen, dtype)
+        self.decoder = MelDecoder(config, gen, dtype)
+
+    def forward(self, x_f0: torch.Tensor, x_org: torch.Tensor,
+                c_trg: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            raise NotImplementedError(TRAINING_SLICE)
+        if c_trg.dim() != 2:
+            raise NotImplementedError(
+                "a mel-valued c_trg needs spk_emb_mode='learned', queued in "
+                "ROADMAP.md"
+            )
+        cfg = self.config
+        enc_cp, enc_r = self.encoder_1, self.encoder_2
+        xc, xp = enc_cp.pre(x_f0)
+        xr = enc_r.pre(x_org)
+        s_c = enc_cp.lstm_1(xc, mode="streams", start_layer=0)
+        s_p = enc_cp.lstm_2(xp, mode="streams")
+        s_r = enc_r.lstm(xr, mode="streams")
+        outs = multi_bilstm.multi_bilstm_sequence(
+            3,
+            s_c[0], s_c[1], s_p[0], s_p[1], s_r[0], s_r[1],
+            s_c[2], s_c[3], s_p[2], s_p[3], s_r[2], s_r[3],
+        )
+        h_content = enc_cp.lstm_1(combine_bidir(outs[0], outs[1]),
+                                  start_layer=1)
+        codes_content, codes_pitch = enc_cp.codes(
+            h_content, combine_bidir(outs[2], outs[3])
+        )
+        codes_rhythm = enc_r.codes(combine_bidir(outs[4], outs[5]))
+
+        content = upsample_codes(codes_content, cfg.freq)
+        pitch = upsample_codes(codes_pitch, cfg.freq_3)
+        rhythm = upsample_codes(codes_rhythm, cfg.freq_2)
+        batch, t = x_f0.shape[0], x_f0.shape[1]
+        spk = c_trg[:, None, :].expand(batch, t, c_trg.shape[-1])
+        decoder_in = torch.cat([content, rhythm, pitch, spk], dim=-1)
+        return self.decoder(decoder_in)
+
+    def rhythm(self, x_org: torch.Tensor) -> torch.Tensor:
+        """Rhythm-code extraction endpoint (ref: model.py:316-320)."""
+        return self.encoder_2(x_org)
+
+
+class F0Converter(nn.Module):
+    """F0-contour converter: rhythm codes of the source mel + pitch codes
+    of the target one-hot contour -> 257-bin logits [B, T, dim_f0]."""
+
+    def __init__(self, config: SpeechSplitConfig,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        gen = _generator(generator)
+        dtype = _model_dtype(config)
+        self.config = config
+        self.encoder_2 = RhythmEncoder(config, gen, dtype)
+        self.encoder_3 = F0Encoder(config, gen, dtype)
+        self.decoder = F0Decoder(config, gen, dtype)
+
+    def forward(self, x_org: torch.Tensor, f0_trg: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        if train:
+            raise NotImplementedError(TRAINING_SLICE)
+        cfg = self.config
+        enc_f, enc_r = self.encoder_3, self.encoder_2
+        xf = enc_f.pre(f0_trg)
+        xr = enc_r.pre(x_org)
+        s_f = enc_f.lstm(xf, mode="streams")
+        s_r = enc_r.lstm(xr, mode="streams")
+        outs = multi_bilstm.multi_bilstm_sequence(
+            2, s_f[0], s_f[1], s_r[0], s_r[1], s_f[2], s_f[3], s_r[2], s_r[3],
+        )
+        codes_f0 = enc_f.codes(combine_bidir(outs[0], outs[1]))
+        codes_rhythm = enc_r.codes(combine_bidir(outs[2], outs[3]))
+        rhythm = upsample_codes(codes_rhythm, cfg.freq_2)
+        pitch = upsample_codes(codes_f0, cfg.freq_3)
+        return self.decoder(torch.cat([rhythm, pitch], dim=-1))

@@ -1,0 +1,229 @@
+"""Core layers of the port (counterpart of speechsplit_tpu/models/layers.py).
+
+- Public layouts are ``[B, T, C]`` as in the JAX package; the
+  recurrences run time-major ``[T, B, 4H]`` streams through the kernels
+  of ``ops.bilstm`` / ``ops.multi_bilstm``.
+- Parameter names follow the reference's torch modules (ConvNorm.conv,
+  LinearNorm.linear_layer, nn.LSTM's ``weight_ih_l{k}[_reverse]``, ...),
+  so reference and JAX-exported ``.ckpt`` files load with
+  ``load_state_dict(strict=True)``.
+- Every initializer takes an explicit ``torch.Generator`` and draws the
+  distributions of the JAX package (gain-scaled Xavier for Linear and
+  Conv1d weights, U(+-1/sqrt(fan_in)) biases, U(+-1/sqrt(H)) for LSTMs).
+  Parameters are created on the CPU; move the module with ``.to``.
+- The input projection ``x W_ih^T + b_ih + b_hh`` stays a matmul outside
+  the kernels, as it stays outside the Pallas kernels in JAX.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from speechsplit_tpu_torch.ops import bilstm
+
+GAIN = {"linear": 1.0, "relu": math.sqrt(2.0), "tanh": 5.0 / 3.0}
+
+
+def _uniform(shape, bound: float, generator: torch.Generator) -> nn.Parameter:
+    data = torch.empty(shape, dtype=torch.float32)
+    data.uniform_(-bound, bound, generator=generator)
+    return nn.Parameter(data)
+
+
+def _xavier(shape, fan_in: int, fan_out: int, gain: str,
+            generator: torch.Generator) -> nn.Parameter:
+    bound = GAIN[gain] * math.sqrt(6.0 / (fan_in + fan_out))
+    return _uniform(shape, bound, generator)
+
+
+class _Params(nn.Module):
+    """A bare holder of ``weight``/``bias``, named like the reference's
+    wrapped ``nn.Linear`` / ``nn.Conv1d`` so state-dict keys match."""
+
+    def __init__(self, weight: nn.Parameter, bias: nn.Parameter):
+        super().__init__()
+        self.weight = weight
+        self.bias = bias
+
+
+class Linear(nn.Module):
+    """Dense layer on the last axis (ref LinearNorm, model.py:10-20)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: torch.Generator, w_init_gain: str = "linear"):
+        super().__init__()
+        weight = _xavier((out_features, in_features), in_features,
+                         out_features, w_init_gain, generator)
+        bias = _uniform((out_features,), 1.0 / math.sqrt(in_features),
+                        generator)
+        self.linear_layer = _Params(weight, bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.linear_layer.weight, self.linear_layer.bias)
+
+
+class Conv1d(nn.Module):
+    """'Same'-padded 1-D convolution over [B, T, C] (ref ConvNorm,
+    model.py:24-42; padding as layers.py:117)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 generator: torch.Generator, kernel_size: int = 1,
+                 dilation: int = 1, w_init_gain: str = "linear"):
+        super().__init__()
+        if kernel_size % 2 != 1:
+            raise ValueError("even kernels need explicit padding")
+        weight = _xavier((out_channels, in_channels, kernel_size),
+                         in_channels * kernel_size,
+                         out_channels * kernel_size, w_init_gain, generator)
+        bias = _uniform((out_channels,),
+                        1.0 / math.sqrt(in_channels * kernel_size), generator)
+        self.conv = _Params(weight, bias)
+        self.dilation = dilation
+        self.padding = dilation * (kernel_size - 1) // 2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv1d(x.transpose(1, 2), self.conv.weight, self.conv.bias,
+                     padding=self.padding, dilation=self.dilation)
+        return y.transpose(1, 2)
+
+
+class GroupNorm(nn.Module):
+    """Group normalization over the channels of [B, T, C], statistics per
+    (batch, group) across time and the group's channels (torch
+    nn.GroupNorm semantics, as the JAX layer computes them)."""
+
+    def __init__(self, num_groups: int, num_channels: int,
+                 epsilon: float = 1e-5):
+        super().__init__()
+        if num_channels % num_groups:
+            raise ValueError("channels must divide into groups")
+        self.num_groups = num_groups
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, c = x.shape
+        xg = x.float().reshape(b, t, self.num_groups, -1)
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
+        xg = (xg - mean) * torch.rsqrt(var + self.epsilon)
+        return xg.reshape(b, t, c) * self.weight + self.bias
+
+
+def conv_norm(in_channels: int, out_channels: int, groups: int,
+              generator: torch.Generator) -> nn.Sequential:
+    """Conv1d(k5, relu gain) + GroupNorm: one reference
+    ``convolutions[i]`` entry (``.0.conv`` and ``.1`` keys)."""
+    return nn.Sequential(
+        Conv1d(in_channels, out_channels, generator, kernel_size=5,
+               w_init_gain="relu"),
+        GroupNorm(groups, out_channels),
+    )
+
+
+def _recurrent_dtype(dtype: torch.dtype, hidden: int) -> torch.dtype:
+    """Dtype of an H-wide LSTM's recurrent weights: bfloat16 applies only
+    from H >= 2 (JAX layers.py:165-176), so the H=1 rhythm stream stays
+    float32."""
+    if dtype == torch.bfloat16 and hidden < 2:
+        return torch.float32
+    return dtype
+
+
+class LSTM(nn.Module):
+    """Multi-layer bidirectional LSTM with torch's parameter names (every
+    LSTM of the model is bidirectional; a unidirectional one needs the
+    queued ``lstm_sequence`` kernel, ROADMAP.md).
+
+    Per layer and direction: ``weight_ih_l{k}`` [4H, I], ``weight_hh_l{k}``
+    [4H, H], ``bias_ih_l{k}``, ``bias_hh_l{k}`` [4H], and the same with
+    ``_reverse``. Returns [B, T, 2H] (forward and backward halves
+    concatenated), as all five reference LSTM stacks consume.
+    """
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int,
+                 generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.dtype = dtype
+        k = 1.0 / math.sqrt(hidden_size)
+        four_h = 4 * hidden_size
+        for layer in range(num_layers):
+            in_features = input_size if layer == 0 else 2 * hidden_size
+            for sfx in (f"l{layer}", f"l{layer}_reverse"):
+                setattr(self, f"weight_ih_{sfx}",
+                        _uniform((four_h, in_features), k, generator))
+                setattr(self, f"weight_hh_{sfx}",
+                        _uniform((four_h, hidden_size), k, generator))
+                setattr(self, f"bias_ih_{sfx}",
+                        _uniform((four_h,), k, generator))
+                setattr(self, f"bias_hh_{sfx}",
+                        _uniform((four_h,), k, generator))
+
+    def _project(self, x: torch.Tensor, sfx: str) -> torch.Tensor:
+        bias = getattr(self, f"bias_ih_{sfx}") + getattr(self, f"bias_hh_{sfx}")
+        return F.linear(x, getattr(self, f"weight_ih_{sfx}"), bias)
+
+    def _w_hh(self, sfx: str) -> torch.Tensor:
+        w = getattr(self, f"weight_hh_{sfx}")
+        return w.to(_recurrent_dtype(self.dtype, self.hidden_size))
+
+    def streams(self, x: torch.Tensor, layer: int = 0):
+        """Layer ``layer``'s kernel-ready streams without running it:
+        ``(xp_f [T,B,4H], xp_b [T,B,4H], w_f [4H,H], w_b [4H,H])`` for
+        ``ops.multi_bilstm.multi_bilstm_sequence``; x is [B, T, I]."""
+        xt = x.transpose(0, 1)
+        sfx = f"l{layer}"
+        return (
+            self._project(xt, sfx).contiguous(),
+            self._project(xt, sfx + "_reverse").contiguous(),
+            self._w_hh(sfx),
+            self._w_hh(sfx + "_reverse"),
+        )
+
+    def forward(self, x: torch.Tensor, mode: str = "run",
+                start_layer: int = 0):
+        """mode="run": layers ``start_layer..num_layers-1`` over x [B, T, I]
+        -> [B, T, 2H]. mode="streams": :meth:`streams` of ``start_layer``
+        (the JAX layer's mode of the same name)."""
+        if mode == "streams":
+            return self.streams(x, start_layer)
+        if mode != "run":
+            raise ValueError(f"unknown LSTM mode {mode!r}")
+        x = x.transpose(0, 1)  # the whole stack runs time-major
+        for layer in range(start_layer, self.num_layers):
+            xp_f = self._project(x, f"l{layer}").contiguous()
+            xp_b = self._project(x, f"l{layer}_reverse").contiguous()
+            h_f, h_b = bilstm.bilstm_sequence(
+                xp_f, xp_b, self._w_hh(f"l{layer}"),
+                self._w_hh(f"l{layer}_reverse"),
+            )
+            x = torch.cat([h_f, h_b], dim=-1)
+        return x.transpose(0, 1)
+
+
+def downsample_codes(outputs: torch.Tensor, dim_neck: int,
+                     freq: int) -> torch.Tensor:
+    """Stride-``freq`` bottleneck sampling of BiLSTM outputs: forward
+    states at t = freq-1 (mod freq), backward at t = 0 (mod freq)
+    (ref: model.py:87,137-138,223-227). [B, T, 2n] -> [B, ceil, 2n]."""
+    fwd = outputs[:, freq - 1 :: freq, :dim_neck]
+    bwd = outputs[:, ::freq, dim_neck:]
+    return torch.cat([fwd, bwd], dim=-1)
+
+
+def upsample_codes(codes: torch.Tensor, freq: int) -> torch.Tensor:
+    """Repeat-interleave codes back to frame rate (ref: model.py:301-306)."""
+    return torch.repeat_interleave(codes, freq, dim=1)
+
+
+def combine_bidir(h_f: torch.Tensor, h_b: torch.Tensor) -> torch.Tensor:
+    """[T, B, H] direction streams (real time order) -> [B, T, 2H]."""
+    return torch.cat([h_f, h_b], dim=-1).transpose(0, 1)

@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``: no
+PyTorch headers are compiled, so a build takes seconds. Libraries go
+into ``speechsplit_tpu_torch/_build/`` (listed in ``.gitignore``), named
+by a hash of their source and flags, so an edited source is rebuilt and
+an unchanged one is loaded as it is. The first call builds every source
+at once, one ``nvcc`` process each.
+
+Nothing here runs at import time: the CPU tests import every module on
+a machine with no ``nvcc`` and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _target(source: Path) -> Path:
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+
+
+def build_all() -> float:
+    """Compile every stale ``csrc/*.cu`` in parallel; returns seconds."""
+    start = time.perf_counter()
+    with _lock:
+        jobs = []
+        for source in sorted(CSRC.glob("*.cu")):
+            target = _target(source)
+            if target.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            )
+            jobs.append((source, target, tmp, proc))
+        failures = []
+        for source, target, tmp, proc in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"{source.name}:\n{out}")
+                continue
+            os.replace(tmp, target)
+        if failures:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return time.perf_counter() - start
+
+
+def load(stem: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<stem>.cu`` (built if stale)."""
+    lib = _libs.get(stem)
+    if lib is not None:
+        return lib
+    target = _target(CSRC / f"{stem}.cu")
+    if not target.exists():
+        build_all()
+    with _lock:
+        if stem not in _libs:
+            _libs[stem] = ctypes.CDLL(str(target))
+        return _libs[stem]
+
+
+def check(err: int, what: str, describe) -> None:
+    """Raise if a launch function returned a non-zero ``cudaError_t``;
+    ``describe`` is the library's ``*_error_string`` function."""
+    if err != 0:
+        text = describe(err).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {err} ({text})")

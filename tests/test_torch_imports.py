@@ -1,0 +1,101 @@
+"""The port stands alone: no JAX, entry points default to CUDA, and a
+kernel wrapper given CPU tensors runs its plain version."""
+
+import ast
+import dataclasses
+from pathlib import Path
+
+import pytest
+import torch
+
+import speechsplit_tpu_torch
+from speechsplit_tpu.config import SpeechSplitConfig as JaxConfig
+from speechsplit_tpu_torch.config import SpeechSplitConfig, resolve_dtype
+from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "speechsplit_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "speechsplit_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
+def test_port_imports_no_jax(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_covers_the_package():
+    names = {p.name for p in _port_files()}
+    assert {"bilstm.py", "multi_bilstm.py", "generator.py", "convert.py",
+            "chip_smoke.py"} <= names
+
+
+def test_resolve_device_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        speechsplit_tpu_torch.resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        speechsplit_tpu_torch.resolve_device("cuda")
+    assert speechsplit_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_prepare_utterance_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    import numpy as np
+
+    from speechsplit_tpu_torch.convert import prepare_utterance
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prepare_utterance(SpeechSplitConfig(), np.zeros((10, 80)),
+                          np.zeros(10), np.zeros(82))
+
+
+def test_cpu_tensors_take_the_plain_version():
+    bilstm.LAUNCHES = 0
+    multi_bilstm.LAUNCHES = 0
+    gen = torch.Generator().manual_seed(0)
+    xp = torch.randn(6, 2, 32, generator=gen)
+    w = torch.randn(32, 8, generator=gen)
+    got = bilstm.bilstm_sequence(xp, xp, w, w)
+    want = bilstm.bilstm_sequence_reference(xp, xp, w, w)
+    multi_bilstm.multi_bilstm_sequence(1, xp, xp, w, w)
+    assert bilstm.LAUNCHES == 0 and multi_bilstm.LAUNCHES == 0
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+def test_wrappers_refuse_bfloat16_on_cuda_path():
+    xp = torch.zeros(4, 1, 32, dtype=torch.bfloat16)
+    w = torch.zeros(32, 8, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="float32"):
+        bilstm._check(xp, xp, w, w)
+    with pytest.raises(NotImplementedError, match="float32"):
+        multi_bilstm._check(1, (xp, xp), (w, w))
+
+
+def test_config_fields_and_defaults_match_jax():
+    ours = {f.name: f.default for f in dataclasses.fields(SpeechSplitConfig)}
+    theirs = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
+    assert ours == theirs
+    spec = "dim_neck=4,samplier=3,mesh_shape=[2,4],root_dir=a/b"
+    assert dataclasses.asdict(SpeechSplitConfig().parse(spec)) == (
+        dataclasses.asdict(JaxConfig().parse(spec))
+    )
+    with pytest.raises(ValueError):
+        SpeechSplitConfig().parse("no_such_key=1")
+    assert resolve_dtype("float32") is torch.float32
+    assert resolve_dtype("bfloat16") is torch.bfloat16
