@@ -8,9 +8,9 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 Phases, one line each; any failure exits non-zero:
 
 1. the card's name and power limit (nvidia-smi), then the build of every
-   ``speechsplit_tpu_torch/csrc/*.cu`` kernel with nvcc for sm_90a;
-2. each kernel against its plain PyTorch version on the card, at the
-   shapes the conversion path gives it, with its time, the plain
+   ``speechsplit_tpu_torch/csrc/*.cu`` file with nvcc for sm_90a;
+2. each inference kernel against its plain PyTorch version on the card,
+   at the shapes the conversion path gives it, with its time, the plain
    version's time, the least time the card could take (bound) and a
    cuDNN LSTM as a yardstick;
 3. full-width ``convert_batched``: 4 synthetic pairs x 7 conditions
@@ -21,7 +21,19 @@ Phases, one line each; any failure exits non-zero:
 4. one ``convert_batched`` call under ``torch.profiler``: device time by
    op and the card's idle share of the call;
 5. the normal entry point ``cli.convert`` on reference-format ``.ckpt``
-   files and a demo-style metadata pickle, writing 7 mels.
+   files and a demo-style metadata pickle, writing 7 mels;
+6. each training kernel (residual-saving forward, gradient) against its
+   plain version at the train step's shapes (T=192, B=16), timed beside
+   its bound and a cuDNN LSTM's training forward and backward; then the
+   ``autograd.Function`` of each op on CUDA tensors against autograd
+   through the plain loop;
+7. the full-width generator and F0-converter train steps on a seeded
+   ``Collator`` batch of 16: the launches of every kernel in one step
+   (counts set to 0 just before and read just after), the step against
+   the same step on the plain versions, 5 steps with a finite loss, and
+   the median time per step over 12 timed steps (float32 with TF32 off,
+   as compared);
+8. one generator train step under ``torch.profiler``.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside the repo, it
@@ -50,11 +62,25 @@ PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-4
 # the whole model in another order end to end (PARITY.md demo bar 5e-4)
 PATH_TOL = 5e-4
+# the lean kernel at B28 H512 before it shared its body with the
+# residual-saving forward (PERF.md, the slice-1 table): printed beside
+# this run's time
+LEAN_B28_H512_MS_BEFORE = 3.6035
+# the train step's batch
+TRAIN_B = 16
+# a train step against the same step on the plain versions: the loss
+# relative, and each gradient's max abs error over its max abs
+STEP_TOL = 5e-4
 
 
 def log(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
+
+
+def fmt(row: dict) -> dict:
+    return {k: (f"{v:.6g}" if isinstance(v, float) else v)
+            for k, v in row.items()}
 
 
 def fail(message: str) -> None:
@@ -89,8 +115,8 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 @contextlib.contextmanager
-def strict_float32():
-    """Comparisons in full float32: no TF32 in cuDNN convs or matmuls."""
+def strict_float32(scope: str = "comparison"):
+    """Full float32: no TF32 in cuDNN convs or matmuls."""
     import torch
 
     saved = (torch.backends.cudnn.allow_tf32,
@@ -98,7 +124,7 @@ def strict_float32():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     log("tf32", cudnn_allow_tf32=False, matmul_allow_tf32=False,
-        scope="comparison")
+        scope=scope)
     try:
         yield
     finally:
@@ -108,7 +134,8 @@ def strict_float32():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the model's kernel calls to the plain PyTorch versions."""
+    """Route the model's kernel calls to the plain PyTorch versions
+    (under autograd: autograd through the plain time loops)."""
     from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
 
     saved = (bilstm.bilstm_sequence, multi_bilstm.multi_bilstm_sequence)
@@ -122,14 +149,21 @@ def plain_kernels():
         bilstm.bilstm_sequence, multi_bilstm.multi_bilstm_sequence = saved
 
 
-def lstm_bound(t: int, b: int, hs) -> tuple[float, str]:
+def lstm_bound(t: int, b: int, hs, kind: str = "infer") -> tuple[float, str]:
     """Least time for BiLSTM recurrences of widths ``hs`` (one entry per
-    direction) over given xp and W_hh: max(flops/peak, bytes/peak)."""
+    direction): max(flops/peak, bytes/peak). Each input read once, each
+    output written once, in float32 words of a (t, b) row:
+    ``infer`` reads xp (4H) and writes h (H); ``fwd`` also writes g (4H)
+    and c (H); ``bwd`` reads dh (H), g (4H), c (H) and writes dx (4H).
+    All read W_hh (4H x H) once. Flops: the step product 2*4H*H and the
+    cell's elementwise work (about 10H forward, 16H backward)."""
+    words = {"infer": 5, "fwd": 10, "bwd": 10}[kind]
+    cell = 16 if kind == "bwd" else 10
     flops = 0.0
     nbytes = 0.0
     for h in hs:
-        flops += t * b * (2 * h * 4 * h + 10 * h)  # step product + cell
-        nbytes += 4 * (t * b * 4 * h + 4 * h * h + t * b * h)
+        flops += t * b * (2 * h * 4 * h + cell * h)
+        nbytes += 4 * (t * b * words * h + 4 * h * h)
     by_ops = flops / PEAK_F32_FLOPS * 1e3
     by_bytes = nbytes / PEAK_BYTES * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (
@@ -158,14 +192,29 @@ def cudnn_yardstick(xp_f, xp_b, w_f, w_b):
     return lstm, x
 
 
+def reset_launches() -> None:
+    from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
+
+    for counts in (bilstm.LAUNCHES, multi_bilstm.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def read_launches() -> dict:
+    from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
+
+    return {**bilstm.LAUNCHES, **multi_bilstm.LAUNCHES}
+
+
 def phase_build() -> float:
     from speechsplit_tpu_torch.ops import _build
 
     seconds = _build.build_all()
-    for stem in ("bilstm_infer", "multi_bilstm_infer"):
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    for stem in sources:
         _build.load(stem)
-    log("build", kernels="bilstm_infer,multi_bilstm_infer",
-        seconds=f"{seconds:.2f}", arch="sm_90a")
+    log("build", sources=",".join(f"{s}.cu" for s in sources),
+        kernels=",".join(KERNELS), seconds=f"{seconds:.2f}", arch="sm_90a")
     return seconds
 
 
@@ -199,8 +248,11 @@ def check_bilstm(b: int, h: int, reps: int) -> dict:
     row = dict(shape=f"T{T}xB{b}xH{h}", max_abs_err=err, tol=KERNEL_TOL, ms=ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms, library_err=lib_err)
-    log("kernel bilstm_infer", **{k: (f"{v:.6g}" if isinstance(v, float)
-                                      else v) for k, v in row.items()})
+    # the earlier time goes in the log line only: the returned row holds
+    # this run's measurements and bound
+    before = ({"ms_before_residual_flag": LEAN_B28_H512_MS_BEFORE}
+              if (b, h) == (28, 512) else {})
+    log("kernel bilstm_infer", **fmt(row), **before)
     if not err <= KERNEL_TOL:
         fail(f"bilstm_infer {row['shape']}: max abs err {err} > {KERNEL_TOL}")
     return row
@@ -242,9 +294,7 @@ def check_multi(b: int, hs, reps: int) -> dict:
                bound_ms=bound_ms,
                bound_by=bound_by, library_ms=None,
                cudnn_per_stream_sum_ms=cudnn_ms)
-    log("kernel multi_bilstm_infer", **{
-        k: (f"{v:.6g}" if isinstance(v, float) else v)
-        for k, v in row.items()})
+    log("kernel multi_bilstm_infer", **fmt(row))
     if not err <= KERNEL_TOL:
         fail(f"multi_bilstm_infer {row['shape']}: max abs err {err}")
     return row
@@ -337,7 +387,6 @@ def phase_convert(n_pairs: int = 4, reps: int = 20):
         convert_batched,
     )
     from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
-    from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
 
     config = SpeechSplitConfig()
     gen = torch.Generator().manual_seed(SEED)
@@ -350,14 +399,17 @@ def phase_convert(n_pairs: int = 4, reps: int = 20):
 
     run()  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
-    bilstm.LAUNCHES = 0
-    multi_bilstm.LAUNCHES = 0
+    reset_launches()
     result = run()
-    launches = {"bilstm_infer": bilstm.LAUNCHES,
-                "multi_bilstm_infer": multi_bilstm.LAUNCHES}
+    counts = read_launches()
+    launches = {name: counts[name]
+                for name in ("bilstm_infer", "multi_bilstm_infer")}
     for name, count in launches.items():
         if count < 1:
             fail(f"convert_batched did not launch {name}")
+    for name in TRAINING_KERNELS:
+        if counts[name]:
+            fail(f"convert_batched launched the training kernel {name}")
     if len(result) != n_pairs or any(len(r) != 7 for r in result):
         fail("convert_batched: expected 7 results per pair")
     for (src, trg), res in zip(pairs, result):
@@ -418,6 +470,13 @@ def phase_profile(g_model, p_model, pairs, top: int = 8) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
 
+    profile_events("profile", prof, wall_ms, top)
+
+
+def profile_events(phase: str, prof, wall_ms: float, top: int) -> None:
+    """The card's busy and idle share of a profiled window, and its
+    busiest device ops."""
+
     def device_us(event) -> float:
         for attr in ("self_device_time_total", "self_cuda_time_total"):
             if hasattr(event, attr):
@@ -425,19 +484,22 @@ def phase_profile(g_model, p_model, pairs, top: int = 8) -> None:
         return 0.0
 
     # device-side kernel and memcpy records only (CPU ops also carry the
-    # device time of the kernels they launch, which would count twice)
+    # device time of the kernels they launch, and a user annotation on
+    # the device, such as the optimizer's step, spans kernels listed on
+    # their own: either would count twice)
     events = [e for e in prof.key_averages()
               if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and not getattr(e, "is_user_annotation", False)
               and device_us(e) > 0]
     busy_ms = sum(device_us(e) for e in events) / 1e3
     if not events:
-        log("profile", device_time="not measured (no device events)")
+        log(phase, device_time="not measured (no device events)")
         return
-    log("profile", wall_ms=f"{wall_ms:.4f}", device_busy_ms=f"{busy_ms:.4f}",
+    log(phase, wall_ms=f"{wall_ms:.4f}", device_busy_ms=f"{busy_ms:.4f}",
         device_idle_share=f"{max(0.0, 1 - busy_ms / wall_ms):.4f}",
         note="profiler on; wall includes its overhead")
     for e in sorted(events, key=device_us, reverse=True)[:top]:
-        log("profile op", name=e.key.replace(" ", "_")[:60],
+        log(f"{phase} op", name=e.key.replace(" ", "_")[:60],
             calls=e.count, device_ms=f"{device_us(e) / 1e3:.4f}")
 
 
@@ -484,6 +546,368 @@ def phase_cli(g_model, p_model) -> None:
     log("cli.convert", files=len(written), seconds=f"{seconds:.2f}")
 
 
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want| over matching tensors."""
+    num = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    den = max(float(w.abs().max()) for w in want)
+    return num / max(den, 1e-30)
+
+
+def abs_err(got, want) -> float:
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def cudnn_train_ms(xp_f, xp_b, w_f, w_b, dh_f, dh_b, reps: int):
+    """cuDNN's training forward and its backward (one
+    ``torch.autograd.grad`` call) of the bidirectional LSTM that
+    computes (h_f, h_b) from [xp_f | xp_b] (see ``cudnn_yardstick``).
+    Its backward also forms dW_hh and dW_ih and the input's cotangent."""
+    import torch
+
+    lstm, x = cudnn_yardstick(xp_f, xp_b, w_f, w_b)
+    x.requires_grad_(True)
+    dout = torch.cat([dh_f, dh_b], -1)
+    fwd_ms = time_ms(lambda: lstm(x), reps)
+    out = lstm(x)[0]
+    wrt = (x, lstm.weight_hh_l0, lstm.weight_hh_l0_reverse)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, wrt, dout,
+                                                 retain_graph=True), reps)
+    return fwd_ms, bwd_ms
+
+
+def check_bilstm_train(b: int, h: int, reps: int) -> dict:
+    """The residual-saving forward and the gradient kernel of
+    ``ops.bilstm`` against their plain versions on the same inputs (the
+    gradient kernel gets the plain forward's residuals)."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3 * h + b)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    xp_f, xp_b = rand(T, b, 4 * h), rand(T, b, 4 * h)
+    w_f, w_b = rand(4 * h, h, scale=h ** -0.5), rand(4 * h, h, scale=h ** -0.5)
+    dh_f, dh_b = rand(T, b, h), rand(T, b, h)
+    got = bilstm.bilstm_forward_cuda(xp_f, xp_b, w_f, w_b)
+    want = bilstm.bilstm_forward_reference(xp_f, xp_b, w_f, w_b)
+    res = want[2:6]
+    dx = bilstm.bilstm_backward_cuda(dh_f, dh_b, *res, w_f, w_b)
+    dx_ref = bilstm.bilstm_backward_reference(dh_f, dh_b, *res, w_f, w_b)
+    torch.cuda.synchronize()
+    errs = dict(err_h=abs_err(got[:2], want[:2]),
+                err_g=abs_err(got[2:4], want[2:4]),
+                err_c=abs_err(got[4:], want[4:]),
+                err_dx_rel=rel_err(dx, dx_ref), err_dx=abs_err(dx, dx_ref))
+    fwd_ms = time_ms(lambda: bilstm.bilstm_forward_cuda(xp_f, xp_b, w_f, w_b),
+                     reps)
+    bwd_ms = time_ms(lambda: bilstm.bilstm_backward_cuda(
+        dh_f, dh_b, *res, w_f, w_b), reps)
+    infer_ms = time_ms(lambda: bilstm.bilstm_infer_cuda(xp_f, xp_b, w_f, w_b),
+                       reps)
+    plain_fwd_ms = time_ms(lambda: bilstm.bilstm_forward_reference(
+        xp_f, xp_b, w_f, w_b), 2, warmup=1)
+    plain_bwd_ms = time_ms(lambda: bilstm.bilstm_backward_reference(
+        dh_f, dh_b, *res, w_f, w_b), 2, warmup=1)
+    lib_fwd_ms, lib_bwd_ms = cudnn_train_ms(xp_f, xp_b, w_f, w_b, dh_f, dh_b,
+                                            reps)
+    fwd_bound, fwd_by = lstm_bound(T, b, [h, h], "fwd")
+    bwd_bound, bwd_by = lstm_bound(T, b, [h, h], "bwd")
+    shape = f"T{T}xB{b}xH{h}"
+    fwd = dict(shape=shape, max_abs_err=max(errs["err_h"], errs["err_g"],
+                                            errs["err_c"]),
+               tol=KERNEL_TOL, ms=fwd_ms, plain_ms=plain_fwd_ms,
+               bound_ms=fwd_bound, bound_by=fwd_by, library_ms=lib_fwd_ms,
+               lean_ms=infer_ms)
+    bwd = dict(shape=shape, max_abs_err=errs["err_dx"],
+               rel_err=errs["err_dx_rel"], tol=KERNEL_TOL, ms=bwd_ms,
+               plain_ms=plain_bwd_ms, bound_ms=bwd_bound, bound_by=bwd_by,
+               library_ms=lib_bwd_ms, library_fwd_plus_bwd_ms=(
+                   lib_fwd_ms + lib_bwd_ms))
+    log("kernel bilstm_fwd", **fmt({**fwd, **{k: errs[k] for k in (
+        "err_h", "err_g", "err_c")}}))
+    log("kernel bilstm_bwd", **fmt(bwd))
+    for name in ("err_h", "err_g", "err_c", "err_dx_rel"):
+        if not errs[name] <= KERNEL_TOL:
+            fail(f"bilstm training kernels {shape}: {name} {errs[name]} > "
+                 f"{KERNEL_TOL}")
+    return {"bilstm_fwd": fwd, "bilstm_bwd": bwd}
+
+
+def check_multi_train(b: int, hs, reps: int) -> dict:
+    import torch
+
+    from speechsplit_tpu_torch.ops import multi_bilstm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11 * b + len(hs))
+    xps, ws, dhs = [], [], []
+    for h in hs:
+        for _ in range(2):
+            xps.append(torch.randn(T, b, 4 * h, device="cuda", generator=gen))
+            ws.append(torch.randn(4 * h, h, device="cuda", generator=gen)
+                      * h ** -0.5)
+            dhs.append(torch.randn(T, b, h, device="cuda", generator=gen))
+    n, d2 = len(hs), 2 * len(hs)
+    got = multi_bilstm.multi_bilstm_forward_cuda(n, *xps, *ws)
+    want = multi_bilstm.multi_bilstm_forward_reference(n, *xps, *ws)
+    res = want[d2:]
+    dx = multi_bilstm.multi_bilstm_backward_cuda(n, *dhs, *res, *ws)
+    dx_ref = multi_bilstm.multi_bilstm_backward_reference(n, *dhs, *res, *ws)
+    torch.cuda.synchronize()
+    errs = dict(err_h=abs_err(got[:d2], want[:d2]),
+                err_g=abs_err(got[d2:2 * d2], want[d2:2 * d2]),
+                err_c=abs_err(got[2 * d2:], want[2 * d2:]),
+                err_dx_rel=rel_err(dx, dx_ref), err_dx=abs_err(dx, dx_ref))
+    fwd_ms = time_ms(lambda: multi_bilstm.multi_bilstm_forward_cuda(
+        n, *xps, *ws), reps)
+    bwd_ms = time_ms(lambda: multi_bilstm.multi_bilstm_backward_cuda(
+        n, *dhs, *res, *ws), reps)
+    plain_fwd_ms = time_ms(lambda: multi_bilstm.multi_bilstm_forward_reference(
+        n, *xps, *ws), 2, warmup=1)
+    plain_bwd_ms = time_ms(lambda: multi_bilstm.multi_bilstm_backward_reference(
+        n, *dhs, *res, *ws), 2, warmup=1)
+    # yardstick only (no single library call runs n LSTMs of mixed
+    # widths): cuDNN per stream, summed
+    lib_fwd = lib_bwd = 0.0
+    for s in range(n):
+        f_ms, b_ms = cudnn_train_ms(xps[2 * s], xps[2 * s + 1], ws[2 * s],
+                                    ws[2 * s + 1], dhs[2 * s], dhs[2 * s + 1],
+                                    reps)
+        lib_fwd += f_ms
+        lib_bwd += b_ms
+    dirs = [h for h in hs for _ in (0, 1)]
+    fwd_bound, fwd_by = lstm_bound(T, b, dirs, "fwd")
+    bwd_bound, bwd_by = lstm_bound(T, b, dirs, "bwd")
+    shape = f"T{T}xB{b}xH{'/'.join(map(str, hs))}"
+    fwd = dict(shape=shape, max_abs_err=max(errs["err_h"], errs["err_g"],
+                                            errs["err_c"]),
+               tol=KERNEL_TOL, ms=fwd_ms, plain_ms=plain_fwd_ms,
+               bound_ms=fwd_bound, bound_by=fwd_by, library_ms=None,
+               cudnn_per_stream_sum_ms=lib_fwd)
+    bwd = dict(shape=shape, max_abs_err=errs["err_dx"],
+               rel_err=errs["err_dx_rel"], tol=KERNEL_TOL, ms=bwd_ms,
+               plain_ms=plain_bwd_ms, bound_ms=bwd_bound, bound_by=bwd_by,
+               library_ms=None, cudnn_per_stream_sum_ms=lib_bwd)
+    log("kernel multi_bilstm_fwd", **fmt(fwd))
+    log("kernel multi_bilstm_bwd", **fmt(bwd))
+    for name in ("err_h", "err_g", "err_c", "err_dx_rel"):
+        if not errs[name] <= KERNEL_TOL:
+            fail(f"multi_bilstm training kernels {shape}: {name} "
+                 f"{errs[name]} > {KERNEL_TOL}")
+    return {"multi_bilstm_fwd": fwd, "multi_bilstm_bwd": bwd}
+
+
+def check_functions() -> None:
+    """Each op's autograd.Function on CUDA tensors against autograd
+    through the plain time loop, same inputs and cotangents: the check
+    that a forward under autograd reaches the training kernels and
+    returns every gradient. Also the dispatch: no_grad takes the lean
+    kernel, autograd a Function node. Shapes cover the batch-tiled
+    gradient staging (B=40 at H=512), widths not a multiple of 32 and
+    H=1."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def leaf(*shape, scale=1.0):
+        x = torch.randn(*shape, device="cuda", generator=gen) * scale
+        return x.requires_grad_(True)
+
+    worst = 0.0
+    cases = [("bilstm", (TRAIN_B, 512)), ("bilstm", (40, 512)),
+             ("bilstm", (3, 100)), ("bilstm", (5, 1)),
+             ("multi", (TRAIN_B, (8, 32, 1))), ("multi", (13, (64, 3)))]
+    for op, (b, hs) in cases:
+        t = T if b == TRAIN_B else 29
+        widths = [hs] if op == "bilstm" else list(hs)
+        xps = [leaf(t, b, 4 * h) for h in widths for _ in (0, 1)]
+        ws = [leaf(4 * h, h, scale=h ** -0.5) for h in widths for _ in (0, 1)]
+        dhs = [torch.randn(t, b, h, device="cuda", generator=gen)
+               for h in widths for _ in (0, 1)]
+        if op == "bilstm":
+            run = lambda *a: bilstm.bilstm_sequence(*a)  # noqa: E731
+            plain = bilstm.bilstm_sequence_reference
+            node, lean = "BiLSTMFunction", "bilstm_infer"
+        else:
+            n = len(widths)
+            run = lambda *a: multi_bilstm.multi_bilstm_sequence(n, *a)  # noqa: E731
+            plain = lambda *a: multi_bilstm.multi_bilstm_sequence_reference(  # noqa: E731
+                n, *a)
+            node, lean = "MultiBiLSTMFunction", "multi_bilstm_infer"
+        inputs = xps + ws
+        reset_launches()
+        with torch.no_grad():
+            outs = run(*inputs)
+        if read_launches()[lean] != 1 or any(o.grad_fn for o in outs):
+            fail(f"{op}: no_grad did not take the lean kernel")
+        outs = run(*inputs)
+        if not type(outs[0].grad_fn).__name__.startswith(node):
+            fail(f"{op}: autograd did not take {node}: {outs[0].grad_fn}")
+        got = torch.autograd.grad(outs, inputs, dhs)
+        want = torch.autograd.grad(plain(*inputs), inputs, dhs)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            worst = max(worst, err)
+            if not err <= KERNEL_TOL:
+                fail(f"{op} B{b} H{hs}: Function grad vs autograd of the "
+                     f"plain loop, rel err {err} > {KERNEL_TOL}")
+    log("autograd.Function", cases=len(cases), grads_rel_err=f"{worst:.3g}",
+        tol=KERNEL_TOL, against="autograd through the plain loop")
+
+
+def phase_train_kernels(reps: int = 10) -> dict:
+    """The training kernels at the train steps' shapes. Returns the row
+    of each kernel's most expensive main-path shape."""
+    with strict_float32():
+        rows = {}
+        for b, h in ((TRAIN_B, 512), (TRAIN_B, 256), (TRAIN_B, 8)):
+            for name, row in check_bilstm_train(b, h, reps).items():
+                rows.setdefault(name, row)
+        for hs in ((8, 32, 1), (32, 1)):
+            for name, row in check_multi_train(TRAIN_B, hs, reps).items():
+                rows.setdefault(name, row)
+        check_functions()
+    return rows
+
+
+def synthetic_batch(config, seed: int):
+    """A B=16 ``Collator`` batch cut from 16 seeded synthetic utterances
+    (mel in [0, 1], a normalized log-F0 contour with unvoiced frames,
+    one-hot speakers)."""
+    import numpy as np
+
+    from speechsplit_tpu_torch.data import Collator
+
+    rng = np.random.default_rng(seed)
+    samples = []
+    for i in range(TRAIN_B):
+        length = int(rng.integers(150, 400))
+        mel = rng.random((length, config.dim_freq), dtype=np.float32)
+        f0 = np.where(rng.random(length) < 0.2, 0.0,
+                      rng.random(length)).astype(np.float32)
+        emb = np.zeros(config.dim_spk_emb, np.float32)
+        emb[i % config.dim_spk_emb] = 1.0
+        samples.append((mel, emb, f0))
+    return Collator(config)(samples, rng)
+
+
+def grads_of(model) -> dict:
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def train_phase(name: str, model: str, expected: dict, batch, reps: int = 12):
+    """One train step's launches, the step against the plain step, 5
+    steps, and the time per step."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.training import (
+        create_train_state,
+        make_f0_train_step,
+        make_train_step,
+    )
+
+    config = SpeechSplitConfig(residual_dtype="float32",
+                               adam_mu_dtype="float32")
+    make = make_train_step if model == "speechsplit" else make_f0_train_step
+    step = make(config)
+
+    with strict_float32():
+        state = create_train_state(config, SEED, model)
+        before = [p.detach().clone() for p in state.model.parameters()]
+        torch.cuda.synchronize()
+        reset_launches()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        grads = grads_of(state.model)
+        for kernel, count in launches.items():
+            if count != expected.get(kernel, 0):
+                fail(f"{name} step launched {kernel} {count} times, "
+                     f"expected {expected.get(kernel, 0)}")
+        plain_state = create_train_state(config, SEED, model)
+        with plain_kernels():
+            plain_state, plain_loss = step(plain_state, batch)
+        plain_grads = grads_of(plain_state.model)
+    loss_err = abs(float(loss) - float(plain_loss)) / abs(float(plain_loss))
+    grad_err, worst = 0.0, ""
+    for key, g in grads.items():
+        w = plain_grads[key]
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if err > grad_err:
+            grad_err, worst = err, key
+    if not (loss_err <= STEP_TOL and grad_err <= STEP_TOL):
+        fail(f"{name} step vs plain step: loss rel err {loss_err}, grad "
+             f"rel err {grad_err} ({worst}) > {STEP_TOL}")
+
+    losses = [float(loss)]
+    for _ in range(4):
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+    changed = max(float((p.detach() - q).abs().max())
+                  for p, q in zip(state.model.parameters(), before))
+    if not (np.isfinite(losses).all() and changed > 0):
+        fail(f"{name}: losses {losses}, largest parameter change {changed}")
+
+    # timed at the precision that was compared: float32, TF32 off
+    samples = []
+    with strict_float32("timing"):
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            state, loss = step(state, batch)
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - start) * 1e3)
+    q1, ms, q3 = np.percentile(samples, [25, 50, 75])
+    log(f"train {name}", batch=f"B{TRAIN_B}xT{config.max_len_pad}",
+        loss_rel_err_vs_plain=f"{loss_err:.3g}",
+        max_grad_rel_err_vs_plain=f"{grad_err:.3g}", worst_param=worst,
+        tol=STEP_TOL, losses=",".join(f"{v:.6f}" for v in losses),
+        largest_param_change=f"{changed:.3g}", steps=reps,
+        median_ms_per_step=f"{ms:.4f}", q1_ms=f"{q1:.4f}", q3_ms=f"{q3:.4f}",
+        steps_per_s_at_median=f"{1e3 / ms:.3f}",
+        tf32="off for the comparison and the timing",
+        launches=json.dumps(launches).replace(" ", ""))
+    return launches, state, step
+
+
+def phase_train():
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+
+    batch = synthetic_batch(SpeechSplitConfig(), SEED)
+    gen_launches, state, step = train_phase(
+        "generator", "speechsplit",
+        {"bilstm_fwd": 4, "bilstm_bwd": 4, "multi_bilstm_fwd": 1,
+         "multi_bilstm_bwd": 1}, batch)
+    f0_launches, _, _ = train_phase(
+        "f0_converter", "f0_converter",
+        {"bilstm_fwd": 2, "bilstm_bwd": 2, "multi_bilstm_fwd": 1,
+         "multi_bilstm_bwd": 1}, batch)
+    return gen_launches, f0_launches, state, step, batch
+
+
+def phase_profile_train(state, step, batch, top: int = 14) -> None:
+    """Where one generator train step spends device time (float32,
+    TF32 off, as the timed steps)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with strict_float32("profile"), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    profile_events("profile train", prof, wall_ms, top)
+
+
 KERNELS = {
     "bilstm_infer": dict(
         route="cuda", source="speechsplit_tpu_torch/csrc/bilstm_infer.cu",
@@ -492,7 +916,23 @@ KERNELS = {
         route="cuda",
         source="speechsplit_tpu_torch/csrc/multi_bilstm_infer.cu",
         replaces="speechsplit_tpu/ops/pallas_multilstm.py:149"),
+    "bilstm_fwd": dict(
+        route="cuda", source="speechsplit_tpu_torch/csrc/bilstm_infer.cu",
+        replaces="speechsplit_tpu/ops/pallas_lstm.py:625"),
+    "bilstm_bwd": dict(
+        route="cuda", source="speechsplit_tpu_torch/csrc/bilstm_bwd.cu",
+        replaces="speechsplit_tpu/ops/pallas_lstm.py:832"),
+    "multi_bilstm_fwd": dict(
+        route="cuda",
+        source="speechsplit_tpu_torch/csrc/multi_bilstm_infer.cu",
+        replaces="speechsplit_tpu/ops/pallas_multilstm.py:113"),
+    "multi_bilstm_bwd": dict(
+        route="cuda",
+        source="speechsplit_tpu_torch/csrc/multi_bilstm_bwd.cu",
+        replaces="speechsplit_tpu/ops/pallas_multilstm.py:174"),
 }
+TRAINING_KERNELS = ("bilstm_fwd", "bilstm_bwd", "multi_bilstm_fwd",
+                    "multi_bilstm_bwd")
 
 
 def main() -> int:
@@ -514,9 +954,21 @@ def main() -> int:
     launches, g_model, p_model, pairs = phase_convert()
     phase_profile(g_model, p_model, pairs)
     phase_cli(g_model, p_model)
+    del g_model, p_model, pairs
+    rows.update(phase_train_kernels())
+    gen_launches, f0_launches, state, step, batch = phase_train()
+    phase_profile_train(state, step, batch)
     log("done", seconds=f"{time.perf_counter() - wall:.1f}")
-    kernels = [dict(name=name, **meta, launches=launches[name], **rows[name])
-               for name, meta in KERNELS.items()]
+    # launches: the conversion call's for the inference kernels, one
+    # generator train step's for the training kernels (the F0 step's
+    # beside them)
+    launches.update({k: gen_launches[k] for k in TRAINING_KERNELS})
+    kernels = []
+    for name, meta in KERNELS.items():
+        row = dict(name=name, **meta, launches=launches[name], **rows[name])
+        if name in TRAINING_KERNELS:
+            row["launches_f0_step"] = f0_launches[name]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

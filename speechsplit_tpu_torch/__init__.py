@@ -4,13 +4,17 @@ Runs the SpeechSplit generator and the F0 converter on an NVIDIA Hopper
 card (H100). Module names mirror the JAX package so that each module's
 counterpart is easy to find; the port imports nothing of that package.
 
-Every recurrence on the conversion path runs in a CUDA kernel written
-for ``sm_90a`` (``csrc/``): ``ops.bilstm`` (one BiLSTM layer, both
-directions in one launch) and ``ops.multi_bilstm`` (N independent narrow
-BiLSTMs in one launch). On CPU tensors the same functions run their
-plain PyTorch versions, which is how the tests hold the port to JAX.
+Every recurrence on the conversion and training paths runs in a CUDA
+kernel written for ``sm_90a`` (``csrc/``): ``ops.bilstm`` (one BiLSTM
+layer, both directions in one launch) and ``ops.multi_bilstm`` (N
+independent narrow BiLSTMs in one launch), each with a lean forward for
+inference and, under autograd, a residual-saving forward and a gradient
+kernel. On CPU tensors the same functions run their plain PyTorch
+versions, which is how the tests hold the port to JAX.
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
+conversion (``convert``) and training (``training.create_train_state``,
+``training.make_train_step``, ``training.make_f0_train_step``).
 """
 
 from __future__ import annotations
@@ -37,11 +41,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_TRAINING = ("TrainState", "create_train_state", "make_train_step",
+             "make_f0_train_step")
+
+
 def __getattr__(name):
     if name in ("SpeechSplit", "F0Converter"):
         from speechsplit_tpu_torch import models
 
         return getattr(models, name)
+    if name in _TRAINING:
+        from speechsplit_tpu_torch import training
+
+        return getattr(training, name)
     raise AttributeError(name)
 
 
@@ -50,5 +62,6 @@ __all__ = [
     "resolve_device",
     "SpeechSplit",
     "F0Converter",
+    *_TRAINING,
     "__version__",
 ]

@@ -1,15 +1,19 @@
-// Merged bidirectional LSTM layer, lean forward (h only), float32.
+// Merged bidirectional LSTM layer forward, float32: the lean forward
+// (h only) and the residual-saving forward of training, one kernel body.
 //
 // Replaces: speechsplit_tpu/ops/pallas_lstm.py::_bd_infer_kernel (wrapper
 // _bd_infer), the TPU kernel that runs both directions of one BiLSTM layer
-// in one grid. Same math as pallas_lstm._cell: gates = xp + h_{t-1} W_hh^T
-// ordered i, f, g, o; sigmoid/sigmoid/tanh/sigmoid; c = f c + i g;
-// h = o tanh(c); state float32 from zero. The backward direction walks
-// T-1 -> 0 over inputs and outputs kept in real time order.
+// in one grid, and, with kResid, ::_bd_fwd_kernel (wrapper _bd_fwd), which
+// also writes each step's post-activation gates and cell state for the
+// backward (csrc/bilstm_bwd.cu). Same math as pallas_lstm._cell: gates =
+// xp + h_{t-1} W_hh^T ordered i, f, g, o; sigmoid/sigmoid/tanh/sigmoid;
+// c = f c + i g; h = o tanh(c); state float32 from zero. The backward
+// direction walks T-1 -> 0 over inputs and outputs kept in real time order.
 //
 // Layouts: xp_f, xp_b [T, B, 4H] (time-major, real time order); w_f, w_b
 // [4H, H] (torch's weight_hh_l{k}: row g*H + u holds gate g of unit u);
-// h_f, h_b [T, B, H].
+// h_f, h_b [T, B, H]; with kResid also g_f, g_b [T, B, 4H] (the gates
+// i, f, g, o after their activations) and c_f, c_b [T, B, H].
 //
 // What bounds it on an H100: the recurrence. Step t needs all of h_{t-1},
 // so the T steps are serial and each is a small [B, H] x [H, 4H] product
@@ -35,8 +39,11 @@
 // groups). The
 // launch is cooperative, so it fails rather than deadlocks when the grid
 // cannot be co-resident; the host side checks occupancy first and says so.
-// Making it fast (wgmma on the step product, clusters with distributed
-// shared memory in place of the grid barrier) is later work.
+// The residual-saving forward is the same kernel with five more stores a
+// cell (g and c), made by the lane that already holds the values; the
+// lean instantiation compiles without them. Making it fast (wgmma on the
+// step product, clusters with distributed shared memory in place of the
+// grid barrier) is later work.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -54,13 +61,15 @@ __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-template <int KPL>
+template <int KPL, bool kResid>
 __global__ void __launch_bounds__(kMaxUnits * 32)
 bilstm_infer_kernel(const float* __restrict__ xp_f,
                     const float* __restrict__ xp_b,
                     const float* __restrict__ w_f,
                     const float* __restrict__ w_b,
                     float* h_f, float* h_b,
+                    float* __restrict__ g_f, float* __restrict__ g_b,
+                    float* __restrict__ c_f, float* __restrict__ c_b,
                     int T, int B, int H,
                     int blocks_per_dir, int units_per_block, int bt) {
   extern __shared__ float smem[];
@@ -74,6 +83,8 @@ bilstm_infer_kernel(const float* __restrict__ xp_f,
   const float* xp = dir == 0 ? xp_f : xp_b;
   const float* w = dir == 0 ? w_f : w_b;
   float* hout = dir == 0 ? h_f : h_b;
+  float* gout = dir == 0 ? g_f : g_b;
+  float* cout = dir == 0 ? c_f : c_b;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int u = blk * units_per_block + warp;
@@ -187,7 +198,16 @@ bilstm_infer_kernel(const float* __restrict__ xp_f,
           float* c = c_s + warp * B + b;
           const float c_new = f_g * *c + i_g * g_g;
           *c = c_new;
-          hout[(static_cast<size_t>(t) * B + b) * H + u] = o_g * tanhf(c_new);
+          const size_t row = static_cast<size_t>(t) * B + b;
+          hout[row * H + u] = o_g * tanhf(c_new);
+          if constexpr (kResid) {
+            float* gr = gout + row * 4 * H;
+            gr[u] = i_g;
+            gr[H + u] = f_g;
+            gr[2 * H + u] = g_g;
+            gr[3 * H + u] = o_g;
+            cout[row * H + u] = c_new;
+          }
         }
       }
     }
@@ -195,11 +215,12 @@ bilstm_infer_kernel(const float* __restrict__ xp_f,
   }
 }
 
-template <int KPL>
+template <int KPL, bool kResid>
 cudaError_t launch(const float* xp_f, const float* xp_b, const float* w_f,
-                   const float* w_b, float* h_f, float* h_b, int T, int B,
-                   int H, cudaStream_t stream) {
-  auto kernel = bilstm_infer_kernel<KPL>;
+                   const float* w_b, float* h_f, float* h_b, float* g_f,
+                   float* g_b, float* c_f, float* c_b, int T, int B, int H,
+                   cudaStream_t stream) {
+  auto kernel = bilstm_infer_kernel<KPL, kResid>;
   const int units = H < kMaxUnits ? H : kMaxUnits;
   const int blocks_per_dir = (H + units - 1) / units;
   const int threads = units * 32;
@@ -228,7 +249,8 @@ cudaError_t launch(const float* xp_f, const float* xp_b, const float* w_f,
            &per_sm, kernel, threads, smem)) != cudaSuccess) return err;
   const int grid = 2 * blocks_per_dir;
   if (per_sm * sms < grid) return cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&xp_f, &xp_b, &w_f, &w_b, &h_f, &h_b, &T, &B, &H,
+  void* args[] = {&xp_f, &xp_b, &w_f, &w_b, &h_f, &h_b, &g_f, &g_b, &c_f,
+                  &c_b, &T, &B, &H,
                   const_cast<int*>(&blocks_per_dir),
                   const_cast<int*>(&units), &bt};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
@@ -238,14 +260,11 @@ cudaError_t launch(const float* xp_f, const float* xp_b, const float* w_f,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Returns a cudaError_t (0 on success). Does not synchronise.
-int bilstm_infer_launch(const void* xp_f, const void* xp_b, const void* w_f,
-                        const void* w_b, void* h_f, void* h_b, int T, int B,
-                        int H, int device, void* stream) {
+template <bool kResid>
+int dispatch(const void* xp_f, const void* xp_b, const void* w_f,
+             const void* w_b, void* h_f, void* h_b, void* g_f, void* g_b,
+             void* c_f, void* c_b, int T, int B, int H, int device,
+             void* stream) {
   if (T < 1 || B < 1 || H < 1 || H > kMaxH) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -256,12 +275,42 @@ int bilstm_infer_launch(const void* xp_f, const void* xp_b, const void* w_f,
   auto wb = static_cast<const float*>(w_b);
   auto hf = static_cast<float*>(h_f);
   auto hb = static_cast<float*>(h_b);
+  auto gf = static_cast<float*>(g_f);
+  auto gb = static_cast<float*>(g_b);
+  auto cf = static_cast<float*>(c_f);
+  auto cb = static_cast<float*>(c_b);
   const int kpl = (H + 31) / 32;
-  if (kpl <= 1) return launch<1>(xf, xb, wf, wb, hf, hb, T, B, H, s);
-  if (kpl <= 2) return launch<2>(xf, xb, wf, wb, hf, hb, T, B, H, s);
-  if (kpl <= 4) return launch<4>(xf, xb, wf, wb, hf, hb, T, B, H, s);
-  if (kpl <= 8) return launch<8>(xf, xb, wf, wb, hf, hb, T, B, H, s);
-  return launch<16>(xf, xb, wf, wb, hf, hb, T, B, H, s);
+  if (kpl <= 1)
+    return launch<1, kResid>(xf, xb, wf, wb, hf, hb, gf, gb, cf, cb, T, B, H, s);
+  if (kpl <= 2)
+    return launch<2, kResid>(xf, xb, wf, wb, hf, hb, gf, gb, cf, cb, T, B, H, s);
+  if (kpl <= 4)
+    return launch<4, kResid>(xf, xb, wf, wb, hf, hb, gf, gb, cf, cb, T, B, H, s);
+  if (kpl <= 8)
+    return launch<8, kResid>(xf, xb, wf, wb, hf, hb, gf, gb, cf, cb, T, B, H, s);
+  return launch<16, kResid>(xf, xb, wf, wb, hf, hb, gf, gb, cf, cb, T, B, H, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Lean forward. Returns a cudaError_t (0 on success). Does not synchronise.
+int bilstm_infer_launch(const void* xp_f, const void* xp_b, const void* w_f,
+                        const void* w_b, void* h_f, void* h_b, int T, int B,
+                        int H, int device, void* stream) {
+  return dispatch<false>(xp_f, xp_b, w_f, w_b, h_f, h_b, nullptr, nullptr,
+                         nullptr, nullptr, T, B, H, device, stream);
+}
+
+// Residual-saving forward: also writes g_f, g_b [T, B, 4H] and c_f, c_b
+// [T, B, H]. Returns a cudaError_t (0 on success). Does not synchronise.
+int bilstm_fwd_launch(const void* xp_f, const void* xp_b, const void* w_f,
+                      const void* w_b, void* h_f, void* h_b, void* g_f,
+                      void* g_b, void* c_f, void* c_b, int T, int B, int H,
+                      int device, void* stream) {
+  return dispatch<true>(xp_f, xp_b, w_f, w_b, h_f, h_b, g_f, g_b, c_f, c_b,
+                        T, B, H, device, stream);
 }
 
 const char* bilstm_error_string(int err) {

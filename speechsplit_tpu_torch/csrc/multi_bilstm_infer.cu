@@ -1,16 +1,21 @@
-// N independent bidirectional LSTMs of mixed widths in one launch, lean
-// forward (h only), float32.
+// N independent bidirectional LSTMs of mixed widths in one launch, float32
+// forward: the lean forward (h only) and the residual-saving forward of
+// training, one kernel body.
 //
 // Replaces: speechsplit_tpu/ops/pallas_multilstm.py::_infer_kernel (wrapper
 // _infer), the TPU kernel that interleaves the 2N directions of the
 // generator's narrow encoder recurrences (content layer 0 H=8, pitch H=32,
-// rhythm H=1) or the F0 converter's (f0 H=32, rhythm H=1) in one grid.
+// rhythm H=1) or the F0 converter's (f0 H=32, rhythm H=1) in one grid,
+// and, with kResid, ::_fwd_kernel (wrapper _fwd), which also writes each
+// step's post-activation gates and cell state for the backward
+// (csrc/multi_bilstm_bwd.cu).
 // Same cell math as pallas_lstm._cell; directions are ordered
 // [f0, b0, f1, b1, ...], odd ones walk T-1 -> 0 over data kept in real
 // time order.
 //
 // Layouts per direction d: xp [T, B, 4H_d], w [4H_d, H_d] (torch's
-// weight_hh_l{k}), h [T, B, H_d].
+// weight_hh_l{k}), h [T, B, H_d]; with kResid also g [T, B, 4H_d] (gates
+// i, f, g, o after their activations) and c [T, B, H_d].
 //
 // What bounds it on an H100: latency. The widths are tiny (4H <= 128), so
 // a step is a few thousand multiply-adds and the 192 dependent steps of a
@@ -24,7 +29,8 @@
 // barrier and no global exchange. All directions of all N streams run at
 // once in one launch, so the group costs about one stream's latency.
 // Per-direction pointers and widths travel in a small descriptor passed
-// by value.
+// by value. The residual-saving forward adds five stores a cell; the lean
+// instantiation compiles without them.
 
 #include <cuda_runtime.h>
 
@@ -39,6 +45,8 @@ struct Dir {
   const float* xp;
   const float* w;
   float* h;
+  float* g;  // residual-saving forward only
+  float* c;
   int H;
 };
 
@@ -53,6 +61,7 @@ __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+template <bool kResid>
 __global__ void __launch_bounds__(kThreads)
 multi_bilstm_infer_kernel(Params p) {
   extern __shared__ float smem[];
@@ -109,21 +118,23 @@ multi_bilstm_infer_kernel(Params p) {
       c_s[i] = c_new;
       h_s[i] = h_new;
       out[i] = h_new;
+      if constexpr (kResid) {
+        float* gr = d.g + (static_cast<size_t>(t) * B + b0 + b) * G;
+        gr[u] = i_g;
+        gr[H + u] = f_g;
+        gr[2 * H + u] = g_g;
+        gr[3 * H + u] = o_g;
+        d.c[(static_cast<size_t>(t) * B + b0) * H + i] = c_new;
+      }
     }
     __syncthreads();
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// xp, w, h: n_dirs device pointers each; hs: n_dirs widths. Returns a
-// cudaError_t (0 on success). Does not synchronise.
-int multi_bilstm_infer_launch(int n_dirs, const void* const* xp,
-                              const void* const* w, void* const* h,
-                              const int* hs, int T, int B, int device,
-                              void* stream) {
+template <bool kResid>
+int dispatch(int n_dirs, const void* const* xp, const void* const* w,
+             void* const* h, void* const* g, void* const* c, const int* hs,
+             int T, int B, int device, void* stream) {
   if (n_dirs < 1 || n_dirs > kMaxDirs || T < 1 || B < 1) {
     return cudaErrorInvalidValue;
   }
@@ -133,7 +144,8 @@ int multi_bilstm_infer_launch(int n_dirs, const void* const* xp,
     if (hs[i] < 1 || hs[i] > kMaxH) return cudaErrorInvalidValue;
     p.d[i] = Dir{static_cast<const float*>(xp[i]),
                  static_cast<const float*>(w[i]), static_cast<float*>(h[i]),
-                 hs[i]};
+                 kResid ? static_cast<float*>(g[i]) : nullptr,
+                 kResid ? static_cast<float*>(c[i]) : nullptr, hs[i]};
     if (hs[i] > max_h) max_h = hs[i];
   }
   p.T = T;
@@ -145,13 +157,36 @@ int multi_bilstm_infer_launch(int n_dirs, const void* const* xp,
        static_cast<size_t>(kBatchTile) * 4 * max_h) * sizeof(float);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(multi_bilstm_infer_kernel,
+  err = cudaFuncSetAttribute(multi_bilstm_infer_kernel<kResid>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  multi_bilstm_infer_kernel<<<n_dirs * p.tiles, kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(p);
+  multi_bilstm_infer_kernel<kResid><<<n_dirs * p.tiles, kThreads, smem,
+                                      static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Lean forward. xp, w, h: n_dirs device pointers each; hs: n_dirs widths.
+// Returns a cudaError_t (0 on success). Does not synchronise.
+int multi_bilstm_infer_launch(int n_dirs, const void* const* xp,
+                              const void* const* w, void* const* h,
+                              const int* hs, int T, int B, int device,
+                              void* stream) {
+  return dispatch<false>(n_dirs, xp, w, h, nullptr, nullptr, hs, T, B,
+                         device, stream);
+}
+
+// Residual-saving forward: as above, and g [T, B, 4H_d], c [T, B, H_d]
+// per direction.
+int multi_bilstm_fwd_launch(int n_dirs, const void* const* xp,
+                            const void* const* w, void* const* h,
+                            void* const* g, void* const* c, const int* hs,
+                            int T, int B, int device, void* stream) {
+  return dispatch<true>(n_dirs, xp, w, h, g, c, hs, T, B, device, stream);
 }
 
 const char* multi_bilstm_error_string(int err) {

@@ -1,10 +1,15 @@
 """The bottleneck encoders (counterpart of speechsplit_tpu/models/encoders.py).
 
-Eval only: the random-resampling augmentation belongs to training, a
-later slice of the port. Each encoder has
-``pre`` (the conv stack before its recurrence) and ``codes`` (the
+Each encoder has ``pre`` (the conv stack before its recurrence, with
+the random-resampling augmentation of training) and ``codes`` (the
 stride sampling after it); the generators run the recurrences between
 them, every independent one in one ``ops.multi_bilstm`` launch.
+
+In train mode ``pre`` resamples after every conv (F0Encoder) or every
+conv pair (ContentPitchEncoder, content and pitch jointly so they stay
+aligned), with the full padded length as every row's length
+(reference model.py:105,125-129,194-211). The draws come from the
+``torch.Generator`` the caller passes (see ``ops.interp``).
 
 Submodule names follow the reference (Encoder_t model.py:46-89,
 Encoder_6 model.py:93-140, Encoder_7 model.py:144-229) so that its
@@ -23,6 +28,20 @@ from speechsplit_tpu_torch.models.layers import (
     conv_norm,
     downsample_codes,
 )
+from speechsplit_tpu_torch.ops.interp import random_resample
+
+
+def _resample(config: SpeechSplitConfig, x: torch.Tensor,
+              generator: torch.Generator) -> torch.Tensor:
+    """One train-mode resample of x [B, T, C] at full padded length."""
+    full_len = torch.full((x.shape[0],), config.max_len_pad,
+                          dtype=torch.int64)
+    return random_resample(
+        x, full_len, generator,
+        min_len_seg=config.min_len_seg, max_len_seg=config.max_len_seg,
+        max_len_seq=config.max_len_seq, max_len_pad=config.max_len_pad,
+    )
+
 
 class _DropsLenOrg(nn.Module):
     """The reference registers a constant ``len_org`` buffer (=
@@ -64,9 +83,9 @@ class RhythmEncoder(nn.Module):
 
 
 class F0Encoder(_DropsLenOrg):
-    """3 x [conv(dim_f0 -> dim_enc_3, k5) + GroupNorm + ReLU],
-    BiLSTM(dim_neck_3), stride-freq_3 sampling (the per-conv resampling
-    of training is not part of eval)."""
+    """3 x [conv(dim_f0 -> dim_enc_3, k5) + GroupNorm + ReLU, and in
+    train mode a random resample], BiLSTM(dim_neck_3), stride-freq_3
+    sampling."""
 
     def __init__(self, config: SpeechSplitConfig, generator: torch.Generator,
                  dtype: torch.dtype = torch.float32):
@@ -82,9 +101,12 @@ class F0Encoder(_DropsLenOrg):
         self.lstm = LSTM(cfg.dim_enc_3, cfg.dim_neck_3, 1, generator,
                          dtype=dtype)
 
-    def pre(self, x: torch.Tensor) -> torch.Tensor:
+    def pre(self, x: torch.Tensor, train: bool = False,
+            generator: torch.Generator | None = None) -> torch.Tensor:
         for conv in self.convolutions:
             x = F.relu(conv(x))
+            if train:
+                x = _resample(self.config, x, generator)
         return x
 
     def codes(self, outputs: torch.Tensor) -> torch.Tensor:
@@ -119,8 +141,10 @@ class ContentPitchEncoder(_DropsLenOrg):
         self.lstm_2 = LSTM(cfg.dim_enc_3, cfg.dim_neck_3, 1, generator,
                            dtype=dtype)
 
-    def pre(self, x_f0: torch.Tensor):
-        """Conv stacks; returns the (content, pitch) streams."""
+    def pre(self, x_f0: torch.Tensor, train: bool = False,
+            generator: torch.Generator | None = None):
+        """Conv stacks (with the joint resamples in train mode); returns
+        the (content, pitch) streams."""
         cfg = self.config
         x = x_f0[:, :, : cfg.dim_freq]
         f0 = x_f0[:, :, cfg.dim_freq :]
@@ -128,6 +152,10 @@ class ContentPitchEncoder(_DropsLenOrg):
                                      self.convolutions_2):
             x = F.relu(conv_mel(x))
             f0 = F.relu(conv_f0(f0))
+            if train:
+                joint = _resample(cfg, torch.cat([x, f0], dim=-1), generator)
+                x = joint[:, :, : cfg.dim_enc]
+                f0 = joint[:, :, cfg.dim_enc :]
         return x, f0
 
     def codes(self, content: torch.Tensor, pitch: torch.Tensor):

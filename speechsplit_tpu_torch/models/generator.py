@@ -11,6 +11,11 @@ independent encoder recurrence in one ``ops.multi_bilstm`` launch, then
 content layer 1 through ``ops.bilstm``, then code sampling. The JAX
 package picks that structure per backend and batch; the port runs it
 everywhere, so the CPU tests and the card run the same code.
+
+``train=True`` turns on the encoders' random resampling, whose draws
+come from the ``generator`` argument in the JAX order: content/pitch
+conv pairs 0, 1, 2 (SpeechSplit), f0 convs 0, 1, 2 (F0Converter). Under
+autograd the recurrences run their training kernels (``ops.bilstm``).
 """
 
 from __future__ import annotations
@@ -28,11 +33,6 @@ from speechsplit_tpu_torch.models.encoders import (
 from speechsplit_tpu_torch.models.layers import combine_bidir, upsample_codes
 from speechsplit_tpu_torch.ops import multi_bilstm
 
-TRAINING_SLICE = (
-    "training (random_resample and the train step) is the next slice of "
-    "the port; see ROADMAP.md"
-)
-
 
 def _model_dtype(config: SpeechSplitConfig) -> torch.dtype:
     dtype = resolve_dtype(config.compute_dtype)
@@ -49,12 +49,13 @@ def _generator(generator):
 
 
 class SpeechSplit(nn.Module):
-    """Triple-information-bottleneck generator, eval forward.
+    """Triple-information-bottleneck generator.
 
     Inputs (``[B, T, .]``): ``x_f0`` mel ++ one-hot F0 [B, T, 80+257],
     ``x_org`` un-augmented mel [B, T, 80], ``c_trg`` speaker embedding
     [B, 82]. Returns the converted mel [B, T, 80]. T must be a multiple
-    of every ``freq`` so the code streams line up.
+    of every ``freq`` so the code streams line up; in train mode T must
+    be ``max_len_pad``, the length the resampling pads to.
     """
 
     def __init__(self, config: SpeechSplitConfig,
@@ -73,9 +74,8 @@ class SpeechSplit(nn.Module):
         self.decoder = MelDecoder(config, gen, dtype)
 
     def forward(self, x_f0: torch.Tensor, x_org: torch.Tensor,
-                c_trg: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(TRAINING_SLICE)
+                c_trg: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         if c_trg.dim() != 2:
             raise NotImplementedError(
                 "a mel-valued c_trg needs spk_emb_mode='learned', queued in "
@@ -83,7 +83,7 @@ class SpeechSplit(nn.Module):
             )
         cfg = self.config
         enc_cp, enc_r = self.encoder_1, self.encoder_2
-        xc, xp = enc_cp.pre(x_f0)
+        xc, xp = enc_cp.pre(x_f0, train=train, generator=generator)
         xr = enc_r.pre(x_org)
         s_c = enc_cp.lstm_1(xc, mode="streams", start_layer=0)
         s_p = enc_cp.lstm_2(xp, mode="streams")
@@ -128,12 +128,11 @@ class F0Converter(nn.Module):
         self.decoder = F0Decoder(config, gen, dtype)
 
     def forward(self, x_org: torch.Tensor, f0_trg: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(TRAINING_SLICE)
+                train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         cfg = self.config
         enc_f, enc_r = self.encoder_3, self.encoder_2
-        xf = enc_f.pre(f0_trg)
+        xf = enc_f.pre(f0_trg, train=train, generator=generator)
         xr = enc_r.pre(x_org)
         s_f = enc_f.lstm(xf, mode="streams")
         s_r = enc_r.lstm(xr, mode="streams")

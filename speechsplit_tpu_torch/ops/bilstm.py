@@ -1,9 +1,10 @@
 """One bidirectional LSTM layer, both directions in one kernel launch.
 
 Counterpart of ``speechsplit_tpu/ops/pallas_lstm.py::bilstm_sequence``
-(its lean forward ``_bd_infer``). Carries the mel decoder (3 layers,
-H=512), the F0 decoder (2 layers, H=256) and content-encoder layer 1
-(H=8).
+and its custom VJP: the lean forward ``_bd_infer``, the residual-saving
+forward ``_bd_fwd`` and the gradient recurrence ``_bd_bwd_call``. Carries
+the mel decoder (3 layers, H=512), the F0 decoder (2 layers, H=256) and
+content-encoder layer 1 (H=8).
 
 Layout contract: ``xp_f``, ``xp_b`` [T, B, 4H] are the projected inputs
 ``x W_ih^T + b_ih + b_hh`` of the forward and backward direction, both
@@ -11,9 +12,15 @@ in real time order; ``w_f``, ``w_b`` are [4H, H], torch's
 ``weight_hh_l{k}`` layout (the transpose of the JAX package's [H, 4H]).
 Returns ``(h_f, h_b)``, each [T, B, H] in real time order.
 
-On a CUDA tensor :func:`bilstm_sequence` launches
-``csrc/bilstm_infer.cu`` or raises; on CPU tensors it runs
-:func:`bilstm_sequence_reference`, the plain time loop of the same cell.
+Dispatch of :func:`bilstm_sequence`: when autograd is recording and an
+input requires grad, :class:`BiLSTMFunction` runs the residual-saving
+forward and, in its backward, the gradient recurrence, then
+``dW_hh`` as one matmul outside the kernel (as ``_bd_vjp_bwd`` does);
+otherwise the lean forward runs. On CUDA tensors each of the three
+launches its kernel (``csrc/bilstm_infer.cu``, ``csrc/bilstm_bwd.cu``)
+or raises; on CPU tensors each runs its plain PyTorch version, so the
+CPU tests exercise the same forward and backward math the kernels
+implement, not autograd of a plain loop.
 """
 
 from __future__ import annotations
@@ -21,43 +28,89 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from speechsplit_tpu_torch.ops import _build
 
-# kernel launches since the last reset; the main path's proof that it ran
-LAUNCHES = 0
+# kernel launches since the last reset, per kernel; the main path's proof
+# that it ran
+LAUNCHES = {"bilstm_infer": 0, "bilstm_fwd": 0, "bilstm_bwd": 0}
 
 MAX_HIDDEN = 512
 
 
-def cell(xp: torch.Tensor, w: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
-    """One LSTM step (pallas_lstm._cell): xp [B, 4H], w [4H, H]."""
-    gates = xp + h @ w.t()
-    i, f, g, o = gates.chunk(4, dim=-1)
-    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-    return torch.sigmoid(o) * torch.tanh(c), c
-
-
-def lstm_direction_reference(
-    xp: torch.Tensor, w: torch.Tensor, reverse: bool
-) -> torch.Tensor:
-    """Plain time loop of one direction; xp [T, B, 4H] in real order."""
+def lstm_direction_forward_reference(xp, w, reverse: bool):
+    """Plain time loop of one direction (pallas_lstm._cell): xp
+    [T, B, 4H] and w [4H, H], both in real time order. Returns h
+    [T, B, H] and the residuals: the post-activation gates i, f, g, o
+    [T, B, 4H] and c [T, B, H]."""
     t_len, batch, four_h = xp.shape
-    h = xp.new_zeros(batch, four_h // 4, dtype=torch.float32)
+    h = xp.new_zeros(batch, four_h // 4)
     c = torch.zeros_like(h)
-    out = xp.new_empty(t_len, batch, four_h // 4, dtype=torch.float32)
-    steps = range(t_len - 1, -1, -1) if reverse else range(t_len)
-    for t in steps:
-        h, c = cell(xp[t], w, h, c)
-        out[t] = h
-    return out
+    hs, gs, cs = [None] * t_len, [None] * t_len, [None] * t_len
+    for t in range(t_len - 1, -1, -1) if reverse else range(t_len):
+        i, f, g, o = (xp[t] + h @ w.t()).chunk(4, dim=-1)
+        i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o))
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        hs[t], gs[t], cs[t] = h, torch.cat([i, f, g, o], dim=-1), c
+    return torch.stack(hs), torch.stack(gs), torch.stack(cs)
+
+
+def lstm_direction_backward_reference(dh, g, c, w, reverse: bool):
+    """Plain time loop of pallas_lstm._cell_bwd for one direction.
+
+    dh [T, B, H] is the cotangent of h; g, c the forward's residuals.
+    The gradient walks the recurrence backwards (T-1 -> 0 for a forward
+    direction, 0 -> T-1 for a backward one) with the dh and dc carries
+    from zero; c_prev is the cell state of the recurrence's previous
+    step, zero at its first. Returns dx = d_pre [T, B, 4H].
+    """
+    t_len, batch, hidden = dh.shape
+    dh_st = dh.new_zeros(batch, hidden)
+    dc_st = torch.zeros_like(dh_st)
+    zero = torch.zeros_like(dh_st)
+    dx = [None] * t_len
+    for t in range(t_len) if reverse else range(t_len - 1, -1, -1):
+        tc = t + 1 if reverse else t - 1
+        c_prev = c[tc] if 0 <= tc < t_len else zero
+        i, f, gg, o = g[t].chunk(4, dim=-1)
+        tanh_c = torch.tanh(c[t])
+        d = dh[t] + dh_st
+        d_o = d * tanh_c
+        dc = dc_st + d * o * (1.0 - tanh_c * tanh_c)
+        d_pre = torch.cat([
+            dc * gg * i * (1.0 - i),
+            dc * c_prev * f * (1.0 - f),
+            dc * i * (1.0 - gg * gg),
+            d_o * o * (1.0 - o),
+        ], dim=-1)
+        dx[t] = d_pre
+        dh_st = d_pre @ w
+        dc_st = dc * f
+    return torch.stack(dx)
+
+
+def bilstm_forward_reference(xp_f, xp_b, w_f, w_b):
+    """The plain version of the residual-saving kernel:
+    ``(h_f, h_b, g_f, g_b, c_f, c_b)``, as ``_bd_fwd`` returns them."""
+    h_f, g_f, c_f = lstm_direction_forward_reference(xp_f, w_f, False)
+    h_b, g_b, c_b = lstm_direction_forward_reference(xp_b, w_b, True)
+    return h_f, h_b, g_f, g_b, c_f, c_b
 
 
 def bilstm_sequence_reference(xp_f, xp_b, w_f, w_b):
-    """The plain PyTorch version of the kernel (any device)."""
+    """The plain PyTorch version of the lean kernel (any device)."""
+    return bilstm_forward_reference(xp_f, xp_b, w_f, w_b)[:2]
+
+
+def bilstm_backward_reference(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f, w_b):
+    """The plain version of the gradient kernel: ``(dx_f, dx_b)``, as
+    ``_bd_bwd_call`` returns them."""
     return (
-        lstm_direction_reference(xp_f, w_f, reverse=False),
-        lstm_direction_reference(xp_b, w_b, reverse=True),
+        lstm_direction_backward_reference(dh_f, g_f, c_f, w_f, False),
+        lstm_direction_backward_reference(dh_b, g_b, c_b, w_b, True),
     )
 
 
@@ -89,44 +142,156 @@ def _check(xp_f, xp_b, w_f, w_b) -> None:
         )
 
 
+def _check_residuals(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f) -> None:
+    """The gradient kernel's inputs beside the forward's checks."""
+    shape = tuple(g_f.shape)
+    hshape = shape[:2] + (shape[2] // 4,)
+    for name, x, want in (("dh_f", dh_f, hshape), ("dh_b", dh_b, hshape),
+                          ("g_f", g_f, shape), ("g_b", g_b, shape),
+                          ("c_f", c_f, hshape), ("c_b", c_b, hshape)):
+        if x.dtype != torch.float32:
+            raise NotImplementedError(
+                f"bilstm_bwd takes float32 {name}; bfloat16 residuals are "
+                "queued in ROADMAP.md"
+            )
+        if not x.is_contiguous() or tuple(x.shape) != want:
+            raise ValueError(
+                f"{name} must be a contiguous {want}, got {tuple(x.shape)}"
+            )
+    if tuple(w_f.shape) != (shape[2], shape[2] // 4):
+        raise ValueError(f"w must be [4H, H] beside g {shape}")
+
+
 def _library():
     lib = _build.load("bilstm_infer")
-    fn = lib.bilstm_infer_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p
-    ]
-    fn.restype = ctypes.c_int
+    lib.bilstm_infer_launch.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.bilstm_infer_launch.restype = ctypes.c_int
+    lib.bilstm_fwd_launch.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.bilstm_fwd_launch.restype = ctypes.c_int
     lib.bilstm_error_string.argtypes = [ctypes.c_int]
     lib.bilstm_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def bilstm_sequence_cuda(xp_f, xp_b, w_f, w_b):
-    """Launch ``csrc/bilstm_infer.cu`` on the current stream."""
-    global LAUNCHES
+def _bwd_library():
+    lib = _build.load("bilstm_bwd")
+    lib.bilstm_bwd_launch.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.bilstm_bwd_launch.restype = ctypes.c_int
+    lib.bilstm_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.bilstm_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def bilstm_infer_cuda(xp_f, xp_b, w_f, w_b):
+    """Launch the lean forward of ``csrc/bilstm_infer.cu``."""
     _check(xp_f, xp_b, w_f, w_b)
     t_len, batch, four_h = xp_f.shape
-    h_f = torch.empty(
-        t_len, batch, four_h // 4, device=xp_f.device, dtype=torch.float32
-    )
+    h_f = xp_f.new_empty(t_len, batch, four_h // 4)
     h_b = torch.empty_like(h_f)
     lib = _library()
-    stream = torch.cuda.current_stream(xp_f.device).cuda_stream
     err = lib.bilstm_infer_launch(
         xp_f.data_ptr(), xp_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
         h_f.data_ptr(), h_b.data_ptr(), t_len, batch, four_h // 4,
-        xp_f.device.index or 0, stream,
+        xp_f.device.index or 0, _stream(xp_f),
     )
     _build.check(err, "bilstm_infer", lib.bilstm_error_string)
-    LAUNCHES += 1
+    LAUNCHES["bilstm_infer"] += 1
     return h_f, h_b
+
+
+def bilstm_forward_cuda(xp_f, xp_b, w_f, w_b):
+    """Launch the residual-saving forward of ``csrc/bilstm_infer.cu``:
+    ``(h_f, h_b, g_f, g_b, c_f, c_b)``."""
+    _check(xp_f, xp_b, w_f, w_b)
+    t_len, batch, four_h = xp_f.shape
+    h_f = xp_f.new_empty(t_len, batch, four_h // 4)
+    h_b, c_f, c_b = (torch.empty_like(h_f) for _ in range(3))
+    g_f, g_b = torch.empty_like(xp_f), torch.empty_like(xp_f)
+    lib = _library()
+    err = lib.bilstm_fwd_launch(
+        xp_f.data_ptr(), xp_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
+        h_f.data_ptr(), h_b.data_ptr(), g_f.data_ptr(), g_b.data_ptr(),
+        c_f.data_ptr(), c_b.data_ptr(), t_len, batch, four_h // 4,
+        xp_f.device.index or 0, _stream(xp_f),
+    )
+    _build.check(err, "bilstm_fwd", lib.bilstm_error_string)
+    LAUNCHES["bilstm_fwd"] += 1
+    return h_f, h_b, g_f, g_b, c_f, c_b
+
+
+def bilstm_backward_cuda(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f, w_b):
+    """Launch ``csrc/bilstm_bwd.cu``: ``(dx_f, dx_b)``."""
+    _check(g_f, g_b, w_f, w_b)
+    _check_residuals(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f)
+    t_len, batch, four_h = g_f.shape
+    dx_f, dx_b = torch.empty_like(g_f), torch.empty_like(g_b)
+    lib = _bwd_library()
+    err = lib.bilstm_bwd_launch(
+        dh_f.data_ptr(), dh_b.data_ptr(), g_f.data_ptr(), g_b.data_ptr(),
+        c_f.data_ptr(), c_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
+        dx_f.data_ptr(), dx_b.data_ptr(), t_len, batch, four_h // 4,
+        g_f.device.index or 0, _stream(g_f),
+    )
+    _build.check(err, "bilstm_bwd", lib.bilstm_bwd_error_string)
+    LAUNCHES["bilstm_bwd"] += 1
+    return dx_f, dx_b
+
+
+def dw_hh(h_f, h_b, dx_f, dx_b):
+    """dW_hh of both directions as one matmul each, in torch's [4H, H]
+    layout: sum over t, b of dx[t] h_prev[t]^T with the predecessor
+    h[t-1] (forward) or h[t+1] (backward), over contiguous slices
+    (``_bd_vjp_bwd``, pallas_lstm.py:981-982)."""
+    def contract(h, dx):
+        return dx.flatten(0, 1).t() @ h.flatten(0, 1)
+
+    return contract(h_f[:-1], dx_f[1:]), contract(h_b[1:], dx_b[:-1])
+
+
+class BiLSTMFunction(torch.autograd.Function):
+    """``bilstm_sequence`` under autograd: the residual-saving forward,
+    and the gradient recurrence plus ``dW_hh`` in the backward. CUDA
+    tensors launch the kernels; CPU tensors run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, xp_f, xp_b, w_f, w_b):
+        if xp_f.is_cuda:
+            outs = bilstm_forward_cuda(xp_f, xp_b, w_f, w_b)
+        else:
+            outs = bilstm_forward_reference(xp_f, xp_b, w_f, w_b)
+        h_f, h_b, g_f, g_b, c_f, c_b = outs
+        ctx.save_for_backward(h_f, h_b, g_f, g_b, c_f, c_b, w_f, w_b)
+        return h_f, h_b
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dh_f, dh_b):
+        h_f, h_b, g_f, g_b, c_f, c_b, w_f, w_b = ctx.saved_tensors
+        # the cotangents of torch.cat halves are views (autograd gives an
+        # unused output's cotangent as zeros)
+        dh_f, dh_b = dh_f.contiguous(), dh_b.contiguous()
+        run = bilstm_backward_cuda if g_f.is_cuda else (
+            bilstm_backward_reference)
+        dx_f, dx_b = run(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f, w_b)
+        dw_f, dw_b = dw_hh(h_f, h_b, dx_f, dx_b)
+        return dx_f, dx_b, dw_f, dw_b
 
 
 def bilstm_sequence(xp_f, xp_b, w_f, w_b):
     """Both BiLSTM directions of one layer; see the module docstring."""
-    devices = {x.device.type for x in (xp_f, xp_b, w_f, w_b)}
+    args = (xp_f, xp_b, w_f, w_b)
+    devices = {x.device.type for x in args}
+    if devices not in ({"cuda"}, {"cpu"}):
+        raise ValueError(f"bilstm_sequence: tensors on {sorted(devices)}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        return BiLSTMFunction.apply(*args)
     if devices == {"cuda"}:
-        return bilstm_sequence_cuda(xp_f, xp_b, w_f, w_b)
-    if devices == {"cpu"}:
-        return bilstm_sequence_reference(xp_f, xp_b, w_f, w_b)
-    raise ValueError(f"bilstm_sequence: tensors on {sorted(devices)}")
+        return bilstm_infer_cuda(*args)
+    return bilstm_sequence_reference(*args)

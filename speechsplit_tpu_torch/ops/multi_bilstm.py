@@ -1,20 +1,26 @@
 """N independent narrow BiLSTMs in one kernel launch.
 
 Counterpart of ``speechsplit_tpu/ops/pallas_multilstm.py::
-multi_bilstm_sequence`` (its lean forward ``_infer``). The generator's
-encoder recurrences (content layer 0 H=8, pitch H=32, rhythm H=1) and
-the F0 converter's (f0 H=32, rhythm H=1) are independent of each other
-and latency-bound, so they run together.
+multi_bilstm_sequence`` and its custom VJP: the lean forward ``_infer``,
+the residual-saving forward ``_fwd`` and the gradient recurrence
+``_bwd_call``. The generator's encoder recurrences (content layer 0
+H=8, pitch H=32, rhythm H=1) and the F0 converter's (f0 H=32, rhythm
+H=1) are independent of each other and latency-bound, so they run
+together.
 
-Arguments as in the JAX op, minus its residual dtype (there is no
-backward in this slice): ``multi_bilstm_sequence(n, xp_f0, xp_b0, ...,
+Arguments as in the JAX op, minus its residual dtype (the port keeps
+float32 residuals): ``multi_bilstm_sequence(n, xp_f0, xp_b0, ...,
 xp_f{n-1}, xp_b{n-1}, w_f0, w_b0, ..., w_f{n-1}, w_b{n-1})`` with
 ``xp_*`` [T, B, 4H_s] in real time order and ``w_*`` [4H_s, H_s] in
 torch's ``weight_hh_l{k}`` layout. Returns the 2n outputs
 ``(h_f0, h_b0, ...)``, each [T, B, H_s] in real time order.
 
-On CUDA tensors it launches ``csrc/multi_bilstm_infer.cu`` or raises;
-on CPU tensors it runs :func:`multi_bilstm_sequence_reference`.
+Dispatch as in ``ops.bilstm``: under autograd (an input requires grad)
+:class:`MultiBiLSTMFunction` runs the residual-saving forward and, in
+its backward, the gradient recurrence plus one ``dW_hh`` matmul per
+direction (``_vjp_bwd``); otherwise the lean forward. CUDA tensors
+launch ``csrc/multi_bilstm_infer.cu`` / ``csrc/multi_bilstm_bwd.cu`` or
+raise; CPU tensors run the plain versions.
 """
 
 from __future__ import annotations
@@ -22,12 +28,18 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from speechsplit_tpu_torch.ops import _build
-from speechsplit_tpu_torch.ops.bilstm import lstm_direction_reference
+from speechsplit_tpu_torch.ops.bilstm import (
+    lstm_direction_backward_reference,
+    lstm_direction_forward_reference,
+)
 
-# kernel launches since the last reset; the main path's proof that it ran
-LAUNCHES = 0
+# kernel launches since the last reset, per kernel; the main path's proof
+# that it ran
+LAUNCHES = {"multi_bilstm_infer": 0, "multi_bilstm_fwd": 0,
+            "multi_bilstm_bwd": 0}
 
 MAX_DIRECTIONS = 8
 MAX_HIDDEN = 64
@@ -39,12 +51,31 @@ def _split(n: int, args):
     return args[: 2 * n], args[2 * n :]
 
 
-def multi_bilstm_sequence_reference(n: int, *args):
-    """The plain PyTorch version of the kernel (any device)."""
+def multi_bilstm_forward_reference(n: int, *args):
+    """The plain version of the residual-saving kernel: the 2n h, then
+    the 2n post-activation gates g, then the 2n c (``_fwd``'s order)."""
     xps, ws = _split(n, args)
+    outs = [lstm_direction_forward_reference(xp, w, bool(d % 2))
+            for d, (xp, w) in enumerate(zip(xps, ws))]
+    return tuple(o[k] for k in range(3) for o in outs)
+
+
+def multi_bilstm_sequence_reference(n: int, *args):
+    """The plain PyTorch version of the lean kernel (any device)."""
+    return multi_bilstm_forward_reference(n, *args)[: 2 * n]
+
+
+def multi_bilstm_backward_reference(n: int, *args):
+    """The plain version of the gradient kernel: args are the 2n dh, g,
+    c and w; returns the 2n dx (``_bwd_call`` without its c-edge
+    duplicates)."""
+    if len(args) != 8 * n:
+        raise ValueError(f"expected {8 * n} arrays for n={n}, got {len(args)}")
+    d2 = 2 * n
+    dhs, gs, cs, ws = (args[k * d2 : (k + 1) * d2] for k in range(4))
     return tuple(
-        lstm_direction_reference(xp, w, reverse=bool(d % 2))
-        for d, (xp, w) in enumerate(zip(xps, ws))
+        lstm_direction_backward_reference(dh, g, c, w, bool(d % 2))
+        for d, (dh, g, c, w) in enumerate(zip(dhs, gs, cs, ws))
     )
 
 
@@ -77,52 +108,168 @@ def _check(n: int, xps, ws) -> None:
             )
 
 
+def _check_residuals(dhs, gs, cs) -> None:
+    for dh, g, c in zip(dhs, gs, cs):
+        hshape = tuple(g.shape[:2]) + (g.shape[2] // 4,)
+        for name, x, want in (("dh", dh, hshape), ("c", c, hshape),
+                              ("g", g, tuple(g.shape))):
+            if x.dtype != torch.float32:
+                raise NotImplementedError(
+                    f"multi_bilstm_bwd takes float32 {name}; bfloat16 "
+                    "residuals are queued in ROADMAP.md"
+                )
+            if not x.is_contiguous() or tuple(x.shape) != want:
+                raise ValueError(
+                    f"{name} must be a contiguous {want}, got "
+                    f"{tuple(x.shape)}"
+                )
+
+
 def _library():
     lib = _build.load("multi_bilstm_infer")
-    fn = lib.multi_bilstm_infer_launch
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    tail = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.multi_bilstm_infer_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 4 + tail)
+    lib.multi_bilstm_infer_launch.restype = ctypes.c_int
+    lib.multi_bilstm_fwd_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 6 + tail)
+    lib.multi_bilstm_fwd_launch.restype = ctypes.c_int
     lib.multi_bilstm_error_string.argtypes = [ctypes.c_int]
     lib.multi_bilstm_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def multi_bilstm_sequence_cuda(n: int, *args):
-    """Launch ``csrc/multi_bilstm_infer.cu`` on the current stream."""
-    global LAUNCHES
+def _bwd_library():
+    lib = _build.load("multi_bilstm_bwd")
+    lib.multi_bilstm_bwd_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 6
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.multi_bilstm_bwd_launch.restype = ctypes.c_int
+    lib.multi_bilstm_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.multi_bilstm_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _ptrs(tensors):
+    return (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
+
+
+def _widths(xps):
+    return (ctypes.c_int * len(xps))(*(x.shape[-1] // 4 for x in xps))
+
+
+def _new_h(xps):
+    t_len, batch, _ = xps[0].shape
+    return tuple(xp.new_empty(t_len, batch, xp.shape[-1] // 4) for xp in xps)
+
+
+def multi_bilstm_infer_cuda(n: int, *args):
+    """Launch the lean forward of ``csrc/multi_bilstm_infer.cu``."""
     xps, ws = _split(n, args)
     _check(n, xps, ws)
     t_len, batch, _ = xps[0].shape
     device = xps[0].device
-    outs = tuple(
-        torch.empty(t_len, batch, xp.shape[-1] // 4, device=device,
-                    dtype=torch.float32)
-        for xp in xps
-    )
-    dirs = 2 * n
-    ptrs = ctypes.c_void_p * dirs
-    hs = (ctypes.c_int * dirs)(*(xp.shape[-1] // 4 for xp in xps))
+    outs = _new_h(xps)
     lib = _library()
     err = lib.multi_bilstm_infer_launch(
-        dirs,
-        ptrs(*(x.data_ptr() for x in xps)),
-        ptrs(*(w.data_ptr() for w in ws)),
-        ptrs(*(h.data_ptr() for h in outs)),
-        hs, t_len, batch, device.index or 0,
-        torch.cuda.current_stream(device).cuda_stream,
+        2 * n, _ptrs(xps), _ptrs(ws), _ptrs(outs), _widths(xps), t_len,
+        batch, device.index or 0, torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "multi_bilstm_infer", lib.multi_bilstm_error_string)
-    LAUNCHES += 1
+    LAUNCHES["multi_bilstm_infer"] += 1
     return outs
+
+
+def multi_bilstm_forward_cuda(n: int, *args):
+    """Launch the residual-saving forward of ``csrc/multi_bilstm_infer.cu``:
+    the 2n h, 2n g and 2n c, as :func:`multi_bilstm_forward_reference`."""
+    xps, ws = _split(n, args)
+    _check(n, xps, ws)
+    t_len, batch, _ = xps[0].shape
+    device = xps[0].device
+    hs, cs = _new_h(xps), _new_h(xps)
+    gs = tuple(torch.empty_like(xp) for xp in xps)
+    lib = _library()
+    err = lib.multi_bilstm_fwd_launch(
+        2 * n, _ptrs(xps), _ptrs(ws), _ptrs(hs), _ptrs(gs), _ptrs(cs),
+        _widths(xps), t_len, batch, device.index or 0,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check(err, "multi_bilstm_fwd", lib.multi_bilstm_error_string)
+    LAUNCHES["multi_bilstm_fwd"] += 1
+    return hs + gs + cs
+
+
+def multi_bilstm_backward_cuda(n: int, *args):
+    """Launch ``csrc/multi_bilstm_bwd.cu``; arguments and result as
+    :func:`multi_bilstm_backward_reference`."""
+    if len(args) != 8 * n:
+        raise ValueError(f"expected {8 * n} arrays for n={n}, got {len(args)}")
+    d2 = 2 * n
+    dhs, gs, cs, ws = (args[k * d2 : (k + 1) * d2] for k in range(4))
+    _check(n, gs, ws)
+    _check_residuals(dhs, gs, cs)
+    t_len, batch, _ = gs[0].shape
+    device = gs[0].device
+    dxs = tuple(torch.empty_like(g) for g in gs)
+    lib = _bwd_library()
+    err = lib.multi_bilstm_bwd_launch(
+        d2, _ptrs(dhs), _ptrs(gs), _ptrs(cs), _ptrs(ws), _ptrs(dxs),
+        _widths(gs), t_len, batch, device.index or 0,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check(err, "multi_bilstm_bwd", lib.multi_bilstm_bwd_error_string)
+    LAUNCHES["multi_bilstm_bwd"] += 1
+    return dxs
+
+
+def _dw(h, dx, reverse: bool):
+    """One direction's dW_hh [4H, H] over contiguous slices: the
+    predecessor is h[t-1] forward and h[t+1] backward (``_vjp_bwd``,
+    pallas_multilstm.py:420-434)."""
+    h_sl, dx_sl = (h[1:], dx[:-1]) if reverse else (h[:-1], dx[1:])
+    return dx_sl.flatten(0, 1).t() @ h_sl.flatten(0, 1)
+
+
+class MultiBiLSTMFunction(torch.autograd.Function):
+    """``multi_bilstm_sequence`` under autograd; see the module docstring."""
+
+    @staticmethod
+    def forward(ctx, n, *args):
+        run = multi_bilstm_forward_cuda if args[0].is_cuda else (
+            multi_bilstm_forward_reference)
+        outs = run(n, *args)
+        d2 = 2 * n
+        hs = outs[:d2]
+        ctx.n = n
+        ctx.save_for_backward(*outs, *args[d2:])
+        return hs
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *dhs):
+        n = ctx.n
+        d2 = 2 * n
+        saved = ctx.saved_tensors
+        hs, gs, cs, ws = (saved[k * d2 : (k + 1) * d2] for k in range(4))
+        # views of torch.cat halves made contiguous (autograd gives an
+        # unused output's cotangent as zeros)
+        dhs = tuple(dh.contiguous() for dh in dhs)
+        run = multi_bilstm_backward_cuda if gs[0].is_cuda else (
+            multi_bilstm_backward_reference)
+        dxs = run(n, *dhs, *gs, *cs, *ws)
+        dws = tuple(_dw(h, dx, bool(d % 2))
+                    for d, (h, dx) in enumerate(zip(hs, dxs)))
+        return (None, *dxs, *dws)
 
 
 def multi_bilstm_sequence(n: int, *args):
     """n independent BiLSTMs; see the module docstring."""
     devices = {x.device.type for x in args}
+    if devices not in ({"cuda"}, {"cpu"}):
+        raise ValueError(f"multi_bilstm_sequence: tensors on {sorted(devices)}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        return MultiBiLSTMFunction.apply(n, *args)
     if devices == {"cuda"}:
-        return multi_bilstm_sequence_cuda(n, *args)
-    if devices == {"cpu"}:
-        return multi_bilstm_sequence_reference(n, *args)
-    raise ValueError(f"multi_bilstm_sequence: tensors on {sorted(devices)}")
+        return multi_bilstm_infer_cuda(n, *args)
+    return multi_bilstm_sequence_reference(n, *args)

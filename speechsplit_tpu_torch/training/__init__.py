@@ -1,0 +1,22 @@
+"""Training of the port: the train steps of both models (the solver
+loop and checkpointing are a later slice)."""
+
+from speechsplit_tpu_torch.training.train_step import (
+    TrainState,
+    create_train_state,
+    f0_loss,
+    generator_loss,
+    make_f0_train_step,
+    make_optimizer,
+    make_train_step,
+)
+
+__all__ = [
+    "TrainState",
+    "create_train_state",
+    "make_optimizer",
+    "generator_loss",
+    "f0_loss",
+    "make_train_step",
+    "make_f0_train_step",
+]

@@ -41,6 +41,7 @@ def test_port_imports_no_jax(path):
 def test_scan_covers_the_package():
     names = {p.name for p in _port_files()}
     assert {"bilstm.py", "multi_bilstm.py", "generator.py", "convert.py",
+            "interp.py", "collator.py", "train_step.py",
             "chip_smoke.py"} <= names
 
 
@@ -65,15 +66,18 @@ def test_prepare_utterance_defaults_to_cuda(monkeypatch):
 
 
 def test_cpu_tensors_take_the_plain_version():
-    bilstm.LAUNCHES = 0
-    multi_bilstm.LAUNCHES = 0
     gen = torch.Generator().manual_seed(0)
     xp = torch.randn(6, 2, 32, generator=gen)
     w = torch.randn(32, 8, generator=gen)
     got = bilstm.bilstm_sequence(xp, xp, w, w)
     want = bilstm.bilstm_sequence_reference(xp, xp, w, w)
     multi_bilstm.multi_bilstm_sequence(1, xp, xp, w, w)
-    assert bilstm.LAUNCHES == 0 and multi_bilstm.LAUNCHES == 0
+    # under autograd too: the Functions run the plain versions
+    wg = w.clone().requires_grad_(True)
+    bilstm.bilstm_sequence(xp, xp, wg, wg)[0].sum().backward()
+    multi_bilstm.multi_bilstm_sequence(1, xp, xp, wg, wg)[0].sum().backward()
+    assert not any(bilstm.LAUNCHES.values())
+    assert not any(multi_bilstm.LAUNCHES.values())
     for g, r in zip(got, want):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
 

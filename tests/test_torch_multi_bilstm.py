@@ -42,7 +42,7 @@ def test_multi_bilstm_matches_pallas_interpret(streams, b):
         n, *map(torch.from_numpy, xs),
         *(torch.from_numpy(w.T.copy()) for w in ws),
     )
-    assert multi_bilstm.LAUNCHES == 0
+    assert not any(multi_bilstm.LAUNCHES.values())
     assert len(got) == len(want) == 2 * n
     for g, w in zip(got, want):
         assert g.shape == w.shape
