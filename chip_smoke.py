@@ -33,18 +33,48 @@ Phases, one line each; any failure exits non-zero:
    the same step on the plain versions, 5 steps with a finite loss, and
    the median time per step over 12 timed steps (float32 with TF32 off,
    as compared);
-8. one generator train step under ``torch.profiler``.
+8. one generator train step under ``torch.profiler``;
+9. with ``ops.bilstm.PROJ_FUSION = "auto"`` (the input projection inside
+   the kernel; every phase above runs with "off" and launches no fused
+   kernel): each fused kernel against its plain version at every shape
+   of the fused conversion and train steps, timed beside its bound, the
+   port's composed path at the same shape (two ``F.linear`` and the
+   unfused kernel) and a cuDNN ``torch.nn.LSTM(I, H)`` carrying the same
+   weights; the kernels' edges, the batch limit included;
+   ``BiLSTMFusedFunction`` on CUDA against autograd through the plain
+   loops;
+10. ``convert_batched`` at 8 pairs x 7 conditions with fusion on: exact
+    launch counts, within the path bar of the plain call and of the call
+    with fusion off, both timed in the same run;
+11. both train steps with fusion on: exact launch counts, against the
+    plain step, 5 steps, and the median time per step beside the
+    unfused step's, timed in turns.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside the repo, it
 exits non-zero and prints no result.
+
+    python3 chip_smoke.py --against DIR [--rounds N]
+
+compares the default (unfused) path of this checkout with that of the
+checkout in DIR (for example the parent commit, unpacked with ``git
+archive``): the registers, spills and a hash of the machine code nvcc
+gives each unfused BiLSTM kernel in either source, then N rounds of
+DIR, this, this, DIR, each a process of its own that builds its tree's
+kernels and times, through that tree's own phase functions,
+``bilstm_infer``, ``bilstm_fwd`` and ``bilstm_bwd`` at the train and
+conversion shapes and both default train steps. It prints one line per
+process and the medians of each tree side by side.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import hashlib
 import json
 import os
+import re
 import pickle
 import subprocess
 import sys
@@ -68,6 +98,8 @@ PATH_TOL = 5e-4
 LEAN_B28_H512_MS_BEFORE = 3.6035
 # the train step's batch
 TRAIN_B = 16
+# the fused conversion's pairs (generator batch 8 x 7 = 56)
+FUSED_PAIRS = 8
 # a train step against the same step on the plain versions: the loss
 # relative, and each gradient's max abs error over its max abs
 STEP_TOL = 5e-4
@@ -138,32 +170,55 @@ def plain_kernels():
     (under autograd: autograd through the plain time loops)."""
     from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
 
-    saved = (bilstm.bilstm_sequence, multi_bilstm.multi_bilstm_sequence)
+    saved = (bilstm.bilstm_sequence, bilstm.bilstm_sequence_fused,
+             multi_bilstm.multi_bilstm_sequence)
     bilstm.bilstm_sequence = bilstm.bilstm_sequence_reference
+    bilstm.bilstm_sequence_fused = bilstm.bilstm_sequence_fused_reference
     multi_bilstm.multi_bilstm_sequence = (
         multi_bilstm.multi_bilstm_sequence_reference
     )
     try:
         yield
     finally:
-        bilstm.bilstm_sequence, multi_bilstm.multi_bilstm_sequence = saved
+        (bilstm.bilstm_sequence, bilstm.bilstm_sequence_fused,
+         multi_bilstm.multi_bilstm_sequence) = saved
 
 
-def lstm_bound(t: int, b: int, hs, kind: str = "infer") -> tuple[float, str]:
+@contextlib.contextmanager
+def fusion(mode: str):
+    """``ops.bilstm.PROJ_FUSION`` set to ``mode`` for the block."""
+    from speechsplit_tpu_torch.ops import bilstm
+
+    saved = bilstm.PROJ_FUSION
+    bilstm.PROJ_FUSION = mode
+    try:
+        yield
+    finally:
+        bilstm.PROJ_FUSION = saved
+
+
+def lstm_bound(t: int, b: int, hs, kind: str = "infer",
+               i: int = 0) -> tuple[float, str]:
     """Least time for BiLSTM recurrences of widths ``hs`` (one entry per
     direction): max(flops/peak, bytes/peak). Each input read once, each
     output written once, in float32 words of a (t, b) row:
     ``infer`` reads xp (4H) and writes h (H); ``fwd`` also writes g (4H)
     and c (H); ``bwd`` reads dh (H), g (4H), c (H) and writes dx (4H).
     All read W_hh (4H x H) once. Flops: the step product 2*4H*H and the
-    cell's elementwise work (about 10H forward, 16H backward)."""
+    cell's elementwise work (about 10H forward, 16H backward). With an
+    input width ``i`` the projection is inside (the fused kernels): in
+    place of xp, x [t, b, i] is read once for both directions and each
+    direction reads W_ih (4H x i) and its bias, and does 2*i*4H flops a
+    row."""
     words = {"infer": 5, "fwd": 10, "bwd": 10}[kind]
     cell = 16 if kind == "bwd" else 10
     flops = 0.0
-    nbytes = 0.0
+    nbytes = 4.0 * t * b * i
     for h in hs:
-        flops += t * b * (2 * h * 4 * h + cell * h)
-        nbytes += 4 * (t * b * words * h + 4 * h * h)
+        flops += t * b * (2 * h * 4 * h + cell * h + 2 * i * 4 * h)
+        row = words * h - (4 * h if i else 0)  # x replaces xp when fused
+        w_ih = 4 * h * i + 4 * h if i else 0
+        nbytes += 4 * (t * b * row + 4 * h * h + w_ih)
     by_ops = flops / PEAK_F32_FLOPS * 1e3
     by_bytes = nbytes / PEAK_BYTES * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (
@@ -407,19 +462,10 @@ def phase_convert(n_pairs: int = 4, reps: int = 20):
     for name, count in launches.items():
         if count < 1:
             fail(f"convert_batched did not launch {name}")
-    for name in TRAINING_KERNELS:
+    for name in TRAINING_KERNELS + FUSED_KERNELS:
         if counts[name]:
-            fail(f"convert_batched launched the training kernel {name}")
-    if len(result) != n_pairs or any(len(r) != 7 for r in result):
-        fail("convert_batched: expected 7 results per pair")
-    for (src, trg), res in zip(pairs, result):
-        for name, mel in res:
-            cut = trg.length if "R" in name.rsplit("_", 1)[1] else src.length
-            if mel.shape != (cut, config.dim_freq):
-                fail(f"{name}: shape {mel.shape}, expected "
-                     f"{(cut, config.dim_freq)}")
-            if not np.isfinite(mel).all():
-                fail(f"{name}: non-finite values")
+            fail(f"convert_batched launched {name} with fusion off")
+    check_conversions(config, pairs, result)
 
     with strict_float32():
         exact = run()
@@ -436,12 +482,14 @@ def phase_convert(n_pairs: int = 4, reps: int = 20):
     if not err_single <= PATH_TOL:
         fail(f"convert (batch 1) vs convert_batched: max abs err {err_single}")
 
+    # timed at the precision that was compared: float32, TF32 off
     samples = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        run()  # ends in the device->host fetch of the results
-        samples.append((time.perf_counter() - start) * 1e3)
+    with strict_float32("timing"):
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            run()  # ends in the device->host fetch of the results
+            samples.append((time.perf_counter() - start) * 1e3)
     q1, ms, q3 = np.percentile(samples, [25, 50, 75])
     utts = n_pairs * len(CONDITIONS)
     log("convert_batched", pairs=n_pairs, conditions=len(CONDITIONS),
@@ -450,9 +498,25 @@ def phase_convert(n_pairs: int = 4, reps: int = 20):
         utterances_per_s_at_median=f"{utts / ms * 1e3:.2f}",
         max_abs_err_vs_plain=f"{err:.3g}", tol=PATH_TOL,
         max_abs_err_batch1_vs_batched=f"{err_single:.3g}",
-        tf32="off for the comparisons, default for the timing",
+        tf32="off for the comparisons and the timing",
         launches=json.dumps(launches).replace(" ", ""))
     return launches, g_model, p_model, pairs
+
+
+def check_conversions(config, pairs, result) -> None:
+    """7 finite mels per pair, each cut to its condition's length."""
+    import numpy as np
+
+    if len(result) != len(pairs) or any(len(r) != 7 for r in result):
+        fail("convert_batched: expected 7 results per pair")
+    for (src, trg), res in zip(pairs, result):
+        for name, mel in res:
+            cut = trg.length if "R" in name.rsplit("_", 1)[1] else src.length
+            if mel.shape != (cut, config.dim_freq):
+                fail(f"{name}: shape {mel.shape}, expected "
+                     f"{(cut, config.dim_freq)}")
+            if not np.isfinite(mel).all():
+                fail(f"{name}: non-finite values")
 
 
 def phase_profile(g_model, p_model, pairs, top: int = 8) -> None:
@@ -800,9 +864,12 @@ def grads_of(model) -> dict:
     return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
 
 
-def train_phase(name: str, model: str, expected: dict, batch, reps: int = 12):
+def train_phase(name: str, model: str, expected: dict, batch, reps: int = 12,
+                fuse: bool = False):
     """One train step's launches, the step against the plain step, 5
-    steps, and the time per step."""
+    steps, and the time per step. With ``fuse`` the step runs with
+    PROJ_FUSION="auto", and the same step with "off" is timed in turns
+    beside it."""
     import numpy as np
     import torch
 
@@ -818,7 +885,8 @@ def train_phase(name: str, model: str, expected: dict, batch, reps: int = 12):
     make = make_train_step if model == "speechsplit" else make_f0_train_step
     step = make(config)
 
-    with strict_float32():
+    mode = "auto" if fuse else "off"
+    with strict_float32(), fusion(mode):
         state = create_train_state(config, SEED, model)
         before = [p.detach().clone() for p in state.model.parameters()]
         torch.cuda.synchronize()
@@ -847,32 +915,43 @@ def train_phase(name: str, model: str, expected: dict, batch, reps: int = 12):
              f"rel err {grad_err} ({worst}) > {STEP_TOL}")
 
     losses = [float(loss)]
-    for _ in range(4):
-        state, loss = step(state, batch)
-        losses.append(float(loss))
+    with fusion(mode):
+        for _ in range(4):
+            state, loss = step(state, batch)
+            losses.append(float(loss))
     changed = max(float((p.detach() - q).abs().max())
                   for p, q in zip(state.model.parameters(), before))
     if not (np.isfinite(losses).all() and changed > 0):
         fail(f"{name}: losses {losses}, largest parameter change {changed}")
 
     # timed at the precision that was compared: float32, TF32 off
-    samples = []
+    modes = (mode, "off") if fuse else (mode,)
+    samples = {m: [] for m in modes}
     with strict_float32("timing"):
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            state, loss = step(state, batch)
-            torch.cuda.synchronize()
-            samples.append((time.perf_counter() - start) * 1e3)
-    q1, ms, q3 = np.percentile(samples, [25, 50, 75])
+        for r in range(reps):
+            for m in modes if r % 2 == 0 else modes[::-1]:
+                with fusion(m):
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    state, loss = step(state, batch)
+                    torch.cuda.synchronize()
+                samples[m].append((time.perf_counter() - start) * 1e3)
+    q1, ms, q3 = np.percentile(samples[mode], [25, 50, 75])
+    unfused = {}
+    if fuse:
+        off_q1, off_ms, off_q3 = np.percentile(samples["off"], [25, 50, 75])
+        unfused = dict(unfused_median_ms_per_step=f"{off_ms:.4f}",
+                       unfused_q1_ms=f"{off_q1:.4f}",
+                       unfused_q3_ms=f"{off_q3:.4f}",
+                       timing="fused and unfused steps in turns")
     log(f"train {name}", batch=f"B{TRAIN_B}xT{config.max_len_pad}",
         loss_rel_err_vs_plain=f"{loss_err:.3g}",
         max_grad_rel_err_vs_plain=f"{grad_err:.3g}", worst_param=worst,
         tol=STEP_TOL, losses=",".join(f"{v:.6f}" for v in losses),
         largest_param_change=f"{changed:.3g}", steps=reps,
         median_ms_per_step=f"{ms:.4f}", q1_ms=f"{q1:.4f}", q3_ms=f"{q3:.4f}",
-        steps_per_s_at_median=f"{1e3 / ms:.3f}",
-        tf32="off for the comparison and the timing",
+        steps_per_s_at_median=f"{1e3 / ms:.3f}", **unfused,
+        proj_fusion=mode, tf32="off for the comparison and the timing",
         launches=json.dumps(launches).replace(" ", ""))
     return launches, state, step
 
@@ -908,6 +987,301 @@ def phase_profile_train(state, step, batch, top: int = 14) -> None:
     profile_events("profile train", prof, wall_ms, top)
 
 
+def cudnn_fused_yardstick(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
+    """A bidirectional cuDNN ``torch.nn.LSTM(I, H)`` carrying a fused
+    layer's real weights (the summed bias as b_ih, b_hh zero): the same
+    (h_f, h_b) from the same x. Timed as a yardstick only."""
+    import torch
+
+    lstm = torch.nn.LSTM(x.shape[-1], w_f.shape[1],
+                         bidirectional=True).to(x.device)
+    with torch.no_grad():
+        for sfx, wi, b, w in (("l0", wi_f, b_f, w_f),
+                              ("l0_reverse", wi_b, b_b, w_b)):
+            getattr(lstm, f"weight_ih_{sfx}").copy_(wi)
+            getattr(lstm, f"weight_hh_{sfx}").copy_(w)
+            getattr(lstm, f"bias_ih_{sfx}").copy_(b)
+            getattr(lstm, f"bias_hh_{sfx}").zero_()
+    return lstm
+
+
+def fused_inputs(t: int, b: int, h: int, i: int, seed: int,
+                 requires_grad: bool = False):
+    """Seeded (x, wi_f, wi_b, b_f, b_b, w_f, w_b) of a fused layer."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        x = torch.randn(*shape, device="cuda", generator=gen) * scale
+        return x.requires_grad_(requires_grad)
+
+    return (rand(t, b, i), rand(4 * h, i, scale=i ** -0.5),
+            rand(4 * h, i, scale=i ** -0.5), rand(4 * h, scale=0.1),
+            rand(4 * h, scale=0.1), rand(4 * h, h, scale=h ** -0.5),
+            rand(4 * h, h, scale=h ** -0.5))
+
+
+def check_fused(b: int, h: int, i: int, kind: str, reps: int) -> dict:
+    """A fused kernel (``kind`` "infer": the lean ``bilstm_fused_infer``;
+    "fwd": the residual-saving ``bilstm_fused_fwd``) against its plain
+    version at one main-path shape, timed beside its bound, the port's
+    composed path at the same shape (two ``F.linear`` and the unfused
+    kernel) and cuDNN (its forward; for "fwd" also its forward plus one
+    ``torch.autograd.grad``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from speechsplit_tpu_torch.ops import bilstm
+
+    args = fused_inputs(T, b, h, i, SEED + 13 * h + b + i)
+    x, wi_f, wi_b, b_f, b_b, w_f, w_b = args
+    if kind == "infer":
+        kernel = bilstm.bilstm_fused_infer_cuda
+        plain = bilstm.bilstm_sequence_fused_reference
+        unfused = bilstm.bilstm_infer_cuda
+    else:
+        kernel = bilstm.bilstm_fused_forward_cuda
+        plain = bilstm.bilstm_fused_forward_reference
+        unfused = bilstm.bilstm_forward_cuda
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    err = abs_err(got, want)
+
+    def composed():
+        return unfused(F.linear(x, wi_f, b_f), F.linear(x, wi_b, b_b), w_f,
+                       w_b)
+
+    ms = time_ms(lambda: kernel(*args), reps)
+    composed_ms = time_ms(composed, reps)
+    plain_ms = time_ms(lambda: plain(*args), 2, warmup=1)
+    lstm = cudnn_fused_yardstick(*args)
+    extra = {}
+    if kind == "infer":
+        with torch.no_grad():
+            lib_err = float((lstm(x)[0] - torch.cat(got[:2], -1)).abs().max())
+            library_ms = time_ms(lambda: lstm(x), reps)
+    else:
+        xg = x.detach().clone().requires_grad_(True)
+        library_ms = time_ms(lambda: lstm(xg), reps)
+        out = lstm(xg)[0]
+        lib_err = float((out.detach() - torch.cat(got[:2], -1)).abs().max())
+        wrt = (xg, *lstm.parameters())
+        grad_ms = time_ms(lambda: torch.autograd.grad(
+            out, wrt, torch.ones_like(out), retain_graph=True), reps)
+        extra["library_fwd_plus_grad_ms"] = library_ms + grad_ms
+    bound_ms, bound_by = lstm_bound(T, b, [h, h], kind, i)
+    row = dict(shape=f"T{T}xB{b}xI{i}xH{h}", max_abs_err=err, tol=KERNEL_TOL,
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms, composed_ms=composed_ms, **extra,
+               library_err=lib_err)
+    log(f"kernel bilstm_fused_{kind}", **fmt(row))
+    if not err <= KERNEL_TOL:
+        fail(f"bilstm_fused_{kind} {row['shape']}: max abs err {err} > "
+             f"{KERNEL_TOL}")
+    return row
+
+
+def check_fused_edges() -> None:
+    """Both fused kernels' other code paths against their plain
+    versions on short sequences: batch 1, ragged folds and K-tiles,
+    widths not a multiple of 4 or 32, H=1, fold 1 at B=100 H=512, the
+    batch-tiled h staging at B=300 H=512, and the largest batch the
+    kernels take (``MAX_FUSED_BATCH``, which the kernel source states);
+    one more batch row is refused by the kernel itself."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm
+
+    worst = 0.0
+    shapes = ((37, 1, 512, 70), (9, 100, 512, 33), (5, 300, 512, 20),
+              (23, 5, 3, 7), (16, 3, 1, 5), (12, 6, 100, 40),
+              (3, bilstm.MAX_FUSED_BATCH, 512, 9))
+    for n, (t, b, h, i) in enumerate(shapes):
+        args = fused_inputs(t, b, h, i, SEED + 77 + n)
+        for kernel, plain in (
+                (bilstm.bilstm_fused_infer_cuda,
+                 bilstm.bilstm_sequence_fused_reference),
+                (bilstm.bilstm_fused_forward_cuda,
+                 bilstm.bilstm_fused_forward_reference)):
+            err = abs_err(kernel(*args), plain(*args))
+            if not err <= KERNEL_TOL:
+                fail(f"{kernel.__name__} T{t}xB{b}xI{i}xH{h}: max abs err "
+                     f"{err}")
+            worst = max(worst, err)
+    # past the limit: the C entry refuses the launch (the wrapper's
+    # check would refuse it first)
+    args = fused_inputs(1, bilstm.MAX_FUSED_BATCH + 1, 8, 3, SEED + 99)
+    h = torch.empty(1, bilstm.MAX_FUSED_BATCH + 1, 8, device="cuda")
+    err = bilstm._library().bilstm_fused_infer_launch(
+        *bilstm._fused_pointers(*args), h.data_ptr(), h.data_ptr(), 1,
+        bilstm.MAX_FUSED_BATCH + 1, 8, 3, h.device.index or 0,
+        bilstm._stream(h))
+    if err == 0:
+        fail(f"bilstm_fused_infer took B={bilstm.MAX_FUSED_BATCH + 1}, "
+             f"past MAX_FUSED_BATCH")
+    log("kernel fused edges", shapes=len(shapes), kernels=2,
+        max_abs_err=f"{worst:.3g}", tol=KERNEL_TOL,
+        max_batch=bilstm.MAX_FUSED_BATCH,
+        refused_batch=bilstm.MAX_FUSED_BATCH + 1)
+
+
+def check_fused_functions() -> None:
+    """``BiLSTMFusedFunction`` on CUDA tensors against autograd through
+    the plain loops, same inputs and cotangents; and the dispatch:
+    no_grad takes the lean kernel, autograd the Function. Shapes: the mel
+    decoder's first and upper layers, the batch-tiled gradient staging
+    (B=40 at H=512) and widths that are not a multiple of 32."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm
+
+    cases = [(T, TRAIN_B, 512, 164), (29, 40, 512, 1024), (29, 3, 100, 70),
+             (29, TRAIN_B, 512, 1024), (29, 5, 100, 33)]
+    worst = 0.0
+    for n, (t, b, h, i) in enumerate(cases):
+        inputs = fused_inputs(t, b, h, i, SEED + 31 + n, requires_grad=True)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 41 + n)
+        dhs = [torch.randn(t, b, h, device="cuda", generator=gen)
+               for _ in (0, 1)]
+        reset_launches()
+        with torch.no_grad():
+            outs = bilstm.bilstm_sequence_fused(*inputs)
+        if read_launches()["bilstm_fused_infer"] != 1 or any(
+                o.grad_fn for o in outs):
+            fail("no_grad did not take bilstm_fused_infer")
+        outs = bilstm.bilstm_sequence_fused(*inputs)
+        if type(outs[0].grad_fn).__name__ != "BiLSTMFusedFunctionBackward":
+            fail(f"autograd did not take BiLSTMFusedFunction: "
+                 f"{outs[0].grad_fn}")
+        got = torch.autograd.grad(outs, inputs, dhs)
+        want = torch.autograd.grad(
+            bilstm.bilstm_sequence_fused_reference(*inputs), inputs, dhs)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            worst = max(worst, err)
+            if not err <= KERNEL_TOL:
+                fail(f"T{t}xB{b}xI{i}xH{h}: Function grad vs autograd of "
+                     f"the plain loop, rel err {err} > {KERNEL_TOL}")
+    log("autograd.Function fused", cases=len(cases),
+        grads_rel_err=f"{worst:.3g}", tol=KERNEL_TOL,
+        against="autograd through the plain loops")
+
+
+# the fused kernels' main-path shapes (B, H, I), T=192: the mel decoder's
+# three layers, content layer 1, the F0 decoder's two layers; conversion
+# runs the generator at 7 rows a pair and the F0 converter (H=256) at one
+FUSED_INFER_SHAPES = tuple(
+    (7 * FUSED_PAIRS if h != 256 else FUSED_PAIRS, h, i)
+    for h, i in ((512, 1024), (512, 164), (8, 16), (256, 512), (256, 66)))
+FUSED_FWD_SHAPES = tuple((TRAIN_B, h, i) for _, h, i in FUSED_INFER_SHAPES)
+
+
+def phase_fused_kernels(reps: int = 10) -> dict:
+    """The fused kernels at every main-path shape, their edges and the
+    two Functions. Returns the row of each kernel's most expensive
+    shape."""
+    rows = {}
+    with strict_float32(), fusion("auto"):
+        for kind, shapes in (("infer", FUSED_INFER_SHAPES),
+                             ("fwd", FUSED_FWD_SHAPES)):
+            for b, h, i in shapes:
+                rows.setdefault(f"bilstm_fused_{kind}",
+                                check_fused(b, h, i, kind, reps))
+        check_fused_edges()
+        check_fused_functions()
+    return rows
+
+
+def phase_convert_fused(reps: int = 10) -> dict:
+    """``convert_batched`` at FUSED_PAIRS x 7 conditions with fusion on:
+    the launches of one call, the call against the plain call and the
+    same call with fusion off, and both timed in turns."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.convert import CONDITIONS, convert_batched
+    from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+
+    config = SpeechSplitConfig()
+    gen = torch.Generator().manual_seed(SEED)
+    g_model = SpeechSplit(config, generator=gen).to("cuda").eval()
+    p_model = F0Converter(config, generator=gen).to("cuda").eval()
+    pairs = synthetic_pairs(config, FUSED_PAIRS, "cuda", SEED + 2)
+
+    def run():
+        return convert_batched(g_model, p_model, pairs, CONDITIONS)
+
+    expected = {"bilstm_fused_infer": 6, "multi_bilstm_infer": 2}
+    with fusion("auto"):
+        run()  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        result = run()
+        launches = read_launches()
+    for name, count in launches.items():
+        if count != expected.get(name, 0):
+            fail(f"fused convert_batched launched {name} {count} times, "
+                 f"expected {expected.get(name, 0)}")
+    check_conversions(config, pairs, result)
+
+    with strict_float32():
+        with fusion("auto"):
+            fused = run()
+            with plain_kernels():
+                plain = run()
+        with fusion("off"):
+            unfused = run()
+
+    def worst(a, b):
+        return max(float(np.abs(x[1] - y[1]).max())
+                   for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+
+    err_plain, err_off = worst(fused, plain), worst(fused, unfused)
+    if not (err_plain <= PATH_TOL and err_off <= PATH_TOL):
+        fail(f"fused convert_batched: max abs err {err_plain} vs plain, "
+             f"{err_off} vs fusion off")
+    samples = {"auto": [], "off": []}
+    with strict_float32("timing"):
+        for r in range(reps):
+            for mode in ("auto", "off") if r % 2 == 0 else ("off", "auto"):
+                with fusion(mode):
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    run()  # ends in the device->host fetch of the results
+                samples[mode].append((time.perf_counter() - start) * 1e3)
+    q = {m: np.percentile(v, [25, 50, 75]) for m, v in samples.items()}
+    utts = FUSED_PAIRS * len(CONDITIONS)
+    log("convert_batched fused", pairs=FUSED_PAIRS, conditions=len(CONDITIONS),
+        generator_batch=utts, calls=reps,
+        median_ms_per_call=f"{q['auto'][1]:.4f}", q1_ms=f"{q['auto'][0]:.4f}",
+        q3_ms=f"{q['auto'][2]:.4f}",
+        utterances_per_s_at_median=f"{utts / q['auto'][1] * 1e3:.2f}",
+        unfused_median_ms_per_call=f"{q['off'][1]:.4f}",
+        unfused_q1_ms=f"{q['off'][0]:.4f}", unfused_q3_ms=f"{q['off'][2]:.4f}",
+        timing="fused and unfused calls in turns",
+        max_abs_err_vs_plain=f"{err_plain:.3g}",
+        max_abs_err_vs_fusion_off=f"{err_off:.3g}", tol=PATH_TOL,
+        tf32="off for the comparisons and the timing",
+        launches=json.dumps(launches).replace(" ", ""))
+    return launches
+
+
+def phase_train_fused(batch):
+    gen_launches, _, _ = train_phase(
+        "generator fused", "speechsplit",
+        {"bilstm_fused_fwd": 4, "bilstm_bwd": 4, "multi_bilstm_fwd": 1,
+         "multi_bilstm_bwd": 1}, batch, fuse=True)
+    f0_launches, _, _ = train_phase(
+        "f0_converter fused", "f0_converter",
+        {"bilstm_fused_fwd": 2, "bilstm_bwd": 2, "multi_bilstm_fwd": 1,
+         "multi_bilstm_bwd": 1}, batch, fuse=True)
+    return gen_launches, f0_launches
+
+
 KERNELS = {
     "bilstm_infer": dict(
         route="cuda", source="speechsplit_tpu_torch/csrc/bilstm_infer.cu",
@@ -930,12 +1304,140 @@ KERNELS = {
         route="cuda",
         source="speechsplit_tpu_torch/csrc/multi_bilstm_bwd.cu",
         replaces="speechsplit_tpu/ops/pallas_multilstm.py:174"),
+    "bilstm_fused_infer": dict(
+        route="cuda", source="speechsplit_tpu_torch/csrc/bilstm_infer.cu",
+        replaces="speechsplit_tpu/ops/pallas_lstm.py:1258"),
+    "bilstm_fused_fwd": dict(
+        route="cuda", source="speechsplit_tpu_torch/csrc/bilstm_infer.cu",
+        replaces="speechsplit_tpu/ops/pallas_lstm.py:1222"),
 }
 TRAINING_KERNELS = ("bilstm_fwd", "bilstm_bwd", "multi_bilstm_fwd",
                     "multi_bilstm_bwd")
+FUSED_KERNELS = ("bilstm_fused_infer", "bilstm_fused_fwd")
+
+
+def kernel_codegen(tree: str) -> dict:
+    """What nvcc makes of the unfused BiLSTM kernels in ``tree``'s
+    ``csrc/bilstm_infer.cu`` (``bilstm_infer_kernel<KPL, kResid>``):
+    registers, spill stores and a hash of each one's SASS."""
+    from speechsplit_tpu_torch.ops import _build
+
+    source = os.path.join(tree, "speechsplit_tpu_torch", "csrc",
+                          "bilstm_infer.cu")
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                       "-fPIC")]
+    name = re.compile(r"bilstm_infer_kernelILi(\d+)ELb([01])E")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "k.cubin")
+        log_text = subprocess.run(
+            [_build._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o", cubin,
+             source], capture_output=True, text=True, check=True).stderr
+        key = None
+        for line in log_text.splitlines():
+            if "Compiling entry function" in line:
+                m = name.search(line)
+                key = f"<{m[1]},{m[2]}>" if m else None
+            elif key and "spill stores" in line:
+                out.setdefault(key, {})["spill_stores"] = int(
+                    re.search(r"(\d+) bytes spill stores", line)[1])
+            elif key and "Used" in line and "registers" in line:
+                out.setdefault(key, {})["registers"] = int(
+                    re.search(r"Used (\d+) registers", line)[1])
+                key = None
+        cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+        sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True,
+                              text=True, check=True).stdout
+    for part in sass.split("Function : ")[1:]:
+        head, _, body = part.partition("\n")
+        m = name.search(head)
+        if m:
+            out.setdefault(f"<{m[1]},{m[2]}>", {})["sass_sha256"] = (
+                hashlib.sha256(body.encode()).hexdigest()[:16])
+    return out
+
+
+# one process of the comparison: only phase functions and entry points
+# that every tree since the train step was ported has
+AB_CHILD = """
+import json, time
+import numpy as np, torch
+import chip_smoke as c
+from speechsplit_tpu_torch.config import SpeechSplitConfig
+from speechsplit_tpu_torch.training import (
+    create_train_state, make_f0_train_step, make_train_step)
+
+c.phase_build()
+out = {}
+with c.strict_float32():
+    out["bilstm_infer B28 H512 ms"] = c.check_bilstm(28, 512, 20)["ms"]
+    for h in (512, 256, 8):
+        for name, row in c.check_bilstm_train(c.TRAIN_B, h, 10).items():
+            out[f"{name} B{c.TRAIN_B} H{h} ms"] = row["ms"]
+config = SpeechSplitConfig(residual_dtype="float32", adam_mu_dtype="float32")
+batch = c.synthetic_batch(SpeechSplitConfig(), c.SEED)
+for model, make in (("speechsplit", make_train_step),
+                    ("f0_converter", make_f0_train_step)):
+    step = make(config)
+    with c.strict_float32("timing"):
+        state = create_train_state(config, c.SEED, model)
+        for _ in range(5):
+            state, _ = step(state, batch)
+        samples = []
+        for _ in range(12):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - start) * 1e3)
+    out[f"train {model} median ms"] = float(np.median(samples))
+print("AB " + json.dumps(out), flush=True)
+"""
+
+
+def ab_main(other: str, rounds: int) -> int:
+    """``--against DIR``: see the module docstring."""
+    import numpy as np
+
+    print(card_line(), flush=True)
+    trees = {"other": os.path.abspath(other), "this": os.getcwd()}
+    for label, tree in trees.items():
+        if not os.path.exists(os.path.join(tree, "chip_smoke.py")):
+            fail(f"{tree} is not a checkout")
+        for kernel, row in sorted(kernel_codegen(tree).items()):
+            log(f"codegen {label}", kernel=f"bilstm_infer_kernel{kernel}",
+                **row)
+    samples = {label: [] for label in trees}
+    for r in range(rounds):
+        for label in ("other", "this", "this", "other"):
+            proc = subprocess.run([sys.executable, "-c", AB_CHILD],
+                                  cwd=trees[label], capture_output=True,
+                                  text=True, timeout=900)
+            lines = [ln for ln in proc.stdout.splitlines()
+                     if ln.startswith("AB ")]
+            if proc.returncode or not lines:
+                fail(f"{label} tree: rc {proc.returncode}\n"
+                     f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+            samples[label].append(json.loads(lines[-1][3:]))
+            log(f"ab {label}", round=r, **fmt(samples[label][-1]))
+    for key in samples["this"][0]:
+        got = {label: [run[key] for run in runs]
+               for label, runs in samples.items()}
+        log("ab median", metric=key, tree=trees["other"],
+            other=f"{np.median(got['other']):.4f}",
+            this=f"{np.median(got['this']):.4f}",
+            other_runs=",".join(f"{v:.4f}" for v in got["other"]),
+            this_runs=",".join(f"{v:.4f}" for v in got["this"]))
+    return 0
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--against", metavar="DIR",
+                        help="compare the default path with the checkout "
+                             "in DIR instead of the smoke run")
+    parser.add_argument("--rounds", type=int, default=1)
+    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -947,6 +1449,8 @@ def main() -> int:
     except ImportError:
         fail("run from the root of a checkout that holds "
              "speechsplit_tpu_torch/")
+    if args.against:
+        return ab_main(args.against, args.rounds)
     wall = time.perf_counter()
     print(card_line(), flush=True)
     phase_build()
@@ -958,15 +1462,23 @@ def main() -> int:
     rows.update(phase_train_kernels())
     gen_launches, f0_launches, state, step, batch = phase_train()
     phase_profile_train(state, step, batch)
+    del state, step
+    rows.update(phase_fused_kernels())
+    fused_convert = phase_convert_fused()
+    fused_gen, fused_f0 = phase_train_fused(batch)
     log("done", seconds=f"{time.perf_counter() - wall:.1f}")
     # launches: the conversion call's for the inference kernels, one
     # generator train step's for the training kernels (the F0 step's
-    # beside them)
+    # beside them); the fused kernels' from the runs with fusion on
     launches.update({k: gen_launches[k] for k in TRAINING_KERNELS})
+    launches["bilstm_fused_infer"] = fused_convert["bilstm_fused_infer"]
+    launches["bilstm_fused_fwd"] = fused_gen["bilstm_fused_fwd"]
+    f0_launches = {**f0_launches, "bilstm_fused_fwd": fused_f0[
+        "bilstm_fused_fwd"]}
     kernels = []
     for name, meta in KERNELS.items():
         row = dict(name=name, **meta, launches=launches[name], **rows[name])
-        if name in TRAINING_KERNELS:
+        if name in TRAINING_KERNELS or name == "bilstm_fused_fwd":
             row["launches_f0_step"] = f0_launches[name]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,7 +12,8 @@
   Conv1d weights, U(+-1/sqrt(fan_in)) biases, U(+-1/sqrt(H)) for LSTMs).
   Parameters are created on the CPU; move the module with ``.to``.
 - The input projection ``x W_ih^T + b_ih + b_hh`` stays a matmul outside
-  the kernels, as it stays outside the Pallas kernels in JAX.
+  the kernels, as it stays outside the Pallas kernels in JAX, unless
+  ``ops.bilstm.PROJ_FUSION = "auto"`` moves it into the kernel.
 """
 
 from __future__ import annotations
@@ -167,9 +168,13 @@ class LSTM(nn.Module):
                 setattr(self, f"bias_hh_{sfx}",
                         _uniform((four_h,), k, generator))
 
-    def _project(self, x: torch.Tensor, sfx: str) -> torch.Tensor:
+    def _input_weights(self, sfx: str):
+        """``(weight_ih [4H, I], b_ih + b_hh [4H])`` of one direction."""
         bias = getattr(self, f"bias_ih_{sfx}") + getattr(self, f"bias_hh_{sfx}")
-        return F.linear(x, getattr(self, f"weight_ih_{sfx}"), bias)
+        return getattr(self, f"weight_ih_{sfx}"), bias
+
+    def _project(self, x: torch.Tensor, sfx: str) -> torch.Tensor:
+        return F.linear(x, *self._input_weights(sfx))
 
     def _w_hh(self, sfx: str) -> torch.Tensor:
         w = getattr(self, f"weight_hh_{sfx}")
@@ -198,13 +203,23 @@ class LSTM(nn.Module):
         if mode != "run":
             raise ValueError(f"unknown LSTM mode {mode!r}")
         x = x.transpose(0, 1)  # the whole stack runs time-major
+        t_len, batch = x.shape[:2]
         for layer in range(start_layer, self.num_layers):
-            xp_f = self._project(x, f"l{layer}").contiguous()
-            xp_b = self._project(x, f"l{layer}_reverse").contiguous()
-            h_f, h_b = bilstm.bilstm_sequence(
-                xp_f, xp_b, self._w_hh(f"l{layer}"),
-                self._w_hh(f"l{layer}_reverse"),
-            )
+            sfx_f, sfx_b = f"l{layer}", f"l{layer}_reverse"
+            wi_f, b_f = self._input_weights(sfx_f)
+            wi_b, b_b = self._input_weights(sfx_b)
+            w_f, w_b = self._w_hh(sfx_f), self._w_hh(sfx_b)
+            # fused or composed (the JAX layer's layers.py:359-401 without
+            # its layer-level VJP); both compute the same sums
+            if bilstm.fused_proj_plan(t_len, batch, self.hidden_size,
+                                      x.shape[-1], w_f.dtype):
+                # the projection inside the kernel: no [T, B, 4H] stream
+                h_f, h_b = bilstm.bilstm_sequence_fused(
+                    x.contiguous(), wi_f, wi_b, b_f, b_b, w_f, w_b)
+            else:
+                h_f, h_b = bilstm.bilstm_sequence(
+                    F.linear(x, wi_f, b_f).contiguous(),
+                    F.linear(x, wi_b, b_b).contiguous(), w_f, w_b)
             x = torch.cat([h_f, h_b], dim=-1)
         return x.transpose(0, 1)
 

@@ -8,8 +8,10 @@ by a hash of their source and flags, so an edited source is rebuilt and
 an unchanged one is loaded as it is. The first call builds every source
 at once, one ``nvcc`` process each.
 
-Nothing here runs at import time: the CPU tests import every module on
-a machine with no ``nvcc`` and no card.
+Nothing is built at import time: the CPU tests import every module on
+a machine with no ``nvcc`` and no card. :func:`source_constant` reads a
+limit a kernel owns from its source text, so Python holds the same
+value without building anything.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -53,6 +56,16 @@ def _target(source: Path) -> Path:
         source.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+
+
+def source_constant(stem: str, name: str) -> int:
+    """The value ``N`` of the line ``constexpr int <name> = N;`` in
+    ``csrc/<stem>.cu``."""
+    text = (CSRC / f"{stem}.cu").read_text()
+    match = re.search(rf"^constexpr int {name} = (\d+);$", text, re.M)
+    if match is None:
+        raise RuntimeError(f"csrc/{stem}.cu states no {name}")
+    return int(match.group(1))
 
 
 def build_all() -> float:

@@ -2,25 +2,32 @@
 
 Counterpart of ``speechsplit_tpu/ops/pallas_lstm.py::bilstm_sequence``
 and its custom VJP: the lean forward ``_bd_infer``, the residual-saving
-forward ``_bd_fwd`` and the gradient recurrence ``_bd_bwd_call``. Carries
-the mel decoder (3 layers, H=512), the F0 decoder (2 layers, H=256) and
-content-encoder layer 1 (H=8).
+forward ``_bd_fwd`` and the gradient recurrence ``_bd_bwd_call``; and of
+``bilstm_sequence_fused``, which spans the input projection too (inside
+the kernel: ``_bdp_infer`` and ``_bdp_fwd``). Carries the mel decoder (3
+layers, H=512), the F0 decoder (2 layers, H=256) and content-encoder
+layer 1 (H=8).
 
 Layout contract: ``xp_f``, ``xp_b`` [T, B, 4H] are the projected inputs
 ``x W_ih^T + b_ih + b_hh`` of the forward and backward direction, both
 in real time order; ``w_f``, ``w_b`` are [4H, H], torch's
 ``weight_hh_l{k}`` layout (the transpose of the JAX package's [H, 4H]).
-Returns ``(h_f, h_b)``, each [T, B, H] in real time order.
+The fused op takes the layer input ``x`` [T, B, I] in real time order,
+``wi_f``, ``wi_b`` [4H, I] (torch's ``weight_ih_l{k}``) and the summed
+biases ``b_f``, ``b_b`` [4H] (``b_ih + b_hh``, formed by the caller so
+that autograd splits their gradient). Every op returns ``(h_f, h_b)``,
+each [T, B, H] in real time order.
 
-Dispatch of :func:`bilstm_sequence`: when autograd is recording and an
-input requires grad, :class:`BiLSTMFunction` runs the residual-saving
-forward and, in its backward, the gradient recurrence, then
-``dW_hh`` as one matmul outside the kernel (as ``_bd_vjp_bwd`` does);
-otherwise the lean forward runs. On CUDA tensors each of the three
-launches its kernel (``csrc/bilstm_infer.cu``, ``csrc/bilstm_bwd.cu``)
-or raises; on CPU tensors each runs its plain PyTorch version, so the
-CPU tests exercise the same forward and backward math the kernels
-implement, not autograd of a plain loop.
+Dispatch of :func:`bilstm_sequence` (and of the fused op): when
+autograd is recording and an input requires grad, an
+``autograd.Function`` runs the residual-saving forward and, in its
+backward, the gradient recurrence, then ``dW_hh`` (and for the fused
+op ``dW_ih``, ``db`` and ``dx``) as matmuls outside the kernel (as
+``_bd_vjp_bwd`` and ``_bdp_vjp_bwd`` do); otherwise the lean forward
+runs. On CUDA tensors each launches its kernel (``csrc/bilstm_infer.cu``,
+``csrc/bilstm_bwd.cu``) or raises; on CPU tensors each runs its plain
+PyTorch version, so the CPU tests exercise the same forward and backward
+math the kernels implement, not autograd of a plain loop.
 """
 
 from __future__ import annotations
@@ -28,15 +35,24 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from speechsplit_tpu_torch.ops import _build
 
 # kernel launches since the last reset, per kernel; the main path's proof
 # that it ran
-LAUNCHES = {"bilstm_infer": 0, "bilstm_fwd": 0, "bilstm_bwd": 0}
+LAUNCHES = {"bilstm_infer": 0, "bilstm_fwd": 0, "bilstm_bwd": 0,
+            "bilstm_fused_infer": 0, "bilstm_fused_fwd": 0}
 
 MAX_HIDDEN = 512
+
+# "auto": a merged BiLSTM layer projects its input inside the kernel
+# wherever fused_proj_plan approves; "off": never. Off by default, as in
+# the JAX package (pallas_lstm.py:1135-1139).
+PROJ_FUSION = "off"
+# the largest batch the fused kernels take, as their source states it
+MAX_FUSED_BATCH = _build.source_constant("bilstm_infer", "kMaxFusedBatch")
 
 
 def lstm_direction_forward_reference(xp, w, reverse: bool):
@@ -114,6 +130,46 @@ def bilstm_backward_reference(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f, w_b):
     )
 
 
+def bilstm_fused_forward_reference(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
+    """The plain version of the fused residual-saving kernel: a per-row
+    projection, then the direction loops; ``(h_f, h_b, g_f, g_b, c_f,
+    c_b)``, as ``_bdp_fwd`` returns them."""
+    return bilstm_forward_reference(F.linear(x, wi_f, b_f),
+                                    F.linear(x, wi_b, b_b), w_f, w_b)
+
+
+def bilstm_sequence_fused_reference(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
+    """The plain version of the lean fused kernel: ``(h_f, h_b)``."""
+    return bilstm_fused_forward_reference(x, wi_f, wi_b, b_f, b_b, w_f,
+                                          w_b)[:2]
+
+
+def fused_proj_plan(t: int, b: int, h: int, i: int, dtype) -> bool:
+    """Should a merged BiLSTM layer of this shape project its input
+    inside the kernel (``bilstm_sequence_fused``)? False under
+    ``PROJ_FUSION = "off"``; under ``"auto"`` true wherever the CUDA
+    kernel holds the shape: float32, H <= MAX_HIDDEN and B <=
+    MAX_FUSED_BATCH, any T and I.
+
+    The JAX plan (pallas_lstm.py:1192-1204) is a TPU budget: VMEM for the
+    resident W_ih and W_hh and a fold that fills the MXU's 128-row tile,
+    with B a multiple of the 8-row sublane tile. It is not carried over,
+    so the two plans differ: B=28 fuses here but not in JAX, nor does a
+    layer whose weights pass JAX's VMEM ceiling (I above about 2000 at
+    H=512). The numerics do not depend on the route: fused and composed
+    compute the same sums.
+
+    "auto" is a parity switch on the H100, not a speed-up: in float32 the
+    fused kernels lose to the composed path at the wide layers (I = 512,
+    1024) and win a little at the narrow ones (PERF.md, PR 3)."""
+    if PROJ_FUSION not in ("off", "auto"):
+        raise ValueError(f"PROJ_FUSION must be 'off' or 'auto', got "
+                         f"{PROJ_FUSION!r}")
+    return (PROJ_FUSION == "auto" and dtype == torch.float32 and t >= 1
+            and i >= 1 and 1 <= h <= MAX_HIDDEN
+            and 1 <= b <= MAX_FUSED_BATCH)
+
+
 def _check(xp_f, xp_b, w_f, w_b) -> None:
     tensors = (xp_f, xp_b, w_f, w_b)
     if any(x.dtype != torch.float32 for x in tensors):
@@ -162,6 +218,38 @@ def _check_residuals(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f) -> None:
         raise ValueError(f"w must be [4H, H] beside g {shape}")
 
 
+def _check_fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b) -> None:
+    """The fused kernels' inputs: x [T, B, I], wi [4H, I], b [4H],
+    w [4H, H], float32 and contiguous."""
+    tensors = (x, wi_f, wi_b, b_f, b_b, w_f, w_b)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise NotImplementedError(
+            "bilstm_sequence_fused runs float32 only; bfloat16 compute is "
+            "queued in ROADMAP.md"
+        )
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("bilstm_sequence_fused needs contiguous tensors")
+    if x.dim() != 3:
+        raise ValueError(f"x must be [T, B, I], got {tuple(x.shape)}")
+    t_len, batch, i_dim = x.shape
+    four_h = w_f.shape[0]
+    hidden = four_h // 4
+    for name, got, want in (
+            ("wi_f", wi_f, (four_h, i_dim)), ("wi_b", wi_b, (four_h, i_dim)),
+            ("b_f", b_f, (four_h,)), ("b_b", b_b, (four_h,)),
+            ("w_f", w_f, (four_h, hidden)), ("w_b", w_b, (four_h, hidden))):
+        if four_h % 4 or tuple(got.shape) != want:
+            raise ValueError(f"{name} must be {want} beside x "
+                             f"{tuple(x.shape)}, got {tuple(got.shape)}")
+    if not (1 <= hidden <= MAX_HIDDEN and 1 <= batch <= MAX_FUSED_BATCH
+            and t_len >= 1 and i_dim >= 1):
+        raise ValueError(
+            f"bilstm_sequence_fused takes H <= {MAX_HIDDEN} and B <= "
+            f"{MAX_FUSED_BATCH}, got T={t_len} B={batch} I={i_dim} "
+            f"H={hidden}"
+        )
+
+
 def _library():
     lib = _build.load("bilstm_infer")
     lib.bilstm_infer_launch.argtypes = [ctypes.c_void_p] * 6 + [
@@ -170,6 +258,12 @@ def _library():
     lib.bilstm_fwd_launch.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.bilstm_fwd_launch.restype = ctypes.c_int
+    lib.bilstm_fused_infer_launch.argtypes = [ctypes.c_void_p] * 9 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.bilstm_fused_infer_launch.restype = ctypes.c_int
+    lib.bilstm_fused_fwd_launch.argtypes = [ctypes.c_void_p] * 13 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.bilstm_fused_fwd_launch.restype = ctypes.c_int
     lib.bilstm_error_string.argtypes = [ctypes.c_int]
     lib.bilstm_error_string.restype = ctypes.c_char_p
     return lib
@@ -244,6 +338,52 @@ def bilstm_backward_cuda(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f, w_b):
     return dx_f, dx_b
 
 
+def _fused_pointers(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
+    return [t.data_ptr() for t in (x, wi_f, wi_b, b_f, b_b, w_f, w_b)]
+
+
+def bilstm_fused_infer_cuda(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
+    """Launch the lean forward of ``csrc/bilstm_infer.cu`` with the input
+    projection in the kernel: ``(h_f, h_b)``."""
+    args = (x, wi_f, wi_b, b_f, b_b, w_f, w_b)
+    _check_fused(*args)
+    t_len, batch, i_dim = x.shape
+    hidden = w_f.shape[1]
+    h_f = x.new_empty(t_len, batch, hidden)
+    h_b = torch.empty_like(h_f)
+    lib = _library()
+    err = lib.bilstm_fused_infer_launch(
+        *_fused_pointers(*args), h_f.data_ptr(), h_b.data_ptr(), t_len,
+        batch, hidden, i_dim, x.device.index or 0, _stream(x),
+    )
+    _build.check(err, "bilstm_fused_infer", lib.bilstm_error_string)
+    LAUNCHES["bilstm_fused_infer"] += 1
+    return h_f, h_b
+
+
+def bilstm_fused_forward_cuda(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
+    """Launch the residual-saving forward of ``csrc/bilstm_infer.cu`` with
+    the input projection in the kernel: ``(h_f, h_b, g_f, g_b, c_f,
+    c_b)``."""
+    args = (x, wi_f, wi_b, b_f, b_b, w_f, w_b)
+    _check_fused(*args)
+    t_len, batch, i_dim = x.shape
+    hidden = w_f.shape[1]
+    h_f = x.new_empty(t_len, batch, hidden)
+    h_b, c_f, c_b = (torch.empty_like(h_f) for _ in range(3))
+    g_f = x.new_empty(t_len, batch, 4 * hidden)
+    g_b = torch.empty_like(g_f)
+    lib = _library()
+    err = lib.bilstm_fused_fwd_launch(
+        *_fused_pointers(*args), h_f.data_ptr(), h_b.data_ptr(),
+        g_f.data_ptr(), g_b.data_ptr(), c_f.data_ptr(), c_b.data_ptr(),
+        t_len, batch, hidden, i_dim, x.device.index or 0, _stream(x),
+    )
+    _build.check(err, "bilstm_fused_fwd", lib.bilstm_error_string)
+    LAUNCHES["bilstm_fused_fwd"] += 1
+    return h_f, h_b, g_f, g_b, c_f, c_b
+
+
 def dw_hh(h_f, h_b, dx_f, dx_b):
     """dW_hh of both directions as one matmul each, in torch's [4H, H]
     layout: sum over t, b of dx[t] h_prev[t]^T with the predecessor
@@ -253,6 +393,18 @@ def dw_hh(h_f, h_b, dx_f, dx_b):
         return dx.flatten(0, 1).t() @ h.flatten(0, 1)
 
     return contract(h_f[:-1], dx_f[1:]), contract(h_b[1:], dx_b[:-1])
+
+
+def _recurrence_backward(dh_f, dh_b, h_f, h_b, g_f, g_b, c_f, c_b, w_f,
+                         w_b):
+    """The gradient recurrence (the kernel on CUDA, the plain loop on the
+    CPU), then dW_hh: ``(dxp_f, dxp_b, dw_f, dw_b)``."""
+    # the cotangents of torch.cat halves are views (autograd gives an
+    # unused output's cotangent as zeros)
+    dh_f, dh_b = dh_f.contiguous(), dh_b.contiguous()
+    run = bilstm_backward_cuda if g_f.is_cuda else bilstm_backward_reference
+    dxp_f, dxp_b = run(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f, w_b)
+    return (dxp_f, dxp_b) + dw_hh(h_f, h_b, dxp_f, dxp_b)
 
 
 class BiLSTMFunction(torch.autograd.Function):
@@ -266,32 +418,79 @@ class BiLSTMFunction(torch.autograd.Function):
             outs = bilstm_forward_cuda(xp_f, xp_b, w_f, w_b)
         else:
             outs = bilstm_forward_reference(xp_f, xp_b, w_f, w_b)
-        h_f, h_b, g_f, g_b, c_f, c_b = outs
-        ctx.save_for_backward(h_f, h_b, g_f, g_b, c_f, c_b, w_f, w_b)
-        return h_f, h_b
+        ctx.save_for_backward(*outs, w_f, w_b)
+        return outs[:2]
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dh_f, dh_b):
-        h_f, h_b, g_f, g_b, c_f, c_b, w_f, w_b = ctx.saved_tensors
-        # the cotangents of torch.cat halves are views (autograd gives an
-        # unused output's cotangent as zeros)
-        dh_f, dh_b = dh_f.contiguous(), dh_b.contiguous()
-        run = bilstm_backward_cuda if g_f.is_cuda else (
-            bilstm_backward_reference)
-        dx_f, dx_b = run(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f, w_b)
-        dw_f, dw_b = dw_hh(h_f, h_b, dx_f, dx_b)
-        return dx_f, dx_b, dw_f, dw_b
+        return _recurrence_backward(dh_f, dh_b, *ctx.saved_tensors)
+
+
+class BiLSTMFusedFunction(torch.autograd.Function):
+    """``bilstm_sequence_fused`` under autograd. The forward is the fused
+    residual-saving kernel (the projection inside it) on CUDA, the plain
+    version on the CPU; it saves the residuals and x, as ``_bdp_vjp_fwd``
+    does. The backward (``_bdp_vjp_bwd``, pallas_lstm.py:1414-1448) is the
+    gradient recurrence and dW_hh, then the projection's gradients as
+    matmuls outside the kernels, as JAX leaves them to XLA: dW_ih =
+    dxp^T x, db = the sum of dxp over (t, b), and dx = dxp_f W_ih_f +
+    dxp_b W_ih_b."""
+
+    @staticmethod
+    def forward(ctx, x, wi_f, wi_b, b_f, b_b, w_f, w_b):
+        run = bilstm_fused_forward_cuda if x.is_cuda else (
+            bilstm_fused_forward_reference)
+        outs = run(x, wi_f, wi_b, b_f, b_b, w_f, w_b)
+        ctx.save_for_backward(*outs, x, wi_f, wi_b, w_f, w_b)
+        return outs[:2]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dh_f, dh_b):
+        h_f, h_b, g_f, g_b, c_f, c_b, x, wi_f, wi_b, w_f, w_b = (
+            ctx.saved_tensors)
+        dxp_f, dxp_b, dw_f, dw_b = _recurrence_backward(
+            dh_f, dh_b, h_f, h_b, g_f, g_b, c_f, c_b, w_f, w_b)
+        rows = x.flatten(0, 1)
+        dwi_f = dxp_f.flatten(0, 1).t() @ rows
+        dwi_b = dxp_b.flatten(0, 1).t() @ rows
+        dx = dxp_f @ wi_f + dxp_b @ wi_b
+        return (dx, dwi_f, dwi_b, dxp_f.sum((0, 1)), dxp_b.sum((0, 1)), dw_f,
+                dw_b)
+
+
+def _device(name: str, args) -> str:
+    devices = {x.device.type for x in args}
+    if devices not in ({"cuda"}, {"cpu"}):
+        raise ValueError(f"{name}: tensors on {sorted(devices)}")
+    return devices.pop()
+
+
+def _recording(args) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in args)
 
 
 def bilstm_sequence(xp_f, xp_b, w_f, w_b):
     """Both BiLSTM directions of one layer; see the module docstring."""
     args = (xp_f, xp_b, w_f, w_b)
-    devices = {x.device.type for x in args}
-    if devices not in ({"cuda"}, {"cpu"}):
-        raise ValueError(f"bilstm_sequence: tensors on {sorted(devices)}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+    device = _device("bilstm_sequence", args)
+    if _recording(args):
         return BiLSTMFunction.apply(*args)
-    if devices == {"cuda"}:
+    if device == "cuda":
         return bilstm_infer_cuda(*args)
     return bilstm_sequence_reference(*args)
+
+
+def bilstm_sequence_fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
+    """One BiLSTM layer with its input projection inside the kernel
+    (``pallas_lstm.bilstm_sequence_fused``); callers gate on
+    :func:`fused_proj_plan`. See the module docstring for layouts."""
+    args = (x, wi_f, wi_b, b_f, b_b, w_f, w_b)
+    device = _device("bilstm_sequence_fused", args)
+    if _recording(args):
+        return BiLSTMFusedFunction.apply(*args)
+    if device == "cuda":
+        return bilstm_fused_infer_cuda(*args)
+    return bilstm_sequence_fused_reference(*args)
+
