@@ -48,7 +48,28 @@ Phases, one line each; any failure exits non-zero:
     with fusion off, both timed in the same run;
 11. both train steps with fusion on: exact launch counts, against the
     plain step, 5 steps, and the median time per step beside the
-    unfused step's, timed in turns.
+    unfused step's, timed in turns;
+12. the single-direction kernels of ``ops.lstm`` (the route a BiLSTM
+    layer takes where ``ops.bilstm.merged_bidir_fits`` is false, and any
+    ``LSTM(bidirectional=False)``): ``lstm_infer``, ``lstm_fwd`` and
+    ``lstm_bwd`` against their plain versions in both directions at the
+    shapes phases 13 and 14 give them, timed beside their bounds, the
+    plain versions, a cuDNN unidirectional LSTM and the merged kernels;
+    the merged ``bilstm_infer`` beside two ``lstm_infer`` launches at
+    batches up to the largest it holds; edges (T=1, B=1, each kernel's
+    own batch limit, which its source states, and one row more, which
+    raises); every edge also against a float64 run of the plain loop;
+    ``LSTMFunction`` on CUDA against autograd through the plain loop;
+13. ``convert_batched`` at the fewest pairs (731) whose 7 rows a pair the
+    merged kernels refuse for the mel decoder and content layer 1:
+    exact launch counts (no merged launch on those layers), against the
+    plain call, and timed;
+14. both train steps with ``merged_bidir_fits`` forced false, so every
+    merged layer takes the single-direction route (a real step at a
+    batch the merged kernels refuse needs more memory than the card
+    has): exact launch counts (no ``bilstm_*`` launch), against the
+    plain step, 5 steps, and the median time per step beside the default
+    step's, timed in turns.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside the repo, it
@@ -59,7 +80,10 @@ exits non-zero and prints no result.
 compares the default (unfused) path of this checkout with that of the
 checkout in DIR (for example the parent commit, unpacked with ``git
 archive``): the registers, spills and a hash of the machine code nvcc
-gives each unfused BiLSTM kernel in either source, then N rounds of
+gives each kernel of the merged BiLSTM sources (``bilstm_infer.cu``,
+``bilstm_bwd.cu``) in either tree; then ``convert_batched`` at phase
+13's pair count in a process of either tree, reporting whether it
+completed or raised; then N rounds of
 DIR, this, this, DIR, each a process of its own that builds its tree's
 kernels and times, through that tree's own phase functions,
 ``bilstm_infer``, ``bilstm_fwd`` and ``bilstm_bwd`` at the train and
@@ -168,20 +192,21 @@ def strict_float32(scope: str = "comparison"):
 def plain_kernels():
     """Route the model's kernel calls to the plain PyTorch versions
     (under autograd: autograd through the plain time loops)."""
-    from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
+    from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm
 
     saved = (bilstm.bilstm_sequence, bilstm.bilstm_sequence_fused,
-             multi_bilstm.multi_bilstm_sequence)
+             multi_bilstm.multi_bilstm_sequence, lstm.lstm_sequence)
     bilstm.bilstm_sequence = bilstm.bilstm_sequence_reference
     bilstm.bilstm_sequence_fused = bilstm.bilstm_sequence_fused_reference
     multi_bilstm.multi_bilstm_sequence = (
         multi_bilstm.multi_bilstm_sequence_reference
     )
+    lstm.lstm_sequence = lstm.lstm_sequence_reference
     try:
         yield
     finally:
         (bilstm.bilstm_sequence, bilstm.bilstm_sequence_fused,
-         multi_bilstm.multi_bilstm_sequence) = saved
+         multi_bilstm.multi_bilstm_sequence, lstm.lstm_sequence) = saved
 
 
 @contextlib.contextmanager
@@ -195,6 +220,24 @@ def fusion(mode: str):
         yield
     finally:
         bilstm.PROJ_FUSION = saved
+
+
+@contextlib.contextmanager
+def route(name: str):
+    """The BiLSTM layers' route for the block: "default" (merged,
+    composed), "fused" (merged, ``PROJ_FUSION="auto"``) or "single"
+    (``ops.bilstm.merged_bidir_fits`` false, as for a batch the merged
+    kernels cannot hold: one ``ops.lstm.lstm_sequence`` a direction)."""
+    from speechsplit_tpu_torch.ops import bilstm
+
+    saved = bilstm.merged_bidir_fits
+    if name == "single":
+        bilstm.merged_bidir_fits = lambda *args, **kwargs: False
+    try:
+        with fusion("auto" if name == "fused" else "off"):
+            yield
+    finally:
+        bilstm.merged_bidir_fits = saved
 
 
 def lstm_bound(t: int, b: int, hs, kind: str = "infer",
@@ -248,17 +291,17 @@ def cudnn_yardstick(xp_f, xp_b, w_f, w_b):
 
 
 def reset_launches() -> None:
-    from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
+    from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm
 
-    for counts in (bilstm.LAUNCHES, multi_bilstm.LAUNCHES):
+    for counts in (bilstm.LAUNCHES, multi_bilstm.LAUNCHES, lstm.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def read_launches() -> dict:
-    from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
+    from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm
 
-    return {**bilstm.LAUNCHES, **multi_bilstm.LAUNCHES}
+    return {**bilstm.LAUNCHES, **multi_bilstm.LAUNCHES, **lstm.LAUNCHES}
 
 
 def phase_build() -> float:
@@ -462,9 +505,9 @@ def phase_convert(n_pairs: int = 4, reps: int = 20):
     for name, count in launches.items():
         if count < 1:
             fail(f"convert_batched did not launch {name}")
-    for name in TRAINING_KERNELS + FUSED_KERNELS:
+    for name in TRAINING_KERNELS + FUSED_KERNELS + LSTM_KERNELS:
         if counts[name]:
-            fail(f"convert_batched launched {name} with fusion off")
+            fail(f"convert_batched at {n_pairs} pairs launched {name}")
     check_conversions(config, pairs, result)
 
     with strict_float32():
@@ -865,11 +908,11 @@ def grads_of(model) -> dict:
 
 
 def train_phase(name: str, model: str, expected: dict, batch, reps: int = 12,
-                fuse: bool = False):
+                layers: str = "default"):
     """One train step's launches, the step against the plain step, 5
-    steps, and the time per step. With ``fuse`` the step runs with
-    PROJ_FUSION="auto", and the same step with "off" is timed in turns
-    beside it."""
+    steps, and the time per step. ``layers`` is the BiLSTM layers'
+    :func:`route`; off the default, the same step on the default route is
+    timed in turns beside it."""
     import numpy as np
     import torch
 
@@ -885,8 +928,7 @@ def train_phase(name: str, model: str, expected: dict, batch, reps: int = 12,
     make = make_train_step if model == "speechsplit" else make_f0_train_step
     step = make(config)
 
-    mode = "auto" if fuse else "off"
-    with strict_float32(), fusion(mode):
+    with strict_float32(), route(layers):
         state = create_train_state(config, SEED, model)
         before = [p.detach().clone() for p in state.model.parameters()]
         torch.cuda.synchronize()
@@ -915,7 +957,7 @@ def train_phase(name: str, model: str, expected: dict, batch, reps: int = 12,
              f"rel err {grad_err} ({worst}) > {STEP_TOL}")
 
     losses = [float(loss)]
-    with fusion(mode):
+    with route(layers):
         for _ in range(4):
             state, loss = step(state, batch)
             losses.append(float(loss))
@@ -925,33 +967,33 @@ def train_phase(name: str, model: str, expected: dict, batch, reps: int = 12,
         fail(f"{name}: losses {losses}, largest parameter change {changed}")
 
     # timed at the precision that was compared: float32, TF32 off
-    modes = (mode, "off") if fuse else (mode,)
+    modes = (layers, "default") if layers != "default" else (layers,)
     samples = {m: [] for m in modes}
     with strict_float32("timing"):
         for r in range(reps):
             for m in modes if r % 2 == 0 else modes[::-1]:
-                with fusion(m):
+                with route(m):
                     torch.cuda.synchronize()
                     start = time.perf_counter()
                     state, loss = step(state, batch)
                     torch.cuda.synchronize()
                 samples[m].append((time.perf_counter() - start) * 1e3)
-    q1, ms, q3 = np.percentile(samples[mode], [25, 50, 75])
-    unfused = {}
-    if fuse:
-        off_q1, off_ms, off_q3 = np.percentile(samples["off"], [25, 50, 75])
-        unfused = dict(unfused_median_ms_per_step=f"{off_ms:.4f}",
-                       unfused_q1_ms=f"{off_q1:.4f}",
-                       unfused_q3_ms=f"{off_q3:.4f}",
-                       timing="fused and unfused steps in turns")
+    q1, ms, q3 = np.percentile(samples[layers], [25, 50, 75])
+    default = {}
+    if layers != "default":
+        d_q1, d_ms, d_q3 = np.percentile(samples["default"], [25, 50, 75])
+        default = dict(default_median_ms_per_step=f"{d_ms:.4f}",
+                       default_q1_ms=f"{d_q1:.4f}",
+                       default_q3_ms=f"{d_q3:.4f}",
+                       timing=f"{layers} and default steps in turns")
     log(f"train {name}", batch=f"B{TRAIN_B}xT{config.max_len_pad}",
         loss_rel_err_vs_plain=f"{loss_err:.3g}",
         max_grad_rel_err_vs_plain=f"{grad_err:.3g}", worst_param=worst,
         tol=STEP_TOL, losses=",".join(f"{v:.6f}" for v in losses),
         largest_param_change=f"{changed:.3g}", steps=reps,
         median_ms_per_step=f"{ms:.4f}", q1_ms=f"{q1:.4f}", q3_ms=f"{q3:.4f}",
-        steps_per_s_at_median=f"{1e3 / ms:.3f}", **unfused,
-        proj_fusion=mode, tf32="off for the comparison and the timing",
+        steps_per_s_at_median=f"{1e3 / ms:.3f}", **default,
+        layers=layers, tf32="off for the comparison and the timing",
         launches=json.dumps(launches).replace(" ", ""))
     return launches, state, step
 
@@ -1274,11 +1316,458 @@ def phase_train_fused(batch):
     gen_launches, _, _ = train_phase(
         "generator fused", "speechsplit",
         {"bilstm_fused_fwd": 4, "bilstm_bwd": 4, "multi_bilstm_fwd": 1,
-         "multi_bilstm_bwd": 1}, batch, fuse=True)
+         "multi_bilstm_bwd": 1}, batch, layers="fused")
     f0_launches, _, _ = train_phase(
         "f0_converter fused", "f0_converter",
         {"bilstm_fused_fwd": 2, "bilstm_bwd": 2, "multi_bilstm_fwd": 1,
-         "multi_bilstm_bwd": 1}, batch, fuse=True)
+         "multi_bilstm_bwd": 1}, batch, layers="fused")
+    return gen_launches, f0_launches
+
+
+def refused_pairs() -> int:
+    """The fewest conversion pairs whose rows (7 a pair) the port's plan
+    refuses to the merged inference kernel for both the mel decoder
+    (H=512) and content layer 1 (H=8): from there on every generator
+    BiLSTM layer takes the single-direction route."""
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.convert import CONDITIONS
+    from speechsplit_tpu_torch.ops import bilstm
+
+    config = SpeechSplitConfig()
+    pairs = 1
+    while any(bilstm.merged_bidir_fits(T, len(CONDITIONS) * pairs, h)
+              for h in (config.dim_dec_mel, config.dim_neck)):
+        pairs += 1
+    return pairs
+
+
+def lstm_inputs(t: int, b: int, h: int, seed: int,
+                requires_grad: bool = False):
+    """Seeded (xp [t, b, 4h], w [4h, h], dh [t, b, h]) of one direction."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xp = torch.randn(t, b, 4 * h, device="cuda", generator=gen)
+    w = torch.randn(4 * h, h, device="cuda", generator=gen) * h ** -0.5
+    dh = torch.randn(t, b, h, device="cuda", generator=gen)
+    return (xp.requires_grad_(requires_grad), w.requires_grad_(requires_grad),
+            dh)
+
+
+def cudnn_lstm_yardstick(xp, w):
+    """A unidirectional cuDNN ``torch.nn.LSTM(4H, H)`` computing the
+    forward direction's h from xp through identity input weights. Timed
+    as a yardstick only."""
+    import torch
+
+    four_h = xp.shape[-1]
+    yard = torch.nn.LSTM(four_h, four_h // 4).to(xp.device)
+    with torch.no_grad():
+        yard.weight_ih_l0.copy_(torch.eye(four_h, device=xp.device))
+        yard.weight_hh_l0.copy_(w)
+        yard.bias_ih_l0.zero_()
+        yard.bias_hh_l0.zero_()
+    return yard
+
+
+def check_lstm_infer(b: int, h: int, reps: int) -> dict:
+    """``lstm_infer`` against its plain version in both directions at one
+    main-path shape, timed beside its bound, the plain version and a cuDNN
+    unidirectional LSTM (the forward direction)."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import lstm
+
+    xp, w, _ = lstm_inputs(T, b, h, SEED + 17 * h + b)
+    err, ms = 0.0, {}
+    for reverse in (False, True):
+        got = lstm.lstm_infer_cuda(xp, w, reverse)
+        want = lstm.lstm_sequence_reference(xp, w, reverse)
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max()))
+        del got, want
+        ms[reverse] = time_ms(lambda: lstm.lstm_infer_cuda(xp, w, reverse),
+                              reps, warmup=1)
+    plain_ms = time_ms(lambda: lstm.lstm_sequence_reference(xp, w, False), 1,
+                       warmup=1)
+    yard = cudnn_lstm_yardstick(xp, w)
+    with torch.no_grad():
+        lib_err = float((yard(xp)[0] - lstm.lstm_infer_cuda(xp, w, False))
+                        .abs().max())
+        library_ms = time_ms(lambda: yard(xp), reps, warmup=1)
+    del yard
+    bound_ms, bound_by = lstm_bound(T, b, [h])
+    row = dict(shape=f"T{T}xB{b}xH{h}", max_abs_err=err, tol=KERNEL_TOL,
+               ms=ms[False], reverse_ms=ms[True], plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+               library_err=lib_err)
+    log("kernel lstm_infer", **fmt(row))
+    if not err <= KERNEL_TOL:
+        fail(f"lstm_infer {row['shape']}: max abs err {err} > {KERNEL_TOL}")
+    return row
+
+
+def check_merged_vs_single(h: int, batches, reps: int) -> list:
+    """The merged ``bilstm_infer`` beside two ``lstm_infer`` launches
+    (forward and reverse) on the same inputs at width h, at each batch of
+    ``batches`` and at the largest batch the merged kernel holds: what
+    each route costs where both hold the batch."""
+    from speechsplit_tpu_torch.ops import bilstm, lstm
+
+    rows = []
+    for b in (*batches, bilstm.merged_max_batch(h)):
+        xp_f, w_f, _ = lstm_inputs(T, b, h, SEED + 61)
+        xp_b, w_b, _ = lstm_inputs(T, b, h, SEED + 62)
+
+        def merged():
+            return bilstm.bilstm_infer_cuda(xp_f, xp_b, w_f, w_b)
+
+        def single():
+            return (lstm.lstm_infer_cuda(xp_f, w_f, False),
+                    lstm.lstm_infer_cuda(xp_b, w_b, True))
+
+        err = abs_err(single(), merged())
+        row = dict(shape=f"T{T}xB{b}xH{h}",
+                   merged_ms=time_ms(merged, reps, warmup=1),
+                   single_pair_ms=time_ms(single, reps, warmup=1),
+                   max_abs_err_between=err, tol=KERNEL_TOL)
+        log("kernel bilstm_infer against two lstm_infer", **fmt(row))
+        if not err <= KERNEL_TOL:
+            fail(f"lstm_infer pair vs bilstm_infer at B{b}: max abs err "
+                 f"{err}")
+        rows.append(row)
+        del xp_f, xp_b
+    return rows
+
+
+def check_lstm_train(b: int, h: int, reps: int) -> dict:
+    """``lstm_fwd`` and ``lstm_bwd`` against their plain versions in both
+    directions (the gradient kernel on the plain forward's residuals),
+    timed beside their bounds, the plain versions, cuDNN's unidirectional
+    training forward and backward, and the merged kernels' time for both
+    directions at the same shape."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm, lstm
+
+    xp, w, dh = lstm_inputs(T, b, h, SEED + 19 * h + b)
+    errs = dict(err_h=0.0, err_g=0.0, err_c=0.0, err_dx=0.0, err_dx_rel=0.0)
+    for reverse in (False, True):
+        got = lstm.lstm_forward_cuda(xp, w, reverse)
+        want = lstm.lstm_direction_forward_reference(xp, w, reverse)
+        dx = lstm.lstm_backward_cuda(dh, want[1], want[2], w, reverse)
+        dx_ref = lstm.lstm_direction_backward_reference(dh, want[1], want[2],
+                                                        w, reverse)
+        torch.cuda.synchronize()
+        for key, value in (("err_h", abs_err(got[:1], want[:1])),
+                           ("err_g", abs_err(got[1:2], want[1:2])),
+                           ("err_c", abs_err(got[2:], want[2:])),
+                           ("err_dx", abs_err([dx], [dx_ref])),
+                           ("err_dx_rel", rel_err([dx], [dx_ref]))):
+            errs[key] = max(errs[key], value)
+    _, g, c = lstm.lstm_direction_forward_reference(xp, w, False)
+    fwd_ms = time_ms(lambda: lstm.lstm_forward_cuda(xp, w, False), reps)
+    bwd_ms = time_ms(lambda: lstm.lstm_backward_cuda(dh, g, c, w, False),
+                     reps)
+    plain_fwd_ms = time_ms(lambda: lstm.lstm_direction_forward_reference(
+        xp, w, False), 2, warmup=1)
+    plain_bwd_ms = time_ms(lambda: lstm.lstm_direction_backward_reference(
+        dh, g, c, w, False), 2, warmup=1)
+    yard = cudnn_lstm_yardstick(xp, w)
+    x = xp.detach().clone().requires_grad_(True)
+    lib_fwd_ms = time_ms(lambda: yard(x), reps)
+    out = yard(x)[0]
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        out, (x, yard.weight_hh_l0), dh, retain_graph=True), reps)
+    merged_fwd_ms = time_ms(lambda: bilstm.bilstm_forward_cuda(xp, xp, w, w),
+                            reps)
+    merged_bwd_ms = time_ms(lambda: bilstm.bilstm_backward_cuda(
+        dh, dh, g, g, c, c, w, w), reps)
+    fwd_bound, fwd_by = lstm_bound(T, b, [h], "fwd")
+    bwd_bound, bwd_by = lstm_bound(T, b, [h], "bwd")
+    shape = f"T{T}xB{b}xH{h}"
+    fwd = dict(shape=shape, max_abs_err=max(errs["err_h"], errs["err_g"],
+                                            errs["err_c"]),
+               tol=KERNEL_TOL, ms=fwd_ms, plain_ms=plain_fwd_ms,
+               bound_ms=fwd_bound, bound_by=fwd_by, library_ms=lib_fwd_ms,
+               merged_both_directions_ms=merged_fwd_ms)
+    bwd = dict(shape=shape, max_abs_err=errs["err_dx"],
+               rel_err=errs["err_dx_rel"], tol=KERNEL_TOL, ms=bwd_ms,
+               plain_ms=plain_bwd_ms, bound_ms=bwd_bound, bound_by=bwd_by,
+               library_ms=lib_bwd_ms,
+               library_fwd_plus_bwd_ms=lib_fwd_ms + lib_bwd_ms,
+               merged_both_directions_ms=merged_bwd_ms)
+    log("kernel lstm_fwd", **fmt({**fwd, **{k: errs[k] for k in (
+        "err_h", "err_g", "err_c")}}))
+    log("kernel lstm_bwd", **fmt(bwd))
+    for name in ("err_h", "err_g", "err_c", "err_dx_rel"):
+        if not errs[name] <= KERNEL_TOL:
+            fail(f"lstm training kernels {shape}: {name} {errs[name]} > "
+                 f"{KERNEL_TOL}")
+    return {"lstm_fwd": fwd, "lstm_bwd": bwd}
+
+
+def check_lstm_edges() -> None:
+    """The three kernels' other code paths against their plain versions,
+    both directions, on short sequences: T=1, B=1, batch-tiled staging
+    (B=300 at H=512), widths not a multiple of 4 or 32 or of the plan's
+    units a block (H=1, 3, 100, 257), and each kernel's own batch limit,
+    which its source states; one more row raises in the wrapper and is
+    refused by the kernel itself. Both the kernel and the plain version
+    are also held against a float64 run of the plain loop on the same
+    inputs (the gradient on the same float32 residuals), which shows how
+    much of their difference each one's float32 rounding makes."""
+    import ctypes
+
+    import torch
+
+    from speechsplit_tpu_torch.ops import lstm
+
+    shapes = ((1, TRAIN_B, 512), (37, 1, 512), (5, 300, 512), (23, 5, 3),
+              (16, 3, 1), (12, 6, 100), (9, 7, 257),
+              (3, lstm.MAX_BWD_BATCH, 512), (3, lstm.MAX_BATCH, 512),
+              (3, lstm.MAX_BATCH, 8))
+    def f64(tensors):
+        return [x.double() for x in tensors]
+
+    worst = {name: (0.0, "") for name in LSTM_KERNELS}
+    # against float64: (the kernel's max abs err, the plain version's)
+    exact = {name: (0.0, 0.0) for name in LSTM_KERNELS}
+    for n, (t, b, h) in enumerate(shapes):
+        xp, w, dh = lstm_inputs(t, b, h, SEED + 83 + n)
+        for reverse in (False, True):
+            want = lstm.lstm_direction_forward_reference(xp, w, reverse)
+            want64 = lstm.lstm_direction_forward_reference(
+                xp.double(), w.double(), reverse)
+            got = {"lstm_infer": (
+                       [lstm.lstm_infer_cuda(xp, w, reverse)], want[:1],
+                       want64[:1]),
+                   "lstm_fwd": (lstm.lstm_forward_cuda(xp, w, reverse), want,
+                                want64)}
+            if b <= lstm.MAX_BWD_BATCH:
+                res = (dh, want[1], want[2], w)
+                got["lstm_bwd"] = (
+                    [lstm.lstm_backward_cuda(*res, reverse)],
+                    [lstm.lstm_direction_backward_reference(*res, reverse)],
+                    [lstm.lstm_direction_backward_reference(*f64(res),
+                                                            reverse)])
+            torch.cuda.synchronize()
+            errs = {}
+            for name, (kernel, plain, ref64) in got.items():
+                errs[name] = abs_err(kernel, plain)
+                exact[name] = (
+                    max(exact[name][0], abs_err(f64(kernel), ref64)),
+                    max(exact[name][1], abs_err(f64(plain), ref64)))
+            del got, want, want64
+            if not max(errs.values()) <= KERNEL_TOL:
+                fail(f"lstm kernels T{t}xB{b}xH{h} reverse={reverse}: max "
+                     f"abs errs {errs}")
+            for name, err in errs.items():
+                if err > worst[name][0]:
+                    worst[name] = (err, f"T{t}xB{b}xH{h}"
+                                        f"{'r' if reverse else 'f'}")
+    # one row past each limit: the wrapper raises, naming the limit, and
+    # the C entry refuses the launch
+    lib, bwd_lib = lstm._library(), lstm._bwd_library()
+    for name, limit, wrapper, launch, pointers in (
+            ("lstm_infer", lstm.MAX_BATCH,
+             lambda xp, w, dh: lstm.lstm_infer_cuda(xp, w, False),
+             lib.lstm_infer_launch, 3),
+            ("lstm_fwd", lstm.MAX_BATCH,
+             lambda xp, w, dh: lstm.lstm_forward_cuda(xp, w, False),
+             lib.lstm_fwd_launch, 5),
+            ("lstm_bwd", lstm.MAX_BWD_BATCH,
+             lambda xp, w, dh: lstm.lstm_backward_cuda(dh, xp, dh, w, False),
+             bwd_lib.lstm_bwd_launch, 5)):
+        xp, w, dh = lstm_inputs(1, limit + 1, 8, SEED + 97)
+        try:
+            wrapper(xp, w, dh)
+        except ValueError as err:
+            if f"B <= {limit}" not in str(err):
+                fail(f"{name} at B={limit + 1}: {err}")
+        else:
+            fail(f"{name} took B={limit + 1}, past its limit {limit}")
+        # the kernel refuses before it reads a pointer
+        code = launch(*[xp.data_ptr()] * pointers, 1, limit + 1, 8, 0, 0,
+                      ctypes.c_void_p(lstm._stream(xp)))
+        if code == 0:
+            fail(f"the {name} kernel took B={limit + 1}")
+    log("kernel lstm edges", shapes=len(shapes), kernels=3, directions=2,
+        **{f"{name}_max_abs_err": f"{err:.3g}@{shape}"
+           for name, (err, shape) in worst.items()},
+        **{f"{name}_vs_float64": f"{k:.3g}/plain:{p:.3g}"
+           for name, (k, p) in exact.items()}, tol=KERNEL_TOL,
+        max_batch=lstm.MAX_BATCH, max_bwd_batch=lstm.MAX_BWD_BATCH,
+        refused_batches=f"{lstm.MAX_BATCH + 1}(infer,fwd),"
+                        f"{lstm.MAX_BWD_BATCH + 1}(bwd)")
+
+
+def check_lstm_functions() -> None:
+    """``LSTMFunction`` on CUDA tensors against autograd through the plain
+    loop, same inputs and cotangents, both directions; and the dispatch:
+    no_grad takes the lean kernel, autograd the Function. Shapes: the
+    train step's mel-decoder direction, batch-tiled gradient staging
+    (B=40 at H=512) and widths not a multiple of 32 or of the units a
+    block."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import lstm
+
+    cases = ((T, TRAIN_B, 512), (29, 40, 512), (29, 3, 100), (29, 5, 1),
+             (29, 13, 257))
+    worst = 0.0
+    for n, (t, b, h) in enumerate(cases):
+        xp, w, dh = lstm_inputs(t, b, h, SEED + 53 + n, requires_grad=True)
+        for reverse in (False, True):
+            reset_launches()
+            with torch.no_grad():
+                out = lstm.lstm_sequence(xp, w, reverse)
+            if read_launches()["lstm_infer"] != 1 or out.grad_fn:
+                fail("no_grad did not take lstm_infer")
+            out = lstm.lstm_sequence(xp, w, reverse)
+            if type(out.grad_fn).__name__ != "LSTMFunctionBackward":
+                fail(f"autograd did not take LSTMFunction: {out.grad_fn}")
+            got = torch.autograd.grad(out, (xp, w), dh)
+            want = torch.autograd.grad(
+                lstm.lstm_sequence_reference(xp, w, reverse), (xp, w), dh)
+            torch.cuda.synchronize()
+            for g, r in zip(got, want):
+                err = rel_err([g], [r])
+                worst = max(worst, err)
+                if not err <= KERNEL_TOL:
+                    fail(f"T{t}xB{b}xH{h} reverse={reverse}: LSTMFunction "
+                         f"grad vs autograd of the plain loop, rel err {err}")
+    log("autograd.Function lstm", cases=2 * len(cases),
+        grads_rel_err=f"{worst:.3g}", tol=KERNEL_TOL,
+        against="autograd through the plain loop")
+
+
+def phase_lstm_kernels(reps: int = 2) -> dict:
+    """The single-direction kernels at the shapes phases 13 and 14 give
+    them, their edges and the Function, and the merged kernel beside them
+    up to its batch limit. Returns the row of each kernel's most
+    expensive main-path shape."""
+    import gc
+
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.convert import CONDITIONS
+
+    config = SpeechSplitConfig()
+    rows = {}
+    with strict_float32():
+        check_lstm_edges()
+        check_lstm_functions()
+        for b, h in ((TRAIN_B, config.dim_dec_mel),
+                     (TRAIN_B, config.dim_dec_f0),
+                     (TRAIN_B, config.dim_neck)):
+            for name, row in check_lstm_train(b, h, 10).items():
+                rows.setdefault(name, row)
+        big = len(CONDITIONS) * refused_pairs()
+        rows["lstm_infer"] = check_lstm_infer(big, config.dim_dec_mel, reps)
+        check_lstm_infer(big, config.dim_neck, reps)
+        rows["lstm_infer"]["merged_vs_single"] = check_merged_vs_single(
+            config.dim_dec_mel, (28, 224, 1024), reps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_convert_large(reps: int = 3) -> dict:
+    """``convert_batched`` at the fewest pairs whose generator batch the
+    merged kernels refuse (:func:`refused_pairs`): the launches of one
+    call, the call against the plain call, and the time of a few calls."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.convert import CONDITIONS, convert_batched
+    from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+
+    n_pairs = refused_pairs()
+    config = SpeechSplitConfig()
+    gen = torch.Generator().manual_seed(SEED)
+    g_model = SpeechSplit(config, generator=gen).to("cuda").eval()
+    p_model = F0Converter(config, generator=gen).to("cuda").eval()
+    pairs = synthetic_pairs(config, n_pairs, "cuda", SEED + 3)
+
+    def run():
+        return convert_batched(g_model, p_model, pairs, CONDITIONS)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the mel decoder's 3 layers and content layer 1 one direction a
+    # launch; the F0 decoder (batch n_pairs) stays merged
+    expected = {"lstm_infer": 8, "bilstm_infer": 2, "multi_bilstm_infer": 2}
+    run()  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    result = run()
+    launches = read_launches()
+    for name, count in launches.items():
+        if count != expected.get(name, 0):
+            fail(f"convert_batched at {n_pairs} pairs launched {name} "
+                 f"{count} times, expected {expected.get(name, 0)}")
+    check_conversions(config, pairs, result)
+    del result
+    free()
+    with strict_float32():
+        torch.cuda.reset_peak_memory_stats()
+        exact = run()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        with plain_kernels():
+            plain = run()
+        plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    err = max(float(np.abs(a[1] - b[1]).max())
+              for ra, rb in zip(exact, plain) for a, b in zip(ra, rb))
+    del exact, plain
+    free()
+    if not err <= PATH_TOL:
+        fail(f"convert_batched at {n_pairs} pairs, kernels vs plain: max abs "
+             f"err {err}")
+    samples = []
+    with strict_float32("timing"):
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            run()  # ends in the device->host fetch of the results
+            samples.append((time.perf_counter() - start) * 1e3)
+    q1, ms, q3 = np.percentile(samples, [25, 50, 75])
+    utts = n_pairs * len(CONDITIONS)
+    log("convert_batched large", pairs=n_pairs, conditions=len(CONDITIONS),
+        generator_batch=utts, f0_batch=n_pairs, calls=reps,
+        median_ms_per_call=f"{ms:.4f}", q1_ms=f"{q1:.4f}", q3_ms=f"{q3:.4f}",
+        utterances_per_s_at_median=f"{utts / ms * 1e3:.2f}",
+        max_abs_err_vs_plain=f"{err:.3g}", tol=PATH_TOL,
+        peak_gb=f"{peak_gb:.2f}", plain_peak_gb=f"{plain_peak_gb:.2f}",
+        tf32="off for the comparison and the timing",
+        launches=json.dumps(launches).replace(" ", ""))
+    del g_model, p_model, pairs
+    free()
+    return launches
+
+
+def phase_train_single(batch):
+    """Both train steps with every merged BiLSTM layer on the
+    single-direction route (``merged_bidir_fits`` false): a real step at
+    a batch the merged kernels refuse needs more memory than the card
+    has (the mel decoder's residuals alone), so the route is forced at
+    B16."""
+    gen_launches, _, _ = train_phase(
+        "generator single", "speechsplit",
+        {"lstm_fwd": 8, "lstm_bwd": 8, "multi_bilstm_fwd": 1,
+         "multi_bilstm_bwd": 1}, batch, layers="single")
+    f0_launches, _, _ = train_phase(
+        "f0_converter single", "f0_converter",
+        {"lstm_fwd": 4, "lstm_bwd": 4, "multi_bilstm_fwd": 1,
+         "multi_bilstm_bwd": 1}, batch, layers="single")
     return gen_launches, f0_launches
 
 
@@ -1310,50 +1799,75 @@ KERNELS = {
     "bilstm_fused_fwd": dict(
         route="cuda", source="speechsplit_tpu_torch/csrc/bilstm_infer.cu",
         replaces="speechsplit_tpu/ops/pallas_lstm.py:1222"),
+    "lstm_infer": dict(
+        route="cuda", source="speechsplit_tpu_torch/csrc/lstm_infer.cu",
+        replaces="speechsplit_tpu/ops/pallas_lstm.py:283"),
+    "lstm_fwd": dict(
+        route="cuda", source="speechsplit_tpu_torch/csrc/lstm_infer.cu",
+        replaces="speechsplit_tpu/ops/pallas_lstm.py:254"),
+    "lstm_bwd": dict(
+        route="cuda", source="speechsplit_tpu_torch/csrc/lstm_bwd.cu",
+        replaces="speechsplit_tpu/ops/pallas_lstm.py:396"),
 }
 TRAINING_KERNELS = ("bilstm_fwd", "bilstm_bwd", "multi_bilstm_fwd",
                     "multi_bilstm_bwd")
 FUSED_KERNELS = ("bilstm_fused_infer", "bilstm_fused_fwd")
+LSTM_KERNELS = ("lstm_infer", "lstm_fwd", "lstm_bwd")
+
+
+# a kernel entry of the merged sources, by its mangled name: the
+# template and its arguments (bilstm_infer_kernel<KPL, kResid>,
+# bilstm_fused_kernel<KPL, kResid>, bilstm_bwd_kernel<KPL>)
+KERNEL_ENTRY = re.compile(
+    r"(bilstm_(?:infer|fused|bwd)_kernel)I((?:L[ib]\d+E)+)E")
+
+
+def _entry(match) -> str:
+    args = re.findall(r"L[ib](\d+)E", match[2])
+    return f"{match[1]}<{','.join(args)}>"
 
 
 def kernel_codegen(tree: str) -> dict:
-    """What nvcc makes of the unfused BiLSTM kernels in ``tree``'s
-    ``csrc/bilstm_infer.cu`` (``bilstm_infer_kernel<KPL, kResid>``):
+    """What nvcc makes of every kernel of the merged BiLSTM sources in
+    ``tree`` (``csrc/bilstm_infer.cu``, ``csrc/bilstm_bwd.cu``):
     registers, spill stores and a hash of each one's SASS."""
     from speechsplit_tpu_torch.ops import _build
 
-    source = os.path.join(tree, "speechsplit_tpu_torch", "csrc",
-                          "bilstm_infer.cu")
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
                                                        "-fPIC")]
-    name = re.compile(r"bilstm_infer_kernelILi(\d+)ELb([01])E")
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        cubin = os.path.join(tmp, "k.cubin")
-        log_text = subprocess.run(
-            [_build._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o", cubin,
-             source], capture_output=True, text=True, check=True).stderr
-        key = None
-        for line in log_text.splitlines():
-            if "Compiling entry function" in line:
-                m = name.search(line)
-                key = f"<{m[1]},{m[2]}>" if m else None
-            elif key and "spill stores" in line:
-                out.setdefault(key, {})["spill_stores"] = int(
-                    re.search(r"(\d+) bytes spill stores", line)[1])
-            elif key and "Used" in line and "registers" in line:
-                out.setdefault(key, {})["registers"] = int(
-                    re.search(r"Used (\d+) registers", line)[1])
-                key = None
-        cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-        sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True,
-                              text=True, check=True).stdout
-    for part in sass.split("Function : ")[1:]:
-        head, _, body = part.partition("\n")
-        m = name.search(head)
-        if m:
-            out.setdefault(f"<{m[1]},{m[2]}>", {})["sass_sha256"] = (
-                hashlib.sha256(body.encode()).hexdigest()[:16])
+    for stem in ("bilstm_infer", "bilstm_bwd"):
+        source = os.path.join(tree, "speechsplit_tpu_torch", "csrc",
+                              f"{stem}.cu")
+        with tempfile.TemporaryDirectory() as tmp:
+            cubin = os.path.join(tmp, "k.cubin")
+            log_text = subprocess.run(
+                [_build._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+                 cubin, source], capture_output=True, text=True,
+                check=True).stderr
+            key = None
+            for line in log_text.splitlines():
+                if "Compiling entry function" in line:
+                    m = KERNEL_ENTRY.search(line)
+                    key = _entry(m) if m else None
+                elif key and "spill stores" in line:
+                    out.setdefault(key, {})["spill_stores"] = int(
+                        re.search(r"(\d+) bytes spill stores", line)[1])
+                elif key and "Used" in line and "registers" in line:
+                    out.setdefault(key, {})["registers"] = int(
+                        re.search(r"Used (\d+) registers", line)[1])
+                    key = None
+            cuobjdump = os.path.join(os.path.dirname(_build._nvcc()),
+                                     "cuobjdump")
+            sass = subprocess.run([cuobjdump, "-sass", cubin],
+                                  capture_output=True, text=True,
+                                  check=True).stdout
+        for part in sass.split("Function : ")[1:]:
+            head, _, body = part.partition("\n")
+            m = KERNEL_ENTRY.search(head)
+            if m:
+                out.setdefault(_entry(m), {})["sass_sha256"] = (
+                    hashlib.sha256(body.encode()).hexdigest()[:16])
     return out
 
 
@@ -1394,6 +1908,31 @@ for model, make in (("speechsplit", make_train_step),
 print("AB " + json.dumps(out), flush=True)
 """
 
+# the large conversion in one process of a tree: P pairs (sys.argv[1])
+# through that tree's convert_batched; it reports whether the call raised
+PROBE_CHILD = """
+import sys
+import torch
+import chip_smoke as c
+from speechsplit_tpu_torch.config import SpeechSplitConfig
+from speechsplit_tpu_torch.convert import CONDITIONS, convert_batched
+from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+
+c.phase_build()
+config = SpeechSplitConfig()
+gen = torch.Generator().manual_seed(c.SEED)
+g_model = SpeechSplit(config, generator=gen).to("cuda").eval()
+p_model = F0Converter(config, generator=gen).to("cuda").eval()
+pairs = c.synthetic_pairs(config, int(sys.argv[1]), "cuda", c.SEED + 3)
+try:
+    out = convert_batched(g_model, p_model, pairs, CONDITIONS)
+    torch.cuda.synchronize()
+    print("PROBE completed", len(out), flush=True)
+except Exception as err:  # the outcome is what the probe reports
+    print("PROBE raised", type(err).__name__,
+          str(err).replace(chr(10), " ")[:300], flush=True)
+"""
+
 
 def ab_main(other: str, rounds: int) -> int:
     """``--against DIR``: see the module docstring."""
@@ -1405,8 +1944,19 @@ def ab_main(other: str, rounds: int) -> int:
         if not os.path.exists(os.path.join(tree, "chip_smoke.py")):
             fail(f"{tree} is not a checkout")
         for kernel, row in sorted(kernel_codegen(tree).items()):
-            log(f"codegen {label}", kernel=f"bilstm_infer_kernel{kernel}",
-                **row)
+            log(f"codegen {label}", kernel=kernel, **row)
+    pairs = refused_pairs()
+    for label, tree in trees.items():
+        proc = subprocess.run([sys.executable, "-c", PROBE_CHILD, str(pairs)],
+                              cwd=tree, capture_output=True, text=True,
+                              timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("PROBE ")]
+        if proc.returncode or not lines:
+            fail(f"{label} probe: rc {proc.returncode}\n"
+                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        log(f"ab probe {label}", tree=tree, pairs=pairs,
+            outcome=lines[-1][len("PROBE "):].replace(" ", "_"))
     samples = {label: [] for label in trees}
     for r in range(rounds):
         for label in ("other", "this", "this", "other"):
@@ -1466,19 +2016,29 @@ def main() -> int:
     rows.update(phase_fused_kernels())
     fused_convert = phase_convert_fused()
     fused_gen, fused_f0 = phase_train_fused(batch)
+    rows.update(phase_lstm_kernels())
+    large_convert = phase_convert_large()
+    single_gen, single_f0 = phase_train_single(batch)
     log("done", seconds=f"{time.perf_counter() - wall:.1f}")
     # launches: the conversion call's for the inference kernels, one
     # generator train step's for the training kernels (the F0 step's
-    # beside them); the fused kernels' from the runs with fusion on
+    # beside them); the fused kernels' from the runs with fusion on, the
+    # single-direction kernels' from the large conversion and the steps
+    # on the single-direction route
     launches.update({k: gen_launches[k] for k in TRAINING_KERNELS})
     launches["bilstm_fused_infer"] = fused_convert["bilstm_fused_infer"]
     launches["bilstm_fused_fwd"] = fused_gen["bilstm_fused_fwd"]
+    launches["lstm_infer"] = large_convert["lstm_infer"]
     f0_launches = {**f0_launches, "bilstm_fused_fwd": fused_f0[
         "bilstm_fused_fwd"]}
+    for name in ("lstm_fwd", "lstm_bwd"):
+        launches[name] = single_gen[name]
+        f0_launches[name] = single_f0[name]
     kernels = []
     for name, meta in KERNELS.items():
         row = dict(name=name, **meta, launches=launches[name], **rows[name])
-        if name in TRAINING_KERNELS or name == "bilstm_fused_fwd":
+        if name in TRAINING_KERNELS or name in (
+                "bilstm_fused_fwd", "lstm_fwd", "lstm_bwd"):
             row["launches_f0_step"] = f0_launches[name]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -53,6 +53,14 @@ constexpr int kBC = 4;         // batch rows per register tile
 constexpr int kMaxH = 512;
 constexpr int kVals = 8;       // staged per (unit, row): i f g o c c_prev dh
 constexpr size_t kSmemBudget = 160 * 1024;
+// The kernel takes B rows at width H while the dc carry [units][B] and
+// one batch row of the d_pre tile and the staged residuals, 4H + kVals *
+// units floats, fit these floats, with units = min(H, kMaxUnits)
+// (launch() below). ops/bilstm.py reads the value from this line
+// (merged_bidir_fits), so the kernel is the one owner of the limit.
+constexpr int kBwdSmemFloats = 40960;
+static_assert(kBwdSmemFloats * sizeof(float) == kSmemBudget,
+              "kBwdSmemFloats must be the launch's budget");
 
 template <int KPL>  // ceil(4H / 32): W_hh column entries per lane
 __global__ void __launch_bounds__(kMaxUnits * 32)

@@ -145,6 +145,16 @@ static_assert(fold1_floats(kMaxFusedBatch) <= kProjSmemBudget / 4 &&
                   fold1_floats(kMaxFusedBatch + 1) > kProjSmemBudget / 4,
               "kMaxFusedBatch must be the largest batch plan_fused holds");
 
+// The unfused kernels (bilstm_infer, bilstm_fwd) take B rows at width H
+// while the cell state [units][B] and one batch row of the h tile and the
+// gate inputs, H + 4 * units floats, fit these floats, with units =
+// min(H, kMaxUnits) (launch() below). ops/bilstm.py reads the value from
+// this line (merged_bidir_fits), so the kernel is the one owner of the
+// limit.
+constexpr int kUnfusedSmemFloats = 40960;
+static_assert(kUnfusedSmemFloats * sizeof(float) == kSmemBudget,
+              "kUnfusedSmemFloats must be the unfused launch's budget");
+
 // cp.async: a 4-byte copy from global to shared memory that holds no
 // register while it is in flight; a src size of 0 writes a zero.
 __device__ __forceinline__ void copy_async4(float* dst, const float* src,

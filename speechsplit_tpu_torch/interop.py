@@ -92,6 +92,36 @@ def _array(value) -> np.ndarray:
     return np.array(value, dtype=np.float32, copy=True)
 
 
+def _lstm_arrays(node: Mapping[str, Any],
+                 prefix: str) -> Dict[str, np.ndarray]:
+    """A flax LSTM's ``w_ih_l0``, ``b_hh_l0_reverse``, ... -> torch's
+    ``{prefix}weight_ih_l0``, ``{prefix}bias_hh_l0_reverse``, ...; the
+    weights transposed to torch's [4H, I] / [4H, H]."""
+    out = {}
+    for name in node:
+        m = _LSTM_RE.match(name)
+        if not m:
+            raise ValueError(f"unrecognized LSTM param {name!r} at {prefix!r}")
+        kind_c, side, layer, rev = m.groups()
+        suffix = f"l{layer}" + (rev or "")
+        arr = _array(node[name])
+        if kind_c == "w":
+            out[f"{prefix}weight_{side}_{suffix}"] = arr.T
+        else:
+            out[f"{prefix}bias_{side}_{suffix}"] = arr
+    return out
+
+
+def lstm_params_to_state_dict(
+    params: Mapping[str, Any]
+) -> Dict[str, torch.Tensor]:
+    """One JAX ``models.layers.LSTM``'s params (numpy leaves) -> the state
+    dict of the port's ``LSTM`` of the same shape, uni- or bidirectional
+    (``torch.nn.LSTM``'s names)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in _lstm_arrays(params, "").items()}
+
+
 def jax_params_to_state_dict(
     params: Mapping[str, Any], model: str = "speechsplit"
 ) -> Dict[str, torch.Tensor]:
@@ -118,17 +148,7 @@ def jax_params_to_state_dict(
             out[prefix + ".weight"] = _array(node["kernel"]).T
             out[prefix + ".bias"] = _array(node["bias"])
         else:
-            for name in node:
-                m = _LSTM_RE.match(name)
-                if not m:
-                    raise ValueError(f"unrecognized LSTM param {name!r} at {path}")
-                kind_c, side, layer, rev = m.groups()
-                suffix = f"l{layer}" + (rev or "")
-                arr = _array(node[name])
-                if kind_c == "w":
-                    out[f"{prefix}.weight_{side}_{suffix}"] = arr.T
-                else:
-                    out[f"{prefix}.bias_{side}_{suffix}"] = arr
+            out.update(_lstm_arrays(node, prefix + "."))
     extra = {
         f"{top}/{name}"
         for top, sub in params.items()

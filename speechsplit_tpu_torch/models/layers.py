@@ -2,7 +2,8 @@
 
 - Public layouts are ``[B, T, C]`` as in the JAX package; the
   recurrences run time-major ``[T, B, 4H]`` streams through the kernels
-  of ``ops.bilstm`` / ``ops.multi_bilstm``.
+  of ``ops.bilstm`` / ``ops.multi_bilstm``, or one direction a launch
+  through ``ops.lstm``.
 - Parameter names follow the reference's torch modules (ConvNorm.conv,
   LinearNorm.linear_layer, nn.LSTM's ``weight_ih_l{k}[_reverse]``, ...),
   so reference and JAX-exported ``.ckpt`` files load with
@@ -24,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from speechsplit_tpu_torch.ops import bilstm
+from speechsplit_tpu_torch.ops import bilstm, lstm
 
 GAIN = {"linear": 1.0, "relu": math.sqrt(2.0), "tanh": 5.0 / 3.0}
 
@@ -137,28 +138,38 @@ def _recurrent_dtype(dtype: torch.dtype, hidden: int) -> torch.dtype:
 
 
 class LSTM(nn.Module):
-    """Multi-layer bidirectional LSTM with torch's parameter names (every
-    LSTM of the model is bidirectional; a unidirectional one needs the
-    queued ``lstm_sequence`` kernel, ROADMAP.md).
+    """Multi-layer (bi)directional LSTM with torch's parameter names.
 
     Per layer and direction: ``weight_ih_l{k}`` [4H, I], ``weight_hh_l{k}``
-    [4H, H], ``bias_ih_l{k}``, ``bias_hh_l{k}`` [4H], and the same with
-    ``_reverse``. Returns [B, T, 2H] (forward and backward halves
-    concatenated), as all five reference LSTM stacks consume.
+    [4H, H], ``bias_ih_l{k}``, ``bias_hh_l{k}`` [4H], and for a
+    bidirectional stack the same with ``_reverse``, as ``torch.nn.LSTM``
+    declares them. Returns [B, T, D*H] (forward and backward halves
+    concatenated), as all five reference LSTM stacks consume (every LSTM
+    of the model is bidirectional).
+
+    Routes of a layer (the JAX layer's, layers.py:331-425): a
+    bidirectional layer whose shape ``ops.bilstm.merged_bidir_fits`` runs
+    both directions in one merged launch, fused or composed; a
+    unidirectional layer, or a bidirectional one whose batch the merged
+    kernels cannot hold, runs ``ops.lstm.lstm_sequence`` once per
+    direction on ``F.linear(x, W_ih, b)``.
     """
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int,
                  generator: torch.Generator,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 bidirectional: bool = True):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.dtype = dtype
+        self.bidirectional = bidirectional
         k = 1.0 / math.sqrt(hidden_size)
         four_h = 4 * hidden_size
         for layer in range(num_layers):
-            in_features = input_size if layer == 0 else 2 * hidden_size
-            for sfx in (f"l{layer}", f"l{layer}_reverse"):
+            in_features = input_size if layer == 0 else (
+                (2 if bidirectional else 1) * hidden_size)
+            for sfx in self._suffixes(layer):
                 setattr(self, f"weight_ih_{sfx}",
                         _uniform((four_h, in_features), k, generator))
                 setattr(self, f"weight_hh_{sfx}",
@@ -167,6 +178,11 @@ class LSTM(nn.Module):
                         _uniform((four_h,), k, generator))
                 setattr(self, f"bias_hh_{sfx}",
                         _uniform((four_h,), k, generator))
+
+    def _suffixes(self, layer: int):
+        if self.bidirectional:
+            return f"l{layer}", f"l{layer}_reverse"
+        return (f"l{layer}",)
 
     def _input_weights(self, sfx: str):
         """``(weight_ih [4H, I], b_ih + b_hh [4H])`` of one direction."""
@@ -180,10 +196,18 @@ class LSTM(nn.Module):
         w = getattr(self, f"weight_hh_{sfx}")
         return w.to(_recurrent_dtype(self.dtype, self.hidden_size))
 
+    def _direction(self, x: torch.Tensor, sfx: str) -> torch.Tensor:
+        """One direction of a layer over time-major x [T, B, I] through
+        ``ops.lstm``: h [T, B, H] in real time order."""
+        return lstm.lstm_sequence(self._project(x, sfx).contiguous(),
+                                  self._w_hh(sfx), sfx.endswith("_reverse"))
+
     def streams(self, x: torch.Tensor, layer: int = 0):
         """Layer ``layer``'s kernel-ready streams without running it:
         ``(xp_f [T,B,4H], xp_b [T,B,4H], w_f [4H,H], w_b [4H,H])`` for
         ``ops.multi_bilstm.multi_bilstm_sequence``; x is [B, T, I]."""
+        if not self.bidirectional:
+            raise ValueError("streams mode is for BiLSTM layers")
         xt = x.transpose(0, 1)
         sfx = f"l{layer}"
         return (
@@ -196,7 +220,7 @@ class LSTM(nn.Module):
     def forward(self, x: torch.Tensor, mode: str = "run",
                 start_layer: int = 0):
         """mode="run": layers ``start_layer..num_layers-1`` over x [B, T, I]
-        -> [B, T, 2H]. mode="streams": :meth:`streams` of ``start_layer``
+        -> [B, T, D*H]. mode="streams": :meth:`streams` of ``start_layer``
         (the JAX layer's mode of the same name)."""
         if mode == "streams":
             return self.streams(x, start_layer)
@@ -204,8 +228,19 @@ class LSTM(nn.Module):
             raise ValueError(f"unknown LSTM mode {mode!r}")
         x = x.transpose(0, 1)  # the whole stack runs time-major
         t_len, batch = x.shape[:2]
+        # the merged kernels under autograd include the gradient kernel,
+        # whose batch limit is lower
+        grad = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        merged = self.bidirectional and bilstm.merged_bidir_fits(
+            t_len, batch, self.hidden_size, grad=grad)
         for layer in range(start_layer, self.num_layers):
-            sfx_f, sfx_b = f"l{layer}", f"l{layer}_reverse"
+            if not merged:
+                # one direction a launch (the JAX layer's layers.py:405-425)
+                x = torch.cat([self._direction(x, sfx)
+                               for sfx in self._suffixes(layer)], dim=-1)
+                continue
+            sfx_f, sfx_b = self._suffixes(layer)
             wi_f, b_f = self._input_weights(sfx_f)
             wi_b, b_b = self._input_weights(sfx_b)
             w_f, w_b = self._w_hh(sfx_f), self._w_hh(sfx_b)

@@ -59,10 +59,11 @@ def _target(source: Path) -> Path:
 
 
 def source_constant(stem: str, name: str) -> int:
-    """The value ``N`` of the line ``constexpr int <name> = N;`` in
-    ``csrc/<stem>.cu``."""
+    """The value ``N`` of the line ``constexpr int <name> = N;`` (a
+    trailing ``//`` comment allowed) in ``csrc/<stem>.cu``."""
     text = (CSRC / f"{stem}.cu").read_text()
-    match = re.search(rf"^constexpr int {name} = (\d+);$", text, re.M)
+    match = re.search(rf"^constexpr int {name} = (\d+);(\s*//.*)?$", text,
+                      re.M)
     if match is None:
         raise RuntimeError(f"csrc/{stem}.cu states no {name}")
     return int(match.group(1))

@@ -53,6 +53,13 @@ MAX_HIDDEN = 512
 PROJ_FUSION = "off"
 # the largest batch the fused kernels take, as their source states it
 MAX_FUSED_BATCH = _build.source_constant("bilstm_infer", "kMaxFusedBatch")
+# the unfused kernels' shared-memory plans, as their sources state them
+_INFER_UNITS = _build.source_constant("bilstm_infer", "kMaxUnits")
+_INFER_SMEM_FLOATS = _build.source_constant("bilstm_infer",
+                                            "kUnfusedSmemFloats")
+_BWD_UNITS = _build.source_constant("bilstm_bwd", "kMaxUnits")
+_BWD_VALS = _build.source_constant("bilstm_bwd", "kVals")
+_BWD_SMEM_FLOATS = _build.source_constant("bilstm_bwd", "kBwdSmemFloats")
 
 
 def lstm_direction_forward_reference(xp, w, reverse: bool):
@@ -142,6 +149,44 @@ def bilstm_sequence_fused_reference(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
     """The plain version of the lean fused kernel: ``(h_f, h_b)``."""
     return bilstm_fused_forward_reference(x, wi_f, wi_b, b_f, b_b, w_f,
                                           w_b)[:2]
+
+
+def merged_max_batch(h: int, grad: bool = False) -> int:
+    """The largest batch the merged kernels a layer of width ``h`` runs
+    can take: ``bilstm_infer`` (5052 rows at H=512, 5115 at H=8), and
+    under autograd also ``bilstm_fwd`` (the same plan) and ``bilstm_bwd``
+    (4856 at H=512). Each kernel holds its cell state (the gradient's dc
+    carry), [units][B] with units = min(H, 8), and one batch row of its
+    staging in the shared memory its source states."""
+    units = min(h, _INFER_UNITS)
+    limit = (_INFER_SMEM_FLOATS - h - 4 * units) // units
+    if grad:
+        units = min(h, _BWD_UNITS)
+        limit = min(limit,
+                    (_BWD_SMEM_FLOATS - 4 * h - _BWD_VALS * units) // units)
+    return limit
+
+
+def merged_bidir_fits(t: int, b: int, h: int, grad: bool = False) -> bool:
+    """Can the merged kernels run a BiLSTM layer of this shape? True
+    exactly where every merged kernel the layer runs takes the batch
+    (:func:`merged_max_batch`; ``grad``: the layer runs under autograd);
+    any T. Where it is false, ``models.layers.LSTM`` runs each direction
+    through ``ops.lstm.lstm_sequence``, whose kernels take larger batches.
+
+    JAX's function of the same name (pallas_lstm.py:679-690) is a TPU
+    budget: Mosaic's VMEM for the resident W_hh of both directions and
+    the double-buffered blocks of a fold of steps, which refuses B above
+    about 950 at H=512. It is not carried over: the CUDA kernels hold up
+    to 5052 rows at H=512 in one launch, and JAX's threshold would move
+    the mel decoder of a conversion of about 137 to 721 pairs (7 rows a
+    pair) off that launch onto two serial single-direction ones, which
+    the H100 runs 2.2x slower at 1024 rows (PERF.md). So the two plans
+    differ between about 950 and 5052 rows at H=512. The numerics do not
+    depend on the route: both compute the same sums, and agree to float32
+    rounding."""
+    return t >= 1 and 1 <= h <= MAX_HIDDEN and (
+        1 <= b <= merged_max_batch(h, grad))
 
 
 def fused_proj_plan(t: int, b: int, h: int, i: int, dtype) -> bool:

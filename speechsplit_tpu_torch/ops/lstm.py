@@ -1,0 +1,218 @@
+"""One direction of an LSTM layer in one kernel launch.
+
+Counterpart of ``speechsplit_tpu/ops/pallas_lstm.py::lstm_sequence`` and
+its custom VJP (pallas_lstm.py:487-567): the lean forward ``_infer``, the
+residual-saving forward ``_fwd`` and the gradient recurrence ``_bwd_call``.
+The port's ``LSTM`` runs it for a unidirectional layer, and for each
+direction of a bidirectional layer whose batch the merged kernels of
+``ops.bilstm`` cannot hold (``bilstm.merged_bidir_fits``): a
+single-direction launch has the card to itself and takes larger batches
+(``MAX_BATCH`` rows, which the kernel source states).
+
+Layout contract: ``xp`` [T, B, 4H] is the projected input
+``x W_ih^T + b_ih + b_hh`` in real time order; ``w`` [4H, H] is torch's
+``weight_hh_l{k}``; ``reverse`` runs the recurrence T-1 -> 0 over inputs
+and outputs kept in real time order. Returns ``h`` [T, B, H] in real time
+order.
+
+Dispatch of :func:`lstm_sequence`, as ``bilstm.bilstm_sequence``'s: when
+autograd is recording and an input requires grad, :class:`LSTMFunction`
+runs the residual-saving forward and, in its backward, the gradient
+recurrence, then ``dW_hh`` as one matmul outside the kernel (as
+``_vjp_bwd`` does); otherwise the lean forward runs. On CUDA tensors each
+launches its kernel (``csrc/lstm_infer.cu``, ``csrc/lstm_bwd.cu``) or
+raises; on CPU tensors each runs its plain version, the per-direction
+loops of ``ops.bilstm``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from speechsplit_tpu_torch.ops import _build
+from speechsplit_tpu_torch.ops.bilstm import (
+    MAX_HIDDEN,
+    _device,
+    _recording,
+    _stream,
+    lstm_direction_backward_reference,
+    lstm_direction_forward_reference,
+)
+
+# kernel launches since the last reset, per kernel; the main path's proof
+# that it ran
+LAUNCHES = {"lstm_infer": 0, "lstm_fwd": 0, "lstm_bwd": 0}
+
+# the largest batch each kernel takes, as its source states it
+MAX_BATCH = _build.source_constant("lstm_infer", "kMaxBatch")
+MAX_BWD_BATCH = _build.source_constant("lstm_bwd", "kMaxBatch")
+
+
+def lstm_sequence_reference(xp, w, reverse: bool):
+    """The plain PyTorch version of the lean kernel: ``h`` (any
+    device; differentiable by autograd)."""
+    return lstm_direction_forward_reference(xp, w, reverse)[0]
+
+
+def _check(xp, w, what: str, max_batch: int) -> None:
+    if xp.dtype != torch.float32 or w.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{what} runs float32 only; bfloat16 compute is queued in "
+            "ROADMAP.md"
+        )
+    if not (xp.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{what} needs contiguous tensors")
+    if xp.dim() != 3 or xp.shape[-1] % 4:
+        raise ValueError(f"xp must be [T, B, 4H], got {tuple(xp.shape)}")
+    t_len, batch, four_h = xp.shape
+    hidden = four_h // 4
+    if tuple(w.shape) != (four_h, hidden):
+        raise ValueError(
+            f"w must be [4H, H] = [{four_h}, {hidden}], got {tuple(w.shape)}"
+        )
+    if not (t_len >= 1 and 1 <= hidden <= MAX_HIDDEN
+            and 1 <= batch <= max_batch):
+        raise ValueError(
+            f"{what} takes H <= {MAX_HIDDEN} and B <= {max_batch} (the "
+            f"kernel's batch limit), got T={t_len} B={batch} H={hidden}"
+        )
+
+
+def _check_residuals(dh, g, c) -> None:
+    """The gradient kernel's residual inputs beside ``g`` [T, B, 4H]."""
+    shape = tuple(g.shape)
+    hshape = shape[:2] + (shape[2] // 4,)
+    for name, x in (("dh", dh), ("c", c)):
+        if x.dtype != torch.float32:
+            raise NotImplementedError(
+                f"lstm_bwd takes float32 {name}; bfloat16 residuals are "
+                "queued in ROADMAP.md"
+            )
+        if not x.is_contiguous() or tuple(x.shape) != hshape:
+            raise ValueError(
+                f"{name} must be a contiguous {hshape}, got {tuple(x.shape)}"
+            )
+
+
+def _library():
+    lib = _build.load("lstm_infer")
+    lib.lstm_infer_launch.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.lstm_infer_launch.restype = ctypes.c_int
+    lib.lstm_fwd_launch.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.lstm_fwd_launch.restype = ctypes.c_int
+    lib.lstm_error_string.argtypes = [ctypes.c_int]
+    lib.lstm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _bwd_library():
+    lib = _build.load("lstm_bwd")
+    lib.lstm_bwd_launch.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.lstm_bwd_launch.restype = ctypes.c_int
+    lib.lstm_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.lstm_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def lstm_infer_cuda(xp, w, reverse: bool):
+    """Launch the lean forward of ``csrc/lstm_infer.cu``: ``h``."""
+    _check(xp, w, "lstm_infer", MAX_BATCH)
+    t_len, batch, four_h = xp.shape
+    h = xp.new_empty(t_len, batch, four_h // 4)
+    lib = _library()
+    err = lib.lstm_infer_launch(
+        xp.data_ptr(), w.data_ptr(), h.data_ptr(), t_len, batch, four_h // 4,
+        int(reverse), xp.device.index or 0, _stream(xp),
+    )
+    _build.check(err, "lstm_infer", lib.lstm_error_string)
+    LAUNCHES["lstm_infer"] += 1
+    return h
+
+
+def lstm_forward_cuda(xp, w, reverse: bool):
+    """Launch the residual-saving forward of ``csrc/lstm_infer.cu``:
+    ``(h, g, c)``."""
+    _check(xp, w, "lstm_fwd", MAX_BATCH)
+    t_len, batch, four_h = xp.shape
+    h = xp.new_empty(t_len, batch, four_h // 4)
+    c = torch.empty_like(h)
+    g = torch.empty_like(xp)
+    lib = _library()
+    err = lib.lstm_fwd_launch(
+        xp.data_ptr(), w.data_ptr(), h.data_ptr(), g.data_ptr(), c.data_ptr(),
+        t_len, batch, four_h // 4, int(reverse), xp.device.index or 0,
+        _stream(xp),
+    )
+    _build.check(err, "lstm_fwd", lib.lstm_error_string)
+    LAUNCHES["lstm_fwd"] += 1
+    return h, g, c
+
+
+def lstm_backward_cuda(dh, g, c, w, reverse: bool):
+    """Launch ``csrc/lstm_bwd.cu``: ``dx`` [T, B, 4H]."""
+    _check(g, w, "lstm_bwd", MAX_BWD_BATCH)
+    _check_residuals(dh, g, c)
+    t_len, batch, four_h = g.shape
+    dx = torch.empty_like(g)
+    lib = _bwd_library()
+    err = lib.lstm_bwd_launch(
+        dh.data_ptr(), g.data_ptr(), c.data_ptr(), w.data_ptr(),
+        dx.data_ptr(), t_len, batch, four_h // 4, int(reverse),
+        g.device.index or 0, _stream(g),
+    )
+    _build.check(err, "lstm_bwd", lib.lstm_bwd_error_string)
+    LAUNCHES["lstm_bwd"] += 1
+    return dx
+
+
+def dw_hh(h, dx, reverse: bool):
+    """dW_hh [4H, H] as one matmul: the sum over t, b of dx[t] h_prev[t]^T
+    with the processing predecessor h[t-1] (forward) or h[t+1] (reverse),
+    over contiguous slices (``_vjp_bwd``, pallas_lstm.py:554-560)."""
+    h_prev, d = (h[1:], dx[:-1]) if reverse else (h[:-1], dx[1:])
+    return d.flatten(0, 1).t() @ h_prev.flatten(0, 1)
+
+
+class LSTMFunction(torch.autograd.Function):
+    """``lstm_sequence`` under autograd: the residual-saving forward, and
+    the gradient recurrence plus ``dW_hh`` in the backward. CUDA tensors
+    launch the kernels; CPU tensors run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, xp, w, reverse):
+        if xp.is_cuda:
+            # the backward's kernel must hold the batch too
+            _check(xp, w, "lstm_sequence under autograd", MAX_BWD_BATCH)
+            h, g, c = lstm_forward_cuda(xp, w, reverse)
+        else:
+            h, g, c = lstm_direction_forward_reference(xp, w, reverse)
+        ctx.reverse = reverse
+        ctx.save_for_backward(h, g, c, w)
+        return h
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dh):
+        h, g, c, w = ctx.saved_tensors
+        dh = dh.contiguous()
+        if g.is_cuda:
+            dx = lstm_backward_cuda(dh, g, c, w, ctx.reverse)
+        else:
+            dx = lstm_direction_backward_reference(dh, g, c, w, ctx.reverse)
+        return dx, dw_hh(h, dx, ctx.reverse), None
+
+
+def lstm_sequence(xp, w, reverse: bool = False):
+    """One LSTM direction over ``xp``; see the module docstring."""
+    _device("lstm_sequence", (xp, w))
+    if _recording((xp, w)):
+        return LSTMFunction.apply(xp, w, reverse)
+    if xp.is_cuda:
+        return lstm_infer_cuda(xp, w, reverse)
+    return lstm_sequence_reference(xp, w, reverse)

@@ -1,0 +1,265 @@
+"""The port's single-direction LSTM op (``ops.lstm``, plain versions on
+the CPU) against the JAX package's ``pallas_lstm.lstm_sequence`` kernels
+run in interpret mode, its ``autograd.Function`` against ``jax.vjp``, the
+port's ``LSTM(bidirectional=False)`` against JAX's and torch's, and the
+route switch's batch limits against the kernel sources."""
+
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from speechsplit_tpu.models import layers as jl
+from speechsplit_tpu.ops import pallas_lstm
+from speechsplit_tpu_torch.interop import lstm_params_to_state_dict
+from speechsplit_tpu_torch.models import layers as tl
+from speechsplit_tpu_torch.ops import _build, bilstm, lstm
+from tests.test_torch_imports import _port_files
+
+T = 12
+B = 8  # pallas_lstm.supported() takes the Pallas path from B = 8
+KERNEL_ATOL = 1e-5
+LAYER_ATOL = 2e-5
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode(monkeypatch):
+    monkeypatch.setattr(pallas_lstm, "FORCE_INTERPRET", True)
+    monkeypatch.setattr(pallas_lstm, "RESIDUAL_DTYPE", jnp.float32)
+
+
+def _inputs(h, seed, t=T, b=B):
+    rng = np.random.RandomState(seed)
+    xp = rng.randn(t, b, 4 * h).astype(np.float32)
+    # JAX's w_hh is [H, 4H]; the port takes torch's [4H, H]
+    w = (rng.randn(h, 4 * h) / np.sqrt(h)).astype(np.float32)
+    dh = rng.randn(t, b, h).astype(np.float32)
+    return xp, w, dh
+
+
+def _torch(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _close(got, want, atol=KERNEL_ATOL):
+    want = np.asarray(want)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=atol)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("h", [1, 8, 32])
+def test_plain_versions_match_pallas_interpret(h, reverse):
+    """Lean forward against ``_infer``, residual-saving forward against
+    ``_fwd`` (h, gates, c) and the gradient recurrence against
+    ``_bwd_call`` on ``_fwd``'s residuals."""
+    xp, w, dh = _inputs(h, 10 * h + reverse)
+    want_h = pallas_lstm._infer(jnp.asarray(xp), jnp.asarray(w),
+                                reverse=reverse)
+    got_h = lstm.lstm_sequence(_torch(xp), _torch(w.T), reverse)
+    _close(got_h, want_h)
+
+    want = pallas_lstm._fwd(jnp.asarray(xp), jnp.asarray(w),
+                            residual_dtype=jnp.float32, reverse=reverse)
+    got = lstm.lstm_direction_forward_reference(_torch(xp), _torch(w.T),
+                                                reverse)
+    for g, r in zip(got, want):
+        _close(g, r)
+
+    want_dx = pallas_lstm._bwd_call(jnp.asarray(dh), want[1], want[2],
+                                    jnp.asarray(w), reverse=reverse)
+    got_dx = lstm.lstm_direction_backward_reference(
+        _torch(dh), _torch(np.asarray(want[1])), _torch(np.asarray(want[2])),
+        _torch(w.T), reverse)
+    _close(got_dx, want_dx)
+    assert not any(lstm.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("h", [8, 32])
+def test_function_grads_match_jax_vjp(h, reverse):
+    xp, w, dh = _inputs(h, 100 + 10 * h + reverse)
+
+    def jax_op(x, wh):
+        return pallas_lstm.lstm_sequence(x, wh, jnp.float32, reverse)
+
+    want_h, vjp = jax.vjp(jax_op, jnp.asarray(xp), jnp.asarray(w))
+    want_dxp, want_dw = vjp(jnp.asarray(dh))
+
+    xp_t = _torch(xp).requires_grad_(True)
+    w_t = _torch(w.T.copy()).requires_grad_(True)
+    got_h = lstm.lstm_sequence(xp_t, w_t, reverse)
+    assert type(got_h.grad_fn).__name__ == "LSTMFunctionBackward"
+    got_dxp, got_dw = torch.autograd.grad(got_h, (xp_t, w_t), _torch(dh))
+    _close(got_h, want_h)
+    _close(got_dxp, want_dxp)
+    _close(got_dw.T, want_dw)
+    assert not any(lstm.LAUNCHES.values())
+
+
+def test_cpu_dispatch_takes_the_plain_version():
+    xp, w, _ = _inputs(8, 3)
+    with torch.no_grad():
+        got = lstm.lstm_sequence(_torch(xp), _torch(w.T), True)
+    assert got.grad_fn is None
+    want = lstm.lstm_sequence_reference(_torch(xp), _torch(w.T), True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not any(lstm.LAUNCHES.values())
+
+
+def test_reverse_direction_runs_backwards_in_time():
+    """h at the last time index of a reverse direction sees only xp[T-1]."""
+    xp, w, _ = _inputs(8, 4)
+    h = lstm.lstm_sequence(_torch(xp), _torch(w.T), True)
+    h_last = lstm.lstm_sequence(_torch(xp[-1:]), _torch(w.T), True)
+    torch.testing.assert_close(h[-1], h_last[0])
+
+
+def _uni_pair(in_features, hidden, layers, seed):
+    x = np.random.RandomState(seed).randn(B, T, in_features).astype(
+        np.float32)
+    mod = jl.LSTM(hidden, num_layers=layers, bidirectional=False)
+    params = mod.init(jax.random.PRNGKey(seed), x)["params"]
+    ours = tl.LSTM(in_features, hidden, layers, torch.Generator(),
+                   bidirectional=False)
+    ours.load_state_dict(lstm_params_to_state_dict(params), strict=True)
+    return x, mod, params, ours
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_unidirectional_lstm_matches_jax_and_torch(layers):
+    x, mod, params, ours = _uni_pair(12, 16, layers, layers)
+    want = mod.apply({"params": params}, x)
+    with torch.no_grad():
+        got = ours(_torch(x))
+    _close(got, want, atol=LAYER_ATOL)
+    # torch.nn.LSTM declares the same parameters under the same names
+    ref = torch.nn.LSTM(12, 16, layers, batch_first=True)
+    ref.load_state_dict(ours.state_dict(), strict=True)
+    with torch.no_grad():
+        torch.testing.assert_close(got, ref(_torch(x))[0], rtol=0,
+                                   atol=LAYER_ATOL)
+    assert not any(lstm.LAUNCHES.values())
+
+
+def test_unidirectional_lstm_declares_torch_names_only():
+    ours = tl.LSTM(5, 4, 2, torch.Generator(), bidirectional=False)
+    ref = torch.nn.LSTM(5, 4, 2)
+    assert {k: tuple(v.shape) for k, v in ours.state_dict().items()} == {
+        k: tuple(v.shape) for k, v in ref.state_dict().items()}
+    with pytest.raises(ValueError, match="BiLSTM"):
+        ours(torch.zeros(2, 3, 5), mode="streams")
+
+
+def test_unidirectional_lstm_grads_match_torch():
+    """Autograd through the port's layer (LSTMFunction, then dW_hh as one
+    matmul) against torch.nn.LSTM's own backward."""
+    x, _, _, ours = _uni_pair(6, 8, 2, 5)
+    ref = torch.nn.LSTM(6, 8, 2, batch_first=True)
+    ref.load_state_dict(ours.state_dict(), strict=True)
+    xt = _torch(x).requires_grad_(True)
+    xr = _torch(x).requires_grad_(True)
+    ours(xt).square().sum().backward()
+    ref(xr)[0].square().sum().backward()
+    torch.testing.assert_close(xt.grad, xr.grad, rtol=0, atol=1e-5)
+    theirs = dict(ref.named_parameters())
+    for name, p in ours.named_parameters():
+        torch.testing.assert_close(p.grad, theirs[name].grad, rtol=0,
+                                   atol=1e-5)
+
+
+def test_bidirectional_route_follows_merged_bidir_fits(monkeypatch):
+    """A BiLSTM layer asks merged_bidir_fits with ``grad`` set as the
+    layer will record, and where it is false runs one ``lstm_sequence``
+    per direction with the same result as the merged route."""
+    ours = tl.LSTM(6, 8, 2, torch.Generator().manual_seed(1))
+    x = torch.from_numpy(np.random.RandomState(6).randn(3, 9, 6).astype(
+        np.float32))
+    asked = []
+    calls = []
+    real_fits, real_seq = bilstm.merged_bidir_fits, lstm.lstm_sequence
+
+    def fits(t, b, h, grad=False):
+        asked.append((t, b, h, grad))
+        return False
+
+    def seq(xp, w, reverse=False):
+        calls.append(reverse)
+        return real_seq(xp, w, reverse)
+
+    with torch.no_grad():
+        want = ours(x)
+    monkeypatch.setattr(bilstm, "merged_bidir_fits", fits)
+    monkeypatch.setattr(lstm, "lstm_sequence", seq)
+    with torch.no_grad():
+        got = ours(x)
+    ours(x)
+    assert asked == [(9, 3, 8, False), (9, 3, 8, True)]
+    assert calls == [False, True] * 4
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert real_fits(9, 3, 8)
+
+
+def _budget_floats(stem):
+    """The ``kSmemBudget`` of a kernel source, in floats."""
+    text = (_build.CSRC / f"{stem}.cu").read_text()
+    a, b = re.search(r"kSmemBudget = (\d+) \* (\d+);", text).groups()
+    return int(a) * int(b) // 4
+
+
+@pytest.mark.parametrize("h,infer,grad", [(512, 5052, 4856),
+                                          (256, 5084, 4984),
+                                          (8, 5115, 5108)])
+def test_merged_bidir_fits_at_the_kernel_limits(h, infer, grad):
+    """The merged kernels' launch plans (csrc/bilstm_infer.cu: cell state
+    [units][B] beside a row of H + 4 units floats; csrc/bilstm_bwd.cu: a
+    row of 4H + 8 units) on the budgets their sources state."""
+    units = min(h, 8)
+    assert infer == (_budget_floats("bilstm_infer") - h - 4 * units) // units
+    assert grad == (_budget_floats("bilstm_bwd") - 4 * h - 8 * units) // units
+    assert bilstm.merged_max_batch(h) == infer
+    assert bilstm.merged_max_batch(h, grad=True) == grad
+    assert bilstm.merged_bidir_fits(192, infer, h)
+    assert not bilstm.merged_bidir_fits(192, infer + 1, h)
+    assert bilstm.merged_bidir_fits(192, grad, h, grad=True)
+    assert not bilstm.merged_bidir_fits(192, grad + 1, h, grad=True)
+    assert not bilstm.merged_bidir_fits(192, 8, 513)
+
+
+@pytest.mark.parametrize("stem,row_floats,limit", [
+    ("lstm_infer", 512 + 4 * 4, lstm.MAX_BATCH),
+    ("lstm_bwd", 4 * 512 + 8 * 4, lstm.MAX_BWD_BATCH)])
+def test_single_direction_limits_hold_twice_the_merged(stem, row_floats,
+                                                       limit):
+    """At H=512 the plan gives 4 units a block; the limit is the largest
+    batch whose cell state fits beside one row, and at least twice the
+    merged lean kernel's."""
+    budget = _budget_floats(stem)
+    assert 4 * limit + row_floats <= budget < 4 * (limit + 1) + row_floats
+    assert limit >= 2 * bilstm.merged_max_batch(512)
+    xp = torch.zeros(1, limit + 1, 4)
+    with pytest.raises(ValueError, match=f"B <= {limit}"):
+        lstm._check(xp, torch.zeros(4, 1), stem, limit)
+    lstm._check(xp[:, :limit].contiguous(), torch.zeros(4, 1), stem, limit)
+
+
+def test_wrapper_checks():
+    xp = torch.zeros(4, 2, 32)
+    with pytest.raises(ValueError, match=r"\[4H, H\]"):
+        lstm._check(xp, torch.zeros(8, 32), "lstm_infer", lstm.MAX_BATCH)
+    with pytest.raises(ValueError, match="H <="):
+        lstm._check(torch.zeros(1, 1, 4 * 513), torch.zeros(4 * 513, 513),
+                    "lstm_infer", lstm.MAX_BATCH)
+    with pytest.raises(NotImplementedError, match="float32"):
+        lstm._check(xp.bfloat16(), torch.zeros(32, 8).bfloat16(),
+                    "lstm_infer", lstm.MAX_BATCH)
+    g = torch.zeros(4, 2, 32)
+    with pytest.raises(ValueError, match="dh"):
+        lstm._check_residuals(torch.zeros(4, 2, 7), g, torch.zeros(4, 2, 8))
+
+
+def test_import_scan_covers_the_new_op():
+    assert "lstm.py" in {p.name for p in _port_files()}
