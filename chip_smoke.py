@@ -55,15 +55,19 @@ Phases, one line each; any failure exits non-zero:
     ``lstm_bwd`` against their plain versions in both directions at the
     shapes phases 13 and 14 give them, timed beside their bounds, the
     plain versions, a cuDNN unidirectional LSTM and the merged kernels;
-    the merged ``bilstm_infer`` beside two ``lstm_infer`` launches at
-    batches up to the largest it holds; edges (T=1, B=1, each kernel's
-    own batch limit, which its source states, and one row more, which
-    raises); every edge also against a float64 run of the plain loop;
-    ``LSTMFunction`` on CUDA against autograd through the plain loop;
+    ``lstm_infer`` also against a float64 run, and over widths 8-512 at
+    phase 13's batch in each of its plans (the sweep that sets its plan
+    border); the merged ``bilstm_infer`` beside two
+    ``lstm_infer`` launches at batches from 28 to the largest it holds;
+    edges (T=1, B=1, ragged row tiles, odd widths, the plan border, the
+    training kernels' batch limits, which their sources state, and one
+    row more, which raises, and ``lstm_infer`` at 16384 rows); every edge
+    also against a float64 run of the plain loop; ``LSTMFunction`` on
+    CUDA against autograd through the plain loop;
 13. ``convert_batched`` at the fewest pairs (731) whose 7 rows a pair the
     merged kernels refuse for the mel decoder and content layer 1:
     exact launch counts (no merged launch on those layers), against the
-    plain call, and timed;
+    plain call, timed, and one call under ``torch.profiler``;
 14. both train steps with ``merged_bidir_fits`` forced false, so every
     merged layer takes the single-direction route (a real step at a
     batch the merged kernels refuse needs more memory than the card
@@ -81,14 +85,16 @@ compares the default (unfused) path of this checkout with that of the
 checkout in DIR (for example the parent commit, unpacked with ``git
 archive``): the registers, spills and a hash of the machine code nvcc
 gives each kernel of the merged BiLSTM sources (``bilstm_infer.cu``,
-``bilstm_bwd.cu``) in either tree; then ``convert_batched`` at phase
-13's pair count in a process of either tree, reporting whether it
-completed or raised; then N rounds of
-DIR, this, this, DIR, each a process of its own that builds its tree's
-kernels and times, through that tree's own phase functions,
-``bilstm_infer``, ``bilstm_fwd`` and ``bilstm_bwd`` at the train and
-conversion shapes and both default train steps. It prints one line per
-process and the medians of each tree side by side.
+``bilstm_bwd.cu``) and the single-direction ones (``lstm_infer.cu``,
+``lstm_bwd.cu``) in either tree; then ``convert_batched`` at phase 13's
+pair count in a process of either tree, reporting whether it completed
+or raised; then N rounds of DIR, this, this, DIR, each a process of its
+own that builds its tree's kernels and times, through that tree's own
+phase functions, ``bilstm_infer``, ``bilstm_fwd`` and ``bilstm_bwd`` at
+the train and conversion shapes, ``lstm_infer`` at phase 13's two
+shapes and both directions of it at H=512 over batches 28-224, and both
+default train steps. It prints one line per process
+and the medians of each tree side by side.
 """
 
 from __future__ import annotations
@@ -1370,22 +1376,44 @@ def cudnn_lstm_yardstick(xp, w):
     return yard
 
 
+def lean_reference64(xp, w, reverse: bool):
+    """The lean forward's plain loop in float64, converting one step of
+    xp at a time (no float64 copy of [T, B, 4H], no stacked gates)."""
+    import torch
+
+    t_len, batch, four_h = xp.shape
+    w64 = w.detach().double()
+    h = torch.zeros(batch, four_h // 4, dtype=torch.float64, device=xp.device)
+    c = torch.zeros_like(h)
+    out = h.new_empty(t_len, batch, four_h // 4)
+    for t in range(t_len - 1, -1, -1) if reverse else range(t_len):
+        i, f, g, o = (xp[t].detach().double() + h @ w64.t()).chunk(4, -1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        out[t] = h
+    return out
+
+
 def check_lstm_infer(b: int, h: int, reps: int) -> dict:
-    """``lstm_infer`` against its plain version in both directions at one
-    main-path shape, timed beside its bound, the plain version and a cuDNN
-    unidirectional LSTM (the forward direction)."""
+    """``lstm_infer`` against its plain version and a float64 run of the
+    plain loop in both directions at one main-path shape, timed beside its
+    bound, the plain version and a cuDNN unidirectional LSTM (the forward
+    direction)."""
     import torch
 
     from speechsplit_tpu_torch.ops import lstm
 
     xp, w, _ = lstm_inputs(T, b, h, SEED + 17 * h + b)
-    err, ms = 0.0, {}
+    err, err64, plain64, ms = 0.0, 0.0, 0.0, {}
     for reverse in (False, True):
         got = lstm.lstm_infer_cuda(xp, w, reverse)
         want = lstm.lstm_sequence_reference(xp, w, reverse)
+        want64 = lean_reference64(xp, w, reverse)
         torch.cuda.synchronize()
-        err = max(err, float((got - want).abs().max()))
-        del got, want
+        err = max(err, abs_err([got], [want]))
+        err64 = max(err64, abs_err([got.double()], [want64]))
+        plain64 = max(plain64, abs_err([want.double()], [want64]))
+        del got, want, want64
         ms[reverse] = time_ms(lambda: lstm.lstm_infer_cuda(xp, w, reverse),
                               reps, warmup=1)
     plain_ms = time_ms(lambda: lstm.lstm_sequence_reference(xp, w, False), 1,
@@ -1398,13 +1426,53 @@ def check_lstm_infer(b: int, h: int, reps: int) -> dict:
     del yard
     bound_ms, bound_by = lstm_bound(T, b, [h])
     row = dict(shape=f"T{T}xB{b}xH{h}", max_abs_err=err, tol=KERNEL_TOL,
+               max_abs_err_vs_float64=err64, plain_vs_float64=plain64,
                ms=ms[False], reverse_ms=ms[True], plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-               library_err=lib_err)
-    log("kernel lstm_infer", **fmt(row))
-    if not err <= KERNEL_TOL:
-        fail(f"lstm_infer {row['shape']}: max abs err {err} > {KERNEL_TOL}")
+               library_err=lib_err,
+               plan="narrow" if h <= lstm.NARROW_MAX_H else "wide")
+    log("kernel lstm_infer", **fmt(row),
+        faster_than_plain_and_library=max(ms.values()) < min(plain_ms,
+                                                              library_ms))
+    if not max(err, err64) <= KERNEL_TOL:
+        fail(f"lstm_infer {row['shape']}: max abs err {err} (float64: "
+             f"{err64}) > {KERNEL_TOL}")
     return row
+
+
+# the lean kernel's width sweep (phase 12), at phase 13's batch
+LSTM_SWEEP_WIDTHS = (8, 32, 64, 128, 256, 512)
+
+
+def check_lstm_plans(big: int, reps: int) -> list:
+    """``lstm_infer`` in each plan where it runs, against the plain version
+    (forward direction) and timed beside the bound, at batch ``big`` over
+    ``LSTM_SWEEP_WIDTHS``: the narrow plan up to the source's border
+    (``kNarrowMaxH``, the widest it holds), the wide plan at every width.
+    The border is read off this sweep."""
+    from speechsplit_tpu_torch.ops import lstm
+
+    rows = []
+    for h in LSTM_SWEEP_WIDTHS:
+        xp, w, _ = lstm_inputs(T, big, h, SEED + 29 * h + big)
+        want = lstm.lstm_sequence_reference(xp, w, False)
+        plans = ("narrow", "wide") if h <= lstm.NARROW_MAX_H else ("wide",)
+        row = dict(shape=f"T{T}xB{big}xH{h}", auto=plans[0])
+        err = 0.0
+        for plan in plans:
+            def run():
+                return lstm._lstm_infer_plan(xp, w, False, plan)
+
+            err = max(err, abs_err([run()], [want]))
+            row[f"{plan}_ms"] = time_ms(run, reps, warmup=1)
+        row.update(max_abs_err=err, tol=KERNEL_TOL)
+        row["bound_ms"], row["bound_by"] = lstm_bound(T, big, [h])
+        log("kernel lstm_infer plans", **fmt(row))
+        if not err <= KERNEL_TOL:
+            fail(f"lstm_infer plans {row['shape']}: max abs err {err}")
+        rows.append(row)
+        del xp, w, want
+    return rows
 
 
 def check_merged_vs_single(h: int, batches, reps: int) -> list:
@@ -1509,24 +1577,34 @@ def check_lstm_train(b: int, h: int, reps: int) -> dict:
 
 def check_lstm_edges() -> None:
     """The three kernels' other code paths against their plain versions,
-    both directions, on short sequences: T=1, B=1, batch-tiled staging
-    (B=300 at H=512), widths not a multiple of 4 or 32 or of the plan's
-    units a block (H=1, 3, 100, 257), and each kernel's own batch limit,
-    which its source states; one more row raises in the wrapper and is
-    refused by the kernel itself. Both the kernel and the plain version
-    are also held against a float64 run of the plain loop on the same
-    inputs (the gradient on the same float32 residuals), which shows how
-    much of their difference each one's float32 rounding makes."""
+    both directions, on short sequences: T=1, B=1, batches that are not a
+    multiple of the lean kernel's row tiles (B=300 at H=512, 77 at H=8)
+    and fill the training kernels' batch-tiled staging, widths not a
+    multiple of 4 or 32 or of a plan's units (H=1, 3, 100, 257), the lean
+    kernel's plan border (``kNarrowMaxH``) and one above it, the training
+    kernels' own batch limits, which their sources state (one more row
+    raises in the wrapper and is refused by the kernel itself), and the
+    lean kernel past them (B=16384, which only it takes). Both the kernel
+    and the plain version are also held against a float64 run of the
+    plain loop on the same inputs (the gradient on the same float32
+    residuals), which shows how much of their difference each one's
+    float32 rounding makes."""
     import ctypes
 
     import torch
 
     from speechsplit_tpu_torch.ops import lstm
 
-    shapes = ((1, TRAIN_B, 512), (37, 1, 512), (5, 300, 512), (23, 5, 3),
-              (16, 3, 1), (12, 6, 100), (9, 7, 257),
-              (3, lstm.MAX_BWD_BATCH, 512), (3, lstm.MAX_BATCH, 512),
-              (3, lstm.MAX_BATCH, 8))
+    border = lstm.NARROW_MAX_H
+    # every shape runs lstm_infer; lstm_fwd and lstm_bwd where they take
+    # the batch
+    shapes = ((1, TRAIN_B, 512), (1, 5, 8), (37, 1, 512), (13, 1, 8),
+              (5, 300, 512), (7, 77, 8), (23, 5, 3), (16, 3, 1),
+              (12, 6, 100), (9, 7, 257), (11, 33, border),
+              (11, 33, border + 1), (3, lstm.MAX_BWD_BATCH, 512),
+              (3, lstm.MAX_FWD_BATCH, 512), (3, lstm.MAX_FWD_BATCH, 8),
+              (2, 16384, 512), (2, 16384, 8))
+
     def f64(tensors):
         return [x.double() for x in tensors]
 
@@ -1541,9 +1619,10 @@ def check_lstm_edges() -> None:
                 xp.double(), w.double(), reverse)
             got = {"lstm_infer": (
                        [lstm.lstm_infer_cuda(xp, w, reverse)], want[:1],
-                       want64[:1]),
-                   "lstm_fwd": (lstm.lstm_forward_cuda(xp, w, reverse), want,
-                                want64)}
+                       want64[:1])}
+            if b <= lstm.MAX_FWD_BATCH:
+                got["lstm_fwd"] = (lstm.lstm_forward_cuda(xp, w, reverse),
+                                   want, want64)
             if b <= lstm.MAX_BWD_BATCH:
                 res = (dh, want[1], want[2], w)
                 got["lstm_bwd"] = (
@@ -1559,21 +1638,20 @@ def check_lstm_edges() -> None:
                     max(exact[name][0], abs_err(f64(kernel), ref64)),
                     max(exact[name][1], abs_err(f64(plain), ref64)))
             del got, want, want64
-            if not max(errs.values()) <= KERNEL_TOL:
+            if not max(errs.values()) <= KERNEL_TOL or not (
+                    exact["lstm_infer"][0] <= KERNEL_TOL):
                 fail(f"lstm kernels T{t}xB{b}xH{h} reverse={reverse}: max "
-                     f"abs errs {errs}")
+                     f"abs errs {errs}, lstm_infer against float64 "
+                     f"{exact['lstm_infer'][0]}")
             for name, err in errs.items():
                 if err > worst[name][0]:
                     worst[name] = (err, f"T{t}xB{b}xH{h}"
                                         f"{'r' if reverse else 'f'}")
-    # one row past each limit: the wrapper raises, naming the limit, and
-    # the C entry refuses the launch
+    # one row past each training kernel's limit: the wrapper raises,
+    # naming the limit, and the C entry refuses the launch
     lib, bwd_lib = lstm._library(), lstm._bwd_library()
     for name, limit, wrapper, launch, pointers in (
-            ("lstm_infer", lstm.MAX_BATCH,
-             lambda xp, w, dh: lstm.lstm_infer_cuda(xp, w, False),
-             lib.lstm_infer_launch, 3),
-            ("lstm_fwd", lstm.MAX_BATCH,
+            ("lstm_fwd", lstm.MAX_FWD_BATCH,
              lambda xp, w, dh: lstm.lstm_forward_cuda(xp, w, False),
              lib.lstm_fwd_launch, 5),
             ("lstm_bwd", lstm.MAX_BWD_BATCH,
@@ -1597,8 +1675,9 @@ def check_lstm_edges() -> None:
            for name, (err, shape) in worst.items()},
         **{f"{name}_vs_float64": f"{k:.3g}/plain:{p:.3g}"
            for name, (k, p) in exact.items()}, tol=KERNEL_TOL,
-        max_batch=lstm.MAX_BATCH, max_bwd_batch=lstm.MAX_BWD_BATCH,
-        refused_batches=f"{lstm.MAX_BATCH + 1}(infer,fwd),"
+        plan_border=border, max_fwd_batch=lstm.MAX_FWD_BATCH,
+        max_bwd_batch=lstm.MAX_BWD_BATCH,
+        refused_batches=f"{lstm.MAX_FWD_BATCH + 1}(fwd),"
                         f"{lstm.MAX_BWD_BATCH + 1}(bwd)")
 
 
@@ -1666,9 +1745,11 @@ def phase_lstm_kernels(reps: int = 2) -> dict:
                 rows.setdefault(name, row)
         big = len(CONDITIONS) * refused_pairs()
         rows["lstm_infer"] = check_lstm_infer(big, config.dim_dec_mel, reps)
-        check_lstm_infer(big, config.dim_neck, reps)
+        rows["lstm_infer"]["at_content_width"] = check_lstm_infer(
+            big, config.dim_neck, reps)
+        rows["lstm_infer"]["plans"] = check_lstm_plans(big, reps)
         rows["lstm_infer"]["merged_vs_single"] = check_merged_vs_single(
-            config.dim_dec_mel, (28, 224, 1024), reps)
+            config.dim_dec_mel, (28, 56, 112, 224, 512, 1024, 2048), reps)
     gc.collect()
     torch.cuda.empty_cache()
     return rows
@@ -1677,11 +1758,13 @@ def phase_lstm_kernels(reps: int = 2) -> dict:
 def phase_convert_large(reps: int = 3) -> dict:
     """``convert_batched`` at the fewest pairs whose generator batch the
     merged kernels refuse (:func:`refused_pairs`): the launches of one
-    call, the call against the plain call, and the time of a few calls."""
+    call, the call against the plain call, the time of a few calls, and
+    one call under ``torch.profiler``."""
     import gc
 
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from speechsplit_tpu_torch.config import SpeechSplitConfig
     from speechsplit_tpu_torch.convert import CONDITIONS, convert_batched
@@ -1749,7 +1832,16 @@ def phase_convert_large(reps: int = 3) -> dict:
         peak_gb=f"{peak_gb:.2f}", plain_peak_gb=f"{plain_peak_gb:.2f}",
         tf32="off for the comparison and the timing",
         launches=json.dumps(launches).replace(" ", ""))
-    del g_model, p_model, pairs
+    with strict_float32("profile"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3
+    profile_events("profile large", prof, wall_ms, top=14)
+    del g_model, p_model, pairs, prof
     free()
     return launches
 
@@ -1815,11 +1907,17 @@ FUSED_KERNELS = ("bilstm_fused_infer", "bilstm_fused_fwd")
 LSTM_KERNELS = ("lstm_infer", "lstm_fwd", "lstm_bwd")
 
 
-# a kernel entry of the merged sources, by its mangled name: the
-# template and its arguments (bilstm_infer_kernel<KPL, kResid>,
-# bilstm_fused_kernel<KPL, kResid>, bilstm_bwd_kernel<KPL>)
+# the sources whose kernels --against compares: the merged BiLSTM ones
+# and the single-direction ones
+CODEGEN_SOURCES = ("bilstm_infer", "bilstm_bwd", "lstm_infer", "lstm_bwd")
+# a kernel entry of those sources, by its mangled name: the template and
+# its arguments (bilstm_infer_kernel<KPL, kResid>, bilstm_fused_kernel<KPL,
+# kResid>, bilstm_bwd_kernel<KPL>; lstm_infer_kernel<KPL, kResid>, which
+# is lstm_fwd's, lstm_wide_step_kernel<MR, kVec>, lstm_narrow_kernel<L,
+# U>, lstm_bwd_kernel<KPL>)
 KERNEL_ENTRY = re.compile(
-    r"(bilstm_(?:infer|fused|bwd)_kernel)I((?:L[ib]\d+E)+)E")
+    r"((?:bi)?lstm_(?:infer|fused|bwd|wide_step|narrow)_kernel)"
+    r"I((?:L[ib]\d+E)+)E")
 
 
 def _entry(match) -> str:
@@ -1828,15 +1926,14 @@ def _entry(match) -> str:
 
 
 def kernel_codegen(tree: str) -> dict:
-    """What nvcc makes of every kernel of the merged BiLSTM sources in
-    ``tree`` (``csrc/bilstm_infer.cu``, ``csrc/bilstm_bwd.cu``):
+    """What nvcc makes of every kernel of ``CODEGEN_SOURCES`` in ``tree``:
     registers, spill stores and a hash of each one's SASS."""
     from speechsplit_tpu_torch.ops import _build
 
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
                                                        "-fPIC")]
     out = {}
-    for stem in ("bilstm_infer", "bilstm_bwd"):
+    for stem in CODEGEN_SOURCES:
         source = os.path.join(tree, "speechsplit_tpu_torch", "csrc",
                               f"{stem}.cu")
         with tempfile.TemporaryDirectory() as tmp:
@@ -1866,13 +1963,17 @@ def kernel_codegen(tree: str) -> dict:
             head, _, body = part.partition("\n")
             m = KERNEL_ENTRY.search(head)
             if m:
+                # the instruction lines only: cuobjdump pads the listing's
+                # last function with a blank line the others lack
+                code = "\n".join(line.strip() for line in body.splitlines()
+                                 if line.strip().startswith("/*"))
                 out.setdefault(_entry(m), {})["sass_sha256"] = (
-                    hashlib.sha256(body.encode()).hexdigest()[:16])
+                    hashlib.sha256(code.encode()).hexdigest()[:16])
     return out
 
 
 # one process of the comparison: only phase functions and entry points
-# that every tree since the train step was ported has
+# that every tree since the single-direction kernels were ported has
 AB_CHILD = """
 import json, time
 import numpy as np, torch
@@ -1888,7 +1989,19 @@ with c.strict_float32():
     for h in (512, 256, 8):
         for name, row in c.check_bilstm_train(c.TRAIN_B, h, 10).items():
             out[f"{name} B{c.TRAIN_B} H{h} ms"] = row["ms"]
-config = SpeechSplitConfig(residual_dtype="float32", adam_mu_dtype="float32")
+    big = 7 * c.refused_pairs()  # the 731-pair conversion's rows
+    for h in (512, 8):
+        row = c.check_lstm_infer(big, h, 2)
+        out[f"lstm_infer B{big} H{h} ms"] = row["ms"]
+        out[f"lstm_infer B{big} H{h} reverse ms"] = row["reverse_ms"]
+    # both directions at small batches: where the trees' kernels cross
+    from speechsplit_tpu_torch.ops import lstm
+    for b in (28, 56, 84, 112, 224):
+        xp, w, _ = c.lstm_inputs(c.T, b, 512, c.SEED + b)
+        out[f"lstm_infer pair B{b} H512 ms"] = c.time_ms(
+            lambda: (lstm.lstm_infer_cuda(xp, w, False),
+                     lstm.lstm_infer_cuda(xp, w, True)), 5)
+config =SpeechSplitConfig(residual_dtype="float32", adam_mu_dtype="float32")
 batch = c.synthetic_batch(SpeechSplitConfig(), c.SEED)
 for model, make in (("speechsplit", make_train_step),
                     ("f0_converter", make_f0_train_step)):

@@ -5,9 +5,11 @@ its custom VJP (pallas_lstm.py:487-567): the lean forward ``_infer``, the
 residual-saving forward ``_fwd`` and the gradient recurrence ``_bwd_call``.
 The port's ``LSTM`` runs it for a unidirectional layer, and for each
 direction of a bidirectional layer whose batch the merged kernels of
-``ops.bilstm`` cannot hold (``bilstm.merged_bidir_fits``): a
-single-direction launch has the card to itself and takes larger batches
-(``MAX_BATCH`` rows, which the kernel source states).
+``ops.bilstm`` cannot hold (``bilstm.merged_bidir_fits``). The lean
+forward takes any batch: its wide plan (H above ``NARROW_MAX_H``) tiles
+the batch over the grid, its narrow plan gives each row a few lanes. The
+residual-saving forward and the gradient take ``MAX_FWD_BATCH`` and
+``MAX_BWD_BATCH`` rows; the kernel sources state all three constants.
 
 Layout contract: ``xp`` [T, B, 4H] is the projected input
 ``x W_ih^T + b_ih + b_hh`` in real time order; ``w`` [4H, H] is torch's
@@ -46,9 +48,13 @@ from speechsplit_tpu_torch.ops.bilstm import (
 # that it ran
 LAUNCHES = {"lstm_infer": 0, "lstm_fwd": 0, "lstm_bwd": 0}
 
-# the largest batch each kernel takes, as its source states it
-MAX_BATCH = _build.source_constant("lstm_infer", "kMaxBatch")
+# the largest batch the training kernels take, as their sources state it
+MAX_FWD_BATCH = _build.source_constant("lstm_infer", "kMaxBatch")
 MAX_BWD_BATCH = _build.source_constant("lstm_bwd", "kMaxBatch")
+# the lean forward's border: the narrow plan up to this width, then wide
+NARROW_MAX_H = _build.source_constant("lstm_infer", "kNarrowMaxH")
+# lstm_infer_launch's plan argument: by width, or one forced to measure it
+_PLANS = {"auto": 0, "narrow": 1, "wide": 2}
 
 
 def lstm_sequence_reference(xp, w, reverse: bool):
@@ -57,7 +63,9 @@ def lstm_sequence_reference(xp, w, reverse: bool):
     return lstm_direction_forward_reference(xp, w, reverse)[0]
 
 
-def _check(xp, w, what: str, max_batch: int) -> None:
+def _check(xp, w, what: str, max_batch: int | None) -> None:
+    """Type, layout and shape of a kernel's inputs; ``max_batch`` None
+    for a kernel without a batch limit."""
     if xp.dtype != torch.float32 or w.dtype != torch.float32:
         raise NotImplementedError(
             f"{what} runs float32 only; bfloat16 compute is queued in "
@@ -73,11 +81,13 @@ def _check(xp, w, what: str, max_batch: int) -> None:
         raise ValueError(
             f"w must be [4H, H] = [{four_h}, {hidden}], got {tuple(w.shape)}"
         )
-    if not (t_len >= 1 and 1 <= hidden <= MAX_HIDDEN
-            and 1 <= batch <= max_batch):
+    if not (t_len >= 1 and 1 <= hidden <= MAX_HIDDEN and batch >= 1
+            and (max_batch is None or batch <= max_batch)):
+        limit = "" if max_batch is None else (
+            f" and B <= {max_batch} (the kernel's batch limit)")
         raise ValueError(
-            f"{what} takes H <= {MAX_HIDDEN} and B <= {max_batch} (the "
-            f"kernel's batch limit), got T={t_len} B={batch} H={hidden}"
+            f"{what} takes H <= {MAX_HIDDEN}{limit}, got T={t_len} "
+            f"B={batch} H={hidden}"
         )
 
 
@@ -99,8 +109,8 @@ def _check_residuals(dh, g, c) -> None:
 
 def _library():
     lib = _build.load("lstm_infer")
-    lib.lstm_infer_launch.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.lstm_infer_launch.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.lstm_infer_launch.restype = ctypes.c_int
     lib.lstm_fwd_launch.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -121,14 +131,24 @@ def _bwd_library():
 
 
 def lstm_infer_cuda(xp, w, reverse: bool):
-    """Launch the lean forward of ``csrc/lstm_infer.cu``: ``h``."""
-    _check(xp, w, "lstm_infer", MAX_BATCH)
+    """Launch the lean forward of ``csrc/lstm_infer.cu``: ``h``, by the
+    narrow plan up to ``NARROW_MAX_H`` and the wide one above."""
+    return _lstm_infer_plan(xp, w, reverse, "auto")
+
+
+def _lstm_infer_plan(xp, w, reverse: bool, plan: str):
+    """:func:`lstm_infer_cuda` in ``plan``: "auto", or "narrow" (H <=
+    ``NARROW_MAX_H``) or "wide" forced, which only a measurement of the
+    plans asks for."""
+    _check(xp, w, "lstm_infer", None)
     t_len, batch, four_h = xp.shape
     h = xp.new_empty(t_len, batch, four_h // 4)
+    c = xp.new_empty(batch, four_h // 4)  # the wide plan's cell state
     lib = _library()
     err = lib.lstm_infer_launch(
-        xp.data_ptr(), w.data_ptr(), h.data_ptr(), t_len, batch, four_h // 4,
-        int(reverse), xp.device.index or 0, _stream(xp),
+        xp.data_ptr(), w.data_ptr(), h.data_ptr(), c.data_ptr(), t_len,
+        batch, four_h // 4, int(reverse), _PLANS[plan], xp.device.index or 0,
+        _stream(xp),
     )
     _build.check(err, "lstm_infer", lib.lstm_error_string)
     LAUNCHES["lstm_infer"] += 1
@@ -138,7 +158,7 @@ def lstm_infer_cuda(xp, w, reverse: bool):
 def lstm_forward_cuda(xp, w, reverse: bool):
     """Launch the residual-saving forward of ``csrc/lstm_infer.cu``:
     ``(h, g, c)``."""
-    _check(xp, w, "lstm_fwd", MAX_BATCH)
+    _check(xp, w, "lstm_fwd", MAX_FWD_BATCH)
     t_len, batch, four_h = xp.shape
     h = xp.new_empty(t_len, batch, four_h // 4)
     c = torch.empty_like(h)

@@ -230,32 +230,112 @@ def test_merged_bidir_fits_at_the_kernel_limits(h, infer, grad):
 
 
 @pytest.mark.parametrize("stem,row_floats,limit", [
-    ("lstm_infer", 512 + 4 * 4, lstm.MAX_BATCH),
+    ("lstm_infer", 512 + 4 * 4, lstm.MAX_FWD_BATCH),
     ("lstm_bwd", 4 * 512 + 8 * 4, lstm.MAX_BWD_BATCH)])
 def test_single_direction_limits_hold_twice_the_merged(stem, row_floats,
                                                        limit):
-    """At H=512 the plan gives 4 units a block; the limit is the largest
-    batch whose cell state fits beside one row, and at least twice the
-    merged lean kernel's."""
+    """The training kernels' limits: ``lstm_fwd`` (in
+    ``csrc/lstm_infer.cu``) and ``lstm_bwd``. At H=512 their plan gives 4
+    units a block; the limit is the largest batch whose cell state fits
+    beside one row, and at least twice the merged lean kernel's."""
+    what = {"lstm_infer": "lstm_fwd", "lstm_bwd": "lstm_bwd"}[stem]
     budget = _budget_floats(stem)
     assert 4 * limit + row_floats <= budget < 4 * (limit + 1) + row_floats
     assert limit >= 2 * bilstm.merged_max_batch(512)
     xp = torch.zeros(1, limit + 1, 4)
     with pytest.raises(ValueError, match=f"B <= {limit}"):
-        lstm._check(xp, torch.zeros(4, 1), stem, limit)
-    lstm._check(xp[:, :limit].contiguous(), torch.zeros(4, 1), stem, limit)
+        lstm._check(xp, torch.zeros(4, 1), what, limit)
+    lstm._check(xp[:, :limit].contiguous(), torch.zeros(4, 1), what, limit)
+
+
+def test_lean_wrapper_takes_batches_past_the_training_limit(monkeypatch):
+    """``lstm_infer`` has no batch limit (its wide plan tiles the batch
+    over the grid, its narrow plan gives each row its own lanes): the
+    wrapper passes 14,000 rows to the launch, the plan left to the source
+    (0), with a [B, H] cell-state scratch; ``lstm_fwd`` refuses them."""
+    calls = []
+
+    class Library:
+        lstm_error_string = None
+
+        def lstm_infer_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(lstm, "_library", Library)
+    monkeypatch.setattr(lstm, "_stream", lambda x: 0)
+    monkeypatch.setitem(lstm.LAUNCHES, "lstm_infer", 0)
+    batch = 14_000
+    assert batch > lstm.MAX_FWD_BATCH
+    xp, w = torch.zeros(2, batch, 32), torch.zeros(32, 8)
+    h = lstm.lstm_infer_cuda(xp, w, True)
+    assert tuple(h.shape) == (2, batch, 8)
+    (args,) = calls
+    assert args[4:] == (2, batch, 8, 1, 0, 0, 0)
+    assert len({args[2], args[3]}) == 2  # h and the scratch
+    assert lstm.LAUNCHES["lstm_infer"] == 1
+    with pytest.raises(ValueError, match=f"B <= {lstm.MAX_FWD_BATCH}"):
+        lstm.lstm_forward_cuda(xp, w, False)
+    assert lstm.LAUNCHES["lstm_fwd"] == 0
+
+
+@pytest.mark.parametrize("plan,code", [("auto", 0), ("narrow", 1),
+                                       ("wide", 2)])
+def test_forced_plan_reaches_the_launch(monkeypatch, plan, code):
+    """Only the measuring entry forces a plan; it counts as a launch of
+    ``lstm_infer`` like the public wrapper, which always leaves the plan
+    to the source."""
+    calls = []
+
+    class Library:
+        lstm_error_string = None
+
+        def lstm_infer_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(lstm, "_library", Library)
+    monkeypatch.setattr(lstm, "_stream", lambda x: 0)
+    monkeypatch.setitem(lstm.LAUNCHES, "lstm_infer", 0)
+    xp, w = torch.zeros(3, 5, 32), torch.zeros(32, 8)
+    lstm._lstm_infer_plan(xp, w, False, plan)
+    lstm.lstm_infer_cuda(xp, w, False)
+    assert [args[8] for args in calls] == [code, 0]
+    assert lstm.LAUNCHES["lstm_infer"] == 2
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_plain_version_past_the_old_limit_matches_pallas(reverse):
+    """The lean forward's plain version at a batch no single-direction
+    kernel took before (T=2, B=14,000, H=8) against ``_infer`` in
+    interpret mode."""
+    xp, w, _ = _inputs(8, 40 + reverse, t=2, b=14_000)
+    want = pallas_lstm._infer(jnp.asarray(xp), jnp.asarray(w),
+                              reverse=reverse)
+    got = lstm.lstm_sequence(_torch(xp), _torch(w.T), reverse)
+    _close(got, want)
+
+
+def test_plan_border_is_stated_by_the_source():
+    """The lean kernel's border between its narrow plan (rows on lanes,
+    one launch) and its wide plan (a tiled step product): a constant of
+    ``csrc/lstm_infer.cu`` that Python reads, between content layer 1's H=8
+    and the mel decoder's H=512, so the main path runs both plans."""
+    border = _build.source_constant("lstm_infer", "kNarrowMaxH")
+    assert border == lstm.NARROW_MAX_H
+    assert 8 <= border < 512
 
 
 def test_wrapper_checks():
     xp = torch.zeros(4, 2, 32)
     with pytest.raises(ValueError, match=r"\[4H, H\]"):
-        lstm._check(xp, torch.zeros(8, 32), "lstm_infer", lstm.MAX_BATCH)
+        lstm._check(xp, torch.zeros(8, 32), "lstm_infer", None)
     with pytest.raises(ValueError, match="H <="):
         lstm._check(torch.zeros(1, 1, 4 * 513), torch.zeros(4 * 513, 513),
-                    "lstm_infer", lstm.MAX_BATCH)
+                    "lstm_infer", None)
     with pytest.raises(NotImplementedError, match="float32"):
         lstm._check(xp.bfloat16(), torch.zeros(32, 8).bfloat16(),
-                    "lstm_infer", lstm.MAX_BATCH)
+                    "lstm_infer", None)
     g = torch.zeros(4, 2, 32)
     with pytest.raises(ValueError, match="dh"):
         lstm._check_residuals(torch.zeros(4, 2, 7), g, torch.zeros(4, 2, 8))
