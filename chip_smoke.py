@@ -26,7 +26,13 @@ Phases, one line each; any failure exits non-zero:
    plain version at the train step's shapes (T=192, B=16), timed beside
    its bound and a cuDNN LSTM's training forward and backward; then the
    ``autograd.Function`` of each op on CUDA tensors against autograd
-   through the plain loop;
+   through the plain loop; the gradient kernel's edges (ragged widths,
+   batch tiles, its batch limit at H=512 and one row past it, which the
+   kernel refuses); then the probe build of the gradient kernel
+   (``-DBILSTM_BWD_PROBE``): a clock64() split of its step into barrier
+   wait, d_pre staging, FMAs and reduction, cell gradient and stores,
+   and prefetch and arrival, at B16 and H 512, 256 and 8 (``[bwd
+   probe]``);
 7. the full-width generator and F0-converter train steps on a seeded
    ``Collator`` batch of 16: the launches of every kernel in one step
    (counts set to 0 just before and read just after), the step against
@@ -91,7 +97,9 @@ pair count in a process of either tree, reporting whether it completed
 or raised; then N rounds of DIR, this, this, DIR, each a process of its
 own that builds its tree's kernels and times, through that tree's own
 phase functions, ``bilstm_infer``, ``bilstm_fwd`` and ``bilstm_bwd`` at
-the train and conversion shapes, ``lstm_infer`` at phase 13's two
+the train and conversion shapes, ``bilstm_fused_infer`` at the fused
+conversion's B56 I1024 H512 and ``bilstm_fused_fwd`` at B16 I1024 H512,
+``lstm_infer`` at phase 13's two
 shapes and both directions of it at H=512 over batches 28-224, and both
 default train steps. It prints one line per process
 and the medians of each tree side by side.
@@ -873,6 +881,53 @@ def check_functions() -> None:
         tol=KERNEL_TOL, against="autograd through the plain loop")
 
 
+def check_bwd_edges() -> None:
+    """``bilstm_bwd``'s other code paths against its plain version on
+    short sequences: batch 1, widths that are not a multiple of 4 (the
+    4-byte residual copies) or of 8 (a block with fewer units), H=1, the
+    batch-tiled d_pre staging (B=40 at H=512), and the largest batch the
+    kernel takes at H=512 (``merged_max_batch(512, grad=True)``, from the
+    kernel source's plan, one row a tile); one row more is refused by the
+    kernel itself."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    limit = bilstm.merged_max_batch(512, grad=True)
+    shapes = ((5, 1, 512), (7, 3, 100), (5, 2, 1), (6, 5, 3), (4, 40, 512),
+              (3, limit, 512))
+    worst = 0.0
+    for t, b, h in shapes:
+        xp_f, xp_b = rand(t, b, 4 * h), rand(t, b, 4 * h)
+        w_f, w_b = rand(4 * h, h, scale=h ** -0.5), rand(4 * h, h,
+                                                        scale=h ** -0.5)
+        dh_f, dh_b = rand(t, b, h), rand(t, b, h)
+        res = bilstm.bilstm_forward_reference(xp_f, xp_b, w_f, w_b)[2:]
+        got = bilstm.bilstm_backward_cuda(dh_f, dh_b, *res, w_f, w_b)
+        want = bilstm.bilstm_backward_reference(dh_f, dh_b, *res, w_f, w_b)
+        err = rel_err(got, want)
+        if not err <= KERNEL_TOL:
+            fail(f"bilstm_bwd T{t}xB{b}xH{h}: rel err {err}")
+        worst = max(worst, err)
+    res = [torch.zeros(1, limit + 1, n, device="cuda")
+           for n in (2048, 2048, 512, 512)]
+    dh = torch.zeros(1, limit + 1, 512, device="cuda")
+    w = torch.zeros(2048, 512, device="cuda")
+    try:
+        bilstm.bilstm_backward_cuda(dh, dh, *res, w, w)
+    except RuntimeError:
+        pass
+    else:
+        fail(f"bilstm_bwd took B={limit + 1} at H=512, past its limit")
+    log("kernel bwd edges", shapes=len(shapes), rel_err=f"{worst:.3g}",
+        tol=KERNEL_TOL, max_batch_h512=limit, refused_batch=limit + 1)
+
+
 def phase_train_kernels(reps: int = 10) -> dict:
     """The training kernels at the train steps' shapes. Returns the row
     of each kernel's most expensive main-path shape."""
@@ -884,8 +939,90 @@ def phase_train_kernels(reps: int = 10) -> dict:
         for hs in ((8, 32, 1), (32, 1)):
             for name, row in check_multi_train(TRAIN_B, hs, reps).items():
                 rows.setdefault(name, row)
+        check_bwd_edges()
         check_functions()
     return rows
+
+
+# the phases of a bilstm_bwd step that its probe build times, in the
+# order of csrc/bilstm_bwd.cu's PROBE_LAP calls
+BWD_PROBE_PHASES = ("barrier_wait", "d_pre_staging", "fma_and_reduction",
+                    "cell_and_stores", "prefetch_and_arrive")
+
+
+def phase_bwd_probe(shapes=((TRAIN_B, 512), (TRAIN_B, 256),
+                            (TRAIN_B, 8))) -> dict:
+    """The probe build of ``csrc/bilstm_bwd.cu`` (``-DBILSTM_BWD_PROBE``,
+    compiled here into a temporary directory; the port never loads it):
+    clock64() laps of each phase of a step, summed over warps, split into
+    cycles a step and shares at the train step's shapes. The kernel's
+    result is checked against the plain version as in phase 6. Returns
+    the split at the first shape."""
+    import ctypes
+
+    import torch
+
+    from speechsplit_tpu_torch.ops import _build, bilstm
+
+    splits = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lib_path = os.path.join(tmp, "libbilstm_bwd_probe.so")
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                        "-DBILSTM_BWD_PROBE", "-o", lib_path,
+                        str(_build.CSRC / "bilstm_bwd.cu")],
+                       check=True, capture_output=True, text=True)
+        lib = ctypes.CDLL(lib_path)
+        lib.bilstm_bwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
+        n = len(BWD_PROBE_PHASES)
+        cycles, laps = (ctypes.c_ulonglong * n)(), (ctypes.c_ulonglong * n)()
+        for b, h in shapes:
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 3 * h + b)
+
+            def rand(*shape, scale=1.0):
+                return torch.randn(*shape, device="cuda",
+                                   generator=gen) * scale
+
+            xp_f, xp_b = rand(T, b, 4 * h), rand(T, b, 4 * h)
+            w_f, w_b = (rand(4 * h, h, scale=h ** -0.5),
+                        rand(4 * h, h, scale=h ** -0.5))
+            dh_f, dh_b = rand(T, b, h), rand(T, b, h)
+            res = bilstm.bilstm_forward_reference(xp_f, xp_b, w_f, w_b)[2:]
+            dx = [torch.empty_like(res[0]) for _ in (0, 1)]
+
+            def run():
+                err = lib.bilstm_bwd_launch(
+                    *[x.data_ptr() for x in (dh_f, dh_b, *res, w_f, w_b, *dx,
+                                             bilstm._barrier_word(xp_f))],
+                    T, b, h, 0, bilstm._stream(xp_f))
+                if err:
+                    fail(f"bilstm_bwd probe build: CUDA error {err}")
+
+            run()
+            lib.bilstm_bwd_probe_read(cycles, laps, 1)  # warm-up, reset
+            run()
+            torch.cuda.synchronize()
+            if lib.bilstm_bwd_probe_read(cycles, laps, 1):
+                fail("bilstm_bwd probe: reading the counters failed")
+            want = bilstm.bilstm_backward_reference(dh_f, dh_b, *res, w_f,
+                                                    w_b)
+            err = rel_err(dx, want)
+            if not err <= KERNEL_TOL:
+                fail(f"bilstm_bwd probe build B{b} H{h}: rel err {err}")
+            ms = time_ms(run, 5)
+            # every warp laps each phase once a step (once a batch tile)
+            warp_steps = laps[0]
+            per_step = {name: cycles[i] / warp_steps
+                        for i, name in enumerate(BWD_PROBE_PHASES)}
+            total = sum(per_step.values())
+            split = {f"{k}_cycles": round(v) for k, v in per_step.items()}
+            split.update({f"{k}_share": f"{v / total:.4f}"
+                          for k, v in per_step.items()})
+            log("bwd probe", shape=f"T{T}xB{b}xH{h}", ms_probe_build=f"{ms:.4f}",
+                cycles_per_step=round(total), rel_err=f"{err:.3g}",
+                **split, clock="clock64 of each warp, summed over warps")
+            splits[(b, h)] = split
+    return splits[shapes[0]]
 
 
 def synthetic_batch(config, seed: int):
@@ -1163,9 +1300,9 @@ def check_fused_edges() -> None:
     args = fused_inputs(1, bilstm.MAX_FUSED_BATCH + 1, 8, 3, SEED + 99)
     h = torch.empty(1, bilstm.MAX_FUSED_BATCH + 1, 8, device="cuda")
     err = bilstm._library().bilstm_fused_infer_launch(
-        *bilstm._fused_pointers(*args), h.data_ptr(), h.data_ptr(), 1,
-        bilstm.MAX_FUSED_BATCH + 1, 8, 3, h.device.index or 0,
-        bilstm._stream(h))
+        *bilstm._fused_pointers(*args), h.data_ptr(), h.data_ptr(),
+        bilstm._barrier_word(h).data_ptr(), 1, bilstm.MAX_FUSED_BATCH + 1, 8,
+        3, h.device.index or 0, bilstm._stream(h))
     if err == 0:
         fail(f"bilstm_fused_infer took B={bilstm.MAX_FUSED_BATCH + 1}, "
              f"past MAX_FUSED_BATCH")
@@ -1927,7 +2064,9 @@ def _entry(match) -> str:
 
 def kernel_codegen(tree: str) -> dict:
     """What nvcc makes of every kernel of ``CODEGEN_SOURCES`` in ``tree``:
-    registers, spill stores and a hash of each one's SASS."""
+    registers, spill stores, stack frame bytes (local memory: an array
+    the compiler could not keep in registers) and a hash of each one's
+    SASS."""
     from speechsplit_tpu_torch.ops import _build
 
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
@@ -1948,8 +2087,11 @@ def kernel_codegen(tree: str) -> dict:
                     m = KERNEL_ENTRY.search(line)
                     key = _entry(m) if m else None
                 elif key and "spill stores" in line:
-                    out.setdefault(key, {})["spill_stores"] = int(
+                    row = out.setdefault(key, {})
+                    row["spill_stores"] = int(
                         re.search(r"(\d+) bytes spill stores", line)[1])
+                    row["stack_frame"] = int(
+                        re.search(r"(\d+) bytes stack frame", line)[1])
                 elif key and "Used" in line and "registers" in line:
                     out.setdefault(key, {})["registers"] = int(
                         re.search(r"Used (\d+) registers", line)[1])
@@ -1989,6 +2131,10 @@ with c.strict_float32():
     for h in (512, 256, 8):
         for name, row in c.check_bilstm_train(c.TRAIN_B, h, 10).items():
             out[f"{name} B{c.TRAIN_B} H{h} ms"] = row["ms"]
+    # the fused kernels at their most expensive main-path shapes
+    for b, kind in ((7 * c.FUSED_PAIRS, "infer"), (c.TRAIN_B, "fwd")):
+        row = c.check_fused(b, 512, 1024, kind, 10)
+        out[f"bilstm_fused_{kind} B{b} I1024 H512 ms"] = row["ms"]
     big = 7 * c.refused_pairs()  # the 731-pair conversion's rows
     for h in (512, 8):
         row = c.check_lstm_infer(big, h, 2)
@@ -2123,6 +2269,7 @@ def main() -> int:
     phase_cli(g_model, p_model)
     del g_model, p_model, pairs
     rows.update(phase_train_kernels())
+    phase_bwd_probe()
     gen_launches, f0_launches, state, step, batch = phase_train()
     phase_profile_train(state, step, batch)
     del state, step

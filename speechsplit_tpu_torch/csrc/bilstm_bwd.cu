@@ -22,39 +22,65 @@
 // What bounds it on an H100: the recurrence, as in the forward. Step s
 // needs all of the previous step's d_pre, because dh_carry of unit k sums
 // over all 4H gate rows (column k of W_hh). At H = 512 W_hh is 4 MiB a
-// direction, so the steps need a barrier across blocks, and each step
-// moves 4x more data between blocks than the forward (d_pre is 4H wide,
-// h is H wide). The arithmetic (2*B*4H*H a step) and the HBM bytes (the
-// residuals are read once) are small; the time goes to latency.
+// direction, so the steps need a barrier across blocks, and every block
+// reads the whole previous d_pre (B x 4H, 128 KiB at B = 16) each step.
+// The arithmetic (2*B*4H*H a step) and the HBM bytes (the residuals are
+// read once) are small; the time goes to latency: the barrier, the
+// staging of d_pre, and the instructions of a step on 8 warps an SM.
 //
-// What the design does about it: it mirrors csrc/bilstm_infer.cu. One
-// persistent cooperative launch per layer; blocks split between the two
-// directions; each block owns up to 8 hidden units, one warp per unit,
-// and keeps that unit's COLUMN of W_hh (4H values, 4H/32 a lane) in
-// registers for the whole sequence. Each step a block stages into shared
-// memory, in one round of loads, the previous step's d_pre (read back
-// from the dx output itself through L2 with __ldcg; tiled over the batch
-// when B*4H floats do not fit) and its units' residuals (4 gates, c,
-// c_prev, dh_out); a warp forms dh_carry by a butterfly sum, applies the
-// cell gradient for its unit with dc_carry kept in shared memory, writes
-// its unit's four d_pre values, and all blocks meet at a grid barrier.
-// The host side checks occupancy before the cooperative launch and fails
-// rather than deadlock when the grid cannot be co-resident.
+// What the design does about it. One persistent cooperative launch per
+// layer, blocks split between the two directions, each block owning up
+// to 8 consecutive hidden units (W_hh's columns of them stay in
+// registers for the whole sequence). The probe build below splits a
+// step into its phases (PERF.md); against what they showed:
+// - d_pre is staged with 16-byte cp.async copies through L2, all in
+//   flight at once, no register on the way.
+// - The product is blocked over the block's units: a thread holds
+//   W_hh[j][u] for its 4 or 8 rows j (4 consecutive, 1024 apart) and all
+//   8 units, so one 16-byte shared load feeds 32 FMAs. A warp's partial
+//   sums of 4 batch rows x 8 units are reduced by a butterfly that leaves
+//   each lane one (row, unit) sum (merged_step.cuh), and the 8 warps'
+//   partials are added in shared memory.
+// - The residuals a step needs (i, f, g, o, c, c_prev, dh_out of the
+//   block's units) do not depend on the recurrence: they are prefetched
+//   with cp.async into a second buffer during the step before, so only
+//   d_pre stays on the critical path.
+// - One thread a (row, unit) applies the cell gradient, the dc carry in
+//   shared memory; a block's units are consecutive, so each gate of a row
+//   is stored as one run of 32 bytes.
+// - The grid barrier is split (merged_step.cuh): a block arrives after
+//   its stores, with the next step's prefetch already in flight.
+// - Clusters could share the staging of d_pre between blocks, but a
+//   cooperative grid of 128 such blocks fits the card only in clusters
+//   of 2 (PERF.md), so the grid has none.
+// The launch is cooperative: it fails rather than deadlock when the grid
+// cannot be co-resident.
+//
+// Built with -DBILSTM_BWD_PROBE (chip_smoke.py's probe build), the kernel
+// also adds up clock64() laps of each phase of a step per warp, which
+// bilstm_bwd_probe_read returns.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-namespace cg = cooperative_groups;
+#include "merged_step.cuh"
 
 namespace {
 
-constexpr int kMaxUnits = 8;   // hidden units (= warps) per block
-constexpr int kBC = 4;         // batch rows per register tile
+constexpr int kMaxUnits = 8;   // hidden units per block
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 4;       // batch rows per reduction round
+constexpr int kRes = 7;        // residuals per (unit, row): i f g o c c_prev dh
+constexpr int kJSpan = 4 * kThreads;  // rows j of W_hh one pass covers
 constexpr int kMaxH = 512;
-constexpr int kVals = 8;       // staged per (unit, row): i f g o c c_prev dh
+static_assert(kRows * kMaxUnits == 32, "a round reduces 32 sums a warp");
+// Shared-memory floats a (unit, row) takes beside the row's d_pre: the 8
+// warps' partial sums and two buffers of the kRes residuals.
+constexpr int kVals = 22;
+static_assert(kVals == kWarps + 2 * kRes, "kVals must match the layout");
 constexpr size_t kSmemBudget = 160 * 1024;
 // The kernel takes B rows at width H while the dc carry [units][B] and
-// one batch row of the d_pre tile and the staged residuals, 4H + kVals *
+// one batch row of the d_pre tile and the staged values, 4H + kVals *
 // units floats, fit these floats, with units = min(H, kMaxUnits)
 // (launch() below). ops/bilstm.py reads the value from this line
 // (merged_bidir_fits), so the kernel is the one owner of the limit.
@@ -62,229 +88,321 @@ constexpr int kBwdSmemFloats = 40960;
 static_assert(kBwdSmemFloats * sizeof(float) == kSmemBudget,
               "kBwdSmemFloats must be the launch's budget");
 
-template <int KPL>  // ceil(4H / 32): W_hh column entries per lane
-__global__ void __launch_bounds__(kMaxUnits * 32)
-bilstm_bwd_kernel(const float* __restrict__ dh_f,
-                  const float* __restrict__ dh_b,
-                  const float* __restrict__ g_f,
-                  const float* __restrict__ g_b,
-                  const float* __restrict__ c_f,
-                  const float* __restrict__ c_b,
-                  const float* __restrict__ w_f,
-                  const float* __restrict__ w_b,
-                  float* dx_f, float* dx_b,
-                  int T, int B, int H,
-                  int blocks_per_dir, int units_per_block, int bt) {
-  extern __shared__ float smem[];
-  const int G = 4 * H;
-  float* d_s = smem;                        // [bt][4H] previous d_pre tile
-  float* dc_s = d_s + bt * G;               // [units_per_block][B] dc carry
-  float* v_s = dc_s + units_per_block * B;  // [units_per_block][bt][kVals]
-  cg::grid_group grid = cg::this_grid();
+#ifdef BILSTM_BWD_PROBE
+// phases: 0 barrier wait, 1 d_pre staging, 2 FMAs and reduction, 3 cell
+// gradient and stores, 4 prefetch and arrival
+constexpr int kPhases = 5;
+__device__ unsigned long long g_probe_cycles[kPhases];
+__device__ unsigned long long g_probe_laps[kPhases];
+#define PROBE_LAP(phase)                 \
+  do {                                   \
+    const long long now_ = clock64();    \
+    probe_cycles[phase] += now_ - lap_;  \
+    ++probe_laps[phase];                 \
+    lap_ = now_;                         \
+  } while (0)
+#else
+#define PROBE_LAP(phase) \
+  do {                   \
+  } while (0)
+#endif
 
-  const int dir = blockIdx.x / blocks_per_dir;
-  const int blk = blockIdx.x % blocks_per_dir;
-  const float* dho = dir == 0 ? dh_f : dh_b;
-  const float* gin = dir == 0 ? g_f : g_b;
-  const float* cin = dir == 0 ? c_f : c_b;
-  const float* w = dir == 0 ? w_f : w_b;
-  float* dx = dir == 0 ? dx_f : dx_b;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int u = blk * units_per_block + warp;
-  const bool active = warp < units_per_block && u < H;
+struct Args {
+  const float* dh[2];
+  const float* g[2];
+  const float* c[2];
+  const float* w[2];
+  float* dx[2];
+  unsigned* barrier;  // zeroed before the launch
+  int T, B, H, blocks_per_dir, units, bt;
+};
 
-  // column u of W_hh, rows j = lane + 32 m
-  float wc[KPL];
-#pragma unroll
-  for (int m = 0; m < KPL; ++m) {
-    const int j = lane + 32 * m;
-    wc[m] = (active && j < G) ? w[static_cast<size_t>(j) * H + u] : 0.0f;
-  }
-  for (int i = threadIdx.x; i < units_per_block * B; i += blockDim.x) {
-    dc_s[i] = 0.0f;
-  }
+// Shared memory: d_s [bt][4H] the previous step's d_pre tile; res_s
+// [2][kRes][bt][units] two buffers of residuals; red_s [bt][kWarps]
+// [units] the warps' partial sums; dc_s [units][B] the dc carry.
+template <int KQ>  // passes of kJSpan rows j: ceil(4H / kJSpan)
+__global__ void __launch_bounds__(kThreads, 1)
+bilstm_bwd_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int T = a.T, B = a.B, H = a.H, G = 4 * H;
+  const int units = a.units, bt = a.bt;
+  float* d_s = smem;
+  float* res_s = d_s + static_cast<size_t>(bt) * G;
+  float* red_s = res_s + 2 * kRes * bt * units;
+  float* dc_s = red_s + bt * kWarps * units;
 
-  for (int s = 0; s < T; ++s) {
-    // forward direction: gradient walks T-1 -> 0; backward: 0 -> T-1
-    const int t = dir == 0 ? T - 1 - s : s;
-    const int tp = dir == 0 ? t + 1 : t - 1;  // previous step's time index
-    const int tc = dir == 0 ? t - 1 : t + 1;  // c_prev's time index
-    const bool has_cp = tc >= 0 && tc < T;
-    for (int b0 = 0; b0 < B; b0 += bt) {
-      const int nb = min(bt, B - b0);
-      __syncthreads();  // the previous tile's readers are done with smem
-      // this tile's residuals of the block's units, gathered once per step
-      for (int i = threadIdx.x; i < units_per_block * nb * 7;
-           i += blockDim.x) {
-        const int w_i = i / (nb * 7);
-        const int bb = (i / 7) % nb;
-        const int k = i % 7;
-        const int u_i = blk * units_per_block + w_i;
-        float v = 0.0f;
-        if (u_i < H) {
-          const size_t row = static_cast<size_t>(t) * B + b0 + bb;
-          if (k < 4) {
-            v = gin[row * G + k * H + u_i];
-          } else if (k == 4) {
-            v = cin[row * H + u_i];
-          } else if (k == 5) {
-            v = has_cp
-                    ? cin[(static_cast<size_t>(tc) * B + b0 + bb) * H + u_i]
-                    : 0.0f;
-          } else {
-            v = dho[row * H + u_i];
-          }
-        }
-        v_s[(w_i * bt + bb) * kVals + k] = v;
-      }
-      if (s > 0) {
-        // written by other blocks during the kernel: read through L2
-        const float4* src4 = reinterpret_cast<const float4*>(
-            dx + (static_cast<size_t>(tp) * B + b0) * G);
-        float4* dst4 = reinterpret_cast<float4*>(d_s);
-        for (int i = threadIdx.x; i < nb * G / 4; i += blockDim.x) {
-          dst4[i] = __ldcg(src4 + i);
-        }
-      } else {
-        for (int i = threadIdx.x; i < nb * G; i += blockDim.x) {
-          d_s[i] = 0.0f;
-        }
-      }
-      __syncthreads();
-      if (!active) continue;  // warp-uniform
-      for (int bc = 0; bc < nb; bc += kBC) {
-        float acc[kBC];
+  const int dir = blockIdx.x / a.blocks_per_dir;
+  const int blk = blockIdx.x % a.blocks_per_dir;
+  const float* dho = dir == 0 ? a.dh[0] : a.dh[1];
+  const float* gin = dir == 0 ? a.g[0] : a.g[1];
+  const float* cin = dir == 0 ? a.c[0] : a.c[1];
+  const float* w = dir == 0 ? a.w[0] : a.w[1];
+  float* dx = dir == 0 ? a.dx[0] : a.dx[1];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int u0 = blk * units;
+  const int nu = min(units, H - u0);  // this block's units
+  // residual rows go in 16-byte copies where every run is whole quads
+  const bool quads = (H & 3) == 0 && (units & 3) == 0;
+  step::Barrier bar(a.barrier);
+
+  // W_hh[j][u0 + u] for j = 4 tid + jj + kJSpan q
+  float wr[KQ][4][kMaxUnits];
 #pragma unroll
-        for (int r = 0; r < kBC; ++r) acc[r] = 0.0f;
+  for (int q = 0; q < KQ; ++q) {
 #pragma unroll
-        for (int m = 0; m < KPL; ++m) {
-          const int j = lane + 32 * m;
-          if (j < G) {
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = kJSpan * q + 4 * tid + jj;
 #pragma unroll
-            for (int r = 0; r < kBC; ++r) {
-              const float dv = (bc + r < nb) ? d_s[(bc + r) * G + j] : 0.0f;
-              acc[r] = fmaf(dv, wc[m], acc[r]);
-            }
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kBC; ++r) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-          }
-        }
-        // lane r < kBC finishes batch row b0 + bc + r of unit u
-        float dh_carry = acc[0];
-#pragma unroll
-        for (int r = 1; r < kBC; ++r) {
-          if (lane == r) dh_carry = acc[r];
-        }
-        if (lane < kBC && bc + lane < nb) {
-          const int b = b0 + bc + lane;
-          const float* v = v_s + (warp * bt + bc + lane) * kVals;
-          const float i_g = v[0], f_g = v[1], g_g = v[2], o_g = v[3];
-          const float tanh_c = tanhf(v[4]);
-          const float dh = v[6] + dh_carry;
-          const float d_o = dh * tanh_c;
-          float* dcp = dc_s + warp * B + b;
-          const float dc = *dcp + dh * o_g * (1.0f - tanh_c * tanh_c);
-          float* out = dx + (static_cast<size_t>(t) * B + b) * G;
-          out[u] = dc * g_g * i_g * (1.0f - i_g);
-          out[H + u] = dc * v[5] * f_g * (1.0f - f_g);
-          out[2 * H + u] = dc * i_g * (1.0f - g_g * g_g);
-          out[3 * H + u] = d_o * o_g * (1.0f - o_g);
-          *dcp = dc * f_g;
-        }
+      for (int u = 0; u < kMaxUnits; ++u) {
+        wr[q][jj][u] = (j < G && u < nu)
+                           ? w[static_cast<size_t>(j) * H + u0 + u]
+                           : 0.0f;
       }
     }
-    grid.sync();
   }
+  for (int i = tid; i < units * B; i += kThreads) dc_s[i] = 0.0f;
+
+  // issue the copies of step s's residuals for rows b0 .. b0 + nb - 1
+  // into buffer buf
+  auto prefetch = [&](int s, int b0, int buf) {
+    const int t = dir == 0 ? T - 1 - s : s;
+    const int tc = dir == 0 ? t - 1 : t + 1;  // c_prev's time index
+    const bool has_cp = tc >= 0 && tc < T;
+    const int nb = min(bt, B - b0);
+    float* dst0 = res_s + buf * kRes * bt * units;
+    auto src_of = [&](int k, int b, int u) -> const float* {
+      const size_t row = static_cast<size_t>(t) * B + b;
+      if (k < 4) return gin + row * G + k * H + u0 + u;
+      if (k == 4) return cin + row * H + u0 + u;
+      if (k == 5) {
+        return has_cp ? cin + (static_cast<size_t>(tc) * B + b) * H + u0 + u
+                      : cin;
+      }
+      return dho + row * H + u0 + u;
+    };
+    if (quads) {
+      const int nq = units / 4;
+      for (int i = tid; i < kRes * nb * nq; i += kThreads) {
+        const int k = i / (nb * nq);
+        const int bb = (i / nq) % nb;
+        const int u = 4 * (i % nq);
+        const bool ok = u < nu && (k != 5 || has_cp);
+        step::copy16(dst0 + (k * bt + bb) * units + u,
+                          ok ? src_of(k, b0 + bb, u) : cin, ok);
+      }
+    } else {
+      for (int i = tid; i < kRes * nb * units; i += kThreads) {
+        const int k = i / (nb * units);
+        const int bb = (i / units) % nb;
+        const int u = i % units;
+        const bool ok = u < nu && (k != 5 || has_cp);
+        step::copy4(dst0 + (k * bt + bb) * units + u,
+                         ok ? src_of(k, b0 + bb, u) : cin, ok);
+      }
+    }
+    step::commit();
+  };
+
+#ifdef BILSTM_BWD_PROBE
+  long long probe_cycles[kPhases] = {};
+  long long probe_laps[kPhases] = {};
+  long long lap_ = clock64();
+#endif
+  const int tiles = (B + bt - 1) / bt;
+  int buf = 0;
+  prefetch(0, 0, 0);
+  for (int s = 0; s < T; ++s) {
+    const int t = dir == 0 ? T - 1 - s : s;
+    const int tp = dir == 0 ? t + 1 : t - 1;  // previous step's time index
+    if (s > 0) bar.wait();
+    PROBE_LAP(0);
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int b0 = tile * bt;
+      const int nb = min(bt, B - b0);
+      if (s > 0) {
+        // the previous step's d_pre rows, written by every block: all
+        // copies in flight at once
+        const float* src = dx + (static_cast<size_t>(tp) * B + b0) * G;
+        for (int i = tid; i < nb * G / 4; i += kThreads) {
+          step::copy16(d_s + 4 * i, src + 4 * i);
+        }
+        step::commit();
+      }
+      step::wait<0>();  // the d_pre tile and this tile's residuals
+      __syncthreads();
+      PROBE_LAP(1);
+      if (s > 0) {
+        for (int r0 = 0; r0 < nb; r0 += kRows) {
+          float acc[32];
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+#pragma unroll
+          for (int q = 0; q < KQ; ++q) {
+            const int j = kJSpan * q + 4 * tid;
+            if (j < G) {
+#pragma unroll
+              for (int r = 0; r < kRows; ++r) {
+                if (r0 + r < nb) {
+                  const float4 d = *reinterpret_cast<const float4*>(
+                      d_s + (r0 + r) * G + j);
+#pragma unroll
+                  for (int u = 0; u < kMaxUnits; ++u) {
+                    const int x = r * kMaxUnits + u;
+                    acc[x] = fmaf(d.x, wr[q][0][u], acc[x]);
+                    acc[x] = fmaf(d.y, wr[q][1][u], acc[x]);
+                    acc[x] = fmaf(d.z, wr[q][2][u], acc[x]);
+                    acc[x] = fmaf(d.w, wr[q][3][u], acc[x]);
+                  }
+                }
+              }
+            }
+          }
+          const float sum = step::reduce_scatter32(acc, lane);
+          const int r = r0 + (lane >> 3);
+          const int u = lane & 7;
+          if (r < nb && u < units) {
+            red_s[(r * kWarps + warp) * units + u] = sum;
+          }
+        }
+        __syncthreads();  // every warp's partial sums are in red_s
+      }
+      PROBE_LAP(2);
+      const float* res = res_s + buf * kRes * bt * units;
+      for (int i = tid; i < nb * units; i += kThreads) {
+        const int bb = i / units;
+        const int u = i % units;
+        if (u >= nu) continue;
+        float dh_carry = 0.0f;
+        if (s > 0) {
+#pragma unroll
+          for (int wp = 0; wp < kWarps; ++wp) {
+            dh_carry += red_s[(bb * kWarps + wp) * units + u];
+          }
+        }
+        const int off = bb * units + u;
+        const int plane = bt * units;
+        const float i_g = res[off], f_g = res[plane + off];
+        const float g_g = res[2 * plane + off], o_g = res[3 * plane + off];
+        const float tanh_c = tanhf(res[4 * plane + off]);
+        const float c_prev = res[5 * plane + off];
+        const float dh = res[6 * plane + off] + dh_carry;
+        const float d_o = dh * tanh_c;
+        const int b = b0 + bb;
+        float* dcp = dc_s + u * B + b;
+        const float dc = *dcp + dh * o_g * (1.0f - tanh_c * tanh_c);
+        float* out = dx + (static_cast<size_t>(t) * B + b) * G + u0 + u;
+        out[0] = dc * g_g * i_g * (1.0f - i_g);
+        out[H] = dc * c_prev * f_g * (1.0f - f_g);
+        out[2 * H] = dc * i_g * (1.0f - g_g * g_g);
+        out[3 * H] = d_o * o_g * (1.0f - o_g);
+        *dcp = dc * f_g;
+      }
+      PROBE_LAP(3);
+      // the next (step, tile)'s residuals into the other buffer, whose
+      // last readers passed this tile's __syncthreads above; d_s's
+      // readers passed the one after the partial sums, and red_s is
+      // written again only after the next tile's first __syncthreads
+      buf ^= 1;
+      if (tile + 1 < tiles) {
+        prefetch(s, b0 + bt, buf);
+      } else if (s + 1 < T) {
+        prefetch(s + 1, 0, buf);
+      }
+    }
+    bar.arrive();
+    PROBE_LAP(4);
+  }
+#ifdef BILSTM_BWD_PROBE
+  if (lane == 0) {
+    for (int p = 0; p < kPhases; ++p) {
+      atomicAdd(&g_probe_cycles[p],
+                static_cast<unsigned long long>(probe_cycles[p]));
+      atomicAdd(&g_probe_laps[p],
+                static_cast<unsigned long long>(probe_laps[p]));
+    }
+  }
+#endif
 }
 
-template <int KPL>
-cudaError_t launch(const float* dh_f, const float* dh_b, const float* g_f,
-                   const float* g_b, const float* c_f, const float* c_b,
-                   const float* w_f, const float* w_b, float* dx_f,
-                   float* dx_b, int T, int B, int H, cudaStream_t stream) {
-  auto kernel = bilstm_bwd_kernel<KPL>;
-  const int units = H < kMaxUnits ? H : kMaxUnits;
-  const int blocks_per_dir = (H + units - 1) / units;
-  const int threads = units * 32;
+template <int KQ>
+cudaError_t launch(Args a, cudaStream_t stream) {
+  a.units = a.H < kMaxUnits ? a.H : kMaxUnits;
+  a.blocks_per_dir = (a.H + a.units - 1) / a.units;
   // dc carry [units][B], then per batch row of a tile: the previous d_pre
-  // [4H] and the units' staged residuals [units][kVals]
-  const size_t c_bytes = static_cast<size_t>(units) * B * sizeof(float);
+  // [4H] and the staged values [kVals][units]
+  const size_t c_bytes = static_cast<size_t>(a.units) * a.B * sizeof(float);
   const size_t row_bytes =
-      static_cast<size_t>(4 * H + kVals * units) * sizeof(float);
+      static_cast<size_t>(4 * a.H + kVals * a.units) * sizeof(float);
   if (c_bytes + row_bytes > kSmemBudget) {
     return cudaErrorInvalidValue;  // batch too large for the dc carry
   }
   int bt = static_cast<int>((kSmemBudget - c_bytes) / row_bytes);
-  if (bt > B) bt = B;
-  const size_t smem = c_bytes + static_cast<size_t>(bt) * row_bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0, coop = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                    device)) != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, threads, smem)) != cudaSuccess) return err;
-  const int grid = 2 * blocks_per_dir;
-  if (per_sm * sms < grid) return cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&dh_f, &dh_b, &g_f, &g_b, &c_f, &c_b, &w_f, &w_b,
-                  &dx_f, &dx_b, &T, &B, &H,
-                  const_cast<int*>(&blocks_per_dir),
-                  const_cast<int*>(&units), &bt};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                    dim3(grid), dim3(threads), args, smem,
-                                    stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  a.bt = bt > a.B ? a.B : bt;
+  const size_t smem = c_bytes + static_cast<size_t>(a.bt) * row_bytes;
+  void* args[] = {&a};
+  return step::launch_cooperative(bilstm_bwd_kernel<KQ>,
+                                  2 * a.blocks_per_dir, kThreads, smem, args,
+                                  stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t (0 on success). Does not synchronise.
+// barrier: one 32-bit word, zero at the launch. Returns a cudaError_t (0
+// on success). Does not synchronise.
 int bilstm_bwd_launch(const void* dh_f, const void* dh_b, const void* g_f,
                       const void* g_b, const void* c_f, const void* c_b,
                       const void* w_f, const void* w_b, void* dx_f,
-                      void* dx_b, int T, int B, int H, int device,
-                      void* stream) {
+                      void* dx_b, void* barrier, int T, int B, int H,
+                      int device, void* stream) {
   if (T < 1 || B < 1 || H < 1 || H > kMaxH) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  Args a = {};
+  a.dh[0] = static_cast<const float*>(dh_f);
+  a.dh[1] = static_cast<const float*>(dh_b);
+  a.g[0] = static_cast<const float*>(g_f);
+  a.g[1] = static_cast<const float*>(g_b);
+  a.c[0] = static_cast<const float*>(c_f);
+  a.c[1] = static_cast<const float*>(c_b);
+  a.w[0] = static_cast<const float*>(w_f);
+  a.w[1] = static_cast<const float*>(w_b);
+  a.dx[0] = static_cast<float*>(dx_f);
+  a.dx[1] = static_cast<float*>(dx_b);
+  a.barrier = static_cast<unsigned*>(barrier);
+  a.T = T;
+  a.B = B;
+  a.H = H;
   auto s = static_cast<cudaStream_t>(stream);
-  auto a = static_cast<const float*>(dh_f);
-  auto b = static_cast<const float*>(dh_b);
-  auto gf = static_cast<const float*>(g_f);
-  auto gb = static_cast<const float*>(g_b);
-  auto cf = static_cast<const float*>(c_f);
-  auto cb = static_cast<const float*>(c_b);
-  auto wf = static_cast<const float*>(w_f);
-  auto wb = static_cast<const float*>(w_b);
-  auto xf = static_cast<float*>(dx_f);
-  auto xb = static_cast<float*>(dx_b);
-  const int kpl = (4 * H + 31) / 32;
-  if (kpl <= 1) return launch<1>(a, b, gf, gb, cf, cb, wf, wb, xf, xb, T, B, H, s);
-  if (kpl <= 2) return launch<2>(a, b, gf, gb, cf, cb, wf, wb, xf, xb, T, B, H, s);
-  if (kpl <= 4) return launch<4>(a, b, gf, gb, cf, cb, wf, wb, xf, xb, T, B, H, s);
-  if (kpl <= 8) return launch<8>(a, b, gf, gb, cf, cb, wf, wb, xf, xb, T, B, H, s);
-  if (kpl <= 16) return launch<16>(a, b, gf, gb, cf, cb, wf, wb, xf, xb, T, B, H, s);
-  if (kpl <= 32) return launch<32>(a, b, gf, gb, cf, cb, wf, wb, xf, xb, T, B, H, s);
-  return launch<64>(a, b, gf, gb, cf, cb, wf, wb, xf, xb, T, B, H, s);
+  if (4 * H <= kJSpan) return launch<1>(a, s);
+  return launch<2>(a, s);
 }
 
 const char* bilstm_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef BILSTM_BWD_PROBE
+// Cycles and laps of each phase since the last reset, summed over warps.
+int bilstm_bwd_probe_read(unsigned long long* cycles,
+                          unsigned long long* laps, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(cycles, g_probe_cycles,
+                                         sizeof(g_probe_cycles));
+  if (err == cudaSuccess) {
+    err = cudaMemcpyFromSymbol(laps, g_probe_laps, sizeof(g_probe_laps));
+  }
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[kPhases] = {};
+    err = cudaMemcpyToSymbol(g_probe_cycles, zero, sizeof(zero));
+    if (err == cudaSuccess) {
+      err = cudaMemcpyToSymbol(g_probe_laps, zero, sizeof(zero));
+    }
+  }
+  return err;
+}
+#endif
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 // Merged bidirectional LSTM layer forward, float32: the lean forward
-// (h only) and the residual-saving forward of training, one kernel body,
-// each either on pre-projected gate inputs or with the input projection
-// in the kernel.
+// (h only) and the residual-saving forward of training, each either on
+// pre-projected gate inputs (one kernel body) or with the input
+// projection in the kernel (a body of its own).
 //
 // Replaces: speechsplit_tpu/ops/pallas_lstm.py::_bd_infer_kernel (wrapper
 // _bd_infer), the TPU kernel that runs both directions of one BiLSTM layer
@@ -53,27 +53,38 @@
 // cell (g and c), made by the lane that already holds the values; the
 // lean instantiation compiles without them.
 //
-// The fused projection (kProj): a block needs the gate inputs of its own
-// units only, so no block waits on another's projection and the
-// projection adds no grid barrier. Once per fold of F steps (F up to 16,
-// the largest whose buffer fits beside a whole-batch h tile), the block
-// computes its 4 * units gate rows for the F * B (step, batch row) rows
-// of the fold: x and its W_ih rows staged through shared memory in
-// K-tiles of 32, double-buffered with cp.async so the next tile's loads
-// overlap this tile's sums, a 4x4 register tile of sums a thread (four
-// rows, one unit's four gates) in float32 FMAs over ascending k, then the
-// bias; the result stays in shared memory for the fold's F recurrence
-// steps. The backward direction's fold covers its own next F steps, so it
-// walks the folds back to front. The K-tiles share their space with the h
-// tile, which is staged only after the projection. The fused kernels have
-// an entry of their own (bilstm_fused_kernel: the launch in one struct,
-// __launch_bounds__(256, 1)); the unfused entry keeps its own parameter
-// list and bound, so its machine code does not move with theirs. Making
-// it fast (wgmma on the step product and the projection, clusters with
-// distributed shared memory in place of the grid barrier) is later work.
+// The fused kernels (bilstm_fused_kernel; kProj above) have an entry and
+// a body of their own, so the unfused kernels keep their machine code.
+// What bounds them beyond the recurrence: the projection's FMAs (4x the
+// step products' at I = 4H), with all of x read by every block of a
+// direction, and a projection computed between steps holds every step
+// back. What the design does about it:
+// - Two fold buffers. The gate inputs of fold k + 1 are computed in
+//   slices during fold k's steps, each slice a share of the K-tiles of
+//   all the fold's rows, added onto the partial sums in the buffer; a
+//   block needs the gate inputs of its own units only, so no block waits
+//   on another's projection.
+// - A split grid barrier (merged_step.cuh): a block arrives once its h
+//   stores of the step are made, runs its slice, then waits, so a slice
+//   fills the time the block would spend waiting on the slowest block.
+// - Every copy into shared memory is a 16-byte cp.async (4-byte ones only
+//   for rows that are not 16-byte aligned), all of a tile in flight at
+//   once; W_ih's rows go in once a fold. A slice's pass covers 256 fold
+//   rows, 8 rows x one unit's 4 gates a thread, in float32 FMAs over
+//   ascending k, then the bias in the slice that ends the fold's K-tiles.
+// - The step product: warp w owns unit w with its 4 gate rows of W_hh in
+//   registers at k = 4 lane + kk + 128 q, so one 16-byte shared load of
+//   h_{t-1} feeds 16 FMAs; 8 batch rows x 4 gates of partial sums are
+//   reduced by one butterfly (merged_step.cuh) that leaves lane 4 r + g
+//   the sum of row r, gate g, and lane 4 r applies the cell update.
+// - Thread-block clusters would share the staging of x and h across
+//   blocks, but a cooperative grid of 128 blocks at this shared memory
+//   fits the card only in clusters of 2 (PERF.md), so the grid has none.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "merged_step.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -83,14 +94,19 @@ constexpr int kMaxUnits = 8;   // hidden units (= warps) per block
 constexpr int kBC = 4;         // batch rows per register tile
 constexpr int kMaxH = 512;
 constexpr size_t kSmemBudget = 160 * 1024;
-// the fused projection: a (step, batch row) row of the fold buffer holds
-// the 4 gates of each of the block's units
+// The fused kernels. A (step, batch row) row of the fold buffer holds the
+// gate inputs of the block's units, unit-major, gates i f g o.
 constexpr int kGateRow = 4 * kMaxUnits;
-constexpr int kKT = 32;              // K-tile of the projection
-constexpr int kXS = kKT + 4;         // x tile row stride: aligned float4
-constexpr int kWS = kGateRow + 4;    // W_ih tile row stride: aligned float4
-constexpr int kMaxFold = 16;
+constexpr int kFusedThreads = kMaxUnits * 32;
+constexpr int kRound = 8;     // batch rows a warp sums at once (x 4 gates)
+constexpr int kKSpan = 128;   // k of h_{t-1} one pass covers, 4 a lane
+constexpr int kChunk = 256;   // fold rows a projection pass covers
+constexpr int kKT = 32;       // K-tile of the projection
+constexpr int kXS = kKT + 4;  // x and W_ih tile row stride: aligned float4
+constexpr int kMaxFold = 32;
 constexpr size_t kProjSmemBudget = 220 * 1024;
+static_assert(kRound * 4 == 32, "a round reduces 32 sums a warp");
+static_assert(kChunk == 8 * kFusedThreads / kMaxUnits, "8 rows a thread");
 
 // The input projection of the fused kernels.
 struct Proj {
@@ -114,7 +130,8 @@ struct Params {
   float* g_b;
   float* c_f;
   float* c_b;
-  Proj proj;  // kProj only
+  Proj proj;           // kProj only
+  unsigned* barrier;   // kProj only: zeroed before the launch
   int T, B, H;
   // the launch plan
   int blocks_per_dir, units, bt, region;
@@ -124,22 +141,22 @@ __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// Shared-memory floats of the projection's staging for a block of
-// `threads` threads: the global offsets of a chunk's threads / 2 rows of
-// x (64-bit), then two buffers, each an x K-tile [threads / 2][kXS] and a
-// W_ih K-tile [kKT][kWS].
-constexpr int proj_tile_floats(int threads) {
-  return 2 * (threads / 2) + 2 * ((threads / 2) * kXS + kKT * kWS);
+// Shared-memory floats of the projection's staging: the global offsets of
+// a pass's kChunk rows of x (64-bit), then two buffers, each an x K-tile
+// [kChunk][kXS] and a W_ih K-tile [kGateRow][kXS].
+constexpr int proj_tile_floats() {
+  return 2 * kChunk + 2 * (kChunk * kXS + kGateRow * kXS);
 }
 
 // The largest batch the fused kernels take: at fold 1 and one batch row
-// of h, each batch row holds kGateRow gate inputs and kMaxUnits cell
-// states beside the projection's staging. ops/bilstm.py reads the value
-// from this line, so the kernel is the one owner of the limit.
-constexpr int kMaxFusedBatch = 1113;
+// of h, each batch row holds two buffers of kGateRow gate inputs and
+// kMaxUnits cell states beside the projection's staging. ops/bilstm.py
+// reads the value from this line, so the kernel is the one owner of the
+// limit.
+constexpr int kMaxFusedBatch = 487;
 constexpr size_t fold1_floats(int batch) {
-  return static_cast<size_t>(batch) * (kGateRow + kMaxUnits) +
-         proj_tile_floats(kMaxUnits * 32);
+  return static_cast<size_t>(batch) * (2 * kGateRow + kMaxUnits) +
+         proj_tile_floats();
 }
 static_assert(fold1_floats(kMaxFusedBatch) <= kProjSmemBudget / 4 &&
                   fold1_floats(kMaxFusedBatch + 1) > kProjSmemBudget / 4,
@@ -155,167 +172,19 @@ constexpr int kUnfusedSmemFloats = 40960;
 static_assert(kUnfusedSmemFloats * sizeof(float) == kSmemBudget,
               "kUnfusedSmemFloats must be the unfused launch's budget");
 
-// cp.async: a 4-byte copy from global to shared memory that holds no
-// register while it is in flight; a src size of 0 writes a zero.
-__device__ __forceinline__ void copy_async4(float* dst, const float* src,
-                                            bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               ::"r"(d), "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void copy_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// The gate inputs of this block's units (unit0 .. unit0 + units - 1) for
-// steps s0 .. s0 + nk - 1 of direction dir, every batch row:
-// gates[(k * B + b) * kGateRow + wi * 4 + g] = bias[g*H + u] +
-// sum_i x[t][b][i] * wih[g*H + u][i], with u = unit0 + wi and t the time
-// index of step s0 + k. The rows go in chunks of threads / 2; thread
-// (row group mg, unit rg) sums rows 4 mg .. 4 mg + 3 of a chunk for the
-// four gates of unit rg. K-tiles are double-buffered: tile k + 1 is in
-// flight (cp.async) while tile k is summed. Called by every thread of
-// the block.
-__device__ void project_fold(const float* __restrict__ x,
-                             const float* __restrict__ wih,
-                             const float* __restrict__ bias,
-                             float* gates, float* tiles, int dir, int s0,
-                             int nk, int T, int B, int H, int I, int unit0,
-                             int units) {
-  const int threads = blockDim.x;
-  const int chunk = threads / 2;
-  const int rg = threadIdx.x & 7;
-  const int mg = threadIdx.x >> 3;
-  long long* row_off = reinterpret_cast<long long*>(tiles);  // [chunk]
-  float* bufs = tiles + 2 * chunk;
-  const int buf_floats = chunk * kXS + kKT * kWS;
-  const int rows = nk * B;
-  const int n_kt = (I + kKT - 1) / kKT;
-  const int u = unit0 + rg;
-  const bool unit_ok = rg < units && u < H;
-  float bias_r[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) bias_r[g] = unit_ok ? bias[g * H + u] : 0.0f;
-
-  // issue the copies of K-tile kt into buffer kt % 2
-  auto stage = [&](int kt) {
-    float* xs = bufs + (kt & 1) * buf_floats;
-    float* ws = xs + chunk * kXS;
-    const int k0 = kt * kKT;
-    for (int i = threadIdx.x; i < chunk * kKT; i += threads) {
-      const int r = i / kKT;
-      const int kk = i % kKT;
-      const long long off = row_off[r];
-      const bool ok = off >= 0 && k0 + kk < I;
-      copy_async4(xs + r * kXS + kk, ok ? x + off + k0 + kk : x, ok);
-    }
-    for (int i = threadIdx.x; i < kGateRow * kKT; i += threads) {
-      const int r = i / kKT;  // r = wi * 4 + g
-      const int kk = i % kKT;
-      const int wi = r >> 2;
-      const int uu = unit0 + wi;
-      const bool ok = wi < units && uu < H && k0 + kk < I;
-      copy_async4(ws + kk * kWS + r,
-                  ok ? wih + static_cast<size_t>((r & 3) * H + uu) * I +
-                           k0 + kk
-                     : wih,
-                  ok);
-    }
-    copy_async_commit();
-  };
-
-  for (int m0 = 0; m0 < rows; m0 += chunk) {
-    __syncthreads();  // the h tile's or the last chunk's readers are done
-    for (int r = threadIdx.x; r < chunk; r += threads) {
-      const int m = m0 + r;
-      long long off = -1;
-      if (m < rows) {
-        const int s = s0 + m / B;
-        const int t = dir == 0 ? s : T - 1 - s;
-        off = (static_cast<long long>(t) * B + m % B) * I;
-      }
-      row_off[r] = off;
-    }
-    __syncthreads();
-    float acc[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int g = 0; g < 4; ++g) acc[j][g] = 0.0f;
-    }
-    stage(0);
-    for (int kt = 0; kt < n_kt; ++kt) {
-      if (kt + 1 < n_kt) {
-        stage(kt + 1);
-        copy_async_wait<1>();
-      } else {
-        copy_async_wait<0>();
-      }
-      __syncthreads();  // tile kt is in place for every thread
-      const float* xs = bufs + (kt & 1) * buf_floats;
-      const float* ws = xs + chunk * kXS;
-      // zero-padded tiles: the padding adds exact zeros
-#pragma unroll
-      for (int kk = 0; kk < kKT; kk += 4) {
-        float xv[4][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              xs + (mg * 4 + j) * kXS + kk);
-          xv[j][0] = v.x;
-          xv[j][1] = v.y;
-          xv[j][2] = v.z;
-          xv[j][3] = v.w;
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 w4 =
-              *reinterpret_cast<const float4*>(ws + (kk + q) * kWS + rg * 4);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[j][0] = fmaf(xv[j][q], w4.x, acc[j][0]);
-            acc[j][1] = fmaf(xv[j][q], w4.y, acc[j][1]);
-            acc[j][2] = fmaf(xv[j][q], w4.z, acc[j][2]);
-            acc[j][3] = fmaf(xv[j][q], w4.w, acc[j][3]);
-          }
-        }
-      }
-      __syncthreads();  // every thread is done with tile kt
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + mg * 4 + j;
-      if (m < rows) {
-        *reinterpret_cast<float4*>(gates + static_cast<size_t>(m) * kGateRow +
-                                   rg * 4) =
-            make_float4(acc[j][0] + bias_r[0], acc[j][1] + bias_r[1],
-                        acc[j][2] + bias_r[2], acc[j][3] + bias_r[3]);
-      }
-    }
-  }
-  __syncthreads();  // the fold's gate inputs are in place
-}
-
-// The recurrence of both directions, shared by the kernels below. Shared
+// The recurrence of both directions on pre-projected gate inputs. Shared
 // memory: h_s [bt][H], the tile of h_{t-1}; c_s [units_per_block][B],
-// the cell state; without kProj x_s [units_per_block][bt][4], a step's
-// gate inputs of the block's units; with kProj gates [fold][B][kGateRow],
-// the fold's gate inputs, and h_s also holds the projection's K-tiles.
-template <int KPL, bool kResid, bool kProj>
+// the cell state; x_s [units_per_block][bt][4], a step's gate inputs of
+// the block's units.
+template <int KPL, bool kResid>
 __device__ __forceinline__ void recurrence(
-    float* h_s, float* c_s, float* x_s, float* gates,
+    float* h_s, float* c_s, float* x_s,
     const float* __restrict__ xp_f, const float* __restrict__ xp_b,
     const float* __restrict__ w_f, const float* __restrict__ w_b,
     float* h_f, float* h_b, float* __restrict__ g_f,
     float* __restrict__ g_b, float* __restrict__ c_f,
     float* __restrict__ c_b, int T, int B, int H, int blocks_per_dir,
-    int units_per_block, int bt, const Proj& q) {
+    int units_per_block, int bt) {
   cg::grid_group grid = cg::this_grid();
 
   const int dir = blockIdx.x / blocks_per_dir;
@@ -349,32 +218,21 @@ __device__ __forceinline__ void recurrence(
   for (int s = 0; s < T; ++s) {
     const int t = dir == 0 ? s : T - 1 - s;
     const int tp = dir == 0 ? t - 1 : t + 1;  // previous step's time index
-    const int k_fold = kProj ? s % q.fold : 0;  // step within its fold
-    if constexpr (kProj) {
-      if (k_fold == 0) {
-        project_fold(q.x, dir == 0 ? q.wi_f : q.wi_b,
-                     dir == 0 ? q.b_f : q.b_b, gates, h_s, dir, s,
-                     min(q.fold, T - s), T, B, H, q.I,
-                     blk * units_per_block, units_per_block);
-      }
-    }
     for (int b0 = 0; b0 < B; b0 += bt) {
       const int nb = min(bt, B - b0);
       __syncthreads();  // the previous tile's readers are done with smem
-      if constexpr (!kProj) {
-        // this tile's gate inputs of the block's units, gathered once per
-        // step so the cell updates below do not each wait on global memory
-        for (int i = threadIdx.x; i < units_per_block * nb * 4;
-             i += blockDim.x) {
-          const int w_i = i / (nb * 4);
-          const int bb = (i / 4) % nb;
-          const int g = i % 4;
-          const int u_i = blk * units_per_block + w_i;
-          x_s[(w_i * bt + bb) * 4 + g] =
-              u_i < H ? xp[(static_cast<size_t>(t) * B + b0 + bb) * 4 * H +
-                           g * H + u_i]
-                      : 0.0f;
-        }
+      // this tile's gate inputs of the block's units, gathered once per
+      // step so the cell updates below do not each wait on global memory
+      for (int i = threadIdx.x; i < units_per_block * nb * 4;
+           i += blockDim.x) {
+        const int w_i = i / (nb * 4);
+        const int bb = (i / 4) % nb;
+        const int g = i % 4;
+        const int u_i = blk * units_per_block + w_i;
+        x_s[(w_i * bt + bb) * 4 + g] =
+            u_i < H ? xp[(static_cast<size_t>(t) * B + b0 + bb) * 4 * H +
+                         g * H + u_i]
+                    : 0.0f;
       }
       if (s > 0) {
         // written by other blocks during the kernel: read through L2
@@ -441,11 +299,7 @@ __device__ __forceinline__ void recurrence(
         }
         if (lane < kBC && bc + lane < nb) {
           const int b = b0 + bc + lane;
-          const float* x =
-              kProj ? gates +
-                          (static_cast<size_t>(k_fold) * B + b) * kGateRow +
-                          warp * 4
-                    : x_s + (warp * bt + bc + lane) * 4;
+          const float* x = x_s + (warp * bt + bc + lane) * 4;
           const float i_g = sigmoid_f(x[0] + gi);
           const float f_g = sigmoid_f(x[1] + gf);
           const float g_g = tanhf(x[2] + gg);
@@ -486,49 +340,368 @@ bilstm_infer_kernel(const float* __restrict__ xp_f,
   float* h_s = smem;
   float* c_s = h_s + bt * H;
   float* x_s = c_s + units_per_block * B;
-  recurrence<KPL, kResid, false>(h_s, c_s, x_s, nullptr, xp_f, xp_b, w_f,
-                                 w_b, h_f, h_b, g_f, g_b, c_f, c_b, T, B, H,
-                                 blocks_per_dir, units_per_block, bt, Proj{});
+  recurrence<KPL, kResid>(h_s, c_s, x_s, xp_f, xp_b, w_f, w_b, h_f, h_b,
+                          g_f, g_b, c_f, c_b, T, B, H, blocks_per_dir,
+                          units_per_block, bt);
+}
+
+// K-tiles kt_lo .. kt_hi - 1 of the gate inputs of `rows` fold rows (row
+// m: step s0 + m / B, batch row m % B) of this block's units, added to
+// the partial sums in gates[m][kGateRow] (kt_lo = 0 starts them from
+// zero; kt_hi = the last tile adds the bias): gates[m][wi * 4 + g] +=
+// sum_i x[t][b][i] * wih[g*H + unit0 + wi][i] over the tiles' i, in
+// ascending i. A pass covers kChunk rows, 8 a thread, so thread (row
+// group mg, unit rg) keeps 8 x 4 sums, of rows mg + 32 j (neighbouring
+// row groups in neighbouring rows: a warp's shared loads of x meet no
+// bank conflict). The K-tiles are double-buffered, tile k + 1 in flight
+// (cp.async) while tile k is summed. Called by every thread of the
+// block; `tiles` is proj_tile_floats() of shared memory.
+__device__ void project_slice(const Proj& q, const float* __restrict__ wih,
+                              const float* __restrict__ bias, float* gates,
+                              float* tiles, int dir, int s0, int rows,
+                              int T, int B, int H, int unit0, int nu,
+                              int kt_lo, int kt_hi) {
+  if (kt_lo >= kt_hi) return;  // block-uniform
+  const int I = q.I;
+  const int n_kt = (I + kKT - 1) / kKT;
+  const int tid = threadIdx.x;
+  const int rg = tid & 7;
+  const int mg = tid >> 3;
+  long long* row_off = reinterpret_cast<long long*>(tiles);  // [kChunk]
+  float* bufs = tiles + 2 * kChunk;
+  constexpr int kBufFloats = (kChunk + kGateRow) * kXS;
+  const bool quads = (I & 3) == 0;  // x and W_ih rows in 16-byte copies
+  const bool last = kt_hi == n_kt;
+  float bias_r[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    bias_r[g] = last && rg < nu ? bias[g * H + unit0 + rg] : 0.0f;
+  }
+
+  // issue the copies of K-tile kt into buffer kt % 2: x [kChunk][kXS],
+  // then W_ih [g * 8 + wi][kXS]
+  auto stage = [&](int kt) {
+    float* xs = bufs + (kt & 1) * kBufFloats;
+    float* ws = xs + kChunk * kXS;
+    const int k0 = kt * kKT;
+    if (quads) {
+      for (int i = tid; i < kChunk * (kKT / 4); i += kFusedThreads) {
+        const int r = i / (kKT / 4);
+        const int k = k0 + 4 * (i % (kKT / 4));
+        const long long off = row_off[r];
+        const bool ok = off >= 0 && k < I;
+        step::copy16(xs + r * kXS + k - k0, ok ? q.x + off + k : q.x,
+                          ok);
+      }
+      for (int i = tid; i < kGateRow * (kKT / 4); i += kFusedThreads) {
+        const int r = i / (kKT / 4);  // r = g * 8 + wi
+        const int k = k0 + 4 * (i % (kKT / 4));
+        const int wi = r & 7;
+        const bool ok = wi < nu && k < I;
+        step::copy16(
+            ws + r * kXS + k - k0,
+            ok ? wih + static_cast<size_t>((r >> 3) * H + unit0 + wi) * I + k
+               : wih,
+            ok);
+      }
+    } else {
+      for (int i = tid; i < kChunk * kKT; i += kFusedThreads) {
+        const int r = i / kKT;
+        const int k = k0 + i % kKT;
+        const long long off = row_off[r];
+        const bool ok = off >= 0 && k < I;
+        step::copy4(xs + r * kXS + k - k0, ok ? q.x + off + k : q.x,
+                         ok);
+      }
+      for (int i = tid; i < kGateRow * kKT; i += kFusedThreads) {
+        const int r = i / kKT;
+        const int k = k0 + i % kKT;
+        const int wi = r & 7;
+        const bool ok = wi < nu && k < I;
+        step::copy4(
+            ws + r * kXS + k - k0,
+            ok ? wih + static_cast<size_t>((r >> 3) * H + unit0 + wi) * I + k
+               : wih,
+            ok);
+      }
+    }
+    step::commit();
+  };
+
+  for (int m0 = 0; m0 < rows; m0 += kChunk) {
+    __syncthreads();  // the region's last readers are done
+    for (int r = tid; r < kChunk; r += kFusedThreads) {
+      const int m = m0 + r;
+      long long off = -1;
+      if (m < rows) {
+        const int s = s0 + m / B;
+        const int t = dir == 0 ? s : T - 1 - s;
+        off = (static_cast<long long>(t) * B + m % B) * I;
+      }
+      row_off[r] = off;
+    }
+    __syncthreads();
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int m = m0 + mg + 32 * j;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (kt_lo > 0 && m < rows) {
+        v = *reinterpret_cast<const float4*>(
+            gates + static_cast<size_t>(m) * kGateRow + rg * 4);
+      }
+      acc[j][0] = v.x;
+      acc[j][1] = v.y;
+      acc[j][2] = v.z;
+      acc[j][3] = v.w;
+    }
+    stage(kt_lo);
+    for (int kt = kt_lo; kt < kt_hi; ++kt) {
+      if (kt + 1 < kt_hi) {
+        stage(kt + 1);
+        step::wait<1>();
+      } else {
+        step::wait<0>();
+      }
+      __syncthreads();  // tile kt is in place for every thread
+      const float* xs = bufs + (kt & 1) * kBufFloats;
+      const float* ws = xs + kChunk * kXS;
+      // zero-padded tiles: the padding adds exact zeros
+#pragma unroll 2
+      for (int kk = 0; kk < kKT; kk += 4) {
+        float4 wv[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          wv[g] = *reinterpret_cast<const float4*>(ws + (g * 8 + rg) * kXS +
+                                                   kk);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 xv = *reinterpret_cast<const float4*>(
+              xs + (mg + 32 * j) * kXS + kk);
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            acc[j][g] = fmaf(xv.x, wv[g].x, acc[j][g]);
+            acc[j][g] = fmaf(xv.y, wv[g].y, acc[j][g]);
+            acc[j][g] = fmaf(xv.z, wv[g].z, acc[j][g]);
+            acc[j][g] = fmaf(xv.w, wv[g].w, acc[j][g]);
+          }
+        }
+      }
+      __syncthreads();  // every thread is done with tile kt
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int m = m0 + mg + 32 * j;
+      if (m < rows) {
+        *reinterpret_cast<float4*>(gates + static_cast<size_t>(m) * kGateRow +
+                                   rg * 4) =
+            make_float4(acc[j][0] + bias_r[0], acc[j][1] + bias_r[1],
+                        acc[j][2] + bias_r[2], acc[j][3] + bias_r[3]);
+      }
+    }
+  }
 }
 
 // The kernels with the projection inside (bilstm_fused_infer,
-// bilstm_fused_fwd). A cooperative grid of at most 128 blocks uses one
-// block an SM, so the bound lets the compiler take up to 255 registers.
-template <int KPL, bool kResid>
-__global__ void __launch_bounds__(kMaxUnits * 32, 1)
+// bilstm_fused_fwd). A block of kFusedThreads threads owns up to 8 units;
+// warp wi owns unit unit0 + wi and holds its four gate rows of W_hh for
+// k = 4 lane + kk + kKSpan q in registers. Shared memory: gates
+// [2][fold][B][kGateRow], two fold buffers of gate inputs; a region that
+// holds h_{t-1}'s tile [bt][Hp] (H padded to 4) or, between a block's
+// arrival at the step barrier and its wait, the projection's K-tiles;
+// c_s [units][B], the cell state. A cooperative grid of at most 128
+// blocks uses one block an SM, so the bound lets the compiler take up to
+// 255 registers.
+template <int KQ, bool kResid>  // passes of kKSpan: ceil(H / kKSpan)
+__global__ void __launch_bounds__(kFusedThreads, 1)
 bilstm_fused_kernel(const Params p) {
   extern __shared__ __align__(16) float smem_fused[];
+  const int T = p.T, B = p.B, H = p.H, F = p.proj.fold, bt = p.bt;
+  const int Hp = (H + 3) & ~3;
+  const size_t fold_floats = static_cast<size_t>(F) * B * kGateRow;
   float* gates = smem_fused;
-  float* h_s = gates + static_cast<size_t>(p.proj.fold) * p.B * kGateRow;
+  float* h_s = gates + 2 * fold_floats;
   float* c_s = h_s + p.region;
-  recurrence<KPL, kResid, true>(h_s, c_s, nullptr, gates, nullptr, nullptr,
-                                p.w_f, p.w_b, p.h_f, p.h_b, p.g_f, p.g_b,
-                                p.c_f, p.c_b, p.T, p.B, p.H, p.blocks_per_dir,
-                                p.units, p.bt, p.proj);
+
+  const int dir = blockIdx.x / p.blocks_per_dir;
+  const int blk = blockIdx.x % p.blocks_per_dir;
+  const float* w = dir == 0 ? p.w_f : p.w_b;
+  const float* wih = dir == 0 ? p.proj.wi_f : p.proj.wi_b;
+  const float* bias = dir == 0 ? p.proj.b_f : p.proj.b_b;
+  float* hout = dir == 0 ? p.h_f : p.h_b;
+  float* gout = dir == 0 ? p.g_f : p.g_b;
+  float* cout = dir == 0 ? p.c_f : p.c_b;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int unit0 = blk * p.units;
+  const int nu = min(p.units, H - unit0);  // this block's units
+  const int u = unit0 + warp;
+  const bool active = warp < nu;
+  const int n_kt = (p.proj.I + kKT - 1) / kKT;
+  step::Barrier bar(p.barrier);
+
+  // this warp's four gate rows of W_hh at k = kKSpan q + 4 lane + kk
+  float wr[KQ][4][4];
+#pragma unroll
+  for (int q = 0; q < KQ; ++q) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = kKSpan * q + 4 * lane + kk;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        wr[q][kk][g] = (active && k < H)
+                           ? w[static_cast<size_t>(g * H + u) * H + k]
+                           : 0.0f;
+      }
+    }
+  }
+  for (int i = tid; i < p.units * B; i += kFusedThreads) c_s[i] = 0.0f;
+
+  // fold 0's gate inputs before the first step
+  project_slice(p.proj, wih, bias, gates, h_s, dir, 0, min(F, T) * B, T, B,
+                H, unit0, nu, 0, n_kt);
+
+  for (int s = 0; s < T; ++s) {
+    const int t = dir == 0 ? s : T - 1 - s;
+    const int tp = dir == 0 ? t - 1 : t + 1;  // previous step's time index
+    const int fold = s / F;
+    const int k_fold = s - fold * F;  // step within its fold
+    const float* xg = gates + (fold & 1) * fold_floats +
+                      static_cast<size_t>(k_fold) * B * kGateRow;
+    if (s > 0) bar.wait();  // every block's h of step s - 1 is stored
+    for (int b0 = 0; b0 < B; b0 += bt) {
+      const int nb = min(bt, B - b0);
+      __syncthreads();  // the region's last readers are done
+      if (s > 0) {
+        // h_{t-1}, written by every block in the step before: 16-byte
+        // copies through L2, all in flight at once
+        const float* src = hout + (static_cast<size_t>(tp) * B + b0) * H;
+        if (Hp == H) {
+          for (int i = tid; i < nb * H / 4; i += kFusedThreads) {
+            step::copy16(h_s + 4 * i, src + 4 * i);
+          }
+        } else {
+          for (int i = tid; i < nb * Hp; i += kFusedThreads) {
+            const int r = i / Hp;
+            const int k = i % Hp;
+            step::copy4(h_s + i, k < H ? src + r * H + k : src, k < H);
+          }
+        }
+        step::commit();
+        step::wait<0>();
+      } else {
+        for (int i = tid; i < nb * Hp; i += kFusedThreads) h_s[i] = 0.0f;
+      }
+      __syncthreads();
+      if (!active) continue;  // warp-uniform
+      for (int r0 = 0; r0 < nb; r0 += kRound) {
+        float acc[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+#pragma unroll
+        for (int q = 0; q < KQ; ++q) {
+          const int k = kKSpan * q + 4 * lane;
+          if (k < Hp) {
+#pragma unroll
+            for (int r = 0; r < kRound; ++r) {
+              if (r0 + r < nb) {
+                const float4 hv =
+                    *reinterpret_cast<const float4*>(h_s + (r0 + r) * Hp + k);
+#pragma unroll
+                for (int g = 0; g < 4; ++g) {
+                  const int x = r * 4 + g;
+                  acc[x] = fmaf(hv.x, wr[q][0][g], acc[x]);
+                  acc[x] = fmaf(hv.y, wr[q][1][g], acc[x]);
+                  acc[x] = fmaf(hv.z, wr[q][2][g], acc[x]);
+                  acc[x] = fmaf(hv.w, wr[q][3][g], acc[x]);
+                }
+              }
+            }
+          }
+        }
+        // lane 4 r + g: gate g of round row r; lane 4 r gathers its row
+        const float sum = step::reduce_scatter32(acc, lane);
+        const int base = lane & ~3;
+        const float gi = __shfl_sync(0xffffffffu, sum, base);
+        const float gf = __shfl_sync(0xffffffffu, sum, base + 1);
+        const float gg = __shfl_sync(0xffffffffu, sum, base + 2);
+        const float go = __shfl_sync(0xffffffffu, sum, base + 3);
+        const int bb = r0 + (lane >> 2);
+        if ((lane & 3) == 0 && bb < nb) {
+          const int b = b0 + bb;
+          const float4 x = *reinterpret_cast<const float4*>(
+              xg + static_cast<size_t>(b) * kGateRow + warp * 4);
+          const float i_g = sigmoid_f(x.x + gi);
+          const float f_g = sigmoid_f(x.y + gf);
+          const float g_g = tanhf(x.z + gg);
+          const float o_g = sigmoid_f(x.w + go);
+          float* c = c_s + warp * B + b;
+          const float c_new = f_g * *c + i_g * g_g;
+          *c = c_new;
+          const size_t row = static_cast<size_t>(t) * B + b;
+          hout[row * H + u] = o_g * tanhf(c_new);
+          if constexpr (kResid) {
+            float* gr = gout + row * 4 * H;
+            gr[u] = i_g;
+            gr[H + u] = f_g;
+            gr[2 * H + u] = g_g;
+            gr[3 * H + u] = o_g;
+            cout[row * H + u] = c_new;
+          }
+        }
+      }
+    }
+    bar.arrive();
+    // Before the wait: a slice of the next fold's projection into the
+    // other buffer (its readers finished with the fold before this one).
+    // The fold's steps share its K-tiles evenly, so the next fold is
+    // complete once this fold's last step has run its slice.
+    const int next = (fold + 1) * F;
+    if (next < T) {
+      const int steps = min(F, T - fold * F);
+      project_slice(p.proj, wih, bias, gates + ((fold + 1) & 1) * fold_floats,
+                    h_s, dir, next, min(F, T - next) * B, T, B, H, unit0, nu,
+                    n_kt * k_fold / steps, n_kt * (k_fold + 1) / steps);
+    }
+  }
 }
 
-// Shared-memory plan of the fused kernels: the fold buffer, a region that
-// holds the h tile or the projection's K-tiles, and the cell state. Takes
-// the largest fold up to kMaxFold beside a whole-batch h tile; where even
-// fold 1 does not leave room for one, fold 1 and a batch-tiled h.
-// Returns false when one batch row of h does not fit.
-bool plan_fused(Params& p, int threads, size_t* smem) {
+// Shared-memory plan of the fused kernels: two fold buffers, a region
+// that holds the h tile or the projection's K-tiles, and the cell state.
+// Of the folds up to kMaxFold whose buffers fit beside a whole-batch h
+// tile it takes the one with the fewest projection rows a step (a pass
+// covers kChunk rows, so a fold of F steps costs ceil(F B / kChunk)
+// passes), the smaller on a tie; where even fold 1 does not leave room,
+// fold 1 and a batch-tiled h. Returns false when one batch row of h does
+// not fit.
+bool plan_fused(Params& p, size_t* smem) {
   const size_t budget = kProjSmemBudget / sizeof(float);
   const size_t c_floats = static_cast<size_t>(p.units) * p.B;
-  const size_t tiles = proj_tile_floats(threads);
+  const size_t tiles = proj_tile_floats();
+  const size_t hp = (p.H + 3) & ~3;
   auto total = [&](int fold, int bt, size_t* region) {
-    const size_t h = static_cast<size_t>(bt) * p.H;
+    const size_t h = static_cast<size_t>(bt) * hp;
     *region = ((h > tiles ? h : tiles) + 3) / 4 * 4;  // keeps c_s aligned
-    return static_cast<size_t>(fold) * p.B * kGateRow + *region + c_floats;
+    return 2 * static_cast<size_t>(fold) * p.B * kGateRow + *region +
+           c_floats;
   };
   size_t region = 0;
-  int fold = p.T < kMaxFold ? p.T : kMaxFold;
-  while (fold > 1 && total(fold, p.B, &region) > budget) --fold;
+  int fold = 1;
+  // a fold of f steps costs passes(f) / f passes a step; the folds are
+  // compared by cross-multiplying
+  auto passes = [&](int f) { return (f * p.B + kChunk - 1) / kChunk; };
+  for (int f = 2; f <= (p.T < kMaxFold ? p.T : kMaxFold); ++f) {
+    if (total(f, p.B, &region) > budget) break;
+    if (passes(f) * fold < passes(fold) * f) fold = f;
+  }
   int bt = p.B;
   if (total(fold, bt, &region) > budget) {
-    const size_t fixed = static_cast<size_t>(fold) * p.B * kGateRow + c_floats;
+    const size_t fixed =
+        2 * static_cast<size_t>(fold) * p.B * kGateRow + c_floats;
     if (fixed + tiles > budget) return false;
-    bt = static_cast<int>((budget - fixed) / p.H);
+    bt = static_cast<int>((budget - fixed) / hp);
     if (bt > p.B) bt = p.B;
     if (bt < 1 || total(fold, bt, &region) > budget) return false;
   }
@@ -540,66 +713,43 @@ bool plan_fused(Params& p, int threads, size_t* smem) {
   return true;
 }
 
-// Sets the kernel's shared memory, checks that its grid can be
-// co-resident, and launches it cooperatively.
-template <typename Kernel>
-cudaError_t launch_cooperative(Kernel kernel, int grid, int threads,
-                               size_t smem, void** args,
-                               cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0, coop = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                    device)) != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, threads, smem)) != cudaSuccess) return err;
-  if (per_sm * sms < grid) return cudaErrorCooperativeLaunchTooLarge;
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                    dim3(grid), dim3(threads), args, smem,
-                                    stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-template <int KPL, bool kResid, bool kProj>
+template <int KPL, bool kResid>
 cudaError_t launch(Params p, cudaStream_t stream) {
   p.units = p.H < kMaxUnits ? p.H : kMaxUnits;
   p.blocks_per_dir = (p.H + p.units - 1) / p.units;
   const int threads = p.units * 32;
   const int grid = 2 * p.blocks_per_dir;
-  size_t smem = 0;
-  if constexpr (kProj) {
-    if (!plan_fused(p, threads, &smem)) {
-      return cudaErrorInvalidValue;  // batch too large for the fold buffer
-    }
-    void* args[] = {&p};
-    return launch_cooperative(bilstm_fused_kernel<KPL, kResid>, grid,
-                              threads, smem, args, stream);
-  } else {
-    // cell state [units][B], then per batch row of a tile: h_{t-1} [H]
-    // and the units' gate inputs [units][4]
-    const size_t c_bytes = static_cast<size_t>(p.units) * p.B * sizeof(float);
-    const size_t row_bytes =
-        static_cast<size_t>(p.H + 4 * p.units) * sizeof(float);
-    if (c_bytes + row_bytes > kSmemBudget) {
-      return cudaErrorInvalidValue;  // batch too large for the cell state
-    }
-    int bt = static_cast<int>((kSmemBudget - c_bytes) / row_bytes);
-    if (bt > p.B) bt = p.B;
-    p.bt = bt;
-    smem = c_bytes + static_cast<size_t>(bt) * row_bytes;
-    void* args[] = {&p.xp_f, &p.xp_b, &p.w_f, &p.w_b, &p.h_f, &p.h_b,
-                    &p.g_f,  &p.g_b,  &p.c_f, &p.c_b, &p.T,   &p.B,
-                    &p.H,    &p.blocks_per_dir, &p.units, &p.bt};
-    return launch_cooperative(bilstm_infer_kernel<KPL, kResid>, grid,
-                              threads, smem, args, stream);
+  // cell state [units][B], then per batch row of a tile: h_{t-1} [H]
+  // and the units' gate inputs [units][4]
+  const size_t c_bytes = static_cast<size_t>(p.units) * p.B * sizeof(float);
+  const size_t row_bytes =
+      static_cast<size_t>(p.H + 4 * p.units) * sizeof(float);
+  if (c_bytes + row_bytes > kSmemBudget) {
+    return cudaErrorInvalidValue;  // batch too large for the cell state
   }
+  int bt = static_cast<int>((kSmemBudget - c_bytes) / row_bytes);
+  if (bt > p.B) bt = p.B;
+  p.bt = bt;
+  const size_t smem = c_bytes + static_cast<size_t>(bt) * row_bytes;
+  void* args[] = {&p.xp_f, &p.xp_b, &p.w_f, &p.w_b, &p.h_f, &p.h_b,
+                  &p.g_f,  &p.g_b,  &p.c_f, &p.c_b, &p.T,   &p.B,
+                  &p.H,    &p.blocks_per_dir, &p.units, &p.bt};
+  return step::launch_cooperative(bilstm_infer_kernel<KPL, kResid>, grid,
+                            threads, smem, args, stream);
+}
+
+template <int KQ, bool kResid>
+cudaError_t launch_fused(Params p, cudaStream_t stream) {
+  p.units = p.H < kMaxUnits ? p.H : kMaxUnits;
+  p.blocks_per_dir = (p.H + p.units - 1) / p.units;
+  size_t smem = 0;
+  if (!plan_fused(p, &smem)) {
+    return cudaErrorInvalidValue;  // batch too large for the fold buffers
+  }
+  void* args[] = {&p};
+  return step::launch_cooperative(bilstm_fused_kernel<KQ, kResid>,
+                            2 * p.blocks_per_dir, kFusedThreads, smem, args,
+                            stream);
 }
 
 template <bool kResid, bool kProj>
@@ -613,12 +763,19 @@ int dispatch(const Params& p, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   auto s = static_cast<cudaStream_t>(stream);
-  const int kpl = (p.H + 31) / 32;
-  if (kpl <= 1) return launch<1, kResid, kProj>(p, s);
-  if (kpl <= 2) return launch<2, kResid, kProj>(p, s);
-  if (kpl <= 4) return launch<4, kResid, kProj>(p, s);
-  if (kpl <= 8) return launch<8, kResid, kProj>(p, s);
-  return launch<16, kResid, kProj>(p, s);
+  if constexpr (kProj) {
+    const int kq = (p.H + kKSpan - 1) / kKSpan;
+    if (kq <= 1) return launch_fused<1, kResid>(p, s);
+    if (kq <= 2) return launch_fused<2, kResid>(p, s);
+    return launch_fused<4, kResid>(p, s);
+  } else {
+    const int kpl = (p.H + 31) / 32;
+    if (kpl <= 1) return launch<1, kResid>(p, s);
+    if (kpl <= 2) return launch<2, kResid>(p, s);
+    if (kpl <= 4) return launch<4, kResid>(p, s);
+    if (kpl <= 8) return launch<8, kResid>(p, s);
+    return launch<16, kResid>(p, s);
+  }
 }
 
 Params outputs(void* h_f, void* h_b, void* g_f, void* g_b, void* c_f,
@@ -642,8 +799,10 @@ Params outputs(void* h_f, void* h_b, void* g_f, void* g_b, void* c_f,
 Params fused(const void* x, const void* wi_f, const void* wi_b,
              const void* b_f, const void* b_b, const void* w_f,
              const void* w_b, void* h_f, void* h_b, void* g_f, void* g_b,
-             void* c_f, void* c_b, int T, int B, int H, int I) {
+             void* c_f, void* c_b, void* barrier, int T, int B, int H,
+             int I) {
   Params p = outputs(h_f, h_b, g_f, g_b, c_f, c_b, w_f, w_b, T, B, H);
+  p.barrier = static_cast<unsigned*>(barrier);
   p.proj.x = static_cast<const float*>(x);
   p.proj.wi_f = static_cast<const float*>(wi_f);
   p.proj.wi_b = static_cast<const float*>(wi_b);
@@ -681,16 +840,17 @@ int bilstm_fwd_launch(const void* xp_f, const void* xp_b, const void* w_f,
 }
 
 // Lean forward with the input projection in the kernel: x [T, B, I],
-// wi_f, wi_b [4H, I], b_f, b_b [4H]. Returns a cudaError_t (0 on
-// success). Does not synchronise.
+// wi_f, wi_b [4H, I], b_f, b_b [4H]; barrier: one 32-bit word, zero at
+// the launch. Returns a cudaError_t (0 on success). Does not synchronise.
 int bilstm_fused_infer_launch(const void* x, const void* wi_f,
                               const void* wi_b, const void* b_f,
                               const void* b_b, const void* w_f,
-                              const void* w_b, void* h_f, void* h_b, int T,
-                              int B, int H, int I, int device, void* stream) {
+                              const void* w_b, void* h_f, void* h_b,
+                              void* barrier, int T, int B, int H, int I,
+                              int device, void* stream) {
   return dispatch<false, true>(
       fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b, h_f, h_b, nullptr, nullptr,
-            nullptr, nullptr, T, B, H, I),
+            nullptr, nullptr, barrier, T, B, H, I),
       device, stream);
 }
 
@@ -700,11 +860,12 @@ int bilstm_fused_fwd_launch(const void* x, const void* wi_f,
                             const void* wi_b, const void* b_f,
                             const void* b_b, const void* w_f,
                             const void* w_b, void* h_f, void* h_b, void* g_f,
-                            void* g_b, void* c_f, void* c_b, int T, int B,
-                            int H, int I, int device, void* stream) {
+                            void* g_b, void* c_f, void* c_b, void* barrier,
+                            int T, int B, int H, int I, int device,
+                            void* stream) {
   return dispatch<true, true>(
       fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b, h_f, h_b, g_f, g_b, c_f, c_b,
-            T, B, H, I),
+            barrier, T, B, H, I),
       device, stream);
 }
 

@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``: no
 PyTorch headers are compiled, so a build takes seconds. Libraries go
 into ``speechsplit_tpu_torch/_build/`` (listed in ``.gitignore``), named
-by a hash of their source and flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is. The first call builds every source
+by a hash of their source, the ``csrc/*.cuh`` headers it includes and
+the flags, so an edited source or header is rebuilt and an unchanged
+one is loaded as it is. The first call builds every source
 at once, one ``nvcc`` process each.
 
 Nothing is built at import time: the CPU tests import every module on
@@ -51,9 +52,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _headers(source: Path) -> list[Path]:
+    """The ``csrc/*.cuh`` headers a source includes (``#include "x.cuh"``)."""
+    names = re.findall(r'^#include "([\w.]+\.cuh)"', source.read_text(), re.M)
+    return [source.parent / name for name in names]
+
+
 def _target(source: Path) -> Path:
+    """The library of ``source``, named by a hash of the source, the
+    headers it includes and the flags."""
+    text = b"".join(p.read_bytes() for p in (source, *_headers(source)))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        text + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 

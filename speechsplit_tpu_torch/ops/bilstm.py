@@ -155,9 +155,12 @@ def merged_max_batch(h: int, grad: bool = False) -> int:
     """The largest batch the merged kernels a layer of width ``h`` runs
     can take: ``bilstm_infer`` (5052 rows at H=512, 5115 at H=8), and
     under autograd also ``bilstm_fwd`` (the same plan) and ``bilstm_bwd``
-    (4856 at H=512). Each kernel holds its cell state (the gradient's dc
-    carry), [units][B] with units = min(H, 8), and one batch row of its
-    staging in the shared memory its source states."""
+    (4842 at H=512, 4970 at H=256, 5094 at H=8). Each kernel holds its
+    cell state (the gradient's dc carry), [units][B] with units = min(H,
+    8), and one batch row of its staging in the shared memory its source
+    states: h_{t-1} and 4 gate inputs a unit for the forward; for the
+    gradient the previous d_pre (4H) and ``kVals`` floats a unit (the 8
+    warps' partial sums and two buffers of 7 residuals)."""
     units = min(h, _INFER_UNITS)
     limit = (_INFER_SMEM_FLOATS - h - 4 * units) // units
     if grad:
@@ -178,10 +181,11 @@ def merged_bidir_fits(t: int, b: int, h: int, grad: bool = False) -> bool:
     budget: Mosaic's VMEM for the resident W_hh of both directions and
     the double-buffered blocks of a fold of steps, which refuses B above
     about 950 at H=512. It is not carried over: the CUDA kernels hold up
-    to 5052 rows at H=512 in one launch, and JAX's threshold would move
-    the mel decoder of a conversion of about 137 to 721 pairs (7 rows a
-    pair) off that launch onto two serial single-direction ones, which
-    the H100 runs 2.2x slower at 1024 rows (PERF.md). So the two plans
+    to 5052 rows at H=512 in one launch (4842 under autograd), and JAX's
+    threshold would move the mel decoder of a conversion of about 137 to
+    721 pairs (7 rows a pair) off that launch onto two serial
+    single-direction ones, which the H100 runs 2.2x slower at 1024 rows
+    (PERF.md). So the two plans
     differ between about 950 and 5052 rows at H=512. The numerics do not
     depend on the route: both compute the same sums, and agree to float32
     rounding."""
@@ -204,9 +208,9 @@ def fused_proj_plan(t: int, b: int, h: int, i: int, dtype) -> bool:
     H=512). The numerics do not depend on the route: fused and composed
     compute the same sums.
 
-    "auto" is a parity switch on the H100, not a speed-up: in float32 the
-    fused kernels lose to the composed path at the wide layers (I = 512,
-    1024) and win a little at the narrow ones (PERF.md, PR 3)."""
+    "auto" is a parity switch: it stays off by default, and a plan that
+    turns it on waits for the conversion measurements (PERF.md, ROADMAP
+    B)."""
     if PROJ_FUSION not in ("off", "auto"):
         raise ValueError(f"PROJ_FUSION must be 'off' or 'auto', got "
                          f"{PROJ_FUSION!r}")
@@ -303,10 +307,10 @@ def _library():
     lib.bilstm_fwd_launch.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.bilstm_fwd_launch.restype = ctypes.c_int
-    lib.bilstm_fused_infer_launch.argtypes = [ctypes.c_void_p] * 9 + [
+    lib.bilstm_fused_infer_launch.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.bilstm_fused_infer_launch.restype = ctypes.c_int
-    lib.bilstm_fused_fwd_launch.argtypes = [ctypes.c_void_p] * 13 + [
+    lib.bilstm_fused_fwd_launch.argtypes = [ctypes.c_void_p] * 14 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.bilstm_fused_fwd_launch.restype = ctypes.c_int
     lib.bilstm_error_string.argtypes = [ctypes.c_int]
@@ -316,7 +320,7 @@ def _library():
 
 def _bwd_library():
     lib = _build.load("bilstm_bwd")
-    lib.bilstm_bwd_launch.argtypes = [ctypes.c_void_p] * 10 + [
+    lib.bilstm_bwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
         ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.bilstm_bwd_launch.restype = ctypes.c_int
     lib.bilstm_bwd_error_string.argtypes = [ctypes.c_int]
@@ -326,6 +330,13 @@ def _bwd_library():
 
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _barrier_word(x: torch.Tensor) -> torch.Tensor:
+    """The zeroed counter of a kernel's split grid barrier
+    (``csrc/merged_step.cuh``), on x's device, zeroed on its stream
+    before the launch that follows."""
+    return torch.zeros(1, dtype=torch.int32, device=x.device)
 
 
 def bilstm_infer_cuda(xp_f, xp_b, w_f, w_b):
@@ -371,12 +382,13 @@ def bilstm_backward_cuda(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f, w_b):
     _check_residuals(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f)
     t_len, batch, four_h = g_f.shape
     dx_f, dx_b = torch.empty_like(g_f), torch.empty_like(g_b)
+    barrier = _barrier_word(g_f)
     lib = _bwd_library()
     err = lib.bilstm_bwd_launch(
         dh_f.data_ptr(), dh_b.data_ptr(), g_f.data_ptr(), g_b.data_ptr(),
         c_f.data_ptr(), c_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
-        dx_f.data_ptr(), dx_b.data_ptr(), t_len, batch, four_h // 4,
-        g_f.device.index or 0, _stream(g_f),
+        dx_f.data_ptr(), dx_b.data_ptr(), barrier.data_ptr(), t_len, batch,
+        four_h // 4, g_f.device.index or 0, _stream(g_f),
     )
     _build.check(err, "bilstm_bwd", lib.bilstm_bwd_error_string)
     LAUNCHES["bilstm_bwd"] += 1
@@ -398,8 +410,9 @@ def bilstm_fused_infer_cuda(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
     h_b = torch.empty_like(h_f)
     lib = _library()
     err = lib.bilstm_fused_infer_launch(
-        *_fused_pointers(*args), h_f.data_ptr(), h_b.data_ptr(), t_len,
-        batch, hidden, i_dim, x.device.index or 0, _stream(x),
+        *_fused_pointers(*args), h_f.data_ptr(), h_b.data_ptr(),
+        _barrier_word(x).data_ptr(), t_len, batch, hidden, i_dim,
+        x.device.index or 0, _stream(x),
     )
     _build.check(err, "bilstm_fused_infer", lib.bilstm_error_string)
     LAUNCHES["bilstm_fused_infer"] += 1
@@ -422,7 +435,8 @@ def bilstm_fused_forward_cuda(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
     err = lib.bilstm_fused_fwd_launch(
         *_fused_pointers(*args), h_f.data_ptr(), h_b.data_ptr(),
         g_f.data_ptr(), g_b.data_ptr(), c_f.data_ptr(), c_b.data_ptr(),
-        t_len, batch, hidden, i_dim, x.device.index or 0, _stream(x),
+        _barrier_word(x).data_ptr(), t_len, batch, hidden, i_dim,
+        x.device.index or 0, _stream(x),
     )
     _build.check(err, "bilstm_fused_fwd", lib.bilstm_error_string)
     LAUNCHES["bilstm_fused_fwd"] += 1

@@ -3,7 +3,6 @@
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 
 def quantize_f0(x: torch.Tensor, num_bins: int = 256) -> torch.Tensor:
@@ -20,8 +19,13 @@ def quantize_f0(x: torch.Tensor, num_bins: int = 256) -> torch.Tensor:
 
 
 def quantize_f0_onehot(x: torch.Tensor, num_bins: int = 256) -> torch.Tensor:
-    """Quantize and one-hot: ``[...]`` -> ``[..., num_bins+1]`` float32."""
-    return F.one_hot(quantize_f0(x, num_bins), num_bins + 1).float()
+    """Quantize and one-hot: ``[...]`` -> ``[..., num_bins+1]`` float32.
+
+    As ``jax.nn.one_hot``, an id outside ``[0, num_bins]`` (a value of
+    about 1.002 or more) gives an all-zero row rather than an error.
+    """
+    ids = quantize_f0(x, num_bins).unsqueeze(-1)
+    return (ids == torch.arange(num_bins + 1, device=x.device)).float()
 
 
 def speaker_normalization(

@@ -228,7 +228,7 @@ def test_max_fused_batch_is_the_kernels_own():
     """The batch limit has one owner, the kernel source, which checks it
     against its shared-memory plan at compile time."""
     assert bilstm.MAX_FUSED_BATCH == _build.source_constant(
-        "bilstm_infer", "kMaxFusedBatch") == 1113
+        "bilstm_infer", "kMaxFusedBatch") == 487
     with pytest.raises(RuntimeError, match="kNoSuchLimit"):
         _build.source_constant("bilstm_infer", "kNoSuchLimit")
 

@@ -23,6 +23,18 @@ def test_quantize_f0_matches_jax(rng):
                                   np.asarray(jquant.quantize_f0_onehot(x)))
 
 
+def test_quantize_f0_onehot_out_of_range_gives_zero_rows_as_jax():
+    """Values past the top bin (about 1.002 and up) give all-zero rows, as
+    ``jax.nn.one_hot`` does for an id past its classes; 0 and negative
+    values are unvoiced (bin 0)."""
+    x = np.array([0.5, 1.0, 1.002, 5.0, -0.3, 0.0], np.float32)
+    got = quantize.quantize_f0_onehot(torch.from_numpy(x), 256).numpy()
+    want = np.asarray(jquant.quantize_f0_onehot(x, 256))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got.sum(-1), [1, 1, 0, 0, 1, 1])
+    assert got[4, 0] == got[5, 0] == 1
+
+
 def test_speaker_normalization_matches_jax(rng):
     f0 = (rng.randn(64) * 0.5 + 5.0).astype(np.float32)
     voiced = rng.rand(64) > 0.3
