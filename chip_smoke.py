@@ -10,9 +10,14 @@ Phases, one line each; any failure exits non-zero:
 1. the card's name and power limit (nvidia-smi), then the build of every
    ``speechsplit_tpu_torch/csrc/*.cu`` file with nvcc for sm_90a;
 2. each inference kernel against its plain PyTorch version on the card,
-   at the shapes the conversion path gives it, with its time, the plain
-   version's time, the least time the card could take (bound) and a
-   cuDNN LSTM as a yardstick;
+   at the shapes the conversion paths give it (``bilstm_infer`` also at
+   the 731-pair call's B731 H256), with its time, the plain version's
+   time, the least time the card could take (bound) and a cuDNN LSTM as
+   a yardstick; the merged forwards' edges (T=1, B=1, ragged rounds,
+   widths not a multiple of 4, a partial 128-wide pass, one block a
+   direction, batch tiles, the batch limit of each at H 512, 256 and 8,
+   and one row past it, which raises); ``bilstm_infer`` at H=256 in each
+   plan (one or two warps a unit) at B4, B16 and B731;
 3. full-width ``convert_batched``: 4 synthetic pairs x 7 conditions
    through seeded default-config models, checked finite, against the
    same call on the plain versions and against the per-utterance
@@ -32,7 +37,11 @@ Phases, one line each; any failure exits non-zero:
    (``-DBILSTM_BWD_PROBE``): a clock64() split of its step into barrier
    wait, d_pre staging, FMAs and reduction, cell gradient and stores,
    and prefetch and arrival, at B16 and H 512, 256 and 8 (``[bwd
-   probe]``);
+   probe]``); and the probe build of the merged forwards
+   (``-DBILSTM_INFER_PROBE``): a step split into barrier wait, h
+   staging, FMAs and reduction, cell and stores, and gate-input prefetch
+   and arrival, at B28 H512 (lean), B16 H512 (residual-saving) and B731
+   H256 (lean) (``[infer probe]``);
 7. the full-width generator and F0-converter train steps on a seeded
    ``Collator`` batch of 16: the launches of every kernel in one step
    (counts set to 0 just before and read just after), the step against
@@ -64,7 +73,8 @@ Phases, one line each; any failure exits non-zero:
     ``lstm_infer`` also against a float64 run, and over widths 8-512 at
     phase 13's batch in each of its plans (the sweep that sets its plan
     border); the merged ``bilstm_infer`` beside two
-    ``lstm_infer`` launches at batches from 28 to the largest it holds;
+    ``lstm_infer`` launches at batches up to the largest it holds, at
+    H=512 (from 28), H=256 (from 4) and H=8 (from 28);
     edges (T=1, B=1, ragged row tiles, odd widths, the plan border, the
     training kernels' batch limits, which their sources state, and one
     row more, which raises, and ``lstm_infer`` at 16384 rows); every edge
@@ -96,8 +106,9 @@ gives each kernel of the merged BiLSTM sources (``bilstm_infer.cu``,
 pair count in a process of either tree, reporting whether it completed
 or raised; then N rounds of DIR, this, this, DIR, each a process of its
 own that builds its tree's kernels and times, through that tree's own
-phase functions, ``bilstm_infer``, ``bilstm_fwd`` and ``bilstm_bwd`` at
-the train and conversion shapes, ``bilstm_fused_infer`` at the fused
+phase functions, ``bilstm_infer`` at the conversions' shapes (B28 H512,
+B4 H256, B28 H8, B731 H256), ``bilstm_fwd`` and ``bilstm_bwd`` at the
+train shapes, ``bilstm_fused_infer`` at the fused
 conversion's B56 I1024 H512 and ``bilstm_fused_fwd`` at B16 I1024 H512,
 ``lstm_infer`` at phase 13's two
 shapes and both directions of it at H=512 over batches 28-224, and both
@@ -330,19 +341,26 @@ def phase_build() -> float:
     return seconds
 
 
+def merged_inputs(t: int, b: int, h: int, seed: int):
+    """Seeded inputs of a merged BiLSTM layer on the card: xp_f, xp_b
+    [t, b, 4h] and w_f, w_b [4h, h]."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    return (rand(t, b, 4 * h), rand(t, b, 4 * h),
+            rand(4 * h, h, scale=h ** -0.5), rand(4 * h, h, scale=h ** -0.5))
+
+
 def check_bilstm(b: int, h: int, reps: int) -> dict:
     import torch
 
     from speechsplit_tpu_torch.ops import bilstm
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + h + b)
-    dev = "cuda"
-
-    def rand(*shape, scale=1.0):
-        return torch.randn(*shape, device=dev, generator=gen) * scale
-
-    xp_f, xp_b = rand(T, b, 4 * h), rand(T, b, 4 * h)
-    w_f, w_b = rand(4 * h, h, scale=h ** -0.5), rand(4 * h, h, scale=h ** -0.5)
+    xp_f, xp_b, w_f, w_b = merged_inputs(T, b, h, SEED + h + b)
     got = bilstm.bilstm_sequence(xp_f, xp_b, w_f, w_b)
     want = bilstm.bilstm_sequence_reference(xp_f, xp_b, w_f, w_b)
     torch.cuda.synchronize()
@@ -450,18 +468,104 @@ def check_edges() -> None:
     log("kernel edges", shapes=7, max_abs_err=f"{worst:.3g}", tol=KERNEL_TOL)
 
 
+# (T, B, H, splits) of the merged forwards' edges: T=1, B=1, rounds of 8
+# rows left ragged (9, 28), widths not a multiple of 4 (4-byte copies),
+# a partial 128-wide pass (129, 200), one block a direction (H <= 8),
+# batch tiles (B100 at H512, B300 at H256), and each plan at H=256
+MERGED_EDGES = ((1, 28, 512, 0), (5, 1, 512, 0), (7, 9, 512, 0),
+                (6, 28, 8, 0), (5, 9, 3, 0), (4, 13, 6, 0), (5, 28, 100, 0),
+                (4, 9, 129, 0), (4, 28, 200, 0), (4, 100, 512, 0),
+                (3, 300, 256, 0), (3, 731, 256, 1), (3, 731, 256, 2))
+
+
+def check_merged_forward_edges() -> None:
+    """``bilstm_infer`` and ``bilstm_fwd`` against their plain versions
+    on the code paths the kernel treats specially (``MERGED_EDGES``; the
+    residual-saving forward in the source's plan), then at the batch
+    limit of each at H 512, 256 and 8 (``ops.bilstm.forward_max_batch``,
+    from the source's plan); one row more is refused by the kernel."""
+    from speechsplit_tpu_torch.ops import bilstm
+
+    worst = 0.0
+    for t, b, h, splits in MERGED_EDGES:
+        args = merged_inputs(t, b, h, SEED + 41 * h + b)
+        want = bilstm.bilstm_forward_reference(*args)
+        err = max(abs_err(bilstm._bilstm_infer_plan(*args, splits),
+                          want[:2]),
+                  abs_err(bilstm.bilstm_forward_cuda(*args), want))
+        if not err <= KERNEL_TOL:
+            fail(f"merged forward T{t}xB{b}xH{h} splits {splits}: max abs "
+                 f"err {err}")
+        worst = max(worst, err)
+    limits = {}
+    for h in (512, 256, 8):
+        for resid, run in ((False, bilstm.bilstm_infer_cuda),
+                           (True, bilstm.bilstm_forward_cuda)):
+            limit = bilstm.forward_max_batch(h, resid)
+            args = merged_inputs(2, limit, h, SEED + h)
+            want = bilstm.bilstm_forward_reference(*args)
+            err = abs_err(run(*args), want if resid else want[:2])
+            if not err <= KERNEL_TOL:
+                fail(f"merged forward at its limit B{limit} H{h}: max abs "
+                     f"err {err}")
+            worst = max(worst, err)
+            past = merged_inputs(1, limit + 1, h, SEED)
+            try:
+                run(*past)
+            except RuntimeError:
+                pass
+            else:
+                fail(f"merged forward took B={limit + 1} at H={h}, past its "
+                     "limit")
+            limits[f"{'fwd' if resid else 'infer'}_h{h}"] = limit
+            del args, want, past
+    log("kernel merged forward edges", shapes=len(MERGED_EDGES),
+        max_abs_err=f"{worst:.3g}", tol=KERNEL_TOL, **limits)
+
+
+def check_infer_plans(h: int, batches, reps: int) -> list:
+    """``bilstm_infer`` at width h in each plan, one warp a unit (2 x 32
+    blocks at H=256) or two (2 x 64), against the plain version and
+    timed, at each batch: the measurement behind ``kSplitMaxH``."""
+    from speechsplit_tpu_torch.ops import bilstm
+
+    rows = []
+    for b in batches:
+        args = merged_inputs(T, b, h, SEED + 43 * b)
+        want = bilstm.bilstm_sequence_reference(*args)
+        row = dict(shape=f"T{T}xB{b}xH{h}")
+        err = 0.0
+        for splits in (1, 2):
+            def run():
+                return bilstm._bilstm_infer_plan(*args, splits)
+
+            err = max(err, abs_err(run(), want))
+            row[f"splits{splits}_ms"] = time_ms(run, reps, warmup=1)
+        row.update(max_abs_err=err, tol=KERNEL_TOL)
+        log("kernel bilstm_infer plans", **fmt(row))
+        if not err <= KERNEL_TOL:
+            fail(f"bilstm_infer plans {row['shape']}: max abs err {err}")
+        rows.append(row)
+        del args, want
+    return rows
+
+
 def phase_kernels(reps: int = 20) -> dict:
     """Each kernel against its plain version at the main path's shapes.
     Returns the row of each kernel's most expensive main-path shape."""
     with strict_float32():
         check_edges()
+        check_merged_forward_edges()
         rows = {
             "bilstm_infer": [check_bilstm(28, 512, reps),
                              check_bilstm(4, 256, reps),
-                             check_bilstm(28, 8, reps)],
+                             check_bilstm(28, 8, reps),
+                             check_bilstm(refused_pairs(), 256, reps)],
             "multi_bilstm_infer": [check_multi(28, (8, 32, 1), reps),
                                    check_multi(4, (32, 1), reps)],
         }
+        rows["bilstm_infer"][0]["plans_h256"] = check_infer_plans(
+            256, (4, TRAIN_B, refused_pairs()), reps)
     return {name: r[0] for name, r in rows.items()}
 
 
@@ -1022,6 +1126,87 @@ def phase_bwd_probe(shapes=((TRAIN_B, 512), (TRAIN_B, 256),
                 cycles_per_step=round(total), rel_err=f"{err:.3g}",
                 **split, clock="clock64 of each warp, summed over warps")
             splits[(b, h)] = split
+    return splits[shapes[0]]
+
+
+# the phases of a merged forward step that its probe build times, in the
+# order of csrc/bilstm_infer.cu's PROBE_LAP calls
+INFER_PROBE_PHASES = ("barrier_wait", "h_staging", "fma_and_reduction",
+                      "cell_and_stores", "prefetch_and_arrive")
+
+
+def phase_infer_probe(shapes=(("infer", 28, 512), ("fwd", TRAIN_B, 512),
+                              ("infer", 731, 256))) -> dict:
+    """The probe build of ``csrc/bilstm_infer.cu``
+    (``-DBILSTM_INFER_PROBE``, compiled here into a temporary directory;
+    the port never loads it): clock64() laps of each phase of a step of
+    the unfused forwards, summed over warps, split into cycles a step and
+    shares, at the main path's B28 H512 (lean), B16 H512 (residual-
+    saving) and B731 H256 (lean). The kernel's result is checked against
+    the plain version. Returns the split at the first shape."""
+    import ctypes
+
+    import torch
+
+    from speechsplit_tpu_torch.ops import _build, bilstm
+
+    splits = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lib_path = os.path.join(tmp, "libbilstm_infer_probe.so")
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                        "-DBILSTM_INFER_PROBE", "-o", lib_path,
+                        str(_build.CSRC / "bilstm_infer.cu")],
+                       check=True, capture_output=True, text=True)
+        lib = ctypes.CDLL(lib_path)
+        lib.bilstm_infer_launch.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.bilstm_fwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
+        n = len(INFER_PROBE_PHASES)
+        cycles, laps = (ctypes.c_ulonglong * n)(), (ctypes.c_ulonglong * n)()
+        for kind, b, h in shapes:
+            args = merged_inputs(T, b, h, SEED + 3 * h + b)
+            resid = kind == "fwd"
+            outs = [torch.empty(T, b, h, device="cuda") for _ in (0, 1)]
+            if resid:
+                outs += [torch.empty(T, b, 4 * h, device="cuda")
+                         for _ in (0, 1)]
+                outs += [torch.empty(T, b, h, device="cuda") for _ in (0, 1)]
+            launch = lib.bilstm_fwd_launch if resid else lib.bilstm_infer_launch
+
+            def run():
+                err = launch(*[x.data_ptr() for x in (
+                    *args, *outs, bilstm._barrier_word(args[0], 2))],
+                    T, b, h, 0, 0, bilstm._stream(args[0]))
+                if err:
+                    fail(f"bilstm_{kind} probe build: CUDA error {err}")
+
+            run()
+            lib.bilstm_infer_probe_read(cycles, laps, 1)  # warm-up, reset
+            run()
+            torch.cuda.synchronize()
+            if lib.bilstm_infer_probe_read(cycles, laps, 1):
+                fail("bilstm_infer probe: reading the counters failed")
+            want = bilstm.bilstm_forward_reference(*args)
+            err = abs_err(outs, want if resid else want[:2])
+            if not err <= KERNEL_TOL:
+                fail(f"bilstm_{kind} probe build B{b} H{h}: max abs err "
+                     f"{err}")
+            ms = time_ms(run, 5)
+            # every warp laps the barrier phase once a step
+            warp_steps = laps[0]
+            per_step = {name: cycles[i] / warp_steps
+                        for i, name in enumerate(INFER_PROBE_PHASES)}
+            total = sum(per_step.values())
+            split = {f"{k}_cycles": round(v) for k, v in per_step.items()}
+            split.update({f"{k}_share": f"{v / total:.4f}"
+                          for k, v in per_step.items()})
+            log("infer probe", kernel=f"bilstm_{kind}",
+                shape=f"T{T}xB{b}xH{h}", ms_probe_build=f"{ms:.4f}",
+                cycles_per_step=round(total), max_abs_err=f"{err:.3g}",
+                **split, clock="clock64 of each warp, summed over warps")
+            splits[(kind, b, h)] = split
+            del args, outs
     return splits[shapes[0]]
 
 
@@ -1887,6 +2072,10 @@ def phase_lstm_kernels(reps: int = 2) -> dict:
         rows["lstm_infer"]["plans"] = check_lstm_plans(big, reps)
         rows["lstm_infer"]["merged_vs_single"] = check_merged_vs_single(
             config.dim_dec_mel, (28, 56, 112, 224, 512, 1024, 2048), reps)
+        rows["lstm_infer"]["merged_vs_single_h256"] = check_merged_vs_single(
+            config.dim_dec_f0, (4, 16, 112, 224, 731), reps)
+        rows["lstm_infer"]["merged_vs_single_h8"] = check_merged_vs_single(
+            config.dim_neck, (28, 224), reps)
     gc.collect()
     torch.cuda.empty_cache()
     return rows
@@ -2048,8 +2237,8 @@ LSTM_KERNELS = ("lstm_infer", "lstm_fwd", "lstm_bwd")
 # and the single-direction ones
 CODEGEN_SOURCES = ("bilstm_infer", "bilstm_bwd", "lstm_infer", "lstm_bwd")
 # a kernel entry of those sources, by its mangled name: the template and
-# its arguments (bilstm_infer_kernel<KPL, kResid>, bilstm_fused_kernel<KPL,
-# kResid>, bilstm_bwd_kernel<KPL>; lstm_infer_kernel<KPL, kResid>, which
+# its arguments (bilstm_infer_kernel<KQ, kResid>, bilstm_fused_kernel<KQ,
+# kResid>, bilstm_bwd_kernel<KQ>; lstm_infer_kernel<KPL, kResid>, which
 # is lstm_fwd's, lstm_wide_step_kernel<MR, kVec>, lstm_narrow_kernel<L,
 # U>, lstm_bwd_kernel<KPL>)
 KERNEL_ENTRY = re.compile(
@@ -2127,7 +2316,8 @@ from speechsplit_tpu_torch.training import (
 c.phase_build()
 out = {}
 with c.strict_float32():
-    out["bilstm_infer B28 H512 ms"] = c.check_bilstm(28, 512, 20)["ms"]
+    for b, h in ((28, 512), (4, 256), (28, 8), (731, 256)):
+        out[f"bilstm_infer B{b} H{h} ms"] = c.check_bilstm(b, h, 20)["ms"]
     for h in (512, 256, 8):
         for name, row in c.check_bilstm_train(c.TRAIN_B, h, 10).items():
             out[f"{name} B{c.TRAIN_B} H{h} ms"] = row["ms"]
@@ -2270,6 +2460,7 @@ def main() -> int:
     del g_model, p_model, pairs
     rows.update(phase_train_kernels())
     phase_bwd_probe()
+    phase_infer_probe()
     gen_launches, f0_launches, state, step, batch = phase_train()
     phase_profile_train(state, step, batch)
     del state, step

@@ -34,27 +34,48 @@
 // 2*T*B*I*4H flops a direction with no dependence between steps: at
 // I = 1024 that is 4x the recurrence's flops, in float32 FMAs (no TF32).
 //
-// What the design does about it: one persistent cooperative launch per
-// layer. Blocks are split between the two directions; each block owns up
-// to 8 hidden units, one warp per unit, and keeps that unit's four gate
-// rows of W_hh in registers for the whole sequence (4 * H/32 floats a
-// lane), so W is read from HBM once. A lane owns the k = lane + 32 j
-// slice of the dot products; a warp butterfly sums the slices, and the
-// cell update of unit u stays inside its warp, so c never leaves the
-// block. Each step a block stages into shared memory, in one round of
-// loads whose latencies overlap, its units' gate inputs xp[t] and its
-// direction's h_{t-1} (read from the output array itself, written by
-// every block in the step before), tiled over the batch when B*H floats
-// do not fit; then all blocks meet at a grid-wide barrier (cooperative
-// groups). The
-// launch is cooperative, so it fails rather than deadlocks when the grid
-// cannot be co-resident; the host side checks occupancy first and says so.
-// The residual-saving forward is the same kernel with five more stores a
-// cell (g and c), made by the lane that already holds the values; the
-// lean instantiation compiles without them.
+// What the design of the unfused kernels (bilstm_infer_kernel) does
+// about it. One persistent cooperative launch a layer, its blocks split
+// between the two directions; the launch fails rather than deadlocks
+// when the grid cannot be co-resident. A block owns up to 8 hidden units
+// and keeps their four gate rows of W_hh in registers for the whole
+// sequence, so W is read from HBM once. The probe build below splits a
+// step into its phases (PERF.md); against what they showed:
+// - The step product: warp w owns a unit and holds its rows at k = 128 q
+//   + 4 lane + kk, so one 16-byte shared load of h_{t-1} feeds 16 FMAs;
+//   a round covers 8 batch rows x 4 gates, reduced by one butterfly
+//   (merged_step.cuh) that leaves lane 4 r + g the sum of row r, gate g.
+//   Rows past the batch read its last row instead of branching, so that
+//   the loads of a round issue together. Each lane applies its gate's
+//   activation and lane 4 r the cell update; c stays in shared memory.
+// - Up to H = 8 (one block a direction) lane 4 r + g holds all of gate
+//   g's row and sums its dot product alone: no butterfly. Such a block
+//   keeps h_{t-1} in shared memory when the batch is one tile.
+// - From H = 9 to kSplitMaxH a block runs 4 units with two warps each,
+//   the rounds dealt out between them: 2 x 64 blocks at H = 256, where
+//   8 units a block used 64 of the 132 SMs.
+// - h_{t-1} (read from the output itself, written by every block of the
+//   direction in the step before) is staged with 16-byte cp.async
+//   through L2, all in flight at once. Where the batch does not fit,
+//   its tiles are double-buffered: tile k + 1's copies fly while tile k
+//   is summed.
+// - The gate inputs of the block's units (32 contiguous bytes a row and
+//   gate) go into shared memory by 16-byte cp.async a step ahead,
+//   between the block's arrival at the barrier and its wait, so the cell
+//   update reads shared memory only.
+// - The barrier is split and per direction (merged_step.cuh): a block
+//   waits only on its own direction's blocks, and a direction of one
+//   block uses __syncthreads() alone.
+// - The outputs are staged in the slots of the gate inputs they replace
+//   (h; with kResid the gates, and h and c beside them) and stored in
+//   runs of the block's units, 32 bytes a row and output.
+// Built with -DBILSTM_INFER_PROBE (chip_smoke.py's probe build), the
+// kernel also adds up clock64() laps of each phase of a step per warp,
+// which bilstm_infer_probe_read returns.
 //
 // The fused kernels (bilstm_fused_kernel; kProj above) have an entry and
-// a body of their own, so the unfused kernels keep their machine code.
+// a body of their own; the unfused kernels' design above does not change
+// their machine code.
 // What bounds them beyond the recurrence: the projection's FMAs (4x the
 // step products' at I = 4H), with all of x read by every block of a
 // direction, and a projection computed between steps holds every step
@@ -81,17 +102,13 @@
 //   blocks, but a cooperative grid of 128 blocks at this shared memory
 //   fits the card only in clusters of 2 (PERF.md), so the grid has none.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "merged_step.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
 
 constexpr int kMaxUnits = 8;   // hidden units (= warps) per block
-constexpr int kBC = 4;         // batch rows per register tile
 constexpr int kMaxH = 512;
 constexpr size_t kSmemBudget = 160 * 1024;
 // The fused kernels. A (step, batch row) row of the fold buffer holds the
@@ -118,7 +135,9 @@ struct Proj {
   int I, fold;
 };
 
-// A launch's arguments and plan (the fused kernels take it whole).
+// A fused launch's arguments and plan (the kernels take it whole). xp_f
+// and xp_b are not read: they hold the layout the fused kernels were
+// compiled against, so that their machine code stays as it was.
 struct Params {
   const float* xp_f;
   const float* xp_b;
@@ -162,187 +181,368 @@ static_assert(fold1_floats(kMaxFusedBatch) <= kProjSmemBudget / 4 &&
                   fold1_floats(kMaxFusedBatch + 1) > kProjSmemBudget / 4,
               "kMaxFusedBatch must be the largest batch plan_fused holds");
 
-// The unfused kernels (bilstm_infer, bilstm_fwd) take B rows at width H
-// while the cell state [units][B] and one batch row of the h tile and the
-// gate inputs, H + 4 * units floats, fit these floats, with units =
-// min(H, kMaxUnits) (launch() below). ops/bilstm.py reads the value from
-// this line (merged_bidir_fits), so the kernel is the one owner of the
-// limit.
+// The unfused kernels (bilstm_infer, bilstm_fwd). A block runs `units`
+// hidden units with `splits` warps a unit (the rounds of 8 batch rows
+// dealt out between them), at most kMaxUnits warps in all. Shared
+// memory: two buffers, each a batch tile of h_{t-1} [bt][Hp] (H padded
+// to 4) and of the units' gate inputs [bt][4][units]; with kResid the
+// tile's h and c [bt][2][units]; the cell state [units][B]. A tile's
+// outputs are staged in the gate-input slots they replace (and the h, c
+// rows), so that they leave in 32-byte runs. The kernels take B rows at
+// width H while the cell state and one row of each buffer (and of the
+// h, c rows) fit these floats (launch_unfused() below). ops/bilstm.py
+// reads the value from this line (merged_max_batch), so the kernel is
+// the one owner of the limit.
 constexpr int kUnfusedSmemFloats = 40960;
 static_assert(kUnfusedSmemFloats * sizeof(float) == kSmemBudget,
               "kUnfusedSmemFloats must be the unfused launch's budget");
+// Widths above kMaxUnits and up to this one run 4 units a block with 2
+// warps a unit (2 x 64 blocks at H = 256), so that twice the SMs share
+// the rounds; wider layers and narrower ones run 8 units a block, one
+// warp each. ops/bilstm.py reads the value from this line.
+constexpr int kSplitMaxH = 256;
+// Widths up to this one (one block a direction) run the narrow product:
+// lane 4 r + g sums row r's dot product with gate g's row of W_hh
+// itself, no reduction across lanes.
+constexpr int kNarrowMaxH = kMaxUnits;
 
-// The recurrence of both directions on pre-projected gate inputs. Shared
-// memory: h_s [bt][H], the tile of h_{t-1}; c_s [units_per_block][B],
-// the cell state; x_s [units_per_block][bt][4], a step's gate inputs of
-// the block's units.
-template <int KPL, bool kResid>
-__device__ __forceinline__ void recurrence(
-    float* h_s, float* c_s, float* x_s,
-    const float* __restrict__ xp_f, const float* __restrict__ xp_b,
-    const float* __restrict__ w_f, const float* __restrict__ w_b,
-    float* h_f, float* h_b, float* __restrict__ g_f,
-    float* __restrict__ g_b, float* __restrict__ c_f,
-    float* __restrict__ c_b, int T, int B, int H, int blocks_per_dir,
-    int units_per_block, int bt) {
-  cg::grid_group grid = cg::this_grid();
+#ifdef BILSTM_INFER_PROBE
+// phases: 0 barrier wait, 1 h staging, 2 FMAs and reduction, 3 cell and
+// stores, 4 gate-input prefetch and arrival
+constexpr int kPhases = 5;
+__device__ unsigned long long g_probe_cycles[kPhases];
+__device__ unsigned long long g_probe_laps[kPhases];
+#define PROBE_LAP(phase)                 \
+  do {                                   \
+    const long long now_ = clock64();    \
+    probe_cycles[phase] += now_ - lap_;  \
+    ++probe_laps[phase];                 \
+    lap_ = now_;                         \
+  } while (0)
+#else
+#define PROBE_LAP(phase) \
+  do {                   \
+  } while (0)
+#endif
 
-  const int dir = blockIdx.x / blocks_per_dir;
-  const int blk = blockIdx.x % blocks_per_dir;
-  const float* xp = dir == 0 ? xp_f : xp_b;
-  const float* w = dir == 0 ? w_f : w_b;
-  float* hout = dir == 0 ? h_f : h_b;
-  float* gout = dir == 0 ? g_f : g_b;
-  float* cout = dir == 0 ? c_f : c_b;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int u = blk * units_per_block + warp;
-  const bool active = warp < units_per_block && u < H;
+// A launch of the unfused kernels: its arguments and plan.
+struct Unfused {
+  const float* xp[2];
+  const float* w[2];
+  float* h[2];
+  float* g[2];
+  float* c[2];
+  unsigned* barrier;  // one word a direction, zeroed before the launch
+  int T, B, H;
+  int splits, units, blocks_per_dir, bt;
+};
 
-  // this warp's four gate rows of W_hh, k = lane + 32 j
-  float wr[4][KPL];
+// The recurrence of both directions on pre-projected gate inputs. KQ:
+// passes of kKSpan, ceil(H / kKSpan); 0 for the narrow product.
+template <int KQ, bool kResid>
+__global__ void __launch_bounds__(kMaxUnits * 32, 1)
+bilstm_infer_kernel(const Unfused a) {
+  extern __shared__ __align__(16) float smem_unfused[];
+  const int T = a.T, B = a.B, H = a.H, U = a.units, S = a.splits;
+  const int bt = a.bt;
+  const int Hp = (H + 3) & ~3;
+  const int xrow = 4 * U;  // a tile row of gate inputs: [4][U]
+  float* hbuf = smem_unfused;                           // [2][bt][Hp]
+  float* xbuf = hbuf + 2 * bt * Hp;                     // [2][bt][4][U]
+  float* hc_s = xbuf + 2 * bt * xrow;                   // [bt][2][U]
+  float* c_s = hc_s + (kResid ? 2 * bt * U : 0);        // [U][B]
+
+  const int dir = blockIdx.x / a.blocks_per_dir;
+  const int blk = blockIdx.x % a.blocks_per_dir;
+  const float* xp = dir == 0 ? a.xp[0] : a.xp[1];
+  const float* w = dir == 0 ? a.w[0] : a.w[1];
+  float* hout = dir == 0 ? a.h[0] : a.h[1];
+  float* gout = dir == 0 ? a.g[0] : a.g[1];
+  float* cout = dir == 0 ? a.c[0] : a.c[1];
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int uw = warp % U;     // this warp's unit in the block
+  const int split = warp / U;  // its share of the rounds
+  const int u0 = blk * U;
+  const int nu = min(U, H - u0);  // this block's units
+  const int u = u0 + uw;
+  const bool active = uw < nu;
+  // gate-input and output rows in 16-byte copies where every run of the
+  // block's units is whole quads
+  const bool quads = (H & 3) == 0 && (U & 3) == 0;
+  step::DirBarrier bar(dir == 0 ? a.barrier : a.barrier + 1,
+                       a.blocks_per_dir);
+
+  // wide (KQ > 0): this warp's four gate rows of W_hh at k = kKSpan q +
+  // 4 lane + kk; narrow (KQ = 0, H <= kNarrowMaxH): lane 4 r + g holds
+  // all of gate g's row
+  constexpr int kQ = KQ > 0 ? KQ : 1;
+  float wr[kQ][4][4];
+  float wn[kNarrowMaxH];
+  if constexpr (KQ > 0) {
 #pragma unroll
-  for (int g = 0; g < 4; ++g) {
+    for (int q = 0; q < KQ; ++q) {
 #pragma unroll
-    for (int j = 0; j < KPL; ++j) {
-      const int k = lane + 32 * j;
-      wr[g][j] = (active && k < H)
-                     ? w[static_cast<size_t>(g * H + u) * H + k]
-                     : 0.0f;
+      for (int kk = 0; kk < 4; ++kk) {
+        const int k = kKSpan * q + 4 * lane + kk;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          wr[q][kk][g] = (active && k < H)
+                             ? w[static_cast<size_t>(g * H + u) * H + k]
+                             : 0.0f;
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kNarrowMaxH; ++k) {
+      wn[k] = (active && k < H)
+                  ? w[static_cast<size_t>((lane & 3) * H + u) * H + k]
+                  : 0.0f;
     }
   }
-  for (int i = threadIdx.x; i < units_per_block * B; i += blockDim.x) {
-    c_s[i] = 0.0f;
+  for (int i = tid; i < U * B; i += nthreads) c_s[i] = 0.0f;
+  // A direction of one block whose batch is one tile keeps its h_{t-1} in
+  // shared memory: the tile's h goes into the next step's buffer as well
+  // as out, whose padding stays zero.
+  const int tiles = (B + bt - 1) / bt;
+  const bool own_h = a.blocks_per_dir == 1 && tiles == 1;
+  if (own_h) {
+    for (int i = tid; i < 2 * bt * Hp; i += nthreads) hbuf[i] = 0.0f;
   }
 
+  // issue the copies of step s's gate inputs of tile rows b0 .. into
+  // buffer buf: gate g of the block's units is one run of 4 U bytes
+  auto stage_x = [&](int s, int b0, int buf) {
+    const int t = dir == 0 ? s : T - 1 - s;
+    const int nb = min(bt, B - b0);
+    float* dst = xbuf + buf * bt * xrow;
+    const float* src = xp + (static_cast<size_t>(t) * B + b0) * 4 * H + u0;
+    if (quads) {
+      const int nq = U / 4;
+      for (int i = tid; i < nb * 4 * nq; i += nthreads) {
+        const int r = i / (4 * nq);
+        const int g = (i / nq) & 3;
+        const int q4 = 4 * (i % nq);
+        if (q4 < nu) {
+          step::copy16(dst + r * xrow + g * U + q4,
+                       src + static_cast<size_t>(r) * 4 * H + g * H + q4);
+        }
+      }
+    } else {
+      for (int i = tid; i < nb * xrow; i += nthreads) {
+        const int r = i / xrow;
+        const int g = (i / U) & 3;
+        const int v = i % U;
+        if (v < nu) {
+          step::copy4(dst + i,
+                      src + static_cast<size_t>(r) * 4 * H + g * H + v);
+        }
+      }
+    }
+  };
+  // issue the copies of h_{t-1} of tile rows b0 .. into buffer buf:
+  // written by every block of the direction in the step before, read
+  // through L2, all in flight at once
+  auto stage_h = [&](int s, int b0, int buf) {
+    const int t = dir == 0 ? s : T - 1 - s;
+    const int tp = dir == 0 ? t - 1 : t + 1;
+    const int nb = min(bt, B - b0);
+    float* dst = hbuf + buf * bt * Hp;
+    const float* src = hout + (static_cast<size_t>(tp) * B + b0) * H;
+    if (Hp == H) {
+      for (int i = tid; i < nb * H / 4; i += nthreads) {
+        step::copy16(dst + 4 * i, src + 4 * i);
+      }
+    } else {
+      for (int i = tid; i < nb * Hp; i += nthreads) {
+        const int r = i / Hp;
+        const int k = i % Hp;
+        step::copy4(dst + i, k < H ? src + r * H + k : src, k < H);
+      }
+    }
+  };
+
+#ifdef BILSTM_INFER_PROBE
+  long long probe_cycles[kPhases] = {};
+  long long probe_laps[kPhases] = {};
+  long long lap_ = clock64();
+#endif
+  int buf = 0;
+  stage_x(0, 0, 0);
+  step::commit();
   for (int s = 0; s < T; ++s) {
     const int t = dir == 0 ? s : T - 1 - s;
-    const int tp = dir == 0 ? t - 1 : t + 1;  // previous step's time index
-    for (int b0 = 0; b0 < B; b0 += bt) {
+    if (s > 0) bar.wait();  // the direction's h of step s - 1 is stored
+    PROBE_LAP(0);
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int b0 = tile * bt;
       const int nb = min(bt, B - b0);
-      __syncthreads();  // the previous tile's readers are done with smem
-      // this tile's gate inputs of the block's units, gathered once per
-      // step so the cell updates below do not each wait on global memory
-      for (int i = threadIdx.x; i < units_per_block * nb * 4;
-           i += blockDim.x) {
-        const int w_i = i / (nb * 4);
-        const int bb = (i / 4) % nb;
-        const int g = i % 4;
-        const int u_i = blk * units_per_block + w_i;
-        x_s[(w_i * bt + bb) * 4 + g] =
-            u_i < H ? xp[(static_cast<size_t>(t) * B + b0 + bb) * 4 * H +
-                         g * H + u_i]
-                    : 0.0f;
+      if (tile == 0) {
+        if (s > 0 && !own_h) stage_h(s, 0, buf);
+        step::commit();
       }
-      if (s > 0) {
-        // written by other blocks during the kernel: read through L2
-        const float* src = hout + (static_cast<size_t>(tp) * B + b0) * H;
-        if ((H & 3) == 0) {
-          const float4* src4 = reinterpret_cast<const float4*>(src);
-          float4* dst4 = reinterpret_cast<float4*>(h_s);
-          for (int i = threadIdx.x; i < nb * H / 4; i += blockDim.x) {
-            dst4[i] = __ldcg(src4 + i);
-          }
-        } else {
-          for (int i = threadIdx.x; i < nb * H; i += blockDim.x) {
-            h_s[i] = __ldcg(src + i);
-          }
-        }
+      if (tile + 1 < tiles) {
+        // the next tile's gate inputs and h in flight while this one runs
+        stage_x(s, b0 + bt, buf ^ 1);
+        if (s > 0) stage_h(s, b0 + bt, buf ^ 1);
+        step::commit();
+        step::wait<1>();
       } else {
-        for (int i = threadIdx.x; i < nb * H; i += blockDim.x) {
-          h_s[i] = 0.0f;
-        }
+        step::wait<0>();
       }
-      __syncthreads();
-      if (!active) continue;  // warp-uniform
-      for (int bc = 0; bc < nb; bc += kBC) {
-        float acc[kBC][4];
+      __syncthreads();  // this tile's gate inputs and h are in place
+      PROBE_LAP(1);
+      const float* h_s = hbuf + buf * bt * Hp;
+      float* x_s = xbuf + buf * bt * xrow;
+      if (active) {  // warp-uniform
+        for (int r0 = kRound * split; r0 < nb; r0 += kRound * S) {
+          // lane 4 r + g: the product's sum for gate g of round row r
+          // (rows past the tile read its last row, and are not stored)
+          float pre = 0.0f;
+          if constexpr (KQ > 0) {
+            float acc[32];
 #pragma unroll
-        for (int r = 0; r < kBC; ++r) {
+            for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+            if (s > 0) {  // h_{-1} is zero
 #pragma unroll
-          for (int g = 0; g < 4; ++g) acc[r][g] = 0.0f;
-        }
+              for (int q = 0; q < KQ; ++q) {
+                const int k = kKSpan * q + 4 * lane;
+                if (k < Hp) {
 #pragma unroll
-        for (int j = 0; j < KPL; ++j) {
-          const int k = lane + 32 * j;
-          if (k < H) {
+                  for (int r = 0; r < kRound; ++r) {
+                    const float4 hv = *reinterpret_cast<const float4*>(
+                        h_s + min(r0 + r, nb - 1) * Hp + k);
 #pragma unroll
-            for (int r = 0; r < kBC; ++r) {
-              const float hv = (bc + r < nb) ? h_s[(bc + r) * H + k] : 0.0f;
+                    for (int g = 0; g < 4; ++g) {
+                      const int x = r * 4 + g;
+                      acc[x] = fmaf(hv.x, wr[q][0][g], acc[x]);
+                      acc[x] = fmaf(hv.y, wr[q][1][g], acc[x]);
+                      acc[x] = fmaf(hv.z, wr[q][2][g], acc[x]);
+                      acc[x] = fmaf(hv.w, wr[q][3][g], acc[x]);
+                    }
+                  }
+                }
+              }
+            }
+            pre = step::reduce_scatter32(acc, lane);
+          } else if (s > 0) {
+            const float* hr = h_s + min(r0 + (lane >> 2), nb - 1) * Hp;
 #pragma unroll
-              for (int g = 0; g < 4; ++g) {
-                acc[r][g] = fmaf(hv, wr[g][j], acc[r][g]);
+            for (int k = 0; k < kNarrowMaxH; k += 4) {
+              if (k < Hp) {
+                const float4 hv = *reinterpret_cast<const float4*>(hr + k);
+                pre = fmaf(hv.x, wn[k], pre);
+                pre = fmaf(hv.y, wn[k + 1], pre);
+                pre = fmaf(hv.z, wn[k + 2], pre);
+                pre = fmaf(hv.w, wn[k + 3], pre);
               }
             }
           }
+          PROBE_LAP(2);
+          // each lane its gate's activation; lane 4 r gathers its row's
+          const int rr = r0 + (lane >> 2);
+          const int g = lane & 3;
+          float* x = x_s + min(rr, nb - 1) * xrow + g * U + uw;
+          const float v = *x + pre;
+          const float act = g == 2 ? tanhf(v) : sigmoid_f(v);
+          const int base = lane & ~3;
+          const float i_g = __shfl_sync(0xffffffffu, act, base);
+          const float f_g = __shfl_sync(0xffffffffu, act, base + 1);
+          const float g_g = __shfl_sync(0xffffffffu, act, base + 2);
+          const float o_g = __shfl_sync(0xffffffffu, act, base + 3);
+          if (rr < nb) {
+            // the outputs take the slots of the inputs they came from
+            if constexpr (kResid) *x = act;
+            if (g == 0) {
+              float* c = c_s + uw * B + b0 + rr;
+              const float c_new = f_g * *c + i_g * g_g;
+              *c = c_new;
+              const float h_new = o_g * tanhf(c_new);
+              if constexpr (kResid) {
+                hc_s[rr * 2 * U + uw] = h_new;
+                hc_s[(rr * 2 + 1) * U + uw] = c_new;
+              } else {
+                *x = h_new;
+              }
+            }
+          }
+          PROBE_LAP(3);
         }
-#pragma unroll
-        for (int r = 0; r < kBC; ++r) {
-#pragma unroll
-          for (int g = 0; g < 4; ++g) {
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-              acc[r][g] += __shfl_xor_sync(0xffffffffu, acc[r][g], off);
+      }
+      __syncthreads();  // the tile's outputs are staged
+      // the tile's outputs, a run of the block's units a (row, output):
+      // lean h (from slot 0); with kResid the gates i, f, g, o, then h, c
+      const int n_out = kResid ? 6 : 1;
+      const int j_h = kResid ? 4 : 0;  // h among them
+      float* next_h = hbuf + (buf ^ 1) * bt * Hp;  // own_h only
+      const size_t row0 = static_cast<size_t>(t) * B + b0;
+      auto out_of = [&](int r, int j, int v, const float** from) {
+        const size_t row = row0 + r;
+        if (!kResid) {
+          *from = x_s + r * xrow + v;
+          return hout + row * H + u0 + v;
+        }
+        if (j < 4) {
+          *from = x_s + r * xrow + j * U + v;
+          return gout + row * 4 * H + j * H + u0 + v;
+        }
+        *from = hc_s + (r * 2 + j - 4) * U + v;
+        return (j == 4 ? hout : cout) + row * H + u0 + v;
+      };
+      if (quads) {
+        const int nq = U / 4;
+        for (int i = tid; i < nb * n_out * nq; i += nthreads) {
+          const int r = i / (n_out * nq);
+          const int j = (i / nq) % n_out;
+          const int q4 = 4 * (i % nq);
+          if (q4 < nu) {
+            const float* from;
+            float* to = out_of(r, j, q4, &from);
+            const float4 v = *reinterpret_cast<const float4*>(from);
+            *reinterpret_cast<float4*>(to) = v;
+            if (own_h && j == j_h) {
+              *reinterpret_cast<float4*>(next_h + r * Hp + q4) = v;
             }
           }
         }
-        // lane r < kBC finishes batch row b0 + bc + r of unit u
-        float gi = acc[0][0], gf = acc[0][1], gg = acc[0][2], go = acc[0][3];
-#pragma unroll
-        for (int r = 1; r < kBC; ++r) {
-          if (lane == r) {
-            gi = acc[r][0];
-            gf = acc[r][1];
-            gg = acc[r][2];
-            go = acc[r][3];
-          }
-        }
-        if (lane < kBC && bc + lane < nb) {
-          const int b = b0 + bc + lane;
-          const float* x = x_s + (warp * bt + bc + lane) * 4;
-          const float i_g = sigmoid_f(x[0] + gi);
-          const float f_g = sigmoid_f(x[1] + gf);
-          const float g_g = tanhf(x[2] + gg);
-          const float o_g = sigmoid_f(x[3] + go);
-          float* c = c_s + warp * B + b;
-          const float c_new = f_g * *c + i_g * g_g;
-          *c = c_new;
-          const size_t row = static_cast<size_t>(t) * B + b;
-          hout[row * H + u] = o_g * tanhf(c_new);
-          if constexpr (kResid) {
-            float* gr = gout + row * 4 * H;
-            gr[u] = i_g;
-            gr[H + u] = f_g;
-            gr[2 * H + u] = g_g;
-            gr[3 * H + u] = o_g;
-            cout[row * H + u] = c_new;
+      } else {
+        for (int i = tid; i < nb * n_out * U; i += nthreads) {
+          const int r = i / (n_out * U);
+          const int j = (i / U) % n_out;
+          const int v = i % U;
+          if (v < nu) {
+            const float* from;
+            float* to = out_of(r, j, v, &from);
+            *to = *from;
+            if (own_h && j == j_h) next_h[r * Hp + v] = *from;
           }
         }
       }
+      PROBE_LAP(3);
+      // the buffer's next copies go in at the next tile's start
+      if (tile + 1 < tiles) __syncthreads();
+      buf ^= 1;
     }
-    grid.sync();
+    bar.arrive();
+    // the next step's first gate inputs in flight during the wait (the
+    // buffer's readers passed the arrival's __syncthreads)
+    if (s + 1 < T) stage_x(s + 1, 0, buf);
+    step::commit();
+    PROBE_LAP(4);
   }
-}
-
-// The kernels on pre-projected gate inputs (bilstm_infer, bilstm_fwd).
-template <int KPL, bool kResid>
-__global__ void __launch_bounds__(kMaxUnits * 32)
-bilstm_infer_kernel(const float* __restrict__ xp_f,
-                    const float* __restrict__ xp_b,
-                    const float* __restrict__ w_f,
-                    const float* __restrict__ w_b,
-                    float* h_f, float* h_b,
-                    float* __restrict__ g_f, float* __restrict__ g_b,
-                    float* __restrict__ c_f, float* __restrict__ c_b,
-                    int T, int B, int H,
-                    int blocks_per_dir, int units_per_block, int bt) {
-  extern __shared__ float smem[];
-  float* h_s = smem;
-  float* c_s = h_s + bt * H;
-  float* x_s = c_s + units_per_block * B;
-  recurrence<KPL, kResid>(h_s, c_s, x_s, xp_f, xp_b, w_f, w_b, h_f, h_b,
-                          g_f, g_b, c_f, c_b, T, B, H, blocks_per_dir,
-                          units_per_block, bt);
+#ifdef BILSTM_INFER_PROBE
+  if (lane == 0) {
+    for (int p = 0; p < kPhases; ++p) {
+      atomicAdd(&g_probe_cycles[p],
+                static_cast<unsigned long long>(probe_cycles[p]));
+      atomicAdd(&g_probe_laps[p],
+                static_cast<unsigned long long>(probe_laps[p]));
+    }
+  }
+#endif
 }
 
 // K-tiles kt_lo .. kt_hi - 1 of the gate inputs of `rows` fold rows (row
@@ -713,31 +913,75 @@ bool plan_fused(Params& p, size_t* smem) {
   return true;
 }
 
-template <int KPL, bool kResid>
-cudaError_t launch(Params p, cudaStream_t stream) {
-  p.units = p.H < kMaxUnits ? p.H : kMaxUnits;
-  p.blocks_per_dir = (p.H + p.units - 1) / p.units;
-  const int threads = p.units * 32;
-  const int grid = 2 * p.blocks_per_dir;
-  // cell state [units][B], then per batch row of a tile: h_{t-1} [H]
-  // and the units' gate inputs [units][4]
-  const size_t c_bytes = static_cast<size_t>(p.units) * p.B * sizeof(float);
-  const size_t row_bytes =
-      static_cast<size_t>(p.H + 4 * p.units) * sizeof(float);
-  if (c_bytes + row_bytes > kSmemBudget) {
+// The plan of the unfused kernels: `splits` warps a unit (0: the
+// source's choice, kSplitMaxH), units = min(H, kMaxUnits / splits) a
+// block; the batch tile the largest that fits the budget beside the cell
+// state, then evened out over the tiles it takes. Refuses a batch whose
+// cell state leaves no room for one row of each buffer.
+template <int KQ, bool kResid>
+cudaError_t launch_unfused(Unfused a, cudaStream_t stream) {
+  if (a.splits == 0) {
+    a.splits = a.H > kMaxUnits && a.H <= kSplitMaxH ? 2 : 1;
+  }
+  if (a.splits < 1 || kMaxUnits % a.splits) return cudaErrorInvalidValue;
+  const int per_block = kMaxUnits / a.splits;
+  a.units = a.H < per_block ? a.H : per_block;
+  a.blocks_per_dir = (a.H + a.units - 1) / a.units;
+  const int threads = a.units * a.splits * 32;
+  // the cell state [units][B], then per batch row of a tile: two buffers
+  // of h_{t-1} [Hp] and gate inputs [4][units], and with kResid h and c
+  // [2][units]
+  const size_t hp = (a.H + 3) & ~3;
+  const size_t c_floats = static_cast<size_t>(a.units) * a.B;
+  const size_t row_floats =
+      2 * (hp + 4 * a.units) + (kResid ? 2 * a.units : 0);
+  const size_t budget = kUnfusedSmemFloats;
+  if (c_floats + row_floats > budget) {
     return cudaErrorInvalidValue;  // batch too large for the cell state
   }
-  int bt = static_cast<int>((kSmemBudget - c_bytes) / row_bytes);
-  if (bt > p.B) bt = p.B;
-  p.bt = bt;
-  const size_t smem = c_bytes + static_cast<size_t>(bt) * row_bytes;
-  void* args[] = {&p.xp_f, &p.xp_b, &p.w_f, &p.w_b, &p.h_f, &p.h_b,
-                  &p.g_f,  &p.g_b,  &p.c_f, &p.c_b, &p.T,   &p.B,
-                  &p.H,    &p.blocks_per_dir, &p.units, &p.bt};
-  return step::launch_cooperative(bilstm_infer_kernel<KPL, kResid>, grid,
-                            threads, smem, args, stream);
+  size_t bt = (budget - c_floats) / row_floats;
+  if (bt > static_cast<size_t>(a.B)) bt = a.B;
+  const size_t tiles = (a.B + bt - 1) / bt;
+  a.bt = static_cast<int>((a.B + tiles - 1) / tiles);
+  const size_t smem = (c_floats + a.bt * row_floats) * sizeof(float);
+  void* args[] = {&a};
+  return step::launch_cooperative(bilstm_infer_kernel<KQ, kResid>,
+                                  2 * a.blocks_per_dir, threads, smem, args,
+                                  stream);
 }
 
+template <bool kResid>
+int dispatch_unfused(Unfused a, int device, void* stream) {
+  if (a.T < 1 || a.B < 1 || a.H < 1 || a.H > kMaxH) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  auto s = static_cast<cudaStream_t>(stream);
+  const int kq = (a.H + kKSpan - 1) / kKSpan;
+  if (a.H <= kNarrowMaxH) return launch_unfused<0, kResid>(a, s);
+  if (kq <= 1) return launch_unfused<1, kResid>(a, s);
+  if (kq <= 2) return launch_unfused<2, kResid>(a, s);
+  return launch_unfused<4, kResid>(a, s);
+}
+
+Unfused unfused(const void* xp_f, const void* xp_b, const void* w_f,
+                const void* w_b, void* h_f, void* h_b, void* barrier, int T,
+                int B, int H, int splits) {
+  Unfused a = {};
+  a.xp[0] = static_cast<const float*>(xp_f);
+  a.xp[1] = static_cast<const float*>(xp_b);
+  a.w[0] = static_cast<const float*>(w_f);
+  a.w[1] = static_cast<const float*>(w_b);
+  a.h[0] = static_cast<float*>(h_f);
+  a.h[1] = static_cast<float*>(h_b);
+  a.barrier = static_cast<unsigned*>(barrier);
+  a.T = T;
+  a.B = B;
+  a.H = H;
+  a.splits = splits;
+  return a;
+}
 template <int KQ, bool kResid>
 cudaError_t launch_fused(Params p, cudaStream_t stream) {
   p.units = p.H < kMaxUnits ? p.H : kMaxUnits;
@@ -752,30 +996,19 @@ cudaError_t launch_fused(Params p, cudaStream_t stream) {
                             stream);
 }
 
-template <bool kResid, bool kProj>
-int dispatch(const Params& p, int device, void* stream) {
-  if (p.T < 1 || p.B < 1 || p.H < 1 || p.H > kMaxH) {
-    return cudaErrorInvalidValue;
-  }
-  if (kProj && (p.proj.I < 1 || p.B > kMaxFusedBatch)) {
+template <bool kResid>
+int dispatch_fused(const Params& p, int device, void* stream) {
+  if (p.T < 1 || p.B < 1 || p.H < 1 || p.H > kMaxH || p.proj.I < 1 ||
+      p.B > kMaxFusedBatch) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   auto s = static_cast<cudaStream_t>(stream);
-  if constexpr (kProj) {
-    const int kq = (p.H + kKSpan - 1) / kKSpan;
-    if (kq <= 1) return launch_fused<1, kResid>(p, s);
-    if (kq <= 2) return launch_fused<2, kResid>(p, s);
-    return launch_fused<4, kResid>(p, s);
-  } else {
-    const int kpl = (p.H + 31) / 32;
-    if (kpl <= 1) return launch<1, kResid>(p, s);
-    if (kpl <= 2) return launch<2, kResid>(p, s);
-    if (kpl <= 4) return launch<4, kResid>(p, s);
-    if (kpl <= 8) return launch<8, kResid>(p, s);
-    return launch<16, kResid>(p, s);
-  }
+  const int kq = (p.H + kKSpan - 1) / kKSpan;
+  if (kq <= 1) return launch_fused<1, kResid>(p, s);
+  if (kq <= 2) return launch_fused<2, kResid>(p, s);
+  return launch_fused<4, kResid>(p, s);
 }
 
 Params outputs(void* h_f, void* h_b, void* g_f, void* g_b, void* c_f,
@@ -816,27 +1049,31 @@ Params fused(const void* x, const void* wi_f, const void* wi_b,
 
 extern "C" {
 
-// Lean forward. Returns a cudaError_t (0 on success). Does not synchronise.
+// Lean forward. barrier: two 32-bit words (one a direction), zero at the
+// launch; splits: warps a hidden unit, 0 for the source's plan. Returns
+// a cudaError_t (0 on success). Does not synchronise.
 int bilstm_infer_launch(const void* xp_f, const void* xp_b, const void* w_f,
-                        const void* w_b, void* h_f, void* h_b, int T, int B,
-                        int H, int device, void* stream) {
-  Params p = outputs(h_f, h_b, nullptr, nullptr, nullptr, nullptr, w_f, w_b,
-                     T, B, H);
-  p.xp_f = static_cast<const float*>(xp_f);
-  p.xp_b = static_cast<const float*>(xp_b);
-  return dispatch<false, false>(p, device, stream);
+                        const void* w_b, void* h_f, void* h_b, void* barrier,
+                        int T, int B, int H, int splits, int device,
+                        void* stream) {
+  return dispatch_unfused<false>(
+      unfused(xp_f, xp_b, w_f, w_b, h_f, h_b, barrier, T, B, H, splits),
+      device, stream);
 }
 
 // Residual-saving forward: also writes g_f, g_b [T, B, 4H] and c_f, c_b
 // [T, B, H]. Returns a cudaError_t (0 on success). Does not synchronise.
 int bilstm_fwd_launch(const void* xp_f, const void* xp_b, const void* w_f,
                       const void* w_b, void* h_f, void* h_b, void* g_f,
-                      void* g_b, void* c_f, void* c_b, int T, int B, int H,
-                      int device, void* stream) {
-  Params p = outputs(h_f, h_b, g_f, g_b, c_f, c_b, w_f, w_b, T, B, H);
-  p.xp_f = static_cast<const float*>(xp_f);
-  p.xp_b = static_cast<const float*>(xp_b);
-  return dispatch<true, false>(p, device, stream);
+                      void* g_b, void* c_f, void* c_b, void* barrier, int T,
+                      int B, int H, int splits, int device, void* stream) {
+  Unfused a =
+      unfused(xp_f, xp_b, w_f, w_b, h_f, h_b, barrier, T, B, H, splits);
+  a.g[0] = static_cast<float*>(g_f);
+  a.g[1] = static_cast<float*>(g_b);
+  a.c[0] = static_cast<float*>(c_f);
+  a.c[1] = static_cast<float*>(c_b);
+  return dispatch_unfused<true>(a, device, stream);
 }
 
 // Lean forward with the input projection in the kernel: x [T, B, I],
@@ -848,7 +1085,7 @@ int bilstm_fused_infer_launch(const void* x, const void* wi_f,
                               const void* w_b, void* h_f, void* h_b,
                               void* barrier, int T, int B, int H, int I,
                               int device, void* stream) {
-  return dispatch<false, true>(
+  return dispatch_fused<false>(
       fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b, h_f, h_b, nullptr, nullptr,
             nullptr, nullptr, barrier, T, B, H, I),
       device, stream);
@@ -863,7 +1100,7 @@ int bilstm_fused_fwd_launch(const void* x, const void* wi_f,
                             void* g_b, void* c_f, void* c_b, void* barrier,
                             int T, int B, int H, int I, int device,
                             void* stream) {
-  return dispatch<true, true>(
+  return dispatch_fused<true>(
       fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b, h_f, h_b, g_f, g_b, c_f, c_b,
             barrier, T, B, H, I),
       device, stream);
@@ -872,5 +1109,26 @@ int bilstm_fused_fwd_launch(const void* x, const void* wi_f,
 const char* bilstm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef BILSTM_INFER_PROBE
+// Cycles and laps of each phase of the unfused kernels since the last
+// reset, summed over warps.
+int bilstm_infer_probe_read(unsigned long long* cycles,
+                            unsigned long long* laps, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(cycles, g_probe_cycles,
+                                         sizeof(g_probe_cycles));
+  if (err == cudaSuccess) {
+    err = cudaMemcpyFromSymbol(laps, g_probe_laps, sizeof(g_probe_laps));
+  }
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[kPhases] = {};
+    err = cudaMemcpyToSymbol(g_probe_cycles, zero, sizeof(zero));
+    if (err == cudaSuccess) {
+      err = cudaMemcpyToSymbol(g_probe_laps, zero, sizeof(zero));
+    }
+  }
+  return err;
+}
+#endif
 
 }  // extern "C"

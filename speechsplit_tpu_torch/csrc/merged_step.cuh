@@ -1,7 +1,8 @@
 // The step machinery shared by the merged BiLSTM kernels
 // (bilstm_infer.cu, bilstm_bwd.cu): asynchronous 16-byte copies into
-// shared memory, a split grid barrier, the warp reduction the
-// redesigned step products end in, and the cooperative launch.
+// shared memory, a split grid barrier (and one per direction), the warp
+// reduction the redesigned step products end in, and the cooperative
+// launch.
 //
 // The split barrier replaces cooperative groups' grid.sync() where a
 // block has work that does not depend on the other blocks' step: it
@@ -9,7 +10,7 @@
 // arrival), does that work, and then waits (acquire: every block's stores
 // of the step are visible after it). The launch stays cooperative, so the
 // grid is co-resident or the launch fails; the barrier only needs its
-// counter zeroed before the launch (the wrapper passes a zeroed word).
+// counter zeroed before the launch (the wrapper passes zeroed words).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -69,6 +70,42 @@ struct Barrier {
       while (*static_cast<volatile unsigned*>(count) < target) {
       }
       __threadfence();
+    }
+    __syncthreads();
+  }
+};
+
+// The same split barrier for the blocks of one direction of a merged
+// layer, which read only their own direction's h: `count` is that
+// direction's word, and a wait returns once its `blocks` blocks have
+// arrived as often. A direction of one block needs no counter: arrive
+// and wait are then __syncthreads() alone.
+struct DirBarrier {
+  unsigned* count;
+  unsigned blocks;
+  unsigned target;
+
+  __device__ DirBarrier(unsigned* c, unsigned n)
+      : count(c), blocks(n), target(0) {}
+
+  // Called by every thread of the block after its stores of the step.
+  __device__ __forceinline__ void arrive() {
+    __syncthreads();
+    if (blocks > 1 && threadIdx.x == 0) {
+      __threadfence();
+      atomicAdd(count, 1u);
+    }
+  }
+
+  // Called by every thread of the block.
+  __device__ __forceinline__ void wait() {
+    if (blocks > 1) {
+      target += blocks;
+      if (threadIdx.x == 0) {
+        while (*static_cast<volatile unsigned*>(count) < target) {
+        }
+        __threadfence();
+      }
     }
     __syncthreads();
   }

@@ -57,6 +57,7 @@ MAX_FUSED_BATCH = _build.source_constant("bilstm_infer", "kMaxFusedBatch")
 _INFER_UNITS = _build.source_constant("bilstm_infer", "kMaxUnits")
 _INFER_SMEM_FLOATS = _build.source_constant("bilstm_infer",
                                             "kUnfusedSmemFloats")
+_INFER_SPLIT_MAX_H = _build.source_constant("bilstm_infer", "kSplitMaxH")
 _BWD_UNITS = _build.source_constant("bilstm_bwd", "kMaxUnits")
 _BWD_VALS = _build.source_constant("bilstm_bwd", "kVals")
 _BWD_SMEM_FLOATS = _build.source_constant("bilstm_bwd", "kBwdSmemFloats")
@@ -151,23 +152,42 @@ def bilstm_sequence_fused_reference(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
                                           w_b)[:2]
 
 
+def _infer_units(h: int) -> int:
+    """Hidden units a block of the unfused kernels runs at width ``h`` in
+    the source's plan: two warps a unit above ``kMaxUnits`` up to
+    ``kSplitMaxH``, else one."""
+    splits = 2 if _INFER_UNITS < h <= _INFER_SPLIT_MAX_H else 1
+    return min(h, _INFER_UNITS // splits)
+
+
 def merged_max_batch(h: int, grad: bool = False) -> int:
     """The largest batch the merged kernels a layer of width ``h`` runs
-    can take: ``bilstm_infer`` (5052 rows at H=512, 5115 at H=8), and
-    under autograd also ``bilstm_fwd`` (the same plan) and ``bilstm_bwd``
-    (4842 at H=512, 4970 at H=256, 5094 at H=8). Each kernel holds its
-    cell state (the gradient's dc carry), [units][B] with units = min(H,
-    8), and one batch row of its staging in the shared memory its source
-    states: h_{t-1} and 4 gate inputs a unit for the forward; for the
-    gradient the previous d_pre (4H) and ``kVals`` floats a unit (the 8
-    warps' partial sums and two buffers of 7 residuals)."""
-    units = min(h, _INFER_UNITS)
-    limit = (_INFER_SMEM_FLOATS - h - 4 * units) // units
-    if grad:
-        units = min(h, _BWD_UNITS)
-        limit = min(limit,
-                    (_BWD_SMEM_FLOATS - 4 * h - _BWD_VALS * units) // units)
-    return limit
+    can take: ``bilstm_infer`` (4984 rows at H=512, 10,104 at H=256,
+    5110 at H=8), and under autograd also ``bilstm_fwd`` (4982, 10,102,
+    5108) and ``bilstm_bwd`` (4842 at H=512, 4970 at H=256, 5094 at H=8),
+    so 4842, 4970 and 5094. Each kernel holds its cell state (the
+    gradient's dc carry), [units][B], and one batch row of its staging in
+    the shared memory its source states. The forwards run units = min(H,
+    8) a block, 4 from H=9 to ``kSplitMaxH`` (256), and stage two buffers
+    of h_{t-1} (H padded to 4) and 4 gate inputs a unit, ``bilstm_fwd``
+    also h and c a unit; the gradient runs min(H, 8) units and stages the
+    previous d_pre (4H) and ``kVals`` floats a unit (the 8 warps' partial
+    sums and two buffers of 7 residuals)."""
+    if not grad:
+        return forward_max_batch(h, resid=False)
+    units = min(h, _BWD_UNITS)
+    return min(forward_max_batch(h, resid=True),
+               (_BWD_SMEM_FLOATS - 4 * h - _BWD_VALS * units) // units)
+
+
+def forward_max_batch(h: int, resid: bool) -> int:
+    """The largest batch ``bilstm_infer`` (``bilstm_fwd`` with ``resid``)
+    takes at width ``h`` in the source's plan: the cell state [units][B]
+    beside one row of two buffers of h_{t-1} and the gate inputs, and with
+    ``resid`` h and c a unit (``launch_unfused`` in the source)."""
+    units = _infer_units(h)
+    row = 2 * (-(-h // 4) * 4 + 4 * units) + (2 * units if resid else 0)
+    return (_INFER_SMEM_FLOATS - row) // units
 
 
 def merged_bidir_fits(t: int, b: int, h: int, grad: bool = False) -> bool:
@@ -181,12 +201,11 @@ def merged_bidir_fits(t: int, b: int, h: int, grad: bool = False) -> bool:
     budget: Mosaic's VMEM for the resident W_hh of both directions and
     the double-buffered blocks of a fold of steps, which refuses B above
     about 950 at H=512. It is not carried over: the CUDA kernels hold up
-    to 5052 rows at H=512 in one launch (4842 under autograd), and JAX's
+    to 4984 rows at H=512 in one launch (4842 under autograd), and JAX's
     threshold would move the mel decoder of a conversion of about 137 to
-    721 pairs (7 rows a pair) off that launch onto two serial
-    single-direction ones, which the H100 runs 2.2x slower at 1024 rows
-    (PERF.md). So the two plans
-    differ between about 950 and 5052 rows at H=512. The numerics do not
+    712 pairs (7 rows a pair) off that launch onto two serial
+    single-direction ones (PERF.md §6 times both routes). So the two
+    plans differ between about 950 and 4984 rows at H=512. The numerics do not
     depend on the route: both compute the same sums, and agree to float32
     rounding."""
     return t >= 1 and 1 <= h <= MAX_HIDDEN and (
@@ -301,11 +320,11 @@ def _check_fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b) -> None:
 
 def _library():
     lib = _build.load("bilstm_infer")
-    lib.bilstm_infer_launch.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.bilstm_infer_launch.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.bilstm_infer_launch.restype = ctypes.c_int
-    lib.bilstm_fwd_launch.argtypes = [ctypes.c_void_p] * 10 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.bilstm_fwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.bilstm_fwd_launch.restype = ctypes.c_int
     lib.bilstm_fused_infer_launch.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -332,15 +351,23 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _barrier_word(x: torch.Tensor) -> torch.Tensor:
-    """The zeroed counter of a kernel's split grid barrier
-    (``csrc/merged_step.cuh``), on x's device, zeroed on its stream
-    before the launch that follows."""
-    return torch.zeros(1, dtype=torch.int32, device=x.device)
+def _barrier_word(x: torch.Tensor, words: int = 1) -> torch.Tensor:
+    """The zeroed counters of a kernel's split grid barrier
+    (``csrc/merged_step.cuh``; the unfused forwards take one a
+    direction), on x's device, zeroed on its stream before the launch
+    that follows."""
+    return torch.zeros(words, dtype=torch.int32, device=x.device)
 
 
 def bilstm_infer_cuda(xp_f, xp_b, w_f, w_b):
     """Launch the lean forward of ``csrc/bilstm_infer.cu``."""
+    return _bilstm_infer_plan(xp_f, xp_b, w_f, w_b, 0)
+
+
+def _bilstm_infer_plan(xp_f, xp_b, w_f, w_b, splits: int):
+    """:func:`bilstm_infer_cuda` with ``splits`` warps a hidden unit: 0
+    for the source's plan, or 1 or 2 forced, which only a measurement of
+    the plans asks for."""
     _check(xp_f, xp_b, w_f, w_b)
     t_len, batch, four_h = xp_f.shape
     h_f = xp_f.new_empty(t_len, batch, four_h // 4)
@@ -348,8 +375,9 @@ def bilstm_infer_cuda(xp_f, xp_b, w_f, w_b):
     lib = _library()
     err = lib.bilstm_infer_launch(
         xp_f.data_ptr(), xp_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
-        h_f.data_ptr(), h_b.data_ptr(), t_len, batch, four_h // 4,
-        xp_f.device.index or 0, _stream(xp_f),
+        h_f.data_ptr(), h_b.data_ptr(), _barrier_word(xp_f, 2).data_ptr(),
+        t_len, batch, four_h // 4, splits, xp_f.device.index or 0,
+        _stream(xp_f),
     )
     _build.check(err, "bilstm_infer", lib.bilstm_error_string)
     LAUNCHES["bilstm_infer"] += 1
@@ -368,8 +396,9 @@ def bilstm_forward_cuda(xp_f, xp_b, w_f, w_b):
     err = lib.bilstm_fwd_launch(
         xp_f.data_ptr(), xp_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
         h_f.data_ptr(), h_b.data_ptr(), g_f.data_ptr(), g_b.data_ptr(),
-        c_f.data_ptr(), c_b.data_ptr(), t_len, batch, four_h // 4,
-        xp_f.device.index or 0, _stream(xp_f),
+        c_f.data_ptr(), c_b.data_ptr(), _barrier_word(xp_f, 2).data_ptr(),
+        t_len, batch, four_h // 4, 0, xp_f.device.index or 0,
+        _stream(xp_f),
     )
     _build.check(err, "bilstm_fwd", lib.bilstm_error_string)
     LAUNCHES["bilstm_fwd"] += 1

@@ -210,20 +210,27 @@ def _budget_floats(stem):
     return int(a) * int(b) // 4
 
 
-@pytest.mark.parametrize("h,infer,grad", [(512, 5052, 4842),
-                                          (256, 5084, 4970),
-                                          (8, 5115, 5094)])
+@pytest.mark.parametrize("h,infer,grad", [(512, 4984, 4842),
+                                          (256, 10104, 4970),
+                                          (8, 5110, 5094)])
 def test_merged_bidir_fits_at_the_kernel_limits(h, infer, grad):
     """The merged kernels' launch plans (csrc/bilstm_infer.cu: cell state
-    [units][B] beside a row of H + 4 units floats; csrc/bilstm_bwd.cu: dc
-    carry [units][B] beside a row of 4H + kVals units: the warps' 8
-    partial sums and two buffers of 7 residuals) on the budgets their
-    sources state."""
-    units = min(h, 8)
+    [units][B], units = 8, or 4 from H=9 to kSplitMaxH, beside a row of
+    two buffers of H + 4 units floats, and for the residual-saving
+    forward h and c a unit; csrc/bilstm_bwd.cu: dc carry [units][B]
+    beside a row of 4H + kVals units: the warps' 8 partial sums and two
+    buffers of 7 residuals) on the budgets their sources state."""
+    units = 4 if 8 < h <= 256 else min(h, 8)
+    assert _build.source_constant("bilstm_infer", "kSplitMaxH") == 256
     vals = _build.source_constant("bilstm_bwd", "kVals")
     assert vals == 8 + 2 * 7
-    assert infer == (_budget_floats("bilstm_infer") - h - 4 * units) // units
-    assert grad == (_budget_floats("bilstm_bwd") - 4 * h - vals * units) // units
+    row = 2 * (h + 4 * units)
+    assert infer == (_budget_floats("bilstm_infer") - row) // units
+    fwd = (_budget_floats("bilstm_infer") - row - 2 * units) // units
+    bwd_units = min(h, 8)
+    bwd = (_budget_floats("bilstm_bwd") - 4 * h - vals * bwd_units) // (
+        bwd_units)
+    assert grad == min(fwd, bwd) == bwd
     assert bilstm.merged_max_batch(h) == infer
     assert bilstm.merged_max_batch(h, grad=True) == grad
     assert bilstm.merged_bidir_fits(192, infer, h)
