@@ -11,13 +11,20 @@ Phases, one line each; any failure exits non-zero:
    ``speechsplit_tpu_torch/csrc/*.cu`` file with nvcc for sm_90a;
 2. each inference kernel against its plain PyTorch version on the card,
    at the shapes the conversion paths give it (``bilstm_infer`` also at
-   the 731-pair call's B731 H256), with its time, the plain version's
+   the 731-pair call's B731 H256, ``multi_bilstm_infer`` at its B5117
+   (8, 32, 1) and B731 (32, 1)), with its time, the plain version's
    time, the least time the card could take (bound) and a cuDNN LSTM as
-   a yardstick; the merged forwards' edges (T=1, B=1, ragged rounds,
-   widths not a multiple of 4, a partial 128-wide pass, one block a
-   direction, batch tiles, the batch limit of each at H 512, 256 and 8,
-   and one row past it, which raises); ``bilstm_infer`` at H=256 in each
-   plan (one or two warps a unit) at B4, B16 and B731;
+   a yardstick (the multi-stream kernels: also their kernel's device
+   time, the calls queued behind a spin kernel); the merged forwards'
+   edges (T=1, B=1, ragged rounds, widths not a multiple of 4, a partial
+   128-wide pass, one block a direction, batch tiles, the batch limit of
+   each at H 512, 256 and 8, and one row past it, which raises);
+   ``bilstm_infer`` at H=256 in each plan (one or two warps a unit) at
+   B4, B16 and B731;
+   both multi-stream forwards at their edges (widths 1-64 alone and
+   mixed, B 1, 3 and 33, T=1, 8 directions; the gradient kernel on the
+   residual-saving forward's own g and c) and ``multi_bilstm_infer``'s
+   block plan timed at B13 (64, 3, 1);
 3. full-width ``convert_batched``: 4 synthetic pairs x 7 conditions
    through seeded default-config models, checked finite, against the
    same call on the plain versions and against the per-utterance
@@ -41,7 +48,10 @@ Phases, one line each; any failure exits non-zero:
    (``-DBILSTM_INFER_PROBE``): a step split into barrier wait, h
    staging, FMAs and reduction, cell and stores, and gate-input prefetch
    and arrival, at B28 H512 (lean), B16 H512 (residual-saving) and B731
-   H256 (lean) (``[infer probe]``);
+   H256 (lean) (``[infer probe]``); the probe build of the multi-stream
+   forwards (``-DMULTI_BILSTM_PROBE``): a lane-plan step split into
+   gate-input wait, product, cell and stores, and prefetch, per stream
+   width, at B28 (lean) and B16 (residual-saving) (``[multi probe]``);
 7. the full-width generator and F0-converter train steps on a seeded
    ``Collator`` batch of 16: the launches of every kernel in one step
    (counts set to 0 just before and read just after), the step against
@@ -99,21 +109,28 @@ exits non-zero and prints no result.
 
 compares the default (unfused) path of this checkout with that of the
 checkout in DIR (for example the parent commit, unpacked with ``git
-archive``): the registers, spills and a hash of the machine code nvcc
-gives each kernel of the merged BiLSTM sources (``bilstm_infer.cu``,
-``bilstm_bwd.cu``) and the single-direction ones (``lstm_infer.cu``,
-``lstm_bwd.cu``) in either tree; then ``convert_batched`` at phase 13's
-pair count in a process of either tree, reporting whether it completed
-or raised; then N rounds of DIR, this, this, DIR, each a process of its
-own that builds its tree's kernels and times, through that tree's own
-phase functions, ``bilstm_infer`` at the conversions' shapes (B28 H512,
-B4 H256, B28 H8, B731 H256), ``bilstm_fwd`` and ``bilstm_bwd`` at the
-train shapes, ``bilstm_fused_infer`` at the fused
-conversion's B56 I1024 H512 and ``bilstm_fused_fwd`` at B16 I1024 H512,
-``lstm_infer`` at phase 13's two
-shapes and both directions of it at H=512 over batches 28-224, and both
-default train steps. It prints one line per process
-and the medians of each tree side by side.
+archive``): the registers, spills, stack frame and a hash of the
+machine code nvcc gives each kernel of the merged BiLSTM sources
+(``bilstm_infer.cu``, ``bilstm_bwd.cu``), the single-direction ones
+(``lstm_infer.cu``, ``lstm_bwd.cu``) and the multi-stream ones
+(``multi_bilstm_infer.cu``, ``multi_bilstm_bwd.cu``) in either tree;
+then ``convert_batched`` at phase 13's pair count in a process of either
+tree, reporting whether it completed or raised; then N rounds of DIR,
+this, this, DIR, each a process of its own that builds its tree's
+kernels and times, through that tree's own phase functions,
+``bilstm_infer`` at the conversions' shapes (B28 H512, B4 H256, B28 H8,
+B731 H256), ``bilstm_fwd`` and ``bilstm_bwd`` at the train shapes,
+``bilstm_fused_infer`` at the fused conversion's B56 I1024 H512 and
+``bilstm_fused_fwd`` at B16 I1024 H512, ``lstm_infer`` at phase 13's two
+shapes and both directions of it at H=512 over batches 28-224,
+``multi_bilstm_infer`` at B28 (8, 32, 1), B4 (32, 1), B5117 (8, 32, 1)
+and B731 (32, 1) and its block plan at B13 (64, 3, 1), and
+``multi_bilstm_fwd`` and ``multi_bilstm_bwd`` at B16 (8, 32, 1) and
+(32, 1) (a wrapper call, and the kernel's device time with the calls
+queued behind a spin kernel), the 4-pair ``convert_batched`` call (wall
+time, and the card's busy time in one profiled call), and both default
+train steps. It prints one line per process and the medians of each
+tree side by side.
 """
 
 from __future__ import annotations
@@ -147,6 +164,9 @@ PATH_TOL = 5e-4
 LEAN_B28_H512_MS_BEFORE = 3.6035
 # the train step's batch
 TRAIN_B = 16
+# clock cycles of the spin kernel that kernel_device_ms queues calls
+# behind: many times what the host takes to queue them
+SPIN_CYCLES = 100_000_000
 # the fused conversion's pairs (generator batch 8 x 7 = 56)
 FUSED_PAIRS = 8
 # a train step against the same step on the plain versions: the loss
@@ -388,19 +408,27 @@ def check_bilstm(b: int, h: int, reps: int) -> dict:
     return row
 
 
+def multi_inputs(t: int, b: int, hs, seed: int):
+    """Seeded inputs of the multi-stream op on the card, one stream a
+    width: the 2n xp [t, b, 4h] and the 2n w [4h, h]."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xps, ws = [], []
+    for h in hs:
+        for _ in range(2):
+            xps.append(torch.randn(t, b, 4 * h, device="cuda", generator=gen))
+            ws.append(torch.randn(4 * h, h, device="cuda", generator=gen)
+                      * h ** -0.5)
+    return xps, ws
+
+
 def check_multi(b: int, hs, reps: int) -> dict:
     import torch
 
     from speechsplit_tpu_torch.ops import multi_bilstm
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 7 * b)
-    dev = "cuda"
-    xps, ws = [], []
-    for h in hs:
-        for _ in range(2):
-            xps.append(torch.randn(T, b, 4 * h, device=dev, generator=gen))
-            ws.append(torch.randn(4 * h, h, device=dev, generator=gen)
-                      * h ** -0.5)
+    xps, ws = multi_inputs(T, b, hs, SEED + 7 * b)
     n = len(hs)
     got = multi_bilstm.multi_bilstm_sequence(n, *xps, *ws)
     want = multi_bilstm.multi_bilstm_sequence_reference(n, *xps, *ws)
@@ -408,6 +436,8 @@ def check_multi(b: int, hs, reps: int) -> dict:
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     ms = time_ms(lambda: multi_bilstm.multi_bilstm_sequence(n, *xps, *ws),
                  reps)
+    device_ms = kernel_device_ms(
+        lambda: multi_bilstm.multi_bilstm_sequence(n, *xps, *ws), reps)
     plain_ms = time_ms(lambda: multi_bilstm.multi_bilstm_sequence_reference(
         n, *xps, *ws), 2, warmup=1)
     # yardstick only (no single library call runs n LSTMs of mixed
@@ -420,10 +450,9 @@ def check_multi(b: int, hs, reps: int) -> dict:
             cudnn_ms += time_ms(lambda: lstm(x), reps)
     bound_ms, bound_by = lstm_bound(T, b, [h for h in hs for _ in (0, 1)])
     row = dict(shape=f"T{T}xB{b}xH{'/'.join(map(str, hs))}",
-               max_abs_err=err, tol=KERNEL_TOL, ms=ms, plain_ms=plain_ms,
-               bound_ms=bound_ms,
-               bound_by=bound_by, library_ms=None,
-               cudnn_per_stream_sum_ms=cudnn_ms)
+               max_abs_err=err, tol=KERNEL_TOL, ms=ms, device_ms=device_ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=None, cudnn_per_stream_sum_ms=cudnn_ms)
     log("kernel multi_bilstm_infer", **fmt(row))
     if not err <= KERNEL_TOL:
         fail(f"multi_bilstm_infer {row['shape']}: max abs err {err}")
@@ -456,16 +485,57 @@ def check_edges() -> None:
         if not err <= KERNEL_TOL:
             fail(f"bilstm_infer T{t}xB{b}xH{h}: max abs err {err}")
         worst = max(worst, err)
-    for t, b, hs in ((11, 13, (64, 3, 1)), (7, 1, (32, 8, 5, 1))):
-        args = [rand(t, b, 4 * h) for h in hs for _ in (0, 1)]
-        args += [rand(4 * h, h) * h ** -0.5 for h in hs for _ in (0, 1)]
-        got = multi_bilstm.multi_bilstm_sequence(len(hs), *args)
-        want = multi_bilstm.multi_bilstm_sequence_reference(len(hs), *args)
-        err = max(float((g - r).abs().max()) for g, r in zip(got, want))
-        if not err <= KERNEL_TOL:
-            fail(f"multi_bilstm_infer T{t}xB{b}xH{hs}: max abs err {err}")
-        worst = max(worst, err)
-    log("kernel edges", shapes=7, max_abs_err=f"{worst:.3g}", tol=KERNEL_TOL)
+    log("kernel edges", shapes=5, max_abs_err=f"{worst:.3g}", tol=KERNEL_TOL)
+
+
+# (T, B, widths) of the multi-stream forwards' edges: each width alone
+# (the lane plan's L = 1, 2, 8, 16, 32, with units past H at 5, 9 and 31;
+# the block plan's 33 and 64), mixed widths up to 8 directions (a call
+# with a width past 32 runs the block plan for all of them), B = 1, 3 and
+# 33 (lane groups holding rows past the batch, a second block of the
+# lane plan at L = 8) and T = 1
+MULTI_EDGES = tuple((7, 3, (h,)) for h in (1, 2, 5, 8, 9, 16, 31, 32, 33,
+                                           64)) + (
+    (9, 33, (1, 2, 5, 8)), (5, 1, (9, 16, 31, 32)), (6, 3, (33, 64, 8, 1)),
+    (1, 33, (32, 8, 1)), (1, 1, (64, 1)), (11, 13, (64, 3, 1)),
+    (7, 1, (32, 8, 5, 1)))
+
+
+def check_multi_edges() -> None:
+    """Both multi-stream forwards (lean and residual-saving) at
+    ``MULTI_EDGES`` against their plain versions, and the gradient kernel
+    run on the residual-saving kernel's own g and c against the plain
+    gradient on the plain version's: the check that the forward writes
+    the layout ``csrc/multi_bilstm_bwd.cu`` reads."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import multi_bilstm
+
+    worst = {"lean": 0.0, "fwd": 0.0, "bwd_rel": 0.0}
+    for t, b, hs in MULTI_EDGES:
+        xps, ws = multi_inputs(t, b, hs, SEED + 13 * t + b)
+        n, d2 = len(hs), 2 * len(hs)
+        want = multi_bilstm.multi_bilstm_forward_reference(n, *xps, *ws)
+        lean = multi_bilstm.multi_bilstm_infer_cuda(n, *xps, *ws)
+        fwd = multi_bilstm.multi_bilstm_forward_cuda(n, *xps, *ws)
+        dhs = [torch.randn_like(h) for h in want[:d2]]
+        dx = multi_bilstm.multi_bilstm_backward_cuda(n, *dhs, *fwd[d2:], *ws)
+        dx_ref = multi_bilstm.multi_bilstm_backward_reference(
+            n, *dhs, *want[d2:], *ws)
+        torch.cuda.synchronize()
+        errs = {"lean": abs_err(lean, want[:d2]), "fwd": abs_err(fwd, want),
+                "bwd_rel": rel_err(dx, dx_ref)}
+        for name, err in errs.items():
+            if not err <= KERNEL_TOL:
+                fail(f"multi_bilstm {name} T{t}xB{b}xH{hs}: error {err} > "
+                     f"{KERNEL_TOL}")
+            worst[name] = max(worst[name], err)
+    log("kernel multi edges", shapes=len(MULTI_EDGES),
+        widths="1,2,5,8,9,16,31,32,33,64", batches="1,3,13,33", t_min=1,
+        max_dirs=8, max_abs_err_lean=f"{worst['lean']:.3g}",
+        max_abs_err_fwd=f"{worst['fwd']:.3g}",
+        bwd_on_kernel_residuals_rel_err=f"{worst['bwd_rel']:.3g}",
+        tol=KERNEL_TOL)
 
 
 # (T, B, H, splits) of the merged forwards' edges: T=1, B=1, rounds of 8
@@ -550,6 +620,15 @@ def check_infer_plans(h: int, batches, reps: int) -> list:
     return rows
 
 
+def multi_infer_shapes():
+    """(batch, widths) of multi_bilstm_infer on the main path: the 4-pair
+    call's generator (B28) and F0 converter (B4), then the large call's
+    (phase 13: 7 x 731 = 5117 and 731 rows)."""
+    pairs = refused_pairs()
+    return ((28, (8, 32, 1)), (4, (32, 1)), (7 * pairs, (8, 32, 1)),
+            (pairs, (32, 1)))
+
+
 def phase_kernels(reps: int = 20) -> dict:
     """Each kernel against its plain version at the main path's shapes.
     Returns the row of each kernel's most expensive main-path shape."""
@@ -561,11 +640,21 @@ def phase_kernels(reps: int = 20) -> dict:
                              check_bilstm(4, 256, reps),
                              check_bilstm(28, 8, reps),
                              check_bilstm(refused_pairs(), 256, reps)],
-            "multi_bilstm_infer": [check_multi(28, (8, 32, 1), reps),
-                                   check_multi(4, (32, 1), reps)],
+            "multi_bilstm_infer": [
+                check_multi(b, hs, reps) for b, hs in multi_infer_shapes()],
         }
         rows["bilstm_infer"][0]["plans_h256"] = check_infer_plans(
             256, (4, TRAIN_B, refused_pairs()), reps)
+        check_multi_edges()
+        multi = rows["multi_bilstm_infer"]
+        multi[0]["beside"] = [
+            {k: r[k] for k in ("shape", "ms", "device_ms", "plain_ms",
+                               "bound_ms")}
+            for r in multi[1:]]
+        # the block plan at the widest widths the kernel takes
+        wide = check_multi(13, (64, 3, 1), reps)
+        multi[0]["block_plan_edge"] = {
+            k: wide[k] for k in ("shape", "ms", "device_ms", "bound_ms")}
     return {name: r[0] for name, r in rows.items()}
 
 
@@ -698,15 +787,42 @@ def phase_profile(g_model, p_model, pairs, top: int = 8) -> None:
     profile_events("profile", prof, wall_ms, top)
 
 
+def device_us(event) -> float:
+    """A profiler event's own device time, µs."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, attr):
+            return float(getattr(event, attr))
+    return 0.0
+
+
+def kernel_device_ms(fn, reps: int) -> float:
+    """Mean device time of one call of ``fn`` with the card kept fed: the
+    ``reps`` calls are queued behind a spin kernel (``torch.cuda._sleep``)
+    and run back to back, so the time does not count the gaps in which
+    the card waits for a wrapper's host work (``time_ms`` counts them).
+    Fails if the card reached the calls before the last was queued."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    queued = not start.query()  # the card is still in the spin kernel
+    torch.cuda.synchronize()
+    if not queued:
+        fail("kernel_device_ms: the spin kernel ended before the calls "
+             "were queued")
+    return start.elapsed_time(stop) / reps
+
+
 def profile_events(phase: str, prof, wall_ms: float, top: int) -> None:
     """The card's busy and idle share of a profiled window, and its
     busiest device ops."""
-
-    def device_us(event) -> float:
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(event, attr):
-                return float(getattr(event, attr))
-        return 0.0
 
     # device-side kernel and memcpy records only (CPU ops also carry the
     # device time of the kernels they launch, and a user annotation on
@@ -880,15 +996,23 @@ def check_multi_train(b: int, hs, reps: int) -> dict:
     res = want[d2:]
     dx = multi_bilstm.multi_bilstm_backward_cuda(n, *dhs, *res, *ws)
     dx_ref = multi_bilstm.multi_bilstm_backward_reference(n, *dhs, *res, *ws)
+    # the gradient kernel on the residual-saving kernel's own g and c
+    dx_own = multi_bilstm.multi_bilstm_backward_cuda(n, *dhs, *got[d2:], *ws)
     torch.cuda.synchronize()
     errs = dict(err_h=abs_err(got[:d2], want[:d2]),
                 err_g=abs_err(got[d2:2 * d2], want[d2:2 * d2]),
                 err_c=abs_err(got[2 * d2:], want[2 * d2:]),
-                err_dx_rel=rel_err(dx, dx_ref), err_dx=abs_err(dx, dx_ref))
+                err_dx_rel=rel_err(dx, dx_ref), err_dx=abs_err(dx, dx_ref),
+                err_dx_own_res_rel=rel_err(dx_own, dx_ref))
     fwd_ms = time_ms(lambda: multi_bilstm.multi_bilstm_forward_cuda(
         n, *xps, *ws), reps)
     bwd_ms = time_ms(lambda: multi_bilstm.multi_bilstm_backward_cuda(
         n, *dhs, *res, *ws), reps)
+    fwd_device_ms = kernel_device_ms(
+        lambda: multi_bilstm.multi_bilstm_forward_cuda(n, *xps, *ws), reps)
+    bwd_device_ms = kernel_device_ms(
+        lambda: multi_bilstm.multi_bilstm_backward_cuda(n, *dhs, *res, *ws),
+        reps)
     plain_fwd_ms = time_ms(lambda: multi_bilstm.multi_bilstm_forward_reference(
         n, *xps, *ws), 2, warmup=1)
     plain_bwd_ms = time_ms(lambda: multi_bilstm.multi_bilstm_backward_reference(
@@ -908,16 +1032,20 @@ def check_multi_train(b: int, hs, reps: int) -> dict:
     shape = f"T{T}xB{b}xH{'/'.join(map(str, hs))}"
     fwd = dict(shape=shape, max_abs_err=max(errs["err_h"], errs["err_g"],
                                             errs["err_c"]),
-               tol=KERNEL_TOL, ms=fwd_ms, plain_ms=plain_fwd_ms,
+               tol=KERNEL_TOL, ms=fwd_ms, device_ms=fwd_device_ms,
+               plain_ms=plain_fwd_ms,
                bound_ms=fwd_bound, bound_by=fwd_by, library_ms=None,
                cudnn_per_stream_sum_ms=lib_fwd)
     bwd = dict(shape=shape, max_abs_err=errs["err_dx"],
-               rel_err=errs["err_dx_rel"], tol=KERNEL_TOL, ms=bwd_ms,
+               rel_err=errs["err_dx_rel"],
+               rel_err_on_kernel_residuals=errs["err_dx_own_res_rel"],
+               tol=KERNEL_TOL, ms=bwd_ms, device_ms=bwd_device_ms,
                plain_ms=plain_bwd_ms, bound_ms=bwd_bound, bound_by=bwd_by,
                library_ms=None, cudnn_per_stream_sum_ms=lib_bwd)
     log("kernel multi_bilstm_fwd", **fmt(fwd))
     log("kernel multi_bilstm_bwd", **fmt(bwd))
-    for name in ("err_h", "err_g", "err_c", "err_dx_rel"):
+    for name in ("err_h", "err_g", "err_c", "err_dx_rel",
+                 "err_dx_own_res_rel"):
         if not errs[name] <= KERNEL_TOL:
             fail(f"multi_bilstm training kernels {shape}: {name} "
                  f"{errs[name]} > {KERNEL_TOL}")
@@ -1040,9 +1168,16 @@ def phase_train_kernels(reps: int = 10) -> dict:
         for b, h in ((TRAIN_B, 512), (TRAIN_B, 256), (TRAIN_B, 8)):
             for name, row in check_bilstm_train(b, h, reps).items():
                 rows.setdefault(name, row)
+        # the generator's streams (the row of the JSON record), then the
+        # F0 converter's beside them
         for hs in ((8, 32, 1), (32, 1)):
             for name, row in check_multi_train(TRAIN_B, hs, reps).items():
-                rows.setdefault(name, row)
+                if name in rows:
+                    rows[name].setdefault("beside", []).append(
+                        {k: row[k] for k in ("shape", "ms", "device_ms",
+                                             "plain_ms", "bound_ms")})
+                else:
+                    rows[name] = row
         check_bwd_edges()
         check_functions()
     return rows
@@ -1208,6 +1343,97 @@ def phase_infer_probe(shapes=(("infer", 28, 512), ("fwd", TRAIN_B, 512),
             splits[(kind, b, h)] = split
             del args, outs
     return splits[shapes[0]]
+
+
+# the phases of a multi-stream forward step that its probe build times, in
+# the order of csrc/multi_bilstm_infer.cu's PROBE_LAP indices
+MULTI_PROBE_PHASES = ("gate_input_wait", "product", "cell_and_stores",
+                      "prefetch")
+
+
+def phase_multi_probe(shapes=(("infer", 28, (8, 32, 1)),
+                              ("fwd", TRAIN_B, (8, 32, 1)))) -> dict:
+    """The probe build of ``csrc/multi_bilstm_infer.cu``
+    (``-DMULTI_BILSTM_PROBE``, compiled here into a temporary directory;
+    the port never loads it): clock64() laps of each phase of a lane-plan
+    step, per direction and summed over warps, as cycles a warp a step
+    and shares per stream width, at the generator's B28 (lean) and B16
+    (residual-saving). Each result is checked against the plain version.
+    Returns the splits."""
+    import ctypes
+
+    import torch
+
+    from speechsplit_tpu_torch.ops import _build, multi_bilstm
+
+    n_phases = len(MULTI_PROBE_PHASES)
+    slots = multi_bilstm.MAX_DIRECTIONS * n_phases
+    cycles = (ctypes.c_ulonglong * slots)()
+    laps = (ctypes.c_ulonglong * slots)()
+    splits = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lib_path = os.path.join(tmp, "libmulti_bilstm_probe.so")
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                        "-DMULTI_BILSTM_PROBE", "-o", lib_path,
+                        str(_build.CSRC / "multi_bilstm_infer.cu")],
+                       check=True, capture_output=True, text=True)
+        lib = ctypes.CDLL(lib_path)
+        tail = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.multi_bilstm_infer_launch.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + tail)
+        lib.multi_bilstm_fwd_launch.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 6 + tail)
+        lib.multi_bilstm_probe_read.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        for kind, b, hs in shapes:
+            xps, ws = multi_inputs(T, b, hs, SEED + 7 * b)
+            n, resid = len(hs), kind == "fwd"
+            want = multi_bilstm.multi_bilstm_forward_reference(n, *xps, *ws)
+            outs = [torch.empty_like(x) for x in want]
+            outs = outs if resid else outs[:2 * n]
+            want = want if resid else want[:2 * n]
+            ptrs = [multi_bilstm._ptrs(x) for x in (xps, ws)] + [
+                multi_bilstm._ptrs(outs[k * 2 * n:(k + 1) * 2 * n])
+                for k in range(len(outs) // (2 * n))]
+            launch = (lib.multi_bilstm_fwd_launch if resid
+                      else lib.multi_bilstm_infer_launch)
+
+            def run():
+                err = launch(2 * n, *ptrs, multi_bilstm._widths(xps), T, b,
+                             0, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    fail(f"multi_bilstm_{kind} probe build: CUDA error {err}")
+
+            run()
+            torch.cuda.synchronize()
+            lib.multi_bilstm_probe_read(cycles, laps, 1)  # reset
+            run()
+            torch.cuda.synchronize()
+            if lib.multi_bilstm_probe_read(cycles, laps, 1):
+                fail("multi_bilstm probe: reading the counters failed")
+            err = abs_err(outs, want)
+            if not err <= KERNEL_TOL:
+                fail(f"multi_bilstm_{kind} probe build B{b}: max abs err "
+                     f"{err}")
+            ms = kernel_device_ms(run, 5)
+            for st, h in enumerate(hs):
+                at = [(2 * st + d) * n_phases for d in (0, 1)]
+                # every live warp laps phase 0 once a step
+                warp_steps = sum(laps[a] for a in at)
+                per_step = {name: sum(cycles[a + i] for a in at) / warp_steps
+                            for i, name in enumerate(MULTI_PROBE_PHASES)}
+                total = sum(per_step.values())
+                split = {f"{k}_cycles": round(v) for k, v in per_step.items()}
+                split.update({f"{k}_share": f"{v / total:.4f}"
+                              for k, v in per_step.items()})
+                log("multi probe", kernel=f"multi_bilstm_{kind}",
+                    shape=f"T{T}xB{b}", width=h,
+                    warps=warp_steps // (2 * T), ms_probe_build=f"{ms:.4f}",
+                    cycles_per_step=round(total), max_abs_err=f"{err:.3g}",
+                    **split, clock="clock64 of each warp, summed over warps")
+                splits[(kind, b, h)] = split
+            del xps, ws, want, outs
+    return splits
 
 
 def synthetic_batch(config, seed: int):
@@ -2233,22 +2459,51 @@ FUSED_KERNELS = ("bilstm_fused_infer", "bilstm_fused_fwd")
 LSTM_KERNELS = ("lstm_infer", "lstm_fwd", "lstm_bwd")
 
 
-# the sources whose kernels --against compares: the merged BiLSTM ones
-# and the single-direction ones
-CODEGEN_SOURCES = ("bilstm_infer", "bilstm_bwd", "lstm_infer", "lstm_bwd")
+# the sources whose kernels --against compares: the merged BiLSTM ones,
+# the single-direction ones and the multi-stream ones
+CODEGEN_SOURCES = ("bilstm_infer", "bilstm_bwd", "lstm_infer", "lstm_bwd",
+                   "multi_bilstm_infer", "multi_bilstm_bwd")
 # a kernel entry of those sources, by its mangled name: the template and
-# its arguments (bilstm_infer_kernel<KQ, kResid>, bilstm_fused_kernel<KQ,
-# kResid>, bilstm_bwd_kernel<KQ>; lstm_infer_kernel<KPL, kResid>, which
-# is lstm_fwd's, lstm_wide_step_kernel<MR, kVec>, lstm_narrow_kernel<L,
-# U>, lstm_bwd_kernel<KPL>)
+# its arguments, if any (bilstm_infer_kernel<KQ, kResid>,
+# bilstm_fused_kernel<KQ, kResid>, bilstm_bwd_kernel<KQ>;
+# lstm_infer_kernel<KPL, kResid>, which is lstm_fwd's,
+# lstm_wide_step_kernel<MR, kVec>, lstm_narrow_kernel<L>,
+# lstm_bwd_kernel<KPL>; multi_bilstm_lane_kernel<kResid>,
+# multi_bilstm_infer_kernel<kResid>, which is the block plan's,
+# multi_bilstm_bwd_kernel)
 KERNEL_ENTRY = re.compile(
-    r"((?:bi)?lstm_(?:infer|fused|bwd|wide_step|narrow)_kernel)"
-    r"I((?:L[ib]\d+E)+)E")
+    r"((?:multi_)?(?:bi)?lstm_(?:infer|fused|bwd|wide_step|narrow|lane)"
+    r"_kernel)"
+    r"(?:I((?:L[ib]\d+E)+)E)?")
 
 
 def _entry(match) -> str:
+    if match[2] is None:
+        return match[1]
     args = re.findall(r"L[ib](\d+)E", match[2])
     return f"{match[1]}<{','.join(args)}>"
+
+
+def ptxas_rows(log_text: str) -> dict:
+    """Registers, spill stores and stack frame bytes of each kernel entry
+    that ``KERNEL_ENTRY`` names, from ``-Xptxas -v`` output."""
+    out = {}
+    key = None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            m = KERNEL_ENTRY.search(line)
+            key = _entry(m) if m else None
+        elif key and "spill stores" in line:
+            row = out.setdefault(key, {})
+            row["spill_stores"] = int(
+                re.search(r"(\d+) bytes spill stores", line)[1])
+            row["stack_frame"] = int(
+                re.search(r"(\d+) bytes stack frame", line)[1])
+        elif key and "Used" in line and "registers" in line:
+            out.setdefault(key, {})["registers"] = int(
+                re.search(r"Used (\d+) registers", line)[1])
+            key = None
+    return out
 
 
 def kernel_codegen(tree: str) -> dict:
@@ -2270,21 +2525,8 @@ def kernel_codegen(tree: str) -> dict:
                 [_build._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
                  cubin, source], capture_output=True, text=True,
                 check=True).stderr
-            key = None
-            for line in log_text.splitlines():
-                if "Compiling entry function" in line:
-                    m = KERNEL_ENTRY.search(line)
-                    key = _entry(m) if m else None
-                elif key and "spill stores" in line:
-                    row = out.setdefault(key, {})
-                    row["spill_stores"] = int(
-                        re.search(r"(\d+) bytes spill stores", line)[1])
-                    row["stack_frame"] = int(
-                        re.search(r"(\d+) bytes stack frame", line)[1])
-                elif key and "Used" in line and "registers" in line:
-                    out.setdefault(key, {})["registers"] = int(
-                        re.search(r"Used (\d+) registers", line)[1])
-                    key = None
+            for key, row in ptxas_rows(log_text).items():
+                out.setdefault(key, {}).update(row)
             cuobjdump = os.path.join(os.path.dirname(_build._nvcc()),
                                      "cuobjdump")
             sass = subprocess.run([cuobjdump, "-sass", cubin],
@@ -2337,7 +2579,87 @@ with c.strict_float32():
         out[f"lstm_infer pair B{b} H512 ms"] = c.time_ms(
             lambda: (lstm.lstm_infer_cuda(xp, w, False),
                      lstm.lstm_infer_cuda(xp, w, True)), 5)
-config =SpeechSplitConfig(residual_dtype="float32", adam_mu_dtype="float32")
+    # the multi-stream kernels at the conversions' and train steps' shapes:
+    # a wrapper call as check_multi and check_multi_train time it, and the
+    # calls queued behind a spin kernel, so that they run back to back
+    # (the kernels' device time, without the host's gaps)
+    from speechsplit_tpu_torch.ops import multi_bilstm
+
+    def device_ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        assert not start.query(), "the spin kernel ended too early"
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    def multi_args(b, hs):
+        g = torch.Generator(device="cuda").manual_seed(c.SEED + b)
+        dirs = [h for h in hs for _ in (0, 1)]
+        return ([torch.randn(c.T, b, 4 * h, device="cuda", generator=g)
+                 for h in dirs],
+                [torch.randn(4 * h, h, device="cuda", generator=g)
+                 * h ** -0.5 for h in dirs],
+                [torch.randn(c.T, b, h, device="cuda", generator=g)
+                 for h in dirs])
+
+    pairs = c.refused_pairs()
+    for b, hs in ((28, (8, 32, 1)), (4, (32, 1)), (7 * pairs, (8, 32, 1)),
+                  (pairs, (32, 1)), (13, (64, 3, 1))):
+        key = f"multi_bilstm_infer B{b} H{'/'.join(map(str, hs))}"
+        out[f"{key} ms"] = c.check_multi(b, hs, 20)["ms"]
+        xps, ws, _ = multi_args(b, hs)
+        out[f"{key} device ms"] = device_ms(
+            lambda: multi_bilstm.multi_bilstm_infer_cuda(len(hs), *xps, *ws))
+    for hs in ((8, 32, 1), (32, 1)):
+        widths = "/".join(map(str, hs))
+        for name, row in c.check_multi_train(c.TRAIN_B, hs, 10).items():
+            out[f"{name} B{c.TRAIN_B} H{widths} ms"] = row["ms"]
+        n = len(hs)
+        xps, ws, dhs = multi_args(c.TRAIN_B, hs)
+        res = multi_bilstm.multi_bilstm_forward_reference(n, *xps, *ws)[2 * n:]
+        out[f"multi_bilstm_fwd B{c.TRAIN_B} H{widths} device ms"] = device_ms(
+            lambda: multi_bilstm.multi_bilstm_forward_cuda(n, *xps, *ws))
+        out[f"multi_bilstm_bwd B{c.TRAIN_B} H{widths} device ms"] = device_ms(
+            lambda: multi_bilstm.multi_bilstm_backward_cuda(
+                n, *dhs, *res, *ws))
+# the 4-pair conversion: wall time a call, and the device's busy time in
+# one profiled call (kernel and copy records)
+from torch.profiler import ProfilerActivity, profile
+from speechsplit_tpu_torch.convert import CONDITIONS, convert_batched
+from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+gen = torch.Generator().manual_seed(c.SEED)
+g_model = SpeechSplit(SpeechSplitConfig(), generator=gen).to("cuda").eval()
+p_model = F0Converter(SpeechSplitConfig(), generator=gen).to("cuda").eval()
+pairs = c.synthetic_pairs(SpeechSplitConfig(), 4, "cuda", c.SEED)
+with c.strict_float32("timing"):
+    for _ in range(3):
+        convert_batched(g_model, p_model, pairs, CONDITIONS)
+    samples = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        convert_batched(g_model, p_model, pairs, CONDITIONS)
+        samples.append((time.perf_counter() - start) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        convert_batched(g_model, p_model, pairs, CONDITIONS)
+        torch.cuda.synchronize()
+out["convert_batched 4 pairs median ms"] = float(np.median(samples))
+out["convert_batched 4 pairs device busy ms"] = sum(
+    float(getattr(e, "self_device_time_total",
+                  getattr(e, "self_cuda_time_total", 0.0)))
+    for e in prof.key_averages()
+    if str(getattr(e, "device_type", "")).endswith("CUDA")
+    and not getattr(e, "is_user_annotation", False)) / 1e3
+del g_model, p_model, pairs
+config = SpeechSplitConfig(residual_dtype="float32", adam_mu_dtype="float32")
 batch = c.synthetic_batch(SpeechSplitConfig(), c.SEED)
 for model, make in (("speechsplit", make_train_step),
                     ("f0_converter", make_f0_train_step)):
@@ -2461,6 +2783,7 @@ def main() -> int:
     rows.update(phase_train_kernels())
     phase_bwd_probe()
     phase_infer_probe()
+    phase_multi_probe()
     gen_launches, f0_launches, state, step, batch = phase_train()
     phase_profile_train(state, step, batch)
     del state, step

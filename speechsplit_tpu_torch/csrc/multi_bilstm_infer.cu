@@ -15,22 +15,50 @@
 //
 // Layouts per direction d: xp [T, B, 4H_d], w [4H_d, H_d] (torch's
 // weight_hh_l{k}), h [T, B, H_d]; with kResid also g [T, B, 4H_d] (gates
-// i, f, g, o after their activations) and c [T, B, H_d].
+// i, f, g, o after their activations) and c [T, B, H_d], the layout
+// csrc/multi_bilstm_bwd.cu reads.
 //
-// What bounds it on an H100: latency. The widths are tiny (4H <= 128), so
-// a step is a few thousand multiply-adds and the 192 dependent steps of a
-// direction cost their synchronisation and memory latency, not bytes or
-// arithmetic. The directions are independent of each other.
+// What bounds it on an H100: latency. The widths are tiny (4H <= 256), so
+// a step of a row is at most a few thousand multiply-adds, and the 192
+// dependent steps of a direction cost the latency of one step's chain;
+// bytes and arithmetic bound a call at a few µs (0.0026 ms at B28, by
+// the H100's published rates). With the design below the chain is set by
+// the cell: at B28 a step of the widest direction (H=32) takes about 950
+// cycles, the cell's five activations (three sigmoids with an IEEE
+// division each, two tanhf, c between them) about 550 and the product
+// about 230 (chip_smoke.py's [multi probe] on an NVIDIA H100 80GB HBM3 at
+// 700 W; PERF.md). At large batches (the 731-pair call's 5117
+// rows) the SMs' issue rate and the registers take over: 168 a thread in
+// the lane plan, so three blocks of 128 threads an SM.
 //
-// What the design does about it: one block per (direction, batch tile of
-// up to 8 rows). A block keeps its direction's W_hh (at most 64 x 256
-// floats, 64 KB) transposed in shared memory, and h and c of its rows in
-// shared memory, and walks the T steps with only __syncthreads(): no grid
-// barrier and no global exchange. All directions of all N streams run at
-// once in one launch, so the group costs about one stream's latency.
-// Per-direction pointers and widths travel in a small descriptor passed
-// by value. The residual-saving forward adds five stores a cell; the lean
-// instantiation compiles without them.
+// What the design does about it (the lane plan, widths up to kLaneMaxH):
+// - A block serves one direction; a descriptor gives each direction its
+//   own range of blocks, and all 2N directions run in one launch.
+// - A batch row takes L lanes of a warp, L the least power of two >= H
+//   (32 / L rows a warp); each lane owns one unit and all four of its
+//   gates, so a step needs no barrier: c stays in a register for all T
+//   steps and h_{t-1} reaches the row's other lanes by __shfl_sync of
+//   width L.
+// - W_hh sits in registers: a lane holds its unit's L float4s (i, f, g, o
+//   at column k, zero-padded to L), staged once through shared memory. A
+//   step's product is L shuffles and 4L FMAs, no load (read from shared
+//   memory instead, 32 16-byte loads a lane a step bound the product by
+//   shared-memory bandwidth: 1.6x the time at B28 on the same card).
+// - The next step's gate inputs are in flight in registers while a step
+//   computes (more steps ahead cost registers, and with them the large
+//   batches, and gained at most 4% at B28).
+// - The cell update rounds each product and the sum on its own, as the
+//   plain version's separate ops do.
+// A call with a direction wider than kLaneMaxH (33..kMaxH) runs the block
+// plan for all its directions, in a kernel of its own that keeps its own
+// register count: one block of kThreads per (direction, tile of
+// kBatchTile rows), W_hh transposed and h and c of the tile in shared
+// memory, two __syncthreads() a step (the kernel before the lane plan,
+// unchanged).
+//
+// Built with -DMULTI_BILSTM_PROBE (chip_smoke.py's probe build), the lane
+// plan also adds up clock64() laps of each phase of a step per warp and
+// direction, which multi_bilstm_probe_read returns.
 
 #include <cuda_runtime.h>
 
@@ -38,6 +66,10 @@ namespace {
 
 constexpr int kMaxDirs = 8;
 constexpr int kMaxH = 64;
+// Widths up to this one run the lane plan (a row on up to 32 lanes).
+constexpr int kLaneMaxH = 32;
+constexpr int kLaneThreads = 128;
+// the block plan's rows and threads a block
 constexpr int kBatchTile = 8;
 constexpr int kThreads = 256;
 
@@ -50,6 +82,7 @@ struct Dir {
   int H;
 };
 
+// the block plan's descriptor
 struct Params {
   Dir d[kMaxDirs];
   int T;
@@ -57,10 +90,204 @@ struct Params {
   int tiles;
 };
 
+// the lane plan's: direction i runs L[i] lanes a row on the blocks from
+// first[i]
+struct LaneParams {
+  Dir d[kMaxDirs];
+  int L[kMaxDirs];
+  int first[kMaxDirs];
+  int n_dirs;
+  int T;
+  int B;
+};
+
+#ifdef MULTI_BILSTM_PROBE
+// phases: 0 gate-input wait, 1 product, 2 cell and stores, 3 prefetch
+// issue; per direction
+constexpr int kPhases = 4;
+__device__ unsigned long long g_probe_cycles[kMaxDirs * kPhases];
+__device__ unsigned long long g_probe_laps[kMaxDirs * kPhases];
+__device__ float g_probe_sink;
+#define PROBE_LAP(phase)                 \
+  do {                                   \
+    const long long now_ = clock64();    \
+    probe_cycles[phase] += now_ - lap_;  \
+    ++probe_laps[phase];                 \
+    lap_ = now_;                         \
+  } while (0)
+// an instruction that reads v, so that the next lap starts after v is
+// ready
+#define PROBE_READY(v) \
+  asm volatile("add.f32 %0, %0, %1;" : "+f"(probe_sink_) : "f"(v))
+#define PROBE_BEGIN                      \
+  long long probe_cycles[kPhases] = {};  \
+  long long probe_laps[kPhases] = {};    \
+  float probe_sink_ = 0.0f;              \
+  long long lap_ = clock64()
+#define PROBE_END(dir)                                              \
+  do {                                                              \
+    if ((threadIdx.x & 31) == 0) {                                  \
+      for (int p_ = 0; p_ < kPhases; ++p_) {                        \
+        atomicAdd(&g_probe_cycles[(dir) * kPhases + p_],            \
+                  static_cast<unsigned long long>(probe_cycles[p_])); \
+        atomicAdd(&g_probe_laps[(dir) * kPhases + p_],              \
+                  static_cast<unsigned long long>(probe_laps[p_]));   \
+      }                                                             \
+    }                                                               \
+    if (probe_sink_ == 1234.5f) g_probe_sink = probe_sink_;         \
+  } while (0)
+#else
+#define PROBE_LAP(phase) \
+  do {                   \
+  } while (0)
+#define PROBE_READY(v) \
+  do {                 \
+  } while (0)
+#define PROBE_BEGIN \
+  do {              \
+  } while (0)
+#define PROBE_END(dir) \
+  do {                 \
+  } while (0)
+#endif
+
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// The lane plan: blockDim.x / L rows of one direction, L lanes a row.
+template <int L, bool kResid>
+__device__ __forceinline__ void lane_steps(const Dir& d, int blk, int dir,
+                                           int T, int B, float4* wt) {
+  constexpr int kRows = 32 / L;  // batch rows a warp
+  const int H = d.H;
+  const bool reverse = dir & 1;
+  // wt[k * L + u]: (i, f, g, o) of unit u at column k, zeros past H
+  for (int i = threadIdx.x; i < L * L; i += blockDim.x) {
+    const int k = i / L;
+    const int u = i % L;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (k < H && u < H) {
+      v.x = d.w[static_cast<size_t>(u) * H + k];
+      v.y = d.w[static_cast<size_t>(H + u) * H + k];
+      v.z = d.w[static_cast<size_t>(2 * H + u) * H + k];
+      v.w = d.w[static_cast<size_t>(3 * H + u) * H + k];
+    }
+    wt[i] = v;
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int row0 = (blk * (blockDim.x >> 5) + (threadIdx.x >> 5)) * kRows;
+  if (row0 >= B) return;  // a warp without a live row (warp-uniform)
+  const int u = lane & (L - 1);
+  const int row = row0 + lane / L;
+  // rows past B and units past H run on zero inputs (their h stays 0)
+  // and store nothing; every lane of the warp takes part in the shuffles
+  const bool ok = row < B && u < H;
+  // this lane's unit's W_hh, L float4s in registers (indices known at
+  // compile time): shared memory only stages it
+  float4 wr[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) wr[k] = wt[k * L + u];
+  const size_t xstep = static_cast<size_t>(B) * 4 * H;  // a step of xp
+  const float* xrow =
+      d.xp + (ok ? static_cast<size_t>(row) * 4 * H + u : 0);
+  auto fetch = [&](float(&r)[4], int s) {
+    const float* x = xrow + static_cast<size_t>(reverse ? T - 1 - s : s) *
+                                xstep;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) r[g] = ok ? __ldg(x + g * H) : 0.0f;
+  };
+  float next[4];  // the next step's gate inputs, in flight during a step
+  fetch(next, 0);
+  PROBE_BEGIN;
+  float c_st = 0.0f, h_st = 0.0f;
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? T - 1 - s : s;
+    float x[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      x[g] = next[g];
+      PROBE_READY(x[g]);
+    }
+    PROBE_LAP(0);
+    if (s + 1 < T) fetch(next, s + 1);
+    PROBE_LAP(3);
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      // h_{t-1}[k], from the lane that owns it
+      const float hk = L == 1 ? h_st : __shfl_sync(0xffffffffu, h_st, k, L);
+      acc[0] = fmaf(hk, wr[k].x, acc[0]);
+      acc[1] = fmaf(hk, wr[k].y, acc[1]);
+      acc[2] = fmaf(hk, wr[k].z, acc[2]);
+      acc[3] = fmaf(hk, wr[k].w, acc[3]);
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) PROBE_READY(acc[g]);
+    PROBE_LAP(1);
+    const float i_g = sigmoid_f(x[0] + acc[0]);
+    const float f_g = sigmoid_f(x[1] + acc[1]);
+    const float g_g = tanhf(x[2] + acc[2]);
+    const float o_g = sigmoid_f(x[3] + acc[3]);
+    // each product and the sum rounded on its own, as the plain version's
+    // separate ops round them
+    c_st = __fadd_rn(__fmul_rn(f_g, c_st), __fmul_rn(i_g, g_g));
+    h_st = o_g * tanhf(c_st);
+    if (ok) {
+      const size_t at = (static_cast<size_t>(t) * B + row) * H + u;
+      d.h[at] = h_st;
+      if constexpr (kResid) {
+        float* gr = d.g + (static_cast<size_t>(t) * B + row) * 4 * H + u;
+        gr[0] = i_g;
+        gr[H] = f_g;
+        gr[2 * H] = g_g;
+        gr[3 * H] = o_g;
+        d.c[at] = c_st;
+      }
+    }
+    PROBE_READY(h_st);
+    PROBE_LAP(2);
+  }
+  PROBE_END(dir);
+}
+
+template <bool kResid>
+__global__ void __launch_bounds__(kLaneThreads)
+multi_bilstm_lane_kernel(LaneParams p) {
+  extern __shared__ float4 lane_smem[];
+  // the block's direction: the last one whose range starts at or before
+  // this block (indices known at compile time: a descriptor indexed at
+  // run time would be copied to local memory)
+  Dir d = p.d[0];
+  int L = p.L[0];
+  int first = p.first[0];
+  int dir = 0;
+#pragma unroll
+  for (int i = 1; i < kMaxDirs; ++i) {
+    if (i < p.n_dirs && static_cast<int>(blockIdx.x) >= p.first[i]) {
+      d = p.d[i];
+      L = p.L[i];
+      first = p.first[i];
+      dir = i;
+    }
+  }
+  const int blk = static_cast<int>(blockIdx.x) - first;
+  switch (L) {
+    case 1: lane_steps<1, kResid>(d, blk, dir, p.T, p.B, lane_smem); break;
+    case 2: lane_steps<2, kResid>(d, blk, dir, p.T, p.B, lane_smem); break;
+    case 4: lane_steps<4, kResid>(d, blk, dir, p.T, p.B, lane_smem); break;
+    case 8: lane_steps<8, kResid>(d, blk, dir, p.T, p.B, lane_smem); break;
+    case 16: lane_steps<16, kResid>(d, blk, dir, p.T, p.B, lane_smem); break;
+    default: lane_steps<32, kResid>(d, blk, dir, p.T, p.B, lane_smem);
+  }
+}
+
+static_assert(kLaneMaxH == 32, "the lane plan's widest instance is L = 32");
+
+// The block plan: kBatchTile rows of one direction a block, a thread per
+// (row, gate row) in the product and per (row, unit) in the cell.
 template <bool kResid>
 __global__ void __launch_bounds__(kThreads)
 multi_bilstm_infer_kernel(Params p) {
@@ -138,31 +365,60 @@ int dispatch(int n_dirs, const void* const* xp, const void* const* w,
   if (n_dirs < 1 || n_dirs > kMaxDirs || T < 1 || B < 1) {
     return cudaErrorInvalidValue;
   }
-  Params p{};
+  Dir dirs[kMaxDirs] = {};
   int max_h = 0;
   for (int i = 0; i < n_dirs; ++i) {
     if (hs[i] < 1 || hs[i] > kMaxH) return cudaErrorInvalidValue;
-    p.d[i] = Dir{static_cast<const float*>(xp[i]),
-                 static_cast<const float*>(w[i]), static_cast<float*>(h[i]),
-                 kResid ? static_cast<float*>(g[i]) : nullptr,
-                 kResid ? static_cast<float*>(c[i]) : nullptr, hs[i]};
+    dirs[i] = Dir{static_cast<const float*>(xp[i]),
+                  static_cast<const float*>(w[i]), static_cast<float*>(h[i]),
+                  kResid ? static_cast<float*>(g[i]) : nullptr,
+                  kResid ? static_cast<float*>(c[i]) : nullptr, hs[i]};
     if (hs[i] > max_h) max_h = hs[i];
   }
-  p.T = T;
-  p.B = B;
-  p.tiles = (B + kBatchTile - 1) / kBatchTile;
-  const size_t smem =
-      (static_cast<size_t>(max_h) * 4 * max_h +
-       2 * static_cast<size_t>(kBatchTile) * max_h +
-       static_cast<size_t>(kBatchTile) * 4 * max_h) * sizeof(float);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(multi_bilstm_infer_kernel<kResid>,
+  if (max_h > kLaneMaxH) {
+    Params p{};
+    for (int i = 0; i < n_dirs; ++i) p.d[i] = dirs[i];
+    p.T = T;
+    p.B = B;
+    p.tiles = (B + kBatchTile - 1) / kBatchTile;
+    const size_t smem =
+        (static_cast<size_t>(max_h) * 4 * max_h +
+         2 * static_cast<size_t>(kBatchTile) * max_h +
+         static_cast<size_t>(kBatchTile) * 4 * max_h) * sizeof(float);
+    err = cudaFuncSetAttribute(multi_bilstm_infer_kernel<kResid>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    multi_bilstm_infer_kernel<kResid><<<n_dirs * p.tiles, kThreads, smem,
+                                        static_cast<cudaStream_t>(stream)>>>(
+        p);
+    return cudaGetLastError();
+  }
+  LaneParams p{};
+  int blocks = 0;
+  int max_l = 1;
+  for (int i = 0; i < n_dirs; ++i) {
+    int L = 1;
+    while (L < hs[i]) L *= 2;
+    const int rows = kLaneThreads / L;  // rows a block
+    p.d[i] = dirs[i];
+    p.L[i] = L;
+    p.first[i] = blocks;
+    blocks += (B + rows - 1) / rows;
+    if (L > max_l) max_l = L;
+  }
+  p.n_dirs = n_dirs;
+  p.T = T;
+  p.B = B;
+  const size_t smem = sizeof(float4) * max_l * max_l;
+  err = cudaFuncSetAttribute(multi_bilstm_lane_kernel<kResid>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  multi_bilstm_infer_kernel<kResid><<<n_dirs * p.tiles, kThreads, smem,
-                                      static_cast<cudaStream_t>(stream)>>>(p);
+  multi_bilstm_lane_kernel<kResid><<<blocks, kLaneThreads, smem,
+                                     static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
 }
 
@@ -192,5 +448,26 @@ int multi_bilstm_fwd_launch(int n_dirs, const void* const* xp,
 const char* multi_bilstm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef MULTI_BILSTM_PROBE
+// Cycles and laps of each phase of the lane plan since the last reset,
+// summed over warps: [kMaxDirs][kPhases] each.
+int multi_bilstm_probe_read(unsigned long long* cycles,
+                            unsigned long long* laps, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(cycles, g_probe_cycles,
+                                         sizeof(g_probe_cycles));
+  if (err == cudaSuccess) {
+    err = cudaMemcpyFromSymbol(laps, g_probe_laps, sizeof(g_probe_laps));
+  }
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[kMaxDirs * kPhases] = {};
+    err = cudaMemcpyToSymbol(g_probe_cycles, zero, sizeof(zero));
+    if (err == cudaSuccess) {
+      err = cudaMemcpyToSymbol(g_probe_laps, zero, sizeof(zero));
+    }
+  }
+  return err;
+}
+#endif
 
 }  // extern "C"

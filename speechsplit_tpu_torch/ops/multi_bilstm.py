@@ -41,8 +41,10 @@ from speechsplit_tpu_torch.ops.bilstm import (
 LAUNCHES = {"multi_bilstm_infer": 0, "multi_bilstm_fwd": 0,
             "multi_bilstm_bwd": 0}
 
-MAX_DIRECTIONS = 8
-MAX_HIDDEN = 64
+# the kernels' limits, as the lean and residual-saving kernels' source
+# states them (csrc/multi_bilstm_bwd.cu states the same)
+MAX_DIRECTIONS = _build.source_constant("multi_bilstm_infer", "kMaxDirs")
+MAX_HIDDEN = _build.source_constant("multi_bilstm_infer", "kMaxH")
 
 
 def _split(n: int, args):

@@ -13,6 +13,7 @@ import torch
 from speechsplit_tpu.ops import pallas_lstm, pallas_multilstm
 from speechsplit_tpu_torch.ops import multi_bilstm
 from tests.test_pallas_multilstm import STREAMS
+from tests.test_torch_multi_bilstm import PLAN_CASES, plan_case_id, plan_inputs
 
 T = 16
 TOL = 1e-5
@@ -55,6 +56,20 @@ CASES = pytest.mark.parametrize(
 def test_forward_reference_matches_fwd(streams, b):
     xs, ws, _ = _inputs(streams, b)
     n = len(streams)
+    want = pallas_multilstm._fwd(n, jnp.float32, *map(jnp.asarray, xs + ws))
+    got = multi_bilstm.multi_bilstm_forward_reference(
+        n, *map(_t, xs), *(_t(w.T) for w in ws))
+    assert len(got) == len(want) == 6 * n
+    for g, r in zip(got, want):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=TOL)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=plan_case_id)
+def test_forward_reference_matches_fwd_on_the_kernel_plans(case):
+    t, b, hs = case
+    xs, ws = plan_inputs(t, b, hs)
+    n = len(hs)
     want = pallas_multilstm._fwd(n, jnp.float32, *map(jnp.asarray, xs + ws))
     got = multi_bilstm.multi_bilstm_forward_reference(
         n, *map(_t, xs), *(_t(w.T) for w in ws))
