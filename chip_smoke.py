@@ -52,6 +52,13 @@ Phases, one line each; any failure exits non-zero:
    forwards (``-DMULTI_BILSTM_PROBE``): a lane-plan step split into
    gate-input wait, product, cell and stores, and prefetch, per stream
    width, at B28 (lean) and B16 (residual-saving) (``[multi probe]``);
+   the probe builds of the two gradient recurrences on the lane step
+   (``-DMULTI_BILSTM_BWD_PROBE``, ``-DLSTM_BWD_PROBE``): a step split
+   into residual wait (with the next step's gate factors), product, cell
+   gradient and stores, and prefetch, for ``multi_bilstm_bwd`` per
+   stream width at B16 (8, 32, 1) and (32, 1) (``[multi bwd probe]``),
+   and for ``lstm_bwd`` at B16 H 512, 256 (the wide plan, with the
+   barrier wait) and 8 (``[lstm bwd probe]``);
 7. the full-width generator and F0-converter train steps on a seeded
    ``Collator`` batch of 16: the launches of every kernel in one step
    (counts set to 0 just before and read just after), the step against
@@ -85,9 +92,10 @@ Phases, one line each; any failure exits non-zero:
     border); the merged ``bilstm_infer`` beside two
     ``lstm_infer`` launches at batches up to the largest it holds, at
     H=512 (from 28), H=256 (from 4) and H=8 (from 28);
-    edges (T=1, B=1, ragged row tiles, odd widths, the plan border, the
-    training kernels' batch limits, which their sources state, and one
-    row more, which raises, and ``lstm_infer`` at 16384 rows); every edge
+    edges (T=1, B=1, ragged row tiles, odd widths, the plan borders at
+    widths 31, 32 and 33, the training kernels' batch limits, which their
+    sources state, and one row more, which raises (the gradient's at H=8
+    and H=512), and ``lstm_infer`` at 16384 rows); every edge
     also against a float64 run of the plain loop; ``LSTMFunction`` on
     CUDA against autograd through the plain loop;
 13. ``convert_batched`` at the fewest pairs (731) whose 7 rows a pair the
@@ -123,14 +131,16 @@ B731 H256), ``bilstm_fwd`` and ``bilstm_bwd`` at the train shapes,
 ``bilstm_fused_infer`` at the fused conversion's B56 I1024 H512 and
 ``bilstm_fused_fwd`` at B16 I1024 H512, ``lstm_infer`` at phase 13's two
 shapes and both directions of it at H=512 over batches 28-224,
+``lstm_bwd`` at B16 H512, H256 and H8 (device time),
 ``multi_bilstm_infer`` at B28 (8, 32, 1), B4 (32, 1), B5117 (8, 32, 1)
 and B731 (32, 1) and its block plan at B13 (64, 3, 1), and
 ``multi_bilstm_fwd`` and ``multi_bilstm_bwd`` at B16 (8, 32, 1) and
 (32, 1) (a wrapper call, and the kernel's device time with the calls
 queued behind a spin kernel), the 4-pair ``convert_batched`` call (wall
-time, and the card's busy time in one profiled call), and both default
-train steps. It prints one line per process and the medians of each
-tree side by side.
+time, and the card's busy time in one profiled call), and both train
+steps on the default route and with the single-direction route forced,
+in turns. It prints one line per process and the medians of each tree
+side by side.
 """
 
 from __future__ import annotations
@@ -1183,6 +1193,31 @@ def phase_train_kernels(reps: int = 10) -> dict:
     return rows
 
 
+def probe_library(tmp: str, stem: str, flag: str):
+    """``csrc/<stem>.cu`` built with ``-D<flag>`` into ``tmp`` and loaded
+    (the port never loads a probe build)."""
+    import ctypes
+
+    from speechsplit_tpu_torch.ops import _build
+
+    lib_path = os.path.join(tmp, f"lib{stem}_probe.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-D{flag}", "-o",
+                    lib_path, str(_build.CSRC / f"{stem}.cu")],
+                   check=True, capture_output=True, text=True)
+    return ctypes.CDLL(lib_path)
+
+
+def probe_split(phases, cycles, laps) -> tuple[dict, float]:
+    """Cycles a warp a step of each phase (``cycles`` summed over warps,
+    ``laps`` the warp-steps) and their shares; and the step's total."""
+    per_step = {name: c / laps for name, c in zip(phases, cycles)}
+    total = sum(per_step.values())
+    split = {f"{k}_cycles": round(v) for k, v in per_step.items()}
+    split.update({f"{k}_share": f"{v / total:.4f}"
+                  for k, v in per_step.items()})
+    return split, total
+
+
 # the phases of a bilstm_bwd step that its probe build times, in the
 # order of csrc/bilstm_bwd.cu's PROBE_LAP calls
 BWD_PROBE_PHASES = ("barrier_wait", "d_pre_staging", "fma_and_reduction",
@@ -1201,16 +1236,11 @@ def phase_bwd_probe(shapes=((TRAIN_B, 512), (TRAIN_B, 256),
 
     import torch
 
-    from speechsplit_tpu_torch.ops import _build, bilstm
+    from speechsplit_tpu_torch.ops import bilstm
 
     splits = {}
     with tempfile.TemporaryDirectory() as tmp:
-        lib_path = os.path.join(tmp, "libbilstm_bwd_probe.so")
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
-                        "-DBILSTM_BWD_PROBE", "-o", lib_path,
-                        str(_build.CSRC / "bilstm_bwd.cu")],
-                       check=True, capture_output=True, text=True)
-        lib = ctypes.CDLL(lib_path)
+        lib = probe_library(tmp, "bilstm_bwd", "BILSTM_BWD_PROBE")
         lib.bilstm_bwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
             ctypes.c_int] * 4 + [ctypes.c_void_p]
         n = len(BWD_PROBE_PHASES)
@@ -1250,13 +1280,7 @@ def phase_bwd_probe(shapes=((TRAIN_B, 512), (TRAIN_B, 256),
                 fail(f"bilstm_bwd probe build B{b} H{h}: rel err {err}")
             ms = time_ms(run, 5)
             # every warp laps each phase once a step (once a batch tile)
-            warp_steps = laps[0]
-            per_step = {name: cycles[i] / warp_steps
-                        for i, name in enumerate(BWD_PROBE_PHASES)}
-            total = sum(per_step.values())
-            split = {f"{k}_cycles": round(v) for k, v in per_step.items()}
-            split.update({f"{k}_share": f"{v / total:.4f}"
-                          for k, v in per_step.items()})
+            split, total = probe_split(BWD_PROBE_PHASES, cycles, laps[0])
             log("bwd probe", shape=f"T{T}xB{b}xH{h}", ms_probe_build=f"{ms:.4f}",
                 cycles_per_step=round(total), rel_err=f"{err:.3g}",
                 **split, clock="clock64 of each warp, summed over warps")
@@ -1283,16 +1307,11 @@ def phase_infer_probe(shapes=(("infer", 28, 512), ("fwd", TRAIN_B, 512),
 
     import torch
 
-    from speechsplit_tpu_torch.ops import _build, bilstm
+    from speechsplit_tpu_torch.ops import bilstm
 
     splits = {}
     with tempfile.TemporaryDirectory() as tmp:
-        lib_path = os.path.join(tmp, "libbilstm_infer_probe.so")
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
-                        "-DBILSTM_INFER_PROBE", "-o", lib_path,
-                        str(_build.CSRC / "bilstm_infer.cu")],
-                       check=True, capture_output=True, text=True)
-        lib = ctypes.CDLL(lib_path)
+        lib = probe_library(tmp, "bilstm_infer", "BILSTM_INFER_PROBE")
         lib.bilstm_infer_launch.argtypes = [ctypes.c_void_p] * 7 + [
             ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.bilstm_fwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
@@ -1329,13 +1348,7 @@ def phase_infer_probe(shapes=(("infer", 28, 512), ("fwd", TRAIN_B, 512),
                      f"{err}")
             ms = time_ms(run, 5)
             # every warp laps the barrier phase once a step
-            warp_steps = laps[0]
-            per_step = {name: cycles[i] / warp_steps
-                        for i, name in enumerate(INFER_PROBE_PHASES)}
-            total = sum(per_step.values())
-            split = {f"{k}_cycles": round(v) for k, v in per_step.items()}
-            split.update({f"{k}_share": f"{v / total:.4f}"
-                          for k, v in per_step.items()})
+            split, total = probe_split(INFER_PROBE_PHASES, cycles, laps[0])
             log("infer probe", kernel=f"bilstm_{kind}",
                 shape=f"T{T}xB{b}xH{h}", ms_probe_build=f"{ms:.4f}",
                 cycles_per_step=round(total), max_abs_err=f"{err:.3g}",
@@ -1364,7 +1377,7 @@ def phase_multi_probe(shapes=(("infer", 28, (8, 32, 1)),
 
     import torch
 
-    from speechsplit_tpu_torch.ops import _build, multi_bilstm
+    from speechsplit_tpu_torch.ops import multi_bilstm
 
     n_phases = len(MULTI_PROBE_PHASES)
     slots = multi_bilstm.MAX_DIRECTIONS * n_phases
@@ -1372,12 +1385,7 @@ def phase_multi_probe(shapes=(("infer", 28, (8, 32, 1)),
     laps = (ctypes.c_ulonglong * slots)()
     splits = {}
     with tempfile.TemporaryDirectory() as tmp:
-        lib_path = os.path.join(tmp, "libmulti_bilstm_probe.so")
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
-                        "-DMULTI_BILSTM_PROBE", "-o", lib_path,
-                        str(_build.CSRC / "multi_bilstm_infer.cu")],
-                       check=True, capture_output=True, text=True)
-        lib = ctypes.CDLL(lib_path)
+        lib = probe_library(tmp, "multi_bilstm_infer", "MULTI_BILSTM_PROBE")
         tail = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.multi_bilstm_infer_launch.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 4 + tail)
@@ -1420,12 +1428,10 @@ def phase_multi_probe(shapes=(("infer", 28, (8, 32, 1)),
                 at = [(2 * st + d) * n_phases for d in (0, 1)]
                 # every live warp laps phase 0 once a step
                 warp_steps = sum(laps[a] for a in at)
-                per_step = {name: sum(cycles[a + i] for a in at) / warp_steps
-                            for i, name in enumerate(MULTI_PROBE_PHASES)}
-                total = sum(per_step.values())
-                split = {f"{k}_cycles": round(v) for k, v in per_step.items()}
-                split.update({f"{k}_share": f"{v / total:.4f}"
-                              for k, v in per_step.items()})
+                split, total = probe_split(
+                    MULTI_PROBE_PHASES,
+                    [sum(cycles[a + i] for a in at) for i in range(n_phases)],
+                    warp_steps)
                 log("multi probe", kernel=f"multi_bilstm_{kind}",
                     shape=f"T{T}xB{b}", width=h,
                     warps=warp_steps // (2 * T), ms_probe_build=f"{ms:.4f}",
@@ -1433,6 +1439,160 @@ def phase_multi_probe(shapes=(("infer", 28, (8, 32, 1)),
                     **split, clock="clock64 of each warp, summed over warps")
                 splits[(kind, b, h)] = split
             del xps, ws, want, outs
+    return splits
+
+
+# the phases of a lane step of the narrow gradients that their probe
+# builds time, in the order of csrc/lane_bwd.cuh's slots
+LANE_BWD_PROBE_PHASES = ("residual_wait", "product", "cell_and_stores",
+                         "prefetch")
+
+
+def phase_multi_bwd_probe(shapes=((TRAIN_B, (8, 32, 1)),
+                                  (TRAIN_B, (32, 1)))) -> dict:
+    """The probe build of ``csrc/multi_bilstm_bwd.cu``
+    (``-DMULTI_BILSTM_BWD_PROBE``): clock64() laps of each phase of a
+    lane step (``csrc/lane_bwd.cuh``), per direction and summed over
+    warps, as cycles a warp a step and shares per stream width, at the
+    generator's and the F0 converter's train-step shapes (residual wait
+    includes forming the next step's gate factors). Each result is
+    checked against the plain version. Returns the splits."""
+    import ctypes
+
+    import torch
+
+    from speechsplit_tpu_torch.ops import multi_bilstm
+
+    n_phases = len(LANE_BWD_PROBE_PHASES)
+    slots = multi_bilstm.MAX_DIRECTIONS * n_phases
+    cycles = (ctypes.c_ulonglong * slots)()
+    laps = (ctypes.c_ulonglong * slots)()
+    splits = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = probe_library(tmp, "multi_bilstm_bwd", "MULTI_BILSTM_BWD_PROBE")
+        lib.multi_bilstm_bwd_launch.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
+        lib.multi_bilstm_bwd_probe_read.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        for b, hs in shapes:
+            xps, ws = multi_inputs(T, b, hs, SEED + 7 * b + len(hs))
+            n = len(hs)
+            res = multi_bilstm.multi_bilstm_forward_reference(n, *xps, *ws)
+            gs, cs = res[2 * n:4 * n], res[4 * n:]
+            dhs = [torch.randn_like(c) for c in cs]
+            dxs = [torch.empty_like(g) for g in gs]
+            ptrs = [multi_bilstm._ptrs(x) for x in (dhs, gs, cs, ws, dxs)]
+
+            def run():
+                err = lib.multi_bilstm_bwd_launch(
+                    2 * n, *ptrs, multi_bilstm._widths(gs), T, b, 0,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    fail(f"multi_bilstm_bwd probe build: CUDA error {err}")
+
+            run()
+            torch.cuda.synchronize()
+            lib.multi_bilstm_bwd_probe_read(cycles, laps, 1)  # reset
+            run()
+            torch.cuda.synchronize()
+            if lib.multi_bilstm_bwd_probe_read(cycles, laps, 1):
+                fail("multi_bilstm_bwd probe: reading the counters failed")
+            err = rel_err(dxs, multi_bilstm.multi_bilstm_backward_reference(
+                n, *dhs, *gs, *cs, *ws))
+            if not err <= KERNEL_TOL:
+                fail(f"multi_bilstm_bwd probe build B{b}: rel err {err}")
+            ms = kernel_device_ms(run, 5)
+            for st, h in enumerate(hs):
+                at = [(2 * st + d) * n_phases for d in (0, 1)]
+                # every live warp laps each phase once a step
+                warp_steps = sum(laps[a] for a in at)
+                split, total = probe_split(
+                    LANE_BWD_PROBE_PHASES,
+                    [sum(cycles[a + i] for a in at) for i in range(n_phases)],
+                    warp_steps)
+                log("multi bwd probe", shape=f"T{T}xB{b}xH"
+                    f"{'/'.join(map(str, hs))}", width=h,
+                    warps=warp_steps // (2 * T), ms_probe_build=f"{ms:.4f}",
+                    cycles_per_step=round(total), rel_err=f"{err:.3g}",
+                    **split, clock="clock64 of each warp, summed over warps")
+                splits[(b, hs, h)] = split
+            del xps, ws, res, dhs, dxs
+    return splits
+
+
+# the phases of an lstm_bwd step that its probe build times, in the order
+# of csrc/lstm_bwd.cu's slots (the narrow plan laps slots 1-4)
+LSTM_BWD_PROBE_PHASES = ("barrier_wait", "residual_and_d_pre_wait",
+                         "product", "cell_and_stores", "prefetch_and_arrive")
+
+
+def phase_lstm_bwd_probe(shapes=((TRAIN_B, 512), (TRAIN_B, 256),
+                                 (TRAIN_B, 8))) -> dict:
+    """The probe build of ``csrc/lstm_bwd.cu`` (``-DLSTM_BWD_PROBE``):
+    clock64() laps of each phase of a step, summed over warps, as cycles
+    a warp a step and shares, at the single-route train steps' shapes
+    (the wide plan at H 512 and 256, the narrow one at H8). Each result is
+    checked against the plain version, both directions. Returns the
+    splits."""
+    import ctypes
+
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm, lstm
+
+    n_phases = len(LSTM_BWD_PROBE_PHASES)
+    cycles = (ctypes.c_ulonglong * n_phases)()
+    laps = (ctypes.c_ulonglong * n_phases)()
+    splits = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = probe_library(tmp, "lstm_bwd", "LSTM_BWD_PROBE")
+        lib.lstm_bwd_launch.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.lstm_bwd_probe_read.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        for b, h in shapes:
+            xp, w, dh = lstm_inputs(T, b, h, SEED + 19 * h + b)
+            err = 0.0
+            # both directions checked; the split and the time are the
+            # forward direction's, run last
+            for reverse in (True, False):
+                _, g, c = lstm.lstm_direction_forward_reference(xp, w,
+                                                                reverse)
+                dx = torch.empty_like(g)
+
+                def run():
+                    code = lib.lstm_bwd_launch(
+                        dh.data_ptr(), g.data_ptr(), c.data_ptr(),
+                        w.data_ptr(), dx.data_ptr(),
+                        bilstm._barrier_word(g).data_ptr(), T, b, h,
+                        int(reverse), 0, bilstm._stream(g))
+                    if code:
+                        fail(f"lstm_bwd probe build: CUDA error {code}")
+
+                run()
+                torch.cuda.synchronize()
+                lib.lstm_bwd_probe_read(cycles, laps, 1)  # reset
+                run()
+                torch.cuda.synchronize()
+                if lib.lstm_bwd_probe_read(cycles, laps, 1):
+                    fail("lstm_bwd probe: reading the counters failed")
+                err = max(err, rel_err([dx], [
+                    lstm.lstm_direction_backward_reference(dh, g, c, w,
+                                                           reverse)]))
+            if not err <= KERNEL_TOL:
+                fail(f"lstm_bwd probe build B{b} H{h}: rel err {err}")
+            ms = kernel_device_ms(run, 5)
+            # every warp laps the last phase once a step
+            split, total = probe_split(LSTM_BWD_PROBE_PHASES, cycles,
+                                       laps[n_phases - 1])
+            log("lstm bwd probe", shape=f"T{T}xB{b}xH{h}",
+                plan="narrow" if h <= lstm.NARROW_MAX_H else "wide",
+                warps=laps[n_phases - 1] // T, ms_probe_build=f"{ms:.4f}",
+                cycles_per_step=round(total), rel_err=f"{err:.3g}", **split,
+                clock="clock64 of each warp, summed over warps")
+            splits[(b, h)] = split
+            del xp, w, dh, g, c, dx
     return splits
 
 
@@ -2061,7 +2221,8 @@ def check_lstm_train(b: int, h: int, reps: int) -> dict:
     directions (the gradient kernel on the plain forward's residuals),
     timed beside their bounds, the plain versions, cuDNN's unidirectional
     training forward and backward, and the merged kernels' time for both
-    directions at the same shape."""
+    directions at the same shape; the gradient kernel also by its device
+    time (``kernel_device_ms``)."""
     import torch
 
     from speechsplit_tpu_torch.ops import bilstm, lstm
@@ -2085,6 +2246,8 @@ def check_lstm_train(b: int, h: int, reps: int) -> dict:
     fwd_ms = time_ms(lambda: lstm.lstm_forward_cuda(xp, w, False), reps)
     bwd_ms = time_ms(lambda: lstm.lstm_backward_cuda(dh, g, c, w, False),
                      reps)
+    bwd_device_ms = kernel_device_ms(
+        lambda: lstm.lstm_backward_cuda(dh, g, c, w, False), reps)
     plain_fwd_ms = time_ms(lambda: lstm.lstm_direction_forward_reference(
         xp, w, False), 2, warmup=1)
     plain_bwd_ms = time_ms(lambda: lstm.lstm_direction_backward_reference(
@@ -2109,8 +2272,8 @@ def check_lstm_train(b: int, h: int, reps: int) -> dict:
                merged_both_directions_ms=merged_fwd_ms)
     bwd = dict(shape=shape, max_abs_err=errs["err_dx"],
                rel_err=errs["err_dx_rel"], tol=KERNEL_TOL, ms=bwd_ms,
-               plain_ms=plain_bwd_ms, bound_ms=bwd_bound, bound_by=bwd_by,
-               library_ms=lib_bwd_ms,
+               device_ms=bwd_device_ms, plain_ms=plain_bwd_ms,
+               bound_ms=bwd_bound, bound_by=bwd_by, library_ms=lib_bwd_ms,
                library_fwd_plus_bwd_ms=lib_fwd_ms + lib_bwd_ms,
                merged_both_directions_ms=merged_bwd_ms)
     log("kernel lstm_fwd", **fmt({**fwd, **{k: errs[k] for k in (
@@ -2128,10 +2291,13 @@ def check_lstm_edges() -> None:
     both directions, on short sequences: T=1, B=1, batches that are not a
     multiple of the lean kernel's row tiles (B=300 at H=512, 77 at H=8)
     and fill the training kernels' batch-tiled staging, widths not a
-    multiple of 4 or 32 or of a plan's units (H=1, 3, 100, 257), the lean
-    kernel's plan border (``kNarrowMaxH``) and one above it, the training
-    kernels' own batch limits, which their sources state (one more row
-    raises in the wrapper and is refused by the kernel itself), and the
+    multiple of 4 or 32 or of a plan's units (H=1, 3, 100, 130, 257: the
+    gradient's wide plan at 1, 2 and 4 units a block), the plan borders
+    (the lean kernel's ``kNarrowMaxH`` and the gradient's ``kLaneMaxH``,
+    both 32) and one on either side, the training kernels' own batch
+    limits, which their sources state (one more row raises in the wrapper
+    and is refused by the kernel itself, the gradient's at H=8 and at
+    H=512), and the
     lean kernel past them (B=16384, which only it takes). Both the kernel
     and the plain version are also held against a float64 run of the
     plain loop on the same inputs (the gradient on the same float32
@@ -2148,8 +2314,9 @@ def check_lstm_edges() -> None:
     # the batch
     shapes = ((1, TRAIN_B, 512), (1, 5, 8), (37, 1, 512), (13, 1, 8),
               (5, 300, 512), (7, 77, 8), (23, 5, 3), (16, 3, 1),
-              (12, 6, 100), (9, 7, 257), (11, 33, border),
-              (11, 33, border + 1), (3, lstm.MAX_BWD_BATCH, 512),
+              (12, 6, 100), (7, 9, 130), (9, 7, 257), (11, 33, border - 1),
+              (11, 33, border), (11, 33, border + 1),
+              (3, lstm.MAX_BWD_BATCH, 512),
               (3, lstm.MAX_FWD_BATCH, 512), (3, lstm.MAX_FWD_BATCH, 8),
               (2, 16384, 512), (2, 16384, 8))
 
@@ -2195,29 +2362,35 @@ def check_lstm_edges() -> None:
                 if err > worst[name][0]:
                     worst[name] = (err, f"T{t}xB{b}xH{h}"
                                         f"{'r' if reverse else 'f'}")
-    # one row past each training kernel's limit: the wrapper raises,
-    # naming the limit, and the C entry refuses the launch
+    # one row past each training kernel's limit (the gradient's at each
+    # plan's width): the wrapper raises, naming the limit, and the C
+    # entry refuses the launch
     lib, bwd_lib = lstm._library(), lstm._bwd_library()
-    for name, limit, wrapper, launch, pointers in (
-            ("lstm_fwd", lstm.MAX_FWD_BATCH,
+    for name, limit, h, wrapper, launch, pointers in (
+            ("lstm_fwd", lstm.MAX_FWD_BATCH, 8,
              lambda xp, w, dh: lstm.lstm_forward_cuda(xp, w, False),
              lib.lstm_fwd_launch, 5),
-            ("lstm_bwd", lstm.MAX_BWD_BATCH,
+            ("lstm_bwd", lstm.MAX_BWD_BATCH, 8,
              lambda xp, w, dh: lstm.lstm_backward_cuda(dh, xp, dh, w, False),
-             bwd_lib.lstm_bwd_launch, 5)):
-        xp, w, dh = lstm_inputs(1, limit + 1, 8, SEED + 97)
+             bwd_lib.lstm_bwd_launch, 6),
+            ("lstm_bwd", lstm.MAX_BWD_BATCH, 512,
+             lambda xp, w, dh: lstm.lstm_backward_cuda(dh, xp, dh, w, False),
+             bwd_lib.lstm_bwd_launch, 6)):
+        xp, w, dh = lstm_inputs(1, limit + 1, h, SEED + 97)
         try:
             wrapper(xp, w, dh)
         except ValueError as err:
             if f"B <= {limit}" not in str(err):
-                fail(f"{name} at B={limit + 1}: {err}")
+                fail(f"{name} at B={limit + 1} H={h}: {err}")
         else:
-            fail(f"{name} took B={limit + 1}, past its limit {limit}")
+            fail(f"{name} took B={limit + 1} at H={h}, past its limit "
+                 f"{limit}")
         # the kernel refuses before it reads a pointer
-        code = launch(*[xp.data_ptr()] * pointers, 1, limit + 1, 8, 0, 0,
+        code = launch(*[xp.data_ptr()] * pointers, 1, limit + 1, h, 0, 0,
                       ctypes.c_void_p(lstm._stream(xp)))
         if code == 0:
-            fail(f"the {name} kernel took B={limit + 1}")
+            fail(f"the {name} kernel took B={limit + 1} at H={h}")
+        del xp, w, dh
     log("kernel lstm edges", shapes=len(shapes), kernels=3, directions=2,
         **{f"{name}_max_abs_err": f"{err:.3g}@{shape}"
            for name, (err, shape) in worst.items()},
@@ -2225,8 +2398,8 @@ def check_lstm_edges() -> None:
            for name, (k, p) in exact.items()}, tol=KERNEL_TOL,
         plan_border=border, max_fwd_batch=lstm.MAX_FWD_BATCH,
         max_bwd_batch=lstm.MAX_BWD_BATCH,
-        refused_batches=f"{lstm.MAX_FWD_BATCH + 1}(fwd),"
-                        f"{lstm.MAX_BWD_BATCH + 1}(bwd)")
+        refused_batches=f"{lstm.MAX_FWD_BATCH + 1}(fwd,H8),"
+                        f"{lstm.MAX_BWD_BATCH + 1}(bwd,H8,H512)")
 
 
 def check_lstm_functions() -> None:
@@ -2460,7 +2633,8 @@ LSTM_KERNELS = ("lstm_infer", "lstm_fwd", "lstm_bwd")
 
 
 # the sources whose kernels --against compares: the merged BiLSTM ones,
-# the single-direction ones and the multi-stream ones
+# the single-direction ones and the multi-stream ones (with the headers
+# they include: merged_step.cuh, lane_bwd.cuh)
 CODEGEN_SOURCES = ("bilstm_infer", "bilstm_bwd", "lstm_infer", "lstm_bwd",
                    "multi_bilstm_infer", "multi_bilstm_bwd")
 # a kernel entry of those sources, by its mangled name: the template and
@@ -2468,12 +2642,14 @@ CODEGEN_SOURCES = ("bilstm_infer", "bilstm_bwd", "lstm_infer", "lstm_bwd",
 # bilstm_fused_kernel<KQ, kResid>, bilstm_bwd_kernel<KQ>;
 # lstm_infer_kernel<KPL, kResid>, which is lstm_fwd's,
 # lstm_wide_step_kernel<MR, kVec>, lstm_narrow_kernel<L>,
-# lstm_bwd_kernel<KPL>; multi_bilstm_lane_kernel<kResid>,
+# lstm_bwd_narrow_kernel<L>, lstm_bwd_wide_kernel<KQ, UN> (before them
+# lstm_bwd_kernel<KPL>); multi_bilstm_lane_kernel<kResid>,
 # multi_bilstm_infer_kernel<kResid>, which is the block plan's,
-# multi_bilstm_bwd_kernel)
+# multi_bilstm_bwd_lane_kernel, multi_bilstm_bwd_kernel, the gradient's
+# block plan)
 KERNEL_ENTRY = re.compile(
-    r"((?:multi_)?(?:bi)?lstm_(?:infer|fused|bwd|wide_step|narrow|lane)"
-    r"_kernel)"
+    r"((?:multi_)?(?:bi)?lstm_(?:bwd_lane|bwd_narrow|bwd_wide|infer|fused"
+    r"|bwd|wide_step|narrow|lane)_kernel)"
     r"(?:I((?:L[ib]\d+E)+)E)?")
 
 
@@ -2536,9 +2712,12 @@ def kernel_codegen(tree: str) -> dict:
             head, _, body = part.partition("\n")
             m = KERNEL_ENTRY.search(head)
             if m:
-                # the instruction lines only: cuobjdump pads the listing's
-                # last function with a blank line the others lack
-                code = "\n".join(line.strip() for line in body.splitlines()
+                # the instruction lines only (cuobjdump pads the listing's
+                # last function with a blank line the others lack), runs
+                # of spaces as one: the column padding follows the
+                # longest instruction of the whole file
+                code = "\n".join(" ".join(line.split())
+                                 for line in body.splitlines()
                                  if line.strip().startswith("/*"))
                 out.setdefault(_entry(m), {})["sass_sha256"] = (
                     hashlib.sha256(code.encode()).hexdigest()[:16])
@@ -2617,6 +2796,12 @@ with c.strict_float32():
         xps, ws, _ = multi_args(b, hs)
         out[f"{key} device ms"] = device_ms(
             lambda: multi_bilstm.multi_bilstm_infer_cuda(len(hs), *xps, *ws))
+    # the single-direction gradient at the single-route steps' widths
+    for h in (512, 256, 8):
+        xp, w, dh = c.lstm_inputs(c.T, c.TRAIN_B, h, c.SEED + h)
+        _, g, cc = lstm.lstm_direction_forward_reference(xp, w, False)
+        out[f"lstm_bwd B{c.TRAIN_B} H{h} device ms"] = device_ms(
+            lambda: lstm.lstm_backward_cuda(dh, g, cc, w, False))
     for hs in ((8, 32, 1), (32, 1)):
         widths = "/".join(map(str, hs))
         for name, row in c.check_multi_train(c.TRAIN_B, hs, 10).items():
@@ -2661,21 +2846,26 @@ out["convert_batched 4 pairs device busy ms"] = sum(
 del g_model, p_model, pairs
 config = SpeechSplitConfig(residual_dtype="float32", adam_mu_dtype="float32")
 batch = c.synthetic_batch(SpeechSplitConfig(), c.SEED)
+# each step on the default route and with the single-direction route
+# forced (phase 14), in turns
 for model, make in (("speechsplit", make_train_step),
                     ("f0_converter", make_f0_train_step)):
     step = make(config)
     with c.strict_float32("timing"):
         state = create_train_state(config, c.SEED, model)
-        for _ in range(5):
-            state, _ = step(state, batch)
-        samples = []
-        for _ in range(12):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            state, _ = step(state, batch)
-            torch.cuda.synchronize()
-            samples.append((time.perf_counter() - start) * 1e3)
-    out[f"train {model} median ms"] = float(np.median(samples))
+        samples = {"default": [], "single": []}
+        for r in range(17):
+            for layers in ("default", "single")[::1 if r % 2 else -1]:
+                with c.route(layers):
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    state, _ = step(state, batch)
+                    torch.cuda.synchronize()
+                if r >= 5:  # after 5 warm-up steps of each
+                    samples[layers].append((time.perf_counter() - start) * 1e3)
+    out[f"train {model} median ms"] = float(np.median(samples["default"]))
+    out[f"train {model} single route median ms"] = float(
+        np.median(samples["single"]))
 print("AB " + json.dumps(out), flush=True)
 """
 
@@ -2784,6 +2974,8 @@ def main() -> int:
     phase_bwd_probe()
     phase_infer_probe()
     phase_multi_probe()
+    phase_multi_bwd_probe()
+    phase_lstm_bwd_probe()
     gen_launches, f0_launches, state, step, batch = phase_train()
     phase_profile_train(state, step, batch)
     del state, step

@@ -22,45 +22,70 @@
 // What bounds it on an H100: the recurrence, as in the merged kernel
 // (csrc/bilstm_bwd.cu). Step s needs all of the previous step's d_pre,
 // because dh_carry of unit k sums over all 4H gate rows (column k of
-// W_hh). At H = 512 W_hh is 4 MiB, so the steps need a barrier across
-// blocks, and each step moves d_pre, 4H wide, between blocks. The
-// arithmetic (2*B*4H*H a step) and the HBM bytes (the residuals are read
-// once) are small at small batches; the time goes to latency.
+// W_hh). The arithmetic (2*B*4H*H a step) and the HBM bytes (the
+// residuals are read once) are small at small batches; the time goes to
+// latency.
 //
-// What the design does about it: the merged kernel's recurrence for one
-// direction, with csrc/lstm_infer.cu's launch plan: units = ceil(H / 128)
-// hidden units a block (4 at H = 512, 128 blocks), one warp a unit, which
-// keeps that unit's COLUMN of W_hh (4H values, 4H/32 a lane) in registers
-// for the whole sequence. Each step a block stages into shared memory the
-// previous step's d_pre (read back from the dx output itself through L2;
-// tiled over the batch when the rows do not fit beside the dc carry) and
-// its units' residuals (4 gates, c, c_prev, dh_out); a warp forms
-// dh_carry by a butterfly sum, applies the cell gradient for its unit
-// with dc_carry [units][B] kept in shared memory, writes its unit's four
-// d_pre values, and all blocks meet at a grid barrier. The host side
-// checks occupancy before the cooperative launch and fails rather than
-// deadlock when the grid cannot be co-resident.
+// What the design does about it: two plans, chosen by width, one launch
+// a call either way.
+// - Narrow (H <= lane_bwd::kLaneMaxH = 32): the multi-stream gradient's
+//   lane step (csrc/lane_bwd.cuh) for one direction. A row takes L lanes,
+//   one unit a lane, W_hh's column of the lane in registers, the dc carry
+//   in a register; the whole recurrence of a row lives in one warp, so
+//   there is no barrier at all.
+// - Wide (H > 32): the merged gradient's step (csrc/bilstm_bwd.cu, on
+//   csrc/merged_step.cuh) for one direction, in one persistent
+//   cooperative launch. A block owns UN consecutive hidden units (1 up
+//   to H = 128, 2 up to 256, 4 above: 128 blocks at H = 256 and 512)
+//   and keeps W_hh's columns of them in registers. Each step it stages
+//   the previous step's d_pre with 16-byte cp.async copies through L2;
+//   the product is blocked over its units (a thread holds W_hh[j][u] for
+//   its 4 or 8 rows j and every unit, so one 16-byte shared load feeds
+//   4 x UN FMAs) and ends in one butterfly per 32 sums
+//   (merged_step.cuh) and a sum of the 8 warps' partials; the residuals
+//   of the next step are prefetched by cp.async into a second buffer
+//   while the step computes; one thread a (row, unit) applies the cell
+//   gradient, so each gate of a row is stored as one run; the grid
+//   barrier is split, the next step's prefetch issued between arrive and
+//   wait. The dc carry [UN][B] sits in shared memory beside one row
+//   of the d_pre tile and the staged values, within the 227 KB a block
+//   may opt into: that sets kMaxBatch. The host side checks occupancy
+//   before the cooperative launch and fails rather than deadlock when
+//   the grid cannot be co-resident.
+//
+// Built with -DLSTM_BWD_PROBE (chip_smoke.py's probe build), each plan
+// also adds up clock64() laps of the phases of a step per warp, which
+// lstm_bwd_probe_read returns: 0 the barrier wait (wide plan only), 1
+// the wait for the residuals and the d_pre tile, 2 the product, 3 the
+// cell gradient and the stores, 4 the prefetch and the arrival.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-namespace cg = cooperative_groups;
+#ifdef LSTM_BWD_PROBE
+#define LANE_BWD_PROBE
+#endif
+#include "lane_bwd.cuh"
+#include "merged_step.cuh"
 
 namespace {
 
-constexpr int kMaxUnits = 4;    // hidden units (= warps) per block, at most
-constexpr int kBC = 4;          // batch rows per register tile
 constexpr int kMaxH = 512;
-constexpr int kPlanSms = 128;   // the plan spreads H over this many blocks
-constexpr int kVals = 8;        // staged per (unit, row): i f g o c c_prev dh
-constexpr size_t kSmemBudget = 220 * 1024;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kJSpan = 4 * kThreads;  // rows j of W_hh one pass covers
+constexpr int kRes = 7;  // residuals per (unit, row): i f g o c c_prev dh
+// Shared-memory floats a (unit, row) takes beside the row's d_pre: the 8
+// warps' partial sums and two buffers of the kRes residuals.
+constexpr int kVals = kWarps + 2 * kRes;
+// the most a block may opt into on an H100
+constexpr size_t kSmemBudget = 227 * 1024;
 
-// The launch plan's units a block: ceil(H / kPlanSms), 1 .. kMaxUnits.
-constexpr int plan_units(int H) { return (H + kPlanSms - 1) / kPlanSms; }
+// The wide plan's units a block at width H.
+constexpr int plan_units(int H) { return H <= 128 ? 1 : H <= 256 ? 2 : 4; }
 
-// Shared memory of a block: the dc carry [units][B], then per batch row
-// of a tile the previous d_pre [4H] and the units' residuals
-// [units][kVals].
+// Shared memory of a wide block: the dc carry [units][B], then per batch
+// row of a tile the previous d_pre [4H] and the staged values
+// [kVals][units].
 constexpr size_t carry_bytes(int units, int B) {
   return static_cast<size_t>(units) * B * sizeof(float);
 }
@@ -68,214 +93,358 @@ constexpr size_t row_bytes(int units, int H) {
   return static_cast<size_t>(4 * H + kVals * units) * sizeof(float);
 }
 
-// The largest batch the kernel takes, at every H <= kMaxH (see
-// csrc/lstm_infer.cu). ops/lstm.py reads the value from this line.
-constexpr int kMaxBatch = 13560;
-static_assert(plan_units(kMaxH) == kMaxUnits, "the plan's widest block");
-static_assert(carry_bytes(kMaxUnits, kMaxBatch) +
-                      row_bytes(kMaxUnits, kMaxH) <= kSmemBudget &&
-                  carry_bytes(kMaxUnits, kMaxBatch + 1) +
-                          row_bytes(kMaxUnits, kMaxH) > kSmemBudget,
-              "kMaxBatch must be the largest batch the plan holds");
+// The largest batch the kernel takes, at every H <= kMaxH (the narrow
+// plan has no limit of its own). ops/lstm.py reads the value from this
+// line.
+constexpr int kMaxBatch = 13994;
+static_assert(carry_bytes(plan_units(kMaxH), kMaxBatch) +
+                      row_bytes(plan_units(kMaxH), kMaxH) <= kSmemBudget &&
+                  carry_bytes(plan_units(kMaxH), kMaxBatch + 1) +
+                          row_bytes(plan_units(kMaxH), kMaxH) > kSmemBudget,
+              "kMaxBatch must be the largest batch the plan holds at kMaxH");
 
-template <int KPL>  // ceil(4H / 32): W_hh column entries per lane
-__global__ void __launch_bounds__(kMaxUnits * 32)
-lstm_bwd_kernel(const float* __restrict__ dh, const float* __restrict__ g,
-                const float* __restrict__ c, const float* __restrict__ w,
-                float* dx, int T, int B, int H, int reverse, int units,
-                int bt) {
-  extern __shared__ float smem[];
-  const int G = 4 * H;
-  float* d_s = smem;                 // [bt][4H] previous d_pre tile
-  float* dc_s = d_s + bt * G;        // [units][B] dc carry
-  float* v_s = dc_s + units * B;     // [units][bt][kVals]
-  cg::grid_group grid = cg::this_grid();
+#ifdef LSTM_BWD_PROBE
+constexpr int kPhases = 5;
+__device__ unsigned long long g_probe_cycles[kPhases];
+__device__ unsigned long long g_probe_laps[kPhases];
+__device__ float g_probe_sink;
+static_assert(lane_bwd::kPhases == kPhases - 1,
+              "the lane step's phases are slots 1 .. 4");
+#define PROBE_LAP(phase)                 \
+  do {                                   \
+    const long long now_ = clock64();    \
+    probe_cycles[phase] += now_ - lap_;  \
+    ++probe_laps[phase];                 \
+    lap_ = now_;                         \
+  } while (0)
+#else
+#define PROBE_LAP(phase) \
+  do {                   \
+  } while (0)
+#endif
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int u = blockIdx.x * units + warp;
-  const bool active = warp < units && u < H;
-
-  // column u of W_hh, rows j = lane + 32 m
-  float wc[KPL];
-#pragma unroll
-  for (int m = 0; m < KPL; ++m) {
-    const int j = lane + 32 * m;
-    wc[m] = (active && j < G) ? w[static_cast<size_t>(j) * H + u] : 0.0f;
-  }
-  for (int i = threadIdx.x; i < units * B; i += blockDim.x) dc_s[i] = 0.0f;
-
-  for (int s = 0; s < T; ++s) {
-    // forward direction: gradient walks T-1 -> 0; reverse: 0 -> T-1
-    const int t = reverse ? s : T - 1 - s;
-    const int tp = reverse ? t - 1 : t + 1;  // previous step's time index
-    const int tc = reverse ? t + 1 : t - 1;  // c_prev's time index
-    const bool has_cp = tc >= 0 && tc < T;
-    for (int b0 = 0; b0 < B; b0 += bt) {
-      const int nb = min(bt, B - b0);
-      __syncthreads();  // the previous tile's readers are done with smem
-      // this tile's residuals of the block's units, gathered once per step
-      for (int i = threadIdx.x; i < units * nb * 7; i += blockDim.x) {
-        const int w_i = i / (nb * 7);
-        const int bb = (i / 7) % nb;
-        const int k = i % 7;
-        const int u_i = blockIdx.x * units + w_i;
-        float v = 0.0f;
-        if (u_i < H) {
-          const size_t row = static_cast<size_t>(t) * B + b0 + bb;
-          if (k < 4) {
-            v = g[row * G + k * H + u_i];
-          } else if (k == 4) {
-            v = c[row * H + u_i];
-          } else if (k == 5) {
-            v = has_cp ? c[(static_cast<size_t>(tc) * B + b0 + bb) * H + u_i]
-                       : 0.0f;
-          } else {
-            v = dh[row * H + u_i];
-          }
-        }
-        v_s[(w_i * bt + bb) * kVals + k] = v;
-      }
-      if (s > 0) {
-        // written by other blocks during the kernel: read through L2
-        const float4* src4 = reinterpret_cast<const float4*>(
-            dx + (static_cast<size_t>(tp) * B + b0) * G);
-        float4* dst4 = reinterpret_cast<float4*>(d_s);
-        for (int i = threadIdx.x; i < nb * G / 4; i += blockDim.x) {
-          dst4[i] = __ldcg(src4 + i);
-        }
-      } else {
-        for (int i = threadIdx.x; i < nb * G; i += blockDim.x) d_s[i] = 0.0f;
-      }
-      __syncthreads();
-      if (!active) continue;  // warp-uniform
-      for (int bc = 0; bc < nb; bc += kBC) {
-        float acc[kBC];
-#pragma unroll
-        for (int r = 0; r < kBC; ++r) acc[r] = 0.0f;
-#pragma unroll
-        for (int m = 0; m < KPL; ++m) {
-          const int j = lane + 32 * m;
-          if (j < G) {
-#pragma unroll
-            for (int r = 0; r < kBC; ++r) {
-              const float dv = (bc + r < nb) ? d_s[(bc + r) * G + j] : 0.0f;
-              acc[r] = fmaf(dv, wc[m], acc[r]);
-            }
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kBC; ++r) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-          }
-        }
-        // lane r < kBC finishes batch row b0 + bc + r of unit u
-        float dh_carry = acc[0];
-#pragma unroll
-        for (int r = 1; r < kBC; ++r) {
-          if (lane == r) dh_carry = acc[r];
-        }
-        if (lane < kBC && bc + lane < nb) {
-          const int b = b0 + bc + lane;
-          const float* v = v_s + (warp * bt + bc + lane) * kVals;
-          const float i_g = v[0], f_g = v[1], g_g = v[2], o_g = v[3];
-          const float tanh_c = tanhf(v[4]);
-          const float d = v[6] + dh_carry;
-          const float d_o = d * tanh_c;
-          float* dcp = dc_s + warp * B + b;
-          // every product and sum rounded on its own, in the plain
-          // version's order (no FMA contraction)
-          const float dc = __fadd_rn(
-              *dcp, __fmul_rn(d * o_g,
-                              __fsub_rn(1.0f, __fmul_rn(tanh_c, tanh_c))));
-          float* out = dx + (static_cast<size_t>(t) * B + b) * G;
-          out[u] = dc * g_g * i_g * (1.0f - i_g);
-          out[H + u] = dc * v[5] * f_g * (1.0f - f_g);
-          out[2 * H + u] =
-              dc * i_g * __fsub_rn(1.0f, __fmul_rn(g_g, g_g));
-          out[3 * H + u] = d_o * o_g * (1.0f - o_g);
-          *dcp = dc * f_g;
-        }
-      }
-    }
-    grid.sync();
-  }
+template <int L>
+__global__ void __launch_bounds__(lane_bwd::kThreads)
+lstm_bwd_narrow_kernel(lane_bwd::Dir d, int T, int B, int reverse) {
+  extern __shared__ float4 lane_smem[];
+  lane_bwd::Probe probe;
+  lane_bwd::steps<L>(d, blockIdx.x, reverse != 0, T, B, lane_smem, probe);
+#ifdef LSTM_BWD_PROBE
+  // the lane step's phases 0 .. 3 are this file's 1 .. 4
+  probe.flush(g_probe_cycles + 1, g_probe_laps + 1, &g_probe_sink);
+#endif
 }
 
-template <int KPL>
-cudaError_t launch(const float* dh, const float* g, const float* c,
-                   const float* w, float* dx, int T, int B, int H,
-                   int reverse, cudaStream_t stream) {
-  auto kernel = lstm_bwd_kernel<KPL>;
-  int units = plan_units(H);
-  const int blocks = (H + units - 1) / units;
-  const int threads = units * 32;
-  const size_t c_b = carry_bytes(units, B);
-  const size_t r_b = row_bytes(units, H);
+struct Args {
+  const float* dh;
+  const float* g;
+  const float* c;
+  const float* w;
+  float* dx;
+  unsigned* barrier;  // zeroed before the launch
+  int T, B, H, reverse, bt;
+};
+
+// Shared memory: d_s [bt][4H] the previous step's d_pre tile; res_s
+// [2][kRes][bt][UN] two buffers of residuals; red_s [bt][kWarps][UN] the
+// warps' partial sums; dc_s [UN][B] the dc carry.
+template <int KQ, int UN>  // passes of kJSpan rows j, units a block
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_bwd_wide_kernel(const Args a) {
+  constexpr int kRows = 32 / UN;  // batch rows a reduction round
+  static_assert(kRows * UN == 32, "a round reduces 32 sums a warp");
+  extern __shared__ __align__(16) float smem[];
+  const int T = a.T, B = a.B, H = a.H, G = 4 * H, bt = a.bt;
+  float* d_s = smem;
+  float* res_s = d_s + static_cast<size_t>(bt) * G;
+  float* red_s = res_s + 2 * kRes * bt * UN;
+  float* dc_s = red_s + bt * kWarps * UN;
+
+  const bool reverse = a.reverse != 0;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int u0 = blockIdx.x * UN;
+  const int nu = min(UN, H - u0);  // this block's units
+  // residual rows go in 16-byte copies where every run is whole quads
+  const bool quads = (H & 3) == 0 && (UN & 3) == 0;
+  step::Barrier bar(a.barrier);
+
+  // W_hh[j][u0 + u] for j = 4 tid + jj + kJSpan q
+  float wr[KQ][4][UN];
+#pragma unroll
+  for (int q = 0; q < KQ; ++q) {
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = kJSpan * q + 4 * tid + jj;
+#pragma unroll
+      for (int u = 0; u < UN; ++u) {
+        wr[q][jj][u] = (j < G && u < nu)
+                           ? a.w[static_cast<size_t>(j) * H + u0 + u]
+                           : 0.0f;
+      }
+    }
+  }
+  for (int i = tid; i < UN * B; i += kThreads) dc_s[i] = 0.0f;
+
+  // issue the copies of step s's residuals for rows b0 .. b0 + nb - 1
+  // into buffer buf
+  auto prefetch = [&](int s, int b0, int buf) {
+    const int t = reverse ? s : T - 1 - s;
+    const int tc = reverse ? t + 1 : t - 1;  // c_prev's time index
+    const bool has_cp = tc >= 0 && tc < T;
+    const int nb = min(bt, B - b0);
+    float* dst0 = res_s + buf * kRes * bt * UN;
+    auto src_of = [&](int k, int b, int u) -> const float* {
+      const size_t row = static_cast<size_t>(t) * B + b;
+      if (k < 4) return a.g + row * G + k * H + u0 + u;
+      if (k == 4) return a.c + row * H + u0 + u;
+      if (k == 5) {
+        return has_cp ? a.c + (static_cast<size_t>(tc) * B + b) * H + u0 + u
+                      : a.c;
+      }
+      return a.dh + row * H + u0 + u;
+    };
+    if (quads) {
+      constexpr int nq = UN >= 4 ? UN / 4 : 1;  // quads only at UN = 4
+      for (int i = tid; i < kRes * nb * nq; i += kThreads) {
+        const int k = i / (nb * nq);
+        const int bb = (i / nq) % nb;
+        const int u = 4 * (i % nq);
+        const bool ok = u < nu && (k != 5 || has_cp);
+        step::copy16(dst0 + (k * bt + bb) * UN + u,
+                     ok ? src_of(k, b0 + bb, u) : a.c, ok);
+      }
+    } else {
+      for (int i = tid; i < kRes * nb * UN; i += kThreads) {
+        const int k = i / (nb * UN);
+        const int bb = (i / UN) % nb;
+        const int u = i % UN;
+        const bool ok = u < nu && (k != 5 || has_cp);
+        step::copy4(dst0 + (k * bt + bb) * UN + u,
+                    ok ? src_of(k, b0 + bb, u) : a.c, ok);
+      }
+    }
+    step::commit();
+  };
+
+#ifdef LSTM_BWD_PROBE
+  long long probe_cycles[kPhases] = {};
+  long long probe_laps[kPhases] = {};
+  long long lap_ = clock64();
+#endif
+  const int tiles = (B + bt - 1) / bt;
+  int buf = 0;
+  prefetch(0, 0, 0);
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? s : T - 1 - s;
+    const int tp = reverse ? t - 1 : t + 1;  // previous step's time index
+    if (s > 0) bar.wait();
+    PROBE_LAP(0);
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int b0 = tile * bt;
+      const int nb = min(bt, B - b0);
+      if (s > 0) {
+        // the previous step's d_pre rows, written by every block: all
+        // copies in flight at once
+        const float* src = a.dx + (static_cast<size_t>(tp) * B + b0) * G;
+        for (int i = tid; i < nb * G / 4; i += kThreads) {
+          step::copy16(d_s + 4 * i, src + 4 * i);
+        }
+        step::commit();
+      }
+      step::wait<0>();  // the d_pre tile and this tile's residuals
+      __syncthreads();
+      PROBE_LAP(1);
+      if (s > 0) {
+        for (int r0 = 0; r0 < nb; r0 += kRows) {
+          float acc[32];
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+#pragma unroll
+          for (int q = 0; q < KQ; ++q) {
+            const int j = kJSpan * q + 4 * tid;
+            if (j < G) {
+#pragma unroll
+              for (int r = 0; r < kRows; ++r) {
+                if (r0 + r < nb) {
+                  const float4 d = *reinterpret_cast<const float4*>(
+                      d_s + (r0 + r) * G + j);
+#pragma unroll
+                  for (int u = 0; u < UN; ++u) {
+                    const int x = r * UN + u;
+                    acc[x] = fmaf(d.x, wr[q][0][u], acc[x]);
+                    acc[x] = fmaf(d.y, wr[q][1][u], acc[x]);
+                    acc[x] = fmaf(d.z, wr[q][2][u], acc[x]);
+                    acc[x] = fmaf(d.w, wr[q][3][u], acc[x]);
+                  }
+                }
+              }
+            }
+          }
+          const float sum = step::reduce_scatter32(acc, lane);
+          const int r = r0 + lane / UN;
+          const int u = lane % UN;
+          if (r < nb) red_s[(r * kWarps + warp) * UN + u] = sum;
+        }
+        __syncthreads();  // every warp's partial sums are in red_s
+      }
+      PROBE_LAP(2);
+      const float* res = res_s + buf * kRes * bt * UN;
+      for (int i = tid; i < nb * UN; i += kThreads) {
+        const int bb = i / UN;
+        const int u = i % UN;
+        if (u >= nu) continue;
+        float dh_carry = 0.0f;
+        if (s > 0) {
+#pragma unroll
+          for (int wp = 0; wp < kWarps; ++wp) {
+            dh_carry += red_s[(bb * kWarps + wp) * UN + u];
+          }
+        }
+        const int off = bb * UN + u;
+        const int plane = bt * UN;
+        const float i_g = res[off], f_g = res[plane + off];
+        const float g_g = res[2 * plane + off], o_g = res[3 * plane + off];
+        const float tanh_c = tanhf(res[4 * plane + off]);
+        const float c_prev = res[5 * plane + off];
+        const float dh = res[6 * plane + off] + dh_carry;
+        const float d_o = dh * tanh_c;
+        const int b = b0 + bb;
+        float* dcp = dc_s + u * B + b;
+        const float dc = *dcp + dh * o_g * (1.0f - tanh_c * tanh_c);
+        float* out = a.dx + (static_cast<size_t>(t) * B + b) * G + u0 + u;
+        out[0] = dc * g_g * i_g * (1.0f - i_g);
+        out[H] = dc * c_prev * f_g * (1.0f - f_g);
+        out[2 * H] = dc * i_g * (1.0f - g_g * g_g);
+        out[3 * H] = d_o * o_g * (1.0f - o_g);
+        *dcp = dc * f_g;
+      }
+      PROBE_LAP(3);
+      // the next (step, tile)'s residuals into the other buffer, whose
+      // last readers passed this tile's __syncthreads above; d_s's
+      // readers passed the one after the partial sums, and red_s is
+      // written again only after the next tile's first __syncthreads
+      buf ^= 1;
+      if (tile + 1 < tiles) {
+        prefetch(s, b0 + bt, buf);
+      } else if (s + 1 < T) {
+        prefetch(s + 1, 0, buf);
+      }
+    }
+    bar.arrive();
+    PROBE_LAP(4);
+  }
+#ifdef LSTM_BWD_PROBE
+  if (lane == 0) {
+    for (int p = 0; p < kPhases; ++p) {
+      atomicAdd(&g_probe_cycles[p],
+                static_cast<unsigned long long>(probe_cycles[p]));
+      atomicAdd(&g_probe_laps[p],
+                static_cast<unsigned long long>(probe_laps[p]));
+    }
+  }
+#endif
+}
+
+template <int L>
+cudaError_t launch_narrow(const Args& a, cudaStream_t stream) {
+  const lane_bwd::Dir d{a.dh, a.g, a.c, a.w, a.dx, a.H};
+  const int rows = lane_bwd::kThreads / L;  // rows a block
+  const size_t smem = sizeof(float4) * lane_bwd::smem_float4s(L);
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_bwd_narrow_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  lstm_bwd_narrow_kernel<L><<<(a.B + rows - 1) / rows, lane_bwd::kThreads,
+                              smem, stream>>>(d, a.T, a.B, a.reverse);
+  return cudaGetLastError();
+}
+
+template <int KQ, int UN>
+cudaError_t launch_wide(Args a, cudaStream_t stream) {
+  const size_t c_b = carry_bytes(UN, a.B);
+  const size_t r_b = row_bytes(UN, a.H);
   if (c_b + r_b > kSmemBudget) {
     return cudaErrorInvalidValue;  // batch too large for the dc carry
   }
-  int bt = static_cast<int>((kSmemBudget - c_b) / r_b);
-  if (bt > B) bt = B;
-  const size_t smem = c_b + static_cast<size_t>(bt) * r_b;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0, coop = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                    device)) != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, threads, smem)) != cudaSuccess) return err;
-  if (per_sm * sms < blocks) return cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&dh, &g, &c, &w, &dx, &T, &B, &H, &reverse, &units, &bt};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                    dim3(blocks), dim3(threads), args, smem,
-                                    stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  const int bt = static_cast<int>((kSmemBudget - c_b) / r_b);
+  a.bt = bt > a.B ? a.B : bt;
+  const size_t smem = c_b + static_cast<size_t>(a.bt) * r_b;
+  void* args[] = {&a};
+  return step::launch_cooperative(lstm_bwd_wide_kernel<KQ, UN>,
+                                  (a.H + UN - 1) / UN, kThreads, smem, args,
+                                  stream);
 }
+
+// a pass of kJSpan rows j covers 4H up to H = 256 (1 and 2 units a
+// block), two passes above
+static_assert(4 * 256 <= kJSpan && 4 * kMaxH <= 2 * kJSpan,
+              "the wide plan's passes");
 
 }  // namespace
 
 extern "C" {
 
 // The gradient recurrence of one direction; reverse != 0 for a direction
-// whose forward walked T-1 -> 0. Returns a cudaError_t (0 on success).
-// Does not synchronise.
+// whose forward walked T-1 -> 0. barrier: one 32-bit word, zero at the
+// launch (the wide plan's grid barrier). Returns a cudaError_t (0 on
+// success). Does not synchronise.
 int lstm_bwd_launch(const void* dh, const void* g, const void* c,
-                    const void* w, void* dx, int T, int B, int H, int reverse,
-                    int device, void* stream) {
+                    const void* w, void* dx, void* barrier, int T, int B,
+                    int H, int reverse, int device, void* stream) {
   if (T < 1 || B < 1 || B > kMaxBatch || H < 1 || H > kMaxH) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  Args a = {};
+  a.dh = static_cast<const float*>(dh);
+  a.g = static_cast<const float*>(g);
+  a.c = static_cast<const float*>(c);
+  a.w = static_cast<const float*>(w);
+  a.dx = static_cast<float*>(dx);
+  a.barrier = static_cast<unsigned*>(barrier);
+  a.T = T;
+  a.B = B;
+  a.H = H;
+  a.reverse = reverse ? 1 : 0;
   auto s = static_cast<cudaStream_t>(stream);
-  auto a = static_cast<const float*>(dh);
-  auto gg = static_cast<const float*>(g);
-  auto cc = static_cast<const float*>(c);
-  auto ww = static_cast<const float*>(w);
-  auto out = static_cast<float*>(dx);
-  const int r = reverse ? 1 : 0;
-  const int kpl = (4 * H + 31) / 32;
-  if (kpl <= 1) return launch<1>(a, gg, cc, ww, out, T, B, H, r, s);
-  if (kpl <= 2) return launch<2>(a, gg, cc, ww, out, T, B, H, r, s);
-  if (kpl <= 4) return launch<4>(a, gg, cc, ww, out, T, B, H, r, s);
-  if (kpl <= 8) return launch<8>(a, gg, cc, ww, out, T, B, H, r, s);
-  if (kpl <= 16) return launch<16>(a, gg, cc, ww, out, T, B, H, r, s);
-  if (kpl <= 32) return launch<32>(a, gg, cc, ww, out, T, B, H, r, s);
-  return launch<64>(a, gg, cc, ww, out, T, B, H, r, s);
+  if (H <= 1) return launch_narrow<1>(a, s);
+  if (H <= 2) return launch_narrow<2>(a, s);
+  if (H <= 4) return launch_narrow<4>(a, s);
+  if (H <= 8) return launch_narrow<8>(a, s);
+  if (H <= 16) return launch_narrow<16>(a, s);
+  if (H <= lane_bwd::kLaneMaxH) return launch_narrow<32>(a, s);
+  switch (plan_units(H)) {
+    case 1: return launch_wide<1, 1>(a, s);
+    case 2: return launch_wide<1, 2>(a, s);
+    default: return launch_wide<2, 4>(a, s);
+  }
 }
 
 const char* lstm_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef LSTM_BWD_PROBE
+// Cycles and laps of each phase since the last reset, summed over warps.
+int lstm_bwd_probe_read(unsigned long long* cycles, unsigned long long* laps,
+                        int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(cycles, g_probe_cycles,
+                                         sizeof(g_probe_cycles));
+  if (err == cudaSuccess) {
+    err = cudaMemcpyFromSymbol(laps, g_probe_laps, sizeof(g_probe_laps));
+  }
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[kPhases] = {};
+    err = cudaMemcpyToSymbol(g_probe_cycles, zero, sizeof(zero));
+    if (err == cudaSuccess) {
+      err = cudaMemcpyToSymbol(g_probe_laps, zero, sizeof(zero));
+    }
+  }
+  return err;
+}
+#endif
 
 }  // extern "C"

@@ -4,8 +4,8 @@
 // Replaces: speechsplit_tpu/ops/pallas_multilstm.py::_bwd_kernel (wrapper
 // _bwd_call), the TPU kernel that runs the gate-gradient recurrences of
 // the 2N narrow encoder directions in one grid. Per cell it is
-// pallas_lstm._cell_bwd (see csrc/bilstm_bwd.cu for the formulas), with the
-// dh and dc carries float32 from zero. Directions are ordered
+// pallas_lstm._cell_bwd (see csrc/lane_bwd.cuh for the formulas), with
+// the dh and dc carries float32 from zero. Directions are ordered
 // [f0, b0, f1, b1, ...]: a forward direction's gradient walks T-1 -> 0
 // (c_prev = c[t-1], zero at t = 0), a backward direction's walks 0 -> T-1
 // (c_prev = c[t+1], zero at t = T-1), over data kept in real time order.
@@ -17,18 +17,36 @@
 //
 // What bounds it on an H100: latency, as in the forward. The widths are
 // tiny (4H <= 256), so a step is a few thousand multiply-adds and each of
-// the 192 dependent steps costs its synchronisation and the latency of
-// its residual loads. The directions are independent of each other.
+// the 192 dependent steps costs the latency of its chain. The directions
+// are independent of each other.
 //
-// What the design does about it: one block per (direction, batch tile of
-// up to 8 rows). A block keeps its direction's W_hh (at most 256 x 64
-// floats, 64 KB) and its rows' d_pre, dh carry and dc carry in shared
-// memory, and walks the T steps with only __syncthreads(): one pass
-// applies the cell gradient per (row, unit) and writes d_pre, a second
-// forms the next dh carry as d_pre W_hh. No grid barrier, no global
-// exchange; all 2N directions run at once in one launch.
+// What the design does about it (the lane plan, for calls whose widths
+// are all up to lane_bwd::kLaneMaxH = 32; the generator's (8, 32, 1) and
+// the F0 converter's (32, 1)): the forward's lane plan
+// (csrc/multi_bilstm_infer.cu) with the gradient's lane step
+// (csrc/lane_bwd.cuh). A block serves one direction, a descriptor gives
+// each direction its own range of blocks, and all 2N directions run in
+// one launch; a row takes L lanes, each lane one unit, W_hh's column of
+// the lane in registers, the dc carry in a register, no barrier; the
+// residuals and the gate factors are ready a step ahead, so a step's
+// chain is the cell's few multiply-adds and the product.
+// A call with a direction wider than 32 (33..kMaxH) runs the block plan
+// for all its directions, in a kernel of its own that keeps its own
+// register count (the kernel before the lane plan, unchanged): one block
+// per (direction, batch tile of up to 8 rows), W_hh, d_pre and both
+// carries in shared memory, two __syncthreads() a step.
+//
+// Built with -DMULTI_BILSTM_BWD_PROBE (chip_smoke.py's probe build), the
+// lane plan also adds up clock64() laps of each phase of a step per warp
+// and direction (lane_bwd.cuh), which multi_bilstm_bwd_probe_read
+// returns.
 
 #include <cuda_runtime.h>
+
+#ifdef MULTI_BILSTM_BWD_PROBE
+#define LANE_BWD_PROBE
+#endif
+#include "lane_bwd.cuh"
 
 namespace {
 
@@ -52,6 +70,70 @@ struct Params {
   int B;
   int tiles;
 };
+
+// the lane plan's descriptor: direction i runs L[i] lanes a row on the
+// blocks from first[i]
+struct LaneParams {
+  lane_bwd::Dir d[kMaxDirs];
+  int L[kMaxDirs];
+  int first[kMaxDirs];
+  int n_dirs;
+  int T;
+  int B;
+};
+
+#ifdef MULTI_BILSTM_BWD_PROBE
+// lane_bwd::kPhases slots per direction
+__device__ unsigned long long g_probe_cycles[kMaxDirs * lane_bwd::kPhases];
+__device__ unsigned long long g_probe_laps[kMaxDirs * lane_bwd::kPhases];
+__device__ float g_probe_sink;
+#endif
+
+__global__ void __launch_bounds__(lane_bwd::kThreads)
+multi_bilstm_bwd_lane_kernel(LaneParams p) {
+  extern __shared__ float4 lane_smem[];
+  // the block's direction: the last one whose range starts at or before
+  // this block (indices known at compile time: a descriptor indexed at
+  // run time would be copied to local memory)
+  lane_bwd::Dir d = p.d[0];
+  int L = p.L[0];
+  int first = p.first[0];
+  int dir = 0;
+#pragma unroll
+  for (int i = 1; i < kMaxDirs; ++i) {
+    if (i < p.n_dirs && static_cast<int>(blockIdx.x) >= p.first[i]) {
+      d = p.d[i];
+      L = p.L[i];
+      first = p.first[i];
+      dir = i;
+    }
+  }
+  const int blk = static_cast<int>(blockIdx.x) - first;
+  const bool reverse = dir & 1;  // a backward direction
+  lane_bwd::Probe probe;
+  switch (L) {
+    case 1: lane_bwd::steps<1>(d, blk, reverse, p.T, p.B, lane_smem, probe);
+      break;
+    case 2: lane_bwd::steps<2>(d, blk, reverse, p.T, p.B, lane_smem, probe);
+      break;
+    case 4: lane_bwd::steps<4>(d, blk, reverse, p.T, p.B, lane_smem, probe);
+      break;
+    case 8: lane_bwd::steps<8>(d, blk, reverse, p.T, p.B, lane_smem, probe);
+      break;
+    case 16: lane_bwd::steps<16>(d, blk, reverse, p.T, p.B, lane_smem,
+                                 probe);
+      break;
+    default: lane_bwd::steps<32>(d, blk, reverse, p.T, p.B, lane_smem,
+                                 probe);
+  }
+#ifdef MULTI_BILSTM_BWD_PROBE
+  probe.flush(g_probe_cycles + dir * lane_bwd::kPhases,
+              g_probe_laps + dir * lane_bwd::kPhases, &g_probe_sink);
+#endif
+}
+
+static_assert(lane_bwd::kLaneMaxH == 32,
+              "the lane plan's widest instance is L = 32");
 
 __global__ void __launch_bounds__(kThreads)
 multi_bilstm_bwd_kernel(Params p) {
@@ -133,37 +215,86 @@ int multi_bilstm_bwd_launch(int n_dirs, const void* const* dh,
   if (n_dirs < 1 || n_dirs > kMaxDirs || T < 1 || B < 1) {
     return cudaErrorInvalidValue;
   }
-  Params p{};
+  Dir dirs[kMaxDirs] = {};
   int max_h = 0;
   for (int i = 0; i < n_dirs; ++i) {
     if (hs[i] < 1 || hs[i] > kMaxH) return cudaErrorInvalidValue;
-    p.d[i] = Dir{static_cast<const float*>(dh[i]),
-                 static_cast<const float*>(g[i]),
-                 static_cast<const float*>(c[i]),
-                 static_cast<const float*>(w[i]), static_cast<float*>(dx[i]),
-                 hs[i]};
+    dirs[i] = Dir{static_cast<const float*>(dh[i]),
+                  static_cast<const float*>(g[i]),
+                  static_cast<const float*>(c[i]),
+                  static_cast<const float*>(w[i]), static_cast<float*>(dx[i]),
+                  hs[i]};
     if (hs[i] > max_h) max_h = hs[i];
   }
-  p.T = T;
-  p.B = B;
-  p.tiles = (B + kBatchTile - 1) / kBatchTile;
-  const size_t smem =
-      (static_cast<size_t>(4 * max_h) * max_h +
-       static_cast<size_t>(kBatchTile) * 4 * max_h +
-       2 * static_cast<size_t>(kBatchTile) * max_h) * sizeof(float);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(multi_bilstm_bwd_kernel,
+  auto s = static_cast<cudaStream_t>(stream);
+  if (max_h > lane_bwd::kLaneMaxH) {
+    Params p{};
+    for (int i = 0; i < n_dirs; ++i) p.d[i] = dirs[i];
+    p.T = T;
+    p.B = B;
+    p.tiles = (B + kBatchTile - 1) / kBatchTile;
+    const size_t smem =
+        (static_cast<size_t>(4 * max_h) * max_h +
+         static_cast<size_t>(kBatchTile) * 4 * max_h +
+         2 * static_cast<size_t>(kBatchTile) * max_h) * sizeof(float);
+    err = cudaFuncSetAttribute(multi_bilstm_bwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    multi_bilstm_bwd_kernel<<<n_dirs * p.tiles, kThreads, smem, s>>>(p);
+    return cudaGetLastError();
+  }
+  LaneParams p{};
+  int blocks = 0;
+  int max_l = 1;
+  for (int i = 0; i < n_dirs; ++i) {
+    int L = 1;
+    while (L < hs[i]) L *= 2;
+    const int rows = lane_bwd::kThreads / L;  // rows a block
+    const Dir& d = dirs[i];
+    p.d[i] = lane_bwd::Dir{d.dh, d.g, d.c, d.w, d.dx, d.H};
+    p.L[i] = L;
+    p.first[i] = blocks;
+    blocks += (B + rows - 1) / rows;
+    if (L > max_l) max_l = L;
+  }
+  p.n_dirs = n_dirs;
+  p.T = T;
+  p.B = B;
+  const size_t smem = sizeof(float4) * lane_bwd::smem_float4s(max_l);
+  err = cudaFuncSetAttribute(multi_bilstm_bwd_lane_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  multi_bilstm_bwd_kernel<<<n_dirs * p.tiles, kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(p);
+  multi_bilstm_bwd_lane_kernel<<<blocks, lane_bwd::kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
 const char* multi_bilstm_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef MULTI_BILSTM_BWD_PROBE
+// Cycles and laps of each phase of the lane plan since the last reset,
+// summed over warps: [kMaxDirs][lane_bwd::kPhases] each.
+int multi_bilstm_bwd_probe_read(unsigned long long* cycles,
+                                unsigned long long* laps, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(cycles, g_probe_cycles,
+                                         sizeof(g_probe_cycles));
+  if (err == cudaSuccess) {
+    err = cudaMemcpyFromSymbol(laps, g_probe_laps, sizeof(g_probe_laps));
+  }
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[kMaxDirs * lane_bwd::kPhases] = {};
+    err = cudaMemcpyToSymbol(g_probe_cycles, zero, sizeof(zero));
+    if (err == cudaSuccess) {
+      err = cudaMemcpyToSymbol(g_probe_laps, zero, sizeof(zero));
+    }
+  }
+  return err;
+}
+#endif
 
 }  // extern "C"

@@ -37,6 +37,7 @@ from torch.autograd.function import once_differentiable
 from speechsplit_tpu_torch.ops import _build
 from speechsplit_tpu_torch.ops.bilstm import (
     MAX_HIDDEN,
+    _barrier_word,
     _device,
     _recording,
     _stream,
@@ -122,7 +123,7 @@ def _library():
 
 def _bwd_library():
     lib = _build.load("lstm_bwd")
-    lib.lstm_bwd_launch.argtypes = [ctypes.c_void_p] * 5 + [
+    lib.lstm_bwd_launch.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.lstm_bwd_launch.restype = ctypes.c_int
     lib.lstm_bwd_error_string.argtypes = [ctypes.c_int]
@@ -175,7 +176,9 @@ def lstm_forward_cuda(xp, w, reverse: bool):
 
 
 def lstm_backward_cuda(dh, g, c, w, reverse: bool):
-    """Launch ``csrc/lstm_bwd.cu``: ``dx`` [T, B, 4H]."""
+    """Launch ``csrc/lstm_bwd.cu``: ``dx`` [T, B, 4H], by the narrow plan
+    up to H = 32 (``kLaneMaxH`` of ``csrc/lane_bwd.cuh``) and the wide
+    one above."""
     _check(g, w, "lstm_bwd", MAX_BWD_BATCH)
     _check_residuals(dh, g, c)
     t_len, batch, four_h = g.shape
@@ -183,8 +186,8 @@ def lstm_backward_cuda(dh, g, c, w, reverse: bool):
     lib = _bwd_library()
     err = lib.lstm_bwd_launch(
         dh.data_ptr(), g.data_ptr(), c.data_ptr(), w.data_ptr(),
-        dx.data_ptr(), t_len, batch, four_h // 4, int(reverse),
-        g.device.index or 0, _stream(g),
+        dx.data_ptr(), _barrier_word(g).data_ptr(), t_len, batch,
+        four_h // 4, int(reverse), g.device.index or 0, _stream(g),
     )
     _build.check(err, "lstm_bwd", lib.lstm_bwd_error_string)
     LAUNCHES["lstm_bwd"] += 1

@@ -51,7 +51,9 @@ def _close(got, want, atol=KERNEL_ATOL):
 
 
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("h", [1, 8, 32])
+# the kernels' plan borders at 32 (31, 32, 33) and a wide width of one
+# unit a block (64)
+@pytest.mark.parametrize("h", [1, 8, 31, 32, 33, 64])
 def test_plain_versions_match_pallas_interpret(h, reverse):
     """Lean forward against ``_infer``, residual-saving forward against
     ``_fwd`` (h, gates, c) and the gradient recurrence against
@@ -242,13 +244,17 @@ def test_merged_bidir_fits_at_the_kernel_limits(h, infer, grad):
 
 @pytest.mark.parametrize("stem,row_floats,limit", [
     ("lstm_infer", 512 + 4 * 4, lstm.MAX_FWD_BATCH),
-    ("lstm_bwd", 4 * 512 + 8 * 4, lstm.MAX_BWD_BATCH)])
+    # d_pre [4H] and, per unit, the 8 warps' partial sums and two
+    # buffers of the 7 residuals
+    ("lstm_bwd", 4 * 512 + (8 + 2 * 7) * 4, lstm.MAX_BWD_BATCH)])
 def test_single_direction_limits_hold_twice_the_merged(stem, row_floats,
                                                        limit):
     """The training kernels' limits: ``lstm_fwd`` (in
-    ``csrc/lstm_infer.cu``) and ``lstm_bwd``. At H=512 their plan gives 4
-    units a block; the limit is the largest batch whose cell state fits
-    beside one row, and at least twice the merged lean kernel's."""
+    ``csrc/lstm_infer.cu``) and ``lstm_bwd`` (its wide plan; the narrow
+    one keeps no carry in shared memory). At H=512 their plan gives 4
+    units a block; the limit is the largest batch whose cell state (dc
+    carry) [4][B] fits beside one row of the staged values in the
+    source's budget, and at least twice the merged lean kernel's."""
     what = {"lstm_infer": "lstm_fwd", "lstm_bwd": "lstm_bwd"}[stem]
     budget = _budget_floats(stem)
     assert 4 * limit + row_floats <= budget < 4 * (limit + 1) + row_floats
@@ -288,6 +294,38 @@ def test_lean_wrapper_takes_batches_past_the_training_limit(monkeypatch):
     with pytest.raises(ValueError, match=f"B <= {lstm.MAX_FWD_BATCH}"):
         lstm.lstm_forward_cuda(xp, w, False)
     assert lstm.LAUNCHES["lstm_fwd"] == 0
+
+
+def test_gradient_wrapper_passes_a_zeroed_barrier_word(monkeypatch):
+    """``lstm_bwd``'s wide plan meets at a split grid barrier on a word
+    the wrapper zeroes for each launch: the launch gets dh, g, c, w, dx
+    and that word, then T, B, H, reverse, the device and the stream."""
+    calls, words = [], []
+
+    class Library:
+        lstm_bwd_error_string = None
+
+        def lstm_bwd_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    def barrier_word(x):
+        words.append(torch.zeros(1, dtype=torch.int32))
+        return words[-1]
+
+    monkeypatch.setattr(lstm, "_bwd_library", Library)
+    monkeypatch.setattr(lstm, "_barrier_word", barrier_word)
+    monkeypatch.setattr(lstm, "_stream", lambda x: 0)
+    monkeypatch.setitem(lstm.LAUNCHES, "lstm_bwd", 0)
+    dh, c = torch.zeros(3, 5, 40), torch.ones(3, 5, 40)
+    g, w = torch.zeros(3, 5, 160), torch.zeros(160, 40)
+    dx = lstm.lstm_backward_cuda(dh, g, c, w, True)
+    (args,) = calls
+    assert args[:6] == (dh.data_ptr(), g.data_ptr(), c.data_ptr(),
+                        w.data_ptr(), dx.data_ptr(), words[0].data_ptr())
+    assert args[6:] == (3, 5, 40, 1, 0, 0)
+    assert int(words[0]) == 0
+    assert lstm.LAUNCHES["lstm_bwd"] == 1
 
 
 @pytest.mark.parametrize("plan,code", [("auto", 0), ("narrow", 1),

@@ -96,6 +96,30 @@ def test_backward_reference_matches_bwd_call(streams, b):
         np.testing.assert_allclose(g_.numpy(), np.asarray(r), atol=TOL)
 
 
+@pytest.mark.parametrize("case", PLAN_CASES, ids=plan_case_id)
+def test_backward_reference_matches_bwd_call_on_the_kernel_plans(case):
+    """The gradient kernel's plans (the lane plan to width 32, the block
+    plan for a call with a wider direction) are held to this plain
+    version on the card; here it is held to ``_bwd_call`` on the same
+    shapes."""
+    t, b, hs = case
+    xs, ws = plan_inputs(t, b, hs)
+    n, d2 = len(hs), 2 * len(hs)
+    rng = np.random.RandomState(7 * t + b)
+    dhs = [rng.randn(t, b, h).astype(np.float32) for h in hs for _ in (0, 1)]
+    fwd = pallas_multilstm._fwd(n, jnp.float32, *map(jnp.asarray, xs + ws))
+    g, c = fwd[d2:2 * d2], fwd[2 * d2:]
+    want = pallas_multilstm._bwd_call(n, *map(jnp.asarray, dhs), *g, *c, *c,
+                                      *map(jnp.asarray, ws))
+    got = multi_bilstm.multi_bilstm_backward_reference(
+        n, *map(_t, dhs), *(_t(np.asarray(x)) for x in g),
+        *(_t(np.asarray(x)) for x in c), *(_t(w.T) for w in ws))
+    assert len(got) == len(want) == d2
+    for g_, r in zip(got, want):
+        assert g_.shape == r.shape
+        np.testing.assert_allclose(g_.numpy(), np.asarray(r), atol=TOL)
+
+
 @CASES
 def test_function_grads_match_jax_vjp(streams, b):
     xs, ws, dhs = _inputs(streams, b)
