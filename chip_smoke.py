@@ -58,7 +58,11 @@ Phases, one line each; any failure exits non-zero:
    gradient and stores, and prefetch, for ``multi_bilstm_bwd`` per
    stream width at B16 (8, 32, 1) and (32, 1) (``[multi bwd probe]``),
    and for ``lstm_bwd`` at B16 H 512, 256 (the wide plan, with the
-   barrier wait) and 8 (``[lstm bwd probe]``);
+   barrier wait) and 8 (``[lstm bwd probe]``); and the probe build of
+   ``lstm_fwd`` (``-DLSTM_FWD_PROBE``): a step split into barrier wait,
+   h and gate-input wait, product, cell and stores, and prefetch and
+   arrival, at B16 H 512, 256 (the wide plan) and 8 (the narrow one)
+   (``[lstm fwd probe]``);
 7. the full-width generator and F0-converter train steps on a seeded
    ``Collator`` batch of 16: the launches of every kernel in one step
    (counts set to 0 just before and read just after), the step against
@@ -86,16 +90,19 @@ Phases, one line each; any failure exits non-zero:
     ``LSTM(bidirectional=False)``): ``lstm_infer``, ``lstm_fwd`` and
     ``lstm_bwd`` against their plain versions in both directions at the
     shapes phases 13 and 14 give them, timed beside their bounds, the
-    plain versions, a cuDNN unidirectional LSTM and the merged kernels;
-    ``lstm_infer`` also against a float64 run, and over widths 8-512 at
+    plain versions, a cuDNN unidirectional LSTM and the merged kernels
+    (the training kernels and cuDNN's forward also by device time);
+    content layer 1 (B16 H8) on either route, two ``lstm_fwd`` and two
+    ``lstm_bwd`` against ``bilstm_fwd`` and ``bilstm_bwd``, by device
+    time; ``lstm_infer`` also against a float64 run, and over widths 8-512 at
     phase 13's batch in each of its plans (the sweep that sets its plan
     border); the merged ``bilstm_infer`` beside two
     ``lstm_infer`` launches at batches up to the largest it holds, at
     H=512 (from 28), H=256 (from 4) and H=8 (from 28);
     edges (T=1, B=1, ragged row tiles, odd widths, the plan borders at
     widths 31, 32 and 33, the training kernels' batch limits, which their
-    sources state, and one row more, which raises (the gradient's at H=8
-    and H=512), and ``lstm_infer`` at 16384 rows); every edge
+    sources state, and one row more, which raises (at H=8 and H=512),
+    and ``lstm_infer`` at 16384 rows); every edge
     also against a float64 run of the plain loop; ``LSTMFunction`` on
     CUDA against autograd through the plain loop;
 13. ``convert_batched`` at the fewest pairs (731) whose 7 rows a pair the
@@ -131,7 +138,10 @@ B731 H256), ``bilstm_fwd`` and ``bilstm_bwd`` at the train shapes,
 ``bilstm_fused_infer`` at the fused conversion's B56 I1024 H512 and
 ``bilstm_fused_fwd`` at B16 I1024 H512, ``lstm_infer`` at phase 13's two
 shapes and both directions of it at H=512 over batches 28-224,
-``lstm_bwd`` at B16 H512, H256 and H8 (device time),
+``lstm_bwd`` and ``lstm_fwd`` at B16 H512, H256 and H8 (device time;
+``lstm_fwd`` beside cuDNN's training forward on the same inputs) and
+``lstm_fwd`` at B5117 and B13948 H512 (device time),
+content layer 1 (B16 H8) on either route (device time),
 ``multi_bilstm_infer`` at B28 (8, 32, 1), B4 (32, 1), B5117 (8, 32, 1)
 and B731 (32, 1) and its block plan at B13 (64, 3, 1), and
 ``multi_bilstm_fwd`` and ``multi_bilstm_bwd`` at B16 (8, 32, 1) and
@@ -819,15 +829,41 @@ def kernel_device_ms(fn, reps: int) -> float:
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(SPIN_CYCLES)
     start.record()
+    host = time.perf_counter()
     for _ in range(reps):
         fn()
     stop.record()
+    host = time.perf_counter() - host
     queued = not start.query()  # the card is still in the spin kernel
     torch.cuda.synchronize()
     if not queued:
-        fail("kernel_device_ms: the spin kernel ended before the calls "
-             "were queued")
+        fail(f"kernel_device_ms: the spin kernel ended before the calls "
+             f"were queued ({host * 1e3:.3f} ms on the host for {reps} "
+             f"calls)")
     return start.elapsed_time(stop) / reps
+
+
+def profiled_device_ms(fn, reps: int) -> float:
+    """Mean device time of one call of ``fn``: the device time of every
+    kernel and copy of ``reps`` calls under ``torch.profiler``, over
+    ``reps``. For a call that synchronises (cuDNN's training forward
+    does), which ``kernel_device_ms`` cannot queue behind its spin
+    kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(device_us(e) for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False))
+    if not busy > 0:
+        fail("profiled_device_ms: the profiler saw no device time")
+    return busy / 1e3 / reps
 
 
 def profile_events(phase: str, prof, wall_ms: float, top: int) -> None:
@@ -1596,6 +1632,80 @@ def phase_lstm_bwd_probe(shapes=((TRAIN_B, 512), (TRAIN_B, 256),
     return splits
 
 
+# the phases of an lstm_fwd step that its probe build times, in the order
+# of csrc/lstm_infer.cu's slots (the narrow plan laps slots 1-4)
+LSTM_FWD_PROBE_PHASES = ("barrier_wait", "h_and_gate_input_wait", "product",
+                         "cell_and_stores", "prefetch_and_arrive")
+
+
+def phase_lstm_fwd_probe(shapes=((TRAIN_B, 512), (TRAIN_B, 256),
+                                 (TRAIN_B, 8))) -> dict:
+    """The probe build of ``csrc/lstm_infer.cu`` (``-DLSTM_FWD_PROBE``):
+    clock64() laps of each phase of an ``lstm_fwd`` step, summed
+    over warps, as cycles a warp a step and shares, at the single-route
+    train steps' shapes (the wide plan at H 512 and 256, the narrow one at
+    H8). Each result is checked against the plain version, both
+    directions. Returns the splits."""
+    import ctypes
+
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm, lstm
+
+    n_phases = len(LSTM_FWD_PROBE_PHASES)
+    cycles = (ctypes.c_ulonglong * n_phases)()
+    laps = (ctypes.c_ulonglong * n_phases)()
+    splits = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = probe_library(tmp, "lstm_infer", "LSTM_FWD_PROBE")
+        lib.lstm_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.lstm_fwd_probe_read.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        for b, h in shapes:
+            xp, w, _ = lstm_inputs(T, b, h, SEED + 19 * h + b)
+            err = 0.0
+            # both directions checked; the split and the time are the
+            # forward direction's, run last
+            for reverse in (True, False):
+                outs = (torch.empty(T, b, h, device="cuda"),
+                        torch.empty(T, b, 4 * h, device="cuda"),
+                        torch.empty(T, b, h, device="cuda"))
+
+                def run():
+                    code = lib.lstm_fwd_launch(
+                        xp.data_ptr(), w.data_ptr(),
+                        *[x.data_ptr() for x in outs],
+                        bilstm._barrier_word(xp).data_ptr(), T, b, h,
+                        int(reverse), 0, bilstm._stream(xp))
+                    if code:
+                        fail(f"lstm_fwd probe build: CUDA error {code}")
+
+                run()
+                torch.cuda.synchronize()
+                lib.lstm_fwd_probe_read(cycles, laps, 1)  # reset
+                run()
+                torch.cuda.synchronize()
+                if lib.lstm_fwd_probe_read(cycles, laps, 1):
+                    fail("lstm_fwd probe: reading the counters failed")
+                want = lstm.lstm_direction_forward_reference(xp, w, reverse)
+                err = max(err, abs_err(outs, want))
+            if not err <= KERNEL_TOL:
+                fail(f"lstm_fwd probe build B{b} H{h}: max abs err {err}")
+            ms = kernel_device_ms(run, 5)
+            # every warp laps the last phase once a step
+            split, total = probe_split(LSTM_FWD_PROBE_PHASES, cycles,
+                                       laps[n_phases - 1])
+            log("lstm fwd probe", shape=f"T{T}xB{b}xH{h}",
+                plan="narrow" if h <= lstm.NARROW_MAX_H else "wide",
+                warps=laps[n_phases - 1] // T, ms_probe_build=f"{ms:.4f}",
+                cycles_per_step=round(total), max_abs_err=f"{err:.3g}",
+                **split, clock="clock64 of each warp, summed over warps")
+            splits[(b, h)] = split
+            del xp, w, outs
+    return splits
+
+
 def synthetic_batch(config, seed: int):
     """A B=16 ``Collator`` batch cut from 16 seeded synthetic utterances
     (mel in [0, 1], a normalized log-F0 contour with unvoiced frames,
@@ -2221,8 +2331,9 @@ def check_lstm_train(b: int, h: int, reps: int) -> dict:
     directions (the gradient kernel on the plain forward's residuals),
     timed beside their bounds, the plain versions, cuDNN's unidirectional
     training forward and backward, and the merged kernels' time for both
-    directions at the same shape; the gradient kernel also by its device
-    time (``kernel_device_ms``)."""
+    directions at the same shape; both kernels also by their device time
+    (``kernel_device_ms``), cuDNN's forward by the profiler's
+    (``profiled_device_ms``: it synchronises)."""
     import torch
 
     from speechsplit_tpu_torch.ops import bilstm, lstm
@@ -2246,6 +2357,8 @@ def check_lstm_train(b: int, h: int, reps: int) -> dict:
     fwd_ms = time_ms(lambda: lstm.lstm_forward_cuda(xp, w, False), reps)
     bwd_ms = time_ms(lambda: lstm.lstm_backward_cuda(dh, g, c, w, False),
                      reps)
+    fwd_device_ms = kernel_device_ms(
+        lambda: lstm.lstm_forward_cuda(xp, w, False), reps)
     bwd_device_ms = kernel_device_ms(
         lambda: lstm.lstm_backward_cuda(dh, g, c, w, False), reps)
     plain_fwd_ms = time_ms(lambda: lstm.lstm_direction_forward_reference(
@@ -2255,6 +2368,7 @@ def check_lstm_train(b: int, h: int, reps: int) -> dict:
     yard = cudnn_lstm_yardstick(xp, w)
     x = xp.detach().clone().requires_grad_(True)
     lib_fwd_ms = time_ms(lambda: yard(x), reps)
+    lib_fwd_device_ms = profiled_device_ms(lambda: yard(x), reps)
     out = yard(x)[0]
     lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
         out, (x, yard.weight_hh_l0), dh, retain_graph=True), reps)
@@ -2267,8 +2381,10 @@ def check_lstm_train(b: int, h: int, reps: int) -> dict:
     shape = f"T{T}xB{b}xH{h}"
     fwd = dict(shape=shape, max_abs_err=max(errs["err_h"], errs["err_g"],
                                             errs["err_c"]),
-               tol=KERNEL_TOL, ms=fwd_ms, plain_ms=plain_fwd_ms,
-               bound_ms=fwd_bound, bound_by=fwd_by, library_ms=lib_fwd_ms,
+               tol=KERNEL_TOL, ms=fwd_ms, device_ms=fwd_device_ms,
+               plain_ms=plain_fwd_ms, bound_ms=fwd_bound, bound_by=fwd_by,
+               library_ms=lib_fwd_ms, library_device_ms=lib_fwd_device_ms,
+               plan="narrow" if h <= lstm.NARROW_MAX_H else "wide",
                merged_both_directions_ms=merged_fwd_ms)
     bwd = dict(shape=shape, max_abs_err=errs["err_dx"],
                rel_err=errs["err_dx_rel"], tol=KERNEL_TOL, ms=bwd_ms,
@@ -2286,18 +2402,60 @@ def check_lstm_train(b: int, h: int, reps: int) -> dict:
     return {"lstm_fwd": fwd, "lstm_bwd": bwd}
 
 
+def check_content_routes(reps: int) -> dict:
+    """Content layer 1 (H8) of a generator train step (B16) on either
+    route, by the device time of its kernels: two ``lstm_fwd`` and two
+    ``lstm_bwd`` (the single-direction route) against ``bilstm_fwd`` and
+    ``bilstm_bwd`` (merged), on the same inputs; each route's outputs
+    against the other's."""
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.ops import bilstm, lstm
+
+    h = SpeechSplitConfig().dim_neck
+    xp_f, w_f, dh_f = lstm_inputs(T, TRAIN_B, h, SEED + 71)
+    xp_b, w_b, dh_b = lstm_inputs(T, TRAIN_B, h, SEED + 72)
+    fwd = bilstm.bilstm_forward_reference(xp_f, xp_b, w_f, w_b)
+    res = fwd[2:]  # g_f, g_b, c_f, c_b
+
+    def single():
+        return (*lstm.lstm_forward_cuda(xp_f, w_f, False),
+                *lstm.lstm_forward_cuda(xp_b, w_b, True),
+                lstm.lstm_backward_cuda(dh_f, res[0], res[2], w_f, False),
+                lstm.lstm_backward_cuda(dh_b, res[1], res[3], w_b, True))
+
+    def merged():
+        h_f, h_b, g_f, g_b, c_f, c_b = bilstm.bilstm_forward_cuda(
+            xp_f, xp_b, w_f, w_b)
+        dx = bilstm.bilstm_backward_cuda(dh_f, dh_b, *res, w_f, w_b)
+        return (h_f, g_f, c_f, h_b, g_b, c_b, *dx)
+
+    err = abs_err(single(), merged())
+    torch.cuda.synchronize()
+    row = dict(shape=f"T{T}xB{TRAIN_B}xH{h}",
+               single_device_ms=kernel_device_ms(single, reps),
+               merged_device_ms=kernel_device_ms(merged, reps),
+               max_abs_err_between=err, tol=KERNEL_TOL)
+    log("content layer 1 routes", **fmt(row),
+        single="2 lstm_fwd + 2 lstm_bwd", merged="bilstm_fwd + bilstm_bwd")
+    if not err <= KERNEL_TOL:
+        fail(f"content layer 1 routes: max abs err {err}")
+    return row
+
+
 def check_lstm_edges() -> None:
     """The three kernels' other code paths against their plain versions,
     both directions, on short sequences: T=1, B=1, batches that are not a
     multiple of the lean kernel's row tiles (B=300 at H=512, 77 at H=8)
     and fill the training kernels' batch-tiled staging, widths not a
     multiple of 4 or 32 or of a plan's units (H=1, 3, 100, 130, 257: the
-    gradient's wide plan at 1, 2 and 4 units a block), the plan borders
-    (the lean kernel's ``kNarrowMaxH`` and the gradient's ``kLaneMaxH``,
-    both 32) and one on either side, the training kernels' own batch
-    limits, which their sources state (one more row raises in the wrapper
-    and is refused by the kernel itself, the gradient's at H=8 and at
-    H=512), and the
+    training kernels' wide plans at 1, 2 and 4 units a block), the plan
+    borders (the lean kernel's ``kNarrowMaxH``, ``lstm_fwd``'s and the
+    gradient's ``kLaneMaxH``, all 32) and one on either side, the
+    training kernels' own batch limits, which their sources state (one
+    more row raises in the wrapper and is refused by the kernel itself,
+    at H=8 and at H=512), and the
     lean kernel past them (B=16384, which only it takes). Both the kernel
     and the plain version are also held against a float64 run of the
     plain loop on the same inputs (the gradient on the same float32
@@ -2362,20 +2520,27 @@ def check_lstm_edges() -> None:
                 if err > worst[name][0]:
                     worst[name] = (err, f"T{t}xB{b}xH{h}"
                                         f"{'r' if reverse else 'f'}")
-    # one row past each training kernel's limit (the gradient's at each
-    # plan's width): the wrapper raises, naming the limit, and the C
-    # entry refuses the launch
+    # one row past each training kernel's limit (at each plan's width):
+    # the wrapper raises, naming the limit, and the C entry refuses the
+    # launch
     lib, bwd_lib = lstm._library(), lstm._bwd_library()
-    for name, limit, h, wrapper, launch, pointers in (
-            ("lstm_fwd", lstm.MAX_FWD_BATCH, 8,
-             lambda xp, w, dh: lstm.lstm_forward_cuda(xp, w, False),
-             lib.lstm_fwd_launch, 5),
-            ("lstm_bwd", lstm.MAX_BWD_BATCH, 8,
-             lambda xp, w, dh: lstm.lstm_backward_cuda(dh, xp, dh, w, False),
-             bwd_lib.lstm_bwd_launch, 6),
-            ("lstm_bwd", lstm.MAX_BWD_BATCH, 512,
-             lambda xp, w, dh: lstm.lstm_backward_cuda(dh, xp, dh, w, False),
-             bwd_lib.lstm_bwd_launch, 6)):
+
+    def fwd_wrapper(xp, w, dh):
+        return lstm.lstm_forward_cuda(xp, w, False)
+
+    def bwd_wrapper(xp, w, dh):
+        return lstm.lstm_backward_cuda(dh, xp, dh, w, False)
+
+    # each C entry takes six pointers, then T, B, H, reverse, the device
+    for name, limit, h, wrapper, launch in (
+            ("lstm_fwd", lstm.MAX_FWD_BATCH, 8, fwd_wrapper,
+             lib.lstm_fwd_launch),
+            ("lstm_fwd", lstm.MAX_FWD_BATCH, 512, fwd_wrapper,
+             lib.lstm_fwd_launch),
+            ("lstm_bwd", lstm.MAX_BWD_BATCH, 8, bwd_wrapper,
+             bwd_lib.lstm_bwd_launch),
+            ("lstm_bwd", lstm.MAX_BWD_BATCH, 512, bwd_wrapper,
+             bwd_lib.lstm_bwd_launch)):
         xp, w, dh = lstm_inputs(1, limit + 1, h, SEED + 97)
         try:
             wrapper(xp, w, dh)
@@ -2386,7 +2551,7 @@ def check_lstm_edges() -> None:
             fail(f"{name} took B={limit + 1} at H={h}, past its limit "
                  f"{limit}")
         # the kernel refuses before it reads a pointer
-        code = launch(*[xp.data_ptr()] * pointers, 1, limit + 1, h, 0, 0,
+        code = launch(*[xp.data_ptr()] * 6, 1, limit + 1, h, 0, 0,
                       ctypes.c_void_p(lstm._stream(xp)))
         if code == 0:
             fail(f"the {name} kernel took B={limit + 1} at H={h}")
@@ -2398,7 +2563,7 @@ def check_lstm_edges() -> None:
            for name, (k, p) in exact.items()}, tol=KERNEL_TOL,
         plan_border=border, max_fwd_batch=lstm.MAX_FWD_BATCH,
         max_bwd_batch=lstm.MAX_BWD_BATCH,
-        refused_batches=f"{lstm.MAX_FWD_BATCH + 1}(fwd,H8),"
+        refused_batches=f"{lstm.MAX_FWD_BATCH + 1}(fwd,H8,H512),"
                         f"{lstm.MAX_BWD_BATCH + 1}(bwd,H8,H512)")
 
 
@@ -2444,9 +2609,9 @@ def check_lstm_functions() -> None:
 
 def phase_lstm_kernels(reps: int = 2) -> dict:
     """The single-direction kernels at the shapes phases 13 and 14 give
-    them, their edges and the Function, and the merged kernel beside them
-    up to its batch limit. Returns the row of each kernel's most
-    expensive main-path shape."""
+    them, their edges and the Function, content layer 1 on either route, and the merged kernel beside them up to its
+    batch limit. Returns the row of each kernel's most expensive
+    main-path shape."""
     import gc
 
     import torch
@@ -2463,7 +2628,10 @@ def phase_lstm_kernels(reps: int = 2) -> dict:
                      (TRAIN_B, config.dim_dec_f0),
                      (TRAIN_B, config.dim_neck)):
             for name, row in check_lstm_train(b, h, 10).items():
-                rows.setdefault(name, row)
+                rows.setdefault(name, dict(row, widths={}))["widths"][h] = {
+                    k: row[k] for k in ("ms", "device_ms", "bound_ms",
+                                        "library_ms")}
+        rows["lstm_fwd"]["content_layer_routes"] = check_content_routes(10)
         big = len(CONDITIONS) * refused_pairs()
         rows["lstm_infer"] = check_lstm_infer(big, config.dim_dec_mel, reps)
         rows["lstm_infer"]["at_content_width"] = check_lstm_infer(
@@ -2634,22 +2802,23 @@ LSTM_KERNELS = ("lstm_infer", "lstm_fwd", "lstm_bwd")
 
 # the sources whose kernels --against compares: the merged BiLSTM ones,
 # the single-direction ones and the multi-stream ones (with the headers
-# they include: merged_step.cuh, lane_bwd.cuh)
+# they include: merged_step.cuh, lane_fwd.cuh, lane_bwd.cuh)
 CODEGEN_SOURCES = ("bilstm_infer", "bilstm_bwd", "lstm_infer", "lstm_bwd",
                    "multi_bilstm_infer", "multi_bilstm_bwd")
 # a kernel entry of those sources, by its mangled name: the template and
 # its arguments, if any (bilstm_infer_kernel<KQ, kResid>,
 # bilstm_fused_kernel<KQ, kResid>, bilstm_bwd_kernel<KQ>;
-# lstm_infer_kernel<KPL, kResid>, which is lstm_fwd's,
-# lstm_wide_step_kernel<MR, kVec>, lstm_narrow_kernel<L>,
+# lstm_wide_step_kernel<kVec>, lstm_narrow_kernel<L>,
+# lstm_fwd_narrow_kernel<L>, lstm_fwd_wide_kernel<KQ, UN> (before them
+# lstm_infer_kernel<KPL, kResid>, lstm_fwd's first design),
 # lstm_bwd_narrow_kernel<L>, lstm_bwd_wide_kernel<KQ, UN> (before them
 # lstm_bwd_kernel<KPL>); multi_bilstm_lane_kernel<kResid>,
 # multi_bilstm_infer_kernel<kResid>, which is the block plan's,
 # multi_bilstm_bwd_lane_kernel, multi_bilstm_bwd_kernel, the gradient's
 # block plan)
 KERNEL_ENTRY = re.compile(
-    r"((?:multi_)?(?:bi)?lstm_(?:bwd_lane|bwd_narrow|bwd_wide|infer|fused"
-    r"|bwd|wide_step|narrow|lane)_kernel)"
+    r"((?:multi_)?(?:bi)?lstm_(?:bwd_lane|bwd_narrow|bwd_wide|fwd_narrow"
+    r"|fwd_wide|infer|fused|bwd|wide_step|narrow|lane)_kernel)"
     r"(?:I((?:L[ib]\d+E)+)E)?")
 
 
@@ -2729,6 +2898,7 @@ def kernel_codegen(tree: str) -> dict:
 AB_CHILD = """
 import json, time
 import numpy as np, torch
+from torch.profiler import ProfilerActivity, profile
 import chip_smoke as c
 from speechsplit_tpu_torch.config import SpeechSplitConfig
 from speechsplit_tpu_torch.training import (
@@ -2802,6 +2972,54 @@ with c.strict_float32():
         _, g, cc = lstm.lstm_direction_forward_reference(xp, w, False)
         out[f"lstm_bwd B{c.TRAIN_B} H{h} device ms"] = device_ms(
             lambda: lstm.lstm_backward_cuda(dh, g, cc, w, False))
+    # the single-direction residual-saving forward at the same widths,
+    # beside cuDNN's training forward on the same inputs
+    for h in (512, 256, 8):
+        xp, w, _ = c.lstm_inputs(c.T, c.TRAIN_B, h, c.SEED + h)
+        out[f"lstm_fwd B{c.TRAIN_B} H{h} device ms"] = device_ms(
+            lambda: lstm.lstm_forward_cuda(xp, w, False))
+        # cuDNN's training forward synchronises, so its device time is
+        # the profiler's: every kernel and copy of 20 calls
+        yard = c.cudnn_lstm_yardstick(xp, w)
+        x = xp.detach().clone().requires_grad_(True)
+        yard(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                yard(x)
+            torch.cuda.synchronize()
+        out[f"cudnn lstm fwd B{c.TRAIN_B} H{h} device ms"] = sum(
+            float(getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0)))
+            for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)) / 1e3 / 20
+        del yard, x
+    # lstm_fwd at H512 at the batches the single route carries past the
+    # merged kernels' autograd limit: the 731-pair conversion's rows, and
+    # the most both trees take (the first design's limit)
+    for b in (big, 13948):
+        torch.cuda.empty_cache()
+        xp, w = c.lstm_inputs(c.T, b, 512, c.SEED + b)[:2]
+        out[f"lstm_fwd B{b} H512 device ms"] = device_ms(
+            lambda: lstm.lstm_forward_cuda(xp, w, False), 2)
+        del xp, w
+    torch.cuda.empty_cache()
+    # content layer 1 (H8) of a train step on either route: two lstm_fwd
+    # and two lstm_bwd, or bilstm_fwd and bilstm_bwd
+    from speechsplit_tpu_torch.ops import bilstm
+    xf, wf, dhf = c.lstm_inputs(c.T, c.TRAIN_B, 8, c.SEED + 71)
+    xb, wb, dhb = c.lstm_inputs(c.T, c.TRAIN_B, 8, c.SEED + 72)
+    _, _, gf, gb, cf, cb = bilstm.bilstm_forward_reference(xf, xb, wf, wb)
+    out[f"content layer 1 single route B{c.TRAIN_B} device ms"] = device_ms(
+        lambda: (lstm.lstm_forward_cuda(xf, wf, False),
+                 lstm.lstm_forward_cuda(xb, wb, True),
+                 lstm.lstm_backward_cuda(dhf, gf, cf, wf, False),
+                 lstm.lstm_backward_cuda(dhb, gb, cb, wb, True)))
+    out[f"content layer 1 merged route B{c.TRAIN_B} device ms"] = device_ms(
+        lambda: (bilstm.bilstm_forward_cuda(xf, xb, wf, wb),
+                 bilstm.bilstm_backward_cuda(dhf, dhb, gf, gb, cf, cb, wf,
+                                             wb)))
     for hs in ((8, 32, 1), (32, 1)):
         widths = "/".join(map(str, hs))
         for name, row in c.check_multi_train(c.TRAIN_B, hs, 10).items():
@@ -2816,7 +3034,6 @@ with c.strict_float32():
                 n, *dhs, *res, *ws))
 # the 4-pair conversion: wall time a call, and the device's busy time in
 # one profiled call (kernel and copy records)
-from torch.profiler import ProfilerActivity, profile
 from speechsplit_tpu_torch.convert import CONDITIONS, convert_batched
 from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
 gen = torch.Generator().manual_seed(c.SEED)
@@ -2976,6 +3193,7 @@ def main() -> int:
     phase_multi_probe()
     phase_multi_bwd_probe()
     phase_lstm_bwd_probe()
+    phase_lstm_fwd_probe()
     gen_launches, f0_launches, state, step, batch = phase_train()
     phase_profile_train(state, step, batch)
     del state, step

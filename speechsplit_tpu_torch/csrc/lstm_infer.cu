@@ -25,7 +25,10 @@
 // layer 1's H = 8) and for LSTM(bidirectional=False). At B = 5117, H = 512
 // a step is 10.7 GFLOP against 42 MB of xp: float32 FMAs bound it (0.16 ms
 // a step at 67 TFLOP/s). At H = 8 a step is 2.6 MFLOP: nothing bounds it
-// but latency, and rows of an LSTM never depend on each other.
+// but latency, and rows of an LSTM never depend on each other. lstm_fwd
+// runs under autograd, at the train step's B = 16: a step at H = 512 is
+// 34 MFLOP, so latency bounds it at every width (the wait for every
+// block's h_{t-1}, the reload of it, one step's chain of FMAs).
 //
 // lstm_infer has two plans, split at kNarrowMaxH (chosen from a width sweep
 // at B = 5117 on the H100, PERF.md):
@@ -55,57 +58,61 @@
 // (no FMA contraction), so given the same gates c agrees with it to the
 // last bit.
 //
-// lstm_fwd is the merged kernel's recurrence for one direction (csrc/
-// bilstm_infer.cu), with a launch plan of its own: each block gets the
-// fewest hidden units that keep the grid to one block an SM of a 128-SM
-// card, units = ceil(H / 128), 4 at H = 512 (128 blocks). That keeps the
-// cell state a block holds in shared memory, [units][B], to half the
-// merged kernel's, so it takes batches up to kMaxBatch (13948 rows at
-// H = 512). One persistent cooperative launch; one warp a unit, whose four
-// gate rows of W_hh stay in registers for the whole sequence; a lane owns
-// the k = lane + 32 j slice of the dot products and a warp butterfly sums
-// them. Each step a block stages its units' gate inputs and h_{t-1} (read
-// back from the output through L2), tiled over the batch, then all blocks
-// meet at a grid barrier. The launch fails rather than deadlocks when the
-// grid cannot be co-resident: the host side checks occupancy first.
+// lstm_fwd has two plans too, split at the same width (lane_fwd::kLaneMaxH
+// = kNarrowMaxH = 32, also the border of lstm_bwd's plans, so a layer's
+// forward, lean forward and gradient split at one width), one launch a
+// call either way:
+//
+// - Narrow (H <= 32): the multi-stream forwards' lane step
+//   (csrc/lane_fwd.cuh) for one direction: a batch row on L lanes, one
+//   unit a lane with all four of its gates, W_hh's L float4s a lane in
+//   registers, h_{t-1} by __shfl_sync of width L, c in a register, the
+//   next step's gate inputs in flight, stores of h, g and c, no barrier.
+//   No batch limit of its own.
+// - Wide (H > 32): the merged forward's step (csrc/bilstm_infer.cu,
+//   bilstm_infer_kernel with kResid, on csrc/merged_step.cuh) for one
+//   direction, in one persistent cooperative launch. A block owns UN
+//   consecutive hidden units (1 up to H = 128, 2 up to 256, 4 above: 128
+//   blocks at H = 128, 256 and 512), with two warps a unit that deal out
+//   the rounds of 8 batch rows between them (one warp a unit, and 4 units
+//   a block at H = 256, were slower in a sweep at B = 16). A warp holds
+//   its unit's four gate rows of W_hh in registers at k = 128 q + 4 lane
+//   + kk, so one 16-byte shared load of h_{t-1} feeds 16 FMAs; a round
+//   covers 8 batch rows x 4 gates and ends in one butterfly
+//   (merged_step.cuh) that leaves lane 4 r + g the sum of row r, gate g;
+//   rows past the batch read its last row, so that a round's loads issue
+//   together. Each lane applies its gate's
+//   activation and lane 4 r the cell update; c stays in shared memory
+//   ([UN][B]). h_{t-1}, written by every block in the step before, is
+//   staged by 16-byte cp.async through L2, batch tiles double-buffered.
+//   The gate inputs of the block's units go in by cp.async a step ahead,
+//   between the block's arrival at the split grid barrier (step::Barrier,
+//   on a word the wrapper zeroes) and its wait. The outputs are staged in
+//   the slots of the gate inputs they replace and stored in runs of the
+//   block's units. The cell state and one batch row of each buffer fit in
+//   the 227 KB a block may opt into: that sets kMaxBatch. The host side
+//   checks occupancy before the launch and fails rather than deadlocks
+//   when the grid cannot be co-resident. The body is a copy of the merged
+//   step, not shared with it: sharing it would change bilstm_infer_kernel's
+//   machine code.
+//
+// Built with -DLSTM_FWD_PROBE (chip_smoke.py's probe build), each lstm_fwd
+// plan also adds up clock64() laps of the phases of a step per warp, which
+// lstm_fwd_probe_read returns: 0 the barrier wait (wide plan only), 1 the
+// wait for h_{t-1} and the gate inputs, 2 the product, 3 the cell and the
+// stores, 4 the prefetch of the next step's gate inputs and the arrival.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-namespace cg = cooperative_groups;
+#ifdef LSTM_FWD_PROBE
+#define LANE_FWD_PROBE
+#endif
+#include "lane_fwd.cuh"
+#include "merged_step.cuh"
 
 namespace {
 
-constexpr int kMaxUnits = 4;    // hidden units (= warps) per block, at most
-constexpr int kBC = 4;          // batch rows per register tile
 constexpr int kMaxH = 512;
-constexpr int kPlanSms = 128;   // the plan spreads H over this many blocks
-constexpr size_t kSmemBudget = 220 * 1024;
-
-// lstm_fwd's plan: units a block, ceil(H / kPlanSms), 1 .. kMaxUnits.
-constexpr int plan_units(int H) { return (H + kPlanSms - 1) / kPlanSms; }
-
-// Shared memory of a block: the cell state [units][B], then per batch row
-// of a tile h_{t-1} [H] and the units' gate inputs [units][4].
-constexpr size_t cell_bytes(int units, int B) {
-  return static_cast<size_t>(units) * B * sizeof(float);
-}
-constexpr size_t row_bytes(int units, int H) {
-  return static_cast<size_t>(H + 4 * units) * sizeof(float);
-}
-
-// The largest batch lstm_fwd takes, at every H <= kMaxH: the cell state
-// of plan_units(kMaxH) units and one batch row in kSmemBudget (a narrower
-// layer has fewer units a block and shorter rows). ops/lstm.py reads the
-// value from this line, so the kernel is the one owner of the limit.
-// lstm_infer has no batch limit.
-constexpr int kMaxBatch = 13948;
-static_assert(plan_units(kMaxH) == kMaxUnits, "the plan's widest block");
-static_assert(cell_bytes(kMaxUnits, kMaxBatch) +
-                      row_bytes(kMaxUnits, kMaxH) <= kSmemBudget &&
-                  cell_bytes(kMaxUnits, kMaxBatch + 1) +
-                          row_bytes(kMaxUnits, kMaxH) > kSmemBudget,
-              "kMaxBatch must be the largest batch the plan holds");
 
 // lstm_infer's plans. ops/lstm.py reads kNarrowMaxH from this line.
 constexpr int kNarrowMaxH = 32;    // H <= this runs the narrow plan
@@ -114,222 +121,69 @@ constexpr int kWideUnits = 32;     // hidden units a wide block (128 columns)
 constexpr int kWideRows = 64;      // batch rows a wide block
 constexpr int kWideK = 16;         // depth of a staged K tile
 constexpr int kWideThreads = 256;  // 16 x 16 threads, each 4 rows x 8 cols
+static_assert(kNarrowMaxH == lane_fwd::kLaneMaxH,
+              "lstm_infer's and lstm_fwd's plans split at one width");
+
+// lstm_fwd's wide plan
+constexpr int kRound = 8;      // batch rows a warp sums at once (x 4 gates)
+constexpr int kKSpan = 128;    // k of h_{t-1} one pass covers, 4 a lane
+// warps a unit, dealing out the rounds (one warp a unit was slower at
+// H = 128, 256 and 512 in a sweep at B = 16, PERF.md)
+constexpr int kSplits = 2;
+// the most a block may opt into on an H100
+constexpr size_t kSmemBudget = 227 * 1024;
+static_assert(kRound * 4 == 32, "a round reduces 32 sums a warp");
+
+// The wide plan's units a block at width H: 128 blocks at H = 128, 256
+// and 512.
+constexpr int plan_units(int H) { return H <= 128 ? 1 : H <= 256 ? 2 : 4; }
+
+// Shared-memory floats of a wide block: the cell state [units][B], then
+// per batch row of a tile two buffers of h_{t-1} [Hp] (H padded to 4) and
+// of the gate inputs [4][units], and the row's h and c [2][units].
+constexpr size_t cell_floats(int units, int B) {
+  return static_cast<size_t>(units) * B;
+}
+constexpr size_t row_floats(int units, int H) {
+  return 2 * (static_cast<size_t>((H + 3) & ~3) + 4 * units) + 2 * units;
+}
+
+// The largest batch lstm_fwd takes, at every H <= kMaxH: the cell state of
+// plan_units(kMaxH) units and one batch row in kSmemBudget (a narrower
+// layer has fewer units a block and shorter rows; the narrow plan has no
+// limit of its own). ops/lstm.py reads the value from this line, so the
+// kernel is the one owner of the limit. lstm_infer has no batch limit.
+constexpr int kMaxBatch = 14262;
+static_assert((cell_floats(plan_units(kMaxH), kMaxBatch) +
+               row_floats(plan_units(kMaxH), kMaxH)) * sizeof(float) <=
+                      kSmemBudget &&
+                  (cell_floats(plan_units(kMaxH), kMaxBatch + 1) +
+                   row_floats(plan_units(kMaxH), kMaxH)) * sizeof(float) >
+                      kSmemBudget,
+              "kMaxBatch must be the largest batch the plan holds at kMaxH");
+
+#ifdef LSTM_FWD_PROBE
+constexpr int kPhases = 5;
+__device__ unsigned long long g_probe_cycles[kPhases];
+__device__ unsigned long long g_probe_laps[kPhases];
+__device__ float g_probe_sink;
+static_assert(lane_fwd::kPhases == kPhases - 1,
+              "the lane step's phases are slots 1 .. 4");
+#define PROBE_LAP(phase)                 \
+  do {                                   \
+    const long long now_ = clock64();    \
+    probe_cycles[phase] += now_ - lap_;  \
+    ++probe_laps[phase];                 \
+    lap_ = now_;                         \
+  } while (0)
+#else
+#define PROBE_LAP(phase) \
+  do {                   \
+  } while (0)
+#endif
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
-}
-
-// lstm_fwd's kernel (lstm_infer's before the wide and narrow plans, whose
-// name it keeps so that its machine code compares with earlier builds);
-// compiled with kResid only.
-template <int KPL, bool kResid>  // KPL = ceil(H / 32): W_hh entries a lane
-__global__ void __launch_bounds__(kMaxUnits * 32)
-lstm_infer_kernel(const float* __restrict__ xp, const float* __restrict__ w,
-                  float* h, float* __restrict__ g, float* __restrict__ c,
-                  int T, int B, int H, int reverse, int units, int bt) {
-  extern __shared__ float smem[];
-  float* h_s = smem;               // [bt][H], the tile of h_{t-1}
-  float* c_s = h_s + bt * H;       // [units][B], the cell state
-  float* x_s = c_s + units * B;    // [units][bt][4], the tile's gate inputs
-  cg::grid_group grid = cg::this_grid();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int u = blockIdx.x * units + warp;
-  const bool active = warp < units && u < H;
-
-  // this warp's four gate rows of W_hh, k = lane + 32 j
-  float wr[4][KPL];
-#pragma unroll
-  for (int gi = 0; gi < 4; ++gi) {
-#pragma unroll
-    for (int j = 0; j < KPL; ++j) {
-      const int k = lane + 32 * j;
-      wr[gi][j] = (active && k < H)
-                      ? w[static_cast<size_t>(gi * H + u) * H + k]
-                      : 0.0f;
-    }
-  }
-  for (int i = threadIdx.x; i < units * B; i += blockDim.x) c_s[i] = 0.0f;
-
-  for (int s = 0; s < T; ++s) {
-    const int t = reverse ? T - 1 - s : s;
-    const int tp = reverse ? t + 1 : t - 1;  // previous step's time index
-    for (int b0 = 0; b0 < B; b0 += bt) {
-      const int nb = min(bt, B - b0);
-      __syncthreads();  // the previous tile's readers are done with smem
-      // this tile's gate inputs of the block's units, gathered once per
-      // step so the cell updates below do not each wait on global memory
-      for (int i = threadIdx.x; i < units * nb * 4; i += blockDim.x) {
-        const int w_i = i / (nb * 4);
-        const int bb = (i / 4) % nb;
-        const int gi = i % 4;
-        const int u_i = blockIdx.x * units + w_i;
-        x_s[(w_i * bt + bb) * 4 + gi] =
-            u_i < H ? xp[(static_cast<size_t>(t) * B + b0 + bb) * 4 * H +
-                         gi * H + u_i]
-                    : 0.0f;
-      }
-      if (s > 0) {
-        // written by other blocks during the kernel: read through L2
-        const float* src = h + (static_cast<size_t>(tp) * B + b0) * H;
-        if ((H & 3) == 0) {
-          const float4* src4 = reinterpret_cast<const float4*>(src);
-          float4* dst4 = reinterpret_cast<float4*>(h_s);
-          for (int i = threadIdx.x; i < nb * H / 4; i += blockDim.x) {
-            dst4[i] = __ldcg(src4 + i);
-          }
-        } else {
-          for (int i = threadIdx.x; i < nb * H; i += blockDim.x) {
-            h_s[i] = __ldcg(src + i);
-          }
-        }
-      } else {
-        for (int i = threadIdx.x; i < nb * H; i += blockDim.x) h_s[i] = 0.0f;
-      }
-      __syncthreads();
-      if (!active) continue;  // warp-uniform
-      for (int bc = 0; bc < nb; bc += kBC) {
-        float acc[kBC][4];
-#pragma unroll
-        for (int r = 0; r < kBC; ++r) {
-#pragma unroll
-          for (int gi = 0; gi < 4; ++gi) acc[r][gi] = 0.0f;
-        }
-#pragma unroll
-        for (int j = 0; j < KPL; ++j) {
-          const int k = lane + 32 * j;
-          if (k < H) {
-#pragma unroll
-            for (int r = 0; r < kBC; ++r) {
-              const float hv = (bc + r < nb) ? h_s[(bc + r) * H + k] : 0.0f;
-#pragma unroll
-              for (int gi = 0; gi < 4; ++gi) {
-                acc[r][gi] = fmaf(hv, wr[gi][j], acc[r][gi]);
-              }
-            }
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kBC; ++r) {
-#pragma unroll
-          for (int gi = 0; gi < 4; ++gi) {
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-              acc[r][gi] += __shfl_xor_sync(0xffffffffu, acc[r][gi], off);
-            }
-          }
-        }
-        // lane r < kBC finishes batch row b0 + bc + r of unit u
-        float a_i = acc[0][0], a_f = acc[0][1], a_g = acc[0][2],
-              a_o = acc[0][3];
-#pragma unroll
-        for (int r = 1; r < kBC; ++r) {
-          if (lane == r) {
-            a_i = acc[r][0];
-            a_f = acc[r][1];
-            a_g = acc[r][2];
-            a_o = acc[r][3];
-          }
-        }
-        if (lane < kBC && bc + lane < nb) {
-          const int b = b0 + bc + lane;
-          const float* x = x_s + (warp * bt + bc + lane) * 4;
-          const float i_g = sigmoid_f(x[0] + a_i);
-          const float f_g = sigmoid_f(x[1] + a_f);
-          const float g_g = tanhf(x[2] + a_g);
-          const float o_g = sigmoid_f(x[3] + a_o);
-          float* cp = c_s + warp * B + b;
-          // each product and the sum rounded on its own, as the plain
-          // version's separate ops round them (no FMA contraction): given
-          // the same gates, c agrees with it to the last bit
-          const float c_new =
-              __fadd_rn(__fmul_rn(f_g, *cp), __fmul_rn(i_g, g_g));
-          *cp = c_new;
-          const size_t row = static_cast<size_t>(t) * B + b;
-          h[row * H + u] = o_g * tanhf(c_new);
-          if constexpr (kResid) {
-            float* gr = g + row * 4 * H;
-            gr[u] = i_g;
-            gr[H + u] = f_g;
-            gr[2 * H + u] = g_g;
-            gr[3 * H + u] = o_g;
-            c[row * H + u] = c_new;
-          }
-        }
-      }
-    }
-    grid.sync();
-  }
-}
-
-// Sets the kernel's shared memory, checks that its grid can be
-// co-resident, and launches it cooperatively.
-template <typename Kernel>
-cudaError_t launch_cooperative(Kernel kernel, int grid, int threads,
-                               size_t smem, void** args,
-                               cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0, coop = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                    device)) != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, threads, smem)) != cudaSuccess) return err;
-  if (per_sm * sms < grid) return cudaErrorCooperativeLaunchTooLarge;
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                    dim3(grid), dim3(threads), args, smem,
-                                    stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-template <int KPL, bool kResid>
-cudaError_t launch(const float* xp, const float* w, float* h, float* g,
-                   float* c, int T, int B, int H, int reverse,
-                   cudaStream_t stream) {
-  int units = plan_units(H);
-  const int blocks = (H + units - 1) / units;
-  const int threads = units * 32;
-  const size_t c_b = cell_bytes(units, B);
-  const size_t r_b = row_bytes(units, H);
-  if (c_b + r_b > kSmemBudget) {
-    return cudaErrorInvalidValue;  // batch too large for the cell state
-  }
-  int bt = static_cast<int>((kSmemBudget - c_b) / r_b);
-  if (bt > B) bt = B;
-  const size_t smem = c_b + static_cast<size_t>(bt) * r_b;
-  void* args[] = {&xp, &w, &h, &g, &c, &T, &B, &H, &reverse, &units, &bt};
-  return launch_cooperative(lstm_infer_kernel<KPL, kResid>, blocks, threads,
-                            smem, args, stream);
-}
-
-int fwd_dispatch(const void* xp, const void* w, void* h, void* g, void* c,
-                 int T, int B, int H, int reverse, int device, void* stream) {
-  if (T < 1 || B < 1 || B > kMaxBatch || H < 1 || H > kMaxH) {
-    return cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto x = static_cast<const float*>(xp);
-  auto wh = static_cast<const float*>(w);
-  auto ho = static_cast<float*>(h);
-  auto go = static_cast<float*>(g);
-  auto co = static_cast<float*>(c);
-  const int r = reverse ? 1 : 0;
-  const int kpl = (H + 31) / 32;
-  if (kpl <= 1) return launch<1, true>(x, wh, ho, go, co, T, B, H, r, s);
-  if (kpl <= 2) return launch<2, true>(x, wh, ho, go, co, T, B, H, r, s);
-  if (kpl <= 4) return launch<4, true>(x, wh, ho, go, co, T, B, H, r, s);
-  if (kpl <= 8) return launch<8, true>(x, wh, ho, go, co, T, B, H, r, s);
-  return launch<16, true>(x, wh, ho, go, co, T, B, H, r, s);
 }
 
 // ------------------------------------------------- lstm_infer, wide plan
@@ -628,6 +482,336 @@ cudaError_t narrow_plan(const float* xp, const float* w, float* h, int T,
   return narrow_launch<32>(xp, w, h, T, B, H, reverse, s);
 }
 
+
+// ----------------------------------------------- lstm_fwd, narrow plan
+
+template <int L>
+__global__ void __launch_bounds__(lane_fwd::kThreads)
+lstm_fwd_narrow_kernel(lane_fwd::Dir d, int T, int B, int reverse) {
+  extern __shared__ float4 lane_smem[];
+  lane_fwd::Probe probe;
+  // a reverse direction is an odd one
+  lane_fwd::steps<L, true>(d, blockIdx.x, reverse, T, B, lane_smem, probe);
+#ifdef LSTM_FWD_PROBE
+  // the lane step's phases 0 .. 3 are this file's 1 .. 4
+  probe.flush(g_probe_cycles + 1, g_probe_laps + 1, &g_probe_sink);
+#endif
+}
+
+// ------------------------------------------------- lstm_fwd, wide plan
+
+// A launch of the wide plan: its arguments and plan.
+struct FwdArgs {
+  const float* xp;
+  const float* w;
+  float* h;
+  float* g;
+  float* c;
+  unsigned* barrier;  // zeroed before the launch
+  int T, B, H, reverse;
+  int bt;
+};
+
+// Shared memory: hbuf [2][bt][Hp] two buffers of h_{t-1}; xbuf
+// [2][bt][4][UN] two buffers of the units' gate inputs; hc_s [bt][2][UN]
+// the tile's h and c; c_s [UN][B] the cell state.
+template <int KQ, int UN>  // passes of kKSpan: ceil(H / kKSpan); units a block
+__global__ void __launch_bounds__(UN * kSplits * 32, 1)
+lstm_fwd_wide_kernel(const FwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int T = a.T, B = a.B, H = a.H, bt = a.bt;
+  const int Hp = (H + 3) & ~3;
+  constexpr int xrow = 4 * UN;  // a tile row of gate inputs: [4][UN]
+  float* hbuf = smem;                  // [2][bt][Hp]
+  float* xbuf = hbuf + 2 * bt * Hp;    // [2][bt][4][UN]
+  float* hc_s = xbuf + 2 * bt * xrow;  // [bt][2][UN]
+  float* c_s = hc_s + 2 * bt * UN;     // [UN][B]
+
+  const bool reverse = a.reverse != 0;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int uw = warp % UN;     // this warp's unit in the block
+  const int split = warp / UN;  // its share of the rounds
+  const int u0 = blockIdx.x * UN;
+  const int nu = min(UN, H - u0);  // this block's units
+  const int u = u0 + uw;
+  const bool active = uw < nu;
+  // gate-input and output rows in 16-byte copies where every run of the
+  // block's units is whole quads
+  const bool quads = (H & 3) == 0 && (UN & 3) == 0;
+  step::Barrier bar(a.barrier);
+
+  // this warp's four gate rows of W_hh at k = kKSpan q + 4 lane + kk
+  float wr[KQ][4][4];
+#pragma unroll
+  for (int q = 0; q < KQ; ++q) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = kKSpan * q + 4 * lane + kk;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        wr[q][kk][g] = (active && k < H)
+                           ? a.w[static_cast<size_t>(g * H + u) * H + k]
+                           : 0.0f;
+      }
+    }
+  }
+  for (int i = tid; i < UN * B; i += nthreads) c_s[i] = 0.0f;
+
+  // issue the copies of step s's gate inputs of tile rows b0 .. into
+  // buffer buf: gate g of the block's units is one run of 4 UN bytes
+  auto stage_x = [&](int s, int b0, int buf) {
+    const int t = reverse ? T - 1 - s : s;
+    const int nb = min(bt, B - b0);
+    float* dst = xbuf + buf * bt * xrow;
+    const float* src = a.xp + (static_cast<size_t>(t) * B + b0) * 4 * H + u0;
+    if (quads) {
+      constexpr int nq = UN >= 4 ? UN / 4 : 1;  // quads only at UN = 4
+      for (int i = tid; i < nb * 4 * nq; i += nthreads) {
+        const int r = i / (4 * nq);
+        const int g = (i / nq) & 3;
+        const int q4 = 4 * (i % nq);
+        if (q4 < nu) {
+          step::copy16(dst + r * xrow + g * UN + q4,
+                       src + static_cast<size_t>(r) * 4 * H + g * H + q4);
+        }
+      }
+    } else {
+      for (int i = tid; i < nb * xrow; i += nthreads) {
+        const int r = i / xrow;
+        const int g = (i / UN) & 3;
+        const int v = i % UN;
+        if (v < nu) {
+          step::copy4(dst + i,
+                      src + static_cast<size_t>(r) * 4 * H + g * H + v);
+        }
+      }
+    }
+  };
+  // issue the copies of h_{t-1} of tile rows b0 .. into buffer buf:
+  // written by every block in the step before, read through L2, all in
+  // flight at once
+  auto stage_h = [&](int s, int b0, int buf) {
+    const int t = reverse ? T - 1 - s : s;
+    const int tp = reverse ? t + 1 : t - 1;
+    const int nb = min(bt, B - b0);
+    float* dst = hbuf + buf * bt * Hp;
+    const float* src = a.h + (static_cast<size_t>(tp) * B + b0) * H;
+    if (Hp == H) {
+      for (int i = tid; i < nb * H / 4; i += nthreads) {
+        step::copy16(dst + 4 * i, src + 4 * i);
+      }
+    } else {
+      for (int i = tid; i < nb * Hp; i += nthreads) {
+        const int r = i / Hp;
+        const int k = i % Hp;
+        step::copy4(dst + i, k < H ? src + r * H + k : src, k < H);
+      }
+    }
+  };
+
+#ifdef LSTM_FWD_PROBE
+  long long probe_cycles[kPhases] = {};
+  long long probe_laps[kPhases] = {};
+  long long lap_ = clock64();
+#endif
+  const int tiles = (B + bt - 1) / bt;
+  int buf = 0;
+  stage_x(0, 0, 0);
+  step::commit();
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? T - 1 - s : s;
+    if (s > 0) bar.wait();  // every block's h of step s - 1 is stored
+    PROBE_LAP(0);
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int b0 = tile * bt;
+      const int nb = min(bt, B - b0);
+      if (tile == 0) {
+        if (s > 0) stage_h(s, 0, buf);
+        step::commit();
+      }
+      if (tile + 1 < tiles) {
+        // the next tile's gate inputs and h in flight while this one runs
+        stage_x(s, b0 + bt, buf ^ 1);
+        if (s > 0) stage_h(s, b0 + bt, buf ^ 1);
+        step::commit();
+        step::wait<1>();
+      } else {
+        step::wait<0>();
+      }
+      __syncthreads();  // this tile's gate inputs and h are in place
+      PROBE_LAP(1);
+      const float* h_s = hbuf + buf * bt * Hp;
+      float* x_s = xbuf + buf * bt * xrow;
+      if (active) {  // warp-uniform
+        for (int r0 = kRound * split; r0 < nb; r0 += kRound * kSplits) {
+          // lane 4 r + g: the product's sum for gate g of round row r
+          // (rows past the tile read its last row, and are not stored)
+          float acc[32];
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+          if (s > 0) {  // h_{-1} is zero
+#pragma unroll
+            for (int q = 0; q < KQ; ++q) {
+              const int k = kKSpan * q + 4 * lane;
+              if (k < Hp) {
+#pragma unroll
+                for (int r = 0; r < kRound; ++r) {
+                  const float4 hv = *reinterpret_cast<const float4*>(
+                      h_s + min(r0 + r, nb - 1) * Hp + k);
+#pragma unroll
+                  for (int g = 0; g < 4; ++g) {
+                    const int x = r * 4 + g;
+                    acc[x] = fmaf(hv.x, wr[q][0][g], acc[x]);
+                    acc[x] = fmaf(hv.y, wr[q][1][g], acc[x]);
+                    acc[x] = fmaf(hv.z, wr[q][2][g], acc[x]);
+                    acc[x] = fmaf(hv.w, wr[q][3][g], acc[x]);
+                  }
+                }
+              }
+            }
+          }
+          const float pre = step::reduce_scatter32(acc, lane);
+          PROBE_LAP(2);
+          // each lane its gate's activation; lane 4 r gathers its row's
+          const int rr = r0 + (lane >> 2);
+          const int g = lane & 3;
+          float* x = x_s + min(rr, nb - 1) * xrow + g * UN + uw;
+          const float v = *x + pre;
+          const float act = g == 2 ? tanhf(v) : sigmoid_f(v);
+          const int base = lane & ~3;
+          const float i_g = __shfl_sync(0xffffffffu, act, base);
+          const float f_g = __shfl_sync(0xffffffffu, act, base + 1);
+          const float g_g = __shfl_sync(0xffffffffu, act, base + 2);
+          const float o_g = __shfl_sync(0xffffffffu, act, base + 3);
+          if (rr < nb) {
+            *x = act;  // the gate takes the slot of its input
+            if (g == 0) {
+              float* c = c_s + uw * B + b0 + rr;
+              // each product and the sum rounded on its own, as the plain
+              // version's separate ops round them (no FMA contraction)
+              const float c_new =
+                  __fadd_rn(__fmul_rn(f_g, *c), __fmul_rn(i_g, g_g));
+              *c = c_new;
+              hc_s[rr * 2 * UN + uw] = o_g * tanhf(c_new);
+              hc_s[(rr * 2 + 1) * UN + uw] = c_new;
+            }
+          }
+          PROBE_LAP(3);
+        }
+      }
+      __syncthreads();  // the tile's outputs are staged
+      // the tile's outputs, a run of the block's units a (row, output):
+      // the gates i, f, g, o, then h and c
+      constexpr int n_out = 6;
+      const size_t row0 = static_cast<size_t>(t) * B + b0;
+      auto out_of = [&](int r, int j, int v, const float** from) {
+        const size_t row = row0 + r;
+        if (j < 4) {
+          *from = x_s + r * xrow + j * UN + v;
+          return a.g + row * 4 * H + j * H + u0 + v;
+        }
+        *from = hc_s + (r * 2 + j - 4) * UN + v;
+        return (j == 4 ? a.h : a.c) + row * H + u0 + v;
+      };
+      if (quads) {
+        constexpr int nq = UN >= 4 ? UN / 4 : 1;
+        for (int i = tid; i < nb * n_out * nq; i += nthreads) {
+          const int r = i / (n_out * nq);
+          const int j = (i / nq) % n_out;
+          const int q4 = 4 * (i % nq);
+          if (q4 < nu) {
+            const float* from;
+            float* to = out_of(r, j, q4, &from);
+            *reinterpret_cast<float4*>(to) =
+                *reinterpret_cast<const float4*>(from);
+          }
+        }
+      } else {
+        for (int i = tid; i < nb * n_out * UN; i += nthreads) {
+          const int r = i / (n_out * UN);
+          const int j = (i / UN) % n_out;
+          const int v = i % UN;
+          if (v < nu) {
+            const float* from;
+            float* to = out_of(r, j, v, &from);
+            *to = *from;
+          }
+        }
+      }
+      PROBE_LAP(3);
+      // the buffer's next copies go in at the next tile's start
+      if (tile + 1 < tiles) __syncthreads();
+      buf ^= 1;
+    }
+    bar.arrive();
+    // the next step's first gate inputs in flight during the wait (the
+    // buffer's readers passed the arrival's __syncthreads)
+    if (s + 1 < T) stage_x(s + 1, 0, buf);
+    step::commit();
+    PROBE_LAP(4);
+  }
+#ifdef LSTM_FWD_PROBE
+  if (lane == 0) {
+    for (int p = 0; p < kPhases; ++p) {
+      atomicAdd(&g_probe_cycles[p],
+                static_cast<unsigned long long>(probe_cycles[p]));
+      atomicAdd(&g_probe_laps[p],
+                static_cast<unsigned long long>(probe_laps[p]));
+    }
+  }
+#endif
+}
+
+template <int L>
+cudaError_t fwd_narrow(const FwdArgs& a, cudaStream_t stream) {
+  const lane_fwd::Dir d{a.xp, a.w, a.h, a.g, a.c, a.H};
+  constexpr int rows = lane_fwd::kThreads / L;  // rows a block
+  constexpr size_t smem = sizeof(float4) * L * L;
+  const unsigned blocks = (static_cast<unsigned>(a.B) + rows - 1) / rows;
+  lstm_fwd_narrow_kernel<L><<<blocks, lane_fwd::kThreads, smem, stream>>>(
+      d, a.T, a.B, a.reverse);
+  return cudaGetLastError();
+}
+
+// The wide plan's batch tile: the largest that fits the budget beside the
+// cell state, then evened out over the tiles it takes. Refuses a batch
+// whose cell state leaves no room for one row.
+template <int KQ, int UN>
+cudaError_t fwd_wide(FwdArgs a, cudaStream_t stream) {
+  const size_t budget = kSmemBudget / sizeof(float);
+  const size_t c_f = cell_floats(UN, a.B);
+  const size_t r_f = row_floats(UN, a.H);
+  if (c_f + r_f > budget) {
+    return cudaErrorInvalidValue;  // batch too large for the cell state
+  }
+  size_t bt = (budget - c_f) / r_f;
+  if (bt > static_cast<size_t>(a.B)) bt = a.B;
+  const size_t tiles = (a.B + bt - 1) / bt;
+  a.bt = static_cast<int>((a.B + tiles - 1) / tiles);
+  const size_t smem = (c_f + a.bt * r_f) * sizeof(float);
+  void* args[] = {&a};
+  return step::launch_cooperative(lstm_fwd_wide_kernel<KQ, UN>,
+                                  (a.H + UN - 1) / UN, UN * kSplits * 32,
+                                  smem, args, stream);
+}
+
+template <int KQ>
+cudaError_t fwd_wide_units(const FwdArgs& a, int units, cudaStream_t s) {
+  switch (units) {
+    case 1: return fwd_wide<KQ, 1>(a, s);
+    case 2: return fwd_wide<KQ, 2>(a, s);
+    default: return fwd_wide<KQ, 4>(a, s);
+  }
+}
+
+static_assert(lane_fwd::kLaneMaxH == 32,
+              "the narrow plan's widest instance is L = 32");
+static_assert(plan_units(kMaxH) == 4 && kMaxH <= 4 * kKSpan,
+              "the wide plan's widest block and passes");
+
 }  // namespace
 
 extern "C" {
@@ -658,16 +842,66 @@ int lstm_infer_launch(const void* xp, const void* w, void* h, void* c, int T,
                     : wide_steps<false>(x, wh, ho, co, T, B, H, r, s);
 }
 
-// Residual-saving forward: also writes g [T, B, 4H] and c [T, B, H].
+// Residual-saving forward: also writes g [T, B, 4H] and c [T, B, H]. The
+// narrow plan where H <= lane_fwd::kLaneMaxH, else the wide one. barrier:
+// one 32-bit word, zero at the launch (the wide plan's grid barrier).
 // Returns a cudaError_t (0 on success). Does not synchronise.
 int lstm_fwd_launch(const void* xp, const void* w, void* h, void* g, void* c,
-                    int T, int B, int H, int reverse, int device,
-                    void* stream) {
-  return fwd_dispatch(xp, w, h, g, c, T, B, H, reverse, device, stream);
+                    void* barrier, int T, int B, int H, int reverse,
+                    int device, void* stream) {
+  if (T < 1 || B < 1 || B > kMaxBatch || H < 1 || H > kMaxH) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  FwdArgs a = {};
+  a.xp = static_cast<const float*>(xp);
+  a.w = static_cast<const float*>(w);
+  a.h = static_cast<float*>(h);
+  a.g = static_cast<float*>(g);
+  a.c = static_cast<float*>(c);
+  a.barrier = static_cast<unsigned*>(barrier);
+  a.T = T;
+  a.B = B;
+  a.H = H;
+  a.reverse = reverse ? 1 : 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (H <= 1) return fwd_narrow<1>(a, s);
+  if (H <= 2) return fwd_narrow<2>(a, s);
+  if (H <= 4) return fwd_narrow<4>(a, s);
+  if (H <= 8) return fwd_narrow<8>(a, s);
+  if (H <= 16) return fwd_narrow<16>(a, s);
+  if (H <= lane_fwd::kLaneMaxH) return fwd_narrow<32>(a, s);
+  const int units = plan_units(H);
+  const int kq = (H + kKSpan - 1) / kKSpan;
+  if (kq <= 1) return fwd_wide_units<1>(a, units, s);
+  if (kq <= 2) return fwd_wide_units<2>(a, units, s);
+  return fwd_wide_units<4>(a, units, s);
 }
 
 const char* lstm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef LSTM_FWD_PROBE
+// Cycles and laps of each phase of lstm_fwd since the last reset, summed
+// over warps.
+int lstm_fwd_probe_read(unsigned long long* cycles, unsigned long long* laps,
+                        int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(cycles, g_probe_cycles,
+                                         sizeof(g_probe_cycles));
+  if (err == cudaSuccess) {
+    err = cudaMemcpyFromSymbol(laps, g_probe_laps, sizeof(g_probe_laps));
+  }
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[kPhases] = {};
+    err = cudaMemcpyToSymbol(g_probe_cycles, zero, sizeof(zero));
+    if (err == cudaSuccess) {
+      err = cudaMemcpyToSymbol(g_probe_laps, zero, sizeof(zero));
+    }
+  }
+  return err;
+}
+#endif
 
 }  // extern "C"

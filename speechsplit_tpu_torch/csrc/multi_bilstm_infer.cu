@@ -31,7 +31,8 @@
 // rows) the SMs' issue rate and the registers take over: 168 a thread in
 // the lane plan, so three blocks of 128 threads an SM.
 //
-// What the design does about it (the lane plan, widths up to kLaneMaxH):
+// What the design does about it (the lane plan, widths up to kLaneMaxH;
+// its step is csrc/lane_fwd.cuh, which lstm_fwd's narrow plan shares):
 // - A block serves one direction; a descriptor gives each direction its
 //   own range of blocks, and all 2N directions run in one launch.
 // - A batch row takes L lanes of a warp, L the least power of two >= H
@@ -62,6 +63,11 @@
 
 #include <cuda_runtime.h>
 
+#ifdef MULTI_BILSTM_PROBE
+#define LANE_FWD_PROBE
+#endif
+#include "lane_fwd.cuh"
+
 namespace {
 
 constexpr int kMaxDirs = 8;
@@ -73,14 +79,7 @@ constexpr int kLaneThreads = 128;
 constexpr int kBatchTile = 8;
 constexpr int kThreads = 256;
 
-struct Dir {
-  const float* xp;
-  const float* w;
-  float* h;
-  float* g;  // residual-saving forward only
-  float* c;
-  int H;
-};
+using Dir = lane_fwd::Dir;
 
 // the block plan's descriptor
 struct Params {
@@ -102,155 +101,15 @@ struct LaneParams {
 };
 
 #ifdef MULTI_BILSTM_PROBE
-// phases: 0 gate-input wait, 1 product, 2 cell and stores, 3 prefetch
-// issue; per direction
-constexpr int kPhases = 4;
+// the lane step's phases (lane_fwd::kPhases), per direction
+constexpr int kPhases = lane_fwd::kPhases;
 __device__ unsigned long long g_probe_cycles[kMaxDirs * kPhases];
 __device__ unsigned long long g_probe_laps[kMaxDirs * kPhases];
 __device__ float g_probe_sink;
-#define PROBE_LAP(phase)                 \
-  do {                                   \
-    const long long now_ = clock64();    \
-    probe_cycles[phase] += now_ - lap_;  \
-    ++probe_laps[phase];                 \
-    lap_ = now_;                         \
-  } while (0)
-// an instruction that reads v, so that the next lap starts after v is
-// ready
-#define PROBE_READY(v) \
-  asm volatile("add.f32 %0, %0, %1;" : "+f"(probe_sink_) : "f"(v))
-#define PROBE_BEGIN                      \
-  long long probe_cycles[kPhases] = {};  \
-  long long probe_laps[kPhases] = {};    \
-  float probe_sink_ = 0.0f;              \
-  long long lap_ = clock64()
-#define PROBE_END(dir)                                              \
-  do {                                                              \
-    if ((threadIdx.x & 31) == 0) {                                  \
-      for (int p_ = 0; p_ < kPhases; ++p_) {                        \
-        atomicAdd(&g_probe_cycles[(dir) * kPhases + p_],            \
-                  static_cast<unsigned long long>(probe_cycles[p_])); \
-        atomicAdd(&g_probe_laps[(dir) * kPhases + p_],              \
-                  static_cast<unsigned long long>(probe_laps[p_]));   \
-      }                                                             \
-    }                                                               \
-    if (probe_sink_ == 1234.5f) g_probe_sink = probe_sink_;         \
-  } while (0)
-#else
-#define PROBE_LAP(phase) \
-  do {                   \
-  } while (0)
-#define PROBE_READY(v) \
-  do {                 \
-  } while (0)
-#define PROBE_BEGIN \
-  do {              \
-  } while (0)
-#define PROBE_END(dir) \
-  do {                 \
-  } while (0)
 #endif
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
-}
-
-// The lane plan: blockDim.x / L rows of one direction, L lanes a row.
-template <int L, bool kResid>
-__device__ __forceinline__ void lane_steps(const Dir& d, int blk, int dir,
-                                           int T, int B, float4* wt) {
-  constexpr int kRows = 32 / L;  // batch rows a warp
-  const int H = d.H;
-  const bool reverse = dir & 1;
-  // wt[k * L + u]: (i, f, g, o) of unit u at column k, zeros past H
-  for (int i = threadIdx.x; i < L * L; i += blockDim.x) {
-    const int k = i / L;
-    const int u = i % L;
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (k < H && u < H) {
-      v.x = d.w[static_cast<size_t>(u) * H + k];
-      v.y = d.w[static_cast<size_t>(H + u) * H + k];
-      v.z = d.w[static_cast<size_t>(2 * H + u) * H + k];
-      v.w = d.w[static_cast<size_t>(3 * H + u) * H + k];
-    }
-    wt[i] = v;
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int row0 = (blk * (blockDim.x >> 5) + (threadIdx.x >> 5)) * kRows;
-  if (row0 >= B) return;  // a warp without a live row (warp-uniform)
-  const int u = lane & (L - 1);
-  const int row = row0 + lane / L;
-  // rows past B and units past H run on zero inputs (their h stays 0)
-  // and store nothing; every lane of the warp takes part in the shuffles
-  const bool ok = row < B && u < H;
-  // this lane's unit's W_hh, L float4s in registers (indices known at
-  // compile time): shared memory only stages it
-  float4 wr[L];
-#pragma unroll
-  for (int k = 0; k < L; ++k) wr[k] = wt[k * L + u];
-  const size_t xstep = static_cast<size_t>(B) * 4 * H;  // a step of xp
-  const float* xrow =
-      d.xp + (ok ? static_cast<size_t>(row) * 4 * H + u : 0);
-  auto fetch = [&](float(&r)[4], int s) {
-    const float* x = xrow + static_cast<size_t>(reverse ? T - 1 - s : s) *
-                                xstep;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) r[g] = ok ? __ldg(x + g * H) : 0.0f;
-  };
-  float next[4];  // the next step's gate inputs, in flight during a step
-  fetch(next, 0);
-  PROBE_BEGIN;
-  float c_st = 0.0f, h_st = 0.0f;
-  for (int s = 0; s < T; ++s) {
-    const int t = reverse ? T - 1 - s : s;
-    float x[4];
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      x[g] = next[g];
-      PROBE_READY(x[g]);
-    }
-    PROBE_LAP(0);
-    if (s + 1 < T) fetch(next, s + 1);
-    PROBE_LAP(3);
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int k = 0; k < L; ++k) {
-      // h_{t-1}[k], from the lane that owns it
-      const float hk = L == 1 ? h_st : __shfl_sync(0xffffffffu, h_st, k, L);
-      acc[0] = fmaf(hk, wr[k].x, acc[0]);
-      acc[1] = fmaf(hk, wr[k].y, acc[1]);
-      acc[2] = fmaf(hk, wr[k].z, acc[2]);
-      acc[3] = fmaf(hk, wr[k].w, acc[3]);
-    }
-#pragma unroll
-    for (int g = 0; g < 4; ++g) PROBE_READY(acc[g]);
-    PROBE_LAP(1);
-    const float i_g = sigmoid_f(x[0] + acc[0]);
-    const float f_g = sigmoid_f(x[1] + acc[1]);
-    const float g_g = tanhf(x[2] + acc[2]);
-    const float o_g = sigmoid_f(x[3] + acc[3]);
-    // each product and the sum rounded on its own, as the plain version's
-    // separate ops round them
-    c_st = __fadd_rn(__fmul_rn(f_g, c_st), __fmul_rn(i_g, g_g));
-    h_st = o_g * tanhf(c_st);
-    if (ok) {
-      const size_t at = (static_cast<size_t>(t) * B + row) * H + u;
-      d.h[at] = h_st;
-      if constexpr (kResid) {
-        float* gr = d.g + (static_cast<size_t>(t) * B + row) * 4 * H + u;
-        gr[0] = i_g;
-        gr[H] = f_g;
-        gr[2 * H] = g_g;
-        gr[3 * H] = o_g;
-        d.c[at] = c_st;
-      }
-    }
-    PROBE_READY(h_st);
-    PROBE_LAP(2);
-  }
-  PROBE_END(dir);
 }
 
 template <bool kResid>
@@ -274,17 +133,37 @@ multi_bilstm_lane_kernel(LaneParams p) {
     }
   }
   const int blk = static_cast<int>(blockIdx.x) - first;
+  lane_fwd::Probe probe;
   switch (L) {
-    case 1: lane_steps<1, kResid>(d, blk, dir, p.T, p.B, lane_smem); break;
-    case 2: lane_steps<2, kResid>(d, blk, dir, p.T, p.B, lane_smem); break;
-    case 4: lane_steps<4, kResid>(d, blk, dir, p.T, p.B, lane_smem); break;
-    case 8: lane_steps<8, kResid>(d, blk, dir, p.T, p.B, lane_smem); break;
-    case 16: lane_steps<16, kResid>(d, blk, dir, p.T, p.B, lane_smem); break;
-    default: lane_steps<32, kResid>(d, blk, dir, p.T, p.B, lane_smem);
+    case 1:
+      lane_fwd::steps<1, kResid>(d, blk, dir, p.T, p.B, lane_smem, probe);
+      break;
+    case 2:
+      lane_fwd::steps<2, kResid>(d, blk, dir, p.T, p.B, lane_smem, probe);
+      break;
+    case 4:
+      lane_fwd::steps<4, kResid>(d, blk, dir, p.T, p.B, lane_smem, probe);
+      break;
+    case 8:
+      lane_fwd::steps<8, kResid>(d, blk, dir, p.T, p.B, lane_smem, probe);
+      break;
+    case 16:
+      lane_fwd::steps<16, kResid>(d, blk, dir, p.T, p.B, lane_smem,
+                                  probe);
+      break;
+    default:
+      lane_fwd::steps<32, kResid>(d, blk, dir, p.T, p.B, lane_smem,
+                                  probe);
   }
+#ifdef MULTI_BILSTM_PROBE
+  probe.flush(g_probe_cycles + dir * kPhases, g_probe_laps + dir * kPhases,
+              &g_probe_sink);
+#endif
 }
 
-static_assert(kLaneMaxH == 32, "the lane plan's widest instance is L = 32");
+static_assert(kLaneMaxH == 32 && kLaneMaxH == lane_fwd::kLaneMaxH &&
+                  kLaneThreads == lane_fwd::kThreads,
+              "the lane plan's widest instance is L = 32");
 
 // The block plan: kBatchTile rows of one direction a block, a thread per
 // (row, gate row) in the product and per (row, unit) in the cell.

@@ -8,8 +8,10 @@ direction of a bidirectional layer whose batch the merged kernels of
 ``ops.bilstm`` cannot hold (``bilstm.merged_bidir_fits``). The lean
 forward takes any batch: its wide plan (H above ``NARROW_MAX_H``) tiles
 the batch over the grid, its narrow plan gives each row a few lanes. The
-residual-saving forward and the gradient take ``MAX_FWD_BATCH`` and
-``MAX_BWD_BATCH`` rows; the kernel sources state all three constants.
+residual-saving forward and the gradient split at the same width: a
+narrow plan on a row's lanes (no batch limit) and a wide plan of one
+persistent launch, which takes ``MAX_FWD_BATCH`` and ``MAX_BWD_BATCH``
+rows; the kernel sources state all three constants.
 
 Layout contract: ``xp`` [T, B, 4H] is the projected input
 ``x W_ih^T + b_ih + b_hh`` in real time order; ``w`` [4H, H] is torch's
@@ -113,7 +115,7 @@ def _library():
     lib.lstm_infer_launch.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.lstm_infer_launch.restype = ctypes.c_int
-    lib.lstm_fwd_launch.argtypes = [ctypes.c_void_p] * 5 + [
+    lib.lstm_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.lstm_fwd_launch.restype = ctypes.c_int
     lib.lstm_error_string.argtypes = [ctypes.c_int]
@@ -158,7 +160,8 @@ def _lstm_infer_plan(xp, w, reverse: bool, plan: str):
 
 def lstm_forward_cuda(xp, w, reverse: bool):
     """Launch the residual-saving forward of ``csrc/lstm_infer.cu``:
-    ``(h, g, c)``."""
+    ``(h, g, c)``, by the narrow plan up to ``NARROW_MAX_H`` and the wide
+    one above."""
     _check(xp, w, "lstm_fwd", MAX_FWD_BATCH)
     t_len, batch, four_h = xp.shape
     h = xp.new_empty(t_len, batch, four_h // 4)
@@ -167,8 +170,8 @@ def lstm_forward_cuda(xp, w, reverse: bool):
     lib = _library()
     err = lib.lstm_fwd_launch(
         xp.data_ptr(), w.data_ptr(), h.data_ptr(), g.data_ptr(), c.data_ptr(),
-        t_len, batch, four_h // 4, int(reverse), xp.device.index or 0,
-        _stream(xp),
+        _barrier_word(xp).data_ptr(), t_len, batch, four_h // 4,
+        int(reverse), xp.device.index or 0, _stream(xp),
     )
     _build.check(err, "lstm_fwd", lib.lstm_error_string)
     LAUNCHES["lstm_fwd"] += 1

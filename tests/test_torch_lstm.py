@@ -243,22 +243,26 @@ def test_merged_bidir_fits_at_the_kernel_limits(h, infer, grad):
 
 
 @pytest.mark.parametrize("stem,row_floats,limit", [
-    ("lstm_infer", 512 + 4 * 4, lstm.MAX_FWD_BATCH),
+    # two buffers of h_{t-1} [H] and of the units' gate inputs [4][4],
+    # and the row's h and c [2][4]
+    ("lstm_infer", 2 * (512 + 4 * 4) + 2 * 4, lstm.MAX_FWD_BATCH),
     # d_pre [4H] and, per unit, the 8 warps' partial sums and two
     # buffers of the 7 residuals
     ("lstm_bwd", 4 * 512 + (8 + 2 * 7) * 4, lstm.MAX_BWD_BATCH)])
 def test_single_direction_limits_hold_twice_the_merged(stem, row_floats,
                                                        limit):
     """The training kernels' limits: ``lstm_fwd`` (in
-    ``csrc/lstm_infer.cu``) and ``lstm_bwd`` (its wide plan; the narrow
-    one keeps no carry in shared memory). At H=512 their plan gives 4
-    units a block; the limit is the largest batch whose cell state (dc
-    carry) [4][B] fits beside one row of the staged values in the
-    source's budget, and at least twice the merged lean kernel's."""
+    ``csrc/lstm_infer.cu``) and ``lstm_bwd``, their wide plans (the
+    narrow ones keep no state in shared memory). At H=512 their plan
+    gives 4 units a block; the limit is the largest batch whose cell
+    state (dc carry) [4][B] fits beside one row of the staged values in
+    the source's budget, at least twice the merged lean kernel's, and no
+    lower than the 13,948 rows ``lstm_fwd`` took before its wide plan."""
     what = {"lstm_infer": "lstm_fwd", "lstm_bwd": "lstm_bwd"}[stem]
     budget = _budget_floats(stem)
     assert 4 * limit + row_floats <= budget < 4 * (limit + 1) + row_floats
     assert limit >= 2 * bilstm.merged_max_batch(512)
+    assert limit >= 13_948
     xp = torch.zeros(1, limit + 1, 4)
     with pytest.raises(ValueError, match=f"B <= {limit}"):
         lstm._check(xp, torch.zeros(4, 1), what, limit)
@@ -268,7 +272,7 @@ def test_single_direction_limits_hold_twice_the_merged(stem, row_floats,
 def test_lean_wrapper_takes_batches_past_the_training_limit(monkeypatch):
     """``lstm_infer`` has no batch limit (its wide plan tiles the batch
     over the grid, its narrow plan gives each row its own lanes): the
-    wrapper passes 14,000 rows to the launch, the plan left to the source
+    wrapper passes 15,000 rows to the launch, the plan left to the source
     (0), with a [B, H] cell-state scratch; ``lstm_fwd`` refuses them."""
     calls = []
 
@@ -282,7 +286,7 @@ def test_lean_wrapper_takes_batches_past_the_training_limit(monkeypatch):
     monkeypatch.setattr(lstm, "_library", Library)
     monkeypatch.setattr(lstm, "_stream", lambda x: 0)
     monkeypatch.setitem(lstm.LAUNCHES, "lstm_infer", 0)
-    batch = 14_000
+    batch = 15_000
     assert batch > lstm.MAX_FWD_BATCH
     xp, w = torch.zeros(2, batch, 32), torch.zeros(32, 8)
     h = lstm.lstm_infer_cuda(xp, w, True)
@@ -326,6 +330,39 @@ def test_gradient_wrapper_passes_a_zeroed_barrier_word(monkeypatch):
     assert args[6:] == (3, 5, 40, 1, 0, 0)
     assert int(words[0]) == 0
     assert lstm.LAUNCHES["lstm_bwd"] == 1
+
+
+def test_forward_wrapper_passes_a_zeroed_barrier_word(monkeypatch):
+    """``lstm_fwd``'s wide plan meets at a split grid barrier on a word
+    the wrapper zeroes for each launch: the launch gets xp, w, h, g, c and
+    that word, then T, B, H, reverse, the device and the stream."""
+    calls, words = [], []
+
+    class Library:
+        lstm_error_string = None
+
+        def lstm_fwd_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    def barrier_word(x):
+        words.append(torch.zeros(1, dtype=torch.int32))
+        return words[-1]
+
+    monkeypatch.setattr(lstm, "_library", Library)
+    monkeypatch.setattr(lstm, "_barrier_word", barrier_word)
+    monkeypatch.setattr(lstm, "_stream", lambda x: 0)
+    monkeypatch.setitem(lstm.LAUNCHES, "lstm_fwd", 0)
+    xp, w = torch.zeros(3, 5, 160), torch.zeros(160, 40)
+    h, g, c = lstm.lstm_forward_cuda(xp, w, True)
+    assert (h.shape, g.shape, c.shape) == ((3, 5, 40), (3, 5, 160),
+                                           (3, 5, 40))
+    (args,) = calls
+    assert args[:6] == (xp.data_ptr(), w.data_ptr(), h.data_ptr(),
+                        g.data_ptr(), c.data_ptr(), words[0].data_ptr())
+    assert args[6:] == (3, 5, 40, 1, 0, 0)
+    assert int(words[0]) == 0
+    assert lstm.LAUNCHES["lstm_fwd"] == 1
 
 
 @pytest.mark.parametrize("plan,code", [("auto", 0), ("narrow", 1),
