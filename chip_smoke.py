@@ -70,6 +70,24 @@ Phases, one line each; any failure exits non-zero:
    the median time per step over 12 timed steps (float32 with TF32 off,
    as compared);
 8. one generator train step under ``torch.profiler``;
+   then ``train.cli``, the trainer through its entry point at full
+   width: ``cli.train`` on a seeded feature tree (8 speakers, 1-3
+   utterances of 150-400 frames) for the generator and the F0
+   converter, 6 iterations with a checkpoint every 3, a resume from
+   step 3 into a copy of the checkpoints (lazy reads, bfloat16 feed,
+   the newest checkpoint kept), three runs of 30 iterations timed (wall
+   time, one synchronize at the end), each followed by 30 bare steps on
+   its state, and 15 iterations under ``--profile_dir`` (the card's busy
+   share of the traced steps): every checkpoint loads strictly, the
+   resumed state before its first step equals the checkpoint's (params,
+   Adam moments, step, generator state), every logged loss is finite,
+   each run launches its steps times phase 7's count a step; the loop's
+   ms a step beside the bare step's, timed in turns;
+   ``Solver.validate()`` over two utterances against the same call on
+   the plain versions, each utterance's mels and the sum-MSE, with its
+   launches; and the prefetch to the card, plain and compressed: each
+   delivered batch, read after a train step and a spin on the
+   consumer's stream, equals its host batch bit for bit;
 9. with ``ops.bilstm.PROJ_FUSION = "auto"`` (the input projection inside
    the kernel; every phase above runs with "off" and launches no fused
    kernel): each fused kernel against its plain version at every shape
@@ -192,6 +210,26 @@ FUSED_PAIRS = 8
 # a train step against the same step on the plain versions: the loss
 # relative, and each gradient's max abs error over its max abs
 STEP_TOL = 5e-4
+# the train.cli phase: iterations a run, the save and log cadence, and
+# the iterations of the run that times the loop
+CLI_STEPS = 6
+CLI_SAVE = 3
+CLI_TIMED_STEPS = 30
+# timed Solver runs, each followed by as many bare steps on its state
+CLI_ROUNDS = 3
+# a run under --profile_dir traces the Solver's default window, steps
+# 10-14 (profile_start 10, profile_steps 5), and ends after it
+CLI_PROFILED_STEPS = 15
+# the prefetch's check: host batches a pass, and the spin (clock
+# cycles, about 10 ms) that holds the consumer's stream back before it
+# reads each delivered batch, so that the side stream's later copies
+# run while the batch is still to be read
+PREFETCH_BATCHES = 8
+PREFETCH_SPIN_CYCLES = 20_000_000
+# and its large batches (rows of 192 x 80 mels, 126 MB a batch), each
+# copied for some ms, read on the consumer's stream as soon as delivered
+PREFETCH_LARGE_ROWS = 2048
+PREFETCH_LARGE_BATCHES = 3
 
 
 def log(phase: str, **fields) -> None:
@@ -1853,6 +1891,475 @@ def phase_profile_train(state, step, batch, top: int = 14) -> None:
     profile_events("profile train", prof, wall_ms, top)
 
 
+def write_feature_tree(root: str, config, seed: int) -> tuple:
+    """A seeded feature tree as the preprocessing CLIs write one: 8
+    speakers with 1-3 utterances each of 150-400 frames, mel in [0, 1],
+    normalized F0 with unvoiced zeros, one-hot embeddings and
+    ``spmel/train.pkl``. Returns (root_dir, feat_dir)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    root_dir = os.path.join(root, "spmel")
+    feat_dir = os.path.join(root, "raptf0")
+    meta = []
+    for s in range(8):
+        spk = f"p{225 + s}"
+        for d in (root_dir, feat_dir):
+            os.makedirs(os.path.join(d, spk), exist_ok=True)
+        emb = np.zeros(config.dim_spk_emb, np.float32)
+        emb[s] = 1.0
+        entry = [spk, emb]
+        for u in range(int(rng.integers(1, 4))):
+            t = int(rng.integers(150, 401))
+            rel = f"{spk}/{spk}_{u:03d}.npy"
+            np.save(os.path.join(root_dir, rel),
+                    rng.random((t, config.dim_freq), dtype=np.float32))
+            np.save(os.path.join(feat_dir, rel), np.where(
+                rng.random(t) < 0.2, 0.0, rng.random(t)).astype(np.float32))
+            entry.append(rel)
+        meta.append(entry)
+    with open(os.path.join(root_dir, "train.pkl"), "wb") as handle:
+        pickle.dump(meta, handle)
+    return root_dir, feat_dir
+
+
+def train_state_snapshot(state) -> dict:
+    """Params, Adam state, step and generator state, copied to the CPU."""
+    opt = state.optimizer.state_dict()["state"]
+    return dict(
+        model={k: v.detach().cpu().clone()
+               for k, v in state.model.state_dict().items()},
+        optimizer={i: {k: v.detach().cpu().clone() for k, v in s.items()}
+                   for i, s in opt.items()},
+        step=state.step, generator=state.generator.get_state())
+
+
+def same_state(snap: dict, ckpt: dict) -> bool:
+    import torch
+
+    opt = ckpt["optimizer"]["state"]
+    return (snap["step"] == ckpt["step"]
+            and torch.equal(snap["generator"], ckpt["generator"])
+            and snap["model"].keys() == ckpt["model"].keys()
+            and all(torch.equal(v, ckpt["model"][k])
+                    for k, v in snap["model"].items())
+            and snap["optimizer"].keys() == opt.keys()
+            and all(torch.equal(v, opt[i][k])
+                    for i, s in snap["optimizer"].items()
+                    for k, v in s.items()))
+
+
+@contextlib.contextmanager
+def solver_probe(steps: int):
+    """Wrap the train steps a ``Solver`` builds: keep the state before
+    its first step and the host clock at each step's start, fence the
+    first step with ``torch.cuda.synchronize()``, and end the last
+    (step ``steps``) with one, keeping the clock there. So
+    ``(end - starts[1]) / (steps - 1)`` is the loop's wall time a step
+    over all steps but the first, with no synchronization inside that
+    window that the loop does not make itself (it reads the loss at
+    ``log_step``)."""
+    import torch
+
+    from speechsplit_tpu_torch.training import solver as solver_lib
+
+    saved = (solver_lib.make_train_step, solver_lib.make_f0_train_step)
+    record = {"first": None, "starts": [], "end": None}
+
+    def wrap(make):
+        def factory(config):
+            step = make(config)
+
+            def run(state, batch):
+                if record["first"] is None:
+                    record["first"] = train_state_snapshot(state)
+                record["starts"].append(time.perf_counter())
+                out = step(state, batch)
+                if len(record["starts"]) in (1, steps):
+                    torch.cuda.synchronize()
+                    record["end"] = time.perf_counter()
+                return out
+            return run
+        return factory
+
+    solver_lib.make_train_step = wrap(saved[0])
+    solver_lib.make_f0_train_step = wrap(saved[1])
+    try:
+        yield record
+    finally:
+        solver_lib.make_train_step, solver_lib.make_f0_train_step = saved
+
+
+def run_cli_train(args: list, steps: int, per_step: dict, what: str,
+                  log_step: int = CLI_SAVE, probe: bool = True):
+    """``cli.train.main(args)`` with its stdout kept: the launches of the
+    run against ``steps`` x ``per_step``, every logged loss finite.
+    ``probe=False`` runs it without ``solver_probe``. Returns (logged
+    losses, probe record or None, final train state)."""
+    import io
+
+    import numpy as np
+
+    from speechsplit_tpu_torch.cli import train as cli_train
+
+    out = io.StringIO()
+    reset_launches()
+    with (solver_probe(steps) if probe else contextlib.nullcontext()) as \
+            record, contextlib.redirect_stdout(out):
+        state = cli_train.main(args)
+    launches = read_launches()
+    for kernel, count in launches.items():
+        want = steps * per_step.get(kernel, 0)
+        if count != want:
+            fail(f"train.cli {what}: {kernel} launched {count} times in "
+                 f"{steps} steps, expected {want}")
+    losses = [float(v)
+              for v in re.findall(r"loss_id: (\S+),", out.getvalue())]
+    if len(losses) != steps // log_step or not np.isfinite(losses).all():
+        fail(f"train.cli {what}: logged losses {losses}")
+    if record is not None and len(record["starts"]) != steps:
+        fail(f"train.cli {what}: {len(record['starts'])} steps, not {steps}")
+    return losses, record, state
+
+
+def bare_step_ms(state, step, batch, reps: int) -> float:
+    """Wall ms a step of ``reps`` bare steps on a host batch, after one
+    untimed step: a ``torch.cuda.synchronize()`` before the first and
+    one after the last, as ``loop_ms`` times the Solver's loop."""
+    import torch
+
+    step(state, batch)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        step(state, batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3 / reps
+
+
+def val_demo(path: str, config) -> None:
+    """A two-utterance demo pickle (150 and 190 frames) for validate()."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 7)
+    entries = []
+    for i, length in enumerate((150, 190)):
+        emb = np.zeros((1, config.dim_spk_emb), np.float32)
+        emb[0, 2 + i] = 1.0
+        mel = rng.random((length, config.dim_freq), dtype=np.float32)
+        f0 = np.where(rng.random(length) < 0.2, 0.0, rng.random(length))
+        entries.append([f"p{230 + i}", emb, (mel, f0, length, f"{i:03d}")])
+    with open(path, "wb") as handle:
+        pickle.dump(entries, handle)
+
+
+def loop_ms(record: dict) -> float:
+    """The loop's wall ms a step of a probed run, the first step left
+    out: from the second step's start to the synchronized end of the
+    last, over the steps between."""
+    return (record["end"] - record["starts"][1]) * 1e3 / (
+        len(record["starts"]) - 1)
+
+
+def trace_busy(path: str) -> tuple[float, float]:
+    """(span, device busy) in ms of a ``torch.profiler`` chrome trace:
+    the span from its first event's start to its last event's end, and
+    the union of its kernels', copies' and fills' device intervals."""
+    with open(path) as handle:
+        events = [e for e in json.load(handle)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                    for e in events if e.get("cat") in (
+                        "kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for a, b in device:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = (max(float(e["ts"]) + float(e["dur"]) for e in events)
+            - min(float(e["ts"]) for e in events))
+    return span / 1e3, busy / 1e3
+
+
+def check_prefetch(config) -> None:
+    """``prefetch_to_device(device="cuda")``, plain and with
+    ``compress=True``, on ``PREFETCH_BATCHES`` seeded host batches: a
+    generator train step on each delivered batch, then a spin that
+    holds the consumer's stream back while the side stream copies the
+    next batches, then a copy of the batch on the consumer's stream,
+    before the consumer drops it. Then ``PREFETCH_LARGE_BATCHES``
+    batches of ``PREFETCH_LARGE_ROWS`` rows, each copied on the
+    consumer's stream as soon as it is delivered. After one synchronize
+    every copy equals its host batch bit for bit (in bfloat16 where
+    compressed, and ``_upcast_batch`` of it within bfloat16's rounding
+    of the host values), in the source's order, and every loss is
+    finite. Memory handed to a later copy while the consumer's stream
+    still reads it (no ``record_stream``) shows in the first pass, a
+    batch read before its copies end (no wait on the event) in the
+    large one, each as a copy that differs."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.data.collator import Batch
+    from speechsplit_tpu_torch.data.prefetch import prefetch_to_device
+    from speechsplit_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+    )
+    from speechsplit_tpu_torch.training.train_step import _upcast_batch
+
+    def large(seed):
+        rng = np.random.default_rng(seed)
+        rows, t = PREFETCH_LARGE_ROWS, config.max_len_pad
+        return Batch(
+            mel=rng.random((rows, t, config.dim_freq), dtype=np.float32),
+            spk_emb=rng.random((rows, config.dim_spk_emb), dtype=np.float32),
+            f0=rng.random((rows, t, 1), dtype=np.float32),
+            len_org=rng.integers(1, t + 1, rows).astype(np.int32))
+
+    small = [synthetic_batch(config, SEED + 100 + i)
+             for i in range(PREFETCH_BATCHES)]
+    big = [large(SEED + 200 + i) for i in range(PREFETCH_LARGE_BATCHES)]
+    state = create_train_state(config, SEED, "speechsplit")
+    step = make_train_step(config)
+    # (compress, host batches, a step and a spin before the read)
+    for compress, hosts, stepped in ((False, small, True),
+                                     (True, small, True),
+                                     (False, big, False)):
+        kept = []
+        for batch in prefetch_to_device(iter(hosts), device="cuda",
+                                        compress=compress):
+            loss = torch.zeros((), device="cuda")
+            if stepped:
+                state, loss = step(state, batch)
+                torch.cuda._sleep(PREFETCH_SPIN_CYCLES)
+            kept.append((Batch(*(t.clone() for t in batch)), loss))
+            del batch
+        torch.cuda.synchronize()
+        if len(kept) != len(hosts):
+            fail(f"train.cli prefetch (compress={compress}): "
+                 f"{len(kept)} batches of {len(hosts)}")
+        for i, (host, (got, loss)) in enumerate(zip(hosts, kept)):
+            for field, g, x in zip(Batch._fields, got, host):
+                want = torch.as_tensor(np.asarray(x))
+                if compress and want.dtype == torch.float32:
+                    want = want.to(torch.bfloat16)
+                if not (g.device.type == "cuda" and g.dtype == want.dtype
+                        and torch.equal(g.cpu(), want)):
+                    fail(f"train.cli prefetch (compress={compress}): batch "
+                         f"{i} {field} differs from its host batch")
+            if compress:
+                for field, u, x in zip(Batch._fields,
+                                       _upcast_batch(got, "cuda"), host):
+                    x = torch.as_tensor(np.asarray(x)).to(u.dtype)
+                    if not (u.cpu() - x).abs().le(2.0 ** -8 * x.abs()).all():
+                        fail(f"train.cli prefetch: batch {i} {field} upcast "
+                             "is not within bfloat16 rounding of the host")
+            if not torch.isfinite(loss):
+                fail(f"train.cli prefetch (compress={compress}): batch {i} "
+                     f"loss {float(loss)}")
+    log("train.cli prefetch", batches=PREFETCH_BATCHES,
+        shape=f"B{TRAIN_B}xT{config.max_len_pad}", compress="off,on",
+        spin_cycles=PREFETCH_SPIN_CYCLES,
+        large_batches=PREFETCH_LARGE_BATCHES,
+        large_shape=f"B{PREFETCH_LARGE_ROWS}xT{config.max_len_pad}",
+        delivered="equal to the host batches bit for bit, in order")
+
+
+def phase_train_cli(gen_per_step: dict, f0_per_step: dict) -> None:
+    """The trainer through its entry point, at full width: ``cli.train``
+    on a seeded feature tree for each model (6 iterations, a checkpoint
+    and a log line every 3), then a resume from step 3 into a copy of the
+    checkpoints; every checkpoint loads strictly into a fresh model, the
+    resumed state before its first step equals the checkpoint's, every
+    logged loss is finite, and each run launches its steps x
+    ``phase_train``'s count a step of each training kernel. Three runs
+    of 30 iterations (no checkpoint) time the loop: its wall ms a step
+    over the steps after the first, one synchronize at the end
+    (``solver_probe``), each run followed by 30 bare steps on its final
+    state timed the same way (in turns). A fourth, of 15 iterations
+    under ``--profile_dir`` and without the probe, writes the Solver's
+    chrome trace of steps 10-14: the card's busy and idle share of that
+    window. Then ``Solver.validate()`` over a two-utterance demo pickle
+    against the same call on the plain versions: each utterance's mels
+    within ``PATH_TOL`` (max abs error over max abs), the sum-MSE too,
+    with its launches; and ``check_prefetch``. Float32, TF32 off, as
+    ``phase_train`` compares and times."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.interop import load_reference_checkpoint
+    from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+    from speechsplit_tpu_torch.training import (
+        Solver,
+        SolverConfig,
+        make_f0_train_step,
+        make_train_step,
+    )
+    from speechsplit_tpu_torch.training import checkpoint as ckpt_lib
+
+    config = SpeechSplitConfig(residual_dtype="float32",
+                               adam_mu_dtype="float32")
+    hparams = "residual_dtype=float32,adam_mu_dtype=float32"
+    host_batch = synthetic_batch(config, SEED)
+    with tempfile.TemporaryDirectory() as tmp, strict_float32("train.cli"):
+        root_dir, feat_dir = write_feature_tree(tmp, config, SEED + 3)
+        for model, tag, per_step, cls in (
+                ("speechsplit", "G", gen_per_step, SpeechSplit),
+                ("f0_converter", "P", f0_per_step, F0Converter)):
+            run = os.path.join(tmp, f"run_{tag}")
+            models = os.path.join(run, "models")
+            resumed = os.path.join(run, "resumed")
+
+            def args(save_dir, iters, *extra, save_step=CLI_SAVE,
+                     log_step=CLI_SAVE):
+                return [
+                    "--num_iters", str(iters), "--model_save_dir", save_dir,
+                    "--log_step", str(log_step), "--model_save_step",
+                    str(save_step), "--sample_step", "1000",
+                    "--model", model, "--log_dir", os.path.join(run, "logs"),
+                    "--sample_dir", os.path.join(run, "samples"),
+                    "--validation_path", os.path.join(tmp, "no_such.pkl"),
+                    "--hparams", f"root_dir={root_dir},feat_dir={feat_dir},"
+                    + hparams, "--device", "cuda", *extra]
+
+            losses, _, _ = run_cli_train(args(models, CLI_STEPS),
+                                         CLI_STEPS, per_step, model)
+            for step in (CLI_SAVE, CLI_STEPS):
+                path = ckpt_lib.checkpoint_path(models, step, tag)
+                cls(config).load_state_dict(load_reference_checkpoint(path),
+                                            strict=True)
+            shutil.copytree(models, resumed)
+            # the resumed run also reads lazily, sends bfloat16 features
+            # and keeps only its newest checkpoint
+            r_losses, r_record, _ = run_cli_train(
+                args(resumed, CLI_STEPS - CLI_SAVE, "--resume_iters",
+                     str(CLI_SAVE), "--lazy_data", "--compress_transfers",
+                     "--keep_checkpoints", "1"),
+                CLI_STEPS - CLI_SAVE, per_step, f"{model} resumed")
+            if os.listdir(resumed) != [f"{CLI_STEPS}-{tag}.ckpt"]:
+                fail(f"train.cli {model}: the resumed run kept "
+                     f"{sorted(os.listdir(resumed))}")
+            saved = torch.load(ckpt_lib.checkpoint_path(models, CLI_SAVE, tag),
+                               map_location="cpu", weights_only=True)
+            if not same_state(r_record["first"], saved):
+                fail(f"train.cli {model}: the resumed state before its first "
+                     f"step differs from {CLI_SAVE}-{tag}.ckpt")
+            bare_step = (make_train_step if tag == "G"
+                         else make_f0_train_step)(config)
+            rounds, t_losses = [], []
+            for r in range(CLI_ROUNDS):
+                t_losses, t_record, state = run_cli_train(
+                    args(os.path.join(run, f"timed{r}"), CLI_TIMED_STEPS,
+                         save_step=10 * CLI_TIMED_STEPS, log_step=10),
+                    CLI_TIMED_STEPS, per_step, f"{model} timed", log_step=10)
+                rounds.append(dict(
+                    loop=loop_ms(t_record),
+                    bare=bare_step_ms(state, bare_step, host_batch,
+                                      CLI_TIMED_STEPS)))
+                del state
+            med = {k: float(np.median([t[k] for t in rounds]))
+                   for k in rounds[0]}
+            traces = os.path.join(run, "trace")
+            run_cli_train(
+                args(os.path.join(run, "profiled"), CLI_PROFILED_STEPS,
+                     "--profile_dir", traces,
+                     save_step=10 * CLI_PROFILED_STEPS, log_step=5),
+                CLI_PROFILED_STEPS, per_step, f"{model} profiled",
+                log_step=5, probe=False)
+            if os.listdir(traces) != [f"trace_{CLI_PROFILED_STEPS}.json"]:
+                fail(f"train.cli {model}: --profile_dir wrote "
+                     f"{os.listdir(traces)}")
+            span, busy = trace_busy(os.path.join(
+                traces, f"trace_{CLI_PROFILED_STEPS}.json"))
+            if not busy > 0:
+                fail(f"train.cli {model}: the trace holds no device time")
+            log("train.cli", model=model, steps=CLI_STEPS,
+                checkpoints=f"{CLI_SAVE}-{tag},{CLI_STEPS}-{tag} strict",
+                resumed_from=f"{CLI_SAVE}-{tag} state equal",
+                losses=",".join(f"{v:.6f}" for v in losses + r_losses),
+                launches_a_step=json.dumps(per_step).replace(" ", ""),
+                timed_steps=CLI_TIMED_STEPS,
+                timed_losses=",".join(f"{v:.6f}" for v in t_losses),
+                rounds=CLI_ROUNDS,
+                solver_median_ms_per_step=f"{med['loop']:.4f}",
+                bare_in_turns_median_ms=f"{med['bare']:.4f}",
+                host_overhead_ms=f"{med['loop'] - med['bare']:.4f}",
+                solver_rounds_ms=",".join(f"{t['loop']:.4f}" for t in rounds),
+                bare_rounds_ms=",".join(f"{t['bare']:.4f}" for t in rounds),
+                solver_above_bare_every_round=(
+                    min(t["loop"] for t in rounds)
+                    > max(t["bare"] for t in rounds)),
+                timing="wall time of the steps after the first, one "
+                "synchronize at the end; a Solver run and bare steps in "
+                "turns",
+                profiled_steps="10-14", trace_span_ms=f"{span:.4f}",
+                trace_device_busy_ms=f"{busy:.4f}",
+                trace_device_idle_share=f"{1 - busy / span:.4f}",
+                trace_note="profiler on, probe off; the profiler's "
+                "overhead in the span")
+            shutil.rmtree(run)
+
+        demo = os.path.join(tmp, "demo.pkl")
+        val_demo(demo, config)
+        solver = Solver(None, SolverConfig(
+            model_save_dir=os.path.join(tmp, "val"), validation_path=demo,
+            seed=SEED), config, device="cuda")
+        mels = {"kernels": [], "plain": []}
+
+        def keep(kept):
+            """``Solver._eval`` that also keeps each utterance's mels."""
+            def run(*inputs):
+                out = Solver._eval(solver, *inputs)
+                kept.append(out.clone())
+                return out
+            return run
+
+        torch.cuda.synchronize()
+        reset_launches()
+        solver._eval = keep(mels["kernels"])
+        value = solver.validate()
+        launches = read_launches()
+        expected = {"bilstm_infer": 8, "multi_bilstm_infer": 2}
+        for kernel, count in launches.items():
+            if count != expected.get(kernel, 0):
+                fail(f"train.cli validate: {kernel} launched {count} times, "
+                     f"expected {expected.get(kernel, 0)}")
+        reset_launches()
+        solver._eval = keep(mels["plain"])
+        with plain_kernels():
+            plain = solver.validate()
+        del solver._eval
+        if any(read_launches().values()):
+            fail("train.cli validate: the plain call launched a kernel")
+        shape = (1, config.max_len_pad, config.dim_freq)
+        if not (len(mels["kernels"]) == len(mels["plain"]) == 2 and all(
+                m.shape == shape and bool(torch.isfinite(m).all())
+                for m in mels["kernels"])):
+            fail("train.cli validate: mels "
+                 f"{[tuple(m.shape) for m in mels['kernels']]}, not 2 "
+                 f"finite of {shape}")
+        mel_errs = [rel_err([g], [w])
+                    for g, w in zip(mels["kernels"], mels["plain"])]
+        err = abs(value - plain) / abs(plain)
+        if not (max(mel_errs) <= PATH_TOL and np.isfinite(value)
+                and err <= PATH_TOL):
+            fail(f"train.cli validate: mels' rel err {mel_errs}, sum-MSE "
+                 f"{value} against plain {plain} (rel err {err}); tol "
+                 f"{PATH_TOL}")
+        log("train.cli validate", utterances=2,
+            mel_max_abs_err_over_max_abs=",".join(
+                f"{e:.3g}" for e in mel_errs),
+            value=repr(value), plain=repr(plain), rel_err=f"{err:.3g}",
+            tol=PATH_TOL,
+            launches=json.dumps({k: v for k, v in launches.items() if v})
+            .replace(" ", ""))
+        check_prefetch(config)
+
+
 def cudnn_fused_yardstick(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
     """A bidirectional cuDNN ``torch.nn.LSTM(I, H)`` carrying a fused
     layer's real weights (the summed bias as b_ih, b_hh zero): the same
@@ -3196,6 +3703,9 @@ def main() -> int:
     phase_lstm_fwd_probe()
     gen_launches, f0_launches, state, step, batch = phase_train()
     phase_profile_train(state, step, batch)
+    phase_train_cli(
+        {k: v for k, v in gen_launches.items() if v},
+        {k: v for k, v in f0_launches.items() if v})
     del state, step
     rows.update(phase_fused_kernels())
     fused_convert = phase_convert_fused()

@@ -13,8 +13,9 @@ kernel. On CPU tensors the same functions run their plain PyTorch
 versions, which is how the tests hold the port to JAX.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
-conversion (``convert``) and training (``training.create_train_state``,
-``training.make_train_step``, ``training.make_f0_train_step``).
+conversion (``convert``, ``cli.convert``) and training
+(``training.create_train_state``, ``training.make_train_step``,
+``training.make_f0_train_step``, ``training.Solver``, ``cli.train``).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 _TRAINING = ("TrainState", "create_train_state", "make_train_step",
-             "make_f0_train_step")
+             "make_f0_train_step", "Solver", "SolverConfig")
 
 
 def __getattr__(name):

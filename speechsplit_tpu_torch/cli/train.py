@@ -1,0 +1,162 @@
+"""Training CLI of the port (counterpart of speechsplit_tpu/cli/train.py).
+
+The JAX package's flag surface (the reference's main.py:41-59 plus
+``--model``, ``--hparams`` and the rest), and ``--device``:
+
+    python -m speechsplit_tpu_torch.cli.train --num_iters 1000 \\
+        --hparams "root_dir=spmel,feat_dir=raptf0,residual_dtype=float32,adam_mu_dtype=float32"
+
+Runs on ``cuda`` unless ``--device cpu`` is given. The port trains in
+float32 only, so the default config (bfloat16 residuals and Adam mu)
+raises until ``--hparams`` says float32. Flags of work still queued in
+ROADMAP.md raise naming it: ``--num_devices`` above 1 (A8),
+``--steps_per_dispatch`` above 1, ``--data_on_device`` and
+``--resident_dtype bfloat16`` (A3), and ``--wav_dir`` and ``--spk2gen``
+(A6).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def str2bool(v: str) -> bool:
+    return v.lower() in ("true", "1", "yes")
+
+
+def _parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
+    )
+    parser.add_argument("--num_iters", type=int, default=1_000_000)
+    parser.add_argument("--g_lr", type=float, default=1e-4)
+    parser.add_argument("--beta1", type=float, default=0.9)
+    parser.add_argument("--beta2", type=float, default=0.999)
+    parser.add_argument("--resume_iters", type=int, default=None)
+    parser.add_argument("--use_tensorboard", type=str2bool, default=False)
+    parser.add_argument("--log_dir", default="run/logs")
+    parser.add_argument("--model_save_dir", default="run/models")
+    parser.add_argument("--sample_dir", default="run/samples")
+    parser.add_argument("--log_step", type=int, default=10)
+    parser.add_argument("--sample_step", type=int, default=1000)
+    parser.add_argument("--model_save_step", type=int, default=1000)
+    parser.add_argument("--validation_path", default="assets/demo.pkl")
+    parser.add_argument("--model", default="speechsplit",
+                        choices=["speechsplit", "f0_converter"])
+    parser.add_argument("--hparams", default="", help="k=v,k=v overrides")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument(
+        "--compress_transfers", action="store_true",
+        help="send features host->device as bfloat16 (half the bytes)")
+    parser.add_argument(
+        "--keep_checkpoints", type=int, default=0,
+        help="retain only the newest N checkpoints (0 = keep all, "
+        "matching the reference)")
+    parser.add_argument(
+        "--profile_dir", default="",
+        help="write a torch.profiler chrome trace of a few steps here")
+    parser.add_argument(
+        "--lazy_data", action="store_true",
+        help="read features from disk on access instead of caching them "
+        "in RAM")
+    parser.add_argument(
+        "--num_devices", type=int, default=0,
+        help="devices to train on: 0 or 1 is one device (more: ROADMAP.md "
+        "A8)")
+    parser.add_argument(
+        "--steps_per_dispatch", type=int, default=1,
+        help="1 only (more: ROADMAP.md A3)")
+    parser.add_argument(
+        "--data_on_device", action="store_true",
+        help="refused: device-resident features are ROADMAP.md A3")
+    parser.add_argument(
+        "--resident_dtype", default="float32",
+        choices=["float32", "bfloat16"],
+        help="float32 only: the dtype of --data_on_device features "
+        "(bfloat16: ROADMAP.md A3)")
+    parser.add_argument(
+        "--wav_dir", default="",
+        help="refused: training from a wav tree is ROADMAP.md A6")
+    parser.add_argument(
+        "--spk2gen", default=None,
+        help="refused: the speaker genders of --wav_dir (ROADMAP.md A6)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run on (default cuda)")
+    return parser
+
+
+def _refuse_unported(args) -> None:
+    if args.num_devices > 1:
+        raise NotImplementedError(
+            f"--num_devices {args.num_devices}: training on more than one "
+            "device is queued in ROADMAP.md A8")
+    if args.steps_per_dispatch > 1:
+        raise NotImplementedError(
+            f"--steps_per_dispatch {args.steps_per_dispatch}: K steps a "
+            "dispatch is queued in ROADMAP.md A3")
+    if args.data_on_device:
+        raise NotImplementedError(
+            "--data_on_device: device-resident features are queued in "
+            "ROADMAP.md A3")
+    if args.resident_dtype != "float32":
+        raise NotImplementedError(
+            f"--resident_dtype {args.resident_dtype}: the dtype of "
+            "device-resident features is queued in ROADMAP.md A3")
+    if args.wav_dir:
+        raise NotImplementedError(
+            "--wav_dir: training from a wav tree (the DSP front end) is "
+            "queued in ROADMAP.md A6")
+    if args.spk2gen is not None:
+        raise NotImplementedError(
+            "--spk2gen: the speaker genders of a wav tree (--wav_dir) are "
+            "queued in ROADMAP.md A6")
+
+
+def main(argv=None):
+    """Train; returns the final ``TrainState``."""
+    args = _parser().parse_args(argv)
+    _refuse_unported(args)
+
+    from speechsplit_tpu_torch import resolve_device
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.data.dataset import SpeakerDataset
+    from speechsplit_tpu_torch.data.loader import data_loader
+    from speechsplit_tpu_torch.training.solver import Solver, SolverConfig
+    from speechsplit_tpu_torch.training.train_step import check_precision
+
+    config = SpeechSplitConfig(
+        learning_rate=args.g_lr, adam_b1=args.beta1, adam_b2=args.beta2
+    ).parse(args.hparams)
+    check_precision(config)
+    device = resolve_device(args.device)
+    print(config)
+
+    for d in (args.log_dir, args.model_save_dir, args.sample_dir):
+        os.makedirs(d, exist_ok=True)
+
+    dataset = SpeakerDataset(config.root_dir, config.feat_dir,
+                             mode=config.mode, eager=not args.lazy_data)
+    loader = data_loader(dataset, config, seed=args.seed)
+    run_config = SolverConfig(
+        num_iters=args.num_iters,
+        resume_iters=args.resume_iters,
+        log_dir=args.log_dir,
+        model_save_dir=args.model_save_dir,
+        sample_dir=args.sample_dir,
+        log_step=args.log_step,
+        sample_step=args.sample_step,
+        model_save_step=args.model_save_step,
+        use_tensorboard=args.use_tensorboard,
+        seed=args.seed,
+        validation_path=args.validation_path,
+        model=args.model,
+        compress_transfers=args.compress_transfers,
+        keep_checkpoints=args.keep_checkpoints,
+        profile_dir=args.profile_dir,
+    )
+    return Solver(loader, run_config, config, device=device).train()
+
+
+if __name__ == "__main__":
+    main()

@@ -16,6 +16,9 @@ interop.py:60-103 module maps and :180-239 layout rules):
 - GroupNorm: ``scale``/``bias``           -> ``weight``/``bias``
 - LSTM: ``w_ih_l{k}[I, 4H]`` etc.         -> ``weight_ih_l{k}[4H, I]``;
   both bias vectors are kept.
+
+:func:`jax_adam_state_to_torch` carries optax's Adam moments the same
+way, so a JAX train state can go on training in the port.
 """
 
 from __future__ import annotations
@@ -174,3 +177,55 @@ def save_reference_checkpoint(module: torch.nn.Module, path: str) -> None:
     """Save a model as a reference-loadable ``.ckpt`` (``{'model': sd}``)."""
     state = {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
     torch.save({"model": state}, path)
+
+
+def _adam_fields(opt_state) -> tuple:
+    """(count, mu, nu) of an optax Adam state: a ``ScaleByAdamState``,
+    or a chain's tuple that holds one."""
+    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state.count, opt_state.mu, opt_state.nu
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            try:
+                return _adam_fields(part)
+            except ValueError:
+                continue
+    raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
+
+
+def jax_adam_state_to_torch(
+    opt_state, name: str, optimizer: torch.optim.Optimizer,
+    model: torch.nn.Module,
+) -> None:
+    """Carry an optax Adam state (numpy leaves) into torch Adam.
+
+    ``opt_state`` holds ``count``, ``mu`` and ``nu`` (optax's
+    ``ScaleByAdamState``, alone or inside ``optax.adam``'s chain state);
+    ``mu`` and ``nu`` are trees shaped like the flax params of model
+    ``name`` (``"speechsplit"`` or ``"f0_converter"``), so they take the
+    layout rules of :func:`jax_params_to_state_dict`. ``optimizer`` is a
+    torch Adam over ``model``'s parameters; each parameter's state
+    becomes ``step`` (= count), ``exp_avg`` (= mu) and ``exp_avg_sq``
+    (= nu), on the parameter's device. With the parameters carried by
+    :func:`jax_params_to_state_dict`, the next torch step continues the
+    JAX run's Adam update (the same bias corrections: optax's count and
+    torch's step both count updates already made).
+    """
+    count, mu, nu = _adam_fields(opt_state)
+    exp_avg = jax_params_to_state_dict(mu, name)
+    exp_avg_sq = jax_params_to_state_dict(nu, name)
+    step = float(np.asarray(count))
+    params = dict(model.named_parameters())
+    owned = {id(p) for group in optimizer.param_groups
+             for p in group["params"]}
+    if sorted(params) != sorted(exp_avg):
+        raise ValueError("the Adam state's tree does not match the model's "
+                         "parameters")
+    for key, param in params.items():
+        if id(param) not in owned:
+            raise ValueError(f"{key} is not a parameter of the optimizer")
+        optimizer.state[param] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": exp_avg[key].to(param.device, param.dtype),
+            "exp_avg_sq": exp_avg_sq[key].to(param.device, param.dtype),
+        }

@@ -1,5 +1,5 @@
-"""Training of the port: the train steps of both models (the solver
-loop and checkpointing are a later slice)."""
+"""Training of the port: the train steps of both models, checkpoints in
+the reference's ``.ckpt`` format, and the Solver loop."""
 
 from speechsplit_tpu_torch.training.train_step import (
     TrainState,
@@ -10,6 +10,7 @@ from speechsplit_tpu_torch.training.train_step import (
     make_optimizer,
     make_train_step,
 )
+from speechsplit_tpu_torch.training.solver import Solver, SolverConfig
 
 __all__ = [
     "TrainState",
@@ -19,4 +20,6 @@ __all__ = [
     "f0_loss",
     "make_train_step",
     "make_f0_train_step",
+    "Solver",
+    "SolverConfig",
 ]

@@ -1,0 +1,284 @@
+"""The training loop (counterpart of speechsplit_tpu/training/solver.py).
+
+Rebuilds the reference Solver (solver.py:18-269): a train loop with
+periodic logging, checkpoints, demo-set validation and 5-panel ablation
+spectrogram renders, on the port's train steps and background prefetch
+to the card. Also trains the F0 converter (``model="f0_converter"``).
+
+The loss stays on the card between log steps: the loop reads it on the
+host only at ``log_step``, so the loop adds no host synchronization to
+a step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import math
+import os
+import pickle
+import time
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from speechsplit_tpu_torch import resolve_device
+from speechsplit_tpu_torch.config import SpeechSplitConfig
+from speechsplit_tpu_torch.data.collator import Batch
+from speechsplit_tpu_torch.data.prefetch import prefetch_to_device
+from speechsplit_tpu_torch.ops.masks import pad_time_axis
+from speechsplit_tpu_torch.ops.quantize import quantize_f0_onehot
+from speechsplit_tpu_torch.training import checkpoint as ckpt_lib
+from speechsplit_tpu_torch.training.train_step import (
+    TrainState,
+    create_train_state,
+    make_f0_train_step,
+    make_train_step,
+)
+from speechsplit_tpu_torch.utils.profiling import StepTimer
+
+
+@dataclasses.dataclass
+class SolverConfig:
+    """Run configuration (reference: main.py:41-59 argparse surface);
+    the same fields as the JAX package's."""
+
+    num_iters: int = 1_000_000
+    resume_iters: Optional[int] = None
+    log_dir: str = "run/logs"
+    model_save_dir: str = "run/models"
+    sample_dir: str = "run/samples"
+    log_step: int = 10
+    sample_step: int = 1000
+    model_save_step: int = 1000
+    use_tensorboard: bool = False
+    seed: int = 0
+    validation_path: str = "assets/demo.pkl"
+    model: str = "speechsplit"  # or "f0_converter"
+    profile_dir: str = ""       # torch.profiler trace of a step window
+    profile_start: int = 10
+    profile_steps: int = 5
+    compress_transfers: bool = False  # bf16 host->device feature feed
+    keep_checkpoints: int = 0         # 0 = keep all (reference behavior)
+    # K steps a dispatch and device-resident data: ROADMAP.md A3
+    steps_per_dispatch: int = 1
+    data_on_device: bool = False
+
+
+def check_run_config(run_config: SolverConfig,
+                     config: SpeechSplitConfig) -> None:
+    """Refuse what the port's solver does not run yet."""
+    if run_config.data_on_device:
+        raise NotImplementedError(
+            "data_on_device (device-resident features) is queued in "
+            "ROADMAP.md A3")
+    if run_config.steps_per_dispatch > 1:
+        raise NotImplementedError(
+            f"steps_per_dispatch={run_config.steps_per_dispatch}: K steps "
+            "a dispatch is queued in ROADMAP.md A3")
+    if math.prod(config.mesh_shape) > 1:
+        raise NotImplementedError(
+            f"mesh_shape={config.mesh_shape}: training on more than one "
+            "device is queued in ROADMAP.md A8")
+
+
+class Solver:
+    def __init__(
+        self,
+        loader: Optional[Iterator[Batch]],
+        run_config: SolverConfig,
+        config: SpeechSplitConfig,
+        dataset=None,
+        device=None,
+    ):
+        """``loader`` yields numpy ``Batch``es (``data.data_loader``);
+        ``device`` is ``cuda`` unless told otherwise. ``dataset`` is
+        unused: it is kept for the JAX package's signature, where only
+        ``data_on_device`` reads it, and that raises here."""
+        check_run_config(run_config, config)
+        self.loader = loader
+        self.rc = run_config
+        self.config = config
+        self.device = resolve_device(device)
+        self.state = create_train_state(config, run_config.seed,
+                                        run_config.model, self.device)
+        self.tag = "G" if run_config.model == "speechsplit" else "P"
+        make = (make_train_step if run_config.model == "speechsplit"
+                else make_f0_train_step)
+        self.train_step = make(config)
+
+        n_params = sum(p.numel() for p in self.state.model.parameters())
+        print(f"{self.tag}: {n_params} parameters")
+
+        self.writer = None
+        if run_config.use_tensorboard:
+            from tensorboardX import SummaryWriter  # lazy, optional
+
+            os.makedirs(run_config.log_dir, exist_ok=True)
+            self.writer = SummaryWriter(run_config.log_dir)
+
+        self.validation_pt = None
+        if os.path.exists(run_config.validation_path):
+            with open(run_config.validation_path, "rb") as handle:
+                self.validation_pt = pickle.load(handle)
+
+    # ------------------------------------------------------------------
+    def train(self) -> TrainState:
+        rc = self.rc
+        os.makedirs(rc.model_save_dir, exist_ok=True)
+        os.makedirs(rc.sample_dir, exist_ok=True)
+
+        start_iters = 0
+        num_iters = rc.num_iters
+        if rc.resume_iters:
+            print(f"Resuming from step {rc.resume_iters}...")
+            start_iters = rc.resume_iters
+            num_iters += rc.resume_iters  # ref: solver.py:119-120
+            ckpt_lib.restore_checkpoint(
+                rc.model_save_dir, rc.resume_iters, self.state, self.tag)
+
+        batches = prefetch_to_device(self.loader, device=self.device,
+                                     compress=rc.compress_transfers)
+        print("Start training...")
+        start_time = time.time()
+        timer = StepTimer()
+        profiler, profile_end = None, None
+        try:
+            for i in range(start_iters, num_iters):
+                batch = next(batches)
+                if (rc.profile_dir and profile_end is None
+                        and i >= start_iters + rc.profile_start):
+                    profiler = self._start_profiler()
+                    profile_end = i + rc.profile_steps
+                self.state, loss = self.train_step(self.state, batch)
+                timer.tick()
+                if profiler is not None and i + 1 >= profile_end:
+                    self._stop_profiler(profiler, i + 1)
+                    profiler = None
+
+                if (i + 1) % rc.log_step == 0:
+                    self._log(i + 1, num_iters, float(loss), timer,
+                              start_time)
+                if (i + 1) % rc.model_save_step == 0:
+                    path = ckpt_lib.save_checkpoint(
+                        rc.model_save_dir, i + 1, self.state, self.tag)
+                    print(f"Saved checkpoint {path}")
+                    if rc.keep_checkpoints:
+                        ckpt_lib.prune_checkpoints(
+                            rc.model_save_dir, rc.keep_checkpoints, self.tag)
+                if ((i + 1) % rc.sample_step == 0 and self.validation_pt
+                        and rc.model == "speechsplit"):
+                    val = self.validate()
+                    print(f"Validation loss: {val}")
+                    if self.writer:
+                        self.writer.add_scalar("Validation_loss", val, i + 1)
+                    self.render_samples(i + 1)
+        finally:
+            if profiler is not None:
+                profiler.stop()
+            batches.close()
+        return self.state
+
+    def _log(self, step: int, num_iters: int, loss_val: float,
+             timer: StepTimer, start_time: float) -> None:
+        if not np.isfinite(loss_val):
+            raise FloatingPointError(
+                f"non-finite loss {loss_val} at step {step}; latest "
+                f"checkpoint is in {self.rc.model_save_dir}")
+        et = str(datetime.timedelta(seconds=time.time() - start_time))[:-7]
+        print(f"Elapsed [{et}], Iteration [{step}/{num_iters}], "
+              f"{self.tag}/loss_id: {loss_val:.8f}, "
+              f"{timer.steps_per_sec:.1f} steps/s")
+        if self.writer:
+            self.writer.add_scalar(f"{self.tag}/loss_id", loss_val, step)
+            self.writer.add_scalar("steps_per_sec", timer.steps_per_sec,
+                                   step)
+
+    def _start_profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler, step: int) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        os.makedirs(self.rc.profile_dir, exist_ok=True)
+        path = os.path.join(self.rc.profile_dir, f"trace_{step}.json")
+        profiler.export_chrome_trace(path)
+        print(f"Wrote profiler trace to {path}")
+
+    # ------------------------------------------------------------------
+    def _prepare_val_inputs(self, val_sub):
+        """Pad one validation utterance (ref: solver.py:210-220): the
+        inputs (x_f0 [1, T, 80+257], x_pad [1, T, 80], emb [1, 82]) on
+        the solver's device. The contour is padded in float64 and
+        quantized in float32, as the JAX package's ``jnp.asarray`` of it
+        is (x64 off)."""
+        cfg = self.config
+        emb = np.asarray(val_sub[1], np.float32).reshape(1, -1)
+        mel, f0, length, _uid = val_sub[2]
+        x_pad, _ = pad_time_axis(np.asarray(mel, np.float32)[None],
+                                 cfg.max_len_pad)
+        f0_pad = np.pad(np.asarray(f0, np.float64),
+                        (0, cfg.max_len_pad - length)).astype(np.float32)
+        onehot = quantize_f0_onehot(torch.from_numpy(f0_pad),
+                                    cfg.dim_f0 - 1).numpy()[None]
+        x_f0 = np.concatenate([x_pad, onehot], axis=-1)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                     for a in (x_f0, x_pad, emb))
+
+    def _eval(self, x_f0, x_org, c_trg) -> torch.Tensor:
+        return self.state.model(x_f0, x_org, c_trg, train=False)
+
+    @torch.inference_mode()
+    def validate(self) -> float:
+        """Mean over the validation utterances of the sum-MSE
+        reconstruction (ref: solver.py:206-225)."""
+        losses = []
+        for val_sub in self.validation_pt:
+            x_f0, x_pad, emb = self._prepare_val_inputs(val_sub)
+            out = self._eval(x_f0, x_pad, emb)
+            losses.append(float(torch.sum(torch.square(x_pad - out))))
+        return float(np.mean(losses))
+
+    @torch.inference_mode()
+    def render_samples(self, step: int) -> None:
+        """5-panel ablation renders: GT / recon / woC / woR / woF
+        (ref: solver.py:231-269), ``{sample_dir}/{step}_{speaker}_2.png``.
+        Needs matplotlib, imported here only."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        dim_freq = self.config.dim_freq
+        for val_sub in self.validation_pt:
+            x_f0, x_pad, emb = self._prepare_val_inputs(val_sub)
+            zeros_f0 = x_f0.clone()
+            zeros_f0[:, :, dim_freq:] = 0.0
+            zeros_mel = x_f0.clone()
+            zeros_mel[:, :, :dim_freq] = 0.0
+
+            recon = self._eval(x_f0, x_pad, emb)
+            wo_f = self._eval(zeros_f0, x_pad, emb)
+            wo_r = self._eval(x_f0, torch.zeros_like(x_pad), emb)
+            wo_c = self._eval(zeros_mel, x_pad, emb)
+
+            panels = [x[0].T.cpu().numpy()
+                      for x in (x_pad, recon, wo_c, wo_r, wo_f)]
+            vmin = min(p.min() for p in panels)
+            vmax = max(p.max() for p in panels)
+            fig, axes = plt.subplots(5, 1, sharex=True)
+            for ax, panel in zip(axes, panels):
+                ax.imshow(panel, aspect="auto", vmin=vmin, vmax=vmax)
+            fig.savefig(
+                os.path.join(self.rc.sample_dir, f"{step}_{val_sub[0]}_2.png"),
+                dpi=150)
+            plt.close(fig)

@@ -149,13 +149,21 @@ def generator_loss(config: SpeechSplitConfig, model: SpeechSplit,
 def f0_loss(config: SpeechSplitConfig, model: F0Converter, batch: Batch,
             generator: torch.Generator) -> torch.Tensor:
     """Cross-entropy of the predicted contour against the quantized
-    source contour, masked past ``len_org`` (JAX train_step.py:358-381)."""
+    source contour, masked past ``len_org`` (JAX train_step.py:358-381).
+
+    A contour value of about 1.002 or more quantizes past the last class;
+    as optax's out-of-range gather, that frame's loss is NaN, and so is
+    the masked sum (NaN x 0 = NaN), where ``F.cross_entropy`` would raise.
+    In range, the values are ``F.cross_entropy``'s bit for bit."""
     f0 = batch.f0[:, :, 0]  # [B, T] normalized, -1e10 padded
     target_ids = quantize_f0(f0, config.dim_f0 - 1)
     f0_onehot = quantize_f0_onehot(f0, config.dim_f0 - 1)
     logits = model(batch.mel, f0_onehot, train=True, generator=generator)
-    losses = F.cross_entropy(logits.transpose(1, 2), target_ids,
-                             reduction="none")  # [B, T]
+    log_probs = F.log_softmax(logits.transpose(1, 2), dim=1)  # [B, C, T]
+    top = log_probs.shape[1] - 1
+    picked = log_probs.gather(1, target_ids.clamp(0, top)[:, None, :])
+    losses = torch.where(target_ids > top, torch.nan,
+                         -picked[:, 0, :])  # [B, T]
     t = losses.shape[1]
     valid = (torch.arange(t, device=losses.device)[None, :]
              < batch.len_org[:, None]).to(losses.dtype)

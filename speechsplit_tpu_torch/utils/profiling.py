@@ -1,0 +1,36 @@
+"""Step timing for the training log (counterpart of
+speechsplit_tpu/utils/profiling.py::StepTimer).
+
+:class:`StepTimer` keeps an EMA of the interval between train-step
+dispatches without a host synchronization; the solver's loss read at
+each ``log_step`` is the loop's only sync, so over a logging window the
+dispatch rate follows the card's rate.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+
+class StepTimer:
+    """EMA step timer: call ``tick()`` once a train-step dispatch."""
+
+    def __init__(self, ema: float = 0.98):
+        self.ema = ema
+        self.avg: Optional[float] = None
+        self._last: Optional[float] = None
+
+    def tick(self) -> None:
+        now = time.perf_counter()
+        if self._last is not None:
+            dt = now - self._last
+            self.avg = (
+                dt if self.avg is None
+                else self.ema * self.avg + (1 - self.ema) * dt
+            )
+        self._last = now
+
+    @property
+    def steps_per_sec(self) -> float:
+        return 1.0 / self.avg if self.avg else float("nan")

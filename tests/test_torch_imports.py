@@ -41,7 +41,9 @@ def test_port_imports_no_jax(path):
 def test_scan_covers_the_package():
     names = {p.name for p in _port_files()}
     assert {"bilstm.py", "multi_bilstm.py", "generator.py", "convert.py",
-            "interp.py", "collator.py", "train_step.py",
+            "interp.py", "collator.py", "train_step.py", "solver.py",
+            "checkpoint.py", "dataset.py", "sampler.py", "loader.py",
+            "prefetch.py", "profiling.py", "train.py",
             "chip_smoke.py"} <= names
 
 
