@@ -40,7 +40,14 @@ Phases, one line each; any failure exits non-zero:
    ``autograd.Function`` of each op on CUDA tensors against autograd
    through the plain loop; the gradient kernel's edges (ragged widths,
    batch tiles, its batch limit at H=512 and one row past it, which the
-   kernel refuses); then the probe build of the gradient kernel
+   kernel refuses); the four kernels again with bfloat16 residuals (the
+   default config's) at the same shapes against their plain versions at
+   bfloat16 (float32 outputs within ``PATH_TOL``, bfloat16 ones within
+   one bfloat16 ulp element by element), timed beside their bounds at
+   those bytes, and at their other code paths (widths not a multiple of
+   4 or 8, H=1, batch tiles, the batch limit, the multi-stream edges on
+   the lane plan; a block-plan width refused); then the probe build of
+   the gradient kernel
    (``-DBILSTM_BWD_PROBE``): a clock64() split of its step into barrier
    wait, d_pre staging, FMAs and reduction, cell gradient and stores,
    and prefetch and arrival, at B16 and H 512, 256 and 8 (``[bwd
@@ -68,7 +75,14 @@ Phases, one line each; any failure exits non-zero:
    (counts set to 0 just before and read just after), the step against
    the same step on the plain versions, 5 steps with a finite loss, and
    the median time per step over 12 timed steps (float32 with TF32 off,
-   as compared);
+   as compared); then both steps at the default config
+   (``SpeechSplitConfig()``: bfloat16 residuals and Adam mu, TF32): the
+   same launches with no call of a plain version, the loss and every
+   gradient within 2% of the plain step at the same precision (the
+   Functions on their plain versions; also with TF32 off), each one's
+   error against the exact float32 step recorded (bfloat16's error), 5
+   finite steps, and the median time per step in turns with the float32
+   step;
 8. one generator train step under ``torch.profiler``;
    then ``train.cli``, the trainer through its entry point at full
    width: ``cli.train`` on a seeded feature tree (8 speakers, 1-3
@@ -87,7 +101,10 @@ Phases, one line each; any failure exits non-zero:
    the plain versions, each utterance's mels and the sum-MSE, with its
    launches; and the prefetch to the card, plain and compressed: each
    delivered batch, read after a train step and a spin on the
-   consumer's stream, equals its host batch bit for bit;
+   consumer's stream, equals its host batch bit for bit; then
+   ``cli.train`` at the default config (no precision in ``--hparams``)
+   for both models, 6 iterations and a resume from step 3 whose state
+   equals the checkpoint's, Adam's mu bfloat16 in every checkpoint;
 9. with ``ops.bilstm.PROJ_FUSION = "auto"`` (the input projection inside
    the kernel; every phase above runs with "off" and launches no fused
    kernel): each fused kernel against its plain version at every shape
@@ -146,7 +163,10 @@ archive``): the registers, spills, stack frame and a hash of the
 machine code nvcc gives each kernel of the merged BiLSTM sources
 (``bilstm_infer.cu``, ``bilstm_bwd.cu``), the single-direction ones
 (``lstm_infer.cu``, ``lstm_bwd.cu``) and the multi-stream ones
-(``multi_bilstm_infer.cu``, ``multi_bilstm_bwd.cu``) in either tree;
+(``multi_bilstm_infer.cu``, ``multi_bilstm_bwd.cu``) in either tree,
+and for each kernel whether the two trees' machine code is the same
+(a float32 instance keeps the key it had before the residual type
+became a template argument; the bfloat16 ones end in ``bf16``);
 then ``convert_batched`` at phase 13's pair count in a process of either
 tree, reporting whether it completed or raised; then N rounds of DIR,
 this, this, DIR, each a process of its own that builds its tree's
@@ -210,6 +230,18 @@ FUSED_PAIRS = 8
 # a train step against the same step on the plain versions: the loss
 # relative, and each gradient's max abs error over its max abs
 STEP_TOL = 5e-4
+# a kernel's bfloat16 outputs (g, c, dxp) against its plain version's:
+# one bfloat16 ulp of the element, element by element, beyond float32
+# noise of this share of the tensor's largest magnitude (both round
+# float32 values that sums taken in another order make, so a rounding
+# may flip; tests/test_torch_residual_bf16.py holds the plain versions
+# to JAX at the same bar)
+BF16_ULPS = 1.0
+BF16_NOISE = 1e-6
+# a default-config train step (bfloat16 residuals) against the plain step
+# at the same precision, the loss and each gradient as STEP_TOL reads
+# them: PARITY.md #10's 2% max-relative
+BF16_STEP_TOL = 0.02
 # the train.cli phase: iterations a run, the save and log cadence, and
 # the iterations of the run that times the loop
 CLI_STEPS = 6
@@ -297,19 +329,53 @@ def plain_kernels():
     (under autograd: autograd through the plain time loops)."""
     from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm
 
+    def saves_nothing(fn, n_args):
+        """``fn`` on the ops' first ``n_args`` arguments: the plain
+        versions save no residuals, so the residual dtype the layers pass
+        goes unused (autograd through the plain loop is float32)."""
+        def run(*args, residual_dtype=None):
+            return fn(*args[:n_args])
+        return run
+
     saved = (bilstm.bilstm_sequence, bilstm.bilstm_sequence_fused,
              multi_bilstm.multi_bilstm_sequence, lstm.lstm_sequence)
-    bilstm.bilstm_sequence = bilstm.bilstm_sequence_reference
-    bilstm.bilstm_sequence_fused = bilstm.bilstm_sequence_fused_reference
-    multi_bilstm.multi_bilstm_sequence = (
-        multi_bilstm.multi_bilstm_sequence_reference
-    )
-    lstm.lstm_sequence = lstm.lstm_sequence_reference
+    bilstm.bilstm_sequence = saves_nothing(bilstm.bilstm_sequence_reference, 4)
+    bilstm.bilstm_sequence_fused = saves_nothing(
+        bilstm.bilstm_sequence_fused_reference, 7)
+    multi_bilstm.multi_bilstm_sequence = saves_nothing(
+        multi_bilstm.multi_bilstm_sequence_reference, None)
+    lstm.lstm_sequence = saves_nothing(lstm.lstm_sequence_reference, 3)
     try:
         yield
     finally:
         (bilstm.bilstm_sequence, bilstm.bilstm_sequence_fused,
          multi_bilstm.multi_bilstm_sequence, lstm.lstm_sequence) = saved
+
+
+@contextlib.contextmanager
+def plain_training_kernels():
+    """The training kernels' wrappers replaced by their plain versions,
+    so that the ``autograd.Function``s run the plain versions on CUDA
+    tensors: the same residual dtype, rounding and dW contraction as on
+    the kernels (``plain_kernels`` instead takes autograd through the
+    plain loops, which saves nothing and is float32)."""
+    from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
+
+    swaps = ((bilstm, "bilstm_forward_cuda", "bilstm_forward_reference"),
+             (bilstm, "bilstm_backward_cuda", "bilstm_backward_reference"),
+             (multi_bilstm, "multi_bilstm_forward_cuda",
+              "multi_bilstm_forward_reference"),
+             (multi_bilstm, "multi_bilstm_backward_cuda",
+              "multi_bilstm_backward_reference"))
+    saved = [(module, name, getattr(module, name))
+             for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, getattr(module, plain))
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
 
 
 @contextlib.contextmanager
@@ -344,27 +410,33 @@ def route(name: str):
 
 
 def lstm_bound(t: int, b: int, hs, kind: str = "infer",
-               i: int = 0) -> tuple[float, str]:
+               i: int = 0, resid_bytes: int = 4,
+               stream_bytes: int = 4) -> tuple[float, str]:
     """Least time for BiLSTM recurrences of widths ``hs`` (one entry per
     direction): max(flops/peak, bytes/peak). Each input read once, each
     output written once, in float32 words of a (t, b) row:
     ``infer`` reads xp (4H) and writes h (H); ``fwd`` also writes g (4H)
     and c (H); ``bwd`` reads dh (H), g (4H), c (H) and writes dx (4H).
+    ``resid_bytes`` (2: bfloat16) is the size of a g and c element,
+    ``stream_bytes`` of a dh and dx one.
     All read W_hh (4H x H) once. Flops: the step product 2*4H*H and the
     cell's elementwise work (about 10H forward, 16H backward). With an
     input width ``i`` the projection is inside (the fused kernels): in
     place of xp, x [t, b, i] is read once for both directions and each
     direction reads W_ih (4H x i) and its bias, and does 2*i*4H flops a
     row."""
-    words = {"infer": 5, "fwd": 10, "bwd": 10}[kind]
     cell = 16 if kind == "bwd" else 10
     flops = 0.0
     nbytes = 4.0 * t * b * i
     for h in hs:
         flops += t * b * (2 * h * 4 * h + cell * h + 2 * i * 4 * h)
-        row = words * h - (4 * h if i else 0)  # x replaces xp when fused
+        # bytes of a (t, b) row: x replaces xp when fused
+        row = {"infer": 4 * 5 * h,
+               "fwd": 4 * 5 * h + resid_bytes * 5 * h,
+               "bwd": resid_bytes * 5 * h + stream_bytes * 5 * h}[kind]
+        row -= 4 * 4 * h if i else 0
         w_ih = 4 * h * i + 4 * h if i else 0
-        nbytes += 4 * (t * b * row + 4 * h * h + w_ih)
+        nbytes += t * b * row + 4 * (4 * h * h + w_ih)
     by_ops = flops / PEAK_F32_FLOPS * 1e3
     by_bytes = nbytes / PEAK_BYTES * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (
@@ -1244,6 +1316,260 @@ def check_bwd_edges() -> None:
         tol=KERNEL_TOL, max_batch_h512=limit, refused_batch=limit + 1)
 
 
+def bf16_ulps(got, want) -> float:
+    """The largest |got - want| over the elements of matching tensors, in
+    bfloat16 ulps of the larger magnitude, beyond float32 noise of
+    ``BF16_NOISE`` x max |want| (0 where they agree that far)."""
+    import torch
+
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        over = ((g - w).abs() - BF16_NOISE * float(w.abs().max())).clamp_min(0)
+        worst = max(worst, float((over / ulp).max()))
+    return worst
+
+
+def check_dtypes(what: str, tensors, dtype) -> None:
+    if any(x.dtype != dtype for x in tensors):
+        fail(f"{what}: {[str(x.dtype) for x in tensors]}, not {dtype}")
+
+
+def check_bilstm_train_bf16(b: int, h: int, reps: int) -> dict:
+    """``bilstm_fwd`` and ``bilstm_bwd`` at bfloat16 residuals (the JAX
+    default) against their plain versions at bfloat16 on the same inputs
+    as ``check_bilstm_train``'s: h within ``PATH_TOL``; g, c and dx, which
+    the kernels store in bfloat16, within ``BF16_ULPS`` (``bf16_ulps``).
+    The gradient kernel reads the plain forward's bfloat16 residuals and
+    dh rounded to bfloat16 (as ``BiLSTMFunction`` hands it over), and
+    also the kernel forward's own. Times each beside its bound at these
+    bytes; returns the bfloat16 keys of the two kernels' rows."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3 * h + b)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    xp_f, xp_b = rand(T, b, 4 * h), rand(T, b, 4 * h)
+    w_f, w_b = rand(4 * h, h, scale=h ** -0.5), rand(4 * h, h, scale=h ** -0.5)
+    dh = [x.to(bf16) for x in (rand(T, b, h), rand(T, b, h))]
+    got = bilstm.bilstm_forward_cuda(xp_f, xp_b, w_f, w_b, bf16)
+    want = bilstm.bilstm_forward_reference(xp_f, xp_b, w_f, w_b, bf16)
+    res = want[2:6]
+    dx = bilstm.bilstm_backward_cuda(*dh, *res, w_f, w_b)
+    dx_ref = bilstm.bilstm_backward_reference(*dh, *res, w_f, w_b)
+    dx_own = bilstm.bilstm_backward_cuda(*dh, *got[2:6], w_f, w_b)
+    dx_own_ref = bilstm.bilstm_backward_reference(*dh, *got[2:6], w_f, w_b)
+    torch.cuda.synchronize()
+    check_dtypes("bilstm_fwd bf16 h", got[:2], torch.float32)
+    check_dtypes("bilstm_fwd bf16 g, c", got[2:], bf16)
+    check_dtypes("bilstm_bwd bf16 dx", dx, bf16)
+    errs = dict(err_h=abs_err(got[:2], want[:2]),
+                ulps_g=bf16_ulps(got[2:4], want[2:4]),
+                ulps_c=bf16_ulps(got[4:], want[4:]),
+                ulps_dx=bf16_ulps(dx, dx_ref),
+                ulps_dx_own_res=bf16_ulps(dx_own, dx_own_ref))
+    fwd_ms = time_ms(lambda: bilstm.bilstm_forward_cuda(
+        xp_f, xp_b, w_f, w_b, bf16), reps)
+    bwd_ms = time_ms(lambda: bilstm.bilstm_backward_cuda(
+        *dh, *res, w_f, w_b), reps)
+    fwd_bound, fwd_by = lstm_bound(T, b, [h, h], "fwd", resid_bytes=2)
+    bwd_bound, bwd_by = lstm_bound(T, b, [h, h], "bwd", resid_bytes=2,
+                                   stream_bytes=2)
+    shape = f"T{T}xB{b}xH{h}"
+    log("kernel bilstm_fwd bf16", shape=shape, ms=f"{fwd_ms:.6g}",
+        bound_ms=f"{fwd_bound:.6g}", bound_by=fwd_by,
+        err_h=f"{errs['err_h']:.3g}", h_tol=PATH_TOL,
+        max_ulps_g=f"{errs['ulps_g']:.3g}", max_ulps_c=f"{errs['ulps_c']:.3g}",
+        ulps_tol=BF16_ULPS, noise=BF16_NOISE, residuals="bfloat16 g, c")
+    log("kernel bilstm_bwd bf16", shape=shape, ms=f"{bwd_ms:.6g}",
+        bound_ms=f"{bwd_bound:.6g}", bound_by=bwd_by,
+        max_ulps_dx=f"{errs['ulps_dx']:.3g}",
+        max_ulps_dx_on_kernel_residuals=f"{errs['ulps_dx_own_res']:.3g}",
+        ulps_tol=BF16_ULPS, noise=BF16_NOISE,
+        streams="bfloat16 dh, g, c in; bfloat16 dx out")
+    if not errs["err_h"] <= PATH_TOL:
+        fail(f"bilstm_fwd bf16 {shape}: h err {errs['err_h']} > {PATH_TOL}")
+    for name in ("ulps_g", "ulps_c", "ulps_dx", "ulps_dx_own_res"):
+        if not errs[name] <= BF16_ULPS:
+            fail(f"bilstm training kernels bf16 {shape}: {name} "
+                 f"{errs[name]} > {BF16_ULPS}")
+    return {"bilstm_fwd": dict(bf16_ms=fwd_ms, bf16_bound_ms=fwd_bound,
+                               bf16_bound_by=fwd_by,
+                               bf16_max_ulps=max(errs["ulps_g"],
+                                                 errs["ulps_c"]),
+                               bf16_err_h=errs["err_h"]),
+            "bilstm_bwd": dict(bf16_ms=bwd_ms, bf16_bound_ms=bwd_bound,
+                               bf16_bound_by=bwd_by,
+                               bf16_max_ulps=errs["ulps_dx"])}
+
+
+def check_multi_train_bf16(b: int, hs, reps: int) -> dict:
+    """``multi_bilstm_fwd`` and ``multi_bilstm_bwd`` at bfloat16 residuals
+    against their plain versions at bfloat16, on ``check_multi_train``'s
+    inputs: h and dx (float32 on this op, as the JAX multi-stream VJP
+    keeps dh and dx) within ``PATH_TOL`` (dx relative to its max), g and
+    c within ``BF16_ULPS``; the gradient kernel on the plain forward's
+    residuals and on the kernel forward's own. Times each (call and
+    device time) beside its bound at these bytes."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import multi_bilstm
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11 * b + len(hs))
+    xps, ws, dhs = [], [], []
+    for h in hs:
+        for _ in range(2):
+            xps.append(torch.randn(T, b, 4 * h, device="cuda", generator=gen))
+            ws.append(torch.randn(4 * h, h, device="cuda", generator=gen)
+                      * h ** -0.5)
+            dhs.append(torch.randn(T, b, h, device="cuda", generator=gen))
+    n, d2 = len(hs), 2 * len(hs)
+    got = multi_bilstm.multi_bilstm_forward_cuda(n, *xps, *ws,
+                                                 residual_dtype=bf16)
+    want = multi_bilstm.multi_bilstm_forward_reference(n, *xps, *ws,
+                                                       residual_dtype=bf16)
+    res = want[d2:]
+    dx = multi_bilstm.multi_bilstm_backward_cuda(n, *dhs, *res, *ws)
+    dx_ref = multi_bilstm.multi_bilstm_backward_reference(n, *dhs, *res, *ws)
+    dx_own = multi_bilstm.multi_bilstm_backward_cuda(n, *dhs, *got[d2:], *ws)
+    dx_own_ref = multi_bilstm.multi_bilstm_backward_reference(
+        n, *dhs, *got[d2:], *ws)
+    torch.cuda.synchronize()
+    check_dtypes("multi_bilstm_fwd bf16 h", got[:d2], torch.float32)
+    check_dtypes("multi_bilstm_fwd bf16 g, c", got[d2:], bf16)
+    check_dtypes("multi_bilstm_bwd bf16 dx", dx, torch.float32)
+    errs = dict(err_h=abs_err(got[:d2], want[:d2]),
+                ulps_g=bf16_ulps(got[d2:2 * d2], want[d2:2 * d2]),
+                ulps_c=bf16_ulps(got[2 * d2:], want[2 * d2:]),
+                err_dx_rel=rel_err(dx, dx_ref),
+                err_dx_own_res_rel=rel_err(dx_own, dx_own_ref))
+
+    def fwd():
+        return multi_bilstm.multi_bilstm_forward_cuda(n, *xps, *ws,
+                                                      residual_dtype=bf16)
+
+    def bwd():
+        return multi_bilstm.multi_bilstm_backward_cuda(n, *dhs, *res, *ws)
+
+    fwd_ms, bwd_ms = time_ms(fwd, reps), time_ms(bwd, reps)
+    fwd_device_ms = kernel_device_ms(fwd, reps)
+    bwd_device_ms = kernel_device_ms(bwd, reps)
+    dirs = [h for h in hs for _ in (0, 1)]
+    fwd_bound, fwd_by = lstm_bound(T, b, dirs, "fwd", resid_bytes=2)
+    bwd_bound, bwd_by = lstm_bound(T, b, dirs, "bwd", resid_bytes=2)
+    shape = f"T{T}xB{b}xH{'/'.join(map(str, hs))}"
+    log("kernel multi_bilstm_fwd bf16", shape=shape, ms=f"{fwd_ms:.6g}",
+        device_ms=f"{fwd_device_ms:.6g}", bound_ms=f"{fwd_bound:.6g}",
+        bound_by=fwd_by, err_h=f"{errs['err_h']:.3g}", h_tol=PATH_TOL,
+        max_ulps_g=f"{errs['ulps_g']:.3g}", max_ulps_c=f"{errs['ulps_c']:.3g}",
+        ulps_tol=BF16_ULPS, noise=BF16_NOISE, residuals="bfloat16 g, c")
+    log("kernel multi_bilstm_bwd bf16", shape=shape, ms=f"{bwd_ms:.6g}",
+        device_ms=f"{bwd_device_ms:.6g}", bound_ms=f"{bwd_bound:.6g}",
+        bound_by=bwd_by, rel_err_dx=f"{errs['err_dx_rel']:.3g}",
+        rel_err_dx_on_kernel_residuals=f"{errs['err_dx_own_res_rel']:.3g}",
+        tol=PATH_TOL, streams="bfloat16 g, c in; float32 dh in, dx out")
+    for name, tol in (("err_h", PATH_TOL), ("ulps_g", BF16_ULPS),
+                      ("ulps_c", BF16_ULPS), ("err_dx_rel", PATH_TOL),
+                      ("err_dx_own_res_rel", PATH_TOL)):
+        if not errs[name] <= tol:
+            fail(f"multi_bilstm training kernels bf16 {shape}: {name} "
+                 f"{errs[name]} > {tol}")
+    return {"multi_bilstm_fwd": dict(
+                bf16_ms=fwd_ms, bf16_device_ms=fwd_device_ms,
+                bf16_bound_ms=fwd_bound, bf16_bound_by=fwd_by,
+                bf16_max_ulps=max(errs["ulps_g"], errs["ulps_c"]),
+                bf16_err_h=errs["err_h"]),
+            "multi_bilstm_bwd": dict(
+                bf16_ms=bwd_ms, bf16_device_ms=bwd_device_ms,
+                bf16_bound_ms=bwd_bound, bf16_bound_by=bwd_by,
+                bf16_rel_err=errs["err_dx_rel"])}
+
+
+def check_bf16_edges() -> None:
+    """The bfloat16 instantiations' other code paths against the plain
+    versions at bfloat16: ``bilstm_fwd`` and ``bilstm_bwd`` at
+    ``check_bwd_edges``' shapes (batch 1, widths not a multiple of 4 or 8,
+    where g and c are stored one by one and read back without cp.async,
+    H=1, batch tiles, the batch limit at H=512), and the multi-stream
+    kernels at every ``MULTI_EDGES`` case whose widths are all on the lane
+    plan; the gradient kernels each on the plain forward's residuals and
+    on the kernel forward's own (the layout check)."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    limit = bilstm.merged_max_batch(512, grad=True)
+    worst = {"err_h": 0.0, "ulps": 0.0, "multi_dx_rel": 0.0}
+    for t, b, h in ((5, 1, 512), (7, 3, 100), (5, 2, 1), (6, 5, 3),
+                    (4, 40, 512), (5, 9, 6), (3, limit, 512)):
+        xp_f, xp_b = rand(t, b, 4 * h), rand(t, b, 4 * h)
+        w_f, w_b = (rand(4 * h, h, scale=h ** -0.5) for _ in range(2))
+        dh = [rand(t, b, h).to(bf16) for _ in range(2)]
+        got = bilstm.bilstm_forward_cuda(xp_f, xp_b, w_f, w_b, bf16)
+        want = bilstm.bilstm_forward_reference(xp_f, xp_b, w_f, w_b, bf16)
+        ulps = [bf16_ulps(got[2:], want[2:])]
+        for res in (want[2:], got[2:]):
+            dx = bilstm.bilstm_backward_cuda(*dh, *res, w_f, w_b)
+            ulps.append(bf16_ulps(dx, bilstm.bilstm_backward_reference(
+                *dh, *res, w_f, w_b)))
+        err_h = abs_err(got[:2], want[:2])
+        if not (err_h <= PATH_TOL and max(ulps) <= BF16_ULPS):
+            fail(f"bilstm bf16 T{t}xB{b}xH{h}: h err {err_h}, ulps {ulps}")
+        worst["err_h"] = max(worst["err_h"], err_h)
+        worst["ulps"] = max(worst["ulps"], *ulps)
+    lane = [c for c in MULTI_EDGES
+            if max(c[2]) <= multi_bilstm.LANE_MAX_H]
+    for t, b, hs in lane:
+        xps, ws = multi_inputs(t, b, hs, SEED + 17 * t + b)
+        n, d2 = len(hs), 2 * len(hs)
+        got = multi_bilstm.multi_bilstm_forward_cuda(n, *xps, *ws,
+                                                     residual_dtype=bf16)
+        want = multi_bilstm.multi_bilstm_forward_reference(
+            n, *xps, *ws, residual_dtype=bf16)
+        dhs = [torch.randn_like(x) for x in want[:d2]]
+        errs = [rel_err(multi_bilstm.multi_bilstm_backward_cuda(
+                    n, *dhs, *res, *ws),
+                multi_bilstm.multi_bilstm_backward_reference(
+                    n, *dhs, *res, *ws)) for res in (want[d2:], got[d2:])]
+        err_h, ulps = abs_err(got[:d2], want[:d2]), bf16_ulps(got[d2:],
+                                                               want[d2:])
+        if not (err_h <= PATH_TOL and ulps <= BF16_ULPS
+                and max(errs) <= PATH_TOL):
+            fail(f"multi_bilstm bf16 T{t}xB{b}xH{hs}: h err {err_h}, ulps "
+                 f"{ulps}, dx rel err {errs}")
+        worst["err_h"] = max(worst["err_h"], err_h)
+        worst["ulps"] = max(worst["ulps"], ulps)
+        worst["multi_dx_rel"] = max(worst["multi_dx_rel"], *errs)
+    # a block-plan width with bfloat16 residuals is refused (A4b)
+    xps, ws = multi_inputs(3, 2, (33,), SEED)
+    try:
+        multi_bilstm.multi_bilstm_forward_cuda(1, *xps, *ws,
+                                               residual_dtype=bf16)
+    except NotImplementedError:
+        pass
+    else:
+        fail("multi_bilstm_fwd took bfloat16 residuals at H=33")
+    log("kernel bf16 edges", merged_shapes=7, multi_shapes=len(lane),
+        max_abs_err_h=f"{worst['err_h']:.3g}", h_tol=PATH_TOL,
+        max_ulps=f"{worst['ulps']:.3g}", ulps_tol=BF16_ULPS,
+        multi_dx_rel_err=f"{worst['multi_dx_rel']:.3g}",
+        max_batch_h512=limit, block_plan="refused at H=33")
+
+
 def phase_train_kernels(reps: int = 10) -> dict:
     """The training kernels at the train steps' shapes. Returns the row
     of each kernel's most expensive main-path shape."""
@@ -1264,6 +1590,18 @@ def phase_train_kernels(reps: int = 10) -> dict:
                     rows[name] = row
         check_bwd_edges()
         check_functions()
+        # bfloat16 residuals (the default config's) at the same shapes:
+        # the keys go into the row of the kernel's first shape
+        for b, h in ((TRAIN_B, 512), (TRAIN_B, 256), (TRAIN_B, 8)):
+            for name, extra in check_bilstm_train_bf16(b, h, reps).items():
+                if "bf16_ms" not in rows[name]:
+                    rows[name].update(extra)
+        for hs in ((8, 32, 1), (32, 1)):
+            for name, extra in check_multi_train_bf16(TRAIN_B, hs,
+                                                      reps).items():
+                if "bf16_ms" not in rows[name]:
+                    rows[name].update(extra)
+        check_bf16_edges()
     return rows
 
 
@@ -1315,8 +1653,8 @@ def phase_bwd_probe(shapes=((TRAIN_B, 512), (TRAIN_B, 256),
     splits = {}
     with tempfile.TemporaryDirectory() as tmp:
         lib = probe_library(tmp, "bilstm_bwd", "BILSTM_BWD_PROBE")
-        lib.bilstm_bwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
-            ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.bilstm_bwd_launch.argtypes = [ctypes.c_void_p] * 12 + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
         n = len(BWD_PROBE_PHASES)
         cycles, laps = (ctypes.c_ulonglong * n)(), (ctypes.c_ulonglong * n)()
         for b, h in shapes:
@@ -1334,10 +1672,12 @@ def phase_bwd_probe(shapes=((TRAIN_B, 512), (TRAIN_B, 256),
             dx = [torch.empty_like(res[0]) for _ in (0, 1)]
 
             def run():
+                # float32 residuals: no carry scratch
                 err = lib.bilstm_bwd_launch(
-                    *[x.data_ptr() for x in (dh_f, dh_b, *res, w_f, w_b, *dx,
-                                             bilstm._barrier_word(xp_f))],
-                    T, b, h, 0, bilstm._stream(xp_f))
+                    *[x.data_ptr() for x in (dh_f, dh_b, *res, w_f, w_b,
+                                             *dx)], None,
+                    bilstm._barrier_word(xp_f).data_ptr(), T, b, h, 0, 0,
+                    bilstm._stream(xp_f))
                 if err:
                     fail(f"bilstm_bwd probe build: CUDA error {err}")
 
@@ -1389,7 +1729,7 @@ def phase_infer_probe(shapes=(("infer", 28, 512), ("fwd", TRAIN_B, 512),
         lib.bilstm_infer_launch.argtypes = [ctypes.c_void_p] * 7 + [
             ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.bilstm_fwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
-            ctypes.c_int] * 5 + [ctypes.c_void_p]
+            ctypes.c_int] * 6 + [ctypes.c_void_p]
         n = len(INFER_PROBE_PHASES)
         cycles, laps = (ctypes.c_ulonglong * n)(), (ctypes.c_ulonglong * n)()
         for kind, b, h in shapes:
@@ -1401,11 +1741,13 @@ def phase_infer_probe(shapes=(("infer", 28, 512), ("fwd", TRAIN_B, 512),
                          for _ in (0, 1)]
                 outs += [torch.empty(T, b, h, device="cuda") for _ in (0, 1)]
             launch = lib.bilstm_fwd_launch if resid else lib.bilstm_infer_launch
+            # splits 0 (the source's plan), float32 residuals, device 0
+            plan = (0, 0, 0) if resid else (0, 0)
 
             def run():
                 err = launch(*[x.data_ptr() for x in (
                     *args, *outs, bilstm._barrier_word(args[0], 2))],
-                    T, b, h, 0, 0, bilstm._stream(args[0]))
+                    T, b, h, *plan, bilstm._stream(args[0]))
                 if err:
                     fail(f"bilstm_{kind} probe build: CUDA error {err}")
 
@@ -1464,7 +1806,8 @@ def phase_multi_probe(shapes=(("infer", 28, (8, 32, 1)),
         lib.multi_bilstm_infer_launch.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 4 + tail)
         lib.multi_bilstm_fwd_launch.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 6 + tail)
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int,
+                                                      ctypes.c_void_p] + tail)
         lib.multi_bilstm_probe_read.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         for kind, b, hs in shapes:
@@ -1479,10 +1822,11 @@ def phase_multi_probe(shapes=(("infer", 28, (8, 32, 1)),
                 for k in range(len(outs) // (2 * n))]
             launch = (lib.multi_bilstm_fwd_launch if resid
                       else lib.multi_bilstm_infer_launch)
+            dtype = (0,) if resid else ()  # float32 residuals
 
             def run():
-                err = launch(2 * n, *ptrs, multi_bilstm._widths(xps), T, b,
-                             0, torch.cuda.current_stream().cuda_stream)
+                err = launch(2 * n, *ptrs, *dtype, multi_bilstm._widths(xps),
+                             T, b, 0, torch.cuda.current_stream().cuda_stream)
                 if err:
                     fail(f"multi_bilstm_{kind} probe build: CUDA error {err}")
 
@@ -1545,8 +1889,8 @@ def phase_multi_bwd_probe(shapes=((TRAIN_B, (8, 32, 1)),
     with tempfile.TemporaryDirectory() as tmp:
         lib = probe_library(tmp, "multi_bilstm_bwd", "MULTI_BILSTM_BWD_PROBE")
         lib.multi_bilstm_bwd_launch.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-            + [ctypes.c_void_p])
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+            + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.multi_bilstm_bwd_probe_read.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         for b, hs in shapes:
@@ -1560,7 +1904,7 @@ def phase_multi_bwd_probe(shapes=((TRAIN_B, (8, 32, 1)),
 
             def run():
                 err = lib.multi_bilstm_bwd_launch(
-                    2 * n, *ptrs, multi_bilstm._widths(gs), T, b, 0,
+                    2 * n, *ptrs, 0, multi_bilstm._widths(gs), T, b, 0,
                     torch.cuda.current_stream().cuda_stream)
                 if err:
                     fail(f"multi_bilstm_bwd probe build: CUDA error {err}")
@@ -1769,6 +2113,74 @@ def grads_of(model) -> dict:
     return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
 
 
+def grad_err(grads: dict, want: dict) -> tuple[float, str]:
+    """The largest max |g - w| / max |w| over the parameters, and its
+    parameter."""
+    worst, key = 0.0, ""
+    for k, g in grads.items():
+        w = want[k]
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if err > worst:
+            worst, key = err, k
+    return worst, key
+
+
+def float32_config():
+    """The config of the float32 phases: float32 residuals and Adam
+    moments, TF32 off (``matmul_precision="highest"``), as every phase
+    before the default config trained compared and timed."""
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+
+    return SpeechSplitConfig(residual_dtype="float32",
+                             adam_mu_dtype="float32",
+                             matmul_precision="highest")
+
+
+# the ops' plain versions: a step on the kernels calls none of them
+PLAIN_VERSIONS = {
+    "bilstm": ("lstm_direction_forward_reference",
+               "lstm_direction_backward_reference",
+               "bilstm_forward_reference", "bilstm_backward_reference",
+               "bilstm_sequence_reference", "bilstm_fused_forward_reference",
+               "bilstm_sequence_fused_reference"),
+    "multi_bilstm": ("lstm_direction_forward_reference",
+                     "lstm_direction_backward_reference",
+                     "multi_bilstm_forward_reference",
+                     "multi_bilstm_backward_reference",
+                     "multi_bilstm_sequence_reference"),
+    "lstm": ("lstm_direction_forward_reference",
+             "lstm_direction_backward_reference", "lstm_sequence_reference"),
+}
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Record every call of the ops' plain versions while the block runs:
+    yields the list of the names called."""
+    from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm
+
+    modules = {"bilstm": bilstm, "multi_bilstm": multi_bilstm, "lstm": lstm}
+    called, saved = [], []
+
+    def counted(name, fn):
+        def run(*args, **kwargs):
+            called.append(name)
+            return fn(*args, **kwargs)
+        return run
+
+    for mod_name, names in PLAIN_VERSIONS.items():
+        module = modules[mod_name]
+        for name in names:
+            fn = getattr(module, name)
+            saved.append((module, name, fn))
+            setattr(module, name, counted(f"{mod_name}.{name}", fn))
+    try:
+        yield called
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
 def train_phase(name: str, model: str, expected: dict, batch, reps: int = 12,
                 layers: str = "default"):
     """One train step's launches, the step against the plain step, 5
@@ -1778,15 +2190,13 @@ def train_phase(name: str, model: str, expected: dict, batch, reps: int = 12,
     import numpy as np
     import torch
 
-    from speechsplit_tpu_torch.config import SpeechSplitConfig
     from speechsplit_tpu_torch.training import (
         create_train_state,
         make_f0_train_step,
         make_train_step,
     )
 
-    config = SpeechSplitConfig(residual_dtype="float32",
-                               adam_mu_dtype="float32")
+    config = float32_config()
     make = make_train_step if model == "speechsplit" else make_f0_train_step
     step = make(config)
 
@@ -1808,15 +2218,10 @@ def train_phase(name: str, model: str, expected: dict, batch, reps: int = 12,
             plain_state, plain_loss = step(plain_state, batch)
         plain_grads = grads_of(plain_state.model)
     loss_err = abs(float(loss) - float(plain_loss)) / abs(float(plain_loss))
-    grad_err, worst = 0.0, ""
-    for key, g in grads.items():
-        w = plain_grads[key]
-        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
-        if err > grad_err:
-            grad_err, worst = err, key
-    if not (loss_err <= STEP_TOL and grad_err <= STEP_TOL):
+    max_grad_err, worst = grad_err(grads, plain_grads)
+    if not (loss_err <= STEP_TOL and max_grad_err <= STEP_TOL):
         fail(f"{name} step vs plain step: loss rel err {loss_err}, grad "
-             f"rel err {grad_err} ({worst}) > {STEP_TOL}")
+             f"rel err {max_grad_err} ({worst}) > {STEP_TOL}")
 
     losses = [float(loss)]
     with route(layers):
@@ -1850,7 +2255,7 @@ def train_phase(name: str, model: str, expected: dict, batch, reps: int = 12,
                        timing=f"{layers} and default steps in turns")
     log(f"train {name}", batch=f"B{TRAIN_B}xT{config.max_len_pad}",
         loss_rel_err_vs_plain=f"{loss_err:.3g}",
-        max_grad_rel_err_vs_plain=f"{grad_err:.3g}", worst_param=worst,
+        max_grad_rel_err_vs_plain=f"{max_grad_err:.3g}", worst_param=worst,
         tol=STEP_TOL, losses=",".join(f"{v:.6f}" for v in losses),
         largest_param_change=f"{changed:.3g}", steps=reps,
         median_ms_per_step=f"{ms:.4f}", q1_ms=f"{q1:.4f}", q3_ms=f"{q3:.4f}",
@@ -1873,6 +2278,205 @@ def phase_train():
         {"bilstm_fwd": 2, "bilstm_bwd": 2, "multi_bilstm_fwd": 1,
          "multi_bilstm_bwd": 1}, batch)
     return gen_launches, f0_launches, state, step, batch
+
+
+def train_default_phase(name: str, model: str, expected: dict, batch,
+                        reps: int = 12) -> dict:
+    """The default config's train step (``SpeechSplitConfig()``: bfloat16
+    residuals and Adam mu, TF32 matmuls and convolutions): its launches in
+    one step, exactly ``expected``, with no call of a plain version; its
+    loss and every gradient against the plain step at the same config
+    (``plain_training_kernels``: the Functions on their plain versions),
+    within ``BF16_STEP_TOL``, and the same with TF32 off; beside them the
+    error of each against the exact float32 plain step (float32
+    residuals, TF32 off), bfloat16's error (recorded); 5 steps with a
+    finite loss; the median ms a step, timed in turns with the float32
+    step (``float32_config``) on the same batch. Returns the step's
+    launches."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.training import (
+        create_train_state,
+        make_f0_train_step,
+        make_train_step,
+    )
+
+    make = make_train_step if model == "speechsplit" else make_f0_train_step
+    f32 = float32_config()
+    with strict_float32(f"{name} float32 reference"):
+        exact = create_train_state(f32, SEED, model)
+        with plain_kernels():
+            exact, exact_loss = make(f32)(exact, batch)
+        exact_grads = grads_of(exact.model)
+    del exact
+    errs, launches, state = {}, None, None
+    for label, config in (
+            ("default", SpeechSplitConfig()),
+            ("tf32_off", SpeechSplitConfig(matmul_precision="highest"))):
+        plain = create_train_state(config, SEED, model)
+        reset_launches()
+        with plain_training_kernels():
+            plain, plain_loss = make(config)(plain, batch)
+        if any(read_launches().values()):
+            fail(f"{name} {label}: the plain step launched a kernel")
+        plain_grads = grads_of(plain.model)
+        del plain
+        run = create_train_state(config, SEED, model)
+        torch.cuda.synchronize()
+        reset_launches()
+        with plain_calls() as called:
+            run, loss = make(config)(run, batch)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        for kernel, count in counts.items():
+            if count != expected.get(kernel, 0):
+                fail(f"{name} {label} step launched {kernel} {count} times, "
+                     f"expected {expected.get(kernel, 0)}")
+        if called:
+            fail(f"{name} {label} step called plain versions: "
+                 f"{sorted(set(called))}")
+        mu = {str(s["exp_avg"].dtype) for s in run.optimizer.state.values()}
+        if mu != {"torch.bfloat16"}:
+            fail(f"{name} {label} step: Adam mu dtypes {mu}")
+        grads = grads_of(run.model)
+        worst, key = grad_err(grads, plain_grads)
+        vs_f32, f32_key = grad_err(grads, exact_grads)
+        errs[label] = dict(
+            loss=abs(float(loss) - float(plain_loss)) / abs(float(plain_loss)),
+            grad=worst, worst_param=key,
+            loss_vs_f32=abs(float(loss) - float(exact_loss)) / abs(
+                float(exact_loss)),
+            grad_vs_f32=vs_f32, worst_param_vs_f32=f32_key)
+        if not (errs[label]["loss"] <= BF16_STEP_TOL
+                and worst <= BF16_STEP_TOL):
+            fail(f"{name} {label} step vs the plain step: loss rel err "
+                 f"{errs[label]['loss']}, grad rel err {worst} ({key}) > "
+                 f"{BF16_STEP_TOL}")
+        if label == "default":
+            launches, state, step = counts, run, make(config)
+            losses = [float(loss)]
+        del run
+    for _ in range(4):
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+    if not np.isfinite(losses).all():
+        fail(f"{name} default config: losses {losses}")
+    f32_state, f32_step = create_train_state(f32, SEED, model), make(f32)
+    samples = {"default": [], "float32": []}
+    for r in range(reps):
+        for label in (("default", "float32") if r % 2 == 0
+                      else ("float32", "default")):
+            run, fn = ((state, step) if label == "default"
+                       else (f32_state, f32_step))
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fn(run, batch)
+            torch.cuda.synchronize()
+            samples[label].append((time.perf_counter() - start) * 1e3)
+    med = {k: float(np.median(v)) for k, v in samples.items()}
+    fields = {}
+    for label, e in errs.items():
+        fields.update({
+            f"{label}_loss_rel_err_vs_plain": f"{e['loss']:.3g}",
+            f"{label}_max_grad_rel_err_vs_plain": f"{e['grad']:.3g}",
+            f"{label}_worst_param": e["worst_param"],
+            f"{label}_loss_rel_err_vs_float32": f"{e['loss_vs_f32']:.3g}",
+            f"{label}_max_grad_rel_err_vs_float32": f"{e['grad_vs_f32']:.3g}",
+            f"{label}_worst_param_vs_float32": e["worst_param_vs_f32"]})
+    log(f"train {name} default config", batch=f"B{TRAIN_B}xT{T}",
+        config="residual_dtype=bfloat16,adam_mu_dtype=bfloat16,"
+        "grad_dtype=float32,matmul_precision=default (tf32_off: highest)",
+        plain="the Functions on their plain versions, same config",
+        float32="the plain float32 step, TF32 off (recorded)",
+        **fields, tol=BF16_STEP_TOL,
+        losses=",".join(f"{v:.6f}" for v in losses),
+        steps=reps, median_ms_per_step=f"{med['default']:.4f}",
+        float32_median_ms_per_step=f"{med['float32']:.4f}",
+        default_rounds_ms=",".join(f"{v:.4f}" for v in samples["default"]),
+        float32_rounds_ms=",".join(f"{v:.4f}" for v in samples["float32"]),
+        timing="default and float32 (TF32 off) steps in turns",
+        plain_calls=0, launches=json.dumps(launches).replace(" ", ""))
+    return launches
+
+
+def phase_train_default(gen_per_step: dict, f0_per_step: dict, batch):
+    """Both train steps at the default config (``train_default_phase``),
+    each expected to launch what its float32 step launches."""
+    return (train_default_phase("generator", "speechsplit", gen_per_step,
+                                batch),
+            train_default_phase("f0_converter", "f0_converter", f0_per_step,
+                                batch))
+
+
+def phase_train_cli_default(gen_per_step: dict, f0_per_step: dict) -> None:
+    """``cli.train`` at the default config (no precision in --hparams) for
+    both models: ``CLI_STEPS`` iterations with a checkpoint every
+    ``CLI_SAVE``, their launches, finite losses, Adam's mu bfloat16 in
+    every checkpoint, and a resume from step ``CLI_SAVE`` whose state
+    before its first step equals the checkpoint's."""
+    import shutil
+
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.interop import load_reference_checkpoint
+    from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+    from speechsplit_tpu_torch.training import checkpoint as ckpt_lib
+
+    config = SpeechSplitConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        root_dir, feat_dir = write_feature_tree(tmp, config, SEED + 5)
+        for model, tag, per_step, cls in (
+                ("speechsplit", "G", gen_per_step, SpeechSplit),
+                ("f0_converter", "P", f0_per_step, F0Converter)):
+            run = os.path.join(tmp, f"run_{tag}")
+            models = os.path.join(run, "models")
+
+            def args(save_dir, iters, *extra):
+                return [
+                    "--num_iters", str(iters), "--model_save_dir", save_dir,
+                    "--log_step", str(CLI_SAVE), "--model_save_step",
+                    str(CLI_SAVE), "--sample_step", "1000", "--model", model,
+                    "--log_dir", os.path.join(run, "logs"),
+                    "--sample_dir", os.path.join(run, "samples"),
+                    "--validation_path", os.path.join(tmp, "no_such.pkl"),
+                    "--hparams", f"root_dir={root_dir},feat_dir={feat_dir}",
+                    "--device", "cuda", *extra]
+
+            losses, _, _ = run_cli_train(args(models, CLI_STEPS), CLI_STEPS,
+                                         per_step, f"{model} default config")
+            for step in (CLI_SAVE, CLI_STEPS):
+                path = ckpt_lib.checkpoint_path(models, step, tag)
+                cls(config).load_state_dict(load_reference_checkpoint(path),
+                                            strict=True)
+                mu = {str(s["exp_avg"].dtype) for s in torch.load(
+                    path, map_location="cpu",
+                    weights_only=True)["optimizer"]["state"].values()}
+                if mu != {"torch.bfloat16"}:
+                    fail(f"train.cli default config: {step}-{tag}.ckpt "
+                         f"holds mu in {mu}")
+            resumed = os.path.join(run, "resumed")
+            shutil.copytree(models, resumed)
+            r_losses, r_record, _ = run_cli_train(
+                args(resumed, CLI_STEPS - CLI_SAVE, "--resume_iters",
+                     str(CLI_SAVE)),
+                CLI_STEPS - CLI_SAVE, per_step, f"{model} default resumed")
+            saved = torch.load(ckpt_lib.checkpoint_path(models, CLI_SAVE, tag),
+                               map_location="cpu", weights_only=True)
+            if not same_state(r_record["first"], saved):
+                fail(f"train.cli default config {model}: the resumed state "
+                     f"before its first step differs from "
+                     f"{CLI_SAVE}-{tag}.ckpt")
+            log("train.cli default config", model=model, steps=CLI_STEPS,
+                hparams="root_dir,feat_dir only",
+                checkpoints=f"{CLI_SAVE}-{tag},{CLI_STEPS}-{tag} strict, "
+                "mu bfloat16",
+                resumed_from=f"{CLI_SAVE}-{tag} state equal",
+                losses=",".join(f"{v:.6f}" for v in losses + r_losses),
+                launches_a_step=json.dumps(per_step).replace(" ", ""))
+            shutil.rmtree(run)
 
 
 def phase_profile_train(state, step, batch, top: int = 14) -> None:
@@ -2190,7 +2794,6 @@ def phase_train_cli(gen_per_step: dict, f0_per_step: dict) -> None:
     import numpy as np
     import torch
 
-    from speechsplit_tpu_torch.config import SpeechSplitConfig
     from speechsplit_tpu_torch.interop import load_reference_checkpoint
     from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
     from speechsplit_tpu_torch.training import (
@@ -2201,9 +2804,9 @@ def phase_train_cli(gen_per_step: dict, f0_per_step: dict) -> None:
     )
     from speechsplit_tpu_torch.training import checkpoint as ckpt_lib
 
-    config = SpeechSplitConfig(residual_dtype="float32",
-                               adam_mu_dtype="float32")
-    hparams = "residual_dtype=float32,adam_mu_dtype=float32"
+    config = float32_config()
+    hparams = ("residual_dtype=float32,adam_mu_dtype=float32,"
+               "matmul_precision=highest")
     host_batch = synthetic_batch(config, SEED)
     with tempfile.TemporaryDirectory() as tmp, strict_float32("train.cli"):
         root_dir, feat_dir = write_feature_tree(tmp, config, SEED + 3)
@@ -3326,14 +3929,20 @@ CODEGEN_SOURCES = ("bilstm_infer", "bilstm_bwd", "lstm_infer", "lstm_bwd",
 KERNEL_ENTRY = re.compile(
     r"((?:multi_)?(?:bi)?lstm_(?:bwd_lane|bwd_narrow|bwd_wide|fwd_narrow"
     r"|fwd_wide|infer|fused|bwd|wide_step|narrow|lane)_kernel)"
-    r"(?:I((?:L[ib]\d+E)+)E)?")
+    r"(?:I((?:L[ib]\d+E|f|13__nv_bfloat16)+)E)?")
 
 
 def _entry(match) -> str:
+    """A kernel's key: its name and its template arguments, integers and
+    bf16 for a bfloat16 residual type. A float residual type is left out,
+    so that a float32 instance keeps the key of the kernel before the
+    residual type was a template argument (``--against`` lines up the
+    trees' rows by key)."""
     if match[2] is None:
         return match[1]
-    args = re.findall(r"L[ib](\d+)E", match[2])
-    return f"{match[1]}<{','.join(args)}>"
+    args = [num or "bf16" for num, bf16 in re.findall(
+        r"L[ib](\d+)E|13(__nv_bfloat16)", match[2])]
+    return f"{match[1]}<{','.join(args)}>" if args else match[1]
 
 
 def ptxas_rows(log_text: str) -> dict:
@@ -3568,7 +4177,8 @@ out["convert_batched 4 pairs device busy ms"] = sum(
     if str(getattr(e, "device_type", "")).endswith("CUDA")
     and not getattr(e, "is_user_annotation", False)) / 1e3
 del g_model, p_model, pairs
-config = SpeechSplitConfig(residual_dtype="float32", adam_mu_dtype="float32")
+config = SpeechSplitConfig(residual_dtype="float32", adam_mu_dtype="float32",
+                           matmul_precision="highest")
 batch = c.synthetic_batch(SpeechSplitConfig(), c.SEED)
 # each step on the default route and with the single-direction route
 # forced (phase 14), in turns
@@ -3625,11 +4235,21 @@ def ab_main(other: str, rounds: int) -> int:
 
     print(card_line(), flush=True)
     trees = {"other": os.path.abspath(other), "this": os.getcwd()}
+    codegen = {}
     for label, tree in trees.items():
         if not os.path.exists(os.path.join(tree, "chip_smoke.py")):
             fail(f"{tree} is not a checkout")
-        for kernel, row in sorted(kernel_codegen(tree).items()):
+        codegen[label] = kernel_codegen(tree)
+        for kernel, row in sorted(codegen[label].items()):
             log(f"codegen {label}", kernel=kernel, **row)
+    # the kernels of both trees, by key: the same machine code or not
+    for kernel in sorted(set(codegen["this"]) | set(codegen["other"])):
+        hashes = [codegen[label].get(kernel, {}).get("sass_sha256")
+                  for label in ("other", "this")]
+        log("codegen same", kernel=kernel,
+            same_sass=None in hashes and "only_in_" + (
+                "this" if hashes[0] is None else "other")
+            or hashes[0] == hashes[1])
     pairs = refused_pairs()
     for label, tree in trees.items():
         proc = subprocess.run([sys.executable, "-c", PROBE_CHILD, str(pairs)],
@@ -3703,10 +4323,13 @@ def main() -> int:
     phase_lstm_fwd_probe()
     gen_launches, f0_launches, state, step, batch = phase_train()
     phase_profile_train(state, step, batch)
-    phase_train_cli(
-        {k: v for k, v in gen_launches.items() if v},
-        {k: v for k, v in f0_launches.items() if v})
     del state, step
+    gen_per_step = {k: v for k, v in gen_launches.items() if v}
+    f0_per_step = {k: v for k, v in f0_launches.items() if v}
+    gen_launches, f0_launches = phase_train_default(gen_per_step,
+                                                    f0_per_step, batch)
+    phase_train_cli(gen_per_step, f0_per_step)
+    phase_train_cli_default(gen_per_step, f0_per_step)
     rows.update(phase_fused_kernels())
     fused_convert = phase_convert_fused()
     fused_gen, fused_f0 = phase_train_fused(batch)
@@ -3715,10 +4338,10 @@ def main() -> int:
     single_gen, single_f0 = phase_train_single(batch)
     log("done", seconds=f"{time.perf_counter() - wall:.1f}")
     # launches: the conversion call's for the inference kernels, one
-    # generator train step's for the training kernels (the F0 step's
-    # beside them); the fused kernels' from the runs with fusion on, the
-    # single-direction kernels' from the large conversion and the steps
-    # on the single-direction route
+    # default-config generator train step's for the training kernels (the
+    # F0 step's beside them); the fused kernels' from the runs with fusion
+    # on, the single-direction kernels' from the large conversion and the
+    # steps on the single-direction route
     launches.update({k: gen_launches[k] for k in TRAINING_KERNELS})
     launches["bilstm_fused_infer"] = fused_convert["bilstm_fused_infer"]
     launches["bilstm_fused_fwd"] = fused_gen["bilstm_fused_fwd"]

@@ -4,12 +4,15 @@ The JAX package's flag surface (the reference's main.py:41-59 plus
 ``--model``, ``--hparams`` and the rest), and ``--device``:
 
     python -m speechsplit_tpu_torch.cli.train --num_iters 1000 \\
-        --hparams "root_dir=spmel,feat_dir=raptf0,residual_dtype=float32,adam_mu_dtype=float32"
+        --hparams "root_dir=spmel,feat_dir=raptf0"
 
-Runs on ``cuda`` unless ``--device cpu`` is given. The port trains in
-float32 only, so the default config (bfloat16 residuals and Adam mu)
-raises until ``--hparams`` says float32. Flags of work still queued in
-ROADMAP.md raise naming it: ``--num_devices`` above 1 (A8),
+Runs on ``cuda`` unless ``--device cpu`` is given. The default config
+trains as it stands: bfloat16 residuals and Adam mu, float32 gradients,
+TF32 matmuls and convolutions (``matmul_precision="default"``);
+``--hparams`` sets any of them (``residual_dtype=float32,
+adam_mu_dtype=float32,matmul_precision=highest`` trains in float32
+throughout). ``compute_dtype=bfloat16`` raises (ROADMAP.md A4b). Flags of
+work still queued in ROADMAP.md raise naming it: ``--num_devices`` above 1 (A8),
 ``--steps_per_dispatch`` above 1, ``--data_on_device`` and
 ``--resident_dtype bfloat16`` (A3), and ``--wav_dir`` and ``--spk2gen``
 (A6).

@@ -74,8 +74,9 @@ class SpeechSplitConfig:
     adam_b2: float = 0.999
 
     # --- precision and layout knobs (no reference counterpart) -------------
-    # The port's kernels run float32 only; "bfloat16" compute is queued
-    # in ROADMAP.md and refused by the kernel wrappers.
+    # The defaults are the JAX package's and train as they stand (bfloat16
+    # residuals and Adam mu); "bfloat16" compute is queued in ROADMAP.md
+    # A4b and refused by the models and the kernel wrappers.
     compute_dtype: str = "float32"
     residual_dtype: str = "bfloat16"
     matmul_precision: str = "default"

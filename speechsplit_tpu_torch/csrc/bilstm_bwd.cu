@@ -1,4 +1,5 @@
-// Merged bidirectional LSTM layer, gradient recurrence, float32.
+// Merged bidirectional LSTM layer, gradient recurrence, float32 or on
+// bfloat16 residuals.
 //
 // Replaces: speechsplit_tpu/ops/pallas_lstm.py::_bd_bwd_kernel (wrapper
 // _bd_bwd_call), the TPU kernel that runs the gate-gradient recurrence of
@@ -18,6 +19,17 @@
 // c_f, c_b [T, B, H]; w_f, w_b [4H, H] (torch's weight_hh_l{k}); out
 // dx_f, dx_b [T, B, 4H] = d_pre, the cotangent of the projected inputs.
 // dW_hh is one GEMM outside (ops/bilstm.py), as in the JAX package.
+// dh, g, c and dx are float32, or all bfloat16 as _bd_bwd_call runs under
+// the JAX default residual_dtype: the residuals and dh are widened where
+// they are read (pallas_lstm.py:806-810), the dh, dc and d_pre carries
+// stay float32 (:826), and dx is d_pre rounded as it is stored (:870).
+// The next step's product must read d_pre unrounded, so the bfloat16
+// kernel keeps it in a float32 scratch of two steps a direction (by step
+// parity: a step's readers pass the grid barrier before any block writes
+// that parity again) and stages it from there, where the float32 kernel
+// stages it from dx itself. bfloat16 residuals go into shared memory 8
+// to a 16-byte copy in the plan of the float32 ones (half of it unused),
+// so both take the same batch.
 //
 // What bounds it on an H100: the recurrence, as in the forward. Step s
 // needs all of the previous step's d_pre, because dh_carry of unit k sums
@@ -63,6 +75,7 @@
 #include <cuda_runtime.h>
 
 #include "merged_step.cuh"
+#include "resid.cuh"
 
 namespace {
 
@@ -115,12 +128,20 @@ struct Args {
   float* dx[2];
   unsigned* barrier;  // zeroed before the launch
   int T, B, H, blocks_per_dir, units, bt;
+  // bfloat16 residuals only: [2 directions][2 step parities][B][4H], the
+  // float32 d_pre of the last two steps
+  float* carry;
 };
 
 // Shared memory: d_s [bt][4H] the previous step's d_pre tile; res_s
-// [2][kRes][bt][units] two buffers of residuals; red_s [bt][kWarps]
-// [units] the warps' partial sums; dc_s [units][B] the dc carry.
-template <int KQ>  // passes of kJSpan rows j: ceil(4H / kJSpan)
+// [2][kRes][bt][units] two buffers of residuals (in R, the bfloat16 ones
+// in the first half of the float plan); red_s [bt][kWarps][units] the
+// warps' partial sums; dc_s [units][B] the dc carry.
+// KQ: passes of kJSpan rows j, ceil(4H / kJSpan). R: the element type of
+// dh, g, c and dx, float or bfloat16; with bfloat16 the d_pre that the
+// next step's product reads is the float32 one of a.carry, and dx holds
+// it rounded.
+template <int KQ, typename R = float>
 __global__ void __launch_bounds__(kThreads, 1)
 bilstm_bwd_kernel(const Args a) {
   extern __shared__ __align__(16) float smem[];
@@ -133,11 +154,15 @@ bilstm_bwd_kernel(const Args a) {
 
   const int dir = blockIdx.x / a.blocks_per_dir;
   const int blk = blockIdx.x % a.blocks_per_dir;
-  const float* dho = dir == 0 ? a.dh[0] : a.dh[1];
-  const float* gin = dir == 0 ? a.g[0] : a.g[1];
-  const float* cin = dir == 0 ? a.c[0] : a.c[1];
+  constexpr bool kF32 = std::is_same<R, float>::value;
+  const R* dho = reinterpret_cast<const R*>(dir == 0 ? a.dh[0] : a.dh[1]);
+  const R* gin = reinterpret_cast<const R*>(dir == 0 ? a.g[0] : a.g[1]);
+  const R* cin = reinterpret_cast<const R*>(dir == 0 ? a.c[0] : a.c[1]);
   const float* w = dir == 0 ? a.w[0] : a.w[1];
-  float* dx = dir == 0 ? a.dx[0] : a.dx[1];
+  R* dx = reinterpret_cast<R*>(dir == 0 ? a.dx[0] : a.dx[1]);
+  // bfloat16: this direction's d_pre of the last two steps, by parity
+  float* carry =
+      kF32 ? nullptr : a.carry + static_cast<size_t>(dir) * 2 * B * G;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -171,8 +196,8 @@ bilstm_bwd_kernel(const Args a) {
     const int tc = dir == 0 ? t - 1 : t + 1;  // c_prev's time index
     const bool has_cp = tc >= 0 && tc < T;
     const int nb = min(bt, B - b0);
-    float* dst0 = res_s + buf * kRes * bt * units;
-    auto src_of = [&](int k, int b, int u) -> const float* {
+    R* dst0 = reinterpret_cast<R*>(res_s) + buf * kRes * bt * units;
+    auto src_of = [&](int k, int b, int u) -> const R* {
       const size_t row = static_cast<size_t>(t) * B + b;
       if (k < 4) return gin + row * G + k * H + u0 + u;
       if (k == 4) return cin + row * H + u0 + u;
@@ -182,7 +207,28 @@ bilstm_bwd_kernel(const Args a) {
       }
       return dho + row * H + u0 + u;
     };
-    if (quads) {
+    if constexpr (!kF32) {
+      // 8 bfloat16s a 16-byte copy where every run is one whole group of
+      // 8 (cp.async has no 2-byte form), else loads one by one
+      if ((H & 7) == 0 && units == 8) {
+        for (int i = tid; i < kRes * nb; i += kThreads) {
+          const int k = i / nb;
+          const int bb = i % nb;
+          const bool ok = k != 5 || has_cp;
+          step::copy16(dst0 + (k * bt + bb) * units,
+                       ok ? src_of(k, b0 + bb, 0) : cin, ok);
+        }
+      } else {
+        for (int i = tid; i < kRes * nb * units; i += kThreads) {
+          const int k = i / (nb * units);
+          const int bb = (i / units) % nb;
+          const int u = i % units;
+          const bool ok = u < nu && (k != 5 || has_cp);
+          dst0[(k * bt + bb) * units + u] =
+              ok ? __ldg(src_of(k, b0 + bb, u)) : resid::narrow<R>(0.0f);
+        }
+      }
+    } else if (quads) {
       const int nq = units / 4;
       for (int i = tid; i < kRes * nb * nq; i += kThreads) {
         const int k = i / (nb * nq);
@@ -224,7 +270,12 @@ bilstm_bwd_kernel(const Args a) {
       if (s > 0) {
         // the previous step's d_pre rows, written by every block: all
         // copies in flight at once
-        const float* src = dx + (static_cast<size_t>(tp) * B + b0) * G;
+        const float* src;
+        if constexpr (kF32) {
+          src = dx + (static_cast<size_t>(tp) * B + b0) * G;
+        } else {
+          src = carry + (static_cast<size_t>((s - 1) & 1) * B + b0) * G;
+        }
         for (int i = tid; i < nb * G / 4; i += kThreads) {
           step::copy16(d_s + 4 * i, src + 4 * i);
         }
@@ -269,7 +320,8 @@ bilstm_bwd_kernel(const Args a) {
         __syncthreads();  // every warp's partial sums are in red_s
       }
       PROBE_LAP(2);
-      const float* res = res_s + buf * kRes * bt * units;
+      const R* res =
+          reinterpret_cast<const R*>(res_s) + buf * kRes * bt * units;
       for (int i = tid; i < nb * units; i += kThreads) {
         const int bb = i / units;
         const int u = i % units;
@@ -283,20 +335,38 @@ bilstm_bwd_kernel(const Args a) {
         }
         const int off = bb * units + u;
         const int plane = bt * units;
-        const float i_g = res[off], f_g = res[plane + off];
-        const float g_g = res[2 * plane + off], o_g = res[3 * plane + off];
-        const float tanh_c = tanhf(res[4 * plane + off]);
-        const float c_prev = res[5 * plane + off];
-        const float dh = res[6 * plane + off] + dh_carry;
+        const float i_g = resid::widen(res[off]);
+        const float f_g = resid::widen(res[plane + off]);
+        const float g_g = resid::widen(res[2 * plane + off]);
+        const float o_g = resid::widen(res[3 * plane + off]);
+        const float tanh_c = tanhf(resid::widen(res[4 * plane + off]));
+        const float c_prev = resid::widen(res[5 * plane + off]);
+        const float dh = resid::widen(res[6 * plane + off]) + dh_carry;
         const float d_o = dh * tanh_c;
         const int b = b0 + bb;
         float* dcp = dc_s + u * B + b;
         const float dc = *dcp + dh * o_g * (1.0f - tanh_c * tanh_c);
-        float* out = dx + (static_cast<size_t>(t) * B + b) * G + u0 + u;
-        out[0] = dc * g_g * i_g * (1.0f - i_g);
-        out[H] = dc * c_prev * f_g * (1.0f - f_g);
-        out[2 * H] = dc * i_g * (1.0f - g_g * g_g);
-        out[3 * H] = d_o * o_g * (1.0f - o_g);
+        if constexpr (kF32) {
+          float* out = dx + (static_cast<size_t>(t) * B + b) * G + u0 + u;
+          out[0] = dc * g_g * i_g * (1.0f - i_g);
+          out[H] = dc * c_prev * f_g * (1.0f - f_g);
+          out[2 * H] = dc * i_g * (1.0f - g_g * g_g);
+          out[3 * H] = d_o * o_g * (1.0f - o_g);
+        } else {
+          // the float32 d_pre for the next step's product, dx rounded
+          const float dp[4] = {dc * g_g * i_g * (1.0f - i_g),
+                               dc * c_prev * f_g * (1.0f - f_g),
+                               dc * i_g * (1.0f - g_g * g_g),
+                               d_o * o_g * (1.0f - o_g)};
+          float* keep = carry + (static_cast<size_t>(s & 1) * B + b) * G +
+                        u0 + u;
+          R* out = dx + (static_cast<size_t>(t) * B + b) * G + u0 + u;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            keep[q * H] = dp[q];
+            out[q * H] = resid::narrow<R>(dp[q]);
+          }
+        }
         *dcp = dc * f_g;
       }
       PROBE_LAP(3);
@@ -326,7 +396,7 @@ bilstm_bwd_kernel(const Args a) {
 #endif
 }
 
-template <int KQ>
+template <int KQ, typename R>
 cudaError_t launch(Args a, cudaStream_t stream) {
   a.units = a.H < kMaxUnits ? a.H : kMaxUnits;
   a.blocks_per_dir = (a.H + a.units - 1) / a.units;
@@ -342,7 +412,7 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   a.bt = bt > a.B ? a.B : bt;
   const size_t smem = c_bytes + static_cast<size_t>(a.bt) * row_bytes;
   void* args[] = {&a};
-  return step::launch_cooperative(bilstm_bwd_kernel<KQ>,
+  return step::launch_cooperative(bilstm_bwd_kernel<KQ, R>,
                                   2 * a.blocks_per_dir, kThreads, smem, args,
                                   stream);
 }
@@ -351,13 +421,15 @@ cudaError_t launch(Args a, cudaStream_t stream) {
 
 extern "C" {
 
-// barrier: one 32-bit word, zero at the launch. Returns a cudaError_t (0
+// barrier: one 32-bit word, zero at the launch. dh, g, c and dx are
+// float32, or with resid_bf16 bfloat16, and then carry is a float32
+// scratch of 2 x 2 x B x 4H (unused otherwise). Returns a cudaError_t (0
 // on success). Does not synchronise.
 int bilstm_bwd_launch(const void* dh_f, const void* dh_b, const void* g_f,
                       const void* g_b, const void* c_f, const void* c_b,
                       const void* w_f, const void* w_b, void* dx_f,
-                      void* dx_b, void* barrier, int T, int B, int H,
-                      int device, void* stream) {
+                      void* dx_b, void* carry, void* barrier, int T, int B,
+                      int H, int resid_bf16, int device, void* stream) {
   if (T < 1 || B < 1 || H < 1 || H > kMaxH) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -373,12 +445,18 @@ int bilstm_bwd_launch(const void* dh_f, const void* dh_b, const void* g_f,
   a.dx[0] = static_cast<float*>(dx_f);
   a.dx[1] = static_cast<float*>(dx_b);
   a.barrier = static_cast<unsigned*>(barrier);
+  a.carry = static_cast<float*>(carry);
   a.T = T;
   a.B = B;
   a.H = H;
   auto s = static_cast<cudaStream_t>(stream);
-  if (4 * H <= kJSpan) return launch<1>(a, s);
-  return launch<2>(a, s);
+  if (resid_bf16) {
+    if (carry == nullptr) return cudaErrorInvalidValue;
+    if (4 * H <= kJSpan) return launch<1, resid::bf16>(a, s);
+    return launch<2, resid::bf16>(a, s);
+  }
+  if (4 * H <= kJSpan) return launch<1, float>(a, s);
+  return launch<2, float>(a, s);
 }
 
 const char* bilstm_bwd_error_string(int err) {

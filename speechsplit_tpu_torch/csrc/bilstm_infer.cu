@@ -22,6 +22,10 @@
 // i, f, g, o after their activations) and c_f, c_b [T, B, H]. With kProj
 // the inputs are x [T, B, I] (both directions read it), wi_f, wi_b [4H, I]
 // (torch's weight_ih_l{k}) and b_f, b_b [4H] (b_ih + b_hh) in place of xp.
+// The unfused residual-saving forward stores g and c in float32 or, as
+// _bd_fwd does under the JAX default residual_dtype, in bfloat16 (R):
+// rounded as they are stored, while h and the c carry stay float32
+// (pallas_lstm.py:648-657); the fused ones store float32 only.
 //
 // What bounds it on an H100: the recurrence. Step t needs all of h_{t-1},
 // so the T steps are serial and each is a small [B, H] x [H, 4H] product
@@ -105,6 +109,7 @@
 #include <cuda_runtime.h>
 
 #include "merged_step.cuh"
+#include "resid.cuh"
 
 namespace {
 
@@ -238,8 +243,10 @@ struct Unfused {
 };
 
 // The recurrence of both directions on pre-projected gate inputs. KQ:
-// passes of kKSpan, ceil(H / kKSpan); 0 for the narrow product.
-template <int KQ, bool kResid>
+// passes of kKSpan, ceil(H / kKSpan); 0 for the narrow product. R: the
+// element type of the residuals g and c (kResid), float or bfloat16; they
+// are staged in float32 like h and rounded as they are stored.
+template <int KQ, bool kResid, typename R = float>
 __global__ void __launch_bounds__(kMaxUnits * 32, 1)
 bilstm_infer_kernel(const Unfused a) {
   extern __shared__ __align__(16) float smem_unfused[];
@@ -473,51 +480,100 @@ bilstm_infer_kernel(const Unfused a) {
         }
       }
       __syncthreads();  // the tile's outputs are staged
-      // the tile's outputs, a run of the block's units a (row, output):
-      // lean h (from slot 0); with kResid the gates i, f, g, o, then h, c
-      const int n_out = kResid ? 6 : 1;
-      const int j_h = kResid ? 4 : 0;  // h among them
-      float* next_h = hbuf + (buf ^ 1) * bt * Hp;  // own_h only
-      const size_t row0 = static_cast<size_t>(t) * B + b0;
-      auto out_of = [&](int r, int j, int v, const float** from) {
-        const size_t row = row0 + r;
-        if (!kResid) {
-          *from = x_s + r * xrow + v;
-          return hout + row * H + u0 + v;
-        }
-        if (j < 4) {
-          *from = x_s + r * xrow + j * U + v;
-          return gout + row * 4 * H + j * H + u0 + v;
-        }
-        *from = hc_s + (r * 2 + j - 4) * U + v;
-        return (j == 4 ? hout : cout) + row * H + u0 + v;
-      };
-      if (quads) {
-        const int nq = U / 4;
-        for (int i = tid; i < nb * n_out * nq; i += nthreads) {
-          const int r = i / (n_out * nq);
-          const int j = (i / nq) % n_out;
-          const int q4 = 4 * (i % nq);
-          if (q4 < nu) {
+      if constexpr (!std::is_same<R, float>::value) {
+        // bfloat16 residuals: h as below, g and c rounded, 4 values
+        // in 8 bytes where the runs are whole quads
+        float* next_h = hbuf + (buf ^ 1) * bt * Hp;  // own_h only
+        const size_t row0 = static_cast<size_t>(t) * B + b0;
+        R* gres = reinterpret_cast<R*>(dir == 0 ? a.g[0] : a.g[1]);
+        R* cres = reinterpret_cast<R*>(dir == 0 ? a.c[0] : a.c[1]);
+        // output j of tile row r at unit v: j < 4 the gates, 4 h, 5 c
+        auto res_of = [&](int r, int j, int v, const float** from) -> R* {
+          const size_t row = row0 + r;
+          if (j < 4) {
+            *from = x_s + r * xrow + j * U + v;
+            return gres + row * 4 * H + j * H + u0 + v;
+          }
+          *from = hc_s + (r * 2 + 1) * U + v;
+          return cres + row * H + u0 + v;
+        };
+        const int per = quads ? 4 : 1;  // values a thread stores
+        const int nq = U / per;
+        for (int i = tid; i < nb * 6 * nq; i += nthreads) {
+          const int r = i / (6 * nq);
+          const int j = (i / nq) % 6;
+          const int v = per * (i % nq);
+          if (v >= nu) continue;
+          if (j == 4) {
+            const float* from = hc_s + r * 2 * U + v;
+            float* to = hout + (row0 + r) * H + u0 + v;
+            if (quads) {
+              const float4 hv = *reinterpret_cast<const float4*>(from);
+              *reinterpret_cast<float4*>(to) = hv;
+              if (own_h) {
+                *reinterpret_cast<float4*>(next_h + r * Hp + v) = hv;
+              }
+            } else {
+              *to = *from;
+              if (own_h) next_h[r * Hp + v] = *from;
+            }
+          } else {
             const float* from;
-            float* to = out_of(r, j, q4, &from);
-            const float4 v = *reinterpret_cast<const float4*>(from);
-            *reinterpret_cast<float4*>(to) = v;
-            if (own_h && j == j_h) {
-              *reinterpret_cast<float4*>(next_h + r * Hp + q4) = v;
+            R* to = res_of(r, j, v, &from);
+            if (quads) {
+              resid::store4(to, *reinterpret_cast<const float4*>(from));
+            } else {
+              *to = resid::narrow<R>(*from);
             }
           }
         }
       } else {
-        for (int i = tid; i < nb * n_out * U; i += nthreads) {
-          const int r = i / (n_out * U);
-          const int j = (i / U) % n_out;
-          const int v = i % U;
-          if (v < nu) {
-            const float* from;
-            float* to = out_of(r, j, v, &from);
-            *to = *from;
-            if (own_h && j == j_h) next_h[r * Hp + v] = *from;
+        // the tile's outputs, a run of the block's units a (row, output):
+        // lean h (from slot 0); with kResid the gates i, f, g, o, then h, c
+        const int n_out = kResid ? 6 : 1;
+        const int j_h = kResid ? 4 : 0;  // h among them
+        float* next_h = hbuf + (buf ^ 1) * bt * Hp;  // own_h only
+        const size_t row0 = static_cast<size_t>(t) * B + b0;
+        auto out_of = [&](int r, int j, int v, const float** from) {
+          const size_t row = row0 + r;
+          if (!kResid) {
+            *from = x_s + r * xrow + v;
+            return hout + row * H + u0 + v;
+          }
+          if (j < 4) {
+            *from = x_s + r * xrow + j * U + v;
+            return gout + row * 4 * H + j * H + u0 + v;
+          }
+          *from = hc_s + (r * 2 + j - 4) * U + v;
+          return (j == 4 ? hout : cout) + row * H + u0 + v;
+        };
+        if (quads) {
+          const int nq = U / 4;
+          for (int i = tid; i < nb * n_out * nq; i += nthreads) {
+            const int r = i / (n_out * nq);
+            const int j = (i / nq) % n_out;
+            const int q4 = 4 * (i % nq);
+            if (q4 < nu) {
+              const float* from;
+              float* to = out_of(r, j, q4, &from);
+              const float4 v = *reinterpret_cast<const float4*>(from);
+              *reinterpret_cast<float4*>(to) = v;
+              if (own_h && j == j_h) {
+                *reinterpret_cast<float4*>(next_h + r * Hp + q4) = v;
+              }
+            }
+          }
+        } else {
+          for (int i = tid; i < nb * n_out * U; i += nthreads) {
+            const int r = i / (n_out * U);
+            const int j = (i / U) % n_out;
+            const int v = i % U;
+            if (v < nu) {
+              const float* from;
+              float* to = out_of(r, j, v, &from);
+              *to = *from;
+              if (own_h && j == j_h) next_h[r * Hp + v] = *from;
+            }
           }
         }
       }
@@ -918,7 +974,7 @@ bool plan_fused(Params& p, size_t* smem) {
 // block; the batch tile the largest that fits the budget beside the cell
 // state, then evened out over the tiles it takes. Refuses a batch whose
 // cell state leaves no room for one row of each buffer.
-template <int KQ, bool kResid>
+template <int KQ, bool kResid, typename R>
 cudaError_t launch_unfused(Unfused a, cudaStream_t stream) {
   if (a.splits == 0) {
     a.splits = a.H > kMaxUnits && a.H <= kSplitMaxH ? 2 : 1;
@@ -945,12 +1001,13 @@ cudaError_t launch_unfused(Unfused a, cudaStream_t stream) {
   a.bt = static_cast<int>((a.B + tiles - 1) / tiles);
   const size_t smem = (c_floats + a.bt * row_floats) * sizeof(float);
   void* args[] = {&a};
-  return step::launch_cooperative(bilstm_infer_kernel<KQ, kResid>,
+  return step::launch_cooperative(bilstm_infer_kernel<KQ, kResid, R>,
                                   2 * a.blocks_per_dir, threads, smem, args,
                                   stream);
 }
 
-template <bool kResid>
+// R: the residuals' element type (kResid)
+template <bool kResid, typename R = float>
 int dispatch_unfused(Unfused a, int device, void* stream) {
   if (a.T < 1 || a.B < 1 || a.H < 1 || a.H > kMaxH) {
     return cudaErrorInvalidValue;
@@ -959,10 +1016,10 @@ int dispatch_unfused(Unfused a, int device, void* stream) {
   if (err != cudaSuccess) return err;
   auto s = static_cast<cudaStream_t>(stream);
   const int kq = (a.H + kKSpan - 1) / kKSpan;
-  if (a.H <= kNarrowMaxH) return launch_unfused<0, kResid>(a, s);
-  if (kq <= 1) return launch_unfused<1, kResid>(a, s);
-  if (kq <= 2) return launch_unfused<2, kResid>(a, s);
-  return launch_unfused<4, kResid>(a, s);
+  if (a.H <= kNarrowMaxH) return launch_unfused<0, kResid, R>(a, s);
+  if (kq <= 1) return launch_unfused<1, kResid, R>(a, s);
+  if (kq <= 2) return launch_unfused<2, kResid, R>(a, s);
+  return launch_unfused<4, kResid, R>(a, s);
 }
 
 Unfused unfused(const void* xp_f, const void* xp_b, const void* w_f,
@@ -1062,17 +1119,22 @@ int bilstm_infer_launch(const void* xp_f, const void* xp_b, const void* w_f,
 }
 
 // Residual-saving forward: also writes g_f, g_b [T, B, 4H] and c_f, c_b
-// [T, B, H]. Returns a cudaError_t (0 on success). Does not synchronise.
+// [T, B, H], in float32, or with resid_bf16 in bfloat16. Returns a
+// cudaError_t (0 on success). Does not synchronise.
 int bilstm_fwd_launch(const void* xp_f, const void* xp_b, const void* w_f,
                       const void* w_b, void* h_f, void* h_b, void* g_f,
                       void* g_b, void* c_f, void* c_b, void* barrier, int T,
-                      int B, int H, int splits, int device, void* stream) {
+                      int B, int H, int splits, int resid_bf16, int device,
+                      void* stream) {
   Unfused a =
       unfused(xp_f, xp_b, w_f, w_b, h_f, h_b, barrier, T, B, H, splits);
   a.g[0] = static_cast<float*>(g_f);
   a.g[1] = static_cast<float*>(g_b);
   a.c[0] = static_cast<float*>(c_f);
   a.c[1] = static_cast<float*>(c_b);
+  if (resid_bf16) {
+    return dispatch_unfused<true, resid::bf16>(a, device, stream);
+  }
   return dispatch_unfused<true>(a, device, stream);
 }
 

@@ -13,7 +13,10 @@
 // (reverse) 0 -> T-1 (c_prev = c[t+1], zero at t = T-1); the arrays stay
 // in real time order. Layouts: dh [T, B, H], g [T, B, 4H] (gates i, f, g,
 // o after their activations), c [T, B, H], w [4H, H] (torch's
-// weight_hh_l{k}); out dx [T, B, 4H] = d_pre.
+// weight_hh_l{k}); out dx [T, B, 4H] = d_pre. g and c are float32 or
+// bfloat16 (R, widened where they are read, as _cell_bwd does); dh and
+// dx float32, as the multi-stream VJP of the JAX package keeps them
+// (pallas_multilstm.py:368-384, 406-433).
 //
 // What bounds it on an H100: latency. A step of a row is at most 4H x H
 // = 4096 multiply-adds, and the 192 dependent steps cost the latency of
@@ -45,6 +48,8 @@
 
 #include <cuda_runtime.h>
 
+#include "resid.cuh"
+
 namespace lane_bwd {
 
 // Widths up to this one run the lane step (a row on up to 32 lanes).
@@ -53,8 +58,8 @@ constexpr int kThreads = 128;  // a block: 4 warps
 
 struct Dir {
   const float* dh;
-  const float* g;
-  const float* c;
+  const float* g;  // elements of type R
+  const float* c;  // elements of type R
   const float* w;
   float* dx;
   int H;
@@ -113,9 +118,14 @@ struct Probe {
 };
 #endif
 
-// The residuals of one (row, unit) at one step.
+// The residuals of one (row, unit) at one step, as loaded: g and c of
+// element type R in resid::Loaded<R> registers (a bfloat16 one is
+// widened only when the step's factors are formed, a step after its
+// load, so that no instruction waits on the load before then).
+template <typename R>
 struct Res {
-  float i, f, g, o, c, c_prev, dh;
+  typename resid::Loaded<R>::type i, f, g, o, c, c_prev;
+  float dh;
 };
 
 // The gate factors of a step (see the top of the file) and its dh_out.
@@ -123,22 +133,29 @@ struct Factors {
   float a, p_i, p_f, p_g, p_o, f, dh;
 };
 
-__device__ __forceinline__ Factors factors(const Res& r) {
-  const float tanh_c = tanhf(r.c);
+template <typename R>
+__device__ __forceinline__ Factors factors(const Res<R>& res) {
+  const float i = resid::widen_loaded(res.i);
+  const float f = resid::widen_loaded(res.f);
+  const float g = resid::widen_loaded(res.g);
+  const float o = resid::widen_loaded(res.o);
+  const float c_prev = resid::widen_loaded(res.c_prev);
+  const float tanh_c = tanhf(resid::widen_loaded(res.c));
   Factors x;
-  x.a = __fmul_rn(r.o, __fsub_rn(1.0f, __fmul_rn(tanh_c, tanh_c)));
-  x.p_i = __fmul_rn(__fmul_rn(r.g, r.i), __fsub_rn(1.0f, r.i));
-  x.p_f = __fmul_rn(__fmul_rn(r.c_prev, r.f), __fsub_rn(1.0f, r.f));
-  x.p_g = __fmul_rn(r.i, __fsub_rn(1.0f, __fmul_rn(r.g, r.g)));
-  x.p_o = __fmul_rn(__fmul_rn(tanh_c, r.o), __fsub_rn(1.0f, r.o));
-  x.f = r.f;
-  x.dh = r.dh;
+  x.a = __fmul_rn(o, __fsub_rn(1.0f, __fmul_rn(tanh_c, tanh_c)));
+  x.p_i = __fmul_rn(__fmul_rn(g, i), __fsub_rn(1.0f, i));
+  x.p_f = __fmul_rn(__fmul_rn(c_prev, f), __fsub_rn(1.0f, f));
+  x.p_g = __fmul_rn(i, __fsub_rn(1.0f, __fmul_rn(g, g)));
+  x.p_o = __fmul_rn(__fmul_rn(tanh_c, o), __fsub_rn(1.0f, o));
+  x.f = f;
+  x.dh = res.dh;
   return x;
 }
 
 // The T steps of the rows of block `blk` (blockDim.x / L rows a block)
-// of one direction at width L >= d.H. smem: smem_float4s(L) float4s.
-template <int L>
+// of one direction at width L >= d.H. smem: smem_float4s(L) float4s. R:
+// the element type of g and c.
+template <int L, typename R = float>
 __device__ __forceinline__ void steps(const Dir& d, int blk, bool reverse,
                                       int T, int B, float4* smem,
                                       Probe& probe) {
@@ -178,23 +195,26 @@ __device__ __forceinline__ void steps(const Dir& d, int blk, bool reverse,
   const size_t hstep = static_cast<size_t>(B) * H;  // a step of dh and c
   const size_t at = ok ? static_cast<size_t>(row) * H + u : 0;
   const size_t gat = ok ? static_cast<size_t>(row) * 4 * H + u : 0;
-  auto fetch = [&](Res& r, int s) {
+  const typename resid::Loaded<R>::type zero = 0;
+  auto fetch = [&](Res<R>& r, int s) {
     const bool live = ok && s < T;
     const int t = s >= T ? 0 : reverse ? s : T - 1 - s;
     const int tc = reverse ? t + 1 : t - 1;  // c_prev's time index
-    const float* g = d.g + static_cast<size_t>(t) * 4 * hstep + gat;
-    r.i = live ? __ldg(g) : 0.0f;
-    r.f = live ? __ldg(g + H) : 0.0f;
-    r.g = live ? __ldg(g + 2 * H) : 0.0f;
-    r.o = live ? __ldg(g + 3 * H) : 0.0f;
-    r.c = live ? __ldg(d.c + static_cast<size_t>(t) * hstep + at) : 0.0f;
+    const R* g = reinterpret_cast<const R*>(d.g) +
+                 static_cast<size_t>(t) * 4 * hstep + gat;
+    const R* c = reinterpret_cast<const R*>(d.c);
+    r.i = live ? resid::load(g) : zero;
+    r.f = live ? resid::load(g + H) : zero;
+    r.g = live ? resid::load(g + 2 * H) : zero;
+    r.o = live ? resid::load(g + 3 * H) : zero;
+    r.c = live ? resid::load(c + static_cast<size_t>(t) * hstep + at) : zero;
     r.c_prev = live && tc >= 0 && tc < T
-                   ? __ldg(d.c + static_cast<size_t>(tc) * hstep + at)
-                   : 0.0f;
+                   ? resid::load(c + static_cast<size_t>(tc) * hstep + at)
+                   : zero;
     r.dh = live ? __ldg(d.dh + static_cast<size_t>(t) * hstep + at) : 0.0f;
   };
 
-  Res next, after;  // the residuals of steps s + 1 and s + 2
+  Res<R> next, after;  // the residuals of steps s + 1 and s + 2
   fetch(next, 0);
   Factors fac = factors(next);
   fetch(next, 1);

@@ -8,7 +8,9 @@
 // state float32 from zero. A reverse direction walks T-1 -> 0 over data
 // kept in real time order. Layouts: xp [T, B, 4H], w [4H, H] (torch's
 // weight_hh_l{k}), h [T, B, H]; with kResid also g [T, B, 4H] (gates i,
-// f, g, o after their activations) and c [T, B, H].
+// f, g, o after their activations) and c [T, B, H], in float32 or in
+// bfloat16 (R: rounded as they are stored; h and the c carry stay
+// float32, as _fwd_kernel under the JAX default residual_dtype).
 //
 // What bounds it on an H100: latency. A step of a row is at most 4H x H
 // = 4096 multiply-adds, and the T dependent steps cost the latency of one
@@ -36,6 +38,8 @@
 
 #include <cuda_runtime.h>
 
+#include "resid.cuh"
+
 namespace lane_fwd {
 
 // Widths up to this one run the lane step (a row on up to 32 lanes).
@@ -46,7 +50,7 @@ struct Dir {
   const float* xp;
   const float* w;
   float* h;
-  float* g;  // residual-saving forward only
+  float* g;  // residual-saving forward only, elements of type R
   float* c;
   int H;
 };
@@ -105,8 +109,8 @@ __device__ __forceinline__ float sigmoid_f(float x) {
 
 // The T steps of the rows of block `blk` (blockDim.x / L rows a block) of
 // one direction at width L >= d.H; an odd `dir` walks T-1 -> 0. wt: L * L
-// float4s of shared memory.
-template <int L, bool kResid>
+// float4s of shared memory. R: the residuals' element type.
+template <int L, bool kResid, typename R = float>
 __device__ __forceinline__ void steps(const Dir& d, int blk, int dir, int T,
                                       int B, float4* wt, Probe& probe) {
   constexpr int kRows = 32 / L;  // batch rows a warp
@@ -187,12 +191,13 @@ __device__ __forceinline__ void steps(const Dir& d, int blk, int dir, int T,
       const size_t at = (static_cast<size_t>(t) * B + row) * H + u;
       d.h[at] = h_st;
       if constexpr (kResid) {
-        float* gr = d.g + (static_cast<size_t>(t) * B + row) * 4 * H + u;
-        gr[0] = i_g;
-        gr[H] = f_g;
-        gr[2 * H] = g_g;
-        gr[3 * H] = o_g;
-        d.c[at] = c_st;
+        R* gr = reinterpret_cast<R*>(d.g) +
+                (static_cast<size_t>(t) * B + row) * 4 * H + u;
+        gr[0] = resid::narrow<R>(i_g);
+        gr[H] = resid::narrow<R>(f_g);
+        gr[2 * H] = resid::narrow<R>(g_g);
+        gr[3 * H] = resid::narrow<R>(o_g);
+        reinterpret_cast<R*>(d.c)[at] = resid::narrow<R>(c_st);
       }
     }
     probe.ready(h_st);

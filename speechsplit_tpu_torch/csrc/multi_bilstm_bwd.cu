@@ -1,5 +1,5 @@
 // N independent bidirectional LSTMs of mixed widths in one launch, the
-// gradient recurrence, float32.
+// gradient recurrence, float32 (g and c also bfloat16 in the lane plan).
 //
 // Replaces: speechsplit_tpu/ops/pallas_multilstm.py::_bwd_kernel (wrapper
 // _bwd_call), the TPU kernel that runs the gate-gradient recurrences of
@@ -89,6 +89,8 @@ __device__ unsigned long long g_probe_laps[kMaxDirs * lane_bwd::kPhases];
 __device__ float g_probe_sink;
 #endif
 
+// R: the element type of g and c, float or bfloat16
+template <typename R = float>
 __global__ void __launch_bounds__(lane_bwd::kThreads)
 multi_bilstm_bwd_lane_kernel(LaneParams p) {
   extern __shared__ float4 lane_smem[];
@@ -112,19 +114,23 @@ multi_bilstm_bwd_lane_kernel(LaneParams p) {
   const bool reverse = dir & 1;  // a backward direction
   lane_bwd::Probe probe;
   switch (L) {
-    case 1: lane_bwd::steps<1>(d, blk, reverse, p.T, p.B, lane_smem, probe);
+    case 1:
+      lane_bwd::steps<1, R>(d, blk, reverse, p.T, p.B, lane_smem, probe);
       break;
-    case 2: lane_bwd::steps<2>(d, blk, reverse, p.T, p.B, lane_smem, probe);
+    case 2:
+      lane_bwd::steps<2, R>(d, blk, reverse, p.T, p.B, lane_smem, probe);
       break;
-    case 4: lane_bwd::steps<4>(d, blk, reverse, p.T, p.B, lane_smem, probe);
+    case 4:
+      lane_bwd::steps<4, R>(d, blk, reverse, p.T, p.B, lane_smem, probe);
       break;
-    case 8: lane_bwd::steps<8>(d, blk, reverse, p.T, p.B, lane_smem, probe);
+    case 8:
+      lane_bwd::steps<8, R>(d, blk, reverse, p.T, p.B, lane_smem, probe);
       break;
-    case 16: lane_bwd::steps<16>(d, blk, reverse, p.T, p.B, lane_smem,
-                                 probe);
+    case 16:
+      lane_bwd::steps<16, R>(d, blk, reverse, p.T, p.B, lane_smem, probe);
       break;
-    default: lane_bwd::steps<32>(d, blk, reverse, p.T, p.B, lane_smem,
-                                 probe);
+    default:
+      lane_bwd::steps<32, R>(d, blk, reverse, p.T, p.B, lane_smem, probe);
   }
 #ifdef MULTI_BILSTM_BWD_PROBE
   probe.flush(g_probe_cycles + dir * lane_bwd::kPhases,
@@ -205,13 +211,15 @@ multi_bilstm_bwd_kernel(Params p) {
 
 extern "C" {
 
-// dh, g, c, w, dx: n_dirs device pointers each; hs: n_dirs widths.
-// Returns a cudaError_t (0 on success). Does not synchronise.
+// dh, g, c, w, dx: n_dirs device pointers each; hs: n_dirs widths. g
+// and c float32, or with resid_bf16 bfloat16 (the lane plan only: a width
+// past lane_bwd::kLaneMaxH returns cudaErrorInvalidValue); dh and dx
+// float32. Returns a cudaError_t (0 on success). Does not synchronise.
 int multi_bilstm_bwd_launch(int n_dirs, const void* const* dh,
                             const void* const* g, const void* const* c,
                             const void* const* w, void* const* dx,
-                            const int* hs, int T, int B, int device,
-                            void* stream) {
+                            int resid_bf16, const int* hs, int T, int B,
+                            int device, void* stream) {
   if (n_dirs < 1 || n_dirs > kMaxDirs || T < 1 || B < 1) {
     return cudaErrorInvalidValue;
   }
@@ -230,6 +238,7 @@ int multi_bilstm_bwd_launch(int n_dirs, const void* const* dh,
   if (err != cudaSuccess) return err;
   auto s = static_cast<cudaStream_t>(stream);
   if (max_h > lane_bwd::kLaneMaxH) {
+    if (resid_bf16) return cudaErrorInvalidValue;
     Params p{};
     for (int i = 0; i < n_dirs; ++i) p.d[i] = dirs[i];
     p.T = T;
@@ -264,11 +273,13 @@ int multi_bilstm_bwd_launch(int n_dirs, const void* const* dh,
   p.T = T;
   p.B = B;
   const size_t smem = sizeof(float4) * lane_bwd::smem_float4s(max_l);
-  err = cudaFuncSetAttribute(multi_bilstm_bwd_lane_kernel,
+  auto kernel = resid_bf16 ? multi_bilstm_bwd_lane_kernel<resid::bf16>
+                          : multi_bilstm_bwd_lane_kernel<float>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  multi_bilstm_bwd_lane_kernel<<<blocks, lane_bwd::kThreads, smem, s>>>(p);
+  kernel<<<blocks, lane_bwd::kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 

@@ -112,7 +112,8 @@ __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-template <bool kResid>
+// R: the residuals' element type (kResid), float or bfloat16
+template <bool kResid, typename R = float>
 __global__ void __launch_bounds__(kLaneThreads)
 multi_bilstm_lane_kernel(LaneParams p) {
   extern __shared__ float4 lane_smem[];
@@ -136,24 +137,28 @@ multi_bilstm_lane_kernel(LaneParams p) {
   lane_fwd::Probe probe;
   switch (L) {
     case 1:
-      lane_fwd::steps<1, kResid>(d, blk, dir, p.T, p.B, lane_smem, probe);
+      lane_fwd::steps<1, kResid, R>(d, blk, dir, p.T, p.B, lane_smem,
+                                    probe);
       break;
     case 2:
-      lane_fwd::steps<2, kResid>(d, blk, dir, p.T, p.B, lane_smem, probe);
+      lane_fwd::steps<2, kResid, R>(d, blk, dir, p.T, p.B, lane_smem,
+                                    probe);
       break;
     case 4:
-      lane_fwd::steps<4, kResid>(d, blk, dir, p.T, p.B, lane_smem, probe);
+      lane_fwd::steps<4, kResid, R>(d, blk, dir, p.T, p.B, lane_smem,
+                                    probe);
       break;
     case 8:
-      lane_fwd::steps<8, kResid>(d, blk, dir, p.T, p.B, lane_smem, probe);
+      lane_fwd::steps<8, kResid, R>(d, blk, dir, p.T, p.B, lane_smem,
+                                    probe);
       break;
     case 16:
-      lane_fwd::steps<16, kResid>(d, blk, dir, p.T, p.B, lane_smem,
-                                  probe);
+      lane_fwd::steps<16, kResid, R>(d, blk, dir, p.T, p.B, lane_smem,
+                                     probe);
       break;
     default:
-      lane_fwd::steps<32, kResid>(d, blk, dir, p.T, p.B, lane_smem,
-                                  probe);
+      lane_fwd::steps<32, kResid, R>(d, blk, dir, p.T, p.B, lane_smem,
+                                     probe);
   }
 #ifdef MULTI_BILSTM_PROBE
   probe.flush(g_probe_cycles + dir * kPhases, g_probe_laps + dir * kPhases,
@@ -237,7 +242,8 @@ multi_bilstm_infer_kernel(Params p) {
   }
 }
 
-template <bool kResid>
+// R: the residuals' element type; bfloat16 runs the lane plan only
+template <bool kResid, typename R = float>
 int dispatch(int n_dirs, const void* const* xp, const void* const* w,
              void* const* h, void* const* g, void* const* c, const int* hs,
              int T, int B, int device, void* stream) {
@@ -257,6 +263,7 @@ int dispatch(int n_dirs, const void* const* xp, const void* const* w,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (max_h > kLaneMaxH) {
+    if (!std::is_same<R, float>::value) return cudaErrorInvalidValue;
     Params p{};
     for (int i = 0; i < n_dirs; ++i) p.d[i] = dirs[i];
     p.T = T;
@@ -292,12 +299,13 @@ int dispatch(int n_dirs, const void* const* xp, const void* const* w,
   p.T = T;
   p.B = B;
   const size_t smem = sizeof(float4) * max_l * max_l;
-  err = cudaFuncSetAttribute(multi_bilstm_lane_kernel<kResid>,
+  err = cudaFuncSetAttribute(multi_bilstm_lane_kernel<kResid, R>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  multi_bilstm_lane_kernel<kResid><<<blocks, kLaneThreads, smem,
-                                     static_cast<cudaStream_t>(stream)>>>(p);
+  multi_bilstm_lane_kernel<kResid, R><<<blocks, kLaneThreads, smem,
+                                        static_cast<cudaStream_t>(stream)>>>(
+      p);
   return cudaGetLastError();
 }
 
@@ -316,11 +324,17 @@ int multi_bilstm_infer_launch(int n_dirs, const void* const* xp,
 }
 
 // Residual-saving forward: as above, and g [T, B, 4H_d], c [T, B, H_d]
-// per direction.
+// per direction, in float32 or with resid_bf16 in bfloat16 (the lane plan
+// only: a width past kLaneMaxH returns cudaErrorInvalidValue).
 int multi_bilstm_fwd_launch(int n_dirs, const void* const* xp,
                             const void* const* w, void* const* h,
-                            void* const* g, void* const* c, const int* hs,
-                            int T, int B, int device, void* stream) {
+                            void* const* g, void* const* c, int resid_bf16,
+                            const int* hs, int T, int B, int device,
+                            void* stream) {
+  if (resid_bf16) {
+    return dispatch<true, resid::bf16>(n_dirs, xp, w, h, g, c, hs, T, B,
+                                       device, stream);
+  }
   return dispatch<true>(n_dirs, xp, w, h, g, c, hs, T, B, device, stream);
 }
 

@@ -92,7 +92,18 @@ def _node(tree: Mapping[str, Any], path: list[str]) -> Mapping[str, Any]:
 
 
 def _array(value) -> np.ndarray:
+    """A leaf widened to float32 in numpy (exact for a bfloat16 leaf, an
+    ``ml_dtypes`` array that ``torch.from_numpy`` does not take)."""
     return np.array(value, dtype=np.float32, copy=True)
+
+
+def _tree_dtype(tree) -> torch.dtype:
+    """bfloat16 if any leaf of a numpy tree is bfloat16, else float32."""
+    if isinstance(tree, Mapping):
+        dtypes = {_tree_dtype(v) for v in tree.values()}
+        return torch.bfloat16 if torch.bfloat16 in dtypes else torch.float32
+    is_bf16 = np.asarray(tree).dtype.name == "bfloat16"
+    return torch.bfloat16 if is_bf16 else torch.float32
 
 
 def _lstm_arrays(node: Mapping[str, Any],
@@ -203,10 +214,13 @@ def jax_adam_state_to_torch(
     ``ScaleByAdamState``, alone or inside ``optax.adam``'s chain state);
     ``mu`` and ``nu`` are trees shaped like the flax params of model
     ``name`` (``"speechsplit"`` or ``"f0_converter"``), so they take the
-    layout rules of :func:`jax_params_to_state_dict`. ``optimizer`` is a
-    torch Adam over ``model``'s parameters; each parameter's state
-    becomes ``step`` (= count), ``exp_avg`` (= mu) and ``exp_avg_sq``
-    (= nu), on the parameter's device. With the parameters carried by
+    layout rules of :func:`jax_params_to_state_dict`. ``optimizer`` is an
+    Adam over ``model``'s parameters (torch's, or the port's
+    ``training.train_step.Adam``); each parameter's state becomes
+    ``step`` (= count), ``exp_avg`` (= mu, in mu's dtype: bfloat16 under
+    ``adam_mu_dtype="bfloat16"``, widened in numpy and narrowed again,
+    both exact) and ``exp_avg_sq`` (= nu), on the parameter's device.
+    With the parameters carried by
     :func:`jax_params_to_state_dict`, the next torch step continues the
     JAX run's Adam update (the same bias corrections: optax's count and
     torch's step both count updates already made).
@@ -214,6 +228,8 @@ def jax_adam_state_to_torch(
     count, mu, nu = _adam_fields(opt_state)
     exp_avg = jax_params_to_state_dict(mu, name)
     exp_avg_sq = jax_params_to_state_dict(nu, name)
+    mu_dtype = _tree_dtype(mu.get("params", mu) if isinstance(mu, Mapping)
+                           else mu)
     step = float(np.asarray(count))
     params = dict(model.named_parameters())
     owned = {id(p) for group in optimizer.param_groups
@@ -226,6 +242,6 @@ def jax_adam_state_to_torch(
             raise ValueError(f"{key} is not a parameter of the optimizer")
         optimizer.state[param] = {
             "step": torch.tensor(step, dtype=torch.float32),
-            "exp_avg": exp_avg[key].to(param.device, param.dtype),
+            "exp_avg": exp_avg[key].to(param.device, mu_dtype),
             "exp_avg_sq": exp_avg_sq[key].to(param.device, param.dtype),
         }

@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from speechsplit_tpu_torch.config import SpeechSplitConfig
+from speechsplit_tpu_torch.config import SpeechSplitConfig, resolve_dtype
 from speechsplit_tpu_torch.models.layers import LSTM, Linear
 
 
@@ -22,7 +22,8 @@ class MelDecoder(nn.Module):
         super().__init__()
         cfg = config
         self.lstm = LSTM(cfg.dim_code, cfg.dim_dec_mel, 3, generator,
-                         dtype=dtype)
+                         dtype=dtype,
+                         residual_dtype=resolve_dtype(cfg.residual_dtype))
         self.linear_projection = Linear(2 * cfg.dim_dec_mel, cfg.dim_freq,
                                         generator)
 
@@ -39,7 +40,8 @@ class F0Decoder(nn.Module):
         super().__init__()
         cfg = config
         self.lstm = LSTM(2 * cfg.dim_neck_2 + 2 * cfg.dim_neck_3,
-                         cfg.dim_dec_f0, 2, generator, dtype=dtype)
+                         cfg.dim_dec_f0, 2, generator, dtype=dtype,
+                         residual_dtype=resolve_dtype(cfg.residual_dtype))
         self.linear_projection = Linear(2 * cfg.dim_dec_f0, cfg.dim_f0,
                                         generator)
 

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from speechsplit_tpu_torch.config import SpeechSplitConfig
+from speechsplit_tpu_torch.config import SpeechSplitConfig, resolve_dtype
 from speechsplit_tpu_torch.models.layers import (
     LSTM,
     conv_norm,
@@ -68,7 +68,8 @@ class RhythmEncoder(nn.Module):
                       cfg.dim_enc_2 // cfg.chs_grp, generator)
         ])
         self.lstm = LSTM(cfg.dim_enc_2, cfg.dim_neck_2, 1, generator,
-                         dtype=dtype)
+                         dtype=dtype,
+                         residual_dtype=resolve_dtype(cfg.residual_dtype))
 
     def pre(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.convolutions[0](x))
@@ -99,7 +100,8 @@ class F0Encoder(_DropsLenOrg):
             for i in range(3)
         ])
         self.lstm = LSTM(cfg.dim_enc_3, cfg.dim_neck_3, 1, generator,
-                         dtype=dtype)
+                         dtype=dtype,
+                         residual_dtype=resolve_dtype(cfg.residual_dtype))
 
     def pre(self, x: torch.Tensor, train: bool = False,
             generator: torch.Generator | None = None) -> torch.Tensor:
@@ -137,9 +139,11 @@ class ContentPitchEncoder(_DropsLenOrg):
             for i in range(3)
         ])
         self.lstm_1 = LSTM(cfg.dim_enc, cfg.dim_neck, 2, generator,
-                           dtype=dtype)
+                           dtype=dtype,
+                           residual_dtype=resolve_dtype(cfg.residual_dtype))
         self.lstm_2 = LSTM(cfg.dim_enc_3, cfg.dim_neck_3, 1, generator,
-                           dtype=dtype)
+                           dtype=dtype,
+                           residual_dtype=resolve_dtype(cfg.residual_dtype))
 
     def pre(self, x_f0: torch.Tensor, train: bool = False,
             generator: torch.Generator | None = None):

@@ -15,7 +15,9 @@ everywhere, so the CPU tests and the card run the same code.
 ``train=True`` turns on the encoders' random resampling, whose draws
 come from the ``generator`` argument in the JAX order: content/pitch
 conv pairs 0, 1, 2 (SpeechSplit), f0 convs 0, 1, 2 (F0Converter). Under
-autograd the recurrences run their training kernels (``ops.bilstm``).
+autograd the recurrences run their training kernels (``ops.bilstm``),
+saving residuals in ``config.residual_dtype``, as the JAX generator
+threads it (generator.py:137, :218).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ def _model_dtype(config: SpeechSplitConfig) -> torch.dtype:
     if dtype != torch.float32:
         raise NotImplementedError(
             "the port runs compute_dtype=float32 only; bfloat16 compute is "
-            "queued in ROADMAP.md"
+            "queued in ROADMAP.md A4b"
         )
     return dtype
 
@@ -64,7 +66,7 @@ class SpeechSplit(nn.Module):
         if config.spk_emb_mode != "onehot":
             raise NotImplementedError(
                 "spk_emb_mode='learned' (SpeakerEncoder) is queued in "
-                "ROADMAP.md"
+                "ROADMAP.md A5"
             )
         gen = _generator(generator)
         dtype = _model_dtype(config)
@@ -79,7 +81,7 @@ class SpeechSplit(nn.Module):
         if c_trg.dim() != 2:
             raise NotImplementedError(
                 "a mel-valued c_trg needs spk_emb_mode='learned', queued in "
-                "ROADMAP.md"
+                "ROADMAP.md A5"
             )
         cfg = self.config
         enc_cp, enc_r = self.encoder_1, self.encoder_2
@@ -92,6 +94,7 @@ class SpeechSplit(nn.Module):
             3,
             s_c[0], s_c[1], s_p[0], s_p[1], s_r[0], s_r[1],
             s_c[2], s_c[3], s_p[2], s_p[3], s_r[2], s_r[3],
+            residual_dtype=resolve_dtype(cfg.residual_dtype),
         )
         h_content = enc_cp.lstm_1(combine_bidir(outs[0], outs[1]),
                                   start_layer=1)
@@ -138,6 +141,7 @@ class F0Converter(nn.Module):
         s_r = enc_r.lstm(xr, mode="streams")
         outs = multi_bilstm.multi_bilstm_sequence(
             2, s_f[0], s_f[1], s_r[0], s_r[1], s_f[2], s_f[3], s_r[2], s_r[3],
+            residual_dtype=resolve_dtype(cfg.residual_dtype),
         )
         codes_f0 = enc_f.codes(combine_bidir(outs[0], outs[1]))
         codes_rhythm = enc_r.codes(combine_bidir(outs[2], outs[3]))

@@ -153,16 +153,26 @@ class LSTM(nn.Module):
     unidirectional layer, or a bidirectional one whose batch the merged
     kernels cannot hold, runs ``ops.lstm.lstm_sequence`` once per
     direction on ``F.linear(x, W_ih, b)``.
+
+    ``residual_dtype`` (float32 or bfloat16; the JAX layer's field of
+    the same name, threaded from ``config.residual_dtype``) is the dtype
+    the layer's recurrences save their residuals in under autograd. In
+    eval and under ``no_grad`` nothing is saved and it changes nothing.
+    The merged route runs it in every kernel; the fused projection and
+    the single-direction route save float32 only, and raise under
+    autograd for bfloat16 (ROADMAP.md A4b).
     """
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int,
                  generator: torch.Generator,
                  dtype: torch.dtype = torch.float32,
-                 bidirectional: bool = True):
+                 bidirectional: bool = True,
+                 residual_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.dtype = dtype
+        self.residual_dtype = residual_dtype
         self.bidirectional = bidirectional
         k = 1.0 / math.sqrt(hidden_size)
         four_h = 4 * hidden_size
@@ -200,7 +210,8 @@ class LSTM(nn.Module):
         """One direction of a layer over time-major x [T, B, I] through
         ``ops.lstm``: h [T, B, H] in real time order."""
         return lstm.lstm_sequence(self._project(x, sfx).contiguous(),
-                                  self._w_hh(sfx), sfx.endswith("_reverse"))
+                                  self._w_hh(sfx), sfx.endswith("_reverse"),
+                                  self.residual_dtype)
 
     def streams(self, x: torch.Tensor, layer: int = 0):
         """Layer ``layer``'s kernel-ready streams without running it:
@@ -250,11 +261,13 @@ class LSTM(nn.Module):
                                       x.shape[-1], w_f.dtype):
                 # the projection inside the kernel: no [T, B, 4H] stream
                 h_f, h_b = bilstm.bilstm_sequence_fused(
-                    x.contiguous(), wi_f, wi_b, b_f, b_b, w_f, w_b)
+                    x.contiguous(), wi_f, wi_b, b_f, b_b, w_f, w_b,
+                    self.residual_dtype)
             else:
                 h_f, h_b = bilstm.bilstm_sequence(
                     F.linear(x, wi_f, b_f).contiguous(),
-                    F.linear(x, wi_b, b_b).contiguous(), w_f, w_b)
+                    F.linear(x, wi_b, b_b).contiguous(), w_f, w_b,
+                    self.residual_dtype)
             x = torch.cat([h_f, h_b], dim=-1)
         return x.transpose(0, 1)
 

@@ -4,8 +4,8 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``: no
 PyTorch headers are compiled, so a build takes seconds. Libraries go
 into ``speechsplit_tpu_torch/_build/`` (listed in ``.gitignore``), named
-by a hash of their source, the ``csrc/*.cuh`` headers it includes and
-the flags, so an edited source or header is rebuilt and an unchanged
+by a hash of their source, the ``csrc/*.cuh`` headers it includes
+(directly or through another header) and the flags, so an edited source or header is rebuilt and an unchanged
 one is loaded as it is. The first call builds every source
 at once, one ``nvcc`` process each.
 
@@ -53,9 +53,18 @@ def _nvcc() -> str:
 
 
 def _headers(source: Path) -> list[Path]:
-    """The ``csrc/*.cuh`` headers a source includes (``#include "x.cuh"``)."""
-    names = re.findall(r'^#include "([\w.]+\.cuh)"', source.read_text(), re.M)
-    return [source.parent / name for name in names]
+    """The ``csrc/*.cuh`` headers a source includes (``#include "x.cuh"``),
+    and those they include in turn."""
+    found: list[Path] = []
+    todo = [source]
+    while todo:
+        text = todo.pop().read_text()
+        for name in re.findall(r'^#include "([\w.]+\.cuh)"', text, re.M):
+            header = source.parent / name
+            if header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
 
 
 def _target(source: Path) -> Path:

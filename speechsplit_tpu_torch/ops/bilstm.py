@@ -28,6 +28,15 @@ runs. On CUDA tensors each launches its kernel (``csrc/bilstm_infer.cu``,
 ``csrc/bilstm_bwd.cu``) or raises; on CPU tensors each runs its plain
 PyTorch version, so the CPU tests exercise the same forward and backward
 math the kernels implement, not autograd of a plain loop.
+
+Precision, as the JAX op's (``bilstm_sequence(..., residual_dtype)``):
+under autograd the residuals g and c are saved in ``residual_dtype``,
+float32 or bfloat16 (the JAX default). With bfloat16 the gradient reads
+dh rounded to bfloat16 and writes dxp in bfloat16, its d_pre carry stays
+float32 (pallas_lstm.py:103, :163, :826); dW_hh rounds h and dxp to
+bfloat16 and sums in float32 (``_dw_contract``); dxp goes back to
+autograd in float32. h is float32 throughout. The fused op saves float32
+residuals only (bfloat16 raises, ROADMAP.md A4b).
 """
 
 from __future__ import annotations
@@ -46,6 +55,11 @@ LAUNCHES = {"bilstm_infer": 0, "bilstm_fwd": 0, "bilstm_bwd": 0,
             "bilstm_fused_infer": 0, "bilstm_fused_fwd": 0}
 
 MAX_HIDDEN = 512
+# the residual dtypes the training kernels store (pallas_lstm.py:79: JAX's
+# default is bfloat16)
+RESIDUAL_DTYPES = (torch.float32, torch.bfloat16)
+# where the port refuses what the JAX package runs with bfloat16
+A4B = "queued in ROADMAP.md A4b"
 
 # "auto": a merged BiLSTM layer projects its input inside the kernel
 # wherever fused_proj_plan approves; "off": never. Off by default, as in
@@ -63,11 +77,14 @@ _BWD_VALS = _build.source_constant("bilstm_bwd", "kVals")
 _BWD_SMEM_FLOATS = _build.source_constant("bilstm_bwd", "kBwdSmemFloats")
 
 
-def lstm_direction_forward_reference(xp, w, reverse: bool):
+def lstm_direction_forward_reference(xp, w, reverse: bool,
+                                     residual_dtype=None):
     """Plain time loop of one direction (pallas_lstm._cell): xp
     [T, B, 4H] and w [4H, H], both in real time order. Returns h
     [T, B, H] and the residuals: the post-activation gates i, f, g, o
-    [T, B, 4H] and c [T, B, H]."""
+    [T, B, 4H] and c [T, B, H], stored in ``residual_dtype`` (bfloat16:
+    rounded to nearest even as ``_bd_fwd``'s block writes round them;
+    None: xp's dtype); h and the c carry stay in xp's dtype."""
     t_len, batch, four_h = xp.shape
     h = xp.new_zeros(batch, four_h // 4)
     c = torch.zeros_like(h)
@@ -78,30 +95,39 @@ def lstm_direction_forward_reference(xp, w, reverse: bool):
                       torch.sigmoid(o))
         c = f * c + i * g
         h = o * torch.tanh(c)
-        hs[t], gs[t], cs[t] = h, torch.cat([i, f, g, o], dim=-1), c
+        hs[t] = h
+        gs[t] = torch.cat([i, f, g, o], dim=-1).to(residual_dtype or xp.dtype)
+        cs[t] = c.to(residual_dtype or xp.dtype)
     return torch.stack(hs), torch.stack(gs), torch.stack(cs)
 
 
-def lstm_direction_backward_reference(dh, g, c, w, reverse: bool):
+def lstm_direction_backward_reference(dh, g, c, w, reverse: bool,
+                                      dx_dtype=None):
     """Plain time loop of pallas_lstm._cell_bwd for one direction.
 
     dh [T, B, H] is the cotangent of h; g, c the forward's residuals.
     The gradient walks the recurrence backwards (T-1 -> 0 for a forward
     direction, 0 -> T-1 for a backward one) with the dh and dc carries
     from zero; c_prev is the cell state of the recurrence's previous
-    step, zero at its first. Returns dx = d_pre [T, B, 4H].
+    step, zero at its first. dh, g and c may be bfloat16: each is widened
+    to w's dtype (float32) where it is read, as ``_cell_bwd`` widens them,
+    and the carries, d_pre among them (the next step's product reads it
+    unrounded), stay in w's dtype. Returns dx = d_pre [T, B, 4H], stored
+    in ``dx_dtype`` (default g's: the merged kernel's gradient stream
+    follows the residual dtype, pallas_lstm.py:103).
     """
     t_len, batch, hidden = dh.shape
-    dh_st = dh.new_zeros(batch, hidden)
+    work = w.dtype
+    dh_st = dh.new_zeros(batch, hidden, dtype=work)
     dc_st = torch.zeros_like(dh_st)
     zero = torch.zeros_like(dh_st)
     dx = [None] * t_len
     for t in range(t_len) if reverse else range(t_len - 1, -1, -1):
         tc = t + 1 if reverse else t - 1
-        c_prev = c[tc] if 0 <= tc < t_len else zero
-        i, f, gg, o = g[t].chunk(4, dim=-1)
-        tanh_c = torch.tanh(c[t])
-        d = dh[t] + dh_st
+        c_prev = c[tc].to(work) if 0 <= tc < t_len else zero
+        i, f, gg, o = g[t].to(work).chunk(4, dim=-1)
+        tanh_c = torch.tanh(c[t].to(work))
+        d = dh[t].to(work) + dh_st
         d_o = d * tanh_c
         dc = dc_st + d * o * (1.0 - tanh_c * tanh_c)
         d_pre = torch.cat([
@@ -110,17 +136,20 @@ def lstm_direction_backward_reference(dh, g, c, w, reverse: bool):
             dc * i * (1.0 - gg * gg),
             d_o * o * (1.0 - o),
         ], dim=-1)
-        dx[t] = d_pre
+        dx[t] = d_pre.to(g.dtype if dx_dtype is None else dx_dtype)
         dh_st = d_pre @ w
         dc_st = dc * f
     return torch.stack(dx)
 
 
-def bilstm_forward_reference(xp_f, xp_b, w_f, w_b):
+def bilstm_forward_reference(xp_f, xp_b, w_f, w_b, residual_dtype=None):
     """The plain version of the residual-saving kernel:
-    ``(h_f, h_b, g_f, g_b, c_f, c_b)``, as ``_bd_fwd`` returns them."""
-    h_f, g_f, c_f = lstm_direction_forward_reference(xp_f, w_f, False)
-    h_b, g_b, c_b = lstm_direction_forward_reference(xp_b, w_b, True)
+    ``(h_f, h_b, g_f, g_b, c_f, c_b)``, as ``_bd_fwd`` returns them, g and
+    c in ``residual_dtype`` (None: xp's dtype)."""
+    h_f, g_f, c_f = lstm_direction_forward_reference(xp_f, w_f, False,
+                                                     residual_dtype)
+    h_b, g_b, c_b = lstm_direction_forward_reference(xp_b, w_b, True,
+                                                     residual_dtype)
     return h_f, h_b, g_f, g_b, c_f, c_b
 
 
@@ -131,7 +160,7 @@ def bilstm_sequence_reference(xp_f, xp_b, w_f, w_b):
 
 def bilstm_backward_reference(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f, w_b):
     """The plain version of the gradient kernel: ``(dx_f, dx_b)``, as
-    ``_bd_bwd_call`` returns them."""
+    ``_bd_bwd_call`` returns them, in the residuals' dtype."""
     return (
         lstm_direction_backward_reference(dh_f, g_f, c_f, w_f, False),
         lstm_direction_backward_reference(dh_b, g_b, c_b, w_b, True),
@@ -238,12 +267,34 @@ def fused_proj_plan(t: int, b: int, h: int, i: int, dtype) -> bool:
             and 1 <= b <= MAX_FUSED_BATCH)
 
 
-def _check(xp_f, xp_b, w_f, w_b) -> None:
+def check_residual_dtype(dtype, what: str) -> None:
+    """Refuse a residual dtype the training kernels do not store."""
+    if dtype not in RESIDUAL_DTYPES:
+        raise ValueError(f"{what}: residual_dtype must be float32 or "
+                         f"bfloat16, got {dtype}")
+
+
+def refuse_bf16_residuals(dtype, what: str) -> None:
+    """``what`` saves float32 residuals only: bfloat16 ones raise."""
+    check_residual_dtype(dtype, what)
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            f"{what} saves float32 residuals only; bfloat16 residuals there "
+            f"are {A4B}"
+        )
+
+
+def _check(xp_f, xp_b, w_f, w_b, float32=None) -> None:
+    """Types, layout and shapes of a merged kernel's [T, B, 4H] pair and
+    W_hh pair; ``float32`` the tensors that must be float32 (all four
+    by default: the gradient passes only W_hh, its g pair carrying the
+    residual dtype)."""
     tensors = (xp_f, xp_b, w_f, w_b)
-    if any(x.dtype != torch.float32 for x in tensors):
+    if any(x.dtype != torch.float32
+           for x in (tensors if float32 is None else float32)):
         raise NotImplementedError(
             "bilstm_sequence runs float32 only; bfloat16 compute is "
-            "queued in ROADMAP.md"
+            f"{A4B}"
         )
     if any(not x.is_contiguous() for x in tensors):
         raise ValueError("bilstm_sequence needs contiguous tensors")
@@ -267,16 +318,19 @@ def _check(xp_f, xp_b, w_f, w_b) -> None:
 
 
 def _check_residuals(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f) -> None:
-    """The gradient kernel's inputs beside the forward's checks."""
+    """The gradient kernel's inputs beside the forward's checks: dh, g
+    and c all in one residual dtype, float32 or bfloat16 (dh follows the
+    residuals, pallas_lstm.py:163)."""
     shape = tuple(g_f.shape)
     hshape = shape[:2] + (shape[2] // 4,)
+    check_residual_dtype(g_f.dtype, "bilstm_bwd")
     for name, x, want in (("dh_f", dh_f, hshape), ("dh_b", dh_b, hshape),
                           ("g_f", g_f, shape), ("g_b", g_b, shape),
                           ("c_f", c_f, hshape), ("c_b", c_b, hshape)):
-        if x.dtype != torch.float32:
-            raise NotImplementedError(
-                f"bilstm_bwd takes float32 {name}; bfloat16 residuals are "
-                "queued in ROADMAP.md"
+        if x.dtype != g_f.dtype:
+            raise ValueError(
+                f"bilstm_bwd takes dh, g and c in one residual dtype: "
+                f"{name} is {x.dtype}, g_f {g_f.dtype}"
             )
         if not x.is_contiguous() or tuple(x.shape) != want:
             raise ValueError(
@@ -293,7 +347,7 @@ def _check_fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b) -> None:
     if any(t.dtype != torch.float32 for t in tensors):
         raise NotImplementedError(
             "bilstm_sequence_fused runs float32 only; bfloat16 compute is "
-            "queued in ROADMAP.md"
+            f"{A4B}"
         )
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("bilstm_sequence_fused needs contiguous tensors")
@@ -324,7 +378,7 @@ def _library():
         ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.bilstm_infer_launch.restype = ctypes.c_int
     lib.bilstm_fwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.bilstm_fwd_launch.restype = ctypes.c_int
     lib.bilstm_fused_infer_launch.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -339,8 +393,8 @@ def _library():
 
 def _bwd_library():
     lib = _build.load("bilstm_bwd")
-    lib.bilstm_bwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.bilstm_bwd_launch.argtypes = [ctypes.c_void_p] * 12 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.bilstm_bwd_launch.restype = ctypes.c_int
     lib.bilstm_bwd_error_string.argtypes = [ctypes.c_int]
     lib.bilstm_bwd_error_string.restype = ctypes.c_char_p
@@ -384,21 +438,24 @@ def _bilstm_infer_plan(xp_f, xp_b, w_f, w_b, splits: int):
     return h_f, h_b
 
 
-def bilstm_forward_cuda(xp_f, xp_b, w_f, w_b):
+def bilstm_forward_cuda(xp_f, xp_b, w_f, w_b, residual_dtype=torch.float32):
     """Launch the residual-saving forward of ``csrc/bilstm_infer.cu``:
-    ``(h_f, h_b, g_f, g_b, c_f, c_b)``."""
+    ``(h_f, h_b, g_f, g_b, c_f, c_b)``, g and c in ``residual_dtype`` (the
+    kernel rounds them as it stores them; h stays float32)."""
     _check(xp_f, xp_b, w_f, w_b)
+    check_residual_dtype(residual_dtype, "bilstm_fwd")
     t_len, batch, four_h = xp_f.shape
     h_f = xp_f.new_empty(t_len, batch, four_h // 4)
-    h_b, c_f, c_b = (torch.empty_like(h_f) for _ in range(3))
-    g_f, g_b = torch.empty_like(xp_f), torch.empty_like(xp_f)
+    h_b = torch.empty_like(h_f)
+    c_f, c_b = (torch.empty_like(h_f, dtype=residual_dtype) for _ in range(2))
+    g_f, g_b = (torch.empty_like(xp_f, dtype=residual_dtype) for _ in range(2))
     lib = _library()
     err = lib.bilstm_fwd_launch(
         xp_f.data_ptr(), xp_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
         h_f.data_ptr(), h_b.data_ptr(), g_f.data_ptr(), g_b.data_ptr(),
         c_f.data_ptr(), c_b.data_ptr(), _barrier_word(xp_f, 2).data_ptr(),
-        t_len, batch, four_h // 4, 0, xp_f.device.index or 0,
-        _stream(xp_f),
+        t_len, batch, four_h // 4, 0, int(residual_dtype == torch.bfloat16),
+        xp_f.device.index or 0, _stream(xp_f),
     )
     _build.check(err, "bilstm_fwd", lib.bilstm_error_string)
     LAUNCHES["bilstm_fwd"] += 1
@@ -406,18 +463,26 @@ def bilstm_forward_cuda(xp_f, xp_b, w_f, w_b):
 
 
 def bilstm_backward_cuda(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f, w_b):
-    """Launch ``csrc/bilstm_bwd.cu``: ``(dx_f, dx_b)``."""
-    _check(g_f, g_b, w_f, w_b)
+    """Launch ``csrc/bilstm_bwd.cu``: ``(dx_f, dx_b)`` in the residuals'
+    dtype. With bfloat16 residuals the kernel carries d_pre from step to
+    step in a float32 scratch of two steps a direction and stores dx
+    rounded beside it, so the carry stays unrounded (pallas_lstm.py:826)."""
+    _check(g_f, g_b, w_f, w_b, float32=(w_f, w_b))
     _check_residuals(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f)
     t_len, batch, four_h = g_f.shape
     dx_f, dx_b = torch.empty_like(g_f), torch.empty_like(g_b)
+    bf16 = g_f.dtype == torch.bfloat16
+    # [direction][step parity][B][4H]
+    carry = (torch.empty(2, 2, batch, four_h, device=g_f.device)
+             if bf16 else None)
     barrier = _barrier_word(g_f)
     lib = _bwd_library()
     err = lib.bilstm_bwd_launch(
         dh_f.data_ptr(), dh_b.data_ptr(), g_f.data_ptr(), g_b.data_ptr(),
         c_f.data_ptr(), c_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
-        dx_f.data_ptr(), dx_b.data_ptr(), barrier.data_ptr(), t_len, batch,
-        four_h // 4, g_f.device.index or 0, _stream(g_f),
+        dx_f.data_ptr(), dx_b.data_ptr(),
+        carry.data_ptr() if bf16 else None, barrier.data_ptr(), t_len,
+        batch, four_h // 4, int(bf16), g_f.device.index or 0, _stream(g_f),
     )
     _build.check(err, "bilstm_bwd", lib.bilstm_bwd_error_string)
     LAUNCHES["bilstm_bwd"] += 1
@@ -472,47 +537,67 @@ def bilstm_fused_forward_cuda(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
     return h_f, h_b, g_f, g_b, c_f, c_b
 
 
-def dw_hh(h_f, h_b, dx_f, dx_b):
+def contract_dw(h, dx, residual_dtype=torch.float32):
+    """dW [4H, H] = sum over the (t, b) rows of dx^T h, as
+    ``_dw_contract`` (pallas_lstm.py:523-542) forms it: both operands
+    rounded to ``residual_dtype``, the products and sums float32, the
+    result float32. The rounded operands are widened and multiplied in
+    float32: a bfloat16 value fits TF32's mantissa, so the product is the
+    same under TF32, and no bfloat16 GEMM rounds the result."""
+    if residual_dtype != torch.float32:
+        h = h.to(residual_dtype).float()
+        dx = dx.to(residual_dtype).float()
+    return dx.flatten(0, 1).t() @ h.flatten(0, 1)
+
+
+def dw_hh(h_f, h_b, dx_f, dx_b, residual_dtype=torch.float32):
     """dW_hh of both directions as one matmul each, in torch's [4H, H]
     layout: sum over t, b of dx[t] h_prev[t]^T with the predecessor
     h[t-1] (forward) or h[t+1] (backward), over contiguous slices
-    (``_bd_vjp_bwd``, pallas_lstm.py:981-982)."""
-    def contract(h, dx):
-        return dx.flatten(0, 1).t() @ h.flatten(0, 1)
-
-    return contract(h_f[:-1], dx_f[1:]), contract(h_b[1:], dx_b[:-1])
+    (``_bd_vjp_bwd``, pallas_lstm.py:981-982), the operands rounded to
+    ``residual_dtype`` (:func:`contract_dw`)."""
+    return (contract_dw(h_f[:-1], dx_f[1:], residual_dtype),
+            contract_dw(h_b[1:], dx_b[:-1], residual_dtype))
 
 
 def _recurrence_backward(dh_f, dh_b, h_f, h_b, g_f, g_b, c_f, c_b, w_f,
                          w_b):
     """The gradient recurrence (the kernel on CUDA, the plain loop on the
-    CPU), then dW_hh: ``(dxp_f, dxp_b, dw_f, dw_b)``."""
+    CPU), then dW_hh: ``(dxp_f, dxp_b, dw_f, dw_b)``, dxp in the
+    residuals' dtype. The cotangents dh enter in the residuals' dtype, as
+    ``_bd_vjp_bwd`` rounds them (pallas_lstm.py:969-972)."""
     # the cotangents of torch.cat halves are views (autograd gives an
     # unused output's cotangent as zeros)
-    dh_f, dh_b = dh_f.contiguous(), dh_b.contiguous()
+    rd = g_f.dtype
+    dh_f, dh_b = dh_f.to(rd).contiguous(), dh_b.to(rd).contiguous()
     run = bilstm_backward_cuda if g_f.is_cuda else bilstm_backward_reference
     dxp_f, dxp_b = run(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f, w_b)
-    return (dxp_f, dxp_b) + dw_hh(h_f, h_b, dxp_f, dxp_b)
+    return (dxp_f, dxp_b) + dw_hh(h_f, h_b, dxp_f, dxp_b, rd)
 
 
 class BiLSTMFunction(torch.autograd.Function):
-    """``bilstm_sequence`` under autograd: the residual-saving forward,
-    and the gradient recurrence plus ``dW_hh`` in the backward. CUDA
-    tensors launch the kernels; CPU tensors run the plain versions."""
+    """``bilstm_sequence`` under autograd: the residual-saving forward
+    (residuals in ``residual_dtype``), and the gradient recurrence plus
+    ``dW_hh`` in the backward, dxp handed back in xp's dtype, float32
+    (pallas_lstm.py:987). CUDA tensors launch the kernels; CPU tensors
+    run the plain versions."""
 
     @staticmethod
-    def forward(ctx, xp_f, xp_b, w_f, w_b):
+    def forward(ctx, xp_f, xp_b, w_f, w_b, residual_dtype=torch.float32):
         if xp_f.is_cuda:
-            outs = bilstm_forward_cuda(xp_f, xp_b, w_f, w_b)
+            outs = bilstm_forward_cuda(xp_f, xp_b, w_f, w_b, residual_dtype)
         else:
-            outs = bilstm_forward_reference(xp_f, xp_b, w_f, w_b)
+            outs = bilstm_forward_reference(xp_f, xp_b, w_f, w_b,
+                                            residual_dtype)
         ctx.save_for_backward(*outs, w_f, w_b)
         return outs[:2]
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dh_f, dh_b):
-        return _recurrence_backward(dh_f, dh_b, *ctx.saved_tensors)
+        dxp_f, dxp_b, dw_f, dw_b = _recurrence_backward(
+            dh_f, dh_b, *ctx.saved_tensors)
+        return dxp_f.float(), dxp_b.float(), dw_f, dw_b, None
 
 
 class BiLSTMFusedFunction(torch.autograd.Function):
@@ -559,24 +644,33 @@ def _recording(args) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in args)
 
 
-def bilstm_sequence(xp_f, xp_b, w_f, w_b):
-    """Both BiLSTM directions of one layer; see the module docstring."""
+def bilstm_sequence(xp_f, xp_b, w_f, w_b, residual_dtype=torch.float32):
+    """Both BiLSTM directions of one layer; see the module docstring.
+    Under autograd the residuals are saved in ``residual_dtype``
+    (``bilstm_sequence``'s argument of the same name in JAX)."""
     args = (xp_f, xp_b, w_f, w_b)
     device = _device("bilstm_sequence", args)
+    check_residual_dtype(residual_dtype, "bilstm_sequence")
     if _recording(args):
-        return BiLSTMFunction.apply(*args)
+        return BiLSTMFunction.apply(*args, residual_dtype)
     if device == "cuda":
         return bilstm_infer_cuda(*args)
     return bilstm_sequence_reference(*args)
 
 
-def bilstm_sequence_fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
+def bilstm_sequence_fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b,
+                          residual_dtype=torch.float32):
     """One BiLSTM layer with its input projection inside the kernel
     (``pallas_lstm.bilstm_sequence_fused``); callers gate on
-    :func:`fused_proj_plan`. See the module docstring for layouts."""
+    :func:`fused_proj_plan`. See the module docstring for layouts. Under
+    autograd it saves float32 residuals only: ``residual_dtype`` bfloat16
+    raises (ROADMAP.md A4b)."""
     args = (x, wi_f, wi_b, b_f, b_b, w_f, w_b)
     device = _device("bilstm_sequence_fused", args)
+    check_residual_dtype(residual_dtype, "bilstm_sequence_fused")
     if _recording(args):
+        refuse_bf16_residuals(residual_dtype,
+                              "bilstm_sequence_fused under autograd")
         return BiLSTMFusedFunction.apply(*args)
     if device == "cuda":
         return bilstm_fused_infer_cuda(*args)

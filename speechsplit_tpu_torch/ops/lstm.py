@@ -38,13 +38,16 @@ from torch.autograd.function import once_differentiable
 
 from speechsplit_tpu_torch.ops import _build
 from speechsplit_tpu_torch.ops.bilstm import (
+    A4B,
     MAX_HIDDEN,
     _barrier_word,
     _device,
     _recording,
     _stream,
+    check_residual_dtype,
     lstm_direction_backward_reference,
     lstm_direction_forward_reference,
+    refuse_bf16_residuals,
 )
 
 # kernel launches since the last reset, per kernel; the main path's proof
@@ -71,8 +74,7 @@ def _check(xp, w, what: str, max_batch: int | None) -> None:
     for a kernel without a batch limit."""
     if xp.dtype != torch.float32 or w.dtype != torch.float32:
         raise NotImplementedError(
-            f"{what} runs float32 only; bfloat16 compute is queued in "
-            "ROADMAP.md"
+            f"{what} runs float32 only; bfloat16 compute is {A4B}"
         )
     if not (xp.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"{what} needs contiguous tensors")
@@ -102,7 +104,7 @@ def _check_residuals(dh, g, c) -> None:
         if x.dtype != torch.float32:
             raise NotImplementedError(
                 f"lstm_bwd takes float32 {name}; bfloat16 residuals are "
-                "queued in ROADMAP.md"
+                f"{A4B}"
             )
         if not x.is_contiguous() or tuple(x.shape) != hshape:
             raise ValueError(
@@ -234,10 +236,17 @@ class LSTMFunction(torch.autograd.Function):
         return dx, dw_hh(h, dx, ctx.reverse), None
 
 
-def lstm_sequence(xp, w, reverse: bool = False):
-    """One LSTM direction over ``xp``; see the module docstring."""
+def lstm_sequence(xp, w, reverse: bool = False,
+                  residual_dtype=torch.float32):
+    """One LSTM direction over ``xp``; see the module docstring. Under
+    autograd it saves float32 residuals only: ``residual_dtype`` bfloat16
+    raises (ROADMAP.md A4b)."""
     _device("lstm_sequence", (xp, w))
+    check_residual_dtype(residual_dtype, "lstm_sequence")
     if _recording((xp, w)):
+        refuse_bf16_residuals(
+            residual_dtype,
+            "lstm_sequence under autograd (the single-direction route)")
         return LSTMFunction.apply(xp, w, reverse)
     if xp.is_cuda:
         return lstm_infer_cuda(xp, w, reverse)

@@ -8,12 +8,21 @@ H=8, pitch H=32, rhythm H=1) and the F0 converter's (f0 H=32, rhythm
 H=1) are independent of each other and latency-bound, so they run
 together.
 
-Arguments as in the JAX op, minus its residual dtype (the port keeps
-float32 residuals): ``multi_bilstm_sequence(n, xp_f0, xp_b0, ...,
-xp_f{n-1}, xp_b{n-1}, w_f0, w_b0, ..., w_f{n-1}, w_b{n-1})`` with
-``xp_*`` [T, B, 4H_s] in real time order and ``w_*`` [4H_s, H_s] in
-torch's ``weight_hh_l{k}`` layout. Returns the 2n outputs
+Arguments as in the JAX op, its residual dtype a keyword:
+``multi_bilstm_sequence(n, xp_f0, xp_b0, ..., xp_f{n-1}, xp_b{n-1},
+w_f0, w_b0, ..., w_f{n-1}, w_b{n-1}, residual_dtype=torch.float32)``
+with ``xp_*`` [T, B, 4H_s] in real time order and ``w_*`` [4H_s, H_s]
+in torch's ``weight_hh_l{k}`` layout. Returns the 2n outputs
 ``(h_f0, h_b0, ...)``, each [T, B, H_s] in real time order.
+
+Precision, as the JAX op's VJP (pallas_multilstm.py:312-433): under
+autograd the gates g and the cell states c are saved in the residual
+dtype, float32 or bfloat16; the cotangents dh enter the gradient kernel
+in float32 and its dx leaves in float32 (unlike the merged op's streams,
+which follow the residual dtype); ``dW_hh`` rounds h and dx to the
+residual dtype (``_dw_contract``). bfloat16 residuals run on the lane
+plans (every width up to ``LANE_MAX_H``); a call with a wider direction
+(the block plans) raises under autograd (ROADMAP.md A4b).
 
 Dispatch as in ``ops.bilstm``: under autograd (an input requires grad)
 :class:`MultiBiLSTMFunction` runs the residual-saving forward and, in
@@ -32,6 +41,9 @@ from torch.autograd.function import once_differentiable
 
 from speechsplit_tpu_torch.ops import _build
 from speechsplit_tpu_torch.ops.bilstm import (
+    A4B,
+    check_residual_dtype,
+    contract_dw,
     lstm_direction_backward_reference,
     lstm_direction_forward_reference,
 )
@@ -45,6 +57,9 @@ LAUNCHES = {"multi_bilstm_infer": 0, "multi_bilstm_fwd": 0,
 # states them (csrc/multi_bilstm_bwd.cu states the same)
 MAX_DIRECTIONS = _build.source_constant("multi_bilstm_infer", "kMaxDirs")
 MAX_HIDDEN = _build.source_constant("multi_bilstm_infer", "kMaxH")
+# the lane plans' widest direction; a call with a wider one runs the block
+# plans, which save float32 residuals only
+LANE_MAX_H = _build.source_constant("multi_bilstm_infer", "kLaneMaxH")
 
 
 def _split(n: int, args):
@@ -53,11 +68,13 @@ def _split(n: int, args):
     return args[: 2 * n], args[2 * n :]
 
 
-def multi_bilstm_forward_reference(n: int, *args):
+def multi_bilstm_forward_reference(n: int, *args, residual_dtype=None):
     """The plain version of the residual-saving kernel: the 2n h, then
-    the 2n post-activation gates g, then the 2n c (``_fwd``'s order)."""
+    the 2n post-activation gates g, then the 2n c (``_fwd``'s order), g
+    and c in ``residual_dtype`` (None: xp's dtype)."""
     xps, ws = _split(n, args)
-    outs = [lstm_direction_forward_reference(xp, w, bool(d % 2))
+    outs = [lstm_direction_forward_reference(xp, w, bool(d % 2),
+                                             residual_dtype)
             for d, (xp, w) in enumerate(zip(xps, ws))]
     return tuple(o[k] for k in range(3) for o in outs)
 
@@ -69,27 +86,31 @@ def multi_bilstm_sequence_reference(n: int, *args):
 
 def multi_bilstm_backward_reference(n: int, *args):
     """The plain version of the gradient kernel: args are the 2n dh, g,
-    c and w; returns the 2n dx (``_bwd_call`` without its c-edge
-    duplicates)."""
+    c and w; returns the 2n dx in dh's dtype, float32 (``_bwd_call``
+    without its c-edge duplicates), whatever the residuals' dtype."""
     if len(args) != 8 * n:
         raise ValueError(f"expected {8 * n} arrays for n={n}, got {len(args)}")
     d2 = 2 * n
     dhs, gs, cs, ws = (args[k * d2 : (k + 1) * d2] for k in range(4))
     return tuple(
-        lstm_direction_backward_reference(dh, g, c, w, bool(d % 2))
+        lstm_direction_backward_reference(dh, g, c, w, bool(d % 2),
+                                          dx_dtype=dh.dtype)
         for d, (dh, g, c, w) in enumerate(zip(dhs, gs, cs, ws))
     )
 
 
-def _check(n: int, xps, ws) -> None:
+def _check(n: int, xps, ws, xp_float32: bool = True) -> None:
+    """Types, layout and shapes of the 2n [T, B, 4H] tensors and W_hh;
+    ``xp_float32`` False for the gradient's g, in the residual dtype."""
     if not 1 <= 2 * n <= MAX_DIRECTIONS:
         raise ValueError(f"multi_bilstm_infer takes 1..4 streams, got {n}")
     shape = xps[0].shape
     for xp, w in zip(xps, ws):
-        if xp.dtype != torch.float32 or w.dtype != torch.float32:
+        if (xp_float32 and xp.dtype != torch.float32) or (
+                w.dtype != torch.float32):
             raise NotImplementedError(
                 "multi_bilstm_sequence runs float32 only; bfloat16 compute "
-                "is queued in ROADMAP.md"
+                f"is {A4B}"
             )
         if not (xp.is_contiguous() and w.is_contiguous()):
             raise ValueError("multi_bilstm_sequence needs contiguous tensors")
@@ -110,15 +131,35 @@ def _check(n: int, xps, ws) -> None:
             )
 
 
+def residual_plan(widths, residual_dtype, what: str) -> None:
+    """bfloat16 residuals run on the lane plans only: a call with a
+    direction wider than ``LANE_MAX_H`` raises (ROADMAP.md A4b)."""
+    check_residual_dtype(residual_dtype, what)
+    if residual_dtype != torch.float32 and max(widths) > LANE_MAX_H:
+        raise NotImplementedError(
+            f"{what}: bfloat16 residuals with a direction wider than "
+            f"{LANE_MAX_H} (the block plans, widths {tuple(widths)}) are "
+            f"{A4B}"
+        )
+
+
 def _check_residuals(dhs, gs, cs) -> None:
+    """The gradient kernel's inputs: g and c of every direction in one
+    residual dtype, float32 or bfloat16; dh float32 (JAX's multi-stream
+    VJP does not round the cotangents)."""
+    check_residual_dtype(gs[0].dtype, "multi_bilstm_bwd")
+    residual_plan([g.shape[-1] // 4 for g in gs], gs[0].dtype,
+                  "multi_bilstm_bwd")
     for dh, g, c in zip(dhs, gs, cs):
         hshape = tuple(g.shape[:2]) + (g.shape[2] // 4,)
-        for name, x, want in (("dh", dh, hshape), ("c", c, hshape),
-                              ("g", g, tuple(g.shape))):
-            if x.dtype != torch.float32:
-                raise NotImplementedError(
-                    f"multi_bilstm_bwd takes float32 {name}; bfloat16 "
-                    "residuals are queued in ROADMAP.md"
+        for name, x, want, dtype in (
+                ("dh", dh, hshape, torch.float32),
+                ("c", c, hshape, gs[0].dtype),
+                ("g", g, tuple(g.shape), gs[0].dtype)):
+            if x.dtype != dtype:
+                raise ValueError(
+                    f"multi_bilstm_bwd takes float32 dh and g, c in one "
+                    f"residual dtype: {name} is {x.dtype}, g {gs[0].dtype}"
                 )
             if not x.is_contiguous() or tuple(x.shape) != want:
                 raise ValueError(
@@ -133,8 +174,10 @@ def _library():
     lib.multi_bilstm_infer_launch.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 4 + tail)
     lib.multi_bilstm_infer_launch.restype = ctypes.c_int
+    # n_dirs, xp, w, h, g, c, resid_bf16, hs, ...
     lib.multi_bilstm_fwd_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 6 + tail)
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int,
+                                                  ctypes.c_void_p] + tail)
     lib.multi_bilstm_fwd_launch.restype = ctypes.c_int
     lib.multi_bilstm_error_string.argtypes = [ctypes.c_int]
     lib.multi_bilstm_error_string.restype = ctypes.c_char_p
@@ -143,9 +186,10 @@ def _library():
 
 def _bwd_library():
     lib = _build.load("multi_bilstm_bwd")
+    # n_dirs, dh, g, c, w, dx, resid_bf16, hs, T, B, device, stream
     lib.multi_bilstm_bwd_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 6
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+        + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.multi_bilstm_bwd_launch.restype = ctypes.c_int
     lib.multi_bilstm_bwd_error_string.argtypes = [ctypes.c_int]
     lib.multi_bilstm_bwd_error_string.restype = ctypes.c_char_p
@@ -182,19 +226,25 @@ def multi_bilstm_infer_cuda(n: int, *args):
     return outs
 
 
-def multi_bilstm_forward_cuda(n: int, *args):
+def multi_bilstm_forward_cuda(n: int, *args, residual_dtype=torch.float32):
     """Launch the residual-saving forward of ``csrc/multi_bilstm_infer.cu``:
-    the 2n h, 2n g and 2n c, as :func:`multi_bilstm_forward_reference`."""
+    the 2n h, 2n g and 2n c, as :func:`multi_bilstm_forward_reference`,
+    g and c in ``residual_dtype`` (rounded by the kernel as it stores
+    them)."""
     xps, ws = _split(n, args)
     _check(n, xps, ws)
+    residual_plan([xp.shape[-1] // 4 for xp in xps], residual_dtype,
+                  "multi_bilstm_fwd")
     t_len, batch, _ = xps[0].shape
     device = xps[0].device
-    hs, cs = _new_h(xps), _new_h(xps)
-    gs = tuple(torch.empty_like(xp) for xp in xps)
+    hs = _new_h(xps)
+    cs = tuple(h.new_empty(h.shape, dtype=residual_dtype) for h in hs)
+    gs = tuple(torch.empty_like(xp, dtype=residual_dtype) for xp in xps)
     lib = _library()
     err = lib.multi_bilstm_fwd_launch(
         2 * n, _ptrs(xps), _ptrs(ws), _ptrs(hs), _ptrs(gs), _ptrs(cs),
-        _widths(xps), t_len, batch, device.index or 0,
+        int(residual_dtype == torch.bfloat16), _widths(xps), t_len, batch,
+        device.index or 0,
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "multi_bilstm_fwd", lib.multi_bilstm_error_string)
@@ -204,20 +254,22 @@ def multi_bilstm_forward_cuda(n: int, *args):
 
 def multi_bilstm_backward_cuda(n: int, *args):
     """Launch ``csrc/multi_bilstm_bwd.cu``; arguments and result as
-    :func:`multi_bilstm_backward_reference`."""
+    :func:`multi_bilstm_backward_reference` (g and c float32 or bfloat16,
+    dh and dx float32)."""
     if len(args) != 8 * n:
         raise ValueError(f"expected {8 * n} arrays for n={n}, got {len(args)}")
     d2 = 2 * n
     dhs, gs, cs, ws = (args[k * d2 : (k + 1) * d2] for k in range(4))
-    _check(n, gs, ws)
+    _check(n, gs, ws, xp_float32=False)
     _check_residuals(dhs, gs, cs)
     t_len, batch, _ = gs[0].shape
     device = gs[0].device
-    dxs = tuple(torch.empty_like(g) for g in gs)
+    dxs = tuple(torch.empty_like(g, dtype=torch.float32) for g in gs)
     lib = _bwd_library()
     err = lib.multi_bilstm_bwd_launch(
         d2, _ptrs(dhs), _ptrs(gs), _ptrs(cs), _ptrs(ws), _ptrs(dxs),
-        _widths(gs), t_len, batch, device.index or 0,
+        int(gs[0].dtype == torch.bfloat16), _widths(gs), t_len, batch,
+        device.index or 0,
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "multi_bilstm_bwd", lib.multi_bilstm_bwd_error_string)
@@ -225,22 +277,23 @@ def multi_bilstm_backward_cuda(n: int, *args):
     return dxs
 
 
-def _dw(h, dx, reverse: bool):
+def _dw(h, dx, reverse: bool, residual_dtype=torch.float32):
     """One direction's dW_hh [4H, H] over contiguous slices: the
     predecessor is h[t-1] forward and h[t+1] backward (``_vjp_bwd``,
-    pallas_multilstm.py:420-434)."""
+    pallas_multilstm.py:420-434), the operands rounded to
+    ``residual_dtype`` (``_dw_contract``)."""
     h_sl, dx_sl = (h[1:], dx[:-1]) if reverse else (h[:-1], dx[1:])
-    return dx_sl.flatten(0, 1).t() @ h_sl.flatten(0, 1)
+    return contract_dw(h_sl, dx_sl, residual_dtype)
 
 
 class MultiBiLSTMFunction(torch.autograd.Function):
     """``multi_bilstm_sequence`` under autograd; see the module docstring."""
 
     @staticmethod
-    def forward(ctx, n, *args):
+    def forward(ctx, n, residual_dtype, *args):
         run = multi_bilstm_forward_cuda if args[0].is_cuda else (
             multi_bilstm_forward_reference)
-        outs = run(n, *args)
+        outs = run(n, *args, residual_dtype=residual_dtype)
         d2 = 2 * n
         hs = outs[:d2]
         ctx.n = n
@@ -260,18 +313,21 @@ class MultiBiLSTMFunction(torch.autograd.Function):
         run = multi_bilstm_backward_cuda if gs[0].is_cuda else (
             multi_bilstm_backward_reference)
         dxs = run(n, *dhs, *gs, *cs, *ws)
-        dws = tuple(_dw(h, dx, bool(d % 2))
+        dws = tuple(_dw(h, dx, bool(d % 2), gs[0].dtype)
                     for d, (h, dx) in enumerate(zip(hs, dxs)))
-        return (None, *dxs, *dws)
+        return (None, None, *dxs, *dws)
 
 
-def multi_bilstm_sequence(n: int, *args):
+def multi_bilstm_sequence(n: int, *args, residual_dtype=torch.float32):
     """n independent BiLSTMs; see the module docstring."""
     devices = {x.device.type for x in args}
     if devices not in ({"cuda"}, {"cpu"}):
         raise ValueError(f"multi_bilstm_sequence: tensors on {sorted(devices)}")
+    check_residual_dtype(residual_dtype, "multi_bilstm_sequence")
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
-        return MultiBiLSTMFunction.apply(n, *args)
+        residual_plan([x.shape[-1] // 4 for x in args[: 2 * n]],
+                      residual_dtype, "multi_bilstm_sequence under autograd")
+        return MultiBiLSTMFunction.apply(n, residual_dtype, *args)
     if devices == {"cuda"}:
         return multi_bilstm_infer_cuda(n, *args)
     return multi_bilstm_sequence_reference(n, *args)

@@ -8,7 +8,8 @@ every ``model_save_step`` iterations and restores both on
 ``P`` for the F0 converter), written by ``torch.save`` as::
 
     {"model": state dict (the reference's names, CPU tensors),
-     "optimizer": torch Adam's state_dict(),
+     "optimizer": the Adam's state_dict() (torch Adam's keys, mu in
+                  config.adam_mu_dtype),
      "step": int,
      "generator": TrainState.generator.get_state()}
 
@@ -56,9 +57,10 @@ def restore_checkpoint(
     """Load ``{step}-{tag}.ckpt`` into ``state`` (in place) and return it.
 
     The file loads onto the CPU (``weights_only=True``); the model's
-    parameters are copied into the model where it lives, and torch's
-    ``Optimizer.load_state_dict`` moves the Adam moments to each
-    parameter's device.
+    parameters are copied into the model where it lives, and
+    ``Adam.load_state_dict`` moves the Adam moments to each parameter's
+    device, mu in the optimizer's ``mu_dtype`` (a bfloat16 mu round-trips
+    bit for bit).
     """
     path = checkpoint_path(model_save_dir, step, tag)
     if not os.path.isfile(path):

@@ -21,23 +21,34 @@ step runs through ``ops.bilstm`` / ``ops.multi_bilstm``, whose
 ``autograd.Function`` launches the residual-saving forward and gradient
 kernels on the card.
 
-Precision: the port trains with float32 residuals, float32 Adam moments
-and float32 gradients. The JAX defaults ``residual_dtype="bfloat16"``
-and ``adam_mu_dtype="bfloat16"`` raise ``NotImplementedError`` (queued
-in ROADMAP.md); pass ``residual_dtype="float32",
-adam_mu_dtype="float32"``.
+Precision, as the JAX step's (the defaults train as they stand):
+- ``residual_dtype`` (float32 or bfloat16, default bfloat16): the dtype
+  the recurrences save their residuals in (``ops.bilstm``,
+  ``ops.multi_bilstm``);
+- ``adam_mu_dtype`` (default bfloat16): the storage dtype of Adam's
+  first moment, nu stays float32 (:class:`Adam`);
+- ``grad_dtype`` (default float32): the gradients are cast to it before
+  the update (``_cast_grads``);
+- ``matmul_precision``: JAX's precision names on a GPU, TF32 on or off
+  for cuBLAS and cuDNN over the forward and the backward
+  (:func:`matmul_precision`). The recurrence kernels take exact float32
+  FMAs under every setting.
+``compute_dtype="bfloat16"`` raises (ROADMAP.md A4b).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from dataclasses import dataclass
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from speechsplit_tpu_torch import resolve_device
-from speechsplit_tpu_torch.config import SpeechSplitConfig
+from speechsplit_tpu_torch.config import SpeechSplitConfig, resolve_dtype
 from speechsplit_tpu_torch.data.collator import Batch
 from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
 from speechsplit_tpu_torch.ops.interp import random_resample
@@ -53,34 +64,200 @@ class TrainState:
     of the resampling draws. A step updates it in place."""
 
     model: torch.nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: Adam
     step: int
     generator: torch.Generator
 
 
+# JAX's matmul precision names and whether each runs float32 products in
+# TF32 on a GPU that has it (jax.lax.Precision's docstring: DEFAULT and
+# HIGH use tensorfloat32 on an H100, HIGHEST float32; the config's legacy
+# aliases 'bfloat16', 'tensorfloat32' and 'float32' name the same three)
+TF32_BY_PRECISION = {"default": True, "bfloat16": True, "high": True,
+                     "tensorfloat32": True, "highest": False,
+                     "float32": False}
+
+
+def _tf32(name: str) -> bool:
+    """Whether ``name`` runs float32 products in TF32. JAX's dot-algorithm
+    presets (``"BF16_BF16_F32"``, ...) are not mapped: they raise with
+    any other name."""
+    if name not in TF32_BY_PRECISION:
+        raise ValueError(f"matmul_precision must be one of "
+                         f"{sorted(TF32_BY_PRECISION)}, got {name!r}")
+    return TF32_BY_PRECISION[name]
+
+
+@contextlib.contextmanager
+def matmul_precision(name: str):
+    """``jax.default_matmul_precision(name)`` on the card: TF32 on or off
+    for cuBLAS's float32 matmuls and cuDNN's convolutions while the block
+    runs (a train step's forward and ``backward()``), torch's flags
+    restored after it. The recurrence kernels are exact float32 FMAs
+    whatever the setting."""
+    tf32 = _tf32(name)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
 def check_precision(config: SpeechSplitConfig) -> None:
-    """Refuse the precision settings the port does not run yet."""
-    for name in ("residual_dtype", "adam_mu_dtype", "grad_dtype"):
-        value = getattr(config, name)
-        if value != "float32":
-            raise NotImplementedError(
-                f"{name}={value!r}: the port trains with float32 residuals, "
-                "Adam moments and gradients; bfloat16 is queued in "
-                "ROADMAP.md (pass float32)"
-            )
+    """Refuse the precision settings the port does not run yet:
+    ``compute_dtype="bfloat16"`` (ROADMAP.md A4b) and learned speaker
+    embeddings (A5). Residuals, Adam mu and gradients run float32 or
+    bfloat16; ``matmul_precision`` must be one of JAX's names."""
+    for name in ("residual_dtype", "adam_mu_dtype", "grad_dtype",
+                 "compute_dtype"):
+        resolve_dtype(getattr(config, name))  # float32 or bfloat16
+    if config.compute_dtype != "float32":
+        raise NotImplementedError(
+            "compute_dtype='bfloat16' (bfloat16 W_hh and streams) is queued "
+            "in ROADMAP.md A4b"
+        )
+    _tf32(config.matmul_precision)
     if config.spk_emb_mode != "onehot":
         raise NotImplementedError(
-            "spk_emb_mode='learned' (SpeakerEncoder) is queued in ROADMAP.md"
+            "spk_emb_mode='learned' (SpeakerEncoder) is queued in "
+            "ROADMAP.md A5"
         )
 
 
-def make_optimizer(config: SpeechSplitConfig, params) -> torch.optim.Adam:
-    """Adam at the reference hyperparameters (main.py:42-44), moments in
-    float32 (``check_precision``)."""
+def _cast_grads(dtype: torch.dtype, grads: list) -> list:
+    """The gradients narrowed to ``dtype`` (JAX ``_cast_grads``,
+    train_step.py:111-122); the same tensors when they already are."""
+    if all(g.dtype == dtype for g in grads):
+        return grads
+    return [g.to(dtype) for g in grads]
+
+
+@functools.lru_cache(maxsize=None)
+def _in(value: float, dtype: torch.dtype) -> float:
+    """A Python constant as JAX's weak typing applies it to an array of
+    ``dtype``: rounded to that dtype first."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+@functools.lru_cache(maxsize=None)
+def _bias(decay: float, count: int, dtype: torch.dtype) -> float:
+    """optax's bias correction 1 - decay^count, in float32, then in the
+    moment's dtype (``tree_bias_correction``)."""
+    return _in(float(np.float32(1.0) - np.float32(decay) ** np.float32(count)),
+               dtype)
+
+
+def _add(a: list, b: list) -> list:
+    """``a + b`` over two lists of tensors, in the promoted dtype (a
+    bfloat16 term is widened to float32 when the other is float32)."""
+    if a[0].dtype != b[0].dtype and a[0].dtype != torch.float32:
+        a, b = b, a
+    torch._foreach_add_(a, b)
+    return a
+
+
+class Adam(torch.optim.Optimizer):
+    """Adam as optax 0.2.6's ``adam`` computes it (``scale_by_adam`` then
+    the learning rate), with JAX's ``mu_dtype`` and ``grad_dtype``.
+
+    A step: the gradients cast to ``grad_dtype``; mu = (1-b1) g + b1 mu
+    and nu = (1-b2) g^2 + b2 nu, each product in its operand's dtype (a
+    Python constant rounded to it first, as JAX's weak typing does: with
+    a bfloat16 mu, b1 mu is a bfloat16 product before the float32 sum);
+    the update -lr (mu / (1-b1^k)) / (sqrt(nu / (1-b2^k)) + eps) from that
+    mu unrounded; mu stored in ``mu_dtype``, nu in float32. Where two of
+    these operations are one multi-tensor op (a product added, a quotient
+    scaled and added), the card may round once where optax rounds twice:
+    a float32 ulp.
+
+    The state keeps torch Adam's keys (``step``, ``exp_avg`` = mu,
+    ``exp_avg_sq`` = nu), so a checkpoint of torch's Adam (the reference's
+    ``.ckpt``) loads into it; mu is cast to ``mu_dtype`` on load.
+    """
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999),
+                 eps: float = ADAM_EPS, mu_dtype=torch.float32,
+                 grad_dtype=torch.float32):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps))
+        self.mu_dtype = mu_dtype
+        self.grad_dtype = grad_dtype
+
+    def _state(self, p: torch.Tensor) -> dict:
+        state = self.state[p]
+        if not state:
+            state["step"] = torch.tensor(0.0)
+            state["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype)
+            state["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+        return state
+
+    def load_state_dict(self, state_dict) -> None:
+        super().load_state_dict(state_dict)
+        for state in self.state.values():
+            if "exp_avg" in state:
+                state["exp_avg"] = state["exp_avg"].to(self.mu_dtype)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Adam.step takes no closure")
+        f32 = torch.float32
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            grads = _cast_grads(self.grad_dtype, [p.grad for p in params])
+            states = [self._state(p) for p in params]
+            mus = [s["exp_avg"] for s in states]
+            nus = [s["exp_avg_sq"] for s in states]
+            steps = [s["step"] for s in states]
+            gd, md = grads[0].dtype, self.mu_dtype
+            if gd == md == f32:
+                # in place on the state: it is the unrounded mu
+                torch._foreach_mul_(mus, _in(b1, md))
+                torch._foreach_add_(mus, grads, alpha=_in(1 - b1, gd))
+                mu = mus
+            else:
+                mu = _add(torch._foreach_mul(grads, _in(1 - b1, gd)),
+                          torch._foreach_mul(mus, _in(b1, md)))
+                torch._foreach_copy_(mus, mu)  # stored rounded to mu_dtype
+            torch._foreach_mul_(nus, _in(b2, f32))
+            if gd == f32:
+                torch._foreach_addcmul_(nus, grads, grads,
+                                        value=_in(1 - b2, gd))
+            else:
+                sq = torch._foreach_mul(grads, grads)
+                torch._foreach_mul_(sq, _in(1 - b2, gd))
+                _add(nus, sq)
+            torch._foreach_add_(steps, 1.0)
+            counts = [int(k) for k in torch.stack(steps).tolist()]
+            denom = torch._foreach_div(nus, [_bias(b2, k, f32)
+                                             for k in counts])
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, _in(group["eps"], f32))
+            mu_hat = torch._foreach_div(mu, [_bias(b1, k, mu[0].dtype)
+                                             for k in counts])
+            if mu_hat[0].dtype != f32:
+                mu_hat = [m.float() for m in mu_hat]
+            torch._foreach_addcdiv_(params, mu_hat, denom,
+                                    value=_in(-group["lr"], f32))
+        return None
+
+
+def make_optimizer(config: SpeechSplitConfig, params) -> Adam:
+    """Adam at the reference hyperparameters (main.py:42-44), mu stored in
+    ``config.adam_mu_dtype`` and the gradients cast to
+    ``config.grad_dtype`` (JAX ``make_optimizer`` and ``_cast_grads``)."""
     check_precision(config)
-    return torch.optim.Adam(
+    return Adam(
         params, lr=config.learning_rate,
         betas=(config.adam_b1, config.adam_b2), eps=ADAM_EPS,
+        mu_dtype=resolve_dtype(config.adam_mu_dtype),
+        grad_dtype=resolve_dtype(config.grad_dtype),
     )
 
 
@@ -177,8 +354,10 @@ def _make_step(config: SpeechSplitConfig, loss_fn):
         device = next(state.model.parameters()).device
         batch = _upcast_batch(batch, device)
         state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(config, state.model, batch, state.generator)
-        loss.backward()
+        # as JAX differentiates a loss traced under the precision
+        with matmul_precision(config.matmul_precision):
+            loss = loss_fn(config, state.model, batch, state.generator)
+            loss.backward()
         state.optimizer.step()
         state.step += 1
         return state, loss.detach()

@@ -121,5 +121,11 @@ def test_backward_wrapper_rejects_bad_residuals():
     w = torch.zeros(32, 8)
     with pytest.raises(ValueError, match="dh_f"):
         bilstm._check_residuals(torch.zeros(4, 2, 9), c, g, g, c, c, w)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # dh, g and c in one residual dtype, float32 or bfloat16: mixed ones
+    # and other dtypes raise
+    with pytest.raises(ValueError, match="one residual dtype"):
         bilstm._check_residuals(c, c, g.bfloat16(), g, c, c, w)
+    with pytest.raises(ValueError, match="residual_dtype"):
+        bilstm._check_residuals(*(x.half() for x in (c, c, g, g, c, c)), w)
+    bf = [x.bfloat16() for x in (c, c, g, g, c, c)]
+    bilstm._check_residuals(*bf, w)

@@ -22,5 +22,26 @@ def test_target_changes_with_an_included_header(tmp_path):
 @pytest.mark.parametrize("stem", ["bilstm_infer", "bilstm_bwd"])
 def test_merged_sources_share_the_step_header(stem):
     headers = _build._headers(_build.CSRC / f"{stem}.cu")
-    assert [p.name for p in headers] == ["merged_step.cuh"]
+    # the step header, and the residual element type's
+    assert [p.name for p in headers] == ["merged_step.cuh", "resid.cuh"]
     assert all(p.exists() for p in headers)
+
+
+def test_target_changes_with_a_header_a_header_includes(tmp_path):
+    inner = tmp_path / "inner.cuh"
+    outer = tmp_path / "outer.cuh"
+    source = tmp_path / "kernel.cu"
+    inner.write_text("// first\n")
+    outer.write_text('#pragma once\n#include "inner.cuh"\n')
+    source.write_text('#include "outer.cuh"\n#include "inner.cuh"\n')
+    assert _build._headers(source) == [outer, inner]
+    before = _build._target(source)
+    inner.write_text("// second\n")
+    assert _build._target(source) != before
+
+
+@pytest.mark.parametrize("stem", ["lstm_infer", "lstm_bwd",
+                                  "multi_bilstm_infer", "multi_bilstm_bwd"])
+def test_lane_sources_hash_the_residual_header(stem):
+    names = [p.name for p in _build._headers(_build.CSRC / f"{stem}.cu")]
+    assert "resid.cuh" in names

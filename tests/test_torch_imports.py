@@ -87,9 +87,9 @@ def test_cpu_tensors_take_the_plain_version():
 def test_wrappers_refuse_bfloat16_on_cuda_path():
     xp = torch.zeros(4, 1, 32, dtype=torch.bfloat16)
     w = torch.zeros(32, 8, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="float32"):
+    with pytest.raises(NotImplementedError, match="float32.*ROADMAP.md A4b"):
         bilstm._check(xp, xp, w, w)
-    with pytest.raises(NotImplementedError, match="float32"):
+    with pytest.raises(NotImplementedError, match="float32.*ROADMAP.md A4b"):
         multi_bilstm._check(1, (xp, xp), (w, w))
 
 

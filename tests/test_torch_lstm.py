@@ -188,9 +188,9 @@ def test_bidirectional_route_follows_merged_bidir_fits(monkeypatch):
         asked.append((t, b, h, grad))
         return False
 
-    def seq(xp, w, reverse=False):
+    def seq(xp, w, reverse=False, residual_dtype=torch.float32):
         calls.append(reverse)
-        return real_seq(xp, w, reverse)
+        return real_seq(xp, w, reverse, residual_dtype)
 
     with torch.no_grad():
         want = ours(x)

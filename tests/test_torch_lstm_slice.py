@@ -59,9 +59,9 @@ def routes(monkeypatch):
     calls = {"single": [], "merged": [], "single_bwd": 0}
     real = lstm.lstm_sequence
 
-    def single(xp, w, reverse=False):
+    def single(xp, w, reverse=False, residual_dtype=torch.float32):
         calls["single"].append((xp.shape[1], reverse, xp.requires_grad))
-        return real(xp, w, reverse)
+        return real(xp, w, reverse, residual_dtype)
 
     def merged(*args):
         calls["merged"].append(tuple(args[0].shape))

@@ -169,5 +169,15 @@ def test_backward_wrapper_rejects_bad_arguments():
         multi_bilstm.multi_bilstm_backward_reference(1, c, c, g)
     with pytest.raises(ValueError, match="dh"):
         multi_bilstm._check_residuals((torch.zeros(4, 2, 7),), (g,), (c,))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # g and c in one residual dtype, dh float32: mixed ones raise, and
+    # bfloat16 residuals on a block plan (a width past 32) are A4b's
+    with pytest.raises(ValueError, match="one residual dtype"):
         multi_bilstm._check_residuals((c,), (g,), (c.bfloat16(),))
+    with pytest.raises(ValueError, match="float32 dh"):
+        multi_bilstm._check_residuals((c.bfloat16(),), (g.bfloat16(),),
+                                      (c.bfloat16(),))
+    multi_bilstm._check_residuals((c,), (g.bfloat16(),), (c.bfloat16(),))
+    wide_g, wide_c = torch.zeros(4, 2, 132), torch.zeros(4, 2, 33)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4b"):
+        multi_bilstm._check_residuals((wide_c,), (wide_g.bfloat16(),),
+                                      (wide_c.bfloat16(),))

@@ -382,9 +382,12 @@ def test_cli_refuses_unported_flags(tmp_path, flags):
 
 
 def test_cli_refuses_the_default_bfloat16_config(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # the default config trains (tests/test_torch_precision.py); the
+    # bfloat16 setting still refused is compute_dtype
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4b"):
         cli_train.main(["--device", "cpu", "--hparams",
-                        f"root_dir={tmp_path},feat_dir={tmp_path}"])
+                        f"root_dir={tmp_path},feat_dir={tmp_path},"
+                        "compute_dtype=bfloat16"])
 
 
 @pytest.mark.parametrize("override", [

@@ -226,22 +226,28 @@ def test_adam_updates_match_optax():
 
 
 def test_unported_settings_and_missing_generator_raise(monkeypatch):
+    # bfloat16 residuals, Adam mu and gradients train; bfloat16 compute
+    # is what still raises
     for override in (dict(residual_dtype="bfloat16"),
                      dict(adam_mu_dtype="bfloat16"),
                      dict(grad_dtype="bfloat16")):
-        bad = CFG.replace(**override)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_train_state(bad, 0, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(bad)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_optimizer(bad, [torch.nn.Parameter(torch.zeros(1))])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ok = CFG.replace(**override)
+        create_train_state(ok, 0, device="cpu")
+        make_train_step(ok)
+        make_optimizer(ok, [torch.nn.Parameter(torch.zeros(1))])
+    bad = CFG.replace(compute_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4b"):
+        create_train_state(bad, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4b"):
+        make_train_step(bad)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4b"):
+        make_optimizer(bad, [torch.nn.Parameter(torch.zeros(1))])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
         create_train_state(CFG.replace(spk_emb_mode="learned"), 0,
                            device="cpu")
-    # the JAX defaults are bfloat16 residuals and Adam mu
-    with pytest.raises(NotImplementedError, match="residual_dtype"):
-        create_train_state(SpeechSplitConfig(), 0, device="cpu")
+    # the JAX defaults (bfloat16 residuals and Adam mu) train as they stand
+    state = create_train_state(SpeechSplitConfig(), 0, device="cpu")
+    assert state.optimizer.mu_dtype == torch.bfloat16
     with pytest.raises(ValueError, match="model"):
         create_train_state(CFG, 0, "vocoder", device="cpu")
     model = create_train_state(CFG, 0, device="cpu").model
