@@ -33,7 +33,40 @@ Phases, one line each; any failure exits non-zero:
 4. one ``convert_batched`` call under ``torch.profiler``: device time by
    op and the card's idle share of the call;
 5. the normal entry point ``cli.convert`` on reference-format ``.ckpt``
-   files and a demo-style metadata pickle, writing 7 mels;
+   files and a demo-style metadata pickle, writing 7 mels and, with
+   ``--synthesize``, 7 PCM16 wavs;
+   then the serving path, wav in and wav out:
+   a. ``kernel viterbi_decode``: the pitch tracker's decoder against its
+      plain loop on the card, states equal bit for bit, on seeded
+      candidate fields at B 1, 2, 28 and T 1, 2, 257, 1876 and at its
+      edges (every candidate unusable, every cost equal, K + 1 = 32
+      states, and 33, which raises); at B1 T257 (a 3 s request's) and
+      B28 T1876 its states on the timed inputs against the plain loop's,
+      its ms, device time, the plain loop's ms and its bound, and in the
+      log line only an estimated latency floor of its serial steps;
+      registers;
+   b. ``front end``: ``preprocess.extract_features`` on a 3 s and an 8 s
+      wav made here (a harmonic tone gliding 110-180 Hz with a silent
+      gap): one decoder launch an extraction, against the same call with
+      the plain decoder on the card (mel within 1e-6, F0 equal) and on
+      the CPU with the same dither draws (mel within 1e-4; F0 voicing and
+      bins, and the tracker's log-F0, on 99.5% of the frames); ms an
+      extraction with the kernel and with the plain loop; the tracker's
+      window prefix sums in XLA's summation order against two float64
+      ``torch.cumsum`` calls, ms each;
+   c. ``vocoder``: ``GriffinLimVocoder.synthesize_batch`` (100
+      iterations) on 14 mels of 192 frames: finite, the PCM16 path
+      within 1 LSB of the float path, ms a call;
+   d. ``serve``: the port's ``cli.serve`` handler in a thread on an
+      ephemeral port, full-width seeded models loaded from ``.ckpt``
+      files; three ``POST /convert`` requests (a 3 s pair, an 8 s pair
+      through ``convert_long``, the first again, whose mels must equal
+      the first's), every reply 200 with 7 int16 wavs and 7 finite mels,
+      the launches of each request; each pair's mels within 5e-4 of the
+      same call under ``plain_kernels()`` with the same F0; ms a request
+      (median of 5 after a warm-up) split into features, conversion and
+      vocoder; the card's busy share of one request (a direct
+      ``convert_wav_files`` call under ``torch.profiler``); TF32 off;
 6. each training kernel (residual-saving forward, gradient) against its
    plain version at the train step's shapes (T=192, B=16), timed beside
    its bound and a cuDNN LSTM's training forward and backward; then the
@@ -325,9 +358,10 @@ def strict_float32(scope: str = "comparison"):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the model's kernel calls to the plain PyTorch versions
-    (under autograd: autograd through the plain time loops)."""
-    from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm
+    """Route the model's kernel calls and the pitch tracker's Viterbi
+    decoder to the plain PyTorch versions (under autograd: autograd
+    through the plain time loops)."""
+    from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm, pitch
 
     def saves_nothing(fn, n_args):
         """``fn`` on the ops' first ``n_args`` arguments: the plain
@@ -338,7 +372,9 @@ def plain_kernels():
         return run
 
     saved = (bilstm.bilstm_sequence, bilstm.bilstm_sequence_fused,
-             multi_bilstm.multi_bilstm_sequence, lstm.lstm_sequence)
+             multi_bilstm.multi_bilstm_sequence, lstm.lstm_sequence,
+             pitch.viterbi_decode)
+    pitch.viterbi_decode = pitch.viterbi_decode_reference
     bilstm.bilstm_sequence = saves_nothing(bilstm.bilstm_sequence_reference, 4)
     bilstm.bilstm_sequence_fused = saves_nothing(
         bilstm.bilstm_sequence_fused_reference, 7)
@@ -349,7 +385,8 @@ def plain_kernels():
         yield
     finally:
         (bilstm.bilstm_sequence, bilstm.bilstm_sequence_fused,
-         multi_bilstm.multi_bilstm_sequence, lstm.lstm_sequence) = saved
+         multi_bilstm.multi_bilstm_sequence, lstm.lstm_sequence,
+         pitch.viterbi_decode) = saved
 
 
 @contextlib.contextmanager
@@ -466,17 +503,19 @@ def cudnn_yardstick(xp_f, xp_b, w_f, w_b):
 
 
 def reset_launches() -> None:
-    from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm
+    from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm, pitch
 
-    for counts in (bilstm.LAUNCHES, multi_bilstm.LAUNCHES, lstm.LAUNCHES):
+    for counts in (bilstm.LAUNCHES, multi_bilstm.LAUNCHES, lstm.LAUNCHES,
+                   pitch.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def read_launches() -> dict:
-    from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm
+    from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm, pitch
 
-    return {**bilstm.LAUNCHES, **multi_bilstm.LAUNCHES, **lstm.LAUNCHES}
+    return {**bilstm.LAUNCHES, **multi_bilstm.LAUNCHES, **lstm.LAUNCHES,
+            **pitch.LAUNCHES}
 
 
 def phase_build() -> float:
@@ -1003,6 +1042,7 @@ def profile_events(phase: str, prof, wall_ms: float, top: int) -> None:
 def phase_cli(g_model, p_model) -> None:
     import numpy as np
     import torch
+    from scipy.io import wavfile
 
     from speechsplit_tpu_torch.cli import convert as cli_convert
     from speechsplit_tpu_torch.config import SpeechSplitConfig
@@ -1030,17 +1070,24 @@ def phase_cli(g_model, p_model) -> None:
         cli_convert.main([
             "--generator_ckpt", g_path, "--f0_ckpt", p_path,
             "--metadata", meta, "--out_dir", out_dir, "--device", "cuda",
+            "--synthesize",
         ])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
         written = sorted(os.listdir(out_dir))
-        if len(written) != 7 or not all(w.endswith(".npy") for w in written):
+        mels = [w for w in written if w.endswith(".npy")]
+        wavs = [w for w in written if w.endswith(".wav")]
+        if len(mels) != 7 or len(wavs) != 7 or len(written) != 14:
             fail(f"cli.convert wrote {written}")
-        for w in written:
+        for w in mels:
             mel = np.load(os.path.join(out_dir, w))
             if mel.ndim != 2 or not np.isfinite(mel).all():
                 fail(f"cli.convert: bad mel in {w}")
-    log("cli.convert", files=len(written), seconds=f"{seconds:.2f}")
+            _, wav = wavfile.read(os.path.join(out_dir, w[:-4] + ".wav"))
+            if wav.dtype != np.int16 or len(wav) != (len(mel) - 1) * 256:
+                fail(f"cli.convert: bad wav beside {w}")
+    log("cli.convert", files=len(written), seconds=f"{seconds:.2f}",
+        synthesize=True)
 
 
 def rel_err(got, want) -> float:
@@ -3866,6 +3913,551 @@ def phase_train_single(batch):
     return gen_launches, f0_launches
 
 
+# --------------------------------------------------------------------------
+# The serving path: wav in, wav out (the front end, its Viterbi kernel,
+# Griffin-Lim, VoiceConverter and cli.serve)
+
+# candidate fields of the decoder's check: batches and frame counts (257:
+# a 3 s request's padded 65,536 samples; 1876: 30 s)
+VITERBI_BATCHES = (1, 2, 28)
+VITERBI_FRAMES = (1, 2, 257, 1876)
+# the decoder's latency floor, an estimate: 2(T-1) dependent steps (the
+# forward pass and the backtrace), each at least one warp shuffle's or
+# load's round trip of about this many clock cycles at the H100 SXM's
+# boost clock
+STEP_FLOOR_CYCLES = 30
+BOOST_HZ = 1.98e9
+SAMPLE_RATE = 16000
+# the front end's wavs and the server's pairs (seconds)
+SHORT_S = 3.0
+LONG_S = 8.0
+# the vocoder phase: two requests' 7 conditions of max_len_pad frames
+VOCODER_MELS = 14
+# the front end against the same call on the CPU (cuFFT against
+# pocketfft, cuBLAS against the CPU's products): mel, absolute
+FRONT_END_CPU_TOL = 1e-4
+# the share of frames whose F0 must agree with the CPU run's (voicing,
+# and the quantized bin; the tracker's log-F0 within 1e-5): the bar
+# tests/test_pitch.py holds JAX's own decoders to
+F0_AGREE = 0.995
+# the same extraction with the plain decoder on the card: the mel path is
+# the same code, so equal up to this
+FRONT_END_PLAIN_TOL = 1e-6
+# a repeated request's mels against the first's
+REPEAT_TOL = 1e-6
+
+
+def viterbi_fields(b: int, t: int, k: int, seed: int, kind: str):
+    """Seeded decoder inputs on the card from a (lag, score) field:
+    ``random`` (lags on whole samples and scores on eighths, so that costs
+    tie), ``unusable`` (every score at or under the candidate threshold),
+    ``equal`` (every candidate the same, every cost a tie)."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import pitch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (b, t, k)
+    if kind == "equal":
+        lag = torch.full(shape, 100.0, device="cuda")
+        score = torch.full(shape, 0.5, device="cuda")
+    else:
+        lag = torch.floor(26.0 + 295.0 * torch.rand(
+            shape, device="cuda", generator=gen))
+        score = torch.floor(-1.6 + 9.6 * torch.rand(
+            shape, device="cuda", generator=gen)) / 8.0
+        if kind == "unusable":
+            score = torch.clamp(score, max=pitch.PitchParams().cand_thresh)
+    _, local_v, local_u, log_lag = pitch._local_costs(
+        lag, score, SAMPLE_RATE // 50, pitch.PitchParams())
+    return local_v.contiguous(), local_u.contiguous(), log_lag.contiguous()
+
+
+def viterbi_bound(b: int, t: int, k: int) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, latency floor ms) of one decode: each
+    input read once (local_v, log_lag [B, T, K], local_u [B, T]) and the
+    states [B, T] written once, over the card's memory rate; the min-plus
+    step's operations (5 a transition: sub, abs, mul, add, compare) over
+    the float32 peak; and the estimated floor of its serial steps."""
+    nbytes = 4 * (2 * b * t * k + b * t) + 4 * b * t
+    flops = 5 * b * max(t - 1, 0) * k * k
+    by_bytes = nbytes / PEAK_BYTES * 1e3
+    by_ops = flops / PEAK_F32_FLOPS * 1e3
+    floor_ms = 2 * max(t - 1, 0) * STEP_FLOOR_CYCLES / BOOST_HZ * 1e3
+    if by_ops >= by_bytes:
+        return by_ops, "operations", floor_ms
+    return by_bytes, "bytes", floor_ms
+
+
+def check_viterbi(b: int, t: int, kind: str = "random", k: int = 12) -> None:
+    """The kernel's states against the plain loop's on the card, bit for
+    bit."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import pitch
+
+    fields = viterbi_fields(b, t, k, SEED + 31 * b + t, kind)
+    params = pitch.PitchParams()
+    got = pitch.viterbi_decode(*fields, params.freq_weight, params.trans_cost)
+    want = pitch.viterbi_decode_reference(*fields, params.freq_weight,
+                                          params.trans_cost)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        fail(f"viterbi_decode B{b} T{t} K{k} {kind}: {bad} states differ "
+             f"from the plain loop's")
+
+
+def viterbi_codegen() -> dict:
+    """Registers, spill stores and stack frame of ``viterbi_kernel``
+    (``-Xptxas -v``)."""
+    from speechsplit_tpu_torch.ops import _build
+
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                       "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        text = subprocess.run(
+            [_build._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+             os.path.join(tmp, "v.cubin"),
+             str(_build.CSRC / "viterbi.cu")],
+            capture_output=True, text=True, check=True).stderr
+    return {"registers": int(re.search(r"Used (\d+) registers", text)[1]),
+            "spill_stores": int(re.search(r"(\d+) bytes spill stores",
+                                          text)[1]),
+            "stack_frame": int(re.search(r"(\d+) bytes stack frame",
+                                         text)[1])}
+
+
+def phase_viterbi(reps: int = 20) -> dict:
+    """``viterbi_decode`` against its plain loop at every batch and frame
+    count of ``VITERBI_BATCHES`` x ``VITERBI_FRAMES`` and at its edges
+    (every candidate unusable, every cost equal, K + 1 = 32 states, which
+    is the most the kernel takes, and K + 1 = 33, which raises); timed at
+    a 3 s request's shape (B1 T257) and at B28 T1876."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import pitch
+
+    for b in VITERBI_BATCHES:
+        for t in VITERBI_FRAMES:
+            check_viterbi(b, t)
+    for b, t in ((1, 257), (28, 1876), (2, 2)):
+        check_viterbi(b, t, "unusable")
+        check_viterbi(b, t, "equal")
+    check_viterbi(2, 257, k=pitch.MAX_STATES - 1)
+    check_viterbi(3, 5, "equal", k=pitch.MAX_STATES - 1)
+    try:
+        fields = viterbi_fields(1, 4, pitch.MAX_STATES, SEED, "random")
+        pitch.viterbi_decode(*fields, 0.25, 0.3)
+        fail("viterbi_decode took K + 1 = 33 states")
+    except ValueError:
+        pass
+    params = pitch.PitchParams()
+    rows, floors = [], []
+    for b, t in ((1, 257), (28, 1876)):
+        k = params.num_cands
+        fields = viterbi_fields(b, t, k, SEED + b, "random")
+
+        def kernel():
+            return pitch.viterbi_decode(*fields, params.freq_weight,
+                                        params.trans_cost)
+
+        # the timed inputs held to the plain loop too: the row's error is
+        # the largest state difference on them
+        got = kernel()
+        want = pitch.viterbi_decode_reference(*fields, params.freq_weight,
+                                              params.trans_cost)
+        differing = int((got != want).sum())
+        if differing:
+            fail(f"viterbi_decode B{b} T{t} K{k} (timed inputs): "
+                 f"{differing} states differ from the plain loop's")
+        max_abs_err = int((got.long() - want.long()).abs().max())
+        ms = time_ms(kernel, reps)
+        device_ms = kernel_device_ms(kernel, reps)
+        plain_ms = time_ms(lambda: pitch.viterbi_decode_reference(
+            *fields, params.freq_weight, params.trans_cost), 2, warmup=1)
+        bound_ms, bound_by, floor_ms = viterbi_bound(b, t, k)
+        rows.append(dict(
+            shape=f"B{b}xT{t}xK{k}", max_abs_err=max_abs_err, ms=ms,
+            kernel_device_ms=device_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            states_differing=differing))
+        # an estimate, not a measurement: logged, kept out of the row
+        floors.append(dict(
+            latency_floor_ms=floor_ms,
+            latency_floor_assumes=f"2(T-1)x{STEP_FLOOR_CYCLES}cycles"
+                                  f"@{BOOST_HZ / 1e6:.0f}MHz"))
+    codegen = viterbi_codegen()
+    cases = len(VITERBI_BATCHES) * len(VITERBI_FRAMES) + 8 + len(rows)
+    for row, floor in zip(rows, floors):
+        log("kernel viterbi_decode", **fmt(row), **fmt(floor),
+            states_equal_cases=cases, **codegen)
+    row = rows[0]
+    row["beside"] = {k: rows[1][k] for k in ("shape", "ms",
+                                             "kernel_device_ms", "plain_ms",
+                                             "bound_ms")}
+    row["kernel_codegen"] = codegen
+    return row
+
+
+def synth_wav(seconds: float, f_start: float, f_end: float, seed: int):
+    """A harmonic tone (4 harmonics) gliding from f_start to f_end Hz,
+    with a silent gap over 40-50% of its length and faint noise, peak
+    0.5, as int16 PCM at 16 kHz."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    n = int(seconds * SAMPLE_RATE)
+    f0 = f_start * (f_end / f_start) ** (np.arange(n) / n)
+    phase = 2.0 * np.pi * np.cumsum(f0) / SAMPLE_RATE
+    wav = sum(np.sin(h * phase) / h for h in range(1, 5))
+    wav = wav + 0.003 * rng.randn(n)
+    wav[int(0.4 * n) : int(0.5 * n)] = 0.0
+    wav = wav / np.abs(wav).max() * 0.5
+    return (wav * 32767).astype(np.int16)
+
+
+def f0_agreement(got, want, log_tol=None) -> float:
+    """The share of frames whose F0 agrees: the voicing, and where voiced
+    the log-F0 within ``log_tol`` (a ``track_pitch`` output), or the
+    quantized bin the model reads (a normalized F0, whose values the
+    speaker normalization's mean and std tie to every frame)."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.ops.quantize import quantize_f0
+
+    v_got, v_want = got > -1e9, want > -1e9
+    if log_tol is None:
+        close = (quantize_f0(torch.from_numpy(got)).numpy()
+                 == quantize_f0(torch.from_numpy(want)).numpy())
+    else:
+        close = np.abs(got - want) <= log_tol
+    return float(((v_got == v_want) & (~v_got | close)).mean())
+
+
+def phase_front_end(reps: int = 5):
+    """``preprocess.extract_features`` on the card for a 3 s and an 8 s
+    wav: one decoder launch an extraction; against the same call with the
+    plain decoder on the card (``plain_kernels()``) (mel within ``FRONT_END_PLAIN_TOL``, F0
+    equal) and against the call on the CPU with the same dither draws
+    (mel within ``FRONT_END_CPU_TOL``, F0 on ``F0_AGREE`` of the frames);
+    ms an extraction with the kernel and with the plain loop. Returns the
+    launches an extraction and the 8 s wav's mel."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.ops import pitch
+    from speechsplit_tpu_torch.preprocess import (
+        GENDER_F0_RANGE,
+        extract_features,
+        frame_count,
+        pad_batch,
+    )
+
+    lo, hi = GENDER_F0_RANGE["M"]
+    long_mel = None
+    for seconds, seed in ((SHORT_S, SEED), (LONG_S, SEED + 1)):
+        wav = synth_wav(seconds, 110.0, 180.0, seed)
+        batch, lengths = pad_batch([wav])
+        frames = frame_count(len(wav))
+        uniform = torch.rand(batch.shape,
+                             generator=torch.Generator().manual_seed(seed))
+
+        def run(device="cuda", plain=False):
+            with plain_kernels() if plain else contextlib.nullcontext():
+                mel, f0 = extract_features(batch, lengths, [lo], [hi],
+                                           uniform=uniform, device=device)
+            return mel[0, :frames].cpu().numpy(), f0[0, :frames].cpu().numpy()
+
+        run()  # warm-up: cuFFT plans, the allocator
+        torch.cuda.synchronize()
+        reset_launches()
+        mel, f0 = run()
+        launches = read_launches()
+        if launches["viterbi_decode"] != 1 or any(
+                v for k, v in launches.items() if k != "viterbi_decode"):
+            fail(f"extract_features launched {launches}, expected one "
+                 f"viterbi_decode")
+        if not (np.isfinite(mel).all() and mel.shape == (frames, 80)):
+            fail(f"extract_features: mel {mel.shape}, finite "
+                 f"{np.isfinite(mel).all()}")
+        mel_p, f0_p = run(plain=True)
+        mel_c, f0_c = run(device="cpu")
+        err_plain = float(np.abs(mel - mel_p).max())
+        err_cpu = float(np.abs(mel - mel_c).max())
+        agree = f0_agreement(f0, f0_c)
+        # the tracker alone on one dithered signal, on either device
+        y = (torch.from_numpy(batch.astype(np.float32) / 32768.0) * 0.96
+             + (uniform - 0.5) * 2.0 * 1e-6)
+        tracks = [pitch.track_pitch(
+            y.to(device), torch.from_numpy(lengths), torch.tensor([lo]),
+            torch.tensor([hi]))[0, :frames].cpu().numpy()
+            for device in ("cuda", "cpu")]
+        track_agree = f0_agreement(*tracks, log_tol=1e-5)
+        off = np.nonzero(np.abs(np.where(tracks[0] > -1e9, tracks[0], 0)
+                                - np.where(tracks[1] > -1e9, tracks[1], 0))
+                         > 1e-5)[0]
+        if not err_plain <= FRONT_END_PLAIN_TOL or not np.array_equal(
+                f0, f0_p):
+            fail(f"extract_features {seconds} s, kernel vs plain decoder: "
+                 f"mel {err_plain}, F0 equal {np.array_equal(f0, f0_p)}")
+        if not (err_cpu <= FRONT_END_CPU_TOL and agree >= F0_AGREE
+                and track_agree >= F0_AGREE):
+            fail(f"extract_features {seconds} s, card vs CPU: mel "
+                 f"{err_cpu}, F0 agreement {agree} (bins), track_pitch "
+                 f"{track_agree} (frames off {off.tolist()[:20]} of "
+                 f"{frames})")
+
+        def timed(plain, n):
+            samples = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                run(plain=plain)  # ends in the fetch to the host
+                samples.append((time.perf_counter() - start) * 1e3)
+            return float(np.median(samples))
+
+        ms = timed(False, reps)
+        plain_ms = timed(True, 2)
+        # the tracker's window-sum prefix sums at this extraction's padded
+        # length: in XLA's CPU summation order (what runs) and as two
+        # float64 torch.cumsum calls, the alternative that rounds otherwise
+        padded = torch.nn.functional.pad(
+            y.to("cuda"), (0, batch.shape[1] // 256 * 256 + 440))
+        prefix_ms = time_ms(lambda: pitch._window_prefix_sums(padded), reps)
+        wide = padded.double()
+        cumsum_ms = time_ms(lambda: (torch.cumsum(wide * wide, -1),
+                                     torch.cumsum(wide, -1)), reps)
+        log("front end", seconds=seconds, samples_padded=batch.shape[1],
+            frames=frames, ms_per_extraction=f"{ms:.4f}",
+            plain_decoder_ms_per_extraction=f"{plain_ms:.4f}",
+            viterbi_launches=launches["viterbi_decode"],
+            mel_err_vs_plain_decoder=f"{err_plain:.3g}",
+            f0_equal_plain_decoder=True, mel_err_vs_cpu=f"{err_cpu:.3g}",
+            f0_bin_agreement_vs_cpu=f"{agree:.4f}",
+            track_pitch_agreement_vs_cpu=f"{track_agree:.4f}",
+            track_pitch_frames_off=",".join(map(str, off)) or "none",
+            voiced_share=f"{float((f0 > -1e9).mean()):.3f}",
+            prefix_sums_ms=f"{prefix_ms:.4f}",
+            cumsum_f64_ms=f"{cumsum_ms:.4f}")
+        long_mel = mel
+    return launches["viterbi_decode"], long_mel
+
+
+def phase_vocoder(mel, reps: int = 3) -> None:
+    """``GriffinLimVocoder.synthesize_batch`` (100 iterations) on
+    ``VOCODER_MELS`` windows of ``max_len_pad`` frames cut from ``mel``:
+    finite float wavs, the PCM16 path within 1 LSB of the float path's
+    samples times 32767, ms a call of each."""
+    import numpy as np
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.vocoder import GriffinLimVocoder
+
+    t = SpeechSplitConfig().max_len_pad
+    starts = np.linspace(0, len(mel) - t, VOCODER_MELS).astype(int)
+    mels = [mel[s : s + t] for s in starts]
+    vocoder = GriffinLimVocoder(device="cuda")
+    wavs = vocoder.synthesize_batch(mels)
+    if not all(np.isfinite(w).all() and len(w) == (t - 1) * vocoder.hop
+               for w in wavs):
+        fail("GriffinLimVocoder: non-finite or mis-sized wavs")
+    pcm = vocoder.synthesize_batch(mels, pcm16=True)
+    lsb = max(float(np.abs(q.astype(np.float64) - w * 32767.0).max())
+              for q, w in zip(pcm, wavs))
+    if not (all(q.dtype == np.int16 for q in pcm) and lsb <= 1.0):
+        fail(f"GriffinLimVocoder pcm16: {lsb} LSB from the float path")
+
+    def timed(pcm16):
+        samples = []
+        for _ in range(reps):
+            start = time.perf_counter()
+            vocoder.synthesize_batch(mels, pcm16=pcm16)  # ends in a fetch
+            samples.append((time.perf_counter() - start) * 1e3)
+        return float(np.median(samples))
+
+    log("vocoder", mels=len(mels), frames=t, n_iter=vocoder.n_iter,
+        ms_per_call=f"{timed(False):.4f}",
+        ms_per_call_pcm16=f"{timed(True):.4f}",
+        pcm16_max_lsb_vs_float=f"{lsb:.3f}")
+
+
+def post_convert(url: str, payload: dict) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + "/convert",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def check_reply(status: int, body: dict, what: str) -> dict:
+    """200 with 7 conditions, each a finite mel .npy and an int16 wav of
+    (frames - 1) * hop samples; returns {condition: mel}."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    if status != 200 or len(body.get("results", {})) != 7:
+        fail(f"serve {what}: status {status}, {str(body)[:300]}")
+    mels = {}
+    for condition, info in body["results"].items():
+        mel = np.load(info["mel_path"])
+        rate, wav = wavfile.read(info["wav_path"])
+        if not (np.isfinite(mel).all() and list(mel.shape) ==
+                info["mel_shape"] and mel.shape[1] == 80):
+            fail(f"serve {what} {condition}: bad mel {mel.shape}")
+        if not (rate == SAMPLE_RATE and wav.dtype == np.int16
+                and len(wav) == (len(mel) - 1) * 256 and wav.any()):
+            fail(f"serve {what} {condition}: bad wav {wav.dtype} {wav.shape}")
+        mels[condition] = mel
+    return mels
+
+
+def phase_serve(reps: int = 5):
+    """The port's ``cli.serve`` handler in a thread on an ephemeral port,
+    full-width models with seeded weights loaded from ``.ckpt`` files:
+    three ``POST /convert`` requests (a 3 s pair, an 8 s pair, which takes
+    ``convert_long``, and the first again, whose mels must equal the
+    first's) with the launches of each; each pair's mels against the same
+    call under ``plain_kernels()`` (plain LSTMs and plain decoder), its F0
+    equal; ms a request (median after a warm-up) with its split, and the
+    card's busy share of one request under ``torch.profiler``. Returns
+    the three requests' launches."""
+    import threading
+    from http.server import HTTPServer
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+    from torch.profiler import ProfilerActivity, profile
+
+    from speechsplit_tpu_torch.cli.serve import build_handler
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.data.prepare import read_wav
+    from speechsplit_tpu_torch.interop import save_reference_checkpoint
+    from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+    from speechsplit_tpu_torch.pipeline import VoiceConverter
+
+    config = SpeechSplitConfig()
+    gen = torch.Generator().manual_seed(SEED + 13)
+    with tempfile.TemporaryDirectory() as tmp:
+        g_path = os.path.join(tmp, "G.ckpt")
+        p_path = os.path.join(tmp, "P.ckpt")
+        save_reference_checkpoint(SpeechSplit(config, generator=gen), g_path)
+        save_reference_checkpoint(F0Converter(config, generator=gen), p_path)
+        converter = VoiceConverter.from_checkpoints(g_path, p_path,
+                                                    config=config,
+                                                    device="cuda")
+        pairs = {}
+        for name, seconds in (("short", SHORT_S), ("long", LONG_S)):
+            paths = []
+            for side, (f_a, f_b) in (("src", (105.0, 150.0)),
+                                     ("trg", (190.0, 260.0))):
+                path = os.path.join(tmp, f"{name}_{side}.wav")
+                wavfile.write(path, SAMPLE_RATE, synth_wav(
+                    seconds, f_a, f_b, SEED + len(paths) + int(seconds)))
+                paths.append(path)
+            pairs[name] = {"source_wav": paths[0], "target_wav": paths[1],
+                           "out_dir": os.path.join(tmp, f"out_{name}")}
+        httpd = HTTPServer(("127.0.0.1", 0),
+                           build_handler(converter, os.path.join(tmp, "out")))
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_port}"
+        try:
+            with strict_float32("serve: the requests, the plain calls and "
+                                "the timing"):
+                check_reply(*post_convert(url, pairs["short"]), "warm-up")
+                torch.cuda.synchronize()
+                reset_launches()
+                per_request = []
+                replies = []
+                for name in ("short", "long", "short"):
+                    before = read_launches()
+                    replies.append(check_reply(
+                        *post_convert(url, pairs[name]), name))
+                    after = read_launches()
+                    per_request.append({k: after[k] - before[k]
+                                        for k in ("viterbi_decode",
+                                                  "bilstm_infer",
+                                                  "multi_bilstm_infer",
+                                                  "lstm_infer")})
+                launches = read_launches()
+                for kernel in ("viterbi_decode", "bilstm_infer",
+                               "multi_bilstm_infer"):
+                    if not launches[kernel]:
+                        fail(f"serve: three requests launched no {kernel}")
+                repeat = max(float(np.abs(replies[0][c] - replies[2][c]).max())
+                             for c in replies[0])
+                if not repeat <= REPEAT_TOL:
+                    fail(f"serve: the repeated request's mels differ by "
+                         f"{repeat}")
+                errs = {}
+                for name, reply in (("short", replies[0]),
+                                    ("long", replies[1])):
+                    src, trg = (pairs[name]["source_wav"],
+                                pairs[name]["target_wav"])
+                    wav = read_wav(src)
+                    f0 = converter.extract_features_full(wav, "M")[1]
+                    with plain_kernels():
+                        f0_plain = converter.extract_features_full(wav,
+                                                                   "M")[1]
+                        plain = converter.convert_wav_files(
+                            src, trg, synthesize=False)
+                    if not np.array_equal(f0, f0_plain):
+                        fail(f"serve {name}: F0 differs from the plain call's")
+                    errs[name] = max(float(np.abs(reply[c] - plain[c]["mel"])
+                                           .max()) for c in reply)
+                    if not errs[name] <= PATH_TOL:
+                        fail(f"serve {name}: mels {errs[name]} from the plain "
+                             f"call's")
+                timings = {}
+                for name in ("short", "long"):
+                    walls, splits = [], []
+                    for _ in range(reps):
+                        start = time.perf_counter()
+                        check_reply(*post_convert(url, pairs[name]), name)
+                        walls.append((time.perf_counter() - start) * 1e3)
+                        splits.append(dict(converter.last_timings))
+                    timings[name] = {"ms_per_request": float(np.median(walls))}
+                    for key in splits[0]:
+                        timings[name][key] = float(np.median(
+                            [s[key] for s in splits]))
+                short = pairs["short"]
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    start = time.perf_counter()
+                    converter.convert_wav_files(
+                        short["source_wav"], short["target_wav"], pcm16=True,
+                        compress_results="auto")
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - start) * 1e3
+        finally:
+            httpd.shutdown()
+            thread.join()
+        for name, row in timings.items():
+            log("serve", pair=name,
+                seconds=SHORT_S if name == "short" else LONG_S,
+                **{k: f"{v:.4f}" for k, v in row.items()},
+                launches=json.dumps(per_request[0 if name == "short" else 1]
+                                    ).replace(" ", ""),
+                max_abs_err_vs_plain=f"{errs[name]:.3g}", tol=PATH_TOL)
+        log("serve", requests=3, all_status=200, repeat_max_abs=f"{repeat:.3g}",
+            launches_three_requests=json.dumps(
+                {k: v for k, v in launches.items() if v}).replace(" ", ""),
+            tf32="off")
+        profile_events("serve profile", prof, wall_ms, top=10)
+        del converter, prof
+    return launches
+
+
 KERNELS = {
     "bilstm_infer": dict(
         route="cuda", source="speechsplit_tpu_torch/csrc/bilstm_infer.cu",
@@ -3903,6 +4495,9 @@ KERNELS = {
     "lstm_bwd": dict(
         route="cuda", source="speechsplit_tpu_torch/csrc/lstm_bwd.cu",
         replaces="speechsplit_tpu/ops/pallas_lstm.py:396"),
+    "viterbi_decode": dict(
+        route="cuda", source="speechsplit_tpu_torch/csrc/viterbi.cu",
+        replaces="speechsplit_tpu/ops/pitch.py:497"),
 }
 TRAINING_KERNELS = ("bilstm_fwd", "bilstm_bwd", "multi_bilstm_fwd",
                     "multi_bilstm_bwd")
@@ -4314,6 +4909,11 @@ def main() -> int:
     phase_profile(g_model, p_model, pairs)
     phase_cli(g_model, p_model)
     del g_model, p_model, pairs
+    rows["viterbi_decode"] = phase_viterbi()
+    per_extraction, long_mel = phase_front_end()
+    rows["viterbi_decode"]["launches_an_extraction"] = per_extraction
+    phase_vocoder(long_mel)
+    serve_launches = phase_serve()
     rows.update(phase_train_kernels())
     phase_bwd_probe()
     phase_infer_probe()
@@ -4346,6 +4946,9 @@ def main() -> int:
     launches["bilstm_fused_infer"] = fused_convert["bilstm_fused_infer"]
     launches["bilstm_fused_fwd"] = fused_gen["bilstm_fused_fwd"]
     launches["lstm_infer"] = large_convert["lstm_infer"]
+    # the serving path's: three requests (a 3 s pair, an 8 s pair, the
+    # first again)
+    launches["viterbi_decode"] = serve_launches["viterbi_decode"]
     f0_launches = {**f0_launches, "bilstm_fused_fwd": fused_f0[
         "bilstm_fused_fwd"]}
     for name in ("lstm_fwd", "lstm_bwd"):

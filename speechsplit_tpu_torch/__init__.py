@@ -4,18 +4,23 @@ Runs the SpeechSplit generator and the F0 converter on an NVIDIA Hopper
 card (H100). Module names mirror the JAX package so that each module's
 counterpart is easy to find; the port imports nothing of that package.
 
-Every recurrence on the conversion and training paths runs in a CUDA
-kernel written for ``sm_90a`` (``csrc/``): ``ops.bilstm`` (one BiLSTM
-layer, both directions in one launch) and ``ops.multi_bilstm`` (N
-independent narrow BiLSTMs in one launch), each with a lean forward for
-inference and, under autograd, a residual-saving forward and a gradient
-kernel. On CPU tensors the same functions run their plain PyTorch
-versions, which is how the tests hold the port to JAX.
+Every recurrence on the serving, conversion and training paths runs in
+a CUDA kernel written for ``sm_90a`` (``csrc/``): ``ops.bilstm`` (one
+BiLSTM layer, both directions in one launch), ``ops.multi_bilstm`` (N
+independent narrow BiLSTMs in one launch) and ``ops.lstm`` (one
+direction), each with a lean forward for inference and, under autograd,
+a residual-saving forward and a gradient kernel; and the pitch tracker's
+Viterbi decoder (``ops.pitch.viterbi_decode``). On CPU tensors the same
+functions run their plain PyTorch versions, which is how the tests hold
+the port to JAX.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
-conversion (``convert``, ``cli.convert``) and training
-(``training.create_train_state``, ``training.make_train_step``,
-``training.make_f0_train_step``, ``training.Solver``, ``cli.train``).
+serving (``pipeline.VoiceConverter``, ``cli.serve``), feature extraction
+(``preprocess.extract_features``), synthesis
+(``vocoder.GriffinLimVocoder``), conversion (``convert``,
+``cli.convert``) and training (``training.create_train_state``,
+``training.make_train_step``, ``training.make_f0_train_step``,
+``training.Solver``, ``cli.train``).
 """
 
 from __future__ import annotations

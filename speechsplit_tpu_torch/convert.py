@@ -126,11 +126,16 @@ def convert_batched(
     p_model: F0Converter,
     pairs: Sequence[Tuple[Utterance, Utterance]],
     conditions: Sequence[str] = CONDITIONS,
+    compress_fetch: bool = False,
 ) -> List[List[Tuple[str, np.ndarray]]]:
     """All conditions of all pairs in two batched forwards: one F0
     converter call over the P pairs and one generator call over the
     [C * P] (condition, pair) grid. Returns per-pair lists in
-    :func:`convert`'s format."""
+    :func:`convert`'s format.
+
+    ``compress_fetch=True`` casts the grid to bfloat16 on the device
+    before the fetch (half the bytes; about 2e-3 of rounding on the [0, 1]
+    scale) and back to float32 on the host, as convert.py:209-210 does."""
     mel_src = torch.cat([s.mel for s, _ in pairs], dim=0)
     mel_trg = torch.cat([t.mel for _, t in pairs], dim=0)
     f0_src = torch.cat([s.f0_onehot for s, _ in pairs], dim=0)
@@ -151,13 +156,82 @@ def convert_batched(
                   torch.cat(embs, dim=0))  # [C * P, T, 80]
 
     cut_max = max(_cut(c, s, t) for c in conditions for s, t in pairs)
-    grid = out[:, :cut_max].float().cpu().numpy()
+    grid = out[:, :cut_max]
+    if compress_fetch:
+        grid = grid.to(torch.bfloat16)
+    grid = grid.cpu().float().numpy()
     results: List[List[Tuple[str, np.ndarray]]] = [[] for _ in pairs]
     for ci, condition in enumerate(conditions):
         for pi, (src, trg) in enumerate(pairs):
             row = grid[ci * len(pairs) + pi, : _cut(condition, src, trg)]
             results[pi].append((_name(condition, src, trg), row))
     return results
+
+
+def convert_long(
+    config: SpeechSplitConfig,
+    g_model: SpeechSplit,
+    p_model: F0Converter,
+    src_mel: np.ndarray,
+    src_f0: np.ndarray,
+    src_emb: np.ndarray,
+    trg_mel: np.ndarray,
+    trg_f0: np.ndarray,
+    trg_emb: np.ndarray,
+    condition: str = "RFU",
+    overlap: int = 24,
+) -> np.ndarray:
+    """Convert utterances longer than the model's ``max_len_pad`` frames
+    (convert.py:433-520): overlapping windows at proportional positions
+    on the source and target timelines (so rhythm windows correspond),
+    every window pair in one ``convert_batched`` call, the outputs
+    cross-faded linearly on the overlaps. Runs on the models' device.
+    Returns the converted mel on the rhythm source's timeline
+    ([len(trg)] if 'R' in condition else [len(src)], 80)."""
+    device = next(g_model.parameters()).device
+    win = config.max_len_pad
+    drive_len = len(trg_mel) if "R" in condition else len(src_mel)
+
+    def prepare(mel, f0, emb):
+        return prepare_utterance(config, mel, f0, emb, device=device)
+
+    if drive_len <= win:
+        pair = (prepare(src_mel[:win], src_f0[:win], src_emb),
+                prepare(trg_mel[:win], trg_f0[:win], trg_emb))
+        return convert_batched(g_model, p_model, [pair], (condition,))[0][0][1]
+
+    step = win - overlap
+    n_windows = max(1, -(-(drive_len - overlap) // step))
+    pairs, spans = [], []
+    for i in range(n_windows):
+        start = min(i * step, drive_len - win)
+
+        def window(mel, f0):
+            # the same relative position on each timeline
+            length = len(mel)
+            if length <= win:
+                return mel, f0
+            w_start = int(round(start / drive_len * (length - win)))
+            return mel[w_start : w_start + win], f0[w_start : w_start + win]
+
+        pairs.append((prepare(*window(src_mel, src_f0), src_emb),
+                      prepare(*window(trg_mel, trg_f0), trg_emb)))
+        spans.append(start)
+
+    results = convert_batched(g_model, p_model, pairs, (condition,))
+    out = np.zeros((drive_len, config.dim_freq), np.float32)
+    weight = np.zeros((drive_len, 1), np.float32)
+    fade = np.linspace(0.0, 1.0, overlap, dtype=np.float32)[:, None]
+    for wi, (start, res) in enumerate(zip(spans, results)):
+        mel = res[0][1]
+        w = np.ones((len(mel), 1), np.float32)
+        if overlap > 0 and wi > 0:
+            w[:overlap] = fade  # fade in (has a predecessor)
+        if overlap > 0 and wi < len(spans) - 1:
+            w[-overlap:] = fade[::-1]  # fade out (has a successor)
+        out[start : start + len(mel)] += mel * w
+        weight[start : start + len(mel)] += w
+    return out / np.maximum(weight, 1e-6)
 
 
 def load_demo_metadata(path: str) -> list:

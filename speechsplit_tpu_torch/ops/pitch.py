@@ -1,0 +1,378 @@
+"""Batched NCCF + Viterbi pitch tracking (counterpart of
+speechsplit_tpu/ops/pitch.py; the reference runs RAPT on the host,
+make_spect_f0.py:64).
+
+Log-F0 a frame, one frame a STFT hop (N // hop + 1 frames), unvoiced
+frames -1e10, search range [lo, hi] Hz an utterance (the gender ranges
+of make_spect_f0.py:40-45):
+
+1. NCCF: the mean-subtracted normalized cross-correlation of every
+   frame with itself at lags [fs/600, fs/50], for all frames of all
+   utterances at once (an rfft correlation; window sums from prefix
+   sums).
+2. Candidates: the top K local NCCF maxima a frame, parabolic lag
+   refinement.
+3. Viterbi over frames: K voiced states and one unvoiced state, the
+   serial decoder of JAX's ``_viterbi_scan`` (pitch.py:497-562).
+
+The decoder is the one recurrence of the front end. On CUDA tensors it
+runs in ``csrc/viterbi.cu`` (:func:`viterbi_decode`: a warp an
+utterance, one launch for the batch, the forward pass and the backtrace);
+on CPU tensors its plain version runs, the T-step loop in JAX's order of
+operations, which the tests hold to JAX. JAX's parallel and block
+decoders (``parallel_viterbi``, ``block_viterbi > 1``), its K argmax
+passes for the top K (``topk_by_sort=False``) and its grouped-conv NCCF
+(``nccf_by_conv=True``) wait in ROADMAP.md A6 and raise here.
+
+Candidate ties: ``jax.lax.top_k`` breaks them toward the lower index, and
+masked lags (all -2.0) tie often, so the top K come from a stable
+descending ``torch.sort``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from speechsplit_tpu_torch.ops import _build
+
+UNVOICED_LOG_F0 = -1e10  # sentinel shared with the reference pipeline
+A6 = "queued in ROADMAP.md A6"
+
+# kernel launches since the last reset; the main path's proof that it ran
+LAUNCHES = {"viterbi_decode": 0}
+# the most states (K voiced + unvoiced) the kernel takes: a lane a state
+MAX_STATES = _build.source_constant("viterbi", "kMaxStates")
+
+
+class PitchParams(NamedTuple):
+    """Tracker constants (the JAX package's fields and defaults)."""
+
+    window: int = 120          # correlation window, 7.5 ms @ 16 kHz
+    num_cands: int = 12        # voiced candidates per frame
+    cand_thresh: float = 0.3   # min NCCF for a candidate to count
+    lag_weight: float = 0.3    # prefer shorter lags (higher F0)
+    freq_weight: float = 0.25  # octave-jump transition penalty
+    voice_bias: float = 0.0    # bias toward voiced decisions
+    trans_cost: float = 0.3    # voiced<->unvoiced switch cost
+    parallel_viterbi: bool = False  # refused here: ROADMAP.md A6
+    block_viterbi: int = 0          # > 1 refused here: ROADMAP.md A6
+    topk_by_sort: bool = True   # False refused here: ROADMAP.md A6
+    nccf_by_conv: bool = False  # True refused here: ROADMAP.md A6
+
+
+def check_params(params: PitchParams) -> None:
+    """Refuse the options the port does not run."""
+    if not params.topk_by_sort:
+        raise NotImplementedError(
+            f"PitchParams(topk_by_sort=False) is {A6}")
+    if params.nccf_by_conv:
+        raise NotImplementedError(
+            f"PitchParams(nccf_by_conv=True) is {A6}")
+    if params.parallel_viterbi:
+        raise NotImplementedError(
+            f"PitchParams(parallel_viterbi=True) is {A6}")
+    if params.block_viterbi > 1:
+        raise NotImplementedError(
+            f"PitchParams(block_viterbi={params.block_viterbi}) is {A6}")
+
+
+def _windows(x: torch.Tensor, n_frames: int, hop: int,
+             span: int) -> torch.Tensor:
+    """out[..., t, j] = x[..., t*hop + j] for t < n_frames, j < span;
+    zeros past the end of x (JAX ``strided_windows``)."""
+    need = (n_frames - 1) * hop + span
+    if need > x.shape[-1]:
+        x = F.pad(x, (0, need - x.shape[-1]))
+    return x.unfold(-1, span, hop)[..., :n_frames, :]
+
+
+def _prefix_sum(x: torch.Tensor, base: int = 16) -> torch.Tensor:
+    """Inclusive float32 prefix sum of x [B, N] along N in the order XLA
+    takes for ``jnp.cumsum`` on the CPU: chunks of ``base`` summed in
+    sequence, the chunk totals scanned the same way (recursively) and
+    added to their successors. The window sums of :func:`_nccf` are
+    differences of prefix entries of about the utterance's whole energy,
+    so the rounding of the sum shows in quiet frames: in this order they
+    round as the JAX package's do. (``torch.cumsum`` sums in another
+    order, in float64 on the CPU.)"""
+    batch, n = x.shape
+    chunks = -(-n // base)
+    xs = F.pad(x, (0, chunks * base - n)).reshape(batch, chunks, base)
+    cols = [xs[..., 0]]
+    for j in range(1, base):
+        cols.append(cols[-1] + xs[..., j])
+    within = torch.stack(cols, dim=-1)  # [B, chunks, base]
+    if chunks > 1:
+        carry = _prefix_sum(within[..., -1], base)
+        within = within + F.pad(carry[:, :-1], (1, 0))[..., None]
+    return within.reshape(batch, chunks * base)[:, :n]
+
+
+def _window_prefix_sums(x: torch.Tensor):
+    """(sum, energy) prefixes of x [B, N], each [B, N+1] with a leading
+    zero: one :func:`_prefix_sum` over both, stacked on the batch."""
+    batch = x.shape[0]
+    both = _prefix_sum(torch.cat([x, x * x]))
+    both = torch.cat([both.new_zeros(2 * batch, 1), both], dim=-1)
+    return both[:batch], both[batch:]
+
+
+def _nccf(x: torch.Tensor, n_frames: int, hop: int, window: int, kmin: int,
+          kmax: int) -> torch.Tensor:
+    """Mean-subtracted NCCF of every frame: x [B, N] (zero-padded so that
+    (n_frames-1)*hop + window + kmax <= N) -> [B, n_frames, kmax-kmin+1].
+    Window means leave both legs through prefix sums:
+    sum (a-ā)(b-b̄) = sum ab - W·ā·b̄."""
+    batch = x.shape[0]
+    n_lags = kmax - kmin + 1
+    span = window + kmax
+    frames = _windows(x, n_frames, hop, span)  # [B, T, span]
+
+    # the correlation in float64: where a lagged window is silent (the
+    # zero padding past an utterance's end, digital silence) the
+    # normalization below sits near its 1e-12 floor and multiplies the
+    # numerator by up to 1e6, so float32 FFT rounding there (which differs
+    # between cuFFT, pocketfft and JAX's FFT) would decide the frame's
+    # candidates; in float64 it is 1e-9 of a float32 ulp, and the card and
+    # the CPU agree
+    nfft = 1 << (span + window - 1).bit_length()
+    frames64 = frames.double()
+    keep = torch.arange(span, device=x.device) < window
+    short = torch.where(keep, frames64, torch.zeros(
+        (), dtype=torch.float64, device=x.device))
+    spec_l = torch.fft.rfft(frames64, n=nfft, dim=-1)
+    spec_s = torch.fft.rfft(short, n=nfft, dim=-1)
+    corr = torch.fft.irfft(torch.conj(spec_s) * spec_l, n=nfft, dim=-1)
+    num = corr[..., kmin : kmax + 1].to(x.dtype)
+
+    sum_prefix, energy_prefix = _window_prefix_sums(x)
+    starts = torch.arange(n_frames, device=x.device) * hop
+
+    def seg(prefix, base):
+        return _windows(prefix[:, base:], n_frames, hop, n_lags)
+
+    s_k = seg(sum_prefix, kmin + window) - seg(sum_prefix, kmin)
+    s_0 = (sum_prefix[:, starts + window] - sum_prefix[:, starts])[..., None]
+    e_k = seg(energy_prefix, kmin + window) - seg(energy_prefix, kmin)
+    e_0 = (energy_prefix[:, starts + window]
+           - energy_prefix[:, starts])[..., None]
+
+    w = float(window)
+    num_c = num - s_0 * s_k / w
+    e_0c = torch.clamp(e_0 - s_0 * s_0 / w, min=0.0)
+    e_kc = torch.clamp(e_k - s_k * s_k / w, min=0.0)
+    return num_c * torch.rsqrt(e_0c * e_kc + 1e-12)
+
+
+def _candidates(nccf: torch.Tensor, kmin: int, params: PitchParams):
+    """The top K local maxima a frame with parabolic refinement:
+    nccf [..., T, L] -> (lag [..., T, K] float, score [..., T, K])."""
+    n_lags = nccf.shape[-1]
+    left = F.pad(nccf[..., :-1], (1, 0), value=-2.0)
+    right = F.pad(nccf[..., 1:], (0, 1), value=-2.0)
+    is_peak = (nccf >= left) & (nccf > right)
+    masked = torch.where(is_peak, nccf, torch.full((), -2.0,
+                                                   device=nccf.device))
+    k = params.num_cands
+    score, pos = torch.sort(masked, dim=-1, descending=True, stable=True)
+    score, pos = score[..., :k], pos[..., :k]
+
+    pos_c = pos.clamp(1, n_lags - 2)
+    ym = torch.gather(left, -1, pos_c)
+    y0 = torch.gather(nccf, -1, pos_c)
+    yp = torch.gather(right, -1, pos_c)
+    denom = ym - 2.0 * y0 + yp
+    zero = torch.zeros((), device=nccf.device)
+    delta = torch.where(denom.abs() > 1e-9, 0.5 * (ym - yp) / denom, zero)
+    delta = delta.clamp(-0.5, 0.5)
+    lag = pos.float() + torch.where(pos == pos_c, delta, zero)
+    return lag + kmin, score
+
+
+def _local_costs(lag: torch.Tensor, score: torch.Tensor, kmax: int,
+                 params: PitchParams):
+    """(usable [..., K], local_v [..., K], local_u [...], log_lag [..., K])
+    a frame, as JAX's ``_local_costs`` (pitch.py:395-406)."""
+    usable = score > params.cand_thresh
+    lag_term = 1.0 - params.lag_weight * lag / kmax
+    local_v = torch.where(usable, 1.0 - score * lag_term,
+                          torch.full((), 1e6, device=lag.device))
+    local_u = params.voice_bias + torch.clamp(score.amax(dim=-1), min=0.0)
+    log_lag = torch.log(torch.clamp(lag, min=1.0))
+    return usable, local_v, local_u, log_lag
+
+
+def viterbi_decode_reference(local_v: torch.Tensor, local_u: torch.Tensor,
+                             log_lag: torch.Tensor, freq_weight: float,
+                             trans_cost: float) -> torch.Tensor:
+    """The plain version of the decoder kernel: JAX's ``_viterbi_scan``
+    step loop and backtrace, for a batch, in its order of operations.
+    local_v, log_lag [B, T, K], local_u [B, T] float32 -> the state of
+    every frame [B, T] int32 (K is unvoiced)."""
+    batch, t_len, k = local_v.shape
+    cost = torch.cat([local_v[:, 0], local_u[:, :1]], dim=1)  # [B, K+1]
+    k_col = torch.full((), k, dtype=torch.int64, device=local_v.device)
+    backs = []
+    for t in range(1, t_len):
+        ll, prev_ll = log_lag[:, t], log_lag[:, t - 1]
+        trans_vv = freq_weight * (ll[:, None, :] - prev_ll[:, :, None]).abs()
+        cost_from_v = cost[:, :k, None] + trans_vv  # [B, K_prev, K_cur]
+        cost_from_u = cost[:, k:] + trans_cost  # [B, 1]
+        best_v_prev = cost_from_v.amin(dim=1)
+        arg_v_prev = cost_from_v.argmin(dim=1)
+        new_v = local_v[:, t] + torch.minimum(best_v_prev, cost_from_u)
+        arg_v = torch.where(best_v_prev <= cost_from_u, arg_v_prev, k_col)
+
+        prev_v = cost[:, :k]
+        to_u_from_v = prev_v.amin(dim=1, keepdim=True) + trans_cost
+        arg_u_from_v = prev_v.argmin(dim=1, keepdim=True)
+        prev_u = cost[:, k:]
+        new_u = local_u[:, t : t + 1] + torch.minimum(to_u_from_v, prev_u)
+        arg_u = torch.where(to_u_from_v <= prev_u, arg_u_from_v, k_col)
+
+        cost = torch.cat([new_v, new_u], dim=1)
+        backs.append(torch.cat([arg_v, arg_u], dim=1))
+    state = cost.argmin(dim=1, keepdim=True)  # [B, 1]
+    states = [state]
+    for back in reversed(backs):
+        state = torch.gather(back, 1, state)
+        states.append(state)
+    return torch.cat(states[::-1], dim=1).to(torch.int32)
+
+
+def _check(local_v, local_u, log_lag) -> None:
+    """The kernel's inputs: float32, contiguous, [B, T, K] and [B, T],
+    K + 1 states on at most ``MAX_STATES`` lanes."""
+    if local_v.dim() != 3 or log_lag.shape != local_v.shape or (
+            local_u.shape != local_v.shape[:2]):
+        raise ValueError(
+            f"viterbi_decode takes local_v, log_lag [B, T, K] and local_u "
+            f"[B, T]: got {tuple(local_v.shape)}, {tuple(log_lag.shape)}, "
+            f"{tuple(local_u.shape)}")
+    k = local_v.shape[-1]
+    if not 1 <= k < MAX_STATES:
+        raise ValueError(
+            f"viterbi_decode takes 1..{MAX_STATES - 1} candidates a frame "
+            f"(K + 1 states on a warp's lanes), got K={k}")
+    if local_v.shape[1] < 1:
+        raise ValueError("viterbi_decode needs at least one frame")
+    for name, x in (("local_v", local_v), ("local_u", local_u),
+                    ("log_lag", log_lag)):
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(
+                f"viterbi_decode takes contiguous float32 tensors: {name} "
+                f"is {x.dtype}, contiguous={x.is_contiguous()}")
+
+
+def _library():
+    lib = _build.load("viterbi")
+    # local_v, local_u, log_lag, back, states, B, T, K, freq_weight,
+    # trans_cost, device, stream
+    lib.viterbi_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    lib.viterbi_launch.restype = ctypes.c_int
+    lib.viterbi_error_string.argtypes = [ctypes.c_int]
+    lib.viterbi_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def viterbi_decode_cuda(local_v: torch.Tensor, local_u: torch.Tensor,
+                        log_lag: torch.Tensor, freq_weight: float,
+                        trans_cost: float) -> torch.Tensor:
+    """Launch ``csrc/viterbi.cu``; arguments and result as
+    :func:`viterbi_decode_reference`. The backpointers go to a
+    [B, T-1, K+1] int8 scratch the wrapper allocates."""
+    _check(local_v, local_u, log_lag)
+    lib = _library()
+    batch, t_len, k = local_v.shape
+    device = local_v.device
+    back = torch.empty(batch, max(t_len - 1, 1), k + 1, dtype=torch.int8,
+                       device=device)
+    states = torch.empty(batch, t_len, dtype=torch.int32, device=device)
+    err = lib.viterbi_launch(
+        local_v.data_ptr(), local_u.data_ptr(), log_lag.data_ptr(),
+        back.data_ptr(), states.data_ptr(), batch, t_len, k,
+        float(freq_weight), float(trans_cost), device.index or 0,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check(err, "viterbi_decode", lib.viterbi_error_string)
+    LAUNCHES["viterbi_decode"] += 1
+    return states
+
+
+def viterbi_decode(local_v: torch.Tensor, local_u: torch.Tensor,
+                   log_lag: torch.Tensor, freq_weight: float,
+                   trans_cost: float) -> torch.Tensor:
+    """The serial Viterbi decoder: the kernel on CUDA tensors, the plain
+    version on CPU tensors; see :func:`viterbi_decode_reference`."""
+    devices = {x.device.type for x in (local_v, local_u, log_lag)}
+    if devices == {"cuda"}:
+        return viterbi_decode_cuda(local_v, local_u, log_lag, freq_weight,
+                                   trans_cost)
+    if devices == {"cpu"}:
+        return viterbi_decode_reference(local_v, local_u, log_lag,
+                                        freq_weight, trans_cost)
+    raise ValueError(f"viterbi_decode: tensors on {sorted(devices)}")
+
+
+def _viterbi(lag: torch.Tensor, score: torch.Tensor, kmax: int,
+             params: PitchParams):
+    """lag, score [B, T, K] -> (best_lag [B, T], voiced [B, T]): the
+    serial decoder and JAX's shared tail (pitch.py:550-562)."""
+    check_params(params)
+    k = lag.shape[-1]
+    usable, local_v, local_u, log_lag = _local_costs(lag, score, kmax, params)
+    states = viterbi_decode(local_v.contiguous(), local_u.contiguous(),
+                    log_lag.contiguous(), params.freq_weight,
+                    params.trans_cost).long()
+    voiced = states < k
+    state_c = states.clamp(0, k - 1)[..., None]
+    best_lag = torch.gather(lag, -1, state_c)[..., 0]
+    has_cand = torch.gather(usable, -1, state_c)[..., 0]
+    return best_lag, voiced & has_cand
+
+
+def track_pitch(
+    x: torch.Tensor,
+    lengths: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    *,
+    sample_rate: int = 16000,
+    hop: int = 256,
+    n_frames: int | None = None,
+    params: PitchParams = PitchParams(),
+) -> torch.Tensor:
+    """Batched log-F0: x [B, N] zero-padded waveforms, lengths [B] true
+    sample counts, lo/hi [B] search bounds in Hz -> [B, T] natural-log F0,
+    UNVOICED_LOG_F0 at unvoiced frames and past each length;
+    T = N // hop + 1. The static lag span is the widest range (50-600
+    Hz); lo/hi mask candidates an utterance."""
+    check_params(params)
+    batch, n_samples = x.shape
+    if n_frames is None:
+        n_frames = n_samples // hop + 1
+    kmin = sample_rate // 600
+    kmax = sample_rate // 50
+    span = params.window + kmax
+    x_pad = F.pad(x, (0, (n_frames - 1) * hop + span))
+
+    nccf = _nccf(x_pad, n_frames, hop, params.window, kmin, kmax)
+    lag, score = _candidates(nccf, kmin, params)
+    lo = lo.to(x.device, torch.float32)[:, None, None]
+    hi = hi.to(x.device, torch.float32)[:, None, None]
+    in_range = (lag >= sample_rate / hi) & (lag <= sample_rate / lo)
+    score = torch.where(in_range, score, torch.full((), -2.0,
+                                                    device=x.device))
+    best_lag, voiced = _viterbi(lag, score, kmax, params)
+    f0 = sample_rate / torch.clamp(best_lag, min=1.0)
+    unvoiced = torch.full((), UNVOICED_LOG_F0, device=x.device)
+    logf0 = torch.where(voiced, torch.log(f0), unvoiced)
+    frame_valid = (torch.arange(n_frames, device=x.device)[None, :] * hop
+                   < lengths.to(x.device)[:, None])
+    return torch.where(frame_valid, logf0, unvoiced)

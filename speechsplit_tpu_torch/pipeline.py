@@ -1,0 +1,239 @@
+"""Wav files in, converted wavs out (counterpart of
+speechsplit_tpu/pipeline.py).
+
+One object holds the two models, the feature front end and the vocoder:
+
+    vc = VoiceConverter.from_checkpoints("660000-G.ckpt", "640000-P.ckpt")
+    results = vc.convert_wav_files("src.wav", "trg.wav",
+                                   src_gender="M", trg_gender="F")
+
+A request runs feature extraction on the card (``preprocess``: STFT,
+mel, the NCCF pitch tracker with its Viterbi kernel), ``convert_batched``
+(``convert_long`` past ``max_len_pad`` frames) and Griffin-Lim
+synthesis, quantized to PCM16 on the card when asked. Everything runs on
+``cuda`` unless ``device="cpu"`` is given.
+
+The dither draws of each extraction come from a CPU ``torch.Generator``
+reseeded from ``seed`` on every call (or from ``dither_draws``, a
+function of the padded batch's shape that tests use to inject JAX's
+draws), and the vocoder reseeds its own: the same input gives the same
+output, as JAX's fixed key does (pipeline.py:113-125). Learned speaker
+embeddings (``spk_emb_mode="learned"``) wait in ROADMAP.md A5.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from speechsplit_tpu_torch import resolve_device
+from speechsplit_tpu_torch.config import SpeechSplitConfig
+from speechsplit_tpu_torch.convert import (
+    CONDITIONS,
+    Utterance,
+    convert_batched,
+    convert_long,
+    prepare_utterance,
+)
+from speechsplit_tpu_torch.data.prepare import read_wav
+from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+from speechsplit_tpu_torch.preprocess import (
+    GENDER_F0_RANGE,
+    extract_features,
+    frame_count,
+    pad_batch,
+)
+from speechsplit_tpu_torch.vocoder import GriffinLimVocoder, Vocoder
+
+A5 = "queued in ROADMAP.md A5"
+
+
+class VoiceConverter:
+    """Loaded models, feature front end and vocoder, ready to convert."""
+
+    def __init__(
+        self,
+        config: SpeechSplitConfig,
+        g_model: SpeechSplit,
+        p_model: F0Converter,
+        vocoder: Optional[Vocoder] = None,
+        seed: int = 0,
+        device=None,
+        dither_draws: Optional[Callable[[tuple], torch.Tensor]] = None,
+    ):
+        if config.spk_emb_mode != "onehot":
+            raise NotImplementedError(
+                f"spk_emb_mode={config.spk_emb_mode!r} (SpeakerEncoder) is "
+                f"{A5}")
+        self.config = config
+        self.device = resolve_device(device)
+        self.g_model = g_model.to(self.device).eval()
+        self.p_model = p_model.to(self.device).eval()
+        self.vocoder = vocoder or GriffinLimVocoder(
+            sample_rate=config.sample_rate, n_fft=config.fft_length,
+            hop=config.hop_length, n_mels=config.dim_freq,
+            fmin=config.mel_fmin, fmax=config.mel_fmax, seed=seed,
+            device=self.device,
+        )
+        self.seed = seed
+        self.dither_draws = dither_draws
+        # host-clock ms of the last convert_wav_files call's stages, each
+        # ending in its fetch to the host
+        self.last_timings: Dict[str, float] = {}
+
+    @classmethod
+    def from_checkpoints(
+        cls,
+        generator_path: str,
+        f0_converter_path: str,
+        config: Optional[SpeechSplitConfig] = None,
+        **kwargs,
+    ) -> "VoiceConverter":
+        """Load reference-format ``.ckpt`` files (the reference's own, or
+        ones the JAX package's ``cli.export_ckpt`` or the port's trainer
+        wrote)."""
+        from speechsplit_tpu_torch.interop import load_reference_checkpoint
+
+        config = config or SpeechSplitConfig()
+        for path in (generator_path, f0_converter_path):
+            if not path.endswith(".ckpt"):
+                raise NotImplementedError(
+                    f"{path}: only reference-format .ckpt files load here; "
+                    "Orbax checkpoint directories reach the port through "
+                    "the JAX package's cli.export_ckpt (ROADMAP.md A2)")
+        g_model = SpeechSplit(config)
+        g_model.load_state_dict(load_reference_checkpoint(generator_path))
+        p_model = F0Converter(config)
+        p_model.load_state_dict(load_reference_checkpoint(f0_converter_path))
+        return cls(config, g_model, p_model, **kwargs)
+
+    # ------------------------------------------------------------------
+    def _draws(self, shape: tuple) -> torch.Tensor:
+        if self.dither_draws is not None:
+            return self.dither_draws(shape)
+        return torch.rand(shape,
+                          generator=torch.Generator().manual_seed(self.seed))
+
+    def extract_features_full(self, wav: np.ndarray, gender: str = "M"
+                              ) -> Tuple[np.ndarray, np.ndarray]:
+        """wav [N] -> (mel [T, 80], f0 [T]) at full length, on the host."""
+        cfg = self.config
+        lo, hi = GENDER_F0_RANGE[gender]
+        batch, lengths = pad_batch([wav])
+        mel, f0 = extract_features(
+            batch, lengths, np.full(1, lo, np.float32),
+            np.full(1, hi, np.float32), uniform=self._draws(batch.shape),
+            device=self.device, sample_rate=cfg.sample_rate,
+            n_fft=cfg.fft_length, hop=cfg.hop_length, n_mels=cfg.dim_freq,
+            fmin=cfg.mel_fmin, fmax=cfg.mel_fmax,
+        )
+        t = frame_count(len(wav), cfg.hop_length)
+        return mel[0, :t].cpu().numpy(), f0[0, :t].cpu().numpy()
+
+    def speaker_embedding_from_mel(self, mel: np.ndarray) -> np.ndarray:
+        """Learned mode's embedding of a mel (SpeakerEncoder)."""
+        raise NotImplementedError(f"speaker_embedding_from_mel is {A5}")
+
+    def extract_utterance(self, wav: np.ndarray,
+                          spk_emb: Optional[np.ndarray] = None,
+                          gender: str = "M", name: str = "",
+                          uid: str = "") -> Utterance:
+        """wav [N] -> a prepared Utterance, cut to ``max_len_pad`` frames
+        (:meth:`convert_wav_files` windows longer audio)."""
+        if spk_emb is None:
+            raise ValueError(
+                "spk_emb is required for one-hot configs (learned mode "
+                f"derives it from the mel, {A5})")
+        mel, f0 = self.extract_features_full(wav, gender)
+        t = min(len(mel), self.config.max_len_pad)
+        return prepare_utterance(self.config, mel[:t], f0[:t], spk_emb,
+                                 name=name, uid=uid, device=self.device)
+
+    @staticmethod
+    def _resolve_compress(mode) -> bool:
+        """``compress_results="auto"`` fetches float32. The JAX package
+        lets a link probe decide, for a device behind a slow link; the
+        port's card sits in this host, and that probe waits in
+        ROADMAP.md A9 until a remote device needs it."""
+        return False if mode == "auto" else bool(mode)
+
+    def convert_utterances(self, src: Utterance, trg: Utterance,
+                           conditions: Sequence[str] = CONDITIONS,
+                           compress_results=False
+                           ) -> List[Tuple[str, np.ndarray]]:
+        return convert_batched(
+            self.g_model, self.p_model, [(src, trg)], conditions,
+            compress_fetch=self._resolve_compress(compress_results),
+        )[0]
+
+    def convert_wav_files(
+        self,
+        src_path: str,
+        trg_path: str,
+        *,
+        src_gender: str = "M",
+        trg_gender: str = "F",
+        src_emb: Optional[np.ndarray] = None,
+        trg_emb: Optional[np.ndarray] = None,
+        conditions: Sequence[str] = CONDITIONS,
+        synthesize: bool = True,
+        compress_results=False,
+        pcm16: bool = False,
+    ) -> Dict[str, Dict[str, np.ndarray]]:
+        """Wav-to-wav conversion between two utterance files.
+
+        Past ``max_len_pad`` frames the pair goes through ``convert_long``,
+        one call a condition. Returns {condition: {"mel": [T, 80],
+        "wav": [N]}} ("wav" when ``synthesize``). ``compress_results``
+        fetches the mels as bfloat16 ("auto": float32, see
+        :meth:`_resolve_compress`); ``pcm16`` returns int16 wavs quantized on the device.
+        Speaker embeddings default to one-hot slots 1 (source) and 7
+        (target), as JAX's."""
+        cfg = self.config
+        clock = time.perf_counter()
+        s_mel, s_f0 = self.extract_features_full(
+            read_wav(src_path, cfg.sample_rate), src_gender)
+        t_mel, t_f0 = self.extract_features_full(
+            read_wav(trg_path, cfg.sample_rate), trg_gender)
+        timings = {"features_ms": (time.perf_counter() - clock) * 1e3}
+        eye = np.eye(cfg.dim_spk_emb, dtype=np.float32)
+        src_emb = eye[1] if src_emb is None else src_emb
+        trg_emb = eye[7] if trg_emb is None else trg_emb
+
+        clock = time.perf_counter()
+        if max(len(s_mel), len(t_mel)) <= cfg.max_len_pad:
+            src = prepare_utterance(cfg, s_mel, s_f0, src_emb,
+                                    name=os.path.basename(src_path), uid="0",
+                                    device=self.device)
+            trg = prepare_utterance(cfg, t_mel, t_f0, trg_emb,
+                                    name=os.path.basename(trg_path), uid="0",
+                                    device=self.device)
+            results = self.convert_utterances(
+                src, trg, conditions, compress_results=compress_results)
+            named = [(n.split("_")[-1], mel) for n, mel in results]
+        else:
+            named = [(condition, convert_long(
+                cfg, self.g_model, self.p_model, s_mel, s_f0, src_emb,
+                t_mel, t_f0, trg_emb, condition=condition))
+                for condition in conditions]
+        timings["convert_ms"] = (time.perf_counter() - clock) * 1e3
+
+        clock = time.perf_counter()
+        wavs = None
+        if synthesize and hasattr(self.vocoder, "synthesize_batch"):
+            wavs = self.vocoder.synthesize_batch([m for _, m in named],
+                                                 pcm16=pcm16)
+        out: Dict[str, Dict[str, np.ndarray]] = {}
+        for i, (condition, mel) in enumerate(named):
+            entry = {"mel": mel}
+            if synthesize:
+                entry["wav"] = wavs[i] if wavs is not None else (
+                    self.vocoder(mel))
+            out[condition] = entry
+        timings["vocoder_ms"] = (time.perf_counter() - clock) * 1e3
+        self.last_timings = timings
+        return out

@@ -44,7 +44,9 @@ def test_scan_covers_the_package():
             "interp.py", "collator.py", "train_step.py", "solver.py",
             "checkpoint.py", "dataset.py", "sampler.py", "loader.py",
             "prefetch.py", "profiling.py", "train.py",
-            "chip_smoke.py"} <= names
+            "stft.py", "filters.py", "pitch.py", "preprocess.py",
+            "prepare.py", "vocoder.py", "pipeline.py",
+            "serve.py", "chip_smoke.py"} <= names
 
 
 def test_resolve_device_defaults_to_cuda(monkeypatch):
