@@ -138,6 +138,31 @@ Phases, one line each; any failure exits non-zero:
    ``cli.train`` at the default config (no precision in ``--hparams``)
    for both models, 6 iterations and a resume from step 3 whose state
    equals the checkpoint's, Adam's mu bfloat16 in every checkpoint;
+   then bfloat16 compute (``compute_dtype="bfloat16"``: W_hh bfloat16,
+   h_{t-1} and the gradient's d_pre rounded to bfloat16 for the step
+   products, bfloat16 xp streams beside bfloat16 residuals): each
+   bfloat16-compute instance of the four kernel bodies against its plain
+   version (``bilstm_infer`` at B28 H512, H256 and H8 beside either
+   stream, ``bilstm_fwd`` and ``bilstm_bwd`` at B16 H512, H256 and H8 at
+   both residual dtypes, the multi-stream lane plan at B28 and B4 lean
+   and at B16 and B28 for training, W_hh bfloat16 for H >= 2 and float32
+   for H=1 in one call) at the flip bar (``COMPUTE_FLIP``), timed with
+   its device time, plain time and bound at those bytes, and their edges
+   (T=1, one row, ragged widths and rounds, H=1, batch tiles, the batch
+   limits; a bfloat16 W_hh on a block plan raises); both train steps at
+   bfloat16 compute, B16 and B32, at bfloat16 residuals (and float32 ones
+   at B16): exact launches, no plain call, loss and gradients within 2%
+   of the plain step, their distance from the float32 step recorded, 5
+   finite steps, ms a step in turns with the default config's and the
+   float32 step; ``cli.train --hparams compute_dtype=bfloat16,
+   batch_size=32`` for both models (6 iterations, checkpoints loading
+   into a float32-compute model, a resume whose state equals the
+   checkpoint's) and ``Solver.validate()`` against the plain call;
+   ``convert_batched`` at 4 pairs at bfloat16 compute at both residual
+   dtypes against the plain call, timed in turns with the float32 call;
+   the refusals naming ROADMAP.md A4c (731 pairs, ``PROJ_FUSION="auto"``);
+   one 3 s ``POST /convert`` to a server at bfloat16 compute beside one
+   at float32;
 9. with ``ops.bilstm.PROJ_FUSION = "auto"`` (the input projection inside
    the kernel; every phase above runs with "off" and launches no fused
    kernel): each fused kernel against its plain version at every shape
@@ -198,11 +223,13 @@ machine code nvcc gives each kernel of the merged BiLSTM sources
 (``lstm_infer.cu``, ``lstm_bwd.cu``) and the multi-stream ones
 (``multi_bilstm_infer.cu``, ``multi_bilstm_bwd.cu``) in either tree,
 and for each kernel whether the two trees' machine code is the same
-(a float32 instance keeps the key it had before the residual type
-became a template argument; the bfloat16 ones end in ``bf16``);
-then ``convert_batched`` at phase 13's pair count in a process of either
-tree, reporting whether it completed or raised; then N rounds of DIR,
-this, this, DIR, each a process of its own that builds its tree's
+(a float32 instance keeps the key it had before its type arguments
+were added, a bfloat16-residual one ends in ``bf16``, a
+bfloat16-compute one names its W_hh and stream types, ``f`` or
+``bf16``), and a summary of the keys in both trees; with ``--rounds
+0`` that is all; then ``convert_batched`` at phase 13's pair count in
+a process of either tree, reporting whether it completed or raised;
+then N rounds of DIR, this, this, DIR, each a process of its own that builds its tree's
 kernels and times, through that tree's own phase functions,
 ``bilstm_infer`` at the conversions' shapes (B28 H512, B4 H256, B28 H8,
 B731 H256), ``bilstm_fwd`` and ``bilstm_bwd`` at the train shapes,
@@ -241,8 +268,10 @@ import time
 T = 192
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet): float32 outside the
-# tensor cores, and HBM3 bandwidth
+# tensor cores, bfloat16 on the tensor cores (dense, float32 sums), and
+# HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # sums of 192 dependent float32 steps taken in another order than the
 # plain version's matmul: a few ulps a step, compounded
@@ -448,33 +477,46 @@ def route(name: str):
 
 def lstm_bound(t: int, b: int, hs, kind: str = "infer",
                i: int = 0, resid_bytes: int = 4,
-               stream_bytes: int = 4) -> tuple[float, str]:
+               stream_bytes: int = 4, xp_bytes: int = 4,
+               w_bytes=4) -> tuple[float, str]:
     """Least time for BiLSTM recurrences of widths ``hs`` (one entry per
     direction): max(flops/peak, bytes/peak). Each input read once, each
     output written once, in float32 words of a (t, b) row:
     ``infer`` reads xp (4H) and writes h (H); ``fwd`` also writes g (4H)
     and c (H); ``bwd`` reads dh (H), g (4H), c (H) and writes dx (4H).
     ``resid_bytes`` (2: bfloat16) is the size of a g and c element,
-    ``stream_bytes`` of a dh and dx one.
-    All read W_hh (4H x H) once. Flops: the step product 2*4H*H and the
-    cell's elementwise work (about 10H forward, 16H backward). With an
-    input width ``i`` the projection is inside (the fused kernels): in
-    place of xp, x [t, b, i] is read once for both directions and each
-    direction reads W_ih (4H x i) and its bias, and does 2*i*4H flops a
-    row."""
+    ``stream_bytes`` of a dh and dx one, ``xp_bytes`` of an xp one and
+    ``w_bytes`` of a W_hh one (a list: one a direction; bfloat16
+    compute). All read W_hh (4H x H) once. Flops: the step product
+    2*4H*H and the cell's elementwise work (about 10H forward, 16H
+    backward). The product of a bfloat16 W_hh (2 bytes) is bfloat16
+    operands with float32 sums, which the card runs on its tensor cores:
+    those flops go at ``PEAK_BF16_FLOPS``, the rest at ``PEAK_F32_FLOPS``,
+    and the two units run side by side, so the operations take the
+    larger of the two times. With an input width ``i`` the projection is
+    inside (the fused kernels): in place of xp, x [t, b, i] is read once
+    for both directions and each direction reads W_ih (4H x i) and its
+    bias, and does 2*i*4H flops a row."""
     cell = 16 if kind == "bwd" else 10
-    flops = 0.0
+    flops = tc_flops = 0.0
     nbytes = 4.0 * t * b * i
-    for h in hs:
-        flops += t * b * (2 * h * 4 * h + cell * h + 2 * i * 4 * h)
+    w_sizes = w_bytes if isinstance(w_bytes, (list, tuple)) else [
+        w_bytes] * len(hs)
+    for h, w_size in zip(hs, w_sizes):
+        product = t * b * 2 * h * 4 * h
+        if w_size == 2:
+            tc_flops += product
+        else:
+            flops += product
+        flops += t * b * (cell * h + 2 * i * 4 * h)
         # bytes of a (t, b) row: x replaces xp when fused
-        row = {"infer": 4 * 5 * h,
-               "fwd": 4 * 5 * h + resid_bytes * 5 * h,
+        row = {"infer": xp_bytes * 4 * h + 4 * h,
+               "fwd": xp_bytes * 4 * h + 4 * h + resid_bytes * 5 * h,
                "bwd": resid_bytes * 5 * h + stream_bytes * 5 * h}[kind]
-        row -= 4 * 4 * h if i else 0
+        row -= xp_bytes * 4 * h if i else 0
         w_ih = 4 * h * i + 4 * h if i else 0
-        nbytes += t * b * row + 4 * (4 * h * h + w_ih)
-    by_ops = flops / PEAK_F32_FLOPS * 1e3
+        nbytes += t * b * row + w_size * 4 * h * h + 4 * w_ih
+    by_ops = max(flops / PEAK_F32_FLOPS, tc_flops / PEAK_BF16_FLOPS) * 1e3
     by_bytes = nbytes / PEAK_BYTES * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (
         by_bytes, "bytes")
@@ -1601,7 +1643,7 @@ def check_bf16_edges() -> None:
         worst["err_h"] = max(worst["err_h"], err_h)
         worst["ulps"] = max(worst["ulps"], ulps)
         worst["multi_dx_rel"] = max(worst["multi_dx_rel"], *errs)
-    # a block-plan width with bfloat16 residuals is refused (A4b)
+    # a block-plan width with bfloat16 residuals is refused (A4c)
     xps, ws = multi_inputs(3, 2, (33,), SEED)
     try:
         multi_bilstm.multi_bilstm_forward_cuda(1, *xps, *ws,
@@ -1701,7 +1743,7 @@ def phase_bwd_probe(shapes=((TRAIN_B, 512), (TRAIN_B, 256),
     with tempfile.TemporaryDirectory() as tmp:
         lib = probe_library(tmp, "bilstm_bwd", "BILSTM_BWD_PROBE")
         lib.bilstm_bwd_launch.argtypes = [ctypes.c_void_p] * 12 + [
-            ctypes.c_int] * 5 + [ctypes.c_void_p]
+            ctypes.c_int] * 6 + [ctypes.c_void_p]
         n = len(BWD_PROBE_PHASES)
         cycles, laps = (ctypes.c_ulonglong * n)(), (ctypes.c_ulonglong * n)()
         for b, h in shapes:
@@ -1719,11 +1761,11 @@ def phase_bwd_probe(shapes=((TRAIN_B, 512), (TRAIN_B, 256),
             dx = [torch.empty_like(res[0]) for _ in (0, 1)]
 
             def run():
-                # float32 residuals: no carry scratch
+                # float32 residuals (no carry scratch) and W_hh
                 err = lib.bilstm_bwd_launch(
                     *[x.data_ptr() for x in (dh_f, dh_b, *res, w_f, w_b,
                                              *dx)], None,
-                    bilstm._barrier_word(xp_f).data_ptr(), T, b, h, 0, 0,
+                    bilstm._barrier_word(xp_f).data_ptr(), T, b, h, 0, 0, 0,
                     bilstm._stream(xp_f))
                 if err:
                     fail(f"bilstm_bwd probe build: CUDA error {err}")
@@ -1774,9 +1816,9 @@ def phase_infer_probe(shapes=(("infer", 28, 512), ("fwd", TRAIN_B, 512),
     with tempfile.TemporaryDirectory() as tmp:
         lib = probe_library(tmp, "bilstm_infer", "BILSTM_INFER_PROBE")
         lib.bilstm_infer_launch.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.c_int] * 5 + [ctypes.c_void_p]
+            ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.bilstm_fwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
-            ctypes.c_int] * 6 + [ctypes.c_void_p]
+            ctypes.c_int] * 8 + [ctypes.c_void_p]
         n = len(INFER_PROBE_PHASES)
         cycles, laps = (ctypes.c_ulonglong * n)(), (ctypes.c_ulonglong * n)()
         for kind, b, h in shapes:
@@ -1788,8 +1830,9 @@ def phase_infer_probe(shapes=(("infer", 28, 512), ("fwd", TRAIN_B, 512),
                          for _ in (0, 1)]
                 outs += [torch.empty(T, b, h, device="cuda") for _ in (0, 1)]
             launch = lib.bilstm_fwd_launch if resid else lib.bilstm_infer_launch
-            # splits 0 (the source's plan), float32 residuals, device 0
-            plan = (0, 0, 0) if resid else (0, 0)
+            # splits 0 (the source's plan), float32 residuals, W_hh and
+            # xp, device 0
+            plan = (0, 0, 0, 0, 0) if resid else (0, 0, 0, 0)
 
             def run():
                 err = launch(*[x.data_ptr() for x in (
@@ -1828,14 +1871,16 @@ MULTI_PROBE_PHASES = ("gate_input_wait", "product", "cell_and_stores",
 
 
 def phase_multi_probe(shapes=(("infer", 28, (8, 32, 1)),
-                              ("fwd", TRAIN_B, (8, 32, 1)))) -> dict:
+                              ("fwd", TRAIN_B, (8, 32, 1))),
+                      bf16_w: bool = False) -> dict:
     """The probe build of ``csrc/multi_bilstm_infer.cu``
     (``-DMULTI_BILSTM_PROBE``, compiled here into a temporary directory;
     the port never loads it): clock64() laps of each phase of a lane-plan
     step, per direction and summed over warps, as cycles a warp a step
     and shares per stream width, at the generator's B28 (lean) and B16
-    (residual-saving). Each result is checked against the plain version.
-    Returns the splits."""
+    (residual-saving); with ``bf16_w`` at bfloat16 compute (W_hh as
+    ``compute_multi_inputs`` gives it). Each result is checked against
+    the plain version. Returns the splits."""
     import ctypes
 
     import torch
@@ -1849,16 +1894,18 @@ def phase_multi_probe(shapes=(("infer", 28, (8, 32, 1)),
     splits = {}
     with tempfile.TemporaryDirectory() as tmp:
         lib = probe_library(tmp, "multi_bilstm_infer", "MULTI_BILSTM_PROBE")
-        tail = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        # widths, W_hh flags (null: float32), T, B, device, stream
+        tail = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.multi_bilstm_infer_launch.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 4 + tail)
+            [ctypes.c_int] + [ctypes.c_void_p] * 3 + tail)
         lib.multi_bilstm_fwd_launch.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int,
-                                                      ctypes.c_void_p] + tail)
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] + tail)
         lib.multi_bilstm_probe_read.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         for kind, b, hs in shapes:
-            xps, ws = multi_inputs(T, b, hs, SEED + 7 * b)
+            xps, ws = (compute_multi_inputs if bf16_w else multi_inputs)(
+                T, b, hs, SEED + 7 * b)
+            flags = multi_bilstm._w_bf16(ws) if bf16_w else None
             n, resid = len(hs), kind == "fwd"
             want = multi_bilstm.multi_bilstm_forward_reference(n, *xps, *ws)
             outs = [torch.empty_like(x) for x in want]
@@ -1873,7 +1920,8 @@ def phase_multi_probe(shapes=(("infer", 28, (8, 32, 1)),
 
             def run():
                 err = launch(2 * n, *ptrs, *dtype, multi_bilstm._widths(xps),
-                             T, b, 0, torch.cuda.current_stream().cuda_stream)
+                             flags, T, b, 0,
+                             torch.cuda.current_stream().cuda_stream)
                 if err:
                     fail(f"multi_bilstm_{kind} probe build: CUDA error {err}")
 
@@ -1884,8 +1932,12 @@ def phase_multi_probe(shapes=(("infer", 28, (8, 32, 1)),
             torch.cuda.synchronize()
             if lib.multi_bilstm_probe_read(cycles, laps, 1):
                 fail("multi_bilstm probe: reading the counters failed")
-            err = abs_err(outs, want)
-            if not err <= KERNEL_TOL:
+            if bf16_w:
+                err = check_flips(f"multi_bilstm_{kind} probe build B{b}",
+                                  outs, want)["max_abs_err"]
+            else:
+                err = abs_err(outs, want)
+            if not err <= KERNEL_TOL and not bf16_w:
                 fail(f"multi_bilstm_{kind} probe build B{b}: max abs err "
                      f"{err}")
             ms = kernel_device_ms(run, 5)
@@ -1897,7 +1949,8 @@ def phase_multi_probe(shapes=(("infer", 28, (8, 32, 1)),
                     MULTI_PROBE_PHASES,
                     [sum(cycles[a + i] for a in at) for i in range(n_phases)],
                     warp_steps)
-                log("multi probe", kernel=f"multi_bilstm_{kind}",
+                log("multi probe", kernel=f"multi_bilstm_{kind}"
+                    + ("/bf16_w" if bf16_w else ""),
                     shape=f"T{T}xB{b}", width=h,
                     warps=warp_steps // (2 * T), ms_probe_build=f"{ms:.4f}",
                     cycles_per_step=round(total), max_abs_err=f"{err:.3g}",
@@ -1914,14 +1967,16 @@ LANE_BWD_PROBE_PHASES = ("residual_wait", "product", "cell_and_stores",
 
 
 def phase_multi_bwd_probe(shapes=((TRAIN_B, (8, 32, 1)),
-                                  (TRAIN_B, (32, 1)))) -> dict:
+                                  (TRAIN_B, (32, 1))),
+                          bf16: bool = False) -> dict:
     """The probe build of ``csrc/multi_bilstm_bwd.cu``
     (``-DMULTI_BILSTM_BWD_PROBE``): clock64() laps of each phase of a
     lane step (``csrc/lane_bwd.cuh``), per direction and summed over
     warps, as cycles a warp a step and shares per stream width, at the
     generator's and the F0 converter's train-step shapes (residual wait
-    includes forming the next step's gate factors). Each result is
-    checked against the plain version. Returns the splits."""
+    includes forming the next step's gate factors); with ``bf16`` at
+    bfloat16 compute and residuals. Each result is checked against the
+    plain version. Returns the splits."""
     import ctypes
 
     import torch
@@ -1937,22 +1992,26 @@ def phase_multi_bwd_probe(shapes=((TRAIN_B, (8, 32, 1)),
         lib = probe_library(tmp, "multi_bilstm_bwd", "MULTI_BILSTM_BWD_PROBE")
         lib.multi_bilstm_bwd_launch.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int]
-            + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.multi_bilstm_bwd_probe_read.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        rd = torch.bfloat16 if bf16 else torch.float32
         for b, hs in shapes:
-            xps, ws = multi_inputs(T, b, hs, SEED + 7 * b + len(hs))
+            xps, ws = (compute_multi_inputs if bf16 else multi_inputs)(
+                T, b, hs, SEED + 7 * b + len(hs))
+            flags = multi_bilstm._w_bf16(ws) if bf16 else None
             n = len(hs)
-            res = multi_bilstm.multi_bilstm_forward_reference(n, *xps, *ws)
+            res = multi_bilstm.multi_bilstm_forward_reference(
+                n, *xps, *ws, residual_dtype=rd)
             gs, cs = res[2 * n:4 * n], res[4 * n:]
-            dhs = [torch.randn_like(c) for c in cs]
-            dxs = [torch.empty_like(g) for g in gs]
+            dhs = [torch.randn_like(c, dtype=torch.float32) for c in cs]
+            dxs = [torch.empty_like(g, dtype=torch.float32) for g in gs]
             ptrs = [multi_bilstm._ptrs(x) for x in (dhs, gs, cs, ws, dxs)]
 
             def run():
                 err = lib.multi_bilstm_bwd_launch(
-                    2 * n, *ptrs, 0, multi_bilstm._widths(gs), T, b, 0,
-                    torch.cuda.current_stream().cuda_stream)
+                    2 * n, *ptrs, int(bf16), multi_bilstm._widths(gs), flags,
+                    T, b, 0, torch.cuda.current_stream().cuda_stream)
                 if err:
                     fail(f"multi_bilstm_bwd probe build: CUDA error {err}")
 
@@ -1963,9 +2022,12 @@ def phase_multi_bwd_probe(shapes=((TRAIN_B, (8, 32, 1)),
             torch.cuda.synchronize()
             if lib.multi_bilstm_bwd_probe_read(cycles, laps, 1):
                 fail("multi_bilstm_bwd probe: reading the counters failed")
-            err = rel_err(dxs, multi_bilstm.multi_bilstm_backward_reference(
-                n, *dhs, *gs, *cs, *ws))
-            if not err <= KERNEL_TOL:
+            want = multi_bilstm.multi_bilstm_backward_reference(
+                n, *dhs, *gs, *cs, *ws)
+            if bf16:
+                check_flips(f"multi_bilstm_bwd probe build B{b}", dxs, want)
+            err = rel_err(dxs, want)
+            if not (err <= KERNEL_TOL or bf16):
                 fail(f"multi_bilstm_bwd probe build B{b}: rel err {err}")
             ms = kernel_device_ms(run, 5)
             for st, h in enumerate(hs):
@@ -1978,6 +2040,7 @@ def phase_multi_bwd_probe(shapes=((TRAIN_B, (8, 32, 1)),
                     warp_steps)
                 log("multi bwd probe", shape=f"T{T}xB{b}xH"
                     f"{'/'.join(map(str, hs))}", width=h,
+                    dtypes="bf16 W and residuals" if bf16 else "float32",
                     warps=warp_steps // (2 * T), ms_probe_build=f"{ms:.4f}",
                     cycles_per_step=round(total), rel_err=f"{err:.3g}",
                     **split, clock="clock64 of each warp, summed over warps")
@@ -2135,17 +2198,17 @@ def phase_lstm_fwd_probe(shapes=((TRAIN_B, 512), (TRAIN_B, 256),
     return splits
 
 
-def synthetic_batch(config, seed: int):
-    """A B=16 ``Collator`` batch cut from 16 seeded synthetic utterances
-    (mel in [0, 1], a normalized log-F0 contour with unvoiced frames,
-    one-hot speakers)."""
+def synthetic_batch(config, seed: int, batch: int = TRAIN_B):
+    """A ``Collator`` batch (B=16 by default) cut from as many seeded
+    synthetic utterances (mel in [0, 1], a normalized log-F0 contour with
+    unvoiced frames, one-hot speakers)."""
     import numpy as np
 
     from speechsplit_tpu_torch.data import Collator
 
     rng = np.random.default_rng(seed)
     samples = []
-    for i in range(TRAIN_B):
+    for i in range(batch):
         length = int(rng.integers(150, 400))
         mel = rng.random((length, config.dim_freq), dtype=np.float32)
         f0 = np.where(rng.random(length) < 0.2, 0.0,
@@ -2327,23 +2390,22 @@ def phase_train():
     return gen_launches, f0_launches, state, step, batch
 
 
-def train_default_phase(name: str, model: str, expected: dict, batch,
-                        reps: int = 12) -> dict:
-    """The default config's train step (``SpeechSplitConfig()``: bfloat16
-    residuals and Adam mu, TF32 matmuls and convolutions): its launches in
-    one step, exactly ``expected``, with no call of a plain version; its
-    loss and every gradient against the plain step at the same config
-    (``plain_training_kernels``: the Functions on their plain versions),
-    within ``BF16_STEP_TOL``, and the same with TF32 off; beside them the
-    error of each against the exact float32 plain step (float32
-    residuals, TF32 off), bfloat16's error (recorded); 5 steps with a
-    finite loss; the median ms a step, timed in turns with the float32
-    step (``float32_config``) on the same batch. Returns the step's
-    launches."""
+def train_precision_phase(name: str, model: str, expected: dict, batch,
+                          checked: dict, timed: dict, title: str,
+                          reps: int = 12) -> dict:
+    """Train steps at the precisions ``checked`` ({label: config}) on
+    ``batch``: each one's launches in one step, exactly ``expected``,
+    with no call of a plain version, Adam's mu bfloat16, its loss and
+    every gradient within ``BF16_STEP_TOL`` of the plain step at the same
+    config (``plain_training_kernels``: the Functions on their plain
+    versions), beside them the error of each against the exact float32
+    plain step (float32 residuals, TF32 off), recorded; 5 steps with a
+    finite loss. Then the median ms a step of the steps ``timed`` ({label:
+    config}; a checked label's state goes on from its 5 steps), timed in
+    turns. Returns the launches by checked label."""
     import numpy as np
     import torch
 
-    from speechsplit_tpu_torch.config import SpeechSplitConfig
     from speechsplit_tpu_torch.training import (
         create_train_state,
         make_f0_train_step,
@@ -2358,10 +2420,8 @@ def train_default_phase(name: str, model: str, expected: dict, batch,
             exact, exact_loss = make(f32)(exact, batch)
         exact_grads = grads_of(exact.model)
     del exact
-    errs, launches, state = {}, None, None
-    for label, config in (
-            ("default", SpeechSplitConfig()),
-            ("tf32_off", SpeechSplitConfig(matmul_precision="highest"))):
+    fields, launches, runs = {}, {}, {}
+    for label, config in checked.items():
         plain = create_train_state(config, SEED, model)
         reset_launches()
         with plain_training_kernels():
@@ -2376,8 +2436,8 @@ def train_default_phase(name: str, model: str, expected: dict, batch,
         with plain_calls() as called:
             run, loss = make(config)(run, batch)
         torch.cuda.synchronize()
-        counts = read_launches()
-        for kernel, count in counts.items():
+        launches[label] = read_launches()
+        for kernel, count in launches[label].items():
             if count != expected.get(kernel, 0):
                 fail(f"{name} {label} step launched {kernel} {count} times, "
                      f"expected {expected.get(kernel, 0)}")
@@ -2390,89 +2450,98 @@ def train_default_phase(name: str, model: str, expected: dict, batch,
         grads = grads_of(run.model)
         worst, key = grad_err(grads, plain_grads)
         vs_f32, f32_key = grad_err(grads, exact_grads)
-        errs[label] = dict(
-            loss=abs(float(loss) - float(plain_loss)) / abs(float(plain_loss)),
-            grad=worst, worst_param=key,
-            loss_vs_f32=abs(float(loss) - float(exact_loss)) / abs(
-                float(exact_loss)),
-            grad_vs_f32=vs_f32, worst_param_vs_f32=f32_key)
-        if not (errs[label]["loss"] <= BF16_STEP_TOL
-                and worst <= BF16_STEP_TOL):
+        loss_err = abs(float(loss) - float(plain_loss)) / abs(
+            float(plain_loss))
+        if not (loss_err <= BF16_STEP_TOL and worst <= BF16_STEP_TOL):
             fail(f"{name} {label} step vs the plain step: loss rel err "
-                 f"{errs[label]['loss']}, grad rel err {worst} ({key}) > "
+                 f"{loss_err}, grad rel err {worst} ({key}) > "
                  f"{BF16_STEP_TOL}")
-        if label == "default":
-            launches, state, step = counts, run, make(config)
-            losses = [float(loss)]
-        del run
-    for _ in range(4):
-        state, loss = step(state, batch)
-        losses.append(float(loss))
-    if not np.isfinite(losses).all():
-        fail(f"{name} default config: losses {losses}")
-    f32_state, f32_step = create_train_state(f32, SEED, model), make(f32)
-    samples = {"default": [], "float32": []}
+        step, losses = make(config), [float(loss)]
+        for _ in range(4):
+            run, loss = step(run, batch)
+            losses.append(float(loss))
+        if not np.isfinite(losses).all():
+            fail(f"{name} {label}: losses {losses}")
+        runs[label] = (run, step)
+        fields.update({
+            f"{label}_loss_rel_err_vs_plain": f"{loss_err:.3g}",
+            f"{label}_max_grad_rel_err_vs_plain": f"{worst:.3g}",
+            f"{label}_worst_param": key,
+            f"{label}_loss_rel_err_vs_float32": "%.3g" % (abs(
+                losses[0] - float(exact_loss)) / abs(float(exact_loss))),
+            f"{label}_max_grad_rel_err_vs_float32": f"{vs_f32:.3g}",
+            f"{label}_worst_param_vs_float32": f32_key,
+            f"{label}_losses": ",".join(f"{v:.6f}" for v in losses)})
+    for label, config in timed.items():
+        if label not in runs:
+            runs[label] = (create_train_state(config, SEED, model),
+                           make(config))
+    samples = {label: [] for label in timed}
+    order = list(timed)
     for r in range(reps):
-        for label in (("default", "float32") if r % 2 == 0
-                      else ("float32", "default")):
-            run, fn = ((state, step) if label == "default"
-                       else (f32_state, f32_step))
+        for label in order if r % 2 == 0 else order[::-1]:
+            run, fn = runs[label]
             torch.cuda.synchronize()
             start = time.perf_counter()
             fn(run, batch)
             torch.cuda.synchronize()
             samples[label].append((time.perf_counter() - start) * 1e3)
-    med = {k: float(np.median(v)) for k, v in samples.items()}
-    fields = {}
-    for label, e in errs.items():
-        fields.update({
-            f"{label}_loss_rel_err_vs_plain": f"{e['loss']:.3g}",
-            f"{label}_max_grad_rel_err_vs_plain": f"{e['grad']:.3g}",
-            f"{label}_worst_param": e["worst_param"],
-            f"{label}_loss_rel_err_vs_float32": f"{e['loss_vs_f32']:.3g}",
-            f"{label}_max_grad_rel_err_vs_float32": f"{e['grad_vs_f32']:.3g}",
-            f"{label}_worst_param_vs_float32": e["worst_param_vs_f32"]})
-    log(f"train {name} default config", batch=f"B{TRAIN_B}xT{T}",
-        config="residual_dtype=bfloat16,adam_mu_dtype=bfloat16,"
-        "grad_dtype=float32,matmul_precision=default (tf32_off: highest)",
+    log(f"train {name} {title}", batch=f"B{batch.mel.shape[0]}xT{T}",
+        checked=",".join(checked),
         plain="the Functions on their plain versions, same config",
-        float32="the plain float32 step, TF32 off (recorded)",
-        **fields, tol=BF16_STEP_TOL,
-        losses=",".join(f"{v:.6f}" for v in losses),
-        steps=reps, median_ms_per_step=f"{med['default']:.4f}",
-        float32_median_ms_per_step=f"{med['float32']:.4f}",
-        default_rounds_ms=",".join(f"{v:.4f}" for v in samples["default"]),
-        float32_rounds_ms=",".join(f"{v:.4f}" for v in samples["float32"]),
-        timing="default and float32 (TF32 off) steps in turns",
-        plain_calls=0, launches=json.dumps(launches).replace(" ", ""))
+        float32="the plain float32 step, TF32 off (recorded)", **fields,
+        tol=BF16_STEP_TOL, steps=reps,
+        **{f"{label}_median_ms_per_step": f"{np.median(v):.4f}"
+           for label, v in samples.items()},
+        **{f"{label}_rounds_ms": ",".join(f"{t:.4f}" for t in v)
+           for label, v in samples.items()},
+        timing=" and ".join(timed) + " steps in turns", plain_calls=0,
+        launches=json.dumps(launches[next(iter(checked))]).replace(" ", ""))
     return launches
 
 
 def phase_train_default(gen_per_step: dict, f0_per_step: dict, batch):
-    """Both train steps at the default config (``train_default_phase``),
-    each expected to launch what its float32 step launches."""
-    return (train_default_phase("generator", "speechsplit", gen_per_step,
-                                batch),
-            train_default_phase("f0_converter", "f0_converter", f0_per_step,
-                                batch))
+    """Both train steps at the default config (``SpeechSplitConfig()``:
+    bfloat16 residuals and Adam mu, TF32 matmuls and convolutions; also
+    with TF32 off), each expected to launch what its float32 step
+    launches, timed in turns with the float32 step (``float32_config``).
+    Returns the two steps' launches."""
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+
+    checked = {"default": SpeechSplitConfig(),
+               "tf32_off": SpeechSplitConfig(matmul_precision="highest")}
+    timed = {"default": checked["default"], "float32": float32_config()}
+    return tuple(
+        train_precision_phase(name, model, per_step, batch, checked, timed,
+                              "default config")["default"]
+        for name, model, per_step in (
+            ("generator", "speechsplit", gen_per_step),
+            ("f0_converter", "f0_converter", f0_per_step)))
 
 
-def phase_train_cli_default(gen_per_step: dict, f0_per_step: dict) -> None:
-    """``cli.train`` at the default config (no precision in --hparams) for
-    both models: ``CLI_STEPS`` iterations with a checkpoint every
+def phase_train_cli_default(gen_per_step: dict, f0_per_step: dict,
+                            hparams: str = "", what: str = "default config",
+                            validate_tol: float | None = None) -> None:
+    """``cli.train`` at the default config (no precision in --hparams; or
+    with ``hparams``, such as ``compute_dtype=bfloat16,batch_size=32``)
+    for both models: ``CLI_STEPS`` iterations with a checkpoint every
     ``CLI_SAVE``, their launches, finite losses, Adam's mu bfloat16 in
-    every checkpoint, and a resume from step ``CLI_SAVE`` whose state
-    before its first step equals the checkpoint's."""
+    every checkpoint, each checkpoint loading strictly into a
+    default-config (float32-compute) model, and a resume from step
+    ``CLI_SAVE`` whose state before its first step equals the
+    checkpoint's; with ``validate_tol``, ``check_validate`` at the run's
+    config."""
     import shutil
 
     import torch
 
-    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.config import SpeechSplitConfig, resolve_dtype
     from speechsplit_tpu_torch.interop import load_reference_checkpoint
     from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
     from speechsplit_tpu_torch.training import checkpoint as ckpt_lib
 
     config = SpeechSplitConfig()
+    run_config = config.parse(hparams) if hparams else config
     with tempfile.TemporaryDirectory() as tmp:
         root_dir, feat_dir = write_feature_tree(tmp, config, SEED + 5)
         for model, tag, per_step, cls in (
@@ -2489,11 +2558,17 @@ def phase_train_cli_default(gen_per_step: dict, f0_per_step: dict) -> None:
                     "--log_dir", os.path.join(run, "logs"),
                     "--sample_dir", os.path.join(run, "samples"),
                     "--validation_path", os.path.join(tmp, "no_such.pkl"),
-                    "--hparams", f"root_dir={root_dir},feat_dir={feat_dir}",
+                    "--hparams", f"root_dir={root_dir},feat_dir={feat_dir}"
+                    + (f",{hparams}" if hparams else ""),
                     "--device", "cuda", *extra]
 
-            losses, _, _ = run_cli_train(args(models, CLI_STEPS), CLI_STEPS,
-                                         per_step, f"{model} default config")
+            losses, _, state = run_cli_train(args(models, CLI_STEPS),
+                                             CLI_STEPS, per_step,
+                                             f"{model} {what}")
+            if state.model.decoder.lstm.dtype != resolve_dtype(
+                    run_config.compute_dtype):
+                fail(f"train.cli {what}: the model's dtype is "
+                     f"{state.model.decoder.lstm.dtype}")
             for step in (CLI_SAVE, CLI_STEPS):
                 path = ckpt_lib.checkpoint_path(models, step, tag)
                 cls(config).load_state_dict(load_reference_checkpoint(path),
@@ -2502,28 +2577,30 @@ def phase_train_cli_default(gen_per_step: dict, f0_per_step: dict) -> None:
                     path, map_location="cpu",
                     weights_only=True)["optimizer"]["state"].values()}
                 if mu != {"torch.bfloat16"}:
-                    fail(f"train.cli default config: {step}-{tag}.ckpt "
+                    fail(f"train.cli {what}: {step}-{tag}.ckpt "
                          f"holds mu in {mu}")
             resumed = os.path.join(run, "resumed")
             shutil.copytree(models, resumed)
             r_losses, r_record, _ = run_cli_train(
                 args(resumed, CLI_STEPS - CLI_SAVE, "--resume_iters",
                      str(CLI_SAVE)),
-                CLI_STEPS - CLI_SAVE, per_step, f"{model} default resumed")
+                CLI_STEPS - CLI_SAVE, per_step, f"{model} {what} resumed")
             saved = torch.load(ckpt_lib.checkpoint_path(models, CLI_SAVE, tag),
                                map_location="cpu", weights_only=True)
             if not same_state(r_record["first"], saved):
-                fail(f"train.cli default config {model}: the resumed state "
+                fail(f"train.cli {what} {model}: the resumed state "
                      f"before its first step differs from "
                      f"{CLI_SAVE}-{tag}.ckpt")
-            log("train.cli default config", model=model, steps=CLI_STEPS,
-                hparams="root_dir,feat_dir only",
+            log(f"train.cli {what}", model=model, steps=CLI_STEPS,
+                hparams=hparams or "root_dir,feat_dir only",
                 checkpoints=f"{CLI_SAVE}-{tag},{CLI_STEPS}-{tag} strict, "
                 "mu bfloat16",
                 resumed_from=f"{CLI_SAVE}-{tag} state equal",
                 losses=",".join(f"{v:.6f}" for v in losses + r_losses),
                 launches_a_step=json.dumps(per_step).replace(" ", ""))
             shutil.rmtree(run)
+        if validate_tol is not None:
+            check_validate(run_config, tmp, validate_tol, f" {what}")
 
 
 def phase_profile_train(state, step, batch, top: int = 14) -> None:
@@ -2817,6 +2894,73 @@ def check_prefetch(config) -> None:
         delivered="equal to the host batches bit for bit, in order")
 
 
+def check_validate(config, tmp: str, tol: float, what: str = "") -> None:
+    """``Solver.validate()`` at ``config`` over a two-utterance demo
+    pickle (``val_demo``, written into ``tmp``) against the same call on
+    the plain versions: each utterance's mels within ``tol`` (max abs
+    error over max abs), the sum-MSE too, and its launches (4
+    ``bilstm_infer`` and 1 ``multi_bilstm_infer`` an utterance)."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.training import Solver, SolverConfig
+
+    demo = os.path.join(tmp, "demo.pkl")
+    val_demo(demo, config)
+    solver = Solver(None, SolverConfig(
+        model_save_dir=os.path.join(tmp, "val"), validation_path=demo,
+        seed=SEED), config, device="cuda")
+    mels = {"kernels": [], "plain": []}
+
+    def keep(kept):
+        """``Solver._eval`` that also keeps each utterance's mels."""
+        def run(*inputs):
+            out = Solver._eval(solver, *inputs)
+            kept.append(out.clone())
+            return out
+        return run
+
+    torch.cuda.synchronize()
+    reset_launches()
+    solver._eval = keep(mels["kernels"])
+    value = solver.validate()
+    launches = read_launches()
+    expected = {"bilstm_infer": 8, "multi_bilstm_infer": 2}
+    for kernel, count in launches.items():
+        if count != expected.get(kernel, 0):
+            fail(f"train.cli validate{what}: {kernel} launched {count} times, "
+                 f"expected {expected.get(kernel, 0)}")
+    reset_launches()
+    solver._eval = keep(mels["plain"])
+    with plain_kernels():
+        plain = solver.validate()
+    del solver._eval
+    if any(read_launches().values()):
+        fail(f"train.cli validate{what}: the plain call launched a kernel")
+    shape = (1, config.max_len_pad, config.dim_freq)
+    if not (len(mels["kernels"]) == len(mels["plain"]) == 2 and all(
+            m.shape == shape and bool(torch.isfinite(m).all())
+            for m in mels["kernels"])):
+        fail(f"train.cli validate{what}: mels "
+             f"{[tuple(m.shape) for m in mels['kernels']]}, not 2 "
+             f"finite of {shape}")
+    mel_errs = [rel_err([g], [w])
+                for g, w in zip(mels["kernels"], mels["plain"])]
+    err = abs(value - plain) / abs(plain)
+    if not (max(mel_errs) <= tol and np.isfinite(value)
+            and err <= tol):
+        fail(f"train.cli validate{what}: mels' rel err {mel_errs}, sum-MSE "
+             f"{value} against plain {plain} (rel err {err}); tol "
+             f"{tol}")
+    log(f"train.cli validate{what}", utterances=2,
+        mel_max_abs_err_over_max_abs=",".join(
+            f"{e:.3g}" for e in mel_errs),
+        value=repr(value), plain=repr(plain), rel_err=f"{err:.3g}",
+        tol=tol,
+        launches=json.dumps({k: v for k, v in launches.items() if v})
+        .replace(" ", ""))
+
+
 def phase_train_cli(gen_per_step: dict, f0_per_step: dict) -> None:
     """The trainer through its entry point, at full width: ``cli.train``
     on a seeded feature tree for each model (6 iterations, a checkpoint
@@ -2844,8 +2988,6 @@ def phase_train_cli(gen_per_step: dict, f0_per_step: dict) -> None:
     from speechsplit_tpu_torch.interop import load_reference_checkpoint
     from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
     from speechsplit_tpu_torch.training import (
-        Solver,
-        SolverConfig,
         make_f0_train_step,
         make_train_step,
     )
@@ -2953,60 +3095,7 @@ def phase_train_cli(gen_per_step: dict, f0_per_step: dict) -> None:
                 "overhead in the span")
             shutil.rmtree(run)
 
-        demo = os.path.join(tmp, "demo.pkl")
-        val_demo(demo, config)
-        solver = Solver(None, SolverConfig(
-            model_save_dir=os.path.join(tmp, "val"), validation_path=demo,
-            seed=SEED), config, device="cuda")
-        mels = {"kernels": [], "plain": []}
-
-        def keep(kept):
-            """``Solver._eval`` that also keeps each utterance's mels."""
-            def run(*inputs):
-                out = Solver._eval(solver, *inputs)
-                kept.append(out.clone())
-                return out
-            return run
-
-        torch.cuda.synchronize()
-        reset_launches()
-        solver._eval = keep(mels["kernels"])
-        value = solver.validate()
-        launches = read_launches()
-        expected = {"bilstm_infer": 8, "multi_bilstm_infer": 2}
-        for kernel, count in launches.items():
-            if count != expected.get(kernel, 0):
-                fail(f"train.cli validate: {kernel} launched {count} times, "
-                     f"expected {expected.get(kernel, 0)}")
-        reset_launches()
-        solver._eval = keep(mels["plain"])
-        with plain_kernels():
-            plain = solver.validate()
-        del solver._eval
-        if any(read_launches().values()):
-            fail("train.cli validate: the plain call launched a kernel")
-        shape = (1, config.max_len_pad, config.dim_freq)
-        if not (len(mels["kernels"]) == len(mels["plain"]) == 2 and all(
-                m.shape == shape and bool(torch.isfinite(m).all())
-                for m in mels["kernels"])):
-            fail("train.cli validate: mels "
-                 f"{[tuple(m.shape) for m in mels['kernels']]}, not 2 "
-                 f"finite of {shape}")
-        mel_errs = [rel_err([g], [w])
-                    for g, w in zip(mels["kernels"], mels["plain"])]
-        err = abs(value - plain) / abs(plain)
-        if not (max(mel_errs) <= PATH_TOL and np.isfinite(value)
-                and err <= PATH_TOL):
-            fail(f"train.cli validate: mels' rel err {mel_errs}, sum-MSE "
-                 f"{value} against plain {plain} (rel err {err}); tol "
-                 f"{PATH_TOL}")
-        log("train.cli validate", utterances=2,
-            mel_max_abs_err_over_max_abs=",".join(
-                f"{e:.3g}" for e in mel_errs),
-            value=repr(value), plain=repr(plain), rel_err=f"{err:.3g}",
-            tol=PATH_TOL,
-            launches=json.dumps({k: v for k, v in launches.items() if v})
-            .replace(" ", ""))
+        check_validate(config, tmp, PATH_TOL)
         check_prefetch(config)
 
 
@@ -4458,6 +4547,764 @@ def phase_serve(reps: int = 5):
     return launches
 
 
+# bfloat16 compute (``compute_dtype="bfloat16"``): W_hh in bfloat16, h_{t-1}
+# (and in the gradient d_pre) rounded to bfloat16 where a step's product
+# reads it. Kernel and plain version sum in other orders, so an operand
+# whose two float32 values straddle a bfloat16 rounding boundary enters
+# the product one bfloat16 ulp apart, and the steps after it carry that
+# difference (tests/test_torch_compute_bf16.py holds the plain versions to
+# JAX at the same kind of bar). So a recurrence's outputs at bfloat16 W:
+# each element within the bar of its dtype (float32: KERNEL_TOL, absolute
+# or relative to the largest magnitude where that is above 1; bfloat16:
+# BF16_ULPS ulps and BF16_NOISE), but for at most COMPUTE_FLIP_SHARE of
+# them, and every one within COMPUTE_FLIP of the tensor's largest
+# magnitude. Measured (the first chip run of these kernels, an NVIDIA
+# H100 80GB HBM3 at 700 W): at most 2.6% of an output's elements
+# (``bilstm_fwd`` at B16 H512) and 5.8e-3 of the largest magnitude
+# (``bilstm_bwd`` at B16 H512, bfloat16 residuals). Over 192 steps the two
+# sides' roundings part ways after the first flip, so their mean distance
+# at T=192 reads 0.1-0.4 of what the rounding itself moves (the same
+# plain version at float32 W). So that the bar shows the kernel rounds
+# where its plain version rounds, and not merely stays near it, each
+# instance also runs COMPUTE_SHORT_T steps at the same B and H, where its
+# mean distance from the plain version must stay within COMPUTE_QUARTER
+# of the rounding's (a kernel that rounds nothing reads about 1).
+COMPUTE_FLIP = 2.0 ** -6
+COMPUTE_FLIP_SHARE = 0.05
+COMPUTE_QUARTER = 0.25
+COMPUTE_SHORT_T = 8
+# a whole call at bfloat16 compute (mels, a step's loss and gradients)
+# against the same call on the plain versions, where the flips above pass
+# through every later layer: max |got - want| over max |want|
+COMPUTE_PATH_TOL = 2.0 ** -7
+# the bfloat16-compute instances of the kernels: their entry in the JSON
+# record, the kernel whose wrapper launches them, and their dtypes (W_hh,
+# xp stream, residuals)
+COMPUTE_KERNELS = {
+    "bilstm_infer/bf16_w": ("bilstm_infer", "W bf16, xp f32, h f32"),
+    "bilstm_infer/bf16_w_bf16_xp": ("bilstm_infer", "W bf16, xp bf16, h f32"),
+    "bilstm_fwd/bf16_w": ("bilstm_fwd", "W bf16, xp f32, residuals f32"),
+    "bilstm_fwd/bf16_w_bf16_resid": ("bilstm_fwd",
+                                     "W bf16, xp bf16, residuals bf16"),
+    "bilstm_bwd/bf16_w": ("bilstm_bwd", "W bf16, residuals and dx f32"),
+    "bilstm_bwd/bf16_w_bf16_resid": ("bilstm_bwd",
+                                     "W bf16, residuals and dx bf16"),
+    "multi_bilstm_infer/bf16_w": ("multi_bilstm_infer",
+                                  "W bf16 (H >= 2) and f32 (H = 1)"),
+    "multi_bilstm_fwd/bf16_w": ("multi_bilstm_fwd",
+                                "W bf16 (H >= 2) and f32, residuals f32"),
+    "multi_bilstm_fwd/bf16_w_bf16_resid": (
+        "multi_bilstm_fwd", "W bf16 (H >= 2) and f32, residuals bf16"),
+    "multi_bilstm_bwd/bf16_w": ("multi_bilstm_bwd",
+                                "W bf16 (H >= 2) and f32, residuals f32"),
+    "multi_bilstm_bwd/bf16_w_bf16_resid": (
+        "multi_bilstm_bwd", "W bf16 (H >= 2) and f32, residuals bf16"),
+}
+
+
+def flip_stats(got, want) -> tuple[float, float]:
+    """(the share of elements beyond their dtype's bar, the largest
+    |got - want| over max |want|) over matching tensors; see
+    ``COMPUTE_FLIP``."""
+    import torch
+
+    beyond = total = 0
+    worst = 0.0
+    for g, w in zip(got, want):
+        gf, wf = g.float(), w.float()
+        top = float(wf.abs().max())
+        err = (gf - wf).abs()
+        if g.dtype == torch.bfloat16:
+            mag = torch.maximum(gf.abs(), wf.abs()).clamp_min(2.0 ** -126)
+            near = BF16_ULPS * torch.exp2(torch.floor(torch.log2(mag)) - 7) + (
+                BF16_NOISE * top)
+        else:
+            near = KERNEL_TOL * max(top, 1.0)
+        beyond += int((err > near).sum())
+        total += err.numel()
+        worst = max(worst, float(err.max()) / max(top, 1e-30))
+    return beyond / max(total, 1), worst
+
+
+def mean_abs_err(got, want) -> float:
+    """The mean |got - want| over all elements of matching tensors."""
+    total = sum(float((g.float() - w.float()).abs().sum())
+                for g, w in zip(got, want))
+    return total / max(sum(w.numel() for w in want), 1)
+
+
+def check_flips(what: str, got, want) -> dict:
+    """``flip_stats`` within ``COMPUTE_FLIP_SHARE`` and ``COMPUTE_FLIP``,
+    or fail; returns them with the largest absolute error."""
+    share, worst = flip_stats(got, want)
+    if not (share <= COMPUTE_FLIP_SHARE and worst <= COMPUTE_FLIP):
+        fail(f"{what}: {share:.4g} of the elements beyond their bar (tol "
+             f"{COMPUTE_FLIP_SHARE}), largest error {worst:.4g} of the "
+             f"largest magnitude (tol {COMPUTE_FLIP})")
+    return dict(flip_share=share, max_err_over_max=worst,
+                max_abs_err=abs_err(got, want))
+
+
+def check_f32_directions(what: str, got, want, ws) -> float:
+    """The directions of a multi-stream call at bfloat16 compute whose
+    W_hh is float32, against the plain version: each of their outputs
+    (``got``: one a direction in turn, as the ops return h, g and c or
+    dx) within its dtype's bar, every element, as a float32 call's (such
+    a direction rounds no operand), or fail. Returns the largest error
+    over the largest magnitude."""
+    import torch
+
+    pick = [i for i in range(len(got))
+            if ws[i % len(ws)].dtype == torch.float32]
+    share, worst = flip_stats([got[i] for i in pick], [want[i] for i in pick])
+    if share > 0:
+        fail(f"{what}, the float32-W directions: {share:.4g} of their "
+             f"elements beyond their bar (tol 0)")
+    return worst
+
+
+def check_rounds(what: str, got, want, unrounded) -> dict:
+    """The kernel rounds where its plain version rounds: on
+    ``COMPUTE_SHORT_T`` steps, the mean |got - want| within
+    ``COMPUTE_QUARTER`` of the mean |want - unrounded| (``unrounded``:
+    the plain version at float32 W), or fail."""
+    ratio = mean_abs_err(got, want) / max(mean_abs_err(want, unrounded),
+                                          1e-30)
+    if not ratio <= COMPUTE_QUARTER:
+        fail(f"{what} at T={COMPUTE_SHORT_T}: mean error {ratio:.4g} of the "
+             f"rounding's (tol {COMPUTE_QUARTER})")
+    return dict(rounding_ratio=ratio)
+
+
+def compute_merged_inputs(t: int, b: int, h: int, seed: int, stream):
+    """``merged_inputs`` at bfloat16 compute: xp in the ``stream`` dtype,
+    W_hh rounded to bfloat16."""
+    import torch
+
+    xp_f, xp_b, w_f, w_b = merged_inputs(t, b, h, seed)
+    return (xp_f.to(stream), xp_b.to(stream), w_f.to(torch.bfloat16),
+            w_b.to(torch.bfloat16))
+
+
+def _compute_row(name: str, shape: str, fields: dict) -> dict:
+    label = COMPUTE_KERNELS[name][1]
+    log(f"kernel {name}", shape=shape, dtypes=label.replace(" ", ""),
+        **fmt(fields), flip_share_tol=COMPUTE_FLIP_SHARE,
+        flip_tol=COMPUTE_FLIP, library="null (no library call rounds "
+        "there)")
+    return dict(shape=shape, **fields)
+
+
+def check_bilstm_compute(b: int, h: int, stream, reps: int) -> dict:
+    """``bilstm_infer`` at bfloat16 W beside an xp stream of ``stream``
+    against its plain version on the same inputs: the flip bar, time,
+    device time, the plain version's time and the bound at these
+    bytes."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm
+
+    args = compute_merged_inputs(T, b, h, SEED + 5 * h + b, stream)
+    got = bilstm.bilstm_infer_cuda(*args)
+    want = bilstm.bilstm_sequence_reference(*args)
+    torch.cuda.synchronize()
+    check_dtypes("bilstm_infer bf16 compute h", got, torch.float32)
+    bf16_xp = stream == torch.bfloat16
+    name = "bilstm_infer/bf16_w" + ("_bf16_xp" if bf16_xp else "")
+    errs = check_flips(f"{name} B{b} H{h}", got, want)
+    short = compute_merged_inputs(COMPUTE_SHORT_T, b, h, SEED + h, stream)
+    errs.update(check_rounds(
+        f"{name} B{b} H{h}", bilstm.bilstm_infer_cuda(*short),
+        bilstm.bilstm_sequence_reference(*short),
+        bilstm.bilstm_sequence_reference(*short[:2], *(
+            w.float() for w in short[2:]))))
+    bound, by = lstm_bound(T, b, [h, h], "infer", xp_bytes=2 if bf16_xp
+                           else 4, w_bytes=2)
+    return _compute_row(name, f"T{T}xB{b}xH{h}", dict(
+        ms=time_ms(lambda: bilstm.bilstm_infer_cuda(*args), reps),
+        device_ms=kernel_device_ms(lambda: bilstm.bilstm_infer_cuda(*args),
+                                   reps),
+        plain_ms=time_ms(lambda: bilstm.bilstm_sequence_reference(*args), 1,
+                         warmup=0),
+        bound_ms=bound, bound_by=by, **errs))
+
+
+def check_bilstm_train_compute(b: int, h: int, rd, reps: int) -> dict:
+    """``bilstm_fwd`` and ``bilstm_bwd`` at bfloat16 W, residuals in
+    ``rd`` and the xp stream in it too (``stream_dtype``), against their
+    plain versions: the forward's h, g and c, the gradient's dx on the
+    plain forward's residuals and on the kernel's own, each at the flip
+    bar. Returns the two rows."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm
+
+    xp_f, xp_b, w_f, w_b = compute_merged_inputs(T, b, h, SEED + 7 * h + b,
+                                                 rd)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + h)
+    dh = [torch.randn(T, b, h, device="cuda", generator=gen).to(rd)
+          for _ in range(2)]
+    got = bilstm.bilstm_forward_cuda(xp_f, xp_b, w_f, w_b, rd)
+    want = bilstm.bilstm_forward_reference(xp_f, xp_b, w_f, w_b, rd)
+    res = want[2:]
+    dx = bilstm.bilstm_backward_cuda(*dh, *res, w_f, w_b)
+    dx_ref = bilstm.bilstm_backward_reference(*dh, *res, w_f, w_b)
+    dx_own = bilstm.bilstm_backward_cuda(*dh, *got[2:], w_f, w_b)
+    dx_own_ref = bilstm.bilstm_backward_reference(*dh, *got[2:], w_f, w_b)
+    torch.cuda.synchronize()
+    check_dtypes("bilstm_fwd bf16 compute h", got[:2], torch.float32)
+    check_dtypes("bilstm_fwd bf16 compute g, c", got[2:], rd)
+    check_dtypes("bilstm_bwd bf16 compute dx", dx, rd)
+    tag = "bf16_w" + ("_bf16_resid" if rd == torch.bfloat16 else "")
+    shape = f"T{T}xB{b}xH{h}"
+    fwd_errs = check_flips(f"bilstm_fwd/{tag} {shape}", got, want)
+    bwd_errs = check_flips(f"bilstm_bwd/{tag} {shape}", dx, dx_ref)
+    # the same at COMPUTE_SHORT_T steps beside the plain versions at
+    # float32 W
+    short = compute_merged_inputs(COMPUTE_SHORT_T, b, h, SEED + h, rd)
+    w32 = [w.float() for w in short[2:]]
+    s_want = bilstm.bilstm_forward_reference(*short, rd)
+    fwd_errs.update(check_rounds(
+        f"bilstm_fwd/{tag} {shape}", bilstm.bilstm_forward_cuda(*short, rd),
+        s_want, bilstm.bilstm_forward_reference(*short[:2], *w32, rd)))
+    s_dh = [x[:COMPUTE_SHORT_T].contiguous() for x in dh]
+    bwd_errs.update(check_rounds(
+        f"bilstm_bwd/{tag} {shape}",
+        bilstm.bilstm_backward_cuda(*s_dh, *s_want[2:], *short[2:]),
+        bilstm.bilstm_backward_reference(*s_dh, *s_want[2:], *short[2:]),
+        bilstm.bilstm_backward_reference(*s_dh, *s_want[2:], *w32)))
+    own = check_flips(f"bilstm_bwd/{tag} {shape} on the kernel's residuals",
+                      dx_own, dx_own_ref)
+    size = 2 if rd == torch.bfloat16 else 4
+    fwd_bound, fwd_by = lstm_bound(T, b, [h, h], "fwd", resid_bytes=size,
+                                   xp_bytes=size, w_bytes=2)
+    bwd_bound, bwd_by = lstm_bound(T, b, [h, h], "bwd", resid_bytes=size,
+                                   stream_bytes=size, w_bytes=2)
+
+    def fwd():
+        return bilstm.bilstm_forward_cuda(xp_f, xp_b, w_f, w_b, rd)
+
+    def bwd():
+        return bilstm.bilstm_backward_cuda(*dh, *res, w_f, w_b)
+
+    return {
+        f"bilstm_fwd/{tag}": _compute_row(f"bilstm_fwd/{tag}", shape, dict(
+            ms=time_ms(fwd, reps), device_ms=kernel_device_ms(fwd, reps),
+            plain_ms=time_ms(lambda: bilstm.bilstm_forward_reference(
+                xp_f, xp_b, w_f, w_b, rd), 1, warmup=0),
+            bound_ms=fwd_bound, bound_by=fwd_by, **fwd_errs)),
+        f"bilstm_bwd/{tag}": _compute_row(f"bilstm_bwd/{tag}", shape, dict(
+            ms=time_ms(bwd, reps), device_ms=kernel_device_ms(bwd, reps),
+            plain_ms=time_ms(lambda: bilstm.bilstm_backward_reference(
+                *dh, *res, w_f, w_b), 1, warmup=0),
+            bound_ms=bwd_bound, bound_by=bwd_by, **bwd_errs,
+            own_residuals_flip_share=own["flip_share"],
+            own_residuals_max_err_over_max=own["max_err_over_max"])),
+    }
+
+
+def compute_multi_inputs(t: int, b: int, hs, seed: int, f32_widths=(1,)):
+    """``multi_inputs`` at bfloat16 compute: W_hh float32 at the widths
+    ``f32_widths`` and bfloat16 at the others (the default: float32 for
+    H = 1, as the models' ``_recurrent_dtype`` gives them)."""
+    import torch
+
+    xps, ws = multi_inputs(t, b, hs, seed)
+    return xps, [w if w.shape[1] in f32_widths else w.to(torch.bfloat16)
+                 for w in ws]
+
+
+def check_multi_compute(b: int, hs, reps: int, rd=None) -> dict:
+    """The multi-stream lane plan at bfloat16 compute, W_hh of mixed
+    dtypes in one call, against the plain versions: the lean forward
+    (``rd`` None), or the residual-saving forward and the gradient at
+    residuals ``rd`` (on the plain forward's residuals and the kernel's
+    own). Returns the rows."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import multi_bilstm
+
+    xps, ws = compute_multi_inputs(T, b, hs, SEED + 13 * b + len(hs))
+    n, d2 = len(hs), 2 * len(hs)
+    shape = f"T{T}xB{b}xH{'/'.join(map(str, hs))}"
+    dirs = [h for h in hs for _ in (0, 1)]
+    w_bytes = [2 if h >= 2 else 4 for h in dirs]
+    if rd is None:
+        got = multi_bilstm.multi_bilstm_infer_cuda(n, *xps, *ws)
+        want = multi_bilstm.multi_bilstm_sequence_reference(n, *xps, *ws)
+        torch.cuda.synchronize()
+        name = "multi_bilstm_infer/bf16_w"
+        errs = check_flips(f"{name} {shape}", got, want)
+        errs["f32_w_max_err_over_max"] = check_f32_directions(
+            f"{name} {shape}", got, want, ws)
+        s_xps, s_ws = compute_multi_inputs(COMPUTE_SHORT_T, b, hs, SEED + b)
+        errs.update(check_rounds(
+            f"{name} {shape}",
+            multi_bilstm.multi_bilstm_infer_cuda(n, *s_xps, *s_ws),
+            multi_bilstm.multi_bilstm_sequence_reference(n, *s_xps, *s_ws),
+            multi_bilstm.multi_bilstm_sequence_reference(
+                n, *s_xps, *(w.float() for w in s_ws))))
+        bound, by = lstm_bound(T, b, dirs, "infer", w_bytes=w_bytes)
+
+        def lean():
+            return multi_bilstm.multi_bilstm_infer_cuda(n, *xps, *ws)
+
+        return {name: _compute_row(name, shape, dict(
+            ms=time_ms(lean, reps), device_ms=kernel_device_ms(lean, reps),
+            plain_ms=time_ms(lambda: multi_bilstm.
+                             multi_bilstm_sequence_reference(n, *xps, *ws), 1,
+                             warmup=0),
+            bound_ms=bound, bound_by=by, **errs))}
+    got = multi_bilstm.multi_bilstm_forward_cuda(n, *xps, *ws,
+                                                 residual_dtype=rd)
+    want = multi_bilstm.multi_bilstm_forward_reference(n, *xps, *ws,
+                                                       residual_dtype=rd)
+    res = want[d2:]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + b)
+    dhs = [torch.randn(x.shape, device="cuda", generator=gen)
+           for x in want[:d2]]
+    dx = multi_bilstm.multi_bilstm_backward_cuda(n, *dhs, *res, *ws)
+    dx_ref = multi_bilstm.multi_bilstm_backward_reference(n, *dhs, *res, *ws)
+    dx_own = multi_bilstm.multi_bilstm_backward_cuda(n, *dhs, *got[d2:], *ws)
+    dx_own_ref = multi_bilstm.multi_bilstm_backward_reference(
+        n, *dhs, *got[d2:], *ws)
+    torch.cuda.synchronize()
+    check_dtypes("multi_bilstm_fwd bf16 compute h", got[:d2], torch.float32)
+    check_dtypes("multi_bilstm_fwd bf16 compute g, c", got[d2:], rd)
+    check_dtypes("multi_bilstm_bwd bf16 compute dx", dx, torch.float32)
+    tag = "bf16_w" + ("_bf16_resid" if rd == torch.bfloat16 else "")
+    fwd_errs = check_flips(f"multi_bilstm_fwd/{tag} {shape}", got, want)
+    bwd_errs = check_flips(f"multi_bilstm_bwd/{tag} {shape}", dx, dx_ref)
+    fwd_errs["f32_w_max_err_over_max"] = check_f32_directions(
+        f"multi_bilstm_fwd/{tag} {shape}", got, want, ws)
+    bwd_errs["f32_w_max_err_over_max"] = max(
+        check_f32_directions(f"multi_bilstm_bwd/{tag} {shape}", dx, dx_ref,
+                             ws),
+        check_f32_directions(f"multi_bilstm_bwd/{tag} {shape} on the "
+                             "kernel's residuals", dx_own, dx_own_ref, ws))
+    s_xps, s_ws = compute_multi_inputs(COMPUTE_SHORT_T, b, hs, SEED + b)
+    w32 = [w.float() for w in s_ws]
+    s_want = multi_bilstm.multi_bilstm_forward_reference(
+        n, *s_xps, *s_ws, residual_dtype=rd)
+    fwd_errs.update(check_rounds(
+        f"multi_bilstm_fwd/{tag} {shape}",
+        multi_bilstm.multi_bilstm_forward_cuda(n, *s_xps, *s_ws,
+                                               residual_dtype=rd),
+        s_want, multi_bilstm.multi_bilstm_forward_reference(
+            n, *s_xps, *w32, residual_dtype=rd)))
+    s_dhs = [x[:COMPUTE_SHORT_T].contiguous() for x in dhs]
+    bwd_errs.update(check_rounds(
+        f"multi_bilstm_bwd/{tag} {shape}",
+        multi_bilstm.multi_bilstm_backward_cuda(n, *s_dhs, *s_want[d2:],
+                                                *s_ws),
+        multi_bilstm.multi_bilstm_backward_reference(n, *s_dhs, *s_want[d2:],
+                                                     *s_ws),
+        multi_bilstm.multi_bilstm_backward_reference(n, *s_dhs,
+                                                     *s_want[d2:], *w32)))
+    own = check_flips(f"multi_bilstm_bwd/{tag} {shape} on the kernel's "
+                      "residuals", dx_own, dx_own_ref)
+    size = 2 if rd == torch.bfloat16 else 4
+    fwd_bound, fwd_by = lstm_bound(T, b, dirs, "fwd", resid_bytes=size,
+                                   w_bytes=w_bytes)
+    bwd_bound, bwd_by = lstm_bound(T, b, dirs, "bwd", resid_bytes=size,
+                                   w_bytes=w_bytes)
+
+    def fwd():
+        return multi_bilstm.multi_bilstm_forward_cuda(n, *xps, *ws,
+                                                      residual_dtype=rd)
+
+    def bwd():
+        return multi_bilstm.multi_bilstm_backward_cuda(n, *dhs, *res, *ws)
+
+    return {
+        f"multi_bilstm_fwd/{tag}": _compute_row(
+            f"multi_bilstm_fwd/{tag}", shape, dict(
+                ms=time_ms(fwd, reps), device_ms=kernel_device_ms(fwd, reps),
+                plain_ms=time_ms(lambda: multi_bilstm.
+                                 multi_bilstm_forward_reference(
+                                     n, *xps, *ws, residual_dtype=rd), 1,
+                                 warmup=0),
+                bound_ms=fwd_bound, bound_by=fwd_by, **fwd_errs)),
+        f"multi_bilstm_bwd/{tag}": _compute_row(
+            f"multi_bilstm_bwd/{tag}", shape, dict(
+                ms=time_ms(bwd, reps), device_ms=kernel_device_ms(bwd, reps),
+                plain_ms=time_ms(lambda: multi_bilstm.
+                                 multi_bilstm_backward_reference(
+                                     n, *dhs, *res, *ws), 1, warmup=0),
+                bound_ms=bwd_bound, bound_by=bwd_by, **bwd_errs,
+                own_residuals_flip_share=own["flip_share"],
+                own_residuals_max_err_over_max=own["max_err_over_max"])),
+    }
+
+
+# the merged kernels' other code paths at bfloat16 compute (T, B, H):
+# T=1, one row, widths not a multiple of 4 or 8 (gate inputs and h staged
+# one by one), H=1, batches not a multiple of a round or a tile, one
+# block a direction, and the batch limit at H=512
+COMPUTE_EDGES = ((1, 28, 512), (5, 1, 512), (7, 9, 100), (5, 2, 1),
+                 (6, 5, 3), (4, 40, 512), (5, 9, 6), (3, 13, 8))
+
+
+def check_compute_edges() -> None:
+    """The bfloat16-compute instances at ``COMPUTE_EDGES`` (the lean
+    forward beside both streams, the training pair at both residual
+    dtypes, the batch limits of each at H=512) and the multi-stream lane
+    plan at every ``MULTI_EDGES`` case on it, W_hh mixed as the models
+    give it, and once mixed otherwise (float32 at H=8 beside bfloat16 at
+    32 and 1), each against its plain version at the flip bar, the
+    float32-W directions at their own; a bfloat16 W_hh on a block plan
+    raises (ROADMAP.md A4c)."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = COMPUTE_EDGES + (
+        (3, bilstm.forward_max_batch(512, resid=False), 512),
+        (3, bilstm.merged_max_batch(512, grad=True), 512))
+    worst = {"share": 0.0, "err": 0.0, "f32": 0.0}
+
+    def keep(errs):
+        worst["share"] = max(worst["share"], errs["flip_share"])
+        worst["err"] = max(worst["err"], errs["max_err_over_max"])
+
+    def keep_multi(what, got, want, ws):
+        keep(check_flips(what, got, want))
+        worst["f32"] = max(worst["f32"],
+                           check_f32_directions(what, got, want, ws))
+
+    for i, (t, b, h) in enumerate(shapes):
+        lean = i != len(shapes) - 1  # the last one: the autograd limit
+        train = i != len(shapes) - 2  # the one before: the lean limit
+        for rd in (f32, bf16):
+            args = compute_merged_inputs(t, b, h, SEED + 31 * i, rd)
+            what = f"bf16 compute T{t}xB{b}xH{h} {rd}"
+            if lean:
+                keep(check_flips(f"bilstm_infer {what}",
+                                 bilstm.bilstm_infer_cuda(*args),
+                                 bilstm.bilstm_sequence_reference(*args)))
+            if not train:
+                continue
+            got = bilstm.bilstm_forward_cuda(*args, rd)
+            want = bilstm.bilstm_forward_reference(*args, rd)
+            keep(check_flips(f"bilstm_fwd {what}", got, want))
+            dh = [torch.randn(t, b, h, device="cuda").to(rd)
+                  for _ in range(2)]
+            for res in (want[2:], got[2:]):
+                keep(check_flips(
+                    f"bilstm_bwd {what}",
+                    bilstm.bilstm_backward_cuda(*dh, *res, *args[2:]),
+                    bilstm.bilstm_backward_reference(*dh, *res, *args[2:])))
+    lane = [c + ((1,),) for c in MULTI_EDGES
+            if max(c[2]) <= multi_bilstm.LANE_MAX_H]
+    lane.append((COMPUTE_SHORT_T, 13, (8, 32, 1), (8,)))
+    for t, b, hs, f32_widths in lane:
+        xps, ws = compute_multi_inputs(t, b, hs, SEED + 17 * t + b,
+                                       f32_widths)
+        n, d2 = len(hs), 2 * len(hs)
+        what = f"multi bf16 compute T{t}xB{b}xH{hs} f32 W at {f32_widths}"
+        keep_multi(what, multi_bilstm.multi_bilstm_infer_cuda(n, *xps, *ws),
+                   multi_bilstm.multi_bilstm_sequence_reference(n, *xps,
+                                                                *ws), ws)
+        for rd in (f32, bf16):
+            got = multi_bilstm.multi_bilstm_forward_cuda(
+                n, *xps, *ws, residual_dtype=rd)
+            want = multi_bilstm.multi_bilstm_forward_reference(
+                n, *xps, *ws, residual_dtype=rd)
+            keep_multi(f"{what} fwd {rd}", got, want, ws)
+            dhs = [torch.randn(x.shape, device="cuda") for x in want[:d2]]
+            for res in (want[d2:], got[d2:]):
+                keep_multi(
+                    f"{what} bwd {rd}",
+                    multi_bilstm.multi_bilstm_backward_cuda(n, *dhs, *res,
+                                                            *ws),
+                    multi_bilstm.multi_bilstm_backward_reference(
+                        n, *dhs, *res, *ws), ws)
+    xps, ws = compute_multi_inputs(3, 2, (33, 8), SEED)
+    try:
+        multi_bilstm.multi_bilstm_infer_cuda(2, *xps, *ws)
+    except NotImplementedError as err:
+        if "A4c" not in str(err):
+            fail(f"multi_bilstm_infer bf16 W at H=33 raised {err}")
+    else:
+        fail("multi_bilstm_infer took a bfloat16 W_hh at H=33")
+    log("kernel bf16 compute edges", merged_shapes=len(shapes),
+        multi_shapes=len(lane), max_flip_share=f"{worst['share']:.4g}",
+        flip_share_tol=COMPUTE_FLIP_SHARE,
+        max_err_over_max=f"{worst['err']:.4g}", flip_tol=COMPUTE_FLIP,
+        f32_w_max_err_over_max=f"{worst['f32']:.4g}",
+        mixed="f32 W at H8 beside bf16 H32 and H1",
+        limits=f"B{shapes[-2][1]} lean, B{shapes[-1][1]} training at H512",
+        block_plan="refused at H=33 naming A4c")
+
+
+def phase_compute_kernels(reps: int = 10) -> dict:
+    """The bfloat16-compute instances of the four kernel bodies against
+    their plain versions at the main path's shapes and edges. Returns the
+    row of each instance's first (most expensive) shape."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {}
+
+    def add(found: dict) -> None:
+        for name, row in found.items():
+            if name in rows:
+                rows[name].setdefault("beside", []).append(
+                    {k: row[k] for k in ("shape", "ms", "device_ms",
+                                         "bound_ms", "flip_share")})
+            else:
+                rows[name] = row
+
+    with strict_float32("bfloat16 compute kernels"):
+        for stream in (bf16, f32):
+            for b, h in ((28, 512), (28, 256), (28, 8)):
+                row = check_bilstm_compute(b, h, stream, reps)
+                add({"bilstm_infer/bf16_w" + (
+                    "_bf16_xp" if stream == bf16 else ""): row})
+        for rd in (bf16, f32):
+            for h in (512, 256, 8):
+                add(check_bilstm_train_compute(TRAIN_B, h, rd, reps))
+        for b in (28, 4):
+            add(check_multi_compute(b, (8, 32, 1) if b == 28 else (32, 1),
+                                    reps))
+        for rd in (bf16, f32):
+            for b in (TRAIN_B, 28):
+                add(check_multi_compute(b, (8, 32, 1), reps, rd))
+        check_compute_edges()
+    return rows
+
+
+def compute_config(residual: str = "bfloat16"):
+    """The default config at bfloat16 compute (``residual``: its
+    residual dtype, the default bfloat16)."""
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+
+    return SpeechSplitConfig(compute_dtype="bfloat16",
+                             residual_dtype=residual)
+
+
+def phase_train_compute(gen_per_step: dict, f0_per_step: dict) -> tuple:
+    """Both train steps at bfloat16 compute (``train_precision_phase``) on
+    a B16 and a B32 batch: bfloat16 residuals (the default), and at B16
+    also float32 ones, timed in turns with the default config's step
+    (float32 compute) and the float32 step. Returns the generator's and
+    the F0 converter's launches at B16 by residual dtype."""
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+
+    timed = {"bf16_compute": compute_config(),
+             "default": SpeechSplitConfig(), "float32": float32_config()}
+    out = []
+    for name, model, per_step in (
+            ("generator", "speechsplit", gen_per_step),
+            ("f0_converter", "f0_converter", f0_per_step)):
+        for b in (TRAIN_B, 32):
+            checked = {"bf16_compute": compute_config()}
+            if b == TRAIN_B:
+                checked["bf16_compute_f32_resid"] = compute_config("float32")
+            launches = train_precision_phase(
+                name, model, per_step,
+                synthetic_batch(SpeechSplitConfig(), SEED + b, b), checked,
+                timed, "bf16 compute", reps=8)
+            if b == TRAIN_B:
+                out.append({"bfloat16": launches["bf16_compute"],
+                            "float32": launches["bf16_compute_f32_resid"]})
+    return tuple(out)
+
+
+def phase_convert_compute(reps: int = 10) -> dict:
+    """``convert_batched`` at 4 pairs x 7 conditions through seeded
+    default-config models at bfloat16 compute, at bfloat16 residuals (its
+    merged layers' xp streams bfloat16) and at float32 ones: launches,
+    finite mels cut to their lengths, within ``COMPUTE_PATH_TOL`` of the
+    same call on the plain versions, ms a call in turns with the same
+    weights at float32 compute (TF32 off); then what still refuses
+    bfloat16 compute on the card, naming ROADMAP.md A4c: the 731-pair
+    call (its mel decoder and content layer 1 past the merged kernels'
+    batch) and ``PROJ_FUSION="auto"``. Returns the launches by residual
+    dtype."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.convert import CONDITIONS, convert_batched
+    from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+
+    gen = torch.Generator().manual_seed(SEED)
+    base = (SpeechSplit(SpeechSplitConfig(), generator=gen),
+            F0Converter(SpeechSplitConfig(), generator=gen))
+    pairs = synthetic_pairs(SpeechSplitConfig(), 4, "cuda", SEED)
+
+    def models(config):
+        g = SpeechSplit(config).to("cuda").eval()
+        p = F0Converter(config).to("cuda").eval()
+        g.load_state_dict(base[0].state_dict())
+        p.load_state_dict(base[1].state_dict())
+        return g, p
+
+    f32_models = models(SpeechSplitConfig())
+    launches = {}
+    with strict_float32("bf16 compute conversions and their timing"):
+        for residual in ("bfloat16", "float32"):
+            config = compute_config(residual)
+            g, p = models(config)
+
+            def run(g=g, p=p):
+                return convert_batched(g, p, pairs, CONDITIONS)
+
+            run()
+            torch.cuda.synchronize()
+            reset_launches()
+            result = run()
+            counts = {k: v for k, v in read_launches().items() if v}
+            if counts != {"bilstm_infer": 6, "multi_bilstm_infer": 2}:
+                fail(f"convert_batched bf16 compute: launches {counts}")
+            launches[residual] = counts
+            check_conversions(config, pairs, result)
+            with plain_kernels():
+                plain = run()
+            err = max(float(np.abs(a[1] - b[1]).max()) / max(
+                float(np.abs(b[1]).max()), 1e-30)
+                for ra, rb in zip(result, plain) for a, b in zip(ra, rb))
+            if not err <= COMPUTE_PATH_TOL:
+                fail(f"convert_batched bf16 compute ({residual} residuals) "
+                     f"vs plain: {err} of the largest magnitude")
+            samples = {"bf16_compute": [], "float32": []}
+            for r in range(reps):
+                for label in (("bf16_compute", "float32") if r % 2 == 0
+                              else ("float32", "bf16_compute")):
+                    mg, mp = (g, p) if label == "bf16_compute" else f32_models
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    convert_batched(mg, mp, pairs, CONDITIONS)
+                    samples[label].append((time.perf_counter() - start) * 1e3)
+            log("convert_batched bf16 compute", pairs=4,
+                residuals=residual, generator_batch=28,
+                median_ms_per_call=f"{np.median(samples['bf16_compute']):.4f}",
+                float32_median_ms_per_call=(
+                    f"{np.median(samples['float32']):.4f}"),
+                timing="bf16 compute and float32 calls in turns, TF32 off",
+                max_abs_err_over_max_vs_plain=f"{err:.3g}",
+                tol=COMPUTE_PATH_TOL,
+                launches=json.dumps(counts).replace(" ", ""))
+            del g, p
+    # what still refuses bfloat16 compute on the card (ROADMAP.md A4c)
+    g, p = models(compute_config())
+    big = synthetic_pairs(SpeechSplitConfig(), refused_pairs(), "cuda",
+                          SEED + 3)
+    refusals = {}
+    for what, mode, calls in (("731 pairs", "off", big),
+                              ("PROJ_FUSION=auto", "auto", pairs)):
+        try:
+            with fusion(mode):
+                convert_batched(g, p, calls, CONDITIONS)
+        except NotImplementedError as err:
+            if "ROADMAP.md A4c" not in str(err):
+                fail(f"bf16 compute {what} raised without naming A4c: {err}")
+            refusals[what] = str(err).split(";")[0][:80]
+        else:
+            fail(f"bf16 compute {what} ran: it is queued in ROADMAP.md A4c")
+    del big, g, p
+    torch.cuda.empty_cache()
+    log("bf16 compute refusals", **{k.replace(" ", "_").replace("=", "_"): v
+                                    .replace(" ", "_")
+                                    for k, v in refusals.items()},
+        roadmap="A4c")
+    return launches
+
+
+def phase_serve_compute(reps: int = 3) -> None:
+    """One 3 s ``POST /convert`` to a ``cli.serve`` handler whose config
+    sets ``compute_dtype=bfloat16`` (full-width seeded models from
+    ``.ckpt`` files), beside the same request to a float32 one: every
+    reply 200 with 7 wavs and 7 finite mels, the bfloat16 reply's mels
+    within ``COMPUTE_PATH_TOL`` of the same call on the plain versions,
+    ms a request (median of ``reps`` after a warm-up, the two servers in
+    turns); TF32 off."""
+    import threading
+    from http.server import HTTPServer
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from speechsplit_tpu_torch.cli.serve import build_handler
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.interop import save_reference_checkpoint
+    from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+    from speechsplit_tpu_torch.pipeline import VoiceConverter
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    with tempfile.TemporaryDirectory() as tmp:
+        g_path = os.path.join(tmp, "G.ckpt")
+        p_path = os.path.join(tmp, "P.ckpt")
+        save_reference_checkpoint(SpeechSplit(SpeechSplitConfig(),
+                                              generator=gen), g_path)
+        save_reference_checkpoint(F0Converter(SpeechSplitConfig(),
+                                              generator=gen), p_path)
+        paths = []
+        for side, (f_a, f_b) in (("src", (105.0, 150.0)),
+                                 ("trg", (190.0, 260.0))):
+            path = os.path.join(tmp, f"{side}.wav")
+            wavfile.write(path, SAMPLE_RATE, synth_wav(
+                SHORT_S, f_a, f_b, SEED + len(paths) + int(SHORT_S)))
+            paths.append(path)
+        servers, converters = {}, {}
+        for label, config in (("bf16_compute", compute_config()),
+                              ("float32", SpeechSplitConfig())):
+            converters[label] = VoiceConverter.from_checkpoints(
+                g_path, p_path, config=config, device="cuda")
+            httpd = HTTPServer(("127.0.0.1", 0), build_handler(
+                converters[label], os.path.join(tmp, f"out_{label}")))
+            thread = threading.Thread(target=httpd.serve_forever,
+                                      daemon=True)
+            thread.start()
+            servers[label] = (httpd, thread,
+                              f"http://127.0.0.1:{httpd.server_port}")
+        payload = {"source_wav": paths[0], "target_wav": paths[1]}
+        try:
+            with strict_float32("serve bf16 compute"):
+                walls = {k: [] for k in servers}
+                replies = {}
+                for r in range(reps + 1):
+                    for label in (list(servers) if r % 2 == 0
+                                  else list(servers)[::-1]):
+                        url = servers[label][2]
+                        out = dict(payload,
+                                   out_dir=os.path.join(tmp, f"o{label}{r}"))
+                        start = time.perf_counter()
+                        replies[label] = check_reply(*post_convert(url, out),
+                                                     f"bf16 compute {label}")
+                        if r:
+                            walls[label].append(
+                                (time.perf_counter() - start) * 1e3)
+                conv = converters["bf16_compute"]
+                if conv.g_model.decoder.lstm.dtype != torch.bfloat16:
+                    fail("serve bf16 compute: the model is not at bfloat16")
+                with plain_kernels():
+                    plain = conv.convert_wav_files(*paths, synthesize=False)
+                reply = replies["bf16_compute"]
+                err = max(float(np.abs(reply[c] - plain[c]["mel"]).max())
+                          / max(float(np.abs(plain[c]["mel"]).max()), 1e-30)
+                          for c in reply)
+                if not err <= COMPUTE_PATH_TOL:
+                    fail(f"serve bf16 compute: mels {err} of the largest "
+                         f"magnitude from the plain call's")
+        finally:
+            for httpd, thread, _ in servers.values():
+                httpd.shutdown()
+                thread.join()
+        log("serve bf16 compute", pair="short", seconds=SHORT_S,
+            ms_per_request=f"{np.median(walls['bf16_compute']):.4f}",
+            float32_ms_per_request=f"{np.median(walls['float32']):.4f}",
+            rounds_ms=";".join(f"{k}:" + ",".join(f"{v:.4f}" for v in w)
+                               for k, w in walls.items()),
+            timing="the two servers in turns after a warm-up, TF32 off",
+            max_abs_err_over_max_vs_plain=f"{err:.3g}",
+            tol=COMPUTE_PATH_TOL, status=200)
+        del converters
+
+
 KERNELS = {
     "bilstm_infer": dict(
         route="cuda", source="speechsplit_tpu_torch/csrc/bilstm_infer.cu",
@@ -4520,23 +5367,29 @@ CODEGEN_SOURCES = ("bilstm_infer", "bilstm_bwd", "lstm_infer", "lstm_bwd",
 # lstm_bwd_kernel<KPL>); multi_bilstm_lane_kernel<kResid>,
 # multi_bilstm_infer_kernel<kResid>, which is the block plan's,
 # multi_bilstm_bwd_lane_kernel, multi_bilstm_bwd_kernel, the gradient's
-# block plan)
+# block plan). Their type arguments (the residuals', W_hh's and the xp
+# stream's) are float or __nv_bfloat16, a repeated one a substitution
+# (S_, S0_, ...)
 KERNEL_ENTRY = re.compile(
     r"((?:multi_)?(?:bi)?lstm_(?:bwd_lane|bwd_narrow|bwd_wide|fwd_narrow"
     r"|fwd_wide|infer|fused|bwd|wide_step|narrow|lane)_kernel)"
-    r"(?:I((?:L[ib]\d+E|f|13__nv_bfloat16)+)E)?")
+    r"(?:I((?:L[ib]\d+E|f|13__nv_bfloat16|S\d*_)+)E)?")
 
 
 def _entry(match) -> str:
-    """A kernel's key: its name and its template arguments, integers and
-    bf16 for a bfloat16 residual type. A float residual type is left out,
-    so that a float32 instance keeps the key of the kernel before the
-    residual type was a template argument (``--against`` lines up the
-    trees' rows by key)."""
+    """A kernel's key: its name and its template arguments, integers, f
+    for float and bf16 for __nv_bfloat16, the float arguments at the end
+    left out: a float32 instance keeps the key of the kernel before its
+    type arguments were added (the residuals', then W_hh's and the
+    stream's, all float by default), and a bfloat16-residual one keeps
+    its key too (``--against`` lines up the trees' rows by key)."""
     if match[2] is None:
         return match[1]
-    args = [num or "bf16" for num, bf16 in re.findall(
-        r"L[ib](\d+)E|13(__nv_bfloat16)", match[2])]
+    args = [num or ("f" if kind == "f" else "bf16")
+            for num, kind in re.findall(
+                r"L[ib](\d+)E|(f|13__nv_bfloat16|S\d*_)", match[2])]
+    while args and args[-1] == "f":
+        args.pop()
     return f"{match[1]}<{','.join(args)}>" if args else match[1]
 
 
@@ -4845,6 +5698,17 @@ def ab_main(other: str, rounds: int) -> int:
             same_sass=None in hashes and "only_in_" + (
                 "this" if hashes[0] is None else "other")
             or hashes[0] == hashes[1])
+    common = sorted(set(codegen["this"]) & set(codegen["other"]))
+    differ = [k for k in common if codegen["this"][k].get("sass_sha256")
+              != codegen["other"][k].get("sass_sha256")]
+    log("codegen summary", keys_in_both=len(common),
+        same_sass=len(common) - len(differ),
+        differ=",".join(differ) or "none",
+        only_in_other=",".join(sorted(set(codegen["other"])
+                                      - set(codegen["this"]))) or "none",
+        only_in_this=len(set(codegen["this"]) - set(codegen["other"])))
+    if rounds < 1:  # --rounds 0: the machine code only
+        return 0
     pairs = refused_pairs()
     for label, tree in trees.items():
         proc = subprocess.run([sys.executable, "-c", PROBE_CHILD, str(pairs)],
@@ -4930,6 +5794,13 @@ def main() -> int:
                                                     f0_per_step, batch)
     phase_train_cli(gen_per_step, f0_per_step)
     phase_train_cli_default(gen_per_step, f0_per_step)
+    rows.update(phase_compute_kernels())
+    compute_gen, compute_f0 = phase_train_compute(gen_per_step, f0_per_step)
+    phase_train_cli_default(gen_per_step, f0_per_step,
+                            "compute_dtype=bfloat16,batch_size=32",
+                            "bf16 compute", COMPUTE_PATH_TOL)
+    compute_convert = phase_convert_compute()
+    phase_serve_compute()
     rows.update(phase_fused_kernels())
     fused_convert = phase_convert_fused()
     fused_gen, fused_f0 = phase_train_fused(batch)
@@ -4961,6 +5832,20 @@ def main() -> int:
                 "bilstm_fused_fwd", "lstm_fwd", "lstm_bwd"):
             row["launches_f0_step"] = f0_launches[name]
         kernels.append(row)
+    # the bfloat16-compute instances: launches from the bfloat16-compute
+    # conversions (the lean kernels; bfloat16 residuals give bfloat16 xp
+    # streams) and generator steps (the training kernels; F0 step beside)
+    for name, (kernel, dtypes) in COMPUTE_KERNELS.items():
+        rd = "bfloat16" if name.endswith(("_bf16_xp", "_bf16_resid")) else (
+            "float32")
+        if kernel in TRAINING_KERNELS:
+            extra = dict(launches=compute_gen[rd][kernel],
+                         launches_f0_step=compute_f0[rd][kernel])
+        else:
+            rd = "float32" if name == "bilstm_infer/bf16_w" else "bfloat16"
+            extra = dict(launches=compute_convert[rd][kernel])
+        kernels.append(dict(name=name, **KERNELS[kernel], **extra,
+                            dtypes=dtypes, library_ms=None, **rows[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

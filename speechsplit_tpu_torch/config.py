@@ -75,8 +75,9 @@ class SpeechSplitConfig:
 
     # --- precision and layout knobs (no reference counterpart) -------------
     # The defaults are the JAX package's and train as they stand (bfloat16
-    # residuals and Adam mu); "bfloat16" compute is queued in ROADMAP.md
-    # A4b and refused by the models and the kernel wrappers.
+    # residuals and Adam mu); "bfloat16" compute runs on the default route
+    # (the single-direction route and the fused kernels refuse it,
+    # ROADMAP.md A4c).
     compute_dtype: str = "float32"
     residual_dtype: str = "bfloat16"
     matmul_precision: str = "default"

@@ -1,5 +1,6 @@
 // Merged bidirectional LSTM layer, gradient recurrence, float32 or on
-// bfloat16 residuals.
+// bfloat16 residuals, with a float32 or (bfloat16 compute) a bfloat16
+// W_hh.
 //
 // Replaces: speechsplit_tpu/ops/pallas_lstm.py::_bd_bwd_kernel (wrapper
 // _bd_bwd_call), the TPU kernel that runs the gate-gradient recurrence of
@@ -29,7 +30,13 @@
 // that parity again) and stages it from there, where the float32 kernel
 // stages it from dx itself. bfloat16 residuals go into shared memory 8
 // to a 16-byte copy in the plan of the float32 ones (half of it unused),
-// so both take the same batch.
+// so both take the same batch. With a bfloat16 W_hh (the JAX package's
+// compute_dtype="bfloat16", at either residual dtype) W is widened into
+// the registers that hold it and the product reads d_pre rounded to
+// bfloat16 (_cell_bwd's d_pre.astype(w.dtype), pallas_lstm.py:825-828):
+// the staged d_pre, the carries and dx are as above, and only the
+// product's operand is rounded, where it is read. The plan and the batch
+// limit do not depend on W's type.
 //
 // What bounds it on an H100: the recurrence, as in the forward. Step s
 // needs all of the previous step's d_pre, because dh_carry of unit k sums
@@ -140,8 +147,9 @@ struct Args {
 // KQ: passes of kJSpan rows j, ceil(4H / kJSpan). R: the element type of
 // dh, g, c and dx, float or bfloat16; with bfloat16 the d_pre that the
 // next step's product reads is the float32 one of a.carry, and dx holds
-// it rounded.
-template <int KQ, typename R = float>
+// it rounded. W: W_hh's element type, float or bfloat16; with bfloat16
+// the product reads d_pre rounded to bfloat16.
+template <int KQ, typename R = float, typename W = float>
 __global__ void __launch_bounds__(kThreads, 1)
 bilstm_bwd_kernel(const Args a) {
   extern __shared__ __align__(16) float smem[];
@@ -182,7 +190,8 @@ bilstm_bwd_kernel(const Args a) {
 #pragma unroll
       for (int u = 0; u < kMaxUnits; ++u) {
         wr[q][jj][u] = (j < G && u < nu)
-                           ? w[static_cast<size_t>(j) * H + u0 + u]
+                           ? resid::widen(reinterpret_cast<const W*>(
+                                 w)[static_cast<size_t>(j) * H + u0 + u])
                            : 0.0f;
       }
     }
@@ -296,8 +305,9 @@ bilstm_bwd_kernel(const Args a) {
 #pragma unroll
               for (int r = 0; r < kRows; ++r) {
                 if (r0 + r < nb) {
-                  const float4 d = *reinterpret_cast<const float4*>(
-                      d_s + (r0 + r) * G + j);
+                  const float4 d = resid::operand<W>(
+                      *reinterpret_cast<const float4*>(d_s + (r0 + r) * G +
+                                                       j));
 #pragma unroll
                   for (int u = 0; u < kMaxUnits; ++u) {
                     const int x = r * kMaxUnits + u;
@@ -396,7 +406,7 @@ bilstm_bwd_kernel(const Args a) {
 #endif
 }
 
-template <int KQ, typename R>
+template <int KQ, typename R, typename W>
 cudaError_t launch(Args a, cudaStream_t stream) {
   a.units = a.H < kMaxUnits ? a.H : kMaxUnits;
   a.blocks_per_dir = (a.H + a.units - 1) / a.units;
@@ -412,9 +422,21 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   a.bt = bt > a.B ? a.B : bt;
   const size_t smem = c_bytes + static_cast<size_t>(a.bt) * row_bytes;
   void* args[] = {&a};
-  return step::launch_cooperative(bilstm_bwd_kernel<KQ, R>,
+  return step::launch_cooperative(bilstm_bwd_kernel<KQ, R, W>,
                                   2 * a.blocks_per_dir, kThreads, smem, args,
                                   stream);
+}
+
+// W_hh's element type W: float or bfloat16 (bfloat16 compute)
+template <typename W>
+int launch_by_width(Args a, int resid_bf16, cudaStream_t s) {
+  if (resid_bf16) {
+    if (a.carry == nullptr) return cudaErrorInvalidValue;
+    if (4 * a.H <= kJSpan) return launch<1, resid::bf16, W>(a, s);
+    return launch<2, resid::bf16, W>(a, s);
+  }
+  if (4 * a.H <= kJSpan) return launch<1, float, W>(a, s);
+  return launch<2, float, W>(a, s);
 }
 
 }  // namespace
@@ -423,13 +445,15 @@ extern "C" {
 
 // barrier: one 32-bit word, zero at the launch. dh, g, c and dx are
 // float32, or with resid_bf16 bfloat16, and then carry is a float32
-// scratch of 2 x 2 x B x 4H (unused otherwise). Returns a cudaError_t (0
-// on success). Does not synchronise.
+// scratch of 2 x 2 x B x 4H (unused otherwise). w_f, w_b are float32, or
+// with w_bf16 bfloat16. Returns a cudaError_t (0 on success). Does not
+// synchronise.
 int bilstm_bwd_launch(const void* dh_f, const void* dh_b, const void* g_f,
                       const void* g_b, const void* c_f, const void* c_b,
                       const void* w_f, const void* w_b, void* dx_f,
                       void* dx_b, void* carry, void* barrier, int T, int B,
-                      int H, int resid_bf16, int device, void* stream) {
+                      int H, int resid_bf16, int w_bf16, int device,
+                      void* stream) {
   if (T < 1 || B < 1 || H < 1 || H > kMaxH) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -450,13 +474,8 @@ int bilstm_bwd_launch(const void* dh_f, const void* dh_b, const void* g_f,
   a.B = B;
   a.H = H;
   auto s = static_cast<cudaStream_t>(stream);
-  if (resid_bf16) {
-    if (carry == nullptr) return cudaErrorInvalidValue;
-    if (4 * H <= kJSpan) return launch<1, resid::bf16>(a, s);
-    return launch<2, resid::bf16>(a, s);
-  }
-  if (4 * H <= kJSpan) return launch<1, float>(a, s);
-  return launch<2, float>(a, s);
+  if (w_bf16) return launch_by_width<resid::bf16>(a, resid_bf16, s);
+  return launch_by_width<float>(a, resid_bf16, s);
 }
 
 const char* bilstm_bwd_error_string(int err) {

@@ -1,4 +1,5 @@
-// Merged bidirectional LSTM layer forward, float32: the lean forward
+// Merged bidirectional LSTM layer forward, float32 (the unfused kernels
+// also with bfloat16 compute): the lean forward
 // (h only) and the residual-saving forward of training, each either on
 // pre-projected gate inputs (one kernel body) or with the input
 // projection in the kernel (a body of its own).
@@ -25,7 +26,14 @@
 // The unfused residual-saving forward stores g and c in float32 or, as
 // _bd_fwd does under the JAX default residual_dtype, in bfloat16 (R):
 // rounded as they are stored, while h and the c carry stay float32
-// (pallas_lstm.py:648-657); the fused ones store float32 only.
+// (pallas_lstm.py:648-657); the fused ones store float32 only. The
+// unfused kernels also run the JAX package's bfloat16 compute
+// (compute_dtype="bfloat16"): W_hh in bfloat16, widened into the
+// registers that hold it, and h_{t-1} rounded to bfloat16 where a step's
+// product reads it (pallas_lstm._cell's h.astype(w.dtype)); the sums, the
+// gates, c and the h stored stay float32. Their gate inputs xp are
+// float32, or bfloat16 beside bfloat16 residuals (pallas_lstm.stream_dtype),
+// widened as they are staged.
 //
 // What bounds it on an H100: the recurrence. Step t needs all of h_{t-1},
 // so the T steps are serial and each is a small [B, H] x [H, 4H] product
@@ -245,8 +253,15 @@ struct Unfused {
 // The recurrence of both directions on pre-projected gate inputs. KQ:
 // passes of kKSpan, ceil(H / kKSpan); 0 for the narrow product. R: the
 // element type of the residuals g and c (kResid), float or bfloat16; they
-// are staged in float32 like h and rounded as they are stored.
-template <int KQ, bool kResid, typename R = float>
+// are staged in float32 like h and rounded as they are stored. W: the
+// element type of W_hh, float or bfloat16 (bfloat16 compute): widened
+// into the registers that hold it, and h_{t-1} rounded to bfloat16 where
+// the product reads it, the sums, the cell and h itself float32. X: the
+// element type of the gate inputs xp, float or bfloat16 (bfloat16 W with
+// bfloat16 residuals, as pallas_lstm.stream_dtype): widened as they are
+// staged.
+template <int KQ, bool kResid, typename R = float, typename W = float,
+          typename X = float>
 __global__ void __launch_bounds__(kMaxUnits * 32, 1)
 bilstm_infer_kernel(const Unfused a) {
   extern __shared__ __align__(16) float smem_unfused[];
@@ -296,9 +311,11 @@ bilstm_infer_kernel(const Unfused a) {
         const int k = kKSpan * q + 4 * lane + kk;
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
-          wr[q][kk][g] = (active && k < H)
-                             ? w[static_cast<size_t>(g * H + u) * H + k]
-                             : 0.0f;
+          wr[q][kk][g] =
+              (active && k < H)
+                  ? resid::widen(reinterpret_cast<const W*>(
+                        w)[static_cast<size_t>(g * H + u) * H + k])
+                  : 0.0f;
         }
       }
     }
@@ -306,7 +323,8 @@ bilstm_infer_kernel(const Unfused a) {
 #pragma unroll
     for (int k = 0; k < kNarrowMaxH; ++k) {
       wn[k] = (active && k < H)
-                  ? w[static_cast<size_t>((lane & 3) * H + u) * H + k]
+                  ? resid::widen(reinterpret_cast<const W*>(
+                        w)[static_cast<size_t>((lane & 3) * H + u) * H + k])
                   : 0.0f;
     }
   }
@@ -321,11 +339,46 @@ bilstm_infer_kernel(const Unfused a) {
   }
 
   // issue the copies of step s's gate inputs of tile rows b0 .. into
-  // buffer buf: gate g of the block's units is one run of 4 U bytes
+  // buffer buf: gate g of the block's units is one run of 4 U bytes (2 U
+  // bytes of bfloat16 ones, loaded and widened as they are stored: cp.async
+  // cannot widen)
   auto stage_x = [&](int s, int b0, int buf) {
     const int t = dir == 0 ? s : T - 1 - s;
     const int nb = min(bt, B - b0);
     float* dst = xbuf + buf * bt * xrow;
+    if constexpr (!std::is_same<X, float>::value) {
+      const X* src = reinterpret_cast<const X*>(xp) +
+                     (static_cast<size_t>(t) * B + b0) * 4 * H + u0;
+      if (quads) {
+        // 4 bfloat16s a load of 8 bytes
+        const int nq = U / 4;
+        for (int i = tid; i < nb * 4 * nq; i += nthreads) {
+          const int r = i / (4 * nq);
+          const int g = (i / nq) & 3;
+          const int q4 = 4 * (i % nq);
+          if (q4 < nu) {
+            const uint2 bits = __ldg(reinterpret_cast<const uint2*>(
+                src + static_cast<size_t>(r) * 4 * H + g * H + q4));
+            *reinterpret_cast<float4*>(dst + r * xrow + g * U + q4) =
+                make_float4(__uint_as_float(bits.x << 16),
+                            __uint_as_float(bits.x & 0xffff0000u),
+                            __uint_as_float(bits.y << 16),
+                            __uint_as_float(bits.y & 0xffff0000u));
+          }
+        }
+      } else {
+        for (int i = tid; i < nb * xrow; i += nthreads) {
+          const int r = i / xrow;
+          const int g = (i / U) & 3;
+          const int v = i % U;
+          if (v < nu) {
+            dst[i] = resid::widen_loaded(resid::load(
+                src + static_cast<size_t>(r) * 4 * H + g * H + v));
+          }
+        }
+      }
+      return;
+    }
     const float* src = xp + (static_cast<size_t>(t) * B + b0) * 4 * H + u0;
     if (quads) {
       const int nq = U / 4;
@@ -420,8 +473,9 @@ bilstm_infer_kernel(const Unfused a) {
                 if (k < Hp) {
 #pragma unroll
                   for (int r = 0; r < kRound; ++r) {
-                    const float4 hv = *reinterpret_cast<const float4*>(
-                        h_s + min(r0 + r, nb - 1) * Hp + k);
+                    const float4 hv = resid::operand<W>(
+                        *reinterpret_cast<const float4*>(
+                            h_s + min(r0 + r, nb - 1) * Hp + k));
 #pragma unroll
                     for (int g = 0; g < 4; ++g) {
                       const int x = r * 4 + g;
@@ -440,7 +494,8 @@ bilstm_infer_kernel(const Unfused a) {
 #pragma unroll
             for (int k = 0; k < kNarrowMaxH; k += 4) {
               if (k < Hp) {
-                const float4 hv = *reinterpret_cast<const float4*>(hr + k);
+                const float4 hv = resid::operand<W>(
+                    *reinterpret_cast<const float4*>(hr + k));
                 pre = fmaf(hv.x, wn[k], pre);
                 pre = fmaf(hv.y, wn[k + 1], pre);
                 pre = fmaf(hv.z, wn[k + 2], pre);
@@ -973,8 +1028,9 @@ bool plan_fused(Params& p, size_t* smem) {
 // source's choice, kSplitMaxH), units = min(H, kMaxUnits / splits) a
 // block; the batch tile the largest that fits the budget beside the cell
 // state, then evened out over the tiles it takes. Refuses a batch whose
-// cell state leaves no room for one row of each buffer.
-template <int KQ, bool kResid, typename R>
+// cell state leaves no room for one row of each buffer. The plan does not
+// depend on W and X: bfloat16 compute takes the float32 plan's batches.
+template <int KQ, bool kResid, typename R, typename W, typename X>
 cudaError_t launch_unfused(Unfused a, cudaStream_t stream) {
   if (a.splits == 0) {
     a.splits = a.H > kMaxUnits && a.H <= kSplitMaxH ? 2 : 1;
@@ -1001,13 +1057,15 @@ cudaError_t launch_unfused(Unfused a, cudaStream_t stream) {
   a.bt = static_cast<int>((a.B + tiles - 1) / tiles);
   const size_t smem = (c_floats + a.bt * row_floats) * sizeof(float);
   void* args[] = {&a};
-  return step::launch_cooperative(bilstm_infer_kernel<KQ, kResid, R>,
+  return step::launch_cooperative(bilstm_infer_kernel<KQ, kResid, R, W, X>,
                                   2 * a.blocks_per_dir, threads, smem, args,
                                   stream);
 }
 
-// R: the residuals' element type (kResid)
-template <bool kResid, typename R = float>
+// R: the residuals' element type (kResid); W and X: W_hh's and the gate
+// inputs' (bfloat16 compute)
+template <bool kResid, typename R = float, typename W = float,
+          typename X = float>
 int dispatch_unfused(Unfused a, int device, void* stream) {
   if (a.T < 1 || a.B < 1 || a.H < 1 || a.H > kMaxH) {
     return cudaErrorInvalidValue;
@@ -1016,10 +1074,10 @@ int dispatch_unfused(Unfused a, int device, void* stream) {
   if (err != cudaSuccess) return err;
   auto s = static_cast<cudaStream_t>(stream);
   const int kq = (a.H + kKSpan - 1) / kKSpan;
-  if (a.H <= kNarrowMaxH) return launch_unfused<0, kResid, R>(a, s);
-  if (kq <= 1) return launch_unfused<1, kResid, R>(a, s);
-  if (kq <= 2) return launch_unfused<2, kResid, R>(a, s);
-  return launch_unfused<4, kResid, R>(a, s);
+  if (a.H <= kNarrowMaxH) return launch_unfused<0, kResid, R, W, X>(a, s);
+  if (kq <= 1) return launch_unfused<1, kResid, R, W, X>(a, s);
+  if (kq <= 2) return launch_unfused<2, kResid, R, W, X>(a, s);
+  return launch_unfused<4, kResid, R, W, X>(a, s);
 }
 
 Unfused unfused(const void* xp_f, const void* xp_b, const void* w_f,
@@ -1107,36 +1165,60 @@ Params fused(const void* x, const void* wi_f, const void* wi_b,
 extern "C" {
 
 // Lean forward. barrier: two 32-bit words (one a direction), zero at the
-// launch; splits: warps a hidden unit, 0 for the source's plan. Returns
-// a cudaError_t (0 on success). Does not synchronise.
+// launch; splits: warps a hidden unit, 0 for the source's plan. w_bf16:
+// W_hh in bfloat16 (bfloat16 compute), and then xp_bf16: xp in bfloat16
+// too; h is float32. Returns a cudaError_t (0 on success). Does not
+// synchronise.
 int bilstm_infer_launch(const void* xp_f, const void* xp_b, const void* w_f,
                         const void* w_b, void* h_f, void* h_b, void* barrier,
-                        int T, int B, int H, int splits, int device,
-                        void* stream) {
-  return dispatch_unfused<false>(
-      unfused(xp_f, xp_b, w_f, w_b, h_f, h_b, barrier, T, B, H, splits),
-      device, stream);
+                        int T, int B, int H, int splits, int w_bf16,
+                        int xp_bf16, int device, void* stream) {
+  const Unfused a =
+      unfused(xp_f, xp_b, w_f, w_b, h_f, h_b, barrier, T, B, H, splits);
+  if (!w_bf16) {
+    if (xp_bf16) return cudaErrorInvalidValue;
+    return dispatch_unfused<false>(a, device, stream);
+  }
+  using resid::bf16;
+  if (xp_bf16) {
+    return dispatch_unfused<false, float, bf16, bf16>(a, device, stream);
+  }
+  return dispatch_unfused<false, float, bf16>(a, device, stream);
 }
 
 // Residual-saving forward: also writes g_f, g_b [T, B, 4H] and c_f, c_b
-// [T, B, H], in float32, or with resid_bf16 in bfloat16. Returns a
-// cudaError_t (0 on success). Does not synchronise.
+// [T, B, H], in float32, or with resid_bf16 in bfloat16. w_bf16: W_hh in
+// bfloat16 (bfloat16 compute), and xp_bf16: xp in bfloat16; with bfloat16
+// W the gate inputs follow the residuals (both float32 or both bfloat16,
+// as pallas_lstm.stream_dtype), and other pairs return
+// cudaErrorInvalidValue. Returns a cudaError_t (0 on success). Does not
+// synchronise.
 int bilstm_fwd_launch(const void* xp_f, const void* xp_b, const void* w_f,
                       const void* w_b, void* h_f, void* h_b, void* g_f,
                       void* g_b, void* c_f, void* c_b, void* barrier, int T,
-                      int B, int H, int splits, int resid_bf16, int device,
-                      void* stream) {
+                      int B, int H, int splits, int resid_bf16, int w_bf16,
+                      int xp_bf16, int device, void* stream) {
   Unfused a =
       unfused(xp_f, xp_b, w_f, w_b, h_f, h_b, barrier, T, B, H, splits);
   a.g[0] = static_cast<float*>(g_f);
   a.g[1] = static_cast<float*>(g_b);
   a.c[0] = static_cast<float*>(c_f);
   a.c[1] = static_cast<float*>(c_b);
+  using resid::bf16;
+  if (w_bf16) {
+    if (xp_bf16 != resid_bf16) return cudaErrorInvalidValue;
+    if (resid_bf16) {
+      return dispatch_unfused<true, bf16, bf16, bf16>(a, device, stream);
+    }
+    return dispatch_unfused<true, float, bf16>(a, device, stream);
+  }
+  if (xp_bf16) return cudaErrorInvalidValue;
   if (resid_bf16) {
-    return dispatch_unfused<true, resid::bf16>(a, device, stream);
+    return dispatch_unfused<true, bf16>(a, device, stream);
   }
   return dispatch_unfused<true>(a, device, stream);
 }
+
 
 // Lean forward with the input projection in the kernel: x [T, B, I],
 // wi_f, wi_b [4H, I], b_f, b_b [4H]; barrier: one 32-bit word, zero at

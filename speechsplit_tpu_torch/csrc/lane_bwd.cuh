@@ -16,7 +16,10 @@
 // weight_hh_l{k}); out dx [T, B, 4H] = d_pre. g and c are float32 or
 // bfloat16 (R, widened where they are read, as _cell_bwd does); dh and
 // dx float32, as the multi-stream VJP of the JAX package keeps them
-// (pallas_multilstm.py:368-384, 406-433).
+// (pallas_multilstm.py:368-384, 406-433). With bfloat16 compute (W:
+// bfloat16) a direction's W_hh is bfloat16, widened as it is staged, and
+// the product reads d_pre rounded to bfloat16 (_cell_bwd's
+// d_pre.astype(w.dtype)); dx, the carries and the sums stay float32.
 //
 // What bounds it on an H100: latency. A step of a row is at most 4H x H
 // = 4096 multiply-adds, and the 192 dependent steps cost the latency of
@@ -60,7 +63,7 @@ struct Dir {
   const float* dh;
   const float* g;  // elements of type R
   const float* c;  // elements of type R
-  const float* w;
+  const float* w;  // elements of type W (steps below)
   float* dx;
   int H;
 };
@@ -154,24 +157,30 @@ __device__ __forceinline__ Factors factors(const Res<R>& res) {
 
 // The T steps of the rows of block `blk` (blockDim.x / L rows a block)
 // of one direction at width L >= d.H. smem: smem_float4s(L) float4s. R:
-// the element type of g and c.
-template <int L, typename R = float>
+// the element type of g and c. W: float, or bfloat16 for a kernel built
+// for bfloat16 compute, where `w_bf16` says whether this direction's W_hh
+// is bfloat16 (resid::weight, and the product reads d_pre rounded) or
+// float32.
+template <int L, typename R = float, typename W = float>
 __device__ __forceinline__ void steps(const Dir& d, int blk, bool reverse,
                                       int T, int B, float4* smem,
-                                      Probe& probe) {
+                                      Probe& probe, bool w_bf16 = false) {
   constexpr int kRows = 32 / L;  // batch rows a warp
   const int H = d.H;
   float4* wt = smem;             // [L][L]: wt[k * L + u] column k, unit u
   float4* xch = smem + L * L;    // [2][kThreads] the exchange slices
+  const resid::Operand<W> op(w_bf16);  // d_pre as the product reads it
   for (int i = threadIdx.x; i < L * L; i += blockDim.x) {
     const int k = i / L;
     const int u = i % L;
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (k < H && u < H) {
-      v.x = d.w[static_cast<size_t>(u) * H + k];
-      v.y = d.w[static_cast<size_t>(H + u) * H + k];
-      v.z = d.w[static_cast<size_t>(2 * H + u) * H + k];
-      v.w = d.w[static_cast<size_t>(3 * H + u) * H + k];
+      v.x = resid::weight<W>(d.w, static_cast<size_t>(u) * H + k, w_bf16);
+      v.y = resid::weight<W>(d.w, static_cast<size_t>(H + u) * H + k, w_bf16);
+      v.z = resid::weight<W>(d.w, static_cast<size_t>(2 * H + u) * H + k,
+                             w_bf16);
+      v.w = resid::weight<W>(d.w, static_cast<size_t>(3 * H + u) * H + k,
+                             w_bf16);
     }
     wt[i] = v;
   }
@@ -239,7 +248,7 @@ __device__ __forceinline__ void steps(const Dir& d, int blk, bool reverse,
     }
     float4* slot = xch + (s & 1) * kThreads + base;
     if constexpr (L > 1) {
-      slot[u] = dp;
+      slot[u] = op(dp);
       __syncwarp();
     }
     probe.ready(dp.x);
@@ -255,7 +264,7 @@ __device__ __forceinline__ void steps(const Dir& d, int blk, bool reverse,
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int k = 0; k < L; ++k) {
-      const float4 v = L > 1 ? slot[k] : dp;
+      const float4 v = L > 1 ? slot[k] : op(dp);
       acc[0] = fmaf(v.x, wr[k].x, acc[0]);
       acc[1] = fmaf(v.y, wr[k].y, acc[1]);
       acc[2] = fmaf(v.z, wr[k].z, acc[2]);

@@ -10,7 +10,11 @@
 // weight_hh_l{k}), h [T, B, H]; with kResid also g [T, B, 4H] (gates i,
 // f, g, o after their activations) and c [T, B, H], in float32 or in
 // bfloat16 (R: rounded as they are stored; h and the c carry stay
-// float32, as _fwd_kernel under the JAX default residual_dtype).
+// float32, as _fwd_kernel under the JAX default residual_dtype). With
+// bfloat16 compute (W: bfloat16) a direction's W_hh is bfloat16, widened
+// as it is staged, and the product reads h_{t-1} rounded to bfloat16
+// (pallas_lstm._cell's h.astype(w.dtype)); xp, h, the sums and the cell
+// stay float32.
 //
 // What bounds it on an H100: latency. A step of a row is at most 4H x H
 // = 4096 multiply-adds, and the T dependent steps cost the latency of one
@@ -48,7 +52,7 @@ constexpr int kThreads = 128;  // a block: 4 warps
 
 struct Dir {
   const float* xp;
-  const float* w;
+  const float* w;  // elements of type W (steps below)
   float* h;
   float* g;  // residual-saving forward only, elements of type R
   float* c;
@@ -109,23 +113,30 @@ __device__ __forceinline__ float sigmoid_f(float x) {
 
 // The T steps of the rows of block `blk` (blockDim.x / L rows a block) of
 // one direction at width L >= d.H; an odd `dir` walks T-1 -> 0. wt: L * L
-// float4s of shared memory. R: the residuals' element type.
-template <int L, bool kResid, typename R = float>
+// float4s of shared memory. R: the residuals' element type. W: float, or
+// bfloat16 for a kernel built for bfloat16 compute, where `w_bf16` says
+// whether this direction's W_hh is bfloat16 (resid::weight, and the
+// product reads h_{t-1} rounded) or float32.
+template <int L, bool kResid, typename R = float, typename W = float>
 __device__ __forceinline__ void steps(const Dir& d, int blk, int dir, int T,
-                                      int B, float4* wt, Probe& probe) {
+                                      int B, float4* wt, Probe& probe,
+                                      bool w_bf16 = false) {
   constexpr int kRows = 32 / L;  // batch rows a warp
   const int H = d.H;
   const bool reverse = dir & 1;
+  const resid::Operand<W> op(w_bf16);  // h_{t-1} as the product reads it
   // wt[k * L + u]: (i, f, g, o) of unit u at column k, zeros past H
   for (int i = threadIdx.x; i < L * L; i += blockDim.x) {
     const int k = i / L;
     const int u = i % L;
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (k < H && u < H) {
-      v.x = d.w[static_cast<size_t>(u) * H + k];
-      v.y = d.w[static_cast<size_t>(H + u) * H + k];
-      v.z = d.w[static_cast<size_t>(2 * H + u) * H + k];
-      v.w = d.w[static_cast<size_t>(3 * H + u) * H + k];
+      v.x = resid::weight<W>(d.w, static_cast<size_t>(u) * H + k, w_bf16);
+      v.y = resid::weight<W>(d.w, static_cast<size_t>(H + u) * H + k, w_bf16);
+      v.z = resid::weight<W>(d.w, static_cast<size_t>(2 * H + u) * H + k,
+                             w_bf16);
+      v.w = resid::weight<W>(d.w, static_cast<size_t>(3 * H + u) * H + k,
+                             w_bf16);
     }
     wt[i] = v;
   }
@@ -167,10 +178,12 @@ __device__ __forceinline__ void steps(const Dir& d, int blk, int dir, int T,
     if (s + 1 < T) fetch(next, s + 1);
     probe.lap(3);
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    // the product's operand: h_{t-1}, rounded beside a bfloat16 W
+    const float h_op = op(h_st);
 #pragma unroll
     for (int k = 0; k < L; ++k) {
       // h_{t-1}[k], from the lane that owns it
-      const float hk = L == 1 ? h_st : __shfl_sync(0xffffffffu, h_st, k, L);
+      const float hk = L == 1 ? h_op : __shfl_sync(0xffffffffu, h_op, k, L);
       acc[0] = fmaf(hk, wr[k].x, acc[0]);
       acc[1] = fmaf(hk, wr[k].y, acc[1]);
       acc[2] = fmaf(hk, wr[k].z, acc[2]);

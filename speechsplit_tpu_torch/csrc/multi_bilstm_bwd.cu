@@ -1,5 +1,7 @@
 // N independent bidirectional LSTMs of mixed widths in one launch, the
-// gradient recurrence, float32 (g and c also bfloat16 in the lane plan).
+// gradient recurrence, float32 (g and c also bfloat16 in the lane plan,
+// and each direction's W_hh float32 or, with bfloat16 compute, bfloat16:
+// the product then reads d_pre rounded to bfloat16, csrc/lane_bwd.cuh).
 //
 // Replaces: speechsplit_tpu/ops/pallas_multilstm.py::_bwd_kernel (wrapper
 // _bwd_call), the TPU kernel that runs the gate-gradient recurrences of
@@ -80,6 +82,7 @@ struct LaneParams {
   int n_dirs;
   int T;
   int B;
+  int w_bf16[kMaxDirs];  // read only by a kernel built for bfloat16 W
 };
 
 #ifdef MULTI_BILSTM_BWD_PROBE
@@ -89,9 +92,18 @@ __device__ unsigned long long g_probe_laps[kMaxDirs * lane_bwd::kPhases];
 __device__ float g_probe_sink;
 #endif
 
-// R: the element type of g and c, float or bfloat16
-template <typename R = float>
-__global__ void __launch_bounds__(lane_bwd::kThreads)
+// R: the element type of g and c, float or bfloat16. W: float, every
+// W_hh float32; or bfloat16 (bfloat16 compute), each direction's W_hh of
+// the type p.w_bf16 names for it (the encoders' bfloat16 W and the
+// rhythm stream's float32 one share a launch, as in the forward), one
+// step body a width taking either type (lane_bwd::steps). A bfloat16-W
+// instance asks for one block a multiprocessor at least: left to itself
+// ptxas held the float32-residual one to 168 registers and it took 2.2x
+// the time it takes at 214 (PERF.md §6); a minimum of 0, the float32
+// instances', leaves their machine code as it was.
+template <typename R = float, typename W = float>
+__global__ void __launch_bounds__(lane_bwd::kThreads,
+                                  std::is_same<W, float>::value ? 0 : 1)
 multi_bilstm_bwd_lane_kernel(LaneParams p) {
   extern __shared__ float4 lane_smem[];
   // the block's direction: the last one whose range starts at or before
@@ -113,24 +125,37 @@ multi_bilstm_bwd_lane_kernel(LaneParams p) {
   const int blk = static_cast<int>(blockIdx.x) - first;
   const bool reverse = dir & 1;  // a backward direction
   lane_bwd::Probe probe;
+  bool w_bf16 = false;
+  if constexpr (!std::is_same<W, float>::value) {
+#pragma unroll
+    for (int i = 0; i < kMaxDirs; ++i) {
+      if (i == dir) w_bf16 = p.w_bf16[i] != 0;
+    }
+  }
   switch (L) {
     case 1:
-      lane_bwd::steps<1, R>(d, blk, reverse, p.T, p.B, lane_smem, probe);
+      lane_bwd::steps<1, R, W>(d, blk, reverse, p.T, p.B, lane_smem, probe,
+                               w_bf16);
       break;
     case 2:
-      lane_bwd::steps<2, R>(d, blk, reverse, p.T, p.B, lane_smem, probe);
+      lane_bwd::steps<2, R, W>(d, blk, reverse, p.T, p.B, lane_smem, probe,
+                               w_bf16);
       break;
     case 4:
-      lane_bwd::steps<4, R>(d, blk, reverse, p.T, p.B, lane_smem, probe);
+      lane_bwd::steps<4, R, W>(d, blk, reverse, p.T, p.B, lane_smem, probe,
+                               w_bf16);
       break;
     case 8:
-      lane_bwd::steps<8, R>(d, blk, reverse, p.T, p.B, lane_smem, probe);
+      lane_bwd::steps<8, R, W>(d, blk, reverse, p.T, p.B, lane_smem, probe,
+                               w_bf16);
       break;
     case 16:
-      lane_bwd::steps<16, R>(d, blk, reverse, p.T, p.B, lane_smem, probe);
+      lane_bwd::steps<16, R, W>(d, blk, reverse, p.T, p.B, lane_smem,
+                                probe, w_bf16);
       break;
     default:
-      lane_bwd::steps<32, R>(d, blk, reverse, p.T, p.B, lane_smem, probe);
+      lane_bwd::steps<32, R, W>(d, blk, reverse, p.T, p.B, lane_smem,
+                                probe, w_bf16);
   }
 #ifdef MULTI_BILSTM_BWD_PROBE
   probe.flush(g_probe_cycles + dir * lane_bwd::kPhases,
@@ -214,18 +239,22 @@ extern "C" {
 // dh, g, c, w, dx: n_dirs device pointers each; hs: n_dirs widths. g
 // and c float32, or with resid_bf16 bfloat16 (the lane plan only: a width
 // past lane_bwd::kLaneMaxH returns cudaErrorInvalidValue); dh and dx
-// float32. Returns a cudaError_t (0 on success). Does not synchronise.
+// float32. w_bf16: n_dirs flags, 1 where that direction's W_hh is
+// bfloat16 (the lane plan only), or null. Returns a cudaError_t (0 on
+// success). Does not synchronise.
 int multi_bilstm_bwd_launch(int n_dirs, const void* const* dh,
                             const void* const* g, const void* const* c,
                             const void* const* w, void* const* dx,
-                            int resid_bf16, const int* hs, int T, int B,
-                            int device, void* stream) {
+                            int resid_bf16, const int* hs, const int* w_bf16,
+                            int T, int B, int device, void* stream) {
   if (n_dirs < 1 || n_dirs > kMaxDirs || T < 1 || B < 1) {
     return cudaErrorInvalidValue;
   }
   Dir dirs[kMaxDirs] = {};
   int max_h = 0;
+  bool any_bf16 = false;
   for (int i = 0; i < n_dirs; ++i) {
+    any_bf16 = any_bf16 || (w_bf16 != nullptr && w_bf16[i] != 0);
     if (hs[i] < 1 || hs[i] > kMaxH) return cudaErrorInvalidValue;
     dirs[i] = Dir{static_cast<const float*>(dh[i]),
                   static_cast<const float*>(g[i]),
@@ -238,7 +267,7 @@ int multi_bilstm_bwd_launch(int n_dirs, const void* const* dh,
   if (err != cudaSuccess) return err;
   auto s = static_cast<cudaStream_t>(stream);
   if (max_h > lane_bwd::kLaneMaxH) {
-    if (resid_bf16) return cudaErrorInvalidValue;
+    if (resid_bf16 || any_bf16) return cudaErrorInvalidValue;
     Params p{};
     for (int i = 0; i < n_dirs; ++i) p.d[i] = dirs[i];
     p.T = T;
@@ -264,6 +293,7 @@ int multi_bilstm_bwd_launch(int n_dirs, const void* const* dh,
     const int rows = lane_bwd::kThreads / L;  // rows a block
     const Dir& d = dirs[i];
     p.d[i] = lane_bwd::Dir{d.dh, d.g, d.c, d.w, d.dx, d.H};
+    p.w_bf16[i] = w_bf16 != nullptr && w_bf16[i] != 0;
     p.L[i] = L;
     p.first[i] = blocks;
     blocks += (B + rows - 1) / rows;
@@ -273,8 +303,12 @@ int multi_bilstm_bwd_launch(int n_dirs, const void* const* dh,
   p.T = T;
   p.B = B;
   const size_t smem = sizeof(float4) * lane_bwd::smem_float4s(max_l);
-  auto kernel = resid_bf16 ? multi_bilstm_bwd_lane_kernel<resid::bf16>
-                          : multi_bilstm_bwd_lane_kernel<float>;
+  using resid::bf16;
+  auto kernel =
+      any_bf16 ? (resid_bf16 ? multi_bilstm_bwd_lane_kernel<bf16, bf16>
+                             : multi_bilstm_bwd_lane_kernel<float, bf16>)
+               : (resid_bf16 ? multi_bilstm_bwd_lane_kernel<bf16>
+                             : multi_bilstm_bwd_lane_kernel<float>);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));

@@ -1,6 +1,12 @@
 // N independent bidirectional LSTMs of mixed widths in one launch, float32
 // forward: the lean forward (h only) and the residual-saving forward of
-// training, one kernel body.
+// training, one kernel body. With bfloat16 compute (the lane plan only)
+// each direction's W_hh is float32 or bfloat16, as the launch's flags
+// say: the JAX model's _recurrent_dtype keeps the H=1 rhythm stream's W
+// float32 beside the bfloat16 W of the others, in one call. A bfloat16 W
+// is widened as it is staged and the product reads h_{t-1} rounded to
+// bfloat16 (csrc/lane_fwd.cuh); xp and h stay float32, as the JAX
+// multi-stream op keeps them.
 //
 // Replaces: speechsplit_tpu/ops/pallas_multilstm.py::_infer_kernel (wrapper
 // _infer), the TPU kernel that interleaves the 2N directions of the
@@ -90,7 +96,8 @@ struct Params {
 };
 
 // the lane plan's: direction i runs L[i] lanes a row on the blocks from
-// first[i]
+// first[i]; w_bf16[i]: its W_hh is bfloat16 (read only by a kernel built
+// for bfloat16 compute)
 struct LaneParams {
   Dir d[kMaxDirs];
   int L[kMaxDirs];
@@ -98,6 +105,7 @@ struct LaneParams {
   int n_dirs;
   int T;
   int B;
+  int w_bf16[kMaxDirs];
 };
 
 #ifdef MULTI_BILSTM_PROBE
@@ -112,8 +120,14 @@ __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// R: the residuals' element type (kResid), float or bfloat16
-template <bool kResid, typename R = float>
+// R: the residuals' element type (kResid), float or bfloat16. W: float,
+// every W_hh float32; or bfloat16 (bfloat16 compute), each direction's
+// W_hh of the type p.w_bf16 names for it, so that the encoders'
+// bfloat16 W (H >= 2) and the rhythm stream's float32 one (H = 1,
+// _recurrent_dtype) share a launch. One step body a width takes either
+// type (lane_fwd::steps): a block serves one direction, so its flag is
+// uniform across the block.
+template <bool kResid, typename R = float, typename W = float>
 __global__ void __launch_bounds__(kLaneThreads)
 multi_bilstm_lane_kernel(LaneParams p) {
   extern __shared__ float4 lane_smem[];
@@ -135,30 +149,37 @@ multi_bilstm_lane_kernel(LaneParams p) {
   }
   const int blk = static_cast<int>(blockIdx.x) - first;
   lane_fwd::Probe probe;
+  bool w_bf16 = false;
+  if constexpr (!std::is_same<W, float>::value) {
+#pragma unroll
+    for (int i = 0; i < kMaxDirs; ++i) {
+      if (i == dir) w_bf16 = p.w_bf16[i] != 0;
+    }
+  }
   switch (L) {
     case 1:
-      lane_fwd::steps<1, kResid, R>(d, blk, dir, p.T, p.B, lane_smem,
-                                    probe);
+      lane_fwd::steps<1, kResid, R, W>(d, blk, dir, p.T, p.B, lane_smem,
+                                       probe, w_bf16);
       break;
     case 2:
-      lane_fwd::steps<2, kResid, R>(d, blk, dir, p.T, p.B, lane_smem,
-                                    probe);
+      lane_fwd::steps<2, kResid, R, W>(d, blk, dir, p.T, p.B, lane_smem,
+                                       probe, w_bf16);
       break;
     case 4:
-      lane_fwd::steps<4, kResid, R>(d, blk, dir, p.T, p.B, lane_smem,
-                                    probe);
+      lane_fwd::steps<4, kResid, R, W>(d, blk, dir, p.T, p.B, lane_smem,
+                                       probe, w_bf16);
       break;
     case 8:
-      lane_fwd::steps<8, kResid, R>(d, blk, dir, p.T, p.B, lane_smem,
-                                    probe);
+      lane_fwd::steps<8, kResid, R, W>(d, blk, dir, p.T, p.B, lane_smem,
+                                       probe, w_bf16);
       break;
     case 16:
-      lane_fwd::steps<16, kResid, R>(d, blk, dir, p.T, p.B, lane_smem,
-                                     probe);
+      lane_fwd::steps<16, kResid, R, W>(d, blk, dir, p.T, p.B, lane_smem,
+                                        probe, w_bf16);
       break;
     default:
-      lane_fwd::steps<32, kResid, R>(d, blk, dir, p.T, p.B, lane_smem,
-                                     probe);
+      lane_fwd::steps<32, kResid, R, W>(d, blk, dir, p.T, p.B, lane_smem,
+                                        probe, w_bf16);
   }
 #ifdef MULTI_BILSTM_PROBE
   probe.flush(g_probe_cycles + dir * kPhases, g_probe_laps + dir * kPhases,
@@ -242,16 +263,19 @@ multi_bilstm_infer_kernel(Params p) {
   }
 }
 
-// R: the residuals' element type; bfloat16 runs the lane plan only
+// R: the residuals' element type; bfloat16 runs the lane plan only.
+// w_bf16: per direction, 1 where its W_hh is bfloat16 (bfloat16 compute;
+// the lane plan only), or null where every W_hh is float32.
 template <bool kResid, typename R = float>
 int dispatch(int n_dirs, const void* const* xp, const void* const* w,
              void* const* h, void* const* g, void* const* c, const int* hs,
-             int T, int B, int device, void* stream) {
+             const int* w_bf16, int T, int B, int device, void* stream) {
   if (n_dirs < 1 || n_dirs > kMaxDirs || T < 1 || B < 1) {
     return cudaErrorInvalidValue;
   }
   Dir dirs[kMaxDirs] = {};
   int max_h = 0;
+  bool any_bf16 = false;
   for (int i = 0; i < n_dirs; ++i) {
     if (hs[i] < 1 || hs[i] > kMaxH) return cudaErrorInvalidValue;
     dirs[i] = Dir{static_cast<const float*>(xp[i]),
@@ -259,11 +283,14 @@ int dispatch(int n_dirs, const void* const* xp, const void* const* w,
                   kResid ? static_cast<float*>(g[i]) : nullptr,
                   kResid ? static_cast<float*>(c[i]) : nullptr, hs[i]};
     if (hs[i] > max_h) max_h = hs[i];
+    any_bf16 = any_bf16 || (w_bf16 != nullptr && w_bf16[i] != 0);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (max_h > kLaneMaxH) {
-    if (!std::is_same<R, float>::value) return cudaErrorInvalidValue;
+    if (!std::is_same<R, float>::value || any_bf16) {
+      return cudaErrorInvalidValue;
+    }
     Params p{};
     for (int i = 0; i < n_dirs; ++i) p.d[i] = dirs[i];
     p.T = T;
@@ -292,6 +319,7 @@ int dispatch(int n_dirs, const void* const* xp, const void* const* w,
     p.d[i] = dirs[i];
     p.L[i] = L;
     p.first[i] = blocks;
+    p.w_bf16[i] = w_bf16 != nullptr && w_bf16[i] != 0;
     blocks += (B + rows - 1) / rows;
     if (L > max_l) max_l = L;
   }
@@ -299,12 +327,13 @@ int dispatch(int n_dirs, const void* const* xp, const void* const* w,
   p.T = T;
   p.B = B;
   const size_t smem = sizeof(float4) * max_l * max_l;
-  err = cudaFuncSetAttribute(multi_bilstm_lane_kernel<kResid, R>,
+  auto kernel = any_bf16 ? multi_bilstm_lane_kernel<kResid, R, resid::bf16>
+                         : multi_bilstm_lane_kernel<kResid, R>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  multi_bilstm_lane_kernel<kResid, R><<<blocks, kLaneThreads, smem,
-                                        static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, kLaneThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       p);
   return cudaGetLastError();
 }
@@ -313,29 +342,34 @@ int dispatch(int n_dirs, const void* const* xp, const void* const* w,
 
 extern "C" {
 
-// Lean forward. xp, w, h: n_dirs device pointers each; hs: n_dirs widths.
-// Returns a cudaError_t (0 on success). Does not synchronise.
+// Lean forward. xp, w, h: n_dirs device pointers each; hs: n_dirs widths;
+// w_bf16: n_dirs flags, 1 where that direction's W_hh is bfloat16 (the
+// lane plan only: with a width past kLaneMaxH, cudaErrorInvalidValue), or
+// null. xp and h are float32. Returns a cudaError_t (0 on success). Does
+// not synchronise.
 int multi_bilstm_infer_launch(int n_dirs, const void* const* xp,
                               const void* const* w, void* const* h,
-                              const int* hs, int T, int B, int device,
-                              void* stream) {
-  return dispatch<false>(n_dirs, xp, w, h, nullptr, nullptr, hs, T, B,
-                         device, stream);
+                              const int* hs, const int* w_bf16, int T, int B,
+                              int device, void* stream) {
+  return dispatch<false>(n_dirs, xp, w, h, nullptr, nullptr, hs, w_bf16, T,
+                         B, device, stream);
 }
 
 // Residual-saving forward: as above, and g [T, B, 4H_d], c [T, B, H_d]
 // per direction, in float32 or with resid_bf16 in bfloat16 (the lane plan
-// only: a width past kLaneMaxH returns cudaErrorInvalidValue).
+// only: a width past kLaneMaxH returns cudaErrorInvalidValue); w_bf16 as
+// above.
 int multi_bilstm_fwd_launch(int n_dirs, const void* const* xp,
                             const void* const* w, void* const* h,
                             void* const* g, void* const* c, int resid_bf16,
-                            const int* hs, int T, int B, int device,
-                            void* stream) {
+                            const int* hs, const int* w_bf16, int T, int B,
+                            int device, void* stream) {
   if (resid_bf16) {
-    return dispatch<true, resid::bf16>(n_dirs, xp, w, h, g, c, hs, T, B,
-                                       device, stream);
+    return dispatch<true, resid::bf16>(n_dirs, xp, w, h, g, c, hs, w_bf16,
+                                       T, B, device, stream);
   }
-  return dispatch<true>(n_dirs, xp, w, h, g, c, hs, T, B, device, stream);
+  return dispatch<true>(n_dirs, xp, w, h, g, c, hs, w_bf16, T, B, device,
+                        stream);
 }
 
 const char* multi_bilstm_error_string(int err) {

@@ -65,4 +65,67 @@ __device__ __forceinline__ float widen_loaded(unsigned bits) {
   return __uint_as_float(bits << 16);
 }
 
+// The operand of a product with a weight of element type W: v itself
+// beside a float weight; beside a bfloat16 one v rounded to bfloat16
+// (nearest even) and widened again, as pallas_lstm._cell rounds h_{t-1}
+// and _cell_bwd d_pre (``x.astype(w.dtype)``). The product's sum stays
+// float32.
+template <typename W>
+__device__ __forceinline__ float operand(float v) {
+  if constexpr (std::is_same<W, float>::value) {
+    return v;
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+}
+template <typename W>
+__device__ __forceinline__ float4 operand(float4 v) {
+  if constexpr (std::is_same<W, float>::value) {
+    return v;
+  } else {
+    return make_float4(operand<W>(v.x), operand<W>(v.y), operand<W>(v.z),
+                       operand<W>(v.w));
+  }
+}
+
+// For kernels that take W_hh of either type a direction (the multi-stream
+// lane kernels): `is_bf16` says whether this direction's W_hh is
+// bfloat16. A kernel built for float W reads float32 whatever the flag;
+// one built for bfloat16 W reads element i of either type, widened.
+template <typename W>
+__device__ __forceinline__ float weight(const float* w, size_t i,
+                                        bool is_bf16) {
+  if constexpr (std::is_same<W, float>::value) {
+    return w[i];
+  } else {
+    return is_bf16 ? widen(reinterpret_cast<const W*>(w)[i]) : w[i];
+  }
+}
+
+// The product's operand in those kernels, made once a direction: v
+// rounded as operand<W> rounds it beside a bfloat16 W_hh, v itself beside
+// a float32 one. It picks between the two by a bit mask set here, not by
+// a select on the flag in every step.
+template <typename W>
+struct Operand {
+  unsigned mask = 0;  // all ones: take the rounded value
+  __device__ __forceinline__ explicit Operand(bool is_bf16) {
+    if constexpr (!std::is_same<W, float>::value) {
+      mask = is_bf16 ? 0xffffffffu : 0u;
+    }
+  }
+  __device__ __forceinline__ float operator()(float v) const {
+    if constexpr (std::is_same<W, float>::value) {
+      return v;
+    } else {
+      return __uint_as_float((__float_as_uint(operand<W>(v)) & mask) |
+                             (__float_as_uint(v) & ~mask));
+    }
+  }
+  __device__ __forceinline__ float4 operator()(float4 v) const {
+    return make_float4((*this)(v.x), (*this)(v.y), (*this)(v.z),
+                       (*this)(v.w));
+  }
+};
+
 }  // namespace resid

@@ -25,7 +25,7 @@ class MelDecoder(nn.Module):
                          dtype=dtype,
                          residual_dtype=resolve_dtype(cfg.residual_dtype))
         self.linear_projection = Linear(2 * cfg.dim_dec_mel, cfg.dim_freq,
-                                        generator)
+                                        generator, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear_projection(self.lstm(x))
@@ -43,7 +43,7 @@ class F0Decoder(nn.Module):
                          cfg.dim_dec_f0, 2, generator, dtype=dtype,
                          residual_dtype=resolve_dtype(cfg.residual_dtype))
         self.linear_projection = Linear(2 * cfg.dim_dec_f0, cfg.dim_f0,
-                                        generator)
+                                        generator, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear_projection(self.lstm(x))

@@ -65,7 +65,7 @@ class RhythmEncoder(nn.Module):
         self.config = cfg
         self.convolutions = nn.ModuleList([
             conv_norm(cfg.dim_freq, cfg.dim_enc_2,
-                      cfg.dim_enc_2 // cfg.chs_grp, generator)
+                      cfg.dim_enc_2 // cfg.chs_grp, generator, dtype)
         ])
         self.lstm = LSTM(cfg.dim_enc_2, cfg.dim_neck_2, 1, generator,
                          dtype=dtype,
@@ -96,7 +96,7 @@ class F0Encoder(_DropsLenOrg):
         groups = cfg.dim_enc_3 // cfg.chs_grp
         self.convolutions = nn.ModuleList([
             conv_norm(cfg.dim_f0 if i == 0 else cfg.dim_enc_3, cfg.dim_enc_3,
-                      groups, generator)
+                      groups, generator, dtype)
             for i in range(3)
         ])
         self.lstm = LSTM(cfg.dim_enc_3, cfg.dim_neck_3, 1, generator,
@@ -130,12 +130,12 @@ class ContentPitchEncoder(_DropsLenOrg):
         self.config = cfg
         self.convolutions_1 = nn.ModuleList([
             conv_norm(cfg.dim_freq if i == 0 else cfg.dim_enc, cfg.dim_enc,
-                      cfg.dim_enc // cfg.chs_grp, generator)
+                      cfg.dim_enc // cfg.chs_grp, generator, dtype)
             for i in range(3)
         ])
         self.convolutions_2 = nn.ModuleList([
             conv_norm(cfg.dim_f0 if i == 0 else cfg.dim_enc_3, cfg.dim_enc_3,
-                      cfg.dim_enc_3 // cfg.chs_grp, generator)
+                      cfg.dim_enc_3 // cfg.chs_grp, generator, dtype)
             for i in range(3)
         ])
         self.lstm_1 = LSTM(cfg.dim_enc, cfg.dim_neck, 2, generator,

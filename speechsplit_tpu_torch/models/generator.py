@@ -18,7 +18,13 @@ conv pairs 0, 1, 2 (SpeechSplit), f0 convs 0, 1, 2 (F0Converter). Under
 autograd the recurrences run their training kernels (``ops.bilstm``),
 saving residuals in ``config.residual_dtype``, as the JAX generator
 threads it (generator.py:137, :218).
+
+``config.compute_dtype`` (float32 or bfloat16) is every layer's
+``dtype``. With bfloat16 the multi-stream call takes W_hh in bfloat16
+for the encoders' streams of H >= 2 and in float32 for the H=1 rhythm
+stream, in one launch, its xp float32 (the JAX ``streams`` mode).
 """
+
 
 from __future__ import annotations
 
@@ -37,13 +43,10 @@ from speechsplit_tpu_torch.ops import multi_bilstm
 
 
 def _model_dtype(config: SpeechSplitConfig) -> torch.dtype:
-    dtype = resolve_dtype(config.compute_dtype)
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            "the port runs compute_dtype=float32 only; bfloat16 compute is "
-            "queued in ROADMAP.md A4b"
-        )
-    return dtype
+    """``config.compute_dtype``, float32 or bfloat16, the dtype every
+    layer is built at (JAX builds its modules at it, train_step.py:77);
+    the parameters stay float32 either way."""
+    return resolve_dtype(config.compute_dtype)
 
 
 def _generator(generator):

@@ -15,6 +15,17 @@
 - The input projection ``x W_ih^T + b_ih + b_hh`` stays a matmul outside
   the kernels, as it stays outside the Pallas kernels in JAX, unless
   ``ops.bilstm.PROJ_FUSION = "auto"`` moves it into the kernel.
+- ``dtype`` (``config.compute_dtype``) is the JAX layers' field: the
+  parameters stay float32 and bfloat16 is a cast at each use. A
+  ``Linear`` (and an LSTM's projection) multiplies x and W rounded to
+  bfloat16 with a float32 sum, then adds the bias; a ``Conv1d`` rounds
+  x, W and its output to bfloat16, then adds the bias in float32 (JAX
+  layers.py:77-135); an LSTM's W_hh is bfloat16 from H = 2
+  (``_recurrent_dtype``). The rounded operands go through float32
+  products, which are exact for bfloat16 values (in TF32 too), so no
+  bfloat16 GEMM rounds a result JAX keeps in float32; the backward of
+  the casts rounds the weights' and inputs' gradients to bfloat16, as
+  JAX's transpose of its mixed products does.
 """
 
 from __future__ import annotations
@@ -28,6 +39,17 @@ from torch import nn
 from speechsplit_tpu_torch.ops import bilstm, lstm
 
 GAIN = {"linear": 1.0, "relu": math.sqrt(2.0), "tanh": 5.0 / 3.0}
+
+
+def _dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """``x W^T + b`` at compute ``dtype``: at bfloat16 JAX's
+    ``jnp.dot(x, W, preferred_element_type=float32) + b``, the product of
+    rounded operands summed in float32 and the bias added after it."""
+    if dtype == torch.float32:
+        return F.linear(x, weight, bias)
+    return F.linear(bilstm.operand(x, dtype),
+                    bilstm.operand(weight, dtype)) + bias
 
 
 def _uniform(shape, bound: float, generator: torch.Generator) -> nn.Parameter:
@@ -56,16 +78,19 @@ class Linear(nn.Module):
     """Dense layer on the last axis (ref LinearNorm, model.py:10-20)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 generator: torch.Generator, w_init_gain: str = "linear"):
+                 generator: torch.Generator, w_init_gain: str = "linear",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         weight = _xavier((out_features, in_features), in_features,
                          out_features, w_init_gain, generator)
         bias = _uniform((out_features,), 1.0 / math.sqrt(in_features),
                         generator)
         self.linear_layer = _Params(weight, bias)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.linear_layer.weight, self.linear_layer.bias)
+        return _dense(x, self.linear_layer.weight, self.linear_layer.bias,
+                      self.dtype)
 
 
 class Conv1d(nn.Module):
@@ -74,7 +99,8 @@ class Conv1d(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  generator: torch.Generator, kernel_size: int = 1,
-                 dilation: int = 1, w_init_gain: str = "linear"):
+                 dilation: int = 1, w_init_gain: str = "linear",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError("even kernels need explicit padding")
@@ -86,11 +112,19 @@ class Conv1d(nn.Module):
         self.conv = _Params(weight, bias)
         self.dilation = dilation
         self.padding = dilation * (kernel_size - 1) // 2
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv1d(x.transpose(1, 2), self.conv.weight, self.conv.bias,
+        if self.dtype == torch.float32:
+            y = F.conv1d(x.transpose(1, 2), self.conv.weight, self.conv.bias,
+                         padding=self.padding, dilation=self.dilation)
+            return y.transpose(1, 2)
+        # a bfloat16 conv emits bfloat16 and the bias goes on after the
+        # widening (JAX layers.py:124-135)
+        y = F.conv1d(bilstm.operand(x, self.dtype).transpose(1, 2),
+                     bilstm.operand(self.conv.weight, self.dtype), None,
                      padding=self.padding, dilation=self.dilation)
-        return y.transpose(1, 2)
+        return bilstm.operand(y.transpose(1, 2), self.dtype) + self.conv.bias
 
 
 class GroupNorm(nn.Module):
@@ -118,12 +152,14 @@ class GroupNorm(nn.Module):
 
 
 def conv_norm(in_channels: int, out_channels: int, groups: int,
-              generator: torch.Generator) -> nn.Sequential:
-    """Conv1d(k5, relu gain) + GroupNorm: one reference
-    ``convolutions[i]`` entry (``.0.conv`` and ``.1`` keys)."""
+              generator: torch.Generator,
+              dtype: torch.dtype = torch.float32) -> nn.Sequential:
+    """Conv1d(k5, relu gain) at compute ``dtype`` + GroupNorm (float32
+    throughout): one reference ``convolutions[i]`` entry (``.0.conv`` and
+    ``.1`` keys)."""
     return nn.Sequential(
         Conv1d(in_channels, out_channels, generator, kernel_size=5,
-               w_init_gain="relu"),
+               w_init_gain="relu", dtype=dtype),
         GroupNorm(groups, out_channels),
     )
 
@@ -160,7 +196,15 @@ class LSTM(nn.Module):
     eval and under ``no_grad`` nothing is saved and it changes nothing.
     The merged route runs it in every kernel; the fused projection and
     the single-direction route save float32 only, and raise under
-    autograd for bfloat16 (ROADMAP.md A4b).
+    autograd for bfloat16 (ROADMAP.md A4c).
+
+    ``dtype`` (``config.compute_dtype``): the projections follow
+    ``Linear``, W_hh is cast to ``_recurrent_dtype`` at each use, and on
+    the merged route the projected inputs are cast to
+    ``ops.bilstm.stream_dtype`` (bfloat16 where W_hh and the residuals
+    both are), as the JAX layer casts them. bfloat16 compute runs the
+    merged route (composed) and ``streams``; the fused projection and the
+    single-direction route raise for it (ROADMAP.md A4c).
     """
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int,
@@ -200,7 +244,10 @@ class LSTM(nn.Module):
         return getattr(self, f"weight_ih_{sfx}"), bias
 
     def _project(self, x: torch.Tensor, sfx: str) -> torch.Tensor:
-        return F.linear(x, *self._input_weights(sfx))
+        """``x W_ih^T + b`` at the layer's compute dtype (``Linear``'s
+        rounding), float32."""
+        return _dense(x, *self._input_weights(sfx), self.dtype)
+
 
     def _w_hh(self, sfx: str) -> torch.Tensor:
         w = getattr(self, f"weight_hh_{sfx}")
@@ -264,9 +311,10 @@ class LSTM(nn.Module):
                     x.contiguous(), wi_f, wi_b, b_f, b_b, w_f, w_b,
                     self.residual_dtype)
             else:
+                sd = bilstm.stream_dtype(w_f.dtype, self.residual_dtype)
                 h_f, h_b = bilstm.bilstm_sequence(
-                    F.linear(x, wi_f, b_f).contiguous(),
-                    F.linear(x, wi_b, b_b).contiguous(), w_f, w_b,
+                    self._project(x, sfx_f).to(sd).contiguous(),
+                    self._project(x, sfx_b).to(sd).contiguous(), w_f, w_b,
                     self.residual_dtype)
             x = torch.cat([h_f, h_b], dim=-1)
         return x.transpose(0, 1)

@@ -35,8 +35,16 @@ float32 or bfloat16 (the JAX default). With bfloat16 the gradient reads
 dh rounded to bfloat16 and writes dxp in bfloat16, its d_pre carry stays
 float32 (pallas_lstm.py:103, :163, :826); dW_hh rounds h and dxp to
 bfloat16 and sums in float32 (``_dw_contract``); dxp goes back to
-autograd in float32. h is float32 throughout. The fused op saves float32
-residuals only (bfloat16 raises, ROADMAP.md A4b).
+autograd in xp's dtype. h is float32 throughout.
+
+bfloat16 compute (the JAX ``compute_dtype="bfloat16"``): ``w_f``, ``w_b``
+in bfloat16. A step's product reads h_{t-1} rounded to bfloat16
+(``_cell``, pallas_lstm.py:591-594) and the gradient's reads d_pre
+rounded to bfloat16 (``_cell_bwd``, :825-828); the sums, gates, c and h
+stay float32. The xp streams are bfloat16 where the residuals are too
+(:func:`stream_dtype`), else float32; dW_hh is rounded to W's dtype
+(:542). The fused op runs float32 only and saves float32 residuals only:
+bfloat16 compute or residuals there raise (ROADMAP.md A4c).
 """
 
 from __future__ import annotations
@@ -59,7 +67,7 @@ MAX_HIDDEN = 512
 # default is bfloat16)
 RESIDUAL_DTYPES = (torch.float32, torch.bfloat16)
 # where the port refuses what the JAX package runs with bfloat16
-A4B = "queued in ROADMAP.md A4b"
+A4C = "queued in ROADMAP.md A4c"
 
 # "auto": a merged BiLSTM layer projects its input inside the kernel
 # wherever fused_proj_plan approves; "off": never. Off by default, as in
@@ -77,6 +85,24 @@ _BWD_VALS = _build.source_constant("bilstm_bwd", "kVals")
 _BWD_SMEM_FLOATS = _build.source_constant("bilstm_bwd", "kBwdSmemFloats")
 
 
+def _work_dtype(dtype) -> torch.dtype:
+    """The dtype the plain loops compute in beside a stream or weight of
+    ``dtype``: bfloat16 is widened to float32, other dtypes kept."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def operand(x, dtype):
+    """The operand of a product at compute ``dtype`` (W_hh's dtype in the
+    recurrences): x rounded to bfloat16 (JAX's ``x.astype(dtype)``: the
+    layers' products, pallas_lstm._cell's h and _cell_bwd's d_pre) and
+    widened again, so that the product is a float32 one of rounded values
+    (never a bfloat16 GEMM that rounds its result); x itself at any other
+    dtype."""
+    if dtype != torch.bfloat16:
+        return x
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
 def lstm_direction_forward_reference(xp, w, reverse: bool,
                                      residual_dtype=None):
     """Plain time loop of one direction (pallas_lstm._cell): xp
@@ -84,20 +110,25 @@ def lstm_direction_forward_reference(xp, w, reverse: bool,
     [T, B, H] and the residuals: the post-activation gates i, f, g, o
     [T, B, 4H] and c [T, B, H], stored in ``residual_dtype`` (bfloat16:
     rounded to nearest even as ``_bd_fwd``'s block writes round them;
-    None: xp's dtype); h and the c carry stay in xp's dtype."""
+    None: the working dtype); h and the c carry stay in the working
+    dtype, xp's (float32 for a bfloat16 xp). A bfloat16 w (bfloat16
+    compute) multiplies h_{t-1} rounded to bfloat16."""
     t_len, batch, four_h = xp.shape
-    h = xp.new_zeros(batch, four_h // 4)
+    work = _work_dtype(xp.dtype)
+    w_t = w.to(work).t()
+    h = xp.new_zeros(batch, four_h // 4, dtype=work)
     c = torch.zeros_like(h)
     hs, gs, cs = [None] * t_len, [None] * t_len, [None] * t_len
     for t in range(t_len - 1, -1, -1) if reverse else range(t_len):
-        i, f, g, o = (xp[t] + h @ w.t()).chunk(4, dim=-1)
+        i, f, g, o = (xp[t].to(work) + operand(h, w.dtype) @ w_t).chunk(
+            4, dim=-1)
         i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
                       torch.sigmoid(o))
         c = f * c + i * g
         h = o * torch.tanh(c)
         hs[t] = h
-        gs[t] = torch.cat([i, f, g, o], dim=-1).to(residual_dtype or xp.dtype)
-        cs[t] = c.to(residual_dtype or xp.dtype)
+        gs[t] = torch.cat([i, f, g, o], dim=-1).to(residual_dtype or work)
+        cs[t] = c.to(residual_dtype or work)
     return torch.stack(hs), torch.stack(gs), torch.stack(cs)
 
 
@@ -110,14 +141,17 @@ def lstm_direction_backward_reference(dh, g, c, w, reverse: bool,
     direction, 0 -> T-1 for a backward one) with the dh and dc carries
     from zero; c_prev is the cell state of the recurrence's previous
     step, zero at its first. dh, g and c may be bfloat16: each is widened
-    to w's dtype (float32) where it is read, as ``_cell_bwd`` widens them,
-    and the carries, d_pre among them (the next step's product reads it
-    unrounded), stay in w's dtype. Returns dx = d_pre [T, B, 4H], stored
-    in ``dx_dtype`` (default g's: the merged kernel's gradient stream
-    follows the residual dtype, pallas_lstm.py:103).
+    to the working dtype (w's; float32 for a bfloat16 w) where it is read,
+    as ``_cell_bwd`` widens them, and the carries, d_pre among them, stay
+    in it: beside a float32 w the next step's product reads d_pre
+    unrounded, beside a bfloat16 one (bfloat16 compute) rounded to
+    bfloat16. Returns dx = d_pre [T, B, 4H], stored in ``dx_dtype``
+    (default g's: the merged kernel's gradient stream follows the
+    residual dtype, pallas_lstm.py:103).
     """
     t_len, batch, hidden = dh.shape
-    work = w.dtype
+    work = _work_dtype(w.dtype)
+    w_work = w.to(work)
     dh_st = dh.new_zeros(batch, hidden, dtype=work)
     dc_st = torch.zeros_like(dh_st)
     zero = torch.zeros_like(dh_st)
@@ -137,7 +171,7 @@ def lstm_direction_backward_reference(dh, g, c, w, reverse: bool,
             d_o * o * (1.0 - o),
         ], dim=-1)
         dx[t] = d_pre.to(g.dtype if dx_dtype is None else dx_dtype)
-        dh_st = d_pre @ w
+        dh_st = operand(d_pre, w.dtype) @ w_work
         dc_st = dc * f
     return torch.stack(dx)
 
@@ -258,13 +292,29 @@ def fused_proj_plan(t: int, b: int, h: int, i: int, dtype) -> bool:
 
     "auto" is a parity switch: it stays off by default, and a plan that
     turns it on waits for the conversion measurements (PERF.md, ROADMAP
-    B)."""
+    B). The fused kernels run float32 W_hh only: under "auto" a layer
+    whose W_hh is bfloat16 (bfloat16 compute) raises rather than take
+    the composed route without a word (ROADMAP.md A4c)."""
     if PROJ_FUSION not in ("off", "auto"):
         raise ValueError(f"PROJ_FUSION must be 'off' or 'auto', got "
                          f"{PROJ_FUSION!r}")
-    return (PROJ_FUSION == "auto" and dtype == torch.float32 and t >= 1
+    if PROJ_FUSION == "auto" and dtype != torch.float32:
+        raise NotImplementedError(
+            f"PROJ_FUSION='auto' runs float32 W_hh only; the fused kernels "
+            f"at bfloat16 compute are {A4C}"
+        )
+    return (PROJ_FUSION == "auto" and t >= 1
             and i >= 1 and 1 <= h <= MAX_HIDDEN
             and 1 <= b <= MAX_FUSED_BATCH)
+
+
+def stream_dtype(w_dtype, residual_dtype) -> torch.dtype:
+    """The dtype of the xp streams a layer feeds the merged kernels:
+    bfloat16 where W_hh and the residuals both are, else float32
+    (``pallas_lstm.stream_dtype``, pallas_lstm.py:197-205)."""
+    if w_dtype == torch.bfloat16 and residual_dtype == torch.bfloat16:
+        return torch.bfloat16
+    return torch.float32
 
 
 def check_residual_dtype(dtype, what: str) -> None:
@@ -280,21 +330,50 @@ def refuse_bf16_residuals(dtype, what: str) -> None:
     if dtype != torch.float32:
         raise NotImplementedError(
             f"{what} saves float32 residuals only; bfloat16 residuals there "
-            f"are {A4B}"
+            f"are {A4C}"
         )
 
 
-def _check(xp_f, xp_b, w_f, w_b, float32=None) -> None:
-    """Types, layout and shapes of a merged kernel's [T, B, 4H] pair and
-    W_hh pair; ``float32`` the tensors that must be float32 (all four
-    by default: the gradient passes only W_hh, its g pair carrying the
-    residual dtype)."""
-    tensors = (xp_f, xp_b, w_f, w_b)
-    if any(x.dtype != torch.float32
-           for x in (tensors if float32 is None else float32)):
+def refuse_bf16_compute(tensors, what: str) -> None:
+    """``what`` runs float32 only: a bfloat16 tensor among ``tensors``
+    (bfloat16 compute) raises."""
+    if any(x.dtype == torch.bfloat16 for x in tensors):
         raise NotImplementedError(
-            "bilstm_sequence runs float32 only; bfloat16 compute is "
-            f"{A4B}"
+            f"{what} runs float32 only; bfloat16 compute there is {A4C}"
+        )
+
+
+def check_compute(xp_dtype, w_dtype, residual_dtype=None) -> None:
+    """The dtypes the merged forwards run: a float32 W_hh with float32 xp;
+    a bfloat16 W_hh (bfloat16 compute) with float32 or bfloat16 xp, and
+    under autograd (``residual_dtype`` given) with xp in the residuals'
+    dtype (:func:`stream_dtype`). Anything else raises: another dtype a
+    ValueError, a bfloat16 pair JAX never forms NotImplementedError."""
+    for name, dtype in (("xp", xp_dtype), ("w", w_dtype)):
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"bilstm_sequence: {name} must be float32 or "
+                             f"bfloat16, got {dtype}")
+    if w_dtype == torch.float32:
+        ok = xp_dtype == torch.float32
+    else:
+        ok = residual_dtype is None or xp_dtype == residual_dtype
+    if not ok:
+        raise NotImplementedError(
+            f"bilstm_sequence runs xp {xp_dtype} beside W_hh {w_dtype} "
+            f"(residuals {residual_dtype}) nowhere; the merged kernels take "
+            f"the JAX stream dtype (stream_dtype); other pairs are {A4C}"
+        )
+
+
+def _check(xp_f, xp_b, w_f, w_b) -> None:
+    """Layout and shapes of a merged kernel's [T, B, 4H] pair and W_hh
+    pair, each pair of one dtype (the dtypes themselves:
+    :func:`check_compute`)."""
+    tensors = (xp_f, xp_b, w_f, w_b)
+    if xp_f.dtype != xp_b.dtype or w_f.dtype != w_b.dtype:
+        raise ValueError(
+            f"bilstm_sequence takes each pair in one dtype, got "
+            f"{xp_f.dtype}/{xp_b.dtype} and {w_f.dtype}/{w_b.dtype}"
         )
     if any(not x.is_contiguous() for x in tensors):
         raise ValueError("bilstm_sequence needs contiguous tensors")
@@ -344,11 +423,9 @@ def _check_fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b) -> None:
     """The fused kernels' inputs: x [T, B, I], wi [4H, I], b [4H],
     w [4H, H], float32 and contiguous."""
     tensors = (x, wi_f, wi_b, b_f, b_b, w_f, w_b)
+    refuse_bf16_compute(tensors, "bilstm_sequence_fused")
     if any(t.dtype != torch.float32 for t in tensors):
-        raise NotImplementedError(
-            "bilstm_sequence_fused runs float32 only; bfloat16 compute is "
-            f"{A4B}"
-        )
+        raise ValueError("bilstm_sequence_fused takes float32 tensors")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("bilstm_sequence_fused needs contiguous tensors")
     if x.dim() != 3:
@@ -375,10 +452,10 @@ def _check_fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b) -> None:
 def _library():
     lib = _build.load("bilstm_infer")
     lib.bilstm_infer_launch.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.bilstm_infer_launch.restype = ctypes.c_int
     lib.bilstm_fwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p]
+        ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.bilstm_fwd_launch.restype = ctypes.c_int
     lib.bilstm_fused_infer_launch.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -394,7 +471,7 @@ def _library():
 def _bwd_library():
     lib = _build.load("bilstm_bwd")
     lib.bilstm_bwd_launch.argtypes = [ctypes.c_void_p] * 12 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.bilstm_bwd_launch.restype = ctypes.c_int
     lib.bilstm_bwd_error_string.argtypes = [ctypes.c_int]
     lib.bilstm_bwd_error_string.restype = ctypes.c_char_p
@@ -403,6 +480,10 @@ def _bwd_library():
 
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _bf16(x: torch.Tensor) -> int:
+    return int(x.dtype == torch.bfloat16)
 
 
 def _barrier_word(x: torch.Tensor, words: int = 1) -> torch.Tensor:
@@ -421,17 +502,18 @@ def bilstm_infer_cuda(xp_f, xp_b, w_f, w_b):
 def _bilstm_infer_plan(xp_f, xp_b, w_f, w_b, splits: int):
     """:func:`bilstm_infer_cuda` with ``splits`` warps a hidden unit: 0
     for the source's plan, or 1 or 2 forced, which only a measurement of
-    the plans asks for."""
+    the plans asks for. h is float32 at every compute dtype."""
     _check(xp_f, xp_b, w_f, w_b)
+    check_compute(xp_f.dtype, w_f.dtype)
     t_len, batch, four_h = xp_f.shape
-    h_f = xp_f.new_empty(t_len, batch, four_h // 4)
+    h_f = xp_f.new_empty(t_len, batch, four_h // 4, dtype=torch.float32)
     h_b = torch.empty_like(h_f)
     lib = _library()
     err = lib.bilstm_infer_launch(
         xp_f.data_ptr(), xp_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
         h_f.data_ptr(), h_b.data_ptr(), _barrier_word(xp_f, 2).data_ptr(),
-        t_len, batch, four_h // 4, splits, xp_f.device.index or 0,
-        _stream(xp_f),
+        t_len, batch, four_h // 4, splits, _bf16(w_f), _bf16(xp_f),
+        xp_f.device.index or 0, _stream(xp_f),
     )
     _build.check(err, "bilstm_infer", lib.bilstm_error_string)
     LAUNCHES["bilstm_infer"] += 1
@@ -444,8 +526,9 @@ def bilstm_forward_cuda(xp_f, xp_b, w_f, w_b, residual_dtype=torch.float32):
     kernel rounds them as it stores them; h stays float32)."""
     _check(xp_f, xp_b, w_f, w_b)
     check_residual_dtype(residual_dtype, "bilstm_fwd")
+    check_compute(xp_f.dtype, w_f.dtype, residual_dtype)
     t_len, batch, four_h = xp_f.shape
-    h_f = xp_f.new_empty(t_len, batch, four_h // 4)
+    h_f = xp_f.new_empty(t_len, batch, four_h // 4, dtype=torch.float32)
     h_b = torch.empty_like(h_f)
     c_f, c_b = (torch.empty_like(h_f, dtype=residual_dtype) for _ in range(2))
     g_f, g_b = (torch.empty_like(xp_f, dtype=residual_dtype) for _ in range(2))
@@ -455,7 +538,7 @@ def bilstm_forward_cuda(xp_f, xp_b, w_f, w_b, residual_dtype=torch.float32):
         h_f.data_ptr(), h_b.data_ptr(), g_f.data_ptr(), g_b.data_ptr(),
         c_f.data_ptr(), c_b.data_ptr(), _barrier_word(xp_f, 2).data_ptr(),
         t_len, batch, four_h // 4, 0, int(residual_dtype == torch.bfloat16),
-        xp_f.device.index or 0, _stream(xp_f),
+        _bf16(w_f), _bf16(xp_f), xp_f.device.index or 0, _stream(xp_f),
     )
     _build.check(err, "bilstm_fwd", lib.bilstm_error_string)
     LAUNCHES["bilstm_fwd"] += 1
@@ -466,8 +549,11 @@ def bilstm_backward_cuda(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f, w_b):
     """Launch ``csrc/bilstm_bwd.cu``: ``(dx_f, dx_b)`` in the residuals'
     dtype. With bfloat16 residuals the kernel carries d_pre from step to
     step in a float32 scratch of two steps a direction and stores dx
-    rounded beside it, so the carry stays unrounded (pallas_lstm.py:826)."""
-    _check(g_f, g_b, w_f, w_b, float32=(w_f, w_b))
+    rounded beside it, so the carry stays unrounded (pallas_lstm.py:826).
+    W_hh float32, or bfloat16 (bfloat16 compute: the product reads d_pre
+    rounded to bfloat16)."""
+    _check(g_f, g_b, w_f, w_b)
+    check_compute(torch.float32, w_f.dtype)
     _check_residuals(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f)
     t_len, batch, four_h = g_f.shape
     dx_f, dx_b = torch.empty_like(g_f), torch.empty_like(g_b)
@@ -482,7 +568,8 @@ def bilstm_backward_cuda(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f, w_b):
         c_f.data_ptr(), c_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
         dx_f.data_ptr(), dx_b.data_ptr(),
         carry.data_ptr() if bf16 else None, barrier.data_ptr(), t_len,
-        batch, four_h // 4, int(bf16), g_f.device.index or 0, _stream(g_f),
+        batch, four_h // 4, int(bf16), _bf16(w_f), g_f.device.index or 0,
+        _stream(g_f),
     )
     _build.check(err, "bilstm_bwd", lib.bilstm_bwd_error_string)
     LAUNCHES["bilstm_bwd"] += 1
@@ -550,37 +637,41 @@ def contract_dw(h, dx, residual_dtype=torch.float32):
     return dx.flatten(0, 1).t() @ h.flatten(0, 1)
 
 
-def dw_hh(h_f, h_b, dx_f, dx_b, residual_dtype=torch.float32):
+def dw_hh(h_f, h_b, dx_f, dx_b, residual_dtype=torch.float32,
+          w_dtype=torch.float32):
     """dW_hh of both directions as one matmul each, in torch's [4H, H]
     layout: sum over t, b of dx[t] h_prev[t]^T with the predecessor
     h[t-1] (forward) or h[t+1] (backward), over contiguous slices
     (``_bd_vjp_bwd``, pallas_lstm.py:981-982), the operands rounded to
-    ``residual_dtype`` (:func:`contract_dw`)."""
-    return (contract_dw(h_f[:-1], dx_f[1:], residual_dtype),
-            contract_dw(h_b[1:], dx_b[:-1], residual_dtype))
+    ``residual_dtype`` (:func:`contract_dw`), the sums rounded to W_hh's
+    ``w_dtype`` (``_dw_contract``'s ``.astype(w.dtype)``)."""
+    return (contract_dw(h_f[:-1], dx_f[1:], residual_dtype).to(w_dtype),
+            contract_dw(h_b[1:], dx_b[:-1], residual_dtype).to(w_dtype))
 
 
 def _recurrence_backward(dh_f, dh_b, h_f, h_b, g_f, g_b, c_f, c_b, w_f,
                          w_b):
     """The gradient recurrence (the kernel on CUDA, the plain loop on the
     CPU), then dW_hh: ``(dxp_f, dxp_b, dw_f, dw_b)``, dxp in the
-    residuals' dtype. The cotangents dh enter in the residuals' dtype, as
-    ``_bd_vjp_bwd`` rounds them (pallas_lstm.py:969-972)."""
+    residuals' dtype, dW in W's. The cotangents dh enter in the
+    residuals' dtype, as ``_bd_vjp_bwd`` rounds them
+    (pallas_lstm.py:969-972)."""
     # the cotangents of torch.cat halves are views (autograd gives an
     # unused output's cotangent as zeros)
     rd = g_f.dtype
     dh_f, dh_b = dh_f.to(rd).contiguous(), dh_b.to(rd).contiguous()
     run = bilstm_backward_cuda if g_f.is_cuda else bilstm_backward_reference
     dxp_f, dxp_b = run(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f, w_b)
-    return (dxp_f, dxp_b) + dw_hh(h_f, h_b, dxp_f, dxp_b, rd)
+    return (dxp_f, dxp_b) + dw_hh(h_f, h_b, dxp_f, dxp_b, rd, w_f.dtype)
 
 
 class BiLSTMFunction(torch.autograd.Function):
     """``bilstm_sequence`` under autograd: the residual-saving forward
     (residuals in ``residual_dtype``), and the gradient recurrence plus
-    ``dW_hh`` in the backward, dxp handed back in xp's dtype, float32
-    (pallas_lstm.py:987). CUDA tensors launch the kernels; CPU tensors
-    run the plain versions."""
+    ``dW_hh`` in the backward, dxp handed back in xp's dtype
+    (pallas_lstm.py:987: bfloat16 where the xp stream is) and dW_hh in
+    W's. CUDA tensors launch the kernels; CPU tensors run the plain
+    versions."""
 
     @staticmethod
     def forward(ctx, xp_f, xp_b, w_f, w_b, residual_dtype=torch.float32):
@@ -589,6 +680,7 @@ class BiLSTMFunction(torch.autograd.Function):
         else:
             outs = bilstm_forward_reference(xp_f, xp_b, w_f, w_b,
                                             residual_dtype)
+        ctx.xp_dtype = xp_f.dtype
         ctx.save_for_backward(*outs, w_f, w_b)
         return outs[:2]
 
@@ -597,7 +689,8 @@ class BiLSTMFunction(torch.autograd.Function):
     def backward(ctx, dh_f, dh_b):
         dxp_f, dxp_b, dw_f, dw_b = _recurrence_backward(
             dh_f, dh_b, *ctx.saved_tensors)
-        return dxp_f.float(), dxp_b.float(), dw_f, dw_b, None
+        return (dxp_f.to(ctx.xp_dtype), dxp_b.to(ctx.xp_dtype), dw_f, dw_b,
+                None)
 
 
 class BiLSTMFusedFunction(torch.autograd.Function):
@@ -647,11 +740,15 @@ def _recording(args) -> bool:
 def bilstm_sequence(xp_f, xp_b, w_f, w_b, residual_dtype=torch.float32):
     """Both BiLSTM directions of one layer; see the module docstring.
     Under autograd the residuals are saved in ``residual_dtype``
-    (``bilstm_sequence``'s argument of the same name in JAX)."""
+    (``bilstm_sequence``'s argument of the same name in JAX). The dtypes
+    are checked here, on either device (:func:`check_compute`)."""
     args = (xp_f, xp_b, w_f, w_b)
     device = _device("bilstm_sequence", args)
     check_residual_dtype(residual_dtype, "bilstm_sequence")
-    if _recording(args):
+    recording = _recording(args)
+    check_compute(xp_f.dtype, w_f.dtype,
+                  residual_dtype if recording else None)
+    if recording:
         return BiLSTMFunction.apply(*args, residual_dtype)
     if device == "cuda":
         return bilstm_infer_cuda(*args)
@@ -662,12 +759,14 @@ def bilstm_sequence_fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b,
                           residual_dtype=torch.float32):
     """One BiLSTM layer with its input projection inside the kernel
     (``pallas_lstm.bilstm_sequence_fused``); callers gate on
-    :func:`fused_proj_plan`. See the module docstring for layouts. Under
-    autograd it saves float32 residuals only: ``residual_dtype`` bfloat16
-    raises (ROADMAP.md A4b)."""
+    :func:`fused_proj_plan`. See the module docstring for layouts. It
+    runs float32 only, and under autograd it saves float32 residuals
+    only: bfloat16 tensors or ``residual_dtype`` bfloat16 raise
+    (ROADMAP.md A4c)."""
     args = (x, wi_f, wi_b, b_f, b_b, w_f, w_b)
     device = _device("bilstm_sequence_fused", args)
     check_residual_dtype(residual_dtype, "bilstm_sequence_fused")
+    refuse_bf16_compute(args, "bilstm_sequence_fused")
     if _recording(args):
         refuse_bf16_residuals(residual_dtype,
                               "bilstm_sequence_fused under autograd")
@@ -675,4 +774,3 @@ def bilstm_sequence_fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b,
     if device == "cuda":
         return bilstm_fused_infer_cuda(*args)
     return bilstm_sequence_fused_reference(*args)
-

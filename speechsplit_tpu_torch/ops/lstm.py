@@ -38,13 +38,14 @@ from torch.autograd.function import once_differentiable
 
 from speechsplit_tpu_torch.ops import _build
 from speechsplit_tpu_torch.ops.bilstm import (
-    A4B,
+    A4C,
     MAX_HIDDEN,
     _barrier_word,
     _device,
     _recording,
     _stream,
     check_residual_dtype,
+    refuse_bf16_compute,
     lstm_direction_backward_reference,
     lstm_direction_forward_reference,
     refuse_bf16_residuals,
@@ -74,7 +75,7 @@ def _check(xp, w, what: str, max_batch: int | None) -> None:
     for a kernel without a batch limit."""
     if xp.dtype != torch.float32 or w.dtype != torch.float32:
         raise NotImplementedError(
-            f"{what} runs float32 only; bfloat16 compute is {A4B}"
+            f"{what} runs float32 only; bfloat16 compute is {A4C}"
         )
     if not (xp.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"{what} needs contiguous tensors")
@@ -104,7 +105,7 @@ def _check_residuals(dh, g, c) -> None:
         if x.dtype != torch.float32:
             raise NotImplementedError(
                 f"lstm_bwd takes float32 {name}; bfloat16 residuals are "
-                f"{A4B}"
+                f"{A4C}"
             )
         if not x.is_contiguous() or tuple(x.shape) != hshape:
             raise ValueError(
@@ -238,11 +239,13 @@ class LSTMFunction(torch.autograd.Function):
 
 def lstm_sequence(xp, w, reverse: bool = False,
                   residual_dtype=torch.float32):
-    """One LSTM direction over ``xp``; see the module docstring. Under
-    autograd it saves float32 residuals only: ``residual_dtype`` bfloat16
-    raises (ROADMAP.md A4b)."""
+    """One LSTM direction over ``xp``; see the module docstring. It runs
+    float32 only (a bfloat16 ``xp`` or ``w``, bfloat16 compute, raises on
+    either device), and under autograd it saves float32 residuals only:
+    ``residual_dtype`` bfloat16 raises (ROADMAP.md A4c)."""
     _device("lstm_sequence", (xp, w))
     check_residual_dtype(residual_dtype, "lstm_sequence")
+    refuse_bf16_compute((xp, w), "lstm_sequence (the single-direction route)")
     if _recording((xp, w)):
         refuse_bf16_residuals(
             residual_dtype,

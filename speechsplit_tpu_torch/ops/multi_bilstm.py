@@ -22,7 +22,15 @@ in float32 and its dx leaves in float32 (unlike the merged op's streams,
 which follow the residual dtype); ``dW_hh`` rounds h and dx to the
 residual dtype (``_dw_contract``). bfloat16 residuals run on the lane
 plans (every width up to ``LANE_MAX_H``); a call with a wider direction
-(the block plans) raises under autograd (ROADMAP.md A4b).
+(the block plans) raises under autograd (ROADMAP.md A4c).
+
+bfloat16 compute, as the JAX model's ``streams`` mode feeds the op: each
+``w_*`` float32 or bfloat16 on its own (the encoders' W_hh of H >= 2 in
+bfloat16 beside the H=1 rhythm stream's float32 one, in one call), xp, h
+and dx float32. A direction with a bfloat16 W multiplies h_{t-1} and, in
+the gradient, d_pre rounded to bfloat16, and its dW_hh is rounded to
+bfloat16 (``_dw_contract``). The lane plans run it; a bfloat16 W in a
+call with a direction wider than ``LANE_MAX_H`` raises (ROADMAP.md A4c).
 
 Dispatch as in ``ops.bilstm``: under autograd (an input requires grad)
 :class:`MultiBiLSTMFunction` runs the residual-saving forward and, in
@@ -41,7 +49,7 @@ from torch.autograd.function import once_differentiable
 
 from speechsplit_tpu_torch.ops import _build
 from speechsplit_tpu_torch.ops.bilstm import (
-    A4B,
+    A4C,
     check_residual_dtype,
     contract_dw,
     lstm_direction_backward_reference,
@@ -99,19 +107,43 @@ def multi_bilstm_backward_reference(n: int, *args):
     )
 
 
+def compute_plan(xps, ws) -> None:
+    """The dtypes the multi-stream kernels run: xp float32 (the JAX
+    ``streams`` mode keeps it so), each W_hh float32 or bfloat16 on its
+    own (bfloat16 compute), a bfloat16 one on the lane plans only. Others
+    raise: a bfloat16 xp, or a bfloat16 W in a call with a direction
+    wider than ``LANE_MAX_H`` (the block plans), NotImplementedError
+    naming ROADMAP.md A4c; any other dtype ValueError."""
+    for w in ws:
+        if w.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"multi_bilstm_sequence: w must be float32 or "
+                             f"bfloat16, got {w.dtype}")
+    if any(xp.dtype == torch.bfloat16 for xp in xps):
+        raise NotImplementedError(
+            "multi_bilstm_sequence runs float32 xp only (the JAX op's "
+            f"streams are float32); bfloat16 ones are {A4C}"
+        )
+    widths = [w.shape[-1] for w in ws]
+    if max(widths) > LANE_MAX_H and any(w.dtype == torch.bfloat16
+                                        for w in ws):
+        raise NotImplementedError(
+            f"multi_bilstm_sequence: bfloat16 W_hh with a direction wider "
+            f"than {LANE_MAX_H} (the block plans, widths {tuple(widths)}) "
+            f"is {A4C}"
+        )
+
+
 def _check(n: int, xps, ws, xp_float32: bool = True) -> None:
     """Types, layout and shapes of the 2n [T, B, 4H] tensors and W_hh;
     ``xp_float32`` False for the gradient's g, in the residual dtype."""
     if not 1 <= 2 * n <= MAX_DIRECTIONS:
         raise ValueError(f"multi_bilstm_infer takes 1..4 streams, got {n}")
+    compute_plan(xps if xp_float32 else (), ws)
     shape = xps[0].shape
     for xp, w in zip(xps, ws):
-        if (xp_float32 and xp.dtype != torch.float32) or (
-                w.dtype != torch.float32):
-            raise NotImplementedError(
-                "multi_bilstm_sequence runs float32 only; bfloat16 compute "
-                f"is {A4B}"
-            )
+        if xp_float32 and xp.dtype != torch.float32:
+            raise ValueError(
+                f"multi_bilstm_sequence takes float32 xp, got {xp.dtype}")
         if not (xp.is_contiguous() and w.is_contiguous()):
             raise ValueError("multi_bilstm_sequence needs contiguous tensors")
         four_h = xp.shape[-1]
@@ -133,13 +165,13 @@ def _check(n: int, xps, ws, xp_float32: bool = True) -> None:
 
 def residual_plan(widths, residual_dtype, what: str) -> None:
     """bfloat16 residuals run on the lane plans only: a call with a
-    direction wider than ``LANE_MAX_H`` raises (ROADMAP.md A4b)."""
+    direction wider than ``LANE_MAX_H`` raises (ROADMAP.md A4c)."""
     check_residual_dtype(residual_dtype, what)
     if residual_dtype != torch.float32 and max(widths) > LANE_MAX_H:
         raise NotImplementedError(
             f"{what}: bfloat16 residuals with a direction wider than "
             f"{LANE_MAX_H} (the block plans, widths {tuple(widths)}) are "
-            f"{A4B}"
+            f"{A4C}"
         )
 
 
@@ -170,14 +202,14 @@ def _check_residuals(dhs, gs, cs) -> None:
 
 def _library():
     lib = _build.load("multi_bilstm_infer")
-    tail = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    # hs, w_bf16, T, B, device, stream
+    tail = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.multi_bilstm_infer_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 4 + tail)
+        [ctypes.c_int] + [ctypes.c_void_p] * 3 + tail)
     lib.multi_bilstm_infer_launch.restype = ctypes.c_int
     # n_dirs, xp, w, h, g, c, resid_bf16, hs, ...
     lib.multi_bilstm_fwd_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int,
-                                                  ctypes.c_void_p] + tail)
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] + tail)
     lib.multi_bilstm_fwd_launch.restype = ctypes.c_int
     lib.multi_bilstm_error_string.argtypes = [ctypes.c_int]
     lib.multi_bilstm_error_string.restype = ctypes.c_char_p
@@ -186,10 +218,10 @@ def _library():
 
 def _bwd_library():
     lib = _build.load("multi_bilstm_bwd")
-    # n_dirs, dh, g, c, w, dx, resid_bf16, hs, T, B, device, stream
+    # n_dirs, dh, g, c, w, dx, resid_bf16, hs, w_bf16, T, B, device, stream
     lib.multi_bilstm_bwd_launch.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int]
-        + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.multi_bilstm_bwd_launch.restype = ctypes.c_int
     lib.multi_bilstm_bwd_error_string.argtypes = [ctypes.c_int]
     lib.multi_bilstm_bwd_error_string.restype = ctypes.c_char_p
@@ -202,6 +234,12 @@ def _ptrs(tensors):
 
 def _widths(xps):
     return (ctypes.c_int * len(xps))(*(x.shape[-1] // 4 for x in xps))
+
+
+def _w_bf16(ws):
+    """The kernels' per-direction flags: 1 where W_hh is bfloat16."""
+    return (ctypes.c_int * len(ws))(*(int(w.dtype == torch.bfloat16)
+                                      for w in ws))
 
 
 def _new_h(xps):
@@ -218,8 +256,9 @@ def multi_bilstm_infer_cuda(n: int, *args):
     outs = _new_h(xps)
     lib = _library()
     err = lib.multi_bilstm_infer_launch(
-        2 * n, _ptrs(xps), _ptrs(ws), _ptrs(outs), _widths(xps), t_len,
-        batch, device.index or 0, torch.cuda.current_stream(device).cuda_stream,
+        2 * n, _ptrs(xps), _ptrs(ws), _ptrs(outs), _widths(xps), _w_bf16(ws),
+        t_len, batch, device.index or 0,
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "multi_bilstm_infer", lib.multi_bilstm_error_string)
     LAUNCHES["multi_bilstm_infer"] += 1
@@ -243,8 +282,8 @@ def multi_bilstm_forward_cuda(n: int, *args, residual_dtype=torch.float32):
     lib = _library()
     err = lib.multi_bilstm_fwd_launch(
         2 * n, _ptrs(xps), _ptrs(ws), _ptrs(hs), _ptrs(gs), _ptrs(cs),
-        int(residual_dtype == torch.bfloat16), _widths(xps), t_len, batch,
-        device.index or 0,
+        int(residual_dtype == torch.bfloat16), _widths(xps), _w_bf16(ws),
+        t_len, batch, device.index or 0,
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "multi_bilstm_fwd", lib.multi_bilstm_error_string)
@@ -268,8 +307,8 @@ def multi_bilstm_backward_cuda(n: int, *args):
     lib = _bwd_library()
     err = lib.multi_bilstm_bwd_launch(
         d2, _ptrs(dhs), _ptrs(gs), _ptrs(cs), _ptrs(ws), _ptrs(dxs),
-        int(gs[0].dtype == torch.bfloat16), _widths(gs), t_len, batch,
-        device.index or 0,
+        int(gs[0].dtype == torch.bfloat16), _widths(gs), _w_bf16(ws), t_len,
+        batch, device.index or 0,
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "multi_bilstm_bwd", lib.multi_bilstm_bwd_error_string)
@@ -277,13 +316,15 @@ def multi_bilstm_backward_cuda(n: int, *args):
     return dxs
 
 
-def _dw(h, dx, reverse: bool, residual_dtype=torch.float32):
+def _dw(h, dx, reverse: bool, residual_dtype=torch.float32,
+        w_dtype=torch.float32):
     """One direction's dW_hh [4H, H] over contiguous slices: the
     predecessor is h[t-1] forward and h[t+1] backward (``_vjp_bwd``,
     pallas_multilstm.py:420-434), the operands rounded to
-    ``residual_dtype`` (``_dw_contract``)."""
+    ``residual_dtype``, the sum to W_hh's ``w_dtype``
+    (``_dw_contract``)."""
     h_sl, dx_sl = (h[1:], dx[:-1]) if reverse else (h[:-1], dx[1:])
-    return contract_dw(h_sl, dx_sl, residual_dtype)
+    return contract_dw(h_sl, dx_sl, residual_dtype).to(w_dtype)
 
 
 class MultiBiLSTMFunction(torch.autograd.Function):
@@ -313,8 +354,8 @@ class MultiBiLSTMFunction(torch.autograd.Function):
         run = multi_bilstm_backward_cuda if gs[0].is_cuda else (
             multi_bilstm_backward_reference)
         dxs = run(n, *dhs, *gs, *cs, *ws)
-        dws = tuple(_dw(h, dx, bool(d % 2), gs[0].dtype)
-                    for d, (h, dx) in enumerate(zip(hs, dxs)))
+        dws = tuple(_dw(h, dx, bool(d % 2), gs[0].dtype, w.dtype)
+                    for d, (h, dx, w) in enumerate(zip(hs, dxs, ws)))
         return (None, None, *dxs, *dws)
 
 
@@ -324,6 +365,7 @@ def multi_bilstm_sequence(n: int, *args, residual_dtype=torch.float32):
     if devices not in ({"cuda"}, {"cpu"}):
         raise ValueError(f"multi_bilstm_sequence: tensors on {sorted(devices)}")
     check_residual_dtype(residual_dtype, "multi_bilstm_sequence")
+    compute_plan(*_split(n, args))
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
         residual_plan([x.shape[-1] // 4 for x in args[: 2 * n]],
                       residual_dtype, "multi_bilstm_sequence under autograd")

@@ -32,8 +32,12 @@ Precision, as the JAX step's (the defaults train as they stand):
 - ``matmul_precision``: JAX's precision names on a GPU, TF32 on or off
   for cuBLAS and cuDNN over the forward and the backward
   (:func:`matmul_precision`). The recurrence kernels take exact float32
-  FMAs under every setting.
-``compute_dtype="bfloat16"`` raises (ROADMAP.md A4b).
+  FMAs under every setting;
+- ``compute_dtype`` (default float32): the dtype the models are built
+  at. With bfloat16 the products' operands are rounded to bfloat16
+  (``models.layers``) and W_hh is bfloat16 in the recurrence kernels of
+  the default route (``ops.bilstm``, ``ops.multi_bilstm``); the
+  parameters, the Adam state and the loss stay float32.
 """
 
 from __future__ import annotations
@@ -108,18 +112,13 @@ def matmul_precision(name: str):
 
 
 def check_precision(config: SpeechSplitConfig) -> None:
-    """Refuse the precision settings the port does not run yet:
-    ``compute_dtype="bfloat16"`` (ROADMAP.md A4b) and learned speaker
-    embeddings (A5). Residuals, Adam mu and gradients run float32 or
-    bfloat16; ``matmul_precision`` must be one of JAX's names."""
+    """Refuse the settings the port does not run yet: learned speaker
+    embeddings (ROADMAP.md A5). Compute, residuals, Adam mu and
+    gradients run float32 or bfloat16 (other names raise ValueError);
+    ``matmul_precision`` must be one of JAX's names."""
     for name in ("residual_dtype", "adam_mu_dtype", "grad_dtype",
                  "compute_dtype"):
         resolve_dtype(getattr(config, name))  # float32 or bfloat16
-    if config.compute_dtype != "float32":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' (bfloat16 W_hh and streams) is queued "
-            "in ROADMAP.md A4b"
-        )
     _tf32(config.matmul_precision)
     if config.spk_emb_mode != "onehot":
         raise NotImplementedError(

@@ -218,7 +218,10 @@ def test_fused_proj_plan():
     assert not bilstm.fused_proj_plan(192, 16, 513, 1024, torch.float32)
     assert not bilstm.fused_proj_plan(
         192, bilstm.MAX_FUSED_BATCH + 1, 512, 1024, torch.float32)
-    assert not bilstm.fused_proj_plan(192, 16, 512, 1024, torch.bfloat16)
+    # a bfloat16 W_hh (bfloat16 compute) raises under "auto" rather than
+    # take the composed route without a word
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
+        bilstm.fused_proj_plan(192, 16, 512, 1024, torch.bfloat16)
     bilstm.PROJ_FUSION = "on"
     with pytest.raises(ValueError, match="PROJ_FUSION"):
         bilstm.fused_proj_plan(192, 16, 512, 1024, torch.float32)

@@ -87,11 +87,19 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_wrappers_refuse_bfloat16_on_cuda_path():
+    """The dtype checks the kernel wrappers make before a launch:
+    bfloat16 compute runs the pairs JAX forms (a bfloat16 W_hh beside
+    float32 or bfloat16 merged streams, float32 multi-stream ones) and
+    refuses the rest naming ROADMAP.md A4c."""
     xp = torch.zeros(4, 1, 32, dtype=torch.bfloat16)
     w = torch.zeros(32, 8, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="float32.*ROADMAP.md A4b"):
-        bilstm._check(xp, xp, w, w)
-    with pytest.raises(NotImplementedError, match="float32.*ROADMAP.md A4b"):
+    bilstm._check(xp, xp, w, w)
+    bilstm.check_compute(xp.dtype, w.dtype)
+    bilstm.check_compute(torch.float32, w.dtype, torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
+        bilstm.check_compute(xp.dtype, torch.float32)
+    multi_bilstm._check(1, (xp.float(), xp.float()), (w, w))
+    with pytest.raises(NotImplementedError, match="float32.*ROADMAP.md A4c"):
         multi_bilstm._check(1, (xp, xp), (w, w))
 
 

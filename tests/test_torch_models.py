@@ -143,7 +143,9 @@ def test_interop_rejects_unmapped_subtrees():
 
 def test_training_and_learned_mode_are_later_slices():
     """Train mode is ported and needs a generator for its resampling
-    draws; learned mode and bfloat16 compute are still queued."""
+    draws; learned mode is still queued; bfloat16 compute builds its
+    layers at bfloat16 with float32 parameters, and a dtype without a
+    JAX counterpart raises."""
     cfg = SpeechSplitConfig(**TINY)
     model = SpeechSplit(cfg, torch.Generator())
     x = torch.zeros(1, T, cfg.dim_freq + cfg.dim_f0)
@@ -155,5 +157,9 @@ def test_training_and_learned_mode_are_later_slices():
             x[..., : cfg.dim_freq], x[..., cfg.dim_freq :], train=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SpeechSplit(cfg.replace(spk_emb_mode="learned"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        F0Converter(cfg.replace(compute_dtype="bfloat16"))
+    b16 = F0Converter(cfg.replace(compute_dtype="bfloat16"))
+    assert b16.decoder.lstm.dtype == torch.bfloat16
+    assert b16.encoder_3.convolutions[0][0].dtype == torch.bfloat16
+    assert {p.dtype for p in b16.parameters()} == {torch.float32}
+    with pytest.raises(ValueError, match="dtype"):
+        F0Converter(cfg.replace(compute_dtype="float16"))

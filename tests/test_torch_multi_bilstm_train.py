@@ -170,7 +170,7 @@ def test_backward_wrapper_rejects_bad_arguments():
     with pytest.raises(ValueError, match="dh"):
         multi_bilstm._check_residuals((torch.zeros(4, 2, 7),), (g,), (c,))
     # g and c in one residual dtype, dh float32: mixed ones raise, and
-    # bfloat16 residuals on a block plan (a width past 32) are A4b's
+    # bfloat16 residuals on a block plan (a width past 32) are A4c's
     with pytest.raises(ValueError, match="one residual dtype"):
         multi_bilstm._check_residuals((c,), (g,), (c.bfloat16(),))
     with pytest.raises(ValueError, match="float32 dh"):
@@ -178,6 +178,6 @@ def test_backward_wrapper_rejects_bad_arguments():
                                       (c.bfloat16(),))
     multi_bilstm._check_residuals((c,), (g.bfloat16(),), (c.bfloat16(),))
     wide_g, wide_c = torch.zeros(4, 2, 132), torch.zeros(4, 2, 33)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
         multi_bilstm._check_residuals((wide_c,), (wide_g.bfloat16(),),
                                       (wide_c.bfloat16(),))

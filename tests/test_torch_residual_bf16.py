@@ -217,25 +217,25 @@ def test_multi_function_grads_match_jax_vjp_bf16():
 def test_bf16_residuals_where_the_port_saves_float32_raise():
     """The single-direction route, the fused forward and the multi-stream
     block plans save float32 residuals only: bfloat16 ones raise under
-    autograd, naming ROADMAP.md A4b (and run under no_grad, where nothing
+    autograd, naming ROADMAP.md A4c (and run under no_grad, where nothing
     is saved)."""
     rng = np.random.RandomState(3)
     xp = _t(rng.randn(4, 2, 32).astype(np.float32)).requires_grad_(True)
     w = _t(rng.randn(32, 8).astype(np.float32)).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
         lstm.lstm_sequence(xp, w, False, BF16)
     with torch.no_grad():
         lstm.lstm_sequence(xp, w, False, BF16)
     x = _t(rng.randn(4, 2, 5).astype(np.float32)).requires_grad_(True)
     wi = _t(rng.randn(32, 5).astype(np.float32))
     b = _t(rng.randn(32).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
         bilstm.bilstm_sequence_fused(x, wi, wi, b, b, w, w, BF16)
     with torch.no_grad():
         bilstm.bilstm_sequence_fused(x, wi, wi, b, b, w, w, BF16)
     wide = _t(rng.randn(4, 2, 4 * 33).astype(np.float32)).requires_grad_(True)
     w33 = _t(rng.randn(4 * 33, 33).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
         multi_bilstm.multi_bilstm_sequence(1, wide, wide, w33, w33,
                                            residual_dtype=BF16)
     with torch.no_grad():

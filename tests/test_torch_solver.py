@@ -381,13 +381,20 @@ def test_cli_refuses_unported_flags(tmp_path, flags):
         cli_train.main(_cli_args(tmp_path, tree, "--device", "cpu", *flags))
 
 
-def test_cli_refuses_the_default_bfloat16_config(tmp_path):
-    # the default config trains (tests/test_torch_precision.py); the
-    # bfloat16 setting still refused is compute_dtype
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4b"):
-        cli_train.main(["--device", "cpu", "--hparams",
-                        f"root_dir={tmp_path},feat_dir={tmp_path},"
-                        "compute_dtype=bfloat16"])
+def test_cli_refuses_the_default_bfloat16_config(tmp_path, monkeypatch):
+    # the default config trains (tests/test_torch_precision.py), and
+    # compute_dtype=bfloat16 too (tests/test_torch_compute_bf16_f0.py);
+    # what still refuses bfloat16 compute is the fused projection
+    # (PROJ_FUSION="auto"), naming ROADMAP.md A4c
+    from speechsplit_tpu_torch.ops import bilstm
+
+    tree = write_feature_tree(str(tmp_path / "feats"), 2, 1, seed=0)
+    args = _cli_args(tmp_path, tree, "--device", "cpu")
+    args[args.index("--hparams") + 1] += ",compute_dtype=bfloat16"
+    monkeypatch.setattr(bilstm, "PROJ_FUSION", "auto")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
+        cli_train.main(args)
+
 
 
 @pytest.mark.parametrize("override", [

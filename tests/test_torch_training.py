@@ -226,21 +226,22 @@ def test_adam_updates_match_optax():
 
 
 def test_unported_settings_and_missing_generator_raise(monkeypatch):
-    # bfloat16 residuals, Adam mu and gradients train; bfloat16 compute
-    # is what still raises
+    # bfloat16 residuals, Adam mu, gradients and compute train; a dtype
+    # without a JAX counterpart is what raises
     for override in (dict(residual_dtype="bfloat16"),
                      dict(adam_mu_dtype="bfloat16"),
-                     dict(grad_dtype="bfloat16")):
+                     dict(grad_dtype="bfloat16"),
+                     dict(compute_dtype="bfloat16")):
         ok = CFG.replace(**override)
         create_train_state(ok, 0, device="cpu")
         make_train_step(ok)
         make_optimizer(ok, [torch.nn.Parameter(torch.zeros(1))])
-    bad = CFG.replace(compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4b"):
+    bad = CFG.replace(compute_dtype="float16")
+    with pytest.raises(ValueError, match="dtype"):
         create_train_state(bad, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4b"):
+    with pytest.raises(ValueError, match="dtype"):
         make_train_step(bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4b"):
+    with pytest.raises(ValueError, match="dtype"):
         make_optimizer(bad, [torch.nn.Parameter(torch.zeros(1))])
     with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
         create_train_state(CFG.replace(spk_emb_mode="learned"), 0,
