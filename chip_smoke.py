@@ -207,7 +207,34 @@ Phases, one line each; any failure exits non-zero:
     batch the merged kernels refuse needs more memory than the card
     has): exact launch counts (no ``bilstm_*`` launch), against the
     plain step, 5 steps, and the median time per step beside the default
-    step's, timed in turns.
+    step's, timed in turns;
+15. learned speaker mode (``spk_emb_mode="learned"``, run after the
+    bfloat16-compute phases) and the shipped neural vocoder:
+    ``train learned``: the learned generator step at B16xT192 on a batch
+    of 4 speakers at float32 (TF32 off), at the default config, at
+    the default config with ``spk_contrast_weight=0.1`` and at bfloat16
+    compute: launches equal
+    to the one-hot step's, no plain call, the loss and every gradient
+    (the SpeakerEncoder's too) within 5e-4 (float32) or 2% of the plain
+    step, the contrastive term's value, ms a step in turns with the
+    one-hot step; ``train.cli learned``: ``cli.train --hparams
+    spk_emb_mode=learned``, 6 iterations, checkpoints loading strictly
+    into a learned model only, a resume (its loader started where the
+    uninterrupted run's was) whose state equals the checkpoint's and
+    whose last checkpoint equals the uninterrupted run's, bit for bit,
+    and ``Solver.validate()`` against the plain call; ``convert learned``: ``with_learned_embedding`` on both
+    utterances of 4 pairs and ``convert_batched``, embeddings and mels
+    against the plain calls (also at bfloat16 compute), ms a call in
+    turns with the one-hot call;
+    ``serve learned``: ``cli.serve`` handlers over a learned
+    ``VoiceConverter`` with ``load_vocoder("default",
+    refine_iters=48)`` and over the same models with Griffin-Lim, the
+    3 s and 8 s pairs with no embeddings passed, mels against the plain
+    call, a repeat equal, ms a request split into features, conversion
+    and vocoder, the two in turns, the card's busy share of one request;
+    the neural vocoder on the card against the port's vocoder on the
+    CPU for the same mels (the head's spectrum, and the PCM16 after 48
+    iterations: ``VOCODER_*``).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside the repo, it
@@ -2198,10 +2225,12 @@ def phase_lstm_fwd_probe(shapes=((TRAIN_B, 512), (TRAIN_B, 256),
     return splits
 
 
-def synthetic_batch(config, seed: int, batch: int = TRAIN_B):
+def synthetic_batch(config, seed: int, batch: int = TRAIN_B,
+                    speakers: int | None = None):
     """A ``Collator`` batch (B=16 by default) cut from as many seeded
     synthetic utterances (mel in [0, 1], a normalized log-F0 contour with
-    unvoiced frames, one-hot speakers)."""
+    unvoiced frames, one-hot speakers: row i is speaker i modulo
+    ``speakers``, every one of ``dim_spk_emb`` by default)."""
     import numpy as np
 
     from speechsplit_tpu_torch.data import Collator
@@ -2214,7 +2243,7 @@ def synthetic_batch(config, seed: int, batch: int = TRAIN_B):
         f0 = np.where(rng.random(length) < 0.2, 0.0,
                       rng.random(length)).astype(np.float32)
         emb = np.zeros(config.dim_spk_emb, np.float32)
-        emb[i % config.dim_spk_emb] = 1.0
+        emb[i % (speakers or config.dim_spk_emb)] = 1.0
         samples.append((mel, emb, f0))
     return Collator(config)(samples, rng)
 
@@ -5305,6 +5334,652 @@ def phase_serve_compute(reps: int = 3) -> None:
         del converters
 
 
+# learned speaker mode (``spk_emb_mode="learned"``) and the neural vocoder:
+# the learned train batch's speakers (row i is speaker i mod 4, so every
+# anchor of the contrastive term has positives), the contrastive weight
+# of the third learned config, and the shipped vocoder's refinement
+LEARNED_SPEAKERS = 4
+CONTRAST_WEIGHT = 0.1
+VOCODER_REFINE = 48
+# the neural vocoder on the card against the port's vocoder on the CPU
+# for the same mels (the front end's of the serving wavs). The head's
+# spectrum: max abs error over the largest magnitude. After 48
+# refinement iterations the two devices' float32 roundings are carried
+# forward and amplified: measured (NVIDIA H100 80GB HBM3, 700 W, PR 15)
+# up to 635 PCM16 codes apart on one mel (a few samples near a silent
+# gap) and within 10 on the three others, while what the iterations
+# pin, the output's mel, stays put. So the refined PCM16 is held by
+# its energy and its mel: the RMS of the samples' difference over the
+# RMS of the CPU's samples (measured at most 4.34e-3), the mean
+# absolute difference of the two outputs' mels in dB (at most 0.0266)
+# and the two outputs' distance from the target mel in dB, which must
+# agree (at most 0.0021 apart), over 8 mels in two runs; each bar about
+# four times the measured value. PERF.md section 2 states them.
+VOCODER_SPEC_TOL = 1e-4
+VOCODER_PCM16_RMS = 0.02
+VOCODER_MEL_DB = 0.1
+VOCODER_RESYNTH_DB = 0.01
+
+
+def learned(config):
+    """``config`` in learned speaker mode."""
+    return config.replace(spk_emb_mode="learned")
+
+
+def phase_train_learned(gen_per_step: dict, reps: int = 8) -> None:
+    """The learned-mode generator step at B16xT192 on a batch of 4
+    speakers, at four configs: float32 (TF32 off; the plain step is
+    autograd through the plain loops, ``STEP_TOL``), the default config,
+    the default config with ``spk_contrast_weight=0.1`` and the default
+    config at bfloat16 compute (the plain step: the Functions on their
+    plain versions, ``BF16_STEP_TOL``).
+    Each: its launches equal to the one-hot step's, no call of a plain
+    version, the loss and every gradient (the SpeakerEncoder's too) within
+    the bar of the plain step, the contrastive term's value (0 where the
+    weight is), whether a second step from the same start gives the same
+    gradients bit for bit (recorded), and the median ms a step in turns
+    with the one-hot step at the same config."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+    )
+    from speechsplit_tpu_torch.training.train_step import (
+        _speaker_conditioning,
+        _upcast_batch,
+    )
+
+    batch = synthetic_batch(SpeechSplitConfig(), SEED + 21,
+                            speakers=LEARNED_SPEAKERS)
+    cases = (
+        ("float32", float32_config(), STEP_TOL, plain_kernels,
+         lambda: strict_float32("train learned float32")),
+        ("default", SpeechSplitConfig(), BF16_STEP_TOL,
+         plain_training_kernels, contextlib.nullcontext),
+        ("default_contrast",
+         SpeechSplitConfig(spk_contrast_weight=CONTRAST_WEIGHT),
+         BF16_STEP_TOL, plain_training_kernels, contextlib.nullcontext),
+        ("bf16_compute", compute_config(), BF16_STEP_TOL,
+         plain_training_kernels, contextlib.nullcontext))
+    for label, onehot, tol, plain_ctx, scope in cases:
+        config = learned(onehot)
+        step = make_train_step(config)
+        with scope():
+            plain = create_train_state(config, SEED, "speechsplit")
+            reset_launches()
+            with plain_ctx():
+                plain, plain_loss = step(plain, batch)
+            if any(read_launches().values()):
+                fail(f"train learned {label}: the plain step launched a "
+                     "kernel")
+            plain_grads = grads_of(plain.model)
+            del plain
+            run = create_train_state(config, SEED, "speechsplit")
+            with torch.no_grad():
+                _, aux = _speaker_conditioning(
+                    config, run.model, _upcast_batch(batch, "cuda"))
+            term = 0.0 if aux is None else (
+                float(aux) / config.spk_contrast_weight)
+            torch.cuda.synchronize()
+            reset_launches()
+            with plain_calls() as called:
+                run, loss = step(run, batch)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            for kernel, count in launches.items():
+                if count != gen_per_step.get(kernel, 0):
+                    fail(f"train learned {label}: {kernel} launched "
+                         f"{count} times, the one-hot step "
+                         f"{gen_per_step.get(kernel, 0)}")
+            if called:
+                fail(f"train learned {label}: plain versions called: "
+                     f"{sorted(set(called))}")
+            grads = grads_of(run.model)
+            encoder = {k: g for k, g in grads.items()
+                       if k.startswith("speaker_encoder.")}
+            if len(encoder) != 14 or not all(
+                    float(g.abs().max()) > 0 for g in encoder.values()):
+                fail(f"train learned {label}: speaker encoder gradients "
+                     f"{sorted(encoder)}")
+            worst, key = grad_err(grads, plain_grads)
+            enc_worst, enc_key = grad_err(encoder, plain_grads)
+            loss_err = abs(float(loss) - float(plain_loss)) / abs(
+                float(plain_loss))
+            if not (loss_err <= tol and worst <= tol):
+                fail(f"train learned {label} vs the plain step: loss rel "
+                     f"err {loss_err}, grad rel err {worst} ({key}) > {tol}")
+            again = create_train_state(config, SEED, "speechsplit")
+            again, _ = step(again, batch)
+            repeat_equal = all(torch.equal(p.grad, grads[k]) for k, p in
+                               again.model.named_parameters())
+            del again
+            if label == "default_contrast" and not term > 0:
+                fail(f"train learned {label}: contrastive term {term}")
+            runs = {"learned": (run, step),
+                    "onehot": (create_train_state(onehot, SEED,
+                                                  "speechsplit"),
+                               make_train_step(onehot))}
+            samples = {k: [] for k in runs}
+            for r in range(reps):
+                for name in (("learned", "onehot") if r % 2 == 0
+                             else ("onehot", "learned")):
+                    state, fn = runs[name]
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    fn(state, batch)
+                    torch.cuda.synchronize()
+                    samples[name].append((time.perf_counter() - start) * 1e3)
+            del runs, run
+        ms = {k: float(np.median(v)) for k, v in samples.items()}
+        log("train learned", config=label,
+            batch=f"B{TRAIN_B}xT{T}", speakers=LEARNED_SPEAKERS,
+            spk_contrast_weight=config.spk_contrast_weight,
+            contrastive_term=f"{term:.6f}",
+            loss=f"{float(loss):.6f}", loss_rel_err_vs_plain=f"{loss_err:.3g}",
+            max_grad_rel_err_vs_plain=f"{worst:.3g}", worst_param=key,
+            speaker_encoder_max_grad_rel_err=f"{enc_worst:.3g}",
+            speaker_encoder_worst_param=enc_key, tol=tol,
+            repeat_step_grads_bit_equal=repeat_equal,
+            median_ms_per_step=f"{ms['learned']:.4f}",
+            onehot_median_ms_per_step=f"{ms['onehot']:.4f}",
+            rounds_ms=";".join(f"{k}:" + ",".join(f"{v:.4f}" for v in w)
+                               for k, w in samples.items()),
+            timing="learned and one-hot steps in turns", plain_calls=0,
+            launches=json.dumps({k: v for k, v in launches.items() if v})
+            .replace(" ", ""),
+            launches_equal_onehot_step=True)
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def loader_from(batch: int):
+    """``data.loader.data_loader`` starting at its ``batch``-th batch
+    while the block runs (``cli.train`` builds its loader through it), so
+    that a resumed run reads what the uninterrupted one read next."""
+    from speechsplit_tpu_torch.data import loader as loader_lib
+
+    saved = loader_lib.data_loader
+
+    def skipping(*args, **kwargs):
+        batches = saved(*args, **kwargs)
+        for _ in range(batch):
+            next(batches)
+        return batches
+
+    loader_lib.data_loader = skipping
+    try:
+        yield
+    finally:
+        loader_lib.data_loader = saved
+
+
+def phase_train_cli_learned(gen_per_step: dict) -> None:
+    """``cli.train --hparams spk_emb_mode=learned`` at the default config
+    otherwise: ``CLI_STEPS`` iterations with a checkpoint every
+    ``CLI_SAVE``, each step launching the one-hot step's kernels, finite
+    losses, each checkpoint loading strictly into a learned model and
+    refused by a one-hot one; a resume from step ``CLI_SAVE`` (its loader
+    started at the batch the uninterrupted run read next) whose state
+    before its first step (params, Adam moments, step, generator state)
+    equals the checkpoint's and whose last checkpoint and logged loss
+    equal the uninterrupted run's, bit for bit; then ``check_validate``
+    in learned mode (TF32 off, ``PATH_TOL``)."""
+    import shutil
+
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.interop import load_reference_checkpoint
+    from speechsplit_tpu_torch.models import SpeechSplit
+    from speechsplit_tpu_torch.training import checkpoint as ckpt_lib
+
+    config = SpeechSplitConfig()
+    hparams = "spk_emb_mode=learned"
+    with tempfile.TemporaryDirectory() as tmp:
+        root_dir, feat_dir = write_feature_tree(tmp, config, SEED + 9)
+        run = os.path.join(tmp, "run_G")
+        models = os.path.join(run, "models")
+
+        def args(save_dir, iters, *extra):
+            return [
+                "--num_iters", str(iters), "--model_save_dir", save_dir,
+                "--log_step", str(CLI_SAVE), "--model_save_step",
+                str(CLI_SAVE), "--sample_step", "1000",
+                "--log_dir", os.path.join(run, "logs"),
+                "--sample_dir", os.path.join(run, "samples"),
+                "--validation_path", os.path.join(tmp, "no_such.pkl"),
+                "--hparams",
+                f"root_dir={root_dir},feat_dir={feat_dir},{hparams}",
+                "--device", "cuda", *extra]
+
+        def ckpt(root, step):
+            return torch.load(ckpt_lib.checkpoint_path(root, step, "G"),
+                              map_location="cpu", weights_only=True)
+
+        losses, _, state = run_cli_train(args(models, CLI_STEPS), CLI_STEPS,
+                                         gen_per_step, "learned")
+        if not hasattr(state.model, "speaker_encoder"):
+            fail("train.cli learned: the model has no speaker encoder")
+        del state
+        for step in (CLI_SAVE, CLI_STEPS):
+            sd = load_reference_checkpoint(
+                ckpt_lib.checkpoint_path(models, step, "G"))
+            SpeechSplit(learned(config)).load_state_dict(sd, strict=True)
+            try:
+                SpeechSplit(config).load_state_dict(sd, strict=True)
+            except RuntimeError:
+                pass
+            else:
+                fail(f"train.cli learned: {step}-G.ckpt loaded into a "
+                     "one-hot model")
+        resumed = os.path.join(run, "resumed")
+        shutil.copytree(models, resumed)
+        os.remove(ckpt_lib.checkpoint_path(resumed, CLI_STEPS, "G"))
+        with loader_from(CLI_SAVE):
+            r_losses, r_record, _ = run_cli_train(
+                args(resumed, CLI_STEPS - CLI_SAVE, "--resume_iters",
+                     str(CLI_SAVE)),
+                CLI_STEPS - CLI_SAVE, gen_per_step, "learned resumed")
+        if not same_state(r_record["first"], ckpt(models, CLI_SAVE)):
+            fail(f"train.cli learned: the resumed state before its first "
+                 f"step differs from the run's {CLI_SAVE}-G.ckpt")
+        last = ckpt(resumed, CLI_STEPS)
+        last = dict(last, optimizer=last["optimizer"]["state"])
+        if not (same_state(last, ckpt(models, CLI_STEPS))
+                and r_losses == losses[1:]):
+            fail(f"train.cli learned: the resumed run ({r_losses}) differs "
+                 f"from the uninterrupted one ({losses[1:]}) at step "
+                 f"{CLI_STEPS}")
+        log("train.cli learned", steps=CLI_STEPS, hparams=hparams,
+            checkpoints=f"{CLI_SAVE}-G,{CLI_STEPS}-G strict into a learned "
+            "model, refused by a one-hot one",
+            resumed_from=f"{CLI_SAVE}-G state equal bit for bit",
+            resumed_run=f"{CLI_STEPS}-G and its loss equal to the "
+            "uninterrupted run's bit for bit",
+            losses=",".join(f"{v:.6f}" for v in losses),
+            resumed_losses=",".join(f"{v:.6f}" for v in r_losses),
+            launches_a_step=json.dumps(gen_per_step).replace(" ", ""))
+        shutil.rmtree(run)
+        with strict_float32("train.cli learned validate"):
+            check_validate(learned(config), tmp, PATH_TOL, " learned")
+
+
+def phase_convert_learned(reps: int = 10) -> None:
+    """Zero-shot conversion at full width: seeded learned-mode models,
+    ``with_learned_embedding`` on both utterances of 4 synthetic pairs,
+    then ``convert_batched`` (4 pairs x 7 conditions): the one-hot call's
+    launches, finite mels cut to their lengths, the embeddings (unit
+    norm) and the mels within ``PATH_TOL`` of the same calls on the plain
+    versions, ms a call (the 8 embeddings and the conversion) in turns
+    with the one-hot call of the same weights; TF32 off. Then the same
+    learned call at bfloat16 compute (the same weights): its launches,
+    its embeddings and the mels of the conditions on the source's F0
+    (R, U, RU) within ``COMPUTE_PATH_TOL`` of the largest magnitude of
+    its plain call's, and the converted F0 (the F0 converter's argmax)
+    in another bin on at most ``COMPUTE_FLIP_SHARE`` of its frames: a
+    rounding flip in a near-tie moves the argmax, and the conditions
+    with F then convert another contour (measured: 1 frame of 768, the F
+    conditions 0.065 of the largest magnitude apart, the others 0.002;
+    the error of each condition is logged)."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.convert import (
+        CONDITIONS,
+        _f0_onehot,
+        convert_batched,
+        with_learned_embedding,
+    )
+    from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+
+    onehot = SpeechSplitConfig()
+    config = learned(onehot)
+    models = {}
+    for label, cfg in (("learned", config), ("onehot", onehot)):
+        # the speaker encoder is built last: the shared weights are equal
+        gen = torch.Generator().manual_seed(SEED + 17)
+        models[label] = (SpeechSplit(cfg, generator=gen).to("cuda").eval(),
+                         F0Converter(cfg, generator=gen).to("cuda").eval())
+    pairs = synthetic_pairs(onehot, 4, "cuda", SEED)
+
+    def run():
+        g, p = models["learned"]
+        zero_shot = [(with_learned_embedding(config, g, s),
+                      with_learned_embedding(config, g, t))
+                     for s, t in pairs]
+        embs = torch.cat([u.spk_emb for pair in zero_shot for u in pair])
+        return embs, convert_batched(g, p, zero_shot, CONDITIONS)
+
+    with strict_float32("convert learned: the calls and their timing"):
+        run()
+        torch.cuda.synchronize()
+        reset_launches()
+        embs, result = run()
+        counts = {k: v for k, v in read_launches().items() if v}
+        if counts != {"bilstm_infer": 6, "multi_bilstm_infer": 2}:
+            fail(f"convert learned: launches {counts}")
+        check_conversions(config, pairs, result)
+        norms = torch.linalg.norm(embs, dim=-1)
+        if not (embs.shape == (8, config.dim_spk_emb)
+                and float((norms - 1).abs().max()) <= 1e-5):
+            fail(f"convert learned: embeddings {tuple(embs.shape)}, norms "
+                 f"{norms.tolist()}")
+        with plain_kernels():
+            plain_embs, plain = run()
+        emb_err = float((embs - plain_embs).abs().max())
+        err = max(float(np.abs(a[1] - b[1]).max())
+                  for ra, rb in zip(result, plain) for a, b in zip(ra, rb))
+        if not (emb_err <= PATH_TOL and err <= PATH_TOL):
+            fail(f"convert learned vs plain: embeddings {emb_err}, mels "
+                 f"{err} > {PATH_TOL}")
+        samples = {"learned": [], "onehot": []}
+        for r in range(reps):
+            for label in (("learned", "onehot") if r % 2 == 0
+                          else ("onehot", "learned")):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                if label == "learned":
+                    run()
+                else:
+                    convert_batched(*models["onehot"], pairs, CONDITIONS)
+                samples[label].append((time.perf_counter() - start) * 1e3)
+        g16 = SpeechSplit(learned(compute_config())).to("cuda").eval()
+        p16 = F0Converter(compute_config()).to("cuda").eval()
+        g16.load_state_dict(models["learned"][0].state_dict())
+        p16.load_state_dict(models["learned"][1].state_dict())
+
+        def run16():
+            zero_shot = [(with_learned_embedding(config, g16, s),
+                          with_learned_embedding(config, g16, t))
+                         for s, t in pairs]
+            return (torch.cat([u.spk_emb for pair in zero_shot
+                               for u in pair]),
+                    convert_batched(g16, p16, zero_shot, CONDITIONS))
+
+        def f0_ids():  # the converted contour's bins, as the call has them
+            return _f0_onehot(p16, torch.cat([s.mel for s, _ in pairs]),
+                              torch.cat([t.f0_onehot for _, t in pairs])
+                              ).argmax(dim=-1)
+
+        reset_launches()
+        embs16, result16 = run16()
+        counts16 = {k: v for k, v in read_launches().items() if v}
+        f0_16 = f0_ids()
+        with plain_kernels():
+            plain_embs16, plain16 = run16()
+            plain_f0_16 = f0_ids()
+        f0_flips = float((f0_16 != plain_f0_16).float().mean())
+        errs16 = {c: max(float(np.abs(ra[ci][1] - rb[ci][1]).max()) / max(
+            float(np.abs(rb[ci][1]).max()), 1e-30)
+            for ra, rb in zip(result16, plain16))
+            for ci, c in enumerate(CONDITIONS)}
+        # the source's F0 conditions at the mel bar; the converted F0 is
+        # an argmax, which a rounding flip in a near-tie moves a bin
+        err16 = max([float((embs16 - plain_embs16).abs().max())]
+                    + [e for c, e in errs16.items() if "F" not in c])
+        if not (counts16 == counts and err16 <= COMPUTE_PATH_TOL
+                and f0_flips <= COMPUTE_FLIP_SHARE):
+            fail(f"convert learned bf16 compute: launches {counts16}, "
+                 f"{errs16} of the largest magnitude from the plain call, "
+                 f"{f0_flips} of the converted F0 frames another bin")
+        del g16, p16
+    log("convert learned", pairs=4, conditions=len(CONDITIONS),
+        embeddings=8, generator_batch=28,
+        median_ms_per_call=f"{np.median(samples['learned']):.4f}",
+        onehot_median_ms_per_call=f"{np.median(samples['onehot']):.4f}",
+        timing="learned (8 embeddings and the conversion) and one-hot "
+        "calls in turns, TF32 off",
+        emb_max_abs_err_vs_plain=f"{emb_err:.3g}",
+        mel_max_abs_err_vs_plain=f"{err:.3g}", tol=PATH_TOL,
+        bf16_compute_max_err_over_max_vs_plain=f"{err16:.3g}",
+        bf16_compute_tol=COMPUTE_PATH_TOL,
+        bf16_compute_f0_bins_flipped=f"{f0_flips:.4g}",
+        bf16_compute_f0_flip_tol=COMPUTE_FLIP_SHARE,
+        bf16_compute_err_by_condition=",".join(
+            f"{c}:{e:.3g}" for c, e in errs16.items()),
+        launches=json.dumps(counts).replace(" ", ""))
+    del models
+
+
+def check_neural_vocoder(mels) -> dict:
+    """The shipped neural vocoder on the card against the port's vocoder
+    on the CPU for the same ``mels``: the head's spectrum within
+    ``VOCODER_SPEC_TOL`` of its largest magnitude; after
+    ``VOCODER_REFINE`` iterations each mel's PCM16 within
+    ``VOCODER_PCM16_RMS`` (the RMS of the difference over the CPU's),
+    the two outputs' mels within ``VOCODER_MEL_DB`` dB of each other on
+    average, and their distances from the target mel (dB) within
+    ``VOCODER_RESYNTH_DB``. Returns the measured values."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.ops.stft import mel_spectrogram
+    from speechsplit_tpu_torch.vocoder_neural import load_vocoder
+
+    t_max = -(-max(len(m) for m in mels) // 32) * 32
+    batch = np.zeros((len(mels), t_max, 80), np.float32)
+    for i, m in enumerate(mels):
+        batch[i, : len(m)] = m
+    spec = {dev: load_vocoder("default", device=dev).spectrum(
+        torch.from_numpy(batch)).cpu() for dev in ("cuda", "cpu")}
+    spec_err = float((spec["cuda"] - spec["cpu"]).abs().max()) / float(
+        spec["cpu"].abs().max())
+    pcm = {dev: load_vocoder("default", refine_iters=VOCODER_REFINE,
+                             device=dev).synthesize_batch(mels, pcm16=True)
+           for dev in ("cuda", "cpu")}
+
+    def mel_db(q):  # the normalized mel of a PCM16 wav, in dB (x 100)
+        return mel_spectrogram(torch.from_numpy(
+            q.astype(np.float32) / 32768.0)[None])[0] * 100.0
+
+    rows = []
+    for card, cpu, target in zip(pcm["cuda"], pcm["cpu"], mels):
+        diff = (card.astype(np.float64) - cpu).ravel()
+        m_card, m_cpu = mel_db(card), mel_db(cpu)
+        tgt = torch.from_numpy(target[: len(m_cpu)]) * 100.0
+        rows.append(dict(
+            codes=int(np.abs(diff).max()),
+            rms=float(np.sqrt(np.mean(diff ** 2) / np.mean(
+                cpu.astype(np.float64) ** 2))),
+            mel_db=float((m_card - m_cpu).abs().mean()),
+            resynth=abs(float((m_card[: len(tgt)] - tgt).abs().mean())
+                        - float((m_cpu[: len(tgt)] - tgt).abs().mean()))))
+    worst = {k: max(r[k] for r in rows) for k in rows[0]}
+    if not (spec_err <= VOCODER_SPEC_TOL
+            and worst["rms"] <= VOCODER_PCM16_RMS
+            and worst["mel_db"] <= VOCODER_MEL_DB
+            and worst["resynth"] <= VOCODER_RESYNTH_DB):
+        fail(f"neural vocoder card vs CPU: spectrum {spec_err} (tol "
+             f"{VOCODER_SPEC_TOL}), after {VOCODER_REFINE} iterations "
+             f"{worst}")
+    return dict(spec_max_abs_err_over_max=f"{spec_err:.3g}",
+                spec_tol=VOCODER_SPEC_TOL, refine_iters=VOCODER_REFINE,
+                pcm16_rms_rel=",".join(f"{r['rms']:.3g}" for r in rows),
+                pcm16_rms_tol=VOCODER_PCM16_RMS,
+                mel_mean_abs_db=",".join(f"{r['mel_db']:.4f}" for r in rows),
+                mel_db_tol=VOCODER_MEL_DB,
+                resynth_db_apart=",".join(f"{r['resynth']:.4f}"
+                                          for r in rows),
+                resynth_db_tol=VOCODER_RESYNTH_DB,
+                pcm16_max_codes=",".join(str(r["codes"]) for r in rows))
+
+
+def phase_serve_learned(reps: int = 3) -> None:
+    """Zero-shot serving with the shipped neural vocoder: a ``cli.serve``
+    handler over a learned-mode ``VoiceConverter`` (full-width seeded
+    models from ``.ckpt`` files, ``load_vocoder("default",
+    refine_iters=48)``) and, beside it, one over the same models with
+    Griffin-Lim. Three requests with no embeddings passed (the 3 s pair,
+    the 8 s pair through ``convert_long``, the 3 s pair again, whose mels
+    must equal the first's), each reply 200 with 7 wavs and 7 finite
+    mels, their launches; each pair's mels within ``PATH_TOL`` of the
+    same call under ``plain_kernels()``, its F0 equal; ms a request
+    split into features, conversion and vocoder, the two servers in
+    turns (median of ``reps`` after the warm-up); the card's busy share
+    of one request; ``check_neural_vocoder`` on the four wavs' mels;
+    TF32 off."""
+    import threading
+    from http.server import HTTPServer
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+    from torch.profiler import ProfilerActivity, profile
+
+    from speechsplit_tpu_torch.cli.serve import build_handler
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.data.prepare import read_wav
+    from speechsplit_tpu_torch.interop import save_reference_checkpoint
+    from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+    from speechsplit_tpu_torch.pipeline import VoiceConverter
+    from speechsplit_tpu_torch.vocoder_neural import load_vocoder
+
+    config = learned(SpeechSplitConfig())
+    gen = torch.Generator().manual_seed(SEED + 13)
+    with tempfile.TemporaryDirectory() as tmp:
+        g_path = os.path.join(tmp, "G.ckpt")
+        p_path = os.path.join(tmp, "P.ckpt")
+        save_reference_checkpoint(SpeechSplit(config, generator=gen), g_path)
+        save_reference_checkpoint(F0Converter(config, generator=gen), p_path)
+        converters = {
+            "neural": VoiceConverter.from_checkpoints(
+                g_path, p_path, config=config, device="cuda",
+                vocoder=load_vocoder(
+                    "default", hop=config.hop_length,
+                    sample_rate=config.sample_rate,
+                    refine_iters=VOCODER_REFINE, device="cuda")),
+            "griffin_lim": VoiceConverter.from_checkpoints(
+                g_path, p_path, config=config, device="cuda")}
+        pairs = {}
+        for name, seconds in (("short", SHORT_S), ("long", LONG_S)):
+            paths = []
+            for side, (f_a, f_b) in (("src", (105.0, 150.0)),
+                                     ("trg", (190.0, 260.0))):
+                path = os.path.join(tmp, f"{name}_{side}.wav")
+                wavfile.write(path, SAMPLE_RATE, synth_wav(
+                    seconds, f_a, f_b, SEED + len(paths) + int(seconds)))
+                paths.append(path)
+            pairs[name] = (paths[0], paths[1])
+        servers = {}
+        for label, conv in converters.items():
+            httpd = HTTPServer(("127.0.0.1", 0), build_handler(
+                conv, os.path.join(tmp, f"out_{label}")))
+            thread = threading.Thread(target=httpd.serve_forever,
+                                      daemon=True)
+            thread.start()
+            servers[label] = (httpd, thread,
+                              f"http://127.0.0.1:{httpd.server_port}")
+
+        def request(label, name, tag):
+            src, trg = pairs[name]
+            return check_reply(*post_convert(servers[label][2], {
+                "source_wav": src, "target_wav": trg,
+                "out_dir": os.path.join(tmp, f"o_{label}_{name}_{tag}")}),
+                f"learned {label} {name}")
+
+        conv = converters["neural"]
+        try:
+            with strict_float32("serve learned: the requests, the plain "
+                                "calls and the timing"):
+                for label in servers:
+                    request(label, "short", "warm")
+                torch.cuda.synchronize()
+                per_request, replies = [], []
+                for i, name in enumerate(("short", "long", "short")):
+                    before = read_launches()
+                    replies.append(request("neural", name, i))
+                    after = read_launches()
+                    per_request.append({k: after[k] - before[k] for k in (
+                        "viterbi_decode", "bilstm_infer",
+                        "multi_bilstm_infer", "lstm_infer")})
+                if per_request[0]["viterbi_decode"] != 2 or not all(
+                        r["bilstm_infer"] and r["multi_bilstm_infer"]
+                        for r in per_request):
+                    fail(f"serve learned: launches {per_request}")
+                repeat = max(float(np.abs(replies[0][c] - replies[2][c])
+                                   .max()) for c in replies[0])
+                if not repeat <= REPEAT_TOL:
+                    fail(f"serve learned: the repeated request's mels "
+                         f"differ by {repeat}")
+                errs = {}
+                for name, reply in (("short", replies[0]),
+                                    ("long", replies[1])):
+                    src, trg = pairs[name]
+                    f0 = conv.extract_features_full(read_wav(src), "M")[1]
+                    with plain_kernels():
+                        f0_plain = conv.extract_features_full(read_wav(src),
+                                                              "M")[1]
+                        plain = conv.convert_wav_files(src, trg,
+                                                       synthesize=False)
+                    if not np.array_equal(f0, f0_plain):
+                        fail(f"serve learned {name}: F0 differs from the "
+                             "plain call's")
+                    errs[name] = max(float(np.abs(reply[c] - plain[c]["mel"])
+                                           .max()) for c in reply)
+                    if not errs[name] <= PATH_TOL:
+                        fail(f"serve learned {name}: mels {errs[name]} from "
+                             "the plain call's")
+                timings = {}
+                for name in ("short", "long"):
+                    walls = {k: [] for k in servers}
+                    splits = {k: [] for k in servers}
+                    for r in range(reps):
+                        for label in (list(servers) if r % 2 == 0
+                                      else list(servers)[::-1]):
+                            start = time.perf_counter()
+                            request(label, name, f"t{r}")
+                            walls[label].append(
+                                (time.perf_counter() - start) * 1e3)
+                            splits[label].append(
+                                dict(converters[label].last_timings))
+                    for label in servers:
+                        row = {"ms_per_request": float(np.median(
+                            walls[label]))}
+                        for key in splits[label][0]:
+                            row[key] = float(np.median(
+                                [s[key] for s in splits[label]]))
+                        timings[(name, label)] = row
+                src, trg = pairs["short"]
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    start = time.perf_counter()
+                    conv.convert_wav_files(src, trg, pcm16=True)
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - start) * 1e3
+                mels = [conv.extract_features_full(read_wav(path), "M")[0]
+                        for n in ("short", "long") for path in pairs[n]]
+        finally:
+            for httpd, thread, _ in servers.values():
+                httpd.shutdown()
+                thread.join()
+        vocoder_check = check_neural_vocoder(mels)
+        for (name, label), row in timings.items():
+            log("serve learned", pair=name, vocoder=label,
+                seconds=SHORT_S if name == "short" else LONG_S,
+                **{k: f"{v:.4f}" for k, v in row.items()},
+                timing="the neural and Griffin-Lim servers in turns",
+                **({"launches": json.dumps(
+                    per_request[0 if name == "short" else 1]).replace(
+                        " ", ""),
+                    "max_abs_err_vs_plain": f"{errs[name]:.3g}",
+                    "tol": PATH_TOL} if label == "neural" else {}))
+        log("serve learned", requests=3, all_status=200,
+            embeddings="each wav's own mel", vocoder_refine=VOCODER_REFINE,
+            repeat_max_abs=f"{repeat:.3g}", tf32="off")
+        log("serve learned vocoder", mels=",".join(str(len(m))
+                                                   for m in mels),
+            card="cuda", against="the port's vocoder on the CPU",
+            **vocoder_check)
+        profile_events("serve learned profile", prof, wall_ms, top=10)
+        del converters, prof
+    torch.cuda.empty_cache()
+
+
 KERNELS = {
     "bilstm_infer": dict(
         route="cuda", source="speechsplit_tpu_torch/csrc/bilstm_infer.cu",
@@ -5801,6 +6476,10 @@ def main() -> int:
                             "bf16 compute", COMPUTE_PATH_TOL)
     compute_convert = phase_convert_compute()
     phase_serve_compute()
+    phase_train_learned(gen_per_step)
+    phase_train_cli_learned(gen_per_step)
+    phase_convert_learned()
+    phase_serve_learned()
     rows.update(phase_fused_kernels())
     fused_convert = phase_convert_fused()
     fused_gen, fused_f0 = phase_train_fused(batch)

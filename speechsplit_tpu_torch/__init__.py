@@ -17,10 +17,12 @@ the port to JAX.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
 serving (``pipeline.VoiceConverter``, ``cli.serve``), feature extraction
 (``preprocess.extract_features``), synthesis
-(``vocoder.GriffinLimVocoder``), conversion (``convert``,
-``cli.convert``) and training (``training.create_train_state``,
-``training.make_train_step``, ``training.make_f0_train_step``,
-``training.Solver``, ``cli.train``).
+(``vocoder.GriffinLimVocoder``, ``vocoder_neural.load_vocoder``),
+conversion (``convert``, ``cli.convert``) and training
+(``training.create_train_state``, ``training.make_train_step``,
+``training.make_f0_train_step``, ``training.Solver``, ``cli.train``).
+Each runs one-hot speaker embeddings or, with
+``spk_emb_mode="learned"``, the SpeakerEncoder's zero-shot ones.
 """
 
 from __future__ import annotations

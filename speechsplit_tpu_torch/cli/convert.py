@@ -5,14 +5,18 @@ files (the reference's own, or ones exported by the JAX package's
 ``cli.export_ckpt``), runs the requested conversion conditions between
 two utterances of a demo.pkl-style bundle in one batched call, and
 writes one mel ``.npy`` per condition and, with ``--synthesize``, one
-PCM16 wav through the Griffin-Lim vocoder (quantized on the device):
+PCM16 wav (quantized on the device) through the Griffin-Lim vocoder, or
+the neural one with ``--vocoder_ckpt`` (a packed ``.npz``, or
+``default`` for the shipped asset; ``--vocoder_refine`` iterations,
+default 48):
 
     python -m speechsplit_tpu_torch.cli.convert \\
         --generator_ckpt 660000-G.ckpt --f0_ckpt 640000-P.ckpt \\
         --metadata demo.pkl --out_dir results --synthesize
 
-Runs on ``cuda`` unless ``--device cpu`` is given. The neural vocoder
-(``--vocoder_ckpt``, ``--vocoder_refine``) waits in ROADMAP.md A7.
+Runs on ``cuda`` unless ``--device cpu`` is given. A learned-mode
+generator (``--hparams spk_emb_mode=learned``) takes both utterances'
+timbre codes from their own mels (``convert.with_learned_embedding``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,23 @@ import argparse
 import os
 
 import numpy as np
+
+
+def _vocoder(args, config, device):
+    """The neural vocoder ``--vocoder_ckpt`` names, else Griffin-Lim."""
+    if args.vocoder_ckpt:
+        from speechsplit_tpu_torch.vocoder_neural import load_vocoder
+
+        return load_vocoder(
+            args.vocoder_ckpt, hop=config.hop_length,
+            sample_rate=config.sample_rate, refine_iters=args.vocoder_refine,
+            device=device)
+    from speechsplit_tpu_torch.vocoder import GriffinLimVocoder
+
+    return GriffinLimVocoder(
+        sample_rate=config.sample_rate, n_fft=config.fft_length,
+        hop=config.hop_length, n_mels=config.dim_freq, fmin=config.mel_fmin,
+        fmax=config.mel_fmax, device=device)
 
 
 def main(argv=None) -> None:
@@ -40,12 +61,14 @@ def main(argv=None) -> None:
         help="comma-separated subset of the 7 conditions",
     )
     parser.add_argument("--synthesize", action="store_true",
-                        help="also write wavs (Griffin-Lim, PCM16)")
+                        help="also write wavs (PCM16)")
     parser.add_argument("--vocoder_ckpt", default="",
-                        help="a neural vocoder (ROADMAP.md A7: refused)")
-    parser.add_argument("--vocoder_refine", type=int, default=None,
-                        help="the neural vocoder's refinement iterations "
-                             "(ROADMAP.md A7: refused)")
+                        help="a neural vocoder: a packed .npz, or 'default' "
+                             "for the shipped assets/vocoder_istft_100k.npz; "
+                             "empty = Griffin-Lim")
+    parser.add_argument("--vocoder_refine", type=int, default=48,
+                        help="mel-consistency iterations on the neural "
+                             "vocoder's spectrum (0 = the head alone)")
     parser.add_argument(
         "--compress_results", action="store_true",
         help="fetch the result mels as bfloat16 (half the bytes; about "
@@ -62,14 +85,11 @@ def main(argv=None) -> None:
         convert_batched,
         load_demo_metadata,
         utterance_from_metadata,
+        with_learned_embedding,
     )
     from speechsplit_tpu_torch.interop import load_reference_checkpoint
     from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
 
-    for flag in ("vocoder_ckpt", "vocoder_refine"):
-        if getattr(args, flag) not in ("", None):
-            raise NotImplementedError(
-                f"--{flag}: the neural vocoder is queued in ROADMAP.md A7")
     conditions = args.conditions.split(",")
     unknown = sorted(set(conditions) - set(CONDITIONS))
     if unknown:
@@ -82,6 +102,8 @@ def main(argv=None) -> None:
             )
     device = resolve_device(args.device)
     config = SpeechSplitConfig().parse(args.hparams)
+    # the vocoder first: a checkpoint it cannot read fails before the work
+    vocoder = _vocoder(args, config, device) if args.synthesize else None
     g_model = SpeechSplit(config)
     g_model.load_state_dict(load_reference_checkpoint(args.generator_ckpt))
     p_model = F0Converter(config)
@@ -92,18 +114,16 @@ def main(argv=None) -> None:
     metadata = load_demo_metadata(args.metadata)
     src = utterance_from_metadata(config, metadata[args.source_index], device)
     trg = utterance_from_metadata(config, metadata[args.target_index], device)
+    # learned-mode checkpoints: zero-shot timbre targets from the
+    # utterances' own mels (a no-op for one-hot configs)
+    src = with_learned_embedding(config, g_model, src)
+    trg = with_learned_embedding(config, g_model, trg)
     results = convert_batched(g_model, p_model, [(src, trg)], conditions,
                               compress_fetch=args.compress_results)[0]
 
     os.makedirs(args.out_dir, exist_ok=True)
     wavs = None
-    if args.synthesize:
-        from speechsplit_tpu_torch.vocoder import GriffinLimVocoder
-
-        vocoder = GriffinLimVocoder(
-            sample_rate=config.sample_rate, n_fft=config.fft_length,
-            hop=config.hop_length, n_mels=config.dim_freq,
-            fmin=config.mel_fmin, fmax=config.mel_fmax, device=device)
+    if vocoder is not None:
         wavs = vocoder.synthesize_batch([mel for _, mel in results],
                                         pcm16=True)
     for i, (name, mel) in enumerate(results):

@@ -22,8 +22,12 @@ API (JSON over POST), the JAX server's:
   GET /health -> {"status": "ok", "device": "<card name>" or "cpu"}
 
 Single-threaded: one card, one stream of work. Runs on ``cuda`` unless
-``--device cpu`` is given. Griffin-Lim is the vocoder; the neural one
-(``--vocoder_ckpt``, ``--vocoder_refine``) waits in ROADMAP.md A7.
+``--device cpu`` is given. Griffin-Lim is the vocoder unless
+``--vocoder_ckpt`` names a neural one (a packed ``.npz``, or ``default``
+for the shipped ``assets/vocoder_istft_100k.npz``), refined by
+``--vocoder_refine`` mel-consistency iterations (default 48). A
+learned-mode generator (``--hparams spk_emb_mode=learned``) converts
+zero-shot: each wav's timbre target comes from its own mel.
 """
 
 from __future__ import annotations
@@ -134,26 +138,32 @@ def main(argv=None) -> None:
     parser.add_argument("--port", type=int, default=8571)
     parser.add_argument("--out_dir", default="results")
     parser.add_argument("--vocoder_ckpt", default="",
-                        help="a neural vocoder (ROADMAP.md A7: refused); "
+                        help="a neural vocoder: a packed .npz, or 'default' "
+                             "for the shipped assets/vocoder_istft_100k.npz; "
                              "empty = Griffin-Lim")
-    parser.add_argument("--vocoder_refine", type=int, default=None,
-                        help="the neural vocoder's refinement iterations "
-                             "(ROADMAP.md A7: refused)")
+    parser.add_argument("--vocoder_refine", type=int, default=48,
+                        help="mel-consistency iterations on the neural "
+                             "vocoder's spectrum (0 = the head alone)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda)")
     parser.add_argument("--hparams", default="", help="k=v,k=v overrides")
     args = parser.parse_args(argv)
-    for flag in ("vocoder_ckpt", "vocoder_refine"):
-        if getattr(args, flag) not in ("", None):
-            raise NotImplementedError(
-                f"--{flag}: the neural vocoder is queued in ROADMAP.md A7")
 
     from speechsplit_tpu_torch.config import SpeechSplitConfig
     from speechsplit_tpu_torch.pipeline import VoiceConverter
 
     config = SpeechSplitConfig().parse(args.hparams)
+    vocoder = None
+    if args.vocoder_ckpt:
+        from speechsplit_tpu_torch.vocoder_neural import load_vocoder
+
+        vocoder = load_vocoder(
+            args.vocoder_ckpt, hop=config.hop_length,
+            sample_rate=config.sample_rate, refine_iters=args.vocoder_refine,
+            device=args.device)
     converter = VoiceConverter.from_checkpoints(
-        args.generator_ckpt, args.f0_ckpt, config=config, device=args.device)
+        args.generator_ckpt, args.f0_ckpt, config=config, vocoder=vocoder,
+        device=args.device)
     server = HTTPServer((args.host, args.port),
                         build_handler(converter, args.out_dir))
     print(f"serving on http://{args.host}:{server.server_port} "

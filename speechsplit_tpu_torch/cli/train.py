@@ -12,7 +12,9 @@ TF32 matmuls and convolutions (``matmul_precision="default"``);
 ``--hparams`` sets any of them (``residual_dtype=float32,
 adam_mu_dtype=float32,matmul_precision=highest`` trains in float32
 throughout); ``compute_dtype=bfloat16`` trains at bfloat16 compute on
-the default route. Flags of
+the default route; ``spk_emb_mode=learned[,spk_contrast_weight=0.1]``
+trains the generator with a learned speaker encoder (zero-shot timbre
+codes). Flags of
 work still queued in ROADMAP.md raise naming it: ``--num_devices`` above 1 (A8),
 ``--steps_per_dispatch`` above 1, ``--data_on_device`` and
 ``--resident_dtype bfloat16`` (A3), and ``--wav_dir`` and ``--spk2gen``

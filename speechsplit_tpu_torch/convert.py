@@ -12,6 +12,10 @@ source and a target utterance:
 
 The converted F0 is the F0 converter's argmax over 257 bins, one-hot
 again, from the source mel under the target's pitch contour.
+
+A learned-mode generator (``spk_emb_mode="learned"``) takes its timbre
+codes from mels: :func:`with_learned_embedding` replaces an utterance's
+embedding by its own mel's, which makes conversion zero-shot.
 """
 
 from __future__ import annotations
@@ -72,6 +76,19 @@ def prepare_utterance(
         name=name,
         uid=uid,
     )
+
+
+@torch.inference_mode()
+def with_learned_embedding(config: SpeechSplitConfig, g_model: SpeechSplit,
+                           utt: Utterance) -> Utterance:
+    """The utterance with its speaker embedding replaced by its own padded
+    mel's (``g_model.embed_speaker``) when the generator was trained in
+    learned mode (JAX convert.py:78-103): its decoder expects
+    SpeakerEncoder embeddings, not the metadata's one-hots. A no-op in
+    one-hot mode, so callers may apply it unconditionally."""
+    if config.spk_emb_mode != "learned":
+        return utt
+    return utt._replace(spk_emb=g_model.embed_speaker(utt.mel))
 
 
 @torch.inference_mode()

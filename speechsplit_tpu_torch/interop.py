@@ -17,6 +17,20 @@ interop.py:60-103 module maps and :180-239 layout rules):
 - LSTM: ``w_ih_l{k}[I, 4H]`` etc.         -> ``weight_ih_l{k}[4H, I]``;
   both bias vectors are kept.
 
+A learned-mode generator (``spk_emb_mode="learned"``) also holds the
+JAX ``speaker_encoder`` subtree, which has no reference counterpart; it
+maps to keys of the port's own under ``speaker_encoder.``:
+
+- ``conv_{i}/kernel [5, in, out]``, ``conv_{i}/bias`` (i = 0, 1, 2) ->
+  ``speaker_encoder.conv_{i}.conv.weight [out, in, 5]``, ``.conv.bias``;
+- ``scale_{i}``, ``bias_{i}`` [C] -> ``speaker_encoder.scale_{i}``,
+  ``speaker_encoder.bias_{i}``;
+- ``proj/kernel [2C, E]``, ``proj/bias`` ->
+  ``speaker_encoder.proj.linear_layer.weight [E, 2C]``, ``.bias``.
+
+So a learned ``.ckpt`` holds those keys beside the reference's and loads
+strictly only into a learned-mode model; a one-hot tree maps as before.
+
 :func:`jax_adam_state_to_torch` carries optax's Adam moments the same
 way, so a JAX train state can go on training in the port.
 """
@@ -52,6 +66,25 @@ def _module_map_generator() -> Dict[str, tuple]:
     out["decoder.lstm"] = (["decoder", "lstm"], "lstm")
     out["decoder.linear_projection.linear_layer"] = (
         ["decoder", "projection"], "linear")
+    return out
+
+
+def _speaker_encoder_arrays(node: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX ``speaker_encoder`` subtree -> the port's
+    ``speaker_encoder.`` keys (the module docstring's table)."""
+    out = {}
+    for i in range(3):
+        conv = _node(node, [f"conv_{i}"])
+        out[f"speaker_encoder.conv_{i}.conv.weight"] = _array(
+            conv["kernel"]).transpose(2, 1, 0)
+        out[f"speaker_encoder.conv_{i}.conv.bias"] = _array(conv["bias"])
+        for name in (f"scale_{i}", f"bias_{i}"):
+            if name not in node:
+                raise ValueError(f"speaker_encoder params miss {name!r}")
+            out[f"speaker_encoder.{name}"] = _array(node[name])
+    proj = _node(node, ["proj"])
+    out["speaker_encoder.proj.linear_layer.weight"] = _array(proj["kernel"]).T
+    out["speaker_encoder.proj.linear_layer.bias"] = _array(proj["bias"])
     return out
 
 
@@ -141,8 +174,10 @@ def jax_params_to_state_dict(
 ) -> Dict[str, torch.Tensor]:
     """A flax params tree (numpy leaves) -> the port's state dict.
 
-    ``model`` is ``"speechsplit"`` or ``"f0_converter"``. Subtrees with
-    no reference counterpart (the learned-mode speaker encoder) raise.
+    ``model`` is ``"speechsplit"`` or ``"f0_converter"``. A generator's
+    ``speaker_encoder`` subtree (learned mode) maps to the port's
+    ``speaker_encoder.`` keys; any other subtree with no reference
+    counterpart raises.
     """
     params = params.get("params", params)
     if model not in _MODULE_MAPS:
@@ -163,6 +198,12 @@ def jax_params_to_state_dict(
             out[prefix + ".bias"] = _array(node["bias"])
         else:
             out.update(_lstm_arrays(node, prefix + "."))
+    if model == "speechsplit" and "speaker_encoder" in params:
+        out.update(_speaker_encoder_arrays(params["speaker_encoder"]))
+        consumed.update(("speaker_encoder", f"{name}_{i}")
+                        for name in ("conv", "scale", "bias")
+                        for i in range(3))
+        consumed.add(("speaker_encoder", "proj"))
     extra = {
         f"{top}/{name}"
         for top, sub in params.items()
@@ -213,7 +254,8 @@ def jax_adam_state_to_torch(
     ``opt_state`` holds ``count``, ``mu`` and ``nu`` (optax's
     ``ScaleByAdamState``, alone or inside ``optax.adam``'s chain state);
     ``mu`` and ``nu`` are trees shaped like the flax params of model
-    ``name`` (``"speechsplit"`` or ``"f0_converter"``), so they take the
+    ``name`` (``"speechsplit"`` or ``"f0_converter"``; a learned-mode
+    generator's with its ``speaker_encoder`` subtree), so they take the
     layout rules of :func:`jax_params_to_state_dict`. ``optimizer`` is an
     Adam over ``model``'s parameters (torch's, or the port's
     ``training.train_step.Adam``); each parameter's state becomes

@@ -5,6 +5,7 @@ from speechsplit_tpu_torch.models.encoders import (
     ContentPitchEncoder,
     F0Encoder,
     RhythmEncoder,
+    SpeakerEncoder,
 )
 from speechsplit_tpu_torch.models.decoders import F0Decoder, MelDecoder
 from speechsplit_tpu_torch.models.generator import F0Converter, SpeechSplit
@@ -17,6 +18,7 @@ __all__ = [
     "RhythmEncoder",
     "F0Encoder",
     "ContentPitchEncoder",
+    "SpeakerEncoder",
     "MelDecoder",
     "F0Decoder",
     "SpeechSplit",

@@ -13,7 +13,8 @@ aligned), with the full padded length as every row's length
 
 Submodule names follow the reference (Encoder_t model.py:46-89,
 Encoder_6 model.py:93-140, Encoder_7 model.py:144-229) so that its
-state-dict keys load unchanged.
+state-dict keys load unchanged. ``SpeakerEncoder`` (learned speaker
+mode) has no reference counterpart and keeps the JAX module's names.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from torch import nn
 from speechsplit_tpu_torch.config import SpeechSplitConfig, resolve_dtype
 from speechsplit_tpu_torch.models.layers import (
     LSTM,
+    Conv1d,
+    Linear,
     conv_norm,
     downsample_codes,
 )
@@ -168,3 +171,64 @@ class ContentPitchEncoder(_DropsLenOrg):
             downsample_codes(content, cfg.dim_neck, cfg.freq),
             downsample_codes(pitch, cfg.dim_neck_3, cfg.freq_3),
         )
+
+
+class SpeakerEncoder(nn.Module):
+    """Utterance -> unit-norm speaker embedding [B, dim_spk_emb] (JAX
+    encoders.py:273-355), the timbre code of ``spk_emb_mode="learned"``.
+
+    Three k5 convs at ``dim_spk_enc`` channels, each followed by group
+    statistics over the valid frames only (energy mask ``max(mel) > 0``
+    over the mel bins: the collator zeroes frames past a crop's length),
+    ``scale_i``/``bias_i``, a ReLU and the mask again; then float32 mean
+    and std pooling over the valid frames (std floored at sqrt(1e-8)), a
+    ``Linear`` and L2 normalization. The masked statistics make the
+    embedding exactly invariant to trailing zero padding, which
+    ``torch.nn.GroupNorm`` (over the whole padded window) would not be.
+    No recurrence: its work runs in stock PyTorch ops (cuDNN convs and
+    cuBLAS products). At bfloat16 ``dtype`` the convs and the
+    ``Linear`` round as ``models.layers`` does; the statistics stay
+    float32.
+    """
+
+    def __init__(self, config: SpeechSplitConfig, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        cfg = config
+        self.groups = cfg.dim_spk_enc // cfg.chs_grp
+        for i in range(3):
+            setattr(self, f"conv_{i}", Conv1d(
+                cfg.dim_freq if i == 0 else cfg.dim_spk_enc, cfg.dim_spk_enc,
+                generator, kernel_size=5, w_init_gain="relu", dtype=dtype))
+            setattr(self, f"scale_{i}",
+                    nn.Parameter(torch.ones(cfg.dim_spk_enc)))
+            setattr(self, f"bias_{i}",
+                    nn.Parameter(torch.zeros(cfg.dim_spk_enc)))
+        self.proj = Linear(2 * cfg.dim_spk_enc, cfg.dim_spk_emb, generator,
+                           dtype=dtype)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        mask = (mel.float().amax(dim=-1, keepdim=True) > 0.0).float()
+        frames = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
+        h = mel
+        for i in range(3):
+            h = getattr(self, f"conv_{i}")(h)
+            b, t, c = h.shape
+            hg = h.float().reshape(b, t, self.groups, -1)
+            m = mask[..., None]
+            denom = frames[..., None] * hg.shape[-1]
+            mean = (hg * m).sum(dim=(1, 3), keepdim=True) / denom
+            var = ((hg - mean).square() * m).sum(dim=(1, 3),
+                                                 keepdim=True) / denom
+            hg = (hg - mean) * torch.rsqrt(var + 1e-5) * m
+            h = F.relu((hg.reshape(b, t, c) * getattr(self, f"scale_{i}")
+                        + getattr(self, f"bias_{i}")) * mask)
+        h = h.float()
+        mean = (h * mask).sum(dim=1) / frames[:, 0]
+        var = ((h - mean[:, None, :]).square() * mask).sum(dim=1) / (
+            frames[:, 0])
+        stats = torch.cat([mean, torch.sqrt(torch.clamp(var, min=1e-8))],
+                          dim=-1)
+        emb = self.proj(stats).float()
+        return emb * torch.rsqrt(emb.square().sum(dim=-1, keepdim=True)
+                                 + 1e-8)

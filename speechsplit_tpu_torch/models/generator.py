@@ -19,6 +19,13 @@ autograd the recurrences run their training kernels (``ops.bilstm``),
 saving residuals in ``config.residual_dtype``, as the JAX generator
 threads it (generator.py:137, :218).
 
+``spk_emb_mode="learned"`` (JAX generator.py:72-111) adds a
+``speaker_encoder`` (``models.encoders.SpeakerEncoder``, built after the
+other submodules so a one-hot model's keys and seeded weights stay as
+they were): ``embed_speaker(mel)`` gives the timbre code of any
+utterance, and a rank-3 ``c_trg`` (a mel [B, T, 80]) goes through it
+inside the forward.
+
 ``config.compute_dtype`` (float32 or bfloat16) is every layer's
 ``dtype``. With bfloat16 the multi-stream call takes W_hh in bfloat16
 for the encoders' streams of H >= 2 and in float32 for the H=1 rhythm
@@ -37,6 +44,7 @@ from speechsplit_tpu_torch.models.encoders import (
     ContentPitchEncoder,
     F0Encoder,
     RhythmEncoder,
+    SpeakerEncoder,
 )
 from speechsplit_tpu_torch.models.layers import combine_bidir, upsample_codes
 from speechsplit_tpu_torch.ops import multi_bilstm
@@ -58,7 +66,8 @@ class SpeechSplit(nn.Module):
 
     Inputs (``[B, T, .]``): ``x_f0`` mel ++ one-hot F0 [B, T, 80+257],
     ``x_org`` un-augmented mel [B, T, 80], ``c_trg`` speaker embedding
-    [B, 82]. Returns the converted mel [B, T, 80]. T must be a multiple
+    [B, 82], or in learned mode a mel [B, T', 80] to embed. Returns the
+    converted mel [B, T, 80]. T must be a multiple
     of every ``freq`` so the code streams line up; in train mode T must
     be ``max_len_pad``, the length the resampling pads to.
     """
@@ -66,27 +75,36 @@ class SpeechSplit(nn.Module):
     def __init__(self, config: SpeechSplitConfig,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if config.spk_emb_mode != "onehot":
-            raise NotImplementedError(
-                "spk_emb_mode='learned' (SpeakerEncoder) is queued in "
-                "ROADMAP.md A5"
-            )
+        if config.spk_emb_mode not in ("onehot", "learned"):
+            raise ValueError(f"spk_emb_mode must be 'onehot' or 'learned', "
+                             f"got {config.spk_emb_mode!r}")
         gen = _generator(generator)
         dtype = _model_dtype(config)
         self.config = config
         self.encoder_1 = ContentPitchEncoder(config, gen, dtype)
         self.encoder_2 = RhythmEncoder(config, gen, dtype)
         self.decoder = MelDecoder(config, gen, dtype)
+        if config.spk_emb_mode == "learned":
+            self.speaker_encoder = SpeakerEncoder(config, gen, dtype)
+
+    def embed_speaker(self, mel: torch.Tensor) -> torch.Tensor:
+        """An utterance's mel [B, T, 80] (zero past its length) -> its
+        unit-norm speaker embedding [B, dim_spk_emb] (learned mode)."""
+        if self.config.spk_emb_mode != "learned":
+            raise ValueError("embed_speaker needs spk_emb_mode='learned'")
+        return self.speaker_encoder(mel)
 
     def forward(self, x_f0: torch.Tensor, x_org: torch.Tensor,
                 c_trg: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        if c_trg.dim() != 2:
-            raise NotImplementedError(
-                "a mel-valued c_trg needs spk_emb_mode='learned', queued in "
-                "ROADMAP.md A5"
-            )
         cfg = self.config
+        if c_trg.dim() == 3:
+            # a mel to take the timbre from (training passes the batch's
+            # own mel, conversion the target's utterance)
+            if cfg.spk_emb_mode != "learned":
+                raise ValueError(
+                    "mel-valued c_trg requires spk_emb_mode='learned'")
+            c_trg = self.speaker_encoder(c_trg)
         enc_cp, enc_r = self.encoder_1, self.encoder_2
         xc, xp = enc_cp.pre(x_f0, train=train, generator=generator)
         xr = enc_r.pre(x_org)

@@ -10,15 +10,19 @@ One object holds the two models, the feature front end and the vocoder:
 A request runs feature extraction on the card (``preprocess``: STFT,
 mel, the NCCF pitch tracker with its Viterbi kernel), ``convert_batched``
 (``convert_long`` past ``max_len_pad`` frames) and Griffin-Lim
-synthesis, quantized to PCM16 on the card when asked. Everything runs on
-``cuda`` unless ``device="cpu"`` is given.
+synthesis (or the neural vocoder, ``vocoder_neural.load_vocoder``),
+quantized to PCM16 on the card when asked. Everything runs on ``cuda``
+unless ``device="cpu"`` is given.
 
 The dither draws of each extraction come from a CPU ``torch.Generator``
 reseeded from ``seed`` on every call (or from ``dither_draws``, a
 function of the padded batch's shape that tests use to inject JAX's
 draws), and the vocoder reseeds its own: the same input gives the same
-output, as JAX's fixed key does (pipeline.py:113-125). Learned speaker
-embeddings (``spk_emb_mode="learned"``) wait in ROADMAP.md A5.
+output, as JAX's fixed key does (pipeline.py:113-125).
+
+A learned-mode generator (``spk_emb_mode="learned"``) converts zero-shot:
+each file's timbre target is its own mel's SpeakerEncoder embedding
+(:meth:`VoiceConverter.speaker_embedding_from_mel`) unless one is passed.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from speechsplit_tpu_torch.convert import (
 )
 from speechsplit_tpu_torch.data.prepare import read_wav
 from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+from speechsplit_tpu_torch.ops.masks import pad_time_axis
 from speechsplit_tpu_torch.preprocess import (
     GENDER_F0_RANGE,
     extract_features,
@@ -48,8 +53,6 @@ from speechsplit_tpu_torch.preprocess import (
     pad_batch,
 )
 from speechsplit_tpu_torch.vocoder import GriffinLimVocoder, Vocoder
-
-A5 = "queued in ROADMAP.md A5"
 
 
 class VoiceConverter:
@@ -65,10 +68,6 @@ class VoiceConverter:
         device=None,
         dither_draws: Optional[Callable[[tuple], torch.Tensor]] = None,
     ):
-        if config.spk_emb_mode != "onehot":
-            raise NotImplementedError(
-                f"spk_emb_mode={config.spk_emb_mode!r} (SpeakerEncoder) is "
-                f"{A5}")
         self.config = config
         self.device = resolve_device(device)
         self.g_model = g_model.to(self.device).eval()
@@ -134,22 +133,35 @@ class VoiceConverter:
         t = frame_count(len(wav), cfg.hop_length)
         return mel[0, :t].cpu().numpy(), f0[0, :t].cpu().numpy()
 
+    @torch.inference_mode()
     def speaker_embedding_from_mel(self, mel: np.ndarray) -> np.ndarray:
-        """Learned mode's embedding of a mel (SpeakerEncoder)."""
-        raise NotImplementedError(f"speaker_embedding_from_mel is {A5}")
+        """Learned mode's zero-shot timbre embedding [1, dim_spk_emb] of
+        (up to ``max_len_pad`` frames of) a mel, zero-padded to
+        ``max_len_pad`` as training and conversion embed it."""
+        cfg = self.config
+        t = min(len(mel), cfg.max_len_pad)
+        mel_pad, _ = pad_time_axis(np.asarray(mel[:t], np.float32)[None],
+                                   cfg.max_len_pad)
+        emb = self.g_model.embed_speaker(
+            torch.from_numpy(mel_pad).to(self.device))
+        return emb.cpu().numpy()
 
     def extract_utterance(self, wav: np.ndarray,
                           spk_emb: Optional[np.ndarray] = None,
                           gender: str = "M", name: str = "",
                           uid: str = "") -> Utterance:
         """wav [N] -> a prepared Utterance, cut to ``max_len_pad`` frames
-        (:meth:`convert_wav_files` windows longer audio)."""
-        if spk_emb is None:
+        (:meth:`convert_wav_files` windows longer audio). ``spk_emb=None``
+        takes the utterance's own embedding in learned mode; a one-hot
+        config needs one."""
+        if spk_emb is None and self.config.spk_emb_mode != "learned":
             raise ValueError(
-                "spk_emb is required for one-hot configs (learned mode "
-                f"derives it from the mel, {A5})")
+                "spk_emb is required for one-hot configs "
+                "(spk_emb_mode='learned' derives it from the mel)")
         mel, f0 = self.extract_features_full(wav, gender)
         t = min(len(mel), self.config.max_len_pad)
+        if spk_emb is None:
+            spk_emb = self.speaker_embedding_from_mel(mel)
         return prepare_utterance(self.config, mel[:t], f0[:t], spk_emb,
                                  name=name, uid=uid, device=self.device)
 
@@ -192,7 +204,8 @@ class VoiceConverter:
         fetches the mels as bfloat16 ("auto": float32, see
         :meth:`_resolve_compress`); ``pcm16`` returns int16 wavs quantized on the device.
         Speaker embeddings default to one-hot slots 1 (source) and 7
-        (target), as JAX's."""
+        (target), as JAX's; in learned mode to each file's own
+        embedding (from its full mel, for ``convert_long`` too)."""
         cfg = self.config
         clock = time.perf_counter()
         s_mel, s_f0 = self.extract_features_full(
@@ -200,11 +213,17 @@ class VoiceConverter:
         t_mel, t_f0 = self.extract_features_full(
             read_wav(trg_path, cfg.sample_rate), trg_gender)
         timings = {"features_ms": (time.perf_counter() - clock) * 1e3}
-        eye = np.eye(cfg.dim_spk_emb, dtype=np.float32)
-        src_emb = eye[1] if src_emb is None else src_emb
-        trg_emb = eye[7] if trg_emb is None else trg_emb
 
         clock = time.perf_counter()
+        if cfg.spk_emb_mode == "learned":
+            if src_emb is None:
+                src_emb = self.speaker_embedding_from_mel(s_mel)
+            if trg_emb is None:
+                trg_emb = self.speaker_embedding_from_mel(t_mel)
+        else:
+            eye = np.eye(cfg.dim_spk_emb, dtype=np.float32)
+            src_emb = eye[1] if src_emb is None else src_emb
+            trg_emb = eye[7] if trg_emb is None else trg_emb
         if max(len(s_mel), len(t_mel)) <= cfg.max_len_pad:
             src = prepare_utterance(cfg, s_mel, s_f0, src_emb,
                                     name=os.path.basename(src_path), uid="0",

@@ -220,7 +220,10 @@ class Solver:
         inputs (x_f0 [1, T, 80+257], x_pad [1, T, 80], emb [1, 82]) on
         the solver's device. The contour is padded in float64 and
         quantized in float32, as the JAX package's ``jnp.asarray`` of it
-        is (x64 off)."""
+        is (x64 off). In learned mode the third input is the padded mel
+        itself, which the generator embeds as training does (JAX
+        solver.py:289-296): the stored one-hot comes from a distribution
+        a learned-mode decoder never saw."""
         cfg = self.config
         emb = np.asarray(val_sub[1], np.float32).reshape(1, -1)
         mel, f0, length, _uid = val_sub[2]
@@ -231,6 +234,8 @@ class Solver:
         onehot = quantize_f0_onehot(torch.from_numpy(f0_pad),
                                     cfg.dim_f0 - 1).numpy()[None]
         x_f0 = np.concatenate([x_pad, onehot], axis=-1)
+        if cfg.spk_emb_mode == "learned":
+            emb = x_pad
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                      for a in (x_f0, x_pad, emb))
 

@@ -14,6 +14,13 @@ The F0-converter step is the JAX package's addition: masked softmax
 cross-entropy of the predicted 257-bin contour against the quantized
 source contour.
 
+In learned speaker mode (``spk_emb_mode="learned"``, JAX
+train_step.py:162-270) the generator self-conditions on the batch's own
+un-augmented mel through its ``SpeakerEncoder``; with
+``spk_contrast_weight > 0`` the embeddings are taken once before the
+forward and ``weight * speaker_contrastive_loss`` (SupCon against the
+batch's speaker labels, ``argmax(batch.spk_emb)``) joins the loss.
+
 All resampling draws of a step come from ``TrainState.generator`` (a
 CPU ``torch.Generator``, see ``ops.interp``), the augmentation's before
 the model's, as the JAX step splits its key. Every recurrence of the
@@ -112,19 +119,13 @@ def matmul_precision(name: str):
 
 
 def check_precision(config: SpeechSplitConfig) -> None:
-    """Refuse the settings the port does not run yet: learned speaker
-    embeddings (ROADMAP.md A5). Compute, residuals, Adam mu and
-    gradients run float32 or bfloat16 (other names raise ValueError);
-    ``matmul_precision`` must be one of JAX's names."""
+    """Refuse settings the port has no counterpart for: compute,
+    residuals, Adam mu and gradients run float32 or bfloat16 (other names
+    raise ValueError); ``matmul_precision`` must be one of JAX's names."""
     for name in ("residual_dtype", "adam_mu_dtype", "grad_dtype",
                  "compute_dtype"):
         resolve_dtype(getattr(config, name))  # float32 or bfloat16
     _tf32(config.matmul_precision)
-    if config.spk_emb_mode != "onehot":
-        raise NotImplementedError(
-            "spk_emb_mode='learned' (SpeakerEncoder) is queued in "
-            "ROADMAP.md A5"
-        )
 
 
 def _cast_grads(dtype: torch.dtype, grads: list) -> list:
@@ -312,14 +313,62 @@ def _augment_inputs(config: SpeechSplitConfig, batch: Batch,
     return torch.cat([x_f0[:, :, :-1], onehot], dim=-1)
 
 
+def speaker_contrastive_loss(emb: torch.Tensor, labels: torch.Tensor,
+                             temp: float = 0.1) -> torch.Tensor:
+    """Supervised contrastive (SupCon) loss over a batch of unit-norm
+    speaker embeddings (JAX train_step.py:162-196): for each anchor with
+    at least one same-label row, the mean over those positives of
+    ``-log softmax(emb emb^T / temp)`` across the other rows; an anchor
+    with no positive in the batch adds nothing (guarded, not NaN)."""
+    emb = emb.float()
+    eye = torch.eye(emb.shape[0], dtype=torch.bool, device=emb.device)
+    pos = (labels[:, None] == labels[None, :]) & ~eye
+    sim = ((emb @ emb.t()) / temp).masked_fill(eye, -1e9)  # not self
+    logp = sim - torch.logsumexp(sim, dim=1, keepdim=True)
+    pos_cnt = pos.sum(dim=1)
+    per_anchor = logp.masked_fill(~pos, 0.0).sum(dim=1) / torch.clamp(
+        pos_cnt, min=1)
+    has_pos = pos_cnt > 0
+    n_anchors = torch.clamp(has_pos.sum(), min=1)
+    return -per_anchor.masked_fill(~has_pos, 0.0).sum() / n_anchors
+
+
+def _speaker_conditioning(config: SpeechSplitConfig, model: SpeechSplit,
+                          batch: Batch, gather_axis=None):
+    """``(c_trg, aux_loss)`` of a generator step (JAX
+    train_step.py:198-240). One-hot mode: the batch's one-hot rows and
+    no auxiliary term. Learned mode: the batch's own un-augmented mel as
+    a rank-3 ``c_trg`` (the model embeds it); with
+    ``spk_contrast_weight > 0`` the embeddings are taken here (a rank-2
+    ``c_trg``, so the encoder still runs once a step) and scored by
+    :func:`speaker_contrastive_loss`. ``gather_axis`` (JAX's all-gather
+    of the embeddings across a data-parallel mesh) waits with
+    multi-device training in ROADMAP.md A8."""
+    if gather_axis is not None:
+        raise NotImplementedError(
+            "the contrastive term over a sharded batch (gather_axis) is "
+            "queued with multi-device training in ROADMAP.md A8")
+    if config.spk_emb_mode != "learned":
+        return batch.spk_emb, None
+    if config.spk_contrast_weight <= 0.0:
+        return batch.mel, None
+    emb = model.embed_speaker(batch.mel)
+    labels = torch.argmax(batch.spk_emb, dim=-1)
+    aux = config.spk_contrast_weight * speaker_contrastive_loss(
+        emb, labels, config.spk_contrast_temp)
+    return emb, aux
+
+
 def generator_loss(config: SpeechSplitConfig, model: SpeechSplit,
                    batch: Batch, generator: torch.Generator) -> torch.Tensor:
     """Mean-MSE identity loss of one batch (already on the model's
-    device), augmentation draws first, then the model's."""
+    device), augmentation draws first, then the model's; in learned mode
+    plus the weighted contrastive term (JAX train_step.py:255-270)."""
     x_in = _augment_inputs(config, batch, generator)
-    mel_out = model(x_in, batch.mel, batch.spk_emb, train=True,
-                    generator=generator)
-    return torch.mean(torch.square(batch.mel - mel_out))
+    c_trg, aux = _speaker_conditioning(config, model, batch)
+    mel_out = model(x_in, batch.mel, c_trg, train=True, generator=generator)
+    loss = torch.mean(torch.square(batch.mel - mel_out))
+    return loss if aux is None else loss + aux
 
 
 def f0_loss(config: SpeechSplitConfig, model: F0Converter, batch: Batch,

@@ -143,9 +143,9 @@ def test_interop_rejects_unmapped_subtrees():
 
 def test_training_and_learned_mode_are_later_slices():
     """Train mode is ported and needs a generator for its resampling
-    draws; learned mode is still queued; bfloat16 compute builds its
-    layers at bfloat16 with float32 parameters, and a dtype without a
-    JAX counterpart raises."""
+    draws; learned mode builds a speaker encoder (an unknown mode
+    raises); bfloat16 compute builds its layers at bfloat16 with float32
+    parameters, and a dtype without a JAX counterpart raises."""
     cfg = SpeechSplitConfig(**TINY)
     model = SpeechSplit(cfg, torch.Generator())
     x = torch.zeros(1, T, cfg.dim_freq + cfg.dim_f0)
@@ -155,8 +155,11 @@ def test_training_and_learned_mode_are_later_slices():
     with pytest.raises(ValueError, match="Generator"):
         F0Converter(cfg, torch.Generator())(
             x[..., : cfg.dim_freq], x[..., cfg.dim_freq :], train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpeechSplit(cfg.replace(spk_emb_mode="learned"))
+    learned = SpeechSplit(cfg.replace(spk_emb_mode="learned"))
+    assert hasattr(learned, "speaker_encoder")
+    assert not hasattr(model, "speaker_encoder")
+    with pytest.raises(ValueError, match="spk_emb_mode"):
+        SpeechSplit(cfg.replace(spk_emb_mode="xvector"))
     b16 = F0Converter(cfg.replace(compute_dtype="bfloat16"))
     assert b16.decoder.lstm.dtype == torch.bfloat16
     assert b16.encoder_3.convolutions[0][0].dtype == torch.bfloat16

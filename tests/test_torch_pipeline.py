@@ -237,10 +237,9 @@ def test_refused_options(setup, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):
         VoiceConverter.from_checkpoints(str(tmp_path / "1-G"),
                                         str(tmp_path / "1-P"), device="cpu")
-    learned = SpeechSplitConfig(spk_emb_mode="learned", **SMALL)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        VoiceConverter(learned, port.g_model, port.p_model, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
+    # a one-hot generator has no speaker encoder (learned mode is
+    # tests/test_torch_learned_pipeline.py's)
+    with pytest.raises(ValueError, match="learned"):
         port.speaker_embedding_from_mel(np.zeros((10, 80), np.float32))
     with pytest.raises(ValueError, match="spk_emb"):
         port.extract_utterance(np.zeros(4000, np.float32))

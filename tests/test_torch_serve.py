@@ -1,7 +1,8 @@
 """The port's conversion server (``cli/serve.py``), mirroring the JAX
 package's tests/test_serve.py: health, the happy path (7 PCM16 wavs and
 7 mels), malformed requests and an unknown endpoint, on the CPU with
-weights carried from JAX params; and the CLIs' refused and new flags."""
+weights carried from JAX params; and the CLIs' refused and new flags
+(a vocoder checkpoint the port cannot read)."""
 
 import json
 import os
@@ -142,22 +143,35 @@ def test_unknown_endpoint(server):
     assert err.value.code == 404
 
 
-@pytest.mark.parametrize("flag", [["--vocoder_ckpt", "default"],
-                                  ["--vocoder_refine", "4"]])
+# a vocoder checkpoint the port cannot read: an Orbax directory (the JAX
+# trainer's format, ROADMAP.md A7) and a missing file. The shipped
+# ``default`` runs (tests/test_torch_learned_pipeline.py).
+VOCODER_REFUSALS = [("DIR", NotImplementedError, "ROADMAP.md A7"),
+                    ("nope.npz", FileNotFoundError, "nope.npz")]
+
+
+def _vocoder_flag(tmp_path, name):
+    return ["--vocoder_ckpt",
+            str(tmp_path) if name == "DIR" else str(tmp_path / name)]
+
+
+@pytest.mark.parametrize("flag", VOCODER_REFUSALS)
 def test_serve_refuses_the_neural_vocoder(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
+    name, error, match = flag
+    with pytest.raises(error, match=match):
         serve.main(["--generator_ckpt", str(tmp_path / "G.ckpt"),
                     "--f0_ckpt", str(tmp_path / "P.ckpt"),
-                    "--device", "cpu", *flag])
+                    "--device", "cpu", *_vocoder_flag(tmp_path, name)])
 
 
-@pytest.mark.parametrize("flag", [["--vocoder_ckpt", "default"],
-                                  ["--vocoder_refine", "4"]])
+@pytest.mark.parametrize("flag", VOCODER_REFUSALS)
 def test_convert_cli_refuses_the_neural_vocoder(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
+    name, error, match = flag
+    with pytest.raises(error, match=match):
         cli_convert.main(["--generator_ckpt", str(tmp_path / "G.ckpt"),
                           "--f0_ckpt", str(tmp_path / "P.ckpt"),
-                          "--device", "cpu", "--synthesize", *flag])
+                          "--device", "cpu", "--synthesize",
+                          *_vocoder_flag(tmp_path, name)])
 
 
 def test_convert_cli_synthesizes_pcm16(models, tmp_path):

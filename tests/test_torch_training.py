@@ -243,8 +243,13 @@ def test_unported_settings_and_missing_generator_raise(monkeypatch):
         make_train_step(bad)
     with pytest.raises(ValueError, match="dtype"):
         make_optimizer(bad, [torch.nn.Parameter(torch.zeros(1))])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        create_train_state(CFG.replace(spk_emb_mode="learned"), 0,
+    # learned speaker mode trains (tests/test_torch_learned_step.py); an
+    # unknown mode raises
+    learned = create_train_state(CFG.replace(spk_emb_mode="learned"), 0,
+                                 device="cpu")
+    assert hasattr(learned.model, "speaker_encoder")
+    with pytest.raises(ValueError, match="spk_emb_mode"):
+        create_train_state(CFG.replace(spk_emb_mode="xvector"), 0,
                            device="cpu")
     # the JAX defaults (bfloat16 residuals and Adam mu) train as they stand
     state = create_train_state(SpeechSplitConfig(), 0, device="cpu")
