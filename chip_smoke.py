@@ -234,7 +234,30 @@ Phases, one line each; any failure exits non-zero:
     and vocoder, the two in turns, the card's busy share of one request;
     the neural vocoder on the card against the port's vocoder on the
     CPU for the same mels (the head's spectrum, and the PCM16 after 48
-    iterations: ``VOCODER_*``).
+    iterations: ``VOCODER_*``);
+16. from a wav tree to trained models (run after phase 15):
+    ``prepare``: a wav tree made here (4 speakers, 2 M and 2 F, 80
+    utterances each of 1-8 s, PCM16), ``cli.preprocess`` at the JAX
+    defaults (B16, 8 batches a dispatch; one ``viterbi_decode`` launch
+    a batch and nothing else, counts set to 0 just before and read just
+    after) and ``cli.metadata``: every file of its utterance's frames,
+    finite; ``extract_dir`` again with the same seed writes the same
+    files bit for bit (ms an utterance, mel frames a second, the seconds
+    of reading, queueing the extraction, waiting for the fetch and
+    writing); a run with the dither hook whose files, for 3 batches,
+    equal ``extract_features`` on the batch with the same draws, with F0
+    equal to the plain decoder's; the card's busy share of a profiled
+    run; ``viterbi_decode`` at B16 and an 8 s utterance's 501 frames;
+    the dither's draws made on the host and uploaded beside made on the
+    card; ``cli.train`` at the default config for 4 steps on the
+    prepared corpus (launches a step as phase 7's, finite losses);
+    ``train vocoder``: ``cli.train_vocoder`` at the shipped asset's
+    width (256 channels, depth 6), B16, crop 64, 200 iterations at 25
+    steps a dispatch on that corpus: finite losses, the last dispatch's
+    mean below the first's, ``200-V.npz`` read by ``load_vocoder`` into
+    finite PCM16; one step's loss and gradient on the card against the
+    port's on the CPU from the same state and crops (``VOC_*``); steps a
+    second of the resident path and of host ``make_crops``, in turns.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside the repo, it
@@ -5980,6 +6003,532 @@ def phase_serve_learned(reps: int = 3) -> None:
     torch.cuda.empty_cache()
 
 
+# corpus preparation and the vocoder's trainer: the smoke's own
+# wav tree, 4 speakers (2 M, 2 F) x PREP_UTTS utterances of 1-8 s
+PREP_SPEAKERS = (("p225", "M"), ("p226", "M"), ("p227", "F"), ("p228", "F"))
+PREP_UTTS = 80
+PREP_SECONDS = (1.0, 8.0)
+# the JAX defaults of cli.preprocess
+PREP_BATCH = 16
+PREP_DISPATCH = 8
+# files of the hooked run held against extract_features on their batch
+PREP_SAMPLE_BATCHES = 3
+# default-config cli.train steps on the prepared corpus
+PREP_TRAIN_STEPS = 4
+# cli.train_vocoder at the shipped asset's width
+VOC_ITERS = 200
+VOC_DISPATCH = 25
+VOC_BATCH = 16
+VOC_CROP = 64
+# the card's vocoder step against the port's step on the CPU from the
+# same state and crops: the loss, relative; the gradient as one vector
+# (relative L2) within this many times the CPU's float32 distance from
+# the float64 gradient on the CPU (a reference the card does not touch;
+# the two float32 gradients scatter about the exact one independently:
+# the loss's L1 terms make that scatter large,
+# tests/test_torch_vocoder_train.py)
+VOC_LOSS_TOL = 1e-5
+VOC_GRAD_NOISE_TIMES = 3.0
+# the network's backward up to its head (``MelToSpec.head_out``) on one
+# seeded cotangent, card against CPU, within this many times the CPU's
+# float32 distance from float64 (a smooth map: a TF32 backward on the
+# card must land outside)
+VOC_BACKWARD_NOISE_TIMES = 30.0
+# timed rounds of the resident path and the host make_crops path, in turns
+VOC_ROUNDS = 2
+
+
+def write_corpus(root: str, seed: int) -> tuple:
+    """The smoke's wav tree: ``root/wavs/<spk>/<spk>_<i>.wav`` (PCM16,
+    16 kHz) of ``synth_wav`` tones, 1-8 s, M speakers gliding within
+    85-170 Hz, F within 165-330 Hz, and ``root/spk2gen.pkl``. Returns
+    (wav_dir, spk2gen path, utterances, samples)."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    wav_dir = os.path.join(root, "wavs")
+    samples = 0
+    for s, (spk, gender) in enumerate(PREP_SPEAKERS):
+        os.makedirs(os.path.join(wav_dir, spk))
+        base = 85.0 if gender == "M" else 165.0
+        for i in range(PREP_UTTS):
+            seconds = float(rng.uniform(*PREP_SECONDS))
+            f_start, f_end = base * (1.0 + rng.random(2))
+            wav = synth_wav(seconds, f_start, f_end, seed + 1000 * s + i)
+            wavfile.write(os.path.join(wav_dir, spk, f"{spk}_{i:03d}.wav"),
+                          SAMPLE_RATE, wav)
+            samples += len(wav)
+    spk2gen = os.path.join(root, "spk2gen.pkl")
+    with open(spk2gen, "wb") as handle:
+        pickle.dump(dict(PREP_SPEAKERS), handle)
+    return wav_dir, spk2gen, len(PREP_SPEAKERS) * PREP_UTTS, samples
+
+
+def read_tree(path: str) -> dict:
+    import numpy as np
+
+    return {(spk, f): np.load(os.path.join(path, spk, f))
+            for spk in sorted(os.listdir(path))
+            if os.path.isdir(os.path.join(path, spk))
+            for f in sorted(os.listdir(os.path.join(path, spk)))}
+
+
+def same_tree(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def hooked_draws(group: int, k: int, shape):
+    """The dither of batch k of group ``group`` in the hooked run: drawn on
+    the card from a generator seeded by the batch's place."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1000 * group + k)
+    return torch.rand(tuple(shape), generator=gen, device="cuda")
+
+
+def phase_prepare(gen_per_step: dict, root: str) -> dict:
+    """Corpus preparation on the smoke's own wav tree (``write_corpus``):
+    ``cli.preprocess`` at the JAX defaults (B16, 8 batches a dispatch;
+    launch counts set to 0 just before and read just after: one
+    ``viterbi_decode`` a batch, nothing else) and ``cli.metadata``; every
+    file of the right shape and finite, the F0 normalized or unvoiced;
+    ``extract_dir`` again with the same seed (its stages' seconds kept),
+    whose files must equal the first run's bit for bit; a run with the
+    dither hook (draws made on the card by ``hooked_draws``) whose files,
+    for ``PREP_SAMPLE_BATCHES`` batches, equal ``extract_features`` on
+    the batch with the same draws, and the same extraction with the
+    plain decoder (``plain_kernels``: F0 equal, so the kernel's states are
+    the plain loop's; mel within ``FRONT_END_PLAIN_TOL``); a run under
+    ``torch.profiler`` (the card's busy share of it); ``viterbi_decode``
+    at B16 and an 8 s utterance's frames (ms, device ms, plain ms,
+    bound); the dither's [B, N] draws of the largest batch made on the
+    host and uploaded beside drawn on the card; then ``cli.train`` at the
+    default config for ``PREP_TRAIN_STEPS`` steps on the prepared corpus
+    (launches a step as ``phase_train``'s, finite losses). Returns the
+    decoder's row fields for the kernels' JSON."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.cli import metadata as cli_metadata
+    from speechsplit_tpu_torch.cli import preprocess as cli_preprocess
+    from speechsplit_tpu_torch.data import prepare
+    from speechsplit_tpu_torch.ops import pitch
+    from speechsplit_tpu_torch.preprocess import extract_features
+
+    wav_dir, spk2gen, utts, samples = write_corpus(root, SEED + 16)
+    genders = dict(PREP_SPEAKERS)
+    _, entries = prepare._enumerate_entries(wav_dir, genders)
+    batches = -(-len(entries) // PREP_BATCH)
+    mel_dir, f0_dir = os.path.join(root, "spmel"), os.path.join(root, "raptf0")
+
+    def tree(tag):
+        return os.path.join(root, f"spmel{tag}"), os.path.join(
+            root, f"raptf0{tag}")
+
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_preprocess.main([
+            "--wav_dir", wav_dir, "--mel_dir", mel_dir, "--f0_dir", f0_dir,
+            "--spk2gen", spk2gen, "--batch_size", str(PREP_BATCH),
+            "--batches_per_dispatch", str(PREP_DISPATCH), "--seed",
+            str(SEED), "--device", "cuda"])
+    cli_s = time.perf_counter() - start
+    launches = read_launches()
+    if launches["viterbi_decode"] != batches or any(
+            v for k, v in launches.items() if k != "viterbi_decode"):
+        fail(f"cli.preprocess launched {launches}, expected "
+             f"{batches} viterbi_decode (one a batch)")
+    mels, f0s = read_tree(mel_dir), read_tree(f0_dir)
+    frames = 0
+    for spk, fname, _lo, _hi, _size in entries:
+        key = (spk, fname[:-4] + ".npy")
+        want = prepare.wav_frame_count(os.path.join(wav_dir, spk, fname))
+        mel, f0 = mels.get(key), f0s.get(key)
+        if mel is None or f0 is None or mel.shape != (want, 80) or (
+                f0.shape != (want,)) or not np.isfinite(mel).all() or not (
+                ((f0 >= 0) & (f0 <= 1)) | (f0 == np.float32(-1e10))).all():
+            fail(f"cli.preprocess: {key} mel "
+                 f"{None if mel is None else mel.shape}, F0 "
+                 f"{None if f0 is None else f0.shape}, {want} frames due")
+        frames += want
+    if len(mels) != utts:
+        fail(f"cli.preprocess wrote {len(mels)} mels for {utts} wavs")
+    with contextlib.redirect_stdout(io.StringIO()):
+        meta = cli_metadata.main(["--mel_dir", mel_dir])
+    if [m[0] for m in meta] != [s for s, _ in PREP_SPEAKERS] or sum(
+            len(m) - 2 for m in meta) != utts:
+        fail(f"cli.metadata: {[(m[0], len(m) - 2) for m in meta]}")
+
+    # the same seed again: the same files; the stages' seconds
+    stats = {}
+    repeat_mel, repeat_f0 = tree("_repeat")
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    prepare.extract_dir(wav_dir, repeat_mel, repeat_f0, genders, seed=SEED,
+                        batch_size=PREP_BATCH,
+                        batches_per_dispatch=PREP_DISPATCH, device="cuda",
+                        stats=stats)
+    run_s = time.perf_counter() - start
+    if not (same_tree(read_tree(repeat_mel), mels)
+            and same_tree(read_tree(repeat_f0), f0s)):
+        fail("extract_dir with the same seed wrote other files")
+
+    # the dither hook: a sample of files against extract_features
+    hook_mel, hook_f0 = tree("_hook")
+    prepare.extract_dir(wav_dir, hook_mel, hook_f0, genders, seed=SEED,
+                        batch_size=PREP_BATCH,
+                        batches_per_dispatch=PREP_DISPATCH, device="cuda",
+                        dither=hooked_draws)
+    hook = (read_tree(hook_mel), read_tree(hook_f0))
+    staged = [(g, k, item) for g, (group, _) in enumerate(
+        prepare._staged_groups(wav_dir, entries, batch_size=PREP_BATCH,
+                               batches_per_dispatch=PREP_DISPATCH))
+              for k, item in enumerate(group)]
+    picks = sorted({0, len(staged) // 2, len(staged) - 1})[
+        :PREP_SAMPLE_BATCHES]
+    sample_files, plain_err = 0, 0.0
+    for g, k, (job, batch, lengths) in (staged[i] for i in picks):
+        draws = hooked_draws(g, k, batch.shape)
+        lo = [e[2] for e in job]
+        hi = [e[3] for e in job]
+        mel, f0 = extract_features(batch, lengths, lo, hi, uniform=draws,
+                                   device="cuda")
+        with plain_kernels():
+            mel_p, f0_p = extract_features(batch, lengths, lo, hi,
+                                           uniform=draws, device="cuda")
+        if not torch.equal(f0, f0_p):
+            fail(f"extract_dir batch {g}.{k}: the decoder kernel's F0 "
+                 f"differs from the plain loop's")
+        plain_err = max(plain_err, float((mel - mel_p).abs().max()))
+        mel, f0 = mel.cpu().numpy(), f0.cpu().numpy()
+        for i, (spk, fname, _lo, _hi) in enumerate(job):
+            n = int(lengths[i]) // 256 + 1
+            key = (spk, fname[:-4] + ".npy")
+            if not (np.array_equal(hook[0][key], mel[i, :n])
+                    and np.array_equal(hook[1][key], f0[i, :n])):
+                fail(f"extract_dir {key} differs from extract_features on "
+                     f"its batch with the same draws")
+            sample_files += 1
+    if not plain_err <= FRONT_END_PLAIN_TOL:
+        fail(f"extract_dir batches: mel {plain_err} from the plain "
+             f"decoder's")
+
+    # the card's busy share of a profiled run
+    prof_mel, prof_f0 = tree("_profiled")
+    trace = os.path.join(root, "prepare_trace.json")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        prepare.extract_dir(wav_dir, prof_mel, prof_f0, genders, seed=SEED,
+                            batch_size=PREP_BATCH,
+                            batches_per_dispatch=PREP_DISPATCH,
+                            device="cuda")
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace)
+    span, busy = trace_busy(trace)
+    if not busy > 0:
+        fail("extract_dir: the profiled run holds no device time")
+
+    # the decoder at B16 and an 8 s utterance's frames
+    params = pitch.PitchParams()
+    t8 = int(PREP_SECONDS[1] * SAMPLE_RATE) // 256 + 1
+    fields = viterbi_fields(PREP_BATCH, t8, params.num_cands, SEED + 16,
+                            "random")
+
+    def kernel():
+        return pitch.viterbi_decode(*fields, params.freq_weight,
+                                    params.trans_cost)
+
+    if not torch.equal(kernel(), pitch.viterbi_decode_reference(
+            *fields, params.freq_weight, params.trans_cost)):
+        fail(f"viterbi_decode B{PREP_BATCH} T{t8}: states differ from the "
+             f"plain loop's")
+    vit = dict(ms=time_ms(kernel, 20), device_ms=kernel_device_ms(kernel, 20),
+               plain_ms=time_ms(lambda: pitch.viterbi_decode_reference(
+                   *fields, params.freq_weight, params.trans_cost), 1,
+                   warmup=0))
+    vit["bound_ms"], vit["bound_by"], _ = viterbi_bound(PREP_BATCH, t8,
+                                                        params.num_cands)
+
+    # the dither's draws of the largest batch: host and upload, or card
+    n_max = max(b.shape[1] for _g, _k, (_j, b, _l) in staged)
+    host_gen = torch.Generator().manual_seed(SEED)
+    card_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    host_draw = time_ms(lambda: torch.rand(
+        (PREP_BATCH, n_max), generator=host_gen).to("cuda"), 10)
+    card_draw = time_ms(lambda: torch.rand(
+        (PREP_BATCH, n_max), generator=card_gen, device="cuda"), 10)
+
+    # cli.train at the default config reads the corpus
+    losses, _, _ = run_cli_train([
+        "--num_iters", str(PREP_TRAIN_STEPS), "--log_step", "2",
+        "--model_save_step", str(PREP_TRAIN_STEPS), "--sample_step", "1000",
+        "--model_save_dir", os.path.join(root, "models"),
+        "--log_dir", os.path.join(root, "logs"),
+        "--sample_dir", os.path.join(root, "samples"),
+        "--validation_path", os.path.join(root, "no_such.pkl"),
+        "--hparams", f"root_dir={mel_dir},feat_dir={f0_dir}",
+        "--device", "cuda"], PREP_TRAIN_STEPS, gen_per_step,
+        "prepared corpus", log_step=2, probe=False)
+
+    seconds = samples / SAMPLE_RATE
+    log("prepare", speakers=len(PREP_SPEAKERS), utterances=utts,
+        audio_seconds=f"{seconds:.1f}", batches=batches,
+        batch_size=PREP_BATCH, batches_per_dispatch=PREP_DISPATCH,
+        viterbi_launches=launches["viterbi_decode"],
+        cli_preprocess_s=f"{cli_s:.4f}", extract_dir_s=f"{run_s:.4f}",
+        ms_per_utterance=f"{run_s * 1e3 / utts:.4f}",
+        mel_frames_per_s=f"{frames / run_s:.1f}",
+        audio_s_per_s=f"{seconds / run_s:.1f}",
+        read_s=f"{stats['read']:.4f}",
+        dispatch_s=f"{stats['dispatch']:.4f}",
+        fetch_wait_s=f"{stats['fetch']:.4f}",
+        write_s=f"{stats['write']:.4f}",
+        stages_note="read and write on their own threads, overlapping",
+        repeat_equal=True, sample_files=sample_files,
+        sample_equal_extract_features=True,
+        mel_err_vs_plain_decoder=f"{plain_err:.3g}",
+        f0_equal_plain_decoder=True,
+        profiled_span_ms=f"{span:.4f}", profiled_busy_ms=f"{busy:.4f}",
+        profiled_idle_share=f"{1 - busy / span:.4f}",
+        dither_host_draw_and_upload_ms=f"{host_draw:.4f}",
+        dither_card_draw_ms=f"{card_draw:.4f}", dither_shape=
+        f"{PREP_BATCH}x{n_max}",
+        train_cli_steps=PREP_TRAIN_STEPS,
+        train_cli_losses=",".join(f"{v:.6f}" for v in losses),
+        train_cli_launches_a_step=json.dumps(gen_per_step).replace(" ", ""))
+    log("kernel viterbi_decode extract_dir", shape=f"B{PREP_BATCH}xT{t8}xK"
+        f"{params.num_cands}", **fmt(vit))
+    return dict(launches_extract_dir=launches["viterbi_decode"],
+                extract_dir_batches=batches,
+                extract_dir_b16={"shape": f"B{PREP_BATCH}xT{t8}xK"
+                                 f"{params.num_cands}", **vit})
+
+
+def flat_grads(model) -> dict:
+    return {k: p.grad.detach().double().cpu()
+            for k, p in model.named_parameters()}
+
+
+def rel_l2(got: dict, want: dict) -> float:
+    diff = sum(float(((got[k] - want[k]) ** 2).sum()) for k in want)
+    return (diff / sum(float((w ** 2).sum()) for w in want.values())) ** 0.5
+
+
+def worst_tensor(got: dict, want: dict) -> tuple:
+    return max((float((got[k] - want[k]).norm() / want[k].norm()), k)
+               for k in want)
+
+
+def phase_train_vocoder(root: str) -> None:
+    """The neural vocoder's trainer at the shipped asset's width (256
+    channels, depth 6), B16, crop 64: ``cli.train_vocoder`` on the
+    prepared corpus's wavs for ``VOC_ITERS`` iterations at
+    ``VOC_DISPATCH`` steps a dispatch (a loss read a dispatch): every
+    logged loss finite, the last dispatch's mean below the first's,
+    ``{iters}-V.npz`` written, loaded by ``load_vocoder`` and turning a
+    corpus mel into finite PCM16; one step on the card against the
+    port's step on the CPU from the same state and crops, both through
+    ``VocoderTrainer.loss_and_grad`` (the loss within ``VOC_LOSS_TOL``,
+    the gradient within ``VOC_GRAD_NOISE_TIMES`` the CPU's float32
+    distance from the float64 gradient on the CPU); the network's
+    backward up to its head on a seeded cotangent within
+    ``VOC_BACKWARD_NOISE_TIMES`` the CPU's float32 distance from
+    float64, and the same backward in TF32 on the card outside that bar;
+    steps a second
+    of the resident path and of the host ``make_crops`` path, in turns."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.cli import train_vocoder as cli_tv
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.vocoder_neural import (
+        ResidentCorpus,
+        VocoderTrainer,
+        init_model,
+        load_vocoder,
+        make_crops,
+    )
+
+    from speechsplit_tpu_torch.ops.stft import exact_float32
+
+    wav_dir = os.path.join(root, "wavs")
+    save_dir = os.path.join(root, "vocoder")
+    reset_launches()
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        state, logged = cli_tv.main([
+            "--wav_dir", wav_dir, "--save_dir", save_dir,
+            "--num_iters", str(VOC_ITERS), "--batch_size", str(VOC_BATCH),
+            "--crop_frames", str(VOC_CROP), "--channels", "256",
+            "--depth", "6", "--log_step", str(VOC_DISPATCH),
+            "--save_step", str(VOC_ITERS),
+            "--steps_per_dispatch", str(VOC_DISPATCH), "--device", "cuda"])
+    cli_s = time.perf_counter() - start
+    launches = read_launches()
+    losses = [v for _, v in logged]
+    if (len(logged) != VOC_ITERS // VOC_DISPATCH
+            or not np.isfinite(losses).all() or not losses[-1] < losses[0]):
+        fail(f"cli.train_vocoder: logged {logged}")
+    if os.listdir(save_dir) != [f"{VOC_ITERS}-V.npz"]:
+        fail(f"cli.train_vocoder wrote {os.listdir(save_dir)}")
+    rate = re.findall(r"\(([\d.]+) steps/s\)", out.getvalue())
+    config = SpeechSplitConfig()
+    wavs = cli_tv._load_corpus(wav_dir, 8)
+    mels = cli_tv.front_end_mels(wavs, config, torch.device("cuda"))
+    vocoder = load_vocoder(os.path.join(save_dir, f"{VOC_ITERS}-V.npz"),
+                           device="cuda")
+    pcm = vocoder.synthesize_batch([mels[0]], pcm16=True)[0]
+    if not (pcm.dtype == np.int16 and len(pcm) == (len(mels[0]) - 1) * 256
+            and np.abs(pcm).max() > 0):
+        fail(f"the trained vocoder's PCM16: {pcm.dtype}, {len(pcm)} samples")
+    del state, vocoder
+
+    # one step on the card against the port's step on the CPU, both as
+    # VocoderTrainer.step takes it (TF32 off, the backward too): the
+    # loss, and the gradient within a multiple of the CPU's float32
+    # distance from the float64 gradient on the CPU. The loss's L1
+    # terms, the log-magnitude clamp and the phase normalization flip
+    # or amplify with rounding, so that distance is large (0.009-0.018)
+    # and a TF32 backward hides under it; the network's backward up to
+    # its head (layers, norms, GELUs), on one seeded cotangent, is
+    # smooth: the card's within a multiple of the CPU's float32
+    # distance from float64, and the same backward in TF32 outside it
+    trainer = VocoderTrainer(total_steps=VOC_ITERS, device="cuda")
+    cpu_trainer = VocoderTrainer(total_steps=VOC_ITERS, device="cpu")
+    mel_b, wav_b = (torch.from_numpy(x) for x in make_crops(
+        wavs, mels, VOC_BATCH, VOC_CROP, 256, np.random.RandomState(SEED)))
+
+    def model_at(t, dtype=torch.float32):
+        return init_model(torch.Generator().manual_seed(SEED)).to(
+            t.device, dtype)
+
+    def step_grads(t, dtype=torch.float32):
+        m = model_at(t, dtype)
+        return float(t.loss_and_grad(m, mel_b, wav_b)), flat_grads(m)
+
+    cotangent = None
+
+    def backward_grads(t, dtype=torch.float32, tf32=False):
+        nonlocal cotangent
+        m = model_at(t, dtype)
+        with exact_float32():
+            pred = m.backbone.head_out(mel_b.to(t.device, dtype))
+        if cotangent is None:
+            cotangent = torch.randn(pred.shape, generator=torch.Generator(
+                ).manual_seed(SEED), dtype=torch.float64)
+        saved = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            pred.backward(cotangent.to(t.device, dtype))
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
+        return flat_grads(m)
+
+    card_loss, card = step_grads(trainer)
+    cpu_loss, cpu = step_grads(cpu_trainer)
+    _, cpu64 = step_grads(cpu_trainer, torch.float64)
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    err = rel_l2(card, cpu)
+    noise = rel_l2(cpu, cpu64)
+    bar = VOC_GRAD_NOISE_TIMES * noise
+    worst, worst_key = worst_tensor(card, cpu)
+    del card, cpu, cpu64
+    vjp = {"cpu64": backward_grads(cpu_trainer, torch.float64),
+           "cpu": backward_grads(cpu_trainer),
+           "card": backward_grads(trainer),
+           "card_tf32": backward_grads(trainer, tf32=True)}
+    vjp_noise = rel_l2(vjp["cpu"], vjp["cpu64"])
+    vjp_bar = VOC_BACKWARD_NOISE_TIMES * vjp_noise
+    vjp_err = rel_l2(vjp["card"], vjp["cpu"])
+    vjp_tf32 = rel_l2(vjp["card_tf32"], vjp["cpu"])
+    del vjp
+    log("train vocoder gradient", loss_err=f"{loss_err:.3g}",
+        loss_tol=VOC_LOSS_TOL, step_grad_rel_l2_vs_cpu=f"{err:.4g}",
+        cpu_step_grad_rel_l2_vs_float64=f"{noise:.4g}",
+        step_grad_bar=f"{bar:.4g}", worst_tensor_rel=f"{worst:.4g}",
+        worst_tensor=worst_key,
+        backward_rel_l2_vs_cpu=f"{vjp_err:.4g}",
+        cpu_backward_rel_l2_vs_float64=f"{vjp_noise:.4g}",
+        backward_bar=f"{vjp_bar:.4g}",
+        tf32_backward_rel_l2_vs_cpu=f"{vjp_tf32:.4g}")
+    if not (loss_err <= VOC_LOSS_TOL and err <= bar):
+        fail(f"vocoder step card vs CPU: loss {loss_err}, gradient {err} "
+             f"against {bar} ({VOC_GRAD_NOISE_TIMES} x the CPU's float32 "
+             f"distance {noise} from its float64 gradient)")
+    if not vjp_err <= vjp_bar < vjp_tf32:
+        fail(f"the vocoder's backward on the card: {vjp_err} from the "
+             f"CPU's, {vjp_tf32} in TF32, against {vjp_bar} "
+             f"({VOC_BACKWARD_NOISE_TIMES} x the CPU's float32 distance "
+             f"{vjp_noise} from float64)")
+
+    # steps a second: resident crops against host crops, in turns (on 8
+    # of the corpus's utterances: a step's cost does not depend on how
+    # many there are)
+    dispatch = trainer.make_resident_step(
+        ResidentCorpus(wavs, mels, VOC_CROP, 256, "cuda"), VOC_BATCH,
+        VOC_DISPATCH)
+    state = trainer.init(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.RandomState(SEED)
+
+    def resident():
+        nonlocal state
+        state, loss = dispatch(state, gen)
+        return loss
+
+    def host():
+        nonlocal state
+        loss = None
+        for _ in range(VOC_DISPATCH):
+            m, w = make_crops(wavs, mels, VOC_BATCH, VOC_CROP, 256, rng)
+            state, loss = trainer.step(state, torch.from_numpy(m).to(
+                "cuda"), torch.from_numpy(w).to("cuda"))
+        return loss
+
+    rounds = {"resident": [], "host": []}
+    resident(), host()  # warm-up
+    for _ in range(VOC_ROUNDS):
+        for name, fn in (("resident", resident), ("host", host)):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            loss = fn()
+            float(loss)
+            rounds[name].append(VOC_DISPATCH / (time.perf_counter() - start))
+    log("train vocoder", channels=256, depth=6, batch=VOC_BATCH,
+        crop_frames=VOC_CROP, iterations=VOC_ITERS,
+        steps_per_dispatch=VOC_DISPATCH,
+        parameters=sum(p.numel() for p in state.model.parameters()),
+        cli_s=f"{cli_s:.4f}", cli_steps_per_s=rate[-1] if rate else "none",
+        dispatch_losses=",".join(f"{v:.5f}" for v in losses),
+        first_mean=f"{losses[0]:.5f}", last_mean=f"{losses[-1]:.5f}",
+        checkpoint=f"{VOC_ITERS}-V.npz loaded, PCM16 finite",
+        viterbi_launches_front_end=launches["viterbi_decode"],
+        resident_steps_per_s=",".join(f"{v:.2f}" for v in rounds[
+            "resident"]),
+        host_crops_steps_per_s=",".join(f"{v:.2f}" for v in rounds["host"]),
+        timing=f"wall clock of one dispatch of {VOC_DISPATCH} steps, a "
+        "synchronize before and a loss read after; resident and host in "
+        "turns",
+        tf32="off (exact_float32)")
+
+
 KERNELS = {
     "bilstm_infer": dict(
         route="cuda", source="speechsplit_tpu_torch/csrc/bilstm_infer.cu",
@@ -6480,6 +7029,10 @@ def main() -> int:
     phase_train_cli_learned(gen_per_step)
     phase_convert_learned()
     phase_serve_learned()
+    with tempfile.TemporaryDirectory() as corpus_root:
+        rows["viterbi_decode"].update(phase_prepare(gen_per_step,
+                                                    corpus_root))
+        phase_train_vocoder(corpus_root)
     rows.update(phase_fused_kernels())
     fused_convert = phase_convert_fused()
     fused_gen, fused_f0 = phase_train_fused(batch)

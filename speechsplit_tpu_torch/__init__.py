@@ -16,11 +16,14 @@ the port to JAX.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
 serving (``pipeline.VoiceConverter``, ``cli.serve``), feature extraction
-(``preprocess.extract_features``), synthesis
-(``vocoder.GriffinLimVocoder``, ``vocoder_neural.load_vocoder``),
-conversion (``convert``, ``cli.convert``) and training
-(``training.create_train_state``, ``training.make_train_step``,
-``training.make_f0_train_step``, ``training.Solver``, ``cli.train``).
+(``preprocess.extract_features``), corpus preparation
+(``data.prepare.extract_dir``, ``cli.preprocess``; ``cli.metadata`` is
+host work), synthesis (``vocoder.GriffinLimVocoder``,
+``vocoder_neural.load_vocoder``), conversion (``convert``,
+``cli.convert``) and training (``training.create_train_state``,
+``training.make_train_step``, ``training.make_f0_train_step``,
+``training.Solver``, ``cli.train``, and the vocoder's
+``vocoder_neural.VocoderTrainer``, ``cli.train_vocoder``).
 Each runs one-hot speaker embeddings or, with
 ``spk_emb_mode="learned"``, the SpeakerEncoder's zero-shot ones.
 """

@@ -14,11 +14,12 @@ make_spect_f0.py:40-45). Mel and F0 both have N // hop + 1 frames.
 
 The dither noise is the one random draw: :func:`extract_features` takes
 its U(0, 1) draws as a ``uniform`` [B, N] tensor or draws them from a
-``torch.Generator`` the caller passes (JAX PRNG streams cannot be
-reproduced in torch, so the tests inject JAX's draws). The scan and
-store variants (``extract_features_scan``, ``extract_into_store``) wait
-in ROADMAP.md A3/A6, the waveform high-pass (``highpass_mode="time"``)
-in A6.
+``torch.Generator`` the caller passes, on that generator's device (JAX
+PRNG streams cannot be reproduced in torch, so the tests inject JAX's
+draws). :func:`extract_features_scan` runs K same-shape batches, the
+call ``data.prepare.extract_dir`` makes. The store variant
+(``extract_into_store``) waits in ROADMAP.md A6c, the waveform
+high-pass (``highpass_mode="time"``) in A6.
 """
 
 from __future__ import annotations
@@ -51,6 +52,15 @@ def _stft_bin_gain(cutoff: float, fs: float, order: int,
     freqs = np.fft.rfftfreq(n_fft) * 2.0 * np.pi
     _, h = sp_signal.freqz(b, a, worN=freqs)
     return (h * np.conj(h)).real.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _bin_gain_tensor(cutoff: float, fs: float, order: int, n_fft: int,
+                     device: torch.device) -> torch.Tensor:
+    """:func:`_stft_bin_gain` on ``device``, uploaded once a process (a
+    pageable upload on every call would wait for the card each time)."""
+    return torch.from_numpy(_stft_bin_gain(cutoff, fs, order, n_fft)).to(
+        device)
 
 
 def _as_tensor(x, device, dtype=None) -> torch.Tensor:
@@ -89,7 +99,7 @@ def extract_features(
       lengths: [B] true sample counts. f0_lo, f0_hi: [B] pitch search
         bounds (Hz).
       uniform: [B, N] U(0, 1) draws for the dither; else ``generator``
-        (a CPU ``torch.Generator``) draws them. One of the two is needed.
+        draws them on its own device. One of the two is needed.
       device: ``cuda`` unless given (see ``resolve_device``).
       highpass_mode: "stft", the filter's |H|^2 on the STFT bins (the
         production path); "time" is refused (ROADMAP.md A6).
@@ -118,7 +128,8 @@ def extract_features(
         if generator is None:
             raise ValueError("extract_features needs the dither's draws: "
                              "pass uniform= or generator=")
-        uniform = torch.rand(wavs.shape, generator=generator)
+        uniform = torch.rand(wavs.shape, generator=generator,
+                             device=generator.device)
     uniform = uniform.to(dev, torch.float32)
     if uniform.shape != wavs.shape:
         raise ValueError(f"uniform must be {tuple(wavs.shape)}, got "
@@ -126,8 +137,8 @@ def extract_features(
 
     # gain + dither (make_spect_f0.py:55); the high-pass on the STFT bins
     y = wavs * gain + (uniform - 0.5) * 2.0 * dither
-    bin_gain = torch.from_numpy(_stft_bin_gain(
-        cutoff, float(sample_rate), order, n_fft)).to(dev)
+    bin_gain = _bin_gain_tensor(cutoff, float(sample_rate), order, n_fft,
+                                dev)
 
     mel = mel_spectrogram(y, sample_rate=sample_rate, n_fft=n_fft, hop=hop,
                           n_mels=n_mels, fmin=fmin, fmax=fmax,
@@ -136,6 +147,43 @@ def extract_features(
                         hop=hop, params=pitch_params or PitchParams())
 
     return mel, normalize_log_f0(logf0)
+
+
+def extract_features_scan(
+    wavs,
+    lengths,
+    f0_lo,
+    f0_hi,
+    *,
+    uniform=None,
+    generator: Optional[torch.Generator] = None,
+    compress: bool = False,
+    device=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K same-shape batches of :func:`extract_features`
+    (preprocess.py:189-246): wavs [K, B, N], lengths, f0_lo, f0_hi
+    [K, B] -> (mel [K, B, T, M], f0 [K, B, T]).
+
+    JAX scans the K batches inside one compiled program; here they are K
+    calls, each batch's features those of :func:`extract_features` on it.
+    ``uniform[k]`` holds batch k's [B, N] draws (a [K, B, N] tensor or a
+    sequence of K); else ``generator`` draws them batch after batch.
+    ``compress=True`` returns both in bfloat16, the unvoiced sentinel the
+    bfloat16 nearest -1e10 as in JAX (:224-229)."""
+    out_mel, out_f0 = [], []
+    for k in range(len(wavs)):
+        mel, f0 = extract_features(
+            wavs[k], lengths[k], f0_lo[k], f0_hi[k],
+            uniform=None if uniform is None else uniform[k],
+            generator=generator, device=device)
+        if compress:
+            sentinel = torch.full((), UNVOICED_LOG_F0, dtype=torch.bfloat16,
+                                  device=f0.device)
+            f0 = torch.where(f0 < -1e9, sentinel, f0.to(torch.bfloat16))
+            mel = mel.to(torch.bfloat16)
+        out_mel.append(mel)
+        out_f0.append(f0)
+    return torch.stack(out_mel), torch.stack(out_f0)
 
 
 def normalize_log_f0(logf0: torch.Tensor) -> torch.Tensor:

@@ -174,15 +174,22 @@ class Adam(torch.optim.Optimizer):
     scaled and added), the card may round once where optax rounds twice:
     a float32 ulp.
 
+    optax's ``adamw`` too: ``lr`` may be a schedule, a callable of the
+    count of earlier updates (optax reads its schedule at the count before
+    the update, so a warmup from 0 makes the first update zero), and
+    ``weight_decay`` > 0 decays every parameter in optax's order, the
+    update -lr_t (adam_t + wd p), with no mask.
+
     The state keeps torch Adam's keys (``step``, ``exp_avg`` = mu,
     ``exp_avg_sq`` = nu), so a checkpoint of torch's Adam (the reference's
     ``.ckpt``) loads into it; mu is cast to ``mu_dtype`` on load.
     """
 
-    def __init__(self, params, lr: float, betas=(0.9, 0.999),
+    def __init__(self, params, lr, betas=(0.9, 0.999),
                  eps: float = ADAM_EPS, mu_dtype=torch.float32,
-                 grad_dtype=torch.float32):
-        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps))
+                 grad_dtype=torch.float32, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay))
         self.mu_dtype = mu_dtype
         self.grad_dtype = grad_dtype
 
@@ -243,8 +250,18 @@ class Adam(torch.optim.Optimizer):
                                              for k in counts])
             if mu_hat[0].dtype != f32:
                 mu_hat = [m.float() for m in mu_hat]
-            torch._foreach_addcdiv_(params, mu_hat, denom,
-                                    value=_in(-group["lr"], f32))
+            lr, wd = group["lr"], group["weight_decay"]
+            if not callable(lr) and not wd:
+                torch._foreach_addcdiv_(params, mu_hat, denom,
+                                        value=_in(-lr, f32))
+                continue
+            scales = [_in(-(lr(k - 1) if callable(lr) else lr), f32)
+                      for k in counts]
+            update = torch._foreach_div(mu_hat, denom)
+            if wd:
+                torch._foreach_add_(update, params, alpha=_in(wd, f32))
+            torch._foreach_mul_(update, scales)
+            torch._foreach_add_(params, update)
         return None
 
 

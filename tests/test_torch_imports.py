@@ -115,3 +115,30 @@ def test_config_fields_and_defaults_match_jax():
         SpeechSplitConfig().parse("no_such_key=1")
     assert resolve_dtype("float32") is torch.float32
     assert resolve_dtype("bfloat16") is torch.bfloat16
+
+
+def test_corpus_and_vocoder_trainer_default_to_cuda(monkeypatch, tmp_path):
+    """Corpus preparation and the vocoder's trainer run on CUDA unless
+    told otherwise, and refuse when there is none."""
+    from speechsplit_tpu_torch.cli import preprocess as cli_preprocess
+    from speechsplit_tpu_torch.cli import train_vocoder as cli_train_vocoder
+    from speechsplit_tpu_torch.data.prepare import extract_dir
+    from speechsplit_tpu_torch.vocoder_neural import VocoderTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "wavs").mkdir()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        extract_dir(str(tmp_path / "wavs"), str(tmp_path / "mel"),
+                    str(tmp_path / "f0"), {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_preprocess.main(["--wav_dir", str(tmp_path / "wavs")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VocoderTrainer()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_train_vocoder.main(["--wav_dir", str(tmp_path / "wavs")])
+
+
+def test_scan_covers_the_corpus_and_vocoder_trainer():
+    names = {p.name for p in _port_files()}
+    assert {"prepare.py", "preprocess.py", "metadata.py",
+            "train_vocoder.py", "vocoder_neural.py"} <= names
