@@ -251,6 +251,22 @@ Phases, one line each; any failure exits non-zero:
     the dither's draws made on the host and uploaded beside made on the
     card; ``cli.train`` at the default config for 4 steps on the
     prepared corpus (launches a step as phase 7's, finite losses);
+    ``train resident``: ``build_resident_from_wavs`` on that tree at a
+    bfloat16 store (one ``viterbi_decode`` a batch) equal bit for bit to
+    ``extract_dir(compress_fetch=True)`` -> ``build_resident`` (seconds,
+    MB, bytes an utterance); ``collate_on_device`` equal to the host
+    loader's batches for 6 batches; at the default config 2 resident
+    steps, a ``[2, B]`` resident call and a stacked-host k=4
+    ``make_train_multi_step`` call equal to 8 host-batch steps bit for
+    bit (at float32 within 4 times the host loop's own repeat distance),
+    launches a step as phase 7's; the JAX README's recommended run,
+    ``cli.train --wav_dir --data_on_device --steps_per_dispatch 10
+    --hparams batch_size=32,compute_dtype=bfloat16`` for 50 steps
+    (finite losses, ``50-G.ckpt`` into ``VoiceConverter``, 50 steps'
+    launches); steps a second of the Solver's loop, host and resident at
+    K = 1 and 10, at B16 default and B32 bfloat16 compute, in turns, and
+    the card's idle share of a profiled host K=1 window and one resident
+    K=10 call;
     ``train vocoder``: ``cli.train_vocoder`` at the shipped asset's
     width (256 channels, depth 6), B16, crop 64, 200 iterations at 25
     steps a dispatch on that corpus: finite losses, the last dispatch's
@@ -6314,6 +6330,434 @@ def phase_prepare(gen_per_step: dict, root: str) -> dict:
                                  f"{params.num_cands}", **vit})
 
 
+# [train resident]: device-resident features and K steps a call on the
+# corpus [prepare] wrote
+RESIDENT_GATHER_BATCHES = 6
+# the JAX README's recommended run: cli.train --data_on_device
+# --steps_per_dispatch 10 --hparams "batch_size=32,compute_dtype=bfloat16",
+# here from the wav tree (--wav_dir), 50 steps, a loss logged every 10
+RECOMMENDED_HPARAMS = "batch_size=32,compute_dtype=bfloat16"
+RESIDENT_K = 10
+RESIDENT_CLI_STEPS = 50
+RESIDENT_CLI_LOG = 10
+# Solver steps a timed run (after a warm-up run of one call), rounds of the
+# four loops (host K=1, host K=10, resident K=1, resident K=10) in turns
+RESIDENT_TIMED_STEPS = 40
+RESIDENT_ROUNDS = 2
+# float32 (TF32 off) steps do not repeat bit for bit on the card
+# (ROADMAP.md, "Tracing gaps"); there the mixed trajectory (resident and k-step calls) must lie
+# within this many times the larger distance of two host-loop repeats
+# from the first, parameters (max abs) and losses (max rel) each
+FLOAT32_REPEAT_TIMES = 4.0
+
+
+def resident_trajectory(cfg, dataset, features, utts, per_step: dict,
+                        mixed: bool):
+    """8 generator steps at ``cfg`` from one seeded state on the host
+    loader's first 8 batches: 8 single host-batch steps, or (``mixed``)
+    2 resident steps on ``[B]`` plans, one resident call on a ``[2, B]``
+    plan and one ``make_train_multi_step`` call on the host batches 5-8
+    stacked. Each call's launches (counts set to 0 just before and read
+    just after) must be its steps x ``per_step``. Returns (state, losses
+    [8])."""
+    import torch
+
+    from speechsplit_tpu_torch.data import data_loader
+    from speechsplit_tpu_torch.data import resident as res
+    from speechsplit_tpu_torch.data.prefetch import stack_batches
+    from speechsplit_tpu_torch.training import (
+        create_train_state,
+        make_train_multi_step,
+        make_train_step,
+    )
+
+    state = create_train_state(cfg, SEED, "speechsplit")
+    host = data_loader(dataset, cfg, seed=SEED + 3)
+    plans = res.plan_batches(utts, features.length.cpu().numpy(), cfg,
+                             seed=SEED + 3)
+    single = make_train_step(cfg)
+    resident = res.make_resident_train_step(cfg, features)
+    multi = make_train_multi_step(cfg)
+
+    def host_steps(n):
+        nonlocal state
+        out = []
+        for _ in range(n):
+            state, loss = single(state, next(host))
+            out.append(loss.reshape(1))
+        return out
+
+    def resident_steps(n):
+        nonlocal state
+        out = []
+        for _ in range(n):
+            state, loss = resident(state, next(plans))
+            out.append(loss.reshape(1))
+        return out
+
+    def resident_call(k):
+        nonlocal state
+        state, losses = resident(state, next(res.stack_plans(plans, k)))
+        return [losses]
+
+    def multi_call(k):
+        nonlocal state
+        for _ in range(4):  # the batches the resident calls drew
+            next(host)
+        state, losses = multi(state, next(stack_batches(host, k)))
+        return [losses]
+
+    calls = ((("host", host_steps, 8),) if not mixed else (
+        ("resident [B]", resident_steps, 2),
+        ("resident [2, B]", resident_call, 2),
+        ("host stacked k=4", multi_call, 4)))
+    losses = []
+    for what, call, steps in calls:
+        torch.cuda.synchronize()
+        reset_launches()
+        losses += call(steps)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        for kernel, count in launches.items():
+            if count != steps * per_step.get(kernel, 0):
+                fail(f"train resident {what}: {kernel} launched {count} "
+                     f"times in {steps} steps, expected "
+                     f"{steps * per_step.get(kernel, 0)}")
+    return state, torch.cat(losses)
+
+
+def trajectory_distance(a, b) -> tuple[float, float]:
+    """(max abs parameter difference, max rel loss difference) of two
+    ``resident_trajectory`` results."""
+    (sa, la), (sb, lb) = a, b
+    params = max(float((p.detach() - q.detach()).abs().max())
+                 for p, q in zip(sa.model.parameters(),
+                                 sb.model.parameters()))
+    losses = float(((la - lb).abs() / lb.abs()).max())
+    return params, losses
+
+
+def same_trajectory(a, b) -> bool:
+    import torch
+
+    (sa, la), (sb, lb) = a, b
+    return torch.equal(la, lb) and all(
+        torch.equal(p, q) for p, q in zip(sa.model.state_dict().values(),
+                                          sb.model.state_dict().values()))
+
+
+def timed_solver_run(solver, rc, steps: int) -> float:
+    """Steps a second of ``solver.train()`` for ``steps`` steps: wall time
+    from the call to its return, then a ``torch.cuda.synchronize()``
+    (the loop reads its loss at the end, its only fence)."""
+    import dataclasses
+    import io
+
+    import torch
+
+    solver.rc = dataclasses.replace(rc, num_iters=steps)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        solver.train()
+    torch.cuda.synchronize()
+    return steps / (time.perf_counter() - start)
+
+
+def phase_train_resident(gen_per_step: dict, root: str) -> dict:
+    """Device-resident training data and K steps a call on the corpus
+    ``phase_prepare`` wrote under ``root`` (run after it):
+
+    (a) ``build_resident_from_wavs`` at a bfloat16 store (one
+        ``viterbi_decode`` a batch and nothing else launched) against
+        ``extract_dir(compress_fetch=True)`` -> ``build_metadata`` ->
+        ``build_resident`` (bfloat16) with the same seed, bit for bit;
+        its seconds, MB and utterances a second beside that flow's;
+    (b) ``collate_on_device`` on a float32 store of ``[prepare]``'s
+        feature tree against the host ``data_loader``, bit for bit, for
+        ``RESIDENT_GATHER_BATCHES`` batches;
+    (c) at the default config, 8 host-batch steps against 2 resident
+        steps, a ``[2, B]`` resident call and a stacked-host k=4
+        ``make_train_multi_step`` call from the same state: losses and
+        parameters bit for bit, every call's launches its steps x
+        ``gen_per_step``; at float32 the same within
+        ``FLOAT32_REPEAT_TIMES`` the host loop's own repeat distance;
+    (d) the JAX README's recommended run, ``cli.train --wav_dir
+        --data_on_device --steps_per_dispatch 10 --hparams
+        RECOMMENDED_HPARAMS`` for ``RESIDENT_CLI_STEPS`` steps: one
+        ``viterbi_decode`` a batch of the store, ``RESIDENT_CLI_STEPS`` x
+        ``gen_per_step`` training launches, every logged loss finite, its
+        checkpoint loading into ``VoiceConverter`` and converting a pair
+        to finite mels; then steps a second of the Solver's loop, host and
+        resident at K = 1 and 10, at the default config (B16) and the
+        recommended one (B32), in turns, and the card's idle share of one
+        profiled host K=1 window and one resident K=10 call at each.
+
+    Returns row fields for the kernels' JSON: the launches of one
+    recommended K=10 call and of the store's build."""
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.cli import train as cli_train
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.data import (
+        SpeakerDataset,
+        data_loader,
+        prepare,
+    )
+    from speechsplit_tpu_torch.data import resident as res
+    from speechsplit_tpu_torch.interop import save_reference_checkpoint
+    from speechsplit_tpu_torch.models import F0Converter
+    from speechsplit_tpu_torch.pipeline import VoiceConverter
+    from speechsplit_tpu_torch.training import Solver, SolverConfig
+    from speechsplit_tpu_torch.training import checkpoint as ckpt_lib
+
+    phase_start = time.perf_counter()
+    config = SpeechSplitConfig()
+    wav_dir = os.path.join(root, "wavs")
+    genders = dict(PREP_SPEAKERS)
+    _, entries = prepare._enumerate_entries(wav_dir, genders)
+    batches = -(-len(entries) // PREP_BATCH)
+
+    # (a) the store from the wavs against the archival flow
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    store, utts = res.build_resident_from_wavs(
+        wav_dir, genders, config, torch.bfloat16, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - start
+    launches = read_launches()
+    if launches["viterbi_decode"] != batches or any(
+            v for k, v in launches.items() if k != "viterbi_decode"):
+        fail(f"train resident: build_resident_from_wavs launched "
+             f"{launches}, expected {batches} viterbi_decode (one a batch)")
+    store_launches = launches["viterbi_decode"]
+    mel_c, f0_c = os.path.join(root, "spmel_c"), os.path.join(root,
+                                                             "raptf0_c")
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    prepare.extract_dir(wav_dir, mel_c, f0_c, genders, seed=SEED,
+                        batch_size=PREP_BATCH,
+                        batches_per_dispatch=PREP_DISPATCH,
+                        compress_fetch=True, device="cuda")
+    archival_s = time.perf_counter() - start
+    meta = prepare.build_metadata(mel_c)
+    start = time.perf_counter()
+    disk, disk_utts = res.build_resident(
+        SpeakerDataset(mel_c, f0_c, metadata=meta), config, torch.bfloat16,
+        device="cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - start
+    if utts != disk_utts:
+        fail("train resident: the stores' speaker_utts differ")
+    for field, a, b in zip(store._fields, store, disk):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"train resident: the store's {field} from the wavs "
+                 f"differs from extract_dir -> build_resident's")
+    n_utts, t_pad = store.mel.shape[0], store.mel.shape[1]
+    store_mb = sum(t.numel() * t.element_size() for t in store) / 1e6
+    del disk
+
+    # (b) the gather against the host loader, a float32 store
+    dataset = SpeakerDataset(os.path.join(root, "spmel"),
+                             os.path.join(root, "raptf0"))
+    features, f_utts = res.build_resident(dataset, config, device="cuda")
+    f32_mb = sum(t.numel() * t.element_size() for t in features) / 1e6
+    host = data_loader(dataset, config, seed=SEED)
+    plans = res.plan_batches(f_utts, features.length.cpu().numpy(), config,
+                             seed=SEED)
+    for i in range(RESIDENT_GATHER_BATCHES):
+        got = res.collate_on_device(config, features, next(plans))
+        for field, g, w in zip(got._fields, got, next(host)):
+            w = torch.from_numpy(w)
+            if g.device.type != "cuda" or g.dtype != w.dtype or not (
+                    torch.equal(g.cpu(), w)):
+                fail(f"train resident: gathered batch {i} {field} differs "
+                     f"from the host loader's")
+
+    # (c) the steps: host against resident and k-step calls
+    default_host = resident_trajectory(config, dataset, features, f_utts,
+                                       gen_per_step, mixed=False)
+    default_mixed = resident_trajectory(config, dataset, features, f_utts,
+                                        gen_per_step, mixed=True)
+    if not same_trajectory(default_host, default_mixed):
+        fail(f"train resident: at the default config the resident and "
+             f"k-step calls differ from the host steps: "
+             f"{trajectory_distance(default_host, default_mixed)}")
+    f32 = float32_config()
+    f32_host = [resident_trajectory(f32, dataset, features, f_utts,
+                                    gen_per_step, mixed=False)
+                for _ in range(3)]
+    f32_mixed = resident_trajectory(f32, dataset, features, f_utts,
+                                    gen_per_step, mixed=True)
+    repeat = [trajectory_distance(f32_host[0], h) for h in f32_host[1:]]
+    bar = tuple(FLOAT32_REPEAT_TIMES * max(d[i] for d in repeat)
+                for i in range(2))
+    mixed_d = trajectory_distance(f32_host[0], f32_mixed)
+    if not (mixed_d[0] <= bar[0] and mixed_d[1] <= bar[1]):
+        fail(f"train resident float32: the mixed trajectory is "
+             f"{mixed_d} from the host loop's, the bar {bar} "
+             f"({FLOAT32_REPEAT_TIMES} x the repeats' {repeat})")
+    del default_host, default_mixed, f32_host, f32_mixed
+
+    # (d) the recommended run from the wav tree
+    run = os.path.join(root, "recommended")
+    models = os.path.join(run, "models")
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli_state = cli_train.main([
+            "--wav_dir", wav_dir, "--data_on_device",
+            "--steps_per_dispatch", str(RESIDENT_K),
+            "--hparams", RECOMMENDED_HPARAMS,
+            "--num_iters", str(RESIDENT_CLI_STEPS),
+            "--log_step", str(RESIDENT_CLI_LOG),
+            "--model_save_step", str(RESIDENT_CLI_STEPS),
+            "--sample_step", "1000", "--model_save_dir", models,
+            "--log_dir", os.path.join(run, "logs"),
+            "--sample_dir", os.path.join(run, "samples"),
+            "--validation_path", os.path.join(root, "no_such.pkl"),
+            "--spk2gen", os.path.join(root, "spk2gen.pkl"),
+            "--seed", str(SEED), "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - start
+    launches = read_launches()
+    for kernel, count in launches.items():
+        want = (batches if kernel == "viterbi_decode"
+                else RESIDENT_CLI_STEPS * gen_per_step.get(kernel, 0))
+        if count != want:
+            fail(f"train resident cli.train: {kernel} launched {count} "
+                 f"times, expected {want} ({RESIDENT_CLI_STEPS} steps, "
+                 f"{batches} store batches)")
+    losses = [float(v) for v in re.findall(r"loss_id: (\S+),",
+                                           out.getvalue())]
+    if len(losses) != RESIDENT_CLI_STEPS // RESIDENT_CLI_LOG or not (
+            np.isfinite(losses).all()) or cli_state.step != (
+            RESIDENT_CLI_STEPS):
+        fail(f"train resident cli.train: logged losses {losses}, step "
+             f"{cli_state.step}")
+    g_path = ckpt_lib.checkpoint_path(models, RESIDENT_CLI_STEPS, "G")
+    p_path = os.path.join(run, "P.ckpt")
+    save_reference_checkpoint(F0Converter(
+        config, generator=torch.Generator().manual_seed(SEED)), p_path)
+    converter = VoiceConverter.from_checkpoints(g_path, p_path,
+                                                config=config, device="cuda")
+    src, trg = (os.path.join(wav_dir, spk, f"{spk}_000.wav")
+                for spk in ("p225", "p227"))
+    mels = converter.convert_wav_files(src, trg, synthesize=False)
+    if len(mels) != 7 or not all(np.isfinite(m["mel"]).all()
+                                 for m in mels.values()):
+        fail(f"train resident: {g_path} converts to non-finite mels")
+    del converter, cli_state
+    per_call = {k: launches[k] // (RESIDENT_CLI_STEPS // RESIDENT_K)
+                for k in TRAINING_KERNELS}
+
+    # readings: the four loops in turns at two configs, then profiles
+    def run_config(k: int, on_device: bool, tag: str):
+        return SolverConfig(
+            num_iters=RESIDENT_TIMED_STEPS, log_step=RESIDENT_TIMED_STEPS,
+            model_save_step=1000, sample_step=1000,
+            model_save_dir=os.path.join(run, tag, "models"),
+            log_dir=os.path.join(run, tag, "logs"),
+            sample_dir=os.path.join(run, tag, "samples"),
+            validation_path=os.path.join(root, "no_such.pkl"), seed=SEED,
+            steps_per_dispatch=k, data_on_device=on_device)
+
+    loops = (("host_k1", 1, False), (f"host_k{RESIDENT_K}", RESIDENT_K, False),
+             ("resident_k1", 1, True),
+             (f"resident_k{RESIDENT_K}", RESIDENT_K, True))
+    readings = {}
+    for label, hparams in (("default_b16", ""),
+                           ("recommended_b32", RECOMMENDED_HPARAMS)):
+        cfg = config.parse(hparams) if hparams else config
+        solvers = {}
+        with contextlib.redirect_stdout(io.StringIO()):
+            for name, k, on_device in loops:
+                rc = run_config(k, on_device, f"{label}_{name}")
+                solvers[name] = (Solver(
+                    None if on_device else data_loader(dataset, cfg,
+                                                       seed=SEED),
+                    rc, cfg, resident=(features, f_utts) if on_device
+                    else None, device="cuda"), rc)
+        rates = {name: [] for name in solvers}
+        for name, (solver, rc) in solvers.items():  # warm-up, one call
+            timed_solver_run(solver, rc, RESIDENT_K)
+        for r in range(RESIDENT_ROUNDS):
+            order = list(solvers) if r % 2 == 0 else list(solvers)[::-1]
+            for name in order:
+                solver, rc = solvers[name]
+                rates[name].append(timed_solver_run(solver, rc,
+                                                    RESIDENT_TIMED_STEPS))
+        for name in ("host_k1", f"resident_k{RESIDENT_K}"):
+            solver, rc = solvers[name]
+            trace_dir = os.path.join(run, f"{label}_{name}_trace")
+            solver.rc = dataclasses.replace(
+                rc, num_iters=2 * RESIDENT_K, profile_dir=trace_dir,
+                profile_start=RESIDENT_K, profile_steps=RESIDENT_K)
+            torch.cuda.synchronize()
+            with contextlib.redirect_stdout(io.StringIO()):
+                solver.train()
+            span, busy = trace_busy(os.path.join(
+                trace_dir, f"trace_{2 * RESIDENT_K}.json"))
+            if not busy > 0:
+                fail(f"train resident {label} {name}: the profiled window "
+                     f"holds no device time")
+            readings[f"{label}_{name}_profiled_span_ms"] = f"{span:.4f}"
+            readings[f"{label}_{name}_profiled_busy_ms"] = f"{busy:.4f}"
+            readings[f"{label}_{name}_idle_share"] = (
+                f"{1 - busy / span:.4f}")
+        for name, values in rates.items():
+            readings[f"{label}_{name}_steps_per_s"] = ",".join(
+                f"{v:.3f}" for v in values)
+        del solvers
+    torch.cuda.empty_cache()
+
+    log("train resident", corpus_utterances=n_utts,
+        store_batches=batches, store_viterbi_launches=store_launches,
+        store_equal_extract_dir_build_resident="bfloat16 bit for bit",
+        build_resident_from_wavs_s=f"{build_s:.4f}",
+        build_utterances_per_s=f"{n_utts / build_s:.1f}",
+        build_ms_per_utterance=f"{build_s * 1e3 / n_utts:.4f}",
+        extract_dir_compress_fetch_s=f"{archival_s:.4f}",
+        extract_dir_ms_per_utterance=f"{archival_s * 1e3 / n_utts:.4f}",
+        build_resident_upload_s=f"{upload_s:.4f}",
+        store_t_pad=t_pad, store_mb_bfloat16=f"{store_mb:.3f}",
+        store_mb_float32=f"{f32_mb:.3f}",
+        bytes_an_utterance_bfloat16=t_pad * (config.dim_freq + 1) * 2
+        + 4 * config.dim_spk_emb + 4,
+        bytes_an_utterance_float32=t_pad * (config.dim_freq + 1) * 4
+        + 4 * config.dim_spk_emb + 4,
+        bytes_note="every row holds T_pad = longest + max_len_pad frames",
+        gather_batches=RESIDENT_GATHER_BATCHES,
+        gather_equal_host_loader="bit for bit",
+        default_steps_equal="bit for bit (losses, parameters)",
+        float32_params_abs_diff=f"{mixed_d[0]:.3g}",
+        float32_loss_rel_diff=f"{mixed_d[1]:.3g}",
+        float32_repeat_params_abs_diff=",".join(
+            f"{d[0]:.3g}" for d in repeat),
+        float32_repeat_loss_rel_diff=",".join(f"{d[1]:.3g}" for d in repeat),
+        float32_bar=f"{FLOAT32_REPEAT_TIMES} x the larger repeat: "
+        f"{bar[0]:.3g} abs, {bar[1]:.3g} rel",
+        launches_a_step=json.dumps(gen_per_step).replace(" ", ""),
+        cli_steps=RESIDENT_CLI_STEPS, cli_k=RESIDENT_K,
+        cli_hparams=RECOMMENDED_HPARAMS, cli_s=f"{cli_s:.4f}",
+        cli_losses=",".join(f"{v:.6f}" for v in losses),
+        cli_checkpoint=f"{RESIDENT_CLI_STEPS}-G.ckpt into VoiceConverter, "
+        "7 finite mels",
+        cli_launches_a_call=json.dumps(per_call).replace(" ", ""),
+        timed_steps=RESIDENT_TIMED_STEPS, rounds=RESIDENT_ROUNDS,
+        timing="Solver.train() wall to a synchronize, after one warm-up "
+        "call, the four loops in turns",
+        **readings, phase_s=f"{time.perf_counter() - phase_start:.1f}")
+    return dict(store_launches=store_launches, per_call=per_call)
+
+
 def flat_grads(model) -> dict:
     return {k: p.grad.detach().double().cpu()
             for k, p in model.named_parameters()}
@@ -7032,6 +7476,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as corpus_root:
         rows["viterbi_decode"].update(phase_prepare(gen_per_step,
                                                     corpus_root))
+        resident = phase_train_resident(gen_per_step, corpus_root)
         phase_train_vocoder(corpus_root)
     rows.update(phase_fused_kernels())
     fused_convert = phase_convert_fused()
@@ -7057,6 +7502,12 @@ def main() -> int:
     for name in ("lstm_fwd", "lstm_bwd"):
         launches[name] = single_gen[name]
         f0_launches[name] = single_f0[name]
+    # the device-resident paths: one call of the recommended run (10
+    # steps, B32, bfloat16 compute) and the store's build from the wavs
+    for name in TRAINING_KERNELS:
+        rows[name]["launches_resident_k10_call"] = resident["per_call"][name]
+    rows["viterbi_decode"]["launches_resident_store_build"] = resident[
+        "store_launches"]
     kernels = []
     for name, meta in KERNELS.items():
         row = dict(name=name, **meta, launches=launches[name], **rows[name])

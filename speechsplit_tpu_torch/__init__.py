@@ -22,7 +22,9 @@ host work), synthesis (``vocoder.GriffinLimVocoder``,
 ``vocoder_neural.load_vocoder``), conversion (``convert``,
 ``cli.convert``) and training (``training.create_train_state``,
 ``training.make_train_step``, ``training.make_f0_train_step``,
-``training.Solver``, ``cli.train``, and the vocoder's
+``training.make_train_multi_step``, ``training.Solver``, ``cli.train``,
+the device-resident store ``data.resident.build_resident`` and
+``build_resident_from_wavs``, and the vocoder's
 ``vocoder_neural.VocoderTrainer``, ``cli.train_vocoder``).
 Each runs one-hot speaker embeddings or, with
 ``spk_emb_mode="learned"``, the SpeakerEncoder's zero-shot ones.

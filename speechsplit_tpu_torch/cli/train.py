@@ -6,6 +6,16 @@ The JAX package's flag surface (the reference's main.py:41-59 plus
     python -m speechsplit_tpu_torch.cli.train --num_iters 1000 \\
         --hparams "root_dir=spmel,feat_dir=raptf0"
 
+The JAX README's recommended run (the features on the card, 10 steps a
+call, bfloat16 compute at B32), and the same straight from a wav tree:
+
+    python -m speechsplit_tpu_torch.cli.train --data_on_device \\
+        --steps_per_dispatch 10 \\
+        --hparams "root_dir=spmel,feat_dir=raptf0,batch_size=32,compute_dtype=bfloat16"
+    python -m speechsplit_tpu_torch.cli.train --wav_dir wavs \\
+        --data_on_device --steps_per_dispatch 10 \\
+        --hparams "batch_size=32,compute_dtype=bfloat16"
+
 Runs on ``cuda`` unless ``--device cpu`` is given. The default config
 trains as it stands: bfloat16 residuals and Adam mu, float32 gradients,
 TF32 matmuls and convolutions (``matmul_precision="default"``);
@@ -14,11 +24,7 @@ adam_mu_dtype=float32,matmul_precision=highest`` trains in float32
 throughout); ``compute_dtype=bfloat16`` trains at bfloat16 compute on
 the default route; ``spk_emb_mode=learned[,spk_contrast_weight=0.1]``
 trains the generator with a learned speaker encoder (zero-shot timbre
-codes). Flags of
-work still queued in ROADMAP.md raise naming it: ``--num_devices`` above 1 (A8),
-``--steps_per_dispatch`` above 1, ``--data_on_device`` and
-``--resident_dtype bfloat16`` (A3), and ``--wav_dir`` and ``--spk2gen``
-(A6).
+codes). ``--num_devices`` above 1 raises naming ROADMAP.md A8.
 """
 
 from __future__ import annotations
@@ -72,21 +78,29 @@ def _parser() -> argparse.ArgumentParser:
         "A8)")
     parser.add_argument(
         "--steps_per_dispatch", type=int, default=1,
-        help="1 only (more: ROADMAP.md A3)")
+        help="stage N batches per transfer and run them as one call of "
+        "the train step; must divide the log/save/sample cadences. "
+        "Identical training trajectory")
     parser.add_argument(
         "--data_on_device", action="store_true",
-        help="refused: device-resident features are ROADMAP.md A3")
+        help="upload ALL features to the card once and collate there; "
+        "the host sends only crop indices per step. Bit-identical "
+        "batches to the host loader (use when the corpus fits in device "
+        "memory)")
     parser.add_argument(
         "--resident_dtype", default="float32",
         choices=["float32", "bfloat16"],
-        help="float32 only: the dtype of --data_on_device features "
-        "(bfloat16: ROADMAP.md A3)")
+        help="storage dtype for --data_on_device features (bfloat16 "
+        "halves device memory at ~4e-3 feature quantization)")
     parser.add_argument(
         "--wav_dir", default="",
-        help="refused: training from a wav tree is ROADMAP.md A6")
+        help="train STRAIGHT from a wav tree: extract features on the "
+        "card into the device feature store (no .npy trees, no "
+        "root_dir/feat_dir needed). Requires --data_on_device. Speaker "
+        "genders from --spk2gen when present")
     parser.add_argument(
-        "--spk2gen", default=None,
-        help="refused: the speaker genders of --wav_dir (ROADMAP.md A6)")
+        "--spk2gen", default="assets/spk2gen.pkl",
+        help="speaker->gender pickle for --wav_dir (else all 'M')")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda)")
     return parser
@@ -97,26 +111,22 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             f"--num_devices {args.num_devices}: training on more than one "
             "device is queued in ROADMAP.md A8")
-    if args.steps_per_dispatch > 1:
-        raise NotImplementedError(
-            f"--steps_per_dispatch {args.steps_per_dispatch}: K steps a "
-            "dispatch is queued in ROADMAP.md A3")
-    if args.data_on_device:
-        raise NotImplementedError(
-            "--data_on_device: device-resident features are queued in "
-            "ROADMAP.md A3")
-    if args.resident_dtype != "float32":
-        raise NotImplementedError(
-            f"--resident_dtype {args.resident_dtype}: the dtype of "
-            "device-resident features is queued in ROADMAP.md A3")
-    if args.wav_dir:
-        raise NotImplementedError(
-            "--wav_dir: training from a wav tree (the DSP front end) is "
-            "queued in ROADMAP.md A6")
-    if args.spk2gen is not None:
-        raise NotImplementedError(
-            "--spk2gen: the speaker genders of a wav tree (--wav_dir) are "
-            "queued in ROADMAP.md A6")
+
+
+def _read_spk2gen(path: str, wav_dir: str) -> dict:
+    """Speaker genders for ``--wav_dir`` (JAX cli/train.py:120-128): the
+    pickle at ``path`` when it exists (unpickling runs code: load only
+    files this project wrote), every other speaker directory "M"."""
+    import pickle
+
+    spk2gen = {}
+    if os.path.exists(path):
+        with open(path, "rb") as handle:
+            spk2gen = dict(pickle.load(handle))
+    for s in sorted(os.listdir(wav_dir)):
+        if os.path.isdir(os.path.join(wav_dir, s)):
+            spk2gen.setdefault(s, "M")
+    return spk2gen
 
 
 def main(argv=None):
@@ -125,7 +135,7 @@ def main(argv=None):
     _refuse_unported(args)
 
     from speechsplit_tpu_torch import resolve_device
-    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.config import SpeechSplitConfig, resolve_dtype
     from speechsplit_tpu_torch.data.dataset import SpeakerDataset
     from speechsplit_tpu_torch.data.loader import data_loader
     from speechsplit_tpu_torch.training.solver import Solver, SolverConfig
@@ -141,9 +151,22 @@ def main(argv=None):
     for d in (args.log_dir, args.model_save_dir, args.sample_dir):
         os.makedirs(d, exist_ok=True)
 
-    dataset = SpeakerDataset(config.root_dir, config.feat_dir,
-                             mode=config.mode, eager=not args.lazy_data)
-    loader = data_loader(dataset, config, seed=args.seed)
+    dataset = loader = resident = None
+    if args.wav_dir:
+        if not args.data_on_device:
+            raise SystemExit("--wav_dir requires --data_on_device")
+        from speechsplit_tpu_torch.data.resident import (
+            build_resident_from_wavs,
+        )
+
+        resident = build_resident_from_wavs(
+            args.wav_dir, _read_spk2gen(args.spk2gen, args.wav_dir), config,
+            store_dtype=resolve_dtype(args.resident_dtype), seed=args.seed,
+            device=device)
+    else:
+        dataset = SpeakerDataset(config.root_dir, config.feat_dir,
+                                 mode=config.mode, eager=not args.lazy_data)
+        loader = data_loader(dataset, config, seed=args.seed)
     run_config = SolverConfig(
         num_iters=args.num_iters,
         resume_iters=args.resume_iters,
@@ -160,8 +183,12 @@ def main(argv=None):
         compress_transfers=args.compress_transfers,
         keep_checkpoints=args.keep_checkpoints,
         profile_dir=args.profile_dir,
+        steps_per_dispatch=args.steps_per_dispatch,
+        data_on_device=args.data_on_device,
+        resident_dtype=args.resident_dtype,
     )
-    return Solver(loader, run_config, config, device=device).train()
+    return Solver(loader, run_config, config, dataset=dataset,
+                  resident=resident, device=device).train()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Background host->device prefetch (counterpart of
-speechsplit_tpu/data/prefetch.py::prefetch_to_device).
+speechsplit_tpu/data/prefetch.py: ``stack_batches`` :22 and
+``prefetch_to_device``).
 
 The reference copies four tensors to the GPU synchronously inside its
 hot loop (solver.py:147-150). Here a background thread turns each numpy
@@ -9,7 +10,10 @@ the card before the step asks for them. The consumer's stream waits on
 an event recorded after each batch's copies, and every tensor is marked
 used on the consumer's stream (``record_stream``): without that the
 caching allocator, which sees the tensor as the side stream's, could
-hand its memory to the next copy while the step still reads it.
+hand its memory to the next copy while the step still reads it. Any
+named tuple of arrays travels: a ``Batch``, a stacked ``[k, ...]`` batch
+(:func:`stack_batches`) or a crop plan of the device-resident path
+(``data.resident.Plan``).
 
 An exception raised by the source iterator (or by the transfer) is
 re-raised by the consumer at the batch it stopped; the JAX package's
@@ -21,13 +25,14 @@ from __future__ import annotations
 import contextlib
 import queue
 import threading
-from typing import Iterator, NamedTuple
+from typing import Iterator, NamedTuple, TypeVar
 
 import numpy as np
 import torch
 
 from speechsplit_tpu_torch import resolve_device
-from speechsplit_tpu_torch.data.collator import Batch
+
+T = TypeVar("T", bound=tuple)
 
 
 class _Failed(NamedTuple):
@@ -35,6 +40,22 @@ class _Failed(NamedTuple):
 
 
 _DONE = object()
+
+
+def stack_batches(iterator: Iterator[T], k: int) -> Iterator[T]:
+    """Group k host batches into one with a leading ``[k]`` axis on every
+    field (JAX prefetch.py:22), for ``make_train_multi_step``: one
+    transfer and one call then advance the model k steps. A trailing
+    group smaller than k is dropped (the training sampler never ends).
+    Works on any named tuple of arrays (``Batch``, ``Plan``)."""
+    if k <= 0:
+        raise ValueError(f"k must be positive, got {k}")
+    group = []
+    for batch in iterator:
+        group.append(batch)
+        if len(group) == k:
+            yield type(batch)(*(np.stack(xs) for xs in zip(*group)))
+            group = []
 
 
 def _to_tensor(x, compress: bool) -> torch.Tensor:
@@ -45,15 +66,16 @@ def _to_tensor(x, compress: bool) -> torch.Tensor:
 
 
 def prefetch_to_device(
-    iterator: Iterator[Batch],
+    iterator: Iterator[T],
     *,
     size: int = 2,
     device=None,
     compress: bool = False,
-) -> Iterator[Batch]:
+) -> Iterator[T]:
     """Wrap a host batch iterator with background transfer to ``device``
-    (``cuda`` unless told otherwise); yields ``Batch``es of tensors there,
-    in the source's order, at most ``size`` ahead of the consumer.
+    (``cuda`` unless told otherwise); yields each item rebuilt as its own
+    named tuple of tensors there, in the source's order, at most ``size``
+    ahead of the consumer.
 
     ``compress=True`` sends float32 features as ``torch.bfloat16`` (half
     the bytes; the train step's ``_upcast_batch`` casts them back, at
@@ -76,15 +98,15 @@ def prefetch_to_device(
                 continue
         return False
 
-    def transfer(batch: Batch):
+    def transfer(batch: T):
         host = [_to_tensor(x, compress) for x in batch]
         if not cuda:
-            return Batch(*host), None
+            return type(batch)(*host), None
         with torch.cuda.stream(copy_stream):
             moved = [t.pin_memory().to(dev, non_blocking=True) for t in host]
             ready = torch.cuda.Event()
             ready.record(copy_stream)
-        return Batch(*moved), ready
+        return type(batch)(*moved), ready
 
     def worker():
         try:
@@ -114,7 +136,7 @@ class _Prefetched:
     def __iter__(self) -> "_Prefetched":
         return self
 
-    def __next__(self) -> Batch:
+    def __next__(self) -> tuple:
         if self._ended:
             raise StopIteration
         item = self._buf.get()

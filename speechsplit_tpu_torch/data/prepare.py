@@ -194,10 +194,12 @@ def _staged_groups(
         reader.join()
 
 
-def _upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``: through pinned memory without waiting
-    for the card on CUDA (a pageable upload waits for the stream)."""
-    tensor = torch.from_numpy(np.ascontiguousarray(array))
+def _upload(array, device: torch.device) -> torch.Tensor:
+    """A host array or tensor on ``device``: through pinned memory
+    without waiting for the card on CUDA (a pageable upload waits for the
+    stream)."""
+    tensor = (array if isinstance(array, torch.Tensor)
+              else torch.from_numpy(np.ascontiguousarray(array)))
     if device.type != "cuda":
         return tensor
     return tensor.pin_memory().to(device, non_blocking=True)

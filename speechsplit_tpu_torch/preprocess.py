@@ -17,9 +17,10 @@ its U(0, 1) draws as a ``uniform`` [B, N] tensor or draws them from a
 ``torch.Generator`` the caller passes, on that generator's device (JAX
 PRNG streams cannot be reproduced in torch, so the tests inject JAX's
 draws). :func:`extract_features_scan` runs K same-shape batches, the
-call ``data.prepare.extract_dir`` makes. The store variant
-(``extract_into_store``) waits in ROADMAP.md A6c, the waveform
-high-pass (``highpass_mode="time"``) in A6.
+call ``data.prepare.extract_dir`` makes; :func:`extract_into_store`
+writes K batches' features straight into a device-resident store
+(``data.resident.build_resident_from_wavs``). The waveform high-pass
+(``highpass_mode="time"``) waits in ROADMAP.md A6.
 """
 
 from __future__ import annotations
@@ -184,6 +185,67 @@ def extract_features_scan(
         out_mel.append(mel)
         out_f0.append(f0)
     return torch.stack(out_mel), torch.stack(out_f0)
+
+
+def extract_into_store(
+    mel_store: torch.Tensor,
+    f0_store: torch.Tensor,
+    wavs,
+    lengths,
+    f0_lo,
+    f0_hi,
+    uids,
+    *,
+    uniform=None,
+    generator: Optional[torch.Generator] = None,
+    hop: int = 256,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K same-shape batches extracted and written in place into a
+    device-resident feature store (preprocess.py:249-310): the features
+    never leave the device.
+
+    Each batch is :func:`extract_features` on it (the draws as
+    :func:`extract_features_scan` takes them), each row masked past its
+    ``frame_count`` (mel 0, F0 ``UNVOICED_LOG_F0``, the padding
+    ``data.resident.build_resident`` gives), cast to the store's dtype
+    and written at ``[uid, :T_batch]``.
+
+    Args:
+      mel_store: [U, T_pad, n_mels] store (float32 or bfloat16), written
+        in place. f0_store: [U, T_pad], likewise.
+      wavs, lengths, f0_lo, f0_hi: [K, B, N] and [K, B] host arrays, as
+        :func:`extract_features_scan`'s.
+      uids: [K, B] host row ids into the store. JAX drops rows at
+        ``uid >= U`` (the repeats that fill a short group); the port's
+        groups hold no repeats, so a row out of range raises.
+
+    Returns (mel_store, f0_store).
+    """
+    uids = np.asarray(uids)
+    u, t_pad = f0_store.shape
+    if uids.size and (uids.min() < 0 or uids.max() >= u):
+        raise ValueError(f"uids must lie in [0, {u}), got "
+                         f"{uids.min()}..{uids.max()}")
+    dev = f0_store.device
+    rows = torch.from_numpy(uids.astype(np.int64))
+    if dev.type == "cuda":  # a pageable upload would wait for the card
+        rows = rows.pin_memory().to(dev, non_blocking=True)
+    for k in range(len(wavs)):
+        mel, f0 = extract_features(
+            wavs[k], lengths[k], f0_lo[k], f0_hi[k],
+            uniform=None if uniform is None else uniform[k],
+            generator=generator, device=dev, hop=hop)
+        t = mel.shape[1]
+        if t > t_pad:
+            raise ValueError(f"a batch of {t} frames does not fit a store "
+                             f"of {t_pad}")
+        frames = _as_tensor(lengths[k], dev, torch.int64) // hop + 1
+        keep = torch.arange(t, device=dev)[None, :] < frames[:, None]
+        mel_store[rows[k], :t] = torch.where(
+            keep[..., None], mel, 0.0).to(mel_store.dtype)
+        f0_store[rows[k], :t] = torch.where(
+            keep, f0, UNVOICED_LOG_F0).to(f0_store.dtype)
+    return mel_store, f0_store
 
 
 def normalize_log_f0(logf0: torch.Tensor) -> torch.Tensor:

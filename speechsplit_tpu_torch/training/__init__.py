@@ -8,6 +8,7 @@ from speechsplit_tpu_torch.training.train_step import (
     generator_loss,
     make_f0_train_step,
     make_optimizer,
+    make_train_multi_step,
     make_train_step,
 )
 from speechsplit_tpu_torch.training.solver import Solver, SolverConfig
@@ -20,6 +21,7 @@ __all__ = [
     "f0_loss",
     "make_train_step",
     "make_f0_train_step",
+    "make_train_multi_step",
     "Solver",
     "SolverConfig",
 ]

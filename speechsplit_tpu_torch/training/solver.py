@@ -5,6 +5,19 @@ periodic logging, checkpoints, demo-set validation and 5-panel ablation
 spectrogram renders, on the port's train steps and background prefetch
 to the card. Also trains the F0 converter (``model="f0_converter"``).
 
+Two of JAX's options change what a loop iteration is:
+- ``steps_per_dispatch`` k > 1: k host batches stacked
+  (``data.prefetch.stack_batches``) and run by ``make_train_multi_step``
+  in one call; the log, checkpoint and validation cadences must fall on
+  those boundaries;
+- ``data_on_device``: the corpus's features live on the card
+  (``data.resident``), and the loop feeds crop plans, ``[B]`` or
+  ``[k, B]``, instead of batches; the plans restart from the seed on a
+  resume, as the host loader does.
+Either way a run is the host loader's trajectory at k = 1: the same
+batches and draws, the same steps (bit for bit wherever a step repeats
+bit for bit: on the CPU, and on the card at the default config).
+
 The loss stays on the card between log steps: the loop reads it on the
 host only at ``log_step``, so the loop adds no host synchronization to
 a step.
@@ -24,9 +37,12 @@ import numpy as np
 import torch
 
 from speechsplit_tpu_torch import resolve_device
-from speechsplit_tpu_torch.config import SpeechSplitConfig
+from speechsplit_tpu_torch.config import SpeechSplitConfig, resolve_dtype
 from speechsplit_tpu_torch.data.collator import Batch
-from speechsplit_tpu_torch.data.prefetch import prefetch_to_device
+from speechsplit_tpu_torch.data.prefetch import (
+    prefetch_to_device,
+    stack_batches,
+)
 from speechsplit_tpu_torch.ops.masks import pad_time_axis
 from speechsplit_tpu_torch.ops.quantize import quantize_f0_onehot
 from speechsplit_tpu_torch.training import checkpoint as ckpt_lib
@@ -34,6 +50,7 @@ from speechsplit_tpu_torch.training.train_step import (
     TrainState,
     create_train_state,
     make_f0_train_step,
+    make_train_multi_step,
     make_train_step,
 )
 from speechsplit_tpu_torch.utils.profiling import StepTimer
@@ -61,22 +78,32 @@ class SolverConfig:
     profile_steps: int = 5
     compress_transfers: bool = False  # bf16 host->device feature feed
     keep_checkpoints: int = 0         # 0 = keep all (reference behavior)
-    # K steps a dispatch and device-resident data: ROADMAP.md A3
+    # >1: this many steps a call of the train step (make_train_multi_step);
+    # must divide the log, save and sample steps and num_iters
     steps_per_dispatch: int = 1
+    # the features on the card, collated there from [B] crop plans
+    # (data.resident); needs Solver(dataset=...) or Solver(resident=...)
     data_on_device: bool = False
+    resident_dtype: str = "float32"  # or "bfloat16": half the store
+
+
+def check_cadence(run_config: SolverConfig) -> None:
+    """Refuse a log, save or sample step, or a run length, that falls
+    inside a k-step call (JAX solver.py:169-181)."""
+    k = run_config.steps_per_dispatch
+    if k < 1:
+        raise ValueError(f"steps_per_dispatch must be positive, got {k}")
+    for name in ("log_step", "model_save_step", "sample_step", "num_iters"):
+        val = getattr(run_config, name)
+        if val % k:
+            raise ValueError(
+                f"steps_per_dispatch={k} must divide {name}={val} so "
+                "logging/checkpoint events land on dispatch boundaries")
 
 
 def check_run_config(run_config: SolverConfig,
                      config: SpeechSplitConfig) -> None:
     """Refuse what the port's solver does not run yet."""
-    if run_config.data_on_device:
-        raise NotImplementedError(
-            "data_on_device (device-resident features) is queued in "
-            "ROADMAP.md A3")
-    if run_config.steps_per_dispatch > 1:
-        raise NotImplementedError(
-            f"steps_per_dispatch={run_config.steps_per_dispatch}: K steps "
-            "a dispatch is queued in ROADMAP.md A3")
     if math.prod(config.mesh_shape) > 1:
         raise NotImplementedError(
             f"mesh_shape={config.mesh_shape}: training on more than one "
@@ -90,13 +117,21 @@ class Solver:
         run_config: SolverConfig,
         config: SpeechSplitConfig,
         dataset=None,
+        resident=None,
         device=None,
     ):
         """``loader`` yields numpy ``Batch``es (``data.data_loader``);
-        ``device`` is ``cuda`` unless told otherwise. ``dataset`` is
-        unused: it is kept for the JAX package's signature, where only
-        ``data_on_device`` reads it, and that raises here."""
+        ``device`` is ``cuda`` unless told otherwise. With
+        ``data_on_device`` the loader is not read: the store is
+        ``resident`` (``(features, speaker_utts)``, such as
+        ``data.resident.build_resident_from_wavs`` returns) or is built
+        from ``dataset`` at ``resident_dtype``."""
         check_run_config(run_config, config)
+        check_cadence(run_config)
+        if run_config.data_on_device and resident is None and dataset is None:
+            raise ValueError(
+                "data_on_device=True requires Solver(dataset=...) "
+                "or Solver(resident=(features, speaker_utts))")
         self.loader = loader
         self.rc = run_config
         self.config = config
@@ -104,9 +139,25 @@ class Solver:
         self.state = create_train_state(config, run_config.seed,
                                         run_config.model, self.device)
         self.tag = "G" if run_config.model == "speechsplit" else "P"
-        make = (make_train_step if run_config.model == "speechsplit"
-                else make_f0_train_step)
-        self.train_step = make(config)
+        self._resident = None
+        if run_config.data_on_device:
+            # imported here: data.resident imports the training package
+            from speechsplit_tpu_torch.data import resident as resident_lib
+
+            if resident is None:
+                resident = resident_lib.build_resident(
+                    dataset, config,
+                    store_dtype=resolve_dtype(run_config.resident_dtype),
+                    device=self.device)
+            self._resident = resident
+            self.train_step = resident_lib.make_resident_train_step(
+                config, resident[0], run_config.model)
+        elif run_config.steps_per_dispatch > 1:
+            self.train_step = make_train_multi_step(config, run_config.model)
+        else:
+            make = (make_train_step if run_config.model == "speechsplit"
+                    else make_f0_train_step)
+            self.train_step = make(config)
 
         n_params = sum(p.numel() for p in self.state.model.parameters())
         print(f"{self.tag}: {n_params} parameters")
@@ -138,28 +189,42 @@ class Solver:
             ckpt_lib.restore_checkpoint(
                 rc.model_save_dir, rc.resume_iters, self.state, self.tag)
 
-        batches = prefetch_to_device(self.loader, device=self.device,
+        k = rc.steps_per_dispatch
+        if self._resident is not None:
+            from speechsplit_tpu_torch.data import resident as resident_lib
+
+            features, speaker_utts = self._resident
+            loader = resident_lib.plan_batches(
+                speaker_utts, features.length.cpu().numpy(), self.config,
+                seed=rc.seed)
+        else:
+            loader = self.loader
+        if k > 1:
+            loader = stack_batches(loader, k)
+        batches = prefetch_to_device(loader, device=self.device,
                                      compress=rc.compress_transfers)
         print("Start training...")
         start_time = time.time()
         timer = StepTimer()
         profiler, profile_end = None, None
         try:
-            for i in range(start_iters, num_iters):
+            for i in range(start_iters, num_iters, k):
                 batch = next(batches)
                 if (rc.profile_dir and profile_end is None
                         and i >= start_iters + rc.profile_start):
                     profiler = self._start_profiler()
                     profile_end = i + rc.profile_steps
                 self.state, loss = self.train_step(self.state, batch)
-                timer.tick()
+                timer.tick(k)
+                i += k - 1  # the dispatch's last step, for the cadences
                 if profiler is not None and i + 1 >= profile_end:
                     self._stop_profiler(profiler, i + 1)
                     profiler = None
 
                 if (i + 1) % rc.log_step == 0:
-                    self._log(i + 1, num_iters, float(loss), timer,
-                              start_time)
+                    # a k-step call's losses: the last step's is logged
+                    self._log(i + 1, num_iters, float(loss.reshape(-1)[-1]),
+                              timer, start_time)
                 if (i + 1) % rc.model_save_step == 0:
                     path = ckpt_lib.save_checkpoint(
                         rc.model_save_dir, i + 1, self.state, self.tag)

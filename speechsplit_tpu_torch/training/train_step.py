@@ -448,3 +448,38 @@ def make_f0_train_step(
     """The F0-converter train step, as :func:`make_train_step` (the JAX
     package's ``make_f0_train_step`` and ``make_f0_train_step_fn``)."""
     return _make_step(config, f0_loss)
+
+
+def make_train_multi_step(
+    config: SpeechSplitConfig,
+    model: str = "speechsplit",
+) -> Callable[[TrainState, Batch], Tuple[TrainState, torch.Tensor]]:
+    """K train steps a call (JAX train_step.py:297-347): ``step(state,
+    batches) -> (state, losses)`` takes a batch whose fields carry a
+    leading ``[k]`` axis (``data.prefetch.stack_batches``) and runs the
+    generator's (``model="speechsplit"``) or the F0 converter's step on
+    each slice in order; ``losses`` is a ``[k]`` tensor on the device,
+    and nothing is read on the host inside the call.
+
+    JAX scans the k steps inside one compiled program, within fusion
+    noise of k single dispatches. Here the k steps are the single step's
+    own calls, drawing from ``TrainState.generator`` in the same order,
+    so a k-step call is k single steps bit for bit. It takes no CUDA
+    graph: the resampling draws are made on the host each step
+    (``ops.interp``), and that stays so the stream of draws does not
+    change (ROADMAP.md B)."""
+    makers = {"speechsplit": make_train_step,
+              "f0_converter": make_f0_train_step}
+    if model not in makers:
+        raise ValueError(f"unknown model {model!r}")
+    step = makers[model](config)
+
+    def multi(state: TrainState,
+              batches: Batch) -> Tuple[TrainState, torch.Tensor]:
+        losses = []
+        for i in range(len(batches[0])):
+            state, loss = step(state, type(batches)(*(x[i] for x in batches)))
+            losses.append(loss)
+        return state, torch.stack(losses)
+
+    return multi

@@ -14,17 +14,18 @@ from typing import Optional
 
 
 class StepTimer:
-    """EMA step timer: call ``tick()`` once a train-step dispatch."""
+    """EMA step timer: call ``tick(k)`` once a dispatch of k train steps
+    (JAX profiling.py:48); the average is of the time a step."""
 
     def __init__(self, ema: float = 0.98):
         self.ema = ema
         self.avg: Optional[float] = None
         self._last: Optional[float] = None
 
-    def tick(self) -> None:
+    def tick(self, steps: int = 1) -> None:
         now = time.perf_counter()
         if self._last is not None:
-            dt = now - self._last
+            dt = (now - self._last) / max(steps, 1)
             self.avg = (
                 dt if self.avg is None
                 else self.ema * self.avg + (1 - self.ema) * dt

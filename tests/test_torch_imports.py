@@ -142,3 +142,24 @@ def test_scan_covers_the_corpus_and_vocoder_trainer():
     names = {p.name for p in _port_files()}
     assert {"prepare.py", "preprocess.py", "metadata.py",
             "train_vocoder.py", "vocoder_neural.py"} <= names
+
+
+def test_scan_covers_the_resident_data():
+    names = {p.name for p in _port_files()}
+    assert {"resident.py", "prefetch.py", "train_step.py", "solver.py",
+            "profiling.py"} <= names
+
+
+def test_resident_store_defaults_to_cuda(monkeypatch, tmp_path):
+    """The device-resident store, built from features or from wavs, runs
+    on CUDA unless told otherwise, and refuses when there is none."""
+    from speechsplit_tpu_torch.data.resident import (
+        build_resident,
+        build_resident_from_wavs,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_resident(None, SpeechSplitConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_resident_from_wavs(str(tmp_path), {}, SpeechSplitConfig())
