@@ -160,7 +160,7 @@ Phases, one line each; any failure exits non-zero:
    checkpoint's) and ``Solver.validate()`` against the plain call;
    ``convert_batched`` at 4 pairs at bfloat16 compute at both residual
    dtypes against the plain call, timed in turns with the float32 call;
-   the refusals naming ROADMAP.md A4c (731 pairs, ``PROJ_FUSION="auto"``);
+   the refusal naming ROADMAP.md A4c (``PROJ_FUSION="auto"``);
    one 3 s ``POST /convert`` to a server at bfloat16 compute beside one
    at float32;
 9. with ``ops.bilstm.PROJ_FUSION = "auto"`` (the input projection inside
@@ -273,7 +273,30 @@ Phases, one line each; any failure exits non-zero:
     mean below the first's, ``200-V.npz`` read by ``load_vocoder`` into
     finite PCM16; one step's loss and gradient on the card against the
     port's on the CPU from the same state and crops (``VOC_*``); steps a
-    second of the resident path and of host ``make_crops``, in turns.
+    second of the resident path and of host ``make_crops``, in turns;
+17. the single-direction kernels at bfloat16 (run after phase 14): the
+    eight bfloat16 instances of ``lstm_infer`` (W_hh bfloat16 beside a
+    float32 or a bfloat16 xp), ``lstm_fwd`` and ``lstm_bwd`` (bfloat16
+    residuals at float32 W_hh, bfloat16 W_hh at float32 residuals, and
+    both with a bfloat16 xp) against their plain versions in both
+    directions, ``lstm_infer`` at the 731-pair call's B5117 H512 and H8,
+    the training pair at B16 H512, H256 and H8: the flip bar
+    (``COMPUTE_*``; at float32 W_hh the bfloat16-residual bars), rounding
+    where the plain version rounds, ms, device time, plain ms and the
+    bound at those bytes; their edges (T=1, B=1 and odd batches, widths
+    1, 31-33, 64, 100, 130, 257, batch tiles, ``MAX_FWD_BATCH`` and
+    ``MAX_BWD_BATCH``);
+18. ``convert_batched`` at 731 pairs at bfloat16 compute: at the default
+    bfloat16 residuals 8 ``lstm_infer`` launches (bfloat16 xp), the mels
+    within ``COMPUTE_PATH_TOL`` of the largest magnitude of the plain
+    call's but for ``COMPUTE_FLIP_SHARE`` of their elements, ms a call in
+    turns with the float32 call; at float32 residuals the launches and
+    finite mels;
+19. both train steps with ``merged_bidir_fits`` forced false at the
+    default config and at bfloat16 compute (bfloat16 and float32
+    residuals): 8 ``lstm_fwd`` and ``lstm_bwd`` for the generator, 4 for
+    the F0 converter, no plain call, loss and gradients within 2% of the
+    plain step, ms a step in turns.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside the repo, it
@@ -491,14 +514,17 @@ def plain_training_kernels():
     tensors: the same residual dtype, rounding and dW contraction as on
     the kernels (``plain_kernels`` instead takes autograd through the
     plain loops, which saves nothing and is float32)."""
-    from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
+    from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm
 
     swaps = ((bilstm, "bilstm_forward_cuda", "bilstm_forward_reference"),
              (bilstm, "bilstm_backward_cuda", "bilstm_backward_reference"),
              (multi_bilstm, "multi_bilstm_forward_cuda",
               "multi_bilstm_forward_reference"),
              (multi_bilstm, "multi_bilstm_backward_cuda",
-              "multi_bilstm_backward_reference"))
+              "multi_bilstm_backward_reference"),
+             (lstm, "lstm_forward_cuda", "lstm_direction_forward_reference"),
+             (lstm, "lstm_backward_cuda",
+              "lstm_direction_backward_reference"))
     saved = [(module, name, getattr(module, name))
              for module, name, _ in swaps]
     for module, name, plain in swaps:
@@ -2141,8 +2167,8 @@ def phase_lstm_bwd_probe(shapes=((TRAIN_B, 512), (TRAIN_B, 256),
     splits = {}
     with tempfile.TemporaryDirectory() as tmp:
         lib = probe_library(tmp, "lstm_bwd", "LSTM_BWD_PROBE")
-        lib.lstm_bwd_launch.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.lstm_bwd_launch.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.lstm_bwd_probe_read.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         for b, h in shapes:
@@ -2159,8 +2185,8 @@ def phase_lstm_bwd_probe(shapes=((TRAIN_B, 512), (TRAIN_B, 256),
                     code = lib.lstm_bwd_launch(
                         dh.data_ptr(), g.data_ptr(), c.data_ptr(),
                         w.data_ptr(), dx.data_ptr(),
-                        bilstm._barrier_word(g).data_ptr(), T, b, h,
-                        int(reverse), 0, bilstm._stream(g))
+                        bilstm._barrier_word(g).data_ptr(), None, T, b, h,
+                        int(reverse), 0, 0, 0, bilstm._stream(g))
                     if code:
                         fail(f"lstm_bwd probe build: CUDA error {code}")
 
@@ -2217,7 +2243,7 @@ def phase_lstm_fwd_probe(shapes=((TRAIN_B, 512), (TRAIN_B, 256),
     with tempfile.TemporaryDirectory() as tmp:
         lib = probe_library(tmp, "lstm_infer", "LSTM_FWD_PROBE")
         lib.lstm_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int] * 5 + [ctypes.c_void_p]
+            ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.lstm_fwd_probe_read.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         for b, h in shapes:
@@ -2235,7 +2261,7 @@ def phase_lstm_fwd_probe(shapes=((TRAIN_B, 512), (TRAIN_B, 256),
                         xp.data_ptr(), w.data_ptr(),
                         *[x.data_ptr() for x in outs],
                         bilstm._barrier_word(xp).data_ptr(), T, b, h,
-                        int(reverse), 0, bilstm._stream(xp))
+                        int(reverse), 0, 0, 0, 0, bilstm._stream(xp))
                     if code:
                         fail(f"lstm_fwd probe build: CUDA error {code}")
 
@@ -2460,7 +2486,7 @@ def phase_train():
 
 def train_precision_phase(name: str, model: str, expected: dict, batch,
                           checked: dict, timed: dict, title: str,
-                          reps: int = 12) -> dict:
+                          reps: int = 12, layers: str = "default") -> dict:
     """Train steps at the precisions ``checked`` ({label: config}) on
     ``batch``: each one's launches in one step, exactly ``expected``,
     with no call of a plain version, Adam's mu bfloat16, its loss and
@@ -2470,7 +2496,15 @@ def train_precision_phase(name: str, model: str, expected: dict, batch,
     plain step (float32 residuals, TF32 off), recorded; 5 steps with a
     finite loss. Then the median ms a step of the steps ``timed`` ({label:
     config}; a checked label's state goes on from its 5 steps), timed in
-    turns. Returns the launches by checked label."""
+    turns. ``layers``: the BiLSTM layers' :func:`route` for every step.
+    Returns the launches by checked label."""
+    with route(layers):
+        return _train_precision_phase(name, model, expected, batch, checked,
+                                      timed, title, reps, layers)
+
+
+def _train_precision_phase(name, model, expected, batch, checked, timed,
+                           title, reps, layers) -> dict:
     import numpy as np
     import torch
 
@@ -2555,7 +2589,7 @@ def train_precision_phase(name: str, model: str, expected: dict, batch,
             torch.cuda.synchronize()
             samples[label].append((time.perf_counter() - start) * 1e3)
     log(f"train {name} {title}", batch=f"B{batch.mel.shape[0]}xT{T}",
-        checked=",".join(checked),
+        layers=layers, checked=",".join(checked),
         plain="the Functions on their plain versions, same config",
         float32="the plain float32 step, TF32 off (recorded)", **fields,
         tol=BF16_STEP_TOL, steps=reps,
@@ -3845,16 +3879,18 @@ def check_lstm_edges() -> None:
     def bwd_wrapper(xp, w, dh):
         return lstm.lstm_backward_cuda(dh, xp, dh, w, False)
 
-    # each C entry takes six pointers, then T, B, H, reverse, the device
-    for name, limit, h, wrapper, launch in (
+    # each C entry takes its pointers (six, the gradient's seven), then T,
+    # B, H, reverse, its dtype codes (three, the gradient's two), the
+    # device
+    for name, limit, h, wrapper, launch, ptrs, codes in (
             ("lstm_fwd", lstm.MAX_FWD_BATCH, 8, fwd_wrapper,
-             lib.lstm_fwd_launch),
+             lib.lstm_fwd_launch, 6, 3),
             ("lstm_fwd", lstm.MAX_FWD_BATCH, 512, fwd_wrapper,
-             lib.lstm_fwd_launch),
+             lib.lstm_fwd_launch, 6, 3),
             ("lstm_bwd", lstm.MAX_BWD_BATCH, 8, bwd_wrapper,
-             bwd_lib.lstm_bwd_launch),
+             bwd_lib.lstm_bwd_launch, 7, 2),
             ("lstm_bwd", lstm.MAX_BWD_BATCH, 512, bwd_wrapper,
-             bwd_lib.lstm_bwd_launch)):
+             bwd_lib.lstm_bwd_launch, 7, 2)):
         xp, w, dh = lstm_inputs(1, limit + 1, h, SEED + 97)
         try:
             wrapper(xp, w, dh)
@@ -3865,8 +3901,8 @@ def check_lstm_edges() -> None:
             fail(f"{name} took B={limit + 1} at H={h}, past its limit "
                  f"{limit}")
         # the kernel refuses before it reads a pointer
-        code = launch(*[xp.data_ptr()] * 6, 1, limit + 1, h, 0, 0,
-                      ctypes.c_void_p(lstm._stream(xp)))
+        code = launch(*[xp.data_ptr()] * ptrs, 1, limit + 1, h, 0,
+                      *[0] * codes, 0, ctypes.c_void_p(lstm._stream(xp)))
         if code == 0:
             fail(f"the {name} kernel took B={limit + 1} at H={h}")
         del xp, w, dh
@@ -4068,6 +4104,436 @@ def phase_train_single(batch):
         {"lstm_fwd": 4, "lstm_bwd": 4, "multi_bilstm_fwd": 1,
          "multi_bilstm_bwd": 1}, batch, layers="single")
     return gen_launches, f0_launches
+
+
+# --------------------------------------------------------------------------
+# The single-direction route at bfloat16: W_hh (bfloat16 compute), the xp
+# stream and the residuals, in lstm_infer, lstm_fwd and lstm_bwd
+
+# the tag of each (W_hh, residual) dtype pair of the training kernels'
+# bfloat16 instances, as COMPUTE_KERNELS names them
+def lstm_tag(w_dtype, rd) -> str:
+    import torch
+
+    bf16 = torch.bfloat16
+    return {(bf16, torch.float32): "bf16_w", (bf16, bf16): "bf16_w_bf16_resid",
+            (torch.float32, bf16): "bf16_resid"}[(w_dtype, rd)]
+
+
+def lstm_compute_inputs(t: int, b: int, h: int, seed: int, w_dtype,
+                        stream):
+    """``lstm_inputs`` with W_hh in ``w_dtype`` and xp in ``stream``."""
+    xp, w, dh = lstm_inputs(t, b, h, seed)
+    return xp.to(stream), w.to(w_dtype), dh
+
+
+def check_lstm_infer_compute(b: int, h: int, stream, reps: int) -> dict:
+    """``lstm_infer`` at bfloat16 W beside an xp stream of ``stream``, both
+    directions, against its plain version on the same inputs at the flip
+    bar, rounding where the plain version rounds (``check_rounds``), timed
+    (call and device time) beside the plain version and the bound at
+    these bytes."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import lstm
+
+    bf16 = torch.bfloat16
+    xp, w, _ = lstm_compute_inputs(T, b, h, SEED + 23 * h + b, bf16, stream)
+    got = [lstm.lstm_infer_cuda(xp, w, r) for r in (False, True)]
+    want = [lstm.lstm_sequence_reference(xp, w, r) for r in (False, True)]
+    torch.cuda.synchronize()
+    check_dtypes("lstm_infer bf16 compute h", got, torch.float32)
+    name = "lstm_infer/bf16_w" + ("_bf16_xp" if stream == bf16 else "")
+    shape = f"T{T}xB{b}xH{h}"
+    errs = check_flips(f"{name} {shape}", got, want)
+    del got, want
+    s_xp, s_w, _ = lstm_compute_inputs(COMPUTE_SHORT_T, b, h, SEED + h, bf16,
+                                       stream)
+    errs.update(check_rounds(
+        f"{name} {shape}", [lstm.lstm_infer_cuda(s_xp, s_w, True)],
+        [lstm.lstm_sequence_reference(s_xp, s_w, True)],
+        [lstm.lstm_sequence_reference(s_xp, s_w.float(), True)]))
+    bound, by = lstm_bound(T, b, [h], "infer",
+                           xp_bytes=2 if stream == bf16 else 4, w_bytes=2)
+
+    def lean():
+        return lstm.lstm_infer_cuda(xp, w, False)
+
+    return _compute_row(name, shape, dict(
+        ms=time_ms(lean, reps, warmup=1),
+        device_ms=kernel_device_ms(lean, reps),
+        plain_ms=time_ms(lambda: lstm.lstm_sequence_reference(xp, w, False),
+                         1, warmup=0),
+        bound_ms=bound, bound_by=by,
+        plan="narrow" if h <= lstm.NARROW_MAX_H else "wide", **errs))
+
+
+def check_lstm_train_compute(b: int, h: int, w_dtype, rd, reps: int) -> dict:
+    """``lstm_fwd`` and ``lstm_bwd`` at W_hh ``w_dtype`` and residuals
+    ``rd`` (xp in ``stream_dtype``, dh rounded to ``rd`` as
+    ``LSTMFunction`` hands it over), both directions, against their plain
+    versions: the forward's h, g and c, the gradient's dx on the plain
+    forward's residuals and on the kernel's own. At bfloat16 W the flip
+    bar and ``check_rounds``; at float32 W (bfloat16 residuals alone) h
+    within ``PATH_TOL`` and g, c and dx within ``BF16_ULPS``, as the
+    merged kernels' bfloat16 residuals are held. Timed beside the plain
+    versions and the bounds at these bytes; returns the two rows."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm, lstm
+
+    bf16 = torch.bfloat16
+    stream = bilstm.stream_dtype(w_dtype, rd)
+    xp, w, dh = lstm_compute_inputs(T, b, h, SEED + 37 * h + b, w_dtype,
+                                    stream)
+    dh = dh.to(rd)
+    tag = lstm_tag(w_dtype, rd)
+    shape = f"T{T}xB{b}xH{h}"
+    got, want, dx, dx_ref, dx_own, dx_own_ref = ([] for _ in range(6))
+    for reverse in (False, True):
+        fwd = lstm.lstm_forward_cuda(xp, w, reverse, rd)
+        ref = lstm.lstm_direction_forward_reference(xp, w, reverse, rd)
+        got += fwd
+        want += ref
+        dx.append(lstm.lstm_backward_cuda(dh, *ref[1:], w, reverse))
+        dx_ref.append(lstm.lstm_direction_backward_reference(dh, *ref[1:], w,
+                                                             reverse))
+        dx_own.append(lstm.lstm_backward_cuda(dh, *fwd[1:], w, reverse))
+        dx_own_ref.append(lstm.lstm_direction_backward_reference(
+            dh, *fwd[1:], w, reverse))
+    torch.cuda.synchronize()
+    check_dtypes(f"lstm_fwd/{tag} h", got[0::3], torch.float32)
+    check_dtypes(f"lstm_fwd/{tag} g, c", got[1::3] + got[2::3], rd)
+    check_dtypes(f"lstm_bwd/{tag} dx", dx + dx_own, rd)
+    if w_dtype == bf16:
+        fwd_errs = check_flips(f"lstm_fwd/{tag} {shape}", got, want)
+        bwd_errs = check_flips(f"lstm_bwd/{tag} {shape}", dx, dx_ref)
+        own = check_flips(f"lstm_bwd/{tag} {shape} on the kernel's "
+                          "residuals", dx_own, dx_own_ref)
+        bwd_errs.update(own_residuals_flip_share=own["flip_share"],
+                        own_residuals_max_err_over_max=own[
+                            "max_err_over_max"])
+        # at COMPUTE_SHORT_T steps beside the plain versions at float32 W
+        s_xp, s_w, s_dh = lstm_compute_inputs(COMPUTE_SHORT_T, b, h,
+                                              SEED + h, w_dtype, stream)
+        s_dh = s_dh.to(rd)
+        s_want = lstm.lstm_direction_forward_reference(s_xp, s_w, True, rd)
+        fwd_errs.update(check_rounds(
+            f"lstm_fwd/{tag} {shape}",
+            lstm.lstm_forward_cuda(s_xp, s_w, True, rd), s_want,
+            lstm.lstm_direction_forward_reference(s_xp, s_w.float(), True,
+                                                  rd)))
+        bwd_errs.update(check_rounds(
+            f"lstm_bwd/{tag} {shape}",
+            [lstm.lstm_backward_cuda(s_dh, *s_want[1:], s_w, True)],
+            [lstm.lstm_direction_backward_reference(s_dh, *s_want[1:], s_w,
+                                                    True)],
+            [lstm.lstm_direction_backward_reference(s_dh, *s_want[1:],
+                                                    s_w.float(), True)]))
+    else:
+        fwd_errs = dict(max_abs_err=abs_err(got, want),
+                        err_h=abs_err(got[0::3], want[0::3]),
+                        max_ulps=bf16_ulps(got[1::3] + got[2::3],
+                                           want[1::3] + want[2::3]))
+        bwd_errs = dict(max_abs_err=abs_err(dx, dx_ref),
+                        max_ulps=bf16_ulps(dx, dx_ref),
+                        own_residuals_max_ulps=bf16_ulps(dx_own, dx_own_ref))
+        if not (fwd_errs["err_h"] <= PATH_TOL and max(
+                fwd_errs["max_ulps"], bwd_errs["max_ulps"],
+                bwd_errs["own_residuals_max_ulps"]) <= BF16_ULPS):
+            fail(f"lstm training kernels {tag} {shape}: {fwd_errs} "
+                 f"{bwd_errs} (tol {PATH_TOL} on h, {BF16_ULPS} ulps)")
+    del got, want, dx, dx_ref, dx_own, dx_own_ref
+    _, g, c = lstm.lstm_direction_forward_reference(xp, w, False, rd)
+    size = 2 if rd == bf16 else 4
+    w_size = 2 if w_dtype == bf16 else 4
+    fwd_bound, fwd_by = lstm_bound(T, b, [h], "fwd", resid_bytes=size,
+                                   xp_bytes=2 if stream == bf16 else 4,
+                                   w_bytes=w_size)
+    bwd_bound, bwd_by = lstm_bound(T, b, [h], "bwd", resid_bytes=size,
+                                   stream_bytes=size, w_bytes=w_size)
+
+    def fwd():
+        return lstm.lstm_forward_cuda(xp, w, False, rd)
+
+    def bwd():
+        return lstm.lstm_backward_cuda(dh, g, c, w, False)
+
+    plan = "narrow" if h <= lstm.NARROW_MAX_H else "wide"
+    return {
+        f"lstm_fwd/{tag}": _compute_row(f"lstm_fwd/{tag}", shape, dict(
+            ms=time_ms(fwd, reps), device_ms=kernel_device_ms(fwd, reps),
+            plain_ms=time_ms(lambda: lstm.lstm_direction_forward_reference(
+                xp, w, False, rd), 1, warmup=0),
+            bound_ms=fwd_bound, bound_by=fwd_by, plan=plan, **fwd_errs)),
+        f"lstm_bwd/{tag}": _compute_row(f"lstm_bwd/{tag}", shape, dict(
+            ms=time_ms(bwd, reps), device_ms=kernel_device_ms(bwd, reps),
+            plain_ms=time_ms(lambda: lstm.lstm_direction_backward_reference(
+                dh, g, c, w, False), 1, warmup=0),
+            bound_ms=bwd_bound, bound_by=bwd_by, plan=plan, **bwd_errs)),
+    }
+
+
+# the single-direction kernels' other code paths at bfloat16 (T, B, H):
+# T=1, one row and odd batches, widths not a multiple of 4 (the lean wide
+# plan's unvectorised staging, the training kernels' unit-by-unit runs),
+# H=1 and the plan borders 31, 32 and 33, the wide plans at 1, 2 and 4
+# units a block (64, 130, 257), batch tiles (B=300 at H=512)
+LSTM_COMPUTE_EDGES = ((1, 16, 512), (5, 1, 512), (6, 3, 1), (7, 9, 31),
+                      (7, 9, 32), (7, 9, 33), (5, 77, 8), (6, 13, 100),
+                      (5, 7, 64), (5, 9, 130), (4, 5, 257), (3, 300, 512))
+
+
+def check_lstm_compute_edges() -> None:
+    """The eight bfloat16 instances of the single-direction kernels at
+    ``LSTM_COMPUTE_EDGES``, both directions, and the training kernels at
+    their batch limits (``MAX_FWD_BATCH``, ``MAX_BWD_BATCH`` at H=512; the
+    lean forward beside them), each against its plain version at the flip
+    bar (the float32-W instances too: their outputs round only where they
+    are stored); the gradient on the plain forward's residuals and on the
+    kernel's own."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm, lstm
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = LSTM_COMPUTE_EDGES + ((2, lstm.MAX_FWD_BATCH, 512),
+                                   (2, lstm.MAX_BWD_BATCH, 512))
+    worst = {"share": 0.0, "err": 0.0}
+
+    def keep(what, got, want):
+        errs = check_flips(what, got, want)
+        worst["share"] = max(worst["share"], errs["flip_share"])
+        worst["err"] = max(worst["err"], errs["max_err_over_max"])
+
+    for i, (t, b, h) in enumerate(shapes):
+        for reverse in (False, True):
+            where = f"T{t}xB{b}xH{h} reverse={reverse}"
+            for stream in (f32, bf16):
+                xp, w, _ = lstm_compute_inputs(t, b, h, SEED + 41 * i, bf16,
+                                               stream)
+                keep(f"lstm_infer bf16 W, xp {stream} {where}",
+                     [lstm.lstm_infer_cuda(xp, w, reverse)],
+                     [lstm.lstm_sequence_reference(xp, w, reverse)])
+            for w_dtype, rd in ((bf16, f32), (bf16, bf16), (f32, bf16)):
+                stream = bilstm.stream_dtype(w_dtype, rd)
+                xp, w, dh = lstm_compute_inputs(t, b, h, SEED + 43 * i,
+                                                w_dtype, stream)
+                dh = dh.to(rd)
+                what = f"{lstm_tag(w_dtype, rd)} {where}"
+                want = lstm.lstm_direction_forward_reference(xp, w, reverse,
+                                                             rd)
+                got = want
+                if b <= lstm.MAX_FWD_BATCH:
+                    got = lstm.lstm_forward_cuda(xp, w, reverse, rd)
+                    keep(f"lstm_fwd {what}", got, want)
+                if b <= lstm.MAX_BWD_BATCH:
+                    for res in [want] if got is want else [want, got]:
+                        keep(f"lstm_bwd {what}",
+                             [lstm.lstm_backward_cuda(dh, *res[1:], w,
+                                                      reverse)],
+                             [lstm.lstm_direction_backward_reference(
+                                 dh, *res[1:], w, reverse)])
+                del xp, w, dh, want, got
+    torch.cuda.synchronize()
+    log("kernel lstm bf16 edges", shapes=len(shapes), directions=2,
+        instances=8, max_flip_share=f"{worst['share']:.4g}",
+        flip_share_tol=COMPUTE_FLIP_SHARE,
+        max_err_over_max=f"{worst['err']:.4g}", flip_tol=COMPUTE_FLIP,
+        limits=f"B{lstm.MAX_FWD_BATCH} lstm_fwd, B{lstm.MAX_BWD_BATCH} "
+               f"lstm_bwd at H512")
+
+
+def phase_lstm_compute_kernels(reps: int = 3) -> dict:
+    """The single-direction kernels' bfloat16 instances against their
+    plain versions at the shapes their main paths give them: ``lstm_infer``
+    at the 731-pair call's B5117 H512 and H8 beside either xp stream, the
+    training pair at B16 H512, H256 and H8 at each (W_hh, residual) dtype
+    pair; then their edges. Returns the row of each instance's first (most
+    expensive) shape, the others beside it."""
+    import gc
+
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.convert import CONDITIONS
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    config = SpeechSplitConfig()
+    big = len(CONDITIONS) * refused_pairs()
+    rows = {}
+
+    def add(found: dict) -> None:
+        for name, row in found.items():
+            if name in rows:
+                rows[name].setdefault("beside", []).append(
+                    {k: row[k] for k in ("shape", "ms", "device_ms",
+                                         "bound_ms") if k in row})
+            else:
+                rows[name] = row
+
+    with strict_float32("single-direction bfloat16 kernels"):
+        for stream in (bf16, f32):
+            for h in (config.dim_dec_mel, config.dim_neck):
+                row = check_lstm_infer_compute(big, h, stream, reps)
+                add({"lstm_infer/bf16_w" + (
+                    "_bf16_xp" if stream == bf16 else ""): row})
+                gc.collect()
+                torch.cuda.empty_cache()
+        for w_dtype, rd in ((bf16, bf16), (bf16, f32), (f32, bf16)):
+            for h in (config.dim_dec_mel, config.dim_dec_f0,
+                      config.dim_neck):
+                add(check_lstm_train_compute(TRAIN_B, h, w_dtype, rd, 10))
+        check_lstm_compute_edges()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_convert_large_compute(reps: int = 3) -> dict:
+    """``convert_batched`` at :func:`refused_pairs` (731) pairs through
+    seeded default-config weights at bfloat16 compute: at the default
+    bfloat16 residuals (bfloat16 xp streams) the launches of one call (8
+    ``lstm_infer``: the mel decoder's 3 layers and content layer 1 one
+    direction a launch), the mels within ``COMPUTE_PATH_TOL`` of the
+    largest magnitude of the plain call's but for at most
+    ``COMPUTE_FLIP_SHARE`` of their elements (a rounding flipped by a sum
+    taken in another order, carried through every later layer; an F0
+    bin the converter picks at a near tie changes whole frames), the
+    largest error recorded, and ms a call in turns with the same
+    weights at float32 compute (TF32 off); at float32 residuals (float32
+    xp streams beside bfloat16 W_hh) the launches and finite mels.
+    Returns the launches by residual dtype."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.convert import CONDITIONS, convert_batched
+    from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+
+    n_pairs = refused_pairs()
+    gen = torch.Generator().manual_seed(SEED)
+    base = (SpeechSplit(SpeechSplitConfig(), generator=gen),
+            F0Converter(SpeechSplitConfig(), generator=gen))
+    pairs = synthetic_pairs(SpeechSplitConfig(), n_pairs, "cuda", SEED + 3)
+
+    def models(config):
+        g = SpeechSplit(config).to("cuda").eval()
+        p = F0Converter(config).to("cuda").eval()
+        g.load_state_dict(base[0].state_dict())
+        p.load_state_dict(base[1].state_dict())
+        return g, p
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    expected = {"lstm_infer": 8, "bilstm_infer": 2, "multi_bilstm_infer": 2}
+    launches = {}
+    with strict_float32("bf16 compute 731-pair conversions and timing"):
+        for residual in ("bfloat16", "float32"):
+            config = compute_config(residual)
+            g, p = models(config)
+
+            def run(g=g, p=p):
+                return convert_batched(g, p, pairs, CONDITIONS)
+
+            run()
+            torch.cuda.synchronize()
+            reset_launches()
+            result = run()
+            counts = {k: v for k, v in read_launches().items() if v}
+            if counts != expected:
+                fail(f"convert_batched at {n_pairs} pairs bf16 compute "
+                     f"({residual} residuals): launches {counts}")
+            launches[residual] = counts
+            check_conversions(config, pairs, result)
+            if residual != "bfloat16":
+                del g, p, result
+                free()
+                continue
+            free()
+            with plain_kernels():
+                plain = run()
+            # each element within COMPUTE_PATH_TOL of the call's largest
+            # magnitude, but for at most COMPUTE_FLIP_SHARE of them
+            top = max(float(np.abs(b[1]).max()) for r in plain for b in r)
+            past = [int((np.abs(a[1] - b[1]) > COMPUTE_PATH_TOL * top).sum())
+                    for ra, rb in zip(result, plain)
+                    for a, b in zip(ra, rb)]
+            total = sum(b[1].size for r in plain for b in r)
+            share = sum(past) / total
+            worst = max(float(np.abs(a[1] - b[1]).max())
+                        for ra, rb in zip(result, plain)
+                        for a, b in zip(ra, rb)) / top
+            mels_past = sum(1 for n in past if n)
+            del plain
+            free()
+            if not share <= COMPUTE_FLIP_SHARE:
+                fail(f"convert_batched at {n_pairs} pairs bf16 compute vs "
+                     f"plain: {share} of the mel elements past "
+                     f"{COMPUTE_PATH_TOL} of the largest magnitude (tol "
+                     f"{COMPUTE_FLIP_SHARE}); largest error {worst}")
+            del result
+            f32_models = models(SpeechSplitConfig())
+            samples = {"bf16_compute": [], "float32": []}
+            for r in range(reps):
+                for label in (("bf16_compute", "float32") if r % 2 == 0
+                              else ("float32", "bf16_compute")):
+                    mg, mp = (g, p) if label == "bf16_compute" else f32_models
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    convert_batched(mg, mp, pairs, CONDITIONS)
+                    samples[label].append((time.perf_counter() - start) * 1e3)
+            log("convert_batched large bf16 compute", pairs=n_pairs,
+                residuals=residual, generator_batch=n_pairs * len(CONDITIONS),
+                median_ms_per_call=f"{np.median(samples['bf16_compute']):.4f}",
+                float32_median_ms_per_call=(
+                    f"{np.median(samples['float32']):.4f}"),
+                rounds_ms=";".join(f"{k}:" + ",".join(f"{v:.4f}" for v in w)
+                                   for k, w in samples.items()),
+                timing="bf16 compute and float32 calls in turns, TF32 off",
+                tol=COMPUTE_PATH_TOL, flip_share=f"{share:.4g}",
+                flip_share_tol=COMPUTE_FLIP_SHARE,
+                mels_with_a_flip=f"{mels_past}/{len(past)}",
+                max_abs_err_over_max_vs_plain=f"{worst:.3g}",
+                launches=json.dumps(counts).replace(" ", ""))
+            del g, p, f32_models
+            free()
+    log("convert_batched large bf16 compute", pairs=n_pairs,
+        residuals="float32", check="launches and finite mels",
+        launches=json.dumps(launches["float32"]).replace(" ", ""))
+    del pairs, base
+    free()
+    return launches
+
+
+def phase_train_single_compute(batch) -> tuple:
+    """Both train steps with every merged BiLSTM layer on the
+    single-direction route (``merged_bidir_fits`` false) at the default
+    config (bfloat16 residuals) and at bfloat16 compute (bfloat16 and
+    float32 residuals): exact launches (8 ``lstm_fwd`` and ``lstm_bwd``
+    for the generator, 4 for the F0 converter), no plain call, the loss
+    and every gradient within ``BF16_STEP_TOL`` of the plain step at the
+    same config (``train_precision_phase``), ms a step in turns. Returns
+    the generator's and the F0 converter's launches by label."""
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+
+    checked = {"default": SpeechSplitConfig(),
+               "bf16_compute": compute_config(),
+               "bf16_compute_f32_resid": compute_config("float32")}
+    timed = {"default": checked["default"],
+             "bf16_compute": checked["bf16_compute"]}
+    out = []
+    for name, model, n in (("generator", "speechsplit", 8),
+                           ("f0_converter", "f0_converter", 4)):
+        out.append(train_precision_phase(
+            name, model, {"lstm_fwd": n, "lstm_bwd": n,
+                          "multi_bilstm_fwd": 1, "multi_bilstm_bwd": 1},
+            batch, checked, timed, "single bf16", reps=4, layers="single"))
+    return tuple(out)
 
 
 # --------------------------------------------------------------------------
@@ -4667,6 +5133,16 @@ COMPUTE_KERNELS = {
                                 "W bf16 (H >= 2) and f32, residuals f32"),
     "multi_bilstm_bwd/bf16_w_bf16_resid": (
         "multi_bilstm_bwd", "W bf16 (H >= 2) and f32, residuals bf16"),
+    "lstm_infer/bf16_w": ("lstm_infer", "W bf16, xp f32, h f32"),
+    "lstm_infer/bf16_w_bf16_xp": ("lstm_infer", "W bf16, xp bf16, h f32"),
+    "lstm_fwd/bf16_resid": ("lstm_fwd", "W f32, xp f32, residuals bf16"),
+    "lstm_fwd/bf16_w": ("lstm_fwd", "W bf16, xp f32, residuals f32"),
+    "lstm_fwd/bf16_w_bf16_resid": ("lstm_fwd",
+                                   "W bf16, xp bf16, residuals bf16"),
+    "lstm_bwd/bf16_resid": ("lstm_bwd", "W f32, dh, residuals and dx bf16"),
+    "lstm_bwd/bf16_w": ("lstm_bwd", "W bf16, dh, residuals and dx f32"),
+    "lstm_bwd/bf16_w_bf16_resid": ("lstm_bwd",
+                                   "W bf16, dh, residuals and dx bf16"),
 }
 
 
@@ -5187,9 +5663,9 @@ def phase_convert_compute(reps: int = 10) -> dict:
     finite mels cut to their lengths, within ``COMPUTE_PATH_TOL`` of the
     same call on the plain versions, ms a call in turns with the same
     weights at float32 compute (TF32 off); then what still refuses
-    bfloat16 compute on the card, naming ROADMAP.md A4c: the 731-pair
-    call (its mel decoder and content layer 1 past the merged kernels'
-    batch) and ``PROJ_FUSION="auto"``. Returns the launches by residual
+    bfloat16 compute on the card, naming ROADMAP.md A4c:
+    ``PROJ_FUSION="auto"`` (the 731-pair call runs:
+    ``phase_convert_large_compute``). Returns the launches by residual
     dtype."""
     import numpy as np
     import torch
@@ -5258,11 +5734,8 @@ def phase_convert_compute(reps: int = 10) -> dict:
             del g, p
     # what still refuses bfloat16 compute on the card (ROADMAP.md A4c)
     g, p = models(compute_config())
-    big = synthetic_pairs(SpeechSplitConfig(), refused_pairs(), "cuda",
-                          SEED + 3)
     refusals = {}
-    for what, mode, calls in (("731 pairs", "off", big),
-                              ("PROJ_FUSION=auto", "auto", pairs)):
+    for what, mode, calls in (("PROJ_FUSION=auto", "auto", pairs),):
         try:
             with fusion(mode):
                 convert_batched(g, p, calls, CONDITIONS)
@@ -5272,7 +5745,7 @@ def phase_convert_compute(reps: int = 10) -> dict:
             refusals[what] = str(err).split(";")[0][:80]
         else:
             fail(f"bf16 compute {what} ran: it is queued in ROADMAP.md A4c")
-    del big, g, p
+    del g, p
     torch.cuda.empty_cache()
     log("bf16 compute refusals", **{k.replace(" ", "_").replace("=", "_"): v
                                     .replace(" ", "_")
@@ -5416,7 +5889,9 @@ def phase_train_learned(gen_per_step: dict, reps: int = 8) -> None:
     version, the loss and every gradient (the SpeakerEncoder's too) within
     the bar of the plain step, the contrastive term's value (0 where the
     weight is), whether a second step from the same start gives the same
-    gradients bit for bit (recorded), and the median ms a step in turns
+    gradients bit for bit (recorded: which differ, and whether two more
+    steps under ``torch.backends.cudnn.deterministic`` do), and the
+    median ms a step in turns
     with the one-hot step at the same config."""
     import numpy as np
     import torch
@@ -5492,9 +5967,19 @@ def phase_train_learned(gen_per_step: dict, reps: int = 8) -> None:
                      f"err {loss_err}, grad rel err {worst} ({key}) > {tol}")
             again = create_train_state(config, SEED, "speechsplit")
             again, _ = step(again, batch)
-            repeat_equal = all(torch.equal(p.grad, grads[k]) for k, p in
-                               again.model.named_parameters())
+            differing = [k for k, p in again.model.named_parameters()
+                         if not torch.equal(p.grad, grads[k])]
             del again
+            twins = []
+            with cudnn_deterministic():
+                for _ in range(2):
+                    twin = create_train_state(config, SEED, "speechsplit")
+                    twin, _ = step(twin, batch)
+                    twins.append(grads_of(twin.model))
+                    del twin
+            deterministic_equal = all(torch.equal(twins[0][k], twins[1][k])
+                                      for k in grads)
+            del twins
             if label == "default_contrast" and not term > 0:
                 fail(f"train learned {label}: contrastive term {term}")
             runs = {"learned": (run, step),
@@ -5521,7 +6006,12 @@ def phase_train_learned(gen_per_step: dict, reps: int = 8) -> None:
             max_grad_rel_err_vs_plain=f"{worst:.3g}", worst_param=key,
             speaker_encoder_max_grad_rel_err=f"{enc_worst:.3g}",
             speaker_encoder_worst_param=enc_key, tol=tol,
-            repeat_step_grads_bit_equal=repeat_equal,
+            repeat_step_grads_bit_equal=not differing,
+            repeat_differing=f"{len(differing)} of {len(grads)}",
+            repeat_differing_outside_conv_stacks=",".join(
+                k for k in differing if "conv" not in k) or "none",
+            repeat_step_grads_bit_equal_cudnn_deterministic=(
+                deterministic_equal),
             median_ms_per_step=f"{ms['learned']:.4f}",
             onehot_median_ms_per_step=f"{ms['onehot']:.4f}",
             rounds_ms=";".join(f"{k}:" + ",".join(f"{v:.4f}" for v in w)
@@ -6344,11 +6834,11 @@ RESIDENT_CLI_LOG = 10
 # four loops (host K=1, host K=10, resident K=1, resident K=10) in turns
 RESIDENT_TIMED_STEPS = 40
 RESIDENT_ROUNDS = 2
-# float32 (TF32 off) steps do not repeat bit for bit on the card
-# (ROADMAP.md, "Tracing gaps"); there the mixed trajectory (resident and k-step calls) must lie
-# within this many times the larger distance of two host-loop repeats
-# from the first, parameters (max abs) and losses (max rel) each
-FLOAT32_REPEAT_TIMES = 4.0
+# float32 (TF32 off) steps repeat bit for bit on the card only under
+# ``torch.backends.cudnn.deterministic``: without it the convolutions'
+# weight gradients vary from run to run (``[train learned]``'s
+# ``repeat_differing``), and the trajectories' distance with them, over
+# two orders of magnitude. The float32 trajectories are compared under it.
 
 
 def resident_trajectory(cfg, dataset, features, utts, per_step: dict,
@@ -6446,6 +6936,19 @@ def same_trajectory(a, b) -> bool:
                                           sb.model.state_dict().values()))
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """``torch.backends.cudnn.deterministic`` on, restored on exit."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
 def timed_solver_run(solver, rc, steps: int) -> float:
     """Steps a second of ``solver.train()`` for ``steps`` steps: wall time
     from the call to its return, then a ``torch.cuda.synchronize()``
@@ -6480,8 +6983,9 @@ def phase_train_resident(gen_per_step: dict, root: str) -> dict:
         steps, a ``[2, B]`` resident call and a stacked-host k=4
         ``make_train_multi_step`` call from the same state: losses and
         parameters bit for bit, every call's launches its steps x
-        ``gen_per_step``; at float32 the same within
-        ``FLOAT32_REPEAT_TIMES`` the host loop's own repeat distance;
+        ``gen_per_step``; at float32 the same under
+        :func:`cudnn_deterministic`, a host-loop repeat too, and the
+        host loop's repeat distance without it logged;
     (d) the JAX README's recommended run, ``cli.train --wav_dir
         --data_on_device --steps_per_dispatch 10 --hparams
         RECOMMENDED_HPARAMS`` for ``RESIDENT_CLI_STEPS`` steps: one
@@ -6589,20 +7093,22 @@ def phase_train_resident(gen_per_step: dict, root: str) -> dict:
              f"k-step calls differ from the host steps: "
              f"{trajectory_distance(default_host, default_mixed)}")
     f32 = float32_config()
-    f32_host = [resident_trajectory(f32, dataset, features, f_utts,
-                                    gen_per_step, mixed=False)
-                for _ in range(3)]
-    f32_mixed = resident_trajectory(f32, dataset, features, f_utts,
-                                    gen_per_step, mixed=True)
-    repeat = [trajectory_distance(f32_host[0], h) for h in f32_host[1:]]
-    bar = tuple(FLOAT32_REPEAT_TIMES * max(d[i] for d in repeat)
-                for i in range(2))
-    mixed_d = trajectory_distance(f32_host[0], f32_mixed)
-    if not (mixed_d[0] <= bar[0] and mixed_d[1] <= bar[1]):
-        fail(f"train resident float32: the mixed trajectory is "
-             f"{mixed_d} from the host loop's, the bar {bar} "
-             f"({FLOAT32_REPEAT_TIMES} x the repeats' {repeat})")
-    del default_host, default_mixed, f32_host, f32_mixed
+    with cudnn_deterministic():
+        f32_host = [resident_trajectory(f32, dataset, features, f_utts,
+                                        gen_per_step, mixed=False)
+                    for _ in range(2)]
+        f32_mixed = resident_trajectory(f32, dataset, features, f_utts,
+                                        gen_per_step, mixed=True)
+    for what, other in (("a repeat of the host steps", f32_host[1]),
+                        ("the resident and k-step calls", f32_mixed)):
+        if not same_trajectory(f32_host[0], other):
+            fail(f"train resident float32 (cuDNN deterministic): {what} "
+                 f"differ from the host steps: "
+                 f"{trajectory_distance(f32_host[0], other)}")
+    loose = resident_trajectory(f32, dataset, features, f_utts,
+                                gen_per_step, mixed=False)
+    loose_d = trajectory_distance(f32_host[0], loose)
+    del default_host, default_mixed, f32_host, f32_mixed, loose
 
     # (d) the recommended run from the wav tree
     run = os.path.join(root, "recommended")
@@ -6737,13 +7243,12 @@ def phase_train_resident(gen_per_step: dict, root: str) -> dict:
         gather_batches=RESIDENT_GATHER_BATCHES,
         gather_equal_host_loader="bit for bit",
         default_steps_equal="bit for bit (losses, parameters)",
-        float32_params_abs_diff=f"{mixed_d[0]:.3g}",
-        float32_loss_rel_diff=f"{mixed_d[1]:.3g}",
-        float32_repeat_params_abs_diff=",".join(
-            f"{d[0]:.3g}" for d in repeat),
-        float32_repeat_loss_rel_diff=",".join(f"{d[1]:.3g}" for d in repeat),
-        float32_bar=f"{FLOAT32_REPEAT_TIMES} x the larger repeat: "
-        f"{bar[0]:.3g} abs, {bar[1]:.3g} rel",
+        float32_steps_equal="bit for bit under cudnn.deterministic "
+        "(losses, parameters; a host repeat too)",
+        float32_repeat_without_deterministic_params_abs_diff=(
+            f"{loose_d[0]:.3g}"),
+        float32_repeat_without_deterministic_loss_rel_diff=(
+            f"{loose_d[1]:.3g}"),
         launches_a_step=json.dumps(gen_per_step).replace(" ", ""),
         cli_steps=RESIDENT_CLI_STEPS, cli_k=RESIDENT_K,
         cli_hparams=RECOMMENDED_HPARAMS, cli_s=f"{cli_s:.4f}",
@@ -7484,6 +7989,9 @@ def main() -> int:
     rows.update(phase_lstm_kernels())
     large_convert = phase_convert_large()
     single_gen, single_f0 = phase_train_single(batch)
+    rows.update(phase_lstm_compute_kernels())
+    large_compute = phase_convert_large_compute()
+    single_compute_gen, single_compute_f0 = phase_train_single_compute(batch)
     log("done", seconds=f"{time.perf_counter() - wall:.1f}")
     # launches: the conversion call's for the inference kernels, one
     # default-config generator train step's for the training kernels (the
@@ -7518,15 +8026,28 @@ def main() -> int:
     # the bfloat16-compute instances: launches from the bfloat16-compute
     # conversions (the lean kernels; bfloat16 residuals give bfloat16 xp
     # streams) and generator steps (the training kernels; F0 step beside)
+    # the single-direction instances: launches from the 731-pair
+    # conversions at bfloat16 compute (lstm_infer) and the generator steps
+    # on the single route (the training pair; F0 step beside)
+    single_labels = {"bf16_resid": "default", "bf16_w": (
+        "bf16_compute_f32_resid"), "bf16_w_bf16_resid": "bf16_compute"}
     for name, (kernel, dtypes) in COMPUTE_KERNELS.items():
         rd = "bfloat16" if name.endswith(("_bf16_xp", "_bf16_resid")) else (
             "float32")
-        if kernel in TRAINING_KERNELS:
+        if kernel == "lstm_infer":
+            extra = dict(launches=large_compute[rd][kernel])
+        elif kernel in ("lstm_fwd", "lstm_bwd"):
+            label = single_labels[name.split("/")[1]]
+            extra = dict(launches=single_compute_gen[label][kernel],
+                         launches_f0_step=single_compute_f0[label][kernel])
+        elif kernel in TRAINING_KERNELS:
             extra = dict(launches=compute_gen[rd][kernel],
                          launches_f0_step=compute_f0[rd][kernel])
         else:
             rd = "float32" if name == "bilstm_infer/bf16_w" else "bfloat16"
             extra = dict(launches=compute_convert[rd][kernel])
+        if not extra["launches"]:
+            fail(f"{name}: no launch on its main path")
         kernels.append(dict(name=name, **KERNELS[kernel], **extra,
                             dtypes=dtypes, library_ms=None, **rows[name]))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -75,8 +75,8 @@ class SpeechSplitConfig:
 
     # --- precision and layout knobs (no reference counterpart) -------------
     # The defaults are the JAX package's and train as they stand (bfloat16
-    # residuals and Adam mu); "bfloat16" compute runs on the default route
-    # (the single-direction route and the fused kernels refuse it,
+    # residuals and Adam mu); "bfloat16" compute runs on the default and
+    # the single-direction routes (the fused kernels refuse it,
     # ROADMAP.md A4c).
     compute_dtype: str = "float32"
     residual_dtype: str = "bfloat16"

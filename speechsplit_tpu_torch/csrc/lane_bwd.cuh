@@ -15,8 +15,11 @@
 // o after their activations), c [T, B, H], w [4H, H] (torch's
 // weight_hh_l{k}); out dx [T, B, 4H] = d_pre. g and c are float32 or
 // bfloat16 (R, widened where they are read, as _cell_bwd does); dh and
-// dx float32, as the multi-stream VJP of the JAX package keeps them
-// (pallas_multilstm.py:368-384, 406-433). With bfloat16 compute (W:
+// dx (D) float32, as the multi-stream VJP of the JAX package keeps them
+// (pallas_multilstm.py:368-384, 406-433), or bfloat16 where the
+// single-direction gradient runs bfloat16 residuals (_dh_stream_dtype,
+// _grad_stream_dtype: dh widened where it is read, dx d_pre rounded as
+// it is stored, the carries unrounded). With bfloat16 compute (W:
 // bfloat16) a direction's W_hh is bfloat16, widened as it is staged, and
 // the product reads d_pre rounded to bfloat16 (_cell_bwd's
 // d_pre.astype(w.dtype)); dx, the carries and the sums stay float32.
@@ -60,11 +63,11 @@ constexpr int kLaneMaxH = 32;
 constexpr int kThreads = 128;  // a block: 4 warps
 
 struct Dir {
-  const float* dh;
-  const float* g;  // elements of type R
-  const float* c;  // elements of type R
-  const float* w;  // elements of type W (steps below)
-  float* dx;
+  const float* dh;  // elements of type D (steps below)
+  const float* g;   // elements of type R
+  const float* c;   // elements of type R
+  const float* w;   // elements of type W
+  float* dx;        // elements of type D
   int H;
 };
 
@@ -122,13 +125,14 @@ struct Probe {
 #endif
 
 // The residuals of one (row, unit) at one step, as loaded: g and c of
-// element type R in resid::Loaded<R> registers (a bfloat16 one is
-// widened only when the step's factors are formed, a step after its
-// load, so that no instruction waits on the load before then).
-template <typename R>
+// element type R in resid::Loaded<R> registers, dh of type D in
+// resid::Loaded<D> (a bfloat16 one is widened only when the step's
+// factors are formed, a step after its load, so that no instruction
+// waits on the load before then).
+template <typename R, typename D = float>
 struct Res {
   typename resid::Loaded<R>::type i, f, g, o, c, c_prev;
-  float dh;
+  typename resid::Loaded<D>::type dh;
 };
 
 // The gate factors of a step (see the top of the file) and its dh_out.
@@ -136,8 +140,8 @@ struct Factors {
   float a, p_i, p_f, p_g, p_o, f, dh;
 };
 
-template <typename R>
-__device__ __forceinline__ Factors factors(const Res<R>& res) {
+template <typename R, typename D>
+__device__ __forceinline__ Factors factors(const Res<R, D>& res) {
   const float i = resid::widen_loaded(res.i);
   const float f = resid::widen_loaded(res.f);
   const float g = resid::widen_loaded(res.g);
@@ -151,7 +155,7 @@ __device__ __forceinline__ Factors factors(const Res<R>& res) {
   x.p_g = __fmul_rn(i, __fsub_rn(1.0f, __fmul_rn(g, g)));
   x.p_o = __fmul_rn(__fmul_rn(tanh_c, o), __fsub_rn(1.0f, o));
   x.f = f;
-  x.dh = res.dh;
+  x.dh = resid::widen_loaded(res.dh);
   return x;
 }
 
@@ -160,8 +164,8 @@ __device__ __forceinline__ Factors factors(const Res<R>& res) {
 // the element type of g and c. W: float, or bfloat16 for a kernel built
 // for bfloat16 compute, where `w_bf16` says whether this direction's W_hh
 // is bfloat16 (resid::weight, and the product reads d_pre rounded) or
-// float32.
-template <int L, typename R = float, typename W = float>
+// float32. D: the element type of dh and dx.
+template <int L, typename R = float, typename W = float, typename D = float>
 __device__ __forceinline__ void steps(const Dir& d, int blk, bool reverse,
                                       int T, int B, float4* smem,
                                       Probe& probe, bool w_bf16 = false) {
@@ -205,7 +209,8 @@ __device__ __forceinline__ void steps(const Dir& d, int blk, bool reverse,
   const size_t at = ok ? static_cast<size_t>(row) * H + u : 0;
   const size_t gat = ok ? static_cast<size_t>(row) * 4 * H + u : 0;
   const typename resid::Loaded<R>::type zero = 0;
-  auto fetch = [&](Res<R>& r, int s) {
+  const typename resid::Loaded<D>::type zero_dh = 0;
+  auto fetch = [&](Res<R, D>& r, int s) {
     const bool live = ok && s < T;
     const int t = s >= T ? 0 : reverse ? s : T - 1 - s;
     const int tc = reverse ? t + 1 : t - 1;  // c_prev's time index
@@ -220,10 +225,12 @@ __device__ __forceinline__ void steps(const Dir& d, int blk, bool reverse,
     r.c_prev = live && tc >= 0 && tc < T
                    ? resid::load(c + static_cast<size_t>(tc) * hstep + at)
                    : zero;
-    r.dh = live ? __ldg(d.dh + static_cast<size_t>(t) * hstep + at) : 0.0f;
+    r.dh = live ? resid::load(reinterpret_cast<const D*>(d.dh) +
+                              static_cast<size_t>(t) * hstep + at)
+                : zero_dh;
   };
 
-  Res<R> next, after;  // the residuals of steps s + 1 and s + 2
+  Res<R, D> next, after;  // the residuals of steps s + 1 and s + 2
   fetch(next, 0);
   Factors fac = factors(next);
   fetch(next, 1);
@@ -240,11 +247,12 @@ __device__ __forceinline__ void steps(const Dir& d, int blk, bool reverse,
                                   __fmul_rn(dh, fac.p_o));
     dc_carry = __fmul_rn(dc, fac.f);
     if (ok) {
-      float* out = d.dx + (static_cast<size_t>(t) * B + row) * 4 * H + u;
-      out[0] = dp.x;
-      out[H] = dp.y;
-      out[2 * H] = dp.z;
-      out[3 * H] = dp.w;
+      D* out = reinterpret_cast<D*>(d.dx) +
+               (static_cast<size_t>(t) * B + row) * 4 * H + u;
+      out[0] = resid::narrow<D>(dp.x);
+      out[H] = resid::narrow<D>(dp.y);
+      out[2 * H] = resid::narrow<D>(dp.z);
+      out[3 * H] = resid::narrow<D>(dp.w);
     }
     float4* slot = xch + (s & 1) * kThreads + base;
     if constexpr (L > 1) {

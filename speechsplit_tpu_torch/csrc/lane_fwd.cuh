@@ -13,8 +13,10 @@
 // float32, as _fwd_kernel under the JAX default residual_dtype). With
 // bfloat16 compute (W: bfloat16) a direction's W_hh is bfloat16, widened
 // as it is staged, and the product reads h_{t-1} rounded to bfloat16
-// (pallas_lstm._cell's h.astype(w.dtype)); xp, h, the sums and the cell
-// stay float32.
+// (pallas_lstm._cell's h.astype(w.dtype)); h, the sums and the cell stay
+// float32. xp is float32, or bfloat16 (X) where the single-direction
+// forward runs bfloat16 W beside bfloat16 residuals
+// (pallas_lstm.stream_dtype), widened as it is loaded.
 //
 // What bounds it on an H100: latency. A step of a row is at most 4H x H
 // = 4096 multiply-adds, and the T dependent steps cost the latency of one
@@ -51,7 +53,7 @@ constexpr int kLaneMaxH = 32;
 constexpr int kThreads = 128;  // a block: 4 warps
 
 struct Dir {
-  const float* xp;
+  const float* xp;  // elements of type X (steps below)
   const float* w;  // elements of type W (steps below)
   float* h;
   float* g;  // residual-saving forward only, elements of type R
@@ -116,8 +118,9 @@ __device__ __forceinline__ float sigmoid_f(float x) {
 // float4s of shared memory. R: the residuals' element type. W: float, or
 // bfloat16 for a kernel built for bfloat16 compute, where `w_bf16` says
 // whether this direction's W_hh is bfloat16 (resid::weight, and the
-// product reads h_{t-1} rounded) or float32.
-template <int L, bool kResid, typename R = float, typename W = float>
+// product reads h_{t-1} rounded) or float32. X: the element type of xp.
+template <int L, bool kResid, typename R = float, typename W = float,
+          typename X = float>
 __device__ __forceinline__ void steps(const Dir& d, int blk, int dir, int T,
                                       int B, float4* wt, Probe& probe,
                                       bool w_bf16 = false) {
@@ -154,13 +157,15 @@ __device__ __forceinline__ void steps(const Dir& d, int blk, int dir, int T,
 #pragma unroll
   for (int k = 0; k < L; ++k) wr[k] = wt[k * L + u];
   const size_t xstep = static_cast<size_t>(B) * 4 * H;  // a step of xp
-  const float* xrow =
-      d.xp + (ok ? static_cast<size_t>(row) * 4 * H + u : 0);
+  const X* xrow = reinterpret_cast<const X*>(d.xp) +
+                  (ok ? static_cast<size_t>(row) * 4 * H + u : 0);
   auto fetch = [&](float(&r)[4], int s) {
-    const float* x = xrow + static_cast<size_t>(reverse ? T - 1 - s : s) *
-                                xstep;
+    const X* x = xrow + static_cast<size_t>(reverse ? T - 1 - s : s) *
+                            xstep;
 #pragma unroll
-    for (int g = 0; g < 4; ++g) r[g] = ok ? __ldg(x + g * H) : 0.0f;
+    for (int g = 0; g < 4; ++g) {
+      r[g] = ok ? resid::widen_loaded(resid::load(x + g * H)) : 0.0f;
+    }
   };
   float next[4];  // the next step's gate inputs, in flight during a step
   fetch(next, 0);

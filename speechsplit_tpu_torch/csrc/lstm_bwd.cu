@@ -1,4 +1,5 @@
-// One direction of one LSTM layer, gradient recurrence, float32.
+// One direction of one LSTM layer, gradient recurrence, at float32 and at
+// the bfloat16 dtype sets of the JAX single route.
 //
 // Replaces: speechsplit_tpu/ops/pallas_lstm.py::_bwd_kernel (wrapper
 // _bwd_call), the TPU kernel that runs the gate-gradient recurrence of
@@ -18,6 +19,18 @@
 // c [T, B, H]; w [4H, H] (torch's weight_hh_l{k}); out dx [T, B, 4H] =
 // d_pre, the cotangent of the projected input. dW_hh is one GEMM outside
 // (ops/lstm.py), as in the JAX package.
+//
+// Element types (template arguments R, W of both plans): dh, g, c and dx
+// float, or all bfloat16 as _bwd_call runs under the JAX default
+// residual_dtype (dh rounded at the VJP's boundary, _dh_stream_dtype;
+// dxp stored rounded, _grad_stream_dtype; pallas_lstm.py:432): read
+// widened, the dh, dc and d_pre carries float32. W_hh float or bfloat16
+// (bfloat16 compute): widened into the registers that hold it, and the
+// product reads d_pre rounded to bfloat16 (:437). The narrow plan carries
+// d_pre in registers; the wide plan, whose product stages the previous
+// step's d_pre from memory, keeps it in a float32 scratch of two steps
+// beside the rounded dx. The float32 instances keep their machine code;
+// the plans and kMaxBatch are the same at every type.
 //
 // What bounds it on an H100: the recurrence, as in the merged kernel
 // (csrc/bilstm_bwd.cu). Step s needs all of the previous step's d_pre,
@@ -66,6 +79,7 @@
 #endif
 #include "lane_bwd.cuh"
 #include "merged_step.cuh"
+#include "resid.cuh"
 
 namespace {
 
@@ -123,12 +137,15 @@ static_assert(lane_bwd::kPhases == kPhases - 1,
   } while (0)
 #endif
 
-template <int L>
+// R: the element type of dh, g, c and dx; W: W_hh's (lane_bwd.cuh)
+template <int L, typename R = float, typename W = float>
 __global__ void __launch_bounds__(lane_bwd::kThreads)
 lstm_bwd_narrow_kernel(lane_bwd::Dir d, int T, int B, int reverse) {
   extern __shared__ float4 lane_smem[];
   lane_bwd::Probe probe;
-  lane_bwd::steps<L>(d, blockIdx.x, reverse != 0, T, B, lane_smem, probe);
+  // dh and dx follow the residuals; W_hh is W's type throughout
+  lane_bwd::steps<L, R, W, R>(d, blockIdx.x, reverse != 0, T, B, lane_smem,
+                              probe, !std::is_same<W, float>::value);
 #ifdef LSTM_BWD_PROBE
   // the lane step's phases 0 .. 3 are this file's 1 .. 4
   probe.flush(g_probe_cycles + 1, g_probe_laps + 1, &g_probe_sink);
@@ -143,12 +160,26 @@ struct Args {
   float* dx;
   unsigned* barrier;  // zeroed before the launch
   int T, B, H, reverse, bt;
+  // the wide plan at bfloat16 residuals only: [2 step parities][B][4H],
+  // the float32 d_pre of the last two steps
+  float* carry;
 };
 
 // Shared memory: d_s [bt][4H] the previous step's d_pre tile; res_s
-// [2][kRes][bt][UN] two buffers of residuals; red_s [bt][kWarps][UN] the
-// warps' partial sums; dc_s [UN][B] the dc carry.
-template <int KQ, int UN>  // passes of kJSpan rows j, units a block
+// [2][kRes][bt][UN] two buffers of residuals (in R, the bfloat16 ones in
+// the first half of the float plan); red_s [bt][kWarps][UN] the warps'
+// partial sums; dc_s [UN][B] the dc carry.
+// KQ: passes of kJSpan rows j; UN: units a block. R: the element type of
+// dh, g, c and dx, float or bfloat16 (pallas_lstm._bwd_kernel under the
+// JAX default residual_dtype: dh and the residuals widened where they
+// are read, dx d_pre rounded as it is stored); with bfloat16 the d_pre
+// that the next step's product reads is the float32 one of a.carry (by
+// step parity: a step's readers pass the grid barrier before any block
+// writes that parity again), so the carry is never rounded. W: W_hh's
+// element type, widened into the registers that hold it; beside a
+// bfloat16 one the product reads d_pre rounded to bfloat16 (_cell_bwd's
+// d_pre.astype(w.dtype)). The plan and kMaxBatch do not depend on them.
+template <int KQ, int UN, typename R = float, typename W = float>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_bwd_wide_kernel(const Args a) {
   constexpr int kRows = 32 / UN;  // batch rows a reduction round
@@ -160,6 +191,11 @@ lstm_bwd_wide_kernel(const Args a) {
   float* red_s = res_s + 2 * kRes * bt * UN;
   float* dc_s = red_s + bt * kWarps * UN;
 
+  constexpr bool kF32 = std::is_same<R, float>::value;
+  const R* dho = reinterpret_cast<const R*>(a.dh);
+  const R* gin = reinterpret_cast<const R*>(a.g);
+  const R* cin = reinterpret_cast<const R*>(a.c);
+  R* dx = reinterpret_cast<R*>(a.dx);
   const bool reverse = a.reverse != 0;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -180,7 +216,8 @@ lstm_bwd_wide_kernel(const Args a) {
 #pragma unroll
       for (int u = 0; u < UN; ++u) {
         wr[q][jj][u] = (j < G && u < nu)
-                           ? a.w[static_cast<size_t>(j) * H + u0 + u]
+                           ? resid::widen(reinterpret_cast<const W*>(
+                                 a.w)[static_cast<size_t>(j) * H + u0 + u])
                            : 0.0f;
       }
     }
@@ -194,18 +231,29 @@ lstm_bwd_wide_kernel(const Args a) {
     const int tc = reverse ? t + 1 : t - 1;  // c_prev's time index
     const bool has_cp = tc >= 0 && tc < T;
     const int nb = min(bt, B - b0);
-    float* dst0 = res_s + buf * kRes * bt * UN;
-    auto src_of = [&](int k, int b, int u) -> const float* {
+    R* dst0 = reinterpret_cast<R*>(res_s) + buf * kRes * bt * UN;
+    auto src_of = [&](int k, int b, int u) -> const R* {
       const size_t row = static_cast<size_t>(t) * B + b;
-      if (k < 4) return a.g + row * G + k * H + u0 + u;
-      if (k == 4) return a.c + row * H + u0 + u;
+      if (k < 4) return gin + row * G + k * H + u0 + u;
+      if (k == 4) return cin + row * H + u0 + u;
       if (k == 5) {
-        return has_cp ? a.c + (static_cast<size_t>(tc) * B + b) * H + u0 + u
-                      : a.c;
+        return has_cp ? cin + (static_cast<size_t>(tc) * B + b) * H + u0 + u
+                      : cin;
       }
-      return a.dh + row * H + u0 + u;
+      return dho + row * H + u0 + u;
     };
-    if (quads) {
+    if constexpr (!kF32) {
+      // bfloat16 residuals: loaded one by one (a run of the block's units
+      // is at most 8 bytes, and cp.async cannot take 2)
+      for (int i = tid; i < kRes * nb * UN; i += kThreads) {
+        const int k = i / (nb * UN);
+        const int bb = (i / UN) % nb;
+        const int u = i % UN;
+        const bool ok = u < nu && (k != 5 || has_cp);
+        dst0[(k * bt + bb) * UN + u] =
+            ok ? __ldg(src_of(k, b0 + bb, u)) : resid::narrow<R>(0.0f);
+      }
+    } else if (quads) {
       constexpr int nq = UN >= 4 ? UN / 4 : 1;  // quads only at UN = 4
       for (int i = tid; i < kRes * nb * nq; i += kThreads) {
         const int k = i / (nb * nq);
@@ -213,7 +261,7 @@ lstm_bwd_wide_kernel(const Args a) {
         const int u = 4 * (i % nq);
         const bool ok = u < nu && (k != 5 || has_cp);
         step::copy16(dst0 + (k * bt + bb) * UN + u,
-                     ok ? src_of(k, b0 + bb, u) : a.c, ok);
+                     ok ? src_of(k, b0 + bb, u) : cin, ok);
       }
     } else {
       for (int i = tid; i < kRes * nb * UN; i += kThreads) {
@@ -222,7 +270,7 @@ lstm_bwd_wide_kernel(const Args a) {
         const int u = i % UN;
         const bool ok = u < nu && (k != 5 || has_cp);
         step::copy4(dst0 + (k * bt + bb) * UN + u,
-                    ok ? src_of(k, b0 + bb, u) : a.c, ok);
+                    ok ? src_of(k, b0 + bb, u) : cin, ok);
       }
     }
     step::commit();
@@ -247,7 +295,12 @@ lstm_bwd_wide_kernel(const Args a) {
       if (s > 0) {
         // the previous step's d_pre rows, written by every block: all
         // copies in flight at once
-        const float* src = a.dx + (static_cast<size_t>(tp) * B + b0) * G;
+        const float* src;
+        if constexpr (kF32) {
+          src = a.dx + (static_cast<size_t>(tp) * B + b0) * G;
+        } else {
+          src = a.carry + (static_cast<size_t>((s - 1) & 1) * B + b0) * G;
+        }
         for (int i = tid; i < nb * G / 4; i += kThreads) {
           step::copy16(d_s + 4 * i, src + 4 * i);
         }
@@ -268,8 +321,9 @@ lstm_bwd_wide_kernel(const Args a) {
 #pragma unroll
               for (int r = 0; r < kRows; ++r) {
                 if (r0 + r < nb) {
-                  const float4 d = *reinterpret_cast<const float4*>(
-                      d_s + (r0 + r) * G + j);
+                  const float4 d = resid::operand<W>(
+                      *reinterpret_cast<const float4*>(d_s + (r0 + r) * G +
+                                                       j));
 #pragma unroll
                   for (int u = 0; u < UN; ++u) {
                     const int x = r * UN + u;
@@ -290,7 +344,7 @@ lstm_bwd_wide_kernel(const Args a) {
         __syncthreads();  // every warp's partial sums are in red_s
       }
       PROBE_LAP(2);
-      const float* res = res_s + buf * kRes * bt * UN;
+      const R* res = reinterpret_cast<const R*>(res_s) + buf * kRes * bt * UN;
       for (int i = tid; i < nb * UN; i += kThreads) {
         const int bb = i / UN;
         const int u = i % UN;
@@ -304,20 +358,38 @@ lstm_bwd_wide_kernel(const Args a) {
         }
         const int off = bb * UN + u;
         const int plane = bt * UN;
-        const float i_g = res[off], f_g = res[plane + off];
-        const float g_g = res[2 * plane + off], o_g = res[3 * plane + off];
-        const float tanh_c = tanhf(res[4 * plane + off]);
-        const float c_prev = res[5 * plane + off];
-        const float dh = res[6 * plane + off] + dh_carry;
+        const float i_g = resid::widen(res[off]);
+        const float f_g = resid::widen(res[plane + off]);
+        const float g_g = resid::widen(res[2 * plane + off]);
+        const float o_g = resid::widen(res[3 * plane + off]);
+        const float tanh_c = tanhf(resid::widen(res[4 * plane + off]));
+        const float c_prev = resid::widen(res[5 * plane + off]);
+        const float dh = resid::widen(res[6 * plane + off]) + dh_carry;
         const float d_o = dh * tanh_c;
         const int b = b0 + bb;
         float* dcp = dc_s + u * B + b;
         const float dc = *dcp + dh * o_g * (1.0f - tanh_c * tanh_c);
-        float* out = a.dx + (static_cast<size_t>(t) * B + b) * G + u0 + u;
-        out[0] = dc * g_g * i_g * (1.0f - i_g);
-        out[H] = dc * c_prev * f_g * (1.0f - f_g);
-        out[2 * H] = dc * i_g * (1.0f - g_g * g_g);
-        out[3 * H] = d_o * o_g * (1.0f - o_g);
+        if constexpr (kF32) {
+          float* out = dx + (static_cast<size_t>(t) * B + b) * G + u0 + u;
+          out[0] = dc * g_g * i_g * (1.0f - i_g);
+          out[H] = dc * c_prev * f_g * (1.0f - f_g);
+          out[2 * H] = dc * i_g * (1.0f - g_g * g_g);
+          out[3 * H] = d_o * o_g * (1.0f - o_g);
+        } else {
+          // the float32 d_pre for the next step's product, dx rounded
+          const float dp[4] = {dc * g_g * i_g * (1.0f - i_g),
+                               dc * c_prev * f_g * (1.0f - f_g),
+                               dc * i_g * (1.0f - g_g * g_g),
+                               d_o * o_g * (1.0f - o_g)};
+          float* keep = a.carry + (static_cast<size_t>(s & 1) * B + b) * G +
+                        u0 + u;
+          R* out = dx + (static_cast<size_t>(t) * B + b) * G + u0 + u;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            keep[q * H] = dp[q];
+            out[q * H] = resid::narrow<R>(dp[q]);
+          }
+        }
         *dcp = dc * f_g;
       }
       PROBE_LAP(3);
@@ -347,22 +419,26 @@ lstm_bwd_wide_kernel(const Args a) {
 #endif
 }
 
-template <int L>
+template <int L, typename R, typename W>
 cudaError_t launch_narrow(const Args& a, cudaStream_t stream) {
   const lane_bwd::Dir d{a.dh, a.g, a.c, a.w, a.dx, a.H};
   const int rows = lane_bwd::kThreads / L;  // rows a block
   const size_t smem = sizeof(float4) * lane_bwd::smem_float4s(L);
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_bwd_narrow_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      lstm_bwd_narrow_kernel<L, R, W>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  lstm_bwd_narrow_kernel<L><<<(a.B + rows - 1) / rows, lane_bwd::kThreads,
-                              smem, stream>>>(d, a.T, a.B, a.reverse);
+  lstm_bwd_narrow_kernel<L, R, W><<<(a.B + rows - 1) / rows,
+                                    lane_bwd::kThreads, smem, stream>>>(
+      d, a.T, a.B, a.reverse);
   return cudaGetLastError();
 }
 
-template <int KQ, int UN>
+template <int KQ, int UN, typename R, typename W>
 cudaError_t launch_wide(Args a, cudaStream_t stream) {
+  if (!std::is_same<R, float>::value && a.carry == nullptr) {
+    return cudaErrorInvalidValue;  // bfloat16 residuals need the carry
+  }
   const size_t c_b = carry_bytes(UN, a.B);
   const size_t r_b = row_bytes(UN, a.H);
   if (c_b + r_b > kSmemBudget) {
@@ -372,9 +448,26 @@ cudaError_t launch_wide(Args a, cudaStream_t stream) {
   a.bt = bt > a.B ? a.B : bt;
   const size_t smem = c_b + static_cast<size_t>(a.bt) * r_b;
   void* args[] = {&a};
-  return step::launch_cooperative(lstm_bwd_wide_kernel<KQ, UN>,
+  return step::launch_cooperative(lstm_bwd_wide_kernel<KQ, UN, R, W>,
                                   (a.H + UN - 1) / UN, kThreads, smem, args,
                                   stream);
+}
+
+// The gradient at the residuals' (dh's, dx's) and W_hh's element types.
+template <typename R, typename W>
+cudaError_t dispatch(const Args& a, cudaStream_t s) {
+  const int H = a.H;
+  if (H <= 1) return launch_narrow<1, R, W>(a, s);
+  if (H <= 2) return launch_narrow<2, R, W>(a, s);
+  if (H <= 4) return launch_narrow<4, R, W>(a, s);
+  if (H <= 8) return launch_narrow<8, R, W>(a, s);
+  if (H <= 16) return launch_narrow<16, R, W>(a, s);
+  if (H <= lane_bwd::kLaneMaxH) return launch_narrow<32, R, W>(a, s);
+  switch (plan_units(H)) {
+    case 1: return launch_wide<1, 1, R, W>(a, s);
+    case 2: return launch_wide<1, 2, R, W>(a, s);
+    default: return launch_wide<2, 4, R, W>(a, s);
+  }
 }
 
 // a pass of kJSpan rows j covers 4H up to H = 256 (1 and 2 units a
@@ -388,11 +481,15 @@ extern "C" {
 
 // The gradient recurrence of one direction; reverse != 0 for a direction
 // whose forward walked T-1 -> 0. barrier: one 32-bit word, zero at the
-// launch (the wide plan's grid barrier). Returns a cudaError_t (0 on
-// success). Does not synchronise.
+// launch (the wide plan's grid barrier). dh, g, c and dx are float32, or
+// with resid_bf16 bfloat16, and then the wide plan (H > 32) takes carry,
+// a float32 scratch of 2 x B x 4H (unused otherwise). w_bf16: W_hh in
+// bfloat16 (bfloat16 compute). Returns a cudaError_t (0 on success).
+// Does not synchronise.
 int lstm_bwd_launch(const void* dh, const void* g, const void* c,
-                    const void* w, void* dx, void* barrier, int T, int B,
-                    int H, int reverse, int device, void* stream) {
+                    const void* w, void* dx, void* barrier, void* carry,
+                    int T, int B, int H, int reverse, int resid_bf16,
+                    int w_bf16, int device, void* stream) {
   if (T < 1 || B < 1 || B > kMaxBatch || H < 1 || H > kMaxH) {
     return cudaErrorInvalidValue;
   }
@@ -405,22 +502,19 @@ int lstm_bwd_launch(const void* dh, const void* g, const void* c,
   a.w = static_cast<const float*>(w);
   a.dx = static_cast<float*>(dx);
   a.barrier = static_cast<unsigned*>(barrier);
+  a.carry = static_cast<float*>(carry);
   a.T = T;
   a.B = B;
   a.H = H;
   a.reverse = reverse ? 1 : 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (H <= 1) return launch_narrow<1>(a, s);
-  if (H <= 2) return launch_narrow<2>(a, s);
-  if (H <= 4) return launch_narrow<4>(a, s);
-  if (H <= 8) return launch_narrow<8>(a, s);
-  if (H <= 16) return launch_narrow<16>(a, s);
-  if (H <= lane_bwd::kLaneMaxH) return launch_narrow<32>(a, s);
-  switch (plan_units(H)) {
-    case 1: return launch_wide<1, 1>(a, s);
-    case 2: return launch_wide<1, 2>(a, s);
-    default: return launch_wide<2, 4>(a, s);
+  using resid::bf16;
+  if (w_bf16) {
+    if (resid_bf16) return dispatch<bf16, bf16>(a, s);
+    return dispatch<float, bf16>(a, s);
   }
+  if (resid_bf16) return dispatch<bf16, float>(a, s);
+  return dispatch<float, float>(a, s);
 }
 
 const char* lstm_bwd_error_string(int err) {

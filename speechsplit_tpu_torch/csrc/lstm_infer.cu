@@ -1,6 +1,6 @@
-// One direction of one LSTM layer, forward, float32: the lean forward
-// (lstm_infer, h only) and the residual-saving forward of training
-// (lstm_fwd).
+// One direction of one LSTM layer, forward: the lean forward (lstm_infer,
+// h only) and the residual-saving forward of training (lstm_fwd), at
+// float32 and at the bfloat16 dtype sets of the JAX single route.
 //
 // Replaces: speechsplit_tpu/ops/pallas_lstm.py::_infer_kernel (wrapper
 // _infer) and ::_fwd_kernel (wrapper _fwd), the TPU kernels of
@@ -16,6 +16,18 @@
 // lean forward also takes a scratch c [B, H] for the wide plan's cell
 // state; lstm_fwd also writes g [T, B, 4H] (the gates i, f, g, o after
 // their activations) and c [T, B, H].
+//
+// Element types, as pallas_lstm._infer_kernel and _fwd_kernel run them
+// (template arguments W, X, R of every plan): W_hh float or bfloat16
+// (bfloat16 compute: widened as it is staged, and the product reads
+// h_{t-1} rounded to bfloat16 nearest even, its sums float32, :263, :293);
+// xp float, or bfloat16 beside a bfloat16 W_hh (the lean forward at
+// either, the residual-saving one where the residuals are bfloat16 too,
+// pallas_lstm.stream_dtype), widened as it is read; g and c float or
+// bfloat16 (R, the JAX residual_dtype), rounded as they are stored, while
+// h and the c carry stay float32. The float32 instances keep the machine
+// code they had before the type arguments; every plan and kMaxBatch are
+// the same at every type.
 //
 // What bounds it on an H100: step t needs all of h_{t-1}, so the T steps
 // are serial. Each step is a [B, H] x [H, 4H] product (2*B*H*4H flops) and
@@ -215,11 +227,37 @@ __device__ __forceinline__ float4 stage4(const float* p, bool ok, int k,
   }
   return v;
 }
+// The same of a bfloat16 row (a bfloat16 W_hh), widened: kVec, one 8-byte
+// load of the four.
+template <bool kVec>
+__device__ __forceinline__ float4 stage4(const resid::bf16* p, bool ok,
+                                         int k, int H) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (!ok) return v;
+  if (kVec) {
+    if (k < H) {
+      const uint2 bits = *reinterpret_cast<const uint2*>(p);
+      v = make_float4(__uint_as_float(bits.x << 16),
+                      __uint_as_float(bits.x & 0xffff0000u),
+                      __uint_as_float(bits.y << 16),
+                      __uint_as_float(bits.y & 0xffff0000u));
+    }
+  } else {
+    if (k < H) v.x = resid::widen(p[0]);
+    if (k + 1 < H) v.y = resid::widen(p[1]);
+    if (k + 2 < H) v.z = resid::widen(p[2]);
+    if (k + 3 < H) v.w = resid::widen(p[3]);
+  }
+  return v;
+}
 
 // One step: h_out = cell(xp + h_prev W_hh^T) over a tile of kWideRows rows
 // and kWideUnits units; h_prev == nullptr at the first step (h and c from
-// zero).
-template <bool kVec>
+// zero). W: W_hh's element type, widened as it is staged into w_s; beside
+// a bfloat16 one h_prev is rounded to bfloat16 as it is staged into a_s
+// (once a tile, not at each read of it). X: xp's, widened where the cell
+// reads it.
+template <bool kVec, typename W = float, typename X = float>
 __global__ void __launch_bounds__(kWideThreads, 3)
 lstm_wide_step_kernel(const float* __restrict__ xp,
                       const float* __restrict__ w,
@@ -259,7 +297,7 @@ lstm_wide_step_kernel(const float* __restrict__ xp,
     // unit j for column 4 j + g
     const float* a_src[A_LD];
     bool a_ok[A_LD];
-    const float* w_src[W_LD];
+    const W* w_src[W_LD];
     bool w_ok[W_LD];
 #pragma unroll
     for (int p = 0; p < A_LD; ++p) {
@@ -272,8 +310,9 @@ lstm_wide_step_kernel(const float* __restrict__ xp,
       const int col = (tid + p * kWideThreads) >> 2;
       const int u = u0 + (col >> 2);
       w_ok[p] = u < H;
-      w_src[p] = w + static_cast<size_t>((col & 3) * H + (w_ok[p] ? u : 0)) *
-                         H + 4 * q;
+      w_src[p] = reinterpret_cast<const W*>(w) +
+                 static_cast<size_t>((col & 3) * H + (w_ok[p] ? u : 0)) * H +
+                 4 * q;
     }
     float4 a_reg[A_LD], w_reg[W_LD];
     auto fetch = [&](int k0) {
@@ -290,10 +329,12 @@ lstm_wide_step_kernel(const float* __restrict__ xp,
 #pragma unroll
       for (int p = 0; p < A_LD; ++p) {
         const int col = ((tid + p * kWideThreads) >> 2) ^ (q << 3);
-        a_s[buf][4 * q][col] = a_reg[p].x;
-        a_s[buf][4 * q + 1][col] = a_reg[p].y;
-        a_s[buf][4 * q + 2][col] = a_reg[p].z;
-        a_s[buf][4 * q + 3][col] = a_reg[p].w;
+        // h_{t-1} as the product reads it: rounded beside a bfloat16 W
+        const float4 a = resid::operand<W>(a_reg[p]);
+        a_s[buf][4 * q][col] = a.x;
+        a_s[buf][4 * q + 1][col] = a.y;
+        a_s[buf][4 * q + 2][col] = a.z;
+        a_s[buf][4 * q + 3][col] = a.w;
       }
 #pragma unroll
       for (int p = 0; p < W_LD; ++p) {
@@ -350,15 +391,17 @@ lstm_wide_step_kernel(const float* __restrict__ xp,
   for (int i = 0; i < MR; ++i) {
     const int m = m0 + MR * ty + i;
     if (m >= B) continue;
-    const float* x = xp + static_cast<size_t>(m) * 4 * H;
+    const X* x =
+        reinterpret_cast<const X*>(xp) + static_cast<size_t>(m) * 4 * H;
 #pragma unroll
     for (int v = 0; v < 2; ++v) {
       const int u = u0 + tx + 16 * v;
       if (u >= H) continue;
-      const float i_g = sigmoid_f(x[u] + acc[i][4 * v]);
-      const float f_g = sigmoid_f(x[H + u] + acc[i][4 * v + 1]);
-      const float g_g = tanhf(x[2 * H + u] + acc[i][4 * v + 2]);
-      const float o_g = sigmoid_f(x[3 * H + u] + acc[i][4 * v + 3]);
+      const float i_g = sigmoid_f(resid::widen(x[u]) + acc[i][4 * v]);
+      const float f_g = sigmoid_f(resid::widen(x[H + u]) + acc[i][4 * v + 1]);
+      const float g_g = tanhf(resid::widen(x[2 * H + u]) + acc[i][4 * v + 2]);
+      const float o_g =
+          sigmoid_f(resid::widen(x[3 * H + u]) + acc[i][4 * v + 3]);
       const size_t at = static_cast<size_t>(m) * H + u;
       const float c_prev = h_prev != nullptr ? c[at] : 0.0f;
       // each product and the sum rounded on its own, as the plain
@@ -371,7 +414,7 @@ lstm_wide_step_kernel(const float* __restrict__ xp,
   }
 }
 
-template <bool kVec>
+template <bool kVec, typename W, typename X>
 cudaError_t wide_steps(const float* xp, const float* w, float* h, float* c,
                        int T, int B, int H, int reverse,
                        cudaStream_t stream) {
@@ -382,8 +425,10 @@ cudaError_t wide_steps(const float* xp, const float* w, float* h, float* c,
   for (int s = 0; s < T; ++s) {
     const int t = reverse ? T - 1 - s : s;
     const int tp = reverse ? t + 1 : t - 1;  // the previous step's index
-    lstm_wide_step_kernel<kVec><<<grid, kWideThreads, 0, stream>>>(
-        xp + t * xs, w, s ? h + tp * hs : nullptr, h + t * hs, c, B, H);
+    lstm_wide_step_kernel<kVec, W, X><<<grid, kWideThreads, 0, stream>>>(
+        reinterpret_cast<const float*>(reinterpret_cast<const X*>(xp) +
+                                       t * xs),
+        w, s ? h + tp * hs : nullptr, h + t * hs, c, B, H);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -393,12 +438,16 @@ cudaError_t wide_steps(const float* xp, const float* w, float* h, float* c,
 // ----------------------------------------------- lstm_infer, narrow plan
 
 // The whole sequence for 128 / L batch rows a block; L lanes a row, one
-// unit a lane (all four gates of it), H <= L.
-template <int L>
+// unit a lane (all four gates of it), H <= L. W: W_hh's element type,
+// widened as it is staged; beside a bfloat16 one the product reads
+// h_{t-1} rounded to bfloat16, once a step before the shuffles. X: xp's,
+// widened as it is fetched.
+template <int L, typename W = float, typename X = float>
 __global__ void __launch_bounds__(kNarrowThreads)
 lstm_narrow_kernel(const float* __restrict__ xp, const float* __restrict__ w,
                    float* __restrict__ h, int T, int B, int H, int reverse) {
   constexpr int ROWS = 32 / L;  // batch rows a warp
+  const W* wv = reinterpret_cast<const W*>(w);
   // W_hh as [k][u] float4s (i, f, g, o of unit u at column k), L x L with
   // zeros past H
   extern __shared__ float4 wt[];
@@ -407,10 +456,10 @@ lstm_narrow_kernel(const float* __restrict__ xp, const float* __restrict__ w,
     const int u = i % L;
     float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (k < H && u < H) {
-      v.x = w[static_cast<size_t>(u) * H + k];
-      v.y = w[static_cast<size_t>(H + u) * H + k];
-      v.z = w[static_cast<size_t>(2 * H + u) * H + k];
-      v.w = w[static_cast<size_t>(3 * H + u) * H + k];
+      v.x = resid::widen(wv[static_cast<size_t>(u) * H + k]);
+      v.y = resid::widen(wv[static_cast<size_t>(H + u) * H + k]);
+      v.z = resid::widen(wv[static_cast<size_t>(2 * H + u) * H + k]);
+      v.w = resid::widen(wv[static_cast<size_t>(3 * H + u) * H + k]);
     }
     wt[i] = v;
   }
@@ -427,10 +476,10 @@ lstm_narrow_kernel(const float* __restrict__ xp, const float* __restrict__ w,
   const bool ok = live && u < H;
   float c_st = 0.0f, h_st = 0.0f, xn[4];
   auto fetch = [&](int t) {
-    const float* x =
-        xp + (static_cast<size_t>(t) * B + (live ? row : 0)) * 4 * H;
+    const X* x = reinterpret_cast<const X*>(xp) +
+                 (static_cast<size_t>(t) * B + (live ? row : 0)) * 4 * H;
 #pragma unroll
-    for (int g = 0; g < 4; ++g) xn[g] = ok ? x[g * H + u] : 0.0f;
+    for (int g = 0; g < 4; ++g) xn[g] = ok ? resid::widen(x[g * H + u]) : 0.0f;
   };
   fetch(reverse ? T - 1 : 0);
   for (int s = 0; s < T; ++s) {
@@ -440,10 +489,11 @@ lstm_narrow_kernel(const float* __restrict__ xp, const float* __restrict__ w,
     for (int g = 0; g < 4; ++g) x[g] = xn[g];
     if (s + 1 < T) fetch(reverse ? t - 1 : t + 1);  // in flight meanwhile
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const float h_op = resid::operand<W>(h_st);  // as the product reads it
 #pragma unroll
     for (int k = 0; k < L; ++k) {
       // h_{t-1}[k], from the lane that owns it
-      const float hk = __shfl_sync(0xffffffffu, h_st, k, L);
+      const float hk = __shfl_sync(0xffffffffu, h_op, k, L);
       const float4 v = wt[k * L + u];
       acc[0] = fmaf(hk, v.x, acc[0]);
       acc[1] = fmaf(hk, v.y, acc[1]);
@@ -460,38 +510,54 @@ lstm_narrow_kernel(const float* __restrict__ xp, const float* __restrict__ w,
   }
 }
 
-template <int L>
+template <int L, typename W, typename X>
 cudaError_t narrow_launch(const float* xp, const float* w, float* h, int T,
                           int B, int H, int reverse, cudaStream_t stream) {
   constexpr size_t smem = sizeof(float4) * L * L;
   constexpr int rows = kNarrowThreads / L;  // batch rows a block
   const unsigned blocks = (static_cast<unsigned>(B) + rows - 1) / rows;
-  lstm_narrow_kernel<L><<<blocks, kNarrowThreads, smem, stream>>>(
+  lstm_narrow_kernel<L, W, X><<<blocks, kNarrowThreads, smem, stream>>>(
       xp, w, h, T, B, H, reverse);
   return cudaGetLastError();
 }
 
 static_assert(kNarrowMaxH == 32, "narrow_plan's widest instance is L = 32");
+template <typename W, typename X>
 cudaError_t narrow_plan(const float* xp, const float* w, float* h, int T,
                         int B, int H, int reverse, cudaStream_t s) {
-  if (H <= 1) return narrow_launch<1>(xp, w, h, T, B, H, reverse, s);
-  if (H <= 2) return narrow_launch<2>(xp, w, h, T, B, H, reverse, s);
-  if (H <= 4) return narrow_launch<4>(xp, w, h, T, B, H, reverse, s);
-  if (H <= 8) return narrow_launch<8>(xp, w, h, T, B, H, reverse, s);
-  if (H <= 16) return narrow_launch<16>(xp, w, h, T, B, H, reverse, s);
-  return narrow_launch<32>(xp, w, h, T, B, H, reverse, s);
+  if (H <= 1) return narrow_launch<1, W, X>(xp, w, h, T, B, H, reverse, s);
+  if (H <= 2) return narrow_launch<2, W, X>(xp, w, h, T, B, H, reverse, s);
+  if (H <= 4) return narrow_launch<4, W, X>(xp, w, h, T, B, H, reverse, s);
+  if (H <= 8) return narrow_launch<8, W, X>(xp, w, h, T, B, H, reverse, s);
+  if (H <= 16) return narrow_launch<16, W, X>(xp, w, h, T, B, H, reverse, s);
+  return narrow_launch<32, W, X>(xp, w, h, T, B, H, reverse, s);
+}
+
+// The lean forward at W_hh's and xp's element types, in `plan`.
+template <typename W, typename X>
+cudaError_t infer_plan(const float* xp, const float* w, float* h, float* c,
+                       int T, int B, int H, int reverse, int plan,
+                       cudaStream_t s) {
+  if (plan == 1 || (plan == 0 && H <= kNarrowMaxH)) {
+    return narrow_plan<W, X>(xp, w, h, T, B, H, reverse, s);
+  }
+  return H % 4 == 0
+             ? wide_steps<true, W, X>(xp, w, h, c, T, B, H, reverse, s)
+             : wide_steps<false, W, X>(xp, w, h, c, T, B, H, reverse, s);
 }
 
 
 // ----------------------------------------------- lstm_fwd, narrow plan
 
-template <int L>
+// R, W, X: the element types of the residuals, W_hh and xp (lane_fwd.cuh)
+template <int L, typename R = float, typename W = float, typename X = float>
 __global__ void __launch_bounds__(lane_fwd::kThreads)
 lstm_fwd_narrow_kernel(lane_fwd::Dir d, int T, int B, int reverse) {
   extern __shared__ float4 lane_smem[];
   lane_fwd::Probe probe;
-  // a reverse direction is an odd one
-  lane_fwd::steps<L, true>(d, blockIdx.x, reverse, T, B, lane_smem, probe);
+  // a reverse direction is an odd one; W_hh is W's type throughout
+  lane_fwd::steps<L, true, R, W, X>(d, blockIdx.x, reverse, T, B, lane_smem,
+                                    probe, !std::is_same<W, float>::value);
 #ifdef LSTM_FWD_PROBE
   // the lane step's phases 0 .. 3 are this file's 1 .. 4
   probe.flush(g_probe_cycles + 1, g_probe_laps + 1, &g_probe_sink);
@@ -515,7 +581,15 @@ struct FwdArgs {
 // Shared memory: hbuf [2][bt][Hp] two buffers of h_{t-1}; xbuf
 // [2][bt][4][UN] two buffers of the units' gate inputs; hc_s [bt][2][UN]
 // the tile's h and c; c_s [UN][B] the cell state.
-template <int KQ, int UN>  // passes of kKSpan: ceil(H / kKSpan); units a block
+// KQ: passes of kKSpan, ceil(H / kKSpan); UN: units a block. R: the
+// residuals' element type, staged in float32 and rounded as they are
+// stored (h stays float32). W: W_hh's, widened into the registers that
+// hold it, and beside a bfloat16 one h_{t-1} rounded to bfloat16 where
+// the product reads it. X: xp's, widened as it is staged (cp.async cannot
+// widen, so a bfloat16 xp is loaded through registers). All staging is
+// float32, so the plan and kMaxBatch do not depend on them.
+template <int KQ, int UN, typename R = float, typename W = float,
+          typename X = float>
 __global__ void __launch_bounds__(UN * kSplits * 32, 1)
 lstm_fwd_wide_kernel(const FwdArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -553,7 +627,8 @@ lstm_fwd_wide_kernel(const FwdArgs a) {
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
         wr[q][kk][g] = (active && k < H)
-                           ? a.w[static_cast<size_t>(g * H + u) * H + k]
+                           ? resid::widen(reinterpret_cast<const W*>(
+                                 a.w)[static_cast<size_t>(g * H + u) * H + k])
                            : 0.0f;
       }
     }
@@ -566,6 +641,20 @@ lstm_fwd_wide_kernel(const FwdArgs a) {
     const int t = reverse ? T - 1 - s : s;
     const int nb = min(bt, B - b0);
     float* dst = xbuf + buf * bt * xrow;
+    if constexpr (!std::is_same<X, float>::value) {
+      const X* src = reinterpret_cast<const X*>(a.xp) +
+                     (static_cast<size_t>(t) * B + b0) * 4 * H + u0;
+      for (int i = tid; i < nb * xrow; i += nthreads) {
+        const int r = i / xrow;
+        const int g = (i / UN) & 3;
+        const int v = i % UN;
+        if (v < nu) {
+          dst[i] = resid::widen_loaded(resid::load(
+              src + static_cast<size_t>(r) * 4 * H + g * H + v));
+        }
+      }
+      return;
+    }
     const float* src = a.xp + (static_cast<size_t>(t) * B + b0) * 4 * H + u0;
     if (quads) {
       constexpr int nq = UN >= 4 ? UN / 4 : 1;  // quads only at UN = 4
@@ -659,8 +748,9 @@ lstm_fwd_wide_kernel(const FwdArgs a) {
               if (k < Hp) {
 #pragma unroll
                 for (int r = 0; r < kRound; ++r) {
-                  const float4 hv = *reinterpret_cast<const float4*>(
-                      h_s + min(r0 + r, nb - 1) * Hp + k);
+                  const float4 hv = resid::operand<W>(
+                      *reinterpret_cast<const float4*>(
+                          h_s + min(r0 + r, nb - 1) * Hp + k));
 #pragma unroll
                   for (int g = 0; g < 4; ++g) {
                     const int x = r * 4 + g;
@@ -707,37 +797,73 @@ lstm_fwd_wide_kernel(const FwdArgs a) {
       // the gates i, f, g, o, then h and c
       constexpr int n_out = 6;
       const size_t row0 = static_cast<size_t>(t) * B + b0;
-      auto out_of = [&](int r, int j, int v, const float** from) {
-        const size_t row = row0 + r;
-        if (j < 4) {
-          *from = x_s + r * xrow + j * UN + v;
-          return a.g + row * 4 * H + j * H + u0 + v;
-        }
-        *from = hc_s + (r * 2 + j - 4) * UN + v;
-        return (j == 4 ? a.h : a.c) + row * H + u0 + v;
-      };
-      if (quads) {
-        constexpr int nq = UN >= 4 ? UN / 4 : 1;
+      if constexpr (!std::is_same<R, float>::value) {
+        // bfloat16 residuals: g and c rounded, 4 values in 8 bytes where
+        // the runs are whole quads; h float32
+        R* gres = reinterpret_cast<R*>(a.g);
+        R* cres = reinterpret_cast<R*>(a.c);
+        const int per = quads ? 4 : 1;  // values a thread stores
+        const int nq = UN / per;
         for (int i = tid; i < nb * n_out * nq; i += nthreads) {
           const int r = i / (n_out * nq);
           const int j = (i / nq) % n_out;
-          const int q4 = 4 * (i % nq);
-          if (q4 < nu) {
-            const float* from;
-            float* to = out_of(r, j, q4, &from);
-            *reinterpret_cast<float4*>(to) =
-                *reinterpret_cast<const float4*>(from);
+          const int v = per * (i % nq);
+          if (v >= nu) continue;
+          const size_t row = row0 + r;
+          if (j == 4) {
+            const float* from = hc_s + r * 2 * UN + v;
+            float* to = a.h + row * H + u0 + v;
+            if (quads) {
+              *reinterpret_cast<float4*>(to) =
+                  *reinterpret_cast<const float4*>(from);
+            } else {
+              *to = *from;
+            }
+            continue;
+          }
+          const float* from = j < 4 ? x_s + r * xrow + j * UN + v
+                                    : hc_s + (r * 2 + 1) * UN + v;
+          R* to = j < 4 ? gres + row * 4 * H + j * H + u0 + v
+                        : cres + row * H + u0 + v;
+          if (quads) {
+            resid::store4(to, *reinterpret_cast<const float4*>(from));
+          } else {
+            *to = resid::narrow<R>(*from);
           }
         }
       } else {
-        for (int i = tid; i < nb * n_out * UN; i += nthreads) {
-          const int r = i / (n_out * UN);
-          const int j = (i / UN) % n_out;
-          const int v = i % UN;
-          if (v < nu) {
-            const float* from;
-            float* to = out_of(r, j, v, &from);
-            *to = *from;
+        auto out_of = [&](int r, int j, int v, const float** from) {
+          const size_t row = row0 + r;
+          if (j < 4) {
+            *from = x_s + r * xrow + j * UN + v;
+            return a.g + row * 4 * H + j * H + u0 + v;
+          }
+          *from = hc_s + (r * 2 + j - 4) * UN + v;
+          return (j == 4 ? a.h : a.c) + row * H + u0 + v;
+        };
+        if (quads) {
+          constexpr int nq = UN >= 4 ? UN / 4 : 1;
+          for (int i = tid; i < nb * n_out * nq; i += nthreads) {
+            const int r = i / (n_out * nq);
+            const int j = (i / nq) % n_out;
+            const int q4 = 4 * (i % nq);
+            if (q4 < nu) {
+              const float* from;
+              float* to = out_of(r, j, q4, &from);
+              *reinterpret_cast<float4*>(to) =
+                  *reinterpret_cast<const float4*>(from);
+            }
+          }
+        } else {
+          for (int i = tid; i < nb * n_out * UN; i += nthreads) {
+            const int r = i / (n_out * UN);
+            const int j = (i / UN) % n_out;
+            const int v = i % UN;
+            if (v < nu) {
+              const float* from;
+              float* to = out_of(r, j, v, &from);
+              *to = *from;
+            }
           }
         }
       }
@@ -765,21 +891,21 @@ lstm_fwd_wide_kernel(const FwdArgs a) {
 #endif
 }
 
-template <int L>
+template <int L, typename R, typename W, typename X>
 cudaError_t fwd_narrow(const FwdArgs& a, cudaStream_t stream) {
   const lane_fwd::Dir d{a.xp, a.w, a.h, a.g, a.c, a.H};
   constexpr int rows = lane_fwd::kThreads / L;  // rows a block
   constexpr size_t smem = sizeof(float4) * L * L;
   const unsigned blocks = (static_cast<unsigned>(a.B) + rows - 1) / rows;
-  lstm_fwd_narrow_kernel<L><<<blocks, lane_fwd::kThreads, smem, stream>>>(
-      d, a.T, a.B, a.reverse);
+  lstm_fwd_narrow_kernel<L, R, W, X>
+      <<<blocks, lane_fwd::kThreads, smem, stream>>>(d, a.T, a.B, a.reverse);
   return cudaGetLastError();
 }
 
 // The wide plan's batch tile: the largest that fits the budget beside the
 // cell state, then evened out over the tiles it takes. Refuses a batch
 // whose cell state leaves no room for one row.
-template <int KQ, int UN>
+template <int KQ, int UN, typename R, typename W, typename X>
 cudaError_t fwd_wide(FwdArgs a, cudaStream_t stream) {
   const size_t budget = kSmemBudget / sizeof(float);
   const size_t c_f = cell_floats(UN, a.B);
@@ -793,7 +919,7 @@ cudaError_t fwd_wide(FwdArgs a, cudaStream_t stream) {
   a.bt = static_cast<int>((a.B + tiles - 1) / tiles);
   const size_t smem = (c_f + a.bt * r_f) * sizeof(float);
   void* args[] = {&a};
-  return step::launch_cooperative(lstm_fwd_wide_kernel<KQ, UN>,
+  return step::launch_cooperative(lstm_fwd_wide_kernel<KQ, UN, R, W, X>,
                                   (a.H + UN - 1) / UN, UN * kSplits * 32,
                                   smem, args, stream);
 }
@@ -801,9 +927,39 @@ cudaError_t fwd_wide(FwdArgs a, cudaStream_t stream) {
 template <int KQ>
 cudaError_t fwd_wide_units(const FwdArgs& a, int units, cudaStream_t s) {
   switch (units) {
-    case 1: return fwd_wide<KQ, 1>(a, s);
-    case 2: return fwd_wide<KQ, 2>(a, s);
-    default: return fwd_wide<KQ, 4>(a, s);
+    case 1: return fwd_wide<KQ, 1, float, float, float>(a, s);
+    case 2: return fwd_wide<KQ, 2, float, float, float>(a, s);
+    default: return fwd_wide<KQ, 4, float, float, float>(a, s);
+  }
+}
+
+// The residual-saving forward at the residuals', W_hh's and xp's element
+// types: the narrow plan where H <= lane_fwd::kLaneMaxH, else the wide one.
+// The float32 instances keep every (passes, units) pair the dispatch of
+// the float32 kernel had; the others build only the three pairs a width
+// reaches (plan_units(H) and ceil(H / kKSpan): 1 and 1 up to H = 128, 2
+// and 2 up to 256, 4 and 4 above).
+template <typename R, typename W, typename X>
+cudaError_t fwd_dispatch(const FwdArgs& a, cudaStream_t s) {
+  const int H = a.H;
+  if (H <= 1) return fwd_narrow<1, R, W, X>(a, s);
+  if (H <= 2) return fwd_narrow<2, R, W, X>(a, s);
+  if (H <= 4) return fwd_narrow<4, R, W, X>(a, s);
+  if (H <= 8) return fwd_narrow<8, R, W, X>(a, s);
+  if (H <= 16) return fwd_narrow<16, R, W, X>(a, s);
+  if (H <= lane_fwd::kLaneMaxH) return fwd_narrow<32, R, W, X>(a, s);
+  const int units = plan_units(H);
+  const int kq = (H + kKSpan - 1) / kKSpan;
+  if constexpr (std::is_same<R, float>::value &&
+                std::is_same<W, float>::value &&
+                std::is_same<X, float>::value) {
+    if (kq <= 1) return fwd_wide_units<1>(a, units, s);
+    if (kq <= 2) return fwd_wide_units<2>(a, units, s);
+    return fwd_wide_units<4>(a, units, s);
+  } else {
+    if (kq <= 1 && units == 1) return fwd_wide<1, 1, R, W, X>(a, s);
+    if (kq <= 2 && units == 2) return fwd_wide<2, 2, R, W, X>(a, s);
+    return fwd_wide<4, 4, R, W, X>(a, s);
   }
 }
 
@@ -811,6 +967,10 @@ static_assert(lane_fwd::kLaneMaxH == 32,
               "the narrow plan's widest instance is L = 32");
 static_assert(plan_units(kMaxH) == 4 && kMaxH <= 4 * kKSpan,
               "the wide plan's widest block and passes");
+static_assert(plan_units(kKSpan) == 1 && plan_units(kKSpan + 1) == 2 &&
+                  plan_units(2 * kKSpan) == 2 &&
+                  plan_units(2 * kKSpan + 1) == 4,
+              "fwd_dispatch's (passes, units) pairs follow plan_units");
 
 }  // namespace
 
@@ -819,14 +979,18 @@ extern "C" {
 // Lean forward of one direction; reverse != 0 walks T-1 -> 0. plan: 0 by
 // width (narrow where H <= kNarrowMaxH, else wide), 1 narrow (H <=
 // kNarrowMaxH), 2 wide; only a measurement forces one. c is a [B, H]
-// scratch. Returns a cudaError_t (0 on success). Does not synchronise.
+// scratch. w_bf16: W_hh in bfloat16 (bfloat16 compute), and then xp_bf16:
+// xp in bfloat16 too (a bfloat16 xp beside a float32 W_hh returns
+// cudaErrorInvalidValue); h is float32. Returns a cudaError_t (0 on
+// success). Does not synchronise.
 int lstm_infer_launch(const void* xp, const void* w, void* h, void* c, int T,
-                      int B, int H, int reverse, int plan, int device,
-                      void* stream) {
+                      int B, int H, int reverse, int plan, int w_bf16,
+                      int xp_bf16, int device, void* stream) {
   if (T < 1 || B < 1 || H < 1 || H > kMaxH || plan < 0 || plan > 2 ||
       (plan == 1 && H > kNarrowMaxH)) {
     return cudaErrorInvalidValue;
   }
+  if (xp_bf16 && !w_bf16) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   auto s = static_cast<cudaStream_t>(stream);
@@ -835,21 +999,29 @@ int lstm_infer_launch(const void* xp, const void* w, void* h, void* c, int T,
   auto ho = static_cast<float*>(h);
   auto co = static_cast<float*>(c);
   const int r = reverse ? 1 : 0;
-  if (plan == 1 || (plan == 0 && H <= kNarrowMaxH)) {
-    return narrow_plan(x, wh, ho, T, B, H, r, s);
-  }
-  return H % 4 == 0 ? wide_steps<true>(x, wh, ho, co, T, B, H, r, s)
-                    : wide_steps<false>(x, wh, ho, co, T, B, H, r, s);
+  using resid::bf16;
+  if (!w_bf16) return infer_plan<float, float>(x, wh, ho, co, T, B, H, r,
+                                               plan, s);
+  if (xp_bf16) return infer_plan<bf16, bf16>(x, wh, ho, co, T, B, H, r,
+                                             plan, s);
+  return infer_plan<bf16, float>(x, wh, ho, co, T, B, H, r, plan, s);
 }
 
-// Residual-saving forward: also writes g [T, B, 4H] and c [T, B, H]. The
-// narrow plan where H <= lane_fwd::kLaneMaxH, else the wide one. barrier:
-// one 32-bit word, zero at the launch (the wide plan's grid barrier).
-// Returns a cudaError_t (0 on success). Does not synchronise.
+// Residual-saving forward: also writes g [T, B, 4H] and c [T, B, H], in
+// float32, or with resid_bf16 in bfloat16 (h stays float32). w_bf16:
+// W_hh in bfloat16 (bfloat16 compute), and xp_bf16: xp in bfloat16; xp
+// is bfloat16 exactly where W_hh and the residuals both are
+// (pallas_lstm.stream_dtype), and other sets return
+// cudaErrorInvalidValue. The narrow plan where H <= lane_fwd::kLaneMaxH,
+// else the wide one. barrier: one 32-bit word, zero at the launch (the
+// wide plan's grid barrier). Returns a cudaError_t (0 on success). Does
+// not synchronise.
 int lstm_fwd_launch(const void* xp, const void* w, void* h, void* g, void* c,
                     void* barrier, int T, int B, int H, int reverse,
-                    int device, void* stream) {
-  if (T < 1 || B < 1 || B > kMaxBatch || H < 1 || H > kMaxH) {
+                    int resid_bf16, int w_bf16, int xp_bf16, int device,
+                    void* stream) {
+  if (T < 1 || B < 1 || B > kMaxBatch || H < 1 || H > kMaxH ||
+      (xp_bf16 != 0) != (resid_bf16 && w_bf16)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
@@ -866,17 +1038,13 @@ int lstm_fwd_launch(const void* xp, const void* w, void* h, void* g, void* c,
   a.H = H;
   a.reverse = reverse ? 1 : 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (H <= 1) return fwd_narrow<1>(a, s);
-  if (H <= 2) return fwd_narrow<2>(a, s);
-  if (H <= 4) return fwd_narrow<4>(a, s);
-  if (H <= 8) return fwd_narrow<8>(a, s);
-  if (H <= 16) return fwd_narrow<16>(a, s);
-  if (H <= lane_fwd::kLaneMaxH) return fwd_narrow<32>(a, s);
-  const int units = plan_units(H);
-  const int kq = (H + kKSpan - 1) / kKSpan;
-  if (kq <= 1) return fwd_wide_units<1>(a, units, s);
-  if (kq <= 2) return fwd_wide_units<2>(a, units, s);
-  return fwd_wide_units<4>(a, units, s);
+  using resid::bf16;
+  if (w_bf16) {
+    if (resid_bf16) return fwd_dispatch<bf16, bf16, bf16>(a, s);
+    return fwd_dispatch<float, bf16, float>(a, s);
+  }
+  if (resid_bf16) return fwd_dispatch<bf16, float, float>(a, s);
+  return fwd_dispatch<float, float, float>(a, s);
 }
 
 const char* lstm_error_string(int err) {

@@ -193,18 +193,19 @@ class LSTM(nn.Module):
     ``residual_dtype`` (float32 or bfloat16; the JAX layer's field of
     the same name, threaded from ``config.residual_dtype``) is the dtype
     the layer's recurrences save their residuals in under autograd. In
-    eval and under ``no_grad`` nothing is saved and it changes nothing.
-    The merged route runs it in every kernel; the fused projection and
-    the single-direction route save float32 only, and raise under
-    autograd for bfloat16 (ROADMAP.md A4c).
+    eval and under ``no_grad`` nothing is saved and it changes nothing
+    but the xp streams' dtype below. The merged (composed) and the
+    single-direction routes run it in every kernel; the fused projection
+    saves float32 only, and raises under autograd for bfloat16
+    (ROADMAP.md A4c).
 
     ``dtype`` (``config.compute_dtype``): the projections follow
     ``Linear``, W_hh is cast to ``_recurrent_dtype`` at each use, and on
-    the merged route the projected inputs are cast to
-    ``ops.bilstm.stream_dtype`` (bfloat16 where W_hh and the residuals
-    both are), as the JAX layer casts them. bfloat16 compute runs the
-    merged route (composed) and ``streams``; the fused projection and the
-    single-direction route raise for it (ROADMAP.md A4c).
+    the merged and the single-direction routes the projected inputs are
+    cast to ``ops.bilstm.stream_dtype`` (bfloat16 where W_hh and the
+    residuals both are), as the JAX layer casts them (layers.py:208-217).
+    bfloat16 compute runs both those routes and ``streams``; the fused
+    projection raises for it (ROADMAP.md A4c).
     """
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int,
@@ -255,9 +256,12 @@ class LSTM(nn.Module):
 
     def _direction(self, x: torch.Tensor, sfx: str) -> torch.Tensor:
         """One direction of a layer over time-major x [T, B, I] through
-        ``ops.lstm``: h [T, B, H] in real time order."""
-        return lstm.lstm_sequence(self._project(x, sfx).contiguous(),
-                                  self._w_hh(sfx), sfx.endswith("_reverse"),
+        ``ops.lstm``: h [T, B, H] in real time order, the projection in
+        the stream dtype (JAX's ``_lstm_direction``, layers.py:215-217)."""
+        w = self._w_hh(sfx)
+        sd = bilstm.stream_dtype(w.dtype, self.residual_dtype)
+        return lstm.lstm_sequence(self._project(x, sfx).to(sd).contiguous(),
+                                  w, sfx.endswith("_reverse"),
                                   self.residual_dtype)
 
     def streams(self, x: torch.Tensor, layer: int = 0):

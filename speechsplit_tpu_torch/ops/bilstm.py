@@ -343,15 +343,18 @@ def refuse_bf16_compute(tensors, what: str) -> None:
         )
 
 
-def check_compute(xp_dtype, w_dtype, residual_dtype=None) -> None:
-    """The dtypes the merged forwards run: a float32 W_hh with float32 xp;
-    a bfloat16 W_hh (bfloat16 compute) with float32 or bfloat16 xp, and
-    under autograd (``residual_dtype`` given) with xp in the residuals'
-    dtype (:func:`stream_dtype`). Anything else raises: another dtype a
-    ValueError, a bfloat16 pair JAX never forms NotImplementedError."""
+def check_compute(xp_dtype, w_dtype, residual_dtype=None,
+                  what: str = "bilstm_sequence") -> None:
+    """The dtypes the recurrences run (the merged forwards, and ``what``
+    ``lstm_sequence`` the single-direction ones): a float32 W_hh with
+    float32 xp; a bfloat16 W_hh (bfloat16 compute) with float32 or
+    bfloat16 xp, and under autograd (``residual_dtype`` given) with xp in
+    the residuals' dtype (:func:`stream_dtype`). Anything else raises:
+    another dtype a ValueError, a bfloat16 pair JAX never forms
+    NotImplementedError."""
     for name, dtype in (("xp", xp_dtype), ("w", w_dtype)):
         if dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"bilstm_sequence: {name} must be float32 or "
+            raise ValueError(f"{what}: {name} must be float32 or "
                              f"bfloat16, got {dtype}")
     if w_dtype == torch.float32:
         ok = xp_dtype == torch.float32
@@ -359,9 +362,9 @@ def check_compute(xp_dtype, w_dtype, residual_dtype=None) -> None:
         ok = residual_dtype is None or xp_dtype == residual_dtype
     if not ok:
         raise NotImplementedError(
-            f"bilstm_sequence runs xp {xp_dtype} beside W_hh {w_dtype} "
-            f"(residuals {residual_dtype}) nowhere; the merged kernels take "
-            f"the JAX stream dtype (stream_dtype); other pairs are {A4C}"
+            f"{what} runs xp {xp_dtype} beside W_hh {w_dtype} "
+            f"(residuals {residual_dtype}) nowhere; its kernels take the JAX "
+            f"stream dtype (stream_dtype); other pairs are {A4C}"
         )
 
 

@@ -26,7 +26,20 @@ recurrence, then ``dW_hh`` as one matmul outside the kernel (as
 ``_vjp_bwd`` does); otherwise the lean forward runs. On CUDA tensors each
 launches its kernel (``csrc/lstm_infer.cu``, ``csrc/lstm_bwd.cu``) or
 raises; on CPU tensors each runs its plain version, the per-direction
-loops of ``ops.bilstm``.
+loops of ``ops.bilstm``, which take every dtype below.
+
+Precision, as the JAX op's (``lstm_sequence(..., residual_dtype)``,
+pallas_lstm.py:487-567): under autograd the residuals g and c are saved
+in ``residual_dtype``, float32 or bfloat16 (the JAX default); with
+bfloat16 the gradient reads dh rounded to bfloat16 and writes dxp in
+bfloat16, its d_pre carry float32 (``_dh_stream_dtype``,
+``_grad_stream_dtype``); dW_hh rounds h and dxp to the residual dtype and
+sums in float32 (``_dw_contract``), then takes W's dtype; dxp goes back to
+autograd in xp's dtype. bfloat16 compute: ``w`` bfloat16, a step's
+product reads h_{t-1} (the gradient's d_pre) rounded to bfloat16, the
+sums, gates, c and h float32; xp is float32, or bfloat16 where W_hh and
+the residuals both are (``bilstm.stream_dtype``). h is float32
+throughout. Other dtype sets raise (:func:`bilstm.check_compute`).
 """
 
 from __future__ import annotations
@@ -38,17 +51,18 @@ from torch.autograd.function import once_differentiable
 
 from speechsplit_tpu_torch.ops import _build
 from speechsplit_tpu_torch.ops.bilstm import (
-    A4C,
     MAX_HIDDEN,
     _barrier_word,
+    _bf16,
     _device,
     _recording,
     _stream,
+    check_compute,
     check_residual_dtype,
-    refuse_bf16_compute,
+    contract_dw,
     lstm_direction_backward_reference,
     lstm_direction_forward_reference,
-    refuse_bf16_residuals,
+    stream_dtype,
 )
 
 # kernel launches since the last reset, per kernel; the main path's proof
@@ -62,6 +76,8 @@ MAX_BWD_BATCH = _build.source_constant("lstm_bwd", "kMaxBatch")
 NARROW_MAX_H = _build.source_constant("lstm_infer", "kNarrowMaxH")
 # lstm_infer_launch's plan argument: by width, or one forced to measure it
 _PLANS = {"auto": 0, "narrow": 1, "wide": 2}
+# the element types the kernels take (which sets: _check)
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def lstm_sequence_reference(xp, w, reverse: bool):
@@ -70,13 +86,28 @@ def lstm_sequence_reference(xp, w, reverse: bool):
     return lstm_direction_forward_reference(xp, w, reverse)[0]
 
 
-def _check(xp, w, what: str, max_batch: int | None) -> None:
-    """Type, layout and shape of a kernel's inputs; ``max_batch`` None
-    for a kernel without a batch limit."""
-    if xp.dtype != torch.float32 or w.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{what} runs float32 only; bfloat16 compute is {A4C}"
+def _check(xp, w, what: str, max_batch: int | None,
+           residual_dtype=None) -> None:
+    """Type, layout and shape of a forward kernel's inputs; ``max_batch``
+    None for a kernel without a batch limit. The dtype sets the JAX
+    single route forms: W_hh float32 beside a float32 xp; W_hh bfloat16
+    beside a float32 or a bfloat16 xp, and for the residual-saving
+    forward (``residual_dtype`` given) xp in :func:`stream_dtype`. Any
+    other set raises ValueError."""
+    if xp.dtype not in _DTYPES or w.dtype not in _DTYPES or (
+            w.dtype == torch.float32 and xp.dtype != torch.float32) or (
+            residual_dtype is not None
+            and xp.dtype != stream_dtype(w.dtype, residual_dtype)):
+        raise ValueError(
+            f"{what} takes xp {xp.dtype} beside W_hh {w.dtype} (residuals "
+            f"{residual_dtype}) nowhere: xp is float32, or bfloat16 beside "
+            f"a bfloat16 W_hh (stream_dtype)"
         )
+    _check_shapes(xp, w, what, max_batch)
+
+
+def _check_shapes(xp, w, what: str, max_batch: int | None) -> None:
+    """Layout and shape of [T, B, 4H] ``xp`` (or g) beside ``w`` [4H, H]."""
     if not (xp.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"{what} needs contiguous tensors")
     if xp.dim() != 3 or xp.shape[-1] % 4:
@@ -98,14 +129,17 @@ def _check(xp, w, what: str, max_batch: int | None) -> None:
 
 
 def _check_residuals(dh, g, c) -> None:
-    """The gradient kernel's residual inputs beside ``g`` [T, B, 4H]."""
+    """The gradient kernel's residual inputs beside ``g`` [T, B, 4H]: dh,
+    g and c in one residual dtype, float32 or bfloat16 (dh follows the
+    residuals, ``_dh_stream_dtype``)."""
     shape = tuple(g.shape)
     hshape = shape[:2] + (shape[2] // 4,)
+    check_residual_dtype(g.dtype, "lstm_bwd")
     for name, x in (("dh", dh), ("c", c)):
-        if x.dtype != torch.float32:
-            raise NotImplementedError(
-                f"lstm_bwd takes float32 {name}; bfloat16 residuals are "
-                f"{A4C}"
+        if x.dtype != g.dtype:
+            raise ValueError(
+                f"lstm_bwd takes dh, g and c in one residual dtype: {name} "
+                f"is {x.dtype}, g {g.dtype}"
             )
         if not x.is_contiguous() or tuple(x.shape) != hshape:
             raise ValueError(
@@ -116,10 +150,10 @@ def _check_residuals(dh, g, c) -> None:
 def _library():
     lib = _build.load("lstm_infer")
     lib.lstm_infer_launch.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p]
+        ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.lstm_infer_launch.restype = ctypes.c_int
     lib.lstm_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
+        ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.lstm_fwd_launch.restype = ctypes.c_int
     lib.lstm_error_string.argtypes = [ctypes.c_int]
     lib.lstm_error_string.restype = ctypes.c_char_p
@@ -128,8 +162,8 @@ def _library():
 
 def _bwd_library():
     lib = _build.load("lstm_bwd")
-    lib.lstm_bwd_launch.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.lstm_bwd_launch.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.lstm_bwd_launch.restype = ctypes.c_int
     lib.lstm_bwd_error_string.argtypes = [ctypes.c_int]
     lib.lstm_bwd_error_string.restype = ctypes.c_char_p
@@ -145,36 +179,39 @@ def lstm_infer_cuda(xp, w, reverse: bool):
 def _lstm_infer_plan(xp, w, reverse: bool, plan: str):
     """:func:`lstm_infer_cuda` in ``plan``: "auto", or "narrow" (H <=
     ``NARROW_MAX_H``) or "wide" forced, which only a measurement of the
-    plans asks for."""
+    plans asks for. h is float32 at every dtype set."""
     _check(xp, w, "lstm_infer", None)
     t_len, batch, four_h = xp.shape
-    h = xp.new_empty(t_len, batch, four_h // 4)
-    c = xp.new_empty(batch, four_h // 4)  # the wide plan's cell state
+    h = xp.new_empty(t_len, batch, four_h // 4, dtype=torch.float32)
+    c = torch.empty_like(h[0])  # the wide plan's cell state
     lib = _library()
     err = lib.lstm_infer_launch(
         xp.data_ptr(), w.data_ptr(), h.data_ptr(), c.data_ptr(), t_len,
-        batch, four_h // 4, int(reverse), _PLANS[plan], xp.device.index or 0,
-        _stream(xp),
+        batch, four_h // 4, int(reverse), _PLANS[plan], _bf16(w), _bf16(xp),
+        xp.device.index or 0, _stream(xp),
     )
     _build.check(err, "lstm_infer", lib.lstm_error_string)
     LAUNCHES["lstm_infer"] += 1
     return h
 
 
-def lstm_forward_cuda(xp, w, reverse: bool):
+def lstm_forward_cuda(xp, w, reverse: bool, residual_dtype=torch.float32):
     """Launch the residual-saving forward of ``csrc/lstm_infer.cu``:
-    ``(h, g, c)``, by the narrow plan up to ``NARROW_MAX_H`` and the wide
-    one above."""
-    _check(xp, w, "lstm_fwd", MAX_FWD_BATCH)
+    ``(h, g, c)``, g and c in ``residual_dtype`` (the kernel rounds them as
+    it stores them; h stays float32), by the narrow plan up to
+    ``NARROW_MAX_H`` and the wide one above."""
+    check_residual_dtype(residual_dtype, "lstm_fwd")
+    _check(xp, w, "lstm_fwd", MAX_FWD_BATCH, residual_dtype)
     t_len, batch, four_h = xp.shape
-    h = xp.new_empty(t_len, batch, four_h // 4)
-    c = torch.empty_like(h)
-    g = torch.empty_like(xp)
+    h = xp.new_empty(t_len, batch, four_h // 4, dtype=torch.float32)
+    c = torch.empty_like(h, dtype=residual_dtype)
+    g = torch.empty_like(xp, dtype=residual_dtype)
     lib = _library()
     err = lib.lstm_fwd_launch(
         xp.data_ptr(), w.data_ptr(), h.data_ptr(), g.data_ptr(), c.data_ptr(),
         _barrier_word(xp).data_ptr(), t_len, batch, four_h // 4,
-        int(reverse), xp.device.index or 0, _stream(xp),
+        int(reverse), int(residual_dtype == torch.bfloat16), _bf16(w),
+        _bf16(xp), xp.device.index or 0, _stream(xp),
     )
     _build.check(err, "lstm_fwd", lib.lstm_error_string)
     LAUNCHES["lstm_fwd"] += 1
@@ -182,46 +219,69 @@ def lstm_forward_cuda(xp, w, reverse: bool):
 
 
 def lstm_backward_cuda(dh, g, c, w, reverse: bool):
-    """Launch ``csrc/lstm_bwd.cu``: ``dx`` [T, B, 4H], by the narrow plan
-    up to H = 32 (``kLaneMaxH`` of ``csrc/lane_bwd.cuh``) and the wide
-    one above."""
-    _check(g, w, "lstm_bwd", MAX_BWD_BATCH)
+    """Launch ``csrc/lstm_bwd.cu``: ``dx`` [T, B, 4H] in the residuals'
+    dtype, by the narrow plan up to H = 32 (``kLaneMaxH`` of
+    ``csrc/lane_bwd.cuh``) and the wide one above. With bfloat16
+    residuals the wide plan carries d_pre from step to step in a float32
+    scratch of two steps and stores dx rounded beside it, so the carry
+    stays unrounded (pallas_lstm.py:432-440); the narrow plan carries it in
+    registers. W_hh float32, or bfloat16 (bfloat16 compute: the product
+    reads d_pre rounded to bfloat16)."""
+    if w.dtype not in _DTYPES:
+        raise ValueError(f"lstm_bwd takes W_hh float32 or bfloat16, got "
+                         f"{w.dtype}")
+    _check_shapes(g, w, "lstm_bwd", MAX_BWD_BATCH)
     _check_residuals(dh, g, c)
     t_len, batch, four_h = g.shape
     dx = torch.empty_like(g)
+    bf16 = g.dtype == torch.bfloat16
+    # [step parity][B][4H], the wide plan's float32 d_pre
+    carry = (torch.empty(2, batch, four_h, device=g.device)
+             if bf16 and four_h // 4 > NARROW_MAX_H else None)
     lib = _bwd_library()
     err = lib.lstm_bwd_launch(
         dh.data_ptr(), g.data_ptr(), c.data_ptr(), w.data_ptr(),
-        dx.data_ptr(), _barrier_word(g).data_ptr(), t_len, batch,
-        four_h // 4, int(reverse), g.device.index or 0, _stream(g),
+        dx.data_ptr(), _barrier_word(g).data_ptr(),
+        None if carry is None else carry.data_ptr(), t_len, batch,
+        four_h // 4, int(reverse), int(bf16), _bf16(w), g.device.index or 0,
+        _stream(g),
     )
     _build.check(err, "lstm_bwd", lib.lstm_bwd_error_string)
     LAUNCHES["lstm_bwd"] += 1
     return dx
 
 
-def dw_hh(h, dx, reverse: bool):
+def dw_hh(h, dx, reverse: bool, residual_dtype=torch.float32,
+          w_dtype=torch.float32):
     """dW_hh [4H, H] as one matmul: the sum over t, b of dx[t] h_prev[t]^T
     with the processing predecessor h[t-1] (forward) or h[t+1] (reverse),
-    over contiguous slices (``_vjp_bwd``, pallas_lstm.py:554-560)."""
+    over contiguous slices (``_vjp_bwd``, pallas_lstm.py:554-560), the
+    operands rounded to ``residual_dtype`` (``bilstm.contract_dw``) and the
+    sum rounded to W_hh's ``w_dtype`` (``_dw_contract``)."""
     h_prev, d = (h[1:], dx[:-1]) if reverse else (h[:-1], dx[1:])
-    return d.flatten(0, 1).t() @ h_prev.flatten(0, 1)
+    return contract_dw(h_prev, d, residual_dtype).to(w_dtype)
 
 
 class LSTMFunction(torch.autograd.Function):
-    """``lstm_sequence`` under autograd: the residual-saving forward, and
-    the gradient recurrence plus ``dW_hh`` in the backward. CUDA tensors
-    launch the kernels; CPU tensors run the plain versions."""
+    """``lstm_sequence`` under autograd: the residual-saving forward
+    (residuals in ``residual_dtype``), and the gradient recurrence plus
+    ``dW_hh`` in the backward, dxp handed back in xp's dtype
+    (pallas_lstm.py:566: bfloat16 where the xp stream is) and dW_hh in
+    W's. CUDA tensors launch the kernels; CPU tensors run the plain
+    versions."""
 
     @staticmethod
-    def forward(ctx, xp, w, reverse):
+    def forward(ctx, xp, w, reverse, residual_dtype=torch.float32):
         if xp.is_cuda:
             # the backward's kernel must hold the batch too
-            _check(xp, w, "lstm_sequence under autograd", MAX_BWD_BATCH)
-            h, g, c = lstm_forward_cuda(xp, w, reverse)
+            _check(xp, w, "lstm_sequence under autograd", MAX_BWD_BATCH,
+                   residual_dtype)
+            h, g, c = lstm_forward_cuda(xp, w, reverse, residual_dtype)
         else:
-            h, g, c = lstm_direction_forward_reference(xp, w, reverse)
+            h, g, c = lstm_direction_forward_reference(xp, w, reverse,
+                                                       residual_dtype)
         ctx.reverse = reverse
+        ctx.xp_dtype = xp.dtype
         ctx.save_for_backward(h, g, c, w)
         return h
 
@@ -229,28 +289,31 @@ class LSTMFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dh):
         h, g, c, w = ctx.saved_tensors
-        dh = dh.contiguous()
+        # the cotangent enters in the residuals' dtype, as _vjp_bwd rounds
+        # it (pallas_lstm.py:547-551)
+        dh = dh.to(g.dtype).contiguous()
         if g.is_cuda:
             dx = lstm_backward_cuda(dh, g, c, w, ctx.reverse)
         else:
             dx = lstm_direction_backward_reference(dh, g, c, w, ctx.reverse)
-        return dx, dw_hh(h, dx, ctx.reverse), None
+        return (dx.to(ctx.xp_dtype),
+                dw_hh(h, dx, ctx.reverse, g.dtype, w.dtype), None, None)
 
 
 def lstm_sequence(xp, w, reverse: bool = False,
                   residual_dtype=torch.float32):
-    """One LSTM direction over ``xp``; see the module docstring. It runs
-    float32 only (a bfloat16 ``xp`` or ``w``, bfloat16 compute, raises on
-    either device), and under autograd it saves float32 residuals only:
-    ``residual_dtype`` bfloat16 raises (ROADMAP.md A4c)."""
+    """One LSTM direction over ``xp``; see the module docstring. Under
+    autograd the residuals are saved in ``residual_dtype``
+    (``lstm_sequence``'s argument of the same name in JAX). The dtypes are
+    checked here, on either device (:func:`bilstm.check_compute`: a pair
+    JAX never forms raises naming ROADMAP.md A4c)."""
     _device("lstm_sequence", (xp, w))
     check_residual_dtype(residual_dtype, "lstm_sequence")
-    refuse_bf16_compute((xp, w), "lstm_sequence (the single-direction route)")
-    if _recording((xp, w)):
-        refuse_bf16_residuals(
-            residual_dtype,
-            "lstm_sequence under autograd (the single-direction route)")
-        return LSTMFunction.apply(xp, w, reverse)
+    recording = _recording((xp, w))
+    check_compute(xp.dtype, w.dtype, residual_dtype if recording else None,
+                  "lstm_sequence")
+    if recording:
+        return LSTMFunction.apply(xp, w, reverse, residual_dtype)
     if xp.is_cuda:
         return lstm_infer_cuda(xp, w, reverse)
     return lstm_sequence_reference(xp, w, reverse)

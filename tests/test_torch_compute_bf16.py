@@ -364,18 +364,23 @@ def test_checkpoints_load_across_compute_dtypes():
 
 def test_a4c_paths_refuse_bfloat16_compute(monkeypatch):
     """What bfloat16 compute still does not run raises naming ROADMAP.md
-    A4c, on CPU tensors (the checks are on dtypes alone): the
-    single-direction route, the fused kernels (and PROJ_FUSION="auto"
-    with a bfloat16 W_hh), the multi-stream block plans, and a bfloat16
-    xp stream where JAX never forms one. A multi-stream call with W_hh of
-    both dtypes at any widths on the lane plans runs."""
+    A4c, on CPU tensors (the checks are on dtypes alone): the fused
+    kernels (and PROJ_FUSION="auto" with a bfloat16 W_hh), the
+    multi-stream block plans, and a bfloat16 xp stream where JAX never
+    forms one. A multi-stream call with W_hh of both dtypes at any widths
+    on the lane plans runs, and so does the single-direction route
+    (``lstm_sequence``, ``LSTM(bidirectional=False)`` and a BiLSTM layer
+    the merged kernels refuse): each output of the float32-W path's shape
+    and dtype."""
     rng = np.random.RandomState(5)
     xp = _t(rng.randn(4, 2, 32).astype(np.float32))
     w = _t(rng.randn(32, 8).astype(np.float32)).to(BF16)
+    want = lstm.lstm_sequence(xp, w.float(), False)
     for grad in (False, True):
         with torch.set_grad_enabled(grad):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-                lstm.lstm_sequence(xp, w.requires_grad_(grad), False)
+            got = lstm.lstm_sequence(xp, w.requires_grad_(grad), False)
+        assert (got.shape, got.dtype) == (want.shape, F32)
+        assert (got.grad_fn is not None) == grad
     x = _t(rng.randn(4, 2, 5).astype(np.float32))
     wi = _t(rng.randn(32, 5).astype(np.float32))
     b = _t(rng.randn(32).astype(np.float32))
@@ -388,15 +393,18 @@ def test_a4c_paths_refuse_bfloat16_compute(monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
         layer(x.transpose(0, 1))
     monkeypatch.setattr(bilstm, "PROJ_FUSION", "off")
-    layer(x.transpose(0, 1))  # the composed merged route runs it
+    merged = layer(x.transpose(0, 1))  # the composed merged route runs it
     uni = tl.LSTM(5, 8, 1, torch.Generator(), dtype=BF16,
                   bidirectional=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-        uni(x.transpose(0, 1))
+    uni32 = tl.LSTM(5, 8, 1, torch.Generator(), bidirectional=False)
+    uni32.load_state_dict(uni.state_dict())
+    want = uni32(x.transpose(0, 1))
+    got = uni(x.transpose(0, 1))
+    assert (got.shape, got.dtype) == (want.shape, F32)
     # a batch the merged kernels refuse goes to the single route
     monkeypatch.setattr(bilstm, "merged_bidir_fits", lambda *a, **k: False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-        layer(x.transpose(0, 1))
+    got = layer(x.transpose(0, 1))
+    assert (got.shape, got.dtype) == (merged.shape, F32)
     wide = _t(rng.randn(4, 2, 4 * 33).astype(np.float32))
     w33 = _t(rng.randn(4 * 33, 33).astype(np.float32)).to(BF16)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):

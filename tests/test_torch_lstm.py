@@ -267,13 +267,23 @@ def test_single_direction_limits_hold_twice_the_merged(stem, row_floats,
     with pytest.raises(ValueError, match=f"B <= {limit}"):
         lstm._check(xp, torch.zeros(4, 1), what, limit)
     lstm._check(xp[:, :limit].contiguous(), torch.zeros(4, 1), what, limit)
+    # the same limit at every dtype set the wrappers pass: bfloat16
+    # W_hh, bfloat16 residuals beside it and a bfloat16 xp stream
+    bf16 = torch.bfloat16
+    for rd, stream in ((torch.float32, torch.float32), (bf16, bf16)):
+        with pytest.raises(ValueError, match=f"B <= {limit}"):
+            lstm._check(xp.to(stream), torch.zeros(4, 1, dtype=bf16), what,
+                        limit, rd)
+        lstm._check(xp[:, :limit].to(stream).contiguous(),
+                    torch.zeros(4, 1, dtype=bf16), what, limit, rd)
 
 
 def test_lean_wrapper_takes_batches_past_the_training_limit(monkeypatch):
     """``lstm_infer`` has no batch limit (its wide plan tiles the batch
     over the grid, its narrow plan gives each row its own lanes): the
     wrapper passes 15,000 rows to the launch, the plan left to the source
-    (0), with a [B, H] cell-state scratch; ``lstm_fwd`` refuses them."""
+    (0), float32 W_hh and xp (dtype codes 0, 0), with a [B, H] cell-state
+    scratch; ``lstm_fwd`` refuses them."""
     calls = []
 
     class Library:
@@ -292,7 +302,8 @@ def test_lean_wrapper_takes_batches_past_the_training_limit(monkeypatch):
     h = lstm.lstm_infer_cuda(xp, w, True)
     assert tuple(h.shape) == (2, batch, 8)
     (args,) = calls
-    assert args[4:] == (2, batch, 8, 1, 0, 0, 0)
+    # T, B, H, reverse, plan, W_hh and xp bfloat16, device, stream
+    assert args[4:] == (2, batch, 8, 1, 0, 0, 0, 0, 0)
     assert len({args[2], args[3]}) == 2  # h and the scratch
     assert lstm.LAUNCHES["lstm_infer"] == 1
     with pytest.raises(ValueError, match=f"B <= {lstm.MAX_FWD_BATCH}"):
@@ -303,7 +314,9 @@ def test_lean_wrapper_takes_batches_past_the_training_limit(monkeypatch):
 def test_gradient_wrapper_passes_a_zeroed_barrier_word(monkeypatch):
     """``lstm_bwd``'s wide plan meets at a split grid barrier on a word
     the wrapper zeroes for each launch: the launch gets dh, g, c, w, dx
-    and that word, then T, B, H, reverse, the device and the stream."""
+    and that word, the bfloat16 residuals' float32 carry (none here),
+    then T, B, H, reverse, the residuals' and W_hh's bfloat16 codes, the
+    device and the stream."""
     calls, words = [], []
 
     class Library:
@@ -327,7 +340,7 @@ def test_gradient_wrapper_passes_a_zeroed_barrier_word(monkeypatch):
     (args,) = calls
     assert args[:6] == (dh.data_ptr(), g.data_ptr(), c.data_ptr(),
                         w.data_ptr(), dx.data_ptr(), words[0].data_ptr())
-    assert args[6:] == (3, 5, 40, 1, 0, 0)
+    assert args[6:] == (None, 3, 5, 40, 1, 0, 0, 0, 0)
     assert int(words[0]) == 0
     assert lstm.LAUNCHES["lstm_bwd"] == 1
 
@@ -335,7 +348,8 @@ def test_gradient_wrapper_passes_a_zeroed_barrier_word(monkeypatch):
 def test_forward_wrapper_passes_a_zeroed_barrier_word(monkeypatch):
     """``lstm_fwd``'s wide plan meets at a split grid barrier on a word
     the wrapper zeroes for each launch: the launch gets xp, w, h, g, c and
-    that word, then T, B, H, reverse, the device and the stream."""
+    that word, then T, B, H, reverse, the residuals', W_hh's and xp's
+    bfloat16 codes, the device and the stream."""
     calls, words = [], []
 
     class Library:
@@ -360,7 +374,7 @@ def test_forward_wrapper_passes_a_zeroed_barrier_word(monkeypatch):
     (args,) = calls
     assert args[:6] == (xp.data_ptr(), w.data_ptr(), h.data_ptr(),
                         g.data_ptr(), c.data_ptr(), words[0].data_ptr())
-    assert args[6:] == (3, 5, 40, 1, 0, 0)
+    assert args[6:] == (3, 5, 40, 1, 0, 0, 0, 0, 0)
     assert int(words[0]) == 0
     assert lstm.LAUNCHES["lstm_fwd"] == 1
 
@@ -419,12 +433,30 @@ def test_wrapper_checks():
     with pytest.raises(ValueError, match="H <="):
         lstm._check(torch.zeros(1, 1, 4 * 513), torch.zeros(4 * 513, 513),
                     "lstm_infer", None)
-    with pytest.raises(NotImplementedError, match="float32"):
-        lstm._check(xp.bfloat16(), torch.zeros(32, 8).bfloat16(),
-                    "lstm_infer", None)
+    # the dtype sets JAX's single route forms pass; no other does
+    bf16, w = torch.bfloat16, torch.zeros(32, 8)
+    lstm._check(xp.bfloat16(), w.bfloat16(), "lstm_infer", None)
+    lstm._check(xp, w.bfloat16(), "lstm_infer", None)
+    lstm._check(xp, w, "lstm_fwd", None, bf16)
+    lstm._check(xp, w.bfloat16(), "lstm_fwd", None, torch.float32)
+    lstm._check(xp.bfloat16(), w.bfloat16(), "lstm_fwd", None, bf16)
+    for x, wd, rd in ((xp.bfloat16(), w, None), (xp.half(), w, None),
+                      (xp, w.half(), None), (xp, w.bfloat16(), bf16),
+                      (xp.bfloat16(), w.bfloat16(), torch.float32),
+                      (xp.bfloat16(), w, bf16)):
+        with pytest.raises(ValueError, match="nowhere"):
+            lstm._check(x, wd, "lstm_infer", None, rd)
     g = torch.zeros(4, 2, 32)
     with pytest.raises(ValueError, match="dh"):
         lstm._check_residuals(torch.zeros(4, 2, 7), g, torch.zeros(4, 2, 8))
+    lstm._check_residuals(torch.zeros(4, 2, 8, dtype=bf16), g.bfloat16(),
+                          torch.zeros(4, 2, 8, dtype=bf16))
+    with pytest.raises(ValueError, match="one residual dtype"):
+        lstm._check_residuals(torch.zeros(4, 2, 8, dtype=bf16), g,
+                              torch.zeros(4, 2, 8))
+    with pytest.raises(ValueError, match="residual_dtype"):
+        lstm._check_residuals(torch.zeros(4, 2, 8).half(), g.half(),
+                              torch.zeros(4, 2, 8).half())
 
 
 def test_import_scan_covers_the_new_op():

@@ -9,7 +9,6 @@ every such layer is seen to take the single-direction route and none the
 merged one."""
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -47,7 +46,6 @@ def single_direction(monkeypatch):
                         lambda *args, **kwargs: False)
     monkeypatch.setattr(pallas_lstm, "merged_bidir_fits",
                         lambda *args, **kwargs: False)
-    monkeypatch.setattr(pallas_lstm, "RESIDUAL_DTYPE", jnp.float32)
     monkeypatch.setattr(jax_interp, "FORCE_MATMUL", False)
 
 

@@ -215,17 +215,21 @@ def test_multi_function_grads_match_jax_vjp_bf16():
 
 
 def test_bf16_residuals_where_the_port_saves_float32_raise():
-    """The single-direction route, the fused forward and the multi-stream
-    block plans save float32 residuals only: bfloat16 ones raise under
-    autograd, naming ROADMAP.md A4c (and run under no_grad, where nothing
-    is saved)."""
+    """The fused forward and the multi-stream block plans save float32
+    residuals only: bfloat16 ones raise under autograd, naming ROADMAP.md
+    A4c (and run under no_grad, where nothing is saved). The
+    single-direction route saves them: under autograd and under no_grad
+    its output has the float32-residual path's shape and dtype."""
     rng = np.random.RandomState(3)
     xp = _t(rng.randn(4, 2, 32).astype(np.float32)).requires_grad_(True)
     w = _t(rng.randn(32, 8).astype(np.float32)).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-        lstm.lstm_sequence(xp, w, False, BF16)
+    want = lstm.lstm_sequence(xp, w, False)
+    got = lstm.lstm_sequence(xp, w, False, BF16)
+    assert (got.shape, got.dtype) == (want.shape, torch.float32)
+    assert type(got.grad_fn).__name__ == "LSTMFunctionBackward"
     with torch.no_grad():
-        lstm.lstm_sequence(xp, w, False, BF16)
+        got = lstm.lstm_sequence(xp, w, False, BF16)
+    assert (got.shape, got.dtype) == (want.shape, torch.float32)
     x = _t(rng.randn(4, 2, 5).astype(np.float32)).requires_grad_(True)
     wi = _t(rng.randn(32, 5).astype(np.float32))
     b = _t(rng.randn(32).astype(np.float32))
