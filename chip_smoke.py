@@ -39,12 +39,18 @@ Phases, one line each; any failure exits non-zero:
    a. ``kernel viterbi_decode``: the pitch tracker's decoder against its
       plain loop on the card, states equal bit for bit, on seeded
       candidate fields at B 1, 2, 28 and T 1, 2, 257, 1876 and at its
-      edges (every candidate unusable, every cost equal, K + 1 = 32
-      states, and 33, which raises); at B1 T257 (a 3 s request's) and
-      B28 T1876 its states on the timed inputs against the plain loop's,
-      its ms, device time, the plain loop's ms and its bound, and in the
-      log line only an estimated latency floor of its serial steps;
-      registers;
+      edges (every candidate unusable, every cost equal with every state
+      unvoiced or every voiced state tied, K + 1 = 32 states, and 33,
+      which raises), and both plans (the backpointers
+      in shared memory, or past ``pitch.SHARED_BACK_BYTES`` in device
+      memory) at the shared plan's largest T and the next, at K = 12 and
+      K + 1 = 32; at B1 T257 (a 3 s request's) and B28 T1876 its states
+      on the timed inputs against the plain loop's, its ms, device time,
+      the plain loop's ms and its bound, and in the log line only the
+      probe build's split (cycles a step of the forward pass and of the
+      backtrace) and the measured latency floor (T - 1 irreducible
+      steps); each plan's registers, spills, stack frame and shared
+      memory;
    b. ``front end``: ``preprocess.extract_features`` on a 3 s and an 8 s
       wav made here (a harmonic tone gliding 110-180 Hz with a silent
       gap): one decoder launch an extraction, against the same call with
@@ -328,6 +334,7 @@ shapes and both directions of it at H=512 over batches 28-224,
 ``lstm_bwd`` and ``lstm_fwd`` at B16 H512, H256 and H8 (device time;
 ``lstm_fwd`` beside cuDNN's training forward on the same inputs) and
 ``lstm_fwd`` at B5117 and B13948 H512 (device time),
+``viterbi_decode`` at B1 T257, B16 T501 and B28 T1876 (device time),
 content layer 1 (B16 H8) on either route (device time),
 ``multi_bilstm_infer`` at B28 (8, 32, 1), B4 (32, 1), B5117 (8, 32, 1)
 and B731 (32, 1) and its block plan at B13 (64, 3, 1), and
@@ -1126,12 +1133,9 @@ def kernel_device_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profiled_device_ms(fn, reps: int) -> float:
-    """Mean device time of one call of ``fn``: the device time of every
-    kernel and copy of ``reps`` calls under ``torch.profiler``, over
-    ``reps``. For a call that synchronises (cuDNN's training forward
-    does), which ``kernel_device_ms`` cannot queue behind its spin
-    kernel."""
+def profiled_busy_us(fn, reps: int) -> float:
+    """The device time, µs, of every kernel and copy of ``reps`` calls of
+    ``fn`` under ``torch.profiler`` (0 where it saw none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1141,11 +1145,28 @@ def profiled_device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    busy = sum(device_us(e) for e in prof.key_averages()
+    return sum(device_us(e) for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")
                and not getattr(e, "is_user_annotation", False))
+
+
+# the windows profiled_device_ms takes the median of: torch.profiler at
+# times loses a short window's kernel records, wholly or in part
+# (ROADMAP.md C; tools/profiler_windows.py)
+PROFILED_WINDOWS = 3
+
+
+def profiled_device_ms(fn, reps: int) -> float:
+    """Mean device time of one call of ``fn``: the median over
+    ``PROFILED_WINDOWS`` windows of ``profiled_busy_us``, over ``reps``.
+    For a call that synchronises (cuDNN's training forward does), which
+    ``kernel_device_ms`` cannot queue behind its spin kernel. Fails where
+    the median window saw no device time."""
+    busy = sorted(profiled_busy_us(fn, reps)
+                  for _ in range(PROFILED_WINDOWS))[PROFILED_WINDOWS // 2]
     if not busy > 0:
-        fail("profiled_device_ms: the profiler saw no device time")
+        fail("profiled_device_ms: the profiler saw no device time in most "
+             "of its windows")
     return busy / 1e3 / reps
 
 
@@ -4544,12 +4565,6 @@ def phase_train_single_compute(batch) -> tuple:
 # a 3 s request's padded 65,536 samples; 1876: 30 s)
 VITERBI_BATCHES = (1, 2, 28)
 VITERBI_FRAMES = (1, 2, 257, 1876)
-# the decoder's latency floor, an estimate: 2(T-1) dependent steps (the
-# forward pass and the backtrace), each at least one warp shuffle's or
-# load's round trip of about this many clock cycles at the H100 SXM's
-# boost clock
-STEP_FLOOR_CYCLES = 30
-BOOST_HZ = 1.98e9
 SAMPLE_RATE = 16000
 # the front end's wavs and the server's pairs (seconds)
 SHORT_S = 3.0
@@ -4574,16 +4589,19 @@ def viterbi_fields(b: int, t: int, k: int, seed: int, kind: str):
     """Seeded decoder inputs on the card from a (lag, score) field:
     ``random`` (lags on whole samples and scores on eighths, so that costs
     tie), ``unusable`` (every score at or under the candidate threshold),
-    ``equal`` (every candidate the same, every cost a tie)."""
+    ``equal`` (every candidate the same, every cost a tie; scores of 0.5
+    decode unvoiced throughout), ``voiced_equal`` (the same at scores of
+    0.875: every voiced path ties and is cheaper than the unvoiced)."""
     import torch
 
     from speechsplit_tpu_torch.ops import pitch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     shape = (b, t, k)
-    if kind == "equal":
+    if kind in ("equal", "voiced_equal"):
         lag = torch.full(shape, 100.0, device="cuda")
-        score = torch.full(shape, 0.5, device="cuda")
+        score = torch.full(shape, 0.5 if kind == "equal" else 0.875,
+                           device="cuda")
     else:
         lag = torch.floor(26.0 + 295.0 * torch.rand(
             shape, device="cuda", generator=gen))
@@ -4596,25 +4614,25 @@ def viterbi_fields(b: int, t: int, k: int, seed: int, kind: str):
     return local_v.contiguous(), local_u.contiguous(), log_lag.contiguous()
 
 
-def viterbi_bound(b: int, t: int, k: int) -> tuple[float, str, float]:
-    """(bound ms, what bounds it, latency floor ms) of one decode: each
-    input read once (local_v, log_lag [B, T, K], local_u [B, T]) and the
-    states [B, T] written once, over the card's memory rate; the min-plus
-    step's operations (5 a transition: sub, abs, mul, add, compare) over
-    the float32 peak; and the estimated floor of its serial steps."""
+def viterbi_bound(b: int, t: int, k: int) -> tuple[float, str]:
+    """(bound ms, what bounds it) of one decode: each input read once
+    (local_v, log_lag [B, T, K], local_u [B, T]) and the states [B, T]
+    written once, over the card's memory rate; the min-plus step's
+    operations (5 a transition: sub, abs, mul, add, compare) over the
+    float32 peak. The serial chain's floor is measured instead
+    (``phase_viterbi_probe``)."""
     nbytes = 4 * (2 * b * t * k + b * t) + 4 * b * t
     flops = 5 * b * max(t - 1, 0) * k * k
     by_bytes = nbytes / PEAK_BYTES * 1e3
     by_ops = flops / PEAK_F32_FLOPS * 1e3
-    floor_ms = 2 * max(t - 1, 0) * STEP_FLOOR_CYCLES / BOOST_HZ * 1e3
     if by_ops >= by_bytes:
-        return by_ops, "operations", floor_ms
-    return by_bytes, "bytes", floor_ms
+        return by_ops, "operations"
+    return by_bytes, "bytes"
 
 
-def check_viterbi(b: int, t: int, kind: str = "random", k: int = 12) -> None:
+def check_viterbi(b: int, t: int, kind: str = "random", k: int = 12) -> int:
     """The kernel's states against the plain loop's on the card, bit for
-    bit."""
+    bit; 1, a case."""
     import torch
 
     from speechsplit_tpu_torch.ops import pitch
@@ -4629,11 +4647,20 @@ def check_viterbi(b: int, t: int, kind: str = "random", k: int = 12) -> None:
         bad = int((got != want).sum())
         fail(f"viterbi_decode B{b} T{t} K{k} {kind}: {bad} states differ "
              f"from the plain loop's")
+    return 1
+
+
+# a kernel instance of csrc/viterbi.cu, by its mangled name: the lanes a
+# copy of the states takes (KP), the predecessors a lane takes (NP) and
+# the shared-memory backpointers' plan
+VITERBI_ENTRY = re.compile(r"viterbi_kernelILi(\d+)ELi(\d+)ELb([01])E")
 
 
 def viterbi_codegen() -> dict:
-    """Registers, spill stores and stack frame of ``viterbi_kernel``
-    (``-Xptxas -v``)."""
+    """Registers, spill stores, stack frame and static shared memory of
+    each ``viterbi_kernel`` instance the port launches (``-Xptxas -v``),
+    by plan: ``NP6 shared``, ``NP6 device`` (two lanes a state, K <= 12),
+    ``NP32 shared``, ``NP32 device``."""
     from speechsplit_tpu_torch.ops import _build
 
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
@@ -4644,39 +4671,76 @@ def viterbi_codegen() -> dict:
              os.path.join(tmp, "v.cubin"),
              str(_build.CSRC / "viterbi.cu")],
             capture_output=True, text=True, check=True).stderr
-    return {"registers": int(re.search(r"Used (\d+) registers", text)[1]),
-            "spill_stores": int(re.search(r"(\d+) bytes spill stores",
-                                          text)[1]),
-            "stack_frame": int(re.search(r"(\d+) bytes stack frame",
-                                         text)[1])}
+    out, key = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            m = VITERBI_ENTRY.search(line)
+            key = m and f"NP{m[2]} {'shared' if m[3] == '1' else 'device'}"
+        elif key and "spill stores" in line:
+            row = out.setdefault(key, {})
+            row["spill_stores"] = int(
+                re.search(r"(\d+) bytes spill stores", line)[1])
+            row["stack_frame"] = int(
+                re.search(r"(\d+) bytes stack frame", line)[1])
+        elif key and "Used" in line and "registers" in line:
+            row = out.setdefault(key, {})
+            row["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line)[1])
+            smem = re.search(r"(\d+) bytes smem", line)
+            row["static_smem"] = int(smem[1]) if smem else 0
+            key = None
+    if sorted(out) != ["NP32 device", "NP32 shared", "NP6 device",
+                       "NP6 shared"]:
+        fail(f"viterbi codegen: instances {sorted(out)}")
+    return out
 
 
 def phase_viterbi(reps: int = 20) -> dict:
     """``viterbi_decode`` against its plain loop at every batch and frame
     count of ``VITERBI_BATCHES`` x ``VITERBI_FRAMES`` and at its edges
-    (every candidate unusable, every cost equal, K + 1 = 32 states, which
-    is the most the kernel takes, and K + 1 = 33, which raises); timed at
-    a 3 s request's shape (B1 T257) and at B28 T1876."""
+    (every candidate unusable, every cost equal with every state unvoiced
+    or every voiced state tied, K + 1 = 32 states, which is the most the
+    kernel takes, and K + 1 = 33, which raises), and both
+    plans, the backpointers in shared and in device memory, at the
+    largest T of the shared plan and the next, at K = 12 and K + 1 = 32;
+    timed at a 3 s request's shape (B1 T257) and at B28 T1876, with the
+    probe build's split and the measured latency floor beside each; the
+    registers, spills, stack frame and shared memory of each plan."""
     import torch
 
     from speechsplit_tpu_torch.ops import pitch
 
+    cases = 0
     for b in VITERBI_BATCHES:
         for t in VITERBI_FRAMES:
-            check_viterbi(b, t)
+            cases += check_viterbi(b, t)
     for b, t in ((1, 257), (28, 1876), (2, 2)):
-        check_viterbi(b, t, "unusable")
-        check_viterbi(b, t, "equal")
-    check_viterbi(2, 257, k=pitch.MAX_STATES - 1)
-    check_viterbi(3, 5, "equal", k=pitch.MAX_STATES - 1)
+        for kind in ("unusable", "equal", "voiced_equal"):
+            cases += check_viterbi(b, t, kind)
+    cases += check_viterbi(2, 257, k=pitch.MAX_STATES - 1)
+    cases += check_viterbi(3, 5, "equal", k=pitch.MAX_STATES - 1)
+    cases += check_viterbi(3, 70, "voiced_equal", k=pitch.MAX_STATES - 1)
     try:
         fields = viterbi_fields(1, 4, pitch.MAX_STATES, SEED, "random")
         pitch.viterbi_decode(*fields, 0.25, 0.3)
         fail("viterbi_decode took K + 1 = 33 states")
     except ValueError:
         pass
+    lib = pitch._library()
+    plans = []
+    for k in (12, pitch.MAX_STATES - 1):
+        last = pitch.SHARED_BACK_BYTES // (k + 1) + 1  # the plan's largest T
+        for t, shared in ((last, True), (last + 1, False)):
+            if pitch.shared_plan(t, k) != shared:
+                fail(f"viterbi_decode T{t} K{k}: not the "
+                     f"{'shared' if shared else 'device'} plan")
+            cases += check_viterbi(2, t, k=k)
+            plans.append(dict(shape=f"B2xT{t}xK{k}",
+                              plan="shared" if shared else "device",
+                              shared_bytes=lib.viterbi_shared_bytes(t, k)))
     params = pitch.PitchParams()
-    rows, floors = [], []
+    probe = phase_viterbi_probe(((1, 257), (28, 1876)), reps)
+    rows, beside = [], []
     for b, t in ((1, 257), (28, 1876)):
         k = params.num_cands
         fields = viterbi_fields(b, t, k, SEED + b, "random")
@@ -4699,28 +4763,126 @@ def phase_viterbi(reps: int = 20) -> dict:
         device_ms = kernel_device_ms(kernel, reps)
         plain_ms = time_ms(lambda: pitch.viterbi_decode_reference(
             *fields, params.freq_weight, params.trans_cost), 2, warmup=1)
-        bound_ms, bound_by, floor_ms = viterbi_bound(b, t, k)
+        bound_ms, bound_by = viterbi_bound(b, t, k)
         rows.append(dict(
             shape=f"B{b}xT{t}xK{k}", max_abs_err=max_abs_err, ms=ms,
             kernel_device_ms=device_ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             states_differing=differing))
-        # an estimate, not a measurement: logged, kept out of the row
-        floors.append(dict(
-            latency_floor_ms=floor_ms,
-            latency_floor_assumes=f"2(T-1)x{STEP_FLOOR_CYCLES}cycles"
-                                  f"@{BOOST_HZ / 1e6:.0f}MHz"))
+        # the probe build's split and the measured floor: logged, kept
+        # out of the row
+        split = probe[(b, t)]
+        beside.append(dict(
+            plan="shared" if pitch.shared_plan(t, k) else "device",
+            shared_bytes=lib.viterbi_shared_bytes(t, k),
+            **{key: split[key] for key in (
+                "forward_cycles_per_step", "refill_cycles_per_step",
+                "backtrace_cycles_per_step", "staging_issue_cycles",
+                "staging_wait_cycles",
+                "floor_ms", "floor_cycles_per_step")},
+            device_ms_over_floor=device_ms / split["floor_ms"]))
     codegen = viterbi_codegen()
-    cases = len(VITERBI_BATCHES) * len(VITERBI_FRAMES) + 8 + len(rows)
-    for row, floor in zip(rows, floors):
-        log("kernel viterbi_decode", **fmt(row), **fmt(floor),
-            states_equal_cases=cases, **codegen)
+    cases += len(rows)
+    for row, more in zip(rows, beside):
+        log("kernel viterbi_decode", **fmt(row), **fmt(more),
+            states_equal_cases=cases)
+    for plan in plans:
+        log("kernel viterbi_decode plans", **plan, states_equal=True)
+    for key, gen in sorted(codegen.items()):
+        log("kernel viterbi_decode codegen", instance=key, **gen)
     row = rows[0]
     row["beside"] = {k: rows[1][k] for k in ("shape", "ms",
                                              "kernel_device_ms", "plain_ms",
                                              "bound_ms")}
     row["kernel_codegen"] = codegen
     return row
+
+
+# the decoder's phases that its probe build times, in the order of
+# csrc/viterbi.cu's PROBE_LAP calls; and the shapes the probe runs at
+VITERBI_PROBE_PHASES = ("staging_issue", "staging_wait", "forward",
+                        "refills", "backtrace")
+VITERBI_PROBE_SHAPES = ((1, 257), (16, 501), (28, 1876))
+
+
+def phase_viterbi_probe(shapes=VITERBI_PROBE_SHAPES, reps: int = 20) -> dict:
+    """The probe build of ``csrc/viterbi.cu`` (``-DVITERBI_PROBE``, built
+    here into a temporary directory; the port never loads it). At each
+    (B, T), K = 12: the decoder's clock64() laps of its phases, lane 0's
+    a block: the staging prologue's issue and wait (cycles), and cycles
+    a step (over T - 1) of the forward steps, of the chunk refills and of
+    the backtrace; its states held to the plain loop, and its device
+    time; and the latency floor, a warp a row running T - 1
+    iterations of the recurrence's irreducible step (one shuffle, 16
+    independent adds, a 4-level min tree, one add): its device time and
+    cycles a step. Returns {(b, t): row}."""
+    import ctypes
+
+    import torch
+
+    from speechsplit_tpu_torch.ops import pitch
+
+    cycles = (ctypes.c_ulonglong * len(VITERBI_PROBE_PHASES))()
+    params = pitch.PitchParams()
+    k = params.num_cands
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = pitch._bind(probe_library(tmp, "viterbi", "VITERBI_PROBE"))
+        lib.viterbi_probe_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.viterbi_floor_launch.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int] * 2 + [ctypes.c_void_p]
+        stream = torch.cuda.current_stream().cuda_stream
+        for b, t in shapes:
+            fields = viterbi_fields(b, t, k, SEED + b, "random")
+
+            def run():
+                return pitch._launch(lib, *fields, params.freq_weight,
+                                     params.trans_cost)
+
+            run()
+            torch.cuda.synchronize()
+            lib.viterbi_probe_read(cycles, 1)  # reset
+            got = run()
+            torch.cuda.synchronize()
+            if lib.viterbi_probe_read(cycles, 1):
+                fail("viterbi probe: reading the counters failed")
+            want = pitch.viterbi_decode_reference(*fields, params.freq_weight,
+                                                  params.trans_cost)
+            if not torch.equal(got, want):
+                fail(f"viterbi probe build B{b} T{t}: states differ")
+            steps = max(t - 1, 1)
+            # cycles a block of each phase
+            per = {name: cycles[i] / b
+                   for i, name in enumerate(VITERBI_PROBE_PHASES)}
+            ms = kernel_device_ms(run, reps)
+            # the floor: distinct weights a lane, a local cost and a start
+            gen = torch.Generator(device="cuda").manual_seed(SEED + t)
+            w = torch.rand(18, 32, device="cuda", generator=gen)
+            sink = torch.empty(b, 32, device="cuda")
+            floor_cycles = torch.empty(b, dtype=torch.int64, device="cuda")
+
+            def floor():
+                code = lib.viterbi_floor_launch(
+                    w.data_ptr(), sink.data_ptr(), floor_cycles.data_ptr(),
+                    b, t, stream)
+                if code:
+                    fail(f"viterbi floor kernel: CUDA error {code}")
+
+            floor_ms = kernel_device_ms(floor, reps)
+            row = dict(
+                shape=f"B{b}xT{t}xK{k}", ms_probe_build=ms,
+                staging_issue_cycles=round(per["staging_issue"]),
+                staging_wait_cycles=round(per["staging_wait"]),
+                forward_cycles_per_step=per["forward"] / steps,
+                refill_cycles_per_step=per["refills"] / steps,
+                backtrace_cycles_per_step=per["backtrace"] / steps,
+                floor_ms=floor_ms,
+                floor_cycles_per_step=float(floor_cycles.double().mean())
+                / steps)
+            log("viterbi probe", **fmt(row),
+                clock="clock64 of lane 0, a mean over blocks")
+            out[(b, t)] = row
+    return out
 
 
 def synth_wav(seconds: float, f_start: float, f_end: float, seed: int):
@@ -6762,7 +6924,7 @@ def phase_prepare(gen_per_step: dict, root: str) -> dict:
                plain_ms=time_ms(lambda: pitch.viterbi_decode_reference(
                    *fields, params.freq_weight, params.trans_cost), 1,
                    warmup=0))
-    vit["bound_ms"], vit["bound_by"], _ = viterbi_bound(PREP_BATCH, t8,
+    vit["bound_ms"], vit["bound_by"] = viterbi_bound(PREP_BATCH, t8,
                                                         params.num_cands)
 
     # the dither's draws of the largest batch: host and upload, or card
@@ -7695,6 +7857,14 @@ with c.strict_float32():
                 [torch.randn(c.T, b, h, device="cuda", generator=g)
                  for h in dirs])
 
+    # the pitch decoder at a 3 s request's, an extract_dir batch's and
+    # B28 T1876's shapes
+    from speechsplit_tpu_torch.ops import pitch
+    vp = pitch.PitchParams()
+    for b, t in ((1, 257), (16, 501), (28, 1876)):
+        vf = c.viterbi_fields(b, t, vp.num_cands, c.SEED + b, "random")
+        out[f"viterbi_decode B{b} T{t} device ms"] = device_ms(
+            lambda: pitch.viterbi_decode(*vf, vp.freq_weight, vp.trans_cost))
     pairs = c.refused_pairs()
     for b, hs in ((28, (8, 32, 1)), (4, (32, 1)), (7 * pairs, (8, 32, 1)),
                   (pairs, (32, 1)), (13, (64, 3, 1))):

@@ -17,7 +17,9 @@ of make_spect_f0.py:40-45):
 
 The decoder is the one recurrence of the front end. On CUDA tensors it
 runs in ``csrc/viterbi.cu`` (:func:`viterbi_decode`: a warp an
-utterance, one launch for the batch, the forward pass and the backtrace);
+utterance, one launch for the batch, the forward pass and a warp-wide
+backtrace; the backpointers in shared memory while :func:`shared_plan`
+holds, about four minutes of audio at K = 12, else in device memory);
 on CPU tensors its plain version runs, the T-step loop in JAX's order of
 operations, which the tests hold to JAX. JAX's parallel and block
 decoders (``parallel_viterbi``, ``block_viterbi > 1``), its K argmax
@@ -44,8 +46,11 @@ A6 = "queued in ROADMAP.md A6"
 
 # kernel launches since the last reset; the main path's proof that it ran
 LAUNCHES = {"viterbi_decode": 0}
-# the most states (K voiced + unvoiced) the kernel takes: a lane a state
+# the most states (K voiced + unvoiced) the kernel takes: a warp's lanes
 MAX_STATES = _build.source_constant("viterbi", "kMaxStates")
+# the kernel keeps an utterance's (T-1) x (K+1) int8 backpointers in shared
+# memory up to this many bytes, past it in a device-memory scratch
+SHARED_BACK_BYTES = _build.source_constant("viterbi", "kSharedBackBytes")
 
 
 class PitchParams(NamedTuple):
@@ -268,8 +273,9 @@ def _check(local_v, local_u, log_lag) -> None:
                 f"is {x.dtype}, contiguous={x.is_contiguous()}")
 
 
-def _library():
-    lib = _build.load("viterbi")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a library built from ``csrc/viterbi.cu``
+    (the port's, or a probe build of it)."""
     # local_v, local_u, log_lag, back, states, B, T, K, freq_weight,
     # trans_cost, device, stream
     lib.viterbi_launch.argtypes = (
@@ -278,29 +284,52 @@ def _library():
     lib.viterbi_launch.restype = ctypes.c_int
     lib.viterbi_error_string.argtypes = [ctypes.c_int]
     lib.viterbi_error_string.restype = ctypes.c_char_p
+    lib.viterbi_shared_bytes.argtypes = [ctypes.c_int] * 2
+    lib.viterbi_shared_bytes.restype = ctypes.c_longlong
     return lib
+
+
+def _library():
+    return _bind(_build.load("viterbi"))
+
+
+def shared_plan(t_len: int, k: int) -> bool:
+    """Whether the kernel keeps the backpointers of T frames and K
+    candidates in shared memory (else in a device-memory scratch)."""
+    return (t_len - 1) * (k + 1) <= SHARED_BACK_BYTES
+
+
+def _launch(lib: ctypes.CDLL, local_v: torch.Tensor, local_u: torch.Tensor,
+            log_lag: torch.Tensor, freq_weight: float,
+            trans_cost: float) -> torch.Tensor:
+    """One launch of ``lib``'s decoder on checked inputs; the states. The
+    [B, T-1, K+1] int8 backpointer scratch is allocated for the
+    device-memory plan only."""
+    batch, t_len, k = local_v.shape
+    device = local_v.device
+    back = None if shared_plan(t_len, k) else torch.empty(
+        batch, t_len - 1, k + 1, dtype=torch.int8, device=device)
+    states = torch.empty(batch, t_len, dtype=torch.int32, device=device)
+    err = lib.viterbi_launch(
+        local_v.data_ptr(), local_u.data_ptr(), log_lag.data_ptr(),
+        None if back is None else back.data_ptr(), states.data_ptr(),
+        batch, t_len, k,
+        float(freq_weight), float(trans_cost), device.index or 0,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check(err, "viterbi_decode", lib.viterbi_error_string)
+    return states
 
 
 def viterbi_decode_cuda(local_v: torch.Tensor, local_u: torch.Tensor,
                         log_lag: torch.Tensor, freq_weight: float,
                         trans_cost: float) -> torch.Tensor:
     """Launch ``csrc/viterbi.cu``; arguments and result as
-    :func:`viterbi_decode_reference`. The backpointers go to a
-    [B, T-1, K+1] int8 scratch the wrapper allocates."""
+    :func:`viterbi_decode_reference`. The backpointers stay in shared
+    memory while :func:`shared_plan` holds, else go to a scratch."""
     _check(local_v, local_u, log_lag)
-    lib = _library()
-    batch, t_len, k = local_v.shape
-    device = local_v.device
-    back = torch.empty(batch, max(t_len - 1, 1), k + 1, dtype=torch.int8,
-                       device=device)
-    states = torch.empty(batch, t_len, dtype=torch.int32, device=device)
-    err = lib.viterbi_launch(
-        local_v.data_ptr(), local_u.data_ptr(), log_lag.data_ptr(),
-        back.data_ptr(), states.data_ptr(), batch, t_len, k,
-        float(freq_weight), float(trans_cost), device.index or 0,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    _build.check(err, "viterbi_decode", lib.viterbi_error_string)
+    states = _launch(_library(), local_v, local_u, log_lag, freq_weight,
+                     trans_cost)
     LAUNCHES["viterbi_decode"] += 1
     return states
 
