@@ -85,7 +85,7 @@ Phases, one line each; any failure exits non-zero:
    one bfloat16 ulp element by element), timed beside their bounds at
    those bytes, and at their other code paths (widths not a multiple of
    4 or 8, H=1, batch tiles, the batch limit, the multi-stream edges on
-   the lane plan; a block-plan width refused); then the probe build of
+   the lane plan); then the probe build of
    the gradient kernel
    (``-DBILSTM_BWD_PROBE``): a clock64() split of its step into barrier
    wait, d_pre staging, FMAs and reduction, cell gradient and stores,
@@ -155,7 +155,7 @@ Phases, one line each; any failure exits non-zero:
    for H=1 in one call) at the flip bar (``COMPUTE_FLIP``), timed with
    its device time, plain time and bound at those bytes, and their edges
    (T=1, one row, ragged widths and rounds, H=1, batch tiles, the batch
-   limits; a bfloat16 W_hh on a block plan raises); both train steps at
+   limits); both train steps at
    bfloat16 compute, B16 and B32, at bfloat16 residuals (and float32 ones
    at B16): exact launches, no plain call, loss and gradients within 2%
    of the plain step, their distance from the float32 step recorded, 5
@@ -166,7 +166,6 @@ Phases, one line each; any failure exits non-zero:
    checkpoint's) and ``Solver.validate()`` against the plain call;
    ``convert_batched`` at 4 pairs at bfloat16 compute at both residual
    dtypes against the plain call, timed in turns with the float32 call;
-   the refusal naming ROADMAP.md A4c (``PROJ_FUSION="auto"``);
    one 3 s ``POST /convert`` to a server at bfloat16 compute beside one
    at float32;
 9. with ``ops.bilstm.PROJ_FUSION = "auto"`` (the input projection inside
@@ -302,7 +301,43 @@ Phases, one line each; any failure exits non-zero:
     default config and at bfloat16 compute (bfloat16 and float32
     residuals): 8 ``lstm_fwd`` and ``lstm_bwd`` for the generator, 4 for
     the F0 converter, no plain call, loss and gradients within 2% of the
-    plain step, ms a step in turns.
+    plain step, ms a step in turns;
+20. the bfloat16 instances of the multi-stream block plans (a call with
+    a width past ``LANE_MAX_H``) and of the fused kernels (run after
+    phase 11): ``[kernel multi_bilstm_*/block_*]`` at float32 W_hh and
+    bfloat16 residuals (the default config's: h and dx within
+    ``PATH_TOL``, g and c within ``BF16_ULPS``) and at bfloat16 compute
+    at both residual dtypes (the flip bar and the rounding check) at the
+    [wide bottleneck] steps' B16 (8, 64, 1) and (64, 1), lean at B28 and
+    B4 and at B13 (64, 3, 1); their edges (widths 33 and 64, alone and
+    mixed, B 1, 3, 9 and 13, T=1; ``[kernel multi block bf16 edges]``);
+    ``[kernel bilstm_fused_*/bf16_*]``: the lean fused kernel at bfloat16
+    compute at B56 and B16 I1024 H512, the residual-saving one at
+    bfloat16 residuals (float32 compute: every element within its
+    dtype's bar) and at bfloat16 compute at both residual dtypes (the
+    flip bar and the rounding check), and their edges (``[kernel fused
+    bf16 edges]``); each with ms, device time, the plain version's ms,
+    the float32 twin's device time, the bound at those bytes, and its
+    and its twin's registers, spills and stack frame (``[codegen ...]``:
+    ``-Xptxas -v`` of the three sources, compiled while the checks run);
+21. ``convert_batched`` at 8 pairs with fusion on at bfloat16 compute: 6
+    ``bilstm_fused_infer`` and 2 ``multi_bilstm_infer`` launches, within
+    ``COMPUTE_PATH_TOL`` of the plain call, ms in turns with the
+    composed call; both train steps with fusion on at the default
+    config and at bfloat16 compute at both residual dtypes: 4 (2)
+    ``bilstm_fused_fwd`` launches a step, within 2% of the plain step;
+22. ``[wide bottleneck]``: ``dim_neck_3=64`` (the block plans) at full
+    width: both train steps at the default config and at bfloat16
+    compute at both residual dtypes (one ``multi_bilstm_fwd`` and
+    ``_bwd`` a step, within 2% of the plain step, ms in turns with the
+    default widths' step), the 4-pair conversion at float32 (mels within
+    ``PATH_TOL`` of the plain call) and at bfloat16 compute, ms in turns
+    with the default widths' call, and ``cli.train --hparams
+    dim_neck_3=64`` for both models; ``dim_neck_3=128`` (past the
+    kernels' ``MAX_HIDDEN``: each encoder's own layer): the conversion
+    (11 ``bilstm_infer``, no ``multi_bilstm_*``) against the plain call
+    and both default-config train steps (7 and 4 ``bilstm_fwd`` and
+    ``bilstm_bwd``, no ``multi_bilstm_*``).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside the repo, it
@@ -525,6 +560,8 @@ def plain_training_kernels():
 
     swaps = ((bilstm, "bilstm_forward_cuda", "bilstm_forward_reference"),
              (bilstm, "bilstm_backward_cuda", "bilstm_backward_reference"),
+             (bilstm, "bilstm_fused_forward_cuda",
+              "bilstm_fused_forward_reference"),
              (multi_bilstm, "multi_bilstm_forward_cuda",
               "multi_bilstm_forward_reference"),
              (multi_bilstm, "multi_bilstm_backward_cuda",
@@ -577,7 +614,7 @@ def route(name: str):
 def lstm_bound(t: int, b: int, hs, kind: str = "infer",
                i: int = 0, resid_bytes: int = 4,
                stream_bytes: int = 4, xp_bytes: int = 4,
-               w_bytes=4) -> tuple[float, str]:
+               w_bytes=4, proj_bytes: int = 4) -> tuple[float, str]:
     """Least time for BiLSTM recurrences of widths ``hs`` (one entry per
     direction): max(flops/peak, bytes/peak). Each input read once, each
     output written once, in float32 words of a (t, b) row:
@@ -595,10 +632,12 @@ def lstm_bound(t: int, b: int, hs, kind: str = "infer",
     larger of the two times. With an input width ``i`` the projection is
     inside (the fused kernels): in place of xp, x [t, b, i] is read once
     for both directions and each direction reads W_ih (4H x i) and its
-    bias, and does 2*i*4H flops a row."""
+    float32 bias, and does 2*i*4H flops a row; ``proj_bytes`` is the size
+    of an x and a W_ih element (2: bfloat16 compute, whose projection
+    products go at ``PEAK_BF16_FLOPS`` like a bfloat16 W_hh's)."""
     cell = 16 if kind == "bwd" else 10
     flops = tc_flops = 0.0
-    nbytes = 4.0 * t * b * i
+    nbytes = float(proj_bytes) * t * b * i
     w_sizes = w_bytes if isinstance(w_bytes, (list, tuple)) else [
         w_bytes] * len(hs)
     for h, w_size in zip(hs, w_sizes):
@@ -607,14 +646,18 @@ def lstm_bound(t: int, b: int, hs, kind: str = "infer",
             tc_flops += product
         else:
             flops += product
-        flops += t * b * (cell * h + 2 * i * 4 * h)
+        if proj_bytes == 2:
+            tc_flops += t * b * 2 * i * 4 * h
+        else:
+            flops += t * b * 2 * i * 4 * h
+        flops += t * b * cell * h
         # bytes of a (t, b) row: x replaces xp when fused
         row = {"infer": xp_bytes * 4 * h + 4 * h,
                "fwd": xp_bytes * 4 * h + 4 * h + resid_bytes * 5 * h,
                "bwd": resid_bytes * 5 * h + stream_bytes * 5 * h}[kind]
         row -= xp_bytes * 4 * h if i else 0
-        w_ih = 4 * h * i + 4 * h if i else 0
-        nbytes += t * b * row + w_size * 4 * h * h + 4 * w_ih
+        w_ih = proj_bytes * 4 * h * i + 4 * 4 * h if i else 0
+        nbytes += t * b * row + w_size * 4 * h * h + w_ih
     by_ops = max(flops / PEAK_F32_FLOPS, tc_flops / PEAK_BF16_FLOPS) * 1e3
     by_bytes = nbytes / PEAK_BYTES * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (
@@ -1702,8 +1745,9 @@ def check_bf16_edges() -> None:
     where g and c are stored one by one and read back without cp.async,
     H=1, batch tiles, the batch limit at H=512), and the multi-stream
     kernels at every ``MULTI_EDGES`` case whose widths are all on the lane
-    plan; the gradient kernels each on the plain forward's residuals and
-    on the kernel forward's own (the layout check)."""
+    plan (the block plan's: ``check_block_bf16_edges``); the gradient
+    kernels each on the plain forward's residuals and on the kernel
+    forward's own (the layout check)."""
     import torch
 
     from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
@@ -1756,20 +1800,11 @@ def check_bf16_edges() -> None:
         worst["err_h"] = max(worst["err_h"], err_h)
         worst["ulps"] = max(worst["ulps"], ulps)
         worst["multi_dx_rel"] = max(worst["multi_dx_rel"], *errs)
-    # a block-plan width with bfloat16 residuals is refused (A4c)
-    xps, ws = multi_inputs(3, 2, (33,), SEED)
-    try:
-        multi_bilstm.multi_bilstm_forward_cuda(1, *xps, *ws,
-                                               residual_dtype=bf16)
-    except NotImplementedError:
-        pass
-    else:
-        fail("multi_bilstm_fwd took bfloat16 residuals at H=33")
     log("kernel bf16 edges", merged_shapes=7, multi_shapes=len(lane),
         max_abs_err_h=f"{worst['err_h']:.3g}", h_tol=PATH_TOL,
         max_ulps=f"{worst['ulps']:.3g}", ulps_tol=BF16_ULPS,
         multi_dx_rel_err=f"{worst['multi_dx_rel']:.3g}",
-        max_batch_h512=limit, block_plan="refused at H=33")
+        max_batch_h512=limit, block_plan="[kernel multi block bf16 edges]")
 
 
 def phase_train_kernels(reps: int = 10) -> dict:
@@ -2507,7 +2542,8 @@ def phase_train():
 
 def train_precision_phase(name: str, model: str, expected: dict, batch,
                           checked: dict, timed: dict, title: str,
-                          reps: int = 12, layers: str = "default") -> dict:
+                          reps: int = 12, layers: str = "default",
+                          exact=None) -> dict:
     """Train steps at the precisions ``checked`` ({label: config}) on
     ``batch``: each one's launches in one step, exactly ``expected``,
     with no call of a plain version, Adam's mu bfloat16, its loss and
@@ -2518,14 +2554,17 @@ def train_precision_phase(name: str, model: str, expected: dict, batch,
     finite loss. Then the median ms a step of the steps ``timed`` ({label:
     config}; a checked label's state goes on from its 5 steps), timed in
     turns. ``layers``: the BiLSTM layers' :func:`route` for every step.
-    Returns the launches by checked label."""
+    ``exact``: the float32 step's config (default ``float32_config()``;
+    another width's for models of other widths). Returns the launches by
+    checked label."""
     with route(layers):
         return _train_precision_phase(name, model, expected, batch, checked,
-                                      timed, title, reps, layers)
+                                      timed, title, reps, layers,
+                                      exact or float32_config())
 
 
 def _train_precision_phase(name, model, expected, batch, checked, timed,
-                           title, reps, layers) -> dict:
+                           title, reps, layers, f32) -> dict:
     import numpy as np
     import torch
 
@@ -2536,7 +2575,6 @@ def _train_precision_phase(name, model, expected, batch, checked, timed,
     )
 
     make = make_train_step if model == "speechsplit" else make_f0_train_step
-    f32 = float32_config()
     with strict_float32(f"{name} float32 reference"):
         exact = create_train_state(f32, SEED, model)
         with plain_kernels():
@@ -3352,7 +3390,7 @@ def check_fused_edges() -> None:
     err = bilstm._library().bilstm_fused_infer_launch(
         *bilstm._fused_pointers(*args), h.data_ptr(), h.data_ptr(),
         bilstm._barrier_word(h).data_ptr(), 1, bilstm.MAX_FUSED_BATCH + 1, 8,
-        3, h.device.index or 0, bilstm._stream(h))
+        3, 0, h.device.index or 0, bilstm._stream(h))
     if err == 0:
         fail(f"bilstm_fused_infer took B={bilstm.MAX_FUSED_BATCH + 1}, "
              f"past MAX_FUSED_BATCH")
@@ -3515,6 +3553,714 @@ def phase_train_fused(batch):
         {"bilstm_fused_fwd": 2, "bilstm_bwd": 2, "multi_bilstm_fwd": 1,
          "multi_bilstm_bwd": 1}, batch, layers="fused")
     return gen_launches, f0_launches
+
+
+# the bfloat16 instances of the multi-stream block plans (a call with a
+# direction wider than LANE_MAX_H) and of the fused kernels: their entry
+# in the JSON record, the kernel whose wrapper launches them, their
+# dtypes, and the keys of the instance and of its float32 twin in
+# ``ptxas_rows`` (the fused ones at H=512: KQ = 4)
+BLOCK_FUSED_BF16_KERNELS = {
+    "multi_bilstm_infer/block_bf16_w": (
+        "multi_bilstm_infer", "block plan, W bf16 (H >= 2) and f32 (H = 1)",
+        "multi_bilstm_infer_kernel<0,f,bf16>", "multi_bilstm_infer_kernel<0>"),
+    "multi_bilstm_fwd/block_bf16_resid": (
+        "multi_bilstm_fwd", "block plan, W f32, residuals bf16",
+        "multi_bilstm_infer_kernel<1,bf16>", "multi_bilstm_infer_kernel<1>"),
+    "multi_bilstm_bwd/block_bf16_resid": (
+        "multi_bilstm_bwd", "block plan, W f32, residuals bf16",
+        "multi_bilstm_bwd_kernel<bf16>", "multi_bilstm_bwd_kernel"),
+    "multi_bilstm_fwd/block_bf16_w": (
+        "multi_bilstm_fwd", "block plan, W bf16 (H >= 2) and f32, "
+        "residuals f32", "multi_bilstm_infer_kernel<1,f,bf16>",
+        "multi_bilstm_infer_kernel<1>"),
+    "multi_bilstm_bwd/block_bf16_w": (
+        "multi_bilstm_bwd", "block plan, W bf16 (H >= 2) and f32, "
+        "residuals f32", "multi_bilstm_bwd_kernel<f,bf16>",
+        "multi_bilstm_bwd_kernel"),
+    "multi_bilstm_fwd/block_bf16_w_bf16_resid": (
+        "multi_bilstm_fwd", "block plan, W bf16 (H >= 2) and f32, "
+        "residuals bf16", "multi_bilstm_infer_kernel<1,bf16,bf16>",
+        "multi_bilstm_infer_kernel<1>"),
+    "multi_bilstm_bwd/block_bf16_w_bf16_resid": (
+        "multi_bilstm_bwd", "block plan, W bf16 (H >= 2) and f32, "
+        "residuals bf16", "multi_bilstm_bwd_kernel<bf16,bf16>",
+        "multi_bilstm_bwd_kernel"),
+    "bilstm_fused_infer/bf16_w": (
+        "bilstm_fused_infer", "x, W_ih, W bf16, h f32",
+        "bilstm_fused_kernel<4,0,f,bf16,bf16>", "bilstm_fused_kernel<4,0>"),
+    "bilstm_fused_fwd/bf16_resid": (
+        "bilstm_fused_fwd", "x, W_ih, W f32, residuals bf16",
+        "bilstm_fused_kernel<4,1,bf16>", "bilstm_fused_kernel<4,1>"),
+    "bilstm_fused_fwd/bf16_w": (
+        "bilstm_fused_fwd", "x, W_ih, W bf16, residuals f32",
+        "bilstm_fused_kernel<4,1,f,bf16,bf16>", "bilstm_fused_kernel<4,1>"),
+    "bilstm_fused_fwd/bf16_w_bf16_resid": (
+        "bilstm_fused_fwd", "x, W_ih, W bf16, residuals bf16",
+        "bilstm_fused_kernel<4,1,bf16,bf16,bf16>", "bilstm_fused_kernel<4,1>"),
+}
+# the bottleneck widths of the [wide bottleneck] phase: the widest the
+# multi-stream kernels take (MAX_HIDDEN; its block plans), and one past
+# it (each encoder's own layer)
+WIDE_NECK = 64
+WIDER_NECK = 128
+# the sources whose ptxas report gives the new instances' registers
+BLOCK_FUSED_SOURCES = ("bilstm_infer", "multi_bilstm_infer",
+                       "multi_bilstm_bwd")
+
+
+def start_codegen(stems) -> list:
+    """``nvcc -cubin -Xptxas -v`` of each source in ``stems``, started
+    now, one process each (the phases before the report run meanwhile);
+    ``finish_codegen`` waits for them."""
+    from speechsplit_tpu_torch.ops import _build
+
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                       "-fPIC")]
+    jobs = []
+    for stem in stems:
+        tmp = tempfile.mkdtemp()
+        source = str(_build.CSRC / f"{stem}.cu")
+        proc = subprocess.Popen(
+            [_build._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+             os.path.join(tmp, "k.cubin"), source],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        jobs.append((stem, tmp, proc))
+    return jobs
+
+
+def finish_codegen(jobs) -> dict:
+    """The registers, spill stores and stack frame of every kernel entry
+    of the sources ``start_codegen`` compiles, by ``_entry`` key."""
+    import shutil
+
+    out = {}
+    for stem, tmp, proc in jobs:
+        _, err = proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+        if proc.returncode:
+            fail(f"ptxas report of {stem}.cu: rc {proc.returncode}\n"
+                 f"{err[-2000:]}")
+        out.update(ptxas_rows(err))
+    return out
+
+
+def check_block_bf16_resid(b: int, hs, reps: int) -> dict:
+    """The block plans at float32 W_hh and bfloat16 residuals (the default
+    config's) against their plain versions: ``check_multi_train_bf16``'s
+    bars (h and dx within ``PATH_TOL``, g and c within ``BF16_ULPS``);
+    their rows, with the plain versions' time and the largest error."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import multi_bilstm
+
+    if max(hs) <= multi_bilstm.LANE_MAX_H:
+        fail(f"{hs} runs the lane plan")
+    found = check_multi_train_bf16(b, hs, reps)
+    xps, ws = multi_inputs(T, b, hs, SEED + 11 * b + len(hs))
+    n, d2 = len(hs), 2 * len(hs)
+    bf16 = torch.bfloat16
+    got = multi_bilstm.multi_bilstm_forward_cuda(n, *xps, *ws,
+                                                 residual_dtype=bf16)
+    want = multi_bilstm.multi_bilstm_forward_reference(n, *xps, *ws,
+                                                       residual_dtype=bf16)
+    dhs = [torch.randn_like(h) for h in want[:d2]]
+    dx = multi_bilstm.multi_bilstm_backward_cuda(n, *dhs, *want[d2:], *ws)
+    dx_ref = multi_bilstm.multi_bilstm_backward_reference(n, *dhs,
+                                                          *want[d2:], *ws)
+    shape = f"T{T}xB{b}xH{'/'.join(map(str, hs))}"
+    rows = {}
+    for kernel, plain, err in (
+            ("multi_bilstm_fwd", lambda: multi_bilstm.
+             multi_bilstm_forward_reference(n, *xps, *ws,
+                                            residual_dtype=bf16),
+             abs_err(got, want)),
+            ("multi_bilstm_bwd", lambda: multi_bilstm.
+             multi_bilstm_backward_reference(n, *dhs, *want[d2:], *ws),
+             abs_err(dx, dx_ref))):
+        f = found[kernel]
+        rows[f"{kernel}/block_bf16_resid"] = dict(
+            shape=shape, ms=f["bf16_ms"], device_ms=f["bf16_device_ms"],
+            plain_ms=time_ms(plain, 1, warmup=0),
+            bound_ms=f["bf16_bound_ms"], bound_by=f["bf16_bound_by"],
+            max_abs_err=err, **{k: v for k, v in f.items()
+                                if k in ("bf16_max_ulps", "bf16_err_h",
+                                         "bf16_rel_err")})
+    return rows
+
+
+# (T, B, widths) of the block plans' bfloat16 edges: the MULTI_EDGES cases
+# with a width past LANE_MAX_H (widths 33 and 64, alone and mixed with
+# lane widths, B 1, 3 and 13: batch tiles of 8 left ragged, T = 1)
+BLOCK_EDGES = tuple(c for c in MULTI_EDGES if max(c[2]) > 32) + (
+    (4, 9, (33, 64)),)
+
+
+def check_block_bf16_edges() -> None:
+    """The block plans' bfloat16 instances at ``BLOCK_EDGES``: at
+    bfloat16 compute (W_hh bfloat16 for H >= 2, float32 for H = 1) the
+    lean forward, the residual-saving forward at both residual dtypes and
+    the gradient on the plain forward's residuals and on the kernel's
+    own, at the flip bar, the float32-W directions at their own; at
+    float32 W and bfloat16 residuals the forward and the gradient at
+    ``check_bf16_edges``' bars."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import multi_bilstm
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    worst = {"share": 0.0, "err": 0.0, "f32": 0.0, "err_h": 0.0,
+             "ulps": 0.0, "dx_rel": 0.0}
+
+    def keep(what, got, want, ws):
+        errs = check_flips(what, got, want)
+        worst["share"] = max(worst["share"], errs["flip_share"])
+        worst["err"] = max(worst["err"], errs["max_err_over_max"])
+        worst["f32"] = max(worst["f32"],
+                           check_f32_directions(what, got, want, ws))
+
+    for t, b, hs in BLOCK_EDGES:
+        n, d2 = len(hs), 2 * len(hs)
+        xps, ws = compute_multi_inputs(t, b, hs, SEED + 23 * t + b)
+        what = f"multi block bf16 compute T{t}xB{b}xH{hs}"
+        keep(f"{what} lean", multi_bilstm.multi_bilstm_infer_cuda(n, *xps,
+                                                                  *ws),
+             multi_bilstm.multi_bilstm_sequence_reference(n, *xps, *ws), ws)
+        for rd in (f32, bf16):
+            got = multi_bilstm.multi_bilstm_forward_cuda(
+                n, *xps, *ws, residual_dtype=rd)
+            want = multi_bilstm.multi_bilstm_forward_reference(
+                n, *xps, *ws, residual_dtype=rd)
+            keep(f"{what} fwd {rd}", got, want, ws)
+            dhs = [torch.randn(x.shape, device="cuda") for x in want[:d2]]
+            for res in (want[d2:], got[d2:]):
+                keep(f"{what} bwd {rd}",
+                     multi_bilstm.multi_bilstm_backward_cuda(n, *dhs, *res,
+                                                             *ws),
+                     multi_bilstm.multi_bilstm_backward_reference(
+                         n, *dhs, *res, *ws), ws)
+        xps, ws = multi_inputs(t, b, hs, SEED + 29 * t + b)
+        got = multi_bilstm.multi_bilstm_forward_cuda(n, *xps, *ws,
+                                                     residual_dtype=bf16)
+        want = multi_bilstm.multi_bilstm_forward_reference(
+            n, *xps, *ws, residual_dtype=bf16)
+        dhs = [torch.randn_like(x) for x in want[:d2]]
+        rel = [rel_err(multi_bilstm.multi_bilstm_backward_cuda(
+                   n, *dhs, *res, *ws),
+               multi_bilstm.multi_bilstm_backward_reference(
+                   n, *dhs, *res, *ws)) for res in (want[d2:], got[d2:])]
+        err_h, ulps = abs_err(got[:d2], want[:d2]), bf16_ulps(got[d2:],
+                                                               want[d2:])
+        if not (err_h <= PATH_TOL and ulps <= BF16_ULPS
+                and max(rel) <= PATH_TOL):
+            fail(f"multi block bf16 residuals T{t}xB{b}xH{hs}: h err "
+                 f"{err_h}, ulps {ulps}, dx rel err {rel}")
+        worst["err_h"] = max(worst["err_h"], err_h)
+        worst["ulps"] = max(worst["ulps"], ulps)
+        worst["dx_rel"] = max(worst["dx_rel"], *rel)
+    log("kernel multi block bf16 edges", shapes=len(BLOCK_EDGES),
+        widths="33,64 alone and beside 1-8", batches="1,3,9,13", t_min=1,
+        bf16_compute_max_flip_share=f"{worst['share']:.4g}",
+        flip_share_tol=COMPUTE_FLIP_SHARE,
+        bf16_compute_max_err_over_max=f"{worst['err']:.4g}",
+        flip_tol=COMPUTE_FLIP,
+        f32_w_max_err_over_max=f"{worst['f32']:.4g}",
+        bf16_resid_max_abs_err_h=f"{worst['err_h']:.3g}", h_tol=PATH_TOL,
+        bf16_resid_max_ulps=f"{worst['ulps']:.3g}", ulps_tol=BF16_ULPS,
+        bf16_resid_dx_rel_err=f"{worst['dx_rel']:.3g}", dx_tol=PATH_TOL)
+
+
+def fused_compute_inputs(t: int, b: int, h: int, i: int, seed: int,
+                         compute):
+    """``fused_inputs`` with x, W_ih and W_hh rounded to ``compute`` (the
+    biases float32), as the layers hand them to the fused op."""
+    args = fused_inputs(t, b, h, i, seed)
+    return tuple(a if k in (3, 4) else a.to(compute)
+                 for k, a in enumerate(args))
+
+
+def check_fused_bf16(b: int, h: int, i: int, kind: str, compute, rd,
+                     reps: int) -> dict:
+    """A bfloat16 instance of a fused kernel (``kind`` "infer": the lean
+    one at bfloat16 ``compute``; "fwd": the residual-saving one at
+    ``compute`` and residuals ``rd``) against its plain version on the
+    same inputs: at bfloat16 compute the flip bar and, on
+    ``COMPUTE_SHORT_T`` steps, the rounding check (the plain version at
+    float32 x, W_ih and W_hh: the kernel rounds where it rounds); at
+    float32 compute every element within its dtype's bar (h 1e-4, g and
+    c one bfloat16 ulp). Timed with its device time, the plain version's
+    time, the float32 kernel's on the same shape and the bound at these
+    bytes. Returns {its name: its row}."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm
+
+    bf16 = torch.bfloat16
+    args = fused_compute_inputs(T, b, h, i, SEED + 13 * h + b + i, compute)
+    f32_args = fused_inputs(T, b, h, i, SEED + 13 * h + b + i)
+    if kind == "infer":
+        name = "bilstm_fused_infer/bf16_w"
+
+        def kernel(a=args):
+            return bilstm.bilstm_fused_infer_cuda(*a)
+
+        def plain(a=args):
+            return bilstm.bilstm_sequence_fused_reference(*a)
+    else:
+        name = _fused_name(compute, rd)
+
+        def kernel(a=args):
+            return bilstm.bilstm_fused_forward_cuda(*a, residual_dtype=rd)
+
+        def plain(a=args):
+            return bilstm.bilstm_fused_forward_reference(*a,
+                                                         residual_dtype=rd)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    check_dtypes(f"{name} h", got[:2], torch.float32)
+    if kind == "fwd":
+        check_dtypes(f"{name} g, c", got[2:], rd)
+    shape = f"T{T}xB{b}xI{i}xH{h}"
+    if compute == bf16:
+        errs = check_flips(f"{name} {shape}", got, want)
+        short = fused_compute_inputs(COMPUTE_SHORT_T, b, h, i, SEED + b,
+                                     compute)
+        unrounded = tuple(a.float() for a in short)
+        errs.update(check_rounds(f"{name} {shape}", kernel(short),
+                                 plain(short), plain(unrounded)))
+    else:
+        share, worst = flip_stats(got, want)
+        if share > 0:
+            fail(f"{name} {shape}: {share:.4g} of the elements beyond their "
+                 f"bar (tol 0)")
+        errs = dict(max_err_over_max=worst, max_abs_err=abs_err(got, want),
+                    max_ulps=bf16_ulps(got[2:], want[2:]))
+    size = 2 if compute == bf16 else 4
+    bound, by = lstm_bound(T, b, [h, h], kind, i,
+                           resid_bytes=2 if rd == bf16 else 4,
+                           w_bytes=size, proj_bytes=size)
+
+    def twin():
+        if kind == "infer":
+            return bilstm.bilstm_fused_infer_cuda(*f32_args)
+        return bilstm.bilstm_fused_forward_cuda(*f32_args)
+
+    return {name: _compute_row(name, shape, dict(
+        ms=time_ms(kernel, reps), device_ms=kernel_device_ms(kernel, reps),
+        plain_ms=time_ms(plain, 1, warmup=0),
+        float32_twin_device_ms=kernel_device_ms(twin, reps),
+        bound_ms=bound, bound_by=by, **errs))}
+
+
+def check_fused_bf16_edges() -> None:
+    """The fused kernels' bfloat16 instances at ``check_fused_edges``'
+    shapes (batch 1, ragged folds and K-tiles, widths not a multiple of 4
+    or 32, where x and W_ih are staged one value at a time, H=1, fold 1,
+    the batch-tiled h, ``MAX_FUSED_BATCH``): the lean one and the
+    residual-saving ones at bfloat16 compute at the flip bar, the
+    bfloat16-residual one at float32 compute at its dtypes' bars."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = ((37, 1, 512, 70), (9, 100, 512, 33), (5, 300, 512, 20),
+              (23, 5, 3, 7), (16, 3, 1, 5), (12, 6, 100, 40),
+              (3, bilstm.MAX_FUSED_BATCH, 512, 9))
+    worst = {"share": 0.0, "err": 0.0, "f32_resid": 0.0}
+    for n, (t, b, h, i) in enumerate(shapes):
+        args = fused_compute_inputs(t, b, h, i, SEED + 177 + n, bf16)
+        what = f"T{t}xB{b}xI{i}xH{h}"
+        cases = [("bilstm_fused_infer bf16", bilstm.bilstm_fused_infer_cuda(
+                     *args), bilstm.bilstm_sequence_fused_reference(*args))]
+        for rd in (f32, bf16):
+            cases.append((f"bilstm_fused_fwd bf16 {rd}",
+                          bilstm.bilstm_fused_forward_cuda(*args, rd),
+                          bilstm.bilstm_fused_forward_reference(*args, rd)))
+        for label, got, want in cases:
+            errs = check_flips(f"{label} {what}", got, want)
+            worst["share"] = max(worst["share"], errs["flip_share"])
+            worst["err"] = max(worst["err"], errs["max_err_over_max"])
+        args = fused_inputs(t, b, h, i, SEED + 277 + n)
+        got = bilstm.bilstm_fused_forward_cuda(*args, bf16)
+        want = bilstm.bilstm_fused_forward_reference(*args, bf16)
+        share, err = flip_stats(got, want)
+        if share > 0:
+            fail(f"bilstm_fused_fwd bf16 residuals {what}: {share:.4g} of "
+                 f"the elements beyond their bar (tol 0)")
+        worst["f32_resid"] = max(worst["f32_resid"], err)
+    log("kernel fused bf16 edges", shapes=len(shapes), instances=4,
+        max_flip_share=f"{worst['share']:.4g}",
+        flip_share_tol=COMPUTE_FLIP_SHARE,
+        max_err_over_max=f"{worst['err']:.4g}", flip_tol=COMPUTE_FLIP,
+        f32_compute_bf16_resid_max_err_over_max=(
+            f"{worst['f32_resid']:.4g}"),
+        f32_compute_tol="h 1e-4, g and c one bfloat16 ulp, every element",
+        max_batch=bilstm.MAX_FUSED_BATCH)
+
+
+def phase_block_fused_kernels(reps: int = 3) -> dict:
+    """The bfloat16 instances of the multi-stream block plans and of the
+    fused kernels against their plain versions at the main path's shapes
+    (the [wide bottleneck] phase's at ``WIDE_NECK``: the generator's
+    (8, 64, 1) and the F0 converter's (64, 1) at B16 for training, B28
+    and B4 lean; the widest call the kernels take, B13 (64, 3, 1); the
+    fused kernels at B16 and B56 I1024 H512) and their edges, each row
+    with the registers and spills of the instance and of its float32 twin
+    (``ptxas_rows`` of the sources, compiled while the checks run).
+    Returns the row of each instance's first shape."""
+    rows = {}
+
+    def add(found: dict) -> None:
+        for name, row in found.items():
+            if name in rows:
+                rows[name].setdefault("beside", []).append(
+                    {k: row[k] for k in ("shape", "ms", "device_ms",
+                                         "bound_ms") if k in row})
+            else:
+                rows[name] = row
+
+    jobs = start_codegen(BLOCK_FUSED_SOURCES)
+    try:
+        _block_fused_checks(add, reps)
+        codegen = finish_codegen(jobs)
+    finally:
+        for _, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, row in rows.items():
+        key, twin = BLOCK_FUSED_BF16_KERNELS[name][2:]
+        for label, k in (("", key), ("float32_twin_", twin)):
+            if k not in codegen:
+                fail(f"{name}: no ptxas report of {k}")
+            for field in ("registers", "spill_stores", "stack_frame"):
+                row[label + field] = codegen[k].get(field)
+        log(f"codegen {name}", instance=key, twin=twin,
+            **{k: row[k] for k in ("registers", "spill_stores",
+                                   "stack_frame", "float32_twin_registers",
+                                   "float32_twin_spill_stores")},
+            device_ms=f"{row.get('device_ms', 0.0):.6g}",
+            bound_ms=f"{row['bound_ms']:.6g}")
+    return rows
+
+
+def _block_fused_checks(add, reps: int) -> None:
+    """``phase_block_fused_kernels``' checks, each row handed to
+    ``add``."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    with strict_float32("block plan and fused bfloat16 instances"):
+        for hs in ((8, WIDE_NECK, 1), (WIDE_NECK, 1)):
+            add(check_block_bf16_resid(TRAIN_B, hs, reps))
+        for b, hs in ((28, (8, WIDE_NECK, 1)), (4, (WIDE_NECK, 1)),
+                      (13, (64, 3, 1))):
+            add(check_multi_compute(b, hs, reps, plan="block_"))
+        for rd in (bf16, f32):
+            for hs in ((8, WIDE_NECK, 1), (WIDE_NECK, 1)):
+                add(check_multi_compute(TRAIN_B, hs, reps, rd,
+                                        plan="block_"))
+        check_block_bf16_edges()
+        for b in (7 * FUSED_PAIRS, TRAIN_B):
+            add(check_fused_bf16(b, 512, 1024, "infer", bf16, None, reps))
+        for compute, rd in ((f32, bf16), (bf16, f32), (bf16, bf16)):
+            for b in (TRAIN_B, 7 * FUSED_PAIRS):
+                add(check_fused_bf16(b, 512, 1024, "fwd", compute, rd, reps))
+        check_fused_bf16_edges()
+
+
+def _fused_name(compute, rd) -> str:
+    import torch
+
+    bf16 = torch.bfloat16
+    return "bilstm_fused_fwd/" + {(False, True): "bf16_resid",
+                                  (True, False): "bf16_w",
+                                  (True, True): "bf16_w_bf16_resid"}[
+        (compute == bf16, rd == bf16)]
+
+
+def convert_models(config, base, device: str = "cuda"):
+    """Eval models at ``config`` carrying the weights of ``base`` (a
+    generator and an F0 converter of the same widths)."""
+    from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+
+    g = SpeechSplit(config).to(device).eval()
+    p = F0Converter(config).to(device).eval()
+    g.load_state_dict(base[0].state_dict())
+    p.load_state_dict(base[1].state_dict())
+    return g, p
+
+
+def check_convert_call(what: str, g, p, pairs, expected: dict,
+                       flips: bool) -> dict:
+    """One ``convert_batched`` call through ``g`` and ``p``: its launches,
+    exactly ``expected``, finite mels cut to their lengths, against the
+    same call on the plain versions: every element within ``PATH_TOL``
+    (float32), or with ``flips`` (bfloat16 compute) within
+    ``COMPUTE_PATH_TOL`` of the plain call's largest magnitude but for at
+    most ``COMPUTE_FLIP_SHARE`` of them (``phase_convert_large_compute``'s
+    bar: a rounding flipped by a sum taken in another order, or an F0 bin
+    picked at a near tie, carried through the later layers). Returns the
+    launches, the largest error (over the largest magnitude with
+    ``flips``) and the share of elements past the bar."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.convert import CONDITIONS, convert_batched
+
+    def run():
+        return convert_batched(g, p, pairs, CONDITIONS)
+
+    run()
+    torch.cuda.synchronize()
+    reset_launches()
+    result = run()
+    counts = {k: v for k, v in read_launches().items() if v}
+    if counts != expected:
+        fail(f"convert_batched {what}: launches {counts}, expected "
+             f"{expected}")
+    check_conversions(g.config, pairs, result)
+    with plain_kernels():
+        plain = run()
+    top = max(float(np.abs(b[1]).max()) for r in plain for b in r)
+    scale, bar = (top, COMPUTE_PATH_TOL * top) if flips else (1.0, PATH_TOL)
+    past = sum(int((np.abs(a[1] - b[1]) > bar).sum())
+               for ra, rb in zip(result, plain) for a, b in zip(ra, rb))
+    share = past / sum(b[1].size for r in plain for b in r)
+    err = max(float(np.abs(a[1] - b[1]).max())
+              for ra, rb in zip(result, plain) for a, b in zip(ra, rb)) / scale
+    if not share <= (COMPUTE_FLIP_SHARE if flips else 0.0):
+        fail(f"convert_batched {what} vs plain: {share} of the mel elements "
+             f"past {bar}; largest error {err}")
+    return dict(launches=counts, err=err, share=share)
+
+
+def turns_ms(calls: dict, reps: int) -> dict:
+    """The median wall ms of each of ``calls`` ({label: fn}), run in
+    turns, a synchronize before each and after each."""
+    import numpy as np
+    import torch
+
+    samples = {label: [] for label in calls}
+    order = list(calls)
+    for r in range(reps):
+        for label in order if r % 2 == 0 else order[::-1]:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            calls[label]()
+            torch.cuda.synchronize()
+            samples[label].append((time.perf_counter() - start) * 1e3)
+    return {label: float(np.median(v)) for label, v in samples.items()}
+
+
+def phase_convert_fused_bf16(reps: int = 6) -> dict:
+    """``convert_batched`` at ``FUSED_PAIRS`` x 7 conditions with fusion
+    on at bfloat16 compute (``compute_config()``): 6 ``bilstm_fused_infer``
+    and 2 ``multi_bilstm_infer`` launches, finite mels, within
+    ``check_convert_call``'s flip bar of the plain call, ms a call in
+    turns with the same call with fusion off (the composed route at
+    bfloat16 compute). Returns the launches."""
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.convert import CONDITIONS, convert_batched
+    from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+
+    gen = torch.Generator().manual_seed(SEED)
+    base = (SpeechSplit(SpeechSplitConfig(), generator=gen),
+            F0Converter(SpeechSplitConfig(), generator=gen))
+    g, p = convert_models(compute_config(), base)
+    pairs = synthetic_pairs(SpeechSplitConfig(), FUSED_PAIRS, "cuda",
+                            SEED + 2)
+    with strict_float32("fused bf16 compute conversion"):
+        with fusion("auto"):
+            found = check_convert_call(
+                "fused bf16 compute", g, p, pairs,
+                {"bilstm_fused_infer": 6, "multi_bilstm_infer": 2},
+                flips=True)
+
+        def call(mode):
+            def run():
+                with fusion(mode):
+                    convert_batched(g, p, pairs, CONDITIONS)
+            return run
+
+        ms = turns_ms({"fused": call("auto"), "composed": call("off")}, reps)
+    log("convert_batched fused bf16 compute", pairs=FUSED_PAIRS,
+        conditions=len(CONDITIONS), generator_batch=7 * FUSED_PAIRS,
+        median_ms_per_call=f"{ms['fused']:.4f}",
+        composed_median_ms_per_call=f"{ms['composed']:.4f}",
+        timing="fused and composed bf16 compute calls in turns, TF32 off",
+        max_abs_err_over_max_vs_plain=f"{found['err']:.3g}",
+        share_past_tol=f"{found['share']:.4g}", tol=COMPUTE_PATH_TOL,
+        share_tol=COMPUTE_FLIP_SHARE,
+        launches=json.dumps(found["launches"]).replace(" ", ""))
+    return found["launches"]
+
+
+def phase_train_fused_bf16(batch) -> tuple:
+    """Both train steps with fusion on (``route("fused")``) at the default
+    config (float32 compute, bfloat16 residuals) and at bfloat16 compute
+    at both residual dtypes (``train_precision_phase``): 4 and 2
+    ``bilstm_fused_fwd`` launches a step beside the unfused ones' other
+    kernels, no plain call, loss and gradients within 2% of the plain
+    step (the Functions on their plain versions, the fused forward's
+    among them), ms a step in turns. Returns the generator's and the F0
+    converter's launches by label."""
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+
+    checked = {"default": SpeechSplitConfig(),
+               "bf16_compute": compute_config(),
+               "bf16_compute_f32_resid": compute_config("float32")}
+    timed = {"default": checked["default"],
+             "bf16_compute": checked["bf16_compute"]}
+    out = []
+    for name, model, layers in (("generator", "speechsplit", 4),
+                                ("f0_converter", "f0_converter", 2)):
+        out.append(train_precision_phase(
+            f"{name} fused", model,
+            {"bilstm_fused_fwd": layers, "bilstm_bwd": layers,
+             "multi_bilstm_fwd": 1, "multi_bilstm_bwd": 1}, batch, checked,
+            timed, "bf16", reps=6, layers="fused"))
+    return tuple(out)
+
+
+def wide_config(neck: int, **fields):
+    """The default config at ``dim_neck_3=neck`` (and ``fields``)."""
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+
+    return SpeechSplitConfig(dim_neck_3=neck, **fields)
+
+
+def phase_wide_bottleneck(batch, reps: int = 6) -> dict:
+    """Both models at full width with a wide pitch bottleneck. At
+    ``dim_neck_3=WIDE_NECK`` (the widest the multi-stream kernels take:
+    the block plans): both train steps at the default config and at
+    bfloat16 compute at both residual dtypes (``train_precision_phase``:
+    one ``multi_bilstm_fwd`` and ``multi_bilstm_bwd`` a step, the merged
+    layers' launches as at the default widths, within 2% of the plain
+    step; ms a step in turns with the default widths' step); the 4-pair
+    conversion at float32 (mels within ``PATH_TOL`` of the plain call)
+    and at bfloat16 compute (``check_convert_call``'s flip bar), ms a
+    call in turns with the default widths' call; ``cli.train --hparams
+    dim_neck_3=WIDE_NECK`` for both models (``CLI_STEPS`` iterations,
+    every checkpoint loading strictly into a model of that width). At
+    ``WIDER_NECK`` (past the kernels' ``MAX_HIDDEN``: each encoder's own
+    layer, no ``multi_bilstm_*`` launch): the 4-pair conversion (11
+    ``bilstm_infer``) against the plain call and both default-config
+    train steps (7 and 4 ``bilstm_fwd`` and ``bilstm_bwd``). Returns the
+    launches of the block plans' instances, by label."""
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.convert import CONDITIONS, convert_batched
+    from speechsplit_tpu_torch.interop import load_reference_checkpoint
+    from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+    from speechsplit_tpu_torch.ops import multi_bilstm
+    from speechsplit_tpu_torch.training import checkpoint as ckpt_lib
+
+    if not (multi_bilstm.fits((8, WIDE_NECK, 1))
+            and not multi_bilstm.fits((8, WIDER_NECK, 1))):
+        fail(f"multi_bilstm.fits: {WIDE_NECK} should fit, {WIDER_NECK} not")
+    out = {}
+    wide = wide_config(WIDE_NECK)
+    checked = {"default": wide,
+               "bf16_compute": wide_config(WIDE_NECK,
+                                           compute_dtype="bfloat16"),
+               "bf16_compute_f32_resid": wide_config(
+                   WIDE_NECK, compute_dtype="bfloat16",
+                   residual_dtype="float32")}
+    timed = {"default": wide, "default_neck_8": SpeechSplitConfig()}
+    exact = float32_config().replace(dim_neck_3=WIDE_NECK)
+    for name, model, layers in (("generator", "speechsplit", 4),
+                                ("f0_converter", "f0_converter", 2)):
+        out[model] = train_precision_phase(
+            f"{name} wide bottleneck {WIDE_NECK}", model,
+            {"bilstm_fwd": layers, "bilstm_bwd": layers,
+             "multi_bilstm_fwd": 1, "multi_bilstm_bwd": 1}, batch, checked,
+            timed, "wide bottleneck", reps=reps, exact=exact)
+    pairs = synthetic_pairs(SpeechSplitConfig(), 4, "cuda", SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    base = (SpeechSplit(wide, generator=gen), F0Converter(wide, generator=gen))
+    lean = {"bilstm_infer": 6, "multi_bilstm_infer": 2}
+    fields = {}
+    with strict_float32("wide bottleneck conversions"):
+        for label, config in (("float32", wide),
+                              ("bf16_compute", checked["bf16_compute"])):
+            g, p = convert_models(config, base)
+            found = check_convert_call(f"wide bottleneck {label}", g, p,
+                                       pairs, lean, label != "float32")
+            out[f"convert_{label}"] = found["launches"]
+            fields[f"{label}_err_vs_plain"] = f"{found['err']:.3g}"
+            fields[f"{label}_share_past_tol"] = f"{found['share']:.4g}"
+        fields.update(float32_tol=PATH_TOL, bf16_compute_tol=COMPUTE_PATH_TOL,
+                      bf16_compute_share_tol=COMPUTE_FLIP_SHARE)
+        g, p = convert_models(wide, base)
+        gen = torch.Generator().manual_seed(SEED)
+        narrow = tuple(m.to("cuda").eval() for m in (
+            SpeechSplit(SpeechSplitConfig(), generator=gen),
+            F0Converter(SpeechSplitConfig(), generator=gen)))
+        ms = turns_ms({
+            "neck_64": lambda: convert_batched(g, p, pairs, CONDITIONS),
+            "neck_8": lambda: convert_batched(*narrow, pairs, CONDITIONS)},
+            reps)
+        del narrow
+        # past MAX_HIDDEN: every encoder layer on the merged kernels
+        wider = wide_config(WIDER_NECK)
+        gen = torch.Generator().manual_seed(SEED)
+        g, p = convert_models(wider, (SpeechSplit(wider, generator=gen),
+                                      F0Converter(wider, generator=gen)))
+        found = check_convert_call(f"wide bottleneck {WIDER_NECK}", g, p,
+                                   pairs, {"bilstm_infer": 11}, False)
+        del g, p
+    log(f"convert_batched wide bottleneck {WIDE_NECK}", pairs=4,
+        generator_batch=28, **fields,
+        median_ms_per_call=f"{ms['neck_64']:.4f}",
+        neck_8_median_ms_per_call=f"{ms['neck_8']:.4f}",
+        timing="float32 calls at dim_neck_3 64 and 8 in turns, TF32 off",
+        launches=json.dumps(lean).replace(" ", ""))
+    log(f"convert_batched wide bottleneck {WIDER_NECK}", pairs=4,
+        err_vs_plain=f"{found['err']:.3g}", tol=PATH_TOL,
+        route="each encoder's own layer (multi_bilstm.fits false)",
+        launches=json.dumps(found["launches"]).replace(" ", ""))
+    wider_exact = float32_config().replace(dim_neck_3=WIDER_NECK)
+    for name, model, layers in (("generator", "speechsplit", 7),
+                                ("f0_converter", "f0_converter", 4)):
+        train_precision_phase(
+            f"{name} wide bottleneck {WIDER_NECK}", model,
+            {"bilstm_fwd": layers, "bilstm_bwd": layers}, batch,
+            {"default": wider}, {"default": wider}, "wide bottleneck",
+            reps=2, exact=wider_exact)
+    with tempfile.TemporaryDirectory() as tmp:
+        root_dir, feat_dir = write_feature_tree(tmp, SpeechSplitConfig(),
+                                                SEED + 5)
+        for model, tag, cls in (("speechsplit", "G", SpeechSplit),
+                                ("f0_converter", "P", F0Converter)):
+            models = os.path.join(tmp, f"models_{tag}")
+            args = [
+                "--num_iters", str(CLI_STEPS), "--model_save_dir", models,
+                "--log_step", str(CLI_SAVE), "--model_save_step",
+                str(CLI_SAVE), "--sample_step", "1000", "--model", model,
+                "--log_dir", os.path.join(tmp, "logs"),
+                "--sample_dir", os.path.join(tmp, "samples"),
+                "--validation_path", os.path.join(tmp, "no_such.pkl"),
+                "--hparams", f"root_dir={root_dir},feat_dir={feat_dir},"
+                f"dim_neck_3={WIDE_NECK}", "--device", "cuda"]
+            per_step = {k: v for k, v in out[model]["default"].items() if v}
+            losses, _, _ = run_cli_train(args, CLI_STEPS, per_step,
+                                         f"{model} dim_neck_3={WIDE_NECK}",
+                                         probe=False)
+            for step in (CLI_SAVE, CLI_STEPS):
+                cls(wide).load_state_dict(load_reference_checkpoint(
+                    ckpt_lib.checkpoint_path(models, step, tag)), strict=True)
+            log(f"train.cli wide bottleneck {WIDE_NECK}", model=model,
+                steps=CLI_STEPS, hparams=f"dim_neck_3={WIDE_NECK}",
+                checkpoints=f"{CLI_SAVE}-{tag},{CLI_STEPS}-{tag} strict at "
+                f"dim_neck_3={WIDE_NECK}",
+                losses=",".join(f"{v:.6f}" for v in losses),
+                launches_a_step=json.dumps(per_step).replace(" ", ""))
+    return out
 
 
 def refused_pairs() -> int:
@@ -5393,7 +6139,7 @@ def compute_merged_inputs(t: int, b: int, h: int, seed: int, stream):
 
 
 def _compute_row(name: str, shape: str, fields: dict) -> dict:
-    label = COMPUTE_KERNELS[name][1]
+    label = {**COMPUTE_KERNELS, **BLOCK_FUSED_BF16_KERNELS}[name][1]
     log(f"kernel {name}", shape=shape, dtypes=label.replace(" ", ""),
         **fmt(fields), flip_share_tol=COMPUTE_FLIP_SHARE,
         flip_tol=COMPUTE_FLIP, library="null (no library call rounds "
@@ -5520,12 +6266,15 @@ def compute_multi_inputs(t: int, b: int, hs, seed: int, f32_widths=(1,)):
                  for w in ws]
 
 
-def check_multi_compute(b: int, hs, reps: int, rd=None) -> dict:
-    """The multi-stream lane plan at bfloat16 compute, W_hh of mixed
+def check_multi_compute(b: int, hs, reps: int, rd=None,
+                        plan: str = "") -> dict:
+    """The multi-stream kernels at bfloat16 compute, W_hh of mixed
     dtypes in one call, against the plain versions: the lean forward
     (``rd`` None), or the residual-saving forward and the gradient at
     residuals ``rd`` (on the plain forward's residuals and the kernel's
-    own). Returns the rows."""
+    own). ``plan``: "" where ``hs`` runs the lane plan, "block_" where
+    it runs the block plan (a width past ``LANE_MAX_H``), the prefix of
+    the rows' instance names. Returns the rows."""
     import torch
 
     from speechsplit_tpu_torch.ops import multi_bilstm
@@ -5539,7 +6288,7 @@ def check_multi_compute(b: int, hs, reps: int, rd=None) -> dict:
         got = multi_bilstm.multi_bilstm_infer_cuda(n, *xps, *ws)
         want = multi_bilstm.multi_bilstm_sequence_reference(n, *xps, *ws)
         torch.cuda.synchronize()
-        name = "multi_bilstm_infer/bf16_w"
+        name = f"multi_bilstm_infer/{plan}bf16_w"
         errs = check_flips(f"{name} {shape}", got, want)
         errs["f32_w_max_err_over_max"] = check_f32_directions(
             f"{name} {shape}", got, want, ws)
@@ -5578,7 +6327,7 @@ def check_multi_compute(b: int, hs, reps: int, rd=None) -> dict:
     check_dtypes("multi_bilstm_fwd bf16 compute h", got[:d2], torch.float32)
     check_dtypes("multi_bilstm_fwd bf16 compute g, c", got[d2:], rd)
     check_dtypes("multi_bilstm_bwd bf16 compute dx", dx, torch.float32)
-    tag = "bf16_w" + ("_bf16_resid" if rd == torch.bfloat16 else "")
+    tag = plan + "bf16_w" + ("_bf16_resid" if rd == torch.bfloat16 else "")
     fwd_errs = check_flips(f"multi_bilstm_fwd/{tag} {shape}", got, want)
     bwd_errs = check_flips(f"multi_bilstm_bwd/{tag} {shape}", dx, dx_ref)
     fwd_errs["f32_w_max_err_over_max"] = check_f32_directions(
@@ -5658,8 +6407,8 @@ def check_compute_edges() -> None:
     plan at every ``MULTI_EDGES`` case on it, W_hh mixed as the models
     give it, and once mixed otherwise (float32 at H=8 beside bfloat16 at
     32 and 1), each against its plain version at the flip bar, the
-    float32-W directions at their own; a bfloat16 W_hh on a block plan
-    raises (ROADMAP.md A4c)."""
+    float32-W directions at their own (the block plan's edges:
+    ``check_block_bf16_edges``)."""
     import torch
 
     from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
@@ -5726,14 +6475,6 @@ def check_compute_edges() -> None:
                                                             *ws),
                     multi_bilstm.multi_bilstm_backward_reference(
                         n, *dhs, *res, *ws), ws)
-    xps, ws = compute_multi_inputs(3, 2, (33, 8), SEED)
-    try:
-        multi_bilstm.multi_bilstm_infer_cuda(2, *xps, *ws)
-    except NotImplementedError as err:
-        if "A4c" not in str(err):
-            fail(f"multi_bilstm_infer bf16 W at H=33 raised {err}")
-    else:
-        fail("multi_bilstm_infer took a bfloat16 W_hh at H=33")
     log("kernel bf16 compute edges", merged_shapes=len(shapes),
         multi_shapes=len(lane), max_flip_share=f"{worst['share']:.4g}",
         flip_share_tol=COMPUTE_FLIP_SHARE,
@@ -5741,7 +6482,7 @@ def check_compute_edges() -> None:
         f32_w_max_err_over_max=f"{worst['f32']:.4g}",
         mixed="f32 W at H8 beside bf16 H32 and H1",
         limits=f"B{shapes[-2][1]} lean, B{shapes[-1][1]} training at H512",
-        block_plan="refused at H=33 naming A4c")
+        block_plan="[kernel multi block bf16 edges]")
 
 
 def phase_compute_kernels(reps: int = 10) -> dict:
@@ -5824,10 +6565,9 @@ def phase_convert_compute(reps: int = 10) -> dict:
     merged layers' xp streams bfloat16) and at float32 ones: launches,
     finite mels cut to their lengths, within ``COMPUTE_PATH_TOL`` of the
     same call on the plain versions, ms a call in turns with the same
-    weights at float32 compute (TF32 off); then what still refuses
-    bfloat16 compute on the card, naming ROADMAP.md A4c:
-    ``PROJ_FUSION="auto"`` (the 731-pair call runs:
-    ``phase_convert_large_compute``). Returns the launches by residual
+    weights at float32 compute (TF32 off). The fused route at bfloat16
+    compute is ``phase_convert_fused_bf16``'s, the 731-pair call
+    ``phase_convert_large_compute``'s. Returns the launches by residual
     dtype."""
     import numpy as np
     import torch
@@ -5894,25 +6634,6 @@ def phase_convert_compute(reps: int = 10) -> dict:
                 tol=COMPUTE_PATH_TOL,
                 launches=json.dumps(counts).replace(" ", ""))
             del g, p
-    # what still refuses bfloat16 compute on the card (ROADMAP.md A4c)
-    g, p = models(compute_config())
-    refusals = {}
-    for what, mode, calls in (("PROJ_FUSION=auto", "auto", pairs),):
-        try:
-            with fusion(mode):
-                convert_batched(g, p, calls, CONDITIONS)
-        except NotImplementedError as err:
-            if "ROADMAP.md A4c" not in str(err):
-                fail(f"bf16 compute {what} raised without naming A4c: {err}")
-            refusals[what] = str(err).split(";")[0][:80]
-        else:
-            fail(f"bf16 compute {what} ran: it is queued in ROADMAP.md A4c")
-    del g, p
-    torch.cuda.empty_cache()
-    log("bf16 compute refusals", **{k.replace(" ", "_").replace("=", "_"): v
-                                    .replace(" ", "_")
-                                    for k, v in refusals.items()},
-        roadmap="A4c")
     return launches
 
 
@@ -8156,6 +8877,10 @@ def main() -> int:
     rows.update(phase_fused_kernels())
     fused_convert = phase_convert_fused()
     fused_gen, fused_f0 = phase_train_fused(batch)
+    rows.update(phase_block_fused_kernels())
+    fused_bf16_convert = phase_convert_fused_bf16()
+    fused_bf16_gen, fused_bf16_f0 = phase_train_fused_bf16(batch)
+    wide = phase_wide_bottleneck(batch)
     rows.update(phase_lstm_kernels())
     large_convert = phase_convert_large()
     single_gen, single_f0 = phase_train_single(batch)
@@ -8216,6 +8941,30 @@ def main() -> int:
         else:
             rd = "float32" if name == "bilstm_infer/bf16_w" else "bfloat16"
             extra = dict(launches=compute_convert[rd][kernel])
+        if not extra["launches"]:
+            fail(f"{name}: no launch on its main path")
+        kernels.append(dict(name=name, **KERNELS[kernel], **extra,
+                            dtypes=dtypes, library_ms=None, **rows[name]))
+    # the block plans' and the fused kernels' bfloat16 instances: launches
+    # from the [wide bottleneck] phase at dim_neck_3 = WIDE_NECK (the lean
+    # one from its bfloat16-compute conversion, the training pair from its
+    # generator steps by precision; F0 step beside) and from the fused
+    # phases at bfloat16 (the lean one from the conversion, the
+    # residual-saving ones from the generator steps by precision)
+    labels = {"bf16_resid": "default", "bf16_w": "bf16_compute_f32_resid",
+              "bf16_w_bf16_resid": "bf16_compute"}
+    for name, (kernel, dtypes, _, _) in BLOCK_FUSED_BF16_KERNELS.items():
+        label = labels[name.split("/")[1].removeprefix("block_")]
+        if kernel == "multi_bilstm_infer":
+            extra = dict(launches=wide["convert_bf16_compute"][kernel])
+        elif kernel == "bilstm_fused_infer":
+            extra = dict(launches=fused_bf16_convert[kernel])
+        elif kernel == "bilstm_fused_fwd":
+            extra = dict(launches=fused_bf16_gen[label][kernel],
+                         launches_f0_step=fused_bf16_f0[label][kernel])
+        else:
+            extra = dict(launches=wide["speechsplit"][label][kernel],
+                         launches_f0_step=wide["f0_converter"][label][kernel])
         if not extra["launches"]:
             fail(f"{name}: no launch on its main path")
         kernels.append(dict(name=name, **KERNELS[kernel], **extra,

@@ -75,9 +75,9 @@ class SpeechSplitConfig:
 
     # --- precision and layout knobs (no reference counterpart) -------------
     # The defaults are the JAX package's and train as they stand (bfloat16
-    # residuals and Adam mu); "bfloat16" compute runs on the default and
-    # the single-direction routes (the fused kernels refuse it,
-    # ROADMAP.md A4c).
+    # residuals and Adam mu); "bfloat16" compute runs on every route (the
+    # default, the fused and the single-direction ones) at every
+    # bottleneck width.
     compute_dtype: str = "float32"
     residual_dtype: str = "bfloat16"
     matmul_precision: str = "default"

@@ -1,5 +1,5 @@
-// Merged bidirectional LSTM layer forward, float32 (the unfused kernels
-// also with bfloat16 compute): the lean forward
+// Merged bidirectional LSTM layer forward, float32 or with bfloat16
+// compute: the lean forward
 // (h only) and the residual-saving forward of training, each either on
 // pre-projected gate inputs (one kernel body) or with the input
 // projection in the kernel (a body of its own).
@@ -26,14 +26,20 @@
 // The unfused residual-saving forward stores g and c in float32 or, as
 // _bd_fwd does under the JAX default residual_dtype, in bfloat16 (R):
 // rounded as they are stored, while h and the c carry stay float32
-// (pallas_lstm.py:648-657); the fused ones store float32 only. The
-// unfused kernels also run the JAX package's bfloat16 compute
+// (pallas_lstm.py:648-657); so do the fused ones (_bdp_fwd). The
+// kernels also run the JAX package's bfloat16 compute
 // (compute_dtype="bfloat16"): W_hh in bfloat16, widened into the
 // registers that hold it, and h_{t-1} rounded to bfloat16 where a step's
 // product reads it (pallas_lstm._cell's h.astype(w.dtype)); the sums, the
 // gates, c and the h stored stay float32. Their gate inputs xp are
 // float32, or bfloat16 beside bfloat16 residuals (pallas_lstm.stream_dtype),
-// widened as they are staged.
+// widened as they are staged. At bfloat16 compute the fused kernels take
+// x and W_ih in bfloat16 as well (JAX's _proj: both in W_ih's dtype, the
+// products summed in float32, then the float32 bias): they are widened as
+// they are staged, so that each product of two bfloat16 values is exact
+// in float32 and only the order of the sum differs from JAX's. The gate
+// inputs stay float32 in the kernel, and h is float32 out of it
+// (_h_stream_dtype).
 //
 // What bounds it on an H100: the recurrence. Step t needs all of h_{t-1},
 // so the T steps are serial and each is a small [B, H] x [H, 4H] product
@@ -113,6 +119,11 @@
 // - Thread-block clusters would share the staging of x and h across
 //   blocks, but a cooperative grid of 128 blocks at this shared memory
 //   fits the card only in clusters of 2 (PERF.md), so the grid has none.
+// - bfloat16 x and W_ih (bfloat16 compute) cannot go in by cp.async,
+//   which does not widen: their instances load them (8 bytes, four
+//   values, where the rows are whole quads) and store them widened into
+//   the same float32 K-tiles, before the tile's sums start. The float32
+//   instances keep their machine code.
 
 #include <cuda_runtime.h>
 
@@ -666,7 +677,9 @@ bilstm_infer_kernel(const Unfused a) {
 // row groups in neighbouring rows: a warp's shared loads of x meet no
 // bank conflict). The K-tiles are double-buffered, tile k + 1 in flight
 // (cp.async) while tile k is summed. Called by every thread of the
-// block; `tiles` is proj_tile_floats() of shared memory.
+// block; `tiles` is proj_tile_floats() of shared memory. X: the element
+// type of x and W_ih, float or bfloat16 (widened as they are staged).
+template <typename X = float>
 __device__ void project_slice(const Proj& q, const float* __restrict__ wih,
                               const float* __restrict__ bias, float* gates,
                               float* tiles, int dir, int s0, int rows,
@@ -695,6 +708,47 @@ __device__ void project_slice(const Proj& q, const float* __restrict__ wih,
     float* xs = bufs + (kt & 1) * kBufFloats;
     float* ws = xs + kChunk * kXS;
     const int k0 = kt * kKT;
+    if constexpr (!std::is_same<X, float>::value) {
+      // loaded and stored widened (zeros past I and past the rows);
+      // four values a load of 8 bytes where the rows are whole quads
+      const X* xq = reinterpret_cast<const X*>(q.x);
+      const X* wq = reinterpret_cast<const X*>(wih);
+      const int per = quads ? 4 : 1;
+      for (int i = tid; i < (kChunk + kGateRow) * (kKT / per);
+           i += kFusedThreads) {
+        const int r = i / (kKT / per);
+        const int k = k0 + per * (i % (kKT / per));
+        const X* src = nullptr;
+        float* dst;
+        if (r < kChunk) {
+          const long long off = row_off[r];
+          if (off >= 0 && k < I) src = xq + off + k;
+          dst = xs + r * kXS + k - k0;
+        } else {
+          const int rw = r - kChunk;  // rw = g * 8 + wi
+          const int wi = rw & 7;
+          if (wi < nu && k < I) {
+            src = wq + static_cast<size_t>((rw >> 3) * H + unit0 + wi) * I +
+                  k;
+          }
+          dst = ws + rw * kXS + k - k0;
+        }
+        if (quads) {
+          float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (src != nullptr) {
+            const uint2 bits = __ldg(reinterpret_cast<const uint2*>(src));
+            v = make_float4(__uint_as_float(bits.x << 16),
+                            __uint_as_float(bits.x & 0xffff0000u),
+                            __uint_as_float(bits.y << 16),
+                            __uint_as_float(bits.y & 0xffff0000u));
+          }
+          *reinterpret_cast<float4*>(dst) = v;
+        } else {
+          *dst = src != nullptr ? resid::widen(*src) : 0.0f;
+        }
+      }
+      return;
+    }
     if (quads) {
       for (int i = tid; i < kChunk * (kKT / 4); i += kFusedThreads) {
         const int r = i / (kKT / 4);
@@ -815,7 +869,8 @@ __device__ void project_slice(const Proj& q, const float* __restrict__ wih,
 }
 
 // The kernels with the projection inside (bilstm_fused_infer,
-// bilstm_fused_fwd). A block of kFusedThreads threads owns up to 8 units;
+// bilstm_fused_fwd). R, W and X: the residuals', W_hh's and x's and
+// W_ih's element types, as in bilstm_infer_kernel and project_slice. A block of kFusedThreads threads owns up to 8 units;
 // warp wi owns unit unit0 + wi and holds its four gate rows of W_hh for
 // k = 4 lane + kk + kKSpan q in registers. Shared memory: gates
 // [2][fold][B][kGateRow], two fold buffers of gate inputs; a region that
@@ -824,7 +879,9 @@ __device__ void project_slice(const Proj& q, const float* __restrict__ wih,
 // c_s [units][B], the cell state. A cooperative grid of at most 128
 // blocks uses one block an SM, so the bound lets the compiler take up to
 // 255 registers.
-template <int KQ, bool kResid>  // passes of kKSpan: ceil(H / kKSpan)
+// KQ: passes of kKSpan, ceil(H / kKSpan)
+template <int KQ, bool kResid, typename R = float, typename W = float,
+          typename X = float>
 __global__ void __launch_bounds__(kFusedThreads, 1)
 bilstm_fused_kernel(const Params p) {
   extern __shared__ __align__(16) float smem_fused[];
@@ -863,7 +920,8 @@ bilstm_fused_kernel(const Params p) {
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
         wr[q][kk][g] = (active && k < H)
-                           ? w[static_cast<size_t>(g * H + u) * H + k]
+                           ? resid::widen(reinterpret_cast<const W*>(
+                                 w)[static_cast<size_t>(g * H + u) * H + k])
                            : 0.0f;
       }
     }
@@ -871,8 +929,8 @@ bilstm_fused_kernel(const Params p) {
   for (int i = tid; i < p.units * B; i += kFusedThreads) c_s[i] = 0.0f;
 
   // fold 0's gate inputs before the first step
-  project_slice(p.proj, wih, bias, gates, h_s, dir, 0, min(F, T) * B, T, B,
-                H, unit0, nu, 0, n_kt);
+  project_slice<X>(p.proj, wih, bias, gates, h_s, dir, 0, min(F, T) * B, T,
+                   B, H, unit0, nu, 0, n_kt);
 
   for (int s = 0; s < T; ++s) {
     const int t = dir == 0 ? s : T - 1 - s;
@@ -918,8 +976,8 @@ bilstm_fused_kernel(const Params p) {
 #pragma unroll
             for (int r = 0; r < kRound; ++r) {
               if (r0 + r < nb) {
-                const float4 hv =
-                    *reinterpret_cast<const float4*>(h_s + (r0 + r) * Hp + k);
+                const float4 hv = resid::operand<W>(
+                    *reinterpret_cast<const float4*>(h_s + (r0 + r) * Hp + k));
 #pragma unroll
                 for (int g = 0; g < 4; ++g) {
                   const int x = r * 4 + g;
@@ -954,12 +1012,12 @@ bilstm_fused_kernel(const Params p) {
           const size_t row = static_cast<size_t>(t) * B + b;
           hout[row * H + u] = o_g * tanhf(c_new);
           if constexpr (kResid) {
-            float* gr = gout + row * 4 * H;
-            gr[u] = i_g;
-            gr[H + u] = f_g;
-            gr[2 * H + u] = g_g;
-            gr[3 * H + u] = o_g;
-            cout[row * H + u] = c_new;
+            R* gr = reinterpret_cast<R*>(gout) + row * 4 * H;
+            gr[u] = resid::narrow<R>(i_g);
+            gr[H + u] = resid::narrow<R>(f_g);
+            gr[2 * H + u] = resid::narrow<R>(g_g);
+            gr[3 * H + u] = resid::narrow<R>(o_g);
+            reinterpret_cast<R*>(cout)[row * H + u] = resid::narrow<R>(c_new);
           }
         }
       }
@@ -972,9 +1030,10 @@ bilstm_fused_kernel(const Params p) {
     const int next = (fold + 1) * F;
     if (next < T) {
       const int steps = min(F, T - fold * F);
-      project_slice(p.proj, wih, bias, gates + ((fold + 1) & 1) * fold_floats,
-                    h_s, dir, next, min(F, T - next) * B, T, B, H, unit0, nu,
-                    n_kt * k_fold / steps, n_kt * (k_fold + 1) / steps);
+      project_slice<X>(p.proj, wih, bias,
+                       gates + ((fold + 1) & 1) * fold_floats, h_s, dir, next,
+                       min(F, T - next) * B, T, B, H, unit0, nu,
+                       n_kt * k_fold / steps, n_kt * (k_fold + 1) / steps);
     }
   }
 }
@@ -1097,7 +1156,10 @@ Unfused unfused(const void* xp_f, const void* xp_b, const void* w_f,
   a.splits = splits;
   return a;
 }
-template <int KQ, bool kResid>
+// The plan does not depend on R, W and X: the K-tiles are float32 in
+// shared memory at every compute dtype, so bfloat16 takes the float32
+// plan's batches (kMaxFusedBatch).
+template <int KQ, bool kResid, typename R, typename W, typename X>
 cudaError_t launch_fused(Params p, cudaStream_t stream) {
   p.units = p.H < kMaxUnits ? p.H : kMaxUnits;
   p.blocks_per_dir = (p.H + p.units - 1) / p.units;
@@ -1106,12 +1168,13 @@ cudaError_t launch_fused(Params p, cudaStream_t stream) {
     return cudaErrorInvalidValue;  // batch too large for the fold buffers
   }
   void* args[] = {&p};
-  return step::launch_cooperative(bilstm_fused_kernel<KQ, kResid>,
+  return step::launch_cooperative(bilstm_fused_kernel<KQ, kResid, R, W, X>,
                             2 * p.blocks_per_dir, kFusedThreads, smem, args,
                             stream);
 }
 
-template <bool kResid>
+template <bool kResid, typename R = float, typename W = float,
+          typename X = float>
 int dispatch_fused(const Params& p, int device, void* stream) {
   if (p.T < 1 || p.B < 1 || p.H < 1 || p.H > kMaxH || p.proj.I < 1 ||
       p.B > kMaxFusedBatch) {
@@ -1121,9 +1184,9 @@ int dispatch_fused(const Params& p, int device, void* stream) {
   if (err != cudaSuccess) return err;
   auto s = static_cast<cudaStream_t>(stream);
   const int kq = (p.H + kKSpan - 1) / kKSpan;
-  if (kq <= 1) return launch_fused<1, kResid>(p, s);
-  if (kq <= 2) return launch_fused<2, kResid>(p, s);
-  return launch_fused<4, kResid>(p, s);
+  if (kq <= 1) return launch_fused<1, kResid, R, W, X>(p, s);
+  if (kq <= 2) return launch_fused<2, kResid, R, W, X>(p, s);
+  return launch_fused<4, kResid, R, W, X>(p, s);
 }
 
 Params outputs(void* h_f, void* h_b, void* g_f, void* g_b, void* c_f,
@@ -1221,33 +1284,48 @@ int bilstm_fwd_launch(const void* xp_f, const void* xp_b, const void* w_f,
 
 
 // Lean forward with the input projection in the kernel: x [T, B, I],
-// wi_f, wi_b [4H, I], b_f, b_b [4H]; barrier: one 32-bit word, zero at
-// the launch. Returns a cudaError_t (0 on success). Does not synchronise.
+// wi_f, wi_b [4H, I], b_f, b_b [4H] (float32); barrier: one 32-bit word,
+// zero at the launch. compute_bf16: bfloat16 compute, x, W_ih and W_hh
+// all in bfloat16 (JAX casts all three to W_hh's dtype); h is float32.
+// Returns a cudaError_t (0 on success). Does not synchronise.
 int bilstm_fused_infer_launch(const void* x, const void* wi_f,
                               const void* wi_b, const void* b_f,
                               const void* b_b, const void* w_f,
                               const void* w_b, void* h_f, void* h_b,
                               void* barrier, int T, int B, int H, int I,
-                              int device, void* stream) {
-  return dispatch_fused<false>(
-      fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b, h_f, h_b, nullptr, nullptr,
-            nullptr, nullptr, barrier, T, B, H, I),
-      device, stream);
+                              int compute_bf16, int device, void* stream) {
+  const Params p = fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b, h_f, h_b,
+                         nullptr, nullptr, nullptr, nullptr, barrier, T, B,
+                         H, I);
+  using resid::bf16;
+  if (compute_bf16) {
+    return dispatch_fused<false, float, bf16, bf16>(p, device, stream);
+  }
+  return dispatch_fused<false>(p, device, stream);
 }
 
-// Residual-saving forward with the input projection in the kernel.
-// Returns a cudaError_t (0 on success). Does not synchronise.
+// Residual-saving forward with the input projection in the kernel: g_f,
+// g_b [T, B, 4H] and c_f, c_b [T, B, H] in float32, or with resid_bf16 in
+// bfloat16; compute_bf16 as above. Returns a cudaError_t (0 on success).
+// Does not synchronise.
 int bilstm_fused_fwd_launch(const void* x, const void* wi_f,
                             const void* wi_b, const void* b_f,
                             const void* b_b, const void* w_f,
                             const void* w_b, void* h_f, void* h_b, void* g_f,
                             void* g_b, void* c_f, void* c_b, void* barrier,
-                            int T, int B, int H, int I, int device,
-                            void* stream) {
-  return dispatch_fused<true>(
-      fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b, h_f, h_b, g_f, g_b, c_f, c_b,
-            barrier, T, B, H, I),
-      device, stream);
+                            int T, int B, int H, int I, int resid_bf16,
+                            int compute_bf16, int device, void* stream) {
+  const Params p = fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b, h_f, h_b, g_f,
+                         g_b, c_f, c_b, barrier, T, B, H, I);
+  using resid::bf16;
+  if (compute_bf16 && resid_bf16) {
+    return dispatch_fused<true, bf16, bf16, bf16>(p, device, stream);
+  }
+  if (compute_bf16) {
+    return dispatch_fused<true, float, bf16, bf16>(p, device, stream);
+  }
+  if (resid_bf16) return dispatch_fused<true, bf16>(p, device, stream);
+  return dispatch_fused<true>(p, device, stream);
 }
 
 const char* bilstm_error_string(int err) {

@@ -1,7 +1,8 @@
 // N independent bidirectional LSTMs of mixed widths in one launch, the
-// gradient recurrence, float32 (g and c also bfloat16 in the lane plan,
-// and each direction's W_hh float32 or, with bfloat16 compute, bfloat16:
-// the product then reads d_pre rounded to bfloat16, csrc/lane_bwd.cuh).
+// gradient recurrence, float32 (g and c also bfloat16, and each
+// direction's W_hh float32 or, with bfloat16 compute, bfloat16: the
+// product then reads d_pre rounded to bfloat16, csrc/lane_bwd.cuh), on
+// either plan.
 //
 // Replaces: speechsplit_tpu/ops/pallas_multilstm.py::_bwd_kernel (wrapper
 // _bwd_call), the TPU kernel that runs the gate-gradient recurrences of
@@ -34,9 +35,12 @@
 // chain is the cell's few multiply-adds and the product.
 // A call with a direction wider than 32 (33..kMaxH) runs the block plan
 // for all its directions, in a kernel of its own that keeps its own
-// register count (the kernel before the lane plan, unchanged): one block
-// per (direction, batch tile of up to 8 rows), W_hh, d_pre and both
-// carries in shared memory, two __syncthreads() a step.
+// register count (the kernel before the lane plan): one block per
+// (direction, batch tile of up to 8 rows), W_hh, d_pre and both carries
+// in shared memory, two __syncthreads() a step. Its bfloat16 instances
+// read g and c widened, widen a bfloat16 W as they stage it (exact) and
+// round d_pre where the product reads it; dx stays the float32 d_pre, and
+// the float32 instance keeps its machine code.
 //
 // Built with -DMULTI_BILSTM_BWD_PROBE (chip_smoke.py's probe build), the
 // lane plan also adds up clock64() laps of each phase of a step per warp
@@ -66,11 +70,14 @@ struct Dir {
   int H;
 };
 
+// the block plan's descriptor; w_bf16[i]: direction i's W_hh is
+// bfloat16 (read only by a kernel built for bfloat16 W)
 struct Params {
   Dir d[kMaxDirs];
   int T;
   int B;
   int tiles;
+  int w_bf16[kMaxDirs];
 };
 
 // the lane plan's descriptor: direction i runs L[i] lanes a row on the
@@ -166,6 +173,10 @@ multi_bilstm_bwd_lane_kernel(LaneParams p) {
 static_assert(lane_bwd::kLaneMaxH == 32,
               "the lane plan's widest instance is L = 32");
 
+// The block plan. R: the element type of g and c, float or bfloat16. W:
+// float, or bfloat16 (each direction's W_hh of the type p.w_bf16 names
+// for it), as in the lane plan.
+template <typename R = float, typename W = float>
 __global__ void __launch_bounds__(kThreads)
 multi_bilstm_bwd_kernel(Params p) {
   extern __shared__ float smem[];
@@ -179,13 +190,20 @@ multi_bilstm_bwd_kernel(Params p) {
   const int b0 = tile * kBatchTile;
   const int nb = min(kBatchTile, B - b0);
   const bool reverse = dir & 1;  // a backward direction
+  bool w_bf16 = false;
+  if constexpr (!std::is_same<W, float>::value) w_bf16 = p.w_bf16[dir] != 0;
+  const resid::Operand<W> operand(w_bf16);
+  const R* gres = reinterpret_cast<const R*>(d.g);
+  const R* cres = reinterpret_cast<const R*>(d.c);
 
   float* w_s = smem;                   // [G][H], as w
   float* dp_s = w_s + G * H;           // [nb][G] this step's d_pre
   float* dh_s = dp_s + kBatchTile * G; // [nb][H] dh carry
   float* dc_s = dh_s + kBatchTile * H; // [nb][H] dc carry
 
-  for (int i = threadIdx.x; i < G * H; i += blockDim.x) w_s[i] = d.w[i];
+  for (int i = threadIdx.x; i < G * H; i += blockDim.x) {
+    w_s[i] = resid::weight<W>(d.w, i, w_bf16);
+  }
   for (int i = threadIdx.x; i < nb * H; i += blockDim.x) {
     dh_s[i] = 0.0f;
     dc_s[i] = 0.0f;
@@ -201,12 +219,15 @@ multi_bilstm_bwd_kernel(Params p) {
     for (int i = threadIdx.x; i < nb * H; i += blockDim.x) {
       const int b = i / H;
       const int u = i % H;
-      const float* g = d.g + (row0 + b) * G;
-      const float i_g = g[u], f_g = g[H + u], g_g = g[2 * H + u],
-                  o_g = g[3 * H + u];
-      const float tanh_c = tanhf(d.c[row0 * H + i]);
+      const R* g = gres + (row0 + b) * G;
+      const float i_g = resid::widen(g[u]), f_g = resid::widen(g[H + u]),
+                  g_g = resid::widen(g[2 * H + u]),
+                  o_g = resid::widen(g[3 * H + u]);
+      const float tanh_c = tanhf(resid::widen(cres[row0 * H + i]));
       const float c_prev =
-          has_cp ? d.c[(static_cast<size_t>(tc) * B + b0) * H + i] : 0.0f;
+          has_cp ? resid::widen(
+                       cres[(static_cast<size_t>(tc) * B + b0) * H + i])
+                 : 0.0f;
       const float dh = d.dh[row0 * H + i] + dh_s[i];
       const float d_o = dh * tanh_c;
       const float dc = dc_s[i] + dh * o_g * (1.0f - tanh_c * tanh_c);
@@ -225,7 +246,9 @@ multi_bilstm_bwd_kernel(Params p) {
       const int k = i % H;
       const float* dp = dp_s + b * G;
       float acc = 0.0f;
-      for (int j = 0; j < G; ++j) acc = fmaf(dp[j], w_s[j * H + k], acc);
+      for (int j = 0; j < G; ++j) {
+        acc = fmaf(operand(dp[j]), w_s[j * H + k], acc);
+      }
       dh_s[i] = acc;
     }
     __syncthreads();
@@ -237,10 +260,8 @@ multi_bilstm_bwd_kernel(Params p) {
 extern "C" {
 
 // dh, g, c, w, dx: n_dirs device pointers each; hs: n_dirs widths. g
-// and c float32, or with resid_bf16 bfloat16 (the lane plan only: a width
-// past lane_bwd::kLaneMaxH returns cudaErrorInvalidValue); dh and dx
-// float32. w_bf16: n_dirs flags, 1 where that direction's W_hh is
-// bfloat16 (the lane plan only), or null. Returns a cudaError_t (0 on
+// and c float32, or with resid_bf16 bfloat16; dh and dx float32. w_bf16:
+// n_dirs flags, 1 where that direction's W_hh is bfloat16, or null. Returns a cudaError_t (0 on
 // success). Does not synchronise.
 int multi_bilstm_bwd_launch(int n_dirs, const void* const* dh,
                             const void* const* g, const void* const* c,
@@ -266,10 +287,13 @@ int multi_bilstm_bwd_launch(int n_dirs, const void* const* dh,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   auto s = static_cast<cudaStream_t>(stream);
+  using resid::bf16;
   if (max_h > lane_bwd::kLaneMaxH) {
-    if (resid_bf16 || any_bf16) return cudaErrorInvalidValue;
     Params p{};
-    for (int i = 0; i < n_dirs; ++i) p.d[i] = dirs[i];
+    for (int i = 0; i < n_dirs; ++i) {
+      p.d[i] = dirs[i];
+      p.w_bf16[i] = w_bf16 != nullptr && w_bf16[i] != 0;
+    }
     p.T = T;
     p.B = B;
     p.tiles = (B + kBatchTile - 1) / kBatchTile;
@@ -277,11 +301,16 @@ int multi_bilstm_bwd_launch(int n_dirs, const void* const* dh,
         (static_cast<size_t>(4 * max_h) * max_h +
          static_cast<size_t>(kBatchTile) * 4 * max_h +
          2 * static_cast<size_t>(kBatchTile) * max_h) * sizeof(float);
-    err = cudaFuncSetAttribute(multi_bilstm_bwd_kernel,
+    auto block =
+        any_bf16 ? (resid_bf16 ? multi_bilstm_bwd_kernel<bf16, bf16>
+                               : multi_bilstm_bwd_kernel<float, bf16>)
+                 : (resid_bf16 ? multi_bilstm_bwd_kernel<bf16>
+                               : multi_bilstm_bwd_kernel<float>);
+    err = cudaFuncSetAttribute(block,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    multi_bilstm_bwd_kernel<<<n_dirs * p.tiles, kThreads, smem, s>>>(p);
+    block<<<n_dirs * p.tiles, kThreads, smem, s>>>(p);
     return cudaGetLastError();
   }
   LaneParams p{};
@@ -303,7 +332,6 @@ int multi_bilstm_bwd_launch(int n_dirs, const void* const* dh,
   p.T = T;
   p.B = B;
   const size_t smem = sizeof(float4) * lane_bwd::smem_float4s(max_l);
-  using resid::bf16;
   auto kernel =
       any_bf16 ? (resid_bf16 ? multi_bilstm_bwd_lane_kernel<bf16, bf16>
                              : multi_bilstm_bwd_lane_kernel<float, bf16>)

@@ -1,12 +1,14 @@
 // N independent bidirectional LSTMs of mixed widths in one launch, float32
 // forward: the lean forward (h only) and the residual-saving forward of
-// training, one kernel body. With bfloat16 compute (the lane plan only)
-// each direction's W_hh is float32 or bfloat16, as the launch's flags
-// say: the JAX model's _recurrent_dtype keeps the H=1 rhythm stream's W
-// float32 beside the bfloat16 W of the others, in one call. A bfloat16 W
-// is widened as it is staged and the product reads h_{t-1} rounded to
-// bfloat16 (csrc/lane_fwd.cuh); xp and h stay float32, as the JAX
-// multi-stream op keeps them.
+// training, one kernel body a plan. The residual-saving forward stores g
+// and c in float32 or bfloat16 (rounded as they are stored). With
+// bfloat16 compute each direction's W_hh is float32 or bfloat16, as the
+// launch's flags say: the JAX model's _recurrent_dtype keeps the H=1
+// rhythm stream's W float32 beside the bfloat16 W of the others, in one
+// call. A bfloat16 W is widened (exactly) as it is staged and the product
+// reads h_{t-1} rounded to bfloat16 (csrc/lane_fwd.cuh; the block plan
+// keeps its h_{t-1} rounded so in shared memory); xp and h stay float32,
+// as the JAX multi-stream op keeps them. Both plans run every dtype.
 //
 // Replaces: speechsplit_tpu/ops/pallas_multilstm.py::_infer_kernel (wrapper
 // _infer), the TPU kernel that interleaves the 2N directions of the
@@ -60,8 +62,10 @@
 // plan for all its directions, in a kernel of its own that keeps its own
 // register count: one block of kThreads per (direction, tile of
 // kBatchTile rows), W_hh transposed and h and c of the tile in shared
-// memory, two __syncthreads() a step (the kernel before the lane plan,
-// unchanged).
+// memory, two __syncthreads() a step (the kernel before the lane plan;
+// its bfloat16 instances widen W as they stage it and round h_{t-1} and
+// the residuals as they store them, and its float32 ones keep their
+// machine code).
 //
 // Built with -DMULTI_BILSTM_PROBE (chip_smoke.py's probe build), the lane
 // plan also adds up clock64() laps of each phase of a step per warp and
@@ -87,12 +91,14 @@ constexpr int kThreads = 256;
 
 using Dir = lane_fwd::Dir;
 
-// the block plan's descriptor
+// the block plan's descriptor; w_bf16[i]: direction i's W_hh is
+// bfloat16 (read only by a kernel built for bfloat16 compute)
 struct Params {
   Dir d[kMaxDirs];
   int T;
   int B;
   int tiles;
+  int w_bf16[kMaxDirs];
 };
 
 // the lane plan's: direction i runs L[i] lanes a row on the blocks from
@@ -192,8 +198,13 @@ static_assert(kLaneMaxH == 32 && kLaneMaxH == lane_fwd::kLaneMaxH &&
               "the lane plan's widest instance is L = 32");
 
 // The block plan: kBatchTile rows of one direction a block, a thread per
-// (row, gate row) in the product and per (row, unit) in the cell.
-template <bool kResid>
+// (row, gate row) in the product and per (row, unit) in the cell. R and W
+// as in the lane plan: the residuals' element type, and float or
+// bfloat16 W_hh, each direction's of the type p.w_bf16 names for it. A
+// bfloat16 W is widened as it is staged into w_s (exact), and h_s holds
+// h_{t-1} rounded to bfloat16 (the product is its only reader; the h
+// stored and the cell stay float32).
+template <bool kResid, typename R = float, typename W = float>
 __global__ void __launch_bounds__(kThreads)
 multi_bilstm_infer_kernel(Params p) {
   extern __shared__ float smem[];
@@ -207,6 +218,9 @@ multi_bilstm_infer_kernel(Params p) {
   const int b0 = tile * kBatchTile;
   const int nb = min(kBatchTile, B - b0);
   const bool reverse = dir & 1;
+  bool w_bf16 = false;
+  if constexpr (!std::is_same<W, float>::value) w_bf16 = p.w_bf16[dir] != 0;
+  const resid::Operand<W> operand(w_bf16);
 
   float* w_s = smem;                  // [H][G]: w_s[k*G + j] = w[j*H + k]
   float* h_s = w_s + H * G;           // [nb][H]
@@ -216,7 +230,7 @@ multi_bilstm_infer_kernel(Params p) {
   for (int i = threadIdx.x; i < H * G; i += blockDim.x) {
     const int j = i / H;
     const int k = i % H;
-    w_s[k * G + j] = d.w[i];
+    w_s[k * G + j] = resid::weight<W>(d.w, i, w_bf16);
   }
   for (int i = threadIdx.x; i < nb * H; i += blockDim.x) {
     h_s[i] = 0.0f;
@@ -248,24 +262,25 @@ multi_bilstm_infer_kernel(Params p) {
       const float c_new = f_g * c_s[i] + i_g * g_g;
       const float h_new = o_g * tanhf(c_new);
       c_s[i] = c_new;
-      h_s[i] = h_new;
+      h_s[i] = operand(h_new);
       out[i] = h_new;
       if constexpr (kResid) {
-        float* gr = d.g + (static_cast<size_t>(t) * B + b0 + b) * G;
-        gr[u] = i_g;
-        gr[H + u] = f_g;
-        gr[2 * H + u] = g_g;
-        gr[3 * H + u] = o_g;
-        d.c[(static_cast<size_t>(t) * B + b0) * H + i] = c_new;
+        R* gr = reinterpret_cast<R*>(d.g) +
+                (static_cast<size_t>(t) * B + b0 + b) * G;
+        gr[u] = resid::narrow<R>(i_g);
+        gr[H + u] = resid::narrow<R>(f_g);
+        gr[2 * H + u] = resid::narrow<R>(g_g);
+        gr[3 * H + u] = resid::narrow<R>(o_g);
+        reinterpret_cast<R*>(d.c)[(static_cast<size_t>(t) * B + b0) * H + i] =
+            resid::narrow<R>(c_new);
       }
     }
     __syncthreads();
   }
 }
 
-// R: the residuals' element type; bfloat16 runs the lane plan only.
-// w_bf16: per direction, 1 where its W_hh is bfloat16 (bfloat16 compute;
-// the lane plan only), or null where every W_hh is float32.
+// R: the residuals' element type. w_bf16: per direction, 1 where its W_hh
+// is bfloat16 (bfloat16 compute), or null where every W_hh is float32.
 template <bool kResid, typename R = float>
 int dispatch(int n_dirs, const void* const* xp, const void* const* w,
              void* const* h, void* const* g, void* const* c, const int* hs,
@@ -288,11 +303,11 @@ int dispatch(int n_dirs, const void* const* xp, const void* const* w,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (max_h > kLaneMaxH) {
-    if (!std::is_same<R, float>::value || any_bf16) {
-      return cudaErrorInvalidValue;
-    }
     Params p{};
-    for (int i = 0; i < n_dirs; ++i) p.d[i] = dirs[i];
+    for (int i = 0; i < n_dirs; ++i) {
+      p.d[i] = dirs[i];
+      p.w_bf16[i] = w_bf16 != nullptr && w_bf16[i] != 0;
+    }
     p.T = T;
     p.B = B;
     p.tiles = (B + kBatchTile - 1) / kBatchTile;
@@ -300,13 +315,15 @@ int dispatch(int n_dirs, const void* const* xp, const void* const* w,
         (static_cast<size_t>(max_h) * 4 * max_h +
          2 * static_cast<size_t>(kBatchTile) * max_h +
          static_cast<size_t>(kBatchTile) * 4 * max_h) * sizeof(float);
-    err = cudaFuncSetAttribute(multi_bilstm_infer_kernel<kResid>,
+    auto block = any_bf16
+                     ? multi_bilstm_infer_kernel<kResid, R, resid::bf16>
+                     : multi_bilstm_infer_kernel<kResid, R>;
+    err = cudaFuncSetAttribute(block,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    multi_bilstm_infer_kernel<kResid><<<n_dirs * p.tiles, kThreads, smem,
-                                        static_cast<cudaStream_t>(stream)>>>(
-        p);
+    block<<<n_dirs * p.tiles, kThreads, smem,
+            static_cast<cudaStream_t>(stream)>>>(p);
     return cudaGetLastError();
   }
   LaneParams p{};
@@ -343,8 +360,7 @@ int dispatch(int n_dirs, const void* const* xp, const void* const* w,
 extern "C" {
 
 // Lean forward. xp, w, h: n_dirs device pointers each; hs: n_dirs widths;
-// w_bf16: n_dirs flags, 1 where that direction's W_hh is bfloat16 (the
-// lane plan only: with a width past kLaneMaxH, cudaErrorInvalidValue), or
+// w_bf16: n_dirs flags, 1 where that direction's W_hh is bfloat16, or
 // null. xp and h are float32. Returns a cudaError_t (0 on success). Does
 // not synchronise.
 int multi_bilstm_infer_launch(int n_dirs, const void* const* xp,
@@ -356,8 +372,7 @@ int multi_bilstm_infer_launch(int n_dirs, const void* const* xp,
 }
 
 // Residual-saving forward: as above, and g [T, B, 4H_d], c [T, B, H_d]
-// per direction, in float32 or with resid_bf16 in bfloat16 (the lane plan
-// only: a width past kLaneMaxH returns cudaErrorInvalidValue); w_bf16 as
+// per direction, in float32 or with resid_bf16 in bfloat16; w_bf16 as
 // above.
 int multi_bilstm_fwd_launch(int n_dirs, const void* const* xp,
                             const void* const* w, void* const* h,

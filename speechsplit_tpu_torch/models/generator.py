@@ -5,12 +5,20 @@ and Generator_6 model.py:324-351 (3,485,849 params). Submodules carry
 the reference's names (``encoder_1``/``encoder_2``/``encoder_3``/
 ``decoder``), so ``state_dict()`` keys are the reference's.
 
-The forward always takes the streams structure of the JAX generator's
-fused path (generator.py:124-149, :210-227): conv stacks, then every
-independent encoder recurrence in one ``ops.multi_bilstm`` launch, then
-content layer 1 through ``ops.bilstm``, then code sampling. The JAX
-package picks that structure per backend and batch; the port runs it
-everywhere, so the CPU tests and the card run the same code.
+The forward takes the streams structure of the JAX generator's fused
+path (generator.py:124-149, :210-227) wherever the multi-stream kernels
+hold the encoders' widths (``ops.multi_bilstm.fits``): conv stacks, then
+every independent encoder recurrence in one ``ops.multi_bilstm``
+launch, then content layer 1 through ``ops.bilstm``, then code
+sampling. Elsewhere (a bottleneck wider than the kernels'
+``MAX_HIDDEN``) each encoder runs its own ``LSTM``, as the JAX
+generator's ``else`` branches do (generator.py:150-154, :228-232): the
+content stack's two layers, pitch, rhythm and f0 each through the merged
+kernels, or the single-direction route where those refuse the batch.
+The JAX package gates that structure on backend, batch and a VMEM
+budget (``_fuse_encoder_group``); the port gates it on the widths alone,
+so the CPU tests and the card run the same route. Both routes compute
+the same sums.
 
 ``train=True`` turns on the encoders' random resampling, whose draws
 come from the ``generator`` argument in the JAX order: content/pitch
@@ -108,21 +116,28 @@ class SpeechSplit(nn.Module):
         enc_cp, enc_r = self.encoder_1, self.encoder_2
         xc, xp = enc_cp.pre(x_f0, train=train, generator=generator)
         xr = enc_r.pre(x_org)
-        s_c = enc_cp.lstm_1(xc, mode="streams", start_layer=0)
-        s_p = enc_cp.lstm_2(xp, mode="streams")
-        s_r = enc_r.lstm(xr, mode="streams")
-        outs = multi_bilstm.multi_bilstm_sequence(
-            3,
-            s_c[0], s_c[1], s_p[0], s_p[1], s_r[0], s_r[1],
-            s_c[2], s_c[3], s_p[2], s_p[3], s_r[2], s_r[3],
-            residual_dtype=resolve_dtype(cfg.residual_dtype),
-        )
-        h_content = enc_cp.lstm_1(combine_bidir(outs[0], outs[1]),
-                                  start_layer=1)
-        codes_content, codes_pitch = enc_cp.codes(
-            h_content, combine_bidir(outs[2], outs[3])
-        )
-        codes_rhythm = enc_r.codes(combine_bidir(outs[4], outs[5]))
+        if not multi_bilstm.fits((cfg.dim_neck, cfg.dim_neck_3,
+                                  cfg.dim_neck_2)):
+            # each encoder's own layers (JAX generator.py:150-154)
+            codes_content, codes_pitch = enc_cp.codes(enc_cp.lstm_1(xc),
+                                                      enc_cp.lstm_2(xp))
+            codes_rhythm = enc_r.codes(enc_r.lstm(xr))
+        else:
+            s_c = enc_cp.lstm_1(xc, mode="streams", start_layer=0)
+            s_p = enc_cp.lstm_2(xp, mode="streams")
+            s_r = enc_r.lstm(xr, mode="streams")
+            outs = multi_bilstm.multi_bilstm_sequence(
+                3,
+                s_c[0], s_c[1], s_p[0], s_p[1], s_r[0], s_r[1],
+                s_c[2], s_c[3], s_p[2], s_p[3], s_r[2], s_r[3],
+                residual_dtype=resolve_dtype(cfg.residual_dtype),
+            )
+            h_content = enc_cp.lstm_1(combine_bidir(outs[0], outs[1]),
+                                      start_layer=1)
+            codes_content, codes_pitch = enc_cp.codes(
+                h_content, combine_bidir(outs[2], outs[3])
+            )
+            codes_rhythm = enc_r.codes(combine_bidir(outs[4], outs[5]))
 
         content = upsample_codes(codes_content, cfg.freq)
         pitch = upsample_codes(codes_pitch, cfg.freq_3)
@@ -158,14 +173,19 @@ class F0Converter(nn.Module):
         enc_f, enc_r = self.encoder_3, self.encoder_2
         xf = enc_f.pre(f0_trg, train=train, generator=generator)
         xr = enc_r.pre(x_org)
-        s_f = enc_f.lstm(xf, mode="streams")
-        s_r = enc_r.lstm(xr, mode="streams")
-        outs = multi_bilstm.multi_bilstm_sequence(
-            2, s_f[0], s_f[1], s_r[0], s_r[1], s_f[2], s_f[3], s_r[2], s_r[3],
-            residual_dtype=resolve_dtype(cfg.residual_dtype),
-        )
-        codes_f0 = enc_f.codes(combine_bidir(outs[0], outs[1]))
-        codes_rhythm = enc_r.codes(combine_bidir(outs[2], outs[3]))
+        if not multi_bilstm.fits((cfg.dim_neck_3, cfg.dim_neck_2)):
+            # each encoder's own layer (JAX generator.py:228-232)
+            codes_f0 = enc_f.codes(enc_f.lstm(xf))
+            codes_rhythm = enc_r.codes(enc_r.lstm(xr))
+        else:
+            s_f = enc_f.lstm(xf, mode="streams")
+            s_r = enc_r.lstm(xr, mode="streams")
+            outs = multi_bilstm.multi_bilstm_sequence(
+                2, s_f[0], s_f[1], s_r[0], s_r[1], s_f[2], s_f[3], s_r[2],
+                s_r[3], residual_dtype=resolve_dtype(cfg.residual_dtype),
+            )
+            codes_f0 = enc_f.codes(combine_bidir(outs[0], outs[1]))
+            codes_rhythm = enc_r.codes(combine_bidir(outs[2], outs[3]))
         rhythm = upsample_codes(codes_rhythm, cfg.freq_2)
         pitch = upsample_codes(codes_f0, cfg.freq_3)
         return self.decoder(torch.cat([rhythm, pitch], dim=-1))

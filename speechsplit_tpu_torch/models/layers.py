@@ -194,18 +194,18 @@ class LSTM(nn.Module):
     the same name, threaded from ``config.residual_dtype``) is the dtype
     the layer's recurrences save their residuals in under autograd. In
     eval and under ``no_grad`` nothing is saved and it changes nothing
-    but the xp streams' dtype below. The merged (composed) and the
-    single-direction routes run it in every kernel; the fused projection
-    saves float32 only, and raises under autograd for bfloat16
-    (ROADMAP.md A4c).
+    but the xp streams' dtype below. Every route runs it in every kernel:
+    the merged ones, composed or fused, and the single-direction one.
 
     ``dtype`` (``config.compute_dtype``): the projections follow
     ``Linear``, W_hh is cast to ``_recurrent_dtype`` at each use, and on
-    the merged and the single-direction routes the projected inputs are
-    cast to ``ops.bilstm.stream_dtype`` (bfloat16 where W_hh and the
-    residuals both are), as the JAX layer casts them (layers.py:208-217).
-    bfloat16 compute runs both those routes and ``streams``; the fused
-    projection raises for it (ROADMAP.md A4c).
+    the composed merged and the single-direction routes the projected
+    inputs are cast to ``ops.bilstm.stream_dtype`` (bfloat16 where W_hh
+    and the residuals both are), as the JAX layer casts them
+    (layers.py:208-217). The fused route takes x and W_ih cast to W_hh's
+    dtype, as the JAX layer's fused call does (layers.py:367-375), and
+    projects inside the kernel in float32 sums. bfloat16 compute runs
+    every route and ``streams``.
     """
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int,
@@ -310,10 +310,12 @@ class LSTM(nn.Module):
             # its layer-level VJP); both compute the same sums
             if bilstm.fused_proj_plan(t_len, batch, self.hidden_size,
                                       x.shape[-1], w_f.dtype):
-                # the projection inside the kernel: no [T, B, 4H] stream
+                # the projection inside the kernel: no [T, B, 4H] stream;
+                # x and W_ih in W_hh's dtype
+                wd = w_f.dtype
                 h_f, h_b = bilstm.bilstm_sequence_fused(
-                    x.contiguous(), wi_f, wi_b, b_f, b_b, w_f, w_b,
-                    self.residual_dtype)
+                    x.to(wd).contiguous(), wi_f.to(wd), wi_b.to(wd), b_f,
+                    b_b, w_f, w_b, self.residual_dtype)
             else:
                 sd = bilstm.stream_dtype(w_f.dtype, self.residual_dtype)
                 h_f, h_b = bilstm.bilstm_sequence(

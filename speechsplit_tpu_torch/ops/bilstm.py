@@ -43,8 +43,12 @@ in bfloat16. A step's product reads h_{t-1} rounded to bfloat16
 rounded to bfloat16 (``_cell_bwd``, :825-828); the sums, gates, c and h
 stay float32. The xp streams are bfloat16 where the residuals are too
 (:func:`stream_dtype`), else float32; dW_hh is rounded to W's dtype
-(:542). The fused op runs float32 only and saves float32 residuals only:
-bfloat16 compute or residuals there raise (ROADMAP.md A4c).
+(:542). The fused op takes x, W_ih and W_hh in one dtype, float32 or
+bfloat16 (JAX casts all three to W_hh's), the biases float32: its
+projection multiplies x and W_ih and sums in float32, then adds the bias
+(``_proj``, pallas_lstm.py:1207-1220), its gate inputs stay float32 in
+the kernel and h is float32; under autograd it saves g and c in
+``residual_dtype`` and its backward follows ``_bdp_vjp_bwd``.
 """
 
 from __future__ import annotations
@@ -201,12 +205,26 @@ def bilstm_backward_reference(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f, w_b):
     )
 
 
-def bilstm_fused_forward_reference(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
+def project(x, wi, b):
+    """The fused kernels' projection ``x W_ih^T + b`` [.., 4H], float32:
+    one ``F.linear`` at float32; with x and W_ih in bfloat16 (bfloat16
+    compute) the products of the widened values summed in float32, then
+    the float32 bias (JAX's ``_proj``). A product of two bfloat16 values
+    is exact in float32 (and in TF32)."""
+    if x.dtype == torch.float32 and wi.dtype == torch.float32:
+        return F.linear(x, wi, b)
+    return F.linear(x.float(), wi.float()) + b
+
+
+def bilstm_fused_forward_reference(x, wi_f, wi_b, b_f, b_b, w_f, w_b,
+                                   residual_dtype=None):
     """The plain version of the fused residual-saving kernel: a per-row
-    projection, then the direction loops; ``(h_f, h_b, g_f, g_b, c_f,
-    c_b)``, as ``_bdp_fwd`` returns them."""
-    return bilstm_forward_reference(F.linear(x, wi_f, b_f),
-                                    F.linear(x, wi_b, b_b), w_f, w_b)
+    projection (:func:`project`), then the direction loops; ``(h_f, h_b,
+    g_f, g_b, c_f, c_b)``, as ``_bdp_fwd`` returns them, g and c in
+    ``residual_dtype`` (None: float32)."""
+    return bilstm_forward_reference(project(x, wi_f, b_f),
+                                    project(x, wi_b, b_b), w_f, w_b,
+                                    residual_dtype)
 
 
 def bilstm_sequence_fused_reference(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
@@ -279,8 +297,9 @@ def fused_proj_plan(t: int, b: int, h: int, i: int, dtype) -> bool:
     """Should a merged BiLSTM layer of this shape project its input
     inside the kernel (``bilstm_sequence_fused``)? False under
     ``PROJ_FUSION = "off"``; under ``"auto"`` true wherever the CUDA
-    kernel holds the shape: float32, H <= MAX_HIDDEN and B <=
-    MAX_FUSED_BATCH, any T and I.
+    kernel holds the shape: H <= MAX_HIDDEN and B <= MAX_FUSED_BATCH, any
+    T and I, at W_hh's ``dtype`` float32 or bfloat16 (the kernels' shared
+    memory holds float32 K-tiles at either, so the limits are one).
 
     The JAX plan (pallas_lstm.py:1192-1204) is a TPU budget: VMEM for the
     resident W_ih and W_hh and a fold that fills the MXU's 128-row tile,
@@ -292,17 +311,13 @@ def fused_proj_plan(t: int, b: int, h: int, i: int, dtype) -> bool:
 
     "auto" is a parity switch: it stays off by default, and a plan that
     turns it on waits for the conversion measurements (PERF.md, ROADMAP
-    B). The fused kernels run float32 W_hh only: under "auto" a layer
-    whose W_hh is bfloat16 (bfloat16 compute) raises rather than take
-    the composed route without a word (ROADMAP.md A4c)."""
+    B)."""
     if PROJ_FUSION not in ("off", "auto"):
         raise ValueError(f"PROJ_FUSION must be 'off' or 'auto', got "
                          f"{PROJ_FUSION!r}")
-    if PROJ_FUSION == "auto" and dtype != torch.float32:
-        raise NotImplementedError(
-            f"PROJ_FUSION='auto' runs float32 W_hh only; the fused kernels "
-            f"at bfloat16 compute are {A4C}"
-        )
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_proj_plan: W_hh must be float32 or "
+                         f"bfloat16, got {dtype}")
     return (PROJ_FUSION == "auto" and t >= 1
             and i >= 1 and 1 <= h <= MAX_HIDDEN
             and 1 <= b <= MAX_FUSED_BATCH)
@@ -322,25 +337,6 @@ def check_residual_dtype(dtype, what: str) -> None:
     if dtype not in RESIDUAL_DTYPES:
         raise ValueError(f"{what}: residual_dtype must be float32 or "
                          f"bfloat16, got {dtype}")
-
-
-def refuse_bf16_residuals(dtype, what: str) -> None:
-    """``what`` saves float32 residuals only: bfloat16 ones raise."""
-    check_residual_dtype(dtype, what)
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"{what} saves float32 residuals only; bfloat16 residuals there "
-            f"are {A4C}"
-        )
-
-
-def refuse_bf16_compute(tensors, what: str) -> None:
-    """``what`` runs float32 only: a bfloat16 tensor among ``tensors``
-    (bfloat16 compute) raises."""
-    if any(x.dtype == torch.bfloat16 for x in tensors):
-        raise NotImplementedError(
-            f"{what} runs float32 only; bfloat16 compute there is {A4C}"
-        )
 
 
 def check_compute(xp_dtype, w_dtype, residual_dtype=None,
@@ -422,13 +418,31 @@ def _check_residuals(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f) -> None:
         raise ValueError(f"w must be [4H, H] beside g {shape}")
 
 
+def check_fused_compute(x, wi_f, wi_b, b_f, b_b, w_f, w_b) -> None:
+    """The dtypes the fused kernels run: x, W_ih and W_hh in one dtype,
+    float32 or bfloat16 (JAX's fused call casts all three to W_hh's), the
+    biases float32. Another dtype raises ValueError; a mix of the two,
+    which JAX never forms, NotImplementedError."""
+    ops = (x, wi_f, wi_b, w_f, w_b)
+    for t in ops:
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"bilstm_sequence_fused takes float32 or "
+                             f"bfloat16 x and weights, got {t.dtype}")
+    if b_f.dtype != torch.float32 or b_b.dtype != torch.float32:
+        raise ValueError("bilstm_sequence_fused takes float32 biases")
+    if len({t.dtype for t in ops}) > 1:
+        raise NotImplementedError(
+            f"bilstm_sequence_fused runs x, W_ih and W_hh in one dtype, got "
+            f"{[str(t.dtype) for t in ops]}; other mixes are {A4C}"
+        )
+
+
 def _check_fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b) -> None:
     """The fused kernels' inputs: x [T, B, I], wi [4H, I], b [4H],
-    w [4H, H], float32 and contiguous."""
+    w [4H, H], contiguous, in the dtypes :func:`check_fused_compute`
+    takes."""
     tensors = (x, wi_f, wi_b, b_f, b_b, w_f, w_b)
-    refuse_bf16_compute(tensors, "bilstm_sequence_fused")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError("bilstm_sequence_fused takes float32 tensors")
+    check_fused_compute(*tensors)
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("bilstm_sequence_fused needs contiguous tensors")
     if x.dim() != 3:
@@ -460,11 +474,13 @@ def _library():
     lib.bilstm_fwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
         ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.bilstm_fwd_launch.restype = ctypes.c_int
+    # ..., T, B, H, I, compute_bf16, device, stream
     lib.bilstm_fused_infer_launch.argtypes = [ctypes.c_void_p] * 10 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.bilstm_fused_infer_launch.restype = ctypes.c_int
+    # ..., T, B, H, I, resid_bf16, compute_bf16, device, stream
     lib.bilstm_fused_fwd_launch.argtypes = [ctypes.c_void_p] * 14 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.bilstm_fused_fwd_launch.restype = ctypes.c_int
     lib.bilstm_error_string.argtypes = [ctypes.c_int]
     lib.bilstm_error_string.restype = ctypes.c_char_p
@@ -585,17 +601,18 @@ def _fused_pointers(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
 
 def bilstm_fused_infer_cuda(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
     """Launch the lean forward of ``csrc/bilstm_infer.cu`` with the input
-    projection in the kernel: ``(h_f, h_b)``."""
+    projection in the kernel: ``(h_f, h_b)``, float32 at either compute
+    dtype."""
     args = (x, wi_f, wi_b, b_f, b_b, w_f, w_b)
     _check_fused(*args)
     t_len, batch, i_dim = x.shape
     hidden = w_f.shape[1]
-    h_f = x.new_empty(t_len, batch, hidden)
+    h_f = x.new_empty(t_len, batch, hidden, dtype=torch.float32)
     h_b = torch.empty_like(h_f)
     lib = _library()
     err = lib.bilstm_fused_infer_launch(
         *_fused_pointers(*args), h_f.data_ptr(), h_b.data_ptr(),
-        _barrier_word(x).data_ptr(), t_len, batch, hidden, i_dim,
+        _barrier_word(x).data_ptr(), t_len, batch, hidden, i_dim, _bf16(w_f),
         x.device.index or 0, _stream(x),
     )
     _build.check(err, "bilstm_fused_infer", lib.bilstm_error_string)
@@ -603,23 +620,29 @@ def bilstm_fused_infer_cuda(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
     return h_f, h_b
 
 
-def bilstm_fused_forward_cuda(x, wi_f, wi_b, b_f, b_b, w_f, w_b):
+def bilstm_fused_forward_cuda(x, wi_f, wi_b, b_f, b_b, w_f, w_b,
+                              residual_dtype=torch.float32):
     """Launch the residual-saving forward of ``csrc/bilstm_infer.cu`` with
     the input projection in the kernel: ``(h_f, h_b, g_f, g_b, c_f,
-    c_b)``."""
+    c_b)``, g and c in ``residual_dtype`` (rounded by the kernel as it
+    stores them), h float32."""
     args = (x, wi_f, wi_b, b_f, b_b, w_f, w_b)
     _check_fused(*args)
+    check_residual_dtype(residual_dtype, "bilstm_fused_fwd")
     t_len, batch, i_dim = x.shape
     hidden = w_f.shape[1]
-    h_f = x.new_empty(t_len, batch, hidden)
-    h_b, c_f, c_b = (torch.empty_like(h_f) for _ in range(3))
-    g_f = x.new_empty(t_len, batch, 4 * hidden)
+    h_f = x.new_empty(t_len, batch, hidden, dtype=torch.float32)
+    h_b = torch.empty_like(h_f)
+    c_f, c_b = (torch.empty_like(h_f, dtype=residual_dtype)
+                for _ in range(2))
+    g_f = x.new_empty(t_len, batch, 4 * hidden, dtype=residual_dtype)
     g_b = torch.empty_like(g_f)
     lib = _library()
     err = lib.bilstm_fused_fwd_launch(
         *_fused_pointers(*args), h_f.data_ptr(), h_b.data_ptr(),
         g_f.data_ptr(), g_b.data_ptr(), c_f.data_ptr(), c_b.data_ptr(),
         _barrier_word(x).data_ptr(), t_len, batch, hidden, i_dim,
+        int(residual_dtype == torch.bfloat16), _bf16(w_f),
         x.device.index or 0, _stream(x),
     )
     _build.check(err, "bilstm_fused_fwd", lib.bilstm_error_string)
@@ -696,21 +719,35 @@ class BiLSTMFunction(torch.autograd.Function):
                 None)
 
 
+def _dx_in(dxp, wi):
+    """The projection's input gradient of one direction, dxp [T, B, 4H]
+    cast to W_ih's dtype times W_ih [4H, I], summed in float32 (JAX's
+    ``dxin``; products of bfloat16 values are exact in float32)."""
+    return dxp.to(wi.dtype).float() @ wi.float()
+
+
 class BiLSTMFusedFunction(torch.autograd.Function):
     """``bilstm_sequence_fused`` under autograd. The forward is the fused
     residual-saving kernel (the projection inside it) on CUDA, the plain
-    version on the CPU; it saves the residuals and x, as ``_bdp_vjp_fwd``
-    does. The backward (``_bdp_vjp_bwd``, pallas_lstm.py:1414-1448) is the
-    gradient recurrence and dW_hh, then the projection's gradients as
-    matmuls outside the kernels, as JAX leaves them to XLA: dW_ih =
-    dxp^T x, db = the sum of dxp over (t, b), and dx = dxp_f W_ih_f +
-    dxp_b W_ih_b."""
+    version on the CPU, g and c in ``residual_dtype``; it saves the
+    residuals and x, as ``_bdp_vjp_fwd`` does. The backward
+    (``_bdp_vjp_bwd``, pallas_lstm.py:1414-1448) is the gradient
+    recurrence and dW_hh (:func:`_recurrence_backward`: dh enters and dxp
+    leaves in the residuals' dtype), then the projection's gradients as
+    matmuls outside the kernels, as JAX leaves them to XLA: dW_ih = dxp^T
+    x with both operands rounded to the residuals' dtype and the sum to
+    W_ih's (``_dw_contract``), db = the float32 sum of dxp over (t, b),
+    and dx = dxp_f W_ih_f + dxp_b W_ih_b (:func:`_dx_in`) in x's dtype."""
 
     @staticmethod
-    def forward(ctx, x, wi_f, wi_b, b_f, b_b, w_f, w_b):
-        run = bilstm_fused_forward_cuda if x.is_cuda else (
-            bilstm_fused_forward_reference)
-        outs = run(x, wi_f, wi_b, b_f, b_b, w_f, w_b)
+    def forward(ctx, x, wi_f, wi_b, b_f, b_b, w_f, w_b,
+                residual_dtype=torch.float32):
+        if x.is_cuda:
+            outs = bilstm_fused_forward_cuda(x, wi_f, wi_b, b_f, b_b, w_f,
+                                             w_b, residual_dtype)
+        else:
+            outs = bilstm_fused_forward_reference(x, wi_f, wi_b, b_f, b_b,
+                                                  w_f, w_b, residual_dtype)
         ctx.save_for_backward(*outs, x, wi_f, wi_b, w_f, w_b)
         return outs[:2]
 
@@ -721,12 +758,13 @@ class BiLSTMFusedFunction(torch.autograd.Function):
             ctx.saved_tensors)
         dxp_f, dxp_b, dw_f, dw_b = _recurrence_backward(
             dh_f, dh_b, h_f, h_b, g_f, g_b, c_f, c_b, w_f, w_b)
-        rows = x.flatten(0, 1)
-        dwi_f = dxp_f.flatten(0, 1).t() @ rows
-        dwi_b = dxp_b.flatten(0, 1).t() @ rows
-        dx = dxp_f @ wi_f + dxp_b @ wi_b
-        return (dx, dwi_f, dwi_b, dxp_f.sum((0, 1)), dxp_b.sum((0, 1)), dw_f,
-                dw_b)
+        rd = g_f.dtype
+        rows = x.float()
+        dwi_f = contract_dw(rows, dxp_f.float(), rd).to(wi_f.dtype)
+        dwi_b = contract_dw(rows, dxp_b.float(), rd).to(wi_b.dtype)
+        dx = (_dx_in(dxp_f, wi_f) + _dx_in(dxp_b, wi_b)).to(x.dtype)
+        return (dx, dwi_f, dwi_b, dxp_f.float().sum((0, 1)),
+                dxp_b.float().sum((0, 1)), dw_f, dw_b, None)
 
 
 def _device(name: str, args) -> str:
@@ -762,18 +800,15 @@ def bilstm_sequence_fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b,
                           residual_dtype=torch.float32):
     """One BiLSTM layer with its input projection inside the kernel
     (``pallas_lstm.bilstm_sequence_fused``); callers gate on
-    :func:`fused_proj_plan`. See the module docstring for layouts. It
-    runs float32 only, and under autograd it saves float32 residuals
-    only: bfloat16 tensors or ``residual_dtype`` bfloat16 raise
-    (ROADMAP.md A4c)."""
+    :func:`fused_proj_plan`. See the module docstring for layouts and
+    dtypes (:func:`check_fused_compute`, checked here on either device).
+    Under autograd the residuals are saved in ``residual_dtype``."""
     args = (x, wi_f, wi_b, b_f, b_b, w_f, w_b)
     device = _device("bilstm_sequence_fused", args)
     check_residual_dtype(residual_dtype, "bilstm_sequence_fused")
-    refuse_bf16_compute(args, "bilstm_sequence_fused")
+    check_fused_compute(*args)
     if _recording(args):
-        refuse_bf16_residuals(residual_dtype,
-                              "bilstm_sequence_fused under autograd")
-        return BiLSTMFusedFunction.apply(*args)
+        return BiLSTMFusedFunction.apply(*args, residual_dtype)
     if device == "cuda":
         return bilstm_fused_infer_cuda(*args)
     return bilstm_sequence_fused_reference(*args)

@@ -20,17 +20,22 @@ autograd the gates g and the cell states c are saved in the residual
 dtype, float32 or bfloat16; the cotangents dh enter the gradient kernel
 in float32 and its dx leaves in float32 (unlike the merged op's streams,
 which follow the residual dtype); ``dW_hh`` rounds h and dx to the
-residual dtype (``_dw_contract``). bfloat16 residuals run on the lane
-plans (every width up to ``LANE_MAX_H``); a call with a wider direction
-(the block plans) raises under autograd (ROADMAP.md A4c).
+residual dtype (``_dw_contract``). Both plans run both residual dtypes:
+the lane plans (every width up to ``LANE_MAX_H``) and the block plans (a
+call with a wider direction, up to ``MAX_HIDDEN``).
 
 bfloat16 compute, as the JAX model's ``streams`` mode feeds the op: each
 ``w_*`` float32 or bfloat16 on its own (the encoders' W_hh of H >= 2 in
 bfloat16 beside the H=1 rhythm stream's float32 one, in one call), xp, h
 and dx float32. A direction with a bfloat16 W multiplies h_{t-1} and, in
 the gradient, d_pre rounded to bfloat16, and its dW_hh is rounded to
-bfloat16 (``_dw_contract``). The lane plans run it; a bfloat16 W in a
-call with a direction wider than ``LANE_MAX_H`` raises (ROADMAP.md A4c).
+bfloat16 (``_dw_contract``). Both plans run it; a bfloat16 xp, a pair
+JAX never forms, raises (ROADMAP.md A4c).
+
+Which calls the kernels take at all: :func:`fits` (at most
+``MAX_DIRECTIONS`` directions, each at most ``MAX_HIDDEN`` wide). The
+generators gate their multi-stream call on it and run each encoder's
+own layer elsewhere, as JAX's ``_fuse_encoder_group`` gates its.
 
 Dispatch as in ``ops.bilstm``: under autograd (an input requires grad)
 :class:`MultiBiLSTMFunction` runs the residual-saving forward and, in
@@ -66,8 +71,22 @@ LAUNCHES = {"multi_bilstm_infer": 0, "multi_bilstm_fwd": 0,
 MAX_DIRECTIONS = _build.source_constant("multi_bilstm_infer", "kMaxDirs")
 MAX_HIDDEN = _build.source_constant("multi_bilstm_infer", "kMaxH")
 # the lane plans' widest direction; a call with a wider one runs the block
-# plans, which save float32 residuals only
+# plans
 LANE_MAX_H = _build.source_constant("multi_bilstm_infer", "kLaneMaxH")
+
+
+def fits(widths) -> bool:
+    """Can one multi-stream launch run BiLSTMs of these widths (one a
+    stream)? True where their 2n directions are at most ``MAX_DIRECTIONS``
+    and every width is at most ``MAX_HIDDEN``, both as the kernels'
+    source states them. It depends on the widths alone, never on the
+    device or the dtypes, so the CPU and the card take the same route.
+    JAX's ``pallas_multilstm.fits`` is a VMEM budget with no width limit
+    (pallas_multilstm.py:101-107): widths past ``MAX_HIDDEN`` run the
+    multi-stream kernel there and each encoder's own layer here."""
+    widths = tuple(widths)
+    return (1 <= 2 * len(widths) <= MAX_DIRECTIONS
+            and all(1 <= h <= MAX_HIDDEN for h in widths))
 
 
 def _split(n: int, args):
@@ -110,10 +129,9 @@ def multi_bilstm_backward_reference(n: int, *args):
 def compute_plan(xps, ws) -> None:
     """The dtypes the multi-stream kernels run: xp float32 (the JAX
     ``streams`` mode keeps it so), each W_hh float32 or bfloat16 on its
-    own (bfloat16 compute), a bfloat16 one on the lane plans only. Others
-    raise: a bfloat16 xp, or a bfloat16 W in a call with a direction
-    wider than ``LANE_MAX_H`` (the block plans), NotImplementedError
-    naming ROADMAP.md A4c; any other dtype ValueError."""
+    own (bfloat16 compute), on either plan. A bfloat16 xp raises
+    NotImplementedError naming ROADMAP.md A4c; any other dtype
+    ValueError."""
     for w in ws:
         if w.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"multi_bilstm_sequence: w must be float32 or "
@@ -122,14 +140,6 @@ def compute_plan(xps, ws) -> None:
         raise NotImplementedError(
             "multi_bilstm_sequence runs float32 xp only (the JAX op's "
             f"streams are float32); bfloat16 ones are {A4C}"
-        )
-    widths = [w.shape[-1] for w in ws]
-    if max(widths) > LANE_MAX_H and any(w.dtype == torch.bfloat16
-                                        for w in ws):
-        raise NotImplementedError(
-            f"multi_bilstm_sequence: bfloat16 W_hh with a direction wider "
-            f"than {LANE_MAX_H} (the block plans, widths {tuple(widths)}) "
-            f"is {A4C}"
         )
 
 
@@ -163,25 +173,11 @@ def _check(n: int, xps, ws, xp_float32: bool = True) -> None:
             )
 
 
-def residual_plan(widths, residual_dtype, what: str) -> None:
-    """bfloat16 residuals run on the lane plans only: a call with a
-    direction wider than ``LANE_MAX_H`` raises (ROADMAP.md A4c)."""
-    check_residual_dtype(residual_dtype, what)
-    if residual_dtype != torch.float32 and max(widths) > LANE_MAX_H:
-        raise NotImplementedError(
-            f"{what}: bfloat16 residuals with a direction wider than "
-            f"{LANE_MAX_H} (the block plans, widths {tuple(widths)}) are "
-            f"{A4C}"
-        )
-
-
 def _check_residuals(dhs, gs, cs) -> None:
     """The gradient kernel's inputs: g and c of every direction in one
     residual dtype, float32 or bfloat16; dh float32 (JAX's multi-stream
     VJP does not round the cotangents)."""
     check_residual_dtype(gs[0].dtype, "multi_bilstm_bwd")
-    residual_plan([g.shape[-1] // 4 for g in gs], gs[0].dtype,
-                  "multi_bilstm_bwd")
     for dh, g, c in zip(dhs, gs, cs):
         hshape = tuple(g.shape[:2]) + (g.shape[2] // 4,)
         for name, x, want, dtype in (
@@ -272,8 +268,7 @@ def multi_bilstm_forward_cuda(n: int, *args, residual_dtype=torch.float32):
     them)."""
     xps, ws = _split(n, args)
     _check(n, xps, ws)
-    residual_plan([xp.shape[-1] // 4 for xp in xps], residual_dtype,
-                  "multi_bilstm_fwd")
+    check_residual_dtype(residual_dtype, "multi_bilstm_fwd")
     t_len, batch, _ = xps[0].shape
     device = xps[0].device
     hs = _new_h(xps)
@@ -367,8 +362,6 @@ def multi_bilstm_sequence(n: int, *args, residual_dtype=torch.float32):
     check_residual_dtype(residual_dtype, "multi_bilstm_sequence")
     compute_plan(*_split(n, args))
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
-        residual_plan([x.shape[-1] // 4 for x in args[: 2 * n]],
-                      residual_dtype, "multi_bilstm_sequence under autograd")
         return MultiBiLSTMFunction.apply(n, residual_dtype, *args)
     if devices == {"cuda"}:
         return multi_bilstm_infer_cuda(n, *args)

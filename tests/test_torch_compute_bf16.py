@@ -363,15 +363,19 @@ def test_checkpoints_load_across_compute_dtypes():
 
 
 def test_a4c_paths_refuse_bfloat16_compute(monkeypatch):
-    """What bfloat16 compute still does not run raises naming ROADMAP.md
-    A4c, on CPU tensors (the checks are on dtypes alone): the fused
-    kernels (and PROJ_FUSION="auto" with a bfloat16 W_hh), the
-    multi-stream block plans, and a bfloat16 xp stream where JAX never
-    forms one. A multi-stream call with W_hh of both dtypes at any widths
-    on the lane plans runs, and so does the single-direction route
+    """What bfloat16 compute runs, on CPU tensors (the checks are on
+    dtypes alone, so the card takes the same calls): the fused op at
+    bfloat16 x, W_ih and W_hh, and ``PROJ_FUSION="auto"`` with a bfloat16
+    W_hh (once refused, now run and equal to the composed route and to
+    the plain version), the multi-stream block plans with a bfloat16 W_hh
+    (each direction its plain loop), a multi-stream call with W_hh of
+    both dtypes on the lane plans, and the single-direction route
     (``lstm_sequence``, ``LSTM(bidirectional=False)`` and a BiLSTM layer
     the merged kernels refuse): each output of the float32-W path's shape
-    and dtype."""
+    and dtype. What raises, naming ROADMAP.md A4c, is the dtype pairs JAX
+    never forms: a bfloat16 W_hh beside float32 x and W_ih in the fused
+    op, bfloat16 multi-stream xp, and a bfloat16 merged xp beside a
+    float32 W_hh."""
     rng = np.random.RandomState(5)
     xp = _t(rng.randn(4, 2, 32).astype(np.float32))
     w = _t(rng.randn(32, 8).astype(np.float32)).to(BF16)
@@ -384,16 +388,23 @@ def test_a4c_paths_refuse_bfloat16_compute(monkeypatch):
     x = _t(rng.randn(4, 2, 5).astype(np.float32))
     wi = _t(rng.randn(32, 5).astype(np.float32))
     b = _t(rng.randn(32).astype(np.float32))
+    wd = w.detach()
+    bf16_args = (x.to(BF16), wi.to(BF16), wi.to(BF16), b, b, wd, wd)
+    got = bilstm.bilstm_sequence_fused(*bf16_args)
+    want = bilstm.bilstm_sequence_fused_reference(*bf16_args)
+    for g, r in zip(got, want):
+        assert g.dtype == F32
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-        bilstm.bilstm_sequence_fused(x, wi, wi, b, b, w.detach(), w.detach())
+        bilstm.bilstm_sequence_fused(x, wi, wi, b, b, wd, wd)
     monkeypatch.setattr(bilstm, "PROJ_FUSION", "auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-        bilstm.fused_proj_plan(4, 2, 8, 5, BF16)
+    assert bilstm.fused_proj_plan(4, 2, 8, 5, BF16)
     layer = tl.LSTM(5, 8, 1, torch.Generator(), dtype=BF16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-        layer(x.transpose(0, 1))
+    fused = layer(x.transpose(0, 1))  # the fused route runs it
     monkeypatch.setattr(bilstm, "PROJ_FUSION", "off")
     merged = layer(x.transpose(0, 1))  # the composed merged route runs it
+    # float32 residuals: both routes multiply the same rounded operands
+    _assert_layer_close(fused, merged, "fused vs composed")
     uni = tl.LSTM(5, 8, 1, torch.Generator(), dtype=BF16,
                   bidirectional=False)
     uni32 = tl.LSTM(5, 8, 1, torch.Generator(), bidirectional=False)
@@ -407,8 +418,11 @@ def test_a4c_paths_refuse_bfloat16_compute(monkeypatch):
     assert (got.shape, got.dtype) == (merged.shape, F32)
     wide = _t(rng.randn(4, 2, 4 * 33).astype(np.float32))
     w33 = _t(rng.randn(4 * 33, 33).astype(np.float32)).to(BF16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-        multi_bilstm.multi_bilstm_sequence(1, wide, wide, w33, w33)
+    # a block-plan width at bfloat16 W: each direction its plain loop
+    outs = multi_bilstm.multi_bilstm_sequence(1, wide, wide, w33, w33)
+    for d, out in enumerate(outs):
+        alone = bilstm.lstm_direction_forward_reference(wide, w33, bool(d))
+        torch.testing.assert_close(out, alone[0], rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
         multi_bilstm.multi_bilstm_sequence(1, xp.to(BF16), xp.to(BF16),
                                            w.detach(), w.detach())

@@ -218,10 +218,13 @@ def test_fused_proj_plan():
     assert not bilstm.fused_proj_plan(192, 16, 513, 1024, torch.float32)
     assert not bilstm.fused_proj_plan(
         192, bilstm.MAX_FUSED_BATCH + 1, 512, 1024, torch.float32)
-    # a bfloat16 W_hh (bfloat16 compute) raises under "auto" rather than
-    # take the composed route without a word
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-        bilstm.fused_proj_plan(192, 16, 512, 1024, torch.bfloat16)
+    # a bfloat16 W_hh (bfloat16 compute) fuses where float32 does, as in
+    # JAX at a batch its bfloat16 tiles take (B a multiple of 16)
+    assert bilstm.fused_proj_plan(192, 16, 512, 1024, torch.bfloat16)
+    assert pallas_lstm.fused_proj_plan(192, 16, 512, 1024, jnp.bfloat16)
+    assert bilstm.fused_proj_plan(192, 28, 512, 1024, torch.bfloat16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bilstm.fused_proj_plan(192, 16, 512, 1024, torch.float16)
     bilstm.PROJ_FUSION = "on"
     with pytest.raises(ValueError, match="PROJ_FUSION"):
         bilstm.fused_proj_plan(192, 16, 512, 1024, torch.float32)
@@ -239,8 +242,15 @@ def test_max_fused_batch_is_the_kernels_own():
 def test_fused_checks_reject_what_the_kernel_does_not_take():
     args = _port_args(_inputs(8)[0])
     bilstm._check_fused(*args)
+    # bfloat16 compute: x and the weights bfloat16, the biases float32
+    bf16 = [a.bfloat16() if k not in (3, 4) else a
+            for k, a in enumerate(args)]
+    bilstm._check_fused(*bf16)
+    # a mix JAX never forms (it casts x, W_ih and W_hh to one dtype)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bilstm._check_fused(args[0].bfloat16(), *args[1:])
+    with pytest.raises(ValueError, match="float32 biases"):
+        bilstm._check_fused(*bf16[:3], args[3].bfloat16(), *bf16[4:])
     with pytest.raises(ValueError, match="wi_b"):
         bilstm._check_fused(args[0], args[1], args[2][:, :-1].contiguous(),
                             *args[3:])

@@ -169,8 +169,9 @@ def test_backward_wrapper_rejects_bad_arguments():
         multi_bilstm.multi_bilstm_backward_reference(1, c, c, g)
     with pytest.raises(ValueError, match="dh"):
         multi_bilstm._check_residuals((torch.zeros(4, 2, 7),), (g,), (c,))
-    # g and c in one residual dtype, dh float32: mixed ones raise, and
-    # bfloat16 residuals on a block plan (a width past 32) are A4c's
+    # g and c in one residual dtype, dh float32: mixed ones raise;
+    # bfloat16 residuals run on either plan (a width past 32: the block
+    # plan)
     with pytest.raises(ValueError, match="one residual dtype"):
         multi_bilstm._check_residuals((c,), (g,), (c.bfloat16(),))
     with pytest.raises(ValueError, match="float32 dh"):
@@ -178,6 +179,12 @@ def test_backward_wrapper_rejects_bad_arguments():
                                       (c.bfloat16(),))
     multi_bilstm._check_residuals((c,), (g.bfloat16(),), (c.bfloat16(),))
     wide_g, wide_c = torch.zeros(4, 2, 132), torch.zeros(4, 2, 33)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-        multi_bilstm._check_residuals((wide_c,), (wide_g.bfloat16(),),
-                                      (wide_c.bfloat16(),))
+    multi_bilstm._check_residuals((wide_c,), (wide_g.bfloat16(),),
+                                  (wide_c.bfloat16(),))
+    # and the plain gradient runs them, dx float32, as on the lane plan
+    dh, w = torch.randn(4, 2, 33), torch.randn(132, 33) / 33 ** 0.5
+    g, c = torch.rand(4, 2, 132).bfloat16(), torch.randn(4, 2, 33).bfloat16()
+    dx = multi_bilstm.multi_bilstm_backward_reference(1, dh, dh, g, g, c, c,
+                                                      w, w)
+    assert [x.dtype for x in dx] == [torch.float32] * 2
+    assert all(torch.isfinite(x).all() for x in dx)

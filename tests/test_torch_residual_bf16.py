@@ -215,11 +215,12 @@ def test_multi_function_grads_match_jax_vjp_bf16():
 
 
 def test_bf16_residuals_where_the_port_saves_float32_raise():
-    """The fused forward and the multi-stream block plans save float32
-    residuals only: bfloat16 ones raise under autograd, naming ROADMAP.md
-    A4c (and run under no_grad, where nothing is saved). The
-    single-direction route saves them: under autograd and under no_grad
-    its output has the float32-residual path's shape and dtype."""
+    """Every route saves bfloat16 residuals under autograd: the
+    single-direction one, the fused forward and the multi-stream block
+    plans (which once saved float32 only and raised): each one's output
+    has the float32-residual path's shape and dtype, under autograd and
+    under no_grad, and its autograd Function's g and c are the plain
+    forward's, rounded to bfloat16."""
     rng = np.random.RandomState(3)
     xp = _t(rng.randn(4, 2, 32).astype(np.float32)).requires_grad_(True)
     w = _t(rng.randn(32, 8).astype(np.float32)).requires_grad_(True)
@@ -233,17 +234,31 @@ def test_bf16_residuals_where_the_port_saves_float32_raise():
     x = _t(rng.randn(4, 2, 5).astype(np.float32)).requires_grad_(True)
     wi = _t(rng.randn(32, 5).astype(np.float32))
     b = _t(rng.randn(32).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-        bilstm.bilstm_sequence_fused(x, wi, wi, b, b, w, w, BF16)
+    fused = bilstm.bilstm_sequence_fused(x, wi, wi, b, b, w, w, BF16)
+    assert type(fused[0].grad_fn).__name__ == "BiLSTMFusedFunctionBackward"
+    plain = bilstm.bilstm_fused_forward_reference(x, wi, wi, b, b, w, w,
+                                                  BF16)
+    assert [t.dtype for t in plain[2:]] == [BF16] * 4
+    for g, r in zip(fused, plain[:2]):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
     with torch.no_grad():
-        bilstm.bilstm_sequence_fused(x, wi, wi, b, b, w, w, BF16)
+        lean = bilstm.bilstm_sequence_fused(x, wi, wi, b, b, w, w, BF16)
+    for g, r in zip(lean, plain[:2]):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
     wide = _t(rng.randn(4, 2, 4 * 33).astype(np.float32)).requires_grad_(True)
     w33 = _t(rng.randn(4 * 33, 33).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-        multi_bilstm.multi_bilstm_sequence(1, wide, wide, w33, w33,
-                                           residual_dtype=BF16)
+    got = multi_bilstm.multi_bilstm_sequence(1, wide, wide, w33, w33,
+                                             residual_dtype=BF16)
+    assert type(got[0].grad_fn).__name__ == "MultiBiLSTMFunctionBackward"
+    plain = multi_bilstm.multi_bilstm_forward_reference(
+        1, wide, wide, w33, w33, residual_dtype=BF16)
+    assert [t.dtype for t in plain[2:]] == [BF16] * 4
+    for g, r in zip(got, plain[:2]):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
     with torch.no_grad():
-        multi_bilstm.multi_bilstm_sequence(1, wide, wide, w33, w33,
-                                           residual_dtype=BF16)
+        lean = multi_bilstm.multi_bilstm_sequence(1, wide, wide, w33, w33,
+                                                  residual_dtype=BF16)
+    for g, r in zip(lean, plain[:2]):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
     with pytest.raises(ValueError, match="residual_dtype"):
         bilstm.bilstm_sequence(xp, xp, w, w, torch.float16)

@@ -385,16 +385,30 @@ def test_cli_refuses_unported_flags(tmp_path, flags):
 def test_cli_refuses_the_default_bfloat16_config(tmp_path, monkeypatch):
     # the default config trains (tests/test_torch_precision.py), and
     # compute_dtype=bfloat16 too (tests/test_torch_compute_bf16_f0.py);
-    # what still refuses bfloat16 compute is the fused projection
-    # (PROJ_FUSION="auto"), naming ROADMAP.md A4c
+    # so does bfloat16 compute with the projection fused into the merged
+    # kernels (PROJ_FUSION="auto"), which once refused: the fused op runs
+    # under autograd at bfloat16 x, W_ih and W_hh, and the step is finite
     from speechsplit_tpu_torch.ops import bilstm
 
     tree = write_feature_tree(str(tmp_path / "feats"), 2, 1, seed=0)
     args = _cli_args(tmp_path, tree, "--device", "cpu")
     args[args.index("--hparams") + 1] += ",compute_dtype=bfloat16"
     monkeypatch.setattr(bilstm, "PROJ_FUSION", "auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-        cli_train.main(args)
+    fused = []
+    real = bilstm.bilstm_sequence_fused
+
+    def spy(x, *rest, **kwargs):
+        fused.append((x.dtype, torch.is_grad_enabled()))
+        return real(x, *rest, **kwargs)
+
+    monkeypatch.setattr(bilstm, "bilstm_sequence_fused", spy)
+    state = cli_train.main(args)
+    assert state.step == 2
+    assert state.model.decoder.lstm.dtype == torch.bfloat16
+    # the mel decoder's 3 layers and content layer 1, each step
+    assert fused == [(torch.bfloat16, True)] * 8
+    assert all(torch.isfinite(p).all() for p in state.model.parameters())
+    assert os.path.exists(tmp_path / "models" / "2-G.ckpt")
 
 
 
