@@ -13,13 +13,15 @@ import torch
 
 from speechsplit_tpu.ops import pallas_lstm
 from speechsplit_tpu_torch.ops import bilstm
+from tests.jax_interpret import at_test_fold
 
 T = 16
 TOL = 1e-5
 
 
 @pytest.fixture(autouse=True)
-def interpret_mode():
+def interpret_mode(monkeypatch):
+    at_test_fold(monkeypatch)
     pallas_lstm.FORCE_INTERPRET = True
     prev = pallas_lstm.RESIDUAL_DTYPE
     pallas_lstm.RESIDUAL_DTYPE = jnp.float32

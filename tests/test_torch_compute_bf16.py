@@ -43,9 +43,10 @@ import pytest
 import torch
 
 from speechsplit_tpu.models import layers as jl
-from speechsplit_tpu.ops import pallas_lstm, pallas_multilstm
+from speechsplit_tpu.ops import pallas_lstm
 from speechsplit_tpu_torch.models import layers as tl
 from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm
+from tests.jax_interpret import interpret
 from tests.test_torch_residual_bf16 import (
     B,
     DW_TOL,
@@ -64,21 +65,6 @@ RESIDUALS = pytest.mark.parametrize("rd", ["float32", "bfloat16"])
 LAYER_RTOL = 1e-5
 FLIP = 2.0 ** -8
 FLIP_SHARE = 0.02
-
-
-# timesteps a grid step of JAX's merged and multi-stream kernels unrolls
-# in these tests (their own fold is 4 or 16): a grid step computes the
-# same cells in the same order at any fold, and in interpret mode the
-# compile time grows with it (JAX's bfloat16 generator step at tiny
-# widths: 66 s at the kernels' own folds, 33 s at 2, on one CPU core)
-TEST_FOLD = 2
-
-
-def interpret(monkeypatch):
-    """JAX's Pallas kernels in interpret mode, at ``TEST_FOLD``."""
-    monkeypatch.setattr(pallas_lstm, "FORCE_INTERPRET", True)
-    monkeypatch.setattr(pallas_lstm, "_max_fold", lambda h: TEST_FOLD)
-    monkeypatch.setattr(pallas_multilstm, "_MAX_FOLD", TEST_FOLD)
 
 
 @pytest.fixture(autouse=True)

@@ -16,13 +16,15 @@ from speechsplit_tpu.models import layers as jl
 from speechsplit_tpu.ops import pallas_lstm
 from speechsplit_tpu_torch.models import layers as tl
 from speechsplit_tpu_torch.ops import _build, bilstm
+from tests.jax_interpret import at_test_fold
 
 T, H, I = 10, 32, 16
 TOL = 1e-5
 
 
 @pytest.fixture(autouse=True)
-def interpret_mode():
+def interpret_mode(monkeypatch):
+    at_test_fold(monkeypatch)
     pallas_lstm.FORCE_INTERPRET = True
     saved = (pallas_lstm.RESIDUAL_DTYPE, pallas_lstm.PROJ_FUSION,
              bilstm.PROJ_FUSION)

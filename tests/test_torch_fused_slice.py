@@ -22,6 +22,7 @@ from speechsplit_tpu_torch import convert as tconvert
 from speechsplit_tpu_torch.models import SpeechSplit
 from speechsplit_tpu_torch.ops import bilstm
 from speechsplit_tpu_torch.training import make_f0_train_step, make_train_step
+from tests.jax_interpret import at_test_fold
 from tests.test_torch_convert import _pairs, models  # noqa: F401
 from tests.test_torch_models import TINY
 from tests.test_torch_training import (
@@ -70,6 +71,7 @@ def test_generator_eval_forward_matches_jax(rng, monkeypatch):
     from speechsplit_tpu_torch.interop import jax_params_to_state_dict
 
     monkeypatch.setattr(pallas_lstm, "FORCE_INTERPRET", True)
+    at_test_fold(monkeypatch)
     jcfg, cfg = JaxConfig(**TINY), SpeechSplitConfig(**TINY)
     b, t = 8, cfg.max_len_pad
     assert pallas_lstm.fused_proj_plan(t, b, cfg.dim_dec_mel, cfg.dim_code,

@@ -17,6 +17,7 @@ import pytest
 
 from speechsplit_tpu.ops import pallas_lstm, pallas_multilstm
 from speechsplit_tpu_torch.ops import _build
+from tests.jax_interpret import interpret
 from tests.test_torch_multi_bilstm import PLAN_CASES, plan_case_id, plan_inputs
 
 T = 12
@@ -27,7 +28,7 @@ LANE_CASES = [case for case in PLAN_CASES if max(case[2]) <= 32]
 
 @pytest.fixture(autouse=True)
 def interpret_mode(monkeypatch):
-    monkeypatch.setattr(pallas_lstm, "FORCE_INTERPRET", True)
+    interpret(monkeypatch)
     monkeypatch.setattr(pallas_lstm, "RESIDUAL_DTYPE", jnp.float32)
 
 

@@ -20,6 +20,7 @@ import pytest
 
 from speechsplit_tpu.ops import pallas_lstm
 from speechsplit_tpu_torch.ops import _build
+from tests.jax_interpret import interpret
 
 T = 12
 B = 8  # pallas_lstm.supported() takes the Pallas path from B = 8
@@ -29,7 +30,7 @@ ONE = np.float32(1.0)
 
 @pytest.fixture(autouse=True)
 def interpret_mode(monkeypatch):
-    monkeypatch.setattr(pallas_lstm, "FORCE_INTERPRET", True)
+    interpret(monkeypatch)
     monkeypatch.setattr(pallas_lstm, "RESIDUAL_DTYPE", jnp.float32)
 
 

@@ -17,6 +17,7 @@ from speechsplit_tpu.ops import pallas_lstm
 from speechsplit_tpu_torch.interop import lstm_params_to_state_dict
 from speechsplit_tpu_torch.models import layers as tl
 from speechsplit_tpu_torch.ops import _build, bilstm, lstm
+from tests.jax_interpret import interpret
 from tests.test_torch_imports import _port_files
 
 T = 12
@@ -27,7 +28,7 @@ LAYER_ATOL = 2e-5
 
 @pytest.fixture(autouse=True)
 def interpret_mode(monkeypatch):
-    monkeypatch.setattr(pallas_lstm, "FORCE_INTERPRET", True)
+    interpret(monkeypatch)
     monkeypatch.setattr(pallas_lstm, "RESIDUAL_DTYPE", jnp.float32)
 
 

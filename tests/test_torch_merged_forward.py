@@ -15,12 +15,14 @@ import torch
 
 from speechsplit_tpu.ops import pallas_lstm
 from speechsplit_tpu_torch.ops import bilstm
+from tests.jax_interpret import at_test_fold
 
 TOL = 1e-5  # float32 sums in another order, over at most 6 steps
 
 
 @pytest.fixture(autouse=True)
-def interpret_mode():
+def interpret_mode(monkeypatch):
+    at_test_fold(monkeypatch)
     pallas_lstm.FORCE_INTERPRET = True
     yield
     pallas_lstm.FORCE_INTERPRET = False

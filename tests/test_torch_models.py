@@ -18,6 +18,7 @@ from speechsplit_tpu_torch.config import SpeechSplitConfig
 from speechsplit_tpu_torch.interop import jax_params_to_state_dict
 from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
 from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
+from tests.jax_interpret import at_test_fold
 
 TINY = dict(
     dim_enc=64, dim_enc_2=32, dim_enc_3=64,
@@ -30,9 +31,10 @@ ATOL = 5e-5
 
 
 @pytest.fixture(autouse=True)
-def interpret_mode():
+def interpret_mode(monkeypatch):
     """The JAX side runs its Pallas kernels in interpret mode (B >= 8
     takes the fused multi-stream path, as on the TPU)."""
+    at_test_fold(monkeypatch)
     pallas_lstm.FORCE_INTERPRET = True
     prev = pallas_lstm.RESIDUAL_DTYPE
     pallas_lstm.RESIDUAL_DTYPE = jnp.float32

@@ -8,6 +8,7 @@ import torch
 
 from speechsplit_tpu.ops import pallas_lstm, pallas_multilstm
 from speechsplit_tpu_torch.ops import _build, multi_bilstm
+from tests.jax_interpret import at_test_fold
 from tests.test_pallas_multilstm import STREAMS
 
 T = 16
@@ -38,7 +39,8 @@ def plan_inputs(t, b, hs):
 
 
 @pytest.fixture(autouse=True)
-def interpret_mode():
+def interpret_mode(monkeypatch):
+    at_test_fold(monkeypatch)
     pallas_lstm.FORCE_INTERPRET = True
     prev = pallas_lstm.RESIDUAL_DTYPE
     pallas_lstm.RESIDUAL_DTYPE = jnp.float32

@@ -12,6 +12,7 @@ import torch
 
 from speechsplit_tpu.ops import pallas_lstm, pallas_multilstm
 from speechsplit_tpu_torch.ops import multi_bilstm
+from tests.jax_interpret import at_test_fold
 from tests.test_pallas_multilstm import STREAMS
 from tests.test_torch_multi_bilstm import PLAN_CASES, plan_case_id, plan_inputs
 
@@ -20,7 +21,8 @@ TOL = 1e-5
 
 
 @pytest.fixture(autouse=True)
-def interpret_mode():
+def interpret_mode(monkeypatch):
+    at_test_fold(monkeypatch)
     pallas_lstm.FORCE_INTERPRET = True
     prev = pallas_lstm.RESIDUAL_DTYPE
     pallas_lstm.RESIDUAL_DTYPE = jnp.float32

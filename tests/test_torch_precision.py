@@ -12,6 +12,7 @@ draws are injected into both packages, as in ``test_torch_training.py``.
 """
 
 import dataclasses
+import functools
 import os
 
 import jax
@@ -24,7 +25,6 @@ import torch
 from speechsplit_tpu.data.collator import Collator as JaxCollator
 from speechsplit_tpu.models import F0Converter as JaxF0Converter
 from speechsplit_tpu.models import SpeechSplit as JaxSpeechSplit
-from speechsplit_tpu.ops import pallas_lstm
 from speechsplit_tpu.training import train_step as jax_train_step
 from speechsplit_tpu_torch.cli import train as cli_train
 from speechsplit_tpu_torch.config import SpeechSplitConfig
@@ -42,6 +42,7 @@ from speechsplit_tpu_torch.training import (
 )
 from speechsplit_tpu_torch.training import train_step
 from speechsplit_tpu_torch.training import checkpoint as ckpt_lib
+from tests.jax_interpret import interpret
 from tests.test_pallas_multilstm import _tiny_config
 from tests.test_torch_data import write_feature_tree
 from tests.test_torch_residual_bf16 import assert_within_one_ulp
@@ -73,7 +74,7 @@ ADAM_ATOL = 1e-6
 
 @pytest.fixture(autouse=True)
 def interpret_mode(monkeypatch):
-    monkeypatch.setattr(pallas_lstm, "FORCE_INTERPRET", True)
+    interpret(monkeypatch)
 
 
 def test_the_default_config_is_bfloat16():
@@ -108,6 +109,22 @@ def _batch8(seed):
     return JaxCollator(JDEF)(samples, rng)
 
 
+@functools.cache
+def _jax_model(name):
+    """JAX's model at the default config and its initial params, once a
+    model for the module (immutable arrays; every test starts from
+    them)."""
+    if name == "speechsplit":
+        jmodel = JaxSpeechSplit(JDEF)
+        return jmodel, _init(jmodel,
+                             np.zeros((1, T, DEF.dim_freq + DEF.dim_f0)),
+                             np.zeros((1, T, DEF.dim_freq)),
+                             np.zeros((1, DEF.dim_spk_emb)))
+    jmodel = JaxF0Converter(JDEF)
+    return jmodel, _init(jmodel, np.zeros((1, T, DEF.dim_freq)),
+                         np.zeros((1, T, DEF.dim_f0)))
+
+
 def _jax_step(monkeypatch, make_step, jmodel, params, batch):
     """JAX's own train step at the default config once: its loss and the
     gradients it hands its optimizer."""
@@ -131,18 +148,12 @@ def _jax_step(monkeypatch, make_step, jmodel, params, batch):
 def test_default_config_step_matches_jax(monkeypatch, name):
     """One step of each model at the default precision: the loss within
     1e-5 relative, every gradient within 2% max-relative of JAX's."""
+    jmodel, params = _jax_model(name)
     if name == "speechsplit":
-        jmodel = JaxSpeechSplit(JDEF)
-        params = _init(jmodel, np.zeros((1, T, DEF.dim_freq + DEF.dim_f0)),
-                       np.zeros((1, T, DEF.dim_freq)),
-                       np.zeros((1, DEF.dim_spk_emb)))
         make_jax, make_port = (jax_train_step.make_train_step_fn,
                                make_train_step)
         draws = _draws(20, 4)  # the augmentation, content/pitch convs 0-2
     else:
-        jmodel = JaxF0Converter(JDEF)
-        params = _init(jmodel, np.zeros((1, T, DEF.dim_freq)),
-                       np.zeros((1, T, DEF.dim_f0)))
         make_jax, make_port = (jax_train_step.make_f0_train_step_fn,
                                make_f0_train_step)
         draws = _draws(21, 3)  # f0 convs 0-2
@@ -259,10 +270,7 @@ def test_matmul_precision_refuses_what_it_does_not_map():
 def test_jax_bf16_mu_carries_into_the_port():
     """An optax state with a bfloat16 mu (ml_dtypes leaves): the port's
     exp_avg is bfloat16 and equals JAX's mu bit for bit."""
-    jmodel = JaxSpeechSplit(JDEF)
-    params = _init(jmodel, np.zeros((1, T, DEF.dim_freq + DEF.dim_f0)),
-                   np.zeros((1, T, DEF.dim_freq)),
-                   np.zeros((1, DEF.dim_spk_emb)))
+    _, params = _jax_model("speechsplit")
     tx = jax_train_step.make_optimizer(JDEF)
     opt_state = tx.init(params)
     rng = np.random.RandomState(4)

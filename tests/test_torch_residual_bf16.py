@@ -31,6 +31,7 @@ import torch
 
 from speechsplit_tpu.ops import pallas_lstm, pallas_multilstm
 from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm
+from tests.jax_interpret import interpret
 from tests.test_pallas_multilstm import STREAMS
 
 T = 16
@@ -43,7 +44,7 @@ BF16 = torch.bfloat16
 
 @pytest.fixture(autouse=True)
 def interpret_mode(monkeypatch):
-    monkeypatch.setattr(pallas_lstm, "FORCE_INTERPRET", True)
+    interpret(monkeypatch)
 
 
 def _f32(a) -> np.ndarray:

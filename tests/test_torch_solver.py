@@ -9,6 +9,7 @@ both packages where the two are compared; save-and-resume runs the
 port's own ``torch.Generator`` draws, since its state is what a
 checkpoint must carry."""
 
+import functools
 import os
 import pickle
 import types
@@ -21,6 +22,8 @@ import torch
 
 from speechsplit_tpu.models import F0Converter as JaxF0Converter
 from speechsplit_tpu.models import SpeechSplit as JaxSpeechSplit
+from speechsplit_tpu.models import encoders as jax_encoders
+from speechsplit_tpu.ops import interp as jax_interp
 from speechsplit_tpu.training import train_step as jax_train_step
 from speechsplit_tpu.training.solver import Solver as JaxSolver
 from speechsplit_tpu_torch.cli import train as cli_train
@@ -69,7 +72,10 @@ def _run_config(tmp_path, **overrides) -> SolverConfig:
     return SolverConfig(**base)
 
 
+@functools.cache
 def _jax_init(name):
+    """JAX's model and initial params, once a model for the module (the
+    params are immutable arrays; every test starts from them)."""
     if name == "speechsplit":
         jmodel = JaxSpeechSplit(JCFG)
         params = _init(jmodel, np.zeros((1, T, CFG.dim_freq + CFG.dim_f0)),
@@ -82,13 +88,44 @@ def _jax_init(name):
     return jmodel, params
 
 
-def _jax_steps(name, jmodel, state, batches):
+@functools.cache
+def _jax_step_fn(name):
+    """JAX's raw train step (``make_train_step_fn``, optax Adam), jitted
+    once a model for the module, as JAX's ``make_train_step`` jits it. A
+    step's resampling draws are its argument: the injected
+    ``random_resample`` pops them as the step traces, the draws an
+    unjitted step pops from ``_inject``'s queue, in the same order."""
+    jmodel, _ = _jax_init(name)
     make = (jax_train_step.make_train_step_fn if name == "speechsplit"
             else jax_train_step.make_f0_train_step_fn)
     step = make(JCFG, jmodel)
+
+    def run(state, batch, key, draws):
+        queue = list(draws)
+
+        def fake(x, len_seq, key, *, max_len_seg, max_len_pad, **_):
+            scales, len_seg = queue.pop(0)
+            return jax_interp.resample_fixed(
+                x, len_seq, scales, len_seg, max_len_pad=max_len_pad,
+                seg_span=2 * max_len_seg)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jax_train_step, "random_resample", fake)
+            mp.setattr(jax_encoders, "random_resample", fake)
+            out = step(state, batch, key)
+        assert not queue
+        return out
+
+    return jax.jit(run)
+
+
+def _jax_steps(name, state, batches, draws):
+    """JAX's steps on ``batches``, each on its ``DRAWS[name]`` draws."""
+    step, per = _jax_step_fn(name), DRAWS[name]
+    assert len(draws) == per * len(batches)
     losses = []
-    for batch in batches:
-        state, loss = step(state, batch, KEY)
+    for i, batch in enumerate(batches):
+        state, loss = step(state, batch, KEY, draws[per * i: per * (i + 1)])
         losses.append(float(loss))
     return state, losses
 
@@ -121,19 +158,20 @@ def test_solver_steps_match_jax_steps(monkeypatch, tmp_path, name):
     the same params on the same batches: losses at rtol 1e-5, params
     after the 3 Adam updates (lr 1e-4 each) within 1e-6."""
     batches = [_batch(s) for s in range(3)]
-    jmodel, params = _jax_init(name)
-    jq, pq = _inject(monkeypatch, _draws(20, 3 * DRAWS[name]))
+    _, params = _jax_init(name)
+    draws = _draws(20, 3 * DRAWS[name])
+    _, pq = _inject(monkeypatch, draws)
     tx = jax_train_step.make_optimizer(JCFG)
     jstate = jax_train_step.TrainState(params, tx.init(params),
                                        jnp.zeros((), jnp.int32))
-    jstate, want = _jax_steps(name, jmodel, jstate, batches)
+    jstate, want = _jax_steps(name, jstate, batches, draws)
 
     solver = Solver(iter(batches), _run_config(tmp_path, model=name), CFG,
                     device="cpu")
     solver.state.model.load_state_dict(jax_params_to_state_dict(params, name))
     got = _recording(solver)
     state = solver.train()
-    assert not jq and not pq
+    assert not pq
     assert state.step == 3
     np.testing.assert_allclose(got, want, rtol=1e-5)
     _assert_params_close(state.model, jstate.params, name, atol=1e-6)
@@ -314,22 +352,21 @@ def test_jax_adam_state_carries_into_torch(monkeypatch):
     step in each: the params agree within 1e-6."""
     batches = [_batch(s) for s in range(3)]
     draws = _draws(30, 3 * DRAWS["speechsplit"])
-    jmodel, params = _jax_init("speechsplit")
+    _, params = _jax_init("speechsplit")
     tx = jax_train_step.make_optimizer(JCFG)
     jstate = jax_train_step.TrainState(params, tx.init(params),
                                        jnp.zeros((), jnp.int32))
-    _inject(monkeypatch, draws[:8])
-    jstate, _ = _jax_steps("speechsplit", jmodel, jstate, batches[:2])
+    jstate, _ = _jax_steps("speechsplit", jstate, batches[:2], draws[:8])
 
     state = create_train_state(CFG, 0, device="cpu")
     state.model.load_state_dict(jax_params_to_state_dict(
         jax.tree.map(np.asarray, jstate.params), "speechsplit"), strict=True)
     jax_adam_state_to_torch(jax.tree.map(np.asarray, jstate.opt_state),
                             "speechsplit", state.optimizer, state.model)
-    jq, pq = _inject(monkeypatch, draws[8:])
-    jstate, _ = _jax_steps("speechsplit", jmodel, jstate, batches[2:])
+    _, pq = _inject(monkeypatch, draws[8:])
+    jstate, _ = _jax_steps("speechsplit", jstate, batches[2:], draws[8:])
     state, _ = make_train_step(CFG)(state, batches[2])
-    assert not jq and not pq
+    assert not pq
     _assert_params_close(state.model, jstate.params, "speechsplit",
                          atol=1e-6)
     for p in state.model.parameters():
