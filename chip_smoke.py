@@ -337,7 +337,23 @@ Phases, one line each; any failure exits non-zero:
     kernels' ``MAX_HIDDEN``: each encoder's own layer): the conversion
     (11 ``bilstm_infer``, no ``multi_bilstm_*``) against the plain call
     and both default-config train steps (7 and 4 ``bilstm_fwd`` and
-    ``bilstm_bwd``, no ``multi_bilstm_*``).
+    ``bilstm_bwd``, no ``multi_bilstm_*``);
+23. ``[convert stream]``: ``convert.convert_stream`` at full width,
+    float32 with TF32 off, over 24 batches of 8 pairs and 3 batches of
+    phase 13's 731 pairs (depth 2): each yield equal, bit for bit, to
+    ``convert_batched`` on its batch (else the largest difference,
+    within ``PATH_TOL``); the kernels' launches of a stream equal to its
+    batches' ``convert_batched`` launches (counts set to 0 just before
+    and read just after); at 8 pairs ``compress_fetch=True`` (each value
+    the float32 yield rounded to bfloat16, bit for bit) and ``"auto"``
+    (the ``linkprobe.probe_link`` profile, the choice, yields equal to
+    the chosen mode's); the host time of a submit beside its grid's
+    device time; ``torch.cuda.set_sync_debug_mode`` around the submits
+    (not the fetches), and what it flags; the card's idle share of a
+    profiled stream beside that of a loop of ``convert_batched``; the
+    731-pair grid's fetch into pageable and into pinned memory; and
+    utterances/s of the stream against the loop, in turns, at both
+    sizes.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside the repo, it
@@ -1193,24 +1209,27 @@ def profiled_busy_us(fn, reps: int) -> float:
                and not getattr(e, "is_user_annotation", False))
 
 
-# the windows profiled_device_ms takes the median of: torch.profiler at
-# times loses a short window's kernel records, wholly or in part
-# (ROADMAP.md C; tools/profiler_windows.py)
-PROFILED_WINDOWS = 3
+# the windows profiled_device_ms takes the largest of: torch.profiler at
+# times loses a window's kernel records, wholly or in part, so a window
+# only ever reads low (ROADMAP.md C; tools/profiler_windows.py)
+PROFILED_WINDOWS = 5
 
 
-def profiled_device_ms(fn, reps: int) -> float:
-    """Mean device time of one call of ``fn``: the median over
-    ``PROFILED_WINDOWS`` windows of ``profiled_busy_us``, over ``reps``.
-    For a call that synchronises (cuDNN's training forward does), which
-    ``kernel_device_ms`` cannot queue behind its spin kernel. Fails where
-    the median window saw no device time."""
-    busy = sorted(profiled_busy_us(fn, reps)
-                  for _ in range(PROFILED_WINDOWS))[PROFILED_WINDOWS // 2]
-    if not busy > 0:
-        fail("profiled_device_ms: the profiler saw no device time in most "
-             "of its windows")
-    return busy / 1e3 / reps
+def profiled_device_ms(fn, reps: int) -> tuple:
+    """Mean device time of one call of ``fn`` and how it was taken: the
+    largest over ``PROFILED_WINDOWS`` windows of ``profiled_busy_us``, over
+    ``reps``, for a call that synchronises (cuDNN's training forward does),
+    which ``kernel_device_ms`` cannot queue behind its spin kernel. Where
+    every window saw no device time, CUDA events over the calls
+    (``time_ms``: the card's gaps inside a synchronising call count)."""
+    busy = [profiled_busy_us(fn, reps) for _ in range(PROFILED_WINDOWS)]
+    seen = [b for b in busy if b > 0]
+    empty = len(busy) - len(seen)
+    if seen:
+        return (max(seen) / 1e3 / reps,
+                f"profiler ({empty} of {len(busy)} windows empty)")
+    return (time_ms(fn, reps),
+            f"events (the profiler saw no device time in {empty} windows)")
 
 
 def profile_events(phase: str, prof, wall_ms: float, top: int) -> None:
@@ -4483,7 +4502,8 @@ def check_lstm_train(b: int, h: int, reps: int) -> dict:
     yard = cudnn_lstm_yardstick(xp, w)
     x = xp.detach().clone().requires_grad_(True)
     lib_fwd_ms = time_ms(lambda: yard(x), reps)
-    lib_fwd_device_ms = profiled_device_ms(lambda: yard(x), reps)
+    lib_fwd_device_ms, lib_fwd_device_by = profiled_device_ms(
+        lambda: yard(x), reps)
     out = yard(x)[0]
     lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
         out, (x, yard.weight_hh_l0), dh, retain_graph=True), reps)
@@ -4499,7 +4519,7 @@ def check_lstm_train(b: int, h: int, reps: int) -> dict:
                tol=KERNEL_TOL, ms=fwd_ms, device_ms=fwd_device_ms,
                plain_ms=plain_fwd_ms, bound_ms=fwd_bound, bound_by=fwd_by,
                library_ms=lib_fwd_ms, library_device_ms=lib_fwd_device_ms,
-               plan="narrow" if h <= lstm.NARROW_MAX_H else "wide",
+               library_device_by=lib_fwd_device_by, plan="narrow" if h <= lstm.NARROW_MAX_H else "wide",
                merged_both_directions_ms=merged_fwd_ms)
     bwd = dict(shape=shape, max_abs_err=errs["err_dx"],
                rel_err=errs["err_dx_rel"], tol=KERNEL_TOL, ms=bwd_ms,
@@ -4854,6 +4874,338 @@ def phase_convert_large(reps: int = 3) -> dict:
     del g_model, p_model, pairs, prof
     free()
     return launches
+
+
+STREAM_BATCHES = 24  # of STREAM_PAIRS pairs (BENCHMARKS.md:83's stream)
+STREAM_PAIRS = 8
+STREAM_LARGE_BATCHES = 3  # of refused_pairs() pairs
+STREAM_DEPTH = 2
+
+
+def _flat_results(results) -> list:
+    return [(name, mel) for pair in results for name, mel in pair]
+
+
+def _same_yields(what: str, got, want) -> float:
+    """0 where every yield equals its ``convert_batched`` result bit for
+    bit; else the largest difference (failing past ``PATH_TOL``)."""
+    import numpy as np
+
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        for (gn, gm), (wn, wm) in zip(_flat_results(g), _flat_results(w),
+                                      strict=True):
+            if gn != wn or gm.shape != wm.shape:
+                fail(f"{what}: yield {gn} {gm.shape} against {wn} "
+                     f"{wm.shape}")
+            if not np.array_equal(gm, wm):
+                worst = max(worst, float(np.abs(gm - wm).max()))
+    if worst:
+        log(what, not_bit_equal=True, max_abs_diff=f"{worst:.3g}",
+            reason="yields differ from convert_batched's")
+        if not worst <= PATH_TOL:
+            fail(f"{what}: max abs diff {worst} past {PATH_TOL}")
+    return worst
+
+
+def _kernel_idle_share(prof, wall_ms: float) -> tuple:
+    """The card's idle share of a profiled window counted by its kernels
+    (a copy on the copy stream runs beside them), and the copies' ms."""
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and not getattr(e, "is_user_annotation", False)
+              and device_us(e) > 0]
+    copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
+    kernel_ms = sum(device_us(e) for e in events
+                    if e not in copies) / 1e3
+    copy_ms = sum(device_us(e) for e in copies) / 1e3
+    if not events:
+        return None, None
+    return max(0.0, 1 - kernel_ms / wall_ms), copy_ms
+
+
+def phase_convert_stream(reps: int = 3) -> dict:
+    """``convert_stream`` at full width, float32 with TF32 off: its yields
+    against ``convert_batched``, its launches, its compressed and auto
+    modes, whether a submit waits for the card, the card's idle share,
+    the large grid's fetch, and utterances/s against a loop of
+    ``convert_batched`` in turns (see the module docstring, phase 23)."""
+    import gc
+    import warnings
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from speechsplit_tpu_torch import convert as conv
+    from speechsplit_tpu_torch import linkprobe
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+
+    wall = time.perf_counter()
+    config = SpeechSplitConfig()
+    gen = torch.Generator().manual_seed(SEED)
+    g_model = SpeechSplit(config, generator=gen).to("cuda").eval()
+    p_model = F0Converter(config, generator=gen).to("cuda").eval()
+    large_pairs = refused_pairs()
+    # the large batches: one set of pairs, rotated a batch, so that every
+    # grid differs (a reused host buffer would show) at a third of the
+    # host's preparation
+    large = synthetic_pairs(config, large_pairs, "cuda", SEED + 200)
+    sizes = {
+        STREAM_PAIRS: [synthetic_pairs(config, STREAM_PAIRS, "cuda",
+                                       SEED + 100 + k)
+                       for k in range(STREAM_BATCHES)],
+        large_pairs: [large[k:] + large[:k]
+                      for k in range(STREAM_LARGE_BATCHES)],
+    }
+    log("convert stream inputs", pairs=f"{STREAM_PAIRS},{large_pairs}",
+        seconds=f"{time.perf_counter() - wall:.1f}")
+    expected_large = {"lstm_infer": 8, "bilstm_infer": 2,
+                      "multi_bilstm_infer": 2}
+
+    def loop(batches, **kw):
+        return [conv.convert_batched(g_model, p_model, b, **kw)
+                for b in batches]
+
+    def stream(batches, **kw):
+        return list(conv.convert_stream(g_model, p_model, batches,
+                                        depth=STREAM_DEPTH, **kw))
+
+    # the first stream run of each size: a submit's host time beside its
+    # grid's device time, and what the sync debug mode flags around the
+    # submits (not the fetches)
+    host_ms, device_ms, flagged, pending = [], [], [], []
+    submit = conv._convert_submit
+
+    def timed_submit(*args, **kwargs):
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        start = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                handle = submit(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        host_ms.append((time.perf_counter() - start) * 1e3)
+        end.record()
+        # still queued when the submit returned: it did not wait for its
+        # grid
+        pending.append(not end.query())
+        device_ms.append((begin, end))
+        # the mode's own note that it is a prototype is no flag
+        flagged.extend(str(w.message).splitlines()[0] for w in caught
+                       if "prototype" not in str(w.message))
+        return handle
+
+    out = {}
+    with strict_float32("convert stream"):
+        for n_pairs, batches in sizes.items():
+            small = n_pairs == STREAM_PAIRS
+            loop(batches[:1])  # warm-up at this size
+            torch.cuda.synchronize()
+            reset_launches()
+            conv.convert_batched(g_model, p_model, batches[0])
+            per_call = {k: v for k, v in read_launches().items() if v}
+            if small and not (per_call.get("bilstm_infer")
+                              and per_call.get("multi_bilstm_infer")):
+                fail(f"convert_batched at {n_pairs} pairs launched "
+                     f"{per_call}")
+            if not small and per_call != expected_large:
+                fail(f"convert_batched at {n_pairs} pairs launched "
+                     f"{per_call}, expected {expected_large}")
+            # in turns: the loop, the stream, the stream, the loop; the
+            # stream's launches and submits from its first run
+            seconds = {"loop": [], "stream": []}
+            results = {}
+            for record in (host_ms, device_ms, flagged, pending):
+                record.clear()
+            for which in ("loop", "stream", "stream", "loop"):
+                first = which == "stream" and "stream" not in results
+                torch.cuda.synchronize()
+                if first:
+                    reset_launches()
+                    conv._convert_submit = timed_submit
+                start = time.perf_counter()
+                try:
+                    got = (loop if which == "loop" else stream)(batches)
+                finally:
+                    conv._convert_submit = submit
+                seconds[which].append(time.perf_counter() - start)
+                if first:
+                    launches = {k: v for k, v in read_launches().items()
+                                if v}
+                results.setdefault(which, got)
+            torch.cuda.synchronize()
+            want = {k: v * len(batches) for k, v in per_call.items()}
+            if launches != want:
+                fail(f"convert_stream at {n_pairs} pairs launched "
+                     f"{launches}, {len(batches)} convert_batched calls "
+                     f"{want}")
+            diff = _same_yields("convert stream", results["stream"],
+                                results["loop"])
+            utts = len(batches) * n_pairs * len(conv.CONDITIONS)
+            loop_s, stream_s = min(seconds["loop"]), min(seconds["stream"])
+            log("convert stream", pairs=n_pairs, batches=len(batches),
+                depth=STREAM_DEPTH, bit_equal_to_convert_batched=not diff,
+                launches=json.dumps(launches).replace(" ", ""),
+                launches_convert_batched_per_call=json.dumps(
+                    per_call).replace(" ", ""),
+                loop_s=",".join(f"{x:.4f}" for x in seconds["loop"]),
+                stream_s=",".join(f"{x:.4f}" for x in seconds["stream"]),
+                loop_utterances_per_s=f"{utts / loop_s:.2f}",
+                stream_utterances_per_s=f"{utts / stream_s:.2f}",
+                stream_over_loop=f"{loop_s / stream_s:.4f}",
+                note="best of two runs each, in turns (loop, stream, "
+                     "stream, loop; the first stream run's submits "
+                     "timed); tf32 off")
+            out[n_pairs] = dict(launches=launches, stream_s=stream_s,
+                                loop_s=loop_s)
+            grid_ms = [b.elapsed_time(e) for b, e in device_ms]
+            raised = "not tried"
+            if small:
+                # one submit under "error": the first synchronising call
+                # raises there
+                raised = "none"
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    handle = submit(g_model, p_model, batches[0],
+                                    conv.CONDITIONS, False)
+                except RuntimeError as err:
+                    raised = str(err).splitlines()[0].replace(" ", "_")
+                    handle = None
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                if handle is not None:
+                    conv._convert_fetch(handle)
+            log("convert stream submit", pairs=n_pairs,
+                submits=len(host_ms),
+                host_ms_median=f"{np.median(host_ms):.4f}",
+                host_ms_max=f"{max(host_ms):.4f}",
+                grid_device_ms_median=f"{np.median(grid_ms):.4f}",
+                host_over_device=(
+                    f"{np.median(host_ms) / np.median(grid_ms):.4f}"),
+                grids_pending_at_return=f"{sum(pending)}/{len(pending)}",
+                sync_debug_warn_flags=len(flagged),
+                sync_debug_first_flag=(flagged[0].replace(" ", "_")[:120]
+                                       if flagged else "none"),
+                sync_debug_error=raised[:120],
+                note="device time from events around each submit on the "
+                     "compute stream")
+            if small:
+                small_f32 = results["stream"]
+            del results
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            if small:
+                # the card's idle share (phase 13 profiles the large
+                # call): one profiled stream, one profiled loop
+                shares = {}
+                for which in ("stream", "loop"):
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        start = time.perf_counter()
+                        (loop if which == "loop" else stream)(batches)
+                        torch.cuda.synchronize()
+                        wall_ms = (time.perf_counter() - start) * 1e3
+                    shares[which] = (_kernel_idle_share(prof, wall_ms),
+                                     wall_ms)
+                    del prof
+                log("convert stream idle", pairs=n_pairs,
+                    **{f"{w}_{k}": v for w, ((idle, copy), wall_ms) in
+                       shares.items() for k, v in (
+                           ("wall_ms", f"{wall_ms:.4f}"),
+                           ("device_idle_share", "not measured"
+                            if idle is None else f"{idle:.4f}"),
+                           ("copy_ms", "not measured" if copy is None
+                            else f"{copy:.4f}"))},
+                    note="idle counted by kernels; profiler on, its "
+                         "overhead in the wall")
+                # compress_fetch=True: the float32 yields rounded
+                packed = stream(batches, compress_fetch=True)
+                worst = 0
+                for g, w in zip(packed, small_f32, strict=True):
+                    for (_, gm), (_, wm) in zip(_flat_results(g),
+                                                _flat_results(w)):
+                        want_bf16 = torch.from_numpy(wm).to(
+                            torch.bfloat16).float().numpy()
+                        if gm.dtype != np.float32 or not np.array_equal(
+                                gm, want_bf16):
+                            worst += 1
+                if worst:
+                    fail(f"convert_stream(compress_fetch=True): {worst} "
+                         f"mels differ from the float32 yields rounded to "
+                         f"bfloat16")
+                # "auto": the link probe decides
+                conv.reset_auto_decisions()
+                link = linkprobe.probe_link(force=True)
+                auto = stream(batches, compress_fetch="auto")
+                key = conv._auto_key(batches[0], conv.CONDITIONS)
+                chosen = conv._AUTO_DECISIONS.get(key)
+                _same_yields("convert stream auto", auto,
+                             packed if chosen else small_f32)
+                log("convert stream modes", pairs=n_pairs,
+                    compress_fetch_true="bfloat16 rounding of the float32 "
+                                        "yields, bit for bit",
+                    link_f32_mbps=link.f32_mbps,
+                    link_bf16_mbps=link.bf16_mbps, link_rtt_ms=link.rtt_ms,
+                    auto_key=json.dumps(list(key)).replace(" ", ""),
+                    auto_chose="bfloat16" if chosen else "float32",
+                    auto_yields_equal_chosen_mode=True)
+                del packed, auto, small_f32
+            else:
+                # the large grid's fetch: pageable against pinned, and the
+                # pinned buffer's copy-out by torch (the threads) and by
+                # numpy (one thread)
+                cut = max(conv._cut(c, s, t) for c in conv.CONDITIONS
+                          for s, t in batches[0])
+                rows = n_pairs * len(conv.CONDITIONS)
+                grid = torch.rand(rows, cut, config.dim_freq,
+                                  device="cuda")
+                ring = linkprobe.PinnedRing(1)
+                ring.reserve(grid.numel() * 4)
+                pageable, pinned, copy_out, numpy_out = [], [], [], []
+                for _ in range(reps):
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    grid.cpu()
+                    pageable.append((time.perf_counter() - start) * 1e3)
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    fetch = linkprobe.start_fetch(grid, ring)
+                    fetch.done.synchronize()
+                    mid = time.perf_counter()
+                    linkprobe.finish_fetch(fetch)
+                    pinned.append((mid - start) * 1e3)
+                    copy_out.append((time.perf_counter() - mid) * 1e3)
+                    start = time.perf_counter()
+                    fetch.host.numpy().copy()
+                    numpy_out.append((time.perf_counter() - start) * 1e3)
+                gb = grid.numel() * 4 / 1e9
+                log("convert stream fetch", pairs=n_pairs,
+                    grid=f"{rows}x{cut}x{config.dim_freq}",
+                    mb=f"{gb * 1e3:.2f}",
+                    pageable_ms=f"{min(pageable):.4f}",
+                    pinned_copy_ms=f"{min(pinned):.4f}",
+                    pinned_copy_gb_per_s=f"{gb / min(pinned) * 1e3:.2f}",
+                    copy_out_ms=f"{min(copy_out):.4f}",
+                    numpy_copy_out_ms=f"{min(numpy_out):.4f}",
+                    pinned_fetch_ms=f"{min(pinned) + min(copy_out):.4f}",
+                    note=f"best of {reps}; the copy-out is the host copy "
+                         f"that frees the pinned buffer")
+                del grid, ring
+            gc.collect()
+            torch.cuda.empty_cache()
+    del g_model, p_model, sizes, large
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("convert stream done", seconds=f"{time.perf_counter() - wall:.1f}")
+    return out
 
 
 def phase_train_single(batch):
@@ -8883,6 +9235,7 @@ def main() -> int:
     wide = phase_wide_bottleneck(batch)
     rows.update(phase_lstm_kernels())
     large_convert = phase_convert_large()
+    phase_convert_stream()
     single_gen, single_f0 = phase_train_single(batch)
     rows.update(phase_lstm_compute_kernels())
     large_compute = phase_convert_large_compute()

@@ -21,14 +21,29 @@ embedding by its own mel's, which makes conversion zero-shot.
 from __future__ import annotations
 
 import pickle
-from typing import List, NamedTuple, Sequence, Tuple
+import time
+from typing import (
+    Iterable,
+    Iterator,
+    List,
+    NamedTuple,
+    Optional,
+    Sequence,
+    Tuple,
+)
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from speechsplit_tpu_torch import resolve_device
+from speechsplit_tpu_torch import linkprobe, resolve_device
 from speechsplit_tpu_torch.config import SpeechSplitConfig
+from speechsplit_tpu_torch.linkprobe import (
+    Fetch,
+    PinnedRing,
+    finish_fetch,
+    start_fetch,
+)
 from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
 from speechsplit_tpu_torch.ops.masks import pad_time_axis
 from speechsplit_tpu_torch.ops.quantize import quantize_f0_onehot
@@ -137,7 +152,80 @@ def convert(
     return results
 
 
-@torch.inference_mode()
+class _Submitted(NamedTuple):
+    """A dispatched (pair x condition) grid: the trimmed grid on its
+    device, its copy to the host (None for a probe dispatch, which is
+    never fetched), and what :func:`_convert_fetch` needs to format the
+    results."""
+
+    grid: torch.Tensor
+    fetch: Optional[Fetch]
+    pairs: List[Tuple[Utterance, Utterance]]
+    conditions: Tuple[str, ...]
+
+
+def _convert_submit(
+    g_model: SpeechSplit,
+    p_model: F0Converter,
+    pairs: Sequence[Tuple[Utterance, Utterance]],
+    conditions: Sequence[str],
+    compress_fetch: bool,
+    start_copy: bool = True,
+    ring: Optional[PinnedRing] = None,
+) -> _Submitted:
+    """Dispatch the (pair x condition) grid and start its copy to the
+    host; nothing here waits for the device (JAX convert.py:154-230).
+
+    On CUDA the copy runs on a copy stream into a pinned buffer of
+    ``ring`` (a one-slot ring of its own when none is given), behind an
+    event recorded on the compute stream. ``start_copy=False`` leaves the
+    copy out: the auto-mode probe dispatches, whose compute fence must
+    not share the link with a grid's copy, are never fetched."""
+    with torch.inference_mode():
+        mel_src = torch.cat([s.mel for s, _ in pairs], dim=0)
+        mel_trg = torch.cat([t.mel for _, t in pairs], dim=0)
+        f0_src = torch.cat([s.f0_onehot for s, _ in pairs], dim=0)
+        f0_trg = torch.cat([t.f0_onehot for _, t in pairs], dim=0)
+        emb_src = torch.cat([s.spk_emb for s, _ in pairs], dim=0)
+        emb_trg = torch.cat([t.spk_emb for _, t in pairs], dim=0)
+
+        f0_con = _f0_onehot(p_model, mel_src, f0_trg)
+        x_f0_org = torch.cat([mel_src, f0_src], dim=-1)
+        x_f0_con = torch.cat([mel_src, f0_con], dim=-1)
+
+        xs, orgs, embs = [], [], []
+        for condition in conditions:
+            xs.append(x_f0_con if "F" in condition else x_f0_org)
+            orgs.append(mel_trg if "R" in condition else mel_src)
+            embs.append(emb_trg if "U" in condition else emb_src)
+        out = g_model(torch.cat(xs, dim=0), torch.cat(orgs, dim=0),
+                      torch.cat(embs, dim=0))  # [C * P, T, 80]
+
+        # fetch only the frames some (pair, condition) keeps, and
+        # optionally round them to bfloat16 on the device
+        cut_max = max(_cut(c, s, t) for c in conditions for s, t in pairs)
+        grid = out[:, :cut_max]
+        if compress_fetch:
+            grid = grid.to(torch.bfloat16)
+        fetch = None
+        if start_copy:
+            fetch = start_fetch(grid, ring or PinnedRing(1))
+    return _Submitted(grid, fetch, list(pairs), tuple(conditions))
+
+
+def _convert_fetch(handle: _Submitted) -> List[List[Tuple[str, np.ndarray]]]:
+    """Wait for one grid's copy and format the per-pair results; the
+    arrays are the host's own (a bfloat16 grid widened to float32)."""
+    grid = finish_fetch(handle.fetch)
+    pairs, conditions = handle.pairs, handle.conditions
+    results: List[List[Tuple[str, np.ndarray]]] = [[] for _ in pairs]
+    for ci, condition in enumerate(conditions):
+        for pi, (src, trg) in enumerate(pairs):
+            row = grid[ci * len(pairs) + pi, : _cut(condition, src, trg)]
+            results[pi].append((_name(condition, src, trg), row))
+    return results
+
+
 def convert_batched(
     g_model: SpeechSplit,
     p_model: F0Converter,
@@ -152,37 +240,106 @@ def convert_batched(
 
     ``compress_fetch=True`` casts the grid to bfloat16 on the device
     before the fetch (half the bytes; about 2e-3 of rounding on the [0, 1]
-    scale) and back to float32 on the host, as convert.py:209-210 does."""
-    mel_src = torch.cat([s.mel for s, _ in pairs], dim=0)
-    mel_trg = torch.cat([t.mel for _, t in pairs], dim=0)
-    f0_src = torch.cat([s.f0_onehot for s, _ in pairs], dim=0)
-    f0_trg = torch.cat([t.f0_onehot for _, t in pairs], dim=0)
-    emb_src = torch.cat([s.spk_emb for s, _ in pairs], dim=0)
-    emb_trg = torch.cat([t.spk_emb for _, t in pairs], dim=0)
+    scale) and back to float32 on the host, as convert.py:209-210 does.
 
-    f0_con = _f0_onehot(p_model, mel_src, f0_trg)
-    x_f0_org = torch.cat([mel_src, f0_src], dim=-1)
-    x_f0_con = torch.cat([mel_src, f0_con], dim=-1)
+    For many batches in a row use :func:`convert_stream`, which overlaps
+    each batch's fetch with the next batches' compute."""
+    return _convert_fetch(_convert_submit(g_model, p_model, pairs,
+                                          conditions, compress_fetch))
 
-    xs, orgs, embs = [], [], []
-    for condition in conditions:
-        xs.append(x_f0_con if "F" in condition else x_f0_org)
-        orgs.append(mel_trg if "R" in condition else mel_src)
-        embs.append(emb_trg if "U" in condition else emb_src)
-    out = g_model(torch.cat(xs, dim=0), torch.cat(orgs, dim=0),
-                  torch.cat(embs, dim=0))  # [C * P, T, 80]
 
-    cut_max = max(_cut(c, s, t) for c in conditions for s, t in pairs)
-    grid = out[:, :cut_max]
-    if compress_fetch:
-        grid = grid.to(torch.bfloat16)
-    grid = grid.cpu().float().numpy()
-    results: List[List[Tuple[str, np.ndarray]]] = [[] for _ in pairs]
-    for ci, condition in enumerate(conditions):
-        for pi, (src, trg) in enumerate(pairs):
-            row = grid[ci * len(pairs) + pi, : _cut(condition, src, trg)]
-            results[pi].append((_name(condition, src, trg), row))
-    return results
+# compress_fetch="auto" decisions, keyed by _auto_key, for the life of
+# the process like linkprobe's profile; linkprobe.probe_link(force=True)
+# clears both (JAX convert.py:275-281)
+_AUTO_DECISIONS: dict = {}
+
+
+def reset_auto_decisions() -> None:
+    """Drop the cached compress_fetch="auto" verdicts (after the link
+    changed); ``linkprobe.probe_link(force=True)`` calls this."""
+    _AUTO_DECISIONS.clear()
+
+
+def _auto_key(pairs, conditions) -> tuple:
+    """The key of a compress_fetch="auto" verdict: the grid's pairs and
+    conditions and its fetched length ``cut_max``, since the verdict
+    turns on the bytes fetched, and streams of one batch size with very
+    different clip lengths must not share one (JAX convert.py:284-304)."""
+    return (
+        len(pairs),
+        len(conditions),
+        max(_cut(c, s, t) for c in conditions for s, t in pairs),
+    )
+
+
+def _fence(handle: _Submitted) -> None:
+    """Wait until the device has computed ``handle``'s grid: an event on
+    the compute stream, synchronised (JAX fetches a scalar there)."""
+    if handle.grid.is_cuda:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(handle.grid.device))
+        done.synchronize()
+
+
+def convert_stream(
+    g_model: SpeechSplit,
+    p_model: F0Converter,
+    pair_batches: Iterable[Sequence[Tuple[Utterance, Utterance]]],
+    conditions: Sequence[str] = CONDITIONS,
+    compress_fetch=False,
+    depth: int = 2,
+) -> Iterator[List[List[Tuple[str, np.ndarray]]]]:
+    """Pipelined batched conversion over an iterable of pair batches
+    (JAX convert.py:307-430).
+
+    Yields one :func:`convert_batched`-format result list per batch, in
+    order, while up to ``depth`` later batches compute on the card: each
+    grid's copy to the host starts at its submit, on a copy stream into
+    one of ``depth + 1`` pinned buffers, so it runs under its successors'
+    compute and the yield rate approaches max(compute, fetch) instead of
+    their sum. Each yield's arrays are the host's own; a yield keeps its
+    values after later ones.
+
+    ``compress_fetch="auto"`` chooses the mode once for a key
+    (:func:`_auto_key`), before the second batch: one untimed dispatch
+    of the first batch, two timed ones with their copies left out, each
+    fenced on the compute stream, and the faster of the two less the
+    link's RTT goes into ``linkprobe.choose_compress`` beside the link
+    profile (``probe_link``). The verdict is cached in ``_AUTO_DECISIONS``
+    (:func:`reset_auto_decisions`)."""
+    auto = compress_fetch == "auto"
+    chosen: Optional[bool] = None if auto else bool(compress_fetch)
+    ring = PinnedRing(depth + 1)
+
+    def submit(pairs, mode, start_copy=True):
+        return _convert_submit(g_model, p_model, pairs, conditions, mode,
+                               start_copy=start_copy, ring=ring)
+
+    in_flight: List[_Submitted] = []
+    for pairs in pair_batches:
+        if chosen is None:
+            key = _auto_key(pairs, conditions)
+            chosen = _AUTO_DECISIONS.get(key)
+        if chosen is None:
+            profile = linkprobe.probe_link()
+            _fence(submit(pairs, False, start_copy=False))  # warm
+            compute_s = None
+            for _rep in range(2):
+                t0 = time.perf_counter()
+                probe = submit(pairs, False, start_copy=False)
+                _fence(probe)
+                rep_s = time.perf_counter() - t0
+                compute_s = rep_s if compute_s is None else min(compute_s,
+                                                                 rep_s)
+            compute_s = max(compute_s - profile.rtt_ms * 1e-3, 1e-4)
+            chosen = linkprobe.choose_compress(probe.grid.numel() * 4,
+                                               compute_s, profile)
+            _AUTO_DECISIONS[key] = chosen
+        in_flight.append(submit(pairs, chosen))
+        if len(in_flight) > depth:
+            yield _convert_fetch(in_flight.pop(0))
+    while in_flight:
+        yield _convert_fetch(in_flight.pop(0))
 
 
 def convert_long(

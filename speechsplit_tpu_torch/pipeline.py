@@ -34,7 +34,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from speechsplit_tpu_torch import resolve_device
+from speechsplit_tpu_torch import linkprobe, resolve_device
 from speechsplit_tpu_torch.config import SpeechSplitConfig
 from speechsplit_tpu_torch.convert import (
     CONDITIONS,
@@ -165,13 +165,18 @@ class VoiceConverter:
         return prepare_utterance(self.config, mel[:t], f0[:t], spk_emb,
                                  name=name, uid=uid, device=self.device)
 
-    @staticmethod
-    def _resolve_compress(mode) -> bool:
-        """``compress_results="auto"`` fetches float32. The JAX package
-        lets a link probe decide, for a device behind a slow link; the
-        port's card sits in this host, and that probe waits in
-        ROADMAP.md A9 until a remote device needs it."""
-        return False if mode == "auto" else bool(mode)
+    def _resolve_compress(self, mode, n_pairs: int, conditions) -> bool:
+        """Resolve a ``compress_results`` of ``"auto"`` (JAX
+        pipeline.py:189-204): a single request has no stream to time, so
+        the once-a-process link probe decides, and the grid is fetched as
+        bfloat16 only where its float32 fetch would dominate the request
+        (a slow link); a card in this host fetches float32."""
+        if mode != "auto":
+            return bool(mode)
+        t = self.config.max_len_pad
+        bytes_f32 = len(conditions) * n_pairs * t * self.config.dim_freq * 4
+        return linkprobe.choose_compress(
+            bytes_f32, profile=linkprobe.probe_link(device=self.device))
 
     def convert_utterances(self, src: Utterance, trg: Utterance,
                            conditions: Sequence[str] = CONDITIONS,
@@ -179,7 +184,8 @@ class VoiceConverter:
                            ) -> List[Tuple[str, np.ndarray]]:
         return convert_batched(
             self.g_model, self.p_model, [(src, trg)], conditions,
-            compress_fetch=self._resolve_compress(compress_results),
+            compress_fetch=self._resolve_compress(compress_results, 1,
+                                                   conditions),
         )[0]
 
     def convert_wav_files(
@@ -201,8 +207,9 @@ class VoiceConverter:
         Past ``max_len_pad`` frames the pair goes through ``convert_long``,
         one call a condition. Returns {condition: {"mel": [T, 80],
         "wav": [N]}} ("wav" when ``synthesize``). ``compress_results``
-        fetches the mels as bfloat16 ("auto": float32, see
-        :meth:`_resolve_compress`); ``pcm16`` returns int16 wavs quantized on the device.
+        fetches the mels as bfloat16 ("auto": the link probe decides, see
+        :meth:`_resolve_compress`); ``pcm16`` returns int16 wavs quantized
+        on the device.
         Speaker embeddings default to one-hot slots 1 (source) and 7
         (target), as JAX's; in learned mode to each file's own
         embedding (from its full mel, for ``convert_long`` too)."""

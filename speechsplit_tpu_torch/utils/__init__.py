@@ -1,5 +1,6 @@
-"""Host helpers of the port: the training loop's step timer."""
+"""Host helpers of the port: the profiler's trace and the training
+loop's step timer."""
 
-from speechsplit_tpu_torch.utils.profiling import StepTimer
+from speechsplit_tpu_torch.utils.profiling import StepTimer, profile_trace
 
-__all__ = ["StepTimer"]
+__all__ = ["StepTimer", "profile_trace"]

@@ -1,5 +1,8 @@
-"""Step timing for the training log (counterpart of
-speechsplit_tpu/utils/profiling.py::StepTimer).
+"""Profiling and step timing (counterpart of
+speechsplit_tpu/utils/profiling.py).
+
+:func:`profile_trace` wraps a region in a ``torch.profiler`` trace that
+TensorBoard's profiler plugin (or Perfetto) loads.
 
 :class:`StepTimer` keeps an EMA of the interval between train-step
 dispatches without a host synchronization; the solver's loss read at
@@ -9,8 +12,30 @@ dispatch rate follows the card's rate.
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Optional
+from typing import Iterator, Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str]) -> Iterator[None]:
+    """Trace the enclosed region with ``torch.profiler`` if ``log_dir`` is
+    set (JAX profiling.py:23-33): CPU activity, and the card's where CUDA
+    is present; the trace is written into ``log_dir`` as TensorBoard's
+    ``*.pt.trace.json``. With no ``log_dir`` it only yields."""
+    if not log_dir:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
+    ):
+        yield
 
 
 class StepTimer:

@@ -106,6 +106,38 @@ def _with_phase(magnitude: torch.Tensor, uniform: torch.Tensor):
     return magnitude * torch.exp(1j * phase)
 
 
+def griffin_lim(
+    magnitude: torch.Tensor,
+    *,
+    uniform: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    n_fft: int = 1024,
+    hop: int = 256,
+    n_iter: int = 60,
+    momentum: float = 0.99,
+) -> torch.Tensor:
+    """Phase recovery from |STFT| [..., T, F] by fast Griffin-Lim
+    (momentum acceleration, Perraudin et al. 2013; JAX vocoder.py:89-123):
+    each iteration projects onto consistent spectra, then accelerates.
+    The initial phase from ``uniform`` [..., T, F] U(0, 1) draws, or from
+    ``generator``. Returns waveforms [..., (T-1)*hop]."""
+    draws = _phase_draws(magnitude.shape, magnitude.device, uniform,
+                         generator)
+    t_frames = magnitude.shape[-2]
+    wsum = _window_sum(t_frames, n_fft, hop, magnitude.device)
+    spec = _with_phase(magnitude, draws)
+    prev = spec
+    with exact_float32():
+        for _ in range(n_iter):
+            x = _istft(spec, n_fft, hop, wsum)
+            rebuilt = _stft_complex(x, n_fft, hop)[..., :t_frames, :]
+            proj = magnitude * (rebuilt / torch.clamp(rebuilt.abs(),
+                                                      min=1e-8))
+            spec = proj + momentum * (proj - prev)
+            prev = proj
+        return _istft(prev, n_fft, hop, wsum)
+
+
 def mel_consistency_project(
     spec0: torch.Tensor,
     mel_amp: torch.Tensor,

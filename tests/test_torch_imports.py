@@ -46,7 +46,7 @@ def test_scan_covers_the_package():
             "prefetch.py", "profiling.py", "train.py",
             "stft.py", "filters.py", "pitch.py", "preprocess.py",
             "prepare.py", "vocoder.py", "pipeline.py",
-            "serve.py", "chip_smoke.py"} <= names
+            "serve.py", "linkprobe.py", "chip_smoke.py"} <= names
 
 
 def test_resolve_device_defaults_to_cuda(monkeypatch):

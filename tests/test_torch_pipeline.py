@@ -14,13 +14,16 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+from speechsplit_tpu import linkprobe as jlinkprobe
 from speechsplit_tpu import preprocess as jpre
 from speechsplit_tpu.config import SpeechSplitConfig as JaxConfig
 from speechsplit_tpu.ops import pitch as jpitch
 from speechsplit_tpu.ops.quantize import quantize_f0 as jax_quantize_f0
 from speechsplit_tpu.pipeline import VoiceConverter as JaxVoiceConverter
 from speechsplit_tpu.training.train_step import create_train_state
+from speechsplit_tpu_torch import linkprobe
 from speechsplit_tpu_torch.config import SpeechSplitConfig
+from speechsplit_tpu_torch.convert import CONDITIONS
 from speechsplit_tpu_torch.data.prepare import read_wav
 from speechsplit_tpu_torch.interop import jax_params_to_state_dict
 from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
@@ -40,6 +43,10 @@ ATOL = 5e-5
 # JAX's: the short pair's target, through its last frame's log-F0 and the
 # speaker normalization (ROADMAP.md C, limits)
 BINS_OFF = {"short": {"M": 0, "F": 1}, "long": {"M": 0, "F": 0}}
+# link profiles (f32 MB/s, bf16 MB/s, RTT ms): a tunnel-class link and a
+# card in the host (JAX's tests/test_convert_batched.py)
+TUNNEL = (29.0, 21.0, 10.0)
+FAST = (4000.0, 3000.0, 0.1)
 
 
 def _long(seed, f0):
@@ -229,7 +236,18 @@ def test_compress_results_rounds_as_jax(setup, monkeypatch):
         ref_mel = np.abs(want[condition]["mel"]).astype(np.float64)
         ulp = 2.0 ** (np.floor(np.log2(np.maximum(ref_mel, 1e-30))) - 7)
         assert (np.abs(mel - want[condition]["mel"]) <= ulp).all()
-    assert port._resolve_compress("auto") is False  # no link probe here
+    # "auto": the link profile decides, as JAX's choose_compress does for
+    # the same bytes (7 conditions of one pair)
+    grid = len(CONDITIONS) * port.config.max_len_pad * 80 * 4
+    for link, compressed in ((TUNNEL, True), (FAST, False)):
+        monkeypatch.setattr(linkprobe, "_CACHED", linkprobe.LinkProfile(
+            *link))
+        assert port._resolve_compress("auto", 1, CONDITIONS) is (
+            compressed)
+        assert jlinkprobe.choose_compress(
+            grid, profile=jlinkprobe.LinkProfile(*link)) is compressed
+    assert port._resolve_compress(False, 1, CONDITIONS) is False
+    assert port._resolve_compress(True, 1, CONDITIONS) is True
 
 
 def test_refused_options(setup, tmp_path):
