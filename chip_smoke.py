@@ -122,6 +122,26 @@ Phases, one line each; any failure exits non-zero:
    error against the exact float32 step recorded (bfloat16's error), 5
    finite steps, and the median time per step in turns with the float32
    step;
+   then ``[ddp]``, data-parallel training (``parallel``) at full width
+   on that batch of 16: (a) a world of one under NCCL, the DDP step and
+   the explicit all-reduce step (``make_train_step_shard_map``) 5 steps
+   each of the float32 config against the plain step, bit for bit or,
+   where not, the largest differences printed and held to ``STEP_TOL``
+   (loss) and 1e-4 (parameters), and the three steps' ms timed in
+   turns; (b) two gloo ranks spawned onto the one card, 8 rows each, 3
+   DDP steps each of the one-hot generator, the F0 converter and
+   learned mode with ``spk_contrast_weight=0.5`` at the float32 config
+   (the loss within 1e-5 and every parameter within 1e-4 of one process
+   at B16, JAX's mesh bars) and of the one-hot generator at the default
+   config (PARITY.md #10's 2%: the loss, and each gradient of the first
+   step, after its reduction, as ``BF16_STEP_TOL`` reads a gradient: 3
+   Adam steps at lr 1e-4 move a parameter less than any parameter bar
+   could tell a wrong reduction from a right one), both ranks'
+   parameters equal; (c) each
+   rank's launches of the training kernels in one step, nonzero and
+   equal to a B8 one-process step's; (d) the two ranks' ms a step,
+   printed as two ranks sharing one card (not a scaling figure), and
+   the phase's seconds;
 8. one generator train step under ``torch.profiler``;
    then ``train.cli``, the trainer through its entry point at full
    width: ``cli.train`` on a seeded feature tree (8 speakers, 1-3
@@ -2699,6 +2719,286 @@ def phase_train_default(gen_per_step: dict, f0_per_step: dict, batch):
             ("f0_converter", "f0_converter", f0_per_step)))
 
 
+# [ddp]: the bars of two ranks against one process at the global batch
+# (JAX's for its mesh, tests/test_shard_map_step.py:59-70), the
+# contrastive weight of the learned mode's run, its steps, and the timed
+# rounds of (a)
+DDP_LOSS_ATOL = 1e-5
+DDP_PARAM_ATOL = 1e-4
+DDP_CONTRAST = 0.5
+DDP_STEPS = 3
+DDP_ONE_STEPS = 5
+DDP_ROUNDS = 8
+DDP_TIMEOUT_S = 300.0
+
+
+def ddp_modes() -> dict:
+    """The [ddp] (b) runs: {label: (config, model)}."""
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+
+    f32 = float32_config()
+    return {
+        "generator": (f32, "speechsplit"),
+        "f0_converter": (f32, "f0_converter"),
+        "learned_contrast": (learned(f32).replace(
+            spk_contrast_weight=DDP_CONTRAST), "speechsplit"),
+        "generator_default": (SpeechSplitConfig(), "speechsplit"),
+    }
+
+
+def ddp_batch(label: str):
+    """The B16 batch of a [ddp] run: 4 speakers (pairs across the two
+    ranks' halves) in learned mode, else the train phases' batch."""
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+
+    return synthetic_batch(SpeechSplitConfig(), SEED, speakers=(
+        LEARNED_SPEAKERS if label == "learned_contrast" else None))
+
+
+def ddp_steps(config, model: str, batch, mesh, steps: int, make=None,
+              first_grads: bool = False):
+    """``steps`` steps from the seeded state on ``batch`` (this rank's
+    rows on ``mesh``) by ``make(config[, mesh])``; returns (state, step,
+    losses, launches of the first step, ms of each step, and with
+    ``first_grads`` the first step's gradients on the host, else None;
+    on a mesh the reduced ones)."""
+    import torch
+
+    from speechsplit_tpu_torch.parallel import shard_batch
+    from speechsplit_tpu_torch.training import (
+        create_train_state,
+        make_f0_train_step,
+        make_train_step,
+    )
+
+    if make is None:
+        make = make_train_step if model == "speechsplit" else (
+            make_f0_train_step)
+    step = make(config, mesh) if mesh is not None else make(config)
+    if mesh is not None:
+        batch = shard_batch(mesh, batch)
+    state = create_train_state(config, SEED, model)
+    losses, times, launches, grads = [], [], None, None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        if i == 0:
+            reset_launches()
+        start = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        if i == 0:
+            launches = {k: v for k, v in read_launches().items() if v}
+            if first_grads:
+                grads = {k: v.cpu() for k, v in
+                         grads_of(state.model).items()}
+        losses.append(float(loss))
+    return state, step, losses, launches, times, grads
+
+
+def ddp_rank(out: str) -> None:
+    """A spawned [ddp] (b) rank: each mode's steps on its 8 rows, saved
+    as ``rank{r}.pt`` (losses, parameters, launches, ms a step)."""
+    import torch
+
+    from speechsplit_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    results = {}
+    with strict_float32(f"[ddp] rank {mesh.rank}"), cudnn_deterministic():
+        for label, (config, model) in ddp_modes().items():
+            state, _, losses, launches, times, grads = ddp_steps(
+                config, model, ddp_batch(label), mesh, DDP_STEPS,
+                first_grads=label == "generator_default")
+            results[label] = dict(
+                losses=losses, launches=launches, ms=times, grads=grads,
+                params={k: v.detach().cpu() for k, v in
+                        state.model.state_dict().items()})
+    torch.save(results, os.path.join(out, f"rank{mesh.rank}.pt"))
+
+
+def max_param_diff(a: dict, b: dict) -> tuple[float, str]:
+    """The largest |a - b| over two state dicts, and its key."""
+    worst, key = 0.0, ""
+    for k, v in a.items():
+        d = float((v.float().cpu() - b[k].float().cpu()).abs().max())
+        if d > worst:
+            worst, key = d, k
+    return worst, key
+
+
+def phase_ddp(gen_per_step: dict, batch) -> dict:
+    """[ddp]: data-parallel training at full width (module docstring,
+    after phase 7). Returns each rank's launches in one generator step of
+    (b)'s float32 run."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch import parallel
+    from speechsplit_tpu_torch.training import make_train_step
+    from speechsplit_tpu_torch.training.train_step import (
+        make_train_step_shard_map,
+    )
+
+    wall = time.perf_counter()
+    card = card_line()
+    f32 = float32_config()
+    # (a) a world of one under NCCL: DDP and explicit steps against the
+    # plain step, 5 steps each, then timed in turns
+    fields = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.initialize("nccl", f"file://{tmp}/store", 1, 0,
+                            device="cuda:0")
+        try:
+            mesh = parallel.make_mesh()
+            makers = {"plain": None, "ddp": make_train_step,
+                      "explicit": make_train_step_shard_map}
+            runs = {}
+            with strict_float32("[ddp] world of one"), cudnn_deterministic():
+                for label, make in makers.items():
+                    state, step, losses, launches, *_ = ddp_steps(
+                        f32, "speechsplit", batch,
+                        None if make is None else mesh, DDP_ONE_STEPS,
+                        make or make_train_step)
+                    if launches != gen_per_step:
+                        fail(f"[ddp] world of one {label}: launches "
+                             f"{launches}, expected {gen_per_step}")
+                    runs[label] = (state, step, losses)
+                plain_state, _, plain_losses = runs["plain"]
+                for label in ("ddp", "explicit"):
+                    state, _, losses = runs[label]
+                    equal = losses == plain_losses and all(
+                        torch.equal(p, q) for p, q in zip(
+                            state.model.state_dict().values(),
+                            plain_state.model.state_dict().values()))
+                    loss_err = max(abs(a - b) / abs(b) for a, b in
+                                   zip(losses, plain_losses))
+                    param_err, key = max_param_diff(
+                        state.model.state_dict(),
+                        plain_state.model.state_dict())
+                    if not equal and not (loss_err <= STEP_TOL
+                                          and param_err <= DDP_PARAM_ATOL):
+                        fail(f"[ddp] world of one {label} vs plain: loss "
+                             f"rel err {loss_err}, parameter err "
+                             f"{param_err} ({key})")
+                    fields[f"{label}_bit_equal_plain"] = equal
+                    fields[f"{label}_max_loss_rel_err"] = f"{loss_err:.3g}"
+                    fields[f"{label}_max_param_abs_err"] = f"{param_err:.3g}"
+                    fields[f"{label}_worst_param"] = key or "none"
+                fields["losses"] = ",".join(f"{v:.6f}" for v in plain_losses)
+                # (d) the three steps' ms, in turns, each on its own state
+                samples = {label: [] for label in runs}
+                order = list(runs)
+                for r in range(DDP_ROUNDS):
+                    for label in order if r % 2 == 0 else order[::-1]:
+                        state, step, _ = runs[label]
+                        torch.cuda.synchronize()
+                        start = time.perf_counter()
+                        step(state, batch)
+                        torch.cuda.synchronize()
+                        samples[label].append(
+                            (time.perf_counter() - start) * 1e3)
+            # the DDP wrapper goes before its process group
+            del runs, state, step, plain_state
+        finally:
+            parallel.shutdown()
+    log("ddp world of one", backend="nccl", card=card.replace(" ", "_"),
+        batch=f"B{TRAIN_B}xT{T}", config="float32 (TF32 off, cuDNN "
+        "deterministic)", steps=DDP_ONE_STEPS, **fields,
+        **{f"{label}_median_ms_per_step": f"{np.median(v):.4f}"
+           for label, v in samples.items()},
+        **{f"{label}_rounds_ms": ",".join(f"{t:.4f}" for t in v)
+           for label, v in samples.items()},
+        timing="plain, ddp and explicit steps in turns",
+        tol=f"bit-equal or loss {STEP_TOL} rel, params {DDP_PARAM_ATOL}")
+
+    # (b) two gloo ranks on this card, spawned; one process at B16 and
+    # at B8 meanwhile
+    with tempfile.TemporaryDirectory() as tmp:
+        errors = []
+
+        def ranks():
+            try:
+                parallel.launch(ddp_rank, 2, (tmp,), backend="gloo",
+                                device="cuda:0", timeout=DDP_TIMEOUT_S,
+                                threads=1)
+            except BaseException as error:  # re-raised below
+                errors.append(error)
+
+        thread = threading.Thread(target=ranks)
+        thread.start()
+        refs, b8 = {}, {}
+        with strict_float32("[ddp] one process"), cudnn_deterministic():
+            for label, (config, model) in ddp_modes().items():
+                full = ddp_batch(label)
+                state, _, losses, _, _, grads = ddp_steps(
+                    config, model, full, None, DDP_STEPS,
+                    first_grads=label == "generator_default")
+                refs[label] = (losses, {k: v.detach().cpu() for k, v in
+                                        state.model.state_dict().items()},
+                               grads)
+                half = type(full)(*(x[: TRAIN_B // 2] for x in full))
+                b8[label] = ddp_steps(config, model, half, None, 1)[3]
+                del state
+        thread.join()
+        if errors:
+            fail(f"[ddp] two gloo ranks: {errors[0]!r}")
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                          weights_only=False) for r in range(2)]
+    rank_launches = {}
+    for label, (config, model) in ddp_modes().items():
+        want_losses, want_params, want_grads = refs[label]
+        r0, r1 = got[0][label], got[1][label]
+        diff01, key01 = max_param_diff(r0["params"], r1["params"])
+        if diff01 or r0["losses"] != r1["losses"]:
+            fail(f"[ddp] {label}: the two ranks differ ({key01}: {diff01})")
+        for r, res in enumerate((r0, r1)):
+            if not res["launches"] or res["launches"] != b8[label]:
+                fail(f"[ddp] {label} rank {r}: launches {res['launches']}, "
+                     f"a B8 one-process step's {b8[label]}")
+        param_err, key = max_param_diff(r0["params"], want_params)
+        extra = {}
+        if label == "generator_default":
+            # the parameters are printed, not held: 3 Adam steps move
+            # them by about 3e-4 at most, within any bar of their own
+            loss_err = max(abs(a - b) / abs(b) for a, b in
+                           zip(r0["losses"], want_losses))
+            grad_worst, grad_key = grad_err(r0["grads"], want_grads)
+            ok = loss_err <= BF16_STEP_TOL and grad_worst <= BF16_STEP_TOL
+            bars = (f"loss {BF16_STEP_TOL} rel, first-step reduced grads "
+                    f"{BF16_STEP_TOL} of max")
+            extra = dict(first_step_grad_err_over_max=f"{grad_worst:.3g}",
+                         worst_grad=grad_key)
+        else:
+            loss_err = max(abs(a - b) for a, b in
+                           zip(r0["losses"], want_losses))
+            ok = loss_err <= DDP_LOSS_ATOL and param_err <= DDP_PARAM_ATOL
+            bars = f"loss {DDP_LOSS_ATOL} abs, params {DDP_PARAM_ATOL} abs"
+        if not ok:
+            fail(f"[ddp] {label}: two ranks vs one process at B{TRAIN_B}: "
+                 f"loss err {loss_err}, parameter err {param_err} ({key}), "
+                 f"{extra}; bars {bars}")
+        rank_launches[label] = [r0["launches"], r1["launches"]]
+        log(f"ddp two ranks {label}", backend="gloo", card=card.replace(
+            " ", "_"), ranks="2 processes sharing one card", rows_a_rank=
+            TRAIN_B // 2, model=model, steps=DDP_STEPS,
+            loss_err_vs_one_process=f"{loss_err:.3g}",
+            max_param_abs_err=f"{param_err:.3g}", worst_param=key, **extra,
+            bars=bars.replace(" ", "_"),
+            losses=",".join(f"{v:.6f}" for v in r0["losses"]),
+            one_process_losses=",".join(f"{v:.6f}" for v in want_losses),
+            launches_a_step_rank0=json.dumps(r0["launches"]).replace(" ", ""),
+            launches_a_step_rank1=json.dumps(r1["launches"]).replace(" ", ""),
+            launches_b8_one_process=json.dumps(b8[label]).replace(" ", ""),
+            two_ranks_sharing_one_card_ms_a_step_not_a_scaling_figure=(
+                ",".join(f"{t:.4f}" for t in r0["ms"])))
+    log("ddp", card=card.replace(" ", "_"),
+        seconds=f"{time.perf_counter() - wall:.1f}")
+    return rank_launches
+
+
 def phase_train_cli_default(gen_per_step: dict, f0_per_step: dict,
                             hparams: str = "", what: str = "default config",
                             validate_tol: float | None = None) -> None:
@@ -2875,8 +3175,8 @@ def solver_probe(steps: int):
     record = {"first": None, "starts": [], "end": None}
 
     def wrap(make):
-        def factory(config):
-            step = make(config)
+        def factory(config, *mesh):
+            step = make(config, *mesh)
 
             def run(state, batch):
                 if record["first"] is None:
@@ -9208,6 +9508,7 @@ def main() -> int:
     f0_per_step = {k: v for k, v in f0_launches.items() if v}
     gen_launches, f0_launches = phase_train_default(gen_per_step,
                                                     f0_per_step, batch)
+    ddp_launches = phase_ddp(gen_per_step, batch)
     phase_train_cli(gen_per_step, f0_per_step)
     phase_train_cli_default(gen_per_step, f0_per_step)
     rows.update(phase_compute_kernels())
@@ -9262,6 +9563,9 @@ def main() -> int:
     # steps, B32, bfloat16 compute) and the store's build from the wavs
     for name in TRAINING_KERNELS:
         rows[name]["launches_resident_k10_call"] = resident["per_call"][name]
+        # a rank's step in [ddp] (b): two gloo ranks, 8 rows each
+        rows[name]["launches_ddp_rank_step"] = ddp_launches["generator"][
+            0].get(name, 0)
     rows["viterbi_decode"]["launches_resident_store_build"] = resident[
         "store_launches"]
     kernels = []

@@ -24,13 +24,27 @@ adam_mu_dtype=float32,matmul_precision=highest`` trains in float32
 throughout); ``compute_dtype=bfloat16`` trains at bfloat16 compute on
 the default route; ``spk_emb_mode=learned[,spk_contrast_weight=0.1]``
 trains the generator with a learned speaker encoder (zero-shot timbre
-codes). ``--num_devices`` above 1 raises naming ROADMAP.md A8.
+codes).
+
+``--num_devices N`` trains data-parallel over N ranks, as JAX's spans a
+data mesh; 0 means every visible card (one process with ``--device
+cpu``). N > 1 spawns N ranks, one a card under NCCL, or with ``--device
+cpu`` N processes under gloo; under torchrun each process joins
+torchrun's world instead (N 0 or its ``WORLD_SIZE``). The global batch
+is ``batch_size``, split over the ranks; rank 0 writes the checkpoints
+and logs, and the run follows one process's trajectory at that batch:
+
+    python -m speechsplit_tpu_torch.cli.train --num_devices 2 \\
+        --hparams "root_dir=spmel,feat_dir=raptf0"
+    torchrun --nproc_per_node 2 -m speechsplit_tpu_torch.cli.train \\
+        --hparams "root_dir=spmel,feat_dir=raptf0"
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 
 def str2bool(v: str) -> bool:
@@ -74,8 +88,8 @@ def _parser() -> argparse.ArgumentParser:
         "in RAM")
     parser.add_argument(
         "--num_devices", type=int, default=0,
-        help="devices to train on: 0 or 1 is one device (more: ROADMAP.md "
-        "A8)")
+        help="ranks in the data mesh, one a card (0 = every visible card; "
+        "one process with --device cpu)")
     parser.add_argument(
         "--steps_per_dispatch", type=int, default=1,
         help="stage N batches per transfer and run them as one call of "
@@ -106,11 +120,33 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _refuse_unported(args) -> None:
-    if args.num_devices > 1:
-        raise NotImplementedError(
-            f"--num_devices {args.num_devices}: training on more than one "
-            "device is queued in ROADMAP.md A8")
+def _env_world():
+    """torchrun's ``WORLD_SIZE``, or None outside a launched world."""
+    value = os.environ.get("WORLD_SIZE")
+    return int(value) if value else None
+
+
+def _world_size(args, env_world) -> int:
+    """The ranks ``--num_devices`` asks for (JAX cli/train.py:145): 0 is
+    every visible card, or one process on the CPU; in a launched world,
+    0 or its size."""
+    import torch
+
+    n = args.num_devices
+    if n < 0:
+        raise ValueError(f"--num_devices {n}: must be 0 or more")
+    if env_world is not None:
+        if n not in (0, env_world):
+            raise ValueError(f"--num_devices {n} in a world of {env_world} "
+                             "ranks (WORLD_SIZE)")
+        return env_world
+    if torch.device(args.device).type != "cuda":
+        return n or 1
+    visible = torch.cuda.device_count()
+    if n > visible:
+        raise ValueError(f"--num_devices {n}: NCCL takes one card a rank "
+                         f"and {visible} CUDA device(s) are visible")
+    return n or max(visible, 1)
 
 
 def _read_spk2gen(path: str, wav_dir: str) -> dict:
@@ -130,14 +166,41 @@ def _read_spk2gen(path: str, wav_dir: str) -> dict:
 
 
 def main(argv=None):
-    """Train; returns the final ``TrainState``."""
+    """Train; returns the final ``TrainState`` (rank 0's in a launched
+    world). With ``--num_devices`` above 1 outside one, it spawns the
+    ranks, waits for them and returns None: rank 0 wrote the
+    checkpoints."""
     args = _parser().parse_args(argv)
-    _refuse_unported(args)
+    env_world = _env_world()
+    world = _world_size(args, env_world)
+    if world > 1 and env_world is None:
+        from speechsplit_tpu_torch.parallel import launch
 
+        if args.device.startswith("cuda"):
+            from speechsplit_tpu_torch.ops import _build
+
+            _build.build_all()  # once, before the ranks load the kernels
+        launch(_rank_main, world, (sys.argv[1:] if argv is None else argv,),
+               device=args.device)
+        return None
+    return _train(args, world)
+
+
+def _rank_main(argv) -> None:
+    """One spawned rank of ``main``."""
+    _train(_parser().parse_args(argv), _env_world())
+
+
+def _train(args, world: int):
     from speechsplit_tpu_torch import resolve_device
     from speechsplit_tpu_torch.config import SpeechSplitConfig, resolve_dtype
     from speechsplit_tpu_torch.data.dataset import SpeakerDataset
     from speechsplit_tpu_torch.data.loader import data_loader
+    from speechsplit_tpu_torch.parallel import (
+        initialize,
+        is_primary,
+        make_mesh,
+    )
     from speechsplit_tpu_torch.training.solver import Solver, SolverConfig
     from speechsplit_tpu_torch.training.train_step import check_precision
 
@@ -145,11 +208,16 @@ def main(argv=None):
         learning_rate=args.g_lr, adam_b1=args.beta1, adam_b2=args.beta2
     ).parse(args.hparams)
     check_precision(config)
-    device = resolve_device(args.device)
-    print(config)
-
-    for d in (args.log_dir, args.model_save_dir, args.sample_dir):
-        os.makedirs(d, exist_ok=True)
+    device, mesh = resolve_device(args.device), None
+    if world > 1:
+        device = initialize(device=device)
+        mesh = make_mesh((world,))
+        if config.mesh_shape == (1,):
+            config = config.replace(mesh_shape=(world,))
+    if is_primary():
+        print(config)
+        for d in (args.log_dir, args.model_save_dir, args.sample_dir):
+            os.makedirs(d, exist_ok=True)
 
     dataset = loader = resident = None
     if args.wav_dir:
@@ -188,7 +256,7 @@ def main(argv=None):
         resident_dtype=args.resident_dtype,
     )
     return Solver(loader, run_config, config, dataset=dataset,
-                  resident=resident, device=device).train()
+                  resident=resident, device=device, mesh=mesh).train()
 
 
 if __name__ == "__main__":

@@ -7,6 +7,11 @@ Replaces the reference's torch DataLoader composition (data_loader.py:
 plain generator of numpy batches; collation at this model's geometry is
 microseconds of numpy, and the transfer to the card runs in the
 background (:mod:`speechsplit_tpu_torch.data.prefetch`).
+
+On a data mesh every rank runs this loader from the same seed and keeps
+its rows of each batch (``training.Solver``, ``parallel.shard_batch``):
+the crops draw from one sequential ``rng``, so only the global walk
+gives every rank the batches one process would see.
 """
 
 from __future__ import annotations

@@ -39,6 +39,7 @@ from speechsplit_tpu_torch.data.collator import Batch
 from speechsplit_tpu_torch.data.dataset import SpeakerDataset
 from speechsplit_tpu_torch.data.prefetch import stack_batches
 from speechsplit_tpu_torch.data.sampler import RepeatSampler
+from speechsplit_tpu_torch.parallel.mesh import Mesh, shard_batch
 from speechsplit_tpu_torch.preprocess import extract_into_store
 from speechsplit_tpu_torch.training.train_step import (
     TrainState,
@@ -300,6 +301,7 @@ def make_resident_train_step(
     config: SpeechSplitConfig,
     features: ResidentFeatures,
     model: str = "speechsplit",
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[TrainState, Plan], Tuple[TrainState, torch.Tensor]]:
     """Train steps driven by crop plans (resident.py:346-415):
     ``step(state, plan)`` gathers the plan's batch from ``features`` and
@@ -307,10 +309,17 @@ def make_resident_train_step(
     step on it; a ``[B]`` plan is one step, ``(state, loss)``, a
     ``[k, B]`` plan k steps, ``(state, losses[k])``, by
     ``make_train_multi_step``. The store is held by reference; the state
-    carries the model, so JAX's module argument has no counterpart."""
-    multi = make_train_multi_step(config, model)
+    carries the model, so JAX's module argument has no counterpart.
+
+    With a ``mesh`` every rank holds the whole store, as JAX replicates
+    it; the plan is the global batch's, and each rank gathers its own
+    rows of it and steps on them (``make_train_multi_step`` on the
+    mesh)."""
+    multi = make_train_multi_step(config, model, mesh)
 
     def step(state: TrainState, plan: Plan):
+        if mesh is not None:
+            plan = shard_batch(mesh, plan, axis=plan.utt.ndim - 1)
         batch = collate_on_device(config, features, plan)
         if plan.utt.ndim == 1:
             state, losses = multi(state, Batch(*(x[None] for x in batch)))

@@ -9,7 +9,9 @@ In train mode ``pre`` resamples after every conv (F0Encoder) or every
 conv pair (ContentPitchEncoder, content and pitch jointly so they stay
 aligned), with the full padded length as every row's length
 (reference model.py:105,125-129,194-211). The draws come from the
-``torch.Generator`` the caller passes (see ``ops.interp``).
+``torch.Generator`` the caller passes (see ``ops.interp``); a rank of a
+data-parallel world passes its rows' ``example_ids`` and the
+``global_batch`` (JAX encoders.py:124-156).
 
 Submodule names follow the reference (Encoder_t model.py:46-89,
 Encoder_6 model.py:93-140, Encoder_7 model.py:144-229) so that its
@@ -35,14 +37,18 @@ from speechsplit_tpu_torch.ops.interp import random_resample
 
 
 def _resample(config: SpeechSplitConfig, x: torch.Tensor,
-              generator: torch.Generator) -> torch.Tensor:
-    """One train-mode resample of x [B, T, C] at full padded length."""
+              generator: torch.Generator, example_ids=None,
+              global_batch=None) -> torch.Tensor:
+    """One train-mode resample of x [B, T, C] at full padded length;
+    ``example_ids``/``global_batch`` as ``ops.interp.random_resample``
+    takes them."""
     full_len = torch.full((x.shape[0],), config.max_len_pad,
                           dtype=torch.int64)
     return random_resample(
         x, full_len, generator,
         min_len_seg=config.min_len_seg, max_len_seg=config.max_len_seg,
         max_len_seq=config.max_len_seq, max_len_pad=config.max_len_pad,
+        example_ids=example_ids, global_batch=global_batch,
     )
 
 
@@ -107,11 +113,13 @@ class F0Encoder(_DropsLenOrg):
                          residual_dtype=resolve_dtype(cfg.residual_dtype))
 
     def pre(self, x: torch.Tensor, train: bool = False,
-            generator: torch.Generator | None = None) -> torch.Tensor:
+            generator: torch.Generator | None = None, example_ids=None,
+            global_batch=None) -> torch.Tensor:
         for conv in self.convolutions:
             x = F.relu(conv(x))
             if train:
-                x = _resample(self.config, x, generator)
+                x = _resample(self.config, x, generator, example_ids,
+                              global_batch)
         return x
 
     def codes(self, outputs: torch.Tensor) -> torch.Tensor:
@@ -149,7 +157,8 @@ class ContentPitchEncoder(_DropsLenOrg):
                            residual_dtype=resolve_dtype(cfg.residual_dtype))
 
     def pre(self, x_f0: torch.Tensor, train: bool = False,
-            generator: torch.Generator | None = None):
+            generator: torch.Generator | None = None, example_ids=None,
+            global_batch=None):
         """Conv stacks (with the joint resamples in train mode); returns
         the (content, pitch) streams."""
         cfg = self.config
@@ -160,7 +169,8 @@ class ContentPitchEncoder(_DropsLenOrg):
             x = F.relu(conv_mel(x))
             f0 = F.relu(conv_f0(f0))
             if train:
-                joint = _resample(cfg, torch.cat([x, f0], dim=-1), generator)
+                joint = _resample(cfg, torch.cat([x, f0], dim=-1), generator,
+                                  example_ids, global_batch)
                 x = joint[:, :, : cfg.dim_enc]
                 f0 = joint[:, :, cfg.dim_enc :]
         return x, f0

@@ -22,7 +22,9 @@ the same sums.
 
 ``train=True`` turns on the encoders' random resampling, whose draws
 come from the ``generator`` argument in the JAX order: content/pitch
-conv pairs 0, 1, 2 (SpeechSplit), f0 convs 0, 1, 2 (F0Converter). Under
+conv pairs 0, 1, 2 (SpeechSplit), f0 convs 0, 1, 2 (F0Converter); a
+rank of a data-parallel world passes its rows' ``example_ids`` and the
+``global_batch`` (JAX generator.py:93-231, ``ops.interp``). Under
 autograd the recurrences run their training kernels (``ops.bilstm``),
 saving residuals in ``config.residual_dtype``, as the JAX generator
 threads it (generator.py:137, :218).
@@ -104,7 +106,9 @@ class SpeechSplit(nn.Module):
 
     def forward(self, x_f0: torch.Tensor, x_org: torch.Tensor,
                 c_trg: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                example_ids: torch.Tensor | None = None,
+                global_batch: int | None = None) -> torch.Tensor:
         cfg = self.config
         if c_trg.dim() == 3:
             # a mel to take the timbre from (training passes the batch's
@@ -114,7 +118,9 @@ class SpeechSplit(nn.Module):
                     "mel-valued c_trg requires spk_emb_mode='learned'")
             c_trg = self.speaker_encoder(c_trg)
         enc_cp, enc_r = self.encoder_1, self.encoder_2
-        xc, xp = enc_cp.pre(x_f0, train=train, generator=generator)
+        xc, xp = enc_cp.pre(x_f0, train=train, generator=generator,
+                            example_ids=example_ids,
+                            global_batch=global_batch)
         xr = enc_r.pre(x_org)
         if not multi_bilstm.fits((cfg.dim_neck, cfg.dim_neck_3,
                                   cfg.dim_neck_2)):
@@ -168,10 +174,13 @@ class F0Converter(nn.Module):
 
     def forward(self, x_org: torch.Tensor, f0_trg: torch.Tensor,
                 train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                example_ids: torch.Tensor | None = None,
+                global_batch: int | None = None) -> torch.Tensor:
         cfg = self.config
         enc_f, enc_r = self.encoder_3, self.encoder_2
-        xf = enc_f.pre(f0_trg, train=train, generator=generator)
+        xf = enc_f.pre(f0_trg, train=train, generator=generator,
+                       example_ids=example_ids, global_batch=global_batch)
         xr = enc_r.pre(x_org)
         if not multi_bilstm.fits((cfg.dim_neck_3, cfg.dim_neck_2)):
             # each encoder's own layer (JAX generator.py:228-232)

@@ -20,6 +20,14 @@ a re-seeded generator gives the same draws, and so the same output, on
 the card and on the CPU. The laws are the JAX package's; the stream is
 not (JAX PRNG keys cannot be reproduced in torch), so tests inject the
 draws through :func:`resample_fixed` in both packages.
+
+Placement invariance (JAX's ``example_ids``, interp.py:62-93): a rank
+of a data-parallel world that holds rows ``example_ids`` of a
+``global_batch``-row batch draws the whole ``[global_batch, S]`` pair,
+in the same order, and keeps its rows. Every rank's generator then moves
+as one process's does at the global batch, and each global row gets the
+draws that process gives it; the ranks follow its trajectory up to the
+order of sums.
 """
 
 from __future__ import annotations
@@ -113,10 +121,17 @@ def random_resample(
     max_len_seq: int,
     max_len_pad: int,
     train: bool = True,
+    example_ids: Optional[torch.Tensor] = None,
+    global_batch: Optional[int] = None,
 ) -> torch.Tensor:
     """Randomly time-resample each row of ``x`` [B, T, C] (true lengths
     ``len_seq`` [B]) to [B, max_len_pad, C]; the identity when
-    ``train`` is False. ``generator`` is a CPU ``torch.Generator``."""
+    ``train`` is False. ``generator`` is a CPU ``torch.Generator``.
+
+    ``example_ids`` [B] (int) names each row's place in a global batch
+    of ``global_batch`` rows: the draws are the global batch's, and each
+    row takes its own (module docstring). With ``example_ids=None`` the
+    draws are ``[B, S]``."""
     if not train:
         return x
     if generator is None:
@@ -124,10 +139,18 @@ def random_resample(
             "random_resample in train mode needs a torch.Generator for its "
             "draws"
         )
+    rows = x.shape[0]
+    if example_ids is not None:
+        if global_batch is None:
+            raise ValueError("example_ids needs the global_batch they index")
+        rows = global_batch
     scales, len_seg = draw_segments(
-        x.shape[0], generator, min_len_seg=min_len_seg,
+        rows, generator, min_len_seg=min_len_seg,
         max_len_seg=max_len_seg, max_len_seq=max_len_seq,
     )
+    if example_ids is not None:
+        ids = torch.as_tensor(example_ids, dtype=torch.int64, device="cpu")
+        scales, len_seg = scales[ids], len_seg[ids]
     return resample_fixed(
         x, len_seq, scales, len_seg, max_len_pad=max_len_pad,
         seg_span=max_len_seg * 2,

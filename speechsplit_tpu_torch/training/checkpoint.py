@@ -19,6 +19,11 @@ resampling generator's state is saved because the port draws each step
 from that stateful generator (the JAX package folds the step into a
 fixed key): with it a resumed run continues the uninterrupted run's
 draws.
+
+On a data mesh rank 0 alone writes (``training.Solver``), and every
+rank restores from the same file. What is saved is the replica itself,
+never its DDP wrapper, so the names carry no ``module.`` prefix: a
+``.ckpt`` from any world loads strictly into a one-process model.
 """
 
 from __future__ import annotations

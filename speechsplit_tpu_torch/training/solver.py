@@ -21,13 +21,20 @@ bit for bit: on the CPU, and on the card at the default config).
 The loss stays on the card between log steps: the loop reads it on the
 host only at ``log_step``, so the loop adds no host synchronization to
 a step.
+
+On a data mesh (``mesh``, ``parallel.make_mesh``; JAX's ``mesh``
+argument) every rank runs this loop: the same global loader from the
+same seed, of which it keeps its rows (``parallel.shard_batch``), or
+the same global crop plans, and the step on the mesh. Rank 0 alone
+writes checkpoints, logs, samples and tensorboard and runs
+``validate``; the ranks wait for it after each write. Every rank
+restores on a resume and checks the (global) loss at a log step.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
-import math
 import os
 import pickle
 import time
@@ -45,6 +52,12 @@ from speechsplit_tpu_torch.data.prefetch import (
 )
 from speechsplit_tpu_torch.ops.masks import pad_time_axis
 from speechsplit_tpu_torch.ops.quantize import quantize_f0_onehot
+from speechsplit_tpu_torch.parallel.distributed import barrier, is_primary
+from speechsplit_tpu_torch.parallel.mesh import (
+    Mesh,
+    check_mesh_shape,
+    shard_batch,
+)
 from speechsplit_tpu_torch.training import checkpoint as ckpt_lib
 from speechsplit_tpu_torch.training.train_step import (
     TrainState,
@@ -101,13 +114,16 @@ def check_cadence(run_config: SolverConfig) -> None:
                 "logging/checkpoint events land on dispatch boundaries")
 
 
-def check_run_config(run_config: SolverConfig,
-                     config: SpeechSplitConfig) -> None:
-    """Refuse what the port's solver does not run yet."""
-    if math.prod(config.mesh_shape) > 1:
-        raise NotImplementedError(
-            f"mesh_shape={config.mesh_shape}: training on more than one "
-            "device is queued in ROADMAP.md A8")
+def check_run_config(run_config: SolverConfig, config: SpeechSplitConfig,
+                     mesh: Optional[Mesh] = None) -> None:
+    """``config.mesh_shape`` must be ``(world,)`` over ``("data",)``, the
+    world being the mesh's ranks (1 with no mesh); ``batch_size`` must
+    split over them."""
+    world = 1 if mesh is None else mesh.size
+    check_mesh_shape(config.mesh_shape, config.mesh_axes, world)
+    if config.batch_size % world:
+        raise ValueError(f"batch_size={config.batch_size} does not split "
+                         f"over {world} ranks")
 
 
 class Solver:
@@ -119,14 +135,17 @@ class Solver:
         dataset=None,
         resident=None,
         device=None,
+        mesh: Optional[Mesh] = None,
     ):
         """``loader`` yields numpy ``Batch``es (``data.data_loader``);
         ``device`` is ``cuda`` unless told otherwise. With
         ``data_on_device`` the loader is not read: the store is
         ``resident`` (``(features, speaker_utts)``, such as
         ``data.resident.build_resident_from_wavs`` returns) or is built
-        from ``dataset`` at ``resident_dtype``."""
-        check_run_config(run_config, config)
+        from ``dataset`` at ``resident_dtype``. ``mesh``: train this
+        rank's rows of each global batch with the other ranks of the
+        mesh (module docstring); ``loader`` yields global batches."""
+        check_run_config(run_config, config, mesh)
         check_cadence(run_config)
         if run_config.data_on_device and resident is None and dataset is None:
             raise ValueError(
@@ -135,6 +154,7 @@ class Solver:
         self.loader = loader
         self.rc = run_config
         self.config = config
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.state = create_train_state(config, run_config.seed,
                                         run_config.model, self.device)
@@ -151,19 +171,20 @@ class Solver:
                     device=self.device)
             self._resident = resident
             self.train_step = resident_lib.make_resident_train_step(
-                config, resident[0], run_config.model)
+                config, resident[0], run_config.model, mesh)
         elif run_config.steps_per_dispatch > 1:
-            self.train_step = make_train_multi_step(config, run_config.model)
+            self.train_step = make_train_multi_step(config, run_config.model,
+                                                    mesh)
         else:
             make = (make_train_step if run_config.model == "speechsplit"
                     else make_f0_train_step)
-            self.train_step = make(config)
+            self.train_step = make(config, mesh)
 
         n_params = sum(p.numel() for p in self.state.model.parameters())
-        print(f"{self.tag}: {n_params} parameters")
+        self._print(f"{self.tag}: {n_params} parameters")
 
         self.writer = None
-        if run_config.use_tensorboard:
+        if run_config.use_tensorboard and is_primary():
             from tensorboardX import SummaryWriter  # lazy, optional
 
             os.makedirs(run_config.log_dir, exist_ok=True)
@@ -174,16 +195,22 @@ class Solver:
             with open(run_config.validation_path, "rb") as handle:
                 self.validation_pt = pickle.load(handle)
 
+    @staticmethod
+    def _print(text: str) -> None:
+        if is_primary():
+            print(text)
+
     # ------------------------------------------------------------------
     def train(self) -> TrainState:
         rc = self.rc
-        os.makedirs(rc.model_save_dir, exist_ok=True)
-        os.makedirs(rc.sample_dir, exist_ok=True)
+        if is_primary():
+            os.makedirs(rc.model_save_dir, exist_ok=True)
+            os.makedirs(rc.sample_dir, exist_ok=True)
 
         start_iters = 0
         num_iters = rc.num_iters
         if rc.resume_iters:
-            print(f"Resuming from step {rc.resume_iters}...")
+            self._print(f"Resuming from step {rc.resume_iters}...")
             start_iters = rc.resume_iters
             num_iters += rc.resume_iters  # ref: solver.py:119-120
             ckpt_lib.restore_checkpoint(
@@ -199,18 +226,20 @@ class Solver:
                 seed=rc.seed)
         else:
             loader = self.loader
+            if self.mesh is not None:  # this rank's rows of each batch
+                loader = (shard_batch(self.mesh, b) for b in loader)
         if k > 1:
             loader = stack_batches(loader, k)
         batches = prefetch_to_device(loader, device=self.device,
                                      compress=rc.compress_transfers)
-        print("Start training...")
+        self._print("Start training...")
         start_time = time.time()
         timer = StepTimer()
         profiler, profile_end = None, None
         try:
             for i in range(start_iters, num_iters, k):
                 batch = next(batches)
-                if (rc.profile_dir and profile_end is None
+                if (rc.profile_dir and is_primary() and profile_end is None
                         and i >= start_iters + rc.profile_start):
                     profiler = self._start_profiler()
                     profile_end = i + rc.profile_steps
@@ -226,19 +255,25 @@ class Solver:
                     self._log(i + 1, num_iters, float(loss.reshape(-1)[-1]),
                               timer, start_time)
                 if (i + 1) % rc.model_save_step == 0:
-                    path = ckpt_lib.save_checkpoint(
-                        rc.model_save_dir, i + 1, self.state, self.tag)
-                    print(f"Saved checkpoint {path}")
-                    if rc.keep_checkpoints:
-                        ckpt_lib.prune_checkpoints(
-                            rc.model_save_dir, rc.keep_checkpoints, self.tag)
+                    if is_primary():
+                        path = ckpt_lib.save_checkpoint(
+                            rc.model_save_dir, i + 1, self.state, self.tag)
+                        print(f"Saved checkpoint {path}")
+                        if rc.keep_checkpoints:
+                            ckpt_lib.prune_checkpoints(
+                                rc.model_save_dir, rc.keep_checkpoints,
+                                self.tag)
+                    barrier()
                 if ((i + 1) % rc.sample_step == 0 and self.validation_pt
                         and rc.model == "speechsplit"):
-                    val = self.validate()
-                    print(f"Validation loss: {val}")
-                    if self.writer:
-                        self.writer.add_scalar("Validation_loss", val, i + 1)
-                    self.render_samples(i + 1)
+                    if is_primary():
+                        val = self.validate()
+                        print(f"Validation loss: {val}")
+                        if self.writer:
+                            self.writer.add_scalar("Validation_loss", val,
+                                                   i + 1)
+                        self.render_samples(i + 1)
+                    barrier()
         finally:
             if profiler is not None:
                 profiler.stop()
@@ -252,9 +287,9 @@ class Solver:
                 f"non-finite loss {loss_val} at step {step}; latest "
                 f"checkpoint is in {self.rc.model_save_dir}")
         et = str(datetime.timedelta(seconds=time.time() - start_time))[:-7]
-        print(f"Elapsed [{et}], Iteration [{step}/{num_iters}], "
-              f"{self.tag}/loss_id: {loss_val:.8f}, "
-              f"{timer.steps_per_sec:.1f} steps/s")
+        self._print(f"Elapsed [{et}], Iteration [{step}/{num_iters}], "
+                    f"{self.tag}/loss_id: {loss_val:.8f}, "
+                    f"{timer.steps_per_sec:.1f} steps/s")
         if self.writer:
             self.writer.add_scalar(f"{self.tag}/loss_id", loss_val, step)
             self.writer.add_scalar("steps_per_sec", timer.steps_per_sec,

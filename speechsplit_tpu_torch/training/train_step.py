@@ -45,6 +45,26 @@ Precision, as the JAX step's (the defaults train as they stand):
   (``models.layers``) and W_hh is bfloat16 in the recurrence kernels of
   the default route (``ops.bilstm``, ``ops.multi_bilstm``); the
   parameters, the Adam state and the loss stay float32.
+
+Data-parallel training (JAX's ``mesh`` steps, train_step.py:286-498):
+given a ``parallel.Mesh``, each rank runs a step on its own rows of the
+global batch (``parallel.shard_batch``) and the ranks average their
+gradients, through DDP (``make_train_step`` and the rest: the whole
+loss runs inside DDP's forward, so the all-reduce overlaps the
+backward) or one explicit all-reduce of the flattened gradients before
+Adam (:func:`make_train_step_shard_map`). Rank 0's parameters are
+broadcast when a step first sees a model. What makes the ranks follow
+one process's trajectory at the global batch:
+- the resampling draws are the global batch's on every rank, each rank
+  keeping its rows (``example_ids``, ``ops.interp``);
+- learned mode's contrastive term scores the global batch's embeddings
+  and labels on every rank (:func:`gather_rows`, whose backward sums
+  the cotangents over ranks: that x n cancels the gradient mean's / n);
+- the F0 converter's masked mean is over the global count of valid
+  frames (:func:`f0_loss`);
+- below float32, ``grad_dtype`` casts the gradients before the
+  reduction, as JAX's shard_map step does (config.py:113-114).
+The loss a step returns is the global batch's, on every rank.
 """
 
 from __future__ import annotations
@@ -52,11 +72,13 @@ from __future__ import annotations
 import contextlib
 import functools
 from dataclasses import dataclass
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch import nn
 
 from speechsplit_tpu_torch import resolve_device
 from speechsplit_tpu_torch.config import SpeechSplitConfig, resolve_dtype
@@ -64,6 +86,7 @@ from speechsplit_tpu_torch.data.collator import Batch
 from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
 from speechsplit_tpu_torch.ops.interp import random_resample
 from speechsplit_tpu_torch.ops.quantize import quantize_f0, quantize_f0_onehot
+from speechsplit_tpu_torch.parallel.mesh import Mesh, replicate
 
 # optax.adam's default epsilon (torch's Adam has the same default)
 ADAM_EPS = 1e-8
@@ -315,9 +338,21 @@ def _upcast_batch(batch: Batch, device) -> Batch:
     )
 
 
+def _rows(mesh: Optional[Mesh], batch: Batch):
+    """``(example_ids, global_batch)`` of a rank's batch on ``mesh``;
+    ``(None, None)`` with no mesh."""
+    if mesh is None:
+        return None, None
+    local = batch.mel.shape[0]
+    return mesh.example_ids(local), local * mesh.size
+
+
 def _augment_inputs(config: SpeechSplitConfig, batch: Batch,
-                    generator: torch.Generator) -> torch.Tensor:
-    """Steps 1-3 of the reference hot loop (solver.py:160-163)."""
+                    generator: torch.Generator, example_ids=None,
+                    global_batch=None) -> torch.Tensor:
+    """Steps 1-3 of the reference hot loop (solver.py:160-163); with
+    ``example_ids`` the draws are placement-invariant (JAX
+    train_step.py:136-159)."""
     x_f0 = torch.cat([batch.mel, batch.f0], dim=-1)  # [B, T, 81]
     x_f0 = random_resample(
         x_f0, batch.len_org, generator,
@@ -325,6 +360,7 @@ def _augment_inputs(config: SpeechSplitConfig, batch: Batch,
         max_len_seg=config.max_len_seg,
         max_len_seq=config.max_len_seq,
         max_len_pad=config.max_len_pad,
+        example_ids=example_ids, global_batch=global_batch,
     )
     onehot = quantize_f0_onehot(x_f0[:, :, -1], config.dim_f0 - 1)
     return torch.cat([x_f0[:, :, :-1], onehot], dim=-1)
@@ -350,57 +386,108 @@ def speaker_contrastive_loss(emb: torch.Tensor, labels: torch.Tensor,
     return -per_anchor.masked_fill(~has_pos, 0.0).sum() / n_anchors
 
 
+class _GatherRows(torch.autograd.Function):
+    """The ranks' rows stacked in rank order (JAX's tiled
+    ``all_gather``), from one all-reduce of a zero-padded buffer: gloo
+    reduces CUDA tensors but does not gather them. Backward: the
+    cotangent summed over the ranks (JAX's psum-scatter), this rank's
+    rows of it."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+        ctx.mesh = mesh
+        b = x.shape[0]
+        buf = x.new_zeros((mesh.size * b, *x.shape[1:]))
+        buf[mesh.rank * b: (mesh.rank + 1) * b] = x
+        return mesh.all_reduce_sum(buf)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        mesh = ctx.mesh
+        grad = mesh.all_reduce_sum(
+            grad.clone(memory_format=torch.contiguous_format))
+        b = grad.shape[0] // mesh.size
+        return grad[mesh.rank * b: (mesh.rank + 1) * b], None
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's ``x`` [b, ...] as one [size * b, ...] tensor in rank
+    order, differentiable (``dist.all_gather`` detaches)."""
+    return _GatherRows.apply(x, mesh)
+
+
 def _speaker_conditioning(config: SpeechSplitConfig, model: SpeechSplit,
-                          batch: Batch, gather_axis=None):
+                          batch: Batch,
+                          gather_axis: Optional[Mesh] = None):
     """``(c_trg, aux_loss)`` of a generator step (JAX
     train_step.py:198-240). One-hot mode: the batch's one-hot rows and
     no auxiliary term. Learned mode: the batch's own un-augmented mel as
     a rank-3 ``c_trg`` (the model embeds it); with
     ``spk_contrast_weight > 0`` the embeddings are taken here (a rank-2
     ``c_trg``, so the encoder still runs once a step) and scored by
-    :func:`speaker_contrastive_loss`. ``gather_axis`` (JAX's all-gather
-    of the embeddings across a data-parallel mesh) waits with
-    multi-device training in ROADMAP.md A8."""
-    if gather_axis is not None:
-        raise NotImplementedError(
-            "the contrastive term over a sharded batch (gather_axis) is "
-            "queued with multi-device training in ROADMAP.md A8")
+    :func:`speaker_contrastive_loss`.
+
+    ``gather_axis`` (the ``parallel.Mesh`` of the process group): every
+    rank scores the global batch's embeddings and labels
+    (:func:`gather_rows`), as JAX's shard_map step does; with no process
+    group it raises."""
+    mesh = gather_axis
+    if mesh is not None and not dist.is_initialized():
+        raise RuntimeError("gather_axis: the mesh has no process group; "
+                           "call parallel.initialize first")
     if config.spk_emb_mode != "learned":
         return batch.spk_emb, None
     if config.spk_contrast_weight <= 0.0:
         return batch.mel, None
     emb = model.embed_speaker(batch.mel)
     labels = torch.argmax(batch.spk_emb, dim=-1)
+    emb_all, labels_all = emb, labels
+    if mesh is not None:
+        emb_all = gather_rows(emb, mesh)
+        labels_all = gather_rows(labels, mesh)
     aux = config.spk_contrast_weight * speaker_contrastive_loss(
-        emb, labels, config.spk_contrast_temp)
+        emb_all, labels_all, config.spk_contrast_temp)
     return emb, aux
 
 
 def generator_loss(config: SpeechSplitConfig, model: SpeechSplit,
-                   batch: Batch, generator: torch.Generator) -> torch.Tensor:
+                   batch: Batch, generator: torch.Generator,
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Mean-MSE identity loss of one batch (already on the model's
     device), augmentation draws first, then the model's; in learned mode
-    plus the weighted contrastive term (JAX train_step.py:255-270)."""
-    x_in = _augment_inputs(config, batch, generator)
-    c_trg, aux = _speaker_conditioning(config, model, batch)
-    mel_out = model(x_in, batch.mel, c_trg, train=True, generator=generator)
+    plus the weighted contrastive term (JAX train_step.py:255-270). On a
+    ``mesh`` the batch is this rank's rows (JAX train_step.py:429-451):
+    the mean is over them, as the ranks hold equal rows."""
+    ids, rows = _rows(mesh, batch)
+    x_in = _augment_inputs(config, batch, generator, ids, rows)
+    c_trg, aux = _speaker_conditioning(config, model, batch, mesh)
+    mel_out = model(x_in, batch.mel, c_trg, train=True, generator=generator,
+                    example_ids=ids, global_batch=rows)
     loss = torch.mean(torch.square(batch.mel - mel_out))
     return loss if aux is None else loss + aux
 
 
 def f0_loss(config: SpeechSplitConfig, model: F0Converter, batch: Batch,
-            generator: torch.Generator) -> torch.Tensor:
+            generator: torch.Generator,
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Cross-entropy of the predicted contour against the quantized
     source contour, masked past ``len_org`` (JAX train_step.py:358-381).
 
     A contour value of about 1.002 or more quantizes past the last class;
     as optax's out-of-range gather, that frame's loss is NaN, and so is
     the masked sum (NaN x 0 = NaN), where ``F.cross_entropy`` would raise.
-    In range, the values are ``F.cross_entropy``'s bit for bit."""
+    In range, the values are ``F.cross_entropy``'s bit for bit.
+
+    On a ``mesh`` (this rank's rows) the mean is the global batch's, as
+    JAX's mesh step takes it: the rank's masked sum times the world over
+    the global count of valid frames (one all-reduce of a scalar), so
+    the gradient mean's / n leaves the global masked mean's gradient."""
+    ids, rows = _rows(mesh, batch)
     f0 = batch.f0[:, :, 0]  # [B, T] normalized, -1e10 padded
     target_ids = quantize_f0(f0, config.dim_f0 - 1)
     f0_onehot = quantize_f0_onehot(f0, config.dim_f0 - 1)
-    logits = model(batch.mel, f0_onehot, train=True, generator=generator)
+    logits = model(batch.mel, f0_onehot, train=True, generator=generator,
+                   example_ids=ids, global_batch=rows)
     log_probs = F.log_softmax(logits.transpose(1, 2), dim=1)  # [B, C, T]
     top = log_probs.shape[1] - 1
     picked = log_probs.gather(1, target_ids.clamp(0, top)[:, None, :])
@@ -409,50 +496,147 @@ def f0_loss(config: SpeechSplitConfig, model: F0Converter, batch: Batch,
     t = losses.shape[1]
     valid = (torch.arange(t, device=losses.device)[None, :]
              < batch.len_org[:, None]).to(losses.dtype)
-    return torch.sum(losses * valid) / torch.clamp(torch.sum(valid), min=1.0)
+    count = torch.sum(valid)
+    if mesh is None:
+        return torch.sum(losses * valid) / torch.clamp(count, min=1.0)
+    mesh.all_reduce_sum(count)  # the global batch's valid frames
+    return torch.sum(losses * valid) * mesh.size / torch.clamp(count,
+                                                                min=1.0)
 
 
-def _make_step(config: SpeechSplitConfig, loss_fn):
+class _StepLoss(nn.Module):
+    """A step's loss on a mesh as a module around the model, so that
+    everything the loss differentiates (learned mode's ``embed_speaker``
+    too) runs inside DDP's forward and its reducer sees each gradient
+    once."""
+
+    def __init__(self, config: SpeechSplitConfig, model: nn.Module, loss_fn,
+                 mesh: Mesh):
+        super().__init__()
+        self.config, self.model, self.loss_fn, self.mesh = (
+            config, model, loss_fn, mesh)
+
+    def forward(self, batch: Batch,
+                generator: torch.Generator) -> torch.Tensor:
+        return self.loss_fn(self.config, self.model, batch, generator,
+                            self.mesh)
+
+
+def _cast_hook(dtype: torch.dtype):
+    """A DDP comm hook: the bucket cast to ``dtype``, summed over the
+    ranks and divided by the world in that dtype, then written back."""
+    def hook(mesh: Mesh, bucket):
+        buf = bucket.buffer()
+        narrow = buf.to(dtype)
+        fut = dist.all_reduce(narrow, async_op=True).get_future()
+
+        def done(fut):
+            return buf.copy_(fut.value()[0].div_(mesh.size))
+
+        return fut.then(done)
+
+    return hook
+
+
+def _all_reduce_grads(mesh: Mesh, params: list, dtype: torch.dtype) -> None:
+    """The explicit step's reduction (JAX train_step.py:465-469): the
+    gradients cast to ``dtype``, flattened, averaged over the ranks in
+    one all-reduce, and written back into each ``.grad``."""
+    params = [p for p in params if p.grad is not None]
+    grads = _cast_grads(dtype, [p.grad for p in params])
+    flat = torch._utils._flatten_dense_tensors(grads)
+    mesh.all_reduce_mean(flat)
+    for p, g in zip(params,
+                    torch._utils._unflatten_dense_tensors(flat, grads)):
+        p.grad.copy_(g)
+
+
+def _make_step(config: SpeechSplitConfig, loss_fn,
+               mesh: Optional[Mesh] = None, explicit: bool = False):
     check_precision(config)
+    grad_dtype = resolve_dtype(config.grad_dtype)
+    held = {}  # on a mesh: the model the step last saw, what runs its loss
+
+    def compute_for(model: nn.Module):
+        if mesh is None:
+            return functools.partial(loss_fn, config, model)
+        if held.get("model") is not model:
+            loss = _StepLoss(config, model, loss_fn, mesh)
+            if explicit:
+                replicate(mesh, model)
+            else:
+                loss = nn.parallel.DistributedDataParallel(loss)
+                if grad_dtype != torch.float32:
+                    loss.register_comm_hook(mesh, _cast_hook(grad_dtype))
+            held.update(model=model, loss=loss)
+        return held["loss"]
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, torch.Tensor]:
         device = next(state.model.parameters()).device
         batch = _upcast_batch(batch, device)
+        compute = compute_for(state.model)
         state.optimizer.zero_grad(set_to_none=True)
         # as JAX differentiates a loss traced under the precision
         with matmul_precision(config.matmul_precision):
-            loss = loss_fn(config, state.model, batch, state.generator)
+            loss = compute(batch, state.generator)
             loss.backward()
+        if mesh is not None and explicit:
+            _all_reduce_grads(mesh, list(state.model.parameters()),
+                              grad_dtype)
         state.optimizer.step()
         state.step += 1
-        return state, loss.detach()
+        loss = loss.detach()
+        if mesh is not None:
+            loss = mesh.all_reduce_mean(loss.clone())
+        return state, loss
 
     return step
 
 
 def make_train_step(
     config: SpeechSplitConfig,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, torch.Tensor]]:
     """The generator train step: ``step(state, batch) -> (state, loss)``
     runs augmentation, forward, backward and Adam, updating ``state`` in
     place; ``loss`` stays on the device. After it, each parameter's
     ``.grad`` holds that step's gradient. PyTorch runs eagerly, so this
     one factory stands for both the JAX package's jitted
-    ``make_train_step`` and its raw ``make_train_step_fn``."""
-    return _make_step(config, generator_loss)
+    ``make_train_step`` and its raw ``make_train_step_fn``.
+
+    With a ``mesh`` (``parallel.make_mesh``) ``batch`` is this rank's
+    rows of the global batch and the model runs under DDP, its gradients
+    averaged over the ranks as the backward runs (JAX's GSPMD step);
+    ``loss`` is the global batch's."""
+    return _make_step(config, generator_loss, mesh)
 
 
 def make_f0_train_step(
     config: SpeechSplitConfig,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, torch.Tensor]]:
     """The F0-converter train step, as :func:`make_train_step` (the JAX
     package's ``make_f0_train_step`` and ``make_f0_train_step_fn``)."""
-    return _make_step(config, f0_loss)
+    return _make_step(config, f0_loss, mesh)
+
+
+def make_train_step_shard_map(
+    config: SpeechSplitConfig,
+    mesh: Mesh,
+) -> Callable[[TrainState, Batch], Tuple[TrainState, torch.Tensor]]:
+    """The generator step with its collectives spelled out (JAX
+    train_step.py:405-484): each rank takes the loss and gradients of its
+    rows, then the gradients, cast to ``grad_dtype``, are averaged in one
+    all-reduce of their flattened values before Adam, and the loss in
+    another. Rank 0's parameters are broadcast when the step first sees a
+    model. Its trajectory is the DDP step's up to the order of sums."""
+    return _make_step(config, generator_loss, mesh, explicit=True)
 
 
 def make_train_multi_step(
     config: SpeechSplitConfig,
     model: str = "speechsplit",
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, torch.Tensor]]:
     """K train steps a call (JAX train_step.py:297-347): ``step(state,
     batches) -> (state, losses)`` takes a batch whose fields carry a
@@ -467,12 +651,13 @@ def make_train_multi_step(
     so a k-step call is k single steps bit for bit. It takes no CUDA
     graph: the resampling draws are made on the host each step
     (``ops.interp``), and that stays so the stream of draws does not
-    change (ROADMAP.md B)."""
+    change (ROADMAP.md B). With a ``mesh`` each slice is this rank's
+    rows, as :func:`make_train_step` takes them."""
     makers = {"speechsplit": make_train_step,
               "f0_converter": make_f0_train_step}
     if model not in makers:
         raise ValueError(f"unknown model {model!r}")
-    step = makers[model](config)
+    step = makers[model](config, mesh)
 
     def multi(state: TrainState,
               batches: Batch) -> Tuple[TrainState, torch.Tensor]:

@@ -150,6 +150,13 @@ def test_scan_covers_the_resident_data():
             "profiling.py"} <= names
 
 
+def test_scan_covers_the_parallel_package():
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {"speechsplit_tpu_torch/parallel/__init__.py",
+            "speechsplit_tpu_torch/parallel/distributed.py",
+            "speechsplit_tpu_torch/parallel/mesh.py"} <= files
+
+
 def test_resident_store_defaults_to_cuda(monkeypatch, tmp_path):
     """The device-resident store, built from features or from wavs, runs
     on CUDA unless told otherwise, and refuses when there is none."""

@@ -37,6 +37,7 @@ from speechsplit_tpu_torch.interop import (
 )
 from speechsplit_tpu_torch.models import SpeechSplit
 from speechsplit_tpu_torch.ops import bilstm, multi_bilstm
+from speechsplit_tpu_torch.parallel import Mesh
 from speechsplit_tpu_torch.training import (
     Solver,
     SolverConfig,
@@ -142,8 +143,11 @@ def test_learned_step_matches_jax(monkeypatch, params, weight):
             weight * float(term), rel=1e-6)
     else:
         assert aux is None and c_trg is tb.mel
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
-        _speaker_conditioning(cfg, state.model, tb, gather_axis="data")
+    # the global batch's term over a process group's mesh
+    # (tests/test_torch_parallel.py); with no group, there is none
+    with pytest.raises(RuntimeError, match="process group"):
+        _speaker_conditioning(cfg, state.model, tb,
+                              gather_axis=Mesh(size=2, rank=0))
 
 
 def _val_demo(path):

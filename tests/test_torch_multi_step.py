@@ -245,6 +245,22 @@ def test_cli_trains_from_a_wav_tree(tmp_path, wav_dir, capsys):
 
 
 def test_cli_still_refuses_several_devices(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
-        cli_train.main(_cli_args(tmp_path, "--num_devices", "2",
-                                 "--device", "cpu"))
+    """Named from when ``--num_devices 2`` was refused: it now trains on
+    two gloo ranks with ``--steps_per_dispatch 2 --data_on_device`` (each
+    rank holds the store, gathers its row of each global plan), 2 calls
+    of 2 steps, rank 0's checkpoint at step 4."""
+    tree = write_feature_tree(str(tmp_path / "feats"), 3, 2, seed=4)
+    args = _cli_args(tmp_path, "--num_devices", "2", "--device", "cpu",
+                     "--steps_per_dispatch", "2", "--data_on_device")
+    args[args.index("--hparams") + 1] += (f",root_dir={tree[0]},"
+                                          f"feat_dir={tree[1]}")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert cli_train.main(args) is None
+    finally:
+        torch.set_num_threads(threads)
+    assert os.listdir(tmp_path / "models") == ["4-G.ckpt"]
+    raw = torch.load(tmp_path / "models" / "4-G.ckpt", map_location="cpu",
+                     weights_only=True)
+    assert raw["step"] == 4

@@ -2,7 +2,7 @@
 Solver's steps against JAX's raw train steps plus optax Adam, checkpoints
 in the reference's format, save-and-resume against the uninterrupted
 run, pruning, validation and its renders, the Adam state carried over
-from JAX, ``cli.train`` and what it refuses.
+from JAX, ``cli.train`` (on two gloo ranks too) and what it refuses.
 
 As in ``test_torch_training.py``, the resampling draws are injected into
 both packages where the two are compared; save-and-resume runs the
@@ -409,14 +409,29 @@ def test_cli_train_on_cpu(tmp_path, extra, files):
 
 # --steps_per_dispatch, --data_on_device, --resident_dtype, --wav_dir and
 # --spk2gen train since the port has device-resident data
-# (tests/test_torch_multi_step.py)
+# (tests/test_torch_multi_step.py); --num_devices above 1 since it has
+# data-parallel training (tests/test_torch_parallel.py). The name is
+# kept from when these flags were refused.
 @pytest.mark.parametrize("flags", [
     ("--num_devices", "2"),
 ], ids=lambda f: f[0].lstrip("-"))
 def test_cli_refuses_unported_flags(tmp_path, flags):
-    tree = (str(tmp_path / "none"), str(tmp_path / "none"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli_train.main(_cli_args(tmp_path, tree, "--device", "cpu", *flags))
+    """``--device cpu --num_devices 2`` spawns two gloo ranks, each on
+    2 rows of the global batch of 4; rank 0 writes the one checkpoint
+    (the spawned ranks run one torch thread each)."""
+    tree = write_feature_tree(str(tmp_path / "feats"), 3, 2, seed=1)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        state = cli_train.main(_cli_args(tmp_path, tree, "--device", "cpu",
+                                         *flags))
+    finally:
+        torch.set_num_threads(threads)
+    assert state is None  # the ranks ran in their own processes
+    assert os.listdir(tmp_path / "models") == ["2-G.ckpt"]
+    raw = torch.load(tmp_path / "models" / "2-G.ckpt", map_location="cpu",
+                     weights_only=True)
+    assert raw["step"] == 2
 
 
 def test_cli_refuses_the_default_bfloat16_config(tmp_path, monkeypatch):
@@ -450,7 +465,8 @@ def test_cli_refuses_the_default_bfloat16_config(tmp_path, monkeypatch):
 
 
 def test_solver_refuses_a_mesh_and_defaults_to_cuda(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
+    # a mesh_shape must be (world,): with no mesh the world is one rank
+    with pytest.raises(ValueError, match=r"mesh_shape=\(2,\)"):
         Solver(None, _run_config(tmp_path), CFG.replace(mesh_shape=(2,)),
                device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
