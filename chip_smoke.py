@@ -73,6 +73,38 @@ Phases, one line each; any failure exits non-zero:
       (median of 5 after a warm-up) split into features, conversion and
       vocoder; the card's busy share of one request (a direct
       ``convert_wav_files`` call under ``torch.profiler``); TF32 off;
+   e. ``kernel sosfilt`` / ``kernel lfilter``: ``csrc/iir.cu``, the
+      filter oracles' sample recurrences, in four instances (the
+      high-pass's sections at float32 and float64 under
+      ``highpass_filtfilt``, its (b, a) form at float64 and a stable
+      low-pass at float32 under ``filtfilt``): each zero-phase call
+      against the same call with the plain loop on the card at B16 x
+      2000 samples, bit for bit; the main path (counts set to 0 just
+      before, read just after: two launches a call) at B16 x the 3 s and
+      8 s wavs and B1 x 3 s against scipy's float64 filters on the host
+      (``IIR_*_TOL``); one pass's ms and device time at B1 and B16 x 3 s
+      and B16 x 8 s beside the bound and the measured floor (samples x
+      stages dependent multiply-adds, ``iir_floor_launch``), the plain
+      loop's ms at the check's shape, and each instance's registers,
+      spills and stack frame;
+   f. ``front end time``: ``extract_features(highpass_mode="time")`` on
+      the 3 s and 8 s wavs: one decoder launch an extraction; the
+      high-passed, dithered signal within 2e-6 of the CPU's, and on the
+      card's signal the mel within 1e-4 of the CPU's and the F0 on 99.5%
+      of its frames (the whole call on the CPU reported beside); ms in
+      turns with the ``"stft"`` mode;
+   g. ``pitch decoders``: ``track_pitch`` on a B16 batch of 3 s
+      synthetic utterances (``data.synthetic.random_utterance``) with
+      each of the parallel decoder, the block decoder at radix 4 and 16,
+      the top K by argmax passes and the conv NCCF, against the default
+      (JAX's bars between its own decoders), the gross pitch error of
+      each against the synthesis ground truth, the decoder kernel's
+      launches (none for the parallel and block decoders), ms in turns
+      with the default;
+   h. ``pitch native``: ``ops.pitch_native`` built by g++ from the port's
+      ``csrc/rapt.cc``, against the card's tracker on three tones
+      (tests/test_pitch_native.py's bars) and on that batch, ms a 3 s
+      utterance on the host;
 6. each training kernel (residual-saving forward, gradient) against its
    plain version at the train step's shapes (T=192, B=16), timed beside
    its bound and a cuDNN LSTM's training forward and backward; then the
@@ -723,19 +755,31 @@ def cudnn_yardstick(xp_f, xp_b, w_f, w_b):
 
 
 def reset_launches() -> None:
-    from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm, pitch
+    from speechsplit_tpu_torch.ops import (
+        bilstm,
+        filters,
+        lstm,
+        multi_bilstm,
+        pitch,
+    )
 
     for counts in (bilstm.LAUNCHES, multi_bilstm.LAUNCHES, lstm.LAUNCHES,
-                   pitch.LAUNCHES):
+                   pitch.LAUNCHES, filters.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def read_launches() -> dict:
-    from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm, pitch
+    from speechsplit_tpu_torch.ops import (
+        bilstm,
+        filters,
+        lstm,
+        multi_bilstm,
+        pitch,
+    )
 
     return {**bilstm.LAUNCHES, **multi_bilstm.LAUNCHES, **lstm.LAUNCHES,
-            **pitch.LAUNCHES}
+            **pitch.LAUNCHES, **filters.LAUNCHES}
 
 
 def phase_build() -> float:
@@ -746,7 +790,8 @@ def phase_build() -> float:
     for stem in sources:
         _build.load(stem)
     log("build", sources=",".join(f"{s}.cu" for s in sources),
-        kernels=",".join(KERNELS), seconds=f"{seconds:.2f}", arch="sm_90a")
+        kernels=",".join([*KERNELS, *IIR_KERNELS]), seconds=f"{seconds:.2f}",
+        arch="sm_90a")
     return seconds
 
 
@@ -6641,6 +6686,654 @@ def phase_serve(reps: int = 5):
     return launches
 
 
+# the IIR kernel (csrc/iir.cu) under the filter oracles: its instances by
+# the name the kernels' line gives them, with the function a user calls,
+# its dtype and filter. The high-pass is the reference's (30 Hz, order 5:
+# three sections); its (b, a) form NaNs in float32, so the float32 direct
+# form runs a stable low-pass.
+IIR_KERNELS = {
+    "sosfilt/float32": dict(
+        route="cuda", source="speechsplit_tpu_torch/csrc/iir.cu",
+        replaces="speechsplit_tpu/ops/filters.py:48"),
+    "sosfilt/float64": dict(
+        route="cuda", source="speechsplit_tpu_torch/csrc/iir.cu",
+        replaces="speechsplit_tpu/ops/filters.py:48"),
+    "lfilter/float64": dict(
+        route="cuda", source="speechsplit_tpu_torch/csrc/iir.cu",
+        replaces="speechsplit_tpu/ops/filters.py:104"),
+    "lfilter/float32": dict(
+        route="cuda", source="speechsplit_tpu_torch/csrc/iir.cu",
+        replaces="speechsplit_tpu/ops/filters.py:104"),
+}
+# H100 SXM float64 peak outside the tensor cores (NVIDIA data sheet)
+PEAK_F64_FLOPS = 34e12
+# the batch of the main path's calls, and the samples of the check
+# against the plain loop on the card (its ~27 launches a sample take
+# seconds at a 3 s clip's 48,000)
+IIR_BATCH = 16
+IIR_CHECK_SAMPLES = 2000
+# the kernel at full length against scipy's float64 filters on the host:
+# the sections at float64 round in another order than scipy's (about
+# 2e-13 measured on the CPU for the port's plain loop), the direct form
+# at float64 in scipy's order (equal); at float32, 4 times the distance
+# of JAX's float32 high-pass from the float64 result on the smoke's 8 s
+# wav (6.1e-5, measured on the CPU), and of the float32 low-pass (8.8e-7)
+IIR_F64_TOL = 1e-10
+IIR_BA_F64_TOL = 1e-12
+IIR_F32_TOL = 2.5e-4
+IIR_LOWPASS_F32_TOL = 3.5e-6
+
+
+def iir_filter(name: str):
+    """(the zero-phase call, its dtype, its scipy float64 oracle, its
+    sections or order) of an ``IIR_KERNELS`` instance."""
+    import torch
+    from scipy import signal as sp_signal
+
+    from speechsplit_tpu_torch.ops import filters
+
+    kind, dtype = name.split("/")
+    dtype = getattr(torch, dtype)
+    if kind == "sosfilt":
+        sos = filters.butter_highpass_sos(30.0, float(SAMPLE_RATE), 5)
+        return (filters.highpass_filtfilt, dtype,
+                lambda x: sp_signal.sosfiltfilt(sos, x), len(sos))
+    b, a = iir_ba(name)
+    return (lambda x: filters.filtfilt(b, a, x), dtype,
+            lambda x: sp_signal.filtfilt(b, a, x), len(a) - 1)
+
+
+def iir_bound(kind: str, m: int, n: int, order: int,
+              itemsize: int) -> tuple:
+    """(bound ms, what bounds it) of one pass over m signals of n samples:
+    each sample read once and written once over the memory rate; the
+    operations a sample (sosfilt: 9 a section, 5 products and 4 sums;
+    lfilter: 2 + 4 an order) over the dtype's peak. The dependent chain
+    is measured instead (``iir_floor_ms``)."""
+    by_bytes = 2 * m * n * itemsize / PEAK_BYTES * 1e3
+    peak = PEAK_F64_FLOPS if itemsize == 8 else PEAK_F32_FLOPS
+    ops = 9 * order if kind == "sosfilt" else 2 + 4 * order
+    by_ops = ops * m * n / peak * 1e3
+    return (by_ops, "operations") if by_ops > by_bytes else (by_bytes,
+                                                            "bytes")
+
+
+def iir_floor_ms(m: int, steps: int, itemsize: int, reps: int) -> float:
+    """The measured floor: the device time of ``iir_floor_launch``, m
+    threads each running ``steps`` dependent multiply-adds rounded as the
+    filters round. A pass's floor takes samples x stages steps, the
+    stages its sections (sosfilt: the chain through the cascade) or 1
+    (lfilter: the direct form's one y a sample)."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import filters
+
+    lib = filters._library()
+    dtype = torch.float64 if itemsize == 8 else torch.float32
+    sink = torch.zeros(m, dtype=dtype, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def floor():
+        code = lib.iir_floor_launch(sink.data_ptr(), m, steps,
+                                    int(itemsize == 8), stream)
+        if code:
+            fail(f"iir floor kernel: CUDA error {code}")
+
+    return kernel_device_ms(floor, reps)
+
+
+IIR_ENTRY = re.compile(r"(sosfilt|lfilter|iir_floor)_kernelI([fd])(?:Li(\d+)E)?")
+
+
+def iir_codegen(jobs) -> dict:
+    """Registers, spill stores and stack frame of each ``csrc/iir.cu``
+    kernel instance, by name (``sosfilt<f,3>`` ...), from the ``-Xptxas
+    -v`` report that ``start_codegen(["iir"])`` started."""
+    import shutil
+
+    (_, tmp, proc), = jobs
+    _, text = proc.communicate()
+    shutil.rmtree(tmp, ignore_errors=True)
+    if proc.returncode:
+        fail(f"ptxas report of iir.cu: rc {proc.returncode}\n{text[-2000:]}")
+    out, key = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            m = IIR_ENTRY.search(line)
+            key = m and f"{m[1]}<{m[2]}{',' + m[3] if m[3] else ''}>"
+        elif key and "spill stores" in line:
+            row = out.setdefault(key, {})
+            row["spill_stores"] = int(
+                re.search(r"(\d+) bytes spill stores", line)[1])
+            row["stack_frame"] = int(
+                re.search(r"(\d+) bytes stack frame", line)[1])
+        elif key and "Used" in line and "registers" in line:
+            out.setdefault(key, {})["registers"] = int(
+                re.search(r"Used (\d+) registers", line)[1])
+            key = None
+    return out
+
+
+def iir_signals(b: int, seconds: float, seed: int, dtype):
+    """b of the smoke's wavs (``synth_wav``, 110-180 Hz glides, seeds
+    seed..seed+b-1) as a [b, N] tensor of dtype on the card, and the
+    same as float64 on the host."""
+    import numpy as np
+    import torch
+
+    host = np.stack([synth_wav(seconds, 110.0, 180.0, seed + i)
+                     for i in range(b)]).astype(np.float32) / 32768.0
+    return (torch.from_numpy(host).to("cuda", dtype),
+            host.astype(np.float64))
+
+
+@contextlib.contextmanager
+def plain_iir():
+    """The IIR kernel's wrappers replaced by the plain loops, which then
+    run on CUDA tensors (the comparison's side of ``phase_iir``)."""
+    from speechsplit_tpu_torch.ops import filters
+
+    saved = filters.sosfilt_cuda, filters.lfilter_cuda
+
+    def sos_plain(sos, x, zi):
+        return filters.sosfilt_reference(
+            filters._coefficients(sos, x.dtype, x.device), x, zi)
+
+    def ba_plain(b, a, x, zi):
+        return filters.lfilter_reference(
+            filters._coefficients(b, x.dtype, x.device),
+            filters._coefficients(a, x.dtype, x.device), x, zi)
+
+    filters.sosfilt_cuda, filters.lfilter_cuda = sos_plain, ba_plain
+    try:
+        yield
+    finally:
+        filters.sosfilt_cuda, filters.lfilter_cuda = saved
+
+
+def iir_pass_args(name: str, b: int, seconds: float, samples=None):
+    """One pass's arguments for an ``IIR_KERNELS`` instance: b of the
+    smoke's wavs (the first ``samples`` of each if given) and the
+    steady-state states scaled by each first sample, as the zero-phase
+    calls start; (the wrapper's, the plain loop's) arguments."""
+    import numpy as np
+    from scipy import signal as sp_signal
+
+    from speechsplit_tpu_torch.ops import filters
+
+    _, dtype, _, _ = iir_filter(name)
+    xs, _ = iir_signals(b, seconds, SEED + 200, dtype)
+    if samples:
+        xs = xs[:, :samples].contiguous()
+    if name.startswith("sosfilt"):
+        sos = filters.butter_highpass_sos(30.0, float(SAMPLE_RATE), 5)
+        zi = filters._coefficients(sp_signal.sosfilt_zi(sos), dtype, "cuda")
+        zi = (zi[None] * xs[:, :1, None]).contiguous()
+        return (sos, xs, zi), (filters._coefficients(sos, dtype, "cuda"),
+                               xs, zi)
+    b_, a_ = iir_ba(name)
+    zi = filters._coefficients(sp_signal.lfilter_zi(b_, a_), dtype, "cuda")
+    zi = (zi[None] * xs[:, :1]).contiguous()
+    return (b_, a_, xs, zi), (filters._coefficients(b_, dtype, "cuda"),
+                              filters._coefficients(a_, dtype, "cuda"), xs,
+                              zi)
+
+
+def iir_ba(name: str):
+    """The (b, a) filter of an ``lfilter`` instance: the high-pass at
+    float64, a stable second-order low-pass at float32."""
+    from scipy import signal as sp_signal
+
+    from speechsplit_tpu_torch.ops import filters
+
+    if name.endswith("float64"):
+        return filters.butter_highpass(30.0, float(SAMPLE_RATE), 5)
+    return sp_signal.butter(2, 0.1)
+
+
+def phase_iir(reps: int = 10) -> dict:
+    """``[kernel sosfilt]`` and ``[kernel lfilter]``: each instance of
+    ``IIR_KERNELS`` through its zero-phase call (``highpass_filtfilt``,
+    ``filtfilt``) on the card. Against the same call with the plain loop
+    on the card (``filters.sosfilt_reference``, ``lfilter_reference``) at
+    B16 x ``IIR_CHECK_SAMPLES``, bit for bit; then the main path, B16 x
+    the 3 s and 8 s wavs and B1 x 3 s, with the counts set to 0 just
+    before and read just after (2 launches a call), each output against
+    scipy's float64 filter on the host (``IIR_*_TOL``); ms a wrapper call
+    (one pass, CUDA events) and its device time (calls queued behind a
+    spin kernel) at B1 and B16 x 3 s and at B16 x 8 s, the plain loop's
+    ms at the check's shape beside the kernel's there, the bound, the
+    measured floor (samples x stages dependent steps) and each instance's
+    registers, spills and stack frame. Returns {name: row}."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.ops import filters
+
+    codegen_jobs = start_codegen(["iir"])  # compiles while the checks run
+    rows = {}
+    for name in IIR_KERNELS:
+        call, dtype, oracle, stages = iir_filter(name)
+        kind = name.split("/")[0]
+        itemsize = torch.finfo(dtype).bits // 8
+        tol = {("sosfilt", 8): IIR_F64_TOL, ("sosfilt", 4): IIR_F32_TOL,
+               ("lfilter", 8): IIR_BA_F64_TOL,
+               ("lfilter", 4): IIR_LOWPASS_F32_TOL}[kind, itemsize]
+        wrapper = getattr(filters, f"{kind}_cuda")
+        plain = getattr(filters, f"{kind}_reference")
+
+        # the kernel against the plain loop on the card, both passes
+        x, _ = iir_signals(IIR_BATCH, 3.0, SEED, dtype)
+        x = x[:, :IIR_CHECK_SAMPLES].contiguous()
+        got = call(x)
+        with plain_iir():
+            want = call(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"{name}: the kernel differs from the plain loop by "
+                 f"{float((got - want).abs().max()):.3g} at "
+                 f"B{IIR_BATCH}xN{IIR_CHECK_SAMPLES}")
+        max_abs_err = float((got - want).abs().max())
+
+        # the main path: the counts set to 0 just before, read just after
+        outs = []
+        reset_launches()
+        for b, seconds in ((IIR_BATCH, SHORT_S), (IIR_BATCH, LONG_S),
+                           (1, SHORT_S)):
+            xs, host = iir_signals(b, seconds, SEED + 100, dtype)
+            outs.append((call(xs), oracle(host), b, seconds))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if launches[kind] != 2 * len(outs) or any(
+                v for k, v in launches.items() if k != kind):
+            fail(f"{name}: launched {launches}, expected {2 * len(outs)} "
+                 f"{kind} (two a zero-phase call)")
+        oracle_err = 0.0
+        for y, truth, b, seconds in outs:
+            err = float(np.abs(y.double().cpu().numpy() - truth).max())
+            if not (err <= tol and bool(torch.isfinite(y).all())):
+                fail(f"{name} B{b} {seconds} s: {err:.3g} from scipy's "
+                     f"float64 filter, bar {tol}")
+            oracle_err = max(oracle_err, err)
+
+        timed = {}
+        for b, seconds in ((1, SHORT_S), (IIR_BATCH, SHORT_S),
+                           (IIR_BATCH, LONG_S)):
+            args, _ = iir_pass_args(name, b, seconds)
+            n = args[-2].shape[1]  # (..., x, zi)
+            timed[(b, seconds)] = dict(
+                shape=f"B{b}xN{n}", ms=time_ms(lambda: wrapper(*args), reps),
+                kernel_device_ms=kernel_device_ms(lambda: wrapper(*args),
+                                                  reps),
+                floor_ms=iir_floor_ms(
+                    b, n * (stages if kind == "sosfilt" else 1), itemsize,
+                    reps),
+                bound=iir_bound(kind, b, n, stages, itemsize))
+        args, plain_args = iir_pass_args(name, IIR_BATCH, SHORT_S,
+                                         IIR_CHECK_SAMPLES)
+        plain_ms = time_ms(lambda: plain(*plain_args), 1, warmup=0)
+        check_ms = time_ms(lambda: wrapper(*args), reps)
+        main = timed[(IIR_BATCH, SHORT_S)]
+        bound_ms, bound_by = main["bound"]
+        row = dict(
+            shape=main["shape"], max_abs_err=max_abs_err, ms=main["ms"],
+            kernel_device_ms=main["kernel_device_ms"],
+            plain_ms=plain_ms,
+            plain_shape=f"B{IIR_BATCH}xN{IIR_CHECK_SAMPLES}",
+            ms_at_plain_shape=check_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, floor_ms=main["floor_ms"],
+            launches_per_zero_phase_call=2,
+            max_err_vs_scipy_float64=oracle_err)
+        beside = {f"B{b}x{s:g}s": dict(
+            shape=t["shape"], ms=t["ms"],
+            kernel_device_ms=t["kernel_device_ms"], floor_ms=t["floor_ms"],
+            bound_ms=t["bound"][0],
+            device_ms_over_floor=t["kernel_device_ms"] / t["floor_ms"])
+            for (b, s), t in timed.items()}
+        log(f"kernel {kind}", instance=name, **fmt(row), functions=(
+            "sosfilt,sosfiltfilt,highpass_filtfilt" if kind == "sosfilt"
+            else "lfilter,filtfilt"), launches=launches[kind])
+        for label, more in beside.items():
+            log(f"kernel {kind} timed", instance=name, at=label, **fmt(more))
+        row["beside"] = beside
+        row["main_path_launches"] = launches[kind]
+        rows[name] = row
+    codegen = iir_codegen(codegen_jobs)
+    for name, row in rows.items():
+        kind, dtype = name.split("/")
+        instance = (f"{kind}<{'d' if dtype == 'float64' else 'f'},"
+                    f"{iir_filter(name)[3]}>")
+        gen = codegen.get(instance)
+        if gen is None:
+            fail(f"{name}: no {instance} in iir.cu's codegen "
+                 f"({sorted(codegen)})")
+        log(f"kernel {kind} codegen", instance=instance, **gen)
+        row["kernel_codegen"] = gen
+    return rows
+
+
+# the time mode's high-passed, dithered signal on the card against the
+# CPU's: float32 rffts of 131,072 and 262,144 points in two libraries.
+# JAX's and PyTorch's CPU FFTs differ by 4.8e-7 at 65,536 points of noise
+# of amplitude 0.3 (tests/test_torch_filters.py); four times that
+ZERO_PHASE_CPU_TOL = 2e-6
+
+
+def phase_front_end_time(reps: int = 3) -> int:
+    """``[front end time]``: ``extract_features(highpass_mode="time")``
+    (the FFT high-pass on the waveform, ``ops.filters.zero_phase_highpass``,
+    before the gain and dither) on the 3 s and 8 s wavs of
+    ``phase_front_end``: one ``viterbi_decode`` launch an extraction and
+    no other. Against the CPU in two parts: the high-passed, dithered
+    signal within ``ZERO_PHASE_CPU_TOL`` of the CPU's, and the rest of the
+    path on the card's signal (the mel within ``FRONT_END_CPU_TOL`` and
+    the F0 on ``F0_AGREE`` of the frames of ``mel_spectrogram`` and
+    ``track_pitch`` on the CPU). The whole call on the CPU, with its own
+    high-pass, is reported beside it: the wav's digital-silence gap
+    holds only the dither (1e-6) and the high-pass's rounding, so a
+    frame's voicing there, and through the speaker normalization every
+    frame's F0 bin, follows the FFT library's rounding. ms an extraction
+    beside the ``"stft"`` mode's, in turns (time, stft, stft, time).
+    Returns the launches an extraction."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.ops.filters import zero_phase_highpass
+    from speechsplit_tpu_torch.ops.pitch import track_pitch
+    from speechsplit_tpu_torch.ops.stft import mel_spectrogram
+    from speechsplit_tpu_torch.preprocess import (
+        GENDER_F0_RANGE,
+        extract_features,
+        frame_count,
+        normalize_log_f0,
+        pad_batch,
+    )
+
+    lo, hi = GENDER_F0_RANGE["M"]
+    per_extraction = 0
+    for seconds, seed in ((SHORT_S, SEED), (LONG_S, SEED + 1)):
+        wav = synth_wav(seconds, 110.0, 180.0, seed)
+        batch, lengths = pad_batch([wav])
+        frames = frame_count(len(wav))
+        uniform = torch.rand(batch.shape,
+                             generator=torch.Generator().manual_seed(seed))
+
+        def run(mode="time", device="cuda"):
+            mel, f0 = extract_features(batch, lengths, [lo], [hi],
+                                       uniform=uniform, device=device,
+                                       highpass_mode=mode)
+            return mel[0, :frames].cpu().numpy(), f0[0, :frames].cpu().numpy()
+
+        def dithered(device):
+            """The signal the time mode's mel and tracker see
+            (preprocess.extract_features: high-pass, gain, dither)."""
+            w = torch.from_numpy(batch.astype(np.float32) / 32768.0)
+            y = zero_phase_highpass(w.to(device),
+                                    torch.from_numpy(lengths).to(device))
+            return y * 0.96 + (uniform.to(device) - 0.5) * 2.0 * 1e-6
+
+        run()  # warm-up: cuFFT plans at the extension's length
+        torch.cuda.synchronize()
+        reset_launches()
+        mel, f0 = run()
+        launches = read_launches()
+        if launches["viterbi_decode"] != 1 or any(
+                v for k, v in launches.items() if k != "viterbi_decode"):
+            fail(f"extract_features(time) launched {launches}, expected one "
+                 f"viterbi_decode")
+        per_extraction = launches["viterbi_decode"]
+        y_card = dithered("cuda").cpu()
+        y_err = float((y_card - dithered("cpu")).abs().max())
+        bounds = (torch.from_numpy(lengths), torch.tensor([lo]),
+                  torch.tensor([hi]))
+        mel_c = mel_spectrogram(y_card)[0, :frames].numpy()
+        f0_c = normalize_log_f0(track_pitch(y_card, *bounds))[
+            0, :frames].numpy()
+        err_cpu = float(np.abs(mel - mel_c).max())
+        agree = f0_agreement(f0, f0_c)
+        if not (np.isfinite(mel).all() and y_err <= ZERO_PHASE_CPU_TOL
+                and err_cpu <= FRONT_END_CPU_TOL and agree >= F0_AGREE):
+            fail(f"extract_features(time) {seconds} s, card vs CPU: the "
+                 f"high-passed signal {y_err}, on the card's signal mel "
+                 f"{err_cpu} and F0 agreement {agree}")
+        mel_w, f0_w = run(device="cpu")
+        mel_stft, _ = run("stft")
+        samples = {"time": [], "stft": []}
+        for _ in range(reps):
+            for mode in ("time", "stft", "stft", "time"):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                run(mode)  # ends in the fetch to the host
+                samples[mode].append((time.perf_counter() - start) * 1e3)
+        log("front end time", seconds=seconds, samples_padded=batch.shape[1],
+            frames=frames, viterbi_launches=per_extraction,
+            highpass_err_vs_cpu=f"{y_err:.3g}",
+            mel_err_vs_cpu_on_card_signal=f"{err_cpu:.3g}",
+            f0_bin_agreement_vs_cpu_on_card_signal=f"{agree:.4f}",
+            whole_call_mel_err_vs_cpu=f"{float(np.abs(mel - mel_w).max()):.3g}",
+            whole_call_f0_bin_agreement_vs_cpu=f"{f0_agreement(f0, f0_w):.4f}",
+            whole_call_voicing_agreement_vs_cpu=(
+                f"{float(((f0 > -1e9) == (f0_w > -1e9)).mean()):.4f}"),
+            mel_mean_abs_vs_stft_mode=(
+                f"{float(np.abs(mel - mel_stft).mean()):.3g}"),
+            voiced_share=f"{float((f0 > -1e9).mean()):.3f}",
+            ms_time_mode=f"{float(np.median(samples['time'])):.4f}",
+            ms_stft_mode=f"{float(np.median(samples['stft'])):.4f}",
+            timing="median of turns (time, stft, stft, time), host clock "
+                   "to the fetch")
+    return per_extraction
+
+
+# the [pitch decoders] phase's batch: 3 s synthetic utterances
+# (data.synthetic.random_utterance, alternating 95-135 and 175-235 Hz
+# bases), and the options it runs beside the default
+DECODER_BATCH = 16
+DECODER_OPTIONS = (("parallel_viterbi", dict(parallel_viterbi=True)),
+                   ("block_viterbi_4", dict(block_viterbi=4)),
+                   ("block_viterbi_16", dict(block_viterbi=16)),
+                   ("topk_by_max", dict(topk_by_sort=False)),
+                   ("nccf_by_conv", dict(nccf_by_conv=True)))
+# JAX's bars between its own decoders (tests/test_pitch.py:133-193: 1% of
+# frames may flip voicing on reassociated ties, F0 equal where both
+# voice) and for the conv NCCF (:283-290: 98% voicing, log-F0 within
+# 5e-3)
+DECODER_VOICING = 0.99
+CONV_VOICING = 0.98
+CONV_LOG_TOL = 5e-3
+# gross pitch error: a voiced frame more than 20% off the ground truth
+GPE_REL = 0.2
+
+
+def decoder_batch(seed: int):
+    """``DECODER_BATCH`` 3 s utterances [B, N] on the card, their
+    lengths, the gender bounds of each and the synthesis ground truth
+    (f0, voiced, scoreable) [B, T] of each."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.data.synthetic import random_utterance
+    from speechsplit_tpu_torch.preprocess import GENDER_F0_RANGE
+
+    n = int(SHORT_S * SAMPLE_RATE)
+    wavs, truth, bounds = [], [], []
+    rng = np.random.RandomState(seed)
+    for i in range(DECODER_BATCH):
+        base = (rng.uniform(95.0, 135.0) if i % 2 == 0
+                else rng.uniform(175.0, 235.0))
+        stim = random_utterance(seed * 101 + i, base, duration_s=SHORT_S)
+        wav = np.zeros(n, np.float32)
+        wav[: min(n, len(stim.wav))] = stim.wav[:n]
+        wavs.append(wav)
+        stim.wav = wav  # the ground truth at the cut length
+        for name in ("f0_per_sample", "voiced_per_sample", "transition"):
+            arr = getattr(stim, name)
+            cut = np.zeros(n, arr.dtype)
+            cut[: min(n, len(arr))] = arr[:n]
+            setattr(stim, name, cut)
+        truth.append(stim.frame_ground_truth())
+        bounds.append(GENDER_F0_RANGE["M" if i % 2 == 0 else "F"])
+    x = torch.from_numpy(np.stack(wavs)).to("cuda")
+    lengths = torch.full((DECODER_BATCH,), n, dtype=torch.int64)
+    lo = torch.tensor([b[0] for b in bounds])
+    hi = torch.tensor([b[1] for b in bounds])
+    gt = [np.stack([t[j] for t in truth]) for j in range(3)]
+    return x, lengths, lo, hi, gt
+
+
+def gross_pitch_error(logf0, gt) -> float:
+    """The share of scoreable frames voiced in the ground truth and in
+    ``logf0`` whose F0 is more than ``GPE_REL`` off the truth."""
+    import numpy as np
+
+    f0, voiced, scoreable = gt
+    est = logf0 > -1e9
+    both = scoreable & voiced & est
+    if not both.any():
+        return float("nan")
+    off = np.abs(np.exp(np.where(both, logf0, 0.0)) - f0) > GPE_REL * f0
+    return float((off & both).sum() / both.sum())
+
+
+def phase_pitch_decoders(reps: int = 3) -> dict:
+    """``[pitch decoders]``: ``track_pitch`` on the card over a B16 batch
+    of 3 s synthetic utterances with the default options and with each of
+    ``DECODER_OPTIONS``. Against the default: the parallel and block
+    decoders voice the same on ``DECODER_VOICING`` of the frames with F0
+    equal where both voice, ``topk_by_sort=False`` bit for bit,
+    ``nccf_by_conv=True`` on ``CONV_VOICING`` with log-F0 within
+    ``CONV_LOG_TOL``; the gross pitch error against the synthesis ground
+    truth of each; the ``viterbi_decode`` launches of a call (1 for the
+    serial decoder's options, 0 for the parallel and block decoders); ms
+    a call beside the default's, in turns. Returns {option: launches}."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.ops import pitch
+
+    x, lengths, lo, hi, gt = decoder_batch(SEED + 7)
+
+    def track(opts):
+        return pitch.track_pitch(x, lengths, lo, hi,
+                                 params=pitch.PitchParams(**opts))
+
+    track({})  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    base = track({}).cpu().numpy()
+    default_launches = read_launches()["viterbi_decode"]
+    if default_launches != 1:
+        fail(f"track_pitch launched viterbi_decode {default_launches} times")
+    gpe = {"default": gross_pitch_error(base, gt)}
+    out = {"default": default_launches}
+    for label, opts in DECODER_OPTIONS:
+        track(opts)
+        torch.cuda.synchronize()
+        reset_launches()
+        got = track(opts).cpu().numpy()
+        launches = read_launches()
+        serial = not (opts.get("parallel_viterbi") or opts.get(
+            "block_viterbi", 0) > 1)
+        if launches["viterbi_decode"] != int(serial) or any(
+                v for k, v in launches.items() if k != "viterbi_decode"):
+            fail(f"track_pitch {label} launched {launches}")
+        voiced, voiced_d = got > -1e9, base > -1e9
+        same_voicing = float((voiced == voiced_d).mean())
+        both = voiced & voiced_d
+        log_err = float(np.abs(got - base)[both].max()) if both.any() else 0.0
+        if label == "topk_by_max":
+            ok = np.array_equal(got, base)
+        elif label == "nccf_by_conv":
+            ok = same_voicing >= CONV_VOICING and log_err <= CONV_LOG_TOL
+        else:
+            ok = same_voicing >= DECODER_VOICING and log_err == 0.0
+        if not ok:
+            fail(f"track_pitch {label} against the default: voicing "
+                 f"{same_voicing}, log-F0 {log_err} where both voice")
+        samples = {"default": [], label: []}
+        for _ in range(reps):
+            for which in ("default", label, label, "default"):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                track({} if which == "default" else opts).cpu()
+                samples[which].append((time.perf_counter() - start) * 1e3)
+        gpe[label] = gross_pitch_error(got, gt)
+        out[label] = launches["viterbi_decode"]
+        log("pitch decoders", option=label,
+            shape=f"B{DECODER_BATCH}xN{x.shape[1]}",
+            voicing_same_as_default=f"{same_voicing:.4f}",
+            max_log_f0_diff_both_voiced=f"{log_err:.3g}",
+            bit_equal_default=bool(np.array_equal(got, base)),
+            viterbi_launches=launches["viterbi_decode"],
+            gross_pitch_error=f"{gpe[label]:.4f}",
+            gross_pitch_error_default=f"{gpe['default']:.4f}",
+            ms=f"{float(np.median(samples[label])):.4f}",
+            ms_default=f"{float(np.median(samples['default'])):.4f}",
+            timing="median of turns (default, option, option, default), "
+                   "host clock to the fetch")
+    return out
+
+
+def phase_pitch_native() -> None:
+    """``[pitch native]``: ``ops.pitch_native`` built here by g++ from the
+    port's ``csrc/rapt.cc`` (a host path: numpy in and out). Its voicing
+    and F0 against the card's ``track_pitch`` on the tones of
+    tests/test_pitch_native.py at that file's bars (voicing on more than
+    95% of the interior frames, a median within 10 cents where both
+    voice); the same measures, reported, on the ``[pitch decoders]``
+    batch; ms a 3 s utterance on the host."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.ops import pitch, pitch_native
+
+    start = time.perf_counter()
+    if not pitch_native.available():
+        fail("pitch_native: the g++ build of csrc/rapt.cc failed")
+    build_s = time.perf_counter() - start
+
+    def compare(native, device):
+        interior = slice(2, -4)
+        nv, dv = native[interior] > -1e9, device[interior] > -1e9
+        both = nv & dv
+        cents = 1200 * np.abs((native[interior][both]
+                               - device[interior][both]) / np.log(2))
+        return float((nv == dv).mean()), float(np.median(cents)) if (
+            both.any()) else float("nan")
+
+    n = SAMPLE_RATE
+    for f0, seed in ((110.0, 1), (200.0, 2), (320.0, 3)):
+        t = np.arange(n) / SAMPLE_RATE
+        r = np.random.RandomState(seed)
+        sig = sum(np.sin(2 * np.pi * f0 * h * t) / h for h in range(1, 5))
+        sig = sig + 0.005 * r.randn(n)
+        x = (sig / np.abs(sig).max() * 0.5).astype(np.float32)
+        native = pitch_native.track_pitch_native(x)
+        device = pitch.track_pitch(
+            torch.from_numpy(x[None]).to("cuda"), torch.tensor([n]),
+            torch.tensor([50.0]), torch.tensor([600.0]))[0].cpu().numpy()
+        agree, cents = compare(native, device)
+        if not (agree > 0.95 and cents < 10.0):
+            fail(f"pitch_native {f0} Hz tone against the card's tracker: "
+                 f"voicing {agree}, median {cents} cents")
+    x, lengths, lo, hi, _ = decoder_batch(SEED + 7)
+    device = pitch.track_pitch(x, lengths, lo, hi).cpu().numpy()
+    host = x.cpu().numpy()
+    samples, agrees, cents_all = [], [], []
+    for i in range(len(host)):
+        start = time.perf_counter()
+        native = pitch_native.track_pitch_native(
+            host[i], lo=float(lo[i]), hi=float(hi[i]))
+        samples.append((time.perf_counter() - start) * 1e3)
+        agree, cents = compare(native, device[i])
+        agrees.append(agree)
+        cents_all.append(cents)
+    log("pitch native", build_s=f"{build_s:.2f}", tones_checked=3,
+        ms_per_3s_utterance=f"{float(np.median(samples)):.4f}",
+        clock="host, one utterance a call",
+        voicing_agreement_speech=f"{float(np.mean(agrees)):.4f}",
+        median_cents_speech=f"{float(np.nanmedian(cents_all)):.3f}")
+
+
 # bfloat16 compute (``compute_dtype="bfloat16"``): W_hh in bfloat16, h_{t-1}
 # (and in the gradient d_pre) rounded to bfloat16 where a step's product
 # reads it. Kernel and plain version sum in other orders, so an operand
@@ -9494,6 +10187,13 @@ def main() -> int:
     rows["viterbi_decode"]["launches_an_extraction"] = per_extraction
     phase_vocoder(long_mel)
     serve_launches = phase_serve()
+    iir_rows = phase_iir()
+    rows["viterbi_decode"]["launches_an_extraction_time_mode"] = (
+        phase_front_end_time())
+    decoder_launches = phase_pitch_decoders()
+    rows["viterbi_decode"]["launches_a_track_pitch_call_by_option"] = (
+        decoder_launches)
+    phase_pitch_native()
     rows.update(phase_train_kernels())
     phase_bwd_probe()
     phase_infer_probe()
@@ -9626,6 +10326,16 @@ def main() -> int:
             fail(f"{name}: no launch on its main path")
         kernels.append(dict(name=name, **KERNELS[kernel], **extra,
                             dtypes=dtypes, library_ms=None, **rows[name]))
+    # the IIR kernel's instances: launches from [kernel sosfilt] and
+    # [kernel lfilter]'s main-path run (three zero-phase calls, two
+    # launches each)
+    for name, meta in IIR_KERNELS.items():
+        row = dict(iir_rows[name])
+        launches_iir = row.pop("main_path_launches")
+        if not launches_iir:
+            fail(f"{name}: no launch on its main path")
+        kernels.append(dict(name=name, **meta, launches=launches_iir,
+                            **row))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

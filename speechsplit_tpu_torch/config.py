@@ -176,3 +176,7 @@ def resolve_dtype(name: str) -> torch.dtype:
     if name not in table:
         raise ValueError(f"dtype must be one of {sorted(table)}, got {name!r}")
     return table[name]
+
+
+def default_config() -> SpeechSplitConfig:
+    return SpeechSplitConfig()

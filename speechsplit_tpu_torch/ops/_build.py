@@ -9,6 +9,11 @@ by a hash of their source, the ``csrc/*.cuh`` headers it includes
 one is loaded as it is. The first call builds every source
 at once, one ``nvcc`` process each.
 
+The host library of ``csrc/rapt.cc`` (``ops.pitch_native``) is built
+by ``g++`` instead (:func:`load_host`), on a machine with no card too,
+into the same directory under the same naming; ``build_all`` compiles
+only the ``*.cu`` sources.
+
 Nothing is built at import time: the CPU tests import every module on
 a machine with no ``nvcc`` and no card. :func:`source_constant` reads a
 limit a kernel owns from its source text, so Python holds the same
@@ -129,6 +134,35 @@ def load(stem: str) -> ctypes.CDLL:
         if stem not in _libs:
             _libs[stem] = ctypes.CDLL(str(target))
         return _libs[stem]
+
+
+def load_host(stem: str, flags: tuple) -> ctypes.CDLL:
+    """The loaded host library built from ``csrc/<stem>.cc`` by ``g++``
+    with ``flags``, named by a hash of the source and the flags and built
+    at first use; a build in a temporary file of this process is moved
+    into place, so concurrent processes each load a whole library."""
+    key = f"{stem}.cc"
+    lib = _libs.get(key)
+    if lib is not None:
+        return lib
+    source = CSRC / key
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    target = BUILD_DIR / f"lib{stem}_{digest}.so"
+    with _lock:
+        if key not in _libs:
+            if not target.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = target.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.run(
+                    ["g++", *flags, str(source), "-o", str(tmp)],
+                    capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"g++ failed on {key}:\n"
+                                       f"{proc.stdout}{proc.stderr}")
+                os.replace(tmp, target)
+            _libs[key] = ctypes.CDLL(str(target))
+        return _libs[key]
 
 
 def check(err: int, what: str, describe) -> None:

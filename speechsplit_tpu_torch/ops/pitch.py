@@ -8,27 +8,29 @@ of make_spect_f0.py:40-45):
 
 1. NCCF: the mean-subtracted normalized cross-correlation of every
    frame with itself at lags [fs/600, fs/50], for all frames of all
-   utterances at once (an rfft correlation; window sums from prefix
-   sums).
-2. Candidates: the top K local NCCF maxima a frame, parabolic lag
+   utterances at once (an rfft correlation, or with ``nccf_by_conv`` one
+   grouped convolution; window sums from prefix sums).
+2. Candidates: the top K local NCCF maxima a frame (a stable descending
+   sort, or with ``topk_by_sort=False`` K argmax passes), parabolic lag
    refinement.
-3. Viterbi over frames: K voiced states and one unvoiced state, the
-   serial decoder of JAX's ``_viterbi_scan`` (pitch.py:497-562).
+3. Viterbi over frames: K voiced states and one unvoiced state. The
+   serial decoder of JAX's ``_viterbi_scan`` (pitch.py:497-562) by
+   default, or JAX's parallel (``parallel_viterbi``, an associative
+   scan in JAX's association order) and block (``block_viterbi > 1``)
+   decoders, which are stock tensor ops on any device as in XLA.
 
-The decoder is the one recurrence of the front end. On CUDA tensors it
-runs in ``csrc/viterbi.cu`` (:func:`viterbi_decode`: a warp an
+The serial decoder is the one recurrence of the front end. On CUDA
+tensors it runs in ``csrc/viterbi.cu`` (:func:`viterbi_decode`: a warp an
 utterance, one launch for the batch, the forward pass and a warp-wide
 backtrace; the backpointers in shared memory while :func:`shared_plan`
 holds, about four minutes of audio at K = 12, else in device memory);
 on CPU tensors its plain version runs, the T-step loop in JAX's order of
-operations, which the tests hold to JAX. JAX's parallel and block
-decoders (``parallel_viterbi``, ``block_viterbi > 1``), its K argmax
-passes for the top K (``topk_by_sort=False``) and its grouped-conv NCCF
-(``nccf_by_conv=True``) wait in ROADMAP.md A6 and raise here.
+operations, which the tests hold to JAX.
 
 Candidate ties: ``jax.lax.top_k`` breaks them toward the lower index, and
 masked lags (all -2.0) tie often, so the top K come from a stable
-descending ``torch.sort``.
+descending ``torch.sort`` (or from argmax passes, which take the first
+maximum).
 """
 
 from __future__ import annotations
@@ -40,9 +42,9 @@ import torch
 import torch.nn.functional as F
 
 from speechsplit_tpu_torch.ops import _build
+from speechsplit_tpu_torch.ops.stft import exact_float32
 
 UNVOICED_LOG_F0 = -1e10  # sentinel shared with the reference pipeline
-A6 = "queued in ROADMAP.md A6"
 
 # kernel launches since the last reset; the main path's proof that it ran
 LAUNCHES = {"viterbi_decode": 0}
@@ -63,26 +65,15 @@ class PitchParams(NamedTuple):
     freq_weight: float = 0.25  # octave-jump transition penalty
     voice_bias: float = 0.0    # bias toward voiced decisions
     trans_cost: float = 0.3    # voiced<->unvoiced switch cost
-    parallel_viterbi: bool = False  # refused here: ROADMAP.md A6
-    block_viterbi: int = 0          # > 1 refused here: ROADMAP.md A6
-    topk_by_sort: bool = True   # False refused here: ROADMAP.md A6
-    nccf_by_conv: bool = False  # True refused here: ROADMAP.md A6
-
-
-def check_params(params: PitchParams) -> None:
-    """Refuse the options the port does not run."""
-    if not params.topk_by_sort:
-        raise NotImplementedError(
-            f"PitchParams(topk_by_sort=False) is {A6}")
-    if params.nccf_by_conv:
-        raise NotImplementedError(
-            f"PitchParams(nccf_by_conv=True) is {A6}")
-    if params.parallel_viterbi:
-        raise NotImplementedError(
-            f"PitchParams(parallel_viterbi=True) is {A6}")
-    if params.block_viterbi > 1:
-        raise NotImplementedError(
-            f"PitchParams(block_viterbi={params.block_viterbi}) is {A6}")
+    # the associative-scan decoder (_viterbi_parallel) instead of the
+    # serial one
+    parallel_viterbi: bool = False
+    # > 1: the radix-k block decoder (_viterbi_block); 0/1 the serial one
+    block_viterbi: int = 0
+    # the top K by a stable sort (True) or K argmax passes (False); equal
+    topk_by_sort: bool = True
+    # the NCCF numerator as one grouped convolution instead of an FFT
+    nccf_by_conv: bool = False
 
 
 def _windows(x: torch.Tensor, n_frames: int, hop: int,
@@ -127,11 +118,14 @@ def _window_prefix_sums(x: torch.Tensor):
 
 
 def _nccf(x: torch.Tensor, n_frames: int, hop: int, window: int, kmin: int,
-          kmax: int) -> torch.Tensor:
+          kmax: int, by_conv: bool = False) -> torch.Tensor:
     """Mean-subtracted NCCF of every frame: x [B, N] (zero-padded so that
     (n_frames-1)*hop + window + kmax <= N) -> [B, n_frames, kmax-kmin+1].
     Window means leave both legs through prefix sums:
-    sum (a-ā)(b-b̄) = sum ab - W·ā·b̄."""
+    sum (a-ā)(b-b̄) = sum ab - W·ā·b̄. The numerator sum_n x[n] x[n+k]
+    comes from an rfft correlation, or with ``by_conv`` from one grouped
+    convolution (pitch.py:117-133): every frame its own group, its first
+    ``window`` samples its filter, a valid correlation over its span."""
     batch = x.shape[0]
     n_lags = kmax - kmin + 1
     span = window + kmax
@@ -140,19 +134,28 @@ def _nccf(x: torch.Tensor, n_frames: int, hop: int, window: int, kmin: int,
     # the correlation in float64: where a lagged window is silent (the
     # zero padding past an utterance's end, digital silence) the
     # normalization below sits near its 1e-12 floor and multiplies the
-    # numerator by up to 1e6, so float32 FFT rounding there (which differs
-    # between cuFFT, pocketfft and JAX's FFT) would decide the frame's
-    # candidates; in float64 it is 1e-9 of a float32 ulp, and the card and
-    # the CPU agree
-    nfft = 1 << (span + window - 1).bit_length()
+    # numerator by up to 1e6, so float32 rounding there (which differs
+    # between cuFFT, pocketfft, cuDNN and JAX's FFT and convolution)
+    # would decide the frame's candidates; in float64 it is 1e-9 of a
+    # float32 ulp, and the card and the CPU agree
     frames64 = frames.double()
-    keep = torch.arange(span, device=x.device) < window
-    short = torch.where(keep, frames64, torch.zeros(
-        (), dtype=torch.float64, device=x.device))
-    spec_l = torch.fft.rfft(frames64, n=nfft, dim=-1)
-    spec_s = torch.fft.rfft(short, n=nfft, dim=-1)
-    corr = torch.fft.irfft(torch.conj(spec_s) * spec_l, n=nfft, dim=-1)
-    num = corr[..., kmin : kmax + 1].to(x.dtype)
+    if by_conv:
+        groups = batch * n_frames
+        with exact_float32():
+            out = F.conv1d(frames64.reshape(1, groups, span),
+                           frames64[..., :window].reshape(groups, 1, window),
+                           groups=groups)  # [1, B*T, kmax + 1]
+        num = out.reshape(batch, n_frames, -1)[..., kmin : kmax + 1]
+    else:
+        nfft = 1 << (span + window - 1).bit_length()
+        keep = torch.arange(span, device=x.device) < window
+        short = torch.where(keep, frames64, torch.zeros(
+            (), dtype=torch.float64, device=x.device))
+        spec_l = torch.fft.rfft(frames64, n=nfft, dim=-1)
+        spec_s = torch.fft.rfft(short, n=nfft, dim=-1)
+        corr = torch.fft.irfft(torch.conj(spec_s) * spec_l, n=nfft, dim=-1)
+        num = corr[..., kmin : kmax + 1]
+    num = num.to(x.dtype)
 
     sum_prefix, energy_prefix = _window_prefix_sums(x)
     starts = torch.arange(n_frames, device=x.device) * hop
@@ -173,6 +176,24 @@ def _nccf(x: torch.Tensor, n_frames: int, hop: int, window: int, kmin: int,
     return num_c * torch.rsqrt(e_0c * e_kc + 1e-12)
 
 
+def _top_k_by_max(x: torch.Tensor, k: int):
+    """The top k of each row of x [..., L] by k argmax passes
+    (pitch.py:170-194): each pass takes the first maximum (``torch.argmax``
+    returns the first, as ``jnp.argmax`` does) and masks it to -inf, so
+    the values descend and ties go to the lower index, as
+    ``jax.lax.top_k``'s. Returns (values, indices) [..., k]."""
+    iota = torch.arange(x.shape[-1], device=x.device)
+    minus_inf = torch.full((), -torch.inf, dtype=x.dtype, device=x.device)
+    vals, idx = [], []
+    cur = x
+    for _ in range(k):
+        pos = cur.argmax(dim=-1, keepdim=True)
+        vals.append(torch.gather(cur, -1, pos))
+        idx.append(pos)
+        cur = torch.where(iota == pos, minus_inf, cur)
+    return torch.cat(vals, dim=-1), torch.cat(idx, dim=-1)
+
+
 def _candidates(nccf: torch.Tensor, kmin: int, params: PitchParams):
     """The top K local maxima a frame with parabolic refinement:
     nccf [..., T, L] -> (lag [..., T, K] float, score [..., T, K])."""
@@ -183,8 +204,11 @@ def _candidates(nccf: torch.Tensor, kmin: int, params: PitchParams):
     masked = torch.where(is_peak, nccf, torch.full((), -2.0,
                                                    device=nccf.device))
     k = params.num_cands
-    score, pos = torch.sort(masked, dim=-1, descending=True, stable=True)
-    score, pos = score[..., :k], pos[..., :k]
+    if params.topk_by_sort:
+        score, pos = torch.sort(masked, dim=-1, descending=True, stable=True)
+        score, pos = score[..., :k], pos[..., :k]
+    else:
+        score, pos = _top_k_by_max(masked, k)
 
     pos_c = pos.clamp(1, n_lags - 2)
     ym = torch.gather(left, -1, pos_c)
@@ -349,21 +373,205 @@ def viterbi_decode(local_v: torch.Tensor, local_u: torch.Tensor,
     raise ValueError(f"viterbi_decode: tensors on {sorted(devices)}")
 
 
-def _viterbi(lag: torch.Tensor, score: torch.Tensor, kmax: int,
-             params: PitchParams):
-    """lag, score [B, T, K] -> (best_lag [B, T], voiced [B, T]): the
-    serial decoder and JAX's shared tail (pitch.py:550-562)."""
-    check_params(params)
-    k = lag.shape[-1]
-    usable, local_v, local_u, log_lag = _local_costs(lag, score, kmax, params)
-    states = viterbi_decode(local_v.contiguous(), local_u.contiguous(),
-                    log_lag.contiguous(), params.freq_weight,
-                    params.trans_cost).long()
+def _states_to_output(states: torch.Tensor, lag: torch.Tensor,
+                      usable: torch.Tensor, k: int):
+    """Shared tail of every decoder (pitch.py:273-280): states [..., T]
+    -> (best_lag, voiced); a voiced frame must have had a usable
+    candidate."""
     voiced = states < k
     state_c = states.clamp(0, k - 1)[..., None]
     best_lag = torch.gather(lag, -1, state_c)[..., 0]
     has_cand = torch.gather(usable, -1, state_c)[..., 0]
     return best_lag, voiced & has_cand
+
+
+def _first_frame_states(local_v: torch.Tensor, local_u: torch.Tensor):
+    """The state of a one-frame clip: the cheapest of its K + 1 local
+    costs, the first on a tie (pitch.py:310-314)."""
+    return torch.cat([local_v[:, 0], local_u[:, :1]], dim=-1).argmin(
+        dim=-1, keepdim=True)
+
+
+def _transition_stack(local_v: torch.Tensor, local_u: torch.Tensor,
+                      log_lag: torch.Tensor, params: PitchParams):
+    """The min-plus transition stack M [B, T-1, S, S] (the arrival's local
+    cost folded into the destination column) and the local-cost table
+    [B, T, S], S = K + 1 (pitch.py:256-270)."""
+    k = log_lag.shape[-1]
+    trans_vv = params.freq_weight * (
+        log_lag[:, 1:, None, :] - log_lag[:, :-1, :, None]).abs()
+    batch, steps = trans_vv.shape[:2]
+    m = torch.full((batch, steps, k + 1, k + 1), params.trans_cost,
+                   dtype=log_lag.dtype, device=log_lag.device)
+    m[..., :k, :k] = trans_vv
+    m[..., k, k] = 0.0  # unvoiced -> unvoiced is free
+    local = torch.cat([local_v, local_u[..., None]], dim=-1)
+    return m + local[:, 1:, None, :], local
+
+
+def _min_plus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(A (x) B)[p, s] = min_m A[p, m] + B[m, s] over the last two dims."""
+    return (a[..., :, :, None] + b[..., None, :, :]).amin(dim=-2)
+
+
+def _compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The backtrace's combine under a reversed scan (pitch.py:482-483):
+    combine(a, b)[i] = b[a[i]]."""
+    return torch.gather(b, -1, a)
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """[e0, o0, e1, o1, ...] along dim 0; ``even`` one longer or as long."""
+    pairs = torch.stack([even[: odd.shape[0]], odd], dim=1).flatten(0, 1)
+    return torch.cat([pairs, even[odd.shape[0]:]])
+
+
+def _associative_scan(fn, elems: torch.Tensor,
+                      reverse: bool = False) -> torch.Tensor:
+    """Inclusive scan of ``fn`` along dim 0 in the association order of
+    ``jax.lax.associative_scan``: combine adjacent pairs, scan the halves
+    by recursion, fill in the even elements; ``reverse`` flips the
+    sequence before and after. The min-plus sums then round as JAX's do,
+    and the decoders' costs equal JAX's."""
+    def scan(x):
+        n = x.shape[0]
+        if n < 2:
+            return x
+        odd = scan(fn(x[0:-1:2], x[1::2]))
+        if n % 2 == 0:
+            even = fn(odd[:-1], x[2::2])
+        else:
+            even = fn(odd, x[2::2])
+        return _interleave(torch.cat([x[:1], even]), odd)
+
+    if reverse:
+        return scan(elems.flip(0)).flip(0)
+    return scan(elems)
+
+
+def _viterbi_parallel(usable, local_v, local_u, log_lag, lag, k: int,
+                      params: PitchParams):
+    """The associative-scan decoder (pitch.py:408-494): prefix min-plus
+    products of the transition stack give every frame's costs, the
+    backpointers are a pointwise argmin, and the backtrace is a reversed
+    scan of map compositions. Materializes [B, T-1, S, S, S] a level."""
+    if lag.shape[1] == 1:
+        return _states_to_output(_first_frame_states(local_v, local_u), lag,
+                                 usable, k)
+    m, local = _transition_stack(local_v, local_u, log_lag, params)
+    prefix = _associative_scan(_min_plus, m.transpose(0, 1)).transpose(0, 1)
+    v0 = local[:, 0]  # [B, S]
+    cost = torch.cat([v0[:, None], (v0[:, None, :, None] + prefix).amin(
+        dim=2)], dim=1)  # [B, T, S]
+    back = (cost[:, :-1, :, None] + m).argmin(dim=2)  # [B, T-1, S]
+    end_state = cost[:, -1].argmin(dim=-1, keepdim=True)  # [B, 1]
+    suffix = _associative_scan(_compose, back.transpose(0, 1),
+                               reverse=True).transpose(0, 1)
+    states = torch.cat([torch.gather(
+        suffix, -1, end_state[:, None, :].expand(-1, suffix.shape[1], 1))[
+            ..., 0], end_state], dim=1)
+    return _states_to_output(states, lag, usable, k)
+
+
+def _viterbi_block(usable, local_v, local_u, log_lag, lag, k: int,
+                   params: PitchParams):
+    """The radix-``block_viterbi`` block decoder (pitch.py:282-392): each
+    block of transitions pre-combined into prefix composites, a serial
+    pass over the ceil((T-1)/radix) block composites, per-frame costs and
+    backpointers pointwise, and the backtrace through within-block suffix
+    compositions and a serial pass over the block maps."""
+    batch, t = lag.shape[:2]
+    s = k + 1
+    radix = int(params.block_viterbi)
+    if t == 1:
+        return _states_to_output(_first_frame_states(local_v, local_u), lag,
+                                 usable, k)
+    m, local = _transition_stack(local_v, local_u, log_lag, params)
+    device = m.device
+
+    # the T-1 transitions padded to whole blocks with min-plus identities
+    # (0 on the diagonal, 1e12 off it: past any real path's cost, finite
+    # in float32 sums)
+    n_blocks = -(-(t - 1) // radix)
+    pad = n_blocks * radix - (t - 1)
+    eye = torch.eye(s, dtype=torch.bool, device=device)
+    ident = torch.where(eye, 0.0, 1e12).to(m.dtype)
+    m_pad = torch.cat([m, ident.expand(batch, pad, s, s)], dim=1).reshape(
+        batch, n_blocks, radix, s, s)
+
+    # within-block prefix composites P[b, j] = M[b, 0] (x) ... (x) M[b, j]
+    prefs = [m_pad[:, :, 0]]
+    for j in range(1, radix):
+        prefs.append(_min_plus(prefs[-1], m_pad[:, :, j]))
+    prefix = torch.stack(prefs, dim=2)  # [B, n_blocks, radix, S, S]
+
+    # the serial pass over block composites: block-end costs
+    v = local[:, 0]
+    entries = [v]
+    for blk in range(n_blocks):
+        v = (v[:, :, None] + prefix[:, blk, -1]).amin(dim=1)
+        entries.append(v)
+    entries = torch.stack(entries[:-1], dim=1)  # [B, n_blocks, S]
+
+    # per-frame costs: cost[1 + b*radix + j] = min_p entries[b, p] +
+    # P[b, j, p, s]
+    inner = (entries[:, :, None, :, None] + prefix).amin(dim=3)
+    cost = torch.cat([local[:, :1], inner.reshape(batch, n_blocks * radix,
+                                                  s)[:, : t - 1]], dim=1)
+
+    # backpointers pointwise from the unpadded stack
+    back = (cost[:, :-1, :, None] + m).argmin(dim=2)  # [B, T-1, S]
+    end_state = cost[:, -1].argmin(dim=-1)  # [B]
+
+    # the backtrace: within-block suffix compositions Sfx[b, j] = g_j o
+    # ... o g_{radix-1} (identity maps past T-1), then a serial pass over
+    # the block maps from the end
+    id_map = torch.arange(s, device=device)
+    back_pad = torch.cat([back, id_map.expand(batch, pad, s)],
+                         dim=1).reshape(batch, n_blocks, radix, s)
+    sufs = [back_pad[:, :, radix - 1]]
+    for j in range(radix - 2, -1, -1):
+        sufs.append(torch.gather(back_pad[:, :, j], -1, sufs[-1]))
+    suffix = torch.stack(sufs[::-1], dim=2)  # [B, n_blocks, radix, S]
+
+    state = end_state[:, None]
+    boundaries = [None] * n_blocks
+    for blk in range(n_blocks - 1, -1, -1):
+        boundaries[blk] = state  # the state at frame (blk + 1) * radix
+        state = torch.gather(suffix[:, blk, 0], -1, state)
+    boundaries = torch.stack(boundaries, dim=1)  # [B, n_blocks, 1]
+
+    # inner states pointwise: state[b*radix + j] = Sfx[b, j][boundary_b]
+    inner_states = torch.gather(
+        suffix, -1, boundaries[:, :, None, :].expand(-1, -1, radix, 1))[
+            ..., 0].reshape(batch, -1)
+    states = torch.cat([inner_states, end_state[:, None]], dim=1)[:, :t]
+    return _states_to_output(states, lag, usable, k)
+
+
+def _viterbi_scan(usable, local_v, local_u, log_lag, lag, k: int,
+                  params: PitchParams):
+    """The serial decoder: :func:`viterbi_decode` and JAX's shared tail."""
+    states = viterbi_decode(local_v.contiguous(), local_u.contiguous(),
+                            log_lag.contiguous(), params.freq_weight,
+                            params.trans_cost).long()
+    return _states_to_output(states, lag, usable, k)
+
+
+def _viterbi(lag: torch.Tensor, score: torch.Tensor, kmax: int,
+             params: PitchParams):
+    """lag, score [B, T, K] -> (best_lag [B, T], voiced [B, T]). Dispatches
+    as JAX does (pitch.py:249-253): the parallel decoder, else the block
+    decoder for ``block_viterbi > 1``, else the serial one."""
+    k = lag.shape[-1]
+    usable, local_v, local_u, log_lag = _local_costs(lag, score, kmax, params)
+    if params.parallel_viterbi:
+        decode = _viterbi_parallel
+    elif params.block_viterbi > 1:
+        decode = _viterbi_block
+    else:
+        decode = _viterbi_scan
+    return decode(usable, local_v, local_u, log_lag, lag, k, params)
 
 
 def track_pitch(
@@ -382,7 +590,6 @@ def track_pitch(
     UNVOICED_LOG_F0 at unvoiced frames and past each length;
     T = N // hop + 1. The static lag span is the widest range (50-600
     Hz); lo/hi mask candidates an utterance."""
-    check_params(params)
     batch, n_samples = x.shape
     if n_frames is None:
         n_frames = n_samples // hop + 1
@@ -391,7 +598,8 @@ def track_pitch(
     span = params.window + kmax
     x_pad = F.pad(x, (0, (n_frames - 1) * hop + span))
 
-    nccf = _nccf(x_pad, n_frames, hop, params.window, kmin, kmax)
+    nccf = _nccf(x_pad, n_frames, hop, params.window, kmin, kmax,
+                 by_conv=params.nccf_by_conv)
     lag, score = _candidates(nccf, kmin, params)
     lo = lo.to(x.device, torch.float32)[:, None, None]
     hi = hi.to(x.device, torch.float32)[:, None, None]

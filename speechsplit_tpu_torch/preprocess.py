@@ -3,7 +3,8 @@
 make_spect_f0.py).
 
   reference (per file, host):            here (per batch, device):
-    scipy filtfilt high-pass               FFT zero-phase high-pass
+    scipy filtfilt high-pass               the high-pass on STFT bins, or
+                                           an FFT zero-phase high-pass
     *0.96 + seeded dither                  *0.96 + injected dither draws
     pySTFT -> mel -> dB -> [0,1]           ops.stft.mel_spectrogram
     pysptk RAPT -> log-F0                  ops.pitch.track_pitch
@@ -19,8 +20,9 @@ PRNG streams cannot be reproduced in torch, so the tests inject JAX's
 draws). :func:`extract_features_scan` runs K same-shape batches, the
 call ``data.prepare.extract_dir`` makes; :func:`extract_into_store`
 writes K batches' features straight into a device-resident store
-(``data.resident.build_resident_from_wavs``). The waveform high-pass
-(``highpass_mode="time"``) waits in ROADMAP.md A6.
+(``data.resident.build_resident_from_wavs``); both take
+:func:`extract_features`'s keywords (the front end's options, such as
+``highpass_mode`` and ``pitch_params``), as JAX's do.
 """
 
 from __future__ import annotations
@@ -32,7 +34,10 @@ import numpy as np
 import torch
 
 from speechsplit_tpu_torch import resolve_device
-from speechsplit_tpu_torch.ops.filters import butter_highpass
+from speechsplit_tpu_torch.ops.filters import (
+    butter_highpass,
+    zero_phase_highpass,
+)
 from speechsplit_tpu_torch.ops.pitch import (
     UNVOICED_LOG_F0,
     PitchParams,
@@ -102,19 +107,18 @@ def extract_features(
       uniform: [B, N] U(0, 1) draws for the dither; else ``generator``
         draws them on its own device. One of the two is needed.
       device: ``cuda`` unless given (see ``resolve_device``).
-      highpass_mode: "stft", the filter's |H|^2 on the STFT bins (the
-        production path); "time" is refused (ROADMAP.md A6).
+      highpass_mode: how the 30 Hz zero-phase high-pass is realized
+        (preprocess.py:85-94): "stft", the filter's |H|^2 on the STFT
+        bins before the mel projection (the production path); "time",
+        :func:`ops.filters.zero_phase_highpass` on the waveform before
+        the gain and dither, with no bin gain.
 
     Returns:
       mel [B, T, n_mels] in [0, 1] (frames past an utterance's end are
       garbage: cut with ``frame_count``) and f0_norm [B, T]: the
       speaker-normalized log-F0 in [0, 1], -1e10 at unvoiced frames.
     """
-    if highpass_mode == "time":
-        raise NotImplementedError(
-            'extract_features(highpass_mode="time") is queued in '
-            "ROADMAP.md A6")
-    if highpass_mode != "stft":
+    if highpass_mode not in ("stft", "time"):
         raise ValueError(highpass_mode)
     dev = resolve_device(device)
     wavs = _as_tensor(wavs, dev)
@@ -136,10 +140,17 @@ def extract_features(
         raise ValueError(f"uniform must be {tuple(wavs.shape)}, got "
                          f"{tuple(uniform.shape)}")
 
-    # gain + dither (make_spect_f0.py:55); the high-pass on the STFT bins
-    y = wavs * gain + (uniform - 0.5) * 2.0 * dither
-    bin_gain = _bin_gain_tensor(cutoff, float(sample_rate), order, n_fft,
-                                dev)
+    # gain + dither (make_spect_f0.py:55); the high-pass per mode
+    noise = (uniform - 0.5) * 2.0 * dither
+    if highpass_mode == "time":
+        y = zero_phase_highpass(wavs, lengths, cutoff=cutoff,
+                                fs=float(sample_rate), order=order)
+        y = y * gain + noise
+        bin_gain = None
+    else:
+        y = wavs * gain + noise
+        bin_gain = _bin_gain_tensor(cutoff, float(sample_rate), order,
+                                    n_fft, dev)
 
     mel = mel_spectrogram(y, sample_rate=sample_rate, n_fft=n_fft, hop=hop,
                           n_mels=n_mels, fmin=fmin, fmax=fmax,
@@ -160,10 +171,13 @@ def extract_features_scan(
     generator: Optional[torch.Generator] = None,
     compress: bool = False,
     device=None,
+    **static,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K same-shape batches of :func:`extract_features`
     (preprocess.py:189-246): wavs [K, B, N], lengths, f0_lo, f0_hi
-    [K, B] -> (mel [K, B, T, M], f0 [K, B, T]).
+    [K, B] -> (mel [K, B, T, M], f0 [K, B, T]). ``static`` takes
+    :func:`extract_features`'s keywords (``sample_rate`` ... ``gain``,
+    ``highpass_mode``, ``pitch_params``), as JAX's ``**static``.
 
     JAX scans the K batches inside one compiled program; here they are K
     calls, each batch's features those of :func:`extract_features` on it.
@@ -176,7 +190,7 @@ def extract_features_scan(
         mel, f0 = extract_features(
             wavs[k], lengths[k], f0_lo[k], f0_hi[k],
             uniform=None if uniform is None else uniform[k],
-            generator=generator, device=device)
+            generator=generator, device=device, **static)
         if compress:
             sentinel = torch.full((), UNVOICED_LOG_F0, dtype=torch.bfloat16,
                                   device=f0.device)
@@ -198,7 +212,7 @@ def extract_into_store(
     *,
     uniform=None,
     generator: Optional[torch.Generator] = None,
-    hop: int = 256,
+    **static,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K same-shape batches extracted and written in place into a
     device-resident feature store (preprocess.py:249-310): the features
@@ -218,9 +232,12 @@ def extract_into_store(
       uids: [K, B] host row ids into the store. JAX drops rows at
         ``uid >= U`` (the repeats that fill a short group); the port's
         groups hold no repeats, so a row out of range raises.
+      static: :func:`extract_features`'s keywords (``hop``,
+        ``highpass_mode``, ``pitch_params``, ...), as JAX's ``**static``.
 
     Returns (mel_store, f0_store).
     """
+    hop = static.get("hop", 256)
     uids = np.asarray(uids)
     u, t_pad = f0_store.shape
     if uids.size and (uids.min() < 0 or uids.max() >= u):
@@ -234,7 +251,7 @@ def extract_into_store(
         mel, f0 = extract_features(
             wavs[k], lengths[k], f0_lo[k], f0_hi[k],
             uniform=None if uniform is None else uniform[k],
-            generator=generator, device=dev, hop=hop)
+            generator=generator, device=dev, **static)
         t = mel.shape[1]
         if t > t_pad:
             raise ValueError(f"a batch of {t} frames does not fit a store "

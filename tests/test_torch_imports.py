@@ -103,6 +103,25 @@ def test_wrappers_refuse_bfloat16_on_cuda_path():
         multi_bilstm._check(1, (xp, xp), (w, w))
 
 
+def test_default_config_equals_jax():
+    from speechsplit_tpu.config import default_config as jax_default
+    from speechsplit_tpu_torch.config import default_config
+
+    assert dataclasses.asdict(default_config()) == dataclasses.asdict(
+        jax_default())
+    assert default_config() == SpeechSplitConfig()
+
+
+def test_ops_exports_equal_jax():
+    import speechsplit_tpu.ops as jax_ops
+    import speechsplit_tpu_torch.ops as ops
+
+    assert ops.__all__ == jax_ops.__all__
+    assert all(callable(getattr(ops, name)) or name == "UNVOICED_LOG_F0"
+               for name in ops.__all__)
+    assert ops.UNVOICED_LOG_F0 == jax_ops.UNVOICED_LOG_F0
+
+
 def test_config_fields_and_defaults_match_jax():
     ours = {f.name: f.default for f in dataclasses.fields(SpeechSplitConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
@@ -155,6 +174,14 @@ def test_scan_covers_the_parallel_package():
     assert {"speechsplit_tpu_torch/parallel/__init__.py",
             "speechsplit_tpu_torch/parallel/distributed.py",
             "speechsplit_tpu_torch/parallel/mesh.py"} <= files
+
+
+def test_scan_covers_the_front_end():
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {"speechsplit_tpu_torch/ops/filters.py",
+            "speechsplit_tpu_torch/ops/pitch.py",
+            "speechsplit_tpu_torch/ops/pitch_native.py",
+            "speechsplit_tpu_torch/data/synthetic.py"} <= files
 
 
 def test_resident_store_defaults_to_cuda(monkeypatch, tmp_path):

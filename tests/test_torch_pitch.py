@@ -1,8 +1,10 @@
 """The port's pitch tracker (``ops/pitch.py``) against the JAX package's:
 the NCCF, the candidates on JAX's own NCCF fields (ties
 included), the plain Viterbi decoder against ``_viterbi_scan`` on the
-same candidate fields, and ``track_pitch`` end to end. The decoder's
-CUDA kernel is held to the plain decoder on the card by chip_smoke.py."""
+same candidate fields, and ``track_pitch`` end to end, with its default
+options and with each other option (tests/test_torch_pitch_decoders.py
+holds those options' parts alone). The decoder's CUDA kernel is held to
+the plain decoder on the card by chip_smoke.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -149,11 +151,22 @@ def test_track_pitch_end_to_end(gender_range):
     dict(parallel_viterbi=True), dict(block_viterbi=4),
     dict(topk_by_sort=False), dict(nccf_by_conv=True)])
 def test_refused_decoders_raise(refused):
-    x = torch.zeros(1, 4096)
-    args = (x, torch.tensor([4096]), torch.tensor([50.0]),
-            torch.tensor([250.0]))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        pitch.track_pitch(*args, params=pitch.PitchParams(**refused))
+    """The four options the port once refused, each through track_pitch
+    on one utterance against JAX's with the same option, at
+    test_track_pitch_end_to_end's bar (tests/test_torch_pitch_decoders.py
+    holds each part alone)."""
+    x = _speech(7, 180.0, 16384)[None]
+    args = (x, np.array([16384], np.int32), np.array([50.0], np.float32),
+            np.array([600.0], np.float32))
+    want = np.asarray(jpitch.track_pitch(
+        *map(jnp.asarray, args), params=jpitch.PitchParams(**refused)))
+    got = pitch.track_pitch(*map(torch.from_numpy, args),
+                            params=pitch.PitchParams(**refused)).numpy()
+    assert got.shape == want.shape == (1, 65)
+    voiced_j, voiced_t = want > -1e9, got > -1e9
+    same = (voiced_j == voiced_t) & (~voiced_j | (np.abs(got - want) <= 1e-5))
+    assert same.mean() > 0.995, same.mean()
+    assert voiced_j.mean() > 0.2
 
 
 def test_kernel_wrapper_raises_without_a_library(monkeypatch, tmp_path):
