@@ -406,6 +406,27 @@ Phases, one line each; any failure exits non-zero:
     731-pair grid's fetch into pageable and into pinned memory; and
     utterances/s of the stream against the loop, in turns, at both
     sizes.
+24. ``[dtype pairs]``: the float32/bfloat16 sets JAX's recurrence ops
+    take beyond those its models form, and JAX's four stream switches,
+    which the ops bring to the kernels' instances by casts
+    (``ops.bilstm.kernel_set``, ``kernel_streams``; no instance is new):
+    each cast that rounds (g and c of a forward on float32 residuals, dx
+    of a gradient on them) through the merged op at B16 T192 H512 and
+    the single-direction op at H512 and H8, forward and gradient, equal
+    bit for bit to the instance that takes the set itself on the same
+    values, both timed; the fused op with W_ih and W_hh of two dtypes
+    (on the merged kernel) and a bfloat16 multi-stream xp on both plans
+    against their plain versions; a generator step at B16 x T192 under
+    ``LAYER_VJP="on"``, ``GRAD_STREAM_FOLLOWS_RESIDUAL=False`` and
+    ``DH_STREAM_FOLLOWS_RESIDUAL=False`` at the default config and under
+    ``XP_STREAM_FOLLOWS_COMPUTE=False`` and
+    ``H_STREAM_FOLLOWS_COMPUTE=True`` at bfloat16 compute, each within
+    2% of the plain step (PARITY.md #10) with its launches (counts set to
+    0 just before); the 4-pair ``convert_batched`` at bfloat16 compute
+    under the h switch, equal bit for bit to the call with it off and
+    within ``COMPUTE_PATH_TOL`` of the plain call; and, as a reading, the
+    same conversion through weights the bfloat16-compute models draw
+    from the seed, against its plain call with the switch off and on.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside the repo, it
@@ -1566,13 +1587,17 @@ def check_functions() -> None:
         ws = [leaf(4 * h, h, scale=h ** -0.5) for h in widths for _ in (0, 1)]
         dhs = [torch.randn(t, b, h, device="cuda", generator=gen)
                for h in widths for _ in (0, 1)]
+        # float32 residuals: the Function's gradients are autograd's
+        # through the float32 loop
         if op == "bilstm":
-            run = lambda *a: bilstm.bilstm_sequence(*a)  # noqa: E731
+            run = lambda *a: bilstm.bilstm_sequence(  # noqa: E731
+                *a, torch.float32)
             plain = bilstm.bilstm_sequence_reference
             node, lean = "BiLSTMFunction", "bilstm_infer"
         else:
             n = len(widths)
-            run = lambda *a: multi_bilstm.multi_bilstm_sequence(n, *a)  # noqa: E731
+            run = lambda *a: multi_bilstm.multi_bilstm_sequence(  # noqa: E731
+                n, *a, residual_dtype=torch.float32)
             plain = lambda *a: multi_bilstm.multi_bilstm_sequence_reference(  # noqa: E731
                 n, *a)
             node, lean = "MultiBiLSTMFunction", "multi_bilstm_infer"
@@ -3788,7 +3813,7 @@ def check_fused_functions() -> None:
         if read_launches()["bilstm_fused_infer"] != 1 or any(
                 o.grad_fn for o in outs):
             fail("no_grad did not take bilstm_fused_infer")
-        outs = bilstm.bilstm_sequence_fused(*inputs)
+        outs = bilstm.bilstm_sequence_fused(*inputs, torch.float32)
         if type(outs[0].grad_fn).__name__ != "BiLSTMFusedFunctionBackward":
             fail(f"autograd did not take BiLSTMFusedFunction: "
                  f"{outs[0].grad_fn}")
@@ -5071,7 +5096,7 @@ def check_lstm_functions() -> None:
                 out = lstm.lstm_sequence(xp, w, reverse)
             if read_launches()["lstm_infer"] != 1 or out.grad_fn:
                 fail("no_grad did not take lstm_infer")
-            out = lstm.lstm_sequence(xp, w, reverse)
+            out = lstm.lstm_sequence(xp, w, reverse, torch.float32)
             if type(out.grad_fn).__name__ != "LSTMFunctionBackward":
                 fail(f"autograd did not take LSTMFunction: {out.grad_fn}")
             got = torch.autograd.grad(out, (xp, w), dh)
@@ -10154,6 +10179,346 @@ def ab_main(other: str, rounds: int) -> int:
     return 0
 
 
+# [dtype pairs]: the float32/bfloat16 sets JAX's recurrence ops take and
+# JAX's stream switches. The kernels take the sets the models form; the
+# ops bring every other one to them by casts (ops.bilstm.kernel_set,
+# kernel_streams). The casts that round (g and c of a forward run on
+# float32 residuals, dx of a gradient run on them) are held bit for bit
+# against the instance that takes the set itself, on inputs whose values
+# both read alike (bfloat16 values in either type); the rest only widen.
+PAIR_SEED = SEED + 900
+# seeds of other weights the conversion under the h switch is read at
+# beside its plain call, with no bar (the bar holds at SEED's weights)
+WITNESS_SEEDS = (SEED + 1, SEED + 2)
+# the stream switches a generator step runs under, each at the config
+# where it acts: (switch, value, label of the config)
+SWITCH_STEPS = (("LAYER_VJP", "on", "default"),
+                ("GRAD_STREAM_FOLLOWS_RESIDUAL", False, "default"),
+                ("DH_STREAM_FOLLOWS_RESIDUAL", False, "default"),
+                ("XP_STREAM_FOLLOWS_COMPUTE", False, "bf16_compute"),
+                ("H_STREAM_FOLLOWS_COMPUTE", True, "bf16_compute"))
+
+
+def _exact(x, dtype):
+    """x's values rounded to bfloat16, held in ``dtype``: the same values
+    a bfloat16 stream and a float32 one of them read."""
+    import torch
+
+    return x.to(torch.bfloat16).to(dtype).contiguous()
+
+
+@contextlib.contextmanager
+def switched(**settings):
+    """``ops.bilstm``'s switches (the stream switches, ``LAYER_VJP``) set
+    as given for the block."""
+    from speechsplit_tpu_torch.ops import bilstm
+
+    saved = {name: getattr(bilstm, name) for name in settings}
+    for name, value in settings.items():
+        setattr(bilstm, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(bilstm, name, value)
+
+
+def _op_grads(op, inputs, dhs, settings):
+    """``op``'s outputs and its inputs' gradients for cotangents ``dhs``,
+    under the switches ``settings``, and the kernels it launched."""
+    import torch
+
+    leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+    with switched(**settings):
+        reset_launches()
+        outs = op(*leaves)
+        grads = torch.autograd.grad(
+            outs, leaves, [d.to(o.dtype) for d, o in zip(dhs, outs)])
+        torch.cuda.synchronize()
+    return list(outs) + list(grads), {k: v for k, v in
+                                      read_launches().items() if v}
+
+
+def route_row(label: str, op, inputs, twin_inputs, dhs, settings,
+              rounded=()) -> dict:
+    """``op`` on a set the ops bring to a kernel by a rounding cast,
+    under the switches ``settings``, against the same op on the set whose
+    instance takes it as it is (``twin_inputs``, the default switches),
+    each output and gradient equal bit for bit at the narrower type (the
+    outputs ``rounded`` at bfloat16: a float32 stream beside the twin's
+    bfloat16 one widened); both timed (forward and gradient)."""
+    import torch
+
+    got, launches = _op_grads(op, inputs, dhs, settings)
+    twin, twin_launches = _op_grads(op, twin_inputs, dhs, {})
+    if launches != twin_launches:
+        fail(f"route {label}: launches {launches}, its twin's "
+             f"{twin_launches}")
+    for k, (g, r) in enumerate(zip(got, twin)):
+        narrow = torch.bfloat16 if k in rounded or torch.bfloat16 in (
+            g.dtype, r.dtype) else torch.float32
+        if g.shape != r.shape or not torch.equal(g.to(narrow), r.to(narrow)):
+            bad = float((g.float() - r.float()).abs().max())
+            fail(f"route {label}: output {k} differs from its twin's ({bad})")
+    row = dict(twin="bit for bit",
+               ms=time_ms(lambda: _op_grads(op, inputs, dhs, settings), 3),
+               twin_ms=time_ms(lambda: _op_grads(op, twin_inputs, dhs, {}),
+                               3),
+               launches=json.dumps(launches).replace(" ", ""))
+    log(f"dtype pairs route {label}", **fmt(row))
+    return row
+
+
+def route_rows() -> dict:
+    """The rounding routes at the train shapes: the merged op at B16 T192
+    H512 and the single-direction one at H512 (its wide plan) and H8
+    (its narrow plan): a float32 xp beside a bfloat16 W_hh and bfloat16
+    residuals (``XP_STREAM_FOLLOWS_COMPUTE=False``'s set: float32
+    residuals rounded after the forward) against a bfloat16 xp of the same
+    values; a float32 dh (``DH_STREAM_FOLLOWS_RESIDUAL=False``) and a
+    float32 dx (``GRAD_STREAM_FOLLOWS_RESIDUAL=False``) beside bfloat16
+    residuals (the float32-residual gradient on the residuals widened)
+    against the default switches on a cotangent of bfloat16 values. Then
+    the sets that only widen or reroute, each against its plain version:
+    the fused op with W_ih and W_hh of two dtypes (the merged kernels)
+    at B16 I1024 H512, and a bfloat16 multi-stream xp on both plans."""
+    import torch
+
+    from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(PAIR_SEED)
+    for kind, h in (("merged", 512), ("single", 512), ("single", 8)):
+        if kind == "merged":
+            xf, xb, wf, wb = merged_inputs(T, TRAIN_B, h, PAIR_SEED + h)
+            xps, ws = [xf, xb], [wf, wb]
+            op = lambda *a: bilstm.bilstm_sequence(  # noqa: E731
+                *a, torch.bfloat16)
+        else:
+            xp, w, _ = lstm_inputs(T, TRAIN_B, h, PAIR_SEED + 2 * h)
+            xps, ws = [xp], [w]
+            op = lambda a, b: (lstm.lstm_sequence(  # noqa: E731
+                a, b, True, torch.bfloat16),)
+        dhs = [_exact(torch.randn(T, TRAIN_B, h, device="cuda",
+                                  generator=gen), f32) for _ in xps]
+        tag = f"{kind} H{h}"
+        rows[f"{tag} xp f32 W bf16"] = route_row(
+            f"{tag} xp=f32,W=bf16,R=bf16", op,
+            [_exact(x, f32) for x in xps] + [w.to(bf16) for w in ws],
+            [_exact(x, bf16) for x in xps] + [w.to(bf16) for w in ws],
+            dhs, {})
+        # the outputs, then the gradients: xp's follow the h's
+        xp_grads = range(len(xps), 2 * len(xps))
+        for switch, rounded in (("DH_STREAM_FOLLOWS_RESIDUAL", ()),
+                                ("GRAD_STREAM_FOLLOWS_RESIDUAL", xp_grads)):
+            rows[f"{tag} {switch}=False"] = route_row(
+                f"{tag} {switch}=False (W f32, R bf16)", op,
+                xps + ws, xps + ws, dhs, {switch: False}, rounded)
+    with torch.no_grad():
+        args = fused_inputs(T, TRAIN_B, 512, 1024, PAIR_SEED + 3)
+        for wi_dtype, w_dtype in ((f32, bf16), (bf16, f32)):
+            x, wi_f, wi_b, b_f, b_b, w_f, w_b = args
+            mixed = (x, wi_f.to(wi_dtype), wi_b.to(wi_dtype), b_f, b_b,
+                     w_f.to(w_dtype), w_b.to(w_dtype))
+            reset_launches()
+            got = bilstm.bilstm_sequence_fused(*mixed)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in read_launches().items() if v}
+            if launches != {"bilstm_infer": 1}:
+                fail(f"fused op, W_ih {wi_dtype}, W_hh {w_dtype}: launches "
+                     f"{launches}")
+            want = bilstm.bilstm_sequence_fused_reference(
+                bilstm.fused_input(x, wi_dtype), *mixed[1:])
+            label = f"fused W_ih={wi_dtype},W_hh={w_dtype}".replace(
+                "torch.", "")
+            rows[label] = dict(**check_flips(label, got, want),
+                               launches=json.dumps(launches))
+            log(f"dtype pairs route {label}", **fmt(rows[label]))
+        for hs in ((8, 32, 1), (8, 64, 1)):
+            xps, ws = multi_inputs(T, TRAIN_B, hs, PAIR_SEED + 4)
+            n = len(hs)
+            got = multi_bilstm.multi_bilstm_sequence(
+                n, *[_exact(x, bf16) for x in xps], *ws)
+            want = multi_bilstm.multi_bilstm_sequence_reference(
+                n, *[_exact(x, f32) for x in xps], *ws)
+            err = abs_err(got, want)
+            if not err <= KERNEL_TOL:
+                fail(f"multi-stream op, bfloat16 xp {hs}: {err} from the "
+                     f"plain version (tol {KERNEL_TOL})")
+            label = f"multi bf16 xp {hs}"
+            rows[label] = dict(max_abs_err=err, tol=KERNEL_TOL)
+            log(f"dtype pairs route {label}", **fmt(rows[label]))
+    return rows
+
+
+def switch_steps(batch) -> dict:
+    """A generator train step at B16 x T192 under each of
+    ``SWITCH_STEPS`` (the default config, or bfloat16 compute), against
+    the plain step at the same config and switch (the Functions on their
+    plain versions) at BF16_STEP_TOL (PARITY.md #10), with no plain
+    version called; returns the launches of each by kernel."""
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.ops import bilstm
+    from speechsplit_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+    )
+
+    configs = {"default": SpeechSplitConfig(),
+               "bf16_compute": compute_config()}
+    out = {}
+    for name, value, label in SWITCH_STEPS:
+        config = configs[label]
+        with switched(**{name: value}):
+            plain = create_train_state(config, SEED, "speechsplit")
+            with plain_training_kernels():
+                plain, plain_loss = make_train_step(config)(plain, batch)
+            plain_grads = grads_of(plain.model)
+            del plain
+            run = create_train_state(config, SEED, "speechsplit")
+            layer_calls = []
+            real = bilstm.BiLSTMLayerFunction.apply
+            bilstm.BiLSTMLayerFunction.apply = (
+                lambda *a: layer_calls.append(1) or real(*a))
+            torch.cuda.synchronize()
+            reset_launches()
+            try:
+                with plain_calls() as called:
+                    run, loss = make_train_step(config)(run, batch)
+                torch.cuda.synchronize()
+            finally:
+                del bilstm.BiLSTMLayerFunction.apply  # Function.apply again
+            launches = {k: v for k, v in read_launches().items() if v}
+        if called:
+            fail(f"step under {name}={value}: plain versions called "
+                 f"{sorted(set(called))}")
+        if (name == "LAYER_VJP") != bool(layer_calls):
+            fail(f"step under {name}={value}: {len(layer_calls)} "
+                 f"bilstm_layer calls")
+        if not (launches.get("bilstm_fwd") and launches.get("bilstm_bwd")):
+            fail(f"step under {name}={value}: launches {launches}")
+        worst, key = grad_err(grads_of(run.model), plain_grads)
+        loss_err = abs(float(loss) - float(plain_loss)) / abs(
+            float(plain_loss))
+        if not (loss_err <= BF16_STEP_TOL and worst <= BF16_STEP_TOL):
+            fail(f"step under {name}={value} vs the plain step: loss rel "
+                 f"err {loss_err}, grad rel err {worst} ({key}) > "
+                 f"{BF16_STEP_TOL}")
+        out[f"{name}={value}"] = launches
+        log("dtype pairs step", switch=f"{name}={value}", config=label,
+            batch=f"B{batch.mel.shape[0]}xT{T}",
+            loss_rel_err_vs_plain=f"{loss_err:.3g}",
+            max_grad_rel_err_vs_plain=f"{worst:.3g}", worst_param=key,
+            tol=BF16_STEP_TOL, bilstm_layer_calls=len(layer_calls),
+            launches=json.dumps(launches).replace(" ", ""))
+        del run
+    return out
+
+
+def _converted_err(result, plain) -> float:
+    """The largest mel difference over the largest magnitude."""
+    import numpy as np
+
+    return max(float(np.abs(a[1] - b[1]).max()) / max(
+        float(np.abs(b[1]).max()), 1e-30)
+        for ra, rb in zip(result, plain) for a, b in zip(ra, rb))
+
+
+def switch_convert() -> dict:
+    """``convert_batched`` at 4 pairs at bfloat16 compute, under
+    ``H_STREAM_FOLLOWS_COMPUTE``, through ``phase_convert_compute``'s
+    seeded models: its mels equal, bit for bit, to the same call with the
+    switch off (every reader of h rounds it to bfloat16 first, as JAX's
+    note on the switch says), finite, of the right lengths, and within
+    ``COMPUTE_PATH_TOL`` of the plain call. Then the same calls through
+    models drawn from each of ``WITNESS_SEEDS``: the switched mels equal
+    to the unswitched ones bit for bit, and, as a reading only (no bar),
+    each against the plain call. Returns the launches of the switched
+    call."""
+    import numpy as np
+    import torch
+
+    from speechsplit_tpu_torch.config import SpeechSplitConfig
+    from speechsplit_tpu_torch.convert import CONDITIONS, convert_batched
+    from speechsplit_tpu_torch.models import F0Converter, SpeechSplit
+
+    config = compute_config()
+    pairs = synthetic_pairs(SpeechSplitConfig(), 4, "cuda", SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    base = (SpeechSplit(SpeechSplitConfig(), generator=gen),
+            F0Converter(SpeechSplitConfig(), generator=gen))
+    g = SpeechSplit(config).to("cuda").eval()
+    p = F0Converter(config).to("cuda").eval()
+    g.load_state_dict(base[0].state_dict())
+    p.load_state_dict(base[1].state_dict())
+    off = convert_batched(g, p, pairs, CONDITIONS)
+    with switched(H_STREAM_FOLLOWS_COMPUTE=True):
+        torch.cuda.synchronize()
+        reset_launches()
+        result = convert_batched(g, p, pairs, CONDITIONS)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_launches().items() if v}
+        with plain_kernels():
+            plain = convert_batched(g, p, pairs, CONDITIONS)
+    if counts != {"bilstm_infer": 6, "multi_bilstm_infer": 2}:
+        fail(f"convert_batched under H_STREAM_FOLLOWS_COMPUTE: {counts}")
+    if not all(np.array_equal(a[1], b[1])
+               for ra, rb in zip(result, off) for a, b in zip(ra, rb)):
+        fail("convert_batched under H_STREAM_FOLLOWS_COMPUTE: mels differ "
+             "from the call with the switch off")
+    check_conversions(config, pairs, result)
+    err = _converted_err(result, plain)
+    if not err <= COMPUTE_PATH_TOL:
+        fail(f"convert_batched under H_STREAM_FOLLOWS_COMPUTE vs plain: "
+             f"{err} of the largest magnitude")
+    readings = {}
+    for seed in WITNESS_SEEDS:
+        gen = torch.Generator().manual_seed(seed)
+        g = SpeechSplit(config, generator=gen).to("cuda").eval()
+        p = F0Converter(config, generator=gen).to("cuda").eval()
+        drawn_off = convert_batched(g, p, pairs, CONDITIONS)
+        with switched(H_STREAM_FOLLOWS_COMPUTE=True):
+            drawn_on = convert_batched(g, p, pairs, CONDITIONS)
+        if not all(np.array_equal(a[1], b[1]) for ra, rb in zip(
+                drawn_on, drawn_off) for a, b in zip(ra, rb)):
+            fail(f"convert_batched under H_STREAM_FOLLOWS_COMPUTE, weights "
+                 f"of seed {seed}: mels differ from the switch off")
+        with plain_kernels():
+            drawn_plain = convert_batched(g, p, pairs, CONDITIONS)
+        # the switched call's equals it (checked above)
+        readings[f"seed_{seed}_vs_plain"] = (
+            f"{_converted_err(drawn_off, drawn_plain):.4g}")
+    log("dtype pairs convert", pairs=4, config="bf16_compute",
+        switch="H_STREAM_FOLLOWS_COMPUTE=True",
+        mels_vs_switch_off="bit for bit",
+        max_abs_err_over_max_vs_plain=f"{err:.3g}", tol=COMPUTE_PATH_TOL,
+        launches=json.dumps(counts).replace(" ", ""),
+        other_weights_on_vs_off="bit for bit", **readings)
+    return counts
+
+
+def phase_dtype_pairs(batch) -> None:
+    """[dtype pairs]: the rounding routes against their twins, bit for
+    bit, and the rerouted and widened sets against their plain versions
+    (:func:`route_rows`); five generator steps under the switches and a
+    conversion under the h switch, each against its plain call. No
+    kernel instance is new: every set and switch setting runs on the
+    instances the earlier phases hold against their plain versions."""
+    start = time.perf_counter()
+    with strict_float32("dtype pairs"):
+        rows = route_rows()
+    checked = time.perf_counter() - start
+    steps = switch_steps(batch)
+    with strict_float32("the conversion under the h switch"):
+        switch_convert()
+    log("dtype pairs", routes=len(rows), steps=len(steps),
+        new_kernel_instances=0, routes_seconds=f"{checked:.1f}",
+        seconds=f"{time.perf_counter() - start:.1f}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--against", metavar="DIR",
@@ -10241,6 +10606,7 @@ def main() -> int:
     rows.update(phase_lstm_compute_kernels())
     large_compute = phase_convert_large_compute()
     single_compute_gen, single_compute_f0 = phase_train_single_compute(batch)
+    phase_dtype_pairs(batch)
     log("done", seconds=f"{time.perf_counter() - wall:.1f}")
     # launches: the conversion call's for the inference kernels, one
     # default-config generator train step's for the training kernels (the

@@ -45,10 +45,12 @@ def _dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
            dtype: torch.dtype) -> torch.Tensor:
     """``x W^T + b`` at compute ``dtype``: at bfloat16 JAX's
     ``jnp.dot(x, W, preferred_element_type=float32) + b``, the product of
-    rounded operands summed in float32 and the bias added after it."""
+    rounded operands summed in float32 and the bias added after it (x
+    may be bfloat16 already: a recurrence's h under
+    ``H_STREAM_FOLLOWS_COMPUTE``)."""
     if dtype == torch.float32:
         return F.linear(x, weight, bias)
-    return F.linear(bilstm.operand(x, dtype),
+    return F.linear(bilstm.operand(x.float(), dtype),
                     bilstm.operand(weight, dtype)) + bias
 
 
@@ -185,17 +187,24 @@ class LSTM(nn.Module):
 
     Routes of a layer (the JAX layer's, layers.py:331-425): a
     bidirectional layer whose shape ``ops.bilstm.merged_bidir_fits`` runs
-    both directions in one merged launch, fused or composed; a
-    unidirectional layer, or a bidirectional one whose batch the merged
-    kernels cannot hold, runs ``ops.lstm.lstm_sequence`` once per
-    direction on ``F.linear(x, W_ih, b)``.
+    both directions in one merged launch, in JAX's order: fused where
+    ``ops.bilstm.fused_proj_plan`` approves, else ``ops.bilstm.
+    bilstm_layer`` where ``ops.bilstm.LAYER_VJP`` is "on", else composed
+    (the projection, then ``bilstm_sequence``); a unidirectional layer,
+    or a bidirectional one whose batch the merged kernels cannot hold,
+    runs ``ops.lstm.lstm_sequence`` once per direction on ``F.linear(x,
+    W_ih, b)``.
 
     ``residual_dtype`` (float32 or bfloat16; the JAX layer's field of
-    the same name, threaded from ``config.residual_dtype``) is the dtype
-    the layer's recurrences save their residuals in under autograd. In
-    eval and under ``no_grad`` nothing is saved and it changes nothing
-    but the xp streams' dtype below. Every route runs it in every kernel:
-    the merged ones, composed or fused, and the single-direction one.
+    the same name, threaded from ``config.residual_dtype``; None, the
+    default, is ``ops.bilstm.RESIDUAL_DTYPE``, bfloat16, as in JAX) is
+    the dtype the layer's recurrences save their residuals in under
+    autograd. In eval and under ``no_grad`` nothing is saved and it
+    changes nothing but the xp and h streams' dtypes below. Every route
+    runs it in every kernel: the merged ones, composed or fused, and the
+    single-direction one. h leaves each recurrence in
+    ``ops.bilstm._h_stream_dtype`` (bfloat16 only under
+    ``H_STREAM_FOLLOWS_COMPUTE`` at bfloat16 compute and residuals).
 
     ``dtype`` (``config.compute_dtype``): the projections follow
     ``Linear``, W_hh is cast to ``_recurrent_dtype`` at each use, and on
@@ -212,12 +221,12 @@ class LSTM(nn.Module):
                  generator: torch.Generator,
                  dtype: torch.dtype = torch.float32,
                  bidirectional: bool = True,
-                 residual_dtype: torch.dtype = torch.float32):
+                 residual_dtype: torch.dtype | None = None):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.dtype = dtype
-        self.residual_dtype = residual_dtype
+        self.residual_dtype = bilstm._resolve_residual(residual_dtype)
         self.bidirectional = bidirectional
         k = 1.0 / math.sqrt(hidden_size)
         four_h = 4 * hidden_size
@@ -306,14 +315,20 @@ class LSTM(nn.Module):
             wi_f, b_f = self._input_weights(sfx_f)
             wi_b, b_b = self._input_weights(sfx_b)
             w_f, w_b = self._w_hh(sfx_f), self._w_hh(sfx_b)
-            # fused or composed (the JAX layer's layers.py:359-401 without
-            # its layer-level VJP); both compute the same sums
+            # fused, the layer VJP or composed (the JAX layer's
+            # layers.py:359-401); all three compute the same forward sums
+            wd = w_f.dtype
             if bilstm.fused_proj_plan(t_len, batch, self.hidden_size,
-                                      x.shape[-1], w_f.dtype):
+                                      x.shape[-1], wd):
                 # the projection inside the kernel: no [T, B, 4H] stream;
                 # x and W_ih in W_hh's dtype
-                wd = w_f.dtype
                 h_f, h_b = bilstm.bilstm_sequence_fused(
+                    x.to(wd).contiguous(), wi_f.to(wd), wi_b.to(wd), b_f,
+                    b_b, w_f, w_b, self.residual_dtype)
+            elif bilstm.LAYER_VJP == "on":
+                # projection and recurrence in one Function: its backward
+                # forms dW_ih and dx at the residual dtype
+                h_f, h_b = bilstm.bilstm_layer(
                     x.to(wd).contiguous(), wi_f.to(wd), wi_b.to(wd), b_f,
                     b_b, w_f, w_b, self.residual_dtype)
             else:

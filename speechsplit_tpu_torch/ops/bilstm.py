@@ -31,24 +31,56 @@ math the kernels implement, not autograd of a plain loop.
 
 Precision, as the JAX op's (``bilstm_sequence(..., residual_dtype)``):
 under autograd the residuals g and c are saved in ``residual_dtype``,
-float32 or bfloat16 (the JAX default). With bfloat16 the gradient reads
-dh rounded to bfloat16 and writes dxp in bfloat16, its d_pre carry stays
-float32 (pallas_lstm.py:103, :163, :826); dW_hh rounds h and dxp to
-bfloat16 and sums in float32 (``_dw_contract``); dxp goes back to
-autograd in xp's dtype. h is float32 throughout.
+float32 or bfloat16; None is :data:`RESIDUAL_DTYPE`, bfloat16, the JAX
+default (pallas_lstm.py:79-83). JAX's four stream switches
+(pallas_lstm.py:86-210) are this module's, with their names and
+defaults, read where a call is made:
+- ``GRAD_STREAM_FOLLOWS_RESIDUAL``: the gradient kernel writes dxp in
+  bfloat16 beside bfloat16 residuals (:func:`_grad_stream_dtype`), its
+  d_pre carry float32 either way (pallas_lstm.py:826);
+- ``DH_STREAM_FOLLOWS_RESIDUAL``: the cotangent dh enters it rounded to
+  bfloat16 beside bfloat16 residuals (:func:`_dh_stream_dtype`);
+- ``XP_STREAM_FOLLOWS_COMPUTE``: a layer feeds bfloat16 xp streams where
+  W_hh and the residuals are both bfloat16 (:func:`stream_dtype`);
+- ``H_STREAM_FOLLOWS_COMPUTE`` (off): the forwards write h in bfloat16
+  where W_hh and the residuals are both bfloat16
+  (:func:`_h_stream_dtype`); only the stored h is rounded, the carry
+  stays float32, so the bfloat16 h is the float32 h rounded, bit for bit.
+dW_hh rounds h and dxp to the residual dtype and sums in float32
+(``_dw_contract``), then takes W's dtype; dxp goes back to autograd in
+xp's dtype. The switches exist for parity with JAX's ops and its switch
+tests; no model of the port sets them.
 
-bfloat16 compute (the JAX ``compute_dtype="bfloat16"``): ``w_f``, ``w_b``
-in bfloat16. A step's product reads h_{t-1} rounded to bfloat16
-(``_cell``, pallas_lstm.py:591-594) and the gradient's reads d_pre
-rounded to bfloat16 (``_cell_bwd``, :825-828); the sums, gates, c and h
-stay float32. The xp streams are bfloat16 where the residuals are too
-(:func:`stream_dtype`), else float32; dW_hh is rounded to W's dtype
-(:542). The fused op takes x, W_ih and W_hh in one dtype, float32 or
-bfloat16 (JAX casts all three to W_hh's), the biases float32: its
-projection multiplies x and W_ih and sums in float32, then adds the bias
-(``_proj``, pallas_lstm.py:1207-1220), its gate inputs stay float32 in
-the kernel and h is float32; under autograd it saves g and c in
-``residual_dtype`` and its backward follows ``_bdp_vjp_bwd``.
+The ops take every float32/bfloat16 set JAX's ops take
+(:func:`check_compute`): xp of either dtype beside W_hh of either, at
+either residual dtype. A bfloat16 W_hh (the JAX ``compute_dtype=
+"bfloat16"``) makes a step's product read h_{t-1} rounded to bfloat16
+(``_cell``, pallas_lstm.py:591-594) and the gradient's read d_pre rounded
+to bfloat16 (``_cell_bwd``, :825-828); a bfloat16 xp is widened where it
+is read; the sums, gates, c and the h carry stay float32. The fused op
+takes x, the pair W_ih and the pair W_hh each in float32 or bfloat16
+(:func:`check_fused_compute`), the biases float32: its projection
+multiplies x rounded to W_ih's dtype by W_ih and sums in float32, then
+adds the bias (``_proj``, pallas_lstm.py:1207-1220); under autograd it
+saves g and c in ``residual_dtype`` and its backward follows
+``_bdp_vjp_bwd``.
+
+The kernels take the sets the models form (:func:`kernel_set`); the ops
+bring every other set or switch setting to one of them by casts that
+change no value: a bfloat16 stream is widened to float32 before the
+launch, and an output the op wants narrower than the kernel wrote (h, g
+and c of a forward, dx of the gradient) is rounded after it, as a kernel
+rounds where it stores, its carries float32. So every set runs the
+kernels, and each result equals JAX's rounding bit for bit where JAX's
+does. The fused kernels take W_ih and W_hh in one dtype; a mixed pair
+(no model forms one) projects outside them and runs the merged kernels,
+the route ``PROJ_FUSION = "off"`` takes.
+
+:func:`bilstm_layer` (JAX's ``bilstm_layer``, routed by ``LAYER_VJP``,
+"off" as in JAX) spans the projection and the recurrence in one
+``autograd.Function``: the same forward as the composed path, and a
+backward that forms dW_ih and dx from operands rounded to the residual
+dtype (``_layer_vjp_bwd``, pallas_lstm.py:1071-1101).
 """
 
 from __future__ import annotations
@@ -67,11 +99,24 @@ LAUNCHES = {"bilstm_infer": 0, "bilstm_fwd": 0, "bilstm_bwd": 0,
             "bilstm_fused_infer": 0, "bilstm_fused_fwd": 0}
 
 MAX_HIDDEN = 512
-# the residual dtypes the training kernels store (pallas_lstm.py:79: JAX's
-# default is bfloat16)
+# the residual dtypes the training kernels store
 RESIDUAL_DTYPES = (torch.float32, torch.bfloat16)
-# where the port refuses what the JAX package runs with bfloat16
-A4C = "queued in ROADMAP.md A4c"
+# the dtype residual_dtype=None stands for (pallas_lstm.py:79)
+RESIDUAL_DTYPE = torch.bfloat16
+# the element types the ops take for every stream and weight
+DTYPES = (torch.float32, torch.bfloat16)
+
+# JAX's stream switches (pallas_lstm.py:103, :118, :145, :163), with their
+# defaults; see the module docstring
+GRAD_STREAM_FOLLOWS_RESIDUAL = True
+XP_STREAM_FOLLOWS_COMPUTE = True
+DH_STREAM_FOLLOWS_RESIDUAL = True
+H_STREAM_FOLLOWS_COMPUTE = False
+
+# "on": a merged BiLSTM layer the fused plan does not take runs
+# bilstm_layer; "off": the projection, then bilstm_sequence. Off by
+# default, as in the JAX package (pallas_lstm.py:1018).
+LAYER_VJP = "off"
 
 # "auto": a merged BiLSTM layer projects its input inside the kernel
 # wherever fused_proj_plan approves; "off": never. Off by default, as in
@@ -87,6 +132,45 @@ _INFER_SPLIT_MAX_H = _build.source_constant("bilstm_infer", "kSplitMaxH")
 _BWD_UNITS = _build.source_constant("bilstm_bwd", "kMaxUnits")
 _BWD_VALS = _build.source_constant("bilstm_bwd", "kVals")
 _BWD_SMEM_FLOATS = _build.source_constant("bilstm_bwd", "kBwdSmemFloats")
+
+
+def _resolve_residual(residual_dtype) -> torch.dtype:
+    """``residual_dtype``, or :data:`RESIDUAL_DTYPE` for None
+    (pallas_lstm._resolve_residual)."""
+    return RESIDUAL_DTYPE if residual_dtype is None else residual_dtype
+
+
+def _grad_stream_dtype(residual_dtype) -> torch.dtype:
+    """The dtype of the dxp stream the gradient writes: bfloat16 beside
+    bfloat16 residuals while ``GRAD_STREAM_FOLLOWS_RESIDUAL`` (pallas_lstm.
+    py:193-197), else float32."""
+    rd = _resolve_residual(residual_dtype)
+    if GRAD_STREAM_FOLLOWS_RESIDUAL and rd == torch.bfloat16:
+        return torch.bfloat16
+    return torch.float32
+
+
+def _dh_stream_dtype(compute_dtype, residual_dtype) -> torch.dtype:
+    """The dtype the cotangent dh enters the gradient in:
+    bfloat16 beside bfloat16 residuals while ``DH_STREAM_FOLLOWS_RESIDUAL``
+    (pallas_lstm.py:166-177; the compute dtype does not enter), else
+    float32."""
+    del compute_dtype
+    rd = _resolve_residual(residual_dtype)
+    if DH_STREAM_FOLLOWS_RESIDUAL and rd == torch.bfloat16:
+        return torch.bfloat16
+    return torch.float32
+
+
+def _h_stream_dtype(compute_dtype, residual_dtype) -> torch.dtype:
+    """The dtype of the h stream the forwards write: bfloat16 where W_hh's
+    ``compute_dtype`` and the residuals are both bfloat16 while
+    ``H_STREAM_FOLLOWS_COMPUTE`` (pallas_lstm.py:180-190), else float32."""
+    rd = _resolve_residual(residual_dtype)
+    if (H_STREAM_FOLLOWS_COMPUTE and compute_dtype == torch.bfloat16
+            and rd == torch.bfloat16):
+        return torch.bfloat16
+    return torch.float32
 
 
 def _work_dtype(dtype) -> torch.dtype:
@@ -183,7 +267,7 @@ def lstm_direction_backward_reference(dh, g, c, w, reverse: bool,
 def bilstm_forward_reference(xp_f, xp_b, w_f, w_b, residual_dtype=None):
     """The plain version of the residual-saving kernel:
     ``(h_f, h_b, g_f, g_b, c_f, c_b)``, as ``_bd_fwd`` returns them, g and
-    c in ``residual_dtype`` (None: xp's dtype)."""
+    c in ``residual_dtype`` (None: the working dtype)."""
     h_f, g_f, c_f = lstm_direction_forward_reference(xp_f, w_f, False,
                                                      residual_dtype)
     h_b, g_b, c_b = lstm_direction_forward_reference(xp_b, w_b, True,
@@ -207,13 +291,31 @@ def bilstm_backward_reference(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f, w_b):
 
 def project(x, wi, b):
     """The fused kernels' projection ``x W_ih^T + b`` [.., 4H], float32:
-    one ``F.linear`` at float32; with x and W_ih in bfloat16 (bfloat16
-    compute) the products of the widened values summed in float32, then
-    the float32 bias (JAX's ``_proj``). A product of two bfloat16 values
-    is exact in float32 (and in TF32)."""
+    one ``F.linear`` at float32; otherwise x rounded to W_ih's dtype
+    (``_proj``'s ``x.astype(wi.dtype)``), the products of the widened
+    values summed in float32, then the float32 bias (JAX's ``_proj``). A
+    product of two bfloat16 values is exact in float32 (and in TF32)."""
+    x = fused_input(x, wi.dtype)
     if x.dtype == torch.float32 and wi.dtype == torch.float32:
         return F.linear(x, wi, b)
     return F.linear(x.float(), wi.float()) + b
+
+
+def project_promoted(x, wi, b):
+    """``x W_ih^T + b`` as JAX's ``_project_xla`` forms it (the layer
+    VJP's projection, pallas_lstm.py:1021-1025): x and W_ih of one dtype
+    as :func:`project` multiplies them; of two, both widened to float32
+    (``jnp.dot``'s promotion), x never rounded."""
+    if x.dtype != wi.dtype:
+        x, wi = x.float(), wi.float()
+    return project(x, wi, b)
+
+
+def fused_input(x, wi_dtype):
+    """x as the fused kernels stream it, in W_ih's dtype: rounded to
+    bfloat16 (nearest even, as ``_proj``'s ``x.astype(wi.dtype)``) or
+    widened to float32 (exact)."""
+    return x.to(wi_dtype)
 
 
 def bilstm_fused_forward_reference(x, wi_f, wi_b, b_f, b_b, w_f, w_b,
@@ -325,9 +427,12 @@ def fused_proj_plan(t: int, b: int, h: int, i: int, dtype) -> bool:
 
 def stream_dtype(w_dtype, residual_dtype) -> torch.dtype:
     """The dtype of the xp streams a layer feeds the merged kernels:
-    bfloat16 where W_hh and the residuals both are, else float32
-    (``pallas_lstm.stream_dtype``, pallas_lstm.py:197-205)."""
-    if w_dtype == torch.bfloat16 and residual_dtype == torch.bfloat16:
+    bfloat16 where W_hh and the residuals (None: :data:`RESIDUAL_DTYPE`)
+    are both bfloat16 while ``XP_STREAM_FOLLOWS_COMPUTE``, else float32
+    (``pallas_lstm.stream_dtype``, pallas_lstm.py:200-209)."""
+    rd = _resolve_residual(residual_dtype)
+    if (XP_STREAM_FOLLOWS_COMPUTE and w_dtype == torch.bfloat16
+            and rd == torch.bfloat16):
         return torch.bfloat16
     return torch.float32
 
@@ -339,29 +444,46 @@ def check_residual_dtype(dtype, what: str) -> None:
                          f"bfloat16, got {dtype}")
 
 
-def check_compute(xp_dtype, w_dtype, residual_dtype=None,
-                  what: str = "bilstm_sequence") -> None:
+def check_compute(xp_dtype, w_dtype, what: str = "bilstm_sequence") -> None:
     """The dtypes the recurrences run (the merged forwards, and ``what``
-    ``lstm_sequence`` the single-direction ones): a float32 W_hh with
-    float32 xp; a bfloat16 W_hh (bfloat16 compute) with float32 or
-    bfloat16 xp, and under autograd (``residual_dtype`` given) with xp in
-    the residuals' dtype (:func:`stream_dtype`). Anything else raises:
-    another dtype a ValueError, a bfloat16 pair JAX never forms
-    NotImplementedError."""
+    ``lstm_sequence`` the single-direction ones): xp and W_hh each
+    float32 or bfloat16, in any pair, as JAX's ops take them; another
+    dtype raises ValueError."""
     for name, dtype in (("xp", xp_dtype), ("w", w_dtype)):
-        if dtype not in (torch.float32, torch.bfloat16):
+        if dtype not in DTYPES:
             raise ValueError(f"{what}: {name} must be float32 or "
                              f"bfloat16, got {dtype}")
+
+
+def kernel_set(xp_dtype, w_dtype, residual_dtype=None):
+    """``(xp dtype, residual dtype)`` of the forward kernel instance that
+    runs a set (``residual_dtype`` None: the lean forward). The kernels
+    take the sets the models form: xp float32 beside a float32 W_hh, and
+    beside a bfloat16 one xp of either dtype, in the residuals' dtype
+    where they are saved; such a set runs as it is. Another runs with xp
+    widened to float32 and, beside a bfloat16 W_hh, float32 residuals
+    that the op rounds after the launch. Neither cast changes a value
+    the kernel computes: a kernel widens each stream where it reads it,
+    and computes g and c in float32, rounding them only where it stores
+    them."""
     if w_dtype == torch.float32:
-        ok = xp_dtype == torch.float32
-    else:
-        ok = residual_dtype is None or xp_dtype == residual_dtype
-    if not ok:
-        raise NotImplementedError(
-            f"{what} runs xp {xp_dtype} beside W_hh {w_dtype} "
-            f"(residuals {residual_dtype}) nowhere; its kernels take the JAX "
-            f"stream dtype (stream_dtype); other pairs are {A4C}"
-        )
+        return torch.float32, residual_dtype
+    if residual_dtype is None or xp_dtype == residual_dtype:
+        return xp_dtype, residual_dtype
+    return torch.float32, torch.float32
+
+
+def check_kernel_set(xp_dtype, w_dtype, residual_dtype=None,
+                     what: str = "bilstm_sequence") -> None:
+    """Refuse, with ValueError, a set no forward kernel instance takes
+    (:func:`kernel_set`; the ops bring every set to one that does)."""
+    check_compute(xp_dtype, w_dtype, what)
+    if kernel_set(xp_dtype, w_dtype, residual_dtype) != (
+            xp_dtype, residual_dtype):
+        raise ValueError(
+            f"{what} takes xp {xp_dtype} beside W_hh {w_dtype} (residuals "
+            f"{residual_dtype}) nowhere: xp is float32, or beside a "
+            f"bfloat16 W_hh in the residuals' dtype (kernel_set)")
 
 
 def _check(xp_f, xp_b, w_f, w_b) -> None:
@@ -397,8 +519,8 @@ def _check(xp_f, xp_b, w_f, w_b) -> None:
 
 def _check_residuals(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f) -> None:
     """The gradient kernel's inputs beside the forward's checks: dh, g
-    and c all in one residual dtype, float32 or bfloat16 (dh follows the
-    residuals, pallas_lstm.py:163)."""
+    and c all in one residual dtype, float32 or bfloat16 (the op brings a
+    dh of another dtype to it, :func:`_recurrence_backward`)."""
     shape = tuple(g_f.shape)
     hshape = shape[:2] + (shape[2] // 4,)
     check_residual_dtype(g_f.dtype, "bilstm_bwd")
@@ -419,30 +541,35 @@ def _check_residuals(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f) -> None:
 
 
 def check_fused_compute(x, wi_f, wi_b, b_f, b_b, w_f, w_b) -> None:
-    """The dtypes the fused kernels run: x, W_ih and W_hh in one dtype,
-    float32 or bfloat16 (JAX's fused call casts all three to W_hh's), the
-    biases float32. Another dtype raises ValueError; a mix of the two,
-    which JAX never forms, NotImplementedError."""
+    """The dtypes the fused op runs: x, the W_ih pair and the W_hh pair
+    each float32 or bfloat16 on its own (each pair in one dtype), the
+    biases float32. The kernels stream x in W_ih's dtype
+    (:func:`fused_input`); anything else raises ValueError."""
     ops = (x, wi_f, wi_b, w_f, w_b)
     for t in ops:
-        if t.dtype not in (torch.float32, torch.bfloat16):
+        if t.dtype not in DTYPES:
             raise ValueError(f"bilstm_sequence_fused takes float32 or "
                              f"bfloat16 x and weights, got {t.dtype}")
     if b_f.dtype != torch.float32 or b_b.dtype != torch.float32:
         raise ValueError("bilstm_sequence_fused takes float32 biases")
-    if len({t.dtype for t in ops}) > 1:
-        raise NotImplementedError(
-            f"bilstm_sequence_fused runs x, W_ih and W_hh in one dtype, got "
-            f"{[str(t.dtype) for t in ops]}; other mixes are {A4C}"
-        )
+    if wi_f.dtype != wi_b.dtype or w_f.dtype != w_b.dtype:
+        raise ValueError(
+            f"bilstm_sequence_fused takes each weight pair in one dtype, "
+            f"got W_ih {wi_f.dtype}/{wi_b.dtype}, W_hh "
+            f"{w_f.dtype}/{w_b.dtype}")
 
 
 def _check_fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b) -> None:
     """The fused kernels' inputs: x [T, B, I], wi [4H, I], b [4H],
     w [4H, H], contiguous, in the dtypes :func:`check_fused_compute`
-    takes."""
+    takes, x, W_ih and W_hh in one dtype (the op brings x to W_ih's,
+    :func:`fused_input`, and runs a mixed weight pair on the merged
+    kernels)."""
     tensors = (x, wi_f, wi_b, b_f, b_b, w_f, w_b)
     check_fused_compute(*tensors)
+    if len({x.dtype, wi_f.dtype, w_f.dtype}) > 1:
+        raise ValueError(f"the fused kernels take x, W_ih and W_hh in one "
+                         f"dtype, got {x.dtype}, {wi_f.dtype}, {w_f.dtype}")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("bilstm_sequence_fused needs contiguous tensors")
     if x.dim() != 3:
@@ -523,7 +650,7 @@ def _bilstm_infer_plan(xp_f, xp_b, w_f, w_b, splits: int):
     for the source's plan, or 1 or 2 forced, which only a measurement of
     the plans asks for. h is float32 at every compute dtype."""
     _check(xp_f, xp_b, w_f, w_b)
-    check_compute(xp_f.dtype, w_f.dtype)
+    check_kernel_set(xp_f.dtype, w_f.dtype, what="bilstm_infer")
     t_len, batch, four_h = xp_f.shape
     h_f = xp_f.new_empty(t_len, batch, four_h // 4, dtype=torch.float32)
     h_b = torch.empty_like(h_f)
@@ -545,7 +672,7 @@ def bilstm_forward_cuda(xp_f, xp_b, w_f, w_b, residual_dtype=torch.float32):
     kernel rounds them as it stores them; h stays float32)."""
     _check(xp_f, xp_b, w_f, w_b)
     check_residual_dtype(residual_dtype, "bilstm_fwd")
-    check_compute(xp_f.dtype, w_f.dtype, residual_dtype)
+    check_kernel_set(xp_f.dtype, w_f.dtype, residual_dtype, "bilstm_fwd")
     t_len, batch, four_h = xp_f.shape
     h_f = xp_f.new_empty(t_len, batch, four_h // 4, dtype=torch.float32)
     h_b = torch.empty_like(h_f)
@@ -657,9 +784,8 @@ def contract_dw(h, dx, residual_dtype=torch.float32):
     result float32. The rounded operands are widened and multiplied in
     float32: a bfloat16 value fits TF32's mantissa, so the product is the
     same under TF32, and no bfloat16 GEMM rounds the result."""
-    if residual_dtype != torch.float32:
-        h = h.to(residual_dtype).float()
-        dx = dx.to(residual_dtype).float()
+    h = h.to(residual_dtype).float()
+    dx = dx.to(residual_dtype).float()
     return dx.flatten(0, 1).t() @ h.flatten(0, 1)
 
 
@@ -675,37 +801,106 @@ def dw_hh(h_f, h_b, dx_f, dx_b, residual_dtype=torch.float32,
             contract_dw(h_b[1:], dx_b[:-1], residual_dtype).to(w_dtype))
 
 
-def _recurrence_backward(dh_f, dh_b, h_f, h_b, g_f, g_b, c_f, c_b, w_f,
-                         w_b):
+def _streams(w_dtype, residual_dtype) -> dict:
+    """The dtypes of one call's streams at the switches' settings now:
+    h written by the forward, dh read and dx written by the gradient; a
+    Function keeps them from its forward for its backward, as JAX fixes
+    them when it traces the VJP."""
+    return dict(h=_h_stream_dtype(w_dtype, residual_dtype),
+                dh=_dh_stream_dtype(w_dtype, residual_dtype),
+                dx=_grad_stream_dtype(residual_dtype))
+
+
+def kernel_streams(residual_dtype, dh_dtype, dx_dtype) -> torch.dtype:
+    """The residual dtype of the gradient kernel instance that runs a set:
+    the residuals' own where dh and dx share it, as the kernels read and
+    write them; else float32, the residuals widened for the launch and dx
+    rounded after it (the kernels carry d_pre in float32 and round it only
+    where they store dx)."""
+    if dh_dtype == dx_dtype == residual_dtype:
+        return residual_dtype
+    return torch.float32
+
+
+def _narrowed(outs, h_dtype, residual_dtype):
+    """A forward's outputs in the op's dtypes: the h pair in ``h_dtype``,
+    the residuals after them in ``residual_dtype`` (:func:`kernel_set`)."""
+    return (tuple(x.to(h_dtype) for x in outs[:2])
+            + tuple(x.to(residual_dtype) for x in outs[2:]))
+
+
+def _forward(xp_f, xp_b, w_f, w_b, residual_dtype, h_dtype):
+    """The merged forward of any set, on the instance :func:`kernel_set`
+    picks (the kernel on CUDA, the plain version on the CPU): ``(h_f,
+    h_b)`` for ``residual_dtype`` None (the lean forward), else also the
+    residuals, in the op's dtypes."""
+    xd, rd = kernel_set(xp_f.dtype, w_f.dtype, residual_dtype)
+    xps = (xp_f.to(xd), xp_b.to(xd))
+    if residual_dtype is None:
+        run = bilstm_infer_cuda if xp_f.is_cuda else bilstm_sequence_reference
+        outs = run(*xps, w_f, w_b)
+    else:
+        run = bilstm_forward_cuda if xp_f.is_cuda else (
+            bilstm_forward_reference)
+        outs = run(*xps, w_f, w_b, rd)
+    return _narrowed(outs, h_dtype, residual_dtype)
+
+
+def _recurrence_backward(ctx, dh_f, dh_b, h_f, h_b, g_f, g_b, c_f, c_b,
+                         w_f, w_b):
     """The gradient recurrence (the kernel on CUDA, the plain loop on the
-    CPU), then dW_hh: ``(dxp_f, dxp_b, dw_f, dw_b)``, dxp in the
-    residuals' dtype, dW in W's. The cotangents dh enter in the
-    residuals' dtype, as ``_bd_vjp_bwd`` rounds them
-    (pallas_lstm.py:969-972)."""
+    CPU) on the instance :func:`kernel_streams` picks, then dW_hh:
+    ``(dxp_f, dxp_b, dw_f, dw_b)``, dxp in the gradient stream's dtype, dW
+    in W's. The cotangents dh enter rounded to the dh stream's dtype
+    (pallas_lstm.py:969-974); both come from ``ctx.streams``."""
+    rd = g_f.dtype
+    dd, xd = ctx.streams["dh"], ctx.streams["dx"]
+    kd = kernel_streams(rd, dd, xd)
     # the cotangents of torch.cat halves are views (autograd gives an
     # unused output's cotangent as zeros)
-    rd = g_f.dtype
-    dh_f, dh_b = dh_f.to(rd).contiguous(), dh_b.to(rd).contiguous()
+    dhs = [d.to(dd).to(kd).contiguous() for d in (dh_f, dh_b)]
+    res = [x.to(kd) for x in (g_f, g_b, c_f, c_b)]
     run = bilstm_backward_cuda if g_f.is_cuda else bilstm_backward_reference
-    dxp_f, dxp_b = run(dh_f, dh_b, g_f, g_b, c_f, c_b, w_f, w_b)
+    dxp_f, dxp_b = (d.to(xd) for d in run(*dhs, *res, w_f, w_b))
     return (dxp_f, dxp_b) + dw_hh(h_f, h_b, dxp_f, dxp_b, rd, w_f.dtype)
 
 
+def _fused_forward(x, wi_f, wi_b, b_f, b_b, w_f, w_b, residual_dtype,
+                   h_dtype):
+    """The fused forward of any set, as :func:`_forward`: x in W_ih's
+    dtype (:func:`fused_input`); the fused kernel (its plain version on
+    the CPU) where W_ih and W_hh share a dtype, else the projection
+    outside it (:func:`project`) and the merged forward."""
+    xk = fused_input(x, wi_f.dtype)
+    if wi_f.dtype != w_f.dtype:
+        return _forward(project(xk, wi_f, b_f), project(xk, wi_b, b_b),
+                        w_f, w_b, residual_dtype, h_dtype)
+    args = (xk, wi_f, wi_b, b_f, b_b, w_f, w_b)
+    if residual_dtype is None:
+        run = bilstm_fused_infer_cuda if x.is_cuda else (
+            bilstm_sequence_fused_reference)
+        outs = run(*args)
+    else:
+        run = bilstm_fused_forward_cuda if x.is_cuda else (
+            bilstm_fused_forward_reference)
+        outs = run(*args, residual_dtype)
+    return _narrowed(outs, h_dtype, residual_dtype)
+
+
 class BiLSTMFunction(torch.autograd.Function):
-    """``bilstm_sequence`` under autograd: the residual-saving forward
-    (residuals in ``residual_dtype``), and the gradient recurrence plus
-    ``dW_hh`` in the backward, dxp handed back in xp's dtype
-    (pallas_lstm.py:987: bfloat16 where the xp stream is) and dW_hh in
-    W's. CUDA tensors launch the kernels; CPU tensors run the plain
-    versions."""
+    """``bilstm_sequence`` under autograd (``_bd_vjp_fwd``,
+    ``_bd_vjp_bwd``, pallas_lstm.py:954-988): the residual-saving forward
+    (residuals in ``residual_dtype``, h in the h stream's dtype), and the
+    gradient recurrence plus ``dW_hh`` in the backward, dxp handed back in
+    xp's dtype (pallas_lstm.py:987: bfloat16 where the xp stream is) and
+    dW_hh in W's. CUDA tensors launch the kernels; CPU tensors run the
+    plain versions."""
 
     @staticmethod
-    def forward(ctx, xp_f, xp_b, w_f, w_b, residual_dtype=torch.float32):
-        if xp_f.is_cuda:
-            outs = bilstm_forward_cuda(xp_f, xp_b, w_f, w_b, residual_dtype)
-        else:
-            outs = bilstm_forward_reference(xp_f, xp_b, w_f, w_b,
-                                            residual_dtype)
+    def forward(ctx, xp_f, xp_b, w_f, w_b, residual_dtype):
+        ctx.streams = _streams(w_f.dtype, residual_dtype)
+        outs = _forward(xp_f, xp_b, w_f, w_b, residual_dtype,
+                        ctx.streams["h"])
         ctx.xp_dtype = xp_f.dtype
         ctx.save_for_backward(*outs, w_f, w_b)
         return outs[:2]
@@ -714,40 +909,50 @@ class BiLSTMFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dh_f, dh_b):
         dxp_f, dxp_b, dw_f, dw_b = _recurrence_backward(
-            dh_f, dh_b, *ctx.saved_tensors)
+            ctx, dh_f, dh_b, *ctx.saved_tensors)
         return (dxp_f.to(ctx.xp_dtype), dxp_b.to(ctx.xp_dtype), dw_f, dw_b,
                 None)
 
 
-def _dx_in(dxp, wi):
-    """The projection's input gradient of one direction, dxp [T, B, 4H]
-    cast to W_ih's dtype times W_ih [4H, I], summed in float32 (JAX's
-    ``dxin``; products of bfloat16 values are exact in float32)."""
-    return dxp.to(wi.dtype).float() @ wi.float()
+def _dx_in(dxp, wi, dtype):
+    """The projection's input gradient of one direction: dxp [T, B, 4H]
+    and W_ih [4H, I] each rounded to ``dtype``, their products summed in
+    float32 (JAX's ``dxin``: ``dtype`` is W_ih's in the fused VJP, the
+    residuals' in the layer VJP; products of bfloat16 values are exact in
+    float32)."""
+    return dxp.to(dtype).float() @ wi.to(dtype).float()
+
+
+def _projection_backward(dxp_f, dxp_b, x, wi_f, wi_b, rd, dx_dtype):
+    """The projection's gradients as matmuls outside the kernels, as JAX
+    leaves them to XLA: dW_ih = dxp^T x with both operands rounded to the
+    residuals' dtype ``rd`` and the sum to W_ih's (``_dw_contract``), db =
+    the float32 sum of dxp over (t, b), dx = dxp_f W_ih_f + dxp_b W_ih_b
+    (:func:`_dx_in` at ``dx_dtype``) in x's dtype."""
+    dwi_f = contract_dw(x, dxp_f, rd).to(wi_f.dtype)
+    dwi_b = contract_dw(x, dxp_b, rd).to(wi_b.dtype)
+    dx = (_dx_in(dxp_f, wi_f, dx_dtype or wi_f.dtype)
+          + _dx_in(dxp_b, wi_b, dx_dtype or wi_b.dtype)).to(x.dtype)
+    return (dx, dwi_f, dwi_b, dxp_f.float().sum((0, 1)),
+            dxp_b.float().sum((0, 1)))
 
 
 class BiLSTMFusedFunction(torch.autograd.Function):
     """``bilstm_sequence_fused`` under autograd. The forward is the fused
-    residual-saving kernel (the projection inside it) on CUDA, the plain
-    version on the CPU, g and c in ``residual_dtype``; it saves the
-    residuals and x, as ``_bdp_vjp_fwd`` does. The backward
-    (``_bdp_vjp_bwd``, pallas_lstm.py:1414-1448) is the gradient
-    recurrence and dW_hh (:func:`_recurrence_backward`: dh enters and dxp
-    leaves in the residuals' dtype), then the projection's gradients as
-    matmuls outside the kernels, as JAX leaves them to XLA: dW_ih = dxp^T
-    x with both operands rounded to the residuals' dtype and the sum to
-    W_ih's (``_dw_contract``), db = the float32 sum of dxp over (t, b),
-    and dx = dxp_f W_ih_f + dxp_b W_ih_b (:func:`_dx_in`) in x's dtype."""
+    residual-saving kernel (the projection inside it, x in W_ih's dtype;
+    :func:`_fused_forward`) on CUDA, the plain version on the CPU, g and c
+    in ``residual_dtype``; it saves the residuals and x as given, as
+    ``_bdp_vjp_fwd`` does. The
+    backward (``_bdp_vjp_bwd``, pallas_lstm.py:1414-1448) is the gradient
+    recurrence and dW_hh (:func:`_recurrence_backward`), then the
+    projection's gradients (:func:`_projection_backward`, dx's product at
+    W_ih's dtype)."""
 
     @staticmethod
-    def forward(ctx, x, wi_f, wi_b, b_f, b_b, w_f, w_b,
-                residual_dtype=torch.float32):
-        if x.is_cuda:
-            outs = bilstm_fused_forward_cuda(x, wi_f, wi_b, b_f, b_b, w_f,
-                                             w_b, residual_dtype)
-        else:
-            outs = bilstm_fused_forward_reference(x, wi_f, wi_b, b_f, b_b,
-                                                  w_f, w_b, residual_dtype)
+    def forward(ctx, x, wi_f, wi_b, b_f, b_b, w_f, w_b, residual_dtype):
+        ctx.streams = _streams(w_f.dtype, residual_dtype)
+        outs = _fused_forward(x, wi_f, wi_b, b_f, b_b, w_f, w_b,
+                              residual_dtype, ctx.streams["h"])
         ctx.save_for_backward(*outs, x, wi_f, wi_b, w_f, w_b)
         return outs[:2]
 
@@ -757,14 +962,45 @@ class BiLSTMFusedFunction(torch.autograd.Function):
         h_f, h_b, g_f, g_b, c_f, c_b, x, wi_f, wi_b, w_f, w_b = (
             ctx.saved_tensors)
         dxp_f, dxp_b, dw_f, dw_b = _recurrence_backward(
-            dh_f, dh_b, h_f, h_b, g_f, g_b, c_f, c_b, w_f, w_b)
+            ctx, dh_f, dh_b, h_f, h_b, g_f, g_b, c_f, c_b, w_f, w_b)
+        dx, dwi_f, dwi_b, db_f, db_b = _projection_backward(
+            dxp_f, dxp_b, x, wi_f, wi_b, g_f.dtype, None)
+        return dx, dwi_f, dwi_b, db_f, db_b, dw_f, dw_b, None
+
+
+class BiLSTMLayerFunction(torch.autograd.Function):
+    """:func:`bilstm_layer` under autograd (``_layer_vjp_fwd``,
+    ``_layer_vjp_bwd``, pallas_lstm.py:1055-1101). The forward projects x
+    with float32 sums (:func:`project_promoted`), casts each stream to
+    :func:`stream_dtype` (by W_ih's dtype) and runs the residual-saving
+    merged forward; it saves the residuals and x. The backward runs the
+    gradient recurrence and dW_hh (:func:`_recurrence_backward`), then
+    dW_ih with operands rounded to the residual dtype, db the float32 sum,
+    and dx the product of dxp and W_ih both rounded to the residual dtype,
+    summed in float32 (:func:`_projection_backward`)."""
+
+    @staticmethod
+    def forward(ctx, x, wi_f, wi_b, b_f, b_b, w_f, w_b, residual_dtype):
+        ctx.streams = _streams(w_f.dtype, residual_dtype)
+        sd = stream_dtype(wi_f.dtype, residual_dtype)
+        xp_f = project_promoted(x, wi_f, b_f).to(sd).contiguous()
+        xp_b = project_promoted(x, wi_b, b_b).to(sd).contiguous()
+        outs = _forward(xp_f, xp_b, w_f, w_b, residual_dtype,
+                        ctx.streams["h"])
+        ctx.save_for_backward(*outs, x, wi_f, wi_b, w_f, w_b)
+        return outs[:2]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dh_f, dh_b):
+        h_f, h_b, g_f, g_b, c_f, c_b, x, wi_f, wi_b, w_f, w_b = (
+            ctx.saved_tensors)
+        dxp_f, dxp_b, dw_f, dw_b = _recurrence_backward(
+            ctx, dh_f, dh_b, h_f, h_b, g_f, g_b, c_f, c_b, w_f, w_b)
         rd = g_f.dtype
-        rows = x.float()
-        dwi_f = contract_dw(rows, dxp_f.float(), rd).to(wi_f.dtype)
-        dwi_b = contract_dw(rows, dxp_b.float(), rd).to(wi_b.dtype)
-        dx = (_dx_in(dxp_f, wi_f) + _dx_in(dxp_b, wi_b)).to(x.dtype)
-        return (dx, dwi_f, dwi_b, dxp_f.float().sum((0, 1)),
-                dxp_b.float().sum((0, 1)), dw_f, dw_b, None)
+        dx, dwi_f, dwi_b, db_f, db_b = _projection_backward(
+            dxp_f, dxp_b, x, wi_f, wi_b, rd, rd)
+        return dx, dwi_f, dwi_b, db_f, db_b, dw_f, dw_b, None
 
 
 def _device(name: str, args) -> str:
@@ -778,37 +1014,60 @@ def _recording(args) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in args)
 
 
-def bilstm_sequence(xp_f, xp_b, w_f, w_b, residual_dtype=torch.float32):
+def bilstm_sequence(xp_f, xp_b, w_f, w_b, residual_dtype=None):
     """Both BiLSTM directions of one layer; see the module docstring.
     Under autograd the residuals are saved in ``residual_dtype``
-    (``bilstm_sequence``'s argument of the same name in JAX). The dtypes
-    are checked here, on either device (:func:`check_compute`)."""
+    (``bilstm_sequence``'s argument of the same name in JAX; None:
+    :data:`RESIDUAL_DTYPE`). h comes back in :func:`_h_stream_dtype`. The
+    dtypes are checked here, on either device (:func:`check_compute`)."""
     args = (xp_f, xp_b, w_f, w_b)
-    device = _device("bilstm_sequence", args)
+    _device("bilstm_sequence", args)
+    residual_dtype = _resolve_residual(residual_dtype)
     check_residual_dtype(residual_dtype, "bilstm_sequence")
-    recording = _recording(args)
-    check_compute(xp_f.dtype, w_f.dtype,
-                  residual_dtype if recording else None)
-    if recording:
+    check_compute(xp_f.dtype, w_f.dtype)
+    if _recording(args):
         return BiLSTMFunction.apply(*args, residual_dtype)
-    if device == "cuda":
-        return bilstm_infer_cuda(*args)
-    return bilstm_sequence_reference(*args)
+    return _forward(*args, None, _h_stream_dtype(w_f.dtype, residual_dtype))
+
+
+def _check_layer_args(name, args, residual_dtype):
+    _device(name, args)
+    check_residual_dtype(residual_dtype, name)
+    check_fused_compute(*args)
 
 
 def bilstm_sequence_fused(x, wi_f, wi_b, b_f, b_b, w_f, w_b,
-                          residual_dtype=torch.float32):
+                          residual_dtype=None):
     """One BiLSTM layer with its input projection inside the kernel
     (``pallas_lstm.bilstm_sequence_fused``); callers gate on
     :func:`fused_proj_plan`. See the module docstring for layouts and
     dtypes (:func:`check_fused_compute`, checked here on either device).
-    Under autograd the residuals are saved in ``residual_dtype``."""
+    Under autograd the residuals are saved in ``residual_dtype`` (None:
+    :data:`RESIDUAL_DTYPE`)."""
     args = (x, wi_f, wi_b, b_f, b_b, w_f, w_b)
-    device = _device("bilstm_sequence_fused", args)
-    check_residual_dtype(residual_dtype, "bilstm_sequence_fused")
-    check_fused_compute(*args)
+    residual_dtype = _resolve_residual(residual_dtype)
+    _check_layer_args("bilstm_sequence_fused", args, residual_dtype)
     if _recording(args):
         return BiLSTMFusedFunction.apply(*args, residual_dtype)
-    if device == "cuda":
-        return bilstm_fused_infer_cuda(*args)
-    return bilstm_sequence_fused_reference(*args)
+    return _fused_forward(*args, None,
+                          _h_stream_dtype(w_f.dtype, residual_dtype))
+
+
+def bilstm_layer(x, wi_f, wi_b, b_f, b_b, w_f, w_b, residual_dtype=None):
+    """One BiLSTM layer, the projection and the merged recurrence in one
+    op (``pallas_lstm.bilstm_layer``; ``models.layers.LSTM`` routes a
+    layer here under ``LAYER_VJP = "on"``): x [T, B, I], wi [4H, I], b
+    [4H] (float32, b_ih + b_hh), w [4H, H], the fused op's dtypes. Its
+    forward is the composed path's (:func:`project_promoted`, then
+    :func:`bilstm_sequence`); under autograd :class:`BiLSTMLayerFunction`
+    forms the projection's gradients at the residual dtype."""
+    args = (x, wi_f, wi_b, b_f, b_b, w_f, w_b)
+    residual_dtype = _resolve_residual(residual_dtype)
+    _check_layer_args("bilstm_layer", args, residual_dtype)
+    if _recording(args):
+        return BiLSTMLayerFunction.apply(*args, residual_dtype)
+    sd = stream_dtype(wi_f.dtype, residual_dtype)
+    return bilstm_sequence(
+        project_promoted(x, wi_f, b_f).to(sd).contiguous(),
+        project_promoted(x, wi_b, b_b).to(sd).contiguous(), w_f, w_b,
+        residual_dtype)

@@ -30,16 +30,21 @@ loops of ``ops.bilstm``, which take every dtype below.
 
 Precision, as the JAX op's (``lstm_sequence(..., residual_dtype)``,
 pallas_lstm.py:487-567): under autograd the residuals g and c are saved
-in ``residual_dtype``, float32 or bfloat16 (the JAX default); with
-bfloat16 the gradient reads dh rounded to bfloat16 and writes dxp in
-bfloat16, its d_pre carry float32 (``_dh_stream_dtype``,
-``_grad_stream_dtype``); dW_hh rounds h and dxp to the residual dtype and
-sums in float32 (``_dw_contract``), then takes W's dtype; dxp goes back to
-autograd in xp's dtype. bfloat16 compute: ``w`` bfloat16, a step's
-product reads h_{t-1} (the gradient's d_pre) rounded to bfloat16, the
-sums, gates, c and h float32; xp is float32, or bfloat16 where W_hh and
-the residuals both are (``bilstm.stream_dtype``). h is float32
-throughout. Other dtype sets raise (:func:`bilstm.check_compute`).
+in ``residual_dtype``, float32 or bfloat16 (None: ``bilstm.
+RESIDUAL_DTYPE``, bfloat16, the JAX default). ``ops.bilstm``'s four
+stream switches set the rest, as they set the merged op's: dh enters the
+gradient in ``_dh_stream_dtype`` and dxp leaves it in
+``_grad_stream_dtype`` (its d_pre carry float32 either way), h leaves the
+forwards in ``_h_stream_dtype``; dW_hh rounds h and dxp to the residual
+dtype and sums in float32 (``_dw_contract``), then takes W's dtype; dxp
+goes back to autograd in xp's dtype. xp and W_hh are each float32 or
+bfloat16, in any pair (``bilstm.check_compute``): a bfloat16 W_hh makes
+a step's product read h_{t-1} (the gradient's d_pre) rounded to
+bfloat16, a bfloat16 xp is widened where it is read; the sums, gates, c
+and the h carry stay float32. The kernels take the sets the models form;
+the op brings every other one to them by casts that change no value,
+as the merged op does (``bilstm.kernel_set``, ``bilstm.
+kernel_streams``).
 """
 
 from __future__ import annotations
@@ -55,14 +60,18 @@ from speechsplit_tpu_torch.ops.bilstm import (
     _barrier_word,
     _bf16,
     _device,
+    _h_stream_dtype,
     _recording,
+    _resolve_residual,
     _stream,
+    _streams,
     check_compute,
     check_residual_dtype,
     contract_dw,
+    kernel_set,
+    kernel_streams,
     lstm_direction_backward_reference,
     lstm_direction_forward_reference,
-    stream_dtype,
 )
 
 # kernel launches since the last reset, per kernel; the main path's proof
@@ -89,19 +98,17 @@ def lstm_sequence_reference(xp, w, reverse: bool):
 def _check(xp, w, what: str, max_batch: int | None,
            residual_dtype=None) -> None:
     """Type, layout and shape of a forward kernel's inputs; ``max_batch``
-    None for a kernel without a batch limit. The dtype sets the JAX
-    single route forms: W_hh float32 beside a float32 xp; W_hh bfloat16
-    beside a float32 or a bfloat16 xp, and for the residual-saving
-    forward (``residual_dtype`` given) xp in :func:`stream_dtype`. Any
-    other set raises ValueError."""
-    if xp.dtype not in _DTYPES or w.dtype not in _DTYPES or (
-            w.dtype == torch.float32 and xp.dtype != torch.float32) or (
-            residual_dtype is not None
-            and xp.dtype != stream_dtype(w.dtype, residual_dtype)):
+    None for a kernel without a batch limit. The dtype sets the kernels
+    take (``bilstm.kernel_set``): W_hh float32 beside a float32 xp; W_hh
+    bfloat16 beside a float32 or a bfloat16 xp, and for the
+    residual-saving forward (``residual_dtype`` given) xp in the
+    residuals' dtype. Any other set raises ValueError."""
+    if xp.dtype not in _DTYPES or w.dtype not in _DTYPES or kernel_set(
+            xp.dtype, w.dtype, residual_dtype) != (xp.dtype, residual_dtype):
         raise ValueError(
             f"{what} takes xp {xp.dtype} beside W_hh {w.dtype} (residuals "
             f"{residual_dtype}) nowhere: xp is float32, or bfloat16 beside "
-            f"a bfloat16 W_hh (stream_dtype)"
+            f"a bfloat16 W_hh and its residuals (bilstm.kernel_set)"
         )
     _check_shapes(xp, w, what, max_batch)
 
@@ -130,8 +137,8 @@ def _check_shapes(xp, w, what: str, max_batch: int | None) -> None:
 
 def _check_residuals(dh, g, c) -> None:
     """The gradient kernel's residual inputs beside ``g`` [T, B, 4H]: dh,
-    g and c in one residual dtype, float32 or bfloat16 (dh follows the
-    residuals, ``_dh_stream_dtype``)."""
+    g and c in one residual dtype, float32 or bfloat16 (the op brings a
+    dh of another dtype to it, ``bilstm.kernel_streams``)."""
     shape = tuple(g.shape)
     hshape = shape[:2] + (shape[2] // 4,)
     check_residual_dtype(g.dtype, "lstm_bwd")
@@ -263,23 +270,28 @@ def dw_hh(h, dx, reverse: bool, residual_dtype=torch.float32,
 
 
 class LSTMFunction(torch.autograd.Function):
-    """``lstm_sequence`` under autograd: the residual-saving forward
-    (residuals in ``residual_dtype``), and the gradient recurrence plus
-    ``dW_hh`` in the backward, dxp handed back in xp's dtype
-    (pallas_lstm.py:566: bfloat16 where the xp stream is) and dW_hh in
-    W's. CUDA tensors launch the kernels; CPU tensors run the plain
-    versions."""
+    """``lstm_sequence`` under autograd (``_vjp_fwd``, ``_vjp_bwd``,
+    pallas_lstm.py:511-564): the residual-saving forward (residuals in
+    ``residual_dtype``, h in the h stream's dtype), and the gradient
+    recurrence plus ``dW_hh`` in the backward, dh entering in the dh
+    stream's dtype, dxp handed back in xp's dtype (pallas_lstm.py:564:
+    bfloat16 where the xp stream is) and dW_hh in W's. Each runs on the
+    instance ``bilstm.kernel_set`` (``kernel_streams``) picks: CUDA
+    tensors launch the kernels; CPU tensors run the plain versions."""
 
     @staticmethod
-    def forward(ctx, xp, w, reverse, residual_dtype=torch.float32):
+    def forward(ctx, xp, w, reverse, residual_dtype):
+        ctx.streams = _streams(w.dtype, residual_dtype)
+        xd, rd = kernel_set(xp.dtype, w.dtype, residual_dtype)
+        xk = xp.to(xd)
         if xp.is_cuda:
             # the backward's kernel must hold the batch too
-            _check(xp, w, "lstm_sequence under autograd", MAX_BWD_BATCH,
-                   residual_dtype)
-            h, g, c = lstm_forward_cuda(xp, w, reverse, residual_dtype)
+            _check(xk, w, "lstm_sequence under autograd", MAX_BWD_BATCH, rd)
+            h, g, c = lstm_forward_cuda(xk, w, reverse, rd)
         else:
-            h, g, c = lstm_direction_forward_reference(xp, w, reverse,
-                                                       residual_dtype)
+            h, g, c = lstm_direction_forward_reference(xk, w, reverse, rd)
+        h, g, c = (h.to(ctx.streams["h"]), g.to(residual_dtype),
+                   c.to(residual_dtype))
         ctx.reverse = reverse
         ctx.xp_dtype = xp.dtype
         ctx.save_for_backward(h, g, c, w)
@@ -289,31 +301,31 @@ class LSTMFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dh):
         h, g, c, w = ctx.saved_tensors
-        # the cotangent enters in the residuals' dtype, as _vjp_bwd rounds
+        dd, xd = ctx.streams["dh"], ctx.streams["dx"]
+        kd = kernel_streams(g.dtype, dd, xd)
+        # the cotangent enters in the dh stream's dtype, as _vjp_bwd rounds
         # it (pallas_lstm.py:547-551)
-        dh = dh.to(g.dtype).contiguous()
-        if g.is_cuda:
-            dx = lstm_backward_cuda(dh, g, c, w, ctx.reverse)
-        else:
-            dx = lstm_direction_backward_reference(dh, g, c, w, ctx.reverse)
+        dh = dh.to(dd).to(kd).contiguous()
+        run = lstm_backward_cuda if g.is_cuda else (
+            lstm_direction_backward_reference)
+        dx = run(dh, g.to(kd), c.to(kd), w, ctx.reverse).to(xd)
         return (dx.to(ctx.xp_dtype),
                 dw_hh(h, dx, ctx.reverse, g.dtype, w.dtype), None, None)
 
 
-def lstm_sequence(xp, w, reverse: bool = False,
-                  residual_dtype=torch.float32):
+def lstm_sequence(xp, w, reverse: bool = False, residual_dtype=None):
     """One LSTM direction over ``xp``; see the module docstring. Under
     autograd the residuals are saved in ``residual_dtype``
-    (``lstm_sequence``'s argument of the same name in JAX). The dtypes are
-    checked here, on either device (:func:`bilstm.check_compute`: a pair
-    JAX never forms raises naming ROADMAP.md A4c)."""
+    (``lstm_sequence``'s argument of the same name in JAX; None:
+    ``bilstm.RESIDUAL_DTYPE``). h comes back in ``_h_stream_dtype``. The
+    dtypes are checked here, on either device
+    (:func:`bilstm.check_compute`)."""
     _device("lstm_sequence", (xp, w))
+    residual_dtype = _resolve_residual(residual_dtype)
     check_residual_dtype(residual_dtype, "lstm_sequence")
-    recording = _recording((xp, w))
-    check_compute(xp.dtype, w.dtype, residual_dtype if recording else None,
-                  "lstm_sequence")
-    if recording:
+    check_compute(xp.dtype, w.dtype, "lstm_sequence")
+    if _recording((xp, w)):
         return LSTMFunction.apply(xp, w, reverse, residual_dtype)
-    if xp.is_cuda:
-        return lstm_infer_cuda(xp, w, reverse)
-    return lstm_sequence_reference(xp, w, reverse)
+    xk = xp.to(kernel_set(xp.dtype, w.dtype)[0])
+    run = lstm_infer_cuda if xp.is_cuda else lstm_sequence_reference
+    return run(xk, w, reverse).to(_h_stream_dtype(w.dtype, residual_dtype))

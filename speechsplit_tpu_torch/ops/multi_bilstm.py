@@ -10,7 +10,8 @@ together.
 
 Arguments as in the JAX op, its residual dtype a keyword:
 ``multi_bilstm_sequence(n, xp_f0, xp_b0, ..., xp_f{n-1}, xp_b{n-1},
-w_f0, w_b0, ..., w_f{n-1}, w_b{n-1}, residual_dtype=torch.float32)``
+w_f0, w_b0, ..., w_f{n-1}, w_b{n-1}, residual_dtype=None)`` (None:
+``bilstm.RESIDUAL_DTYPE``, bfloat16, the JAX default)
 with ``xp_*`` [T, B, 4H_s] in real time order and ``w_*`` [4H_s, H_s]
 in torch's ``weight_hh_l{k}`` layout. Returns the 2n outputs
 ``(h_f0, h_b0, ...)``, each [T, B, H_s] in real time order.
@@ -29,8 +30,15 @@ bfloat16 compute, as the JAX model's ``streams`` mode feeds the op: each
 bfloat16 beside the H=1 rhythm stream's float32 one, in one call), xp, h
 and dx float32. A direction with a bfloat16 W multiplies h_{t-1} and, in
 the gradient, d_pre rounded to bfloat16, and its dW_hh is rounded to
-bfloat16 (``_dw_contract``). Both plans run it; a bfloat16 xp, a pair
-JAX never forms, raises (ROADMAP.md A4c).
+bfloat16 (``_dw_contract``). Both plans run it. h is float32 at every
+dtype, as JAX's multi-stream op writes it (no stream switch enters).
+
+A bfloat16 xp (JAX's op takes one, though its models feed float32) is
+widened to float32 before the launch, which changes no value: the
+kernels take float32 xp and widen nothing else. JAX hands back a
+float32 cotangent for a bfloat16 xp (pallas_multilstm.py:415-435);
+torch's autograd casts a Function's gradient to its input's dtype, so
+the port's comes back rounded to bfloat16.
 
 Which calls the kernels take at all: :func:`fits` (at most
 ``MAX_DIRECTIONS`` directions, each at most ``MAX_HIDDEN`` wide). The
@@ -54,7 +62,8 @@ from torch.autograd.function import once_differentiable
 
 from speechsplit_tpu_torch.ops import _build
 from speechsplit_tpu_torch.ops.bilstm import (
-    A4C,
+    DTYPES,
+    _resolve_residual,
     check_residual_dtype,
     contract_dw,
     lstm_direction_backward_reference,
@@ -127,20 +136,20 @@ def multi_bilstm_backward_reference(n: int, *args):
 
 
 def compute_plan(xps, ws) -> None:
-    """The dtypes the multi-stream kernels run: xp float32 (the JAX
-    ``streams`` mode keeps it so), each W_hh float32 or bfloat16 on its
-    own (bfloat16 compute), on either plan. A bfloat16 xp raises
-    NotImplementedError naming ROADMAP.md A4c; any other dtype
-    ValueError."""
-    for w in ws:
-        if w.dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"multi_bilstm_sequence: w must be float32 or "
-                             f"bfloat16, got {w.dtype}")
-    if any(xp.dtype == torch.bfloat16 for xp in xps):
-        raise NotImplementedError(
-            "multi_bilstm_sequence runs float32 xp only (the JAX op's "
-            f"streams are float32); bfloat16 ones are {A4C}"
-        )
+    """The dtypes the op takes: each xp and each W_hh float32 or
+    bfloat16 on its own (bfloat16 compute), on either plan; the kernels
+    read xp in float32 (:func:`_check`; the op widens a bfloat16 one).
+    Any other dtype raises ValueError."""
+    for name, group in (("xp", xps), ("w", ws)):
+        for x in group:
+            if x.dtype not in DTYPES:
+                raise ValueError(f"multi_bilstm_sequence: {name} must be "
+                                 f"float32 or bfloat16, got {x.dtype}")
+
+
+def _widened(xps):
+    """The xp streams as the kernels read them, in float32 (exact)."""
+    return tuple(xp.float() for xp in xps)
 
 
 def _check(n: int, xps, ws, xp_float32: bool = True) -> None:
@@ -323,14 +332,17 @@ def _dw(h, dx, reverse: bool, residual_dtype=torch.float32,
 
 
 class MultiBiLSTMFunction(torch.autograd.Function):
-    """``multi_bilstm_sequence`` under autograd; see the module docstring."""
+    """``multi_bilstm_sequence`` under autograd; see the module docstring.
+    The xp cotangents leave float32, and autograd rounds those of
+    bfloat16 xp to bfloat16."""
 
     @staticmethod
     def forward(ctx, n, residual_dtype, *args):
         run = multi_bilstm_forward_cuda if args[0].is_cuda else (
             multi_bilstm_forward_reference)
-        outs = run(n, *args, residual_dtype=residual_dtype)
         d2 = 2 * n
+        outs = run(n, *_widened(args[:d2]), *args[d2:],
+                   residual_dtype=residual_dtype)
         hs = outs[:d2]
         ctx.n = n
         ctx.save_for_backward(*outs, *args[d2:])
@@ -354,15 +366,18 @@ class MultiBiLSTMFunction(torch.autograd.Function):
         return (None, None, *dxs, *dws)
 
 
-def multi_bilstm_sequence(n: int, *args, residual_dtype=torch.float32):
-    """n independent BiLSTMs; see the module docstring."""
+def multi_bilstm_sequence(n: int, *args, residual_dtype=None):
+    """n independent BiLSTMs; see the module docstring. Under autograd
+    the residuals are saved in ``residual_dtype`` (None:
+    ``bilstm.RESIDUAL_DTYPE``)."""
     devices = {x.device.type for x in args}
     if devices not in ({"cuda"}, {"cpu"}):
         raise ValueError(f"multi_bilstm_sequence: tensors on {sorted(devices)}")
+    residual_dtype = _resolve_residual(residual_dtype)
     check_residual_dtype(residual_dtype, "multi_bilstm_sequence")
     compute_plan(*_split(n, args))
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
         return MultiBiLSTMFunction.apply(n, residual_dtype, *args)
-    if devices == {"cuda"}:
-        return multi_bilstm_infer_cuda(n, *args)
-    return multi_bilstm_sequence_reference(n, *args)
+    run = multi_bilstm_infer_cuda if devices == {"cuda"} else (
+        multi_bilstm_sequence_reference)
+    return run(n, *_widened(args[: 2 * n]), *args[2 * n:])

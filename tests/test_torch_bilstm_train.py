@@ -82,7 +82,7 @@ def test_function_grads_match_jax_vjp(h, b):
     want = vjp(tuple(map(jnp.asarray, dh)))  # dxp_f, dxp_b, dw_f, dw_b
     inputs = [_t(x).requires_grad_(True) for x in xp] + [
         _t(x.T).requires_grad_(True) for x in w]
-    got_h = bilstm.bilstm_sequence(*inputs)
+    got_h = bilstm.bilstm_sequence(*inputs, torch.float32)
     assert type(got_h[0].grad_fn).__name__ == "BiLSTMFunctionBackward"
     got = torch.autograd.grad(got_h, inputs, [_t(x) for x in dh])
     for g, r in zip(got_h, outs):

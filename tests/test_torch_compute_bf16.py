@@ -1,7 +1,9 @@
 """bfloat16 compute (``compute_dtype="bfloat16"``): the port's plain
 versions, autograd Functions and layers (CPU) against the JAX package's
-Pallas kernels in interpret mode and its layers, and what still refuses
-it (ROADMAP.md A4c).
+Pallas kernels in interpret mode and its layers, and the dtype pairs
+its models never form (a float32 x and W_ih beside a bfloat16 W_hh in the
+fused op, a bfloat16 xp beside a float32 W_hh or into the multi-stream
+op, a float32 xp beside bfloat16 residuals) against JAX's ops.
 
 At bfloat16 compute W_hh is bfloat16: a step's product reads h_{t-1}
 rounded to bfloat16 (pallas_lstm._cell), the gradient's reads d_pre
@@ -43,7 +45,7 @@ import pytest
 import torch
 
 from speechsplit_tpu.models import layers as jl
-from speechsplit_tpu.ops import pallas_lstm
+from speechsplit_tpu.ops import pallas_lstm, pallas_multilstm
 from speechsplit_tpu_torch.models import layers as tl
 from speechsplit_tpu_torch.ops import bilstm, lstm, multi_bilstm
 from tests.jax_interpret import interpret
@@ -358,10 +360,12 @@ def test_a4c_paths_refuse_bfloat16_compute(monkeypatch):
     both dtypes on the lane plans, and the single-direction route
     (``lstm_sequence``, ``LSTM(bidirectional=False)`` and a BiLSTM layer
     the merged kernels refuse): each output of the float32-W path's shape
-    and dtype. What raises, naming ROADMAP.md A4c, is the dtype pairs JAX
-    never forms: a bfloat16 W_hh beside float32 x and W_ih in the fused
-    op, bfloat16 multi-stream xp, and a bfloat16 merged xp beside a
-    float32 W_hh."""
+    and dtype. The dtype pairs JAX's models never form, which its ops
+    take, run and match JAX's ops at the flip bars: a bfloat16 W_hh
+    beside float32 x and W_ih in the fused op, bfloat16 multi-stream xp,
+    a bfloat16 merged xp beside a float32 W_hh (lean), and a float32 xp
+    beside a bfloat16 W_hh and bfloat16 residuals (under autograd, its
+    gradients too)."""
     rng = np.random.RandomState(5)
     xp = _t(rng.randn(4, 2, 32).astype(np.float32))
     w = _t(rng.randn(32, 8).astype(np.float32)).to(BF16)
@@ -381,11 +385,17 @@ def test_a4c_paths_refuse_bfloat16_compute(monkeypatch):
     for g, r in zip(got, want):
         assert g.dtype == F32
         torch.testing.assert_close(g, r, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-        bilstm.bilstm_sequence_fused(x, wi, wi, b, b, wd, wd)
+    # float32 x and W_ih beside a bfloat16 W_hh: JAX's fused op
+    jw = jnp.asarray(_f32(wd).T).astype(jnp.bfloat16)
+    jx, jwi, jb = (jnp.asarray(_f32(a)) for a in (x, wi.t(), b))
+    for g, r in zip(bilstm.bilstm_sequence_fused(x, wi, wi, b, b, wd, wd),
+                    pallas_lstm.bilstm_sequence_fused(jx, jwi, jwi, jb, jb,
+                                                      jw, jw)):
+        assert_flips_within(g, r, "fused, float32 x and W_ih")
     monkeypatch.setattr(bilstm, "PROJ_FUSION", "auto")
     assert bilstm.fused_proj_plan(4, 2, 8, 5, BF16)
-    layer = tl.LSTM(5, 8, 1, torch.Generator(), dtype=BF16)
+    layer = tl.LSTM(5, 8, 1, torch.Generator(), dtype=BF16,
+                    residual_dtype=F32)
     fused = layer(x.transpose(0, 1))  # the fused route runs it
     monkeypatch.setattr(bilstm, "PROJ_FUSION", "off")
     merged = layer(x.transpose(0, 1))  # the composed merged route runs it
@@ -409,9 +419,13 @@ def test_a4c_paths_refuse_bfloat16_compute(monkeypatch):
     for d, out in enumerate(outs):
         alone = bilstm.lstm_direction_forward_reference(wide, w33, bool(d))
         torch.testing.assert_close(out, alone[0], rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-        multi_bilstm.multi_bilstm_sequence(1, xp.to(BF16), xp.to(BF16),
-                                           w.detach(), w.detach())
+    # a bfloat16 multi-stream xp: JAX's multi-stream op
+    jxp = jnp.asarray(_f32(xp)).astype(jnp.bfloat16)
+    for g, r in zip(multi_bilstm.multi_bilstm_sequence(
+            1, xp.to(BF16), xp.to(BF16), w.detach(), w.detach()),
+            pallas_multilstm.multi_bilstm_sequence(1, None, jxp, jxp, jw,
+                                                   jw)):
+        assert_flips_within(g, r, "multi-stream, bfloat16 xp")
     w32 = w.detach().float()
     # a float32 W_hh of any width beside a bfloat16 one runs, each
     # direction as it runs alone
@@ -419,9 +433,29 @@ def test_a4c_paths_refuse_bfloat16_compute(monkeypatch):
     for d, (x, wd) in enumerate(((xp, w.detach()), (xp, w32))):
         alone = multi_bilstm.multi_bilstm_sequence(1, x, x, wd, wd)[d]
         torch.testing.assert_close(mixed[d], alone, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-        bilstm.bilstm_sequence(xp.to(BF16), xp.to(BF16), w32, w32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-        bilstm.check_compute(F32, BF16, BF16)  # xp must follow residuals
+    # a bfloat16 merged xp beside a float32 W_hh: JAX's merged op
+    jw32 = jnp.asarray(_f32(w32).T)
+    for g, r in zip(bilstm.bilstm_sequence(xp.to(BF16), xp.to(BF16), w32,
+                                           w32),
+                    pallas_lstm.bilstm_sequence(jxp, jxp, jw32, jw32)):
+        assert_flips_within(g, r, "merged, bfloat16 xp")
+    # a float32 xp beside a bfloat16 W_hh and bfloat16 residuals, under
+    # autograd: JAX's merged op and its VJP
+    jxp32 = jnp.asarray(_f32(xp))
+    outs, vjp = jax.vjp(lambda a, b, c, d: pallas_lstm.bilstm_sequence(
+        a, b, c, d, jnp.bfloat16), jxp32, jxp32, jw, jw)
+    dh = rng.randn(*outs[0].shape).astype(np.float32)
+    want = vjp((jnp.asarray(dh), jnp.asarray(dh)))
+    leaves = [xp.clone().requires_grad_(True) for _ in "fb"] + [
+        w.detach().clone().requires_grad_(True) for _ in "fb"]
+    got_h = bilstm.bilstm_sequence(*leaves, BF16)
+    got = torch.autograd.grad(got_h, leaves, [_t(dh)] * 2)
+    for g, r in zip(got_h, outs):
+        assert_flips_within(g, r, "merged, float32 xp, h")
+    for k, (g, r) in enumerate(zip(got, want)):
+        if k < 2:
+            assert_flips_within(g, r, "dxp", ulps=2)
+        else:
+            assert_dw_close(g, _f32(r).T, "dw")
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         bilstm.check_compute(torch.float16, F32)

@@ -98,7 +98,7 @@ def _grads_match(port_op, jax_op, node, b, h=H, i=I):
     outs, vjp = jax.vjp(jax_op, *map(jnp.asarray, args))
     want = vjp(tuple(map(jnp.asarray, dh)))  # dx, dwi_f, dwi_b, db_f, ...
     inputs = _port_args(args, requires_grad=True)
-    got_h = port_op(*inputs)
+    got_h = port_op(*inputs, torch.float32)
     assert type(got_h[0].grad_fn).__name__ == node
     got = torch.autograd.grad(got_h, inputs, [_t(x) for x in dh])
     for g, r in zip(got_h, outs):
@@ -124,7 +124,8 @@ def _lstm_pair(rng, b, layers, in_features=I):
     x = rng.randn(b, T, in_features).astype(np.float32)
     mod = jl.LSTM(H, num_layers=layers, bidirectional=True)
     params = mod.init(jax.random.PRNGKey(4), x)["params"]
-    ours = tl.LSTM(in_features, H, layers, torch.Generator())
+    ours = tl.LSTM(in_features, H, layers, torch.Generator(),
+                   residual_dtype=torch.float32)
     state = {}
     for name, value in params.items():
         kind, side, sfx = name.split("_", 2)
@@ -248,9 +249,18 @@ def test_fused_checks_reject_what_the_kernel_does_not_take():
     bf16 = [a.bfloat16() if k not in (3, 4) else a
             for k, a in enumerate(args)]
     bilstm._check_fused(*bf16)
-    # a mix JAX never forms (it casts x, W_ih and W_hh to one dtype)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bilstm._check_fused(args[0].bfloat16(), *args[1:])
+    # the op takes x, W_ih and W_hh each in either dtype (it streams x in
+    # W_ih's, fused_input, and runs a mixed weight pair on the merged
+    # kernels); the fused kernels take them in one dtype
+    mixed = ((args[0].bfloat16(), *args[1:]),
+             (*args[:5], *(a.bfloat16() for a in args[5:])),
+             (*bf16[:5], *args[5:]))
+    for m in mixed:
+        bilstm.check_fused_compute(*m)
+        with pytest.raises(ValueError, match="in one dtype"):
+            bilstm._check_fused(*m)
+    with pytest.raises(ValueError, match="each weight pair"):
+        bilstm.check_fused_compute(*args[:2], args[2].bfloat16(), *args[3:])
     with pytest.raises(ValueError, match="float32 biases"):
         bilstm._check_fused(*bf16[:3], args[3].bfloat16(), *bf16[4:])
     with pytest.raises(ValueError, match="wi_b"):

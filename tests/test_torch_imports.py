@@ -87,19 +87,37 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_wrappers_refuse_bfloat16_on_cuda_path():
-    """The dtype checks the kernel wrappers make before a launch:
-    bfloat16 compute runs the pairs JAX forms (a bfloat16 W_hh beside
-    float32 or bfloat16 merged streams, float32 multi-stream ones) and
-    refuses the rest naming ROADMAP.md A4c."""
-    xp = torch.zeros(4, 1, 32, dtype=torch.bfloat16)
-    w = torch.zeros(32, 8, dtype=torch.bfloat16)
+    """The dtype checks before a launch: the ops take every
+    float32/bfloat16 set of xp and W_hh, as JAX's ops take them all, and
+    map each onto a set a kernel instance takes (``kernel_set``: the set
+    itself, or xp widened and, beside a bfloat16 W_hh, float32 residuals);
+    the kernel wrappers refuse any other set, and the multi-stream ones a
+    bfloat16 xp (the op widens it); another dtype raises."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    xp = torch.zeros(4, 1, 32, dtype=bf16)
+    w = torch.zeros(32, 8, dtype=bf16)
     bilstm._check(xp, xp, w, w)
-    bilstm.check_compute(xp.dtype, w.dtype)
-    bilstm.check_compute(torch.float32, w.dtype, torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4c"):
-        bilstm.check_compute(xp.dtype, torch.float32)
+    for xp_dtype in (bf16, f32):
+        for w_dtype in (bf16, f32):
+            bilstm.check_compute(xp_dtype, w_dtype)
+            for rd in (None, f32, bf16):
+                kx, kr = bilstm.kernel_set(xp_dtype, w_dtype, rd)
+                bilstm.check_kernel_set(kx, w_dtype, kr)
+                assert kr in (rd, f32)
+                if (kx, kr) != (xp_dtype, rd):
+                    with pytest.raises(ValueError, match="nowhere"):
+                        bilstm.check_kernel_set(xp_dtype, w_dtype, rd)
+    assert bilstm.kernel_set(bf16, f32, bf16) == (f32, bf16)
+    assert bilstm.kernel_set(f32, bf16, bf16) == (f32, f32)
+    assert bilstm.kernel_set(bf16, bf16, None) == (bf16, None)
+    for rd, dh, dx, want in ((bf16, bf16, bf16, bf16), (f32, f32, f32, f32),
+                             (bf16, f32, bf16, f32), (bf16, bf16, f32, f32)):
+        assert bilstm.kernel_streams(rd, dh, dx) == want
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bilstm.check_compute(torch.float16, w.dtype)
+    multi_bilstm.compute_plan((xp, xp.float()), (w, w.float()))
     multi_bilstm._check(1, (xp.float(), xp.float()), (w, w))
-    with pytest.raises(NotImplementedError, match="float32.*ROADMAP.md A4c"):
+    with pytest.raises(ValueError, match="float32 xp"):
         multi_bilstm._check(1, (xp, xp), (w, w))
 
 

@@ -66,7 +66,8 @@ def _lstm_pair(rng, in_features, hidden, layers):
     x = rng.randn(3, 24, in_features).astype(np.float32)
     mod = jl.LSTM(hidden, num_layers=layers, bidirectional=True)
     params = mod.init(jax.random.PRNGKey(2), x)["params"]
-    ours = tl.LSTM(in_features, hidden, layers, _gen())
+    ours = tl.LSTM(in_features, hidden, layers, _gen(),
+                   residual_dtype=torch.float32)
     state = {}
     for name, value in params.items():
         kind, side, sfx = name.split("_", 2)

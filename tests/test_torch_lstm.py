@@ -94,7 +94,7 @@ def test_function_grads_match_jax_vjp(h, reverse):
 
     xp_t = _torch(xp).requires_grad_(True)
     w_t = _torch(w.T.copy()).requires_grad_(True)
-    got_h = lstm.lstm_sequence(xp_t, w_t, reverse)
+    got_h = lstm.lstm_sequence(xp_t, w_t, reverse, torch.float32)
     assert type(got_h.grad_fn).__name__ == "LSTMFunctionBackward"
     got_dxp, got_dw = torch.autograd.grad(got_h, (xp_t, w_t), _torch(dh))
     _close(got_h, want_h)
@@ -127,7 +127,7 @@ def _uni_pair(in_features, hidden, layers, seed):
     mod = jl.LSTM(hidden, num_layers=layers, bidirectional=False)
     params = mod.init(jax.random.PRNGKey(seed), x)["params"]
     ours = tl.LSTM(in_features, hidden, layers, torch.Generator(),
-                   bidirectional=False)
+                   bidirectional=False, residual_dtype=torch.float32)
     ours.load_state_dict(lstm_params_to_state_dict(params), strict=True)
     return x, mod, params, ours
 
@@ -178,7 +178,8 @@ def test_bidirectional_route_follows_merged_bidir_fits(monkeypatch):
     """A BiLSTM layer asks merged_bidir_fits with ``grad`` set as the
     layer will record, and where it is false runs one ``lstm_sequence``
     per direction with the same result as the merged route."""
-    ours = tl.LSTM(6, 8, 2, torch.Generator().manual_seed(1))
+    ours = tl.LSTM(6, 8, 2, torch.Generator().manual_seed(1),
+                   residual_dtype=torch.float32)
     x = torch.from_numpy(np.random.RandomState(6).randn(3, 9, 6).astype(
         np.float32))
     asked = []

@@ -134,7 +134,8 @@ def test_function_grads_match_jax_vjp(streams, b):
     want = vjp(tuple(map(jnp.asarray, dhs)))
     inputs = [_t(x).requires_grad_(True) for x in xs] + [
         _t(w.T).requires_grad_(True) for w in ws]
-    got_h = multi_bilstm.multi_bilstm_sequence(n, *inputs)
+    got_h = multi_bilstm.multi_bilstm_sequence(n, *inputs,
+                                               residual_dtype=torch.float32)
     assert type(got_h[0].grad_fn).__name__ == "MultiBiLSTMFunctionBackward"
     got = torch.autograd.grad(got_h, inputs, [_t(x) for x in dhs])
     for g, r in zip(got_h, outs):

@@ -56,6 +56,19 @@ def _assert_same_state(a, b):
                 i, k)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread: the port's plain loops are many small ops, and
+    with torch's intra-op threads contending with the other test
+    processes for the cores they run many times slower. No check reads
+    the thread count: a run is compared with another at the same count,
+    or with JAX within its stated bar."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_stack_batches_shapes_and_remainder():
     batches = [_batch(s) for s in range(7)]
     stacked = list(stack_batches(iter(batches), 3))

@@ -77,6 +77,19 @@ def interpret_mode(monkeypatch):
     interpret(monkeypatch)
 
 
+@pytest.fixture()
+def one_torch_thread():
+    """One torch thread: the port's plain loops are many small ops, and
+    with torch's intra-op threads contending with the other test
+    processes for the cores they run many times slower. No check reads
+    the thread count: a run is compared with another at the same count,
+    or with JAX within its stated bar."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_the_default_config_is_bfloat16():
     assert (DEF.residual_dtype, DEF.adam_mu_dtype, DEF.grad_dtype,
             DEF.matmul_precision) == ("bfloat16", "bfloat16", "float32",
@@ -296,8 +309,8 @@ def test_jax_bf16_mu_carries_into_the_port():
 
 
 @pytest.mark.parametrize("name", ["speechsplit", "f0_converter"])
-def test_bf16_mu_save_and_resume_equals_the_uninterrupted_run(tmp_path,
-                                                              name):
+def test_bf16_mu_save_and_resume_equals_the_uninterrupted_run(
+        one_torch_thread, tmp_path, name):
     """At the default precision: 3 steps, save, a fresh Solver resumes, 3
     more: bit for bit the 6 uninterrupted steps, mu bfloat16 throughout."""
     cfg = CFG.replace(residual_dtype="bfloat16", adam_mu_dtype="bfloat16")

@@ -152,6 +152,19 @@ def _assert_params_close(model, jparams, name, atol):
                                    atol=atol, rtol=0, err_msg=key)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread: the port's plain loops are many small ops, and
+    with torch's intra-op threads contending with the other test
+    processes for the cores they run many times slower. No check reads
+    the thread count: a run is compared with another at the same count,
+    or with JAX within its stated bar."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("name", ["speechsplit", "f0_converter"])
 def test_solver_steps_match_jax_steps(monkeypatch, tmp_path, name):
     """3 Solver steps against 3 of JAX's raw steps with optax Adam, from
